@@ -1,0 +1,291 @@
+"""
+Initial value solver.
+
+Mirrors dedalus_tpu/core/solvers.py SolverBase and InitialValueSolver for
+the banded SBDF2 path: subproblem enumeration and the pencil system, the
+flat coefficient state, the RHS F(X, t) as (G, R) pencils with grouped
+transforms (ROADMAP K2, plain torch), and step / run_steps. The boundary
+value and eigenvalue solvers, the evaluator and file output are not ported
+yet (ROADMAP M8, M9).
+"""
+
+import logging
+
+import numpy as np
+import torch
+
+from . import subsystems
+from . import timesteppers as timesteppers_module
+from .distributor import Layout
+
+logger = logging.getLogger(__name__)
+
+
+class SolverBase:
+    """Common solver setup: subproblem enumeration and the pencil system."""
+
+    matrix_names = ()
+
+    def __init__(self, problem, matsolver='banded'):
+        self.problem = problem
+        self.dist = problem.dist
+        self.dtype = problem.dtype
+        if matsolver != 'banded':
+            raise NotImplementedError(
+                f"matsolver '{matsolver}' is not ported yet (ROADMAP M8)")
+        self.matsolver = matsolver
+        coupling = problem.matrix_coupling
+        domains = [eq['domain'] for eq in problem.equations]
+        domains += [v.domain for v in problem.LHS_variables]
+        self.coupled, self.subproblems = subsystems.enumerate_subproblems(
+            self.dist, domains, coupling)
+        self.pencil = subsystems.PencilSystem(
+            self.dist, self.subproblems, problem.LHS_variables, problem.equations,
+            list(self.matrix_names))
+
+    @property
+    def state(self):
+        return self.problem.LHS_variables
+
+    def state_flat(self):
+        for f in self.state:
+            f.require_coeff_space()
+            f.change_scales(1)
+        return self.pencil.flatten_fields(self.state)
+
+    def traced_F(self, state_flat, t):
+        """
+        Flat coeff state (+ sim time) -> (G, R) RHS pencils. Binds the state
+        onto the Field objects and evaluates the operator trees, with all
+        grid-space operand prefetches batched into one backward-transform
+        chain and the RHS roots into one forward chain.
+        """
+        self.pencil.unflatten_fields(state_flat, self.state)
+        if self._rhs_uses_time():
+            # A host value copied to the device: only when F reads it
+            self.problem.time.preset_data(self.dist.grid_layout,
+                                          np.full((1,) * self.dist.dim, float(t)))
+        # External (non-state) fields of the RHS trees keep their data
+        ext = self._rhs_external_fields()
+        saved = [(f, f.layout, f.scales, f.data) for f in ext]
+        try:
+            memo = self._grouped_grid_memo()
+            roots = [eq['F'].evaluate(memo) for eq in self.problem.equations]
+            if memo is not None:
+                self._grouped_forward(roots)
+            datas = []
+            for F in roots:
+                F.require_coeff_space()
+                F.change_scales(1)
+                datas.append(F.data)
+            return self.pencil.gather_eq_data(datas)
+        finally:
+            for f, lay, sc, data in saved:
+                f.layout, f.scales, f.data = lay, sc, data
+
+    def _rhs_uses_time(self):
+        cached = getattr(self, '_rhs_time', None)
+        if cached is None:
+            tf = self.problem.time
+            cached = self._rhs_time = any(eq['F'] is tf or eq['F'].has(tf)
+                                          for eq in self.problem.equations)
+        return cached
+
+    def _rhs_external_fields(self):
+        """Field leaves of the RHS trees that are not state variables or the
+        time field (e.g. constant forcing fields)."""
+        cached = getattr(self, '_rhs_external', None)
+        if cached is not None:
+            return cached
+        from .field import Field
+        from .future import Future
+        skip = {id(v) for v in self.state}
+        tf = getattr(self.problem, 'time', None)
+        if tf is not None:
+            skip.add(id(tf))
+        ext, seen = [], set(skip)
+        for eq in self.problem.equations:
+            F = eq['F']
+            if isinstance(F, Future):
+                leaves = F.atoms(Field)
+            elif isinstance(F, Field):
+                leaves = [F]
+            else:
+                leaves = []
+            for fld in leaves:
+                if id(fld) not in seen:
+                    seen.add(id(fld))
+                    ext.append(fld)
+        self._rhs_external = ext
+        return ext
+
+    # --- grouped RHS transforms ---
+
+    @staticmethod
+    def _grid_arg_node_types():
+        from .arithmetic import Add, Multiply, DotProduct
+        from .operators import Power
+        return (Add, Multiply, DotProduct, Power)
+
+    def _grouped_grid_memo(self):
+        """Prefetch every grid-space operand of the RHS trees through ONE
+        batched backward-transform chain per (bases, dealias) group.
+        Returns {id(node): grid Field} for Future.evaluate's memo."""
+        from .field import Field as _Field
+        from .future import Future as _Future
+        GRID_NODES = self._grid_arg_node_types()
+        collect = {}
+
+        def walk(node):
+            if not isinstance(node, _Future):
+                return
+            grid_parent = isinstance(node, GRID_NODES)
+            for a in node.args:
+                if isinstance(a, (_Field, _Future)):
+                    if grid_parent and not isinstance(a, GRID_NODES):
+                        collect.setdefault(id(a), a)
+                    if isinstance(a, _Future):
+                        walk(a)
+
+        for eq in self.problem.equations:
+            walk(eq['F'])
+        if not collect:
+            return None
+        groups = {}
+        for nid, node in collect.items():
+            dom = node.domain
+            if not any(b is not None for b in dom.bases):
+                continue                      # constant-domain: normal path
+            key = (tuple(id(b) for b in dom.bases), tuple(dom.dealias))
+            groups.setdefault(key, []).append(node)
+        memo = {}
+        for (bids, scales), nodes in groups.items():
+            slabs, metas = [], []
+            for n in nodes:
+                # memo=None: collected nodes may nest (u inside grad(u))
+                f = n.evaluate(None) if isinstance(n, _Future) else n
+                if f is n:
+                    f = f.copy()
+                f.require_coeff_space()
+                nc = f.ncomp
+                slabs.append(f.data.reshape((nc,) + tuple(f.data.shape[len(f.tensorsig):])))
+                metas.append((n, f.tensorsig, nc))
+            batch = torch.cat(slabs, dim=0)
+            gdata = self._batched_backward(nodes[0].domain, batch, scales)
+            off = 0
+            for n, ts, nc in metas:
+                part = gdata[off:off + nc]
+                off += nc
+                out = _Field.without_data(
+                    self.dist, bases=[b for b in n.domain.bases if b is not None],
+                    dtype=self.dtype, tensorsig=ts)
+                out.preset_data(
+                    self.dist.grid_layout,
+                    part.reshape(tuple(cs.dim for cs in ts) + tuple(part.shape[1:])),
+                    scales=scales)
+                memo[id(n)] = out
+        return memo or None
+
+    def _batched_backward(self, domain, data, scales):
+        """coeff (B, *cshape) -> grid (B, *gshape at scales), one leading
+        batch axis."""
+        layout = self.dist.coeff_layout
+        while not all(layout.grid_space):
+            gs = list(layout.grid_space)
+            axis = len(gs) - 1 - gs[::-1].index(False)
+            basis = domain.bases[axis]
+            if basis is not None:
+                data = basis.backward_transform(data, 1 + axis, scales[axis], self.dtype)
+            layout = Layout(gs[:axis] + [True] + gs[axis + 1:])
+        return data
+
+    def _grouped_forward(self, roots):
+        """Batch the RHS roots' forward transforms: grid-layout roots with
+        matching (bases, scales) go through one forward chain."""
+        groups = {}
+        for F in roots:
+            if not all(F.layout.grid_space):
+                continue
+            if not any(b is not None for b in F.domain.bases):
+                continue
+            key = (tuple(id(b) for b in F.domain.bases), tuple(F.scales))
+            groups.setdefault(key, []).append(F)
+        for (bids, scales), fields in groups.items():
+            if len(fields) == 1 and fields[0].ncomp == 1:
+                continue                      # nothing to amortize
+            slabs = [F.data.reshape((F.ncomp,) + tuple(F.data.shape[len(F.tensorsig):]))
+                     for F in fields]
+            data = torch.cat(slabs, dim=0)
+            domain = fields[0].domain
+            layout = self.dist.grid_layout
+            while any(layout.grid_space):
+                gs = list(layout.grid_space)
+                axis = gs.index(True)
+                basis = domain.bases[axis]
+                if basis is not None:
+                    data = basis.forward_transform(data, 1 + axis, scales[axis], self.dtype)
+                gs[axis] = False
+                layout = Layout(gs)
+            off = 0
+            for F in fields:
+                nc = F.ncomp
+                part = data[off:off + nc]
+                off += nc
+                F.preset_data(self.dist.coeff_layout,
+                              part.reshape(F.tensor_shape + tuple(part.shape[1:])),
+                              scales=1)
+
+
+class InitialValueSolver(SolverBase):
+    """M.dt(X) + L.X = F: IMEX stepping of all pencils at once on the
+    distributor's device."""
+
+    matrix_names = ('M', 'L')
+
+    def __init__(self, problem, timestepper, enforce_real_cadence=100, **kw):
+        super().__init__(problem, **kw)
+        if isinstance(timestepper, str):
+            timestepper = timesteppers_module.schemes[timestepper]
+        if timestepper not in timesteppers_module.schemes.values():
+            raise NotImplementedError(
+                f"timestepper {timestepper} is not ported yet (ROADMAP M8)")
+        self.timestepper = timestepper(self)
+        self.enforce_real_cadence = enforce_real_cadence
+        self._sim_time = 0.0
+        self.iteration = 0
+
+    @property
+    def sim_time(self):
+        return self._sim_time
+
+    @sim_time.setter
+    def sim_time(self, t):
+        self._sim_time = float(t)
+        self.problem.time['g'] = self._sim_time
+
+    def enforce_hermitian_symmetry(self, fields):
+        """Project out redundant real-dtype mode content by a grid round-trip
+        at dealias scales."""
+        for f in fields:
+            f.change_scales(f.domain.dealias)
+            f.require_grid_space()
+            f.require_coeff_space()
+            f.change_scales(1)
+
+    def step(self, dt):
+        """Advance the system by one timestep."""
+        if dt <= 0 or not np.isfinite(dt):
+            raise ValueError(f"Invalid timestep: {dt}")
+        self.timestepper.step(float(dt))
+        cadence = self.enforce_real_cadence
+        if cadence and self.iteration % cadence < self.timestepper.steps:
+            self.enforce_hermitian_symmetry(self.state)
+        self.iteration += 1
+
+    def run_steps(self, dt, n_steps):
+        """Advance n_steps at fixed dt."""
+        dt, n_steps = float(dt), int(n_steps)
+        self.timestepper.run_steps(dt, n_steps)
+        if self.enforce_real_cadence and n_steps >= self.enforce_real_cadence:
+            self.enforce_hermitian_symmetry(self.state)
+

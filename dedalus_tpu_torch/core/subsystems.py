@@ -1,0 +1,873 @@
+"""
+Subproblems: per-mode-group pencil systems.
+
+Mirrors dedalus_tpu/core/subsystems.py for Cartesian domains with one
+coupled axis:
+
+  * every group gets an identical pencil layout (constant-axis fields occupy
+    width-1 slots in all groups; invalid modes get identity pivots), so each
+    step solves all groups as one batch;
+  * matrices are assembled on the host (scipy), from a few sampled groups
+    when the stacks are polynomial in the group wavenumber;
+  * the banded ordering and block size feed the bordered banded solver;
+  * gather/scatter between the flat coefficient state and the (G, C)
+    pencils are torch index operations on the distributor's device (K3 of
+    the ROADMAP, plain torch for now).
+
+Conditioned equations, slot-split spherical pencils, dense (G, P, P) stacks
+and mesh padding are not ported yet (ROADMAP M8, M11, M12).
+"""
+
+import logging
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from ..utils.general import prod
+from ..utils.config import config
+
+logger = logging.getLogger(__name__)
+
+# Relative tolerance of the sampled polynomial fit against held-out groups
+SAMPLED_FIT_TOL = 1e-10
+
+
+class SeparableMatrixStack:
+    """
+    Exact polynomial-in-group-wavenumber representation of a (G, P, P) pencil
+    stack: A[g] = sum_p ghat[g]^p B_p for generic groups, with exceptional
+    groups (special validity patterns: mean mode, Nyquist) stored exactly.
+    """
+
+    def __init__(self, G, shape, B_sparse, ghat, bad):
+        self.G = G
+        self.shape = shape              # (R, C)
+        self.B = B_sparse               # list of scipy CSR, length d+1
+        self.ghat = np.asarray(ghat)    # (G,)
+        self.bad = dict(bad)            # {g: exact scipy CSR}
+        self.degree = len(B_sparse) - 1
+
+    def weights(self):
+        """(G, d+1) Vandermonde evaluation weights (zeroed on bad groups)."""
+        W = np.vander(self.ghat, self.degree + 1, increasing=True)
+        for g in self.bad:
+            W[g] = 0.0
+        return W
+
+    def group(self, g):
+        """Exact scipy CSR for one group."""
+        if g in self.bad:
+            return self.bad[g]
+        x = self.ghat[g]
+        A = self.B[0].copy()
+        for p in range(1, len(self.B)):
+            A = A + (x ** p) * self.B[p]
+        return A.tocsr()
+
+    def __getitem__(self, g):
+        return self.group(g)
+
+
+class LazyCombined:
+    """
+    Lazy linear combination sum_i c_i * stack_i of the pencil stacks with
+    identity pivots installed, exposed to the banded factorization without
+    ever materializing a dense (G, P, P) array.
+    """
+
+    def __init__(self, pencil, coeffs):
+        self.pencil = pencil
+        self.coeffs = {k: float(v) for k, v in coeffs.items()}
+        self.G = pencil.G
+        self.P = pencil.R
+        self.shape = (self.G, self.P, self.P)
+        self.dtype = pencil.dtype
+
+    def group_sparse(self, g, pivot_pairs=None):
+        """Sparse combined matrix for one group, pivots installed.
+        pivot_pairs overrides the pencil's default invalid row/col pairing."""
+        pencil = self.pencil
+        A = None
+        for name, c in self.coeffs.items():
+            term = c * pencil.matrices_scipy[name][g]
+            A = term if A is None else A + term
+        inv_rows, inv_cols = (pencil.pivot_pairs[g] if pivot_pairs is None
+                              else pivot_pairs[g])
+        if inv_rows.size:
+            piv = sparse.csr_matrix(
+                (np.ones(inv_rows.size), (inv_rows, inv_cols)), shape=A.shape)
+            A = A + piv
+        return A.tocsr()
+
+    def sparse_form(self):
+        """Combined separable sparse form with pivots:
+        (B_sparse list, weights (G,d+1), bad {g: exact CSR}, ghat)."""
+        pencil = self.pencil
+        seps = pencil.separable
+        degree = max(seps[name].degree for name in self.coeffs)
+        Bps = []
+        for p in range(degree + 1):
+            Bp = None
+            for name, c in self.coeffs.items():
+                sN = seps[name]
+                if p <= sN.degree:
+                    term = c * sN.B[p]
+                    Bp = term if Bp is None else Bp + term
+            Bps.append(Bp.tocsr() if Bp is not None
+                       else sparse.csr_matrix((self.P, self.P)))
+        # Bad groups: per-stack exceptions + pivot-pattern deviants
+        bad = set()
+        for name in self.coeffs:
+            bad |= set(seps[name].bad)
+        generic = [g for g in range(self.G) if g not in bad]
+        pat0 = _pivot_key(pencil.pivot_pairs[generic[0]])
+        for g in generic:
+            if _pivot_key(pencil.pivot_pairs[g]) != pat0:
+                bad.add(g)
+        generic = [g for g in range(self.G) if g not in bad]
+        inv_rows, inv_cols = pencil.pivot_pairs[generic[0]]
+        if inv_rows.size:
+            piv = sparse.csr_matrix(
+                (np.ones(inv_rows.size), (inv_rows, inv_cols)),
+                shape=(self.P, self.P))
+            Bps[0] = (Bps[0] + piv).tocsr()
+        ghat = seps[next(iter(self.coeffs))].ghat
+        W = np.vander(ghat, degree + 1, increasing=True)
+        bad_idx = tuple(sorted(bad))
+        for g in bad_idx:
+            W[g] = 0.0
+        bad_mats = {g: self.group_sparse(g) for g in bad_idx}
+        return Bps, W, bad_mats, ghat
+
+    def banded_form(self):
+        """Inputs for the bordered block-tridiagonal solver: the pencil's
+        banded plan plus the combined sparse form (separable when available,
+        else exact per-group with the banded-friendly pivot pairing)."""
+        plan = self.pencil.banded_plan()
+        if plan is None:
+            raise ValueError("pencil has no bordered-banded structure")
+        if self.pencil.separable is not None:
+            Bps, W, bad_mats, _ = self.sparse_form()
+            return dict(B_sparse=Bps, weights=W, bad=bad_mats, **plan)
+        bpairs = self.pencil.banded_pivot_pairs(plan['order'])
+        exact = [self.group_sparse(g, pivot_pairs=bpairs)
+                 for g in range(self.G)]
+        return dict(B_sparse=None, weights=None, bad={}, exact=exact, **plan)
+
+
+def _pivot_key(pair):
+    inv_rows, inv_cols = pair
+    return (tuple(inv_rows.tolist()), tuple(inv_cols.tolist()))
+
+
+class Subproblem:
+    """One mode group: geometry queries used by expression_matrices."""
+
+    def __init__(self, dist, coupled, group, group_wavenumbers):
+        self.dist = dist
+        self.coupled = tuple(coupled)             # per axis
+        self.group = tuple(group)                 # int for separable axes, None for coupled
+        self.group_wavenumbers = group_wavenumbers  # dict axis -> wavenumber (fit coordinate)
+
+    def axis_width(self, basis, axis):
+        if basis is None:
+            return 1
+        if self.coupled[axis]:
+            return basis.coeff_size
+        return basis.group_shape[0]
+
+    def group_slice(self, basis, axis):
+        """Slice of the full coefficient axis corresponding to this group."""
+        if self.coupled[axis] or self.group[axis] is None:
+            return slice(None) if basis is not None else slice(0, 1)
+        if basis is None:
+            return slice(0, 1)
+        gs = basis.group_shape[0]
+        g = self.group[axis]
+        return slice(g * gs, (g + 1) * gs)
+
+    def spatial_size(self, domain):
+        return prod(tuple(self.axis_width(domain.bases[i], i)
+                          for i in range(self.dist.dim)))
+
+    def field_size(self, operand):
+        ncomp = prod(tuple(cs.dim for cs in operand.tensorsig)) or 1
+        return ncomp * self.spatial_size(operand.domain)
+
+    def valid_mask(self, domain, tensorsig):
+        """Boolean mask over the pencil entries of a field/equation
+        (component-major, matching the pencil layout)."""
+        ncomp = prod(tuple(cs.dim for cs in tensorsig)) or 1
+        axis_masks = []
+        for axis in range(self.dist.dim):
+            basis = domain.bases[axis]
+            if basis is None:
+                if self.coupled[axis] or self.group[axis] is None:
+                    axis_masks.append(np.ones(1, dtype=bool))
+                else:
+                    # Constant along a separable axis: valid only in group 0
+                    axis_masks.append(np.array([self.group[axis] == 0]))
+            elif self.coupled[axis]:
+                axis_masks.append(basis.valid_coeff_mask(tensorsig))
+            else:
+                axis_masks.append(basis.group_valid_mask(self.group[axis], tensorsig))
+        mask = axis_masks[0]
+        for m in axis_masks[1:]:
+            mask = np.outer(mask, m).ravel()
+        return np.concatenate([mask] * ncomp)
+
+
+def enumerate_subproblems(dist, domains, coupling):
+    """
+    Enumerate mode groups over the separable axes present in the given domains.
+    Returns (coupled flags, list of Subproblem).
+    """
+    dim = dist.dim
+    coupled = [bool(coupling[i]) for i in range(dim)]
+    axis_bases = [None] * dim
+    for domain in domains:
+        for i, b in enumerate(domain.bases):
+            if b is not None:
+                if axis_bases[i] is not None and axis_bases[i].coeff_size != b.coeff_size:
+                    raise ValueError("Mismatched basis sizes along axis")
+                if axis_bases[i] is None:
+                    axis_bases[i] = b
+    group_counts = []
+    for i in range(dim):
+        if coupled[i] or axis_bases[i] is None:
+            group_counts.append(1)
+        else:
+            gs = axis_bases[i].group_shape[0]
+            group_counts.append(axis_bases[i].coeff_size // gs)
+    subproblems = []
+    for flat in range(prod(group_counts)):
+        idx = []
+        rem = flat
+        for count in reversed(group_counts):
+            idx.append(rem % count)
+            rem //= count
+        idx = idx[::-1]
+        group = []
+        wavenumbers = {}
+        for i in range(dim):
+            if coupled[i]:
+                group.append(None)
+            elif axis_bases[i] is None:
+                group.append(0)
+            else:
+                group.append(idx[i])
+                basis = axis_bases[i]
+                if hasattr(basis, 'wavenumbers'):
+                    gs = basis.group_shape[0]
+                    wavenumbers[i] = float(np.asarray(basis.wavenumbers)[idx[i] * gs])
+        subproblems.append(Subproblem(dist, coupled, group, wavenumbers))
+    return coupled, subproblems
+
+
+class PencilSystem:
+    """
+    The assembled batched pencil system for a solver:
+      - index maps between concatenated field coefficients and (G, P) pencils
+      - the named matrix stacks (M, L) in sparse or separable form
+      - validity masks and identity-pivot bookkeeping
+    """
+
+    def __init__(self, dist, subproblems, variables, equations, matrix_names,
+                 dtype=None):
+        self.dist = dist
+        self.subproblems = subproblems
+        self.variables = variables
+        self.equations = equations
+        self.matrix_names = matrix_names
+        if dtype is None:
+            dtype = np.result_type(*[eq['dtype'] for eq in equations])
+        self.dtype = np.dtype(dtype)
+        self._build_layout()
+        self.build_matrices(matrix_names)
+
+    # --- layout ---
+
+    def _build_layout(self):
+        sp0 = self.subproblems[0]
+        if any((eq.get('condition') or 'True') != 'True' for eq in self.equations):
+            raise NotImplementedError(
+                "conditioned equations are not ported yet (ROADMAP M8)")
+        # Variable (column) layout
+        self.var_sizes = [sp0.field_size(v) for v in self.variables]
+        self.var_offsets = np.concatenate([[0], np.cumsum(self.var_sizes)]).astype(int)
+        self.C = int(self.var_offsets[-1])
+        # Equation (row) layout
+        self.eq_sizes = [self._eq_size(sp0, eq) for eq in self.equations]
+        self.eq_offsets = np.concatenate([[0], np.cumsum(self.eq_sizes)]).astype(int)
+        self.R = int(self.eq_offsets[-1])
+        if self.R != self.C:
+            raise ValueError(
+                f"Pencil system is not square: {self.R} equation rows vs {self.C} "
+                f"variable columns. Check boundary conditions and gauge conditions.")
+        # Field coefficient flat offsets (for the concatenated state vector)
+        self.state_sizes = [int(np.prod(self._coeff_shape(v))) for v in self.variables]
+        self.state_offsets = np.concatenate([[0], np.cumsum(self.state_sizes)]).astype(int)
+        self.state_total = int(self.state_offsets[-1])
+        G = len(self.subproblems)
+        self.G = G
+        self.var_index_map = np.zeros((G, self.C), dtype=np.int32)
+        for g, sp in enumerate(self.subproblems):
+            col = 0
+            for v_i, var in enumerate(self.variables):
+                idxs = self._domain_pencil_indices(sp, var.domain, var.tensorsig)
+                n = idxs.size
+                self.var_index_map[g, col:col + n] = idxs + self.state_offsets[v_i]
+                col += n
+        # Equation (row) index maps into per-equation F coefficient data
+        self.eq_index_maps = []
+        for eq in self.equations:
+            maps = np.zeros((G, self._eq_size(sp0, eq)), dtype=np.int32)
+            for g, sp in enumerate(self.subproblems):
+                maps[g, :] = self._domain_pencil_indices(sp, eq['domain'], eq['tensorsig'])
+            self.eq_index_maps.append(maps)
+        # Validity masks
+        self.col_valid = np.zeros((G, self.C), dtype=bool)
+        self.row_valid = np.zeros((G, self.R), dtype=bool)
+        for g, sp in enumerate(self.subproblems):
+            col = 0
+            for var in self.variables:
+                m = sp.valid_mask(var.domain, var.tensorsig)
+                self.col_valid[g, col:col + m.size] = m
+                col += m.size
+            for e_i, eq in enumerate(self.equations):
+                m = sp.valid_mask(eq['domain'], eq['tensorsig'])
+                r0 = self.eq_offsets[e_i]
+                self.row_valid[g, r0:r0 + m.size] = m
+        nrow = self.row_valid.sum(axis=1)
+        ncol = self.col_valid.sum(axis=1)
+        if not np.array_equal(nrow, ncol):
+            bad = np.nonzero(nrow != ncol)[0][:5]
+            raise ValueError(
+                f"Valid modes not square in groups {bad}: rows {nrow[bad]} vs cols {ncol[bad]}")
+        # Device copies (masks as float64 multipliers)
+        dev = self.dist.device
+        self.var_index_map_dev = torch.as_tensor(self.var_index_map.astype(np.int64), device=dev)
+        self.row_valid_dev = torch.as_tensor(self.row_valid.astype(np.float64), device=dev)
+        self.col_valid_dev = torch.as_tensor(self.col_valid.astype(np.float64), device=dev)
+        self._gs_plan = _build_gs_plan(self.var_index_map, self.col_valid,
+                                       self.state_total, dev)
+        self._eq_plans = []
+        for m in self.eq_index_maps:
+            total = int(m.max()) + 1 if m.size else 0
+            self._eq_plans.append(_build_gs_plan(m, np.ones(m.shape, dtype=bool),
+                                                 total, dev))
+        self._eq_index_maps_dev = [torch.as_tensor(m.astype(np.int64), device=dev)
+                                   for m in self.eq_index_maps]
+
+    def _coeff_shape(self, field):
+        shape = tuple(cs.dim for cs in field.tensorsig)
+        shape += tuple(b.coeff_size if b is not None else 1 for b in field.domain.bases)
+        return shape
+
+    def _eq_size(self, sp, eq):
+        ncomp = prod(tuple(cs.dim for cs in eq['tensorsig'])) or 1
+        return ncomp * sp.spatial_size(eq['domain'])
+
+    def _domain_pencil_indices(self, sp, domain, tensorsig):
+        """Flat indices (into the field's flattened coeff data) of this group's pencil."""
+        dim = self.dist.dim
+        axis_indices = []
+        for axis in range(dim):
+            basis = domain.bases[axis]
+            sl = sp.group_slice(basis, axis)
+            size = basis.coeff_size if basis is not None else 1
+            axis_indices.append(np.arange(size)[sl])
+        idx = axis_indices[-1].astype(np.int64)
+        for axis in range(dim - 2, -1, -1):
+            size_inner = 1
+            for a2 in range(axis + 1, dim):
+                b2 = domain.bases[a2]
+                size_inner *= b2.coeff_size if b2 is not None else 1
+            idx = (axis_indices[axis][:, None] * size_inner + idx[None, :]).ravel()
+        spatial_total = 1
+        for b in domain.bases:
+            spatial_total *= b.coeff_size if b is not None else 1
+        ncomp = prod(tuple(cs.dim for cs in tensorsig)) or 1
+        if ncomp > 1:
+            idx = (np.arange(ncomp)[:, None] * spatial_total + idx[None, :]).ravel()
+        return idx.astype(np.int32)
+
+    # --- matrices (host) ---
+
+    def assemble_group(self, g, names):
+        """Assemble the named matrices for ONE group as masked scipy CSR."""
+        sp = self.subproblems[g]
+        R, C = self.R, self.C
+        Dr = sparse.diags(self.row_valid[g].astype(self.dtype))
+        Dc = sparse.diags(self.col_valid[g].astype(self.dtype))
+        out = {}
+        for name in names:
+            rows, cols, vals = [], [], []
+            for e_i, eq in enumerate(self.equations):
+                expr = eq.get(name)
+                if expr is None or (isinstance(expr, (int, float)) and expr == 0):
+                    continue
+                mats = expr.expression_matrices(sp, self.variables)
+                r0 = self.eq_offsets[e_i]
+                for v_i, var in enumerate(self.variables):
+                    if var in mats:
+                        m = sparse.coo_matrix(mats[var])
+                        rows.append(m.row + r0)
+                        cols.append(m.col + self.var_offsets[v_i])
+                        vals.append(m.data)
+            if rows:
+                A = sparse.csr_matrix(
+                    (np.concatenate(vals),
+                     (np.concatenate(rows), np.concatenate(cols))),
+                    shape=(R, C), dtype=self.dtype)
+            else:
+                A = sparse.csr_matrix((R, C), dtype=self.dtype)
+            A = (Dr @ A @ Dc).tocsr()
+            A.eliminate_zeros()
+            out[name] = A
+        return out
+
+    def build_matrices(self, names):
+        """Per-group host matrices: sampled separable assembly when the group
+        count allows it, else exact assembly of every group."""
+        G = self.G
+        # Identity pivots pairing invalid rows with invalid columns
+        self.pivot_pairs = []
+        for g in range(G):
+            inv_rows = np.nonzero(~self.row_valid[g])[0]
+            inv_cols = np.nonzero(~self.col_valid[g])[0]
+            self.pivot_pairs.append((inv_rows, inv_cols))
+        self.separable = None
+        if G >= config.getint('matrix assembly', 'sampled_min_groups'):
+            self.separable = self._try_sampled_assembly(names)
+        if self.separable is not None:
+            self.matrices_scipy = {name: self.separable[name] for name in names}
+        else:
+            groups = [self.assemble_group(g, names) for g in range(G)]
+            self.matrices_scipy = {name: [grp[name] for grp in groups]
+                                   for name in names}
+
+    def _try_sampled_assembly(self, names):
+        """
+        Assemble only sampled groups and fit A[g] = sum_p ghat^p B_p exactly
+        (entries of Fourier-separable stacks are polynomials in the group
+        wavenumber). Validated against held-out groups; returns None (full
+        assembly) on any mismatch. Exceptional groups (deviant validity
+        patterns: mean mode, Nyquist) are assembled exactly.
+        """
+        G = self.G
+        tol = SAMPLED_FIT_TOL
+        pat_keys = {}
+        for g in range(G):
+            key = (self.row_valid[g].tobytes(), self.col_valid[g].tobytes())
+            pat_keys.setdefault(key, []).append(g)
+        majority = max(pat_keys.values(), key=len)
+        special = sorted(set(range(G)) - set(majority))
+        generic = majority
+        max_degree = 6
+        if len(generic) < max_degree + 4 or len(special) > min(G // 4, 32):
+            return None
+        # Fit coordinate: the group wavenumber when exactly one separable
+        # axis carries wavenumbers, else the group index.
+        wns = [list(sp.group_wavenumbers.values()) for sp in self.subproblems]
+        if all(len(w) == 1 for w in wns):
+            k = np.asarray([w[0] for w in wns], dtype=float)
+            span = max(k.max() - k.min(), 1e-300)
+            ghat = -1 + 2 * (k - k.min()) / span
+        else:
+            ghat = np.linspace(-1, 1, G)
+        # Fit samples spread over the generic groups + 2 held-out validators
+        order = sorted(range(len(generic)), key=lambda i: ghat[generic[i]])
+        generic_sorted = [generic[i] for i in order]
+        idx = np.linspace(0, len(generic_sorted) - 1, max_degree + 1).round().astype(int)
+        fit_groups = [generic_sorted[i] for i in sorted(set(idx))]
+        val_pool = [g for g in generic_sorted if g not in fit_groups]
+        val_groups = [val_pool[len(val_pool) // 3], val_pool[2 * len(val_pool) // 3]]
+        assembled = {g: self.assemble_group(g, names)
+                     for g in set(fit_groups) | set(val_groups) | set(special)}
+        out = {}
+        for name in names:
+            # Union sparsity pattern over the fit samples
+            U = sum(abs(assembled[g][name]) for g in fit_groups).tocsr()
+            U.sum_duplicates()
+            U.sort_indices()
+            Ucoo = U.tocoo()
+
+            def aligned_vals(A):
+                return np.asarray(A[Ucoo.row, Ucoo.col]).ravel()
+
+            fit_vals = np.stack([aligned_vals(assembled[g][name])
+                                 for g in fit_groups])  # (nfit, nnz)
+            scale = max(np.abs(fit_vals).max(), 1e-300)
+            sep = None
+            for d in range(1, max_degree + 1):
+                sub = sorted(set(np.linspace(0, len(fit_groups) - 1, d + 1).round().astype(int)))
+                if len(sub) < d + 1:
+                    continue
+                gs = [fit_groups[i] for i in sub]
+                V = np.vander(ghat[gs], d + 1, increasing=True)
+                try:
+                    Vi = np.linalg.inv(V)
+                except np.linalg.LinAlgError:
+                    continue
+                Bvals = Vi @ fit_vals[sub]  # (d+1, nnz)
+                ok = True
+                for g in fit_groups + val_groups:
+                    w = np.vander(ghat[[g]], d + 1, increasing=True)[0]
+                    recon = w @ Bvals
+                    if np.abs(recon - aligned_vals(assembled[g][name])).max() > tol * scale:
+                        ok = False
+                        break
+                if ok:
+                    B_sparse = [sparse.csr_matrix(
+                        (Bvals[p], (Ucoo.row, Ucoo.col)), shape=U.shape)
+                        for p in range(d + 1)]
+                    bad = {g: assembled[g][name] for g in special}
+                    sep = SeparableMatrixStack(G, U.shape, B_sparse, ghat, bad)
+                    break
+            if sep is None:
+                logger.info(f"Sampled assembly: stack '{name}' is not "
+                            f"polynomial in the group index; full assembly")
+                return None
+            out[name] = sep
+        logger.info(
+            f"Sampled separable assembly: {len(assembled)} of {G} groups "
+            f"assembled (degrees {[out[n].degree for n in names]}, "
+            f"{len(special)} exceptional)")
+        return out
+
+    # --- banded structure ---
+
+    def banded_pivot_pairs(self, order):
+        """Invalid row/col pivot pairing sorted by permuted position, so the
+        identity pivots of the exact per-group path sit on the band
+        diagonal (cached per ordering identity)."""
+        key = id(order)
+        cache = getattr(self, '_banded_pivot_cache', None)
+        if cache is not None and cache[0] == key:
+            return cache[1]
+        rp, cp = order['row_perm'], order['col_perm']
+        nbord = order['n_border']
+        P = cp.size
+        rinv = np.empty(rp.size, dtype=np.int64)
+        rinv[rp] = np.arange(rp.size)
+        cinv = np.empty(cp.size, dtype=np.int64)
+        cinv[cp] = np.arange(cp.size)
+        pairs = []
+        for ir, ic in self.pivot_pairs:
+            rpos, cpos = rinv[ir], cinv[ic]
+            # Border rows pair with border columns
+            rb = rpos < nbord
+            cb = (cpos < nbord) if order.get('bcol_first') else (cpos >= P - nbord)
+            ir_b = ir[rb][np.argsort(rpos[rb], kind='stable')]
+            ic_b = ic[cb][np.argsort(cpos[cb], kind='stable')]
+            ir_i = ir[~rb][np.argsort(rpos[~rb], kind='stable')]
+            ic_i = ic[~cb][np.argsort(cpos[~cb], kind='stable')]
+            nB = min(ir_b.size, ic_b.size)
+            out_r = np.concatenate([ir_b[:nB], ir_i, ir_b[nB:]])
+            out_c = np.concatenate([ic_b[:nB], ic_i, ic_b[nB:]])
+            pairs.append((out_r, out_c))
+        self._banded_pivot_cache = (key, pairs)
+        return pairs
+
+    def banded_plan(self):
+        """Mode-major ordering + block size for bordered-banded solves, or
+        None when the structure does not apply (cached)."""
+        if hasattr(self, '_banded_plan'):
+            return self._banded_plan
+        from ..ops import banded as ops_banded
+        plan = None
+        order = banded_order(self)
+        pat = None
+        if order is not None and self.separable is not None:
+            # Union pattern over all stacks + generic pivots + bad groups
+            for name, sep in self.separable.items():
+                for Bp in sep.B:
+                    pat = abs(Bp) if pat is None else pat + abs(Bp)
+                for g, Ag in sep.bad.items():
+                    pat = pat + abs(Ag)
+        elif order is not None:
+            # Exact per-group matrices: union pattern over sampled groups
+            samples = sorted(set(np.linspace(0, self.G - 1,
+                                             min(self.G, 32)).astype(int)))
+            for name, mats in self.matrices_scipy.items():
+                for g in samples:
+                    term = abs(mats[g])
+                    pat = term if pat is None else pat + term
+        if order is not None and pat is not None:
+            # Pivot entries for every group, with both pairings, so the
+            # measured bandwidth covers them
+            bpairs = list(self.banded_pivot_pairs(order)) + list(self.pivot_pairs)
+            prows = np.concatenate([ir for ir, _ in bpairs] or [np.zeros(0, int)])
+            pcols = np.concatenate([ic for _, ic in bpairs] or [np.zeros(0, int)])
+            if prows.size:
+                pat = pat + sparse.csr_matrix(
+                    (np.ones(prows.size), (prows, pcols)), shape=pat.shape)
+            nb = max(ops_banded.measure_bandwidth(pat.tocsr(), order), 4)
+            # Banded pays off once the core spans at least a few blocks
+            if 0 < 3 * nb <= order['n_core']:
+                plan = dict(order=order, nb=nb)
+        self._banded_plan = plan
+        return plan
+
+    def banded_stack(self, name):
+        """BandedBlocks form of a raw (unpivoted) named stack (M or L)."""
+        from ..ops import banded as ops_banded
+        plan = self.banded_plan()
+        if self.separable is not None:
+            sep = self.separable[name]
+            return ops_banded.build_banded_blocks(
+                list(sep.B), sep.weights(), dict(sep.bad), plan['order'], plan['nb'])
+        return ops_banded.build_banded_blocks(
+            None, None, None, plan['order'], plan['nb'],
+            exact=list(self.matrices_scipy[name]))
+
+    def banded_operator(self, name):
+        """Cached device operator for a named stack, shared between the
+        step's M/L applies and the banded solver's exact refinement applies.
+        Separable pencils get the SeparableBandedOperator (d+1 shared parts
+        plus per-group weights); exact per-group pencils the BandedOperator."""
+        from ..ops import banded as ops_banded
+        if not hasattr(self, '_banded_ops'):
+            self._banded_ops = {}
+        if name not in self._banded_ops:
+            plan = self.banded_plan()
+            device = self.dist.device
+            sep = self.separable[name] if self.separable is not None else None
+            if sep is not None:
+                parts = [ops_banded.build_banded_blocks(
+                             None, None, None, plan['order'], plan['nb'],
+                             exact=[Bp])
+                         for Bp in sep.B]
+                bad = None
+                if sep.bad:
+                    bad_idx = tuple(sorted(sep.bad))
+                    bad_blocks = ops_banded.build_banded_blocks(
+                        None, None, None, plan['order'], plan['nb'],
+                        exact=[sep.bad[g] for g in bad_idx])
+                    bad = (bad_idx, bad_blocks)
+                self._banded_ops[name] = ops_banded.SeparableBandedOperator(
+                    parts, sep.weights(), plan['order'], plan['nb'], device, bad=bad)
+            else:
+                self._banded_ops[name] = ops_banded.BandedOperator(
+                    self.banded_stack(name), device)
+        return self._banded_ops[name]
+
+    # --- gather / scatter (device) ---
+
+    def gather_state(self, state_flat):
+        """(state_total,) -> (G, C) pencil matrix. Invalid entries are
+        masked (their matrix columns are structurally zero)."""
+        if self._gs_plan is not None:
+            X = _plan_gather(self._gs_plan, state_flat)
+        else:
+            X = state_flat[self.var_index_map_dev]
+        return X * self.col_valid_dev
+
+    def scatter_state(self, X):
+        """(G, C) -> (state_total,) (invalid entries are zero so adds are safe)."""
+        plan = self._gs_plan
+        if plan is not None and plan['scatter_ok']:
+            return _plan_scatter(plan, X, self.state_total)
+        out = torch.zeros(self.state_total, dtype=X.dtype, device=X.device)
+        return out.index_add_(0, self.var_index_map_dev.reshape(-1), X.reshape(-1))
+
+    def flatten_fields(self, fields):
+        return torch.cat([f.data.reshape(-1) for f in fields])
+
+    def unflatten_fields(self, state_flat, fields):
+        """Bind pieces of the flat state back onto the Field objects (coeff layout)."""
+        for f, off, size in zip(fields, self.state_offsets, self.state_sizes):
+            data = state_flat[off:off + size].reshape(self._coeff_shape(f))
+            f.scales = tuple(1.0 for _ in range(self.dist.dim))
+            f.preset_data(self.dist.coeff_layout, data)
+
+    def gather_eq_data(self, eq_datas):
+        """Per-equation coeff data arrays -> (G, R) RHS pencils."""
+        cols = []
+        for data, idx_map, plan in zip(eq_datas, self._eq_index_maps_dev,
+                                       self._eq_plans):
+            flat = data.reshape(-1)
+            cols.append(_plan_gather(plan, flat) if plan is not None
+                        else flat[idx_map])
+        return torch.cat(cols, dim=1) * self.row_valid_dev
+
+
+def _build_gs_plan(idx, valid, total, device):
+    """Decompose a (G, C) flat index map as strided windows + one shared
+    column permutation (+ broadcast columns), so the gather is contiguous
+    reshapes of state windows plus a take along the column axis with a
+    shared index vector (see dedalus_tpu.core.subsystems._build_gs_plan).
+
+    Returns a plan dict (host arrays plus their device copies) or None when
+    the map is not affine in the group index. Validated exactly against the
+    affine reconstruction at every valid entry.
+    """
+    G, C = idx.shape
+    if G < 2 or C == 0 or total <= 0:
+        return None
+    idxr = idx.astype(np.int64)
+    vr = valid
+    i0 = idxr[0].copy()
+    s = (idxr[1] - idxr[0]).astype(np.int64)
+    any_valid = vr.any(axis=0)
+    i0[~any_valid] = 0
+    s[~any_valid] = 0
+    if (s < 0).any() or (i0 < 0).any():
+        return None
+    g_ar = np.arange(G, dtype=np.int64)[:, None]
+    recon = i0[None, :] + g_ar * s[None, :]
+    if not np.array_equal(np.where(vr, recon, 0), np.where(vr, idxr, 0)):
+        return None
+    if recon.max(initial=0) >= total:
+        return None
+    # Windows: per stride value, cluster the base indices into [w, w+s) bins
+    windows = []                      # (w, s)
+    colmap = np.empty(C, dtype=np.int64)
+    y_off = 0
+    win_cols = np.nonzero(s > 0)[0]
+    for sv in sorted(set(s[win_cols].tolist())):
+        cols = win_cols[s[win_cols] == sv]
+        order = cols[np.argsort(i0[cols], kind='stable')]
+        w = None
+        for c in order:
+            b = int(i0[c])
+            if w is None or b >= w + sv:
+                if w is not None:
+                    y_off += sv
+                w = b
+                if w + G * sv > total:
+                    return None
+                windows.append((w, int(sv)))
+            colmap[c] = y_off + (b - w)
+        if w is not None:
+            y_off += sv
+    C0 = y_off
+    bcast_cols = np.nonzero(s == 0)[0]
+    bidx = i0[bcast_cols]
+    colmap[bcast_cols] = C0 + np.arange(bcast_cols.size)
+    nbc = bcast_cols.size
+    # The scatter must land every entry where the generic map would: require
+    # the affine model at ALL entries, disjoint windows, injective columns.
+    scatter_ok = np.array_equal(recon, idxr)
+    wsorted = sorted(windows)
+    for (w1, s1), (w2, _) in zip(wsorted, wsorted[1:]):
+        if w2 < w1 + G * s1:
+            scatter_ok = False
+    for b in bidx:
+        for w, sv in wsorted:
+            if w <= b < w + G * sv:
+                scatter_ok = False
+    counts = np.bincount(colmap[win_cols], minlength=C0)
+    if counts.max(initial=0) > 1:
+        scatter_ok = False
+    invmap = np.zeros(C0, dtype=np.int64)
+    invmask = np.zeros(C0, dtype=bool)
+    invmap[colmap[win_cols]] = win_cols
+    invmask[colmap[win_cols]] = True
+    identity = (nbc == 0 and C0 == C and np.array_equal(colmap, np.arange(C)))
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+    return dict(windows=windows, G=G,
+                identity=identity, scatter_ok=scatter_ok,
+                colmap=t(colmap),
+                bidx=t(bidx) if nbc else None,
+                bcast_cols=t(bcast_cols.astype(np.int64)) if nbc else None,
+                invmap=t(invmap),
+                invmask=t(invmask.astype(np.float64)))
+
+
+def _plan_gather(plan, flat):
+    """Apply a structured plan: flat (total,) -> (G, C) pencil matrix."""
+    G = plan['G']
+    parts = [flat[w:w + G * s].reshape(G, s) for (w, s) in plan['windows']]
+    if plan['bidx'] is not None:
+        parts.append(flat[plan['bidx']].expand(G, plan['bidx'].shape[0]))
+    Y = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    return Y if plan['identity'] else Y.index_select(1, plan['colmap'])
+
+
+def _plan_scatter(plan, X, total):
+    """Inverse of _plan_gather: (G, C) -> (total,). Requires
+    plan['scatter_ok']. Matches the generic index_add_ scatter bit for bit
+    on the CPU: window writes land where the generic map scatters, and the
+    broadcast columns are added in the same group order."""
+    G = plan['G']
+    Yt = X.index_select(1, plan['invmap']) * plan['invmask']
+    out = torch.zeros(total, dtype=X.dtype, device=X.device)
+    off = 0
+    for (w, s) in plan['windows']:
+        out[w:w + G * s] = Yt[:, off:off + s].reshape(-1)
+        off += s
+    if plan['bcast_cols'] is not None:
+        out.index_add_(0, plan['bidx'].repeat(G),
+                       X.index_select(1, plan['bcast_cols']).reshape(-1))
+    return out
+
+
+def banded_order(pencil):
+    """
+    Mode-major reordering with tau/BC bordering for banded solves.
+
+    Returns None when the problem does not have the bordered-banded shape
+    (more than one coupled axis), else a dict:
+      col_perm / row_perm : pencil index arrays
+      n_border            : border width (tau columns / BC rows / constants)
+      n_core              : interior size (= P - n_border)
+    Border rows (BCs, gauge) go first, border columns (taus, constants) last.
+    """
+    dist = pencil.dist
+    coupled = pencil.subproblems[0].coupled
+    coupled_axes = [i for i in range(dist.dim) if coupled[i]]
+    if len(coupled_axes) != 1:
+        return None
+    ax = coupled_axes[0]
+
+    def block_layout(sizes, offsets, domains):
+        """Split blocks into interior (full coupled width) and border."""
+        Ncoup = None
+        for domain in domains:
+            b = domain.bases[ax]
+            if b is not None:
+                Ncoup = b.coeff_size
+        if Ncoup is None:
+            return None
+        interior = []   # (offset, nslots) per interior block
+        border = []     # flat pencil indices
+        for size, off, domain in zip(sizes, offsets, domains):
+            b = domain.bases[ax]
+            if b is not None and b.coeff_size == Ncoup:
+                interior.append((off, size // Ncoup))
+            else:
+                border.extend(range(off, off + size))
+        return Ncoup, interior, border
+
+    col = block_layout(pencil.var_sizes, pencil.var_offsets,
+                       [v.domain for v in pencil.variables])
+    row = block_layout(pencil.eq_sizes, pencil.eq_offsets,
+                       [eq['domain'] for eq in pencil.equations])
+    if col is None or row is None:
+        return None
+
+    def build_perm(Ncoup, interior, border, border_first=False):
+        S = sum(ns for _, ns in interior)
+        perm = np.empty(Ncoup * S + len(border), dtype=np.int64)
+        pos = len(border) if border_first else 0
+        for n in range(Ncoup):
+            for off, ns in interior:
+                for s in range(ns):
+                    perm[pos] = off + s * Ncoup + n
+                    pos += 1
+        if border_first:
+            perm[:len(border)] = border
+        else:
+            perm[pos:] = border
+        return perm, len(border)
+
+    bcol_first = False
+    col_perm, bc = build_perm(*col, border_first=bcol_first)
+    row_perm, br = build_perm(*row, border_first=True)
+    if bc != br or col[0] != row[0]:
+        return None
+    return dict(col_perm=col_perm, row_perm=row_perm, n_border=bc,
+                n_core=col_perm.size - bc, bcol_first=bcol_first)

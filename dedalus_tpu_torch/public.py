@@ -1,0 +1,28 @@
+"""
+Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
+
+The ported subset of dedalus_tpu/public.py: Cartesian coordinates, the
+RealFourier and Jacobi bases on the matrix-transform path, fields, the
+Cartesian operators of the Rayleigh-Benard IVP, IVPs and the SBDF2
+InitialValueSolver on the banded matsolver. The evaluator, flow tools,
+plot tools and post-processing are not ported yet (ROADMAP M9).
+"""
+
+from .core.coords import Coordinate, CartesianCoordinates
+from .core.distributor import Distributor
+from .core.basis import Jacobi, ChebyshevT, RealFourier
+from .core.field import Field
+from .core import future  # installs the Field expression protocol
+from .core.operators import (
+    Differentiate, Gradient, Divergence, Laplacian, Trace, Interpolate,
+    Integrate, Lift, TimeDerivative, Component, Power,
+    grad, div, lap, trace, integ, interp, dt, lift,
+    convert as Convert,
+)
+from .core.arithmetic import Add, Multiply, DotProduct
+from .core.arithmetic import DotProduct as dot
+from .core.problems import IVP, InitialValueProblem
+from .core.timesteppers import SBDF2
+from .core.solvers import InitialValueSolver
+
+Chebyshev = ChebyshevT

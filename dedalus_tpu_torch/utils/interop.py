@@ -1,0 +1,34 @@
+"""
+Carrying state and factorizations over from dedalus_tpu, as numpy.
+
+Both helpers take numpy inputs only (the caller converts the JAX package's
+arrays with np.asarray), so this module never imports jax. The tests use
+them to hand identical inputs and identical factors to both packages.
+"""
+
+import numpy as np
+import torch
+
+
+def set_state_from_reference(solver, arrays):
+    """Set the port's state fields from coefficient arrays keyed by field
+    name (numpy, as dedalus_tpu's Field data in coefficient layout)."""
+    for field in solver.state:
+        field.change_scales(1)
+        field['c'] = np.asarray(arrays[field.name])
+
+
+def banded_arrays_from_reference(fac_np, device='cpu'):
+    """A dedalus_tpu BorderedBandedSolver factorization (its
+    `solve_arrays()` converted to numpy, raw scan-form factors, plus
+    'bad_idx') -> the port's BorderedBandedSolver.arrs on `device`."""
+    put = lambda a: torch.as_tensor(np.array(a), device=device)
+    fac = {k: put(v) for k, v in fac_np['fac'].items()}
+    arrs = dict(fac=fac, row_perm=put(fac_np['row_perm']).long(),
+                col_unperm=put(fac_np['col_unperm']).long(),
+                Dr=put(fac_np['Dr']), Dc=put(fac_np['Dc']))
+    bad_idx = tuple(int(g) for g in fac_np.get('bad_idx', ()))
+    if bad_idx:
+        arrs['Abad_inv'] = put(fac_np['Abad_inv'])
+        arrs['bad_idx'] = torch.as_tensor(bad_idx, device=device)
+    return arrs

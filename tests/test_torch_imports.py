@@ -1,0 +1,49 @@
+"""The PyTorch port imports neither jax nor the JAX package.
+
+The machine with the card has no JAX: every module of dedalus_tpu_torch
+and chip_smoke.py must import without it. Checked in fresh interpreters,
+since this test process has jax loaded already.
+"""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+CHECK = """
+import sys
+{imports}
+bad = sorted(k for k in sys.modules
+             if k == 'jax' or k.startswith('jax.') or k == 'jaxlib'
+             or k == 'dedalus_tpu' or k.startswith('dedalus_tpu.'))
+assert not bad, bad
+print('clean')
+"""
+
+
+def _run(imports):
+    proc = subprocess.run([sys.executable, '-c', CHECK.format(imports=imports)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().endswith('clean')
+
+
+def _port_modules():
+    pkg = ROOT / 'dedalus_tpu_torch'
+    mods = []
+    for path in sorted(pkg.rglob('*.py')):
+        rel = path.relative_to(ROOT).with_suffix('')
+        parts = list(rel.parts)
+        if parts[-1] == '__init__':
+            parts = parts[:-1]
+        mods.append('.'.join(parts))
+    return mods
+
+
+def test_public_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\nimport dedalus_tpu_torch.models.rbc')
+
+
+def test_every_module_import_has_no_jax():
+    _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))
