@@ -6,12 +6,15 @@ this package re-implements its main path for one NVIDIA H100:
 
   * the symbolic front end, spectral bases and pencil assembly are the same
     host numpy/scipy code;
-  * field data, pencil stacks and factorizations are torch tensors on an
-    explicit device (`Distributor(..., device=...)`, default 'cpu');
-  * the banded solve sweeps (K5), the exact banded applies (K4) and the
-    multistep history combine (K7) are kernels written by hand for Hopper
-    (CUDA C++ for sm_90a and Triton), each with a plain PyTorch twin that
-    CPU tensors take.
+  * field data, pencil stacks and factorizations are torch tensors on the
+    distributor's device (`Distributor(..., device=...)`, default the
+    current CUDA card; device='cpu' runs on the CPU);
+  * the banded solve sweeps (K5), the exact banded applies (K4), the
+    multistep history combine (K7), the dense refined solve (KA), the dense
+    M/L applies (KB), the Runge-Kutta stage combine (KC) and the CFL
+    reduction (KD) are kernels written by hand for Hopper (CUDA C++ for
+    sm_90a and Triton), each with a plain PyTorch twin that CPU tensors
+    take.
 
 Importing this package imports neither jax nor dedalus_tpu.
 """

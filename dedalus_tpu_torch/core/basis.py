@@ -287,6 +287,10 @@ class FourierBase(Basis):
         native = 2 * np.pi * np.arange(N) / N
         return self.COV.problem_coord(native)
 
+    def grid_spacing(self, scale=1):
+        N = self.grid_size(scale)
+        return np.full(N, self.length / N)
+
     def derivative_basis(self, order=1):
         return self
 

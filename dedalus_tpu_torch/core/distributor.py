@@ -36,9 +36,11 @@ class Distributor:
     Assigns coordinates to axes, builds fields, and names the torch device
     that holds all of their data. Nothing moves between devices by itself:
     host inputs are copied to `device` where they enter a field or a solver.
+    The default device is the current CUDA card; running on the CPU is asked
+    for with device='cpu'.
     """
 
-    def __init__(self, coordsystems, dtype=np.float64, device='cpu'):
+    def __init__(self, coordsystems, dtype=np.float64, device=None):
         if isinstance(coordsystems, (Coordinate, CoordinateSystem)):
             coordsystems = (coordsystems,)
         self.coordsystems = tuple(coordsystems)
@@ -50,6 +52,11 @@ class Distributor:
         for axis, coord in enumerate(self.coords):
             coord.axis = axis
         self.dtype = np.dtype(dtype)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device is available: pass device='cpu' "
+                                   "to run on the CPU")
+            device = 'cuda'
         device = torch.device(device)
         if device.type == 'cuda' and device.index is None:
             # Tensors report an indexed device: name it the same way
@@ -75,6 +82,17 @@ class Distributor:
         shape = [1] * self.dim
         shape[axis] = grid.size
         return grid.reshape(shape)
+
+    def local_grids(self, *bases, scales=None):
+        """Global grids of several bases (host numpy), each reshaped for
+        broadcasting; `scales` is one scale or one per axis."""
+        out = []
+        for basis in bases:
+            scale = None
+            if scales is not None:
+                scale = scales if np.isscalar(scales) else scales[basis.coord.axis]
+            out.append(self.local_grid(basis, scale))
+        return tuple(out)
 
     def __repr__(self):
         return f"Distributor(dim={self.dim}, dtype={self.dtype}, device={self.device})"

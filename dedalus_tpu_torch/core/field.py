@@ -74,6 +74,17 @@ class Operand:
         from . import arithmetic
         return arithmetic.DotProduct(other, self)
 
+    # numpy ufunc interception: np.sqrt(u@u), np.sin(x*u), ...
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        from . import operators
+        if method != '__call__' or kwargs:
+            return NotImplemented
+        if ufunc is np.power and len(inputs) == 2 and inputs[0] is self:
+            return operators.Power(self, inputs[1])
+        if len(inputs) == 1:
+            return operators.UnaryGridFunction(ufunc, self)
+        return NotImplemented
+
 
 class Field(Operand):
     """

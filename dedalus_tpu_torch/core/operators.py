@@ -2,13 +2,14 @@
 Operator nodes and vector-calculus factories (Cartesian subset).
 
 Mirrors dedalus_tpu/core/operators.py for the operators the Rayleigh-Benard
-IVP uses: Differentiate, Convert, Interpolate, Integrate, Lift,
-TimeDerivative, Component, Power and the grad/div/lap/trace factories built
-from them. Each one-axis operator carries one host matrix: the pencil
+IVP and its example's analysis use: Differentiate, Convert, Interpolate,
+Integrate, Lift, TimeDerivative, Component, Power, UnaryGridFunction (numpy
+ufuncs on operands), the Cartesian AdvectiveCFL and the grad/div/lap/trace
+factories. Each one-axis operator carries one host matrix: the pencil
 matrices slice it on the host (scipy), and eager evaluation applies it
-densely on the field's device. Curvilinear operators, Curl/Skew/Transpose,
-grid functions and the CFL operator are not ported yet (ROADMAP M3, M9,
-M11).
+densely on the field's device. Curvilinear operators (and their CFL
+spacings), Curl/Skew/Transpose and general functions are not ported yet
+(ROADMAP M3, M9, M11).
 """
 
 import numbers
@@ -22,7 +23,7 @@ from .domain import Domain
 from .coords import Coordinate, CoordinateSystem, CartesianCoordinates
 from . import arithmetic
 from .arithmetic import Add, merge_domains, _constant_embedding
-from .basis import device_copy
+from .basis import FourierBase, device_copy
 from ..ops import transforms as ops_transforms
 from ..utils.general import prod
 
@@ -516,6 +517,115 @@ class Power(Future):
                                   scales=self.domain.dealias)
 
 
+class UnaryGridFunction(Future):
+    """Apply a numpy ufunc pointwise in grid space, as its torch namesake."""
+
+    def __init__(self, func, operand):
+        self.func = func
+        if getattr(torch, func.__name__, None) is None:
+            raise NotImplementedError(f"no torch counterpart of {func.__name__}")
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self._operands[0]
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        self.domain = op.domain
+
+    @property
+    def operand(self):
+        return self._operands[0]
+
+    @property
+    def name(self):
+        return self.func.__name__
+
+    def new_operands(self, operand):
+        return UnaryGridFunction(self.func, operand)
+
+    def is_linear_in(self, vars):
+        return False
+
+    def operate(self, arg_fields):
+        data = arithmetic._to_dealias_grid(arg_fields[0])
+        out = getattr(torch, self.func.__name__)(data)
+        return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
+
+
+class AdvectiveCFL(Future):
+    """
+    Scalar advective grid-crossing frequency of a velocity vector on the
+    dealias grid, Cartesian: sum_i |u_i| / dx_i with the Fourier spacing
+    L / N and the Chebyshev spacing dealias * sin(theta) pi L / (2 N)
+    (fine near the walls). Curvilinear geometries are not ported yet
+    (ROADMAP M11).
+    """
+
+    name = 'cfl'
+
+    def __init__(self, operand, coordsys=None):
+        if len(operand.tensorsig) != 1:
+            raise ValueError("Velocity must be a vector")
+        self.coordsys = coordsys if coordsys is not None else operand.tensorsig[0]
+        _require_cartesian(self.coordsys)
+        super().__init__(operand)
+        self._spacings = None
+
+    def _init_metadata(self):
+        op = self._operands[0]
+        self.tensorsig = ()
+        self.dtype = op.dtype
+        self.domain = op.domain
+
+    @property
+    def operand(self):
+        return self._operands[0]
+
+    def new_operands(self, operand):
+        return AdvectiveCFL(operand, self.coordsys)
+
+    def is_linear_in(self, vars):
+        return False
+
+    def _spacing(self, basis, axis, ndim):
+        """Grid spacing along one axis: a number, or a host array shaped to
+        broadcast over the dealias grid."""
+        dealias = self.domain.dealias
+        if isinstance(basis, FourierBase):
+            return float(np.asarray(basis.grid_spacing(1)).min())   # L / N
+        if getattr(basis, 'a0', None) != -0.5 or basis.b0 != -0.5:
+            raise NotImplementedError("CFL spacing of Jacobi bases other than "
+                                      "Chebyshev is not ported yet (ROADMAP M3)")
+        # Chebyshev: physically meaningful spacing ~ sin(theta) pi/N at
+        # native resolution, shaped on the dealias grid
+        N = basis.grid_size(dealias[axis])
+        theta = np.pi * (np.arange(N) + 0.5) / N
+        stretch = 1.0 / basis.COV.stretch  # problem length / native
+        dx = dealias[axis] * stretch * np.sin(theta) * np.pi / N
+        shape = [1] * ndim
+        shape[axis] = N
+        return dx.reshape(shape)
+
+    def operate(self, arg_fields):
+        data = arithmetic._to_dealias_grid(arg_fields[0])
+        if self._spacings is None:
+            coords = self.coordsys.coords if hasattr(self.coordsys, 'coords') else (self.coordsys,)
+            spacings = []
+            for i, coord in enumerate(coords):
+                basis = self.domain.bases[coord.axis]
+                if basis is None:
+                    continue
+                dx = self._spacing(basis, coord.axis, data.ndim - 1)
+                if not isinstance(dx, float):
+                    dx = torch.as_tensor(dx, dtype=data.dtype, device=data.device)
+                spacings.append((i, dx))
+            self._spacings = spacings
+        freq = torch.zeros(data.shape[1:], dtype=data.dtype, device=data.device)
+        for i, dx in self._spacings:
+            freq = freq + torch.abs(data[i]) / dx
+        return self._build_output(self.dist.grid_layout, freq, scales=self.domain.dealias)
+
+
 def convert(expr, bases):
     """Wrap expr with Convert ops so its output bases match `bases` per axis."""
     if isinstance(expr, numbers.Number):
@@ -645,5 +755,6 @@ lift = Lift
 
 __all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace',
            'Interpolate', 'Integrate', 'Lift', 'TimeDerivative',
-           'Component', 'TensorStack', 'Power', 'convert',
+           'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
+           'convert',
            'grad', 'div', 'lap', 'trace', 'integ', 'interp', 'dt', 'lift']

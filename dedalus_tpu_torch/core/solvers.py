@@ -1,15 +1,17 @@
 """
 Initial value solver.
 
-Mirrors dedalus_tpu/core/solvers.py SolverBase and InitialValueSolver for
-the banded SBDF2 path: subproblem enumeration and the pencil system, the
-flat coefficient state, the RHS F(X, t) as (G, R) pencils with grouped
-transforms (ROADMAP K2, plain torch), and step / run_steps. The boundary
-value and eigenvalue solvers, the evaluator and file output are not ported
-yet (ROADMAP M8, M9).
+Mirrors dedalus_tpu/core/solvers.py SolverBase and InitialValueSolver:
+subproblem enumeration and the pencil system, the default matsolver from
+the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
+with grouped transforms (ROADMAP K2, plain torch), step / run_steps with
+the evaluator's handler schedule, the run-control properties and
+log_stats. The boundary value and eigenvalue solvers and file output are
+not ported yet (ROADMAP M8, M9).
 """
 
 import logging
+import time
 
 import numpy as np
 import torch
@@ -17,6 +19,8 @@ import torch
 from . import subsystems
 from . import timesteppers as timesteppers_module
 from .distributor import Layout
+from ..ops.solve import DENSE_METHODS
+from ..utils.config import config
 
 logger = logging.getLogger(__name__)
 
@@ -26,11 +30,13 @@ class SolverBase:
 
     matrix_names = ()
 
-    def __init__(self, problem, matsolver='banded'):
+    def __init__(self, problem, matsolver=None):
         self.problem = problem
         self.dist = problem.dist
         self.dtype = problem.dtype
-        if matsolver != 'banded':
+        if matsolver is None:
+            matsolver = config.get('linear algebra', 'matrix_factorizer')
+        if matsolver != 'banded' and matsolver not in DENSE_METHODS:
             raise NotImplementedError(
                 f"matsolver '{matsolver}' is not ported yet (ROADMAP M8)")
         self.matsolver = matsolver
@@ -238,11 +244,13 @@ class SolverBase:
 
 class InitialValueSolver(SolverBase):
     """M.dt(X) + L.X = F: IMEX stepping of all pencils at once on the
-    distributor's device."""
+    distributor's device; run-control properties (proceed, stop criteria)
+    and stats."""
 
     matrix_names = ('M', 'L')
 
-    def __init__(self, problem, timestepper, enforce_real_cadence=100, **kw):
+    def __init__(self, problem, timestepper, enforce_real_cadence=100, warmup_iterations=10,
+                 **kw):
         super().__init__(problem, **kw)
         if isinstance(timestepper, str):
             timestepper = timesteppers_module.schemes[timestepper]
@@ -252,7 +260,15 @@ class InitialValueSolver(SolverBase):
         self.timestepper = timestepper(self)
         self.enforce_real_cadence = enforce_real_cadence
         self._sim_time = 0.0
-        self.iteration = 0
+        self.iteration = self.initial_iteration = 0
+        self.stop_sim_time = np.inf
+        self.stop_wall_time = np.inf
+        self.stop_iteration = np.inf
+        self.start_time = self.wall_time
+        self.warmup_iterations = warmup_iterations
+        self.warmup_time = None
+        from .evaluator import Evaluator
+        self.evaluator = Evaluator(self.dist, dict(self.problem.namespace))
 
     @property
     def sim_time(self):
@@ -262,6 +278,23 @@ class InitialValueSolver(SolverBase):
     def sim_time(self, t):
         self._sim_time = float(t)
         self.problem.time['g'] = self._sim_time
+
+    @property
+    def wall_time(self):
+        return time.perf_counter()
+
+    @property
+    def proceed(self):
+        if self.sim_time >= self.stop_sim_time:
+            logger.info("Simulation stop time reached.")
+            return False
+        if (self.wall_time - self.start_time) >= self.stop_wall_time:
+            logger.info("Wall stop time reached.")
+            return False
+        if self.iteration >= self.stop_iteration:
+            logger.info("Stop iteration reached.")
+            return False
+        return True
 
     def enforce_hermitian_symmetry(self, fields):
         """Project out redundant real-dtype mode content by a grid round-trip
@@ -276,16 +309,97 @@ class InitialValueSolver(SolverBase):
         """Advance the system by one timestep."""
         if dt <= 0 or not np.isfinite(dt):
             raise ValueError(f"Invalid timestep: {dt}")
-        self.timestepper.step(float(dt))
+        if self.iteration == self.warmup_iterations:
+            self.warmup_time = self.wall_time
+        self.timestepper.step(float(dt), wall_time=self.wall_time - self.start_time)
         cadence = self.enforce_real_cadence
         if cadence and self.iteration % cadence < self.timestepper.steps:
             self.enforce_hermitian_symmetry(self.state)
         self.iteration += 1
 
+    def _steps_to_next_fire(self, dt, max_n):
+        """Steps until the next handler firing (exact for iter and sim_dt
+        cadences, matching Handler.check_schedule's crossing semantics;
+        wall_dt cadences are bounded by the measured step rate). None when
+        no handler is scheduled at all."""
+        have_schedule = False
+        n_next = max_n
+        for h in self.evaluator.handlers:
+            if not h.tasks:
+                continue
+            if h.iter is not None:
+                have_schedule = True
+                it = max(1, int(h.iter))
+                n_next = min(n_next, it - (self.iteration % it))
+            if h.sim_dt is not None:
+                have_schedule = True
+                sd = float(h.sim_dt)
+                # Next crossing of a sim_dt multiple (same epsilon as
+                # Handler.check_schedule)
+                k = int((self.sim_time + 1e-12) // sd)
+                n = int(np.ceil(((k + 1) * sd - self.sim_time - 1e-12) / dt))
+                n_next = min(n_next, max(1, n))
+            if h.wall_dt is not None:
+                have_schedule = True
+                est = getattr(self, '_est_step_wall', None)
+                if est:
+                    elapsed = self.wall_time - self.start_time
+                    rem = h.wall_dt - (elapsed % h.wall_dt)
+                    n_next = min(n_next, max(1, int(rem / est) + 1))
+                else:
+                    # No rate estimate yet: short first chunk to calibrate
+                    n_next = min(n_next, 10)
+            if h.custom_schedule is not None:
+                have_schedule = True
+                n_next = 1
+        if not have_schedule:
+            return None
+        return max(1, n_next)
+
     def run_steps(self, dt, n_steps):
-        """Advance n_steps at fixed dt."""
+        """Advance n_steps at fixed dt. When analysis handlers are
+        scheduled, the steps run in chunks that end at each handler firing,
+        and the handlers fire between chunks."""
         dt, n_steps = float(dt), int(n_steps)
-        self.timestepper.run_steps(dt, n_steps)
+        if self.iteration == self.warmup_iterations:
+            self.warmup_time = self.wall_time
+        if self._steps_to_next_fire(dt, n_steps) is None:
+            self.timestepper.run_steps(dt, n_steps)
+        else:
+            done = 0
+            while done < n_steps:
+                # Fire handlers scheduled at the current iteration
+                self.evaluator.evaluate_scheduled(
+                    iteration=self.iteration, wall_time=self.wall_time - self.start_time,
+                    sim_time=self.sim_time, timestep=dt)
+                # Advance to the next firing (bounded by the remaining steps)
+                n = self._steps_to_next_fire(dt, n_steps - done)
+                t_chunk = self.wall_time
+                self.timestepper.run_steps(dt, n)
+                self._est_step_wall = (self.wall_time - t_chunk) / n
+                done += n
+            self.evaluator.evaluate_scheduled(
+                iteration=self.iteration, wall_time=self.wall_time - self.start_time,
+                sim_time=self.sim_time, timestep=dt)
         if self.enforce_real_cadence and n_steps >= self.enforce_real_cadence:
             self.enforce_hermitian_symmetry(self.state)
+
+    def log_stats(self, format='.4g'):
+        """Log run statistics: wall times and mode-stages/sec throughput."""
+        log_time = self.wall_time
+        total = log_time - self.start_time
+        logger.info(f"Final iteration: {self.iteration}")
+        logger.info(f"Final sim time: {self.sim_time}")
+        logger.info(f"Setup + run time (s): {total:{format}}")
+        if self.warmup_time is not None and self.iteration > self.warmup_iterations:
+            run_time = log_time - self.warmup_time
+            iters = self.iteration - self.warmup_iterations
+            modes = sum(int(np.prod(self.pencil._coeff_shape(v))) for v in self.state)
+            stages = getattr(self.timestepper, 'stages', 1)
+            logger.info(f"Timings after warmup iteration {self.warmup_iterations}:")
+            logger.info(f"  Run time (s): {run_time:{format}}")
+            if run_time > 0:
+                logger.info(f"  Speed: {modes * iters * stages / run_time:{format}} "
+                            f"mode-stages/sec")
+                self.speed = modes * iters * stages / run_time
 

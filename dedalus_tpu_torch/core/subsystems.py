@@ -8,14 +8,16 @@ coupled axis:
     width-1 slots in all groups; invalid modes get identity pivots), so each
     step solves all groups as one batch;
   * matrices are assembled on the host (scipy), from a few sampled groups
-    when the stacks are polynomial in the group wavenumber;
+    when the stacks are polynomial in the group wavenumber, and expanded to
+    dense (G, R, C) stacks on the distributor's device when they fit under
+    [memory] max_dense_stack_gb (the dense matsolvers);
   * the banded ordering and block size feed the bordered banded solver;
   * gather/scatter between the flat coefficient state and the (G, C)
     pencils are torch index operations on the distributor's device (K3 of
     the ROADMAP, plain torch for now).
 
-Conditioned equations, slot-split spherical pencils, dense (G, P, P) stacks
-and mesh padding are not ported yet (ROADMAP M8, M11, M12).
+Conditioned equations, slot-split spherical pencils and mesh padding are
+not ported yet (ROADMAP M8, M11, M12).
 """
 
 import logging
@@ -447,6 +449,27 @@ class PencilSystem:
             groups = [self.assemble_group(g, names) for g in range(G)]
             self.matrices_scipy = {name: [grp[name] for grp in groups]
                                    for name in names}
+        # Dense stacks on the device only when affordable (the M and L
+        # applies of the step, and the matrices the dense matsolvers factor)
+        R, C = self.R, self.C
+        self.matrices = {}
+        max_bytes = config.getfloat('memory', 'max_dense_stack_gb') * 2**30
+        if G * R * C * self.dtype.itemsize <= max_bytes:
+            for name in names:
+                stack = np.zeros((G, R, C), dtype=self.dtype)
+                for g in range(G):
+                    stack[g] = self.matrices_scipy[name][g].toarray()
+                self.matrices[name] = torch.as_tensor(stack, device=self.dist.device)
+            gs = np.concatenate([np.full(r.size, g) for g, (r, _) in enumerate(self.pivot_pairs)])
+            rs = np.concatenate([r for r, _ in self.pivot_pairs])
+            cs = np.concatenate([c for _, c in self.pivot_pairs])
+            self._pivot_index = tuple(torch.as_tensor(a.astype(np.int64), device=self.dist.device)
+                                      for a in (gs, rs, cs))
+        else:
+            for name in names:
+                self.matrices[name] = None
+            logger.info(f"Pencil stacks (G={G}, P={R}) exceed max_dense_stack_gb; "
+                        f"keeping sparse/separable form only")
 
     def _try_sampled_assembly(self, names):
         """
@@ -653,6 +676,27 @@ class PencilSystem:
                 self._banded_ops[name] = ops_banded.BandedOperator(
                     self.banded_stack(name), device)
         return self._banded_ops[name]
+
+    def generic_pivots(self):
+        """(rows, cols) of the identity pivots shared by most groups."""
+        from collections import Counter
+        keys = Counter(_pivot_key(pp) for pp in self.pivot_pairs)
+        rows, cols = max(keys, key=keys.get)
+        return np.asarray(rows, dtype=np.int64), np.asarray(cols, dtype=np.int64)
+
+    def combined_with_pivots(self, coeffs):
+        """sum_i coeffs[i] * matrix_i with identity pivots installed: a dense
+        (G, P, P) stack on the device when the dense stacks exist (formed
+        there, with the same elementwise operations as the JAX package's
+        host numpy), else a LazyCombined provider."""
+        if self.matrices.get(next(iter(coeffs))) is not None:
+            A = None
+            for name, c in coeffs.items():
+                term = c * self.matrices[name]
+                A = term if A is None else A + term
+            A[self._pivot_index] = 1.0
+            return A
+        return LazyCombined(self, coeffs)
 
     # --- gather / scatter (device) ---
 

@@ -1,20 +1,30 @@
 """
-IMEX multistep timestepping (SBDF2 on the banded matsolver).
+IMEX timesteppers: SBDF2 and the Runge-Kutta family.
 
-Mirrors dedalus_tpu/core/timesteppers.py MultistepIMEX with the SBDF2
-scheme, on the banded branch:
+Mirrors dedalus_tpu/core/timesteppers.py.
+
+MultistepIMEX (SBDF2):
 
     a0 M X(n) + b0 L X(n) = sum_j c_j F(n-j) - a_j M X(n-j) - b_j L X(n-j)
 
-The JAX whole-run program (a jit around a fori_loop) becomes a plain
-Python loop of eager steps. Each step gathers the state into pencils,
-applies the exact banded M and L (kernel K4), evaluates F, combines the
-histories into the RHS (kernel K7), solves (kernel K5 inside the banded
-solver), runs the outer refinement passes when the factorization was built
-for nearby coefficients, and scatters the result back. The histories are
-two-slot rings updated in place, where the JAX package rebuilt them every
-step. The other multistep schemes and the Runge-Kutta family are not ported
-yet (ROADMAP M8).
+Each step gathers the state into pencils, applies M and L (banded: kernel
+K4; dense: kernel KB, one launch for the pair), evaluates F, combines the
+histories into the RHS (kernel K7) and solves (banded: K5 inside the banded
+solver, with outer refinement passes when the factorization was built for
+nearby coefficients; dense: kernel KA), then scatters the result back. The
+histories are two-slot rings updated in place, where the JAX package
+rebuilt them every step.
+
+RungeKuttaIMEX (RK111, RK222, RK443, RKSMR, RKGFY), dense matsolvers only:
+
+    (M + k H_ii L) X(n,i) = M X(n,0) + k sum_j (A_ij F(n,j) - H_ij L X(n,j))
+
+per stage: L X(n,i-1) by KB (M X and L X together at the first stage), F,
+the stage combine (kernel KC), the solve (KA) and the scatter.
+
+The JAX whole-run programs (a jit around a fori_loop) become plain Python
+loops of eager steps. The other multistep schemes are not ported yet
+(ROADMAP M8).
 """
 
 import logging
@@ -25,12 +35,11 @@ import torch
 
 from ..ops import solve as ops_solve
 from ..csrc.history_combine import history_combine
+from ..csrc.rk_combine import rk_stage_combine
 from ..utils.config import config
 
 logger = logging.getLogger(__name__)
 
-# Factorizations kept per timestepper (LRU; each pins device memory)
-MAX_CACHED_FACTORIZATIONS = 3
 # Largest outer-refinement pass count accepted outside the startup steps
 OUTER_MAX_RUN = 6
 
@@ -42,9 +51,17 @@ def add_scheme(cls):
     return cls
 
 
+def _evaluate_handlers(solver, dt, wall_time):
+    """Run the solver's scheduled analysis handlers before a step."""
+    evaluator = getattr(solver, 'evaluator', None)
+    if evaluator is not None and evaluator.handlers:
+        evaluator.evaluate_scheduled(iteration=solver.iteration, wall_time=wall_time,
+                                     sim_time=solver.sim_time, timestep=dt)
+
+
 class MultistepIMEX:
-    """Variable-step IMEX multistep scheme on the banded matsolver
-    (two-step schemes)."""
+    """Variable-step IMEX multistep scheme (two-step schemes) on the banded
+    or a dense matsolver."""
 
     # Outer curves are probed at the bucket ceiling of the measured rho and
     # shared by any pair at or below it.
@@ -77,7 +94,7 @@ class MultistepIMEX:
     # --- factorizations ---
 
     def _get_factorized(self, a0, b0):
-        limit = MAX_CACHED_FACTORIZATIONS
+        limit = max(1, config.getint('linear algebra', 'max_cached_factorizations'))
         key = (float(a0), float(b0))
         fact = self._factorized.pop(key, None)
         if fact is None:
@@ -85,9 +102,14 @@ class MultistepIMEX:
             # never coexists with one about to be evicted
             while len(self._factorized) >= limit:
                 self._factorized.pop(next(iter(self._factorized)))
-            from .subsystems import LazyCombined
-            fact = ops_solve.FactorizedStack(
-                LazyCombined(self.pencil, {'M': a0, 'L': b0}), method='banded')
+            method = self.solver.matsolver
+            if method == 'banded':
+                # The banded path works from the sparse per-group form
+                from .subsystems import LazyCombined
+                A = LazyCombined(self.pencil, {'M': a0, 'L': b0})
+            else:
+                A = self.pencil.combined_with_pivots({'M': a0, 'L': b0})
+            fact = ops_solve.FactorizedStack(A, method=method)
             fact.lhs_coeffs = key
         self._factorized[key] = fact
         return fact
@@ -186,7 +208,20 @@ class MultistepIMEX:
 
     def _prepare(self, a0, b0):
         """Resolve the factorization serving a0 M + b0 L: an existing one
-        through outer refinement when close enough, else a new one."""
+        through outer refinement when close enough (banded), else a new
+        one. A dense matsolver whose stacks were not built (too large for
+        [memory] max_dense_stack_gb) switches to banded first."""
+        solver = self.solver
+        if self.pencil.matrices.get('M') is None and solver.matsolver != 'banded':
+            if self.pencil.banded_plan() is None:
+                raise NotImplementedError(
+                    "pencil stacks too large for the dense matsolvers and without "
+                    "banded structure: the poly matsolver is not ported yet (ROADMAP M8)")
+            logger.info("pencil stacks too large for dense matsolver '%s'; using banded",
+                        solver.matsolver)
+            solver.matsolver = 'banded'
+        if solver.matsolver != 'banded':
+            return self._get_factorized(a0, b0)
         key = (float(a0), float(b0))
         fact = None
         if key not in self._factorized:
@@ -221,9 +256,17 @@ class MultistepIMEX:
         """One step on the flat coefficient state; returns the new state."""
         solver = self.solver
         pencil = self.pencil
-        bM, bL = self._banded_ml()
         rv = pencil.row_valid_dev
         X = pencil.gather_state(state_flat)
+        if solver.matsolver != 'banded':
+            MX0, LX0 = ops_solve.dense_matvec(pencil.matrices['M'], X, pencil.matrices['L'])
+            F0 = solver.traced_F(state_flat, t)
+            self._push(MX0, LX0, F0)
+            h, o = self._head, 1 - self._head
+            RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
+                                  self.LX[h], self.LX[o], rv, coef)
+            return pencil.scatter_state(fact.solve(RHS))
+        bM, bL = self._banded_ml()
         MX0 = bM.apply(X)
         LX0 = bL.apply(X)
         F0 = solver.traced_F(state_flat, t)
@@ -258,7 +301,7 @@ class MultistepIMEX:
         """Whether the next step still uses reduced-order startup coefficients."""
         return self._iteration < self.steps - 1
 
-    def step(self, dt):
+    def step(self, dt, wall_time=0.0):
         """One step at dt (any dt history)."""
         self.dt_hist.appendleft(dt)
         a, b, c = self.compute_coefficients(list(self.dt_hist), self._iteration)
@@ -266,9 +309,10 @@ class MultistepIMEX:
         n = self.steps + 1
         a, b, c = _pad(a, n), _pad(b, n), _pad(c, n)
         fact = self._prepare(a[0], b[0])
+        _evaluate_handlers(self.solver, dt, wall_time)
         self._run(a, b, c, dt, 1, fact)
 
-    def run_steps(self, dt, n_steps):
+    def run_steps(self, dt, n_steps, wall_time=0.0):
         """Advance n_steps at fixed dt: startup steps one by one, then one
         loop with the uniform-dt coefficients."""
         solver = self.solver
@@ -278,7 +322,7 @@ class MultistepIMEX:
             return all(abs(h - dt) <= 1e-14 * abs(dt)
                        for h in list(self.dt_hist)[:live])
 
-        if self.needs_startup and n_steps > self.steps:
+        if solver.matsolver == 'banded' and self.needs_startup and n_steps > self.steps:
             # Resolve the main factorization first: its refinement count
             # becomes the floor of the startup solves, which then reuse it
             # through outer refinement instead of building their own.
@@ -287,7 +331,7 @@ class MultistepIMEX:
             if mf.banded.refinements:
                 self._banded_refs_floor = mf.banded.refinements
         while n_steps > 0 and (self.needs_startup or not _hist_uniform()):
-            self.step(dt)
+            self.step(dt, wall_time)
             solver.iteration += 1
             n_steps -= 1
         if n_steps <= 0:
@@ -341,3 +385,163 @@ def _pad(x, n):
     out = np.zeros(n)
     out[:len(x)] = x
     return out
+
+
+class RungeKuttaIMEX:
+    """
+    DIRK + ERK IMEX Runge-Kutta schemes on the dense matsolvers.
+    Stages: (M + k H_ii L) X(n,i) = M X(n,0) + k sum_j (A_ij F(n,j) - H_ij L X(n,j)).
+    """
+
+    steps = 1
+
+    def __init__(self, solver):
+        self.solver = solver
+        self.pencil = solver.pencil
+        # One factorization per distinct k H_ii, kept for the run (as the
+        # JAX package does: a CFL run adds one per dt it visits)
+        self._stage_factors = {}
+        self._stage_cache = {}
+
+    def _get_stage_factor(self, kHii):
+        key = float(kHii)
+        if key not in self._stage_factors:
+            method = self.solver.matsolver
+            if method not in ops_solve.DENSE_METHODS:
+                raise ValueError(f"Unknown matsolver: {method}")
+            A = self.pencil.combined_with_pivots({'M': 1.0, 'L': kHii})
+            self._stage_factors[key] = ops_solve.FactorizedStack(A, method=method)
+        return self._stage_factors[key]
+
+    def _stage_stacks(self, k):
+        """Per stage at step size k: the factorization (a reference to the
+        shared one, where the JAX package stacks a copy per stage) and the
+        (2 i,) device coefficients [k A_ij..., k H_ij...] of the combine."""
+        if k not in self._stage_cache:
+            dev = self.solver.dist.device
+            stages = []
+            for i in range(1, self.stages + 1):
+                fact = self._get_stage_factor(k * self.H[i, i])
+                coef = [k * self.A[i, j] for j in range(i)] + [k * self.H[i, j] for j in range(i)]
+                stages.append((fact, torch.tensor(coef, dtype=torch.float64, device=dev)))
+            self._stage_cache[k] = stages
+        return self._stage_cache[k]
+
+    def _step(self, state_flat, t0, k, stages):
+        """One step on the flat coefficient state; returns the new state."""
+        solver = self.solver
+        pencil = self.pencil
+        rv = pencil.row_valid_dev
+        Mmat, Lmat = pencil.matrices['M'], pencil.matrices['L']
+        X = pencil.gather_state(state_flat)
+        MX0, LX0 = ops_solve.dense_matvec(Mmat, X, Lmat)
+        LX = [LX0]
+        F = []
+        state = state_flat
+        for i in range(1, self.stages + 1):
+            if i > 1:
+                LX.append(ops_solve.dense_matvec(Lmat, pencil.gather_state(state)))
+            F.append(solver.traced_F(state, t0 + k * self.c[i - 1]))
+            fact, coef = stages[i - 1]
+            RHS = rk_stage_combine(MX0, F, LX, rv, coef)
+            state = pencil.scatter_state(fact.solve(RHS))
+        return state
+
+    def _run(self, k, n_steps):
+        """Advance n_steps at fixed step size k."""
+        solver = self.solver
+        stages = self._stage_stacks(k)
+        state = solver.state_flat()
+        t = solver.sim_time
+        for _ in range(n_steps):
+            state = self._step(state, t, k, stages)
+            t = t + k
+        self.pencil.unflatten_fields(state, solver.state)
+        solver.sim_time = solver.sim_time + k * n_steps
+
+    def run_steps(self, dt, n_steps, wall_time=0.0):
+        """Advance n_steps at fixed dt."""
+        self._run(float(dt), int(n_steps))
+        self.solver.iteration += n_steps
+
+    def step(self, dt, wall_time=0.0):
+        _evaluate_handlers(self.solver, dt, wall_time)
+        self._run(float(dt), 1)
+
+
+@add_scheme
+class RK111(RungeKuttaIMEX):
+    """1st-order 1-stage DIRK+ERK [Ascher, Ruuth & Spiteri 1997 sec 2.1]."""
+
+    stages = 1
+    c = np.array([0, 1])
+    A = np.array([[0, 0], [1, 0]], dtype=float)
+    H = np.array([[0, 0], [0, 1]], dtype=float)
+
+
+@add_scheme
+class RK222(RungeKuttaIMEX):
+    """2nd-order 2-stage DIRK+ERK [Ascher, Ruuth & Spiteri 1997 sec 2.6]."""
+
+    stages = 2
+    _g = (2 - np.sqrt(2)) / 2
+    _d = 1 - 1 / _g / 2
+    c = np.array([0, _g, 1])
+    A = np.array([[0, 0, 0],
+                  [_g, 0, 0],
+                  [_d, 1 - _d, 0]])
+    H = np.array([[0, 0, 0],
+                  [0, _g, 0],
+                  [0, 1 - _g, _g]])
+
+
+@add_scheme
+class RK443(RungeKuttaIMEX):
+    """3rd-order 4-stage DIRK+ERK [Ascher, Ruuth & Spiteri 1997 sec 2.8]."""
+
+    stages = 4
+    c = np.array([0, 1/2, 2/3, 1/2, 1])
+    A = np.array([[0, 0, 0, 0, 0],
+                  [1/2, 0, 0, 0, 0],
+                  [11/18, 1/18, 0, 0, 0],
+                  [5/6, -5/6, 1/2, 0, 0],
+                  [1/4, 7/4, 3/4, -7/4, 0]])
+    H = np.array([[0, 0, 0, 0, 0],
+                  [0, 1/2, 0, 0, 0],
+                  [0, 1/6, 1/2, 0, 0],
+                  [0, -1/2, 1/2, 1/2, 0],
+                  [0, 3/2, -3/2, 1/2, 1/2]])
+
+
+@add_scheme
+class RKSMR(RungeKuttaIMEX):
+    """(3-eps)-order 3-stage scheme [Spalart, Moser & Rogers 1991 appendix]."""
+
+    stages = 3
+    _a1, _a2, _a3 = 29/96, -3/40, 1/6
+    _b1, _b2, _b3 = 37/160, 5/24, 1/6
+    _g1, _g2, _g3 = 8/15, 5/12, 3/4
+    _z2, _z3 = -17/60, -5/12
+    c = np.array([0, 8/15, 2/3, 1])
+    A = np.array([[0, 0, 0, 0],
+                  [_g1, 0, 0, 0],
+                  [_g1 + _z2, _g2, 0, 0],
+                  [_g1 + _z2, _g2 + _z3, _g3, 0]])
+    H = np.array([[0, 0, 0, 0],
+                  [_a1, _b1, 0, 0],
+                  [_a1, _b1 + _a2, _b2, 0],
+                  [_a1, _b1 + _a2, _b2 + _a3, _b3]])
+
+
+@add_scheme
+class RKGFY(RungeKuttaIMEX):
+    """2nd-order 2-stage scheme (Hollerbach & Marti 'GFY')."""
+
+    stages = 2
+    c = np.array([0, 1, 1])
+    A = np.array([[0, 0, 0],
+                  [1, 0, 0],
+                  [0.5, 0.5, 0]])
+    H = np.array([[0, 0, 0],
+                  [0.5, 0.5, 0],
+                  [0.5, 0, 0.5]])

@@ -1,11 +1,12 @@
 """
 Build and load the CUDA kernels of dedalus_tpu_torch.
 
-The sources in this directory are compiled with nvcc for sm_90a into a
+Each source in this directory is compiled with nvcc for sm_90a into its own
 shared library with a plain C interface, under build/kernels/ at the root of
-the checkout (git-ignored), at first use, and loaded with ctypes. The
-library name carries a hash of the sources, so an edited source is rebuilt
-and a stale library is never loaded.
+the checkout (git-ignored), at first use, and loaded with ctypes. The nvcc
+processes of all sources run at once. A library's name carries a hash of its
+source and the flags, so an edited source is rebuilt and a stale library is
+never loaded.
 """
 
 import ctypes
@@ -15,6 +16,7 @@ import pathlib
 import shutil
 import subprocess
 import time
+import types
 
 CSRC = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = CSRC.parents[1] / 'build' / 'kernels'
@@ -24,10 +26,17 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+# Exported launchers of each source (by file stem) and their argument types
 SIGNATURES = {
-    'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 3 + [_P],
-    'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 3 + [_P],
-    'k4_banded_apply_f64': [_P] * 9 + [_I] * 8 + [_U] * 4 + [_P],
+    'banded_kernels': {
+        'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 3 + [_P],
+        'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 3 + [_P],
+        'k4_banded_apply_f64': [_P] * 9 + [_I] * 8 + [_U] * 4 + [_P],
+    },
+    'dense_kernels': {
+        'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
+        'kb_dense_matvec_f64': [_P] * 5 + [_I] * 4 + [_P],
+    },
 }
 
 _library = None
@@ -46,34 +55,54 @@ def _nvcc():
     return found
 
 
+def _library_path(src):
+    h = hashlib.sha1(src.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{src.stem}_{h.hexdigest()[:16]}.so'
+
+
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The launchers of every kernel source, as attributes of one namespace
+    (the sources are built on first call, in parallel)."""
     global _library, build_seconds
     if _library is not None:
         return _library
-    sources = sorted(CSRC.glob('*.cu'))
-    h = hashlib.sha1()
-    for src in sources:
-        h.update(src.read_bytes())
-    h.update(' '.join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f'libdedalus_tpu_torch_{h.hexdigest()[:16]}.so'
     t0 = time.perf_counter()
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        tmp.replace(path)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    paths = {stem: _library_path(CSRC / f'{stem}.cu') for stem in SIGNATURES}
+    procs = {}
+    try:
+        for stem, path in paths.items():
+            if not path.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+                cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{stem}.cu')]
+                procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True), tmp)
+        errors = []
+        for stem, (proc, tmp) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{stem}.cu ({proc.returncode}):\n{err}")
+            else:
+                tmp.replace(paths[stem])
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    fns = {}
+    for stem, path in paths.items():
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES[stem].items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
     build_seconds = time.perf_counter() - t0
-    _library = lib
-    return lib
+    _library = types.SimpleNamespace(**fns)
+    return _library
 
 
 def check(status, name):

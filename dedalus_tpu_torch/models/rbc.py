@@ -9,9 +9,10 @@ import dedalus_tpu_torch.public as d3
 
 
 def build_rbc_problem(Nx, Nz, Rayleigh=1e6, Prandtl=1.0, Lx=4.0, Lz=1.0, dealias=1.5,
-                      device='cpu'):
+                      device=None):
     """Standard RBC IVP (reference examples/ivp_2d_rayleigh_benard); every
-    field and solver array lives on `device`."""
+    field and solver array lives on `device` (default: the current CUDA
+    card; pass device='cpu' for the CPU)."""
     coords = d3.CartesianCoordinates('x', 'z')
     dist = d3.Distributor(coords, dtype=np.float64, device=device)
     xbasis = d3.RealFourier(coords['x'], size=Nx, bounds=(0, Lx), dealias=dealias)

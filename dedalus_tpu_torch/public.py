@@ -3,9 +3,12 @@ Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
 The ported subset of dedalus_tpu/public.py: Cartesian coordinates, the
 RealFourier and Jacobi bases on the matrix-transform path, fields, the
-Cartesian operators of the Rayleigh-Benard IVP, IVPs and the SBDF2
-InitialValueSolver on the banded matsolver. The evaluator, flow tools,
-plot tools and post-processing are not ported yet (ROADMAP M9).
+Cartesian operators of the Rayleigh-Benard IVP (with numpy ufuncs on
+operands and the advective CFL frequency), IVPs, the InitialValueSolver
+with SBDF2 (banded or dense matsolvers) and the Runge-Kutta schemes (dense
+matsolvers), the dictionary handlers of the evaluator, and the CFL and
+GlobalFlowProperty flow tools. File output, plot tools and post-processing
+are not ported yet (ROADMAP M9).
 """
 
 from .core.coords import Coordinate, CartesianCoordinates
@@ -15,14 +18,15 @@ from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
     Differentiate, Gradient, Divergence, Laplacian, Trace, Interpolate,
-    Integrate, Lift, TimeDerivative, Component, Power,
+    Integrate, Lift, TimeDerivative, Component, Power, UnaryGridFunction, AdvectiveCFL,
     grad, div, lap, trace, integ, interp, dt, lift,
     convert as Convert,
 )
 from .core.arithmetic import Add, Multiply, DotProduct
 from .core.arithmetic import DotProduct as dot
 from .core.problems import IVP, InitialValueProblem
-from .core.timesteppers import SBDF2
+from .core.timesteppers import SBDF2, RK111, RK222, RK443, RKSMR, RKGFY
 from .core.solvers import InitialValueSolver
+from .extras.flow_tools import GlobalArrayReducer, GlobalFlowProperty, CFL
 
 Chebyshev = ChebyshevT

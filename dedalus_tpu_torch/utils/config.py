@@ -15,12 +15,25 @@ DEFAULTS = {
         'stdout_level': 'info',
     },
     'linear algebra': {
+        # Default matsolver of the solvers: 'inverse_refined' (dense
+        # inverse + one refinement pass, KA) or 'inverse' (dense inverse,
+        # KA without refinement); 'banded' is picked where the dense stacks
+        # exceed [memory] max_dense_stack_gb
+        'matrix_factorizer': 'inverse_refined',
+        # Factorizations kept per multistep timestepper (LRU; each pins
+        # device memory)
+        'max_cached_factorizations': '3',
         # Residual target that sets the adaptive refinement counts
         'solve_target': '1e-15',
         # Outer-refinement reuse of an existing factorization for nearby
         # step coefficients (the startup steps): max coefficient ratio;
         # 0 turns the reuse off
         'outer_reuse_rho': '0.55',
+    },
+    'memory': {
+        # Dense (G, P, P) pencil stacks are built only below this size;
+        # larger systems keep the sparse/separable form (banded matsolver)
+        'max_dense_stack_gb': '2.0',
     },
     'matrix assembly': {
         # Assemble only sampled groups and synthesize the rest from an exact

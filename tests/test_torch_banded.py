@@ -118,7 +118,7 @@ def rbc_pencils():
     tconfig.set('matrix assembly', 'sampled_min_groups', '8')
     try:
         jp, _ = jbuild(32, 16, Rayleigh=1e5)
-        tp, _ = tbuild(32, 16, Rayleigh=1e5)
+        tp, _ = tbuild(32, 16, Rayleigh=1e5, device='cpu')
         js = jp.build_solver(jd3.SBDF2, matsolver='banded')
         ts = tp.build_solver(td3.SBDF2, matsolver='banded')
         yield js.pencil, ts.pencil

@@ -86,7 +86,8 @@ def test_transform_matrices_equal(kind, N, scale):
 
 def _box_field(d3, Nx, Nz, vector):
     coords = d3.CartesianCoordinates('x', 'z')
-    dist = d3.Distributor(coords, dtype=np.float64)
+    kw = {'device': 'cpu'} if d3 is td3 else {}
+    dist = d3.Distributor(coords, dtype=np.float64, **kw)
     xb = d3.RealFourier(coords['x'], size=Nx, bounds=(0, 4.0), dealias=1.5)
     zb = d3.ChebyshevT(coords['z'], size=Nz, bounds=(0, 1.0), dealias=1.5)
     if vector:

@@ -45,5 +45,14 @@ def test_public_import_has_no_jax():
     _run('import dedalus_tpu_torch.public as d3\nimport dedalus_tpu_torch.models.rbc')
 
 
+def test_example_path_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.core.evaluator\n'
+         'import dedalus_tpu_torch.extras.flow_tools\n'
+         'import dedalus_tpu_torch.csrc.rk_combine\n'
+         'import dedalus_tpu_torch.csrc.cfl_max\n'
+         'assert d3.RK222 and d3.CFL and d3.GlobalFlowProperty')
+
+
 def test_every_module_import_has_no_jax():
     _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))

@@ -32,7 +32,7 @@ def pencils(request):
     tconfig.set('matrix assembly', 'sampled_min_groups', '8')
     try:
         jp, _ = jbuild(Nx, Nz, Rayleigh=1e5)
-        tp, _ = tbuild(Nx, Nz, Rayleigh=1e5)
+        tp, _ = tbuild(Nx, Nz, Rayleigh=1e5, device='cpu')
         js = jp.build_solver(jd3.SBDF2, matsolver='banded')
         ts = tp.build_solver(td3.SBDF2, matsolver='banded')
         yield js.pencil, ts.pencil

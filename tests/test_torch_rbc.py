@@ -47,7 +47,7 @@ def _build(overrides_unused=None):
     jp, jctx = jbuild(NX, NZ, Rayleigh=RA)
     js = jp.build_solver(jd3.SBDF2, matsolver='banded')
     _jax_ic(jctx)
-    tp, tctx = tbuild(NX, NZ, Rayleigh=RA)
+    tp, tctx = tbuild(NX, NZ, Rayleigh=RA, device='cpu')
     ts = tp.build_solver(td3.SBDF2, matsolver='banded')
     initial_condition(tctx, seed=42)
     return js, ts

@@ -34,7 +34,7 @@ def overrides():
 def _port_solver():
     import dedalus_tpu_torch.public as td3
     from dedalus_tpu_torch.models.rbc import build_rbc_problem, initial_condition
-    problem, ctx = build_rbc_problem(NX, NZ, Rayleigh=RA)
+    problem, ctx = build_rbc_problem(NX, NZ, Rayleigh=RA, device='cpu')
     solver = problem.build_solver(td3.SBDF2, matsolver='banded')
     initial_condition(ctx, seed=42)
     return solver
