@@ -2,16 +2,27 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at a small size, and drives the two main paths through the
+CPU-held port at the small sizes, and drives four main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver (kernels K4,
-    K5, K7), 20 timed steps;
+    K5, K7, K3), 20 timed steps;
   * the repository's Rayleigh-Benard example, 256x64, Ra=2e6, RK222 with the
     default dense matsolver (inverse_refined) and the example's CFL loop
-    and GlobalFlowProperty (kernels KA, KB, KC, KD), 200 timed iterations.
+    and GlobalFlowProperty (kernels KA, KB, KC, KD, K3), 200 timed
+    iterations;
+  * the annulus convection example (examples/ivp_annulus_convection.py) at
+    256x128, RK222, dense inverse_refined (KA, KB, KC, KE, KF, K3), 100 timed
+    steps of the example's loop with its GlobalFlowProperty;
+  * the disk libration example (examples/ivp_disk_libration.py) at 128x256,
+    SBDF2, dense inverse_refined (KA, KB, K7, KE, KF, K3), 100 timed steps
+    with its GlobalFlowProperty and its KE task on a dictionary handler.
 
     python3 chip_smoke.py
+
+To run one path: `python3 -c "import chip_smoke as c; c.disk_path()"` (or
+banded_path, example_path, annulus_path), after which `c.RESULTS` and
+`c.LAUNCHES` hold its kernel checks and launch counts.
 
 Prints the phases, a JSON line with the kernels' errors, times, bounds and
 launch counts, the card's name and power limit, and as its last line
@@ -40,9 +51,22 @@ NX, NZ, RA = 2048, 512, 2e6
 EX_NX, EX_NZ, EX_RA, EX_ITERATIONS = 256, 64, 2e6, 200
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = 67e12
+# The polar examples: timed size, the example's own size, scheme, the
+# example's dt and the timed run's, the flow property's cadence, fields in
+# the DOF count. The disk's timed dt keeps the example's advective CFL
+# number: its explicit u0@grad(u) at 4x the azimuthal resolution grows
+# without bound at the example's dt (the JAX package's too).
+POLAR = dict(
+    annulus=dict(size=(256, 128), example=(64, 32), scheme='RK222', dt=2e-3, timed_dt=2e-3,
+                 cadence=10, fields=4),
+    disk=dict(size=(128, 256), example=(32, 64), scheme='SBDF2', dt=1e-3, timed_dt=2.5e-4,
+              cadence=100, fields=3),
+)
+MAX_U = 1e3     # a polar run whose max|u| passes this has blown up
+POLAR_STEPS = 100
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
-           cfl_max=1e-14)
+           cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0)
 KERNELS = dict(   # name: (route, source, replaces)
     block_tridiag_qr_solve=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
                             'dedalus_tpu/ops/banded.py:485'),
@@ -58,7 +82,27 @@ KERNELS = dict(   # name: (route, source, replaces)
                       'dedalus_tpu/core/timesteppers.py:971'),
     cfl_max=('triton', 'dedalus_tpu_torch/csrc/cfl_max.py',
              'dedalus_tpu/extras/flow_tools.py:167'),
+    polar_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
+                 'dedalus_tpu/core/basis_polar.py:527'),
+    spin_recombine=('triton', 'dedalus_tpu_torch/csrc/spin_recombine.py',
+                    'dedalus_tpu/core/basis_polar.py:248'),
+    pencil_gather_scatter=('cuda', 'dedalus_tpu_torch/csrc/pencil_kernels.cu',
+                           'dedalus_tpu/core/subsystems.py:1224'),
 )
+# Kernels each main path must launch
+PATH_KERNELS = dict(
+    rbc2048=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
+             'pencil_gather_scatter'),
+    rbc256=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max',
+            'pencil_gather_scatter'),
+    annulus=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
+             'spin_recombine', 'pencil_gather_scatter'),
+    disk=('dense_refined_solve', 'dense_matvec', 'history_combine', 'polar_apply',
+          'spin_recombine', 'pencil_gather_scatter'),
+)
+RESULTS = {}    # kernel name -> its check against the plain twin
+LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
+STEPS = {}      # main path -> steps of its timed run
 
 
 def phase(msg):
@@ -160,6 +204,157 @@ def segment_times(targets, run):
     return acc
 
 
+def card():
+    """(device, kind, the nvidia-smi name and power limit line)."""
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    return torch.device(DEVICE), torch.cuda.get_device_name(0), smi
+
+
+def kernel_functions():
+    """The launch-counting wrappers of each kernel, by kernel name."""
+    from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
+    from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.core import subsystems as sub
+    return dict(block_tridiag_qr_solve=[ob.block_tridiag_qr_solve],
+                banded_apply=[ob.banded_apply], history_combine=[hc.history_combine],
+                dense_refined_solve=[osolve.dense_refined_solve],
+                dense_matvec=[osolve.dense_matvec], rk_stage_combine=[rkc.rk_stage_combine],
+                cfl_max=[cm.cfl_max], polar_apply=[opolar.polar_apply],
+                spin_recombine=[kf.spin_recombine],
+                pencil_gather_scatter=[sub.pencil_gather, sub.pencil_scatter])
+
+
+def count_launches(path, steps, run):
+    """Run a main path's timed run with every kernel count set to 0 just
+    before and read just after; fail if a kernel of the path was not
+    launched. Returns run()'s result."""
+    fns = kernel_functions()
+    for fs in fns.values():
+        for f in fs:
+            f.launches = 0
+    out = run()
+    LAUNCHES[path] = {name: sum(f.launches for f in fs) for name, fs in fns.items()}
+    STEPS[path] = steps
+    for name in PATH_KERNELS[path]:
+        if LAUNCHES[path][name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {path} path")
+    return out
+
+
+def tally(targets, run):
+    """Count the calls of each (label, module or class, attribute) target
+    during run() and sum the bound of each call's work, given by its
+    cost(args, kwargs, out) -> (bytes, operations): {label: [calls, bound_ms]}."""
+    acc = {label: [0, 0.0] for label, _, _, _ in targets}
+    saved = []
+    for label, obj, attr, cost in targets:
+        fn = getattr(obj, attr)
+
+        def counted(*args, _fn=fn, _label=label, _cost=cost, **kw):
+            out = _fn(*args, **kw)
+            acc[_label][0] += 1
+            acc[_label][1] += bound(*_cost(args, kw, out))[0]
+            return out
+
+        functools.update_wrapper(counted, fn)
+        saved.append((obj, attr, attr in vars(obj), fn))
+        setattr(obj, attr, counted)
+    try:
+        run()
+    finally:
+        for obj, attr, own, fn in reversed(saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+    return acc
+
+
+def f_profile(solver, state, t, reps=10):
+    """K1 and K2 on one evaluation of F: the dense transforms (K1, torch
+    matmul) and the polar kernels inside it, their call counts and summed
+    bounds, and F's own time. K2's bound is the sum of its transforms' and
+    kernels' bounds (the grid products are left out)."""
+    from dedalus_tpu_torch.ops import transforms as otr, polar as opolar
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.core import subsystems as sub
+
+    def k1_cost(a, kw, out):
+        mat, data = a[0], a[1]
+        return nbytes(mat, data, out), 2 * mat.shape[0] * data.numel()
+
+    def ke_cost(a, kw, out):
+        S, x = a[0], a[1]
+        extra = out if kw.get('accumulate') else None
+        return nbytes(S, x, out, extra), 2 * S.shape[1] * x.numel()
+
+    def kf_cost(a, kw, out):
+        return 2 * nbytes(a[0]), 7 * a[0].numel()
+
+    def k3_cost(a, kw, out):
+        return 2 * nbytes(out), out.numel()
+
+    acc = tally([('K1 apply_matrix', otr, 'apply_matrix', k1_cost),
+                 ('KE polar_apply', opolar, 'polar_apply', ke_cost),
+                 ('KF spin_recombine', kf, 'spin_recombine', kf_cost),
+                 ('K3 eq gather', sub, 'pencil_gather', k3_cost)],
+                lambda: solver.traced_F(state, t))
+    ms = cuda_ms(lambda: solver.traced_F(state, t), reps)
+    return dict(ms=ms, calls={k: v[0] for k, v in acc.items()},
+                bound_ms={k: v[1] for k, v in acc.items()},
+                k2_bound_ms=sum(v[1] for v in acc.values()))
+
+
+def check_k3(path, pencil, state, primary=False):
+    """K3 against its plain twins run on copies of the same inputs on the
+    CPU: exactly equal (the card's index_add_ sums repeated targets in
+    atomic order; the kernel and the CPU twin in flat-position order)."""
+    from dedalus_tpu_torch.core import subsystems as sub
+    sg, eg, ss = pencil.state_gather, pencil.eq_gather, pencil.state_scatter
+    gen = torch.Generator(device=state.device).manual_seed(3)
+    srcs = [torch.randn(n, generator=gen, dtype=torch.float64, device=state.device)
+            for n in eg.src_sizes]
+    X = sub.pencil_gather(sg, [state])
+    Y = sub.pencil_scatter(ss, X)
+    E = sub.pencil_gather(eg, srcs)
+    torch.cuda.synchronize()
+    pairs = [(X, sub.pencil_gather_plain(sg.to('cpu'), [state.cpu()])),
+             (Y, sub.pencil_scatter_plain(ss.to('cpu'), X.cpu())),
+             (E, sub.pencil_gather_plain(eg.to('cpu'), [s.cpu() for s in srcs]))]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+    exact = all(torch.equal(a.cpu(), b) for a, b in pairs)
+    idx = sg.maps[0].reshape(-1)
+    ms_g = cuda_ms(lambda: sub.pencil_gather(sg, [state]), 50)
+    ms_s = cuda_ms(lambda: sub.pencil_scatter(ss, X), 50)
+    r = dict(
+        err=(0.0 if exact else max(err, 1e-300), err), ms=ms_g + ms_s, ms_gather=ms_g,
+        ms_scatter=ms_s, ms_eq_gather=cuda_ms(lambda: sub.pencil_gather(eg, srcs), 50),
+        plain_ms=(cuda_ms(lambda: sub.pencil_gather_plain(sg, [state]), 50)
+                  + cuda_ms(lambda: sub.pencil_scatter_plain(ss, X), 50)),
+        library_ms=(cuda_ms(lambda: state.index_select(0, idx), 50)
+                    + cuda_ms(lambda: torch.zeros_like(state).index_add_(0, ss.idx, X.view(-1)),
+                              50)),
+        shape=[pencil.G, pencil.C],
+        **dict(zip(('bound_ms', 'bound_by'), bound(
+            nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src, X)
+            + nbytes(X, ss.offsets, ss.entries, Y), 2 * X.numel()))))
+    prev = RESULTS.get('pencil_gather_scatter')
+    by_path = dict(prev['by_path']) if prev else {}
+    by_path[path] = {k: r[k] for k in ('ms', 'ms_gather', 'ms_scatter', 'plain_ms',
+                                       'library_ms', 'bound_ms', 'shape')}
+    if primary or prev is None:
+        RESULTS['pencil_gather_scatter'] = r
+    else:
+        r = prev
+        r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
+    r['by_path'] = by_path
+    print(f"K3 on the {path} pencils (G={pencil.G}, C={pencil.C}): "
+          f"{'exact' if exact else f'max_abs {err:.3e}'}")
+
+
 def check_tolerances(results):
     for name, r in results.items():
         print(f"{name}: rel_err {r['err'][0]:.3e} (max_abs {r['err'][1]:.3e}, tol "
@@ -171,11 +366,14 @@ def check_tolerances(results):
             raise AssertionError(f"{name} disagrees with its plain twin: {r['err'][0]:.3e}")
 
 
-def banded_path(dev, kind, smi, results, launches):
-    """RBC 2048x512 SBDF2 banded: K4, K5, K7 against their twins, the card
-    against the CPU at 64x32, and 20 timed steps."""
+def banded_path():
+    """RBC 2048x512 SBDF2 banded: K4, K5, K7 and K3 against their twins,
+    the bounds of K6, K8 and K9, the card against the CPU at 64x32, and 20
+    timed steps."""
     from dedalus_tpu_torch.ops import banded as ob
     from dedalus_tpu_torch.csrc import history_combine as hc
+
+    dev, kind, smi = card()
 
     phase(f"banded path setup: RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded on {kind}")
     torch.cuda.reset_peak_memory_stats()
@@ -212,7 +410,7 @@ def banded_path(dev, kind, smi, results, launches):
     RHS_plain = hc.history_combine_plain(*hist, coef)
     RHS_k = hc.history_combine(*hist, coef)
     torch.cuda.synchronize()
-    results['history_combine'] = dict(
+    RESULTS['history_combine'] = dict(
         err=rel_err(RHS_k, RHS_plain),
         ms=cuda_ms(lambda: hc.history_combine(*hist, coef), 50),
         plain_ms=cuda_ms(lambda: hc.history_combine_plain(*hist, coef), 50),
@@ -228,7 +426,7 @@ def banded_path(dev, kind, smi, results, launches):
     y_p = ob.block_tridiag_qr_solve_plain(*fargs)
     torch.cuda.synchronize()
     k5_flops = 2 * G * ((Nb - 1) * (2 * nb) ** 2 + nb * nb + 3 * Nb * nb * nb)
-    results['block_tridiag_qr_solve'] = dict(
+    RESULTS['block_tridiag_qr_solve'] = dict(
         err=rel_err(y_k, y_p),
         ms=cuda_ms(lambda: ob.block_tridiag_qr_solve(*fargs), 20),
         plain_ms=cuda_ms(lambda: ob.block_tridiag_qr_solve_plain(*fargs), 3),
@@ -247,15 +445,49 @@ def banded_path(dev, kind, smi, results, launches):
         torch.cuda.synchronize()
         errs.append(rel_err(yk, yp))
     k4_tensors = [bL.ops[k] for k in ('diag', 'sub', 'sup', 'UcolT', 'Vrow')]
-    results['banded_apply'] = dict(
+    RESULTS['banded_apply'] = dict(
         err=max(errs),
         ms=cuda_ms(lambda: ob.banded_apply(bL.ops, xp, w=bL.w), 50),
         plain_ms=cuda_ms(lambda: ob.banded_apply_plain(bL.ops, xp, w=bL.w), 10),
         library_ms=None,
         **dict(zip(('bound_ms', 'bound_by'),
                    bound(nbytes(*k4_tensors, xp, xp, bL.w), k4_flops(bL.ops, G)))))
-    check_tolerances({k: results[k] for k in
-                      ('history_combine', 'block_tridiag_qr_solve', 'banded_apply')})
+    check_k3('rbc2048', pencil, solver.state_flat(), primary=True)
+    check_tolerances({k: RESULTS[k] for k in ('history_combine', 'block_tridiag_qr_solve',
+                                              'banded_apply', 'pencil_gather_scatter')})
+
+    phase("K6, K8, K9 (plain torch): bounds from the banded-path shapes")
+    # K6: one direct solve around K5 (scaling, permutations, the f64
+    # Woodbury correction); its time is the direct solve's less K5's
+    k5 = ('Qt', 'QtL', 'Rinv', 'R1', 'R2')
+    k6_tensors = ([v for k, v in fac.items() if k not in k5]
+                  + [bb.arrs[k] for k in ('Dr', 'Dc', 'row_perm', 'col_unperm')])
+    k6_flops = 2 * sum(v.numel() * (1 if v.dim() == 3 else G) for k, v in fac.items()
+                       if k in ('W1', 'W1T', 'Vfull', 'Sinv'))
+    k6_bound = bound(nbytes(*k6_tensors, RHS_plain, RHS_plain), k6_flops)
+    once_ms = cuda_ms(lambda: bb._once(bb.arrs, RHS_plain), 10)
+    # K8: the f64 block-tridiagonal QR at setup; operations estimated as a
+    # Householder QR of each (2nb x nb) panel and its Q^T applied to the
+    # (2nb x 2nb) neighbour, 19.33 nb^3 per block; bytes: the f64 blocks in
+    # and the factors out in f64
+    k8_bound = bound(3 * G * Nb * nb * nb * 8 + 2 * nbytes(*fargs[:5]),
+                     G * Nb * 19.33 * nb ** 3)
+    # K9: the refinement probe (8 passes: 9 direct solves and 9 exact applies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bb._probe_refinement_curve()
+    torch.cuda.synchronize()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    k9_bound = 9 * (RESULTS['block_tridiag_qr_solve']['bound_ms'] + k6_bound[0]
+                    + RESULTS['banded_apply']['bound_ms'])
+    plain_kernels = dict(
+        K6=dict(ms=once_ms - RESULTS['block_tridiag_qr_solve']['ms'], direct_solve_ms=once_ms,
+                bound_ms=k6_bound[0], bound_by=k6_bound[1],
+                launches_per_step=1 + bb.refinements),
+        K8=dict(ms=None, bound_ms=k8_bound[0], bound_by=k8_bound[1], launches_per_step=0),
+        K9=dict(ms=probe_ms, bound_ms=k9_bound, bound_by='K5+K6+K4 bounds',
+                launches_per_step=0))
+    print(json.dumps({"rbc2048_plain_kernels": plain_kernels, "card": smi}))
 
     phase("RBC 64x32 Ra=1e5 SBDF2 banded, 10 steps: cuda vs cpu")
     states = {}
@@ -269,16 +501,12 @@ def banded_path(dev, kind, smi, results, launches):
         raise AssertionError(f"card and CPU trajectories disagree: {err64:.3e}")
 
     phase("banded path: 20 timed steps")
-    counters = (ob.block_tridiag_qr_solve, ob.banded_apply, hc.history_combine)
-    for fn in counters:
-        fn.launches = 0
     n_steps = 20
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solver.run_steps(DT, n_steps)
+    count_launches('rbc2048', n_steps, lambda: solver.run_steps(DT, n_steps))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches.update({fn.__name__: fn.launches for fn in counters})
     ms_step = run_s / n_steps * 1e3
     dof = NX * NZ * 4
     state = solver.state_flat()
@@ -295,8 +523,7 @@ def banded_path(dev, kind, smi, results, launches):
           f"{dof * n_steps / run_s:.4e} DOF*steps/s, setup {setup_s:.1f} s, "
           f"warmup {warm_s:.1f} s, refinements {bb.refinements}, "
           f"peak memory {peak / 2**30:.2f} GiB")
-    print(f"launches {dict((fn.__name__, fn.launches) for fn in counters)}; "
-          f"final solve residual {resid:.3e}")
+    print(f"launches {LAUNCHES['rbc2048']}; final solve residual {resid:.3e}")
     print(json.dumps({"main_path": dict(
         config=f"RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded", card=smi,
         ms_per_step=ms_step, dof_steps_per_s=dof * n_steps / run_s, setup_s=setup_s,
@@ -306,11 +533,9 @@ def banded_path(dev, kind, smi, results, launches):
         final_residual=resid, card_vs_cpu_64x32=err64)}))
     if not torch.isfinite(state).all():
         raise AssertionError("state is not finite")
-    for fn in counters:
-        if fn.launches <= 0:
-            raise AssertionError(f"kernel {fn.__name__} was not launched by the banded path")
     if not resid <= 1e-9:
         raise AssertionError(f"final solve residual {resid:.3e} > 1e-9")
+    print(json.dumps({"rbc2048_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
 def dense_card_vs_cpu():
@@ -331,7 +556,7 @@ def dense_card_vs_cpu():
             raise AssertionError(f"{scheme}: card and CPU trajectories disagree: {err:.3e}")
 
 
-def example_path(dev, kind, smi, results, launches):
+def example_path():
     """The Rayleigh-Benard example: 256x64, Ra=2e6, RK222 with the default
     matsolver, the example's CFL loop and GlobalFlowProperty."""
     import dedalus_tpu_torch.public as d3
@@ -340,6 +565,7 @@ def example_path(dev, kind, smi, results, launches):
     from dedalus_tpu_torch.csrc import rk_combine as rkc
     from dedalus_tpu_torch.csrc import cfl_max as cm
 
+    dev, kind, smi = card()
     phase(f"example path setup: RBC {EX_NX}x{EX_NZ} Ra={EX_RA:g} RK222 default matsolver "
           f"on {kind}")
     # Free what the earlier paths left, so the peak below is this path's own
@@ -413,7 +639,7 @@ def example_path(dev, kind, smi, results, launches):
     Xk = osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1)
     Xp = osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1)
     torch.cuda.synchronize()
-    results['dense_refined_solve'] = dict(
+    RESULTS['dense_refined_solve'] = dict(
         err=rel_err(Xk, Xp),
         ms=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1), 20),
         plain_ms=cuda_ms(lambda: osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1), 20),
@@ -426,13 +652,13 @@ def example_path(dev, kind, smi, results, launches):
     torch.cuda.synchronize()
     err0 = rel_err(X0k, X0p)
     print(f"dense_refined_solve zero-pass: rel_err {err0[0]:.3e}")
-    results['dense_refined_solve']['err'] = max(results['dense_refined_solve']['err'], err0)
+    RESULTS['dense_refined_solve']['err'] = max(RESULTS['dense_refined_solve']['err'], err0)
 
     MXk, LXk = osolve.dense_matvec(Mm, X, Lm)
     MXp, LXp = osolve.dense_matvec_plain(Mm, X, Lm)
     Lk = osolve.dense_matvec(Lm, X)
     torch.cuda.synchronize()
-    results['dense_matvec'] = dict(
+    RESULTS['dense_matvec'] = dict(
         err=max(rel_err(MXk, MXp), rel_err(LXk, LXp), rel_err(Lk, LXp)),
         ms=cuda_ms(lambda: osolve.dense_matvec(Lm, X), 20),
         plain_ms=cuda_ms(lambda: osolve.dense_matvec_plain(Lm, X), 20),
@@ -445,7 +671,7 @@ def example_path(dev, kind, smi, results, launches):
     Ck = rkc.rk_stage_combine(MXp, F, LX, rv, coef2)
     Cp = rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2)
     torch.cuda.synchronize()
-    results['rk_stage_combine'] = dict(
+    RESULTS['rk_stage_combine'] = dict(
         err=rel_err(Ck, Cp),
         ms=cuda_ms(lambda: rkc.rk_stage_combine(MXp, F, LX, rv, coef2), 50),
         plain_ms=cuda_ms(lambda: rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2), 50),
@@ -457,7 +683,7 @@ def example_path(dev, kind, smi, results, launches):
     Dk = cm.cfl_max(grids)
     Dp = cm.cfl_max_plain(grids)
     torch.cuda.synchronize()
-    results['cfl_max'] = dict(
+    RESULTS['cfl_max'] = dict(
         err=rel_err(Dk, Dp),
         ms=cuda_ms(lambda: cm.cfl_max(grids), 50),
         plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
@@ -465,25 +691,21 @@ def example_path(dev, kind, smi, results, launches):
                     if len(grids) == 1 else None),
         **dict(zip(('bound_ms', 'bound_by'),
                    bound(nbytes(*grids, Dk), len(grids) * grids[0].numel()))))
-    check_tolerances({k: results[k] for k in
+    check_k3('rbc256', pencil, state)
+    check_tolerances({k: RESULTS[k] for k in
                       ('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max')})
 
     phase(f"example path: {EX_ITERATIONS} timed iterations of the CFL loop")
-    counters = (osolve.dense_refined_solve, osolve.dense_matvec, rkc.rk_stage_combine,
-                cm.cfl_max)
-    for fn in counters:
-        fn.launches = 0
     dts.clear()
     it0 = solver.iteration
     n_facts0 = len(ts._stage_factors)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ok = ok & main_loop(EX_ITERATIONS)
+    ok = ok & count_launches('rbc256', None, lambda: main_loop(EX_ITERATIONS))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches.update({fn.__name__: fn.launches for fn in counters})
     osolve.FactorizedStack.solve = solve
-    n_iter = solver.iteration - it0
+    n_iter = STEPS['rbc256'] = solver.iteration - it0
     ms_step = run_s / n_iter * 1e3
     dof = EX_NX * EX_NZ * 4
     max_re = flow.max('Re')
@@ -491,7 +713,7 @@ def example_path(dev, kind, smi, results, launches):
     resid = float(torch.linalg.norm(torch.matmul(fl.A, last['X'][..., None])[..., 0] - last['R'])
                   / torch.linalg.norm(last['R']))
     peak = torch.cuda.max_memory_allocated()
-    per_step = {fn.__name__: fn.launches / n_iter for fn in counters}
+    per_step = {k: v / n_iter for k, v in LAUNCHES['rbc256'].items() if v}
     print(f"[{smi}] RBC {EX_NX}x{EX_NZ} RK222 CFL loop: {ms_step:.3f} ms/step over {n_iter} "
           f"iterations, {dof * n_iter / run_s:.4e} DOF*steps/s, setup {setup_s:.2f} s, "
           f"warmup {warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
@@ -509,9 +731,6 @@ def example_path(dev, kind, smi, results, launches):
         raise AssertionError("a step of the example path produced a non-finite value")
     if not np.isfinite(max_re):
         raise AssertionError("max Re is not finite")
-    for fn in counters:
-        if fn.launches <= 0:
-            raise AssertionError(f"kernel {fn.__name__} was not launched by the example path")
     if not resid <= 1e-12:
         raise AssertionError(f"last solve residual {resid:.3e} > 1e-12")
 
@@ -523,33 +742,295 @@ def example_path(dev, kind, smi, results, launches):
                ('solve (KA)', osolve.FactorizedStack, 'solve'), ('scatter', pencil, 'scatter_state'),
                ('CFL (KD)', CFL, 'max_frequency'), ('flow handler', flow.handler, 'process'),
                ('new factorization', ts, '_get_stage_factor')]
+    breakdown('rbc256', solver, targets, [], lambda: main_loop(seg_iterations), smi)
+    print(json.dumps({"rbc256_F": f_profile(solver, solver.state_flat(), solver.sim_time),
+                      "card": smi}))
+
+
+def breakdown(path, solver, targets, nested, run, smi):
+    """Per-segment ms/step of run() with the device synchronised around each
+    segment; `nested` segments run inside a top-level one (F) and are
+    printed beside it, not summed."""
     it1 = solver.iteration
     t0 = time.perf_counter()
-    segs = segment_times(targets, lambda: main_loop(seg_iterations))
+    segs = segment_times(targets + nested, run)
     torch.cuda.synchronize()
     seg_n = solver.iteration - it1
     seg_total = (time.perf_counter() - t0) / seg_n * 1e3
     segs = {k: v / seg_n * 1e3 for k, v in segs.items()}
-    for k, v in sorted(segs.items(), key=lambda kv: -kv[1]):
-        print(f"  {k:16s} {v:8.4f} ms/step")
-    print(f"  {'other':16s} {seg_total - sum(segs.values()):8.4f} ms/step "
+    top = [label for label, _, _ in targets]
+    for k in sorted(top, key=lambda k: -segs[k]):
+        print(f"  {k:20s} {segs[k]:8.4f} ms/step")
+    for label, _, _ in nested:
+        print(f"    of which {label:11s} {segs[label]:8.4f} ms/step")
+    print(f"  {'other':20s} {seg_total - sum(segs[k] for k in top):8.4f} ms/step "
           f"(synced step {seg_total:.4f} ms over {seg_n} iterations)")
-    print(json.dumps({"example_segments_ms_per_step": segs, "synced_step_ms": seg_total,
+    print(json.dumps({f"{path}_segments_ms_per_step": segs, "synced_step_ms": seg_total,
                       "iterations": seg_n, "card": smi}))
+
+
+def build_polar(geometry, size, device):
+    """One of the polar examples (dedalus_tpu_torch.models.polar) with its
+    initial condition: (solver, ctx)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import polar as mp
+    build, ic = dict(annulus=(mp.build_annulus_problem, mp.annulus_initial_condition),
+                     disk=(mp.build_disk_problem, mp.disk_initial_condition))[geometry]
+    problem, ctx = build(*size, device=device)
+    solver = problem.build_solver(getattr(d3, POLAR[geometry]['scheme']))
+    ic(ctx, seed=42)
+    if solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"{geometry}: default matsolver is {solver.matsolver}")
+    return solver, ctx
+
+
+def determined_rel_err(pencil, got, ref, dt):
+    """Relative difference of two flat states over what the pencils
+    determine: in a group whose pencil is singular (the annulus example's
+    m=0 group, singular in the JAX package too: its null vector carries p
+    and the velocity taus, which neither M nor L sees) the component along
+    the null vectors is projected out. (rel_err, null directions)."""
+    D = pencil.gather_state(got - ref).numpy()
+    M, L = pencil.matrices['M'].numpy(), pencil.matrices['L'].numpy()
+    nnull = 0
+    for g in range(pencil.G):
+        A = M[g] + dt * L[g]
+        rows, cols = pencil.pivot_pairs[g]
+        A[rows, cols] = 1
+        _, S, Vt = np.linalg.svd(A)
+        null = Vt[S < 1e-12 * S[0]]
+        D[g] -= null.T @ (null @ D[g])
+        nnull += len(null)
+    return float(np.abs(D).max()) / max(float(ref.abs().max()), 1e-300), nnull
+
+
+def polar_card_vs_cpu(steps=20):
+    """Both polar examples at their own sizes, `steps` steps each: the card
+    against the CPU-held port."""
+    for geometry, cfg in POLAR.items():
+        phase(f"{geometry} {cfg['example'][0]}x{cfg['example'][1]} {cfg['scheme']} default "
+              f"matsolver, {steps} steps: cuda vs cpu")
+        states, solvers = {}, {}
+        for d in (DEVICE, 'cpu'):
+            solvers[d], _ = build_polar(geometry, cfg['example'], d)
+            solvers[d].run_steps(cfg['dt'], steps)
+            states[d] = solvers[d].state_flat().cpu()
+        raw = rel_err(states[DEVICE], states['cpu'])[0]
+        err, nnull = determined_rel_err(solvers['cpu'].pencil, states[DEVICE], states['cpu'],
+                                        cfg['dt'])
+        print(f"{geometry} cuda vs cpu rel_err {err:.3e} (tol 1e-10; {nnull} null directions "
+              f"projected out; {raw:.3e} before)")
+        if not (err <= 1e-10 and torch.isfinite(states[DEVICE]).all()):
+            raise AssertionError(f"{geometry}: card and CPU trajectories disagree: {err:.3e}")
+
+
+def check_polar_kernels(geometry, ctx):
+    """KE and KF against their plain twins at a polar path's shapes: KE on
+    the disk's backward radial transform stack (the largest apply of the
+    path) or the annulus's gradient stack, with and without accumulation;
+    KF on the rank-2 recombination of grad(u) on the dealias grid."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.core.basis import device_copy
+    from dedalus_tpu_torch.core.basis_polar import spin_matrix
+    import dedalus_tpu_torch.public as d3
+    u, T = ctx['u'], ctx.get('T')
+    basis = ctx['basis']
+    dev = u.data.device
+    if geometry == 'disk':
+        rb = basis.radial_basis
+        S = device_copy(rb._transform_stacks(basis.dealias[1], -1, 'b'), dev)
+        x = u['c'][0].contiguous()
+        what = 'backward radial transform stack, spin -1'
+    else:
+        op = d3.grad(T)
+        S = op._matrix_stack((), (0,), dev)
+        x = T['c'].contiguous()
+        what = 'gradient stack, spin component -'
+    K, O, I = S.shape
+    gen = torch.Generator(device=dev).manual_seed(5)
+    base = torch.randn((2 * K, O), generator=gen, dtype=torch.float64, device=dev)
+    yk, yp = opolar.polar_apply(S, x), opolar.polar_apply_plain(S, x)
+    ak = opolar.polar_apply(S, x, out=base.clone(), accumulate=True)
+    ap = opolar.polar_apply_plain(S, x, out=base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    xt = x.view(K, 2, I).transpose(1, 2)
+    ke = dict(
+        err=max(rel_err(yk, yp), rel_err(ak, ap)), what=what, shape=[K, O, I],
+        ms=cuda_ms(lambda: opolar.polar_apply(S, x), 50),
+        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(S, x), 50),
+        library_ms=cuda_ms(lambda: torch.matmul(S, xt), 50),
+        ms_accumulate=cuda_ms(lambda: opolar.polar_apply(S, x, out=base, accumulate=True), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(S, x, yk), 4 * K * O * I))))
+    # KF: grad(u) on the dealias grid, (2, 2, M, Nr_grid), rank 0
+    M = u['c'].shape[1]
+    Ng = basis.radial_basis.grid_size(basis.dealias[1])
+    xg = torch.randn((2, 2, M, Ng), generator=gen, dtype=torch.float64, device=dev)
+    W = torch.as_tensor(spin_matrix(basis.coordsys, False), device=dev)
+    fk = kf.spin_recombine(xg, 0, 2, W)
+    fp = kf.spin_recombine_plain(xg, 0, 2, W)
+    torch.cuda.synchronize()
+    d4 = xg.view(2, 2, M // 2, 2, Ng).movedim(3, 1).reshape(4, -1).contiguous()
+    kfr = dict(
+        err=rel_err(fk, fp), shape=list(xg.shape),
+        ms=cuda_ms(lambda: kf.spin_recombine(xg, 0, 2, W), 50),
+        plain_ms=cuda_ms(lambda: kf.spin_recombine_plain(xg, 0, 2, W), 50),
+        library_ms=cuda_ms(lambda: torch.tensordot(W, d4, dims=([1], [0])), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(xg, W, fk), 7 * xg.numel()))))
+    check_tolerances({'polar_apply': ke, 'spin_recombine': kfr})
+    return ke, kfr
+
+
+def polar_path(geometry, steps=POLAR_STEPS):
+    """One polar example at its timed size through the public API, as the
+    example's main loop runs it (solver.step, the flow property read at its
+    cadence; the disk's KE task on a dictionary handler): setup, 5 warm-up
+    steps, KE, KF and K3 against their twins, `steps` timed steps and a
+    per-segment breakdown."""
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+
+    dev, kind, smi = card()
+    cfg = POLAR[geometry]
+    Nphi, Nr = cfg['size']
+    dt, cadence = cfg['timed_dt'], cfg['cadence']
+    phase(f"{geometry} path setup: {Nphi}x{Nr} {cfg['scheme']} dt={dt:g} default matsolver "
+          f"on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, ctx = build_polar(geometry, cfg['size'], None)
+    u = ctx['u']
+    if solver.dist.device.type != dev.type:
+        raise AssertionError(f"{geometry} path on {solver.dist.device}")
+    flow = d3.GlobalFlowProperty(solver, cadence=cadence)
+    flow.add_property(u @ u, name='u2')
+    scalars = None
+    if geometry == 'disk':
+        scalars = solver.evaluator.add_dictionary_handler(sim_dt=0.01)
+        scalars.add_task(d3.integ(0.5 * u @ u), name='KE')
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pencil = solver.pencil
+    print(f"setup_s {setup_s:.2f}; G={pencil.G} P={pencil.R} dense stacks "
+          f"{pencil.matrices['M'].numel() * 8 / 1e6:.1f} MB each")
+
+    last = {}
+    solve = osolve.FactorizedStack.solve
+
+    def recording_solve(self, R):
+        X = solve(self, R)
+        last.update(fact=self, R=R, X=X)
+        return X
+
+    max_u = []
+
+    def main_loop(n):
+        # The example's loop: step, and read the flow property at its cadence
+        for _ in range(n):
+            solver.step(dt)
+            if (solver.iteration - 1) % cadence == 0:
+                max_u.append(float(np.sqrt(flow.max('u2'))))
+
+    osolve.FactorizedStack.solve = recording_solve
+    try:
+        t0 = time.perf_counter()
+        main_loop(5)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} (5 steps incl. factorizations and Triton builds)")
+
+        phase(f"KE, KF, K3 vs plain twins ({geometry}-path shapes)")
+        # The JSON line reports the disk's (the larger) applies; each path's
+        # numbers stand under by_path
+        for name, r in zip(('polar_apply', 'spin_recombine'), check_polar_kernels(geometry, ctx)):
+            prev = RESULTS.get(name)
+            by_path = dict(prev['by_path']) if prev else {}
+            by_path[geometry] = {k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                                                   'shape')}
+            merged = r if (prev is None or geometry == 'disk') else prev
+            merged['err'] = max(r['err'], prev['err']) if prev else r['err']
+            merged['by_path'] = by_path
+            RESULTS[name] = merged
+        check_k3(geometry, pencil, solver.state_flat())
+
+        phase(f"{geometry} path: {steps} timed steps of the example's loop")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches(geometry, steps, lambda: main_loop(steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        osolve.FactorizedStack.solve = solve
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = Nphi * Nr * cfg['fields']
+    state = solver.state_flat()
+    fl = last['fact']
+    resid = float(torch.linalg.norm(torch.matmul(fl.A, last['X'][..., None])[..., 0] - last['R'])
+                  / torch.linalg.norm(last['R']))
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES[geometry].items() if v}
+    ke_task = None if scalars is None else float(scalars['KE']['g'].reshape(-1)[0])
+    print(f"[{smi}] {geometry} {Nphi}x{Nr} {cfg['scheme']}: {ms_step:.3f} ms/step over {n} steps, "
+          f"{dof * n / run_s:.4e} DOF*steps/s, setup {setup_s:.2f} s, warmup {warm_s:.2f} s, "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; "
+          f"max|u| at the flow cadence {max_u[-3:]}; KE task {ke_task}")
+    print(json.dumps({f"{geometry}_path": dict(
+        config=f"{geometry} {Nphi}x{Nr} {cfg['scheme']} dt={dt:g} {solver.matsolver}", card=smi,
+        ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s, setup_s=setup_s,
+        warmup_s=warm_s, G=pencil.G, P=pencil.R, peak_bytes=peak, launches_per_step=per_step,
+        last_solve_residual=resid, max_u=max_u[-1], ke_task=ke_task)}))
+    if not (torch.isfinite(state).all() and np.isfinite(max_u).all()
+            and max(max_u) <= MAX_U):
+        raise AssertionError(f"{geometry}: the run blew up (max|u| {max(max_u):.3g})")
+    if ke_task is not None and not (np.isfinite(ke_task) and ke_task > 0):
+        raise AssertionError(f"{geometry}: KE task {ke_task}")
+    if not resid <= 1e-12:
+        raise AssertionError(f"{geometry}: last solve residual {resid:.3e} > 1e-12")
+
+    phase(f"{geometry} path: where the time goes (device synchronised around each segment)")
+    ts = solver.timestepper
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'), ('flow handler', flow.handler, 'process')]
+    if cfg['scheme'] == 'RK222':
+        targets += [('combine (KC)', tsm, 'rk_stage_combine'),
+                    ('new factorization', ts, '_get_stage_factor')]
+    else:
+        targets += [('history combine (K7)', tsm, 'history_combine')]
+    if scalars is not None:
+        targets += [('KE task handler', scalars, 'process')]
+    nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine')]
+    breakdown(geometry, solver, targets, nested, lambda: main_loop(20), smi)
+    print(json.dumps({f"{geometry}_F": f_profile(solver, state, solver.sim_time),
+                      "card": smi}))
+
+
+def annulus_path(steps=POLAR_STEPS):
+    """The annulus convection example at 256x128 (G=128, P=1037)."""
+    polar_path('annulus', steps)
+
+
+def disk_path(steps=POLAR_STEPS):
+    """The disk libration example at 128x256 (G=64, P=1541)."""
+    polar_path('disk', steps)
 
 
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    _, kind, smi = card()
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device(DEVICE)
-    kind = torch.cuda.get_device_name(0)
 
     import dedalus_tpu_torch  # noqa: F401
     from dedalus_tpu_torch.csrc import build
@@ -560,19 +1041,32 @@ def main():
     print(f"CUDA kernels built (one nvcc per source, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    results, launches = {}, {}
-    banded_path(dev, kind, smi, results, launches)
+    t_start = time.perf_counter()
+    banded_path()
     dense_card_vs_cpu()
-    example_path(dev, kind, smi, results, launches)
+    example_path()
+    polar_card_vs_cpu()
+    annulus_path()
+    disk_path()
 
-    print(json.dumps({"kernels": [
-        dict(name=name, route=route, source=source, replaces=replaces,
-             launches=launches[name], max_abs_err=results[name]['err'][1],
-             ms=results[name]['ms'], plain_ms=results[name]['plain_ms'],
-             bound_ms=results[name]['bound_ms'], bound_by=results[name]['bound_by'],
-             library_ms=results[name]['library_ms'],
-             **{k: v for k, v in results[name].items() if k in ('ms_zero_pass', 'ms_pair')})
-        for name, (route, source, replaces) in KERNELS.items()]}))
+    extra = ('ms_zero_pass', 'ms_pair', 'ms_accumulate', 'ms_gather', 'ms_scatter',
+             'ms_eq_gather', 'shape', 'by_path')
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        r = RESULTS[name]
+        by_path = {path: counts[name] for path, counts in LAUNCHES.items() if counts[name]}
+        kernels.append(dict(
+            name=name, route=route, source=source, replaces=replaces,
+            launches=sum(by_path.values()), max_abs_err=r['err'][1], ms=r['ms'],
+            plain_ms=r['plain_ms'], bound_ms=r['bound_ms'], bound_by=r['bound_by'],
+            library_ms=r['library_ms'], launches_by_path=by_path,
+            launches_per_step={path: n / STEPS[path] for path, n in by_path.items()},
+            **{k: v for k, v in r.items() if k in extra}))
+        if not by_path:
+            raise AssertionError(f"kernel {name} was launched by no main path")
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

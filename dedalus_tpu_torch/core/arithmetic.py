@@ -1,10 +1,12 @@
 """
 Arithmetic operator nodes: Add, Multiply (outer product), DotProduct.
 
-Mirrors dedalus_tpu/core/arithmetic.py on Cartesian domains. Nonlinear
-products evaluate in grid space at dealias scales; NCC (linear-side)
-products lower to Clenshaw multiplication matrices per pencil. Curvilinear
-NCCs and CrossProduct are not ported yet (ROADMAP M11, M3).
+Mirrors dedalus_tpu/core/arithmetic.py on Cartesian and polar domains.
+Nonlinear products evaluate in grid space at dealias scales, where the
+components of polar tensors are coordinate components, so the products are
+the Cartesian ones. NCC (linear-side) products lower to Clenshaw
+multiplication matrices per pencil on Cartesian domains; curvilinear NCCs
+and CrossProduct are not ported yet (ROADMAP M11, M3).
 """
 
 import numbers
@@ -36,6 +38,15 @@ def merge_bases(b1, b2):
         if (a, b) == (b2.a, b2.b):
             return b2
         return b1.clone_with(a=a, b=b)
+    from .basis_polar import AnnulusRadialBasis, DiskRadialBasis
+    if isinstance(b1, AnnulusRadialBasis) and isinstance(b2, AnnulusRadialBasis):
+        if (b1.coord, b1.size, b1.radii, b1.alpha) != (b2.coord, b2.size, b2.radii, b2.alpha):
+            raise ValueError(f"Incompatible annulus radial bases: {b1} {b2}")
+        return b1 if b1.k >= b2.k else b2
+    if isinstance(b1, DiskRadialBasis) and isinstance(b2, DiskRadialBasis):
+        if (b1.coord, b1.size, b1.radius, b1.alpha) != (b2.coord, b2.size, b2.radius, b2.alpha):
+            raise ValueError(f"Incompatible disk radial bases: {b1} {b2}")
+        return b1 if b1.k >= b2.k else b2
     raise ValueError(f"Cannot merge bases: {b1} {b2}")
 
 
@@ -319,6 +330,8 @@ def _constant_embedding(basis):
     """Column embedding a constant value into basis coefficients."""
     from .basis import Jacobi
     from ..spectral import jacobi as jacobi_lib
+    if hasattr(basis, 'constant_column'):
+        return basis.constant_column(0)
     col = np.zeros((basis.size, 1))
     if isinstance(basis, Jacobi):
         col[0, 0] = float(np.sqrt(jacobi_lib.mass(basis.a, basis.b)))

@@ -87,7 +87,7 @@ class Distributor:
         """Global grids of several bases (host numpy), each reshaped for
         broadcasting; `scales` is one scale or one per axis."""
         out = []
-        for basis in bases:
+        for basis in (b for facade in bases for b in getattr(facade, 'sub_bases', (facade,))):
             scale = None
             if scales is not None:
                 scale = scales if np.isscalar(scales) else scales[basis.coord.axis]

@@ -32,9 +32,13 @@ class Domain:
         if not isinstance(bases, (tuple, list)):
             bases = (bases,)
         full = [None] * dist.dim
+        expanded = []
         for basis in bases:
             if basis is None:
                 continue
+            # Multi-axis bases (annulus, disk) contribute one basis per axis
+            expanded.extend(getattr(basis, 'sub_bases', (basis,)))
+        for basis in expanded:
             axis = basis.coord.axis
             if full[axis] is not None and full[axis] != basis:
                 raise ValueError(f"Multiple bases along axis {axis}")

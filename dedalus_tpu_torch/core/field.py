@@ -263,6 +263,19 @@ class Field(Operand):
             data = data * scale
         self.preset_data(target, data)
 
+    def low_pass_filter(self, shape=None, scales=None):
+        """Zero the coefficients above the given mode shape (or scales of
+        the coefficient sizes) along each axis."""
+        self.require_coeff_space()
+        if shape is None:
+            shape = [int(s * b.coeff_size) if b is not None else 1
+                     for s, b in zip(self._canonical_scales(scales), self.domain.bases)]
+        data = self.data.clone()
+        for i, n in enumerate(shape):
+            data.narrow(len(self.tensorsig) + i, n, data.shape[len(self.tensorsig) + i] - n)\
+                .zero_()
+        self.data = data
+
     def allgather_data(self, layout=None):
         """Field data as a host numpy array."""
         if layout is not None:

@@ -1,15 +1,16 @@
 """
-Operator nodes and vector-calculus factories (Cartesian subset).
+Operator nodes and vector-calculus factories (Cartesian and polar).
 
 Mirrors dedalus_tpu/core/operators.py for the operators the Rayleigh-Benard
-IVP and its example's analysis use: Differentiate, Convert, Interpolate,
-Integrate, Lift, TimeDerivative, Component, Power, UnaryGridFunction (numpy
-ufuncs on operands), the Cartesian AdvectiveCFL and the grad/div/lap/trace
-factories. Each one-axis operator carries one host matrix: the pencil
-matrices slice it on the host (scipy), and eager evaluation applies it
-densely on the field's device. Curvilinear operators (and their CFL
-spacings), Curl/Skew/Transpose and general functions are not ported yet
-(ROADMAP M3, M9, M11).
+IVP, the annulus and disk examples and their analysis use: Differentiate,
+Convert, Interpolate, Integrate, Lift, TimeDerivative, Component, Power,
+UnaryGridFunction (numpy ufuncs on operands), the Cartesian AdvectiveCFL
+and the grad/div/lap/trace factories, which dispatch to the polar
+operators (core/operators_polar.py) on polar coordinates. Each one-axis
+operator carries one host matrix: the pencil matrices slice it on the host
+(scipy), and eager evaluation applies it densely on the field's device. The
+spherical geometries, the curvilinear CFL spacings, Curl/Skew/Transpose and
+general functions are not ported yet (ROADMAP M3, M9, M11).
 """
 
 import numbers
@@ -20,7 +21,7 @@ from scipy import sparse
 from .field import Operand, Field
 from .future import Future
 from .domain import Domain
-from .coords import Coordinate, CoordinateSystem, CartesianCoordinates
+from .coords import Coordinate, CoordinateSystem, CartesianCoordinates, PolarCoordinates
 from . import arithmetic
 from .arithmetic import Add, merge_domains, _constant_embedding
 from .basis import FourierBase, device_copy
@@ -285,9 +286,17 @@ class Integrate1D(SpectralOperator1D):
 
 class Lift(SpectralOperator1D):
     """Lift a tau field (constant along the axis) onto a polynomial of the
-    output basis."""
+    output basis; a polar facade lifts radially, per m on the disk."""
+
+    def __new__(cls, operand, out_basis, index):
+        out_basis = getattr(out_basis, 'sub_bases', (out_basis,))[-1]
+        if hasattr(out_basis, 'interpolation_m'):
+            from .operators_polar import PolarLift
+            return PolarLift(operand, out_basis.coord.cs, out_basis, index)
+        return super().__new__(cls)
 
     def __init__(self, operand, out_basis, index):
+        out_basis = getattr(out_basis, 'sub_bases', (out_basis,))[-1]
         self.out_basis_arg = out_basis
         self.index = index
         self.axis = out_basis.coord.axis
@@ -567,7 +576,9 @@ class AdvectiveCFL(Future):
         if len(operand.tensorsig) != 1:
             raise ValueError("Velocity must be a vector")
         self.coordsys = coordsys if coordsys is not None else operand.tensorsig[0]
-        _require_cartesian(self.coordsys)
+        if not isinstance(self.coordsys, (CartesianCoordinates, Coordinate)):
+            raise NotImplementedError(f"{self.coordsys}: the curvilinear CFL spacings are "
+                                      f"not ported yet (ROADMAP M11)")
         super().__init__(operand)
         self._spacings = None
 
@@ -639,18 +650,23 @@ def convert(expr, bases):
         current = expr.domain.bases[axis]
         if target is None or current == target:
             continue
-        expr = Convert1D(expr, target.coord, target)
+        if hasattr(target, 'conversion_matrix_m'):
+            from .operators_polar import PolarConvert
+            expr = PolarConvert(expr, target.coord.cs, target)
+        else:
+            expr = Convert1D(expr, target.coord, target)
     return expr
 
 
 # ---------------------------------------------------------------------------
-# Vector calculus factories (Cartesian)
+# Vector calculus factories (Cartesian; polar systems dispatch to
+# core/operators_polar.py)
 # ---------------------------------------------------------------------------
 
-def _require_cartesian(coordsys):
-    if not isinstance(coordsys, (CartesianCoordinates, Coordinate)):
+def _require_supported(coordsys):
+    if not isinstance(coordsys, (CartesianCoordinates, Coordinate, PolarCoordinates)):
         raise NotImplementedError(
-            f"{coordsys}: curvilinear operators are not ported yet (ROADMAP M11)")
+            f"{coordsys}: spherical operators are not ported yet (ROADMAP M11)")
 
 
 def Differentiate(operand, coord):
@@ -662,7 +678,10 @@ def Differentiate(operand, coord):
 def Gradient(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
-    _require_cartesian(coordsys)
+    _require_supported(coordsys)
+    if isinstance(coordsys, PolarCoordinates):
+        from .operators_polar import PolarGradient
+        return PolarGradient(operand, coordsys)
     comps = [Differentiate1D(operand, c) for c in coordsys.coords]
     return TensorStack(comps, coordsys)
 
@@ -671,7 +690,10 @@ def Divergence(operand, index=0):
     if not operand.tensorsig:
         raise ValueError("Divergence requires a tensor operand")
     coordsys = operand.tensorsig[index]
-    _require_cartesian(coordsys)
+    _require_supported(coordsys)
+    if isinstance(coordsys, PolarCoordinates):
+        from .operators_polar import PolarDivergence
+        return PolarDivergence(operand, index)
     terms = []
     for i, c in enumerate(coordsys.coords):
         term = Differentiate1D(Component(operand, i), c)
@@ -685,21 +707,42 @@ def Divergence(operand, index=0):
 def Laplacian(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
+    if isinstance(coordsys, PolarCoordinates):
+        from .operators_polar import PolarLaplacian
+        return PolarLaplacian(operand, coordsys)
     return Divergence(Gradient(operand, coordsys))
 
 
 def Trace(operand):
     if len(operand.tensorsig) < 2:
         raise ValueError("Trace requires a rank-2+ tensor")
-    _require_cartesian(operand.tensorsig[0])
+    _require_supported(operand.tensorsig[0])
+    if isinstance(operand.tensorsig[0], PolarCoordinates):
+        from .operators_polar import PolarTrace
+        return PolarTrace(operand)
     dim = operand.tensorsig[0].dim
     terms = [Component(Component(operand, i), i) for i in range(dim)]
     return Add(*terms) if len(terms) > 1 else terms[0]
 
 
+def AzimuthalComponent(operand, index=0):
+    """Azimuthal component of the leading polar tensor slot: component 0 in
+    the (phi, r) ordering, the raw slice the reference takes."""
+    if index < 0:
+        index += len(operand.tensorsig)
+    if not isinstance(operand.tensorsig[index], PolarCoordinates):
+        raise ValueError("Can only take the AzimuthalComponent of a PolarCoordinate vector")
+    if index != 0:
+        raise NotImplementedError("AzimuthalComponent: leading tensor slot only")
+    return Component(operand, 0)
+
+
 def Interpolate(operand, coord, position):
     if isinstance(coord, str):
         raise ValueError("Interpolate requires a coordinate object")
+    if hasattr(operand.domain.bases[coord.axis], 'interpolation_m'):
+        from .operators_polar import PolarInterpolate
+        return PolarInterpolate(operand, coord.cs, position)
     return Interpolate1D(operand, coord, position)
 
 
@@ -748,6 +791,7 @@ grad = Gradient
 div = Divergence
 lap = Laplacian
 trace = Trace
+azimuthal = AzimuthalComponent
 integ = Integrate
 interp = Interpolate
 dt = TimeDerivative
@@ -756,5 +800,5 @@ lift = Lift
 __all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace',
            'Interpolate', 'Integrate', 'Lift', 'TimeDerivative',
            'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
-           'convert',
-           'grad', 'div', 'lap', 'trace', 'integ', 'interp', 'dt', 'lift']
+           'AzimuthalComponent', 'convert',
+           'grad', 'div', 'lap', 'trace', 'azimuthal', 'integ', 'interp', 'dt', 'lift']

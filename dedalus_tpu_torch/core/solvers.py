@@ -75,7 +75,7 @@ class SolverBase:
         ext = self._rhs_external_fields()
         saved = [(f, f.layout, f.scales, f.data) for f in ext]
         try:
-            memo = self._grouped_grid_memo()
+            memo = self._grouped_grid_memo() if self._rhs_grouping_ok() else None
             roots = [eq['F'].evaluate(memo) for eq in self.problem.equations]
             if memo is not None:
                 self._grouped_forward(roots)
@@ -125,7 +125,22 @@ class SolverBase:
         self._rhs_external = ext
         return ext
 
-    # --- grouped RHS transforms ---
+    # --- grouped RHS transforms (Cartesian separable bases) ---
+
+    def _rhs_grouping_ok(self):
+        """Whether every basis of the RHS and the state is a Jacobi or
+        Fourier basis: the grouped transforms batch components without
+        their tensor signature, which the polar radial transforms need
+        (spin recombination)."""
+        cached = getattr(self, '_rhs_grouping_flag', None)
+        if cached is None:
+            from .basis import Jacobi, FourierBase
+            domains = [eq['F'].domain for eq in self.problem.equations]
+            domains += [v.domain for v in self.state]
+            cached = self._rhs_grouping_flag = all(
+                b is None or isinstance(b, (Jacobi, FourierBase))
+                for d in domains for b in d.bases)
+        return cached
 
     @staticmethod
     def _grid_arg_node_types():

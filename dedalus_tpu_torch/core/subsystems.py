@@ -1,7 +1,7 @@
 """
 Subproblems: per-mode-group pencil systems.
 
-Mirrors dedalus_tpu/core/subsystems.py for Cartesian domains with one
+Mirrors dedalus_tpu/core/subsystems.py for Cartesian and polar domains with one
 coupled axis:
 
   * every group gets an identical pencil layout (constant-axis fields occupy
@@ -13,13 +13,16 @@ coupled axis:
     [memory] max_dense_stack_gb (the dense matsolvers);
   * the banded ordering and block size feed the bordered banded solver;
   * gather/scatter between the flat coefficient state and the (G, C)
-    pencils are torch index operations on the distributor's device (K3 of
-    the ROADMAP, plain torch for now).
+    pencils are kernel K3 (csrc/pencil_kernels.cu) on the distributor's
+    device;
+  * polar radial bases with an m-dependent truncation (the disk) mark the
+    modes above n_size(m) invalid in each azimuthal group.
 
 Conditioned equations, slot-split spherical pencils and mesh padding are
 not ported yet (ROADMAP M8, M11, M12).
 """
 
+import copy
 import logging
 
 import numpy as np
@@ -210,6 +213,11 @@ class Subproblem:
                 else:
                     # Constant along a separable axis: valid only in group 0
                     axis_masks.append(np.array([self.group[axis] == 0]))
+            elif self.coupled[axis] and hasattr(basis, 'group_valid_for_m'):
+                # m-dependent radial truncation (disk): m is the group index
+                # of the azimuth axis before it
+                axis_masks.append(basis.group_valid_for_m(self.group[axis - 1] or 0,
+                                                          tensorsig))
             elif self.coupled[axis]:
                 axis_masks.append(basis.valid_coeff_mask(tensorsig))
             else:
@@ -347,11 +355,7 @@ class PencilSystem:
             bad = np.nonzero(nrow != ncol)[0][:5]
             raise ValueError(
                 f"Valid modes not square in groups {bad}: rows {nrow[bad]} vs cols {ncol[bad]}")
-        # Device copies (masks as float64 multipliers)
         dev = self.dist.device
-        self.var_index_map_dev = torch.as_tensor(self.var_index_map.astype(np.int64), device=dev)
-        self.row_valid_dev = torch.as_tensor(self.row_valid.astype(np.float64), device=dev)
-        self.col_valid_dev = torch.as_tensor(self.col_valid.astype(np.float64), device=dev)
         self._gs_plan = _build_gs_plan(self.var_index_map, self.col_valid,
                                        self.state_total, dev)
         self._eq_plans = []
@@ -359,8 +363,13 @@ class PencilSystem:
             total = int(m.max()) + 1 if m.size else 0
             self._eq_plans.append(_build_gs_plan(m, np.ones(m.shape, dtype=bool),
                                                  total, dev))
-        self._eq_index_maps_dev = [torch.as_tensor(m.astype(np.int64), device=dev)
-                                   for m in self.eq_index_maps]
+        # Kernel K3's descriptions of the three moves
+        self.state_gather = GatherMap([self.var_index_map], [self._gs_plan],
+                                      self.col_valid, dev)
+        self.eq_gather = GatherMap(self.eq_index_maps, self._eq_plans, self.row_valid, dev)
+        self.state_scatter = ScatterMap(self.var_index_map, self.state_total, dev)
+        # The row mask as a float64 multiplier, for the step's masked sums
+        self.row_valid_dev = self.eq_gather.valid
 
     def _coeff_shape(self, field):
         shape = tuple(cs.dim for cs in field.tensorsig)
@@ -701,21 +710,14 @@ class PencilSystem:
     # --- gather / scatter (device) ---
 
     def gather_state(self, state_flat):
-        """(state_total,) -> (G, C) pencil matrix. Invalid entries are
+        """(state_total,) -> (G, C) pencil matrix (K3). Invalid entries are
         masked (their matrix columns are structurally zero)."""
-        if self._gs_plan is not None:
-            X = _plan_gather(self._gs_plan, state_flat)
-        else:
-            X = state_flat[self.var_index_map_dev]
-        return X * self.col_valid_dev
+        return pencil_gather(self.state_gather, [state_flat])
 
     def scatter_state(self, X):
-        """(G, C) -> (state_total,) (invalid entries are zero so adds are safe)."""
-        plan = self._gs_plan
-        if plan is not None and plan['scatter_ok']:
-            return _plan_scatter(plan, X, self.state_total)
-        out = torch.zeros(self.state_total, dtype=X.dtype, device=X.device)
-        return out.index_add_(0, self.var_index_map_dev.reshape(-1), X.reshape(-1))
+        """(G, C) -> (state_total,) (K3; invalid entries are zero so adds are
+        safe)."""
+        return pencil_scatter(self.state_scatter, X)
 
     def flatten_fields(self, fields):
         return torch.cat([f.data.reshape(-1) for f in fields])
@@ -728,14 +730,9 @@ class PencilSystem:
             f.preset_data(self.dist.coeff_layout, data)
 
     def gather_eq_data(self, eq_datas):
-        """Per-equation coeff data arrays -> (G, R) RHS pencils."""
-        cols = []
-        for data, idx_map, plan in zip(eq_datas, self._eq_index_maps_dev,
-                                       self._eq_plans):
-            flat = data.reshape(-1)
-            cols.append(_plan_gather(plan, flat) if plan is not None
-                        else flat[idx_map])
-        return torch.cat(cols, dim=1) * self.row_valid_dev
+        """Per-equation coeff data arrays -> (G, R) RHS pencils (K3, one
+        launch for all equations)."""
+        return pencil_gather(self.eq_gather, [d.reshape(-1) for d in eq_datas])
 
 
 def _build_gs_plan(idx, valid, total, device):
@@ -792,33 +789,12 @@ def _build_gs_plan(idx, valid, total, device):
     bidx = i0[bcast_cols]
     colmap[bcast_cols] = C0 + np.arange(bcast_cols.size)
     nbc = bcast_cols.size
-    # The scatter must land every entry where the generic map would: require
-    # the affine model at ALL entries, disjoint windows, injective columns.
-    scatter_ok = np.array_equal(recon, idxr)
-    wsorted = sorted(windows)
-    for (w1, s1), (w2, _) in zip(wsorted, wsorted[1:]):
-        if w2 < w1 + G * s1:
-            scatter_ok = False
-    for b in bidx:
-        for w, sv in wsorted:
-            if w <= b < w + G * sv:
-                scatter_ok = False
-    counts = np.bincount(colmap[win_cols], minlength=C0)
-    if counts.max(initial=0) > 1:
-        scatter_ok = False
-    invmap = np.zeros(C0, dtype=np.int64)
-    invmask = np.zeros(C0, dtype=bool)
-    invmap[colmap[win_cols]] = win_cols
-    invmask[colmap[win_cols]] = True
     identity = (nbc == 0 and C0 == C and np.array_equal(colmap, np.arange(C)))
     t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
-    return dict(windows=windows, G=G,
-                identity=identity, scatter_ok=scatter_ok,
+    return dict(windows=windows, G=G, i0=i0, stride=s,
+                identity=identity,
                 colmap=t(colmap),
-                bidx=t(bidx) if nbc else None,
-                bcast_cols=t(bcast_cols.astype(np.int64)) if nbc else None,
-                invmap=t(invmap),
-                invmask=t(invmask.astype(np.float64)))
+                bidx=t(bidx) if nbc else None)
 
 
 def _plan_gather(plan, flat):
@@ -831,22 +807,156 @@ def _plan_gather(plan, flat):
     return Y if plan['identity'] else Y.index_select(1, plan['colmap'])
 
 
-def _plan_scatter(plan, X, total):
-    """Inverse of _plan_gather: (G, C) -> (total,). Requires
-    plan['scatter_ok']. Matches the generic index_add_ scatter bit for bit
-    on the CPU: window writes land where the generic map scatters, and the
-    broadcast columns are added in the same group order."""
-    G = plan['G']
-    Yt = X.index_select(1, plan['invmap']) * plan['invmask']
-    out = torch.zeros(total, dtype=X.dtype, device=X.device)
-    off = 0
-    for (w, s) in plan['windows']:
-        out[w:w + G * s] = Yt[:, off:off + s].reshape(-1)
-        off += s
-    if plan['bcast_cols'] is not None:
-        out.index_add_(0, plan['bidx'].repeat(G),
-                       X.index_select(1, plan['bcast_cols']).reshape(-1))
+# ---------------------------------------------------------------------------
+# K3: the pencil gather and scatter (hand-written CUDA kernels + plain twins)
+# ---------------------------------------------------------------------------
+
+class GatherMap:
+    """
+    One gather from flat source arrays (the state, or each equation's RHS
+    data) into (G, C) pencils: per source its (G, Ce) index map and
+    structured plan (or None), the validity mask, and the column-wise
+    description kernel K3 reads: each column's source and either the affine
+    model of the plans (index i0 + g * stride, where every plan exists) or
+    the generic index map.
+    """
+
+    def __init__(self, maps, plans, valid, device):
+        self.plans = plans
+        self.src_sizes = [int(m.max(initial=0)) + 1 for m in maps]
+        self.maps = [torch.as_tensor(m.astype(np.int64), device=device) for m in maps]
+        self.valid = torch.as_tensor(valid.astype(np.float64), device=device)
+        self.G, self.C = valid.shape
+        self.col_src = torch.as_tensor(
+            np.concatenate([np.full(m.shape[1], e) for e, m in enumerate(maps)]).astype(np.int32),
+            device=device)
+        if all(p is not None for p in plans):
+            self.i0 = torch.as_tensor(np.concatenate([p['i0'] for p in plans]), device=device)
+            self.stride = torch.as_tensor(np.concatenate([p['stride'] for p in plans]),
+                                          device=device)
+            self.idx = None
+        else:
+            self.i0 = self.stride = None
+            self.idx = torch.cat(self.maps, dim=1).contiguous()
+        self.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=device)
+
+    def to(self, device):
+        """A copy with every tensor on `device` (to run the plain twin on
+        copies of a kernel's inputs)."""
+        new = copy.copy(self)
+        move = lambda t: t.to(device) if isinstance(t, torch.Tensor) else t
+        new.plans = [None if p is None else {k: move(v) for k, v in p.items()}
+                     for p in self.plans]
+        new.maps = [m.to(device) for m in self.maps]
+        for name in ('valid', 'col_src', 'i0', 'stride', 'idx', 'valid_u8'):
+            setattr(new, name, move(getattr(self, name)))
+        return new
+
+
+class ScatterMap:
+    """
+    The scatter (G, C) -> (total,) of a generic index map: the map itself
+    (the plain twin's index_add_) and, for kernel K3, its entries grouped by
+    target as a CSR list, each target's sources in flat-position order (the
+    order in which index_add_ adds them).
+    """
+
+    def __init__(self, idx, total, device):
+        flat = idx.reshape(-1).astype(np.int64)
+        self.total = total
+        self.idx = torch.as_tensor(flat, device=device)
+        order = np.argsort(flat, kind='stable')
+        offsets = np.zeros(total + 1, dtype=np.int64)
+        np.cumsum(np.bincount(flat, minlength=total), out=offsets[1:])
+        self.offsets = torch.as_tensor(offsets.astype(np.int32), device=device)
+        self.entries = torch.as_tensor(order.astype(np.int32), device=device)
+
+    def to(self, device):
+        """A copy with every tensor on `device`."""
+        new = copy.copy(self)
+        for name in ('idx', 'offsets', 'entries'):
+            setattr(new, name, getattr(self, name).to(device))
+        return new
+
+
+def pencil_gather_plain(gmap, srcs):
+    """Plain torch K3 gather: each source through its structured plan (or
+    its index map), concatenated and masked."""
+    cols = [_plan_gather(plan, flat) if plan is not None else flat[idx]
+            for flat, plan, idx in zip(srcs, gmap.plans, gmap.maps)]
+    Y = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
+    return Y * gmap.valid
+
+
+def pencil_gather(gmap, srcs):
+    """
+    K3 gather: flat float64 sources -> (G, C) pencils, masked by validity.
+
+    Replaces dedalus_tpu/core/subsystems.py _plan_gather, gather_state and
+    gather_eq_data. CPU tensors run the plain twin; CUDA tensors launch
+    csrc/pencil_kernels.cu k3_pencil_gather_f64, one launch for all sources.
+    """
+    if srcs[0].device.type == 'cpu':
+        return pencil_gather_plain(gmap, srcs)
+    import ctypes
+    from ..csrc import build
+    dev = gmap.valid.device
+    if len(srcs) != len(gmap.maps):
+        raise ValueError(f"K3 gather: {len(gmap.maps)} sources expected")
+    for flat, size in zip(srcs, gmap.src_sizes):
+        if (flat.device != dev or flat.dtype != torch.float64 or flat.dim() != 1
+                or not flat.is_contiguous() or flat.numel() < size):
+            raise ValueError(f"K3 gather: sources must be contiguous 1-D float64 on {dev}, "
+                             f"of sizes {gmap.src_sizes}")
+    out = torch.empty((gmap.G, gmap.C), dtype=torch.float64, device=dev)
+    ptrs = (ctypes.c_void_p * len(srcs))(*[f.data_ptr() for f in srcs])
+    p = lambda t: 0 if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k3_pencil_gather_f64(
+        ctypes.addressof(ptrs), len(srcs), gmap.col_src.data_ptr(), p(gmap.i0),
+        p(gmap.stride), p(gmap.idx), gmap.valid_u8.data_ptr(), out.data_ptr(),
+        gmap.G, gmap.C, stream), 'pencil_gather')
+    pencil_gather.launches += 1
     return out
+
+
+pencil_gather.launches = 0
+
+
+def pencil_scatter_plain(smap, X):
+    """Plain torch K3 scatter: the generic index_add_."""
+    out = torch.zeros(smap.total, dtype=X.dtype, device=X.device)
+    return out.index_add_(0, smap.idx, X.reshape(-1))
+
+
+def pencil_scatter(smap, X):
+    """
+    K3 scatter: (G, C) pencils -> (total,) flat state, equal bit for bit to
+    the sequential index_add_ of the generic map (repeated targets summed in
+    flat-position order).
+
+    Replaces dedalus_tpu/core/subsystems.py _plan_scatter and scatter_state.
+    CPU tensors run the plain twin; CUDA tensors launch
+    csrc/pencil_kernels.cu k3_pencil_scatter_f64.
+    """
+    if X.device.type == 'cpu':
+        return pencil_scatter_plain(smap, X)
+    from ..csrc import build
+    dev = smap.idx.device
+    if (X.device != dev or X.dtype != torch.float64 or X.numel() != smap.idx.numel()
+            or not X.is_contiguous()):
+        raise ValueError(f"K3 scatter: X must be contiguous float64 with "
+                         f"{smap.idx.numel()} entries on {dev}")
+    out = torch.empty(smap.total, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k3_pencil_scatter_f64(
+        X.data_ptr(), smap.offsets.data_ptr(), smap.entries.data_ptr(), out.data_ptr(),
+        smap.total, stream), 'pencil_scatter')
+    pencil_scatter.launches += 1
+    return out
+
+
+pencil_scatter.launches = 0
 
 
 def banded_order(pencil):

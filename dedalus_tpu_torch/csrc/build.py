@@ -37,6 +37,13 @@ SIGNATURES = {
         'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
         'kb_dense_matvec_f64': [_P] * 5 + [_I] * 4 + [_P],
     },
+    'polar_kernels': {
+        'ke_polar_apply_f64': [_P] * 3 + [_I] * 5 + [_P],
+    },
+    'pencil_kernels': {
+        'k3_pencil_gather_f64': [_P, _I] + [_P] * 6 + [_I] * 2 + [_P],
+        'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],
+    },
 }
 
 _library = None

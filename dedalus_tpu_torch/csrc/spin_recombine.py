@@ -1,0 +1,117 @@
+"""
+KF: spin recombination of polar tensors, a Triton kernel with its plain twin.
+
+Replaces dedalus_tpu/core/basis_polar.py:248-300 spin_recombine for real
+dtype: for one tensor rank i of a polar tensor, the coord<->spin unitary U
+acts on (component i, (cos, -sin) pair slot) as the real 4x4 matrix
+
+    W = kron(Re U, I2) + kron(Im U, R90),
+
+    out[.., c', .., m, p', n] = sum_{c, p} W[2c' + p', 2c + p] x[.., c, .., m, p, n].
+
+It runs forward before every radial transform of a vector or tensor and
+backward after it; a rank-2 tensor is recombined rank by rank. Each output
+element is a fixed 4-term combination of four inputs, with no reduction and
+no reuse: one fused elementwise pass, bound by device-memory bandwidth
+(reads and writes each element once). A program loads the four inputs of a
+(rest, m, n) position once and writes the four outputs.
+
+W travels as a (4, 4) float64 tensor on the data's device: Python floats
+would reach the Triton kernel as float32. `triton` is imported inside the
+launching function, so machines without it only ever take the plain twin.
+"""
+
+import torch
+
+BLOCK = 512
+_kernel = None
+
+
+def _view6(shape, rank, azimuth_axis):
+    """(pre, 2, mid, K, 2, N) sizes of data recombined along tensor rank
+    `rank` with the pair slots on `azimuth_axis`."""
+    pre = 1
+    for n in shape[:rank]:
+        pre *= n
+    mid = 1
+    for n in shape[rank + 1:azimuth_axis]:
+        mid *= n
+    N = 1
+    for n in shape[azimuth_axis + 1:]:
+        N *= n
+    return pre, shape[rank], mid, shape[azimuth_axis] // 2, 2, N
+
+
+def spin_recombine_plain(x, rank, azimuth_axis, W):
+    """Plain torch KF (the JAX package's moveaxis/tensordot form)."""
+    pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
+    d = x.reshape(pre, c, mid, K, 2, N)
+    d = torch.movedim(d, (1, 4), (0, 1))          # (c, p, pre, mid, K, N)
+    lead = d.shape[2:]
+    d = torch.tensordot(W, d.reshape((2 * c,) + lead), dims=([1], [0]))
+    d = torch.movedim(d.reshape((c, 2) + lead), (0, 1), (1, 4))
+    return d.reshape(x.shape)
+
+
+def _build_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def kernel(x, out, w, n_pos, mid, K, N, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n_pos
+        # position -> (a, b, k, n) of the (pre, mid, K, N) positions
+        n = offs % N
+        t = offs // N
+        k = t % K
+        t = t // K
+        b = t % mid
+        a = t // mid
+        kn2 = K * 2 * N
+        sc = mid * kn2                     # component stride
+        base = a * (2 * sc) + b * kn2 + k * (2 * N) + n
+        x00 = tl.load(x + base, mask=mask)
+        x01 = tl.load(x + base + N, mask=mask)
+        x10 = tl.load(x + base + sc, mask=mask)
+        x11 = tl.load(x + base + sc + N, mask=mask)
+        for r in tl.static_range(4):
+            w0 = tl.load(w + 4 * r)
+            w1 = tl.load(w + 4 * r + 1)
+            w2 = tl.load(w + 4 * r + 2)
+            w3 = tl.load(w + 4 * r + 3)
+            res = w0 * x00 + w1 * x01 + w2 * x10 + w3 * x11
+            tl.store(out + base + (r // 2) * sc + (r % 2) * N, res, mask=mask)
+
+    return kernel
+
+
+def spin_recombine(x, rank, azimuth_axis, W):
+    """
+    KF wrapper: recombine tensor rank `rank` of contiguous float64 data x
+    (tensor axes first, the (cos, -sin) pairs along `azimuth_axis`) with the
+    (4, 4) float64 matrix W. CPU tensors take the plain twin; CUDA tensors
+    launch the Triton kernel.
+    """
+    if x.device.type == 'cpu':
+        return spin_recombine_plain(x, rank, azimuth_axis, W)
+    global _kernel
+    if x.dtype != torch.float64 or not x.is_contiguous():
+        raise ValueError("spin_recombine: x must be a contiguous float64 tensor")
+    if W.device != x.device or W.dtype != torch.float64 or tuple(W.shape) != (4, 4):
+        raise ValueError("spin_recombine: W must be (4, 4) float64 on the data's device")
+    pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
+    if c != 2 or x.shape[azimuth_axis] != 2 * K:
+        raise ValueError("spin_recombine: needs a rank of dimension 2 and an even azimuth")
+    if _kernel is None:
+        _kernel = _build_kernel()
+    W = W.contiguous()
+    out = torch.empty_like(x)
+    n_pos = pre * mid * K * N
+    _kernel[(-(-n_pos // BLOCK),)](x, out, W, n_pos, mid, K, N, BLOCK=BLOCK, num_warps=4)
+    spin_recombine.launches += 1
+    return out
+
+
+spin_recombine.launches = 0

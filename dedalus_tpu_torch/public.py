@@ -1,25 +1,28 @@
 """
 Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
-The ported subset of dedalus_tpu/public.py: Cartesian coordinates, the
-RealFourier and Jacobi bases on the matrix-transform path, fields, the
-Cartesian operators of the Rayleigh-Benard IVP (with numpy ufuncs on
-operands and the advective CFL frequency), IVPs, the InitialValueSolver
+The ported subset of dedalus_tpu/public.py: Cartesian and polar
+coordinates, the RealFourier and Jacobi bases on the matrix-transform path,
+the annulus and disk bases (real dtype), fields, the Cartesian operators
+of the Rayleigh-Benard IVP and the polar operators of the annulus and disk
+examples (with numpy ufuncs on operands and the Cartesian advective CFL
+frequency), IVPs, the InitialValueSolver
 with SBDF2 (banded or dense matsolvers) and the Runge-Kutta schemes (dense
 matsolvers), the dictionary handlers of the evaluator, and the CFL and
 GlobalFlowProperty flow tools. File output, plot tools and post-processing
 are not ported yet (ROADMAP M9).
 """
 
-from .core.coords import Coordinate, CartesianCoordinates
+from .core.coords import Coordinate, CartesianCoordinates, PolarCoordinates
 from .core.distributor import Distributor
 from .core.basis import Jacobi, ChebyshevT, RealFourier
+from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
     Differentiate, Gradient, Divergence, Laplacian, Trace, Interpolate,
     Integrate, Lift, TimeDerivative, Component, Power, UnaryGridFunction, AdvectiveCFL,
-    grad, div, lap, trace, integ, interp, dt, lift,
+    AzimuthalComponent, grad, div, lap, trace, azimuthal, integ, interp, dt, lift,
     convert as Convert,
 )
 from .core.arithmetic import Add, Multiply, DotProduct

@@ -54,5 +54,16 @@ def test_example_path_import_has_no_jax():
          'assert d3.RK222 and d3.CFL and d3.GlobalFlowProperty')
 
 
+def test_polar_path_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.polar\n'
+         'import dedalus_tpu_torch.core.operators_polar\n'
+         'import dedalus_tpu_torch.spectral.zernike\n'
+         'import dedalus_tpu_torch.spectral.shell\n'
+         'import dedalus_tpu_torch.csrc.spin_recombine\n'
+         'import dedalus_tpu_torch.ops.polar\n'
+         'assert d3.PolarCoordinates and d3.DiskBasis and d3.AnnulusBasis')
+
+
 def test_every_module_import_has_no_jax():
     _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))

@@ -96,11 +96,12 @@ def test_band_blocks_equal(pencils, name):
 
 def test_structured_gather_matches_generic_bit_for_bit(pencils):
     jp, tp = pencils
-    assert tp._gs_plan is not None and tp._gs_plan['scatter_ok']
+    assert tp._gs_plan is not None
     rng = np.random.default_rng(1)
     flat = torch.as_tensor(rng.standard_normal(tp.state_total))
     got = tp.gather_state(flat)
-    generic = flat[tp.var_index_map_dev] * tp.col_valid_dev
+    generic = (flat[torch.as_tensor(tp.var_index_map.astype(np.int64))]
+               * torch.as_tensor(tp.col_valid.astype(np.float64)))
     assert torch.equal(got, generic)
     ref = np.asarray(jp.gather_state(flat.numpy()))
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -109,10 +110,10 @@ def test_structured_gather_matches_generic_bit_for_bit(pencils):
 def test_structured_scatter_matches_generic_bit_for_bit(pencils):
     jp, tp = pencils
     rng = np.random.default_rng(2)
-    X = torch.as_tensor(rng.standard_normal((tp.G, tp.C))) * tp.col_valid_dev
+    X = torch.as_tensor(rng.standard_normal((tp.G, tp.C)) * tp.col_valid)
     got = tp.scatter_state(X)
     generic = torch.zeros(tp.state_total, dtype=X.dtype).index_add_(
-        0, tp.var_index_map_dev.reshape(-1), X.reshape(-1))
+        0, torch.as_tensor(tp.var_index_map.reshape(-1).astype(np.int64)), X.reshape(-1))
     assert torch.equal(got, generic)
     ref = np.asarray(jp.scatter_state(X.numpy()))
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -127,7 +128,7 @@ def test_eq_gather_matches_generic(pencils):
     got = tp.gather_eq_data([torch.as_tensor(d) for d in datas])
     cols = [torch.as_tensor(d)[torch.as_tensor(m.astype(np.int64))]
             for d, m in zip(datas, tp.eq_index_maps)]
-    generic = torch.cat(cols, dim=1) * tp.row_valid_dev
+    generic = torch.cat(cols, dim=1) * torch.as_tensor(tp.row_valid.astype(np.float64))
     assert torch.equal(got, generic)
     ref = np.asarray(jp.gather_eq_data(datas))
     np.testing.assert_array_equal(got.numpy(), ref)
