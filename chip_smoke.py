@@ -2,7 +2,7 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives four main paths through the
+CPU-held port at the small sizes, and drives five main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver (kernels K4,
@@ -16,13 +16,20 @@ public entry points:
     steps of the example's loop with its GlobalFlowProperty;
   * the disk libration example (examples/ivp_disk_libration.py) at 128x256,
     SBDF2, dense inverse_refined (KA, KB, K7, KE, KF, K3), 100 timed steps
-    with its GlobalFlowProperty and its KE task on a dictionary handler.
+    with its GlobalFlowProperty and its KE task on a dictionary handler;
+  * the sphere shallow-water example (examples/ivp_sphere_shallow_water.py)
+    at 256x128: the LBVP that balances the height field, then RK222 at the
+    example's 600 s timestep, dense inverse_refined (KA, KB, KC, KE, KF, K3),
+    100 timed steps of the example's loop, with the mass integ(h) held.
+
+Every path's grid-space products run through kernel KG, which is checked at
+each path's dealias grid.
 
     python3 chip_smoke.py
 
-To run one path: `python3 -c "import chip_smoke as c; c.disk_path()"` (or
-banded_path, example_path, annulus_path), after which `c.RESULTS` and
-`c.LAUNCHES` hold its kernel checks and launch counts.
+To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
+banded_path, example_path, annulus_path, disk_path), after which `c.RESULTS`
+and `c.LAUNCHES` hold its kernel checks and launch counts.
 
 Prints the phases, a JSON line with the kernels' errors, times, bounds and
 launch counts, the card's name and power limit, and as its last line
@@ -64,9 +71,13 @@ POLAR = dict(
 )
 MAX_U = 1e3     # a polar run whose max|u| passes this has blown up
 POLAR_STEPS = 100
+# The sphere example: timed size (the size upstream Dedalus ships it at) and
+# the size of the repository's copy
+SPHERE = dict(size=(256, 128), example=(128, 64), steps=100)
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
-           cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0)
+           cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
+           grid_product=1e-15)
 KERNELS = dict(   # name: (route, source, replaces)
     block_tridiag_qr_solve=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
                             'dedalus_tpu/ops/banded.py:485'),
@@ -88,17 +99,21 @@ KERNELS = dict(   # name: (route, source, replaces)
                     'dedalus_tpu/core/basis_polar.py:248'),
     pencil_gather_scatter=('cuda', 'dedalus_tpu_torch/csrc/pencil_kernels.cu',
                            'dedalus_tpu/core/subsystems.py:1224'),
+    grid_product=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
+                  'dedalus_tpu/core/arithmetic.py:252'),
 )
 # Kernels each main path must launch
 PATH_KERNELS = dict(
     rbc2048=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
-             'pencil_gather_scatter'),
+             'pencil_gather_scatter', 'grid_product'),
     rbc256=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max',
-            'pencil_gather_scatter'),
+            'pencil_gather_scatter', 'grid_product'),
     annulus=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
-             'spin_recombine', 'pencil_gather_scatter'),
+             'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
     disk=('dense_refined_solve', 'dense_matvec', 'history_combine', 'polar_apply',
-          'spin_recombine', 'pencil_gather_scatter'),
+          'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
+    sphere=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
+            'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
@@ -122,6 +137,26 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps=20):
+    """Mean time the device spends in the kernels of one fn() call, in ms,
+    from the profiler's kernel records: what a launch-bound call leaves of
+    the device's time, where cuda_ms reads the host's launch rate."""
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # Kernel records only: an aten operator's record repeats its kernels' time
+    total_us = sum(getattr(e, 'self_device_time_total', None) or
+                   getattr(e, 'self_cuda_time_total', 0) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not total_us > 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / reps * 1e-3
 
 
 def rel_err(a, b):
@@ -204,6 +239,33 @@ def segment_times(targets, run):
     return acc
 
 
+def record_solves():
+    """Keep the last dense solve of a run: patches FactorizedStack.solve and
+    returns (last, restore), `last` holding that solve's factorization,
+    right-hand side and solution once one has run."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    last = {}
+    solve = osolve.FactorizedStack.solve
+
+    def recording_solve(self, R):
+        X = solve(self, R)
+        last.update(fact=self, R=R, X=X)
+        return X
+
+    def restore():
+        osolve.FactorizedStack.solve = solve
+
+    osolve.FactorizedStack.solve = recording_solve
+    return last, restore
+
+
+def solve_residual(last):
+    """Relative residual |A X - R| / |R| of a recorded dense solve."""
+    A, X, R = last['fact'].A, last['X'], last['R']
+    return float(torch.linalg.norm(torch.matmul(A, X[..., None])[..., 0] - R)
+                 / torch.linalg.norm(R))
+
+
 def card():
     """(device, kind, the nvidia-smi name and power limit line)."""
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -215,6 +277,7 @@ def card():
 def kernel_functions():
     """The launch-counting wrappers of each kernel, by kernel name."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
+    from dedalus_tpu_torch.ops import products as oprod
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
     from dedalus_tpu_torch.csrc import spin_recombine as kf
     from dedalus_tpu_torch.core import subsystems as sub
@@ -224,7 +287,8 @@ def kernel_functions():
                 dense_matvec=[osolve.dense_matvec], rk_stage_combine=[rkc.rk_stage_combine],
                 cfl_max=[cm.cfl_max], polar_apply=[opolar.polar_apply],
                 spin_recombine=[kf.spin_recombine],
-                pencil_gather_scatter=[sub.pencil_gather, sub.pencil_scatter])
+                pencil_gather_scatter=[sub.pencil_gather, sub.pencil_scatter],
+                grid_product=[oprod.grid_product])
 
 
 def count_launches(path, steps, run):
@@ -275,16 +339,24 @@ def tally(targets, run):
 
 def f_profile(solver, state, t, reps=10):
     """K1 and K2 on one evaluation of F: the dense transforms (K1, torch
-    matmul) and the polar kernels inside it, their call counts and summed
-    bounds, and F's own time. K2's bound is the sum of its transforms' and
-    kernels' bounds (the grid products are left out)."""
+    matmul), the polar and sphere kernels and the grid products (KG) inside
+    it, their call counts and summed bounds, and F's own time, with the
+    products through KG and through its plain twin. K2's bound is the sum of
+    its transforms' and kernels' bounds."""
     from dedalus_tpu_torch.ops import transforms as otr, polar as opolar
     from dedalus_tpu_torch.csrc import spin_recombine as kf
-    from dedalus_tpu_torch.core import subsystems as sub
+    from dedalus_tpu_torch.core import subsystems as sub, arithmetic as arith
 
     def k1_cost(a, kw, out):
         mat, data = a[0], a[1]
         return nbytes(mat, data, out), 2 * mat.shape[0] * data.numel()
+
+    def fast_cost(a, kw, out):
+        # The same transform on the fast path (K10-K12, not ported): no
+        # matrix to read, 5 N log2 N operations per length-N line
+        mat, data = a[0], a[1]
+        n = max(mat.shape)
+        return nbytes(data, out), 5 * max(data.numel(), out.numel()) * np.log2(n)
 
     def ke_cost(a, kw, out):
         S, x = a[0], a[1]
@@ -297,15 +369,36 @@ def f_profile(solver, state, t, reps=10):
     def k3_cost(a, kw, out):
         return 2 * nbytes(out), out.numel()
 
+    def kg_cost(a, kw, out):
+        contracted = a[1].shape[0] if a[4] else 1
+        return nbytes(a[0], a[1], out), 2 * contracted * out.numel()
+
+    fast = 'K10-K12 fast transforms at the K1 shapes'
     acc = tally([('K1 apply_matrix', otr, 'apply_matrix', k1_cost),
+                 (fast, otr, 'apply_matrix', fast_cost),
                  ('KE polar_apply', opolar, 'polar_apply', ke_cost),
                  ('KF spin_recombine', kf, 'spin_recombine', kf_cost),
+                 ('KG grid_product', arith, 'grid_product', kg_cost),
                  ('K3 eq gather', sub, 'pencil_gather', k3_cost)],
                 lambda: solver.traced_F(state, t))
-    ms = cuda_ms(lambda: solver.traced_F(state, t), reps)
-    return dict(ms=ms, calls={k: v[0] for k, v in acc.items()},
+    # F with the products through KG and, for comparison only, through KG's
+    # plain twin (which the port never calls on the card), in turns
+    from dedalus_tpu_torch.ops import products as oprod
+
+    def f_ms(product):
+        arith.grid_product = product
+        try:
+            return cuda_ms(lambda: solver.traced_F(state, t), reps)
+        finally:
+            arith.grid_product = oprod.grid_product
+
+    turns = [f_ms(p) for p in (oprod.grid_product_plain, oprod.grid_product,
+                               oprod.grid_product, oprod.grid_product_plain)]
+    ms, ms_plain = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    return dict(ms=ms, ms_plain_products=ms_plain, ms_turns=turns,
+                calls={k: v[0] for k, v in acc.items()},
                 bound_ms={k: v[1] for k, v in acc.items()},
-                k2_bound_ms=sum(v[1] for v in acc.values()))
+                k2_bound_ms=sum(v[1] for k, v in acc.items() if k != fast))
 
 
 def check_k3(path, pencil, state, primary=False):
@@ -353,6 +446,72 @@ def check_k3(path, pencil, state, primary=False):
     r['by_path'] = by_path
     print(f"K3 on the {path} pencils (G={pencil.G}, C={pencil.C}): "
           f"{'exact' if exact else f'max_abs {err:.3e}'}")
+
+
+KG_CASES = (   # (label, a's tensor shape, b's, contract, einsum of the same contraction)
+    ('u@grad(u)', (2,), (2, 2), True, 'cxz,cbxz->bxz'),
+    ('u@grad(b)', (2,), (2,), True, 'cxz,cxz->xz'),
+    ('h*u', (), (2,), False, 'xz,bxz->bxz'),
+)
+
+
+def check_kg(path, field, primary=False):
+    """KG against its plain twin and torch.einsum at a path's product shapes
+    on the dealias grid of `field`: the vector-gradient contraction
+    u@grad(u) (timed), the scalar advection u@grad(b), the scaled outer
+    product h*u, and an operand constant along the first grid axis (read
+    through a zero stride)."""
+    from dedalus_tpu_torch.ops import products as oprod
+    grid = tuple(field.domain.grid_shape(field.domain.dealias))
+    dev = field.data.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    errs, timed = [], None
+    for label, ta, tb, contract, spec in KG_CASES:
+        a, b = rand(ta + grid), rand(tb + grid)
+        alpha = 1.0 if contract else -0.5
+        args = (a, b, len(ta), len(tb), contract, alpha)
+        yk, yp = oprod.grid_product(*args), oprod.grid_product_plain(*args)
+        torch.cuda.synchronize()
+        errs.append(rel_err(yk, yp))
+        if timed is None:
+            timed = dict(
+                what=label, shape=[list(a.shape), list(b.shape)],
+                ms=cuda_ms(lambda: oprod.grid_product(*args), 50),
+                plain_ms=cuda_ms(lambda: oprod.grid_product_plain(*args), 50),
+                library_ms=cuda_ms(lambda: torch.einsum(spec, a, b), 50),
+                device_ms=device_ms(lambda: oprod.grid_product(*args)),
+                plain_device_ms=device_ms(lambda: oprod.grid_product_plain(*args)),
+                **dict(zip(('bound_ms', 'bound_by'),
+                           bound(nbytes(a, b, yk),
+                                 2 * (ta[-1] if contract else 1) * yk.numel()))))
+    # A profile constant along the first grid axis against a tensor in the
+    # layout the azimuth transform leaves (that axis outermost in memory)
+    profile, full = rand((2, 1) + grid[1:]), rand(grid[:1] + (2, 2) + grid[1:]).movedim(0, 2)
+    args = (profile, full, 1, 2, True, 1.0)
+    yk, yp = oprod.grid_product(*args), oprod.grid_product_plain(*args)
+    torch.cuda.synchronize()
+    errs.append(rel_err(yk, yp))
+    r = dict(timed, err=max(errs))
+    prev = RESULTS.get('grid_product')
+    by_path = dict(prev['by_path']) if prev else {}
+    by_path[path] = {k: timed[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                                           'device_ms', 'plain_device_ms', 'shape')}
+    if prev is not None and not primary:
+        prev['err'] = max(prev['err'], r['err'])
+        r = prev
+    elif prev is not None:
+        r['err'] = max(prev['err'], r['err'])
+    r['by_path'] = by_path
+    RESULTS['grid_product'] = r
+    print(f"KG on the {path} dealias grid {grid}: rel_err {max(errs)[0]:.3e} (tol "
+          f"{TOL['grid_product']:.0e}); {timed['what']} kernel {timed['ms']:.4f} ms plain "
+          f"{timed['plain_ms']:.4f} ms einsum {timed['library_ms']:.4f} ms bound "
+          f"{timed['bound_ms']:.4f} ms; on the device {timed['device_ms']:.4f} ms, plain "
+          f"{timed['plain_device_ms']:.4f} ms")
+    if not max(errs)[0] <= TOL['grid_product']:
+        raise AssertionError(f"grid_product disagrees with its plain twin on the {path} "
+                             f"grid: {max(errs)[0]:.3e}")
 
 
 def check_tolerances(results):
@@ -453,6 +612,7 @@ def banded_path():
         **dict(zip(('bound_ms', 'bound_by'),
                    bound(nbytes(*k4_tensors, xp, xp, bL.w), k4_flops(bL.ops, G)))))
     check_k3('rbc2048', pencil, solver.state_flat(), primary=True)
+    check_kg('rbc2048', solver.state[0])
     check_tolerances({k: RESULTS[k] for k in ('history_combine', 'block_tridiag_qr_solve',
                                               'banded_apply', 'pencil_gather_scatter')})
 
@@ -598,16 +758,7 @@ def example_path():
     print(f"setup_s {setup_s:.2f}; G={G} P={P} dense stacks "
           f"{pencil.matrices['M'].numel() * 8 / 1e6:.1f} MB each")
 
-    # Record the last solve of the run, for its residual
-    last = {}
-    solve = osolve.FactorizedStack.solve
-
-    def recording_solve(self, R):
-        X = solve(self, R)
-        last.update(fact=self, R=R, X=X)
-        return X
-
-    osolve.FactorizedStack.solve = recording_solve
+    last, restore_solve = record_solves()
     dts = []
 
     def main_loop(iterations):
@@ -692,6 +843,12 @@ def example_path():
         **dict(zip(('bound_ms', 'bound_by'),
                    bound(nbytes(*grids, Dk), len(grids) * grids[0].numel()))))
     check_k3('rbc256', pencil, state)
+    check_kg('rbc256', u)
+    # K14's LU solve (not ported) at this stack: the factors read once
+    perm = torch.empty((G, P), dtype=torch.int32, device=R.device)
+    lu_bound = bound(nbytes(fact.Ainv, perm, R, Xk), 2 * G * P * P)
+    print(json.dumps({"rbc256_to_port": {"K14_lu_solve": dict(
+        shape=[G, P, P], bound_ms=lu_bound[0], bound_by=lu_bound[1])}, "card": smi}))
     check_tolerances({k: RESULTS[k] for k in
                       ('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max')})
 
@@ -704,14 +861,12 @@ def example_path():
     ok = ok & count_launches('rbc256', None, lambda: main_loop(EX_ITERATIONS))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    osolve.FactorizedStack.solve = solve
+    restore_solve()
     n_iter = STEPS['rbc256'] = solver.iteration - it0
     ms_step = run_s / n_iter * 1e3
     dof = EX_NX * EX_NZ * 4
     max_re = flow.max('Re')
-    fl = last['fact']
-    resid = float(torch.linalg.norm(torch.matmul(fl.A, last['X'][..., None])[..., 0] - last['R'])
-                  / torch.linalg.norm(last['R']))
+    resid = solve_residual(last)
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / n_iter for k, v in LAUNCHES['rbc256'].items() if v}
     print(f"[{smi}] RBC {EX_NX}x{EX_NZ} RK222 CFL loop: {ms_step:.3f} ms/step over {n_iter} "
@@ -742,7 +897,9 @@ def example_path():
                ('solve (KA)', osolve.FactorizedStack, 'solve'), ('scatter', pencil, 'scatter_state'),
                ('CFL (KD)', CFL, 'max_frequency'), ('flow handler', flow.handler, 'process'),
                ('new factorization', ts, '_get_stage_factor')]
-    breakdown('rbc256', solver, targets, [], lambda: main_loop(seg_iterations), smi)
+    import dedalus_tpu_torch.core.arithmetic as arith
+    breakdown('rbc256', solver, targets, [('KG', arith, 'grid_product')],
+              lambda: main_loop(seg_iterations), smi)
     print(json.dumps({"rbc256_F": f_profile(solver, solver.state_flat(), solver.sim_time),
                       "card": smi}))
 
@@ -825,10 +982,12 @@ def polar_card_vs_cpu(steps=20):
 
 
 def check_polar_kernels(geometry, ctx):
-    """KE and KF against their plain twins at a polar path's shapes: KE on
-    the disk's backward radial transform stack (the largest apply of the
-    path) or the annulus's gradient stack, with and without accumulation;
-    KF on the rank-2 recombination of grad(u) on the dealias grid."""
+    """KE and KF against their plain twins at a polar or sphere path's
+    shapes: KE on the disk's backward radial transform stack or the sphere's
+    backward SWSH stack (the largest applies of those paths) or the
+    annulus's gradient stack, with and without accumulation; KF on the
+    rank-2 recombination of grad(u) and the rank-1 recombination of u on
+    the dealias grid."""
     from dedalus_tpu_torch.ops import polar as opolar
     from dedalus_tpu_torch.csrc import spin_recombine as kf
     from dedalus_tpu_torch.core.basis import device_copy
@@ -837,11 +996,11 @@ def check_polar_kernels(geometry, ctx):
     u, T = ctx['u'], ctx.get('T')
     basis = ctx['basis']
     dev = u.data.device
-    if geometry == 'disk':
-        rb = basis.radial_basis
-        S = device_copy(rb._transform_stacks(basis.dealias[1], -1, 'b'), dev)
+    second = basis.sub_bases[1]      # the radial or colatitude basis
+    if geometry in ('disk', 'sphere'):
+        S = device_copy(second._transform_stacks(basis.dealias[1], -1, 'b'), dev)
         x = u['c'][0].contiguous()
-        what = 'backward radial transform stack, spin -1'
+        what = f"backward {'radial' if geometry == 'disk' else 'SWSH'} transform stack, spin -1"
     else:
         op = d3.grad(T)
         S = op._matrix_stack((), (0,), dev)
@@ -862,23 +1021,40 @@ def check_polar_kernels(geometry, ctx):
         library_ms=cuda_ms(lambda: torch.matmul(S, xt), 50),
         ms_accumulate=cuda_ms(lambda: opolar.polar_apply(S, x, out=base, accumulate=True), 50),
         **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(S, x, yk), 4 * K * O * I))))
-    # KF: grad(u) on the dealias grid, (2, 2, M, Nr_grid), rank 0
+    # KF: grad(u) on the dealias grid, (2, 2, M, N_grid), rank 0; and u, (2, M, N_grid)
     M = u['c'].shape[1]
-    Ng = basis.radial_basis.grid_size(basis.dealias[1])
+    Ng = second.grid_size(basis.dealias[1])
     xg = torch.randn((2, 2, M, Ng), generator=gen, dtype=torch.float64, device=dev)
     W = torch.as_tensor(spin_matrix(basis.coordsys, False), device=dev)
     fk = kf.spin_recombine(xg, 0, 2, W)
     fp = kf.spin_recombine_plain(xg, 0, 2, W)
+    f1k = kf.spin_recombine(xg[0], 0, 1, W)
+    f1p = kf.spin_recombine_plain(xg[0], 0, 1, W)
     torch.cuda.synchronize()
     d4 = xg.view(2, 2, M // 2, 2, Ng).movedim(3, 1).reshape(4, -1).contiguous()
     kfr = dict(
-        err=rel_err(fk, fp), shape=list(xg.shape),
+        err=max(rel_err(fk, fp), rel_err(f1k, f1p)), shape=list(xg.shape),
         ms=cuda_ms(lambda: kf.spin_recombine(xg, 0, 2, W), 50),
         plain_ms=cuda_ms(lambda: kf.spin_recombine_plain(xg, 0, 2, W), 50),
         library_ms=cuda_ms(lambda: torch.tensordot(W, d4, dims=([1], [0])), 50),
         **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(xg, W, fk), 7 * xg.numel()))))
     check_tolerances({'polar_apply': ke, 'spin_recombine': kfr})
     return ke, kfr
+
+
+def record_polar_kernels(geometry, ctx):
+    """Check KE and KF at a path's shapes and merge them into RESULTS: the
+    JSON line reports the disk's (the larger) applies; each path's numbers
+    stand under by_path."""
+    for name, r in zip(('polar_apply', 'spin_recombine'), check_polar_kernels(geometry, ctx)):
+        prev = RESULTS.get(name)
+        by_path = dict(prev['by_path']) if prev else {}
+        by_path[geometry] = {k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                                               'shape')}
+        merged = r if (prev is None or geometry == 'disk') else prev
+        merged['err'] = max(r['err'], prev['err']) if prev else r['err']
+        merged['by_path'] = by_path
+        RESULTS[name] = merged
 
 
 def polar_path(geometry, steps=POLAR_STEPS):
@@ -891,6 +1067,7 @@ def polar_path(geometry, steps=POLAR_STEPS):
     import dedalus_tpu_torch.core.timesteppers as tsm
     from dedalus_tpu_torch.ops import solve as osolve, polar as opolar
     from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.core import arithmetic as arith
 
     dev, kind, smi = card()
     cfg = POLAR[geometry]
@@ -919,14 +1096,6 @@ def polar_path(geometry, steps=POLAR_STEPS):
     print(f"setup_s {setup_s:.2f}; G={pencil.G} P={pencil.R} dense stacks "
           f"{pencil.matrices['M'].numel() * 8 / 1e6:.1f} MB each")
 
-    last = {}
-    solve = osolve.FactorizedStack.solve
-
-    def recording_solve(self, R):
-        X = solve(self, R)
-        last.update(fact=self, R=R, X=X)
-        return X
-
     max_u = []
 
     def main_loop(n):
@@ -936,7 +1105,7 @@ def polar_path(geometry, steps=POLAR_STEPS):
             if (solver.iteration - 1) % cadence == 0:
                 max_u.append(float(np.sqrt(flow.max('u2'))))
 
-    osolve.FactorizedStack.solve = recording_solve
+    last, restore_solve = record_solves()
     try:
         t0 = time.perf_counter()
         main_loop(5)
@@ -944,19 +1113,10 @@ def polar_path(geometry, steps=POLAR_STEPS):
         warm_s = time.perf_counter() - t0
         print(f"warmup_s {warm_s:.2f} (5 steps incl. factorizations and Triton builds)")
 
-        phase(f"KE, KF, K3 vs plain twins ({geometry}-path shapes)")
-        # The JSON line reports the disk's (the larger) applies; each path's
-        # numbers stand under by_path
-        for name, r in zip(('polar_apply', 'spin_recombine'), check_polar_kernels(geometry, ctx)):
-            prev = RESULTS.get(name)
-            by_path = dict(prev['by_path']) if prev else {}
-            by_path[geometry] = {k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
-                                                   'shape')}
-            merged = r if (prev is None or geometry == 'disk') else prev
-            merged['err'] = max(r['err'], prev['err']) if prev else r['err']
-            merged['by_path'] = by_path
-            RESULTS[name] = merged
+        phase(f"KE, KF, K3, KG vs plain twins ({geometry}-path shapes)")
+        record_polar_kernels(geometry, ctx)
         check_k3(geometry, pencil, solver.state_flat())
+        check_kg(geometry, u)
 
         phase(f"{geometry} path: {steps} timed steps of the example's loop")
         it0 = solver.iteration
@@ -966,14 +1126,12 @@ def polar_path(geometry, steps=POLAR_STEPS):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
     finally:
-        osolve.FactorizedStack.solve = solve
+        restore_solve()
     n = solver.iteration - it0
     ms_step = run_s / n * 1e3
     dof = Nphi * Nr * cfg['fields']
     state = solver.state_flat()
-    fl = last['fact']
-    resid = float(torch.linalg.norm(torch.matmul(fl.A, last['X'][..., None])[..., 0] - last['R'])
-                  / torch.linalg.norm(last['R']))
+    resid = solve_residual(last)
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / n for k, v in LAUNCHES[geometry].items() if v}
     ke_task = None if scalars is None else float(scalars['KE']['g'].reshape(-1)[0])
@@ -1007,7 +1165,8 @@ def polar_path(geometry, steps=POLAR_STEPS):
         targets += [('history combine (K7)', tsm, 'history_combine')]
     if scalars is not None:
         targets += [('KE task handler', scalars, 'process')]
-    nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine')]
+    nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
+              ('KG', arith, 'grid_product')]
     breakdown(geometry, solver, targets, nested, lambda: main_loop(20), smi)
     print(json.dumps({f"{geometry}_F": f_profile(solver, state, solver.sim_time),
                       "card": smi}))
@@ -1023,12 +1182,178 @@ def disk_path(steps=POLAR_STEPS):
     polar_path('disk', steps)
 
 
+def build_sphere(size, device):
+    """The shallow-water example (dedalus_tpu_torch.models.sphere): the
+    balanced-height LBVP's solver, the IVP and the context."""
+    from dedalus_tpu_torch.models import sphere as ms
+    lbvp, ivp, ctx = ms.build_shallow_water(*size, device=device)
+    lsolver = lbvp.build_solver()
+    if lsolver.matsolver != 'inverse_refined':
+        raise AssertionError(f"sphere: default matsolver is {lsolver.matsolver}")
+    return lsolver, ivp, ctx
+
+
+def field_rel_err(a, b):
+    """max |a - b| relative to max |b|, of two fields' coefficients."""
+    a.change_scales(1)
+    b.change_scales(1)
+    return rel_err(a['c'].cpu(), b['c'].cpu())[0]
+
+
+def sphere_card_vs_cpu(steps=20):
+    """The shallow-water example at the repository's own size: the LBVP's
+    height, then `steps` RK222 steps, the card against the CPU-held port,
+    each field relative to its own size (h ~1e-3, u ~1e-2 in the example's
+    units)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import sphere as ms
+    Nphi, Ntheta = SPHERE['example']
+    phase(f"sphere {Nphi}x{Ntheta}: LBVP, then {steps} RK222 steps: cuda vs cpu")
+    runs = {}
+    for d in (DEVICE, 'cpu'):
+        lsolver, ivp, ctx = build_sphere(SPHERE['example'], d)
+        ms.set_jet(ctx)
+        lsolver.solve()
+        balanced = ctx['h'].copy()
+        ms.perturb_height(ctx)
+        solver = ivp.build_solver(d3.RK222)
+        for _ in range(steps):
+            solver.step(ms.TIMESTEP)
+        runs[d] = dict(balanced=balanced, u=ctx['u'], h=ctx['h'])
+    errs = {k: field_rel_err(runs[DEVICE][k], runs['cpu'][k]) for k in ('balanced', 'u', 'h')}
+    print(f"sphere cuda vs cpu rel_err: LBVP h {errs['balanced']:.3e}, after {steps} steps "
+          f"u {errs['u']:.3e} h {errs['h']:.3e} (tol 1e-10)")
+    finite = all(torch.isfinite(runs[DEVICE][k]['c']).all() for k in ('u', 'h'))
+    if not (max(errs.values()) <= 1e-10 and finite):
+        raise AssertionError(f"sphere: card and CPU disagree: {errs}")
+
+
+def sphere_path(steps=SPHERE['steps']):
+    """The shallow-water example at 256x128 (G=128, P=768) through the public
+    API, as the example runs it: the LBVP that balances the height, the
+    perturbation, RK222 at 600 s with solver.step: setup (the LBVP solve
+    timed apart), 5 warm-up steps, KE, KF, K3 and KG against their twins,
+    `steps` timed steps with the mass held, and a per-segment breakdown."""
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.models import sphere as ms
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.core import arithmetic as arith
+
+    dev, kind, smi = card()
+    Nphi, Ntheta = SPHERE['size']
+    dt = ms.TIMESTEP
+    phase(f"sphere path setup: shallow water {Nphi}x{Ntheta} LBVP + RK222 dt=600 s default "
+          f"matsolver on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lsolver, ivp, ctx = build_sphere(SPHERE['size'], None)
+    u, h = ctx['u'], ctx['h']
+    if ctx['dist'].device.type != dev.type:
+        raise AssertionError(f"sphere path on {ctx['dist'].device}")
+    torch.cuda.synchronize()
+    lbvp_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches0 = osolve.dense_refined_solve.launches
+    ms.balanced_initial_condition(lsolver, ctx)
+    torch.cuda.synchronize()
+    lbvp_solve_s = time.perf_counter() - t0
+    if osolve.dense_refined_solve.launches != launches0 + 1:
+        raise AssertionError("the LBVP did not solve through kernel KA")
+    t0 = time.perf_counter()
+    solver = ivp.build_solver(d3.RK222)
+    torch.cuda.synchronize()
+    ivp_setup_s = time.perf_counter() - t0
+    setup_s = lbvp_setup_s + lbvp_solve_s + ivp_setup_s
+    pencil = solver.pencil
+    mass = lambda: float(d3.integ(h).evaluate()['g'].reshape(-1)[0])
+    mass0 = mass()
+    h_max = float(h['g'].abs().max())
+    print(f"setup_s {setup_s:.2f} (problems and LBVP matrices {lbvp_setup_s:.2f}, jet + LBVP "
+          f"solve + perturbation {lbvp_solve_s:.2f}, IVP solver {ivp_setup_s:.2f}); LBVP "
+          f"G={lsolver.pencil.G} P={lsolver.pencil.R}; IVP G={pencil.G} P={pencil.R} dense "
+          f"stacks {pencil.matrices['M'].numel() * 8 / 1e6:.1f} MB each; max|h| {h_max:.3e} "
+          f"mass {mass0:.6e}")
+    if not 1e-6 < h_max < 1e-2:
+        raise AssertionError(f"sphere: the balanced height has max|h| {h_max:.3e}")
+
+    def main_loop(n):
+        for _ in range(n):
+            solver.step(dt)
+
+    last, restore_solve = record_solves()
+    try:
+        t0 = time.perf_counter()
+        main_loop(5)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} (5 steps incl. factorizations and Triton builds)")
+
+        phase("KE, KF, K3, KG vs plain twins (sphere-path shapes)")
+        record_polar_kernels('sphere', ctx)
+        check_k3('sphere', pencil, solver.state_flat())
+        check_kg('sphere', u, primary=True)
+
+        phase(f"sphere path: {steps} timed steps of the example's loop")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches('sphere', steps, lambda: main_loop(steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = Nphi * Ntheta * 3
+    state = solver.state_flat()
+    resid = solve_residual(last)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES['sphere'].items() if v}
+    mass1 = mass()
+    max_u = float(u['g'].abs().max())
+    print(f"[{smi}] sphere {Nphi}x{Ntheta} RK222: {ms_step:.3f} ms/step over {n} steps, "
+          f"{dof * n / run_s:.4e} DOF*steps/s, setup {setup_s:.2f} s (LBVP solve "
+          f"{lbvp_solve_s:.2f} s), warmup {warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; mass {mass0:.9e} "
+          f"-> {mass1:.9e}; max|u| {max_u:.4e}")
+    print(json.dumps({"sphere_path": dict(
+        config=f"sphere shallow water {Nphi}x{Ntheta} LBVP + RK222 dt=600s {solver.matsolver}",
+        card=smi, ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s,
+        setup_s=setup_s, lbvp_setup_s=lbvp_setup_s, lbvp_solve_s=lbvp_solve_s,
+        ivp_setup_s=ivp_setup_s, warmup_s=warm_s, G=pencil.G, P=pencil.R, peak_bytes=peak,
+        launches_per_step=per_step, last_solve_residual=resid, mass0=mass0, mass1=mass1,
+        max_u=max_u, max_h=h_max)}))
+    if not (torch.isfinite(state).all() and np.isfinite(max_u) and max_u <= MAX_U):
+        raise AssertionError(f"sphere: the run blew up (max|u| {max_u:.3g})")
+    if not abs(mass1 - mass0) <= 1e-12 + 1e-8 * abs(mass0):
+        raise AssertionError(f"sphere: mass {mass0:.9e} -> {mass1:.9e}")
+    if not resid <= 1e-12:
+        raise AssertionError(f"sphere: last solve residual {resid:.3e} > 1e-12")
+
+    phase("sphere path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'), ('combine (KC)', tsm, 'rk_stage_combine'),
+               ('new factorization', solver.timestepper, '_get_stage_factor')]
+    nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
+              ('KG', arith, 'grid_product')]
+    breakdown('sphere', solver, targets, nested, lambda: main_loop(20), smi)
+    print(json.dumps({"sphere_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
     _, kind, smi = card()
     print(smi)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    import triton
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} "
+          f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1048,9 +1373,11 @@ def main():
     polar_card_vs_cpu()
     annulus_path()
     disk_path()
+    sphere_card_vs_cpu()
+    sphere_path()
 
-    extra = ('ms_zero_pass', 'ms_pair', 'ms_accumulate', 'ms_gather', 'ms_scatter',
-             'ms_eq_gather', 'shape', 'by_path')
+    extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
+             'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

@@ -3,8 +3,9 @@ Arithmetic operator nodes: Add, Multiply (outer product), DotProduct.
 
 Mirrors dedalus_tpu/core/arithmetic.py on Cartesian and polar domains.
 Nonlinear products evaluate in grid space at dealias scales, where the
-components of polar tensors are coordinate components, so the products are
-the Cartesian ones. NCC (linear-side) products lower to Clenshaw
+components of polar and S2 tensors are coordinate components, so the
+products are the Cartesian ones: kernel KG (ops/products.py), one launch
+per product node. NCC (linear-side) products lower to Clenshaw
 multiplication matrices per pencil on Cartesian domains; curvilinear NCCs
 and CrossProduct are not ported yet (ROADMAP M11, M3).
 """
@@ -17,6 +18,7 @@ from scipy import sparse
 from .field import Field
 from .future import Future, as_operand
 from .domain import Domain
+from ..ops.products import grid_product
 from ..utils.general import prod
 
 
@@ -215,12 +217,9 @@ class Multiply(Future):
         if len(datas) == 1:
             out = self.scalar * datas[0]
         else:
-            a, b = datas
-            na = len(arg_fields[0].tensorsig)
-            nb = len(arg_fields[1].tensorsig)
             # Outer product over tensor components, pointwise over space
-            a_exp = a.reshape(a.shape[:na] + (1,) * nb + a.shape[na:])
-            out = self.scalar * (a_exp * b)
+            out = grid_product(datas[0], datas[1], len(arg_fields[0].tensorsig),
+                               len(arg_fields[1].tensorsig), False, self.scalar)
         shape = tuple(cs.dim for cs in self.tensorsig) + self.domain.grid_shape(self.domain.dealias)
         out = torch.broadcast_to(out, shape)
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
@@ -388,13 +387,8 @@ class DotProduct(Future):
         a_field, b_field = arg_fields
         a = _to_dealias_grid(a_field)
         b = _to_dealias_grid(b_field)
-        na = len(a_field.tensorsig)
-        nb = len(b_field.tensorsig)
-        # Contract a's last tensor axis with b's first via broadcast-multiply + sum
-        # a: (A..., c, space), b: (c, B..., space)
-        a_exp = a.reshape(a.shape[:na] + (1,) * (nb - 1) + a.shape[na:])
-        b_exp = b.reshape((1,) * (na - 1) + b.shape)
-        out = (a_exp * b_exp).sum(dim=na - 1)
+        # Contract a's last tensor axis with b's first, pointwise over space
+        out = grid_product(a, b, len(a_field.tensorsig), len(b_field.tensorsig), True)
         shape = tuple(cs.dim for cs in self.tensorsig) + self.domain.grid_shape(self.domain.dealias)
         out = torch.broadcast_to(out, shape)
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)

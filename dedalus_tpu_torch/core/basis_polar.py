@@ -1,5 +1,7 @@
 """
-Polar bases: the annulus and the disk, real dtype.
+Polar bases: the annulus and the disk, real dtype; and the azimuth basis,
+spin recombination and per-(m, spin) stack apply they share with the sphere
+(core/basis_sphere.py).
 
 Mirrors dedalus_tpu/core/basis_polar.py. An annulus or disk field's
 coefficient data is (components..., M, N): the azimuth is RealFourier with
@@ -34,10 +36,10 @@ from ..spectral import zernike as zernike_lib
 
 
 class AzimuthBasis(RealFourier):
-    """Periodic azimuth basis on [0, 2 pi) of a polar system, real dtype:
-    interleaved (cos, -sin) pairs. Spin recombination binds the components
-    of a polar tensor to the parity pairs, so such tensors keep both m=0
-    slots valid."""
+    """Periodic azimuth basis on [0, 2 pi) of a polar or S2 system, real
+    dtype: interleaved (cos, -sin) pairs. Spin recombination binds the
+    components of a tensor over the system to the parity pairs, so such
+    tensors keep both m=0 slots valid."""
 
     def _tensor_all_valid(self, tensorsig):
         return any(t is self.coord.cs for t in tensorsig)
@@ -54,10 +56,10 @@ class AzimuthBasis(RealFourier):
 
 
 def make_azimuth_basis(coord, size, dealias, dtype):
-    """Azimuth basis of a polar facade (real dtypes only)."""
+    """Azimuth basis of a polar or sphere facade (real dtypes only)."""
     if np.dtype(dtype).kind != 'f':
         raise NotImplementedError(
-            "complex polar fields (signed (+m, -m) azimuth slots) are not "
+            "complex curvilinear fields (signed (+m, -m) azimuth slots) are not "
             "ported yet (ROADMAP M2)")
     return AzimuthBasis(coord, size, bounds=(0, 2 * np.pi), dealias=dealias, dtype=dtype)
 
@@ -100,6 +102,20 @@ def spin_recombine(coordsys, tensorsig, data, azimuth_axis, forward):
 def _comp_spin_map(cs, tensorsig):
     return {idx: cs.spintotal(tensorsig, idx)
             for idx in np.ndindex(*[t.dim for t in tensorsig])}
+
+
+def apply_spin_stacks(basis, data, scale, direction, out_size, tensorsig):
+    """Apply the per-m transform stack of each component's spin along the
+    last axis of `data` (comps..., M, n): one launch of kernel KE per
+    component. `basis` gives `_transform_stacks(scale, spin, direction)`."""
+    shape = tuple(cs.dim for cs in tensorsig)
+    M = data.shape[-2]
+    out = torch.empty(shape + (M, out_size), dtype=data.dtype, device=data.device)
+    spins = _comp_spin_map(basis.parent.coordsys, tensorsig) if tensorsig else {(): 0}
+    for idx, s in spins.items():
+        stack = device_copy(basis._transform_stacks(scale, s, direction), data.device)
+        ops_polar.polar_apply(stack, data[idx], out=out[idx])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -417,24 +433,13 @@ class DiskRadialBasis(Basis):
             fwd[m], bwd[m] = self._one_m_matrices(m, s, z, w)
         return np.ascontiguousarray(fwd if direction == 'f' else bwd)
 
-    def _apply_stacks(self, data, scale, direction, out_size, tensorsig):
-        """Apply the per-m stack of each component's spin (kernel KE)."""
-        shape = tuple(cs.dim for cs in tensorsig)
-        M = data.shape[-2]
-        out = torch.empty(shape + (M, out_size), dtype=data.dtype, device=data.device)
-        spins = _comp_spin_map(self.parent.coordsys, tensorsig) if tensorsig else {(): 0}
-        for idx, s in spins.items():
-            stack = device_copy(self._transform_stacks(scale, s, direction), data.device)
-            ops_polar.polar_apply(stack, data[idx], out=out[idx])
-        return out
-
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
         data = spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=True)
-        return self._apply_stacks(data.contiguous(), scale, 'f', self.size, tensorsig)
+        return apply_spin_stacks(self, data.contiguous(), scale, 'f', self.size, tensorsig)
 
     def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
-        data = self._apply_stacks(data.contiguous(), scale, 'b', self.grid_size(scale),
-                                  tensorsig)
+        data = apply_spin_stacks(self, data.contiguous(), scale, 'b', self.grid_size(scale),
+                                 tensorsig)
         return spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=False)
 
     # --- operator matrices ---

@@ -1,8 +1,9 @@
 """
-Coordinates and coordinate systems (Cartesian and polar).
+Coordinates and coordinate systems (Cartesian, polar and the sphere
+surface).
 
-Mirrors dedalus_tpu/core/coords.py. The S2 and spherical systems and
-direct products are not ported yet (ROADMAP M11).
+Mirrors dedalus_tpu/core/coords.py. The 3-D spherical system and direct
+products are not ported yet (ROADMAP M11b-2).
 """
 
 import numpy as np
@@ -52,21 +53,21 @@ class CurvilinearCoordinateSystem(CoordinateSystem):
     """Base for curvilinear systems with spin-component machinery."""
 
 
-class PolarCoordinates(CurvilinearCoordinateSystem):
+class SpinCoordinateSystem(CurvilinearCoordinateSystem):
     """
-    Polar coordinates (azimuth, radius); spin component ordering (-, +).
-    Vector components are (phi, r) in grid space and spin components in
-    coefficient space: u_s = (u_r + s*1j*u_phi)/sqrt(2).
+    A two-dimensional curvilinear system (azimuth, second coordinate) whose
+    vectors are stored as spin components in coefficient space: spin
+    ordering (-, +), u_s = (u_2 + s*1j*u_phi)/sqrt(2) with u_2 the component
+    along the second coordinate, and grid components ordered (phi, second).
     """
 
     spin_ordering = (-1, +1)
     dim = 2
 
-    def __init__(self, azimuth, radius):
-        self.names = (azimuth, radius)
+    def _set_coords(self, azimuth, second):
+        self.names = (azimuth, second)
         self.azimuth = AzimuthalCoordinate(azimuth, cs=self)
-        self.radius = Coordinate(radius, cs=self)
-        self.coords = (self.azimuth, self.radius)
+        self.coords = (self.azimuth, Coordinate(second, cs=self))
 
     def __getitem__(self, key):
         if isinstance(key, str):
@@ -96,8 +97,28 @@ class PolarCoordinates(CurvilinearCoordinateSystem):
                 total += self.spin_ordering[idx]
         return total
 
+
+class PolarCoordinates(SpinCoordinateSystem):
+    """Polar coordinates (azimuth, radius): u_s = (u_r + s*1j*u_phi)/sqrt(2)."""
+
+    def __init__(self, azimuth, radius):
+        self._set_coords(azimuth, radius)
+        self.radius = self.coords[1]
+
     def __repr__(self):
         return f"PolarCoordinates{self.names}"
+
+
+class S2Coordinates(SpinCoordinateSystem):
+    """Sphere-surface coordinates (azimuth, colatitude):
+    u_s = (u_theta + s*1j*u_phi)/sqrt(2)."""
+
+    def __init__(self, azimuth, colatitude):
+        self._set_coords(azimuth, colatitude)
+        self.colatitude = self.coords[1]
+
+    def __repr__(self):
+        return f"S2Coordinates{self.names}"
 
 
 class CartesianCoordinates(CoordinateSystem):

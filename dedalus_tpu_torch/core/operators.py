@@ -1,16 +1,17 @@
 """
-Operator nodes and vector-calculus factories (Cartesian and polar).
+Operator nodes and vector-calculus factories (Cartesian, polar and S2).
 
 Mirrors dedalus_tpu/core/operators.py for the operators the Rayleigh-Benard
 IVP, the annulus and disk examples and their analysis use: Differentiate,
 Convert, Interpolate, Integrate, Lift, TimeDerivative, Component, Power,
 UnaryGridFunction (numpy ufuncs on operands), the Cartesian AdvectiveCFL
-and the grad/div/lap/trace factories, which dispatch to the polar
-operators (core/operators_polar.py) on polar coordinates. Each one-axis
+and the grad/div/lap/trace/skew/integ/ave factories, which dispatch to the
+polar operators (core/operators_polar.py) on polar coordinates and to the
+sphere operators (core/operators_sphere.py) on S2 coordinates. Each one-axis
 operator carries one host matrix: the pencil matrices slice it on the host
 (scipy), and eager evaluation applies it densely on the field's device. The
-spherical geometries, the curvilinear CFL spacings, Curl/Skew/Transpose and
-general functions are not ported yet (ROADMAP M3, M9, M11).
+ball and shell, the curvilinear CFL spacings, Curl/Transpose and general
+functions are not ported yet (ROADMAP M3, M9, M11b-2).
 """
 
 import numbers
@@ -21,7 +22,8 @@ from scipy import sparse
 from .field import Operand, Field
 from .future import Future
 from .domain import Domain
-from .coords import Coordinate, CoordinateSystem, CartesianCoordinates, PolarCoordinates
+from .coords import (Coordinate, CoordinateSystem, CartesianCoordinates, PolarCoordinates,
+                     S2Coordinates, CurvilinearCoordinateSystem)
 from . import arithmetic
 from .arithmetic import Add, merge_domains, _constant_embedding
 from .basis import FourierBase, device_copy
@@ -567,7 +569,7 @@ class AdvectiveCFL(Future):
     dealias grid, Cartesian: sum_i |u_i| / dx_i with the Fourier spacing
     L / N and the Chebyshev spacing dealias * sin(theta) pi L / (2 N)
     (fine near the walls). Curvilinear geometries are not ported yet
-    (ROADMAP M11).
+    (ROADMAP M11b-2).
     """
 
     name = 'cfl'
@@ -578,7 +580,7 @@ class AdvectiveCFL(Future):
         self.coordsys = coordsys if coordsys is not None else operand.tensorsig[0]
         if not isinstance(self.coordsys, (CartesianCoordinates, Coordinate)):
             raise NotImplementedError(f"{self.coordsys}: the curvilinear CFL spacings are "
-                                      f"not ported yet (ROADMAP M11)")
+                                      f"not ported yet (ROADMAP M11b-2)")
         super().__init__(operand)
         self._spacings = None
 
@@ -659,14 +661,21 @@ def convert(expr, bases):
 
 
 # ---------------------------------------------------------------------------
-# Vector calculus factories (Cartesian; polar systems dispatch to
-# core/operators_polar.py)
+# Vector calculus factories (Cartesian; polar and S2 systems dispatch to
+# core/operators_polar.py and core/operators_sphere.py)
 # ---------------------------------------------------------------------------
 
 def _require_supported(coordsys):
-    if not isinstance(coordsys, (CartesianCoordinates, Coordinate, PolarCoordinates)):
+    if not isinstance(coordsys, (CartesianCoordinates, Coordinate, PolarCoordinates,
+                                 S2Coordinates)):
         raise NotImplementedError(
-            f"{coordsys}: spherical operators are not ported yet (ROADMAP M11)")
+            f"{coordsys}: ball and shell operators are not ported yet (ROADMAP M11b-2)")
+
+
+def _s2_basis(operand):
+    """Whether the operand lives on a sphere-surface basis."""
+    return any(b is not None and isinstance(b.coord.cs, S2Coordinates)
+               for b in operand.domain.bases)
 
 
 def Differentiate(operand, coord):
@@ -679,6 +688,9 @@ def Gradient(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
     _require_supported(coordsys)
+    if isinstance(coordsys, S2Coordinates):
+        from .operators_sphere import SphereGradient
+        return SphereGradient(operand, coordsys)
     if isinstance(coordsys, PolarCoordinates):
         from .operators_polar import PolarGradient
         return PolarGradient(operand, coordsys)
@@ -691,6 +703,9 @@ def Divergence(operand, index=0):
         raise ValueError("Divergence requires a tensor operand")
     coordsys = operand.tensorsig[index]
     _require_supported(coordsys)
+    if isinstance(coordsys, S2Coordinates):
+        from .operators_sphere import SphereDivergence
+        return SphereDivergence(operand, index)
     if isinstance(coordsys, PolarCoordinates):
         from .operators_polar import PolarDivergence
         return PolarDivergence(operand, index)
@@ -707,6 +722,9 @@ def Divergence(operand, index=0):
 def Laplacian(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
+    if isinstance(coordsys, S2Coordinates):
+        from .operators_sphere import SphereLaplacian
+        return SphereLaplacian(operand, coordsys)
     if isinstance(coordsys, PolarCoordinates):
         from .operators_polar import PolarLaplacian
         return PolarLaplacian(operand, coordsys)
@@ -717,12 +735,27 @@ def Trace(operand):
     if len(operand.tensorsig) < 2:
         raise ValueError("Trace requires a rank-2+ tensor")
     _require_supported(operand.tensorsig[0])
+    if isinstance(operand.tensorsig[0], S2Coordinates):
+        raise NotImplementedError("Trace on S2 tensors is not ported yet (ROADMAP M11b-2)")
     if isinstance(operand.tensorsig[0], PolarCoordinates):
         from .operators_polar import PolarTrace
         return PolarTrace(operand)
     dim = operand.tensorsig[0].dim
     terms = [Component(Component(operand, i), i) for i in range(dim)]
     return Add(*terms) if len(terms) > 1 else terms[0]
+
+
+def Skew(operand):
+    """90-degree rotation of a 2D vector: skew(u) = (-u[1], u[0]); a pair
+    rotation of the spin components on curvilinear systems."""
+    coordsys = operand.tensorsig[0]
+    if isinstance(coordsys, CurvilinearCoordinateSystem):
+        from .operators_sphere import SpinSkew
+        return SpinSkew(operand)
+    if coordsys.dim != 2:
+        raise ValueError("Skew requires 2D vectors")
+    return TensorStack([arithmetic.Multiply(-1, Component(operand, 1)), Component(operand, 0)],
+                       coordsys)
 
 
 def AzimuthalComponent(operand, index=0):
@@ -747,6 +780,9 @@ def Interpolate(operand, coord, position):
 
 
 def Integrate(operand, coord=None):
+    if _s2_basis(operand):
+        from .operators_sphere import SphereIntegrate
+        return SphereIntegrate(operand)
     if coord is None:
         coords = [b.coord for b in operand.domain.bases if b is not None]
     elif isinstance(coord, CartesianCoordinates):
@@ -758,6 +794,27 @@ def Integrate(operand, coord=None):
     out = operand
     for c in coords:
         out = Integrate1D(out, c)
+    return out
+
+
+def Average(operand, coord=None):
+    """Mean over the given coordinates (all of the operand's by default);
+    over the whole surface on the sphere."""
+    if _s2_basis(operand):
+        from .operators_sphere import SphereAverage
+        return SphereAverage(operand)
+    if coord is None:
+        coords = [b.coord for b in operand.domain.bases if b is not None]
+    elif isinstance(coord, (tuple, list)):
+        coords = list(coord)
+    elif isinstance(coord, CartesianCoordinates):
+        coords = [c for c in coord.coords if operand.domain.bases[c.axis] is not None]
+    else:
+        coords = [coord]
+    out = operand
+    for c in coords:
+        basis = operand.domain.bases[c.axis]
+        out = arithmetic.Multiply(1 / (basis.bounds[1] - basis.bounds[0]), Integrate1D(out, c))
     return out
 
 
@@ -791,14 +848,17 @@ grad = Gradient
 div = Divergence
 lap = Laplacian
 trace = Trace
+skew = Skew
+ave = Average
 azimuthal = AzimuthalComponent
 integ = Integrate
 interp = Interpolate
 dt = TimeDerivative
 lift = Lift
 
-__all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace',
-           'Interpolate', 'Integrate', 'Lift', 'TimeDerivative',
+__all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace', 'Skew',
+           'Interpolate', 'Integrate', 'Average', 'Lift', 'TimeDerivative',
            'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
            'AzimuthalComponent', 'convert',
-           'grad', 'div', 'lap', 'trace', 'azimuthal', 'integ', 'interp', 'dt', 'lift']
+           'grad', 'div', 'lap', 'trace', 'skew', 'ave', 'azimuthal', 'integ', 'interp', 'dt',
+           'lift']

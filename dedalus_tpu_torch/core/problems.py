@@ -1,10 +1,10 @@
 """
-Problem classes (initial value problems).
+Problem classes: initial value and linear boundary value problems.
 
 Mirrors dedalus_tpu/core/problems.py: string equation entry via namespace
-evaluation, linearity and first-order checks, and the M/L/F split of
-M.dt(X) + L.X = F(X, t). Boundary value and eigenvalue problems are not
-ported yet (ROADMAP M8).
+evaluation, linearity and first-order checks, the M/L/F split of
+M.dt(X) + L.X = F(X, t) and the L/F split of L.X = F. Nonlinear boundary
+value and eigenvalue problems are not ported yet (ROADMAP M8).
 """
 
 import numpy as np
@@ -13,6 +13,7 @@ from collections import ChainMap
 from .field import Field
 from .future import Future, as_operand
 from . import operators
+from . import operators_sphere
 from . import arithmetic
 from ..utils import parsing
 from ..utils.general import unify_attributes
@@ -22,6 +23,8 @@ parseables = {name: getattr(operators, name) for name in operators.__all__}
 parseables.update({name: getattr(arithmetic, name) for name in arithmetic.__all__})
 parseables['np'] = np
 parseables['dot'] = arithmetic.DotProduct
+parseables['MulCosine'] = operators_sphere.MulCosine
+parseables['SpinSkew'] = operators_sphere.SpinSkew
 
 
 class UnsupportedEquationError(ValueError):
@@ -93,6 +96,29 @@ class ProblemBase:
         return operators.convert(F, domain.bases)
 
 
+class LinearBoundaryValueProblem(ProblemBase):
+    """L.X = F with the LHS linear in X and F independent of X."""
+
+    def _check_equation_conditions(self, eqn):
+        eqn['LHS'].require_linearity(
+            *self.variables, self_name='LBVP LHS', vars_name='problem variables',
+            error=UnsupportedEquationError)
+        if isinstance(eqn['RHS'], (Field, Future)):
+            eqn['RHS'].require_independent(
+                *self.variables, self_name='LBVP RHS', vars_name='problem variables',
+                error=UnsupportedEquationError)
+
+    def _build_matrix_expressions(self, eqn):
+        L = eqn['LHS']
+        domain = eqn['eqn'].domain if isinstance(eqn['eqn'], (Field, Future)) else L.domain
+        L = operators.convert(L, domain.bases)
+        eqn['L'] = L
+        eqn['F'] = self._rhs_operand(eqn, domain)
+        eqn['domain'] = domain
+        eqn['matrix_dependence'] = L.matrix_dependence(*self.variables)
+        eqn['matrix_coupling'] = L.matrix_coupling(*self.variables)
+
+
 class InitialValueProblem(ProblemBase):
     """M.dt(X) + L.X = F(X, t)."""
 
@@ -143,8 +169,10 @@ class InitialValueProblem(ProblemBase):
 
 
 IVP = InitialValueProblem
+LBVP = LinearBoundaryValueProblem
 
 
-# Attach the solver class (late import to avoid a circular module dependency)
+# Attach the solver classes (late import to avoid a circular module dependency)
 from . import solvers as _solvers
 InitialValueProblem.solver_class = _solvers.InitialValueSolver
+LinearBoundaryValueProblem.solver_class = _solvers.LinearBoundaryValueSolver

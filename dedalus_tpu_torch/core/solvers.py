@@ -1,13 +1,16 @@
 """
-Initial value solver.
+Initial value and linear boundary value solvers.
 
-Mirrors dedalus_tpu/core/solvers.py SolverBase and InitialValueSolver:
+Mirrors dedalus_tpu/core/solvers.py SolverBase, InitialValueSolver and
+LinearBoundaryValueSolver:
 subproblem enumeration and the pencil system, the default matsolver from
 the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
-with grouped transforms (ROADMAP K2, plain torch), step / run_steps with
+with grouped transforms (ROADMAP K2: plain torch around kernel KG's grid
+products), step / run_steps with
 the evaluator's handler schedule, the run-control properties and
-log_stats. The boundary value and eigenvalue solvers and file output are
-not ported yet (ROADMAP M8, M9).
+log_stats; the LBVP factors L once (kernel KA solves it). The nonlinear
+boundary value and eigenvalue solvers and file output are not ported yet
+(ROADMAP M8, M9).
 """
 
 import logging
@@ -19,7 +22,7 @@ import torch
 from . import subsystems
 from . import timesteppers as timesteppers_module
 from .distributor import Layout
-from ..ops.solve import DENSE_METHODS
+from ..ops.solve import DENSE_METHODS, FactorizedStack
 from ..utils.config import config
 
 logger = logging.getLogger(__name__)
@@ -58,6 +61,21 @@ class SolverBase:
             f.require_coeff_space()
             f.change_scales(1)
         return self.pencil.flatten_fields(self.state)
+
+    def set_state_pencils(self, X):
+        """Scatter (G, C) pencils into the state fields (kernel K3)."""
+        self.pencil.unflatten_fields(self.pencil.scatter_state(X), self.state)
+
+    def evaluate_F(self):
+        """Evaluate every equation's RHS tree as it stands (no state is
+        bound, no transforms are grouped) and gather (G, R) pencils."""
+        datas = []
+        for eq in self.problem.equations:
+            F = eq['F'].evaluate()
+            F.require_coeff_space()
+            F.change_scales(1)
+            datas.append(F.data)
+        return self.pencil.gather_eq_data(datas)
 
     def traced_F(self, state_flat, t):
         """
@@ -255,6 +273,27 @@ class SolverBase:
                 F.preset_data(self.dist.coeff_layout,
                               part.reshape(F.tensor_shape + tuple(part.shape[1:])),
                               scales=1)
+
+
+class LinearBoundaryValueSolver(SolverBase):
+    """L.X = F: one factorization of the pivoted L stack, one solve."""
+
+    matrix_names = ('L',)
+
+    def __init__(self, problem, **kw):
+        super().__init__(problem, **kw)
+        if self.matsolver not in DENSE_METHODS:
+            raise NotImplementedError(
+                f"LBVP with matsolver '{self.matsolver}' is not ported yet (ROADMAP M8)")
+        self._factorized = None
+
+    def solve(self, rebuild_matrices=False):
+        if rebuild_matrices or self._factorized is None:
+            if rebuild_matrices:
+                self.pencil.build_matrices(['L'])
+            A = self.pencil.combined_with_pivots({'L': 1.0})
+            self._factorized = FactorizedStack(A, method=self.matsolver)
+        self.set_state_pencils(self._factorized.solve(self.evaluate_F()))
 
 
 class InitialValueSolver(SolverBase):

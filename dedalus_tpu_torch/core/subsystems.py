@@ -1,8 +1,8 @@
 """
 Subproblems: per-mode-group pencil systems.
 
-Mirrors dedalus_tpu/core/subsystems.py for Cartesian and polar domains with one
-coupled axis:
+Mirrors dedalus_tpu/core/subsystems.py for Cartesian, polar and sphere
+domains with one coupled axis:
 
   * every group gets an identical pencil layout (constant-axis fields occupy
     width-1 slots in all groups; invalid modes get identity pivots), so each
@@ -16,10 +16,12 @@ coupled axis:
     pencils are kernel K3 (csrc/pencil_kernels.cu) on the distributor's
     device;
   * polar radial bases with an m-dependent truncation (the disk) mark the
-    modes above n_size(m) invalid in each azimuthal group.
+    modes above n_size(m) invalid in each azimuthal group; the sphere's
+    colatitude basis marks them per tensor component, jointly over the
+    (azimuth pair, ell slot) of each azimuthal group.
 
 Conditioned equations, slot-split spherical pencils and mesh padding are
-not ported yet (ROADMAP M8, M11, M12).
+not ported yet (ROADMAP M8, M11b-2, M12).
 """
 
 import copy
@@ -203,7 +205,14 @@ class Subproblem:
     def valid_mask(self, domain, tensorsig):
         """Boolean mask over the pencil entries of a field/equation
         (component-major, matching the pencil layout)."""
-        ncomp = prod(tuple(cs.dim for cs in tensorsig)) or 1
+        shape = tuple(cs.dim for cs in tensorsig)
+        if any(hasattr(b, 'surface_pair_valid_for_m') for b in domain.bases):
+            # Sphere: slot j of a component holds ell = max(|m|, |spin|) + j
+            return np.concatenate([self._component_mask(domain, tensorsig, cidx)
+                                   for cidx in np.ndindex(*shape)])
+        return np.concatenate([self._component_mask(domain, tensorsig, None)] * (prod(shape) or 1))
+
+    def _component_mask(self, domain, tensorsig, cidx):
         axis_masks = []
         for axis in range(self.dist.dim):
             basis = domain.bases[axis]
@@ -213,6 +222,14 @@ class Subproblem:
                 else:
                     # Constant along a separable axis: valid only in group 0
                     axis_masks.append(np.array([self.group[axis] == 0]))
+            elif self.coupled[axis] and hasattr(basis, 'surface_pair_valid_for_m'):
+                # Sphere surface: validity joint over (azimuth pair, ell
+                # slot), absorbing the mask of the azimuth axis before it
+                az_basis = domain.bases[axis - 1]
+                az_w = az_basis.group_shape[0] if az_basis is not None else 1
+                axis_masks[axis - 1] = np.ones(1, dtype=bool)
+                axis_masks.append(basis.surface_pair_valid_for_m(
+                    self.group[axis - 1] or 0, tensorsig, cidx, az_w))
             elif self.coupled[axis] and hasattr(basis, 'group_valid_for_m'):
                 # m-dependent radial truncation (disk): m is the group index
                 # of the azimuth axis before it
@@ -225,7 +242,7 @@ class Subproblem:
         mask = axis_masks[0]
         for m in axis_masks[1:]:
             mask = np.outer(mask, m).ravel()
-        return np.concatenate([mask] * ncomp)
+        return mask
 
 
 def enumerate_subproblems(dist, domains, coupling):

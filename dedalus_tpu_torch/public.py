@@ -1,35 +1,38 @@
 """
 Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
-The ported subset of dedalus_tpu/public.py: Cartesian and polar
+The ported subset of dedalus_tpu/public.py: Cartesian, polar and S2
 coordinates, the RealFourier and Jacobi bases on the matrix-transform path,
-the annulus and disk bases (real dtype), fields, the Cartesian operators
-of the Rayleigh-Benard IVP and the polar operators of the annulus and disk
-examples (with numpy ufuncs on operands and the Cartesian advective CFL
-frequency), IVPs, the InitialValueSolver
-with SBDF2 (banded or dense matsolvers) and the Runge-Kutta schemes (dense
-matsolvers), the dictionary handlers of the evaluator, and the CFL and
-GlobalFlowProperty flow tools. File output, plot tools and post-processing
-are not ported yet (ROADMAP M9).
+the annulus, disk and sphere bases (real dtype), fields, the Cartesian
+operators of the Rayleigh-Benard IVP, the polar operators of the annulus
+and disk examples and the sphere operators of the shallow-water example
+(with numpy ufuncs on operands and the Cartesian advective CFL frequency),
+IVPs and LBVPs, the InitialValueSolver with SBDF2 (banded or dense
+matsolvers) and the Runge-Kutta schemes (dense matsolvers), the
+LinearBoundaryValueSolver (dense matsolvers), the dictionary handlers of
+the evaluator, and the CFL and GlobalFlowProperty flow tools. File output,
+plot tools and post-processing are not ported yet (ROADMAP M9).
 """
 
-from .core.coords import Coordinate, CartesianCoordinates, PolarCoordinates
+from .core.coords import Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates
 from .core.distributor import Distributor
 from .core.basis import Jacobi, ChebyshevT, RealFourier
 from .core.basis_polar import AnnulusBasis, DiskBasis
+from .core.basis_sphere import SphereBasis
 from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
-    Differentiate, Gradient, Divergence, Laplacian, Trace, Interpolate,
-    Integrate, Lift, TimeDerivative, Component, Power, UnaryGridFunction, AdvectiveCFL,
-    AzimuthalComponent, grad, div, lap, trace, azimuthal, integ, interp, dt, lift,
-    convert as Convert,
+    Differentiate, Gradient, Divergence, Laplacian, Trace, Skew, Interpolate,
+    Integrate, Average, Lift, TimeDerivative, Component, Power, UnaryGridFunction,
+    AdvectiveCFL, AzimuthalComponent, grad, div, lap, trace, skew, azimuthal, integ, ave,
+    interp, dt, lift, convert as Convert,
 )
+from .core.operators_sphere import MulCosine
 from .core.arithmetic import Add, Multiply, DotProduct
 from .core.arithmetic import DotProduct as dot
-from .core.problems import IVP, InitialValueProblem
+from .core.problems import IVP, InitialValueProblem, LBVP, LinearBoundaryValueProblem
 from .core.timesteppers import SBDF2, RK111, RK222, RK443, RKSMR, RKGFY
-from .core.solvers import InitialValueSolver
+from .core.solvers import InitialValueSolver, LinearBoundaryValueSolver
 from .extras.flow_tools import GlobalArrayReducer, GlobalFlowProperty, CFL
 
 Chebyshev = ChebyshevT

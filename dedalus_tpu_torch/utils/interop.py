@@ -10,10 +10,13 @@ import numpy as np
 import torch
 
 
-def set_state_from_reference(solver, arrays):
+def set_state_from_reference(solver, arrays, fields=None):
     """Set the port's state fields from coefficient arrays keyed by field
-    name (numpy, as dedalus_tpu's Field data in coefficient layout)."""
-    for field in solver.state:
+    name (numpy, as dedalus_tpu's Field data in coefficient layout; polar
+    and sphere fields in their rectangular (m, slot) storage). `solver` is
+    an IVP or LBVP solver; `fields` names other fields to set instead of
+    its variables (the right-hand-side fields of an LBVP)."""
+    for field in (solver.state if fields is None else fields):
         field.change_scales(1)
         field['c'] = np.asarray(arrays[field.name])
 

@@ -65,5 +65,17 @@ def test_polar_path_import_has_no_jax():
          'assert d3.PolarCoordinates and d3.DiskBasis and d3.AnnulusBasis')
 
 
+def test_sphere_path_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.sphere\n'
+         'import dedalus_tpu_torch.core.basis_sphere\n'
+         'import dedalus_tpu_torch.core.operators_sphere\n'
+         'import dedalus_tpu_torch.spectral.sphere\n'
+         'import dedalus_tpu_torch.ops.products\n'
+         'import dedalus_tpu_torch.csrc.grid_product\n'
+         'assert d3.S2Coordinates and d3.SphereBasis and d3.MulCosine and d3.LBVP\n'
+         'assert d3.skew and d3.ave and d3.integ')
+
+
 def test_every_module_import_has_no_jax():
     _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))
