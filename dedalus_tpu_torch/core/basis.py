@@ -196,7 +196,14 @@ class Jacobi(Basis):
             proj = (P * w)
             proj[N:, :] = 0
             conv = jacobi_lib.conversion_matrix(M, self.a0, self.b0, self.a, self.b)
-            mat = conv.toarray().astype(np.longdouble) @ proj
+            # conv is upper banded: the longdouble product conv @ proj summed
+            # diagonal by diagonal (the dense product's order, without its
+            # zero terms; numpy has no BLAS for longdouble)
+            mat = np.zeros_like(proj)
+            for d in range(M):
+                cd = conv.diagonal(d)
+                if np.any(cd):
+                    mat[:M - d] += cd.astype(np.longdouble)[:, None] * proj[d:]
         return np.ascontiguousarray(mat.astype(dtype))
 
     @CachedMethod

@@ -380,10 +380,10 @@ class Component(LinearOperator):
         dim0 = op.tensorsig[0].dim
         rest = prod(tuple(cs.dim for cs in op.tensorsig[1:])) or 1
         space = subproblem.spatial_size(op.domain)
-        sel = sparse.lil_matrix((rest * space, dim0 * rest * space))
-        start = self.index * rest * space
-        sel[:, start:start + rest * space] = sparse.identity(rest * space)
-        sel = sparse.csr_matrix(sel)
+        n = rest * space
+        start = self.index * n
+        sel = sparse.csr_matrix((np.ones(n), (np.arange(n), start + np.arange(n))),
+                                shape=(n, dim0 * n))
         return {v: sel @ m for v, m in op_mats.items()}
 
 

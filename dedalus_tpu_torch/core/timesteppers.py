@@ -27,14 +27,17 @@ loops of eager steps. The other multistep schemes are not ported yet
 (ROADMAP M8).
 """
 
+import contextlib
 import logging
 from collections import deque
 
 import numpy as np
 import torch
 
+from ..ops import banded as ops_banded
 from ..ops import solve as ops_solve
 from ..csrc.history_combine import history_combine
+from ..csrc.residual_norm import residual_norm
 from ..csrc.rk_combine import rk_stage_combine
 from ..utils.config import config
 
@@ -191,26 +194,28 @@ class MultistepIMEX:
         rng = np.random.default_rng(11)
         R = torch.as_tensor(rng.standard_normal((bM.G, bM.P)), device=rv.device) * rv
         X = torch.zeros_like(R)
+        ab = torch.tensor([a0, b0], dtype=torch.float64, device=rv.device)
         norms = []
-        for _ in range(cap + 1):
-            res = R - (a0 * bM.apply(X) + b0 * bL.apply(X)) * rv
-            X = X + fact.banded.solve(res)
-            norms.append(float(torch.linalg.norm(res)))
-            if len(norms) >= 4 and norms[-1] > 0.8 * norms[-3]:
-                break  # stagnated: two passes bought < 1.25x total
-            if norms[-1] <= 1e-17 * norms[0]:
-                break
+        with ops_banded.PhaseTimer('outer probe', rv.device):
+            for _ in range(cap + 1):
+                # (K9: the residual and its norm; one scalar per pass reaches
+                # the host, for the stagnation test)
+                res, sumsq = residual_norm(R, bM.apply(X), bL.apply(X), ab, rv)
+                X = fact.banded.solve(res, accumulate=X)
+                norms.append(float(sumsq) ** 0.5)
+                if len(norms) >= 4 and norms[-1] > 0.8 * norms[-3]:
+                    break  # stagnated: two passes bought < 1.25x total
+                if norms[-1] <= 1e-17 * norms[0]:
+                    break
         curve = np.asarray(norms) / max(norms[0], 1e-300)
         logger.info("banded: outer-refinement curve (a0=%g b0=%g vs %s): %s",
-                    a0, b0, fact.lhs_coeffs,
+                    a0, b0, getattr(fact, 'lhs_coeffs', None),
                     np.array2string(curve, precision=1, separator=','))
         return curve
 
-    def _prepare(self, a0, b0):
-        """Resolve the factorization serving a0 M + b0 L: an existing one
-        through outer refinement when close enough (banded), else a new
-        one. A dense matsolver whose stacks were not built (too large for
-        [memory] max_dense_stack_gb) switches to banded first."""
+    def _leave_dense_path(self):
+        """A dense matsolver whose stacks were not built (too large for
+        [memory] max_dense_stack_gb) switches to banded."""
         solver = self.solver
         if self.pencil.matrices.get('M') is None and solver.matsolver != 'banded':
             if self.pencil.banded_plan() is None:
@@ -220,6 +225,13 @@ class MultistepIMEX:
             logger.info("pencil stacks too large for dense matsolver '%s'; using banded",
                         solver.matsolver)
             solver.matsolver = 'banded'
+
+    def _prepare(self, a0, b0):
+        """Resolve the factorization serving a0 M + b0 L: an existing one
+        through outer refinement when close enough (banded), else a new
+        one."""
+        solver = self.solver
+        self._leave_dense_path()
         if solver.matsolver != 'banded':
             return self._get_factorized(a0, b0)
         key = (float(a0), float(b0))
@@ -279,7 +291,7 @@ class MultistepIMEX:
         # factorization was built for nearby coefficients (startup steps)
         for _ in range(n_out):
             AX = (a0 * bM.apply(Xnew) + b0 * bL.apply(Xnew)) * rv
-            Xnew = Xnew + fact.banded.solve(RHS - AX)
+            Xnew = fact.banded.solve(RHS - AX, accumulate=Xnew)
         return pencil.scatter_state(Xnew)
 
     def _run(self, a, b, c, dt, n_steps, fact):
@@ -322,18 +334,28 @@ class MultistepIMEX:
             return all(abs(h - dt) <= 1e-14 * abs(dt)
                        for h in list(self.dt_hist)[:live])
 
+        # (before the test below, not only in _prepare: a solver that leaves
+        # the dense path by itself then also resolves its main factorization
+        # first and builds one factorization, where dedalus_tpu builds the
+        # startup step's as well)
+        self._leave_dense_path()
         if solver.matsolver == 'banded' and self.needs_startup and n_steps > self.steps:
             # Resolve the main factorization first: its refinement count
             # becomes the floor of the startup solves, which then reuse it
             # through outer refinement instead of building their own.
             am, bm, _ = self.compute_coefficients([dt] * self.steps, self.steps)
-            mf = self._prepare(float(am[0]), float(bm[0]))
+            with ops_banded.PhaseTimer('main factorization', self.pencil.dist.device):
+                mf = self._prepare(float(am[0]), float(bm[0]))
             if mf.banded.refinements:
                 self._banded_refs_floor = mf.banded.refinements
-        while n_steps > 0 and (self.needs_startup or not _hist_uniform()):
-            self.step(dt, wall_time)
-            solver.iteration += 1
-            n_steps -= 1
+        timer = (ops_banded.PhaseTimer('startup steps', self.pencil.dist.device)
+                 if solver.matsolver == 'banded' and self.needs_startup
+                 else contextlib.nullcontext())
+        with timer:
+            while n_steps > 0 and (self.needs_startup or not _hist_uniform()):
+                self.step(dt, wall_time)
+                solver.iteration += 1
+                n_steps -= 1
         if n_steps <= 0:
             return
         self.dt_hist = deque([dt] * self.steps, maxlen=self.steps)

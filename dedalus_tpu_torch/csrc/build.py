@@ -26,16 +26,22 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_D = ctypes.c_double
 # Exported launchers of each source (by file stem) and their argument types
 SIGNATURES = {
     'banded_kernels': {
         'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 3 + [_P],
         'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 3 + [_P],
         'k4_banded_apply_f64': [_P] * 9 + [_I] * 8 + [_U] * 4 + [_P],
+        'k8_block_tridiag_qr_factor_f64': [_P] * 15 + [_I] * 3 + [_D, _P],
+        'k8_multi_rhs_solve_f64': [_P] * 7 + [_I] * 4 + [_P],
+        'k6_solve_pre_f64': [_P] * 4 + [_I] * 4 + [_P],
+        'k6_solve_post_f64': [_P] * 8 + [_I, _P] + [_I] * 7 + [_P],
     },
     'dense_kernels': {
         'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
         'kb_dense_matvec_f64': [_P] * 5 + [_I] * 4 + [_P],
+        'kb_dense_matvec_f32': [_P] * 3 + [_I] * 3 + [_P],
     },
     'polar_kernels': {
         'ke_polar_apply_f64': [_P] * 3 + [_I] * 5 + [_P],

@@ -173,3 +173,52 @@ extern "C" int kb_dense_matvec_f64(const double* A0, const double* A1, const dou
                                                                         R, C);
     return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// KB in f32, one stack: the dense override rows of the banded solve
+// (x[bad] = Abad_inv r[bad], dedalus_tpu/ops/banded.py:1822), a few groups of
+// a (P, P) f32 inverse. Same design as the f64 form: X[g] staged in shared
+// memory, one warp per row, lanes on neighbouring floats, a shuffle
+// reduction. Bound by reading the stack once (1.08 GB for one group at
+// P = 16397).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void __launch_bounds__(KB_THREADS)
+dense_matvec_f32_kernel(const float* __restrict__ A, const float* __restrict__ X,
+                        float* __restrict__ Y, int R, int C) {
+    extern __shared__ float xs32[];
+    const int g = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int i = threadIdx.x; i < C; i += blockDim.x) xs32[i] = X[(size_t)g * C + i];
+    __syncthreads();
+    const int r0 = blockIdx.z * KB_ROWS;
+    const int r1 = min(R, r0 + KB_ROWS);
+    const float* Ag = A + (size_t)g * R * C;
+    for (int i = r0 + warp; i < r1; i += nwarps) {
+        const float* row = Ag + (size_t)i * C;
+        float acc = 0.f;
+        for (int k = lane; k < C; k += 32) acc = fmaf(row[k], xs32[k], acc);
+        for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (lane == 0) Y[(size_t)g * R + i] = acc;
+    }
+}
+
+}  // namespace
+
+extern "C" int kb_dense_matvec_f32(const float* A, const float* X, float* Y, int G, int R,
+                                   int C, void* stream) {
+    const size_t smem = (size_t)C * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(dense_matvec_f32_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid(G, 1, (R + KB_ROWS - 1) / KB_ROWS);
+    dense_matvec_f32_kernel<<<grid, KB_THREADS, smem, (cudaStream_t)stream>>>(A, X, Y, R, C);
+    return (int)cudaGetLastError();
+}

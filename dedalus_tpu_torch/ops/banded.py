@@ -12,20 +12,26 @@ exact f64 operator apply (kernel K4).
 
 Host side (numpy/scipy, as in the JAX package): block extraction from the
 separable stacks, equilibration, pin columns, dense overrides. Device side:
-torch tensors on one device; the K4/K5 wrappers below launch the
+torch tensors on one device; the wrappers below (K4 exact apply, K5 sweeps,
+K6 around the sweeps, K8a factorization, K8b multi-column sweeps) launch the
 hand-written CUDA kernels of csrc/banded_kernels.cu for CUDA tensors and
-run their plain torch twins for CPU tensors. The TPU-only forms of the JAX
+run their plain torch twins for CPU tensors; the refinement probe (K9) is a
+loop over them and csrc/residual_norm.py. The TPU-only forms of the JAX
 package (flat-packed layouts, blocked and prefix sweep profiles, the
 factor disk cache, the curve sidecar) are not carried over.
 """
 
 import logging
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import sparse
+
+from ..csrc.residual_norm import residual_norm
 
 logger = logging.getLogger(__name__)
 
@@ -36,19 +42,34 @@ FACTOR_CHUNK_G = 256
 # Conditioning gates for dense overrides: growth of the f32 band factors
 # (error ~ growth * eps32) and of the f64 Woodbury capacitance
 MAX_GROWTH = 1e7
+# Groups per slab of the host's equilibration passes
+HOST_SLAB_G = 16
 MAX_COND_S = 1e12
 
 
-class _Timer:
-    def __init__(self, label):
+# Seconds spent in each timed setup phase since the caller last cleared it
+phase_seconds = {}
+
+
+class PhaseTimer:
+    """Log a phase's seconds and add them to `phase_seconds`; with a CUDA
+    `device`, the device's queued work is part of the phase."""
+
+    def __init__(self, label, device=None):
         self.label = label
+        self.device = device if device is not None and device.type == 'cuda' else None
 
     def __enter__(self):
+        if self.device is not None:
+            torch.cuda.synchronize(self.device)
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        logger.info("banded: %s took %.1fs", self.label,
-                    time.perf_counter() - self.t0)
+        if self.device is not None:
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - self.t0
+        phase_seconds[self.label] = phase_seconds.get(self.label, 0.0) + dt
+        logger.info("banded: %s took %.1fs", self.label, dt)
 
 
 def _mv(A, x):
@@ -206,23 +227,28 @@ def build_banded_blocks(group_csr, weights, bad, order, nb, exact=None):
     # Identity on padded diagonal slots so padded solves pass through
     for k in range(pad):
         diag[:, -1, nb - 1 - k, nb - 1 - k] = 1.0
-    logger.info("banded: block extraction took %.1fs (G=%d, Nb=%d, nb=%d)",
-                time.perf_counter() - t0, G, Nb, nb)
+    dt = time.perf_counter() - t0
+    phase_seconds['block extraction'] = phase_seconds.get('block extraction', 0.0) + dt
+    logger.info("banded: block extraction took %.1fs (G=%d, Nb=%d, nb=%d)", dt, G, Nb, nb)
     return BandedBlocks(diag, sub, sup, Ucol, Vrow, order, nb, pad)
 
 
 # ---------------------------------------------------------------------------
-# Device: f64 factorization (setup, plain torch; ROADMAP K8)
+# K8: f64 factorization and multi-column sweeps (setup; hand-written CUDA
+# kernels + plain twins)
 # ---------------------------------------------------------------------------
 
-def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8):
+FACTOR_KEYS = ('Qt', 'QtL', 'Rinv', 'R1', 'R2')
+
+
+def factor_block_tridiag_qr_plain(diag, sub, sup, pin_tol=1e-8):
     """
-    Block-tridiagonal QR factorization of (G, Nb, nb, nb) f64 tensors, in
-    torch on their device (replaces dedalus_tpu.ops.banded._factor_device /
-    _factor_host). Sweep i: QR the stacked first column [C_i; sub_{i+1}]
-    with a complete (2nb x 2nb) Q and rotate the trailing panel. A (near-)
-    zero diagonal entry of R is pinned to the group's running diagonal scale
-    (pivot pinning; the caller compensates through extra Woodbury slots).
+    Plain torch K8a: block-tridiagonal QR factorization of (G, Nb, nb, nb)
+    f64 tensors on their device. Sweep i: QR the stacked first column
+    [C_i; sub_{i+1}] with a complete (2nb x 2nb) Q and rotate the trailing
+    panel. A (near-) zero diagonal entry of R is pinned to the group's
+    running diagonal scale (pivot pinning; the caller compensates through
+    extra Woodbury slots).
     Returns dict Qt, QtL, Rinv, R1, R2, pins (G, Nb, nb) bool, sigma.
     """
     G, Nb, nb, _ = diag.shape
@@ -274,8 +300,67 @@ def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8):
     return dict(Qt=Qt, QtL=QtL, Rinv=Rinv, R1=R1, R2=R2, pins=pins, sigma=sigma)
 
 
-def multi_rhs_solve(qr, Rhs):
-    """Block-tridiagonal QR solve with multiple RHS: Rhs (G, Nb, nb, k)."""
+def _check_f64(name, what, t, shape, device):
+    if (t.device != device or t.dtype != torch.float64 or tuple(t.shape) != tuple(shape)
+            or not t.is_contiguous()):
+        raise ValueError(f"{name}: {what} must be a contiguous float64 tensor of shape "
+                         f"{tuple(shape)} on {device}")
+
+
+def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None):
+    """
+    K8a: block-tridiagonal QR factorization with pivot pinning of (G, Nb, nb,
+    nb) f64 tensors -> dict Qt, QtL, Rinv, R1, R2 (f64), pins (bool), sigma.
+    With `out32` (a dict of preallocated tensors of the factors' shapes in
+    the persisted factor type) the f32 copies are written in the same pass.
+
+    Replaces dedalus_tpu/ops/banded.py:364 _factor_device (and its host form
+    :286 _factor_host). CPU tensors run the plain twin; CUDA tensors launch
+    csrc/banded_kernels.cu block_tridiag_qr_factor_kernel: one thread block
+    per group walks the blocks in order with the carry, the panel and Q^T in
+    shared memory, Householder reflectors in LAPACK's sign convention.
+    """
+    if diag.device.type == 'cpu':
+        qr = factor_block_tridiag_qr_plain(diag, sub, sup, pin_tol)
+        if out32 is not None:
+            for k in FACTOR_KEYS:
+                out32[k].copy_(qr[k])
+        return qr
+    from ..csrc import build
+    G, Nb, nb, _ = diag.shape
+    dev = diag.device
+    for name, t in (('diag', diag), ('sub', sub), ('sup', sup)):
+        _check_f64('K8a', name, t, (G, Nb, nb, nb), dev)
+    shapes = dict(Qt=(G, max(Nb - 1, 0), 2 * nb, 2 * nb), QtL=(G, nb, nb),
+                  Rinv=(G, Nb, nb, nb), R1=(G, Nb, nb, nb), R2=(G, Nb, nb, nb))
+    qr = {k: torch.empty(shape, dtype=torch.float64, device=dev) for k, shape in shapes.items()}
+    pins = torch.empty((G, Nb, nb), dtype=torch.uint8, device=dev)
+    qr['sigma'] = torch.empty((G, Nb, nb), dtype=torch.float64, device=dev)
+    p32 = [0] * 5
+    if out32 is not None:
+        for k in FACTOR_KEYS:
+            t = out32[k]
+            if (t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shapes[k]
+                    or not t.is_contiguous()):
+                raise ValueError(f"K8a: out32[{k}] must be a contiguous float32 tensor of "
+                                 f"shape {shapes[k]} on {dev}")
+        p32 = [out32[k].data_ptr() for k in FACTOR_KEYS]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k8_block_tridiag_qr_factor_f64(
+        diag.data_ptr(), sub.data_ptr(), sup.data_ptr(),
+        *(qr[k].data_ptr() for k in FACTOR_KEYS), pins.data_ptr(), qr['sigma'].data_ptr(),
+        *p32, G, Nb, nb, float(pin_tol), stream), 'block_tridiag_qr_factor')
+    factor_block_tridiag_qr.launches += 1
+    qr['pins'] = pins.view(torch.bool)
+    return qr
+
+
+factor_block_tridiag_qr.launches = 0
+
+
+def multi_rhs_solve_plain(qr, Rhs):
+    """Plain torch K8b: block-tridiagonal QR solve with multiple RHS,
+    Rhs (G, Nb, nb, k)."""
     Qt, QtL, Rinv, R1, R2 = (qr[k] for k in ('Qt', 'QtL', 'Rinv', 'R1', 'R2'))
     G, Nb, nb, k = Rhs.shape
     y = torch.empty_like(Rhs)
@@ -294,6 +379,38 @@ def multi_rhs_solve(qr, Rhs):
         x[:, i] = xi
         x1, x2 = xi, x1
     return x
+
+
+def multi_rhs_solve(qr, Rhs):
+    """
+    K8b: the f64 sweeps with k right-hand-side columns per block, Rhs
+    (G, Nb, nb, k) -> (G, Nb, nb, k), for the Woodbury columns W1.
+
+    Replaces dedalus_tpu/ops/banded.py:454 _multi_rhs_solve_device. CPU
+    tensors run the plain twin; CUDA tensors launch csrc/banded_kernels.cu
+    multi_rhs_solve_kernel (one thread block per group; all k columns share
+    one read of the f64 factors).
+    """
+    if Rhs.device.type == 'cpu':
+        return multi_rhs_solve_plain(qr, Rhs)
+    from ..csrc import build
+    G, Nb, nb, k = Rhs.shape
+    dev = Rhs.device
+    shapes = dict(Qt=(G, max(Nb - 1, 0), 2 * nb, 2 * nb), QtL=(G, nb, nb),
+                  Rinv=(G, Nb, nb, nb), R1=(G, Nb, nb, nb), R2=(G, Nb, nb, nb))
+    for key, shape in shapes.items():
+        _check_f64('K8b', key, qr[key], shape, dev)
+    _check_f64('K8b', 'Rhs', Rhs, (G, Nb, nb, k), dev)
+    X = torch.empty_like(Rhs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k8_multi_rhs_solve_f64(
+        *(qr[key].data_ptr() for key in FACTOR_KEYS), Rhs.data_ptr(), X.data_ptr(),
+        G, Nb, nb, k, stream), 'multi_rhs_solve')
+    multi_rhs_solve.launches += 1
+    return X
+
+
+multi_rhs_solve.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -551,16 +668,185 @@ class BandedOperator:
 
 
 # ---------------------------------------------------------------------------
+# K6: around the sweeps of one solve (hand-written CUDA kernels + plain twins)
+# ---------------------------------------------------------------------------
+
+def banded_solve_pre_plain(R, row_perm, Dr, fdt):
+    """Plain torch K6 pre: permute the rows of R (G, P), pad to Dr's width,
+    scale by Dr and cast to the factor type -> (G, Pp)."""
+    rflat = F.pad(R[:, row_perm], (0, Dr.shape[1] - R.shape[1])) * Dr
+    return rflat.to(fdt)
+
+
+def banded_solve_pre(R, row_perm, Dr, fdt):
+    """
+    K6 pre: rc[g, j] = fdt(Dr[g, j] * R[g, row_perm[j]]), zero in the pad,
+    R (G, P) f64 -> (G, Pp) in the factor type.
+
+    Replaces the head of dedalus_tpu/ops/banded.py:1769 once() (:1774-1776).
+    CPU tensors run the plain twin; CUDA tensors launch
+    csrc/banded_kernels.cu banded_solve_pre_kernel (one pass: R read once,
+    rc written once).
+    """
+    if R.device.type == 'cpu':
+        return banded_solve_pre_plain(R, row_perm, Dr, fdt)
+    from ..csrc import build
+    G, P = R.shape
+    Pp = Dr.shape[1]
+    dev = R.device
+    if fdt not in (torch.float32, torch.float64):
+        raise TypeError(f"K6: the factor type is float32 or float64, got {fdt}")
+    _check_f64('K6', 'R', R, (G, P), dev)
+    _check_f64('K6', 'Dr', Dr, (G, Pp), dev)
+    if (row_perm.device != dev or row_perm.dtype != torch.int64
+            or tuple(row_perm.shape) != (P,) or not row_perm.is_contiguous()):
+        raise ValueError(f"K6: row_perm must be a contiguous int64 ({P},) tensor on {dev}")
+    rc = torch.empty((G, Pp), dtype=fdt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k6_solve_pre_f64(
+        R.data_ptr(), row_perm.data_ptr(), Dr.data_ptr(), rc.data_ptr(), G, P, Pp,
+        int(fdt == torch.float64), stream), 'banded_solve_pre')
+    banded_solve_pre.launches += 1
+    return rc
+
+
+banded_solve_pre.launches = 0
+
+
+def banded_solve_post_plain(fac, y, Dc, col_unperm, P, xbad=None, bad_idx=None,
+                            accumulate=None):
+    """Plain torch K6 post on the sweeps' output y (G, Pp): the Woodbury
+    correction (all-f64 with fac['W1'], else in the factor type around the
+    f64 Sinv with fac['W1T']), the dense override rows xbad (nbad, P) of the
+    groups bad_idx, the Dc scaling and the column unpermutation -> (G, P)
+    f64, added to `accumulate` in place where given."""
+    if 'W1' in fac:     # all-f64 Woodbury correction
+        yflat = y.to(torch.float64)
+        t = _mv(fac['Sinv'], _mv(fac['Vfull'], yflat))
+        x = yflat - _mv(fac['W1'], t)
+    else:
+        t = _mv(fac['Sinv'], _mv(fac['Vfull'], y).to(torch.float64))
+        corr = torch.einsum('gbp,gb->gp', fac['W1T'], t.to(y.dtype))
+        x = y.to(torch.float64) - corr.to(torch.float64)
+    if xbad is not None:
+        x[bad_idx, :P] = xbad.to(torch.float64)
+        x[bad_idx, P:] = 0.0
+    x = x * Dc
+    x = x[:, :P][:, col_unperm]
+    if accumulate is None:
+        return x
+    return accumulate.add_(x)
+
+
+def banded_solve_post(fac, y, Dc, col_unperm, col_perm, P, xbad=None, bad_idx=None,
+                      accumulate=None):
+    """
+    K6 post: Woodbury correction, dense override rows, Dc scaling and column
+    unpermutation of the sweeps' output y (G, Pp) -> X (G, P) f64; with
+    `accumulate` (G, P) the result is added to it in place (the refinement
+    update) and it is returned.
+
+    Replaces the tail of dedalus_tpu/ops/banded.py:1769 once() (:1786-1828)
+    and the update of :1842. CPU tensors run the plain twin; CUDA tensors
+    launch csrc/banded_kernels.cu banded_solve_post_kernel (one thread block
+    per group; bound by reading Vfull and W1 once). `col_perm` is the
+    inverse of `col_unperm`: the kernel scatters where the twin gathers.
+    fac['W1'] (G, Pp, B) must be the transposed view of a contiguous
+    (G, B, Pp) tensor, as the solver stores it: the kernel reads W1 along p.
+    """
+    if y.device.type == 'cpu':
+        return banded_solve_post_plain(fac, y, Dc, col_unperm, P, xbad, bad_idx, accumulate)
+    from ..csrc import build
+    G, Pp = y.shape
+    dev = y.device
+    fdt = y.dtype
+    wb64 = 'W1' in fac
+    Sinv, Vfull = fac['Sinv'], fac['Vfull']
+    W = fac['W1'] if wb64 else fac['W1T']
+    B = Sinv.shape[1]
+    wdt = torch.float64 if wb64 else fdt
+    if fdt not in (torch.float32, torch.float64) or not y.is_contiguous():
+        raise ValueError("K6: y must be a contiguous float32 or float64 tensor")
+    _check_f64('K6', 'Sinv', Sinv, (G, B, B), dev)
+    _check_f64('K6', 'Dc', Dc, (G, Pp), dev)
+    Wt = W.transpose(1, 2) if wb64 else W
+    for name, t in (('Vfull', Vfull), ('W1 transposed' if wb64 else 'W1T', Wt)):
+        if (t.device != dev or t.dtype != wdt or tuple(t.shape) != (G, B, Pp)
+                or not t.is_contiguous()):
+            raise ValueError(f"K6: {name} must be a contiguous {wdt} tensor of shape "
+                             f"{(G, B, Pp)} on {dev}")
+    if (col_perm.device != dev or col_perm.dtype != torch.int64
+            or tuple(col_perm.shape) != (P,) or not col_perm.is_contiguous()):
+        raise ValueError(f"K6: col_perm must be a contiguous int64 ({P},) tensor on {dev}")
+    nbad = 0
+    if xbad is not None:
+        nbad = int(bad_idx.shape[0])
+        if (xbad.device != dev or xbad.dtype != fdt or tuple(xbad.shape) != (nbad, P)
+                or not xbad.is_contiguous() or bad_idx.dtype != torch.int64
+                or bad_idx.device != dev or not bad_idx.is_contiguous()):
+            raise ValueError(f"K6: xbad must be a contiguous {fdt} ({nbad}, {P}) tensor and "
+                             f"bad_idx int64, on {dev}")
+    if accumulate is None:
+        X = torch.empty((G, P), dtype=torch.float64, device=dev)
+    else:
+        _check_f64('K6', 'accumulate', accumulate, (G, P), dev)
+        X = accumulate
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k6_solve_post_f64(
+        y.data_ptr(), Vfull.data_ptr(), W.data_ptr(), Sinv.data_ptr(), Dc.data_ptr(),
+        col_perm.data_ptr(), xbad.data_ptr() if nbad else 0,
+        bad_idx.data_ptr() if nbad else 0, nbad, X.data_ptr(), G, P, Pp, B,
+        int(fdt == torch.float64), int(wb64), int(accumulate is not None), stream),
+        'banded_solve_post')
+    banded_solve_post.launches += 1
+    return X
+
+
+banded_solve_post.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The bordered banded solver
 # ---------------------------------------------------------------------------
 
+def _group_slab(blocks, g0):
+    """The groups g0 : g0 + HOST_SLAB_G of a BandedBlocks (views)."""
+    sl = slice(g0, g0 + HOST_SLAB_G)
+    return BandedBlocks(blocks.diag[sl], blocks.sub[sl], blocks.sup[sl], blocks.Ucol[sl],
+                        blocks.Vrow[sl], blocks.order, blocks.nb, blocks.pad)
+
+
+def _over_slabs(fn, G):
+    """[fn(g0) for each slab start g0], the slabs spread over the host's
+    cores (at most 8 threads)."""
+    starts = range(0, G, HOST_SLAB_G)
+    workers = min(8, os.cpu_count() or 1, len(starts))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, starts))
+
+
+def refinements_from_curve(curve, target):
+    """Fewest refinement passes whose probed residual reaches `target`: enter
+    the curve's plateau at twice its floor, then keep refining only while the
+    target is unmet and a pass still contracts the residual by more than
+    1.3x (the rule of dedalus_tpu's _resolve_refinements)."""
+    curve = np.asarray(curve)
+    thresh = max(target, 2.0 * float(curve.min()))
+    refs = int(np.nonzero(curve <= thresh)[0][0])
+    while (refs + 1 < curve.shape[0] and curve[refs] > target
+           and curve[refs + 1] < curve[refs] / 1.3):
+        refs += 1
+    return max(1, refs)
+
+
 class BorderedBandedSolver:
     """
-    f32 block-tridiagonal QR sweeps + Woodbury correction for the border
-    content + f64 iterative refinement against an exact operator apply.
+    f32 block-tridiagonal QR sweeps (K5) + Woodbury correction for the border
+    content (K6) + f64 iterative refinement against an exact operator apply
+    (K4).
 
-    The factorization runs in f64 on `device`, chunked over groups, and only
-    f32 factors persist. `exact_apply` (X -> A X in f64) is the refinement
+    The factorization runs in f64 on `device` (K8a, K8b), chunked over
+    groups, and only f32 factors persist. `exact_apply` (X -> A X in f64) is the refinement
     operator; by default the solver's own blocks. All device arrays of a
     solve live in `self.arrs` (see banded_arrays_from_reference for loading
     another factorization of the same system).
@@ -580,24 +866,22 @@ class BorderedBandedSolver:
         self.P, self.nbord, self.pad = P, nbord, blocks.pad
         bad = dict(bad or {})
         # Equilibrate: row/col inf-norm scaling of the band content
-        with _Timer('equilibrate'):
+        with PhaseTimer('equilibrate'):
             Dr, Dc = self._equilibrate(blocks)
             sblocks = self._scaled(blocks, Dr, Dc)
-        b0 = blocks.bcol0
-        Ufull = np.zeros((G, Pp, 2 * nbord))
-        for j in range(nbord):
-            Ufull[:, j, j] = 1.0          # border rows sit at the top
-        Ufull[:, :, nbord:] = sblocks.Ucol
-        Ublocks = Ufull.reshape(G, self.Nb, self.nb, 2 * nbord)
-        Vfull = np.zeros((G, 2 * nbord, Pp))
-        Vfull[:, :nbord, :] = sblocks.Vrow
-        for j in range(nbord):
-            Vfull[:, nbord + j, b0 + j] = 1.0
-        Vfull0 = Vfull.copy()
-        with _Timer('factor+W1 (pass 1)'):
-            qr, W1, sing, pin_cols = self._chunked_factor_W1(
-                self._neutralized(sblocks, bad), Ublocks)
-        W1, Vfull = self._extend_with_pins(W1, Vfull, pin_cols)
+            b0 = blocks.bcol0
+            Ufull = np.zeros((G, Pp, 2 * nbord))
+            for j in range(nbord):
+                Ufull[:, j, j] = 1.0          # border rows sit at the top
+            Ufull[:, :, nbord:] = sblocks.Ucol
+            Ublocks = Ufull.reshape(G, self.Nb, self.nb, 2 * nbord)
+            Vfull0 = np.zeros((G, 2 * nbord, Pp))
+            Vfull0[:, :nbord, :] = sblocks.Vrow
+            for j in range(nbord):
+                Vfull0[:, nbord + j, b0 + j] = 1.0
+        qr, W1, sing, pin_cols = self._chunked_factor_W1(
+            self._neutralized(sblocks, bad), Ublocks)
+        W1, Vfull = self._extend_with_pins(W1, Vfull0, pin_cols)
         still = [int(g) for g in np.nonzero(sing)[0] if int(g) not in bad]
         if still:                           # pinning missed: dense overrides
             if group_dense is None:
@@ -610,16 +894,17 @@ class BorderedBandedSolver:
                     f"(limit {limit}); this pencil needs a dense solver")
             for g in still:
                 bad[g] = group_dense(g)
-            with _Timer('factor+W1 (pass 1b)'):
-                qr, W1, sing, pin_cols = self._chunked_factor_W1(
-                    self._neutralized(sblocks, bad), Ublocks)
+            del qr, W1
+            qr, W1, sing, pin_cols = self._chunked_factor_W1(
+                self._neutralized(sblocks, bad), Ublocks)
             W1, Vfull = self._extend_with_pins(W1, Vfull0, pin_cols)
-        Vfull_t = torch.as_tensor(Vfull, device=self.device)
-        S = self._capacitance(Vfull_t, W1)
-        growth = qr['Rinv'].abs().amax(dim=(1, 2, 3)).to(torch.float64).cpu().numpy()
-        S_np = S.cpu().numpy()
-        with np.errstate(all='ignore'):
-            condS = np.linalg.cond(np.where(np.isfinite(S_np), S_np, 0.0))
+        with PhaseTimer('capacitance and Sinv', self.device):
+            Vfull_t = torch.as_tensor(Vfull, device=self.device)
+            S = self._capacitance(Vfull_t, W1)
+            growth = qr['Rinv'].abs().amax(dim=(1, 2, 3)).to(torch.float64).cpu().numpy()
+            S_np = S.cpu().numpy()
+            with np.errstate(all='ignore'):
+                condS = np.linalg.cond(np.where(np.isfinite(S_np), S_np, 0.0))
         self.diagnostics = dict(growth=growth.copy(), condS=condS.copy(),
                                 S_finite=np.isfinite(S_np).all(axis=(1, 2)))
         ill = np.nonzero((growth > MAX_GROWTH) | (condS > MAX_COND_S)
@@ -636,50 +921,63 @@ class BorderedBandedSolver:
                 raise ValueError(f"too many ill-conditioned band groups "
                                  f"({len(ill) + len(bad)}/{G})")
             logger.info("banded: %d ill-conditioned groups get dense overrides", len(ill))
-            with _Timer('dense overrides + refactor'):
+            del qr, W1, Vfull_t, S
+            with PhaseTimer('dense overrides'):
                 for g in ill:
                     bad[g] = group_dense(int(g))
-                qr, W1, _, pin_cols = self._chunked_factor_W1(
-                    self._neutralized(sblocks, bad), Ublocks)
+            qr, W1, _, pin_cols = self._chunked_factor_W1(
+                self._neutralized(sblocks, bad), Ublocks)
             W1, Vfull = self._extend_with_pins(W1, Vfull0, pin_cols)
-            Vfull_t = torch.as_tensor(Vfull, device=self.device)
-            S = self._capacitance(Vfull_t, W1)
+            with PhaseTimer('capacitance and Sinv', self.device):
+                Vfull_t = torch.as_tensor(Vfull, device=self.device)
+                S = self._capacitance(Vfull_t, W1)
+        del Ufull, Ublocks, Vfull0, Vfull, sblocks
         self.bad_idx = tuple(sorted(bad))
         B = W1.shape[2]
-        if self.bad_idx:    # bad groups solve densely; keep S invertible
-            bi = torch.as_tensor(self.bad_idx, device=self.device)
-            S[bi] = torch.eye(B, dtype=S.dtype, device=self.device)
-            W1[bi] = 0.0
-        Sinv = torch.linalg.inv(S)
-        if not torch.isfinite(Sinv).all():
-            raise ValueError("Woodbury capacitance matrix is singular")
-        fac = {k: qr[k].contiguous() for k in ('Qt', 'QtL', 'Rinv', 'R1', 'R2')}
-        # Pinned-pivot repair columns and ill-conditioned capacitance keep an
-        # all-f64 Woodbury correction; well-conditioned borders ship f32.
-        condS = self.diagnostics['condS']
-        wb64 = bool(pin_cols) or np.nanmax(
-            np.where(np.isfinite(condS), condS, np.inf)) > 1e7
-        if wb64:
-            fac.update(W1=W1, Sinv=Sinv, Vfull=Vfull_t)
-        else:
-            fac.update(W1T=W1.transpose(1, 2).to(FACTOR_DTYPE).contiguous(),
-                       Sinv=Sinv, Vfull=Vfull_t.to(FACTOR_DTYPE))
+        with PhaseTimer('capacitance and Sinv', self.device):
+            if self.bad_idx:    # bad groups solve densely; keep S invertible
+                bi = torch.as_tensor(self.bad_idx, device=self.device)
+                S[bi] = torch.eye(B, dtype=S.dtype, device=self.device)
+                W1[bi] = 0.0
+            # (the batched CUDA inverse comes back in column-major strides)
+            Sinv = torch.linalg.inv(S).contiguous()
+            if not torch.isfinite(Sinv).all():
+                raise ValueError("Woodbury capacitance matrix is singular")
+            fac = {k: qr[k].contiguous() for k in FACTOR_KEYS}
+            # Pinned-pivot repair columns and ill-conditioned capacitance keep
+            # an all-f64 Woodbury correction; well-conditioned borders ship f32.
+            condS = self.diagnostics['condS']
+            wb64 = bool(pin_cols) or np.nanmax(
+                np.where(np.isfinite(condS), condS, np.inf)) > 1e7
+            if wb64:
+                # (a copy only where pin columns were appended to W1)
+                fac.update(W1=W1.transpose(1, 2).contiguous().transpose(1, 2), Sinv=Sinv,
+                           Vfull=Vfull_t)
+            else:
+                fac.update(W1T=W1.transpose(1, 2).to(FACTOR_DTYPE).contiguous(),
+                           Sinv=Sinv, Vfull=Vfull_t.to(FACTOR_DTYPE))
         rp = np.asarray(self.order['row_perm'])
         cp = np.asarray(self.order['col_perm'])
         cinv = np.empty_like(cp)
         cinv[cp] = np.arange(cp.size)
-        self.arrs = dict(fac=fac, row_perm=torch.as_tensor(rp, device=self.device),
-                         col_unperm=torch.as_tensor(cinv, device=self.device),
+        index = lambda a: torch.as_tensor(a, dtype=torch.int64, device=self.device)
+        self.arrs = dict(fac=fac, row_perm=index(rp), col_unperm=index(cinv),
+                         col_perm=index(cp),
                          Dr=torch.as_tensor(Dr, device=self.device),
                          Dc=torch.as_tensor(Dc, device=self.device))
         if self.bad_idx:
-            rpl, cpl = list(rp), list(cp)
-            Abad = np.stack([np.asarray(sparse.csr_matrix(bad[g])[rpl][:, cpl].todense())
-                             for g in self.bad_idx])
-            Abad = Dr[list(self.bad_idx), :P, None] * Abad * Dc[list(self.bad_idx), None, :P]
-            self.arrs['Abad_inv'] = torch.as_tensor(np.linalg.inv(Abad),
-                                                    dtype=FACTOR_DTYPE, device=self.device)
-            self.arrs['bad_idx'] = torch.as_tensor(self.bad_idx, device=self.device)
+            with PhaseTimer('dense override inverses', self.device):
+                rpl, cpl = list(rp), list(cp)
+                Abad = np.stack([np.asarray(sparse.csr_matrix(bad[g])[rpl][:, cpl].todense())
+                                 for g in self.bad_idx])
+                Abad = (Dr[list(self.bad_idx), :P, None] * Abad
+                        * Dc[list(self.bad_idx), None, :P])
+                # Inverted in f64 on the solver's device, one group at a time
+                # (the host's LAPACK takes 43 s for one 16397^2 group)
+                Abad_inv = torch.stack([torch.linalg.inv(torch.as_tensor(a, device=self.device))
+                                        .to(FACTOR_DTYPE) for a in Abad])
+                self.arrs['Abad_inv'] = Abad_inv.contiguous()
+                self.arrs['bad_idx'] = torch.as_tensor(self.bad_idx, device=self.device)
         if exact_apply is None:
             exact_apply = BandedOperator(blocks, self.device).apply
         self.exact_apply = exact_apply
@@ -712,53 +1010,73 @@ class BorderedBandedSolver:
         """f64 factorization + Woodbury RHS solves on the device, chunked over
         groups; returns (f32 factors, f64 W1 (G, Pp, B), singular-core mask
         (G,), pinned-pivot columns {g: (ks, cols)})."""
-        G = fblocks.G
+        G, Nb, nb = fblocks.G, fblocks.Nb, fblocks.nb
         dev = self.device
         chunk = min(FACTOR_CHUNK_G, G)
         put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-        qr_parts, W1_parts, sing_parts = [], [], []
+        shapes = dict(Qt=(G, max(Nb - 1, 0), 2 * nb, 2 * nb), QtL=(G, nb, nb),
+                      Rinv=(G, Nb, nb, nb), R1=(G, Nb, nb, nb), R2=(G, Nb, nb, nb))
+        qr = {k: torch.empty(shape, dtype=FACTOR_DTYPE, device=dev)
+              for k, shape in shapes.items()}
+        # W1 is kept in memory as (G, B, Pp), the way K6 post reads it
+        W1T = torch.empty((G, Ublocks.shape[-1], fblocks.Pp), dtype=torch.float64, device=dev)
+        sing_parts = []
         pin_cols = {}
         for g0 in range(0, G, chunk):
             sl = slice(g0, min(g0 + chunk, G))
-            qr64 = factor_block_tridiag_qr(put(fblocks.diag[sl]), put(fblocks.sub[sl]),
-                                           put(fblocks.sup[sl]))
-            W1_parts.append(multi_rhs_solve(qr64, put(Ublocks[sl])))
-            pins = qr64.pop('pins')
-            sigma = qr64.pop('sigma')
-            if pins.any():
-                host = {k: qr64[k].cpu().numpy() for k in ('Rinv', 'R1', 'R2')}
-                pin_cols.update(self._pin_columns(host, pins.cpu().numpy(),
-                                                  sigma.cpu().numpy(), g0))
-            Rh = qr64['Rinv']
-            fin = torch.isfinite(Rh)
-            sing_parts.append((~fin.all(dim=(1, 2, 3))
-                               | (torch.where(fin, Rh, 0.0).abs().amax(dim=(1, 2, 3)) > 1e30)
-                               ).cpu().numpy())
-            qr_parts.append({k: v.to(FACTOR_DTYPE) for k, v in qr64.items()})
-            del qr64
-        qr = {k: torch.cat([p[k] for p in qr_parts]) for k in qr_parts[0]}
+            with PhaseTimer('upload blocks', dev):
+                dsu = [put(a[sl]) for a in (fblocks.diag, fblocks.sub, fblocks.sup)]
+                Uc = put(Ublocks[sl])
+            with PhaseTimer('factor (K8a)', dev):
+                qr64 = factor_block_tridiag_qr(*dsu, out32={k: v[sl] for k, v in qr.items()})
+            del dsu
+            with PhaseTimer('W1 (K8b)', dev):
+                W1T[sl] = multi_rhs_solve(qr64, Uc).reshape(-1, fblocks.Pp,
+                                                            W1T.shape[1]).transpose(1, 2)
+            del Uc
+            with PhaseTimer('pin columns and singular test', dev):
+                pins = qr64['pins']
+                pinned = torch.nonzero(pins.any(dim=2).any(dim=1))[:, 0]
+                if pinned.numel():
+                    # only the pinned groups' factors travel to the host
+                    host = {k: qr64[k][pinned].cpu().numpy() for k in ('Rinv', 'R1', 'R2')}
+                    pin_cols.update(self._pin_columns(
+                        host, pins[pinned].cpu().numpy(), qr64['sigma'][pinned].cpu().numpy(),
+                        (pinned + g0).tolist()))
+                Rh = qr64['Rinv']
+                fin = torch.isfinite(Rh)
+                sing_parts.append((~fin.all(dim=(1, 2, 3))
+                                   | (torch.where(fin, Rh, 0.0).abs().amax(dim=(1, 2, 3)) > 1e30)
+                                   ).cpu().numpy())
+            del qr64, Rh, fin
         qr['Rinv'] = torch.where(torch.isfinite(qr['Rinv']), qr['Rinv'], 0.0)
-        W1 = torch.cat(W1_parts).reshape(G, fblocks.Pp, -1)
-        W1 = torch.where(torch.isfinite(W1), W1, 0.0)
-        return qr, W1, np.concatenate(sing_parts), pin_cols
+        W1T.masked_fill_(~torch.isfinite(W1T), 0.0)
+        return qr, W1T.transpose(1, 2), np.concatenate(sing_parts), pin_cols
 
     @staticmethod
     def _neutralized(blocks, bad):
-        """Copy of the blocks with bad groups' band replaced by identity."""
-        if not bad:
-            return blocks
-        fb = BandedBlocks(blocks.diag.copy(), blocks.sub.copy(), blocks.sup.copy(),
-                          blocks.Ucol, blocks.Vrow, blocks.order, blocks.nb, blocks.pad)
+        """The blocks with the bad groups' band replaced by the identity, in
+        place (they are the solver's own scaled copy, and a group that is
+        solved densely stays so)."""
         for g in bad:
-            fb.diag[g] = np.eye(blocks.nb)
-            fb.sub[g] = 0.0
-            fb.sup[g] = 0.0
-        return fb
+            blocks.diag[g] = np.eye(blocks.nb)
+            blocks.sub[g] = 0.0
+            blocks.sup[g] = 0.0
+        return blocks
 
     @staticmethod
     def _equilibrate(blocks, passes=2):
-        """Inf-norm row/col scaling vectors (G, Pp) for the band content."""
-        G, Pp = blocks.G, blocks.Pp
+        """Inf-norm row/col scaling vectors (G, Pp) for the band content.
+        Every operation is per group, so slabs of groups go through on the
+        host's cores side by side (numpy's elementwise passes run on one
+        core and release the interpreter lock); the values are the same."""
+        G = blocks.G
+        if G > HOST_SLAB_G:
+            parts = _over_slabs(lambda g0: BorderedBandedSolver._equilibrate(
+                _group_slab(blocks, g0), passes), G)
+            return (np.concatenate([p[0] for p in parts]),
+                    np.concatenate([p[1] for p in parts]))
+        Pp = blocks.Pp
         nb, Nb = blocks.nb, blocks.Nb
         adiag = np.abs(blocks.diag)
         asub = np.abs(blocks.sub[:, 1:])
@@ -784,8 +1102,22 @@ class BorderedBandedSolver:
 
     @staticmethod
     def _scaled(blocks, Dr, Dc):
-        """Apply the equilibration scaling to all block arrays."""
+        """Apply the equilibration scaling to all block arrays (in slabs of
+        groups, as _equilibrate)."""
         G, nb, Nb = blocks.G, blocks.nb, blocks.Nb
+        if G > HOST_SLAB_G:
+            out = BandedBlocks(*(np.empty_like(a) for a in (
+                blocks.diag, blocks.sub, blocks.sup, blocks.Ucol, blocks.Vrow)),
+                blocks.order, nb, blocks.pad)
+
+            def scale_slab(g0):
+                sl = slice(g0, g0 + HOST_SLAB_G)
+                part = BorderedBandedSolver._scaled(_group_slab(blocks, g0), Dr[sl], Dc[sl])
+                for name in ('diag', 'sub', 'sup', 'Ucol', 'Vrow'):
+                    getattr(out, name)[sl] = getattr(part, name)
+
+            _over_slabs(scale_slab, G)
+            return out
         nbord = blocks.nbord
         DrB = Dr.reshape(G, Nb, nb)
         DcB = Dc.reshape(G, Nb, nb)
@@ -814,12 +1146,13 @@ class BorderedBandedSolver:
                                     - R2[:, i] @ x[:, i + 2])
         return x
 
-    def _pin_columns(self, qr64, pins, sigma, g0):
-        """Woodbury data for pinned pivots of one factor chunk (host f64):
+    def _pin_columns(self, qr64, pins, sigma, groups):
+        """Woodbury data for the pinned pivots of the groups `groups` (their
+        Rinv, R1, R2, pins and sigma on the host, f64):
         {global g: (flat positions, -sigma * Rhat^{-1} e_k columns)}."""
         out = {}
         Gc, Nb, nb = pins.shape
-        for gl in np.nonzero(pins.any(axis=(1, 2)))[0]:
+        for gl in range(Gc):
             ks = np.nonzero(pins[gl].reshape(-1))[0]
             Y = np.zeros((1, Nb, nb, ks.size))
             for m, k in enumerate(ks):
@@ -827,7 +1160,7 @@ class BorderedBandedSolver:
             sub = {key: qr64[key][gl:gl + 1] for key in ('Rinv', 'R1', 'R2')}
             x = self._host_back_solve(sub, Y)[0]
             cols = -sigma[gl].reshape(-1)[ks] * x.reshape(Nb * nb, ks.size)
-            out[g0 + int(gl)] = (ks, cols)
+            out[int(groups[gl])] = (ks, cols)
         return out
 
     # --- refinement count ---
@@ -844,19 +1177,13 @@ class BorderedBandedSolver:
             # Tiny systems: use the conservative default, as the reference
             self.refinements = 4
             return
-        with _Timer('refinement probe'):
+        with PhaseTimer('inner probe', self.device):
             self.refine_curve = self._probe_refinement_curve()
         curve = np.asarray(self.refine_curve)
-        floor = float(curve.min())
-        thresh = max(target, 2.0 * floor)
-        if floor > target:
+        if float(curve.min()) > target:
             logger.info("banded: probe floor %.2e misses solve target %.0e",
-                        floor, target)
-        refs = int(np.nonzero(curve <= thresh)[0][0])
-        while (refs + 1 < curve.shape[0] and curve[refs] > target
-               and curve[refs + 1] < curve[refs] / 1.3):
-            refs += 1
-        self.refinements = max(1, refs)
+                        float(curve.min()), target)
+        self.refinements = refinements_from_curve(curve, target)
         logger.info("banded: adaptive refinements=%d (residual curve %s)",
                     self.refinements,
                     np.array2string(curve, precision=1, separator=','))
@@ -870,48 +1197,43 @@ class BorderedBandedSolver:
                             device=self.device)
         scale = R.abs().amax(dim=1)
         X = self._once(self.arrs, R)
-        res = R - self.exact_apply(X)
-        rels = [(res.abs().amax(dim=1) / scale).max()]
+        res, rel = residual_norm(R, self.exact_apply(X), scale=scale)
+        rels = [rel]
         for _ in range(cap):
-            X = X + self._once(self.arrs, res)
-            res = R - self.exact_apply(X)
-            rels.append((res.abs().amax(dim=1) / scale).max())
+            X = self._once(self.arrs, res, accumulate=X)
+            res, rel = residual_norm(R, self.exact_apply(X), scale=scale)
+            rels.append(rel)
         return torch.stack(rels).cpu().numpy()
 
     # --- solve ---
 
-    def _once(self, arrs, R):
-        """One mixed-precision banded+Woodbury solve in pencil coords."""
+    def _once(self, arrs, R, accumulate=None):
+        """One mixed-precision banded+Woodbury solve in pencil coords: K6
+        pre, the K5 sweeps, the dense override rows (KB in the factor type)
+        and K6 post. With `accumulate` the solution is added to it in place."""
         fac = arrs['fac']
         G = R.shape[0]
-        Nb, nb, P, pad = self.Nb, self.nb, self.P, self.pad
-        fdt = fac['Rinv'].dtype
+        Nb, nb, P = self.Nb, self.nb, self.P
         # Scaled system: (Dr A Dc) (Dc^-1 x) = Dr r
-        rflat = F.pad(R[:, arrs['row_perm']], (0, pad)) * arrs['Dr']
-        rc = rflat.to(fdt).reshape(G, Nb, nb)
+        rc = banded_solve_pre(R, arrs['row_perm'], arrs['Dr'], fac['Rinv'].dtype)
         y = block_tridiag_qr_solve(fac['Qt'], fac['QtL'], fac['Rinv'],
-                                   fac['R1'], fac['R2'], rc)
-        if 'W1' in fac:     # all-f64 Woodbury correction
-            yflat = y.reshape(G, Nb * nb).to(rflat.dtype)
-            t = _mv(fac['Sinv'], _mv(fac['Vfull'], yflat))
-            x = yflat - _mv(fac['W1'], t)
-        else:
-            y32 = y.reshape(G, Nb * nb)
-            t = _mv(fac['Sinv'], _mv(fac['Vfull'], y32).to(torch.float64))
-            corr = torch.einsum('gbp,gb->gp', fac['W1T'], t.to(fdt))
-            x = y32.to(rflat.dtype) - corr.to(rflat.dtype)
+                                   fac['R1'], fac['R2'], rc.reshape(G, Nb, nb))
+        xbad = idx = None
         if 'Abad_inv' in arrs:
+            from .solve import dense_matvec
             idx = arrs['bad_idx']
-            x[idx, :P] = _mv(arrs['Abad_inv'], rflat[idx, :P].to(fdt)).to(rflat.dtype)
-            x[idx, P:] = 0.0
-        x = x * arrs['Dc']
-        return x[:, :P][:, arrs['col_unperm']]
+            xbad = dense_matvec(arrs['Abad_inv'], rc[idx, :P].contiguous())
+        return banded_solve_post(fac, y.reshape(G, Nb * nb), arrs['Dc'], arrs['col_unperm'],
+                                 arrs['col_perm'], P, xbad, idx, accumulate)
 
-    def solve(self, R, refinements=None):
+    def solve(self, R, refinements=None, accumulate=None):
         """X with A X = R for (G, P) pencils: the direct solve plus the
-        refinement passes against the exact f64 apply."""
+        refinement passes against the exact f64 apply. With `accumulate`
+        the solution is added to it in place and it is returned."""
         refinements = self.refinements if refinements is None else refinements
+        if accumulate is not None and not refinements:
+            return self._once(self.arrs, R, accumulate=accumulate)
         X = self._once(self.arrs, R)
         for _ in range(refinements):
-            X = X + self._once(self.arrs, R - self.exact_apply(X))
-        return X
+            X = self._once(self.arrs, R - self.exact_apply(X), accumulate=X)
+        return X if accumulate is None else accumulate.add_(X)

@@ -38,7 +38,9 @@ def dense_matvec_plain(A0, X, A1=None):
 def dense_matvec(A0, X, A1=None):
     """
     KB: (G, R, C) @ (G, C) -> (G, R) for one stack, or for two stacks on
-    the same vectors (the M/L pair of a step) in one launch.
+    the same vectors (the M/L pair of a step) in one launch; float64, or one
+    float32 stack (the dense override rows of the banded solve,
+    dedalus_tpu/ops/banded.py:1822).
 
     Replaces dedalus_tpu/ops/solve.py:24 batched_matvec. CPU tensors run
     the plain twin; CUDA tensors launch csrc/dense_kernels.cu
@@ -50,20 +52,27 @@ def dense_matvec(A0, X, A1=None):
     from ..csrc import build
     G, R, C = A0.shape
     stacks = (A0,) if A1 is None else (A0, A1)
+    dt = A0.dtype
+    if dt != torch.float64 and (dt != torch.float32 or A1 is not None):
+        raise TypeError("KB: float64 stacks, or one float32 stack")
     for t in stacks:
-        if (t.device != X.device or t.dtype != torch.float64 or tuple(t.shape) != (G, R, C)
+        if (t.device != X.device or t.dtype != dt or tuple(t.shape) != (G, R, C)
                 or not t.is_contiguous()):
-            raise ValueError(f"KB: stacks must be contiguous float64 ({G}, {R}, {C}) "
+            raise ValueError(f"KB: stacks must be contiguous {dt} ({G}, {R}, {C}) "
                              f"tensors on {X.device}")
-    if X.dtype != torch.float64 or tuple(X.shape) != (G, C) or not X.is_contiguous():
-        raise ValueError(f"KB: X must be a contiguous float64 ({G}, {C}) tensor")
-    Y0 = torch.empty((G, R), dtype=torch.float64, device=X.device)
+    if X.dtype != dt or tuple(X.shape) != (G, C) or not X.is_contiguous():
+        raise ValueError(f"KB: X must be a contiguous {dt} ({G}, {C}) tensor")
+    Y0 = torch.empty((G, R), dtype=dt, device=X.device)
     Y1 = torch.empty_like(Y0) if A1 is not None else None
     ptr = lambda t: 0 if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    build.check(build.library().kb_dense_matvec_f64(
-        A0.data_ptr(), ptr(A1), X.data_ptr(), Y0.data_ptr(), ptr(Y1), G, R, C,
-        len(stacks), stream), 'dense_matvec')
+    if dt == torch.float32:
+        build.check(build.library().kb_dense_matvec_f32(
+            A0.data_ptr(), X.data_ptr(), Y0.data_ptr(), G, R, C, stream), 'dense_matvec')
+    else:
+        build.check(build.library().kb_dense_matvec_f64(
+            A0.data_ptr(), ptr(A1), X.data_ptr(), Y0.data_ptr(), ptr(Y1), G, R, C,
+            len(stacks), stream), 'dense_matvec')
     dense_matvec.launches += 1
     return Y0 if A1 is None else (Y0, Y1)
 

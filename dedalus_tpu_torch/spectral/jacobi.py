@@ -181,9 +181,20 @@ def conversion_matrix(N, a0, b0, a1, b1, dtype=np.float64):
         return sparse.identity(N, dtype=dtype, format='csr')
     z, w = quadrature(N + 1, a1, b1, dtype=INTERNAL)
     P0 = polynomials(N, a0, b0, z, dtype=INTERNAL)
-    P1 = polynomials(N, a1, b1, z, dtype=INTERNAL)
-    C = (P1 * w) @ P0.T
-    return _banded_clean(C.astype(dtype), 0, da + db)
+    P1w = polynomials(N, a1, b1, z, dtype=INTERNAL) * w
+    # Only the da + db + 1 diagonals of the band, each entry summed over the
+    # quadrature nodes in order: the entries of the dense longdouble product
+    # (P1 * w) @ P0.T bit for bit, in O(N^2) instead of O(N^3) longdouble
+    # operations (numpy has no BLAS for longdouble: 40 s at N = 2048)
+    diags = []
+    for d in range(min(da + db, N - 1) + 1):
+        acc = np.zeros(N - d, dtype=INTERNAL)
+        for q in range(z.size):
+            acc += P1w[:N - d, q] * P0[d:, q]
+        diags.append(acc.astype(dtype))
+    C = sparse.diags(diags, list(range(len(diags))), shape=(N, N), format='csr')
+    C.eliminate_zeros()
+    return C
 
 
 @CachedFunction

@@ -27,8 +27,11 @@ def banded_arrays_from_reference(fac_np, device='cpu'):
     'bad_idx') -> the port's BorderedBandedSolver.arrs on `device`."""
     put = lambda a: torch.as_tensor(np.array(a), device=device)
     fac = {k: put(v) for k, v in fac_np['fac'].items()}
+    if 'W1' in fac:     # in memory as (G, B, Pp), the way K6 post reads it
+        fac['W1'] = fac['W1'].transpose(1, 2).contiguous().transpose(1, 2)
+    col_unperm = put(fac_np['col_unperm']).long()
     arrs = dict(fac=fac, row_perm=put(fac_np['row_perm']).long(),
-                col_unperm=put(fac_np['col_unperm']).long(),
+                col_unperm=col_unperm, col_perm=torch.argsort(col_unperm),
                 Dr=put(fac_np['Dr']), Dc=put(fac_np['Dc']))
     bad_idx = tuple(int(g) for g in fac_np.get('bad_idx', ()))
     if bad_idx:

@@ -77,5 +77,15 @@ def test_sphere_path_import_has_no_jax():
          'assert d3.skew and d3.ave and d3.integ')
 
 
+def test_banded_cold_start_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.rbc\n'
+         'import dedalus_tpu_torch.ops.banded as ob\n'
+         'import dedalus_tpu_torch.csrc.residual_norm as rn\n'
+         'import dedalus_tpu_torch.utils.interop\n'
+         'assert ob.factor_block_tridiag_qr and ob.multi_rhs_solve\n'
+         'assert ob.banded_solve_pre and ob.banded_solve_post and rn.residual_norm')
+
+
 def test_every_module_import_has_no_jax():
     _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))
