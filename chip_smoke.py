@@ -25,7 +25,12 @@ public entry points:
   * the sphere shallow-water example (examples/ivp_sphere_shallow_water.py)
     at 256x128: the LBVP that balances the height field, then RK222 at the
     example's 600 s timestep, dense inverse_refined (KA, KB, KC, KE, KF, K3),
-    100 timed steps of the example's loop, with the mass integ(h) held.
+    100 timed steps of the example's loop, with the mass integ(h) held;
+  * the JAX bench's ball convection (dedalus_tpu_torch.models.ball) at
+    64x32x32, SBDF2 at dt=1e-4 on the default dense matsolver over 1024
+    per-(m, ell) pencils (KH and KI for the radial transforms and operators,
+    KE's trailing form for the colatitude transforms, KF, KA, KB, K7, K3,
+    KG), its setup by phase, 3 warm-up and 50 timed steps.
 
 Every path's grid-space products run through kernel KG, which is checked at
 each path's dealias grid.
@@ -33,7 +38,8 @@ each path's dealias grid.
     python3 chip_smoke.py
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
-banded_path, cold_start_path, example_path, annulus_path, disk_path; the
+banded_path, cold_start_path, example_path, annulus_path, disk_path,
+ball_path, and the card-vs-CPU checks such as ball_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
 and `c.LAUNCHES` hold its kernel checks and launch counts.
 
@@ -85,11 +91,16 @@ POLAR_STEPS = 100
 # The sphere example: timed size (the size upstream Dedalus ships it at) and
 # the size of the repository's copy
 SPHERE = dict(size=(256, 128), example=(128, 64), steps=100)
+# The ball: the JAX bench's size and dt (bench.py:611-648), and the size and
+# dt of tests/test_ball.py::test_ball_convection_gating for card vs CPU
+BALL = dict(size=(64, 32, 32), dt=1e-4, warmup=3, steps=50, example=(8, 4, 10),
+            example_dt=2e-3)
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
            cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
            grid_product=1e-15, block_tridiag_qr_factor=1e-11, multi_rhs_solve=1e-11,
-           banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14)
+           banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
+           ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -126,6 +137,12 @@ KERNELS = dict(   # name: (route, source, replaces)
                        'dedalus_tpu/ops/banded.py:1786'),
     residual_norm=('triton', 'dedalus_tpu_torch/csrc/residual_norm.py',
                    'dedalus_tpu/ops/banded.py:1736'),
+    ball_radial_apply=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
+                       'dedalus_tpu/core/basis_ball.py:221'),
+    regularity_recombine=('triton', 'dedalus_tpu_torch/csrc/regularity_recombine.py',
+                          'dedalus_tpu/core/basis_ball.py:92'),
+    trailing_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
+                    'dedalus_tpu/core/basis_sphere.py:158'),
 )
 # Kernels each main path must launch
 PATH_KERNELS = dict(
@@ -144,6 +161,9 @@ PATH_KERNELS = dict(
           'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
     sphere=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
             'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
+    ball=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
+          'regularity_recombine', 'trailing_apply', 'spin_recombine', 'pencil_gather_scatter',
+          'grid_product'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
@@ -312,9 +332,9 @@ def card():
 def kernel_functions():
     """The launch-counting wrappers of each kernel, by kernel name."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
-    from dedalus_tpu_torch.ops import products as oprod
+    from dedalus_tpu_torch.ops import products as oprod, ball as oball
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
-    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.csrc import residual_norm as rn
     from dedalus_tpu_torch.core import subsystems as sub
     return dict(block_tridiag_qr_factor=[ob.factor_block_tridiag_qr],
@@ -329,7 +349,10 @@ def kernel_functions():
                 cfl_max=[cm.cfl_max], polar_apply=[opolar.polar_apply],
                 spin_recombine=[kf.spin_recombine],
                 pencil_gather_scatter=[sub.pencil_gather, sub.pencil_scatter],
-                grid_product=[oprod.grid_product])
+                grid_product=[oprod.grid_product],
+                ball_radial_apply=[oball.ball_radial_apply],
+                regularity_recombine=[ki.regularity_recombine],
+                trailing_apply=[opolar.trailing_apply])
 
 
 def count_launches(path, steps, run):
@@ -384,8 +407,8 @@ def f_profile(solver, state, t, reps=10):
     it, their call counts and summed bounds, and F's own time, with the
     products through KG and through its plain twin. K2's bound is the sum of
     its transforms' and kernels' bounds."""
-    from dedalus_tpu_torch.ops import transforms as otr, polar as opolar
-    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    from dedalus_tpu_torch.ops import transforms as otr, polar as opolar, ball as oball
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.core import subsystems as sub, arithmetic as arith
 
     def k1_cost(a, kw, out):
@@ -407,6 +430,22 @@ def f_profile(solver, state, t, reps=10):
     def kf_cost(a, kw, out):
         return 2 * nbytes(a[0]), 7 * a[0].numel()
 
+    def kh_cost(a, kw, out):
+        S, x, pairs, o = a[0], a[1], a[2], a[3]
+        per_in, per_out = nbytes(x) // x.shape[0], nbytes(o) // o.shape[0]
+        extra = per_out if kw.get('accumulate') else 0
+        cols = x[0].numel() // x.shape[-1] * len(pairs)
+        return (nbytes(S) + len(pairs) * (per_in + per_out + extra),
+                2 * S.shape[2] * x.shape[-1] * cols)
+
+    def ki_cost(a, kw, out):
+        return nbytes(a[0], a[1], out), 2 * a[0].shape[0] * a[0].numel()
+
+    def kt_cost(a, kw, out):
+        S, x, n = a[0], a[1], len(a[3])
+        return (nbytes(S) + n * (nbytes(x) + nbytes(out)) // x.shape[0],
+                2 * S.shape[2] * n * (out.numel() // out.shape[0]))
+
     def k3_cost(a, kw, out):
         return 2 * nbytes(out), out.numel()
 
@@ -419,6 +458,9 @@ def f_profile(solver, state, t, reps=10):
                  (fast, otr, 'apply_matrix', fast_cost),
                  ('KE polar_apply', opolar, 'polar_apply', ke_cost),
                  ('KF spin_recombine', kf, 'spin_recombine', kf_cost),
+                 ('KH ball_radial_apply', oball, 'ball_radial_apply', kh_cost),
+                 ('KI regularity_recombine', ki, 'regularity_recombine', ki_cost),
+                 ('KE trailing_apply', opolar, 'trailing_apply', kt_cost),
                  ('KG grid_product', arith, 'grid_product', kg_cost),
                  ('K3 eq gather', sub, 'pencil_gather', k3_cost)],
                 lambda: solver.traced_F(state, t))
@@ -496,7 +538,7 @@ KG_CASES = (   # (label, a's tensor shape, b's, contract, einsum of the same con
 )
 
 
-def check_kg(path, field, primary=False):
+def check_kg(path, field, primary=False, cases=KG_CASES):
     """KG against its plain twin and torch.einsum at a path's product shapes
     on the dealias grid of `field`: the vector-gradient contraction
     u@grad(u) (timed), the scalar advection u@grad(b), the scaled outer
@@ -508,7 +550,7 @@ def check_kg(path, field, primary=False):
     gen = torch.Generator(device=dev).manual_seed(11)
     rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
     errs, timed = [], None
-    for label, ta, tb, contract, spec in KG_CASES:
+    for label, ta, tb, contract, spec in cases:
         a, b = rand(ta + grid), rand(tb + grid)
         alpha = 1.0 if contract else -0.5
         args = (a, b, len(ta), len(tb), contract, alpha)
@@ -947,6 +989,18 @@ def last_solve_residual(solver, a, b, c):
     return float(torch.linalg.norm(RHS - AX) / torch.linalg.norm(RHS))
 
 
+def reference_rule_count(bb):
+    """The refinement count dedalus_tpu's rule (twice the curve's minimum)
+    reads off the inner probe's curve that the port's plateau rule resolved
+    bb.refinements from; None without a probed curve."""
+    from dedalus_tpu_torch.ops.banded import refinements_from_curve
+    from dedalus_tpu_torch.utils.config import config
+    if bb.refine_curve is None:
+        return None
+    target = float(config.get('linear algebra', 'solve_target'))
+    return refinements_from_curve(bb.refine_curve, target, rule='reference')
+
+
 def steps_at_fixed_refinements(solver, bb, refinements, n_steps, abc):
     """(ms/step, last solve residual) of n_steps more steps at a fixed
     refinement count. The probed count is read off a noisy residual plateau
@@ -1093,9 +1147,13 @@ def cold_start_path(Nx=COLD_NX, Nz=COLD_NZ, n_steps=20):
                 dof_steps_per_s=Nx * Nz * 4 * n_steps / run_s, final_residual=resid,
                 ms_per_step_at_fixed_refinements=ms_fixed,
                 fixed_refinements=COLD_FIXED_REFINEMENTS,
-                final_residual_at_fixed_refinements=resid_fixed)
+                final_residual_at_fixed_refinements=resid_fixed,
+                refinements_reference_rule=reference_rule_count(bb))
     print(f"[{smi}] RBC {Nx}x{Nz}: {cold['ms_per_step']:.3f} ms/step at {bb.refinements} "
           f"refinements, final solve residual {resid:.3e}")
+    print(f"refinement count probed (plateau rule) {bb.refinements}: {cold['ms_per_step']:.3f} "
+          f"ms/step; fixed {COLD_FIXED_REFINEMENTS}: {ms_fixed:.3f} ms/step; the reference "
+          f"rule on the same curve: {cold['refinements_reference_rule']}")
     print(json.dumps({"cold_start": cold, "card": smi}))
     if not torch.isfinite(state).all():
         raise AssertionError("cold start: state is not finite")
@@ -1187,10 +1245,14 @@ def banded_path():
           f"warmup {warm_s:.1f} s, refinements {bb.refinements}, "
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"launches {LAUNCHES['rbc2048']}; final solve residual {resid:.3e}")
+    ref_rule = reference_rule_count(bb)
+    print(f"refinement count probed (plateau rule) {bb.refinements}: {ms_step:.3f} ms/step; "
+          f"fixed {FIXED_REFINEMENTS}: {ms_fixed:.3f} ms/step; the reference rule on the same "
+          f"curve: {ref_rule}")
     print(json.dumps({"main_path": dict(
         config=f"RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded", card=smi,
         ms_per_step=ms_step, dof_steps_per_s=dof * n_steps / run_s, setup_s=setup_s,
-        warmup_s=warm_s, refinements=bb.refinements,
+        warmup_s=warm_s, refinements=bb.refinements, refinements_reference_rule=ref_rule,
         ms_per_step_at_fixed_refinements=ms_fixed, fixed_refinements=FIXED_REFINEMENTS,
         final_residual_at_fixed_refinements=resid_fixed,
         refine_curve=None if bb.refine_curve is None else [float(v) for v in bb.refine_curve],
@@ -1265,6 +1327,7 @@ def example_path():
 
     last, restore_solve = record_solves()
     dts = []
+    peaks = []      # (distinct dt values visited, peak bytes) after each chunk
 
     def main_loop(iterations):
         ok = torch.ones((), dtype=torch.bool, device=dist.device)
@@ -1274,6 +1337,7 @@ def example_path():
             dts.append(dt)
             solver.run_steps(dt, CFL.chunk_steps())
             ok = ok & torch.isfinite(solver.state_flat()).all()
+            peaks.append((len(set(dts)), torch.cuda.max_memory_allocated()))
         return ok
 
     t0 = time.perf_counter()
@@ -1359,6 +1423,7 @@ def example_path():
 
     phase(f"example path: {EX_ITERATIONS} timed iterations of the CFL loop")
     dts.clear()
+    peaks.clear()
     it0 = solver.iteration
     n_facts0 = len(ts._stage_factors)
     torch.cuda.synchronize()
@@ -1379,12 +1444,25 @@ def example_path():
           f"warmup {warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
     print(f"dt visited {sorted(set(dts), reverse=True)}; factorizations "
           f"{n_facts0} -> {len(ts._stage_factors)}; max Re {max_re:.6g}")
+    # Stage factorizations are evicted beyond [linear algebra]
+    # max_cached_factorizations step sizes: past that many dt values the
+    # peak stays put
+    from dedalus_tpu_torch.utils.config import config
+    limit = config.getint('linear algebra', 'max_cached_factorizations')
+    fact_bytes = 2 * G * P * P * 8
+    at_limit = next((pk for nd, pk in peaks if nd > limit), None)
+    print(f"peak bytes by dt values visited {peaks}; limit {limit} step sizes, "
+          f"{fact_bytes} bytes per factorization")
+    if at_limit is not None and peaks[-1][1] > at_limit + fact_bytes // 2:
+        raise AssertionError(f"rbc256: peak grew from {at_limit} to {peaks[-1][1]} bytes after "
+                             f"{limit} dt values")
     print(f"launches per step {per_step}; last solve residual {resid:.3e}")
 
     print(json.dumps({"example_path": dict(
         config=f"RBC {EX_NX}x{EX_NZ} Ra={EX_RA:g} RK222 {solver.matsolver} CFL", card=smi,
         ms_per_step=ms_step, iterations=n_iter, dof_steps_per_s=dof * n_iter / run_s,
         setup_s=setup_s, warmup_s=warm_s, dts=dts, factorizations=len(ts._stage_factors),
+        peak_bytes_by_dt_values=peaks,
         max_Re=max_re, peak_bytes=peak, launches_per_step=per_step,
         last_solve_residual=resid)}))
     if not bool(ok):
@@ -1851,6 +1929,313 @@ def sphere_path(steps=SPHERE['steps']):
     print(json.dumps({"sphere_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
+BALL_KG_CASES = (
+    ('u@grad(u)', (3,), (3, 3), True, 'cxyz,cbxyz->bxyz'),
+    ('u@grad(T)', (3,), (3,), True, 'cxyz,cxyz->xyz'),
+    ('r_vec*T', (3,), (), False, 'cxyz,xyz->cxyz'),
+)
+
+
+def build_ball(size, device, scheme='SBDF2'):
+    """The ball convection model (dedalus_tpu_torch.models.ball) with its
+    conductive initial condition: (solver, ctx)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import ball as mb
+    problem, ctx = mb.build_ball_problem(*size, device=device)
+    solver = problem.build_solver(getattr(d3, scheme))
+    mb.set_conductive_ic(ctx, seed=42)
+    if solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"ball: default matsolver is {solver.matsolver}")
+    return solver, ctx
+
+
+def ball_residuals(ctx):
+    """max |u(r=1)| and max |div(u)| in coefficient space."""
+    import dedalus_tpu_torch.public as d3
+    u = ctx['u']
+    out = []
+    for expr in (u(r=1), d3.div(u)):
+        f = expr.evaluate()
+        f.require_coeff_space()
+        out.append(float(f.data.abs().max()))
+    return out
+
+
+def ball_card_vs_cpu(steps=20):
+    """The ball at the reference's gating size, 8x4x10, `steps` SBDF2 steps
+    at dt=2e-3: the card against the CPU-held port, each field relative to
+    its own max (absolute where that is 0); the wall and divergence
+    residuals on the card."""
+    size, dt = BALL['example'], BALL['example_dt']
+    phase(f"ball {size[0]}x{size[1]}x{size[2]} SBDF2 default matsolver, {steps} steps: "
+          f"cuda vs cpu")
+    runs = {}
+    for d in (DEVICE, 'cpu'):
+        solver, ctx = build_ball(size, d)
+        solver.run_steps(dt, steps)
+        runs[d] = (solver, ctx)
+    errs = {}
+    for fg, fc in zip(runs[DEVICE][0].state, runs['cpu'][0].state):
+        a, b = fg['c'].cpu(), fc['c']
+        scale = float(b.abs().max())
+        errs[fc.name] = float((a - b).abs().max()) / (scale if scale > 0 else 1.0)
+    wall, div = ball_residuals(runs[DEVICE][1])
+    print(f"ball cuda vs cpu rel_err {errs} (tol 1e-10); on the card max|u(r=1)| {wall:.3e}, "
+          f"max|div u| {div:.3e} (tol 1e-12)")
+    finite = all(torch.isfinite(f['c']).all() for f in runs[DEVICE][0].state)
+    if not (max(errs.values()) <= 1e-10 and finite):
+        raise AssertionError(f"ball: card and CPU disagree: {errs}")
+    if not max(wall, div) <= 1e-12:
+        raise AssertionError(f"ball: wall {wall:.3e} or divergence {div:.3e} residual > 1e-12")
+
+
+def check_ball_kernels(solver, ctx):
+    """KH, KI, KE's trailing form, KE's lift/interpolation form and KF's
+    spherical form against their plain twins at the ball path's shapes:
+    KH on the backward radial stack of regularity total 0 at the dealias
+    grid, three vector components sharing it (and accumulating); KI on the
+    rank-2 recombination of grad(u) and the rank-1 of u; KE's trailing form
+    on the backward SWSH stack of spin -1 with the radius trailing; KE on
+    the per-m interpolation block of a vector at r=1; KF on grad(u)'s first
+    rank. The data are seeded random numbers of the path's shapes (u
+    itself is ~0 at r=1, where a relative error means nothing)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.ops import ball as oball, polar as opolar
+    from dedalus_tpu_torch.csrc import regularity_recombine as ki, spin_recombine as kf
+    from dedalus_tpu_torch.core.basis import device_copy
+    from dedalus_tpu_torch.core.basis_polar import spin_matrix
+    u, ball = ctx['u'], ctx['ball']
+    dev = u.data.device
+    rb, cb = ball.radial_basis, ball.colatitude_basis
+    scale = ball.dealias[2]
+    M, L, N = u['c'].shape[1:]
+    K = M // 2
+    Ng, Lg = rb.grid_size(scale), cb.grid_size(ball.dealias[1])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+
+    # KH: the per-ell stack, read by slot (k, l) at ell = k + l
+    S = device_copy(rb._transform_stacks(scale, 0, 'b'), dev)
+    x = rand((3, K, 2, L, N))
+    pairs = [(0, 0), (1, 1), (2, 2)]
+    outk = torch.empty((3, K, 2, L, Ng), dtype=torch.float64, device=dev)
+    oball.ball_radial_apply(S, x, pairs, outk)
+    outp = oball.ball_radial_apply_plain(S, x, pairs, torch.empty_like(outk))
+    base = rand(outk.shape)
+    ak = oball.ball_radial_apply(S, x, pairs, base.clone(), accumulate=True)
+    ap = oball.ball_radial_apply_plain(S, x, pairs, base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    scratch = torch.empty_like(outk)
+    # The library call's operand: the (K, L, O, N) strided view of the
+    # zero-padded per-ell stack, made before the timing
+    Sv = oball.per_slot_view(S, K, L)
+    # What the function needs: the stack once, the input columns of the
+    # slots with an ell in the stack, every output
+    live = sum(max(min(L, S.shape[0] - k), 0) for k in range(K))
+    kh_bytes = nbytes(S, outk) + 3 * 2 * live * N * 8
+    record('ball_radial_apply', 'ball', dict(
+        err=max(rel_err(outk, outp), rel_err(ak, ap)), shape=list(S.shape) + [3],
+        what='backward radial stack, regularity total 0, the 3 components of u',
+        ms=cuda_ms(lambda: oball.ball_radial_apply(S, x, pairs, scratch), 50),
+        plain_ms=cuda_ms(lambda: oball.ball_radial_apply_plain(S, x, pairs, scratch), 50),
+        library_ms=cuda_ms(lambda: torch.einsum('klon,ckpln->ckplo', Sv, x), 50),
+        ms_accumulate=cuda_ms(lambda: oball.ball_radial_apply(S, x, pairs, scratch,
+                                                              accumulate=True), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(kh_bytes, 2 * Ng * N * 3 * 2 * live)))),
+        True, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'ms_accumulate'))
+
+    # KI: grad(u) (C = 9) and u (C = 3) at the dealias radial grid
+    errs, timed = [], None
+    for C in (9, 3):
+        rank = 2 if C == 9 else 1
+        Q = rb._Q_stack_device(rank, K, L, dev)
+        xi = rand((C, K, 2, L, Ng))
+        for fwd in (True, False):
+            yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            torch.cuda.synchronize()
+            errs.append(rel_err(yk, yp))
+        if timed is None:
+            timed = dict(
+                shape=list(xi.shape), what='backward recombination of grad(u)',
+                ms=cuda_ms(lambda: ki.regularity_recombine(xi, Q, False), 50),
+                plain_ms=cuda_ms(lambda: ki.regularity_recombine_plain(xi, Q, False), 50),
+                library_ms=cuda_ms(lambda: torch.einsum('klab,bkpln->akpln', Q, xi), 50),
+                # Q's (K, L) stack repeats the matrix of each ell: count one
+                **dict(zip(('bound_ms', 'bound_by'),
+                           bound(nbytes(xi, yk) + L * C * C * 8, 2 * C * xi.numel()))))
+    record('regularity_recombine', 'ball', dict(timed, err=max(errs)), True)
+
+    # KE, trailing form: the backward SWSH stack of spin 0 on the three
+    # components of grad(u) that share it, radius trailing, in one launch
+    St = device_copy(cb._transform_stacks(ball.dealias[1], 0, 'b'), dev)
+    xt = rand((9, M, L, Ng))
+    comps = [0, 4, 8]
+    outt = torch.zeros((9, M, Lg, Ng), dtype=torch.float64, device=dev)
+    tk = opolar.trailing_apply(St, xt, outt.clone(), comps)
+    tp = opolar.trailing_apply_plain(St, xt, outt.clone(), comps)
+    base_t = rand(tk.shape)
+    tak = opolar.trailing_apply(St, xt, base_t.clone(), comps, accumulate=True)
+    tap = opolar.trailing_apply_plain(St, xt, base_t.clone(), comps, accumulate=True)
+    torch.cuda.synchronize()
+    x5 = xt[comps].view(3, K, 2, L, Ng)
+    scratch_t = torch.empty_like(outt)
+    record('trailing_apply', 'ball', dict(
+        err=max(rel_err(tk, tp), rel_err(tak, tap)), shape=list(St.shape) + [Ng, len(comps)],
+        what='backward SWSH stack, spin 0, radius trailing, 3 components of grad(u)',
+        ms=cuda_ms(lambda: opolar.trailing_apply(St, xt, scratch_t, comps), 50),
+        plain_ms=cuda_ms(lambda: opolar.trailing_apply_plain(St, xt, scratch_t, comps), 50),
+        library_ms=cuda_ms(lambda: torch.matmul(St[:, None], x5), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(St) + 3 * (nbytes(xt) + nbytes(tk)) // 9,
+                         2 * L * 3 * M * Lg * Ng)))), True)
+
+    # KE, the ball's lift and interpolation form: u's interpolation block at r=1
+    op = u(r=1)
+    stack = torch.as_tensor(np.stack([op._interp_block_m(m).toarray() for m in range(K)]),
+                            device=dev)
+    d = rand((2 * K, 3 * L * N))
+    ek, ep = opolar.polar_apply(stack, d), opolar.polar_apply_plain(stack, d)
+    torch.cuda.synchronize()
+    ke = dict(err=rel_err(ek, ep), shape=list(stack.shape),
+              ms=cuda_ms(lambda: opolar.polar_apply(stack, d), 50),
+              plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(stack, d), 50),
+              library_ms=cuda_ms(lambda: torch.matmul(stack, d.view(K, 2, -1).transpose(1, 2)),
+                                 50),
+              **dict(zip(('bound_ms', 'bound_by'),
+                         bound(nbytes(stack, d, ek), 2 * stack.shape[1] * d.numel()))))
+    record('polar_apply', 'ball', ke, False)
+
+    # KF, spherical form: grad(u) on the dealias grid, rank 0 (r passes through)
+    xg = rand((3, 3, ball.azimuth_basis.grid_size(ball.dealias[0]), Lg, Ng))
+    W = torch.as_tensor(spin_matrix(ball.coordsys, False), device=dev)
+    fk, fp = kf.spin_recombine(xg, 0, 2, W), kf.spin_recombine_plain(xg, 0, 2, W)
+    # The library call: one einsum with the 6x6 (component, pair) matrix,
+    # W's 4x4 on the angular components and the identity on r
+    W6 = torch.eye(6, dtype=torch.float64, device=dev)
+    W6[:4, :4] = W
+    W6 = W6.view(3, 2, 3, 2)
+    xv = xg.view(3, 3, xg.shape[2] // 2, 2, Lg * Ng)
+    lib = torch.einsum('cpCP,CbkPn->cbkpn', W6, xv).reshape(xg.shape)
+    torch.cuda.synchronize()
+    if not rel_err(lib, fp)[0] <= 1e-14:
+        raise AssertionError(f"KF's library call disagrees: {rel_err(lib, fp)}")
+    record('spin_recombine', 'ball', dict(
+        err=rel_err(fk, fp), shape=list(xg.shape),
+        ms=cuda_ms(lambda: kf.spin_recombine(xg, 0, 2, W), 50),
+        plain_ms=cuda_ms(lambda: kf.spin_recombine_plain(xg, 0, 2, W), 50),
+        library_ms=cuda_ms(lambda: torch.einsum('cpCP,CbkPn->cbkpn', W6, xv), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(xg, W, fk), 7 * xg.numel() * 2 // 3)))),
+        False)
+
+
+def ball_path(steps=BALL['steps']):
+    """The JAX bench's ball convection at 64x32x32 (G=1024 per-(m, ell)
+    pencils of P=329) through the public API, as bench.py:611-648 runs it:
+    build_ball_problem, SBDF2 on the default matsolver, set_conductive_ic,
+    run_steps at dt=1e-4: setup by phase, 3 warm-up steps, the ball kernels,
+    K3 and KG against their twins, `steps` timed steps, the wall and
+    divergence residuals, and a per-segment breakdown."""
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.models import ball as mb
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar, ball as oball
+    from dedalus_tpu_torch.ops import banded as ob
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
+    from dedalus_tpu_torch.core import arithmetic as arith
+
+    dev, kind, smi = card()
+    Nphi, Ntheta, Nr = BALL['size']
+    dt = BALL['dt']
+    phase(f"ball path setup: {Nphi}x{Ntheta}x{Nr} Ra=1e4 SBDF2 dt={dt:g} default matsolver "
+          f"on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    problem, ctx = mb.build_ball_problem(Nphi, Ntheta, Nr, Rayleigh=1e4)
+    t1 = time.perf_counter()
+    solver = problem.build_solver(d3.SBDF2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mb.set_conductive_ic(ctx, seed=42)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    setup = dict(problem_s=t1 - t0, solver_s=t2 - t1, initial_condition_s=t3 - t2,
+                 total_s=t3 - t0, **{k + '_s': v for k, v in ob.phase_seconds.items()})
+    pencil = solver.pencil
+    if solver.dist.device.type != dev.type or solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"ball path on {solver.dist.device} / {solver.matsolver}")
+    if pencil.slot_split != (Nphi // 2, Ntheta):
+        raise AssertionError(f"ball pencils not split per (m, ell): {pencil.slot_split}")
+    print(f"setup by phase {setup}; G={pencil.G} P={pencil.R} dense stacks "
+          f"{pencil.matrices['M'].numel() * 8 / 1e9:.3f} GB each")
+
+    last, restore_solve = record_solves()
+    try:
+        t0 = time.perf_counter()
+        solver.run_steps(dt, BALL['warmup'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} ({BALL['warmup']} steps incl. factorizations and "
+              f"Triton builds)")
+
+        phase("KH, KI, KE (trailing and lift forms), KF, K3, KG vs plain twins (ball-path "
+              "shapes)")
+        check_ball_kernels(solver, ctx)
+        check_k3('ball', pencil, solver.state_flat())
+        check_kg('ball', ctx['u'], cases=BALL_KG_CASES)
+
+        phase(f"ball path: {steps} timed steps")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches('ball', steps, lambda: solver.run_steps(dt, steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = Nphi * Ntheta * Nr * 5
+    state = solver.state_flat()
+    resid = solve_residual(last)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES['ball'].items() if v}
+    wall, div = ball_residuals(ctx)
+    max_u = float(ctx['u']['g'].abs().max())
+    print(f"[{smi}] ball {Nphi}x{Ntheta}x{Nr} SBDF2: {ms_step:.3f} ms/step over {n} steps, "
+          f"{dof * n / run_s:.4e} DOF*steps/s, setup {setup['total_s']:.2f} s, warmup "
+          f"{warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; max|u(r=1)| "
+          f"{wall:.3e}; max|div u| {div:.3e}; max|u| {max_u:.4e}")
+    print(json.dumps({"ball_path": dict(
+        config=f"ball {Nphi}x{Ntheta}x{Nr} Ra=1e4 Pr=1 SBDF2 dt={dt:g} {solver.matsolver}",
+        card=smi, ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s, setup=setup,
+        warmup_s=warm_s, G=pencil.G, P=pencil.R, peak_bytes=peak, launches_per_step=per_step,
+        last_solve_residual=resid, wall_residual=wall, divergence_residual=div,
+        max_u=max_u)}))
+    if not (torch.isfinite(state).all() and np.isfinite(max_u) and max_u <= MAX_U):
+        raise AssertionError(f"ball: the run blew up (max|u| {max_u:.3g})")
+    if not resid <= 1e-12:
+        raise AssertionError(f"ball: last solve residual {resid:.3e} > 1e-12")
+    if not max(wall, div) <= 1e-12:
+        raise AssertionError(f"ball: wall {wall:.3e} or divergence {div:.3e} residual > 1e-12")
+
+    phase("ball path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'),
+               ('history combine (K7)', tsm, 'history_combine')]
+    nested = [('KH', oball, 'ball_radial_apply'), ('KI', ki, 'regularity_recombine'),
+              ('KE trailing', opolar, 'trailing_apply'), ('KF', kf, 'spin_recombine'),
+              ('KG', arith, 'grid_product')]
+    breakdown('ball', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
+    print(json.dumps({"ball_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -1881,6 +2266,8 @@ def main():
     disk_path()
     sphere_card_vs_cpu()
     sphere_path()
+    ball_card_vs_cpu()
+    ball_path()
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',

@@ -1,9 +1,9 @@
 """
 Arithmetic operator nodes: Add, Multiply (outer product), DotProduct.
 
-Mirrors dedalus_tpu/core/arithmetic.py on Cartesian and polar domains.
-Nonlinear products evaluate in grid space at dealias scales, where the
-components of polar and S2 tensors are coordinate components, so the
+Mirrors dedalus_tpu/core/arithmetic.py on Cartesian, polar, S2 and ball
+domains. Nonlinear products evaluate in grid space at dealias scales, where
+the components of curvilinear tensors are coordinate components, so the
 products are the Cartesian ones: kernel KG (ops/products.py), one launch
 per product node. NCC (linear-side) products lower to Clenshaw
 multiplication matrices per pencil on Cartesian domains; curvilinear NCCs
@@ -48,6 +48,11 @@ def merge_bases(b1, b2):
     if isinstance(b1, DiskRadialBasis) and isinstance(b2, DiskRadialBasis):
         if (b1.coord, b1.size, b1.radius, b1.alpha) != (b2.coord, b2.size, b2.radius, b2.alpha):
             raise ValueError(f"Incompatible disk radial bases: {b1} {b2}")
+        return b1 if b1.k >= b2.k else b2
+    from .basis_ball import BallRadialBasis
+    if isinstance(b1, BallRadialBasis) and isinstance(b2, BallRadialBasis):
+        if (b1.coord, b1.size, b1.radius, b1.alpha) != (b2.coord, b2.size, b2.radius, b2.alpha):
+            raise ValueError(f"Incompatible ball radial bases: {b1} {b2}")
         return b1 if b1.k >= b2.k else b2
     raise ValueError(f"Cannot merge bases: {b1} {b2}")
 

@@ -1,0 +1,420 @@
+"""
+Ball basis: the 3-D spherical domain (azimuth x colatitude x radius) built
+from spin-weighted spherical harmonics and generalized 3-D Zernike radial
+functions, real dtype.
+
+Mirrors the ball part of dedalus_tpu/core/basis_ball.py. A ball field's
+coefficient data is (components..., M, L, N): the azimuth is RealFourier
+with interleaved (cos, -sin) pairs, colatitude slot j of azimuthal
+wavenumber m holds ell = |m| + j for every component (the ell-aligned
+storage of core/basis_sphere.py), and radial slot n is valid while
+n < N - ell // 2 (the triangular truncation, expressed through validity
+masks and identity pivots). Coefficient data holds regularity components,
+grid data coordinate components (phi, theta, r):
+
+  * colatitude: spin recombination (kernel KF, the radial component passing
+    through) and the per-(m, spin) SWSH stacks (KE's trailing form);
+  * radius: the regularity recombination per (m, ell) (kernel KI,
+    csrc/regularity_recombine.py) and the per-(m, ell) Zernike stacks of
+    each regularity total (kernel KH, ops/ball.py).
+
+Operator matrices are host scipy, built exactly as in the JAX package. The
+shell and the radial NCC blocks wait for ROADMAP M11b-2b.
+"""
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from .basis import Basis, device_copy
+from .basis_polar import make_azimuth_basis
+from .basis_sphere import ColatitudeBasis
+from .coords import SphericalCoordinates
+from ..csrc import regularity_recombine as ki
+from ..ops import ball as ops_ball
+from ..utils.caching import CachedMethod
+from ..spectral import intertwiner as intertwiner_lib
+from ..spectral import zernike as zernike_lib
+
+
+def _pairs(M):
+    """(wavenumbers, pair slots) of an azimuth axis of size M (a field
+    constant along the angles has M = 1: one slot)."""
+    K = max(M // 2, 1)
+    return K, M // K
+
+
+class SphericalRadialBasis:
+    """Mixin of the 3-D spherical radial bases: tensor checks and the per-ell
+    regularity <-> spin recombination of tensor components."""
+
+    def _check_tensorsig(self, tensorsig):
+        for cs in tensorsig:
+            if cs is not self.parent.coordsys:
+                raise NotImplementedError(
+                    "Spherical tensors must be over the spherical coordinate system")
+
+    def _Q_stack_host(self, rank):
+        """Host stack (KM+1, L, 3^r, 3^r) of regularity-to-spin intertwiners
+        at ell = |m| + slot."""
+        key = ('Qstack', rank)
+        cache = self.__dict__.setdefault('_q_cache', {})
+        if key not in cache:
+            M = self.parent.azimuth_basis.size
+            KM = (M - 1) // 2
+            L = self.parent.colatitude_basis.size
+            C = 3**rank
+            Q = np.zeros((KM + 1, L, C, C))
+            for m in range(KM + 1):
+                for j in range(L - abs(m)):
+                    Q[m, j] = intertwiner_lib.Q_matrix(abs(m) + j, rank)
+            cache[key] = np.ascontiguousarray(Q)
+        return cache[key]
+
+    def _Q_stack_device(self, rank, K, L, device):
+        """The (K, L, C, C) part of the intertwiner stack on `device`."""
+        key = ('Qdev', rank, K, L, str(device))
+        cache = self.__dict__.setdefault('_q_cache', {})
+        if key not in cache:
+            Q = self._Q_stack_host(rank)[:K, :L]
+            cache[key] = torch.as_tensor(np.ascontiguousarray(Q), device=device)
+        return cache[key]
+
+    def _regularity_recombine(self, data, tensorsig, forward):
+        """Mix tensor components per (m, ell): spin <-> regularity (KI)."""
+        rank = len(tensorsig)
+        if rank == 0:
+            return data
+        C = 3**rank
+        M, L, N = data.shape[-3:]
+        K, NP = _pairs(M)
+        Q = self._Q_stack_device(rank, K, L, data.device)
+        x = data.reshape((C, K, NP, L, N)).contiguous()
+        return ki.regularity_recombine(x, Q, forward).reshape(data.shape)
+
+
+class BallRadialBasis(SphericalRadialBasis, Basis):
+    """
+    Radial basis for the ball: per-ell generalized 3-D Zernike polynomials
+    Q_n^{(alpha+k, ell + 1/2)}(z), z = 2(r/R)^2 - 1, with the r^ell envelope
+    in the basis functions.
+    """
+
+    ops_couple = True
+
+    def __init__(self, coord, size, radius=1.0, k=0, alpha=0.0, dealias=1,
+                 dtype=np.float64, parent=None, triangular=True):
+        super().__init__(coord, size, (0, float(radius)), dealias=dealias, dtype=dtype)
+        self.radius = float(radius)
+        self.k = int(k)
+        self.alpha = float(alpha)
+        self.parent = parent
+        self.triangular = bool(triangular)
+
+    def _key(self):
+        return ('BallRadial', self.coord.name, self.size, self.radius, self.k,
+                self.alpha, self.dealias, self.triangular)
+
+    def __eq__(self, other):
+        if isinstance(other, BallRadialBasis):
+            return self._key() == other._key()
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return f"BallRadialBasis({self.coord.name}, size={self.size}, k={self.k})"
+
+    def clone_with(self, **kw):
+        args = dict(coord=self.coord, size=self.size, radius=self.radius, k=self.k,
+                    alpha=self.alpha, dealias=self.dealias[0], dtype=self.dtype,
+                    parent=self.parent, triangular=self.triangular)
+        args.update(kw)
+        return BallRadialBasis(**args)
+
+    def derivative_basis(self, order=1):
+        return self.clone_with(k=self.k + order)
+
+    # --- truncation ---
+
+    def n_size(self, ell):
+        if not self.triangular:
+            return self.size
+        return max(self.size - ell // 2, 0)
+
+    # --- grids ---
+
+    def _native_z(self, scale=1):
+        z, w = zernike_lib.quadrature(3, self.grid_size(scale), k=self.alpha)
+        return np.asarray(z, dtype=np.float64), np.asarray(w, dtype=np.float64)
+
+    def global_grid(self, scale=1):
+        z, _ = self._native_z(scale)
+        return self.radius * np.sqrt((1 + z) / 2)
+
+    def global_weights(self, scale=1):
+        """Weights of the integral f(r) r^2 dr on [0, R] (alpha = 0)."""
+        _, w = self._native_z(scale)
+        return w * self.radius**3
+
+    # --- transforms: per-(m, ell) Zernike stacks (kernel KH) ---
+
+    def _ell_matrices(self, ell, reg, z, w):
+        """(forward, backward) radial matrices at one (ell, regularity
+        total), padded to (n, Nrg) and (Nrg, n)."""
+        n = self.size
+        fwd = np.zeros((n, z.size))
+        bwd = np.zeros((z.size, n))
+        l_eff = ell + reg
+        ns = self.n_size(ell)
+        if ns <= 0 or l_eff < 0:
+            return fwd, bwd
+        Q0 = zernike_lib.polynomials(3, ns, self.alpha, l_eff, z)
+        proj = Q0 * w
+        if self.k:
+            conv = sparse.identity(ns, format='csr')
+            for i in range(self.k):
+                E = zernike_lib.operator(3, 'E', +1, ns, self.alpha + i, l_eff)
+                conv = E @ conv
+            proj = conv @ proj
+        fwd[:ns, :] = proj
+        Qk = zernike_lib.polynomials(3, ns, self.alpha + self.k, l_eff, z)
+        bwd[:, :ns] = Qk.T
+        return fwd, bwd
+
+    @CachedMethod
+    def _transform_stacks(self, scale, reg, direction):
+        """Host stacks (L, n, Nrg) forward ('f') or (L, Nrg, n) backward
+        ('b'): entry ell is the Zernike transform at ell (+ the regularity
+        total of a tensor component). The per-(m, j) transforms of the
+        reference depend on ell = |m| + j alone: KH reads entry |m| + j."""
+        z, w = self._native_z(scale)
+        L = self.parent.colatitude_basis.size
+        pick = 0 if direction == 'f' else 1
+        return np.ascontiguousarray(
+            np.stack([self._ell_matrices(ell, reg, z, w)[pick] for ell in range(L)]))
+
+    def _apply_stacks(self, data, scale, direction, out_size, tensorsig):
+        """Radial stacks on (C, M, L, N_in) data: each regularity total's
+        stack applied to its components by one launch of KH."""
+        M, L = data.shape[-3:-1]
+        K, NP = _pairs(M)
+        C = data.shape[0]
+        x = data.reshape((C, K, NP, L, data.shape[-1])).contiguous()
+        out = torch.empty((C, K, NP, L, out_size), dtype=data.dtype, device=data.device)
+        by_reg = {}
+        for flat, idx in enumerate(np.ndindex(*(3,) * len(tensorsig))):
+            by_reg.setdefault(intertwiner_lib.regtotal(idx), []).append(flat)
+        for reg, comps in by_reg.items():
+            S = device_copy(self._transform_stacks(scale, reg, direction), data.device)
+            ops_ball.ball_radial_apply(S, x, [(c, c) for c in comps], out)
+        return out.reshape(data.shape[:-1] + (out_size,))
+
+    def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        self._check_tensorsig(tensorsig)
+        rank = len(tensorsig)
+        shape0 = data.shape
+        data = data.reshape((3**rank,) + tuple(shape0[rank:]))
+        data = self._regularity_recombine(data, tensorsig, forward=True)
+        out = self._apply_stacks(data, scale, 'f', self.size, tensorsig)
+        return out.reshape(tuple(shape0[:-1]) + (self.size,))
+
+    def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        self._check_tensorsig(tensorsig)
+        rank = len(tensorsig)
+        shape0 = data.shape
+        Ng = self.grid_size(scale)
+        data = data.reshape((3**rank,) + tuple(shape0[rank:]))
+        out = self._apply_stacks(data, scale, 'b', Ng, tensorsig)
+        out = self._regularity_recombine(out, tensorsig, forward=False)
+        return out.reshape(tuple(shape0[:-1]) + (Ng,))
+
+    # --- validity: joint over (ell slot, n) for azimuthal group m ---
+
+    def joint_valid_for_m(self, m, tensorsig=(), comp_idx=(), az_w=1):
+        """Flattened (azimuth pair, L, n) mask: slot j holds ell = |m| + j;
+        radial slot n valid while n < n_size(ell); a tensor component also
+        needs its regularity class to exist at ell. The m = 0 sin parts
+        follow the cos parts except (ell == 0, sin) for rank <= 1."""
+        L = self.parent.colatitude_basis.size
+        mask = np.zeros((L, self.size), dtype=bool)
+        for j in range(max(L - abs(m), 0)):
+            ell = abs(m) + j
+            if comp_idx and not intertwiner_lib.regularity_allowed(ell, comp_idx):
+                continue
+            mask[j, :self.n_size(ell)] = True
+        out = np.zeros((az_w,) + mask.shape, dtype=bool)
+        out[0] = mask
+        if az_w > 1:
+            sinmask = mask.copy()
+            if len(tensorsig) <= 1 and m == 0:
+                sinmask[0] = False  # slot j = 0 holds ell = 0 at m = 0
+            out[1] = sinmask
+        return out.ravel()
+
+    # --- operator matrices per (ell, regularity total) ---
+
+    @CachedMethod
+    def operator_matrix_ell(self, op, ell, reg, size=None, truncate=True):
+        """Radial operator at one (ell, regularity total), padded square;
+        rows and columns beyond the triangular truncation zeroed unless
+        `truncate` is False."""
+        n = size if size is not None else self.size
+        l_eff = ell + reg
+        kk = self.alpha + self.k
+        if op == 'L':
+            D1 = zernike_lib.operator(3, 'D', +1, n + 2, kk, l_eff, radius=self.radius)
+            D2 = zernike_lib.operator(3, 'D', -1, n + 2, kk + 1, l_eff + 1, radius=self.radius)
+            mat = sparse.csr_matrix(D2 @ D1)[:n, :n]
+        elif op[-1] in '+-':
+            p = 1 if op[-1] == '+' else -1
+            mat = zernike_lib.operator(3, op[:-1], p, n, kk, l_eff, radius=self.radius)
+        elif op == 'E':
+            mat = zernike_lib.operator(3, 'E', +1, n, kk, l_eff)
+        elif op in ('Z', 'Id'):
+            mat = zernike_lib.operator(3, op, 0, n, kk, l_eff)
+        else:
+            raise ValueError(f"Unknown ball radial operator: {op}")
+        mat = sparse.csr_matrix(mat)
+        out = sparse.lil_matrix((n, n))
+        r, c = mat.shape
+        out[:min(r, n), :min(c, n)] = mat[:min(r, n), :min(c, n)]
+        if truncate:
+            ns = self.n_size(ell)
+            out[ns:, :] = 0
+            out[:, ns:] = 0
+        return sparse.csr_matrix(out)
+
+    @CachedMethod
+    def conversion_matrix_ell(self, ell, reg, dk, size=None):
+        n = size if size is not None else self.size
+        l_eff = ell + reg
+        mat = sparse.identity(n, format='csr')
+        for i in range(dk):
+            E = zernike_lib.operator(3, 'E', +1, n, self.alpha + self.k + i, l_eff)
+            r, c = E.shape
+            Ep = sparse.lil_matrix((n, n))
+            Ep[:min(r, n), :min(c, n)] = E[:min(r, n), :min(c, n)]
+            mat = sparse.csr_matrix(Ep) @ mat
+        return sparse.csr_matrix(mat)
+
+    @CachedMethod
+    def interpolation_ell(self, ell, reg, position):
+        """Row of the radial basis values at r = position for one ell."""
+        native_z = 2 * (position / self.radius)**2 - 1
+        ns = self.n_size(ell)
+        row = np.zeros(self.size)
+        if ns > 0:
+            Q = zernike_lib.polynomials(3, ns, self.alpha + self.k, ell + reg,
+                                        np.array([native_z]))
+            row[:ns] = Q[:, 0]
+        return row
+
+    def lift_block_m(self, m, index, reg=0):
+        """(L*n x L) lift of surface (per-ell) values into radial mode
+        `index` of each ell."""
+        L = self.parent.colatitude_basis.size
+        n = self.size
+        mat = sparse.lil_matrix((L * n, L))
+        for j in range(L):
+            ell = abs(m) + j
+            ns = self.n_size(ell)
+            if j < L - abs(m) and ns > 0:
+                mat[j * n + (ns + index if index < 0 else index), j] = 1
+        return sparse.csr_matrix(mat)
+
+    def constant_spatial_column(self):
+        """Column embedding the constant function 1 into the (colatitude
+        slot, radial) coefficient block: the ell = 0 slot gets the radial
+        expansion of 1 over the colatitude constant mode's value."""
+        L = self.parent.colatitude_basis.size
+        n = self.size
+        fwd = self._transform_stacks(1, 0, 'f')
+        col = np.zeros((L * n, 1))
+        col[:n, 0] = fwd[0] @ np.ones(fwd.shape[-1])
+        col /= self.parent.colatitude_basis.constant_mode_value()
+        return sparse.csr_matrix(col)
+
+
+class BallSurfaceBasis:
+    """The sphere surface of a ball: fields with bases=ball.surface span the
+    azimuth and colatitude axes (the taus of the boundary conditions)."""
+
+    dim = 2
+
+    def __init__(self, ball, radius):
+        self.ball = ball
+        self.coordsys = ball.coordsys
+        self.radius = float(radius)
+        self.shape = ball.shape[:2]
+        self.dealias = ball.dealias[:2]
+        self.dtype = ball.dtype
+
+    @property
+    def sub_bases(self):
+        return (self.ball.azimuth_basis, self.ball.colatitude_basis)
+
+    def derivative_basis(self, order=1):
+        return self
+
+    def __repr__(self):
+        return f"BallSurfaceBasis(radius={self.radius})"
+
+
+class BallBasis:
+    """Ball basis facade spanning the (azimuth, colatitude, radius) axes."""
+
+    dim = 3
+
+    def __init__(self, coordsys, shape, radius=1.0, k=0, alpha=0.0,
+                 dealias=(1, 1, 1), dtype=np.float64, triangular=True):
+        if not isinstance(coordsys, SphericalCoordinates):
+            raise ValueError("BallBasis requires SphericalCoordinates")
+        self.coordsys = coordsys
+        self.shape = tuple(shape)
+        self.radius = float(radius)
+        self.k = int(k)
+        self.alpha = float(alpha)
+        self.triangular = bool(triangular)
+        if np.isscalar(dealias):
+            dealias = (dealias,) * 3
+        self.dealias = tuple(dealias)
+        self.dtype = dtype
+        self.volume = 4 / 3 * np.pi * radius**3
+        self.azimuth_basis = make_azimuth_basis(
+            coordsys.azimuth, self.shape[0], self.dealias[0], dtype)
+        self.colatitude_basis = ColatitudeBasis(
+            coordsys.colatitude, self.shape[1], radius=self.radius,
+            dealias=self.dealias[1], dtype=dtype, parent=self)
+        self.radial_basis = BallRadialBasis(
+            coordsys.radius, self.shape[2], radius=self.radius, k=self.k,
+            alpha=self.alpha, dealias=self.dealias[2], dtype=dtype, parent=self,
+            triangular=self.triangular)
+        self.surface = BallSurfaceBasis(self, self.radius)
+
+    @property
+    def sub_bases(self):
+        return (self.azimuth_basis, self.colatitude_basis, self.radial_basis)
+
+    def S2_basis(self, radius=None):
+        return BallSurfaceBasis(self, self.radius if radius is None else radius)
+
+    def clone_with(self, **kw):
+        args = dict(coordsys=self.coordsys, shape=self.shape, radius=self.radius,
+                    k=self.k, alpha=self.alpha, dealias=self.dealias, dtype=self.dtype,
+                    triangular=self.triangular)
+        args.update(kw)
+        return BallBasis(**args)
+
+    def derivative_basis(self, order=1):
+        return self.clone_with(k=self.k + order)
+
+    def global_grids(self, scales=None):
+        scales = scales or self.dealias
+        return (self.azimuth_basis.global_grid(scales[0]),
+                self.colatitude_basis.global_grid(scales[1]),
+                self.radial_basis.global_grid(scales[2]))
+
+    def __repr__(self):
+        return f"BallBasis(shape={self.shape}, radius={self.radius}, k={self.k})"

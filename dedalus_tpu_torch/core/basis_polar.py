@@ -73,8 +73,14 @@ _W_CACHE = {}
 
 def spin_matrix(coordsys, forward):
     """Real 4x4 matrix of the coord<->spin unitary on (component, pair)
-    index pairs: kron(Re U, I2) + kron(Im U, R90)."""
+    index pairs of the two angular components: kron(Re U, I2) +
+    kron(Im U, R90). (A spherical system's third component, r, is not
+    mixed: U is the identity there.)"""
     U = coordsys.U_forward(1) if forward else coordsys.U_backward(1)
+    if U.shape[0] == 3:
+        if not np.array_equal(U[2], [0, 0, 1]) or not np.array_equal(U[:, 2], [0, 0, 1]):
+            raise ValueError("the radial spin component must pass through")
+        U = U[:2, :2]
     R90 = np.array([[0., -1.], [1., 0.]])
     return np.kron(U.real, np.eye(2)) + np.kron(U.imag, R90)
 
@@ -84,11 +90,12 @@ def spin_recombine(coordsys, tensorsig, data, azimuth_axis, forward):
     Apply the coord<->spin unitary over each tensor rank of `coordsys`, on
     real data whose azimuth axis (`azimuth_axis`, counted in the full data
     array) holds interleaved (cos, -sin) pairs. A rank-2 tensor is
-    recombined rank by rank. Each rank is one launch of kernel KF.
+    recombined rank by rank. Each rank is one launch of kernel KF; the
+    radial component of a spherical rank passes through it.
     """
     if not any(cs is coordsys for cs in tensorsig):
         return data
-    key = (forward, str(data.device))
+    key = (type(coordsys).__name__, forward, str(data.device))
     if key not in _W_CACHE:
         _W_CACHE[key] = torch.as_tensor(spin_matrix(coordsys, forward), device=data.device)
     W = _W_CACHE[key]

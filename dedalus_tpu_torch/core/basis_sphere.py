@@ -11,18 +11,25 @@ over m on the host, copied to the device once, and applied by kernel KE
 components and grid data coordinate components (phi, theta), recombined by
 kernel KF (csrc/spin_recombine.py).
 
+Under a 3-D spherical parent (the ball, core/basis_ball.py) the storage is
+ell-aligned instead: slot j of every spin component holds ell = |m| + j, so
+the per-ell regularity recombination can mix components, and slots with
+ell < |s| stay invalid. There the data carries a trailing radius axis, which
+the trailing form of kernel KE batches through each per-m product in place.
+
 The colatitude grid is stored in increasing theta (decreasing z = cos theta).
 The complex dtype (signed (+m, -m) azimuth slots) waits for ComplexFourier
-(ROADMAP M2); the ell-aligned storage of ball and shell parents for those
-bases (ROADMAP M11b-2).
+(ROADMAP M2).
 """
 
 import numpy as np
+import torch
 from scipy import sparse
 
-from .basis import Basis
-from .basis_polar import make_azimuth_basis, spin_recombine, apply_spin_stacks
+from .basis import Basis, device_copy
+from .basis_polar import make_azimuth_basis, spin_recombine, apply_spin_stacks, _comp_spin_map
 from .coords import S2Coordinates
+from ..ops import polar as ops_polar
 from ..utils.caching import CachedMethod
 from ..spectral import sphere as sphere_lib
 
@@ -30,7 +37,8 @@ from ..spectral import sphere as sphere_lib
 class ColatitudeBasis(Basis):
     """
     Per-m SWSH colatitude basis: coefficient slot j of azimuthal mode m and
-    spin s holds the ell = max(|m|, |s|) + j harmonic amplitude.
+    spin s holds the ell = max(|m|, |s|) + j harmonic amplitude (ell = |m| + j
+    under a ball).
     """
 
     ops_couple = True
@@ -58,8 +66,22 @@ class ColatitudeBasis(Basis):
     def derivative_basis(self, order=1):
         return self  # SWSH operators stay in the same basis
 
+    @property
+    def _ell_aligned(self):
+        """3-D spherical parents store every spin component with slot j at
+        ell = |m| + j; S2 parents pack each spin from ell = max(|m|, |s|)."""
+        return hasattr(self.parent, 'radial_basis')
+
     def n_size(self, m, s=0):
+        if self._ell_aligned:
+            return max(self.Lmax + 1 - abs(m), 0)
         return max(self.Lmax + 1 - max(abs(m), abs(s)), 0)
+
+    def slot_offset(self, m, s):
+        """First valid slot of spin s within the slot axis."""
+        if self._ell_aligned:
+            return max(abs(m), abs(s)) - abs(m)
+        return 0
 
     # --- grids ---
 
@@ -84,13 +106,14 @@ class ColatitudeBasis(Basis):
         n = self.size
         fwd = np.zeros((n, z.size))
         bwd = np.zeros((z.size, n))
-        count = min(self.n_size(m, s), n)
+        off = self.slot_offset(m, s)
+        count = min(max(self.Lmax + 1 - max(abs(m), abs(s)), 0), n - off)
         if count <= 0:
             return fwd, bwd
         Y = sphere_lib.harmonics(max(Lmax_g, self.Lmax), m, s, z)[:count, :]
         # The grid is stored in increasing theta = decreasing z
-        fwd[:count, :] = (Y * w)[:, ::-1]
-        bwd[:, :count] = Y[:, ::-1].T
+        fwd[off:off + count, :] = (Y * w)[:, ::-1]
+        bwd[:, off:off + count] = Y[:, ::-1].T
         return fwd, bwd
 
     @CachedMethod
@@ -110,19 +133,45 @@ class ColatitudeBasis(Basis):
 
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
         data = spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=True)
+        if self._ell_aligned:
+            return self._apply_trailing(data.contiguous(), scale, 'f', self.size, tensorsig)
         return apply_spin_stacks(self, data.contiguous(), scale, 'f', self.size, tensorsig)
 
     def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
-        data = apply_spin_stacks(self, data.contiguous(), scale, 'b', self.grid_size(scale),
-                                 tensorsig)
+        if self._ell_aligned:
+            data = self._apply_trailing(data.contiguous(), scale, 'b', self.grid_size(scale),
+                                        tensorsig)
+        else:
+            data = apply_spin_stacks(self, data.contiguous(), scale, 'b',
+                                     self.grid_size(scale), tensorsig)
         return spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=False)
+
+    def _apply_trailing(self, data, scale, direction, out_size, tensorsig):
+        """Apply each component's per-m spin stack along the colatitude axis
+        of (comps..., M, L, Nr) data, the radius trailing: one launch of
+        KE's trailing form per spin, for all components of that spin."""
+        shape = tuple(cs.dim for cs in tensorsig)
+        M, T = data.shape[-3], data.shape[-1]
+        C = int(np.prod(shape, dtype=int))
+        x = data.reshape((C,) + tuple(data.shape[-3:]))
+        out = torch.empty((C, M, out_size, T), dtype=data.dtype, device=data.device)
+        spins = _comp_spin_map(self.parent.coordsys, tensorsig) if tensorsig else {(): 0}
+        by_spin = {}
+        for flat, s in enumerate(spins.values()):
+            by_spin.setdefault(s, []).append(flat)
+        for s, comps in by_spin.items():
+            stack = device_copy(self._transform_stacks(scale, s, direction), data.device)
+            ops_polar.trailing_apply(stack, x, out, comps)
+        return out.reshape(shape + (M, out_size, T))
 
     # --- validity (component-dependent) ---
 
     def component_valid_for_m(self, m, tensorsig, comp_idx):
         s = self.parent.coordsys.spintotal(tensorsig, comp_idx) if tensorsig else 0
         mask = np.zeros(self.size, dtype=bool)
-        mask[:min(self.n_size(m, s), self.size)] = True
+        off = self.slot_offset(m, s)
+        count = max(self.Lmax + 1 - max(abs(m), abs(s)), 0)
+        mask[off:off + min(count, self.size - off)] = True
         return mask
 
     def surface_pair_valid_for_m(self, m, tensorsig, cidx, az_w):
@@ -136,10 +185,11 @@ class ColatitudeBasis(Basis):
         if az_w > 1:
             sinmask = cosmask.copy()
             if len(tensorsig) <= 1 and m == 0:
-                # slot 0 holds ell = 0 for spin 0 only; higher |s| exclude it
+                # the slot of ell = 0, for spin 0 only (higher |s| exclude it)
                 s = self.parent.coordsys.spintotal(tensorsig, cidx) if tensorsig else 0
-                if s == 0:
-                    sinmask[0] = False
+                off = self.slot_offset(0, 0)
+                if s == 0 and off < self.size:
+                    sinmask[off] = False
             out[1] = sinmask
         return out.ravel()
 
@@ -177,6 +227,13 @@ class ColatitudeBasis(Basis):
         col = np.zeros((self.size, 1))
         col[index, 0] = 1
         return sparse.csr_matrix(col)
+
+    @CachedMethod
+    def constant_mode_value(self):
+        """Grid value of the ell = 0 harmonic: a constant function f has
+        coefficient f / this value."""
+        z, _ = self._zw(1)
+        return float(np.asarray(sphere_lib.harmonics(0, 0, 0, z))[0, 0])
 
 
 class SphereBasis:

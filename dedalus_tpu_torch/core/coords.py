@@ -1,9 +1,9 @@
 """
-Coordinates and coordinate systems (Cartesian, polar and the sphere
-surface).
+Coordinates and coordinate systems (Cartesian, polar, the sphere surface
+and 3-D spherical).
 
-Mirrors dedalus_tpu/core/coords.py. The 3-D spherical system and direct
-products are not ported yet (ROADMAP M11b-2).
+Mirrors dedalus_tpu/core/coords.py. The S2 view of a spherical system and
+direct products are not ported yet (ROADMAP M11b-2b, M11c).
 """
 
 import numpy as np
@@ -119,6 +119,61 @@ class S2Coordinates(SpinCoordinateSystem):
 
     def __repr__(self):
         return f"S2Coordinates{self.names}"
+
+
+class SphericalCoordinates(CurvilinearCoordinateSystem):
+    """
+    Spherical coordinates (azimuth, colatitude, radius); grid components
+    ordered (phi, theta, r), spin and regularity components ordered
+    (-, +, 0): u_s = (u_theta + s*1j*u_phi)/sqrt(2) for s = +-1, u_0 = u_r.
+    The (phi, theta, r) frame is left-handed.
+    """
+
+    spin_ordering = (-1, +1, 0)
+    reg_ordering = (-1, +1, 0)
+    dim = 3
+    right_handed = False
+
+    def __init__(self, azimuth, colatitude, radius):
+        self.names = (azimuth, colatitude, radius)
+        self.azimuth = AzimuthalCoordinate(azimuth, cs=self)
+        self.colatitude = Coordinate(colatitude, cs=self)
+        self.radius = Coordinate(radius, cs=self)
+        self.coords = (self.azimuth, self.colatitude, self.radius)
+
+    def __getitem__(self, key):
+        if isinstance(key, str):
+            return self.coords[self.names.index(key)]
+        return self.coords[key]
+
+    @classmethod
+    def U_forward(cls, order=1):
+        """Unitary coord->spin map of `order` tensor ranks."""
+        U = np.zeros((3, 3), dtype=complex)
+        for row, spin in enumerate(cls.spin_ordering):
+            if spin == 0:
+                U[row, 2] = 1
+            else:
+                U[row, 0] = spin * 1j / np.sqrt(2)
+                U[row, 1] = 1 / np.sqrt(2)
+        out = U
+        for _ in range(order - 1):
+            out = np.kron(out, U)
+        return out
+
+    @classmethod
+    def U_backward(cls, order=1):
+        return cls.U_forward(order).T.conj()
+
+    def spintotal(self, tensorsig, comp_index):
+        total = 0
+        for cs, idx in zip(tensorsig, comp_index):
+            if cs is self:
+                total += self.spin_ordering[idx]
+        return total
+
+    def __repr__(self):
+        return f"SphericalCoordinates{self.names}"
 
 
 class CartesianCoordinates(CoordinateSystem):

@@ -6,12 +6,14 @@ IVP, the annulus and disk examples and their analysis use: Differentiate,
 Convert, Interpolate, Integrate, Lift, TimeDerivative, Component, Power,
 UnaryGridFunction (numpy ufuncs on operands), the Cartesian AdvectiveCFL
 and the grad/div/lap/trace/skew/integ/ave factories, which dispatch to the
-polar operators (core/operators_polar.py) on polar coordinates and to the
-sphere operators (core/operators_sphere.py) on S2 coordinates. Each one-axis
+polar operators (core/operators_polar.py) on polar coordinates, to the
+sphere operators (core/operators_sphere.py) on S2 coordinates and to the
+ball operators (core/operators_ball.py) on spherical coordinates. Each one-axis
 operator carries one host matrix: the pencil matrices slice it on the host
 (scipy), and eager evaluation applies it densely on the field's device. The
-ball and shell, the curvilinear CFL spacings, Curl/Transpose and general
-functions are not ported yet (ROADMAP M3, M9, M11b-2).
+shell, the curvilinear CFL spacings, Curl/Transpose, the spherical
+components and general functions are not ported yet (ROADMAP M3, M9,
+M11b-2b).
 """
 
 import numbers
@@ -23,7 +25,7 @@ from .field import Operand, Field
 from .future import Future
 from .domain import Domain
 from .coords import (Coordinate, CoordinateSystem, CartesianCoordinates, PolarCoordinates,
-                     S2Coordinates, CurvilinearCoordinateSystem)
+                     S2Coordinates, SphericalCoordinates, CurvilinearCoordinateSystem)
 from . import arithmetic
 from .arithmetic import Add, merge_domains, _constant_embedding
 from .basis import FourierBase, device_copy
@@ -291,6 +293,10 @@ class Lift(SpectralOperator1D):
     output basis; a polar facade lifts radially, per m on the disk."""
 
     def __new__(cls, operand, out_basis, index):
+        from .basis_ball import BallBasis
+        if isinstance(out_basis, BallBasis):
+            from .operators_ball import BallLift
+            return BallLift(operand, out_basis, index)
         out_basis = getattr(out_basis, 'sub_bases', (out_basis,))[-1]
         if hasattr(out_basis, 'interpolation_m'):
             from .operators_polar import PolarLift
@@ -569,7 +575,7 @@ class AdvectiveCFL(Future):
     dealias grid, Cartesian: sum_i |u_i| / dx_i with the Fourier spacing
     L / N and the Chebyshev spacing dealias * sin(theta) pi L / (2 N)
     (fine near the walls). Curvilinear geometries are not ported yet
-    (ROADMAP M11b-2).
+    (ROADMAP M11b-2b).
     """
 
     name = 'cfl'
@@ -580,7 +586,7 @@ class AdvectiveCFL(Future):
         self.coordsys = coordsys if coordsys is not None else operand.tensorsig[0]
         if not isinstance(self.coordsys, (CartesianCoordinates, Coordinate)):
             raise NotImplementedError(f"{self.coordsys}: the curvilinear CFL spacings are "
-                                      f"not ported yet (ROADMAP M11b-2)")
+                                      f"not ported yet (ROADMAP M11b-2b)")
         super().__init__(operand)
         self._spacings = None
 
@@ -652,7 +658,18 @@ def convert(expr, bases):
         current = expr.domain.bases[axis]
         if target is None or current == target:
             continue
-        if hasattr(target, 'conversion_matrix_m'):
+        from .basis_ball import SphericalRadialBasis
+        from .basis_sphere import ColatitudeBasis
+        if isinstance(target, ColatitudeBasis) and current is None \
+                and hasattr(target.parent, 'radial_basis'):
+            continue  # embedded jointly by the radial axis's constant embedding
+        if isinstance(target, SphericalRadialBasis):
+            from .operators_ball import BallConstantEmbed, BallConvert
+            if current is None:
+                expr = BallConstantEmbed(expr, target)
+            else:
+                expr = BallConvert(expr, target.coord.cs, target)
+        elif hasattr(target, 'conversion_matrix_m'):
             from .operators_polar import PolarConvert
             expr = PolarConvert(expr, target.coord.cs, target)
         else:
@@ -661,15 +678,21 @@ def convert(expr, bases):
 
 
 # ---------------------------------------------------------------------------
-# Vector calculus factories (Cartesian; polar and S2 systems dispatch to
-# core/operators_polar.py and core/operators_sphere.py)
+# Vector calculus factories (Cartesian; polar, S2 and spherical systems
+# dispatch to core/operators_polar.py, core/operators_sphere.py and
+# core/operators_ball.py)
 # ---------------------------------------------------------------------------
 
 def _require_supported(coordsys):
     if not isinstance(coordsys, (CartesianCoordinates, Coordinate, PolarCoordinates,
-                                 S2Coordinates)):
+                                 S2Coordinates, SphericalCoordinates)):
+        raise NotImplementedError(f"{coordsys}: not ported yet (ROADMAP M11c)")
+
+
+def _require_planar(coordsys, what):
+    if isinstance(coordsys, SphericalCoordinates):
         raise NotImplementedError(
-            f"{coordsys}: ball and shell operators are not ported yet (ROADMAP M11b-2)")
+            f"{what} of spherical tensors is not ported yet (ROADMAP M11b-2b)")
 
 
 def _s2_basis(operand):
@@ -688,6 +711,9 @@ def Gradient(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
     _require_supported(coordsys)
+    if isinstance(coordsys, SphericalCoordinates):
+        from .operators_ball import SphericalGradient
+        return SphericalGradient(operand, coordsys)
     if isinstance(coordsys, S2Coordinates):
         from .operators_sphere import SphereGradient
         return SphereGradient(operand, coordsys)
@@ -703,6 +729,9 @@ def Divergence(operand, index=0):
         raise ValueError("Divergence requires a tensor operand")
     coordsys = operand.tensorsig[index]
     _require_supported(coordsys)
+    if isinstance(coordsys, SphericalCoordinates):
+        from .operators_ball import SphericalDivergence
+        return SphericalDivergence(operand, index)
     if isinstance(coordsys, S2Coordinates):
         from .operators_sphere import SphereDivergence
         return SphereDivergence(operand, index)
@@ -722,6 +751,9 @@ def Divergence(operand, index=0):
 def Laplacian(operand, coordsys=None):
     if coordsys is None:
         coordsys = _infer_coordsys(operand)
+    if isinstance(coordsys, SphericalCoordinates):
+        from .operators_ball import BallLaplacian
+        return BallLaplacian(operand, coordsys)
     if isinstance(coordsys, S2Coordinates):
         from .operators_sphere import SphereLaplacian
         return SphereLaplacian(operand, coordsys)
@@ -735,8 +767,9 @@ def Trace(operand):
     if len(operand.tensorsig) < 2:
         raise ValueError("Trace requires a rank-2+ tensor")
     _require_supported(operand.tensorsig[0])
+    _require_planar(operand.tensorsig[0], 'Trace')
     if isinstance(operand.tensorsig[0], S2Coordinates):
-        raise NotImplementedError("Trace on S2 tensors is not ported yet (ROADMAP M11b-2)")
+        raise NotImplementedError("Trace on S2 tensors is not ported yet (ROADMAP M11b-2b)")
     if isinstance(operand.tensorsig[0], PolarCoordinates):
         from .operators_polar import PolarTrace
         return PolarTrace(operand)
@@ -749,6 +782,7 @@ def Skew(operand):
     """90-degree rotation of a 2D vector: skew(u) = (-u[1], u[0]); a pair
     rotation of the spin components on curvilinear systems."""
     coordsys = operand.tensorsig[0]
+    _require_planar(coordsys, 'Skew')
     if isinstance(coordsys, CurvilinearCoordinateSystem):
         from .operators_sphere import SpinSkew
         return SpinSkew(operand)
@@ -773,6 +807,10 @@ def AzimuthalComponent(operand, index=0):
 def Interpolate(operand, coord, position):
     if isinstance(coord, str):
         raise ValueError("Interpolate requires a coordinate object")
+    from .basis_ball import SphericalRadialBasis
+    if isinstance(operand.domain.bases[coord.axis], SphericalRadialBasis):
+        from .operators_ball import BallInterpolate
+        return BallInterpolate(operand, coord.cs, position)
     if hasattr(operand.domain.bases[coord.axis], 'interpolation_m'):
         from .operators_polar import PolarInterpolate
         return PolarInterpolate(operand, coord.cs, position)
@@ -780,6 +818,10 @@ def Interpolate(operand, coord, position):
 
 
 def Integrate(operand, coord=None):
+    from .basis_ball import SphericalRadialBasis
+    if any(isinstance(b, SphericalRadialBasis) for b in operand.domain.bases):
+        from .operators_ball import SphericalIntegrate
+        return SphericalIntegrate(operand)
     if _s2_basis(operand):
         from .operators_sphere import SphereIntegrate
         return SphereIntegrate(operand)

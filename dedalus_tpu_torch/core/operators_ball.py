@@ -1,0 +1,658 @@
+"""
+Vector calculus and structural operators on the ball.
+
+Mirrors the ball part of dedalus_tpu/core/operators_ball.py: BallRegOperator
+and its Laplacian, gradient, divergence and conversion; the lift of surface
+(tau) fields, interpolation at a radius, the volume integral and the
+embedding of constants. Tensor components of ball fields are regularity
+components; each (input, output) component pair of an operator has one
+radial matrix per ell, and the per-m pencil matrices are block-diagonal over
+the colatitude slots (slot j at ell = |m| + j). Matrices are host scipy,
+built exactly as in the JAX package; eager evaluation stacks them over
+(m, ell) once per device (operators.device_matrix) and applies them with
+kernel KH (ops/ball.py), the lift and interpolation blocks with kernel KE
+(ops/polar.py).
+
+Curl, the ell products, transposes, traces, components and the z-cross
+wait for ROADMAP M11b-2b.
+"""
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from .domain import Domain
+from .operators import LinearOperator, device_matrix
+from .basis_ball import SphericalRadialBasis, _pairs
+from ..ops import ball as ops_ball
+from ..ops import polar as ops_polar
+from ..spectral import intertwiner as it
+
+
+def _xi(mu, l):
+    """Angular factor xi(mu, l) = sqrt((l + (mu+1)//2)/(2l+1))."""
+    if l < 0 or 2 * l + 1 <= 0:
+        return 0.0
+    return np.sqrt((l + (mu + 1) // 2) / (2 * l + 1))
+
+
+def _comp_indices(tensorsig):
+    shape = tuple(cs.dim for cs in tensorsig)
+    return [()] if not shape else list(np.ndindex(*shape))
+
+
+def _flat(idx, tensorsig):
+    return int(np.ravel_multi_index(idx, tuple(cs.dim for cs in tensorsig))) if idx else 0
+
+
+class BallRegOperator(LinearOperator):
+    """
+    Base of the spherical operators built from per-(ell, regularity) radial
+    matrices. Subclasses define dk, out_tensorsig, regindices_out(in_idx)
+    and radial_matrix_ell(in_idx, out_idx, ell).
+    """
+
+    def __init__(self, operand, coordsys):
+        for cs in operand.tensorsig:
+            if cs is not coordsys:
+                raise NotImplementedError(
+                    "Spherical operators support tensors over the spherical system only")
+        self.coordsys = coordsys
+        self.azimuth_axis = coordsys.coords[0].axis
+        self.colatitude_axis = coordsys.coords[1].axis
+        self.radius_axis = coordsys.coords[2].axis
+        self.radial_in = operand.domain.bases[self.radius_axis]
+        if not isinstance(self.radial_in, SphericalRadialBasis):
+            raise ValueError("Spherical operator requires a ball radial basis")
+        self.radial_out = self.radial_in.derivative_basis(self.dk) if self.dk \
+            else self.radial_in
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = self.out_tensorsig(op.tensorsig)
+        self.dtype = op.dtype
+        bases = list(op.domain.bases)
+        bases[self.radius_axis] = self.radial_out
+        self.domain = Domain(self.dist, tuple(b for b in bases if b is not None))
+
+    def out_tensorsig(self, in_sig):
+        return in_sig
+
+    def regindices_out(self, in_idx):
+        return (in_idx,)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        raise NotImplementedError
+
+    def matrix_dependence(self, *vars):
+        out = self.operand.matrix_dependence(*vars).copy()
+        out[self.azimuth_axis] = True
+        return out
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colatitude_axis] = True
+        out[self.radius_axis] = True
+        return out
+
+    def _pair_block_m(self, in_idx, out_idx, m):
+        """(L*n_out, L*n_in) block-diagonal pair matrix at azimuthal mode m,
+        zero where either regularity class is forbidden."""
+        rb = self.radial_in
+        L = rb.parent.colatitude_basis.size
+        n_in, n_out = rb.size, self.radial_out.size
+        blocks = []
+        for j in range(L):
+            ell = abs(m) + j
+            A = None
+            if (j < L - abs(m) and it.regularity_allowed(ell, in_idx)
+                    and it.regularity_allowed(ell, out_idx)):
+                A = self.radial_matrix_ell(in_idx, out_idx, ell)
+            if A is None:
+                A = sparse.csr_matrix((n_out, n_in))
+            blocks.append(sparse.csr_matrix(A)[:n_out, :n_in])
+        return sparse.block_diag(blocks, format='csr')
+
+    def subproblem_matrix(self, subproblem):
+        m = subproblem.group[self.azimuth_axis]
+        m = m if m is not None else 0
+        az_w = subproblem.axis_width(
+            self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
+        L = self.radial_in.parent.colatitude_basis.size
+        rows = []
+        for oi in _comp_indices(self.tensorsig):
+            row = []
+            for ii in _comp_indices(self.operand.tensorsig):
+                if oi in self.regindices_out(ii):
+                    blk = sparse.kron(sparse.identity(az_w), self._pair_block_m(ii, oi, m))
+                else:
+                    blk = sparse.csr_matrix(
+                        (az_w * L * self.radial_out.size, az_w * L * self.radial_in.size))
+                row.append(blk)
+            rows.append(row)
+        if len(rows) == 1 and len(rows[0]) == 1:
+            return sparse.csr_matrix(rows[0][0])
+        return sparse.bmat(rows, format='csr')
+
+    def _pair_stack(self, in_idx, out_idx, device):
+        """(L, n_out, n_in) device stack of one component pair, one matrix
+        per ell (KH reads entry |m| + j for slot j of wavenumber m)."""
+        rb = self.radial_in
+        L = rb.parent.colatitude_basis.size
+        n_in, n_out = rb.size, self.radial_out.size
+        key = (type(self).__name__, rb._key(), self.radial_out._key(), in_idx, out_idx, L,
+               self._extra_key())
+
+        def build():
+            S = np.zeros((L, n_out, n_in))
+            for ell in range(L):
+                if not (it.regularity_allowed(ell, in_idx)
+                        and it.regularity_allowed(ell, out_idx)):
+                    continue
+                A = self.radial_matrix_ell(in_idx, out_idx, ell)
+                if A is None:
+                    continue
+                A = sparse.csr_matrix(A)[:n_out, :n_in].toarray()
+                S[ell, :A.shape[0], :A.shape[1]] = A
+            return np.ascontiguousarray(S)
+        return device_matrix(key, build, device)
+
+    def _extra_key(self):
+        return ()
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        field.require_coeff_space()
+        data = field.data
+        ts_in, ts_out = field.tensorsig, self.tensorsig
+        M, L, n = data.shape[-3:]
+        K, NP = _pairs(M)
+        n_out = self.radial_out.size
+        x = data.reshape((-1, K, NP, L, n)).contiguous()
+        out_shape = tuple(cs.dim for cs in ts_out)
+        out = torch.empty((max(len(_comp_indices(ts_out)), 1), K, NP, L, n_out),
+                          dtype=data.dtype, device=data.device)
+        # Components summed into one output component: the first write
+        # stores, the others add (the reference's out.at[oi].add from zero)
+        written = set()
+        for ii in _comp_indices(ts_in):
+            for oi in self.regindices_out(ii):
+                S = self._pair_stack(ii, oi, data.device)
+                fo = _flat(oi, ts_out)
+                ops_ball.ball_radial_apply(S, x, [(_flat(ii, ts_in), fo)], out,
+                                           accumulate=fo in written)
+                written.add(fo)
+        for fo in range(out.shape[0]):
+            if fo not in written:
+                out[fo] = 0
+        out = out.reshape(out_shape + (M, L, n_out))
+        return self._build_output(self.dist.coeff_layout, out, scales=field.scales)
+
+
+class BallLaplacian(BallRegOperator):
+    """Laplacian on the ball: per-(ell, regularity total) D(-1) @ D(+1)
+    (k -> k+2), diagonal in the regularity components."""
+
+    dk = 2
+    name = 'Lap'
+
+    def new_operands(self, operand):
+        return BallLaplacian(operand, self.coordsys)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        return self.radial_in.operator_matrix_ell('L', ell, it.regtotal(in_idx))
+
+
+class SphericalGradient(BallRegOperator):
+    """grad on the ball: output regularity component (-,)+idx gets
+    xi(-1, l) D-, (+,)+idx gets xi(+1, l) D+, with l = ell + regtotal(in)."""
+
+    dk = 1
+    name = 'Grad'
+
+    def out_tensorsig(self, in_sig):
+        return (self.coordsys,) + in_sig
+
+    def regindices_out(self, in_idx):
+        return ((0,) + tuple(in_idx), (1,) + tuple(in_idx))
+
+    def new_operands(self, operand):
+        return SphericalGradient(operand, self.coordsys)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        reg = it.regtotal(in_idx)
+        if out_idx[0] == 0:
+            return _xi(-1, ell + reg) * self.radial_in.operator_matrix_ell('D-', ell, reg)
+        return _xi(+1, ell + reg) * self.radial_in.operator_matrix_ell('D+', ell, reg)
+
+
+class SphericalDivergence(BallRegOperator):
+    """div on the ball: input component (-,)+idx contributes
+    xi(-1, l+1) D+, (+,)+idx contributes xi(+1, l-1) D-, with
+    l = ell + regtotal(in)."""
+
+    dk = 1
+    name = 'Div'
+
+    def __init__(self, operand, index=0):
+        if not operand.tensorsig:
+            raise ValueError("Divergence requires a tensor operand")
+        if index != 0:
+            raise NotImplementedError("Spherical divergence along the first index only")
+        super().__init__(operand, operand.tensorsig[index])
+
+    def out_tensorsig(self, in_sig):
+        return in_sig[1:]
+
+    def regindices_out(self, in_idx):
+        if in_idx[0] in (0, 1):
+            return (tuple(in_idx[1:]),)
+        return ()
+
+    def new_operands(self, operand):
+        return SphericalDivergence(operand)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        reg = it.regtotal(in_idx)
+        if in_idx[0] == 0:
+            return _xi(-1, ell + reg + 1) * self.radial_in.operator_matrix_ell('D+', ell, reg)
+        return _xi(+1, ell + reg - 1) * self.radial_in.operator_matrix_ell('D-', ell, reg)
+
+
+class BallConvert(BallRegOperator):
+    """Conversion of ball fields to a higher k, per (ell, regularity total)."""
+
+    name = 'Convert'
+
+    def __init__(self, operand, coordsys, target_radial):
+        self.dk = target_radial.k - operand.domain.bases[coordsys.coords[2].axis].k
+        if self.dk < 0:
+            raise ValueError("Cannot convert to lower k")
+        self._target_radial = target_radial
+        super().__init__(operand, coordsys)
+        self.radial_out = target_radial
+
+    def _init_metadata(self):
+        super()._init_metadata()
+        bases = list(self.operand.domain.bases)
+        bases[self.radius_axis] = self._target_radial
+        self.domain = Domain(self.dist, tuple(b for b in bases if b is not None))
+
+    def new_operands(self, operand):
+        return BallConvert(operand, self.coordsys, self._target_radial)
+
+    def _extra_key(self):
+        return (self.dk,)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        return self.radial_in.conversion_matrix_ell(ell, it.regtotal(in_idx), self.dk)
+
+
+def _apply_m_stack(stack, d):
+    """KE on per-m dense blocks: stack (K, O, I) applied to d (K, NP, I)."""
+    K, NP, I = d.shape
+    if NP != 2:
+        raise NotImplementedError("ball lift and interpolation need the azimuth's pair slots")
+    return ops_polar.polar_apply(stack, d.reshape(2 * K, I).contiguous()).reshape(K, NP, -1)
+
+
+class BallLift(LinearOperator):
+    """
+    Lift a surface (S2) field into radial mode `index` of each ell of a ball
+    basis (the tau terms). Surface tensor fields hold spin components; the
+    lift turns them into regularity components per ell with the intertwiner
+    (reg_a = sum_sigma Q(ell)[sigma, a] spin_sigma) before placing the radial
+    column.
+    """
+
+    name = 'Lift'
+
+    def __init__(self, operand, ball, index):
+        for cs in operand.tensorsig:
+            if cs is not ball.coordsys:
+                raise NotImplementedError(
+                    "Spherical lifts support tensors over the spherical system only")
+        self.ball = ball
+        self.index = int(index)
+        self.coordsys = ball.coordsys
+        self.azimuth_axis = self.coordsys.coords[0].axis
+        self.colatitude_axis = self.coordsys.coords[1].axis
+        self.radius_axis = self.coordsys.coords[2].axis
+        self.radial_out = ball.radial_basis
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        bases = list(op.domain.bases)
+        bases[self.radius_axis] = self.ball.radial_basis
+        bases[self.azimuth_axis] = self.ball.azimuth_basis
+        bases[self.colatitude_axis] = self.ball.colatitude_basis
+        self.domain = Domain(self.dist, tuple(b for b in bases if b is not None))
+
+    def new_operands(self, operand):
+        return BallLift(operand, self.ball, self.index)
+
+    def matrix_dependence(self, *vars):
+        out = self.operand.matrix_dependence(*vars).copy()
+        out[self.azimuth_axis] = True
+        return out
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colatitude_axis] = True
+        out[self.radius_axis] = True
+        return out
+
+    def _tensor_block_m(self, m):
+        """Component-major lift block: rows (regularity component a, L, n),
+        columns (spin component sigma, L)."""
+        rb = self.ball.radial_basis
+        L = self.ball.colatitude_basis.size
+        n = rb.size
+        rank = len(self.tensorsig)
+        if rank == 0:
+            return rb.lift_block_m(m, self.index)
+        C = 3**rank
+        rows = []
+        for a_flat, a_idx in enumerate(np.ndindex(*(3,) * rank)):
+            row = []
+            for s_flat in range(C):
+                blk = sparse.lil_matrix((L * n, L))
+                for j in range(max(L - abs(m), 0)):
+                    ell = abs(m) + j
+                    if not it.regularity_allowed(ell, a_idx):
+                        continue
+                    q = it.Q_matrix(ell, rank)[s_flat, a_flat]
+                    if abs(q) < 1e-14:
+                        continue
+                    ns = rb.n_size(ell)
+                    if ns <= 0:
+                        continue
+                    blk[j * n + (ns + self.index if self.index < 0 else self.index), j] = q
+                row.append(sparse.csr_matrix(blk))
+            rows.append(row)
+        return sparse.bmat(rows, format='csr')
+
+    def subproblem_matrix(self, subproblem):
+        m = subproblem.group[self.azimuth_axis]
+        az_w = subproblem.axis_width(self.ball.azimuth_basis, self.azimuth_axis)
+        rank = len(self.tensorsig)
+        A = self._tensor_block_m(m if m is not None else 0)
+        if rank == 0:
+            return sparse.csr_matrix(sparse.kron(sparse.identity(az_w), A))
+        C = 3**rank
+        L = self.ball.colatitude_basis.size
+        n = self.ball.radial_basis.size
+        rows = []
+        for a in range(C):
+            rows.append([sparse.kron(sparse.identity(az_w),
+                                     A[a * L * n:(a + 1) * L * n, s * L:(s + 1) * L])
+                         for s in range(C)])
+        return sparse.bmat(rows, format='csr')
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        field.require_coeff_space()
+        data = field.data
+        if field.domain.bases[self.radius_axis] is None:
+            data = data[..., 0]  # drop the constant radial slot
+        rank = len(self.tensorsig)
+        C = 3**rank
+        M, L = data.shape[-2:]
+        n = self.ball.radial_basis.size
+        K, NP = _pairs(M)
+        KM = (self.ball.azimuth_basis.size - 1) // 2
+        key = ('BallLift', self.ball.radial_basis._key(), self.index, KM, L, rank)
+        stack = device_matrix(key, lambda: np.stack(
+            [self._tensor_block_m(m).toarray() for m in range(KM + 1)]), data.device)
+        d = data.reshape((C, K, NP, L)).movedim(0, 2).reshape(K, NP, C * L)
+        res = _apply_m_stack(stack, d).reshape(K, NP, C, L, n).movedim(2, 0)
+        out = res.reshape(tuple(cs.dim for cs in self.tensorsig) + (M, L, n))
+        return self._build_output(self.dist.coeff_layout, out, scales=None)
+
+
+class BallInterpolate(LinearOperator):
+    """Radial interpolation f(r = position): ball field -> surface field.
+    Tensor operands hold regularity components; the surface output holds
+    spin components (spin_sigma = sum_a Q(ell)[sigma, a] reg_a)."""
+
+    name = 'interp'
+
+    def __init__(self, operand, coordsys, position):
+        for cs in operand.tensorsig:
+            if cs is not coordsys:
+                raise NotImplementedError(
+                    "Spherical interpolation supports tensors over the spherical system only")
+        self.coordsys = coordsys
+        self.position = float(position)
+        self.azimuth_axis = coordsys.coords[0].axis
+        self.colatitude_axis = coordsys.coords[1].axis
+        self.radius_axis = coordsys.coords[2].axis
+        self.radial_in = operand.domain.bases[self.radius_axis]
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        bases = list(op.domain.bases)
+        bases[self.radius_axis] = None
+        self.domain = Domain(self.dist, tuple(b for b in bases if b is not None))
+
+    def new_operands(self, operand):
+        return BallInterpolate(operand, self.coordsys, self.position)
+
+    def matrix_dependence(self, *vars):
+        out = self.operand.matrix_dependence(*vars).copy()
+        out[self.azimuth_axis] = True
+        return out
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colatitude_axis] = True
+        out[self.radius_axis] = True
+        return out
+
+    def _interp_block_m(self, m):
+        """Component-major interpolation block: rows (spin component sigma,
+        L), columns (regularity component a, L, n)."""
+        rb = self.radial_in
+        L = rb.parent.colatitude_basis.size
+        n = rb.size
+        rank = len(self.tensorsig)
+        if rank == 0:
+            mat = sparse.lil_matrix((L, L * n))
+            for j in range(max(L - abs(m), 0)):
+                mat[j, j * n:(j + 1) * n] = rb.interpolation_ell(abs(m) + j, 0, self.position)
+            return sparse.csr_matrix(mat)
+        C = 3**rank
+        regidx = list(np.ndindex(*(3,) * rank))
+        rows = []
+        for s_flat in range(C):
+            row = []
+            for a_flat, a_idx in enumerate(regidx):
+                blk = sparse.lil_matrix((L, L * n))
+                reg = it.regtotal(a_idx)
+                for j in range(max(L - abs(m), 0)):
+                    ell = abs(m) + j
+                    if not it.regularity_allowed(ell, a_idx):
+                        continue
+                    q = it.Q_matrix(ell, rank)[s_flat, a_flat]
+                    if abs(q) < 1e-14:
+                        continue
+                    blk[j, j * n:(j + 1) * n] = q * rb.interpolation_ell(ell, reg,
+                                                                         self.position)
+                row.append(sparse.csr_matrix(blk))
+            rows.append(row)
+        return sparse.bmat(rows, format='csr')
+
+    def subproblem_matrix(self, subproblem):
+        m = subproblem.group[self.azimuth_axis]
+        m = m if m is not None else 0
+        az_w = subproblem.axis_width(
+            self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
+        rank = len(self.tensorsig)
+        A = self._interp_block_m(m)
+        if rank == 0:
+            return sparse.csr_matrix(sparse.kron(sparse.identity(az_w), A))
+        C = 3**rank
+        L = self.radial_in.parent.colatitude_basis.size
+        n = self.radial_in.size
+        rows = []
+        for s in range(C):
+            rows.append([sparse.kron(sparse.identity(az_w),
+                                     A[s * L:(s + 1) * L, a * L * n:(a + 1) * L * n])
+                         for a in range(C)])
+        return sparse.bmat(rows, format='csr')
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        field.require_coeff_space()
+        data = field.data
+        rank = len(self.tensorsig)
+        C = 3**rank
+        M, L, n = data.shape[-3:]
+        K, NP = _pairs(M)
+        KM = (self.radial_in.parent.azimuth_basis.size - 1) // 2
+        key = ('BallInterp', self.radial_in._key(), self.position, KM, L, rank)
+        stack = device_matrix(key, lambda: np.stack(
+            [self._interp_block_m(m).toarray() for m in range(KM + 1)]), data.device)
+        d = data.reshape((C, K, NP, L * n)).movedim(0, 2).reshape(K, NP, C * L * n)
+        res = _apply_m_stack(stack, d).reshape(K, NP, C, L).movedim(2, 0)
+        out = res.reshape(tuple(cs.dim for cs in self.tensorsig) + (M, L, 1))
+        return self._build_output(self.dist.coeff_layout, out, scales=None)
+
+
+class SphericalIntegrate(LinearOperator):
+    """Volume integral over the ball: the (m = 0, ell = 0) radial
+    coefficients against r^2 dr, times the angular factor 2 pi sqrt(2)
+    (the Y_00 normalization of this basis)."""
+
+    name = 'integ'
+
+    def __init__(self, operand):
+        if operand.tensorsig:
+            raise NotImplementedError("Spherical integ of tensors waits for ROADMAP M11b-2b")
+        cs = None
+        for b in operand.domain.bases:
+            if b is not None and isinstance(b, SphericalRadialBasis):
+                cs = b.parent.coordsys
+                self.radial_basis = b
+        if cs is None:
+            raise ValueError("SphericalIntegrate requires a ball radial basis")
+        self.coordsys = cs
+        self.azimuth_axis = cs.coords[0].axis
+        self.colat_axis = cs.coords[1].axis
+        self.radius_axis = cs.coords[2].axis
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        self.domain = Domain(self.dist, ())
+
+    def new_operands(self, operand):
+        return SphericalIntegrate(operand)
+
+    def matrix_dependence(self, *vars):
+        out = self.operand.matrix_dependence(*vars).copy()
+        out[self.azimuth_axis] = True
+        return out
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colat_axis] = True
+        out[self.radius_axis] = True
+        return out
+
+    def _radial_integral_vector(self):
+        """I_n = integral of q_n(r) r^2 dr by quadrature (m = 0, ell = 0)."""
+        rb = self.radial_basis
+        w = np.asarray(rb.global_weights(1))
+        return w @ rb._transform_stacks(1, 0, 'b')[0]
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        field.require_coeff_space()
+        data = field.data
+        Iv = torch.as_tensor(self._radial_integral_vector(), device=data.device)
+        val = torch.tensordot(data[0, 0, :], Iv, dims=1) * (2 * np.pi * np.sqrt(2))
+        return self._build_output(self.dist.coeff_layout, val.reshape((1, 1, 1)),
+                                  scales=field.scales)
+
+    def expression_matrices(self, subproblem, vars, **kw):
+        op = self.operand
+        op_mats = op.expression_matrices(subproblem, vars, **kw)
+        m = subproblem.group[self.azimuth_axis]
+        L = self.radial_basis.parent.colatitude_basis.size
+        n = self.radial_basis.size
+        az_w = subproblem.axis_width(op.domain.bases[self.azimuth_axis], self.azimuth_axis)
+        row = np.zeros((1, az_w * L * n))
+        if m == 0:
+            row[0, :n] = self._radial_integral_vector() * (2 * np.pi * np.sqrt(2))
+        mat = sparse.csr_matrix(row)
+        return {var: mat @ mm for var, mm in op_mats.items()}
+
+
+class BallConstantEmbed(LinearOperator):
+    """Embed a field constant along (colatitude, radius) into a ball basis
+    (the tau_p pattern): the ell = 0 colatitude slot gets the radial
+    expansion of the constant function."""
+
+    name = 'ConvertConst'
+
+    def __init__(self, operand, target_radial):
+        self.target_radial = target_radial
+        cs = target_radial.parent.coordsys
+        self.coordsys = cs
+        self.azimuth_axis = cs.coords[0].axis
+        self.colatitude_axis = cs.coords[1].axis
+        self.radius_axis = cs.coords[2].axis
+        if operand.tensorsig:
+            raise NotImplementedError("Constant embedding of tensors waits for ROADMAP M11b-2b")
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        bases = list(op.domain.bases)
+        bases[self.colatitude_axis] = self.target_radial.parent.colatitude_basis
+        bases[self.radius_axis] = self.target_radial
+        self.domain = Domain(self.dist, tuple(b for b in bases if b is not None))
+
+    def new_operands(self, operand):
+        return BallConstantEmbed(operand, self.target_radial)
+
+    def matrix_dependence(self, *vars):
+        return self.operand.matrix_dependence(*vars).copy()
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colatitude_axis] = True
+        out[self.radius_axis] = True
+        return out
+
+    def subproblem_matrix(self, subproblem):
+        m = subproblem.group[self.azimuth_axis]
+        az_w = subproblem.axis_width(
+            self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
+        col = self.target_radial.constant_spatial_column()
+        if m not in (None, 0):
+            col = sparse.csr_matrix(col.shape)
+        return sparse.csr_matrix(sparse.kron(sparse.identity(az_w), col))
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        field.require_coeff_space()
+        data = field.data  # (..., M, 1, 1)
+        L = self.target_radial.parent.colatitude_basis.size
+        col = device_matrix(('BallConstEmbed', self.target_radial._key(), L),
+                            self.target_radial.constant_spatial_column, data.device)
+        n = self.target_radial.size
+        out = (data[..., 0] * col[:, 0]).reshape(tuple(data.shape[:-2]) + (L, n))
+        return self._build_output(self.dist.coeff_layout, out, scales=None)

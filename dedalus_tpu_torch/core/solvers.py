@@ -32,6 +32,9 @@ class SolverBase:
     """Common solver setup: subproblem enumeration and the pencil system."""
 
     matrix_names = ()
+    # Ball pencils split per (m, ell slot) when slot-diagonal (initial value
+    # problems; the reference's own (m, ell) subproblems)
+    allow_slot_split = False
 
     def __init__(self, problem, matsolver=None):
         self.problem = problem
@@ -50,7 +53,7 @@ class SolverBase:
             self.dist, domains, coupling)
         self.pencil = subsystems.PencilSystem(
             self.dist, self.subproblems, problem.LHS_variables, problem.equations,
-            list(self.matrix_names))
+            list(self.matrix_names), allow_slot_split=self.allow_slot_split)
 
     @property
     def state(self):
@@ -302,6 +305,7 @@ class InitialValueSolver(SolverBase):
     and stats."""
 
     matrix_names = ('M', 'L')
+    allow_slot_split = True
 
     def __init__(self, problem, timestepper, enforce_real_cadence=100, warmup_iterations=10,
                  **kw):

@@ -1,8 +1,8 @@
 """
 Subproblems: per-mode-group pencil systems.
 
-Mirrors dedalus_tpu/core/subsystems.py for Cartesian, polar and sphere
-domains with one coupled axis:
+Mirrors dedalus_tpu/core/subsystems.py for Cartesian, polar, sphere and
+ball domains:
 
   * every group gets an identical pencil layout (constant-axis fields occupy
     width-1 slots in all groups; invalid modes get identity pivots), so each
@@ -18,10 +18,16 @@ domains with one coupled axis:
   * polar radial bases with an m-dependent truncation (the disk) mark the
     modes above n_size(m) invalid in each azimuthal group; the sphere's
     colatitude basis marks them per tensor component, jointly over the
-    (azimuth pair, ell slot) of each azimuthal group.
+    (azimuth pair, ell slot) of each azimuthal group;
+  * a ball couples its colatitude and radial axes: the pencils are joint
+    over (ell slot, n) per azimuthal group, valid while n < n_size(ell) and
+    the component's regularity class exists at ell. An initial value
+    problem whose matrices do not couple ell slots (no angular operators on
+    the left-hand side) is then split into one pencil per (m, ell slot), the
+    reference's own (m, ell) subproblems, before the dense stacks are built.
 
-Conditioned equations, slot-split spherical pencils and mesh padding are
-not ported yet (ROADMAP M8, M11b-2, M12).
+Conditioned equations and mesh padding are not ported yet (ROADMAP M8,
+M12).
 """
 
 import copy
@@ -222,6 +228,15 @@ class Subproblem:
                 else:
                     # Constant along a separable axis: valid only in group 0
                     axis_masks.append(np.array([self.group[axis] == 0]))
+            elif self.coupled[axis] and hasattr(basis, 'joint_valid_for_m'):
+                # Ball: validity joint over (azimuth pair, ell slot, n),
+                # absorbing the masks of the azimuth and colatitude axes
+                az_basis = domain.bases[axis - 2]
+                az_w = az_basis.group_shape[0] if az_basis is not None else 1
+                axis_masks[axis - 2] = np.ones(1, dtype=bool)
+                axis_masks[-1] = np.ones(1, dtype=bool)
+                axis_masks.append(basis.joint_valid_for_m(
+                    self.group[axis - 2] or 0, tensorsig, cidx or (), az_w))
             elif self.coupled[axis] and hasattr(basis, 'surface_pair_valid_for_m'):
                 # Sphere surface: validity joint over (azimuth pair, ell
                 # slot), absorbing the mask of the azimuth axis before it
@@ -260,6 +275,11 @@ def enumerate_subproblems(dist, domains, coupling):
                     raise ValueError("Mismatched basis sizes along axis")
                 if axis_bases[i] is None:
                     axis_bases[i] = b
+    # A coupled ball radial axis takes the colatitude axis into the pencil
+    # (the joint (ell slot, n) layout)
+    for i in range(1, dim):
+        if coupled[i] and hasattr(axis_bases[i], 'joint_valid_for_m'):
+            coupled[i - 1] = True
     group_counts = []
     for i in range(dim):
         if coupled[i] or axis_bases[i] is None:
@@ -301,7 +321,7 @@ class PencilSystem:
     """
 
     def __init__(self, dist, subproblems, variables, equations, matrix_names,
-                 dtype=None):
+                 dtype=None, allow_slot_split=False):
         self.dist = dist
         self.subproblems = subproblems
         self.variables = variables
@@ -310,8 +330,18 @@ class PencilSystem:
         if dtype is None:
             dtype = np.result_type(*[eq['dtype'] for eq in equations])
         self.dtype = np.dtype(dtype)
-        self._build_layout()
-        self.build_matrices(matrix_names)
+        self.slot_split = None
+        from ..ops.banded import PhaseTimer
+        dev = dist.device
+        with PhaseTimer('pencil layout', dev):
+            self._build_layout()
+        with PhaseTimer('pencil assembly', dev):
+            self._assemble(matrix_names)
+        if allow_slot_split:
+            with PhaseTimer('slot split', dev):
+                self._try_slot_split()
+        with PhaseTimer('dense stacks', dev):
+            self._build_dense(matrix_names)
 
     # --- layout ---
 
@@ -372,6 +402,10 @@ class PencilSystem:
             bad = np.nonzero(nrow != ncol)[0][:5]
             raise ValueError(
                 f"Valid modes not square in groups {bad}: rows {nrow[bad]} vs cols {ncol[bad]}")
+        self._build_maps()
+
+    def _build_maps(self):
+        """Kernel K3's gather and scatter maps of the current index maps."""
         dev = self.dist.device
         self._gs_plan = _build_gs_plan(self.var_index_map, self.col_valid,
                                        self.state_total, dev)
@@ -457,6 +491,12 @@ class PencilSystem:
         return out
 
     def build_matrices(self, names):
+        """Per-group host matrices (and their dense device stacks where they
+        fit)."""
+        self._assemble(names)
+        self._build_dense(names)
+
+    def _assemble(self, names):
         """Per-group host matrices: sampled separable assembly when the group
         count allows it, else exact assembly of every group."""
         G = self.G
@@ -475,9 +515,11 @@ class PencilSystem:
             groups = [self.assemble_group(g, names) for g in range(G)]
             self.matrices_scipy = {name: [grp[name] for grp in groups]
                                    for name in names}
-        # Dense stacks on the device only when affordable (the M and L
-        # applies of the step, and the matrices the dense matsolvers factor)
-        R, C = self.R, self.C
+
+    def _build_dense(self, names):
+        """Dense stacks on the device only when affordable (the M and L
+        applies of the step, and the matrices the dense matsolvers factor)."""
+        G, R, C = self.G, self.R, self.C
         self.matrices = {}
         max_bytes = config.getfloat('memory', 'max_dense_stack_gb') * 2**30
         if G * R * C * self.dtype.itemsize <= max_bytes:
@@ -585,6 +627,133 @@ class PencilSystem:
             f"assembled (degrees {[out[n].degree for n in names]}, "
             f"{len(special)} exceptional)")
         return out
+
+    # --- slot splitting (per-(m, ell) spherical pencils) ---
+
+    def _slot_positions(self, sp0, domain, tensorsig, colat_axis, L):
+        """Positions of each colatitude slot within a field's pencil segment:
+        (slotless, pos), pos (L, w) for fields with a colatitude basis, or
+        (w,) for those without (constants, repeated in every slot's pencil
+        and valid only in slot 0)."""
+        dim = self.dist.dim
+        ncomp = prod(tuple(cs.dim for cs in tensorsig)) or 1
+        widths = [sp0.axis_width(domain.bases[ax], ax) for ax in range(dim)]
+        total = ncomp * prod(tuple(widths))
+        if domain.bases[colat_axis] is None:
+            return True, np.arange(total, dtype=np.int64)
+        if widths[colat_axis] != L:
+            raise ValueError("unexpected colatitude width")
+        grid = np.arange(total, dtype=np.int64).reshape((ncomp,) + tuple(widths))
+        pos = np.stack([np.take(grid, j, axis=1 + colat_axis).ravel() for j in range(L)])
+        return False, pos
+
+    def _try_slot_split(self):
+        """
+        Re-batch the joint (ell slot, n) pencils of a ball into one pencil
+        per (m, ell slot) when no matrix couples two slots (no angular
+        operator on the left-hand side): the pencil size drops from
+        ncomp*az*L*n to ncomp*az*n, which is what lets the dense stacks of a
+        ball at 64x32x32 fit on the card.
+        """
+        from .basis_ball import SphericalRadialBasis
+        if self.separable is not None:
+            return
+        sp0 = self.subproblems[0]
+        radial_axis = colat_basis = None
+        for v in self.variables:
+            for ax, b in enumerate(v.domain.bases):
+                if isinstance(b, SphericalRadialBasis):
+                    radial_axis, colat_basis = ax, v.domain.bases[ax - 1]
+        if radial_axis is None or colat_basis is None or radial_axis < 2:
+            return
+        colat_axis = radial_axis - 1
+        if not (sp0.coupled[colat_axis] and sp0.coupled[radial_axis]):
+            return
+        L = colat_basis.coeff_size
+        try:
+            col_info = [self._slot_positions(sp0, v.domain, v.tensorsig, colat_axis, L)
+                        for v in self.variables]
+            row_info = [self._slot_positions(sp0, eq['domain'], eq['tensorsig'], colat_axis, L)
+                        for eq in self.equations]
+        except ValueError:
+            return
+
+        def build_slot_indices(infos, offsets):
+            slot_idx, dup_mask = [], []     # (L, P_small) positions; repeated entries
+            for j in range(L):
+                parts, dups = [], []
+                for (slotless, pos), off in zip(infos, offsets):
+                    p = pos if slotless else pos[j]
+                    parts.append(off + p)
+                    dups.append(np.full(p.size, slotless and j > 0))
+                slot_idx.append(np.concatenate(parts))
+                dup_mask.append(np.concatenate(dups))
+            return np.stack(slot_idx), np.stack(dup_mask)
+
+        col_idx, col_dup = build_slot_indices(col_info, self.var_offsets[:-1])
+        row_idx, row_dup = build_slot_indices(row_info, self.eq_offsets[:-1])
+        slot_of_col = np.zeros(self.C, dtype=np.int64)
+        slot_of_row = np.zeros(self.R, dtype=np.int64)
+        for j in range(L):
+            slot_of_col[col_idx[j][~col_dup[j]]] = j
+            slot_of_row[row_idx[j][~row_dup[j]]] = j
+        for name in self.matrix_names:
+            for A in self.matrices_scipy[name]:
+                coo = sparse.coo_matrix(A)
+                if np.any(slot_of_row[coo.row] != slot_of_col[coo.col]):
+                    logger.info("slot split: matrices couple ell slots; keeping joint pencils")
+                    return
+        Gs = self.G
+        new_col_valid = np.stack([self.col_valid[g][col_idx[j]] & ~col_dup[j]
+                                  for g in range(Gs) for j in range(L)])
+        new_row_valid = np.stack([self.row_valid[g][row_idx[j]] & ~row_dup[j]
+                                  for g in range(Gs) for j in range(L)])
+        if not np.array_equal(new_row_valid.sum(axis=1), new_col_valid.sum(axis=1)):
+            logger.info("slot split: valid modes not square per slot; keeping joint pencils")
+            return
+        names = self.matrix_names
+        new_scipy = {name: [] for name in names}
+        for g in range(Gs):
+            for name in names:
+                A = self.matrices_scipy[name][g].tocsr()
+                for j in range(L):
+                    new_scipy[name].append(A[row_idx[j]][:, col_idx[j]].tocsr())
+        new_var_index = np.stack([self.var_index_map[g][col_idx[j]]
+                                  for g in range(Gs) for j in range(L)])
+        new_eq_maps = []
+        for e_i in range(len(self.equations)):
+            slotless, pos = row_info[e_i]
+            old = self.eq_index_maps[e_i]
+            new_eq_maps.append(np.stack([old[g][pos if slotless else pos[j]]
+                                         for g in range(Gs) for j in range(L)]))
+        Cs, Rs = col_idx.shape[1], row_idx.shape[1]
+        logger.info("slot split: %d joint pencils (P=%d) -> %d per-(m, ell) pencils (P=%d)",
+                    Gs, self.C, Gs * L, Cs)
+        self.G = Gs * L
+        self.C, self.R = Cs, Rs
+        self.var_sizes = [(pos.size if slotless else pos.shape[1]) for slotless, pos in col_info]
+        self.var_offsets = np.concatenate([[0], np.cumsum(self.var_sizes)]).astype(int)
+        self.eq_sizes = [(pos.size if slotless else pos.shape[1]) for slotless, pos in row_info]
+        self.eq_offsets = np.concatenate([[0], np.cumsum(self.eq_sizes)]).astype(int)
+        self.var_index_map = new_var_index.astype(np.int32)
+        self.col_valid, self.row_valid = new_col_valid, new_row_valid
+        self.eq_index_maps = new_eq_maps
+        self.matrices_scipy = new_scipy
+        coupled_new = list(sp0.coupled)
+        coupled_new[colat_axis] = False
+        new_sps = []
+        for g in range(Gs):
+            base = self.subproblems[g]
+            for j in range(L):
+                group = list(base.group)
+                group[colat_axis] = j
+                new_sps.append(Subproblem(self.dist, coupled_new, group,
+                                          dict(base.group_wavenumbers)))
+        self.subproblems = new_sps
+        self.pivot_pairs = [(np.nonzero(~self.row_valid[g])[0], np.nonzero(~self.col_valid[g])[0])
+                            for g in range(self.G)]
+        self._build_maps()
+        self.slot_split = (Gs, L)
 
     # --- banded structure ---
 

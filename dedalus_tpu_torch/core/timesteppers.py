@@ -174,14 +174,7 @@ class MultistepIMEX:
         inner_floor = float(np.min(inner)) if inner is not None else 1e-10
         if floor > max(target, 20.0 * inner_floor, 1e-11):
             return None
-        thresh = max(target, 2.0 * floor)
-        hit = np.nonzero(curve <= thresh)[0]
-        if hit.size == 0:
-            return None
-        refs = int(hit[0])
-        while (refs + 1 < curve.shape[0] and curve[refs] > target
-               and curve[refs + 1] < curve[refs] / 1.3):
-            refs += 1
+        refs = ops_banded.refinements_from_curve(curve, target)
         # curve[k] is the residual after k total solves; the step already
         # performs the initial solve, so k solves = k-1 outer passes.
         return max(0, refs - 1)
@@ -218,6 +211,10 @@ class MultistepIMEX:
         [memory] max_dense_stack_gb) switches to banded."""
         solver = self.solver
         if self.pencil.matrices.get('M') is None and solver.matsolver != 'banded':
+            if self.pencil.slot_split is not None:
+                raise NotImplementedError(
+                    "ball pencil stacks too large for the dense matsolvers: the banded "
+                    "ball is not ported yet (ROADMAP M11b-2c)")
             if self.pencil.banded_plan() is None:
                 raise NotImplementedError(
                     "pencil stacks too large for the dense matsolvers and without "
@@ -420,8 +417,11 @@ class RungeKuttaIMEX:
     def __init__(self, solver):
         self.solver = solver
         self.pencil = solver.pencil
-        # One factorization per distinct k H_ii, kept for the run (as the
-        # JAX package does: a CFL run adds one per dt it visits)
+        # One factorization per distinct k H_ii, shared by the step sizes k
+        # that use it; step sizes are evicted least recently used beyond
+        # [linear algebra] max_cached_factorizations, with the
+        # factorizations no kept step size uses (the JAX package keeps
+        # every one: a CFL run adds one per dt it visits)
         self._stage_factors = {}
         self._stage_cache = {}
 
@@ -439,15 +439,26 @@ class RungeKuttaIMEX:
         """Per stage at step size k: the factorization (a reference to the
         shared one, where the JAX package stacks a copy per stage) and the
         (2 i,) device coefficients [k A_ij..., k H_ij...] of the combine."""
-        if k not in self._stage_cache:
+        stages = self._stage_cache.pop(k, None)
+        if stages is None:
+            # Evict down to limit-1 step sizes before building, so the new
+            # factorizations never coexist with ones about to be evicted
+            limit = max(1, config.getint('linear algebra', 'max_cached_factorizations'))
+            while len(self._stage_cache) >= limit:
+                self._stage_cache.pop(next(iter(self._stage_cache)))
+            kHs = [float(k * self.H[i, i]) for i in range(1, self.stages + 1)]
+            kept = {key for st in self._stage_cache.values() for key in st[1]} | set(kHs)
+            for key in [key for key in self._stage_factors if key not in kept]:
+                del self._stage_factors[key]
             dev = self.solver.dist.device
-            stages = []
+            per_stage = []
             for i in range(1, self.stages + 1):
-                fact = self._get_stage_factor(k * self.H[i, i])
+                fact = self._get_stage_factor(kHs[i - 1])
                 coef = [k * self.A[i, j] for j in range(i)] + [k * self.H[i, j] for j in range(i)]
-                stages.append((fact, torch.tensor(coef, dtype=torch.float64, device=dev)))
-            self._stage_cache[k] = stages
-        return self._stage_cache[k]
+                per_stage.append((fact, torch.tensor(coef, dtype=torch.float64, device=dev)))
+            stages = (per_stage, set(kHs))
+        self._stage_cache[k] = stages
+        return stages[0]
 
     def _step(self, state_flat, t0, k, stages):
         """One step on the flat coefficient state; returns the new state."""

@@ -45,6 +45,10 @@ SIGNATURES = {
     },
     'polar_kernels': {
         'ke_polar_apply_f64': [_P] * 3 + [_I] * 5 + [_P],
+        'ke_trailing_apply_f64': [_P] * 3 + [_I] * 10 + [_P],
+    },
+    'ball_kernels': {
+        'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],
     },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 6 + [_I] * 2 + [_P],

@@ -1,9 +1,26 @@
-// Hand-written Hopper (sm_90a) kernel of the polar geometries.
+// Hand-written Hopper (sm_90a) kernels of the polar, sphere and ball
+// geometries.
 //
 //   KE  ke_polar_apply_f64   replaces the per-m batched einsums of
 //       dedalus_tpu/core/basis_polar.py:525-527 (DiskRadialBasis._apply_stack)
 //       and dedalus_tpu/core/operators_polar.py:164-166, 342, 392, 457
-//       (PolarMOperator.operate, Convert, Interpolate, Lift).
+//       (PolarMOperator.operate, Convert, Interpolate, Lift), and of the
+//       ball's dedalus_tpu/core/operators_ball.py:635 (BallLift) and :849
+//       (BallInterpolate).
+//   KE, trailing form, ke_trailing_apply_f64: the same per-m apply with a
+//       trailing axis (the ball's radius) batched through it, replacing
+//       dedalus_tpu/core/basis_sphere.py:146-160 (ColatitudeBasis._apply_one,
+//       the einsum 'mon,mp...n->mp...o' at :158) under a ball:
+//
+//       out[c, m, p, o, t] = sum_i S[m, o, i] * x[c, m, p, i, t]
+//
+//       for up to KT_MAX_COMPS components c of one spin (one stack), named
+//       by index. x is read in place, the trailing axis t contiguous: no
+//       transposed copy. Bound: bytes (ball 64x32x32, a vector's colatitude
+//       transform: a (32, 48, 32) stack, 0.4 MB, against 1.2 MB of data per
+//       component). Design: a tiled f64 product per (component, m), one
+//       block per (m, 32 output rows, component and 64 columns (p, t));
+//       tiles of S and x in shared memory, 32 deep, each thread 8 outputs.
 //
 //   out[b, m, p, o] (+)= sum_i S[m, o, i] * x[b, m, p, i]
 //
@@ -75,7 +92,87 @@ polar_apply_kernel(const double* __restrict__ S, const double* __restrict__ x,
     }
 }
 
+constexpr int KT_THREADS = 256;
+constexpr int KT_ROWS = 32;
+constexpr int KT_COLS = 64;
+constexpr int KT_DEPTH = 32;
+constexpr int KT_MAX_COMPS = 4;
+
+struct Comps {
+    int idx[KT_MAX_COMPS];
+};
+
+__global__ void __launch_bounds__(KT_THREADS)
+trailing_apply_kernel(const double* __restrict__ S, const double* __restrict__ x,
+                      double* __restrict__ out, Comps comps, int K, int O, int I, int T,
+                      int accumulate) {
+    __shared__ double Ss[KT_ROWS][KT_DEPTH + 1];
+    __shared__ double xs[KT_DEPTH][KT_COLS];
+    const int m = blockIdx.x;
+    const int o0 = blockIdx.y * KT_ROWS;
+    const int ncol = 2 * T;
+    const int ntile = (ncol + KT_COLS - 1) / KT_COLS;
+    const int q = blockIdx.z / ntile;
+    const int j0 = (blockIdx.z - q * ntile) * KT_COLS;
+    x += (size_t)comps.idx[q] * K * 2 * I * T;
+    out += (size_t)comps.idx[q] * K * 2 * O * T;
+    const int tc = threadIdx.x % KT_COLS;
+    const int tr = threadIdx.x / KT_COLS;      // 0..3
+    constexpr int NACC = KT_ROWS * KT_COLS / KT_THREADS;
+    double acc[NACC];
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) acc[a] = 0.0;
+    for (int i0 = 0; i0 < I; i0 += KT_DEPTH) {
+        for (int e = threadIdx.x; e < KT_ROWS * KT_DEPTH; e += KT_THREADS) {
+            const int r = e / KT_DEPTH, c = e - r * KT_DEPTH;
+            const int o = o0 + r, i = i0 + c;
+            Ss[r][c] = (o < O && i < I) ? S[((size_t)m * O + o) * I + i] : 0.0;
+        }
+        for (int e = threadIdx.x; e < KT_DEPTH * KT_COLS; e += KT_THREADS) {
+            const int r = e / KT_COLS, c = e - r * KT_COLS;
+            const int i = i0 + r, j = j0 + c;
+            double v = 0.0;
+            if (i < I && j < ncol) {
+                const int p = j / T, t = j - p * T;
+                v = x[(((size_t)m * 2 + p) * I + i) * T + t];
+            }
+            xs[r][c] = v;
+        }
+        __syncthreads();
+#pragma unroll 4
+        for (int c = 0; c < KT_DEPTH; ++c) {
+            const double xv = xs[c][tc];
+#pragma unroll
+            for (int a = 0; a < NACC; ++a) acc[a] = fma(Ss[tr + 4 * a][c], xv, acc[a]);
+        }
+        __syncthreads();
+    }
+    const int j = j0 + tc;
+    if (j >= ncol) return;
+    const int p = j / T, t = j - p * T;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+        const int o = o0 + tr + 4 * a;
+        if (o < O) {
+            double* dst = out + (((size_t)m * 2 + p) * O + o) * T + t;
+            *dst = accumulate ? *dst + acc[a] : acc[a];
+        }
+    }
+}
+
 }  // namespace
+
+extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* out, int c0,
+                                     int c1, int c2, int c3, int ncomps, int K, int O, int I,
+                                     int T, int accumulate, void* stream) {
+    if (ncomps < 1 || ncomps > KT_MAX_COMPS || K < 1 || O < 1 || I < 1 || T < 1)
+        return (int)cudaErrorInvalidValue;
+    Comps comps = {{c0, c1, c2, c3}};
+    dim3 grid(K, (O + KT_ROWS - 1) / KT_ROWS, ncomps * ((2 * T + KT_COLS - 1) / KT_COLS));
+    trailing_apply_kernel<<<grid, KT_THREADS, 0, (cudaStream_t)stream>>>(S, x, out, comps, K, O,
+                                                                         I, T, accumulate);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int ke_polar_apply_f64(const double* S, const double* x, double* out, int B,
                                   int K, int O, int I, int accumulate, void* stream) {

@@ -2,12 +2,18 @@
 KF: spin recombination of polar tensors, a Triton kernel with its plain twin.
 
 Replaces dedalus_tpu/core/basis_polar.py:248-300 spin_recombine for real
-dtype: for one tensor rank i of a polar tensor, the coord<->spin unitary U
-acts on (component i, (cos, -sin) pair slot) as the real 4x4 matrix
+dtype: for one tensor rank i of a polar, S2 or spherical tensor, the
+coord<->spin unitary U acts on (component i, (cos, -sin) pair slot) as the
+real matrix
 
     W = kron(Re U, I2) + kron(Im U, R90),
 
     out[.., c', .., m, p', n] = sum_{c, p} W[2c' + p', 2c + p] x[.., c, .., m, p, n].
+
+The angular components (phi, theta) or (phi, r) are the first two of the
+rank, and W restricted to them is the 4x4 matrix the kernel takes. A
+spherical rank has a third component, r, on which U is the identity: it
+passes through unchanged, written by the same launch (no extra copy pass).
 
 It runs forward before every radial transform of a vector or tensor and
 backward after it; a rank-2 tensor is recombined rank by rank. Each output
@@ -43,13 +49,16 @@ def _view6(shape, rank, azimuth_axis):
 
 
 def spin_recombine_plain(x, rank, azimuth_axis, W):
-    """Plain torch KF (the JAX package's moveaxis/tensordot form)."""
+    """Plain torch KF (the JAX package's moveaxis/tensordot form, on the
+    two angular components; a third, radial, component is copied)."""
     pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
-    d = x.reshape(pre, c, mid, K, 2, N)
-    d = torch.movedim(d, (1, 4), (0, 1))          # (c, p, pre, mid, K, N)
+    full = x.reshape(pre, c, mid, K, 2, N)
+    d = torch.movedim(full[:, :2], (1, 4), (0, 1))      # (2, p, pre, mid, K, N)
     lead = d.shape[2:]
-    d = torch.tensordot(W, d.reshape((2 * c,) + lead), dims=([1], [0]))
-    d = torch.movedim(d.reshape((c, 2) + lead), (0, 1), (1, 4))
+    d = torch.tensordot(W, d.reshape((4,) + lead), dims=([1], [0]))
+    d = torch.movedim(d.reshape((2, 2) + lead), (0, 1), (1, 4))
+    if c == 3:
+        d = torch.cat([d, full[:, 2:]], dim=1)
     return d.reshape(x.shape)
 
 
@@ -58,7 +67,7 @@ def _build_kernel():
     import triton.language as tl
 
     @triton.jit
-    def kernel(x, out, w, n_pos, mid, K, N, BLOCK: tl.constexpr):
+    def kernel(x, out, w, n_pos, mid, K, N, C: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n_pos
@@ -71,7 +80,7 @@ def _build_kernel():
         a = t // mid
         kn2 = K * 2 * N
         sc = mid * kn2                     # component stride
-        base = a * (2 * sc) + b * kn2 + k * (2 * N) + n
+        base = a * (C * sc) + b * kn2 + k * (2 * N) + n
         x00 = tl.load(x + base, mask=mask)
         x01 = tl.load(x + base + N, mask=mask)
         x10 = tl.load(x + base + sc, mask=mask)
@@ -83,6 +92,12 @@ def _build_kernel():
             w3 = tl.load(w + 4 * r + 3)
             res = w0 * x00 + w1 * x01 + w2 * x10 + w3 * x11
             tl.store(out + base + (r // 2) * sc + (r % 2) * N, res, mask=mask)
+        if C == 3:
+            # the radial component passes through
+            x20 = tl.load(x + base + 2 * sc, mask=mask)
+            x21 = tl.load(x + base + 2 * sc + N, mask=mask)
+            tl.store(out + base + 2 * sc, x20, mask=mask)
+            tl.store(out + base + 2 * sc + N, x21, mask=mask)
 
     return kernel
 
@@ -91,7 +106,8 @@ def spin_recombine(x, rank, azimuth_axis, W):
     """
     KF wrapper: recombine tensor rank `rank` of contiguous float64 data x
     (tensor axes first, the (cos, -sin) pairs along `azimuth_axis`) with the
-    (4, 4) float64 matrix W. CPU tensors take the plain twin; CUDA tensors
+    (4, 4) float64 matrix W of its two angular components (a rank of
+    dimension 3 passes its third component through). CPU tensors take the plain twin; CUDA tensors
     launch the Triton kernel.
     """
     if x.device.type == 'cpu':
@@ -102,14 +118,15 @@ def spin_recombine(x, rank, azimuth_axis, W):
     if W.device != x.device or W.dtype != torch.float64 or tuple(W.shape) != (4, 4):
         raise ValueError("spin_recombine: W must be (4, 4) float64 on the data's device")
     pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
-    if c != 2 or x.shape[azimuth_axis] != 2 * K:
-        raise ValueError("spin_recombine: needs a rank of dimension 2 and an even azimuth")
+    if c not in (2, 3) or x.shape[azimuth_axis] != 2 * K:
+        raise ValueError("spin_recombine: needs a rank of dimension 2 or 3 and an even azimuth")
     if _kernel is None:
         _kernel = _build_kernel()
     W = W.contiguous()
     out = torch.empty_like(x)
     n_pos = pre * mid * K * N
-    _kernel[(-(-n_pos // BLOCK),)](x, out, W, n_pos, mid, K, N, BLOCK=BLOCK, num_warps=4)
+    _kernel[(-(-n_pos // BLOCK),)](x, out, W, n_pos, mid, K, N, C=c, BLOCK=BLOCK,
+                                   num_warps=4)
     spin_recombine.launches += 1
     return out
 

@@ -69,7 +69,7 @@ class PhaseTimer:
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - self.t0
         phase_seconds[self.label] = phase_seconds.get(self.label, 0.0) + dt
-        logger.info("banded: %s took %.1fs", self.label, dt)
+        logger.info("%s took %.1fs", self.label, dt)
 
 
 def _mv(A, x):
@@ -825,12 +825,34 @@ def _over_slabs(fn, G):
         return list(pool.map(fn, starts))
 
 
-def refinements_from_curve(curve, target):
-    """Fewest refinement passes whose probed residual reaches `target`: enter
-    the curve's plateau at twice its floor, then keep refining only while the
-    target is unmet and a pass still contracts the residual by more than
-    1.3x (the rule of dedalus_tpu's _resolve_refinements)."""
+def refinements_from_curve(curve, target, rule=None):
+    """
+    Fewest refinement passes whose probed residual reaches `target` or the
+    plateau the curve settles on, read by `rule` ([linear algebra]
+    refinement_rule by default):
+
+      * 'plateau': stop at the first pass whose residual is within twice
+        the median of the curve from that pass on (or meets the target).
+        Before the plateau the rest of the curve lies far below the pass;
+        on it, the median of what follows is the plateau's level, which a
+        noisy plateau's low outliers (or a pass that stalls before the
+        curve falls on) do not move.
+      * 'reference': the rule of dedalus_tpu's _resolve_refinements: enter
+        at twice the curve's minimum, then keep refining while the target
+        is unmet and a pass still contracts the residual by more than 1.3x.
+        On a noisy plateau whose minimum is an outlier at its far end, it
+        follows the outlier to the last probed pass.
+    """
     curve = np.asarray(curve)
+    if rule is None:
+        from ..utils.config import config
+        rule = config.get('linear algebra', 'refinement_rule')
+    if rule == 'plateau':
+        refs = next(i for i in range(curve.shape[0])
+                    if curve[i] <= max(target, 2.0 * float(np.median(curve[i:]))))
+        return max(1, refs)
+    if rule != 'reference':
+        raise ValueError(f"unknown refinement_rule {rule!r}")
     thresh = max(target, 2.0 * float(curve.min()))
     refs = int(np.nonzero(curve <= thresh)[0][0])
     while (refs + 1 < curve.shape[0] and curve[refs] > target

@@ -80,3 +80,60 @@ def polar_apply(S, x, out=None, accumulate=False):
 
 
 polar_apply.launches = 0
+
+
+# Components one launch of KE's trailing form serves
+KT_MAX_COMPS = 4
+
+
+def trailing_apply_plain(S, x, out, comps, accumulate=False):
+    """Plain torch KE, trailing form (the JAX package's einsum
+    'mon,mp...n->mp...o')."""
+    K = S.shape[0]
+    for c in comps:
+        xm = x[c].reshape((K, 2) + tuple(x.shape[2:]))
+        res = torch.einsum('moi,mpit->mpot', S, xm).reshape(out.shape[1:])
+        if accumulate:
+            out[c].add_(res)
+        else:
+            out[c].copy_(res)
+    return out
+
+
+def trailing_apply(S, x, out, comps, accumulate=False):
+    """
+    KE, trailing form: apply the per-m stack S (K, O, I) along the second
+    axis of the components `comps` of x (C, 2K, I, T) into out
+    (C, 2K, O, T), the trailing axis T (a ball's radius) batched through the
+    product and read in place: one launch per KT_MAX_COMPS components.
+    `accumulate` as in polar_apply.
+    """
+    comps = [int(c) for c in comps]
+    if x.device.type == 'cpu':
+        return trailing_apply_plain(S, x, out, comps, accumulate)
+    from ..csrc import build
+    K, O, I = S.shape
+    C, T = x.shape[0], x.shape[-1]
+    if S.dtype != torch.float64 or S.device != x.device or not S.is_contiguous():
+        raise ValueError(f"KE: S must be a contiguous float64 (K, O, I) tensor on {x.device}")
+    if (x.dtype != torch.float64 or x.dim() != 4 or tuple(x.shape[1:3]) != (2 * K, I)
+            or not x.is_contiguous()):
+        raise ValueError(f"KE: x must be a contiguous float64 (C, {2 * K}, {I}, T) tensor")
+    if (out.dtype != torch.float64 or out.device != x.device
+            or tuple(out.shape) != (C, 2 * K, O, T) or not out.is_contiguous()):
+        raise ValueError(f"KE: out must be a contiguous float64 {(C, 2 * K, O, T)} tensor")
+    if not comps or not all(0 <= c < C for c in comps):
+        raise ValueError("KE: a component index is out of range")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = build.library()
+    for c0 in range(0, len(comps), KT_MAX_COMPS):
+        chunk = comps[c0:c0 + KT_MAX_COMPS]
+        idx = chunk + [0] * (KT_MAX_COMPS - len(chunk))
+        build.check(lib.ke_trailing_apply_f64(
+            S.data_ptr(), x.data_ptr(), out.data_ptr(), *idx, len(chunk), K, O, I, T,
+            int(accumulate), stream), 'trailing_apply')
+        trailing_apply.launches += 1
+    return out
+
+
+trailing_apply.launches = 0

@@ -1,11 +1,12 @@
 """
 Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
-The ported subset of dedalus_tpu/public.py: Cartesian, polar and S2
-coordinates, the RealFourier and Jacobi bases on the matrix-transform path,
-the annulus, disk and sphere bases (real dtype), fields, the Cartesian
-operators of the Rayleigh-Benard IVP, the polar operators of the annulus
-and disk examples and the sphere operators of the shallow-water example
+The ported subset of dedalus_tpu/public.py: Cartesian, polar, S2 and
+spherical coordinates, the RealFourier and Jacobi bases on the
+matrix-transform path, the annulus, disk, sphere and ball bases (real
+dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP, the
+polar operators of the annulus and disk examples, the sphere operators of
+the shallow-water example, the ball operators of the ball convection model
 (with numpy ufuncs on operands and the Cartesian advective CFL frequency),
 IVPs and LBVPs, the InitialValueSolver with SBDF2 (banded or dense
 matsolvers) and the Runge-Kutta schemes (dense matsolvers), the
@@ -14,11 +15,13 @@ the evaluator, and the CFL and GlobalFlowProperty flow tools. File output,
 plot tools and post-processing are not ported yet (ROADMAP M9).
 """
 
-from .core.coords import Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates
+from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates,
+                          SphericalCoordinates)
 from .core.distributor import Distributor
 from .core.basis import Jacobi, ChebyshevT, RealFourier
 from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.basis_sphere import SphereBasis
+from .core.basis_ball import BallBasis
 from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (

@@ -25,6 +25,10 @@ DEFAULTS = {
         'max_cached_factorizations': '3',
         # Residual target that sets the adaptive refinement counts
         'solve_target': '1e-15',
+        # How the banded refinement count reads the probed residual curve:
+        # 'plateau' (the median level of the plateau the curve settles on)
+        # or 'reference' (twice the curve's minimum, as dedalus_tpu)
+        'refinement_rule': 'plateau',
         # Outer-refinement reuse of an existing factorization for nearby
         # step coefficients (the startup steps): max coefficient ratio;
         # 0 turns the reuse off

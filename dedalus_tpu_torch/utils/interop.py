@@ -13,7 +13,9 @@ import torch
 def set_state_from_reference(solver, arrays, fields=None):
     """Set the port's state fields from coefficient arrays keyed by field
     name (numpy, as dedalus_tpu's Field data in coefficient layout; polar
-    and sphere fields in their rectangular (m, slot) storage). `solver` is
+    and sphere fields in their rectangular (m, slot) storage, ball fields in
+    their (m, ell slot, n) storage with regularity components, and the
+    spin components of fields on a ball's surface). `solver` is
     an IVP or LBVP solver; `fields` names other fields to set instead of
     its variables (the right-hand-side fields of an LBVP)."""
     for field in (solver.state if fields is None else fields):

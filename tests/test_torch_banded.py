@@ -102,6 +102,16 @@ def test_k7_plain_matches_reference_combine():
     assert _rel(got.numpy(), ref) <= 1e-15
 
 
+@pytest.fixture(scope='module', autouse=True)
+def reference_refinement_rule():
+    """This module compares resolved refinement counts with dedalus_tpu's:
+    read them with its rule ([linear algebra] refinement_rule)."""
+    old = tconfig.get('linear algebra', 'refinement_rule')
+    tconfig.set('linear algebra', 'refinement_rule', 'reference')
+    yield
+    tconfig.set('linear algebra', 'refinement_rule', old)
+
+
 # --- on the RBC 32x16 pencil of both packages ---
 
 @pytest.fixture(scope='module')

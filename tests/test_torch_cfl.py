@@ -100,7 +100,11 @@ def test_state_and_counters_match_reference(runs):
     # one step to the first cadence point, then chunks of 10
     assert ts.iteration == js.iteration == 1 + 10 * ((ITERATIONS + 9) // 10)
     assert abs(ts.sim_time - js.sim_time) <= 1e-12
-    assert len(ts.timestepper._stage_factors) == len(js.timestepper._stage_factors)
+    # The reference keeps a factorization per dt visited; the port keeps
+    # those of the last [linear algebra] max_cached_factorizations step sizes
+    from dedalus_tpu_torch.utils.config import config
+    limit = config.getint('linear algebra', 'max_cached_factorizations')
+    assert len(ts.timestepper._stage_factors) == min(len(js.timestepper._stage_factors), limit)
 
 
 @pytest.mark.parametrize('ngrids', [1, 2])

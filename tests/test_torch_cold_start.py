@@ -37,6 +37,16 @@ def _rel(a, b):
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def reference_refinement_rule():
+    """This module compares resolved refinement counts with dedalus_tpu's:
+    read them with its rule ([linear algebra] refinement_rule)."""
+    old = tconfig.get('linear algebra', 'refinement_rule')
+    tconfig.set('linear algebra', 'refinement_rule', 'reference')
+    yield
+    tconfig.set('linear algebra', 'refinement_rule', old)
+
+
 @pytest.fixture(scope='module')
 def overrides():
     old = (jconfig.get('memory', 'max_dense_stack_gb'),

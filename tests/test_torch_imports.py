@@ -77,6 +77,17 @@ def test_sphere_path_import_has_no_jax():
          'assert d3.skew and d3.ave and d3.integ')
 
 
+def test_ball_path_import_has_no_jax():
+    _run('import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.ball\n'
+         'import dedalus_tpu_torch.core.basis_ball\n'
+         'import dedalus_tpu_torch.core.operators_ball\n'
+         'import dedalus_tpu_torch.spectral.intertwiner\n'
+         'import dedalus_tpu_torch.ops.ball\n'
+         'import dedalus_tpu_torch.csrc.regularity_recombine\n'
+         'assert d3.SphericalCoordinates and d3.BallBasis')
+
+
 def test_banded_cold_start_import_has_no_jax():
     _run('import dedalus_tpu_torch.public as d3\n'
          'import dedalus_tpu_torch.models.rbc\n'

@@ -24,6 +24,16 @@ def _jax_ic(ctx):
     b['g'] = np.array(b['g']) * z * (Lz - z) + (Lz - z)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def reference_refinement_rule():
+    """This module compares resolved refinement counts with dedalus_tpu's:
+    read them with its rule ([linear algebra] refinement_rule)."""
+    old = tconfig.get('linear algebra', 'refinement_rule')
+    tconfig.set('linear algebra', 'refinement_rule', 'reference')
+    yield
+    tconfig.set('linear algebra', 'refinement_rule', old)
+
+
 @pytest.fixture(scope='module')
 def overrides():
     old = (jconfig.get('memory', 'max_dense_stack_gb'),
