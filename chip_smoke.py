@@ -2,7 +2,7 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives six main paths through the
+CPU-held port at the small sizes, and drives eight main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver named (kernels
@@ -30,7 +30,14 @@ public entry points:
     64x32x32, SBDF2 at dt=1e-4 on the default dense matsolver over 1024
     per-(m, ell) pencils (KH and KI for the radial transforms and operators,
     KE's trailing form for the colatitude transforms, KF, KA, KB, K7, K3,
-    KG), its setup by phase, 3 warm-up and 50 timed steps.
+    KG), its setup by phase, 3 warm-up and 50 timed steps;
+  * the rotating shell convection example (examples/ivp_shell_convection.py,
+    dedalus_tpu_torch.models.shell) at 192x96x12, SBDF2 at the example's
+    dt=2e-3 on the default dense matsolver over 9216 per-(m, ell) pencils
+    (KJ for the weighted radial transforms, KI, KH for grad, KE's trailing
+    form, KF, KG and its cross form for the Coriolis term, KA, KB, K7, K3),
+    its setup by phase, 3 warm-up and 50 timed steps of the example's
+    run_steps with its GlobalFlowProperty.
 
 Every path's grid-space products run through kernel KG, which is checked at
 each path's dealias grid.
@@ -39,7 +46,8 @@ each path's dealias grid.
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
 banded_path, cold_start_path, example_path, annulus_path, disk_path,
-ball_path, and the card-vs-CPU checks such as ball_card_vs_cpu; the
+ball_path, shell_path, and the card-vs-CPU checks such as
+shell_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
 and `c.LAUNCHES` hold its kernel checks and launch counts.
 
@@ -95,12 +103,16 @@ SPHERE = dict(size=(256, 128), example=(128, 64), steps=100)
 # dt of tests/test_ball.py::test_ball_convection_gating for card vs CPU
 BALL = dict(size=(64, 32, 32), dt=1e-4, warmup=3, steps=50, example=(8, 4, 10),
             example_dt=2e-3)
+# The shell: the size the example's docstring names, and the example's own
+# size for card vs CPU, both at the example's dt
+SHELL = dict(size=(192, 96, 12), dt=2e-3, warmup=3, steps=50, example=(16, 8, 8))
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
            cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
            grid_product=1e-15, block_tridiag_qr_factor=1e-11, multi_rhs_solve=1e-11,
            banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
-           ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13)
+           ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
+           shell_radial_transform=1e-13, grid_cross=1e-15)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -143,6 +155,10 @@ KERNELS = dict(   # name: (route, source, replaces)
                           'dedalus_tpu/core/basis_ball.py:92'),
     trailing_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                     'dedalus_tpu/core/basis_sphere.py:158'),
+    shell_radial_transform=('cuda', 'dedalus_tpu_torch/csrc/shell_kernels.cu',
+                            'dedalus_tpu/core/basis_ball.py:597'),
+    grid_cross=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
+                'dedalus_tpu/core/arithmetic.py:1106'),
 )
 # Kernels each main path must launch
 PATH_KERNELS = dict(
@@ -164,6 +180,9 @@ PATH_KERNELS = dict(
     ball=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
           'regularity_recombine', 'trailing_apply', 'spin_recombine', 'pencil_gather_scatter',
           'grid_product'),
+    shell=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
+           'regularity_recombine', 'trailing_apply', 'spin_recombine', 'pencil_gather_scatter',
+           'grid_product', 'shell_radial_transform', 'grid_cross'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
@@ -332,7 +351,7 @@ def card():
 def kernel_functions():
     """The launch-counting wrappers of each kernel, by kernel name."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
-    from dedalus_tpu_torch.ops import products as oprod, ball as oball
+    from dedalus_tpu_torch.ops import products as oprod, ball as oball, shell as oshell
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.csrc import residual_norm as rn
@@ -352,7 +371,9 @@ def kernel_functions():
                 grid_product=[oprod.grid_product],
                 ball_radial_apply=[oball.ball_radial_apply],
                 regularity_recombine=[ki.regularity_recombine],
-                trailing_apply=[opolar.trailing_apply])
+                trailing_apply=[opolar.trailing_apply],
+                shell_radial_transform=[oshell.shell_radial_transform],
+                grid_cross=[oprod.grid_cross])
 
 
 def count_launches(path, steps, run):
@@ -408,6 +429,7 @@ def f_profile(solver, state, t, reps=10):
     products through KG and through its plain twin. K2's bound is the sum of
     its transforms' and kernels' bounds."""
     from dedalus_tpu_torch.ops import transforms as otr, polar as opolar, ball as oball
+    from dedalus_tpu_torch.ops import shell as oshell
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.core import subsystems as sub, arithmetic as arith
 
@@ -453,6 +475,12 @@ def f_profile(solver, state, t, reps=10):
         contracted = a[1].shape[0] if a[4] else 1
         return nbytes(a[0], a[1], out), 2 * contracted * out.numel()
 
+    def kj_cost(a, kw, out):
+        return kj_bytes_flops(a[0], a[1], out, *a[2:4])
+
+    def cross_cost(a, kw, out):
+        return nbytes(a[0], a[1], out), 4 * out.numel()
+
     fast = 'K10-K12 fast transforms at the K1 shapes'
     acc = tally([('K1 apply_matrix', otr, 'apply_matrix', k1_cost),
                  (fast, otr, 'apply_matrix', fast_cost),
@@ -462,6 +490,8 @@ def f_profile(solver, state, t, reps=10):
                  ('KI regularity_recombine', ki, 'regularity_recombine', ki_cost),
                  ('KE trailing_apply', opolar, 'trailing_apply', kt_cost),
                  ('KG grid_product', arith, 'grid_product', kg_cost),
+                 ('KJ shell_radial_transform', oshell, 'shell_radial_transform', kj_cost),
+                 ('KG grid_cross', arith, 'grid_cross', cross_cost),
                  ('K3 eq gather', sub, 'pencil_gather', k3_cost)],
                 lambda: solver.traced_F(state, t))
     # F with the products through KG and, for comparison only, through KG's
@@ -482,6 +512,12 @@ def f_profile(solver, state, t, reps=10):
                 calls={k: v[0] for k, v in acc.items()},
                 bound_ms={k: v[1] for k, v in acc.items()},
                 k2_bound_ms=sum(v[1] for k, v in acc.items() if k != fast))
+
+
+def kj_bytes_flops(T, x, y, w_in=None, w_out=None):
+    """KJ's work: x read once, y written once, T and the weights once; two
+    operations per multiply-add of each line's matrix product."""
+    return nbytes(T, x, y, w_in, w_out), 2 * y.numel() * T.shape[1]
 
 
 def check_k3(path, pencil, state, primary=False):
@@ -2236,6 +2272,280 @@ def ball_path(steps=BALL['steps']):
     print(json.dumps({"ball_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
+SHELL_KG_CASES = (
+    ('u@grad(u)', (3,), (3, 3), True, 'cxyz,cbxyz->bxyz'),
+    ('u@grad(b)', (3,), (3,), True, 'cxyz,cxyz->xyz'),
+)
+
+
+def build_shell(size, device):
+    """The shell convection example (dedalus_tpu_torch.models.shell) with its
+    initial condition and GlobalFlowProperty: (solver, ctx, flow)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import shell as msh
+    problem, ctx = msh.build_shell_problem(*size, device=device)
+    solver = problem.build_solver(d3.SBDF2)
+    msh.set_initial_condition(ctx)
+    flow = msh.add_flow_property(solver, ctx)
+    if solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"shell: default matsolver is {solver.matsolver}")
+    return solver, ctx, flow
+
+
+def shell_card_vs_cpu(steps=20):
+    """The shell example at its own 16x8x8, `steps` SBDF2 steps at dt=2e-3:
+    the card against the CPU-held port, each field relative to its own max
+    (the gauge tau_p, zero up to round-off, absolutely below 1e-20); the
+    walls u(r=Ri), radial(u(r=Ro)) and the shear stress on the card."""
+    from dedalus_tpu_torch.models import shell as msh
+    size = SHELL['example']
+    phase(f"shell {size[0]}x{size[1]}x{size[2]} SBDF2 default matsolver, {steps} steps: "
+          f"cuda vs cpu")
+    runs = {}
+    for d in (DEVICE, 'cpu'):
+        solver, ctx, _ = build_shell(size, d)
+        solver.run_steps(SHELL['dt'], steps)
+        runs[d] = (solver, ctx)
+    errs = {}
+    for fg, fc in zip(runs[DEVICE][0].state, runs['cpu'][0].state):
+        a, b = fg['c'].cpu(), fc['c']
+        errs[fc.name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-20)
+    walls = msh.wall_residuals(runs[DEVICE][1])
+    print(f"shell cuda vs cpu rel_err {errs} (tol 1e-10); on the card max|u(r=Ri)| "
+          f"{walls[0]:.3e}, max|radial(u(r=Ro))| {walls[1]:.3e}, max|shear stress| "
+          f"{walls[2]:.3e} (tol 1e-12)")
+    finite = all(torch.isfinite(f['c']).all() for f in runs[DEVICE][0].state)
+    if not (max(errs.values()) <= 1e-10 and finite):
+        raise AssertionError(f"shell: card and CPU disagree: {errs}")
+    if not max(walls) <= 1e-12:
+        raise AssertionError(f"shell: wall residuals {walls} > 1e-12")
+
+
+def check_shell_kernels(solver, ctx):
+    """KJ and KG's cross form against their plain twins at the shell path's
+    shapes, and KH and KI at the shell's: KJ forward and backward at k = 0
+    and k = 1 on a scalar and on a rank-2 field (timed: grad(b), a k = 1
+    vector, backward to the dealias radius); KG cross on
+    ez x u at the dealias grid; KH on grad(b)'s per-ell stack (no
+    truncation, accumulating too); KI on the rank-2 and rank-1
+    recombinations at the dealias radius. Seeded random data of the path's
+    shapes."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.ops import shell as oshell, products as oprod, ball as oball
+    from dedalus_tpu_torch.csrc import regularity_recombine as ki
+    from dedalus_tpu_torch.core.basis import device_copy
+    u, shell = ctx['u'], ctx['shell']
+    dev = u.data.device
+    M, L, N = u['c'].shape[1:]
+    K = M // 2
+    scale = shell.dealias[2]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+
+    # KJ: each direction at k = 0 and 1, scalar and rank-2 lines
+    errs, timed = [], None
+    for k in (0, 1):
+        rb = shell.radial_basis.derivative_basis(k) if k else shell.radial_basis
+        Ng = rb.grid_size(scale)
+        for forward in (True, False):
+            T = device_copy(rb._jacobi._forward_matrix_host(scale, np.float64) if forward
+                            else rb._jacobi._backward_matrix_host(scale, np.float64), dev)
+            w = rb.radial_weight(scale, forward)
+            w = None if w is None else device_copy(w, dev)
+            w_in, w_out = (w, None) if forward else (None, w)
+            for C in (1, 9, 3):
+                x = rand((C * M * L, Ng if forward else N))
+                yk = oshell.shell_radial_transform(T, x, w_in, w_out)
+                yp = oshell.shell_radial_transform_plain(T, x, w_in, w_out)
+                torch.cuda.synchronize()
+                errs.append(rel_err(yk, yp))
+                if C == 3 and not forward and k == 1:
+                    # grad(b) to the dealias grid: the weight (dR/r) on the store
+                    Tm = T.mT
+                    timed = dict(
+                        what='backward transform of a k = 1 vector to the dealias radius',
+                        shape=[list(x.shape), list(yk.shape)],
+                        ms=cuda_ms(lambda: oshell.shell_radial_transform(T, x, w_in, w_out), 50),
+                        plain_ms=cuda_ms(lambda: oshell.shell_radial_transform_plain(
+                            T, x, w_in, w_out), 50),
+                        library_ms=cuda_ms(lambda: torch.matmul(x, Tm) * w_out, 50),
+                        device_ms=device_ms(lambda: oshell.shell_radial_transform(
+                            T, x, w_in, w_out)),
+                        plain_device_ms=device_ms(lambda: oshell.shell_radial_transform_plain(
+                            T, x, w_in, w_out)),
+                        **dict(zip(('bound_ms', 'bound_by'),
+                                   bound(*kj_bytes_flops(T, x, yk, w_in, w_out)))))
+    record('shell_radial_transform', 'shell', dict(timed, err=max(errs)), True)
+
+    # KG cross: ez x u on the dealias grid, the left-handed sign
+    ez = ctx['ez']
+    ezg = ez['g', shell.dealias].contiguous()
+    ug = rand(tuple(ezg.shape))
+    ck, cp = oprod.grid_cross(ezg, ug, -1.0), oprod.grid_cross_plain(ezg, ug, -1.0)
+    torch.cuda.synchronize()
+    record('grid_cross', 'shell', dict(
+        err=rel_err(ck, cp), shape=list(ck.shape), what='-(ez x u) on the dealias grid',
+        ms=cuda_ms(lambda: oprod.grid_cross(ezg, ug, -1.0), 50),
+        plain_ms=cuda_ms(lambda: oprod.grid_cross_plain(ezg, ug, -1.0), 50),
+        library_ms=cuda_ms(lambda: -torch.linalg.cross(ezg, ug, dim=0), 50),
+        device_ms=device_ms(lambda: oprod.grid_cross(ezg, ug, -1.0)),
+        plain_device_ms=device_ms(lambda: oprod.grid_cross_plain(ezg, ug, -1.0)),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(ezg, ug, ck), 4 * ck.numel())))),
+        True)
+
+    # KH at the shell's shapes: grad(b)'s per-ell stack, (L, N, N)
+    op = d3.grad(ctx['b'])
+    S = op._pair_stack((), (0,), dev)
+    x = rand((1, K, 2, L, N))
+    outk = torch.empty((1, K, 2, L, N), dtype=torch.float64, device=dev)
+    oball.ball_radial_apply(S, x, [(0, 0)], outk)
+    outp = oball.ball_radial_apply_plain(S, x, [(0, 0)], torch.empty_like(outk))
+    base = rand(outk.shape)
+    ak = oball.ball_radial_apply(S, x, [(0, 0)], base.clone(), accumulate=True)
+    ap = oball.ball_radial_apply_plain(S, x, [(0, 0)], base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    Sv = oball.per_slot_view(S, K, L)
+    live = sum(max(min(L, S.shape[0] - k), 0) for k in range(K))
+    scratch = torch.empty_like(outk)
+    record('ball_radial_apply', 'shell', dict(
+        err=max(rel_err(outk, outp), rel_err(ak, ap)), shape=list(S.shape) + [1],
+        ms=cuda_ms(lambda: oball.ball_radial_apply(S, x, [(0, 0)], scratch), 50),
+        plain_ms=cuda_ms(lambda: oball.ball_radial_apply_plain(S, x, [(0, 0)], scratch), 50),
+        library_ms=cuda_ms(lambda: torch.einsum('klon,ckpln->ckplo', Sv, x), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(S, outk) + 2 * live * N * 8, 2 * N * N * 2 * live)))), False)
+
+    # KI at the shell's shapes: rank 2 and rank 1 at the dealias radius
+    rb = shell.radial_basis
+    Ng = rb.grid_size(scale)
+    errs, timed = [], None
+    for C in (9, 3):
+        Q = rb._Q_stack_device(2 if C == 9 else 1, K, L, dev)
+        xi = rand((C, K, 2, L, Ng))
+        for fwd in (True, False):
+            yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            torch.cuda.synchronize()
+            errs.append(rel_err(yk, yp))
+        if timed is None:
+            timed = dict(
+                shape=list(xi.shape),
+                ms=cuda_ms(lambda: ki.regularity_recombine(xi, Q, False), 50),
+                plain_ms=cuda_ms(lambda: ki.regularity_recombine_plain(xi, Q, False), 50),
+                library_ms=cuda_ms(lambda: torch.einsum('klab,bkpln->akpln', Q, xi), 50),
+                **dict(zip(('bound_ms', 'bound_by'),
+                           bound(nbytes(xi, yk) + L * C * C * 8, 2 * C * xi.numel()))))
+    record('regularity_recombine', 'shell', dict(timed, err=max(errs)), False)
+
+
+def shell_path(steps=SHELL['steps']):
+    """The shell convection example at 192x96x12 (G=9216 per-(m, ell)
+    pencils of P=137) through the public API, as the example runs it:
+    build_shell_problem, SBDF2 on the default matsolver, the initial
+    condition, the GlobalFlowProperty of u@u every 10 iterations, run_steps
+    at dt=2e-3: setup by phase, 3 warm-up steps, the shell kernels, K3 and
+    KG against their twins, `steps` timed steps, the walls, and a
+    per-segment breakdown."""
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.models import shell as msh
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar, ball as oball
+    from dedalus_tpu_torch.ops import banded as ob, shell as oshell
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
+    from dedalus_tpu_torch.core import arithmetic as arith
+
+    dev, kind, smi = card()
+    Nphi, Ntheta, Nr = SHELL['size']
+    dt = SHELL['dt']
+    phase(f"shell path setup: {Nphi}x{Ntheta}x{Nr} Ra=3500 Ek=0.1 SBDF2 dt={dt:g} default "
+          f"matsolver on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    problem, ctx = msh.build_shell_problem(Nphi, Ntheta, Nr)
+    t1 = time.perf_counter()
+    solver = problem.build_solver(d3.SBDF2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    msh.set_initial_condition(ctx)
+    flow = msh.add_flow_property(solver, ctx)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    setup = dict(problem_s=t1 - t0, solver_s=t2 - t1, initial_condition_s=t3 - t2,
+                 total_s=t3 - t0, **{k + '_s': v for k, v in ob.phase_seconds.items()})
+    pencil = solver.pencil
+    if solver.dist.device.type != dev.type or solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"shell path on {solver.dist.device} / {solver.matsolver}")
+    if pencil.slot_split != (Nphi // 2, Ntheta) or pencil.matrices['M'] is None:
+        raise AssertionError(f"shell pencils not split per (m, ell) on the dense path: "
+                             f"{pencil.slot_split}")
+    print(f"setup by phase {setup}; G={pencil.G} P={pencil.R} dense stacks "
+          f"{pencil.matrices['M'].numel() * 8 / 1e9:.3f} GB each")
+
+    last, restore_solve = record_solves()
+    try:
+        t0 = time.perf_counter()
+        solver.run_steps(dt, SHELL['warmup'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} ({SHELL['warmup']} steps incl. factorizations and "
+              f"Triton builds)")
+
+        phase("KJ, KG cross, KH, KI, K3, KG vs plain twins (shell-path shapes)")
+        check_shell_kernels(solver, ctx)
+        check_k3('shell', pencil, solver.state_flat())
+        check_kg('shell', ctx['u'], cases=SHELL_KG_CASES)
+
+        phase(f"shell path: {steps} timed steps of the example's run_steps")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches('shell', steps, lambda: solver.run_steps(dt, steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = Nphi * Ntheta * Nr * 5
+    state = solver.state_flat()
+    resid = solve_residual(last)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES['shell'].items() if v}
+    walls = msh.wall_residuals(ctx)
+    max_u = float(np.sqrt(max(flow.max('u2'), 0.0)))
+    print(f"[{smi}] shell {Nphi}x{Ntheta}x{Nr} SBDF2: {ms_step:.3f} ms/step over {n} steps, "
+          f"{dof * n / run_s:.4e} DOF*steps/s, setup {setup['total_s']:.2f} s, warmup "
+          f"{warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; walls "
+          f"(u(r=Ri), radial(u(r=Ro)), shear stress) {walls}; max|u| {max_u:.4e}")
+    print(json.dumps({"shell_path": dict(
+        config=f"shell {Nphi}x{Ntheta}x{Nr} Ra=3500 Pr=1 Ek=0.1 SBDF2 dt={dt:g} "
+               f"{solver.matsolver}",
+        card=smi, ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s, setup=setup,
+        warmup_s=warm_s, G=pencil.G, P=pencil.R, peak_bytes=peak, launches_per_step=per_step,
+        last_solve_residual=resid, wall_residuals=walls, max_u=max_u)}))
+    if not (torch.isfinite(state).all() and np.isfinite(max_u) and max_u <= MAX_U):
+        raise AssertionError(f"shell: the run blew up (max|u| {max_u:.3g})")
+    if not resid <= 1e-12:
+        raise AssertionError(f"shell: last solve residual {resid:.3e} > 1e-12")
+
+    phase("shell path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'),
+               ('history combine (K7)', tsm, 'history_combine'),
+               ('flow handler', flow.handler, 'process')]
+    nested = [('KJ', oshell, 'shell_radial_transform'), ('KH', oball, 'ball_radial_apply'),
+              ('KI', ki, 'regularity_recombine'), ('KE trailing', opolar, 'trailing_apply'),
+              ('KF', kf, 'spin_recombine'), ('KG', arith, 'grid_product'),
+              ('KG cross', arith, 'grid_cross')]
+    breakdown('shell', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
+    print(json.dumps({"shell_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -2268,6 +2578,8 @@ def main():
     sphere_path()
     ball_card_vs_cpu()
     ball_path()
+    shell_card_vs_cpu()
+    shell_path()
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',

@@ -1,15 +1,19 @@
 """
-Arithmetic operator nodes: Add, Multiply (outer product), DotProduct.
+Arithmetic operator nodes: Add, Multiply (outer product), DotProduct,
+CrossProduct.
 
-Mirrors dedalus_tpu/core/arithmetic.py on Cartesian, polar, S2 and ball
-domains. Nonlinear products evaluate in grid space at dealias scales, where
-the components of curvilinear tensors are coordinate components, so the
-products are the Cartesian ones: kernel KG (ops/products.py), one launch
-per product node. NCC (linear-side) products lower to Clenshaw
-multiplication matrices per pencil on Cartesian domains; curvilinear NCCs
-and CrossProduct are not ported yet (ROADMAP M11, M3).
+Mirrors dedalus_tpu/core/arithmetic.py on Cartesian, polar, S2, ball and
+shell domains. Nonlinear products evaluate in grid space at dealias scales,
+where the components of curvilinear tensors are coordinate components, so
+the products are the Cartesian ones: kernel KG (ops/products.py), one launch
+per product node (the cross product's sign flips on the left-handed
+(phi, theta, r) frame). NCC (linear-side) products lower to Clenshaw
+multiplication matrices per pencil on Cartesian domains, and on the shell
+for spherically symmetric NCCs (tensor NCCs through the Gamma intertwiners);
+the other curvilinear NCCs are not ported yet (ROADMAP M11, M3).
 """
 
+import functools
 import numbers
 import numpy as np
 import torch
@@ -18,7 +22,8 @@ from scipy import sparse
 from .field import Field
 from .future import Future, as_operand
 from .domain import Domain
-from ..ops.products import grid_product
+from ..ops.products import grid_product, grid_cross
+from ..spectral import intertwiner as it
 from ..utils.general import prod
 
 
@@ -49,10 +54,14 @@ def merge_bases(b1, b2):
         if (b1.coord, b1.size, b1.radius, b1.alpha) != (b2.coord, b2.size, b2.radius, b2.alpha):
             raise ValueError(f"Incompatible disk radial bases: {b1} {b2}")
         return b1 if b1.k >= b2.k else b2
-    from .basis_ball import BallRadialBasis
+    from .basis_ball import BallRadialBasis, SphericalShellRadialBasis
     if isinstance(b1, BallRadialBasis) and isinstance(b2, BallRadialBasis):
         if (b1.coord, b1.size, b1.radius, b1.alpha) != (b2.coord, b2.size, b2.radius, b2.alpha):
             raise ValueError(f"Incompatible ball radial bases: {b1} {b2}")
+        return b1 if b1.k >= b2.k else b2
+    if isinstance(b1, SphericalShellRadialBasis) and isinstance(b2, SphericalShellRadialBasis):
+        if (b1.coord, b1.size, b1.radii, b1.alpha) != (b2.coord, b2.size, b2.radii, b2.alpha):
+            raise ValueError(f"Incompatible shell radial bases: {b1} {b2}")
         return b1 if b1.k >= b2.k else b2
     raise ValueError(f"Cannot merge bases: {b1} {b2}")
 
@@ -232,9 +241,16 @@ class Multiply(Future):
     def matrix_coupling(self, *vars):
         out = super().matrix_coupling(*vars)
         # An NCC factor varying along an axis couples mode groups along it.
+        # Curvilinear azimuth axes stay separable: the NCCs supported there
+        # are axisymmetric (checked where their blocks are built).
+        from .basis_polar import AzimuthBasis
         for op in self._operands:
             if not op.has(*vars):
-                out |= np.array(op.domain.nonconstant)
+                vary = np.array(op.domain.nonconstant)
+                for ax, b in enumerate(op.domain.bases):
+                    if isinstance(b, AzimuthBasis):
+                        vary[ax] = False
+                out |= vary
         return out
 
     # --- NCC matrices ---
@@ -252,6 +268,9 @@ class Multiply(Future):
         ncc, operand = (a, b) if b_dep else (b, a)
         ncc_first = (operand is b)
         op_mats = operand.expression_matrices(subproblem, vars, **kw)
+        if ncc.tensorsig and _spherical_axis(operand) is not None:
+            M = _spherical_ncc_matrix(ncc, operand, self.domain, subproblem, ncc_first)
+            return {v: self.scalar * (M @ mm) for v, mm in op_mats.items()}
         ncc_blocks = build_ncc_blocks(ncc, operand, self.domain, subproblem)
         # Tensor structure: out comps = ncc comps (x) operand comps, ordered
         # (ncc, operand) if ncc first else (operand, ncc).
@@ -280,6 +299,8 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
     ncomp_ncc = prod(tuple(cs.dim for cs in ncc_field.tensorsig)) or 1
     spatial_shape = coeffs.shape[len(ncc_field.tensorsig):]
     coeffs = coeffs.reshape((ncomp_ncc,) + spatial_shape)
+    from .basis_polar import AzimuthBasis
+    radial_axis = _shell_axis(operand)
     blocks = []
     for i in range(ncomp_ncc):
         axis_mats = []
@@ -293,10 +314,20 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
             out_basis = out_domain.bases[axis]
             coupled = subproblem.coupled[axis]
             op_width = subproblem.axis_width(op_basis, axis)
-            if not coupled:
-                if ncc_basis is not None:
+            if radial_axis is not None and axis == radial_axis - 1:
+                # The colatitude of a shell operand: taken into the joint
+                # (ell slot, n) block of the radial axis
+                axis_mats.append(sparse.identity(1))
+            elif radial_axis is not None and axis == radial_axis:
+                block = _shell_scalar_ncc_block(ncc_field, coeffs[i], operand, out_domain,
+                                                subproblem, axis)
+                coeffs_consumed = coeffs_consumed or ncc_basis is not None
+                axis_mats.append(block)
+            elif not coupled:
+                if ncc_basis is not None and not isinstance(ncc_basis, AzimuthBasis):
                     raise NotImplementedError(
                         "NCCs varying along separable axes are not supported yet")
+                # An axisymmetric NCC: the azimuth factor is its m = 0 value
                 axis_mats.append(sparse.identity(op_width))
             elif ncc_basis is None:
                 # Constant along this coupled axis; possible conversion op->out
@@ -321,6 +352,142 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
             mat = sparse.kron(mat, m)
         blocks.append(sparse.csr_matrix(scalar * mat))
     return blocks
+
+
+def _spherical_axis(operand):
+    """The radial axis of an operand on a ball or shell basis, else None."""
+    from .basis_ball import SphericalRadialBasis
+    for ax, b in enumerate(operand.domain.bases):
+        if isinstance(b, SphericalRadialBasis):
+            return ax
+    return None
+
+
+def _shell_axis(operand):
+    """The radial axis of an operand on a shell basis, else None."""
+    from .basis_ball import SphericalShellRadialBasis
+    for ax, b in enumerate(operand.domain.bases):
+        if isinstance(b, SphericalShellRadialBasis):
+            return ax
+    return None
+
+
+def _radial_profile(comp, y00, what, scale):
+    """The m = 0, ell = 0 radial coefficients of one NCC component's
+    (M, L, n) data, checked spherically symmetric against `scale` (the
+    NCC's largest coefficient), times y00 (the colatitude constant mode's
+    value, which the coefficients carry)."""
+    tail = 0.0
+    if comp.shape[0] > 1:
+        tail = max(tail, np.abs(comp[1:]).max())
+    if comp.shape[1] > 1:
+        tail = max(tail, np.abs(comp[0, 1:]).max())
+    if tail > 1e-12 * max(scale, 1e-300):
+        raise NotImplementedError(f"{what} must be spherically symmetric (ell = 0 content only)")
+    return comp[0, 0, :] * y00
+
+
+def _shell_scalar_ncc_block(ncc_field, comp, operand, out_domain, subproblem, axis):
+    """Joint (colatitude slot, radius) block of a scalar NCC component on the
+    shell: the radial product kron'd over the ell slots (a spherically
+    symmetric NCC maps each ell to itself)."""
+    op_basis, out_basis = operand.domain.bases[axis], out_domain.bases[axis]
+    L = op_basis.parent.colatitude_basis.size
+    dk_out = out_basis.k - op_basis.k
+    ncc_basis = ncc_field.domain.bases[axis]
+    if ncc_basis is None:
+        return sparse.kron(sparse.identity(L), op_basis.conversion_matrix_ell(0, 0, dk_out),
+                           format='csr')
+    ncc_colat = ncc_field.domain.bases[axis - 1]
+    y00 = ncc_colat.constant_mode_value() if ncc_colat is not None else 1.0
+    profile = _radial_profile(comp, y00, "Shell NCCs", np.abs(comp).max())
+    return op_basis.ncc_block_m(subproblem.group[axis - 2] or 0, profile, ncc_basis.k,
+                                ncc_basis.alpha, dk_out)
+
+
+@functools.lru_cache(maxsize=None)
+def _gamma(ell, rank_A, rank_B, ncc_first):
+    """Gamma(ell) = Q_C(ell)^T (Q_A(0) (x) Q_B(ell)), columns (c, b) with the
+    NCC first, else Q_C(ell)^T (Q_B(ell) (x) Q_A(0)), columns (b, c)."""
+    Q_A0 = it.Q_matrix(0, rank_A)
+    Q_B = it.Q_matrix(ell, rank_B) if rank_B else np.eye(1)
+    Q_C = it.Q_matrix(ell, rank_A + rank_B)
+    return Q_C.T @ (np.kron(Q_A0, Q_B) if ncc_first else np.kron(Q_B, Q_A0))
+
+
+def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
+    """
+    A tensor NCC times an operand on the shell, through the Gamma
+    intertwiners. The NCC must be spherically symmetric (m = 0, ell = 0
+    content only: er, rvec, radial profiles); the coefficient coupling per
+    ell is then
+
+        Gamma(ell) = Q_C(ell)^T (Q_A(0) (x) Q_B(ell))
+
+    and each (output component a, operand component b) block is
+    sum_c Gamma[a, (c, b)](ell) R_c, with R_c the radial Clenshaw product
+    matrix of NCC component c (regularity-independent on the shell).
+    """
+    from .basis_ball import SphericalShellRadialBasis
+    ncc_field = ncc.evaluate() if isinstance(ncc, Future) else ncc
+    ncc_field.require_coeff_space()
+    ncc_field.change_scales(1)
+    coeffs = ncc_field.data.detach().cpu().numpy()
+    rank_A, rank_B = len(ncc_field.tensorsig), len(operand.tensorsig)
+    C_A, C_B = 3**rank_A, 3**rank_B
+    ax = _spherical_axis(operand)
+    rb_op, rb_out = operand.domain.bases[ax], out_domain.bases[ax]
+    rb_ncc = ncc_field.domain.bases[ax]
+    if not isinstance(rb_op, SphericalShellRadialBasis):
+        raise NotImplementedError("ball tensor NCCs are not ported yet (ROADMAP M11b-2b, "
+                                  "ball half)")
+    if rb_ncc is None:
+        raise NotImplementedError("constant tensor NCCs on the shell are not ported yet")
+    L = rb_op.parent.colatitude_basis.size
+    n = rb_op.size
+    m = subproblem.group[ax - 2] or 0
+    az_w = subproblem.axis_width(operand.domain.bases[ax - 2], ax - 2)
+    dk_out = rb_out.k - rb_op.k
+    spatial = coeffs.reshape((C_A,) + coeffs.shape[rank_A:])
+    ncc_colat = ncc_field.domain.bases[ax - 1]
+    y00 = ncc_colat.constant_mode_value() if ncc_colat is not None else 1.0
+    R_c = []
+    for c in range(C_A):
+        if np.abs(spatial[c]).max() == 0.0:
+            R_c.append(None)
+            continue
+        profile = _radial_profile(spatial[c], y00, "Spherical tensor NCCs",
+                                  np.abs(spatial).max())
+        R_c.append(rb_op.ncc_radial_matrix(profile, rb_ncc.k, rb_ncc.alpha, dk_out))
+    # Gamma(ell) of the valid slots j (ell = |m| + j); the (a, b) block is
+    # block-diagonal over the slots, sum_c Gamma[a, (c, b)](ell) R_c,
+    # repeated over the azimuth pair slots: assembled in one COO pass
+    Lv = max(L - abs(m), 0)
+    G = np.stack([_gamma(abs(m) + j, rank_A, rank_B, ncc_first) for j in range(Lv)]) \
+        if Lv else np.zeros((0, C_A * C_B, C_A * C_B))
+    G = np.where(np.abs(G) < 1e-14, 0.0, G)
+    Rb = az_w * L * n
+    rows, cols, vals = [], [], []
+    for c in range(C_A):
+        if R_c[c] is None:
+            continue
+        R = sparse.coo_matrix(R_c[c])
+        for a in range(C_A * C_B):
+            for b in range(C_B):
+                g = G[:, a, c * C_B + b if ncc_first else b * C_A + c]
+                j = np.nonzero(g)[0]
+                if not j.size:
+                    continue
+                v = (g[j, None] * R.data).ravel()
+                for p in range(az_w):
+                    off = p * L * n + j[:, None] * n
+                    rows.append((a * Rb + off + R.row).ravel())
+                    cols.append((b * Rb + off + R.col).ravel())
+                    vals.append(v)
+    if not rows:
+        return sparse.csr_matrix((C_A * C_B * Rb, C_B * Rb))
+    return sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                             shape=(C_A * C_B * Rb, C_B * Rb))
 
 
 def _axis_coeffs(comp_coeffs, axis, spatial_shape):
@@ -399,4 +566,41 @@ class DotProduct(Future):
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
 
 
-__all__ = ['Add', 'Multiply', 'DotProduct']
+class CrossProduct(Future):
+    """Cross product of two 3-D vectors, pointwise on the dealias grid
+    (nonlinear terms such as the Coriolis force cross(ez, u)). The
+    coordinate components of the spherical (phi, theta, r) frame are
+    left-handed: there the standard component formula flips sign."""
+
+    def __init__(self, a, b):
+        if a.tensorsig[-1].dim != 3 or b.tensorsig[0].dim != 3:
+            raise ValueError("CrossProduct requires 3D vectors")
+        super().__init__(a, b)
+
+    def _init_metadata(self):
+        a, b = self._operands
+        self.tensorsig = a.tensorsig
+        self.dtype = np.result_type(a.dtype, b.dtype)
+        self.domain = merge_domains(self.dist, a.domain, b.domain)
+
+    def new_operands(self, *operands):
+        return CrossProduct(*operands)
+
+    def is_linear_in(self, vars):
+        a, b = self._operands
+        dep = [a.has(*vars), b.has(*vars)]
+        if sum(dep) != 1:
+            return False
+        return self._operands[dep.index(True)].is_linear_in(vars)
+
+    def operate(self, arg_fields):
+        a = _to_dealias_grid(arg_fields[0])
+        b = _to_dealias_grid(arg_fields[1])
+        sign = 1.0 if getattr(self.tensorsig[0], 'right_handed', True) else -1.0
+        out = grid_cross(a, b, sign)
+        shape = (3,) + self.domain.grid_shape(self.domain.dealias)
+        out = torch.broadcast_to(out, shape)
+        return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
+
+
+__all__ = ['Add', 'Multiply', 'DotProduct', 'CrossProduct']

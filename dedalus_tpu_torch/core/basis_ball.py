@@ -1,25 +1,28 @@
 """
-Ball basis: the 3-D spherical domain (azimuth x colatitude x radius) built
-from spin-weighted spherical harmonics and generalized 3-D Zernike radial
-functions, real dtype.
+Ball and spherical-shell bases: the 3-D spherical domains (azimuth x
+colatitude x radius) built from spin-weighted spherical harmonics and, along
+the radius, generalized 3-D Zernike functions (the ball) or the shell's
+weighted Jacobi functions (dR/r)^k P_n^(a, b) (the shell), real dtype.
 
-Mirrors the ball part of dedalus_tpu/core/basis_ball.py. A ball field's
-coefficient data is (components..., M, L, N): the azimuth is RealFourier
-with interleaved (cos, -sin) pairs, colatitude slot j of azimuthal
-wavenumber m holds ell = |m| + j for every component (the ell-aligned
-storage of core/basis_sphere.py), and radial slot n is valid while
+Mirrors dedalus_tpu/core/basis_ball.py. A spherical field's coefficient data
+is (components..., M, L, N): the azimuth is RealFourier with interleaved
+(cos, -sin) pairs, colatitude slot j of azimuthal wavenumber m holds
+ell = |m| + j for every component (the ell-aligned storage of
+core/basis_sphere.py). On the ball radial slot n is valid while
 n < N - ell // 2 (the triangular truncation, expressed through validity
-masks and identity pivots). Coefficient data holds regularity components,
-grid data coordinate components (phi, theta, r):
+masks and identity pivots); the shell has no truncation. Coefficient data
+holds regularity components, grid data coordinate components (phi, theta, r):
 
   * colatitude: spin recombination (kernel KF, the radial component passing
     through) and the per-(m, spin) SWSH stacks (KE's trailing form);
   * radius: the regularity recombination per (m, ell) (kernel KI,
-    csrc/regularity_recombine.py) and the per-(m, ell) Zernike stacks of
-    each regularity total (kernel KH, ops/ball.py).
+    csrc/regularity_recombine.py), then on the ball the per-(m, ell)
+    Zernike stacks of each regularity total (kernel KH, ops/ball.py), on
+    the shell one ell-independent weighted Jacobi transform for every line
+    (kernel KJ, ops/shell.py).
 
 Operator matrices are host scipy, built exactly as in the JAX package. The
-shell and the radial NCC blocks wait for ROADMAP M11b-2b.
+ball's radial NCC blocks wait for ROADMAP M11b-2b (ball half).
 """
 
 import numpy as np
@@ -32,9 +35,13 @@ from .basis_sphere import ColatitudeBasis
 from .coords import SphericalCoordinates
 from ..csrc import regularity_recombine as ki
 from ..ops import ball as ops_ball
+from ..ops import shell as ops_shell
 from ..utils.caching import CachedMethod
 from ..spectral import intertwiner as intertwiner_lib
 from ..spectral import zernike as zernike_lib
+from ..spectral import jacobi as jacobi_lib
+from ..spectral import shell as shell_lib
+from ..spectral import clenshaw as clenshaw_lib
 
 
 def _pairs(M):
@@ -45,8 +52,9 @@ def _pairs(M):
 
 
 class SphericalRadialBasis:
-    """Mixin of the 3-D spherical radial bases: tensor checks and the per-ell
-    regularity <-> spin recombination of tensor components."""
+    """Mixin of the 3-D spherical radial bases (ball and shell): tensor
+    checks and the per-ell regularity <-> spin recombination of tensor
+    components."""
 
     def _check_tensorsig(self, tensorsig):
         for cs in tensorsig:
@@ -311,19 +319,6 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
             row[:ns] = Q[:, 0]
         return row
 
-    def lift_block_m(self, m, index, reg=0):
-        """(L*n x L) lift of surface (per-ell) values into radial mode
-        `index` of each ell."""
-        L = self.parent.colatitude_basis.size
-        n = self.size
-        mat = sparse.lil_matrix((L * n, L))
-        for j in range(L):
-            ell = abs(m) + j
-            ns = self.n_size(ell)
-            if j < L - abs(m) and ns > 0:
-                mat[j * n + (ns + index if index < 0 else index), j] = 1
-        return sparse.csr_matrix(mat)
-
     def constant_spatial_column(self):
         """Column embedding the constant function 1 into the (colatitude
         slot, radial) coefficient block: the ell = 0 slot gets the radial
@@ -337,8 +332,260 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
         return sparse.csr_matrix(col)
 
 
+class SphericalShellRadialBasis(SphericalRadialBasis, Basis):
+    """
+    Radial basis of the spherical shell: the weighted Jacobi family
+    f(r) = (dR/r)^k sum_n c_n P_n^(a+k, b+k)(z), r = (dR/2)(z + rho), with
+    the dim = 3 covariant derivative shifts. No triangular truncation
+    (n_size is ell-independent); only the D and Laplacian blocks depend on
+    ell, and the transforms are one matrix for every (component, m, ell).
+    """
+
+    ops_couple = True
+
+    def __init__(self, coord, size, radii, k=0, alpha=(-0.5, -0.5), dealias=1,
+                 dtype=np.float64, parent=None):
+        super().__init__(coord, size, radii, dealias=dealias, dtype=dtype)
+        from .basis import Jacobi
+        self.radii = tuple(map(float, radii))
+        self.k = int(k)
+        self.alpha = tuple(map(float, alpha))
+        self.parent = parent
+        self.dR = self.radii[1] - self.radii[0]
+        self.rho = (self.radii[1] + self.radii[0]) / self.dR
+        self._jacobi = Jacobi(coord, size, radii,
+                              a=self.alpha[0] + self.k, b=self.alpha[1] + self.k,
+                              a0=self.alpha[0], b0=self.alpha[1],
+                              dealias=dealias, dtype=dtype)
+
+    def _key(self):
+        return ('SphShellRadial', self.coord.name, self.size, self.radii, self.k,
+                self.alpha, self.dealias)
+
+    def __eq__(self, other):
+        if isinstance(other, SphericalShellRadialBasis):
+            return self._key() == other._key()
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self._key())
+
+    def __repr__(self):
+        return f"SphericalShellRadialBasis({self.coord.name}, size={self.size}, k={self.k})"
+
+    def clone_with(self, **kw):
+        args = dict(coord=self.coord, size=self.size, radii=self.radii, k=self.k,
+                    alpha=self.alpha, dealias=self.dealias[0], dtype=self.dtype,
+                    parent=self.parent)
+        args.update(kw)
+        return SphericalShellRadialBasis(**args)
+
+    def derivative_basis(self, order=1):
+        return self.clone_with(k=self.k + order)
+
+    def n_size(self, ell):
+        return self.size
+
+    # --- grids ---
+
+    def global_grid(self, scale=1):
+        z = jacobi_lib.build_grid(self.grid_size(scale), self.alpha[0], self.alpha[1])
+        return (self.dR / 2) * (z + self.rho)
+
+    def global_weights(self, scale=1):
+        """Weights of the integral f(r) r^2 dr on [Ri, Ro], built in
+        longdouble on the host as the JAX package builds them."""
+        N = self.grid_size(scale)
+        z, w_ab = jacobi_lib.quadrature(N, self.alpha[0], self.alpha[1], dtype=np.longdouble)
+        z0, w0 = jacobi_lib.quadrature(N, 0, 0, dtype=np.longdouble)
+        Q0 = jacobi_lib.polynomials(N, self.alpha[0], self.alpha[1], z0, dtype=np.longdouble)
+        Qp = jacobi_lib.polynomials(N, self.alpha[0], self.alpha[1], z, dtype=np.longdouble)
+        w_dr = (self.dR / 2) * ((Q0 @ w0).T @ (w_ab * Qp))
+        r = np.asarray(self.global_grid(scale))
+        return np.asarray(w_dr, dtype=np.float64) * r**2
+
+    # --- transforms: one weighted Jacobi matrix for every line (kernel KJ) ---
+
+    @CachedMethod
+    def radial_weight(self, scale, forward):
+        """(r/dR)^k on the grid (applied before the forward matrix) or
+        (dR/r)^k (after the backward one); None at k = 0."""
+        if not self.k:
+            return None
+        r = np.asarray(self.global_grid(scale))
+        return np.ascontiguousarray((r / self.dR)**self.k if forward else (self.dR / r)**self.k)
+
+    @CachedMethod
+    def radial_functions(self, scale):
+        """Host (Ng, n) values of the radial basis functions on the grid:
+        the backward transform of unit coefficient vectors."""
+        B = self._jacobi.backward_matrix(scale, np.float64)
+        w = self.radial_weight(scale, False)
+        return np.ascontiguousarray(B if w is None else w[:, None] * B)
+
+    def _transform(self, data, scale, forward):
+        """KJ on (..., N_in) data, the radius trailing: every line through
+        the Jacobi matrix, the weight of this k applied on the grid side."""
+        jac = self._jacobi
+        T = jac._forward_matrix_host(scale, np.float64) if forward else \
+            jac._backward_matrix_host(scale, np.float64)
+        w = self.radial_weight(scale, forward)
+        dev = data.device
+        T = device_copy(T, dev)
+        w = None if w is None else device_copy(w, dev)
+        x = data.reshape((-1, data.shape[-1])).contiguous()
+        y = ops_shell.shell_radial_transform(T, x, w if forward else None,
+                                             None if forward else w)
+        return y.reshape(tuple(data.shape[:-1]) + (T.shape[0],))
+
+    def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        self._check_tensorsig(tensorsig)
+        if axis not in (-1, data.ndim - 1):
+            raise NotImplementedError("the shell's radius must be the trailing axis")
+        data = self._transform(data, scale, forward=True)
+        if tensorsig:
+            rank = len(tensorsig)
+            shape0 = data.shape
+            data = data.reshape((3**rank,) + tuple(shape0[rank:]))
+            data = self._regularity_recombine(data, tensorsig, forward=True)
+            data = data.reshape(shape0)
+        return data
+
+    def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        self._check_tensorsig(tensorsig)
+        if axis not in (-1, data.ndim - 1):
+            raise NotImplementedError("the shell's radius must be the trailing axis")
+        if tensorsig:
+            rank = len(tensorsig)
+            shape0 = data.shape
+            data = data.reshape((3**rank,) + tuple(shape0[rank:]))
+            data = self._regularity_recombine(data, tensorsig, forward=False)
+            data = data.reshape(shape0)
+        return self._transform(data, scale, forward=False)
+
+    # --- validity ---
+
+    def joint_valid_for_m(self, m, tensorsig=(), comp_idx=(), az_w=1):
+        """Flattened (azimuth pair, L, n) mask: every radial slot of an ell
+        whose regularity class exists; the m = 0 sin parts follow the cos
+        parts except (ell == 0, sin) for rank <= 1."""
+        L = self.parent.colatitude_basis.size
+        mask = np.zeros((L, self.size), dtype=bool)
+        for j in range(max(L - abs(m), 0)):
+            ell = abs(m) + j
+            if comp_idx and not intertwiner_lib.regularity_allowed(ell, comp_idx):
+                continue
+            mask[j, :] = True
+        out = np.zeros((az_w,) + mask.shape, dtype=bool)
+        out[0] = mask
+        if az_w > 1:
+            sinmask = mask.copy()
+            if len(tensorsig) <= 1 and m == 0:
+                sinmask[0] = False  # slot j = 0 holds ell = 0 at m = 0
+            out[1] = sinmask
+        return out.ravel()
+
+    # --- operator matrices ---
+
+    @CachedMethod
+    def operator_matrix_ell(self, op, ell, reg, size=None):
+        """Radial operator at one (ell, regularity total): 'L', 'D+', 'D-'
+        and the ell-independent ones ('E', 'Z', 'Id', 'AB')."""
+        n = size if size is not None else self.size
+        l_eff = ell + reg
+        if op == 'L':
+            D1 = shell_lib.operator(3, self.radii, 'D', n + 2, self.k,
+                                    alpha=self.alpha, dl=+1, l=l_eff)
+            D2 = shell_lib.operator(3, self.radii, 'D', n + 2, self.k + 1,
+                                    alpha=self.alpha, dl=-1, l=l_eff + 1)
+            return sparse.csr_matrix(D2 @ D1)[:n, :n]
+        if op[-1] in '+-':
+            dl = 1 if op[-1] == '+' else -1
+            return sparse.csr_matrix(shell_lib.operator(
+                3, self.radii, op[:-1], n, self.k, alpha=self.alpha, dl=dl, l=l_eff))
+        return sparse.csr_matrix(shell_lib.operator(
+            3, self.radii, op, n, self.k, alpha=self.alpha))
+
+    @CachedMethod
+    def _conversion_matrix(self, dk):
+        mat = sparse.identity(self.size, format='csr')
+        for i in range(dk):
+            E = shell_lib.operator(3, self.radii, 'E', self.size, self.k + i,
+                                   alpha=self.alpha)
+            mat = sparse.csr_matrix(E) @ mat
+        return sparse.csr_matrix(mat)
+
+    def conversion_matrix_ell(self, ell, reg, dk, size=None):
+        """The k -> k + dk conversion (ell-independent on the shell)."""
+        return self._conversion_matrix(dk)
+
+    @CachedMethod
+    def interpolation_ell(self, ell, reg, position):
+        """Row of the radial basis values at r = position (every ell)."""
+        row = shell_lib.interpolation(self.radii, self.size, self.k, position,
+                                      alpha=self.alpha)
+        return np.asarray(row.todense()).ravel()
+
+    def constant_spatial_column(self):
+        """Column embedding the constant function 1 into the (colatitude
+        slot, radial) coefficient block: the ell = 0 slot gets the expansion
+        of 1 in this k-weighted basis over the colatitude constant mode's
+        value."""
+        L = self.parent.colatitude_basis.size
+        n = self.size
+        fwd_mat = self._jacobi.forward_matrix(1, np.float64)
+        r = np.asarray(self.global_grid(1))
+        vals = (r / self.dR)**self.k if self.k else np.ones_like(r)
+        col = np.zeros((L * n, 1))
+        col[:n, 0] = fwd_mat @ vals
+        col /= self.parent.colatitude_basis.constant_mode_value()
+        return sparse.csr_matrix(col)
+
+    def ncc_radial_matrix(self, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff=1e-10):
+        """(n x n) product matrix of a spherically symmetric NCC with radial
+        coefficients `ncc_radial_coeffs` (basis k = ncc_k): the radial
+        Clenshaw sum, ell-independent on the shell (cached by the
+        coefficients' bytes: every pencil group asks for the same one)."""
+        coeffs = np.ascontiguousarray(np.ravel(ncc_radial_coeffs), dtype=np.float64)
+        key = (coeffs.tobytes(), ncc_k, tuple(np.ravel(ncc_alpha)), dk_out, cutoff)
+        cache = self.__dict__.setdefault('_ncc_cache', {})
+        if key not in cache:
+            cache[key] = self._ncc_radial_matrix(coeffs, ncc_k, ncc_alpha, dk_out, cutoff)
+        return cache[key]
+
+    def _ncc_radial_matrix(self, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff):
+        N = self.size
+        if np.isscalar(ncc_alpha):
+            ncc_alpha = self.alpha
+        a_ncc = ncc_k + ncc_alpha[0]
+        b_ncc = ncc_k + ncc_alpha[1]
+        Nmat = 3 * ((N + 1) // 2) + ncc_k + abs(dk_out) + 2
+        J = self.operator_matrix_ell('Z', 0, 0, size=Nmat)
+        S = clenshaw_lib.matrix_clenshaw(np.ravel(ncc_radial_coeffs)[:N],
+                                         a_ncc, b_ncc, J, cutoff=cutoff)
+        prefactor = sparse.identity(Nmat, format='csr')
+        for i in range(ncc_k):
+            AB = shell_lib.operator(3, self.radii, 'AB', Nmat, self.k + i, alpha=self.alpha)
+            prefactor = AB @ prefactor
+        mat = sparse.csr_matrix(prefactor @ S)
+        if dk_out:
+            conv = sparse.identity(Nmat, format='csr')
+            for i in range(dk_out):
+                E = shell_lib.operator(3, self.radii, 'E', Nmat, self.k + i, alpha=self.alpha)
+                conv = sparse.csr_matrix(E) @ conv
+            mat = conv @ mat
+        return sparse.csr_matrix(mat)[:N, :N]
+
+    def ncc_block_m(self, m, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff=1e-10):
+        """The radial NCC product kron'd over the colatitude slots."""
+        L = self.parent.colatitude_basis.size
+        mat = self.ncc_radial_matrix(ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff)
+        return sparse.kron(sparse.identity(L), mat, format='csr')
+
+
 class BallSurfaceBasis:
-    """The sphere surface of a ball: fields with bases=ball.surface span the
+    """The sphere surface of a ball or a shell at one radius: fields with
+    bases=ball.surface (shell.inner_surface, shell.outer_surface) span the
     azimuth and colatitude axes (the taus of the boundary conditions)."""
 
     dim = 2
@@ -418,3 +665,58 @@ class BallBasis:
 
     def __repr__(self):
         return f"BallBasis(shape={self.shape}, radius={self.radius}, k={self.k})"
+
+
+class ShellBasis:
+    """Spherical-shell basis facade spanning the (azimuth, colatitude,
+    radius) axes; the colatitude metric is taken at the mean radius."""
+
+    dim = 3
+
+    def __init__(self, coordsys, shape, radii=(1.0, 2.0), k=0,
+                 alpha=(-0.5, -0.5), dealias=(1, 1, 1), dtype=np.float64):
+        if not isinstance(coordsys, SphericalCoordinates):
+            raise ValueError("ShellBasis requires SphericalCoordinates")
+        self.coordsys = coordsys
+        self.shape = tuple(shape)
+        self.radii = tuple(map(float, radii))
+        self.k = int(k)
+        self.alpha = tuple(map(float, alpha))
+        if np.isscalar(dealias):
+            dealias = (dealias,) * 3
+        self.dealias = tuple(dealias)
+        self.dtype = dtype
+        self.volume = 4 / 3 * np.pi * (radii[1]**3 - radii[0]**3)
+        self.radius = (self.radii[0] + self.radii[1]) / 2
+        self.azimuth_basis = make_azimuth_basis(
+            coordsys.azimuth, self.shape[0], self.dealias[0], dtype)
+        self.colatitude_basis = ColatitudeBasis(
+            coordsys.colatitude, self.shape[1], radius=self.radius,
+            dealias=self.dealias[1], dtype=dtype, parent=self)
+        self.radial_basis = SphericalShellRadialBasis(
+            coordsys.radius, self.shape[2], radii=self.radii, k=self.k,
+            alpha=self.alpha, dealias=self.dealias[2], dtype=dtype, parent=self)
+        self.inner_surface = BallSurfaceBasis(self, self.radii[0])
+        self.outer_surface = BallSurfaceBasis(self, self.radii[1])
+
+    @property
+    def sub_bases(self):
+        return (self.azimuth_basis, self.colatitude_basis, self.radial_basis)
+
+    def clone_with(self, **kw):
+        args = dict(coordsys=self.coordsys, shape=self.shape, radii=self.radii,
+                    k=self.k, alpha=self.alpha, dealias=self.dealias, dtype=self.dtype)
+        args.update(kw)
+        return ShellBasis(**args)
+
+    def derivative_basis(self, order=1):
+        return self.clone_with(k=self.k + order)
+
+    def global_grids(self, scales=None):
+        scales = scales or self.dealias
+        return (self.azimuth_basis.global_grid(scales[0]),
+                self.colatitude_basis.global_grid(scales[1]),
+                self.radial_basis.global_grid(scales[2]))
+
+    def __repr__(self):
+        return f"ShellBasis(shape={self.shape}, radii={self.radii}, k={self.k})"

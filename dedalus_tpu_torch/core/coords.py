@@ -2,8 +2,9 @@
 Coordinates and coordinate systems (Cartesian, polar, the sphere surface
 and 3-D spherical).
 
-Mirrors dedalus_tpu/core/coords.py. The S2 view of a spherical system and
-direct products are not ported yet (ROADMAP M11b-2b, M11c).
+Mirrors dedalus_tpu/core/coords.py, with the S2 view of a spherical system
+(the tensor signature of angular components). Direct products are not
+ported yet (ROADMAP M11c).
 """
 
 import numpy as np
@@ -165,11 +166,29 @@ class SphericalCoordinates(CurvilinearCoordinateSystem):
     def U_backward(cls, order=1):
         return cls.U_forward(order).T.conj()
 
+    @property
+    def S2coordsys(self):
+        """S2 view sharing this system's azimuth and colatitude coordinates:
+        the tensor signature of angular components."""
+        if not hasattr(self, '_S2coordsys'):
+            s2 = S2Coordinates.__new__(S2Coordinates)
+            s2.names = self.names[:2]
+            s2.azimuth = self.azimuth
+            s2.colatitude = self.colatitude
+            s2.coords = (self.azimuth, self.colatitude)
+            self._S2coordsys = s2
+        return self._S2coordsys
+
     def spintotal(self, tensorsig, comp_index):
+        """Total spin weight of a component over the ranks of this system and
+        of its S2 view."""
         total = 0
+        s2 = getattr(self, '_S2coordsys', None)
         for cs, idx in zip(tensorsig, comp_index):
             if cs is self:
                 total += self.spin_ordering[idx]
+            elif s2 is not None and cs is s2:
+                total += cs.spin_ordering[idx]
         return total
 
     def __repr__(self):

@@ -8,12 +8,13 @@ UnaryGridFunction (numpy ufuncs on operands), the Cartesian AdvectiveCFL
 and the grad/div/lap/trace/skew/integ/ave factories, which dispatch to the
 polar operators (core/operators_polar.py) on polar coordinates, to the
 sphere operators (core/operators_sphere.py) on S2 coordinates and to the
-ball operators (core/operators_ball.py) on spherical coordinates. Each one-axis
+ball and shell operators (core/operators_ball.py) on spherical
+coordinates, with the transpose, the radial and angular components and
+their lowercase aliases. Each one-axis
 operator carries one host matrix: the pencil matrices slice it on the host
 (scipy), and eager evaluation applies it densely on the field's device. The
-shell, the curvilinear CFL spacings, Curl/Transpose, the spherical
-components and general functions are not ported yet (ROADMAP M3, M9,
-M11b-2b).
+curvilinear CFL spacings, Curl and general functions are not ported yet
+(ROADMAP M3, M9, M11b-2b).
 """
 
 import numbers
@@ -36,13 +37,18 @@ from ..utils.general import prod
 _HOST_MATRIX_CACHE = {}
 
 
-def device_matrix(key, host_matrix_builder, device):
+def host_matrix(key, host_matrix_builder):
+    """The dense host copy kept under `key` (built once)."""
     if key not in _HOST_MATRIX_CACHE:
         mat = host_matrix_builder()
         if sparse.issparse(mat):
             mat = mat.toarray()
         _HOST_MATRIX_CACHE[key] = np.ascontiguousarray(mat)
-    return device_copy(_HOST_MATRIX_CACHE[key], device)
+    return _HOST_MATRIX_CACHE[key]
+
+
+def device_matrix(key, host_matrix_builder, device):
+    return device_copy(host_matrix(key, host_matrix_builder), device)
 
 
 class LinearOperator(Future):
@@ -293,8 +299,8 @@ class Lift(SpectralOperator1D):
     output basis; a polar facade lifts radially, per m on the disk."""
 
     def __new__(cls, operand, out_basis, index):
-        from .basis_ball import BallBasis
-        if isinstance(out_basis, BallBasis):
+        from .basis_ball import BallBasis, ShellBasis
+        if isinstance(out_basis, (BallBasis, ShellBasis)):
             from .operators_ball import BallLift
             return BallLift(operand, out_basis, index)
         out_basis = getattr(out_basis, 'sub_bases', (out_basis,))[-1]
@@ -662,7 +668,11 @@ def convert(expr, bases):
         from .basis_sphere import ColatitudeBasis
         if isinstance(target, ColatitudeBasis) and current is None \
                 and hasattr(target.parent, 'radial_basis'):
-            continue  # embedded jointly by the radial axis's constant embedding
+            if any(isinstance(b, SphericalRadialBasis) for b in full):
+                continue  # embedded jointly by the radial axis's constant embedding
+            # On a ball's or shell's surface the constant lands in the ell = 0
+            # slot as it is, without the 1/Y00 of a constant function: the
+            # JAX package's value (ROADMAP queue 3, caveats on the reference)
         if isinstance(target, SphericalRadialBasis):
             from .operators_ball import BallConstantEmbed, BallConvert
             if current is None:
@@ -767,7 +777,9 @@ def Trace(operand):
     if len(operand.tensorsig) < 2:
         raise ValueError("Trace requires a rank-2+ tensor")
     _require_supported(operand.tensorsig[0])
-    _require_planar(operand.tensorsig[0], 'Trace')
+    if isinstance(operand.tensorsig[0], SphericalCoordinates):
+        from .operators_ball import SphericalTrace
+        return SphericalTrace(operand)
     if isinstance(operand.tensorsig[0], S2Coordinates):
         raise NotImplementedError("Trace on S2 tensors is not ported yet (ROADMAP M11b-2b)")
     if isinstance(operand.tensorsig[0], PolarCoordinates):
@@ -790,6 +802,34 @@ def Skew(operand):
         raise ValueError("Skew requires 2D vectors")
     return TensorStack([arithmetic.Multiply(-1, Component(operand, 1)), Component(operand, 0)],
                        coordsys)
+
+
+def TransposeComponents(operand, indices=(0, 1)):
+    """Swap the two leading tensor ranks (spherical tensors; the others wait
+    for ROADMAP M11c)."""
+    if tuple(indices) != (0, 1):
+        raise NotImplementedError("Only leading-pair transposition supported")
+    if not isinstance(operand.tensorsig[0], SphericalCoordinates):
+        raise NotImplementedError("Transpose of non-spherical tensors is not ported yet "
+                                  "(ROADMAP M11c)")
+    from .operators_ball import SphericalTransposeComponents
+    return SphericalTransposeComponents(operand, indices)
+
+
+def RadialComponent(operand, index=0):
+    """Radial component of a spin-component spherical operand."""
+    if not isinstance(operand.tensorsig[index], SphericalCoordinates):
+        raise NotImplementedError("RadialComponent of a spherical tensor rank only")
+    from .operators_ball import SphericalComponent
+    return SphericalComponent(operand, index, comps=(2,), s2_out=False)
+
+
+def AngularComponent(operand, index=0):
+    """Angular (S2) components of a spin-component spherical operand."""
+    if not isinstance(operand.tensorsig[index], SphericalCoordinates):
+        raise NotImplementedError("AngularComponent of a spherical tensor rank only")
+    from .operators_ball import SphericalComponent
+    return SphericalComponent(operand, index, comps=(0, 1), s2_out=True)
 
 
 def AzimuthalComponent(operand, index=0):
@@ -890,6 +930,9 @@ grad = Gradient
 div = Divergence
 lap = Laplacian
 trace = Trace
+transpose = TransposeComponents
+radial = RadialComponent
+angular = AngularComponent
 skew = Skew
 ave = Average
 azimuthal = AzimuthalComponent
@@ -901,6 +944,7 @@ lift = Lift
 __all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace', 'Skew',
            'Interpolate', 'Integrate', 'Average', 'Lift', 'TimeDerivative',
            'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
-           'AzimuthalComponent', 'convert',
-           'grad', 'div', 'lap', 'trace', 'skew', 'ave', 'azimuthal', 'integ', 'interp', 'dt',
-           'lift']
+           'AzimuthalComponent', 'TransposeComponents', 'RadialComponent',
+           'AngularComponent', 'convert',
+           'grad', 'div', 'lap', 'trace', 'transpose', 'radial', 'angular', 'skew', 'ave',
+           'azimuthal', 'integ', 'interp', 'dt', 'lift']

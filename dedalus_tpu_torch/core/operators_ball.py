@@ -1,10 +1,11 @@
 """
-Vector calculus and structural operators on the ball.
+Vector calculus and structural operators on the ball and the shell.
 
-Mirrors the ball part of dedalus_tpu/core/operators_ball.py: BallRegOperator
-and its Laplacian, gradient, divergence and conversion; the lift of surface
-(tau) fields, interpolation at a radius, the volume integral and the
-embedding of constants. Tensor components of ball fields are regularity
+Mirrors dedalus_tpu/core/operators_ball.py: BallRegOperator and its
+Laplacian, gradient, divergence, conversion, transpose and trace; the
+radial and angular components of spin-component operands; the lift of
+surface (tau) fields, interpolation at a radius, the volume integral and the
+embedding of constants. Tensor components of ball and shell fields are regularity
 components; each (input, output) component pair of an operator has one
 radial matrix per ell, and the per-m pencil matrices are block-diagonal over
 the colatitude slots (slot j at ell = |m| + j). Matrices are host scipy,
@@ -13,20 +14,54 @@ built exactly as in the JAX package; eager evaluation stacks them over
 kernel KH (ops/ball.py), the lift and interpolation blocks with kernel KE
 (ops/polar.py).
 
-Curl, the ell products, transposes, traces, components and the z-cross
-wait for ROADMAP M11b-2b.
+Curl, the ell products and the z-cross wait for ROADMAP M11b-2b (ball
+half).
 """
+
+import functools
 
 import numpy as np
 import torch
 from scipy import sparse
 
 from .domain import Domain
-from .operators import LinearOperator, device_matrix
-from .basis_ball import SphericalRadialBasis, _pairs
+from .basis import device_copy
+from .operators import LinearOperator, device_matrix, host_matrix
+from .basis_ball import SphericalRadialBasis, SphericalShellRadialBasis, _pairs
+from .coords import SphericalCoordinates
 from ..ops import ball as ops_ball
 from ..ops import polar as ops_polar
 from ..spectral import intertwiner as it
+
+
+# Whether a component pair's stack of an operator has any entry, by its key
+_LIVE_PAIRS = {}
+
+
+def _coo_csr(rows, cols, vals, shape):
+    """CSR matrix from lists of COO index and value arrays."""
+    if not rows:
+        return sparse.csr_matrix(shape)
+    return sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                     np.concatenate(cols))), shape=shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _spin_reg_slots(m, L, rank):
+    """(C, C, L) intertwiner entries Q(ell)[sigma, a] at each colatitude
+    slot j (ell = |m| + j) where the regularity class a exists at ell; zero
+    elsewhere and below 1e-14."""
+    C = 3**rank
+    out = np.zeros((C, C, L))
+    idxs = list(np.ndindex(*(3,) * rank))
+    for j in range(max(L - abs(m), 0)):
+        ell = abs(m) + j
+        Q = it.Q_matrix(ell, rank)
+        for a, a_idx in enumerate(idxs):
+            if it.regularity_allowed(ell, a_idx):
+                out[:, a, j] = Q[:, a]
+    out[np.abs(out) < 1e-14] = 0.0
+    return out
 
 
 def _xi(mu, l):
@@ -96,53 +131,45 @@ class BallRegOperator(LinearOperator):
         out[self.radius_axis] = True
         return out
 
-    def _pair_block_m(self, in_idx, out_idx, m):
-        """(L*n_out, L*n_in) block-diagonal pair matrix at azimuthal mode m,
-        zero where either regularity class is forbidden."""
-        rb = self.radial_in
-        L = rb.parent.colatitude_basis.size
-        n_in, n_out = rb.size, self.radial_out.size
-        blocks = []
-        for j in range(L):
-            ell = abs(m) + j
-            A = None
-            if (j < L - abs(m) and it.regularity_allowed(ell, in_idx)
-                    and it.regularity_allowed(ell, out_idx)):
-                A = self.radial_matrix_ell(in_idx, out_idx, ell)
-            if A is None:
-                A = sparse.csr_matrix((n_out, n_in))
-            blocks.append(sparse.csr_matrix(A)[:n_out, :n_in])
-        return sparse.block_diag(blocks, format='csr')
-
     def subproblem_matrix(self, subproblem):
+        """Component-major pencil matrix: for each pair's slots (ell =
+        |m| + j), its radial matrix, repeated over the azimuth pair slots;
+        assembled in one COO pass."""
         m = subproblem.group[self.azimuth_axis]
         m = m if m is not None else 0
         az_w = subproblem.axis_width(
             self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
         L = self.radial_in.parent.colatitude_basis.size
-        rows = []
-        for oi in _comp_indices(self.tensorsig):
-            row = []
-            for ii in _comp_indices(self.operand.tensorsig):
-                if oi in self.regindices_out(ii):
-                    blk = sparse.kron(sparse.identity(az_w), self._pair_block_m(ii, oi, m))
-                else:
-                    blk = sparse.csr_matrix(
-                        (az_w * L * self.radial_out.size, az_w * L * self.radial_in.size))
-                row.append(blk)
-            rows.append(row)
-        if len(rows) == 1 and len(rows[0]) == 1:
-            return sparse.csr_matrix(rows[0][0])
-        return sparse.bmat(rows, format='csr')
+        n_in, n_out = self.radial_in.size, self.radial_out.size
+        ts_in, ts_out = self.operand.tensorsig, self.tensorsig
+        Rb, Cb = az_w * L * n_out, az_w * L * n_in
+        rows, cols, vals = [], [], []
+        for ii in _comp_indices(ts_in):
+            for oi in self.regindices_out(ii):
+                S = self._pair_host(ii, oi)
+                if S is None or abs(m) >= L:
+                    continue
+                j, o, i = np.nonzero(S[abs(m):])
+                v = S[abs(m):][j, o, i]
+                for p in range(az_w):
+                    rows.append(_flat(oi, ts_out) * Rb + p * L * n_out + j * n_out + o)
+                    cols.append(_flat(ii, ts_in) * Cb + p * L * n_in + j * n_in + i)
+                    vals.append(v)
+        shape = (len(_comp_indices(ts_out)) * Rb, len(_comp_indices(ts_in)) * Cb)
+        return _coo_csr(rows, cols, vals, shape)
 
-    def _pair_stack(self, in_idx, out_idx, device):
-        """(L, n_out, n_in) device stack of one component pair, one matrix
-        per ell (KH reads entry |m| + j for slot j of wavenumber m)."""
+    def _pair_key(self, in_idx, out_idx):
+        rb = self.radial_in
+        return (type(self).__name__, rb._key(), self.radial_out._key(), in_idx, out_idx,
+                rb.parent.colatitude_basis.size, self._extra_key())
+
+    def _pair_host(self, in_idx, out_idx):
+        """(L, n_out, n_in) host stack of one component pair, one matrix
+        per ell; None where the pair has no matrix at any ell."""
         rb = self.radial_in
         L = rb.parent.colatitude_basis.size
         n_in, n_out = rb.size, self.radial_out.size
-        key = (type(self).__name__, rb._key(), self.radial_out._key(), in_idx, out_idx, L,
-               self._extra_key())
+        key = self._pair_key(in_idx, out_idx)
 
         def build():
             S = np.zeros((L, n_out, n_in))
@@ -156,7 +183,16 @@ class BallRegOperator(LinearOperator):
                 A = sparse.csr_matrix(A)[:n_out, :n_in].toarray()
                 S[ell, :A.shape[0], :A.shape[1]] = A
             return np.ascontiguousarray(S)
-        return device_matrix(key, build, device)
+        S = host_matrix(key, build)
+        if key not in _LIVE_PAIRS:
+            _LIVE_PAIRS[key] = bool(np.any(S))
+        return S if _LIVE_PAIRS[key] else None
+
+    def _pair_stack(self, in_idx, out_idx, device):
+        """The pair's per-ell stack on `device` (KH reads entry |m| + j for
+        slot j of wavenumber m); None where it has no matrix."""
+        S = self._pair_host(in_idx, out_idx)
+        return None if S is None else device_copy(S, device)
 
     def _extra_key(self):
         return ()
@@ -179,6 +215,8 @@ class BallRegOperator(LinearOperator):
         for ii in _comp_indices(ts_in):
             for oi in self.regindices_out(ii):
                 S = self._pair_stack(ii, oi, data.device)
+                if S is None:
+                    continue
                 fo = _flat(oi, ts_out)
                 ops_ball.ball_radial_apply(S, x, [(_flat(ii, ts_in), fo)], out,
                                            accumulate=fo in written)
@@ -289,6 +327,153 @@ class BallConvert(BallRegOperator):
         return self.radial_in.conversion_matrix_ell(ell, it.regtotal(in_idx), self.dk)
 
 
+class SphericalTransposeComponents(BallRegOperator):
+    """Transpose of the two leading ranks of a spherical tensor. In spin
+    space a plain index swap; in regularity space the swap conjugated per
+    ell: reg_out = Q(ell)^T P_swap Q(ell) reg_in."""
+
+    dk = 0
+    name = 'TransposeComponents'
+
+    def __init__(self, operand, indices=(0, 1)):
+        if tuple(indices) != (0, 1):
+            raise NotImplementedError("Only leading-pair transposition supported")
+        if len(operand.tensorsig) < 2:
+            raise ValueError("Transpose requires rank >= 2")
+        super().__init__(operand, operand.tensorsig[0])
+
+    def regindices_out(self, in_idx):
+        return tuple(np.ndindex(*(3,) * len(in_idx)))
+
+    def new_operands(self, operand):
+        return SphericalTransposeComponents(operand)
+
+    @staticmethod
+    def _mix_matrix(ell, rank):
+        """Q(ell)^T P_swap Q(ell) over the 3^rank components."""
+        C = 3**rank
+        P = np.zeros((C, C))
+        idxs = list(np.ndindex(*(3,) * rank))
+        for i, idx in enumerate(idxs):
+            sw = (idx[1], idx[0]) + idx[2:]
+            P[i, idxs.index(sw)] = 1.0
+        Q = it.Q_matrix(ell, rank)   # spin = Q reg
+        return Q.T @ P @ Q
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        rank = len(self.operand.tensorsig)
+        idxs = list(np.ndindex(*(3,) * rank))
+        c = self._mix_matrix(ell, rank)[idxs.index(tuple(out_idx)), idxs.index(tuple(in_idx))]
+        if abs(c) < 1e-15:
+            return None
+        return c * sparse.identity(self.radial_in.size, format='csr')
+
+
+class SphericalTrace(BallRegOperator):
+    """Trace over the two leading ranks of a spherical tensor: in spin space
+    T_{-+} + T_{+-} + T_{00}; in regularity space that row conjugated by
+    Q(ell)."""
+
+    dk = 0
+    name = 'Trace'
+
+    def __init__(self, operand):
+        if len(operand.tensorsig) < 2:
+            raise ValueError("Trace requires a rank-2+ tensor")
+        super().__init__(operand, operand.tensorsig[0])
+
+    def out_tensorsig(self, in_sig):
+        return in_sig[2:]
+
+    def regindices_out(self, in_idx):
+        return (tuple(in_idx[2:]),)
+
+    def new_operands(self, operand):
+        return SphericalTrace(operand)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        t = np.zeros(9)
+        idx2 = list(np.ndindex(3, 3))
+        for pair in ((0, 1), (1, 0), (2, 2)):
+            t[idx2.index(pair)] = 1.0
+        row = t @ it.Q_matrix(ell, 2)   # acts on the two leading regularity ranks
+        c = row[idx2.index(tuple(in_idx[:2]))]
+        if abs(c) < 1e-15 or tuple(in_idx[2:]) != tuple(out_idx):
+            return None
+        return c * sparse.identity(self.radial_in.size, format='csr')
+
+
+class SphericalComponent(LinearOperator):
+    """
+    Radial or angular components of a spin-component spherical operand (a
+    surface field, such as an interpolation's output). Spin ordering
+    (-, +, 0): radial = component 2; angular = components (0, 1) as a
+    tensor rank over the system's S2 view (`s2_out`).
+    """
+
+    name = 'Comp'
+
+    def __init__(self, operand, index=0, comps=(2,), s2_out=False):
+        if index < 0:
+            index += len(operand.tensorsig)
+        cs = operand.tensorsig[index]
+        if not isinstance(cs, SphericalCoordinates):
+            raise NotImplementedError("SphericalComponent needs a spherical tensor rank")
+        self.index = index
+        self.comps = tuple(comps)
+        self.s2_out = s2_out
+        self.coordsys = cs
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        ts = list(op.tensorsig)
+        if self.s2_out:
+            ts[self.index] = self.coordsys.S2coordsys
+        else:
+            ts.pop(self.index)
+        self.tensorsig = tuple(ts)
+        self.dtype = op.dtype
+        self.domain = op.domain
+
+    def new_operands(self, operand):
+        return SphericalComponent(operand, self.index, self.comps, self.s2_out)
+
+    def matrix_dependence(self, *vars):
+        return self.operand.matrix_dependence(*vars)
+
+    def matrix_coupling(self, *vars):
+        return self.operand.matrix_coupling(*vars)
+
+    def subproblem_matrix(self, subproblem):
+        in_dims = [cs.dim for cs in self.operand.tensorsig]
+        in_idxs = list(np.ndindex(*in_dims)) if in_dims else [()]
+        rows = [i for i, idx in enumerate(in_idxs) if idx[self.index] in self.comps]
+
+        def out_key(i):   # the output component enumeration
+            idx = list(in_idxs[i])
+            if self.s2_out:
+                idx[self.index] = self.comps.index(idx[self.index])
+            else:
+                idx.pop(self.index)
+            return tuple(idx)
+        rows.sort(key=out_key)
+        S = sparse.lil_matrix((len(rows), len(in_idxs)))
+        for r, i in enumerate(rows):
+            S[r, i] = 1.0
+        spatial = subproblem.spatial_size(self.operand.domain)
+        return sparse.kron(sparse.csr_matrix(S), sparse.identity(spatial), format='csr')
+
+    def operate(self, arg_fields):
+        field = arg_fields[0]
+        data = field.data
+        sel = torch.as_tensor(self.comps, device=data.device)
+        out = torch.index_select(data, self.index, sel)
+        if not self.s2_out:
+            out = out.squeeze(self.index)
+        return self._build_output(field.layout, out, scales=field.scales)
+
+
 def _apply_m_stack(stack, d):
     """KE on per-m dense blocks: stack (K, O, I) applied to d (K, NP, I)."""
     K, NP, I = d.shape
@@ -346,52 +531,29 @@ class BallLift(LinearOperator):
         out[self.radius_axis] = True
         return out
 
-    def _tensor_block_m(self, m):
-        """Component-major lift block: rows (regularity component a, L, n),
-        columns (spin component sigma, L)."""
+    def _lift_matrix(self, m, az_w):
+        """Component-major lift at azimuthal mode m: rows (regularity
+        component a, azimuth slot, L, n), columns (spin component sigma,
+        azimuth slot, L). Slot j's value of spin component sigma goes, times
+        Q(ell)[sigma, a], into radial mode `index` of component a at
+        ell = |m| + j."""
         rb = self.ball.radial_basis
         L = self.ball.colatitude_basis.size
         n = rb.size
         rank = len(self.tensorsig)
-        if rank == 0:
-            return rb.lift_block_m(m, self.index)
         C = 3**rank
-        rows = []
-        for a_flat, a_idx in enumerate(np.ndindex(*(3,) * rank)):
-            row = []
-            for s_flat in range(C):
-                blk = sparse.lil_matrix((L * n, L))
-                for j in range(max(L - abs(m), 0)):
-                    ell = abs(m) + j
-                    if not it.regularity_allowed(ell, a_idx):
-                        continue
-                    q = it.Q_matrix(ell, rank)[s_flat, a_flat]
-                    if abs(q) < 1e-14:
-                        continue
-                    ns = rb.n_size(ell)
-                    if ns <= 0:
-                        continue
-                    blk[j * n + (ns + self.index if self.index < 0 else self.index), j] = q
-                row.append(sparse.csr_matrix(blk))
-            rows.append(row)
-        return sparse.bmat(rows, format='csr')
+        ns = np.array([rb.n_size(abs(m) + j) for j in range(L)], dtype=int)
+        coef = _spin_reg_slots(abs(m), L, rank) * (ns > 0)
+        sg, a, j = np.nonzero(coef)
+        row = j * n + (ns[j] + self.index if self.index < 0 else self.index)
+        rows = [a * az_w * L * n + p * L * n + row for p in range(az_w)]
+        cols = [sg * az_w * L + p * L + j for p in range(az_w)]
+        return _coo_csr(rows, cols, [coef[sg, a, j]] * az_w, (C * az_w * L * n, C * az_w * L))
 
     def subproblem_matrix(self, subproblem):
         m = subproblem.group[self.azimuth_axis]
         az_w = subproblem.axis_width(self.ball.azimuth_basis, self.azimuth_axis)
-        rank = len(self.tensorsig)
-        A = self._tensor_block_m(m if m is not None else 0)
-        if rank == 0:
-            return sparse.csr_matrix(sparse.kron(sparse.identity(az_w), A))
-        C = 3**rank
-        L = self.ball.colatitude_basis.size
-        n = self.ball.radial_basis.size
-        rows = []
-        for a in range(C):
-            rows.append([sparse.kron(sparse.identity(az_w),
-                                     A[a * L * n:(a + 1) * L * n, s * L:(s + 1) * L])
-                         for s in range(C)])
-        return sparse.bmat(rows, format='csr')
+        return self._lift_matrix(m if m is not None else 0, az_w)
 
     def operate(self, arg_fields):
         field = arg_fields[0]
@@ -407,7 +569,7 @@ class BallLift(LinearOperator):
         KM = (self.ball.azimuth_basis.size - 1) // 2
         key = ('BallLift', self.ball.radial_basis._key(), self.index, KM, L, rank)
         stack = device_matrix(key, lambda: np.stack(
-            [self._tensor_block_m(m).toarray() for m in range(KM + 1)]), data.device)
+            [self._lift_matrix(m, 1).toarray() for m in range(KM + 1)]), data.device)
         d = data.reshape((C, K, NP, L)).movedim(0, 2).reshape(K, NP, C * L)
         res = _apply_m_stack(stack, d).reshape(K, NP, C, L, n).movedim(2, 0)
         out = res.reshape(tuple(cs.dim for cs in self.tensorsig) + (M, L, n))
@@ -456,57 +618,38 @@ class BallInterpolate(LinearOperator):
         out[self.radius_axis] = True
         return out
 
-    def _interp_block_m(self, m):
-        """Component-major interpolation block: rows (spin component sigma,
-        L), columns (regularity component a, L, n)."""
+    def _interp_matrix(self, m, az_w):
+        """Component-major interpolation at azimuthal mode m: rows (spin
+        component sigma, azimuth slot, L), columns (regularity component a,
+        azimuth slot, L, n); slot j's radial row at ell = |m| + j, times
+        Q(ell)[sigma, a]."""
         rb = self.radial_in
         L = rb.parent.colatitude_basis.size
         n = rb.size
         rank = len(self.tensorsig)
-        if rank == 0:
-            mat = sparse.lil_matrix((L, L * n))
-            for j in range(max(L - abs(m), 0)):
-                mat[j, j * n:(j + 1) * n] = rb.interpolation_ell(abs(m) + j, 0, self.position)
-            return sparse.csr_matrix(mat)
         C = 3**rank
-        regidx = list(np.ndindex(*(3,) * rank))
-        rows = []
-        for s_flat in range(C):
-            row = []
-            for a_flat, a_idx in enumerate(regidx):
-                blk = sparse.lil_matrix((L, L * n))
-                reg = it.regtotal(a_idx)
-                for j in range(max(L - abs(m), 0)):
-                    ell = abs(m) + j
-                    if not it.regularity_allowed(ell, a_idx):
-                        continue
-                    q = it.Q_matrix(ell, rank)[s_flat, a_flat]
-                    if abs(q) < 1e-14:
-                        continue
-                    blk[j, j * n:(j + 1) * n] = q * rb.interpolation_ell(ell, reg,
-                                                                         self.position)
-                row.append(sparse.csr_matrix(blk))
-            rows.append(row)
-        return sparse.bmat(rows, format='csr')
+        coef = _spin_reg_slots(abs(m), L, rank)
+        regs = [it.regtotal(idx) for idx in np.ndindex(*(3,) * rank)] if rank else [0]
+        sg, a, j = np.nonzero(coef)
+        radial = np.stack([rb.interpolation_ell(abs(m) + jj, regs[aa], self.position)
+                           for aa, jj in zip(a, j)]) if j.size else np.zeros((0, n))
+        v = (coef[sg, a, j][:, None] * radial).ravel()
+        k = np.arange(n)
+        rows = [np.repeat(sg * az_w * L + p * L + j, n) for p in range(az_w)]
+        cols = [((a * az_w * L * n + p * L * n + j * n)[:, None] + k).ravel()
+                for p in range(az_w)]
+        return _coo_csr(rows, cols, [v] * az_w, (C * az_w * L, C * az_w * L * n))
+
+    def _interp_block_m(self, m):
+        """Component-major interpolation block: rows (spin component sigma,
+        L), columns (regularity component a, L, n)."""
+        return self._interp_matrix(m, 1)
 
     def subproblem_matrix(self, subproblem):
         m = subproblem.group[self.azimuth_axis]
-        m = m if m is not None else 0
         az_w = subproblem.axis_width(
             self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
-        rank = len(self.tensorsig)
-        A = self._interp_block_m(m)
-        if rank == 0:
-            return sparse.csr_matrix(sparse.kron(sparse.identity(az_w), A))
-        C = 3**rank
-        L = self.radial_in.parent.colatitude_basis.size
-        n = self.radial_in.size
-        rows = []
-        for s in range(C):
-            rows.append([sparse.kron(sparse.identity(az_w),
-                                     A[s * L:(s + 1) * L, a * L * n:(a + 1) * L * n])
-                         for a in range(C)])
-        return sparse.bmat(rows, format='csr')
+        return self._interp_matrix(m if m is not None else 0, az_w)
 
     def operate(self, arg_fields):
         field = arg_fields[0]
@@ -527,7 +670,7 @@ class BallInterpolate(LinearOperator):
 
 
 class SphericalIntegrate(LinearOperator):
-    """Volume integral over the ball: the (m = 0, ell = 0) radial
+    """Volume integral over the ball or the shell: the (m = 0, ell = 0) radial
     coefficients against r^2 dr, times the angular factor 2 pi sqrt(2)
     (the Y_00 normalization of this basis)."""
 
@@ -542,7 +685,7 @@ class SphericalIntegrate(LinearOperator):
                 cs = b.parent.coordsys
                 self.radial_basis = b
         if cs is None:
-            raise ValueError("SphericalIntegrate requires a ball radial basis")
+            raise ValueError("SphericalIntegrate requires a ball or shell radial basis")
         self.coordsys = cs
         self.azimuth_axis = cs.coords[0].axis
         self.colat_axis = cs.coords[1].axis
@@ -573,6 +716,8 @@ class SphericalIntegrate(LinearOperator):
         """I_n = integral of q_n(r) r^2 dr by quadrature (m = 0, ell = 0)."""
         rb = self.radial_basis
         w = np.asarray(rb.global_weights(1))
+        if isinstance(rb, SphericalShellRadialBasis):
+            return w @ rb.radial_functions(1)   # ell-independent
         return w @ rb._transform_stacks(1, 0, 'b')[0]
 
     def operate(self, arg_fields):
@@ -599,7 +744,7 @@ class SphericalIntegrate(LinearOperator):
 
 
 class BallConstantEmbed(LinearOperator):
-    """Embed a field constant along (colatitude, radius) into a ball basis
+    """Embed a field constant along (colatitude, radius) into a ball or shell basis
     (the tau_p pattern): the ell = 0 colatitude slot gets the radial
     expansion of the constant function."""
 

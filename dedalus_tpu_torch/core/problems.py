@@ -22,6 +22,7 @@ from ..utils.general import unify_attributes
 parseables = {name: getattr(operators, name) for name in operators.__all__}
 parseables.update({name: getattr(arithmetic, name) for name in arithmetic.__all__})
 parseables['np'] = np
+parseables['cross'] = arithmetic.CrossProduct
 parseables['dot'] = arithmetic.DotProduct
 parseables['MulCosine'] = operators_sphere.MulCosine
 parseables['SpinSkew'] = operators_sphere.SpinSkew

@@ -507,7 +507,12 @@ class PencilSystem:
             inv_cols = np.nonzero(~self.col_valid[g])[0]
             self.pivot_pairs.append((inv_rows, inv_cols))
         self.separable = None
-        if G >= config.getint('matrix assembly', 'sampled_min_groups'):
+        # Ball and shell pencils depend on m through ell = |m| + j (square
+        # roots of ell in every angular factor): never polynomial in m
+        from .basis_ball import SphericalRadialBasis
+        spherical = any(isinstance(b, SphericalRadialBasis)
+                        for v in self.variables for b in v.domain.bases)
+        if G >= config.getint('matrix assembly', 'sampled_min_groups') and not spherical:
             self.separable = self._try_sampled_assembly(names)
         if self.separable is not None:
             self.matrices_scipy = {name: self.separable[name] for name in names}

@@ -50,6 +50,9 @@ SIGNATURES = {
     'ball_kernels': {
         'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],
     },
+    'shell_kernels': {
+        'kj_shell_radial_f64': [_P] * 5 + [_I] * 3 + [_P],
+    },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 6 + [_I] * 2 + [_P],
         'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],

@@ -1,6 +1,6 @@
 """
-KG: the grid-space tensor product, a Triton kernel (its wrapper and plain
-twin are in ops/products.py).
+KG: the grid-space tensor product and its cross form, Triton kernels (their
+wrappers and plain twins are in ops/products.py).
 
 Replaces the broadcast-multiply(-and-sum) of the JAX package's product
 nodes, which XLA fuses inside the compiled right-hand side:
@@ -24,6 +24,12 @@ sum does. An operand that is constant along a grid axis (size 1 there) is
 read through a zero stride and never materialised; operands need not be
 contiguous.
 
+The cross form, out[i] = alpha * (a[j] * b[k] - a[k] * b[j]) over the
+cyclic (i, j, k) of three components (alpha = -1 on a left-handed frame),
+replaces the jnp.cross of CrossProduct.operate (:1069-1112): the same
+streaming pass, each point's six inputs loaded once and three outputs
+written.
+
 One compiled kernel per (A, B, C) serves every layout: the grid sizes, the
 ten strides and alpha travel as data, in one small int64 tensor on the
 data's device that is built once for each distinct (sizes, strides, alpha)
@@ -40,6 +46,7 @@ import torch
 
 BLOCK = 512
 _kernel = None
+_cross_kernel = None
 _descriptors = {}
 
 
@@ -85,6 +92,46 @@ def _build_kernel():
     return kernel
 
 
+def _build_cross_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def kernel(a, b, out, desc, n_pos, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n_pos
+        # desc as KG's: a's component stride in its A slot, b's in its B slot
+        n1 = tl.load(desc)
+        n2 = tl.load(desc + 1)
+        a_sc = tl.load(desc + 2)
+        a_s0 = tl.load(desc + 4)
+        a_s1 = tl.load(desc + 5)
+        a_s2 = tl.load(desc + 6)
+        b_sc = tl.load(desc + 8)
+        b_s0 = tl.load(desc + 9)
+        b_s1 = tl.load(desc + 10)
+        b_s2 = tl.load(desc + 11)
+        scale = tl.load(desc + 12).to(tl.float64, bitcast=True)
+        i2 = offs % n2
+        t = offs // n2
+        i1 = t % n1
+        i0 = t // n1
+        pa = a + i0 * a_s0 + i1 * a_s1 + i2 * a_s2
+        pb = b + i0 * b_s0 + i1 * b_s1 + i2 * b_s2
+        a0 = tl.load(pa, mask=mask)
+        a1 = tl.load(pa + a_sc, mask=mask)
+        a2 = tl.load(pa + 2 * a_sc, mask=mask)
+        b0 = tl.load(pb, mask=mask)
+        b1 = tl.load(pb + b_sc, mask=mask)
+        b2 = tl.load(pb + 2 * b_sc, mask=mask)
+        tl.store(out + offs, scale * (a1 * b2 - a2 * b1), mask=mask)
+        tl.store(out + n_pos + offs, scale * (a2 * b0 - a0 * b2), mask=mask)
+        tl.store(out + 2 * n_pos + offs, scale * (a0 * b1 - a1 * b0), mask=mask)
+
+    return kernel
+
+
 def _descriptor(a3, b3, alpha, grid):
     """The cached int64 device tensor of a launch's sizes, strides and
     alpha; the stride of a size-1 axis is 0."""
@@ -111,3 +158,17 @@ def launch(a3, b3, out, alpha, grid):
     _kernel[(-(-n_pos // BLOCK),)](
         a3, b3, out, _descriptor(a3, b3, float(alpha), grid), n_pos,
         A=a3.shape[0], B=b3.shape[1], C=a3.shape[1], BLOCK=BLOCK, num_warps=4)
+
+
+def launch_cross(a3, b3, out, alpha, grid):
+    """Launch KG's cross form on a3 (3, 1, *grid_a) and b3 (1, 3, *grid_b),
+    float64 CUDA tensors of any strides whose grid axes have the output's
+    size or 1, into the contiguous out (3, *grid); alpha is a Python float
+    (the frame's sign). `grid` is the output grid shape padded to three
+    axes."""
+    global _cross_kernel
+    if _cross_kernel is None:
+        _cross_kernel = _build_cross_kernel()
+    n_pos = grid[0] * grid[1] * grid[2]
+    _cross_kernel[(-(-n_pos // BLOCK),)](
+        a3, b3, out, _descriptor(a3, b3, float(alpha), grid), n_pos, BLOCK=BLOCK, num_warps=4)

@@ -1,11 +1,13 @@
 """
-KI: the regularity recombination of ball tensors, a Triton kernel with its
-plain twin.
+KI: the regularity recombination of ball and shell tensors, a Triton kernel
+with its plain twin.
 
 Replaces dedalus_tpu/core/basis_ball.py:77-95 _regularity_recombine, the
 einsums at :92 (forward: regularity = Q^T spin) and :94 (backward: spin =
-Q regularity): for every (m, ell) the C = 3^rank tensor components of a
-ball field mix through the intertwiner Q(ell) (spectral/intertwiner.py),
+Q regularity), which the ball's and the shell's tensor transforms call
+(the shell's at :614-631): for every (m, ell) the C = 3^rank tensor
+components of a spherical field mix through the intertwiner Q(ell)
+(spectral/intertwiner.py),
 
     forward:  out[a, k, p, l, n] = sum_b Q[k, l, b, a] x[b, k, p, l, n]
     backward: out[a, k, p, l, n] = sum_b Q[k, l, a, b] x[b, k, p, l, n]

@@ -1,12 +1,13 @@
 """
-KH: the per-(m, ell) radial stack apply of the ball.
+KH: the per-(m, ell) radial stack apply of the ball and the shell.
 
-Replaces the batched einsums of dedalus_tpu (K13 of the ROADMAP, ball part):
-BallRadialBasis._apply_stack (core/basis_ball.py:206-222, the einsum at
-:221), the radial transforms of scalars and of each regularity component of
-a tensor, and BallRegOperator.operate (core/operators_ball.py:199-231, the
-einsums at :216 and :224), the radial matrices of grad, div, lap and convert
-summed over the regularity component pairs:
+Replaces the batched einsums of dedalus_tpu (K13 of the ROADMAP, ball and
+shell parts): BallRadialBasis._apply_stack (core/basis_ball.py:206-222, the
+einsum at :221), the ball's radial transforms of scalars and of each
+regularity component of a tensor, and BallRegOperator.operate
+(core/operators_ball.py:199-231, the einsums at :216 and :224), the radial
+matrices of grad, div, lap, convert, transpose and trace on the ball and
+the shell, summed over the regularity component pairs:
 
     out[c_out, k, p, l, o] (+)= sum_n S[k + l, o, n] * x[c_in, k, p, l, n]
 
@@ -14,7 +15,9 @@ for the wavenumbers k of a RealFourier azimuth, their (cos, -sin) pair
 slots p (one slot for a field constant along the angles), the colatitude
 slots l (ell = k + l) and the component pairs (c_in, c_out) that share the
 stack S. The radial matrices depend on ell alone, so S holds one per ell,
-(E, O, N); slots with ell >= E hold nothing (their output is zero).
+(E, O, N); slots with ell >= E hold nothing (their output is zero). On the
+shell there is no triangular truncation: O and N are the radial size (or
+its k-shifted size) at every ell.
 
 CPU tensors run the plain twin; CUDA tensors launch csrc/ball_kernels.cu
 kh_ball_radial_apply_f64. The apply is bound by reading the data (a

@@ -3,11 +3,14 @@ Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
 The ported subset of dedalus_tpu/public.py: Cartesian, polar, S2 and
 spherical coordinates, the RealFourier and Jacobi bases on the
-matrix-transform path, the annulus, disk, sphere and ball bases (real
-dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP, the
-polar operators of the annulus and disk examples, the sphere operators of
-the shallow-water example, the ball operators of the ball convection model
-(with numpy ufuncs on operands and the Cartesian advective CFL frequency),
+matrix-transform path, the annulus, disk, sphere, ball and shell bases
+(real dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP,
+the polar operators of the annulus and disk examples, the sphere operators
+of the shallow-water example, the ball operators of the ball convection
+model, the shell operators and products of the shell convection example
+(transpose, radial and angular components, cross products, spherically
+symmetric NCCs), with numpy ufuncs on operands and the Cartesian advective
+CFL frequency,
 IVPs and LBVPs, the InitialValueSolver with SBDF2 (banded or dense
 matsolvers) and the Runge-Kutta schemes (dense matsolvers), the
 LinearBoundaryValueSolver (dense matsolvers), the dictionary handlers of
@@ -21,18 +24,20 @@ from .core.distributor import Distributor
 from .core.basis import Jacobi, ChebyshevT, RealFourier
 from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.basis_sphere import SphereBasis
-from .core.basis_ball import BallBasis
+from .core.basis_ball import BallBasis, ShellBasis
 from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
     Differentiate, Gradient, Divergence, Laplacian, Trace, Skew, Interpolate,
     Integrate, Average, Lift, TimeDerivative, Component, Power, UnaryGridFunction,
-    AdvectiveCFL, AzimuthalComponent, grad, div, lap, trace, skew, azimuthal, integ, ave,
-    interp, dt, lift, convert as Convert,
+    AdvectiveCFL, AzimuthalComponent, TransposeComponents, RadialComponent,
+    AngularComponent, grad, div, lap, trace, transpose, radial, angular, skew, azimuthal,
+    integ, ave, interp, dt, lift, convert as Convert,
 )
 from .core.operators_sphere import MulCosine
-from .core.arithmetic import Add, Multiply, DotProduct
+from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct
 from .core.arithmetic import DotProduct as dot
+from .core.arithmetic import CrossProduct as cross
 from .core.problems import IVP, InitialValueProblem, LBVP, LinearBoundaryValueProblem
 from .core.timesteppers import SBDF2, RK111, RK222, RK443, RKSMR, RKGFY
 from .core.solvers import InitialValueSolver, LinearBoundaryValueSolver

@@ -10,17 +10,19 @@ import numpy as np
 import torch
 
 
-def set_state_from_reference(solver, arrays, fields=None):
-    """Set the port's state fields from coefficient arrays keyed by field
-    name (numpy, as dedalus_tpu's Field data in coefficient layout; polar
-    and sphere fields in their rectangular (m, slot) storage, ball fields in
-    their (m, ell slot, n) storage with regularity components, and the
-    spin components of fields on a ball's surface). `solver` is
-    an IVP or LBVP solver; `fields` names other fields to set instead of
-    its variables (the right-hand-side fields of an LBVP)."""
+def set_state_from_reference(solver, arrays, fields=None, layout='c'):
+    """Set the port's state fields from arrays keyed by field name (numpy,
+    as dedalus_tpu's Field data at scale 1; in coefficient layout polar and
+    sphere fields in their rectangular (m, slot) storage, ball and shell
+    fields in their (m, ell slot, n) storage with regularity components,
+    and the spin components of fields on a ball's or shell's surface).
+    `solver` is an IVP or LBVP solver; `fields` names other fields to set
+    instead of its variables (the right-hand-side fields of an LBVP, the
+    NCC fields of a problem such as the shell's er, ez and rvec); `layout`
+    is 'c' for coefficient data or 'g' for grid data."""
     for field in (solver.state if fields is None else fields):
         field.change_scales(1)
-        field['c'] = np.asarray(arrays[field.name])
+        field[layout] = np.asarray(arrays[field.name])
 
 
 def banded_arrays_from_reference(fac_np, device='cpu'):

@@ -88,6 +88,19 @@ def test_ball_path_import_has_no_jax():
          'assert d3.SphericalCoordinates and d3.BallBasis')
 
 
+def test_shell_path_import_has_no_jax_and_no_card():
+    _run('import torch\n'
+         'import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.shell\n'
+         'import dedalus_tpu_torch.ops.shell\n'
+         'import dedalus_tpu_torch.csrc.grid_product\n'
+         'import dedalus_tpu_torch.spectral.shell\n'
+         'assert d3.ShellBasis and d3.cross and d3.CrossProduct and d3.transpose\n'
+         'assert d3.radial and d3.angular and d3.RadialComponent and d3.AngularComponent\n'
+         'assert d3.TransposeComponents\n'
+         'assert not torch.cuda.is_initialized()')
+
+
 def test_banded_cold_start_import_has_no_jax():
     _run('import dedalus_tpu_torch.public as d3\n'
          'import dedalus_tpu_torch.models.rbc\n'
