@@ -2,7 +2,7 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives eight main paths through the
+CPU-held port at the small sizes, and drives nine main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver named (kernels
@@ -37,7 +37,17 @@ public entry points:
     (KJ for the weighted radial transforms, KI, KH for grad, KE's trailing
     form, KF, KG and its cross form for the Coriolis term, KA, KB, K7, K3),
     its setup by phase, 3 warm-up and 50 timed steps of the example's
-    run_steps with its GlobalFlowProperty.
+    run_steps with its GlobalFlowProperty;
+  * the ball's internally heated convection example
+    (examples/ivp_ball_internally_heated_convection.py,
+    dedalus_tpu_torch.models.ball.build_ball_ihc_problem) at 64x32x32, SBDF2
+    at the example's dt=2e-3 on the default dense matsolver over 1024
+    per-(m, ell) pencils (KH's pair-rotation form for curl(u), KG's cross
+    form for cross(curl(u), u), KH, KI, KE's trailing form, KF, KG, KA, KB,
+    K7, K3), its setup by phase with the ball NCC blocks of r_vec*T apart,
+    3 warm-up and 50 timed steps of the example's run_steps with its
+    GlobalFlowProperty; before it, the example as written at 32x16x24
+    (200 steps and its two checks) and card vs CPU at 16x8x12.
 
 Every path's grid-space products run through kernel KG, which is checked at
 each path's dealias grid.
@@ -46,8 +56,8 @@ each path's dealias grid.
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
 banded_path, cold_start_path, example_path, annulus_path, disk_path,
-ball_path, shell_path, and the card-vs-CPU checks such as
-shell_card_vs_cpu; the
+ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
+checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
 and `c.LAUNCHES` hold its kernel checks and launch counts.
 
@@ -106,13 +116,18 @@ BALL = dict(size=(64, 32, 32), dt=1e-4, warmup=3, steps=50, example=(8, 4, 10),
 # The shell: the size the example's docstring names, and the example's own
 # size for card vs CPU, both at the example's dt
 SHELL = dict(size=(192, 96, 12), dt=2e-3, warmup=3, steps=50, example=(16, 8, 8))
+# The ball's internally heated convection example: timed at the JAX bench's
+# ball size, run as written at its own size and steps, card vs CPU at
+# 16x8x12; all at the example's dt
+BALL_IHC = dict(size=(64, 32, 32), dt=2e-3, warmup=3, steps=50, example=(32, 16, 24),
+                example_steps=200, small=(16, 8, 12))
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
            cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
            grid_product=1e-15, block_tridiag_qr_factor=1e-11, multi_rhs_solve=1e-11,
            banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
            ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
-           shell_radial_transform=1e-13, grid_cross=1e-15)
+           shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -159,6 +174,8 @@ KERNELS = dict(   # name: (route, source, replaces)
                             'dedalus_tpu/core/basis_ball.py:597'),
     grid_cross=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
                 'dedalus_tpu/core/arithmetic.py:1106'),
+    ball_radial_apply_rot=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
+                           'dedalus_tpu/core/operators_ball.py:214'),
 )
 # Kernels each main path must launch
 PATH_KERNELS = dict(
@@ -183,6 +200,9 @@ PATH_KERNELS = dict(
     shell=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
            'regularity_recombine', 'trailing_apply', 'spin_recombine', 'pencil_gather_scatter',
            'grid_product', 'shell_radial_transform', 'grid_cross'),
+    ball_ihc=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
+              'ball_radial_apply_rot', 'regularity_recombine', 'trailing_apply',
+              'spin_recombine', 'pencil_gather_scatter', 'grid_product', 'grid_cross'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
@@ -373,7 +393,8 @@ def kernel_functions():
                 regularity_recombine=[ki.regularity_recombine],
                 trailing_apply=[opolar.trailing_apply],
                 shell_radial_transform=[oshell.shell_radial_transform],
-                grid_cross=[oprod.grid_cross])
+                grid_cross=[oprod.grid_cross],
+                ball_radial_apply_rot=[oball.ball_radial_apply_rot])
 
 
 def count_launches(path, steps, run):
@@ -460,6 +481,17 @@ def f_profile(solver, state, t, reps=10):
         return (nbytes(S) + len(pairs) * (per_in + per_out + extra),
                 2 * S.shape[2] * x.shape[-1] * cols)
 
+    def kh_rot_cost(a, kw, out):
+        terms, x, o = a[0], a[1], a[2]
+        per_in, per_out = nbytes(x) // x.shape[0], nbytes(o) // o.shape[0]
+        outs = {co for _, _, co in terms}
+        extra = len(outs) * per_out if kw.get('accumulate') else 0
+        ins = {ci for _, ci, _ in terms}
+        S = terms[0][0]
+        cols = x[0].numel() // x.shape[-1] * len(terms)
+        return (len(terms) * nbytes(S) + len(ins) * per_in + len(outs) * per_out + extra,
+                2 * S.shape[1] * x.shape[-1] * cols)
+
     def ki_cost(a, kw, out):
         return nbytes(a[0], a[1], out), 2 * a[0].shape[0] * a[0].numel()
 
@@ -487,6 +519,7 @@ def f_profile(solver, state, t, reps=10):
                  ('KE polar_apply', opolar, 'polar_apply', ke_cost),
                  ('KF spin_recombine', kf, 'spin_recombine', kf_cost),
                  ('KH ball_radial_apply', oball, 'ball_radial_apply', kh_cost),
+                 ('KH rot ball_radial_apply_rot', oball, 'ball_radial_apply_rot', kh_rot_cost),
                  ('KI regularity_recombine', ki, 'regularity_recombine', ki_cost),
                  ('KE trailing_apply', opolar, 'trailing_apply', kt_cost),
                  ('KG grid_product', arith, 'grid_product', kg_cost),
@@ -2546,6 +2579,285 @@ def shell_path(steps=SHELL['steps']):
     print(json.dumps({"shell_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
+BALL_IHC_KG_CASES = (
+    ('u@grad(T)', (3,), (3,), True, 'cxyz,cxyz->xyz'),
+    ('u@u', (3,), (3,), True, 'cxyz,cxyz->xyz'),
+)
+
+
+def build_ball_ihc(size, device):
+    """The ball's internally heated convection example
+    (dedalus_tpu_torch.models.ball.build_ball_ihc_problem) with its initial
+    condition and GlobalFlowProperty: (solver, ctx, flow)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import ball as mb
+    problem, ctx = mb.build_ball_ihc_problem(*size, device=device)
+    solver = problem.build_solver(d3.SBDF2)
+    mb.set_ihc_ic(ctx)
+    flow = mb.add_ihc_flow_property(solver, ctx)
+    if solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"ball_ihc: default matsolver is {solver.matsolver}")
+    return solver, ctx, flow
+
+
+def ball_ihc_card_vs_cpu(steps=20):
+    """The example at 16x8x12, `steps` SBDF2 steps at its dt=2e-3: the card
+    against the CPU-held port, each field relative to its own max (the
+    gauge tau_p absolutely below 1e-20); radial(u(r=1)), div(u) and the
+    shear stress on the card."""
+    from dedalus_tpu_torch.models import ball as mb
+    size = BALL_IHC['small']
+    phase(f"ball_ihc {size[0]}x{size[1]}x{size[2]} SBDF2 default matsolver, {steps} steps: "
+          f"cuda vs cpu")
+    runs = {}
+    for d in (DEVICE, 'cpu'):
+        solver, ctx, _ = build_ball_ihc(size, d)
+        solver.run_steps(BALL_IHC['dt'], steps)
+        runs[d] = (solver, ctx)
+    errs = {}
+    for fg, fc in zip(runs[DEVICE][0].state, runs['cpu'][0].state):
+        a, b = fg['c'].cpu(), fc['c']
+        errs[fc.name] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-20)
+    resid = mb.ihc_residuals(runs[DEVICE][1])
+    print(f"ball_ihc cuda vs cpu rel_err {errs} (tol 1e-10); on the card max|radial(u(r=1))| "
+          f"{resid[0]:.3e}, max|div u| {resid[1]:.3e}, max|shear stress| {resid[2]:.3e} "
+          f"(tol 1e-12)")
+    finite = all(torch.isfinite(f['c']).all() for f in runs[DEVICE][0].state)
+    if not (max(errs.values()) <= 1e-10 and finite):
+        raise AssertionError(f"ball_ihc: card and CPU disagree: {errs}")
+    if not max(resid) <= 1e-12:
+        raise AssertionError(f"ball_ihc: residuals {resid} > 1e-12")
+
+
+def ball_ihc_example():
+    """The example as written: 32x16x24, 200 SBDF2 steps at dt=2e-3 through
+    run_steps with its GlobalFlowProperty, then its two checks,
+    max|radial(u(r=1))| and max|div(u)| < 1e-12 (and finite fields)."""
+    from dedalus_tpu_torch.models import ball as mb
+    size, n = BALL_IHC['example'], BALL_IHC['example_steps']
+    phase(f"ball_ihc example as written: {size[0]}x{size[1]}x{size[2]}, {n} SBDF2 steps at "
+          f"dt={BALL_IHC['dt']:g}")
+    solver, ctx, flow = build_ball_ihc(size, DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run_steps(BALL_IHC['dt'], n)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    finite = all(torch.isfinite(f['c']).all() for f in (ctx['u'], ctx['T'], ctx['p']))
+    wall, div, shear = mb.ihc_residuals(ctx)
+    print(f"ball_ihc example: iteration {solver.iteration}, {run_s / n * 1e3:.3f} ms/step; "
+          f"max|radial u(r=1)| = {wall:.3e}; max|div(u)| = {div:.3e}; shear stress "
+          f"{shear:.3e}; u2 (max of u@u at iteration {solver.iteration}) = {flow.max('u2'):.6e}")
+    if not (finite and wall < 1e-12 and div < 1e-12):
+        raise AssertionError(f"ball_ihc example: finite {finite}, wall {wall:.3e}, "
+                             f"div {div:.3e}")
+
+
+def check_ball_ihc_kernels(solver, ctx):
+    """KH's pair-rotation form and KG's cross form against their plain
+    twins at the example's shapes: the rotation form on curl(u)'s four
+    imaginary per-ell stacks in one launch (pair slots NP = 2 and, on the
+    same stacks, NP = 1), storing and accumulating, with seeded random data
+    of u's coefficient shape; KG cross on (curl(u), u) of the current state
+    on the dealias grid, the left-handed sign."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.ops import ball as oball, products as oprod
+    from dedalus_tpu_torch.core.operators_ball import _comp_indices, _flat
+    u, ball = ctx['u'], ctx['ball']
+    dev = u.data.device
+    M, L, N = u['c'].shape[1:]
+    K = M // 2
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+
+    op = d3.curl(u)
+    terms = []
+    for ii in _comp_indices(u.tensorsig):
+        for oi in op.regindices_out(ii):
+            S = op._pair_stack(ii, oi, dev, 'im')
+            if S is not None:
+                terms.append((S, _flat(ii, u.tensorsig), _flat(oi, op.tensorsig)))
+            if op._pair_stack(ii, oi, dev, 're') is not None:
+                raise AssertionError("the curl's real stacks are not all zero")
+    terms.sort(key=lambda t: t[2])
+    if len(terms) != 4:
+        raise AssertionError(f"curl: {len(terms)} imaginary stacks, not 4")
+    E, O = terms[0][0].shape[:2]
+    errs = []
+    for NP in (1, 2):   # the timed calls below take the curl's shapes, NP = 2
+        x = rand((3, K, NP, L, N))
+        outk = torch.empty((3, K, NP, L, O), dtype=torch.float64, device=dev)
+        oball.ball_radial_apply_rot(terms, x, outk)
+        outp = oball.ball_radial_apply_rot_plain(terms, x, torch.empty_like(outk))
+        base = rand(outk.shape)
+        ak = oball.ball_radial_apply_rot(terms, x, base.clone(), accumulate=True)
+        ap = oball.ball_radial_apply_rot_plain(terms, x, base.clone(), accumulate=True)
+        torch.cuda.synchronize()
+        errs += [rel_err(outk, outp), rel_err(ak, ap)]
+        if NP == 1 and not (outk.abs().max() == 0 and torch.equal(ak, base)):
+            raise AssertionError("KH rotation form at NP = 1: not zero")
+    scratch = torch.empty_like(outk)
+    views = [(oball.per_slot_view(S, K, L), ci, co) for S, ci, co in terms]
+
+    def library():
+        rot = torch.stack([-x[:, :, 1], x[:, :, 0]], 2)
+        res = {}
+        for Sv, ci, co in views:
+            r = torch.einsum('klon,kpln->kplo', Sv, rot[ci])
+            res[co] = r if co not in res else res[co] + r
+        return res
+
+    # What the function needs: each stack once, the three input components'
+    # and the three outputs' slots (inputs only where k + l < E)
+    live = sum(max(min(L, E - k), 0) for k in range(K))
+    record('ball_radial_apply_rot', 'ball_ihc', dict(
+        err=max(errs), shape=[4] + list(terms[0][0].shape),
+        what="curl(u)'s 4 imaginary per-ell stacks, pair-rotated, one launch",
+        ms=cuda_ms(lambda: oball.ball_radial_apply_rot(terms, x, scratch), 50),
+        plain_ms=cuda_ms(lambda: oball.ball_radial_apply_rot_plain(terms, x, scratch), 50),
+        library_ms=cuda_ms(library, 50),
+        ms_accumulate=cuda_ms(lambda: oball.ball_radial_apply_rot(terms, x, scratch,
+                                                                  accumulate=True), 50),
+        device_ms=device_ms(lambda: oball.ball_radial_apply_rot(terms, x, scratch)),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(4 * nbytes(terms[0][0]) + 3 * 2 * live * N * 8 + nbytes(scratch),
+                         2 * O * N * 2 * live * 4)))),
+        True, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'ms_accumulate',
+                    'device_ms'))
+
+    # KG cross: curl(u) x u of the current state on the dealias grid
+    w = op.evaluate()
+    wg = w['g', ball.dealias].contiguous()
+    ug = u['g', ball.dealias].contiguous()
+    ck, cp = oprod.grid_cross(wg, ug, -1.0), oprod.grid_cross_plain(wg, ug, -1.0)
+    ra, rb_ = rand(tuple(wg.shape)), rand(tuple(ug.shape))
+    rk, rp = oprod.grid_cross(ra, rb_, -1.0), oprod.grid_cross_plain(ra, rb_, -1.0)
+    torch.cuda.synchronize()
+    if not float(wg.abs().max()) > 0:
+        raise AssertionError("curl(u) is zero on the ball_ihc path")
+    record('grid_cross', 'ball_ihc', dict(
+        err=max(rel_err(ck, cp), rel_err(rk, rp)), shape=list(ck.shape),
+        what='-(curl(u) x u) on the dealias grid',
+        ms=cuda_ms(lambda: oprod.grid_cross(wg, ug, -1.0), 50),
+        plain_ms=cuda_ms(lambda: oprod.grid_cross_plain(wg, ug, -1.0), 50),
+        library_ms=cuda_ms(lambda: -torch.linalg.cross(wg, ug, dim=0), 50),
+        device_ms=device_ms(lambda: oprod.grid_cross(wg, ug, -1.0)),
+        plain_device_ms=device_ms(lambda: oprod.grid_cross_plain(wg, ug, -1.0)),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(wg, ug, ck), 4 * ck.numel())))),
+        False, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'device_ms',
+                     'plain_device_ms'))
+
+
+def ball_ihc_path(steps=BALL_IHC['steps']):
+    """The example at 64x32x32 (G=1024 per-(m, ell) pencils of P=329)
+    through the public API, as the example runs it: build_ball_ihc_problem,
+    SBDF2 on the default matsolver, its initial condition and
+    GlobalFlowProperty of u@u every 50 iterations, run_steps at dt=2e-3:
+    setup by phase (the ball NCC blocks of r_vec*T timed apart), 3 warm-up
+    steps, KH's rotation form, KG cross, K3 and KG against their twins,
+    `steps` timed steps, the residuals, and a per-segment breakdown."""
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.models import ball as mb
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar, ball as oball
+    from dedalus_tpu_torch.ops import banded as ob
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
+    from dedalus_tpu_torch.core import arithmetic as arith
+
+    dev, kind, smi = card()
+    Nphi, Ntheta, Nr = BALL_IHC['size']
+    dt = BALL_IHC['dt']
+    phase(f"ball_ihc path setup: {Nphi}x{Ntheta}x{Nr} Ra=1e4 SBDF2 dt={dt:g} default "
+          f"matsolver on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    problem, ctx = mb.build_ball_ihc_problem(Nphi, Ntheta, Nr)
+    t1 = time.perf_counter()
+    solver = problem.build_solver(d3.SBDF2)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mb.set_ihc_ic(ctx)
+    flow = mb.add_ihc_flow_property(solver, ctx)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    setup = dict(problem_s=t1 - t0, solver_s=t2 - t1, initial_condition_s=t3 - t2,
+                 total_s=t3 - t0, **{k + '_s': v for k, v in ob.phase_seconds.items()})
+    pencil = solver.pencil
+    if solver.dist.device.type != dev.type or solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"ball_ihc path on {solver.dist.device} / {solver.matsolver}")
+    if pencil.slot_split != (Nphi // 2, Ntheta) or pencil.matrices['M'] is None:
+        raise AssertionError(f"ball_ihc pencils not split per (m, ell) on the dense path: "
+                             f"{pencil.slot_split}")
+    print(f"setup by phase {setup}; G={pencil.G} P={pencil.R} dense stacks "
+          f"{pencil.matrices['M'].numel() * 8 / 1e9:.3f} GB each")
+
+    last, restore_solve = record_solves()
+    try:
+        t0 = time.perf_counter()
+        solver.run_steps(dt, BALL_IHC['warmup'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} ({BALL_IHC['warmup']} steps incl. factorizations and "
+              f"Triton builds)")
+
+        phase("KH rotation form, KG cross, K3, KG vs plain twins (ball_ihc-path shapes)")
+        check_ball_ihc_kernels(solver, ctx)
+        check_k3('ball_ihc', pencil, solver.state_flat())
+        check_kg('ball_ihc', ctx['u'], cases=BALL_IHC_KG_CASES)
+
+        phase(f"ball_ihc path: {steps} timed steps of the example's run_steps")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches('ball_ihc', steps, lambda: solver.run_steps(dt, steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = Nphi * Ntheta * Nr * 5
+    state = solver.state_flat()
+    resid = solve_residual(last)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES['ball_ihc'].items() if v}
+    walls = mb.ihc_residuals(ctx)
+    max_u = float(ctx['u']['g'].abs().max())
+    print(f"[{smi}] ball_ihc {Nphi}x{Ntheta}x{Nr} SBDF2: {ms_step:.3f} ms/step over {n} steps, "
+          f"{dof * n / run_s:.4e} DOF*steps/s, setup {setup['total_s']:.2f} s, warmup "
+          f"{warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; (radial(u(r=1)), "
+          f"div(u), shear stress) {walls}; max|u| {max_u:.4e}; u2 {flow.max('u2'):.6e}")
+    print(json.dumps({"ball_ihc_path": dict(
+        config=f"ball IHC {Nphi}x{Ntheta}x{Nr} Ra=1e4 Pr=1 SBDF2 dt={dt:g} {solver.matsolver}",
+        card=smi, ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s, setup=setup,
+        warmup_s=warm_s, G=pencil.G, P=pencil.R, peak_bytes=peak, launches_per_step=per_step,
+        last_solve_residual=resid, residuals=walls, max_u=max_u)}))
+    if not (torch.isfinite(state).all() and np.isfinite(max_u) and max_u <= MAX_U):
+        raise AssertionError(f"ball_ihc: the run blew up (max|u| {max_u:.3g})")
+    if not resid <= 1e-12:
+        raise AssertionError(f"ball_ihc: last solve residual {resid:.3e} > 1e-12")
+    if not max(walls) <= 1e-12:
+        raise AssertionError(f"ball_ihc: residuals {walls} > 1e-12")
+
+    phase("ball_ihc path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'),
+               ('history combine (K7)', tsm, 'history_combine'),
+               ('flow handler', flow.handler, 'process')]
+    nested = [('KH rot', oball, 'ball_radial_apply_rot'), ('KH', oball, 'ball_radial_apply'),
+              ('KI', ki, 'regularity_recombine'), ('KE trailing', opolar, 'trailing_apply'),
+              ('KF', kf, 'spin_recombine'), ('KG', arith, 'grid_product'),
+              ('KG cross', arith, 'grid_cross')]
+    breakdown('ball_ihc', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
+    print(json.dumps({"ball_ihc_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -2580,6 +2892,9 @@ def main():
     ball_path()
     shell_card_vs_cpu()
     shell_path()
+    ball_ihc_card_vs_cpu()
+    ball_ihc_example()
+    ball_ihc_path()
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',

@@ -8,13 +8,15 @@ where the components of curvilinear tensors are coordinate components, so
 the products are the Cartesian ones: kernel KG (ops/products.py), one launch
 per product node (the cross product's sign flips on the left-handed
 (phi, theta, r) frame). NCC (linear-side) products lower to Clenshaw
-multiplication matrices per pencil on Cartesian domains, and on the shell
-for spherically symmetric NCCs (tensor NCCs through the Gamma intertwiners);
-the other curvilinear NCCs are not ported yet (ROADMAP M11, M3).
+multiplication matrices per pencil on Cartesian domains, and on the ball
+and the shell for spherically symmetric NCCs (tensor NCCs through the Gamma
+intertwiners, on the ball with per-(ell, regularity) radial blocks); the
+other curvilinear NCCs are not ported yet (ROADMAP M11, M3).
 """
 
 import functools
 import numbers
+import time
 import numpy as np
 import torch
 from scipy import sparse
@@ -268,7 +270,13 @@ class Multiply(Future):
         ncc, operand = (a, b) if b_dep else (b, a)
         ncc_first = (operand is b)
         op_mats = operand.expression_matrices(subproblem, vars, **kw)
-        if ncc.tensorsig and _spherical_axis(operand) is not None:
+        # Spherical tensor NCCs couple components through the Gamma
+        # intertwiners; a ball's tensor operand also needs per-regularity
+        # radial blocks (its Zernike family shifts with the component's
+        # regularity total), so a scalar NCC times it takes this path too
+        ax = _spherical_axis(operand)
+        if ax is not None and (ncc.tensorsig
+                               or (operand.tensorsig and _is_ball(operand.domain.bases[ax]))):
             M = _spherical_ncc_matrix(ncc, operand, self.domain, subproblem, ncc_first)
             return {v: self.scalar * (M @ mm) for v, mm in op_mats.items()}
         ncc_blocks = build_ncc_blocks(ncc, operand, self.domain, subproblem)
@@ -363,6 +371,11 @@ def _spherical_axis(operand):
     return None
 
 
+def _is_ball(basis):
+    from .basis_ball import BallRadialBasis
+    return isinstance(basis, BallRadialBasis)
+
+
 def _shell_axis(operand):
     """The radial axis of an operand on a shell basis, else None."""
     from .basis_ball import SphericalShellRadialBasis
@@ -417,18 +430,18 @@ def _gamma(ell, rank_A, rank_B, ncc_first):
 
 def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
     """
-    A tensor NCC times an operand on the shell, through the Gamma
-    intertwiners. The NCC must be spherically symmetric (m = 0, ell = 0
-    content only: er, rvec, radial profiles); the coefficient coupling per
-    ell is then
+    A spherical NCC times an operand on the ball or the shell, through the
+    Gamma intertwiners. The NCC must be spherically symmetric (m = 0,
+    ell = 0 content only: er, rvec, radial profiles); the coefficient
+    coupling per ell is then
 
         Gamma(ell) = Q_C(ell)^T (Q_A(0) (x) Q_B(ell))
 
     and each (output component a, operand component b) block is
     sum_c Gamma[a, (c, b)](ell) R_c, with R_c the radial Clenshaw product
-    matrix of NCC component c (regularity-independent on the shell).
+    matrix of NCC component c: regularity-independent on the shell, per
+    (ell, regularity triple) on the ball (_ball_ncc_matrix).
     """
-    from .basis_ball import SphericalShellRadialBasis
     ncc_field = ncc.evaluate() if isinstance(ncc, Future) else ncc
     ncc_field.require_coeff_space()
     ncc_field.change_scales(1)
@@ -438,9 +451,17 @@ def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
     ax = _spherical_axis(operand)
     rb_op, rb_out = operand.domain.bases[ax], out_domain.bases[ax]
     rb_ncc = ncc_field.domain.bases[ax]
-    if not isinstance(rb_op, SphericalShellRadialBasis):
-        raise NotImplementedError("ball tensor NCCs are not ported yet (ROADMAP M11b-2b, "
-                                  "ball half)")
+    spatial = coeffs.reshape((C_A,) + coeffs.shape[rank_A:])
+    ncc_colat = ncc_field.domain.bases[ax - 1]
+    y00 = ncc_colat.constant_mode_value() if ncc_colat is not None else 1.0
+    if _is_ball(rb_op):
+        from ..ops.banded import phase_seconds
+        t0 = time.perf_counter()
+        M = _ball_ncc_matrix(spatial, rank_A, rank_B, rb_op, rb_out, rb_ncc, y00, subproblem,
+                             operand, ax, ncc_first)
+        phase_seconds['ball NCC blocks'] = (phase_seconds.get('ball NCC blocks', 0.0)
+                                            + time.perf_counter() - t0)
+        return M
     if rb_ncc is None:
         raise NotImplementedError("constant tensor NCCs on the shell are not ported yet")
     L = rb_op.parent.colatitude_basis.size
@@ -448,9 +469,6 @@ def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
     m = subproblem.group[ax - 2] or 0
     az_w = subproblem.axis_width(operand.domain.bases[ax - 2], ax - 2)
     dk_out = rb_out.k - rb_op.k
-    spatial = coeffs.reshape((C_A,) + coeffs.shape[rank_A:])
-    ncc_colat = ncc_field.domain.bases[ax - 1]
-    y00 = ncc_colat.constant_mode_value() if ncc_colat is not None else 1.0
     R_c = []
     for c in range(C_A):
         if np.abs(spatial[c]).max() == 0.0:
@@ -488,6 +506,103 @@ def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
         return sparse.csr_matrix((C_A * C_B * Rb, C_B * Rb))
     return sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
                              shape=(C_A * C_B * Rb, C_B * Rb))
+
+
+def _ball_ncc_matrix(spatial, rank_A, rank_B, rb_op, rb_out, rb_ncc, y00, subproblem,
+                     operand, ax, ncc_first):
+    """The ball's NCC blocks of one pencil group (wavenumber m), for
+    `spatial`, the NCC's (3^rank_A, M, L, n) coefficients:
+
+      * a scalar NCC times a tensor operand stays diagonal over the
+        components (an ell = 0 scalar commutes with the spin-to-regularity
+        unitaries), each component's block the Clenshaw product in its
+        regularity-shifted Zernike family l_eff = ell + reg;
+      * a tensor NCC (which needs a ball radial basis) gets the Gamma(ell)
+        assembly with per-(ell, c, reg_b, reg_a) radial blocks from
+        ncc_comp_matrix_ell.
+    """
+    C_A, C_B = 3**rank_A, 3**rank_B
+    L = rb_op.parent.colatitude_basis.size
+    n = rb_op.size
+    m = subproblem.group[ax - 2] or 0
+    az_w = subproblem.axis_width(operand.domain.bases[ax - 2], ax - 2)
+    dk_out = rb_out.k - rb_op.k
+    b_indices = list(np.ndindex(*(3,) * rank_B)) if rank_B else [()]
+    if not rank_A:
+        cache, diag = {}, []
+        for idx in b_indices:
+            reg = it.regtotal(idx)
+            if reg not in cache:
+                if rb_ncc is None:
+                    val = float(np.ravel(spatial[0])[0])
+                    blocks = []
+                    for j in range(L):
+                        ell = abs(m) + j
+                        if j >= L - abs(m) or ell + reg < 0:
+                            blocks.append(sparse.csr_matrix((n, n)))
+                            continue
+                        conv = (rb_op.conversion_matrix_ell(ell, reg, dk_out,
+                                                            size=n + 2 * dk_out)[:n, :n]
+                                if dk_out else sparse.identity(n))
+                        blocks.append(sparse.csr_matrix(val * conv))
+                    cache[reg] = sparse.block_diag(blocks, format='csr')
+                else:
+                    profile = _radial_profile(spatial[0], y00, "Ball NCCs",
+                                              np.abs(spatial[0]).max())
+                    cache[reg] = sparse.csr_matrix(rb_op.ncc_block_m(
+                        m, profile, rb_ncc.k, rb_ncc.alpha, dk_out, reg=reg))
+            diag.append(sparse.kron(sparse.identity(az_w), cache[reg], format='csr'))
+        return sparse.block_diag(diag, format='csr')
+    if rb_ncc is None:
+        raise NotImplementedError("Constant-domain ball tensor NCCs are not supported; give "
+                                  "the NCC a ball radial basis")
+    ncc_indices = list(np.ndindex(*(3,) * rank_A))
+    comp_data = []
+    for c in range(C_A):
+        if np.abs(spatial[c]).max() == 0.0:
+            comp_data.append(None)
+        else:
+            profile = _radial_profile(spatial[c], y00, "Ball tensor NCCs",
+                                      np.abs(spatial).max())
+            comp_data.append((it.regtotal(ncc_indices[c]), profile))
+    out_indices = list(np.ndindex(*(3,) * (rank_A + rank_B)))
+    rows, cols, vals = [], [], []
+    Rb = az_w * L * n
+    for j in range(max(L - abs(m), 0)):
+        ell = abs(m) + j
+        if rb_op.n_size(ell) <= 0:
+            continue
+        G = _gamma(ell, rank_A, rank_B, ncc_first)
+        for a in range(C_A * C_B):
+            reg_a = it.regtotal(out_indices[a])
+            for b in range(C_B):
+                reg_b = it.regtotal(b_indices[b])
+                blk = None
+                for c in range(C_A):
+                    if comp_data[c] is None:
+                        continue
+                    g = G[a, c * C_B + b if ncc_first else b * C_A + c]
+                    if abs(g) < 1e-14:
+                        continue
+                    reg_c, profile = comp_data[c]
+                    Rm = rb_op.ncc_comp_matrix_ell(profile, rb_ncc.k, rb_ncc.alpha, ell,
+                                                   reg_c, reg_b, reg_a, dk_out)
+                    if Rm is None:
+                        continue
+                    blk = g * Rm if blk is None else blk + g * Rm
+                if blk is None:
+                    continue
+                R = sparse.coo_matrix(blk)
+                for p in range(az_w):
+                    off = p * L * n + j * n
+                    rows.append(a * Rb + off + R.row)
+                    cols.append(b * Rb + off + R.col)
+                    vals.append(R.data)
+    shape = (C_A * C_B * Rb, C_B * Rb)
+    if not rows:
+        return sparse.csr_matrix(shape)
+    return sparse.csr_matrix((np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+                             shape=shape)
 
 
 def _axis_coeffs(comp_coeffs, axis, spatial_shape):

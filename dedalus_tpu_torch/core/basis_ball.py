@@ -21,8 +21,10 @@ holds regularity components, grid data coordinate components (phi, theta, r):
     the shell one ell-independent weighted Jacobi transform for every line
     (kernel KJ, ops/shell.py).
 
-Operator matrices are host scipy, built exactly as in the JAX package. The
-ball's radial NCC blocks wait for ROADMAP M11b-2b (ball half).
+Operator matrices are host scipy, built exactly as in the JAX package,
+the ball's radial NCC products too: per (ell, regularity total) for a
+scalar NCC, and per (ell, regularity triple) in the envelope-shifted
+Zernike families for a tensor NCC such as r_vec.
 """
 
 import numpy as np
@@ -330,6 +332,142 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
         col[:n, 0] = fwd[0] @ np.ones(fwd.shape[-1])
         col /= self.parent.colatitude_basis.constant_mode_value()
         return sparse.csr_matrix(col)
+
+
+    # --- NCC: radial Clenshaw per ell (spherically symmetric NCCs) ---
+
+    def ncc_block_m(self, m, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out,
+                    cutoff=1e-10, reg=0):
+        """
+        (L*n x L*n) product matrix of a spherically symmetric (ell = 0)
+        scalar NCC, block-diagonal over the ell slots of wavenumber m (an
+        ell = 0 factor maps each ell to itself). A tensor operand's
+        component of regularity total `reg` is expanded at l_eff = ell + reg,
+        so the Clenshaw sum and the conversion run in that family.
+        """
+        L = self.parent.colatitude_basis.size
+        n = self.size
+        blocks = []
+        for j in range(L):
+            ell = abs(m) + j
+            if j >= L - abs(m) or self.n_size(ell) <= 0 or ell + reg < 0:
+                blocks.append(sparse.csr_matrix((n, n)))
+                continue
+            blocks.append(self._ncc_scalar_ell(ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out,
+                                               cutoff, ell, reg))
+        return sparse.block_diag(blocks, format='csr')
+
+    def _ncc_cached(self, what, coeffs, args, build):
+        """Cache of radial NCC products by the coefficients' bytes: every
+        pencil group asks for the same ones."""
+        coeffs = np.ascontiguousarray(np.ravel(coeffs), dtype=np.float64)
+        key = (what, coeffs.tobytes()) + tuple(args)
+        cache = self.__dict__.setdefault('_ncc_cache', {})
+        if key not in cache:
+            cache[key] = build(coeffs)
+        return cache[key]
+
+    def _ncc_scalar_ell(self, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff, ell, reg):
+        """(n x n) block of ncc_block_m at one ell."""
+        def build(coeffs):
+            n = self.size
+            a_ncc = ncc_alpha + ncc_k
+            b_ncc = 0.5
+            Nmat = 3 * ((len(coeffs) + 1) // 2) + n
+            # The Zernike phi_0 (the constant first radial polynomial) in place
+            # of the Jacobi normalization inside matrix_clenshaw: the
+            # recurrence ratios are the same, so the correction is the rescale
+            # Q_0(z) / phat_0(z), probed numerically
+            zprobe = np.array([0.5])
+            f0 = float(zernike_lib.polynomials(3, 1, a_ncc, 0, zprobe)[0, 0])
+            p0_jac = float(jacobi_lib.polynomials(1, a_ncc, b_ncc, zprobe)[0, 0])
+            J = self.operator_matrix_ell('Z', ell, reg, size=Nmat, truncate=False)
+            mat = f0 / p0_jac * clenshaw_lib.matrix_clenshaw(coeffs, a_ncc, b_ncc, J,
+                                                             cutoff=cutoff)
+            if dk_out:
+                mat = self.conversion_matrix_ell(ell, reg, dk_out, size=Nmat) @ mat
+            mat = sparse.csr_matrix(mat)[:n, :n].tolil()
+            ns = self.n_size(ell)
+            mat[ns:, :] = 0
+            mat[:, ns:] = 0
+            return sparse.csr_matrix(mat)
+        return self._ncc_cached('scalar', ncc_radial_coeffs,
+                                (ncc_k, float(ncc_alpha), dk_out, cutoff, ell, reg), build)
+
+    def ncc_comp_matrix_ell(self, ncc_radial_coeffs, ncc_k, ncc_alpha, ell,
+                            reg_ncc, reg_arg, reg_out, dk_out, cutoff=1e-10):
+        """
+        (n x n) radial product matrix of one ell = 0 NCC regularity
+        component (regularity total reg_ncc) acting on the operand component
+        at (ell, reg_arg) and giving the output component at (ell, reg_out).
+        The NCC component's Zernike functions carry an r^reg_ncc envelope:
+        the polynomial-in-z part is a Clenshaw sum on the operand family's Z
+        operator, and the envelope is |reg_out - reg_arg| Zernike R+- ladder
+        steps carrying l = ell + reg_arg to ell + reg_out, plus d/2 neutral
+        r^2 pairs, d = reg_ncc - |reg_out - reg_arg|. None where the
+        selection rule (d even, d >= 0) fails or a family is forbidden.
+        """
+        l_ncc = int(reg_ncc)
+        l_arg, l_out = ell + reg_arg, ell + reg_out
+        dreg = reg_out - reg_arg
+        d = l_ncc - abs(dreg)
+        if l_ncc < 0 or l_arg < 0 or l_out < 0 or d < 0 or d % 2:
+            return None
+
+        def build(coeffs):
+            n = self.size
+            kk = self.alpha + self.k
+            a_ncc = ncc_alpha + ncc_k
+            b_ncc = l_ncc + 0.5
+            Nmat = 3 * ((len(coeffs) + 1) // 2) + n + abs(dk_out)
+            # The rescale between the Zernike z-polynomial normalization and
+            # the Jacobi one inside matrix_clenshaw, probed at n = 0 (the
+            # recurrence ratios match, so one probe fixes every degree), with
+            # the (1+z)^(l/2) envelope divided out of the Zernike value and
+            # the sqrt(1/2) of each ladder step folded back in
+            zprobe = np.array([0.5])
+            f0 = float(zernike_lib.polynomials(3, 1, a_ncc, l_ncc, zprobe)[0, 0])
+            f0_poly = f0 / (1 + zprobe[0]) ** (l_ncc / 2)
+            p0_jac = float(jacobi_lib.polynomials(1, a_ncc, b_ncc, zprobe)[0, 0])
+            rescale = 2 ** (l_ncc / 2) * f0_poly / p0_jac
+            J = self.operator_matrix_ell('Z', ell, reg_arg, size=Nmat, truncate=False)
+            mat = rescale * clenshaw_lib.matrix_clenshaw(coeffs, a_ncc, b_ncc, J,
+                                                         cutoff=cutoff)
+            if l_ncc:
+                pre = sparse.identity(Nmat, format='csr')
+                l_cur = l_arg
+                sgn = 1 if dreg >= 0 else -1
+                for _ in range(abs(dreg)):
+                    Rop = zernike_lib.operator(3, 'R', sgn, Nmat, kk, l_cur, radius=self.radius)
+                    pre = _pad_square(Rop, Nmat) @ pre
+                    l_cur += sgn
+                for _ in range(d // 2):
+                    Rp = zernike_lib.operator(3, 'R', +1, Nmat, kk, l_cur, radius=self.radius)
+                    Rm = zernike_lib.operator(3, 'R', -1, Nmat, kk, l_cur + 1,
+                                              radius=self.radius)
+                    pre = _pad_square(Rm, Nmat) @ _pad_square(Rp, Nmat) @ pre
+                mat = pre @ mat
+            if dk_out:
+                mat = self.conversion_matrix_ell(ell, reg_out, dk_out, size=Nmat) @ mat
+            mat = sparse.csr_matrix(mat)[:n, :n].tolil()
+            ns = self.n_size(ell)
+            mat[ns:, :] = 0
+            mat[:, ns:] = 0
+            return sparse.csr_matrix(mat)
+        return self._ncc_cached('comp', ncc_radial_coeffs,
+                                (ncc_k, float(ncc_alpha), ell, reg_ncc, reg_arg, reg_out,
+                                 dk_out, cutoff), build)
+
+
+def _pad_square(mat, n):
+    """A (possibly rectangular) sparse operator embedded in an (n x n) square."""
+    mat = sparse.csr_matrix(mat)
+    if mat.shape == (n, n):
+        return mat
+    out = sparse.lil_matrix((n, n))
+    r, c = min(mat.shape[0], n), min(mat.shape[1], n)
+    out[:r, :c] = mat[:r, :c]
+    return sparse.csr_matrix(out)
 
 
 class SphericalShellRadialBasis(SphericalRadialBasis, Basis):

@@ -9,12 +9,12 @@ and the grad/div/lap/trace/skew/integ/ave factories, which dispatch to the
 polar operators (core/operators_polar.py) on polar coordinates, to the
 sphere operators (core/operators_sphere.py) on S2 coordinates and to the
 ball and shell operators (core/operators_ball.py) on spherical
-coordinates, with the transpose, the radial and angular components and
-their lowercase aliases. Each one-axis
+coordinates, with the transpose, the curl, the radial and angular
+components and their lowercase aliases. Each one-axis
 operator carries one host matrix: the pencil matrices slice it on the host
 (scipy), and eager evaluation applies it densely on the field's device. The
-curvilinear CFL spacings, Curl and general functions are not ported yet
-(ROADMAP M3, M9, M11b-2b).
+curvilinear CFL spacings, the curl outside spherical coordinates and
+general functions are not ported yet (ROADMAP M3, M3r, M9, M11b-2b, M11c).
 """
 
 import numbers
@@ -790,6 +790,16 @@ def Trace(operand):
     return Add(*terms) if len(terms) > 1 else terms[0]
 
 
+def Curl(operand, index=0):
+    """curl of a vector on the ball or the shell (the Cartesian, 2-D and
+    cylinder curls wait for ROADMAP M3r and M11c)."""
+    coordsys = operand.tensorsig[index]
+    if isinstance(coordsys, SphericalCoordinates):
+        from .operators_ball import SphericalCurl
+        return SphericalCurl(operand, index)
+    raise NotImplementedError(f"Curl on {coordsys} is not ported yet (ROADMAP M3r, M11c)")
+
+
 def Skew(operand):
     """90-degree rotation of a 2D vector: skew(u) = (-u[1], u[0]); a pair
     rotation of the spin components on curvilinear systems."""
@@ -929,6 +939,7 @@ Operand.__call__ = _operand_call
 grad = Gradient
 div = Divergence
 lap = Laplacian
+curl = Curl
 trace = Trace
 transpose = TransposeComponents
 radial = RadialComponent
@@ -941,10 +952,10 @@ interp = Interpolate
 dt = TimeDerivative
 lift = Lift
 
-__all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Trace', 'Skew',
+__all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Curl', 'Trace', 'Skew',
            'Interpolate', 'Integrate', 'Average', 'Lift', 'TimeDerivative',
            'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
            'AzimuthalComponent', 'TransposeComponents', 'RadialComponent',
            'AngularComponent', 'convert',
-           'grad', 'div', 'lap', 'trace', 'transpose', 'radial', 'angular', 'skew', 'ave',
+           'grad', 'div', 'lap', 'curl', 'trace', 'transpose', 'radial', 'angular', 'skew', 'ave',
            'azimuthal', 'integ', 'interp', 'dt', 'lift']

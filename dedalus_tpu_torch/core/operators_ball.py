@@ -2,7 +2,7 @@
 Vector calculus and structural operators on the ball and the shell.
 
 Mirrors dedalus_tpu/core/operators_ball.py: BallRegOperator and its
-Laplacian, gradient, divergence, conversion, transpose and trace; the
+Laplacian, gradient, divergence, curl, conversion, transpose and trace; the
 radial and angular components of spin-component operands; the lift of
 surface (tau) fields, interpolation at a radius, the volume integral and the
 embedding of constants. Tensor components of ball and shell fields are regularity
@@ -12,10 +12,12 @@ the colatitude slots (slot j at ell = |m| + j). Matrices are host scipy,
 built exactly as in the JAX package; eager evaluation stacks them over
 (m, ell) once per device (operators.device_matrix) and applies them with
 kernel KH (ops/ball.py), the lift and interpolation blocks with kernel KE
-(ops/polar.py).
+(ops/polar.py). The curl's radial matrices are imaginary: in real dtype
+their imaginary parts act on the rotated (cos, -sin) pair, in the pencil
+matrices through J = [[0, -1], [1, 0]] and in eager evaluation through
+KH's pair-rotation form.
 
-Curl, the ell products and the z-cross wait for ROADMAP M11b-2b (ball
-half).
+The ell products and the z-cross wait for ROADMAP queue 2 (A1).
 """
 
 import functools
@@ -131,10 +133,21 @@ class BallRegOperator(LinearOperator):
         out[self.radius_axis] = True
         return out
 
+    # Subclasses whose radial matrices are complex (imaginary) set True: their
+    # real and imaginary parts are kept as separate real stacks
+    complex_matrices = False
+
+    def _parts(self):
+        """The stack parts of each component pair: the real matrices, or the
+        real and the imaginary parts of complex ones."""
+        return ('re', 'im') if self.complex_matrices else ('',)
+
     def subproblem_matrix(self, subproblem):
         """Component-major pencil matrix: for each pair's slots (ell =
-        |m| + j), its radial matrix, repeated over the azimuth pair slots;
-        assembled in one COO pass."""
+        |m| + j), its radial matrix, repeated over the azimuth pair slots
+        (an imaginary part through the pair rotation J = [[0, -1], [1, 0]],
+        which is zero where the azimuth has one slot); assembled in one COO
+        pass."""
         m = subproblem.group[self.azimuth_axis]
         m = m if m is not None else 0
         az_w = subproblem.axis_width(
@@ -146,30 +159,39 @@ class BallRegOperator(LinearOperator):
         rows, cols, vals = [], [], []
         for ii in _comp_indices(ts_in):
             for oi in self.regindices_out(ii):
-                S = self._pair_host(ii, oi)
-                if S is None or abs(m) >= L:
-                    continue
-                j, o, i = np.nonzero(S[abs(m):])
-                v = S[abs(m):][j, o, i]
-                for p in range(az_w):
-                    rows.append(_flat(oi, ts_out) * Rb + p * L * n_out + j * n_out + o)
-                    cols.append(_flat(ii, ts_in) * Cb + p * L * n_in + j * n_in + i)
-                    vals.append(v)
+                for part in self._parts():
+                    S = self._pair_host(ii, oi, part)
+                    if S is None or abs(m) >= L:
+                        continue
+                    j, o, i = np.nonzero(S[abs(m):])
+                    v = S[abs(m):][j, o, i]
+                    # (output slot, input slot, sign) of the identity, or of J
+                    if part != 'im':
+                        slots = [(p, p, 1.0) for p in range(az_w)]
+                    elif az_w == 2:
+                        slots = [(0, 1, -1.0), (1, 0, 1.0)]
+                    else:
+                        slots = []
+                    for po, pi, sign in slots:
+                        rows.append(_flat(oi, ts_out) * Rb + po * L * n_out + j * n_out + o)
+                        cols.append(_flat(ii, ts_in) * Cb + pi * L * n_in + j * n_in + i)
+                        vals.append(sign * v)
         shape = (len(_comp_indices(ts_out)) * Rb, len(_comp_indices(ts_in)) * Cb)
         return _coo_csr(rows, cols, vals, shape)
 
-    def _pair_key(self, in_idx, out_idx):
+    def _pair_key(self, in_idx, out_idx, part=''):
         rb = self.radial_in
         return (type(self).__name__, rb._key(), self.radial_out._key(), in_idx, out_idx,
-                rb.parent.colatitude_basis.size, self._extra_key())
+                rb.parent.colatitude_basis.size, part, self._extra_key())
 
-    def _pair_host(self, in_idx, out_idx):
+    def _pair_host(self, in_idx, out_idx, part=''):
         """(L, n_out, n_in) host stack of one component pair, one matrix
-        per ell; None where the pair has no matrix at any ell."""
+        per ell (`part` 're' or 'im' of complex matrices: two real stacks,
+        kept apart); None where the pair has no matrix at any ell."""
         rb = self.radial_in
         L = rb.parent.colatitude_basis.size
         n_in, n_out = rb.size, self.radial_out.size
-        key = self._pair_key(in_idx, out_idx)
+        key = self._pair_key(in_idx, out_idx, part)
 
         def build():
             S = np.zeros((L, n_out, n_in))
@@ -181,6 +203,11 @@ class BallRegOperator(LinearOperator):
                 if A is None:
                     continue
                 A = sparse.csr_matrix(A)[:n_out, :n_in].toarray()
+                if part:
+                    A = A.real if part == 're' else A.imag
+                elif np.iscomplexobj(A):
+                    raise TypeError(f"{type(self).__name__}: complex radial matrix "
+                                    f"without complex_matrices")
                 S[ell, :A.shape[0], :A.shape[1]] = A
             return np.ascontiguousarray(S)
         S = host_matrix(key, build)
@@ -188,10 +215,10 @@ class BallRegOperator(LinearOperator):
             _LIVE_PAIRS[key] = bool(np.any(S))
         return S if _LIVE_PAIRS[key] else None
 
-    def _pair_stack(self, in_idx, out_idx, device):
+    def _pair_stack(self, in_idx, out_idx, device, part=''):
         """The pair's per-ell stack on `device` (KH reads entry |m| + j for
         slot j of wavenumber m); None where it has no matrix."""
-        S = self._pair_host(in_idx, out_idx)
+        S = self._pair_host(in_idx, out_idx, part)
         return None if S is None else device_copy(S, device)
 
     def _extra_key(self):
@@ -212,15 +239,30 @@ class BallRegOperator(LinearOperator):
         # Components summed into one output component: the first write
         # stores, the others add (the reference's out.at[oi].add from zero)
         written = set()
+        rot_terms = []   # the imaginary parts: (stack, input, output) for KH's rotation form
         for ii in _comp_indices(ts_in):
             for oi in self.regindices_out(ii):
-                S = self._pair_stack(ii, oi, data.device)
-                if S is None:
-                    continue
-                fo = _flat(oi, ts_out)
-                ops_ball.ball_radial_apply(S, x, [(_flat(ii, ts_in), fo)], out,
-                                           accumulate=fo in written)
-                written.add(fo)
+                fi, fo = _flat(ii, ts_in), _flat(oi, ts_out)
+                for part in self._parts():
+                    S = self._pair_stack(ii, oi, data.device, part)
+                    if S is None:
+                        continue
+                    if part == 'im':
+                        rot_terms.append((S, fi, fo))
+                        continue
+                    ops_ball.ball_radial_apply(S, x, [(fi, fo)], out, accumulate=fo in written)
+                    written.add(fo)
+        # The rotated terms by output component, up to KH_MAX_PAIRS a launch
+        rot_terms.sort(key=lambda term: term[2])
+        for c in range(0, len(rot_terms), ops_ball.KH_MAX_PAIRS):
+            chunk = rot_terms[c:c + ops_ball.KH_MAX_PAIRS]
+            outs = {fo for _, _, fo in chunk}
+            accumulate = bool(outs & written)
+            if accumulate:
+                for fo in outs - written:
+                    out[fo] = 0
+            ops_ball.ball_radial_apply_rot(chunk, x, out, accumulate=accumulate)
+            written |= outs
         for fo in range(out.shape[0]):
             if fo not in written:
                 out[fo] = 0
@@ -296,6 +338,47 @@ class SphericalDivergence(BallRegOperator):
         if in_idx[0] == 0:
             return _xi(-1, ell + reg + 1) * self.radial_in.operator_matrix_ell('D+', ell, reg)
         return _xi(+1, ell + reg - 1) * self.radial_in.operator_matrix_ell('D-', ell, reg)
+
+
+class SphericalCurl(BallRegOperator):
+    """curl on the ball and the shell: regularity components (-, +) -> 0
+    and 0 -> (-, +)
+    with imaginary radial factors (pair rotations in real dtype):
+      (-) -> (0): -i xi(+1, l+1) D+      (+) -> (0): +i xi(-1, l-1) D-
+      (0) -> (-): -i xi(+1, l)   D-      (0) -> (+): +i xi(-1, l)   D+
+    with l = ell + regtotal(in)."""
+
+    dk = 1
+    name = 'Curl'
+    complex_matrices = True
+
+    def __init__(self, operand, index=0):
+        if index != 0:
+            raise ValueError("Curl only implemented along index 0")
+        if not operand.tensorsig:
+            raise ValueError("Curl requires a vector operand")
+        super().__init__(operand, operand.tensorsig[0])
+
+    def regindices_out(self, in_idx):
+        if in_idx[0] in (0, 1):
+            return ((2,) + tuple(in_idx[1:]),)
+        return ((0,) + tuple(in_idx[1:]), (1,) + tuple(in_idx[1:]))
+
+    def new_operands(self, operand):
+        return SphericalCurl(operand)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        reg = it.regtotal(in_idx)
+        rb = self.radial_in
+        if in_idx[0] == 0 and out_idx[0] == 2:
+            return -1j * _xi(+1, ell + reg + 1) * rb.operator_matrix_ell('D+', ell, reg)
+        if in_idx[0] == 1 and out_idx[0] == 2:
+            return 1j * _xi(-1, ell + reg - 1) * rb.operator_matrix_ell('D-', ell, reg)
+        if in_idx[0] == 2 and out_idx[0] == 0:
+            return -1j * _xi(+1, ell + reg) * rb.operator_matrix_ell('D-', ell, reg)
+        if in_idx[0] == 2 and out_idx[0] == 1:
+            return 1j * _xi(-1, ell + reg) * rb.operator_matrix_ell('D+', ell, reg)
+        return None
 
 
 class BallConvert(BallRegOperator):

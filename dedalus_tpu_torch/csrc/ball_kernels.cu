@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernel of the ball geometry.
+// Hand-written Hopper (sm_90a) kernels of the ball geometry.
 //
 //   KH  kh_ball_radial_apply_f64   replaces the per-(m, ell) batched einsums
 //       of dedalus_tpu/core/basis_ball.py:206-222 (BallRadialBasis._apply_stack,
@@ -28,6 +28,27 @@
 // from the same loads. The sums meet in warp shuffles; with `accumulate`
 // they are added to out (an operator summing several regularity components
 // into one output).
+//
+//   KH, pair-rotation form  kh_ball_radial_rot_apply_f64  replaces the
+//       einsum on the rotated pair of dedalus_tpu/core/operators_ball.py:214-227
+//       (BallRegOperator.operate for operators with imaginary radial
+//       matrices in real dtype: SphericalCurl, :311-357).
+//
+//   out[c_out, k, p, l, o] (+)= sum_{t: out_t = c_out} sum_n S_t[k + l, o, n]
+//                                 * rot(x[in_t])[k, p, l, n]
+//
+// with rot(x)[., 0] = -x[., 1] and rot(x)[., 1] = x[., 0]: i * (a + i b) =
+// (-b, a) on the (cos, -sin) pair slots. Where NP = 1 the rotation is zero
+// (the reference drops the imaginary part there): the outputs are zeroed,
+// or left as they are with `accumulate`. Each of the up to KH_MAX_PAIRS
+// terms carries its own stack (the curl's four component pairs have four
+// radial matrices); terms sharing an output component are summed in
+// registers and written once, so the curl of a vector is one launch.
+//
+// Bound: bytes, as KH (curl of u at 64x32x32: per component pair 0.52 MB
+// in, 0.52 MB out, a 0.26 MB stack). Design: KH's, with the rotation and
+// sign applied while the columns are staged in shared memory, and one
+// stack row per term streamed per output row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,7 +125,120 @@ ball_radial_apply_kernel(const double* __restrict__ S, const double* __restrict_
     }
 }
 
+struct RotTerms {
+    const double* S[KH_MAX_PAIRS];
+    int in[KH_MAX_PAIRS];
+    int out[KH_MAX_PAIRS];
+};
+
+__global__ void __launch_bounds__(KH_THREADS)
+ball_radial_rot_apply_kernel(RotTerms terms, const double* __restrict__ x,
+                             double* __restrict__ out, int nterms, int K, int NP, int L,
+                             int E, int O, int N, int accumulate) {
+    extern __shared__ double xs[];   // [nterms * 2][N]: column j = (term j / 2, slot j % 2)
+    const int k = blockIdx.x / L;
+    const int l = blockIdx.x - k * L;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const size_t comp_in = (size_t)K * NP * L * N;
+    const size_t comp_out = (size_t)K * NP * L * O;
+    const int o0 = blockIdx.y * KH_ROWS;
+    const int o1 = min(O, o0 + KH_ROWS);
+    // first[t]: whether term t is the first of its output component
+    bool first[KH_MAX_PAIRS];
+#pragma unroll
+    for (int t = 0; t < KH_MAX_PAIRS; ++t) {
+        first[t] = t < nterms;
+        for (int s = 0; s < t; ++s)
+            if (terms.out[s] == terms.out[t]) first[t] = false;
+    }
+    if (k + l >= E || NP == 1) {     // no matrix at this ell, or no pair: zero
+        if (!accumulate) {
+            const int span = o1 - o0;
+            for (int t = 0; t < nterms; ++t) {
+                if (!first[t]) continue;
+                for (int i = threadIdx.x; i < NP * span; i += blockDim.x) {
+                    const int p = i / span, o = o0 + i - p * span;
+                    out[terms.out[t] * comp_out + (((size_t)k * NP + p) * L + l) * O + o] = 0.0;
+                }
+            }
+        }
+        return;
+    }
+    for (int i = threadIdx.x; i < nterms * 2 * N; i += blockDim.x) {
+        const int j = i / N, n = i - j * N;
+        const int t = j >> 1, p = j & 1;
+        // rot: slot 0 takes -x[slot 1], slot 1 takes x[slot 0]
+        const double v = x[terms.in[t] * comp_in + (((size_t)k * 2 + (1 - p)) * L + l) * N + n];
+        xs[i] = p == 0 ? -v : v;
+    }
+    __syncthreads();
+    for (int o = o0 + warp; o < o1; o += nwarps) {
+        double acc[KH_MAX_COLS];
+#pragma unroll
+        for (int j = 0; j < KH_MAX_COLS; ++j) acc[j] = 0.0;
+#pragma unroll
+        for (int t = 0; t < KH_MAX_PAIRS; ++t) {
+            if (t < nterms) {
+                const double* row = terms.S[t] + ((size_t)(k + l) * O + o) * N;
+                for (int n = lane; n < N; n += 32) {
+                    const double a = __ldg(row + n);
+                    acc[2 * t] = fma(a, xs[(2 * t) * N + n], acc[2 * t]);
+                    acc[2 * t + 1] = fma(a, xs[(2 * t + 1) * N + n], acc[2 * t + 1]);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < KH_MAX_COLS; ++j) {
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+        }
+        // Every lane holds every sum: lane 2 t + p writes output (out_t, p)
+        // for the first term t of each output component, summing its group
+#pragma unroll
+        for (int t = 0; t < KH_MAX_PAIRS; ++t) {
+            if (!first[t]) continue;
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                if (lane != 2 * t + p) continue;
+                double v = 0.0;
+#pragma unroll
+                for (int s = 0; s < KH_MAX_PAIRS; ++s)
+                    if (s < nterms && terms.out[s] == terms.out[t]) v += acc[2 * s + p];
+                double* dst = out + terms.out[t] * comp_out
+                              + (((size_t)k * 2 + p) * L + l) * O + o;
+                *dst = accumulate ? *dst + v : v;
+            }
+        }
+    }
+}
+
 }  // namespace
+
+extern "C" int kh_ball_radial_rot_apply_f64(const double* S0, const double* S1,
+                                            const double* S2, const double* S3,
+                                            const double* x, double* out, int in0, int in1,
+                                            int in2, int in3, int out0, int out1, int out2,
+                                            int out3, int nterms, int K, int NP, int L, int E,
+                                            int O, int N, int accumulate, void* stream) {
+    if (nterms < 1 || nterms > KH_MAX_PAIRS || NP < 1 || NP > 2 || K < 1 || L < 1 || E < 1
+        || O < 1 || N < 1)
+        return (int)cudaErrorInvalidValue;
+    RotTerms terms = {{S0, S1, S2, S3}, {in0, in1, in2, in3}, {out0, out1, out2, out3}};
+    const size_t smem = (size_t)nterms * 2 * N * sizeof(double);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(ball_radial_rot_apply_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid(K * L, (O + KH_ROWS - 1) / KH_ROWS);
+    ball_radial_rot_apply_kernel<<<grid, KH_THREADS, smem, (cudaStream_t)stream>>>(
+        terms, x, out, nterms, K, NP, L, E, O, N, accumulate);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int kh_ball_radial_apply_f64(const double* S, const double* x, double* out,
                                         int in0, int out0, int in1, int out1, int in2,

@@ -49,6 +49,7 @@ SIGNATURES = {
     },
     'ball_kernels': {
         'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],
+        'kh_ball_radial_rot_apply_f64': [_P] * 6 + [_I] * 16 + [_P],
     },
     'shell_kernels': {
         'kj_shell_radial_f64': [_P] * 5 + [_I] * 3 + [_P],

@@ -19,11 +19,25 @@ stack S. The radial matrices depend on ell alone, so S holds one per ell,
 shell there is no triangular truncation: O and N are the radial size (or
 its k-shifted size) at every ell.
 
-CPU tensors run the plain twin; CUDA tensors launch csrc/ball_kernels.cu
-kh_ball_radial_apply_f64. The apply is bound by reading the data (a
-backward transform stack at 64x32x32 is 32 x 48 x 32 doubles, 0.39 MB,
-against 0.5 to 0.8 MB per component); the kernel reads each input column
-once and each stack row once per (k, l) from L2.
+KH's pair-rotation form (ball_radial_apply_rot) serves the operators whose
+radial matrices are imaginary, the curl (core/operators_ball.py:199-231,
+the rotation at :214-227 for SphericalCurl :311-357): in real dtype
+i * (a + i b) = (-b, a) on the (cos, -sin) pair, so the imaginary stack
+applies to the pair-rotated input,
+
+    out[c_out, k, p, l, o] (+)= sum_terms sum_n S_t[k + l, o, n] * rot(x[c_t])[k, p, l, n]
+
+with rot(x)[:, 0] = -x[:, 1] and rot(x)[:, 1] = x[:, 0]; a field with one
+pair slot (NP = 1) has no imaginary part there, as the reference drops it.
+Unlike KH, each term carries its own stack and terms may share an output
+component: one launch sums the curl's four component pairs.
+
+CPU tensors run the plain twins; CUDA tensors launch csrc/ball_kernels.cu
+kh_ball_radial_apply_f64 and kh_ball_radial_rot_apply_f64. The apply is
+bound by reading the data (a backward transform stack at 64x32x32 is
+32 x 48 x 32 doubles, 0.39 MB, against 0.5 to 0.8 MB per component); the
+kernel reads each input column once and each stack row once per (k, l)
+from L2.
 """
 
 import torch
@@ -93,3 +107,69 @@ def ball_radial_apply(S, x, pairs, out, accumulate=False):
 
 
 ball_radial_apply.launches = 0
+
+
+def rotate_pairs(x):
+    """The pair rotation i * (a + i b) = (-b, a) of (..., K, NP, L, N) data
+    on its (cos, -sin) slots; zero where NP = 1."""
+    if x.shape[-3] == 1:
+        return torch.zeros_like(x)
+    return torch.stack([-x[..., 1, :, :], x[..., 0, :, :]], dim=-3)
+
+
+def ball_radial_apply_rot_plain(terms, x, out, accumulate=False):
+    """Plain torch KH, pair-rotation form (the JAX package's einsum on
+    `rot`, core/operators_ball.py:216-227)."""
+    K, NP, L, N = x.shape[1:]
+    written = set()
+    for S, ci, co in terms:
+        res = torch.einsum('klon,kpln->kplo', per_slot_view(S, K, L), rotate_pairs(x[ci]))
+        if accumulate or co in written:
+            out[co].add_(res)
+        else:
+            out[co].copy_(res)
+        written.add(co)
+    return out
+
+
+def ball_radial_apply_rot(terms, x, out, accumulate=False):
+    """
+    KH, pair-rotation form: out[co] (+)= sum over the terms (S, ci, co) of
+    S[k + l] applied to the pair-rotated x[ci] at each slot (k, l), with
+    every S (E, O, N) (one matrix per ell), x (C_in, K, NP, L, N) and out
+    (C_out, K, NP, L, O), contiguous float64. Terms may share an output
+    component: their sum is stored (or, with `accumulate`, added).
+    """
+    if not 1 <= len(terms) <= KH_MAX_PAIRS:
+        raise ValueError(f"KH rotation form: 1 to {KH_MAX_PAIRS} terms")
+    if x.device.type == 'cpu':
+        return ball_radial_apply_rot_plain(terms, x, out, accumulate)
+    from ..csrc import build
+    C_in, K, NP, L, N = x.shape
+    shape = tuple(terms[0][0].shape)
+    for S, _, _ in terms:
+        if (S.dtype != torch.float64 or S.device != x.device or S.dim() != 3
+                or tuple(S.shape) != shape or shape[2] != N or not S.is_contiguous()):
+            raise ValueError(f"KH rotation form: every S must be a contiguous float64 "
+                             f"(E, O, {N}) tensor of one shape on {x.device}")
+    E, O = shape[:2]
+    if x.dtype != torch.float64 or not x.is_contiguous() or NP not in (1, 2):
+        raise ValueError("KH rotation form: x must be a contiguous float64 "
+                         "(C, K, NP, L, N) tensor")
+    if (out.dtype != torch.float64 or out.device != x.device or not out.is_contiguous()
+            or tuple(out.shape[1:]) != (K, NP, L, O)):
+        raise ValueError(f"KH rotation form: out must be a contiguous float64 "
+                         f"(C, {K}, {NP}, {L}, {O}) tensor")
+    if not all(0 <= ci < C_in and 0 <= co < out.shape[0] for _, ci, co in terms):
+        raise ValueError("KH rotation form: a component index is out of range")
+    pad = list(terms) + [terms[0]] * (KH_MAX_PAIRS - len(terms))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(build.library().kh_ball_radial_rot_apply_f64(
+        *[S.data_ptr() for S, _, _ in pad], x.data_ptr(), out.data_ptr(),
+        *[int(ci) for _, ci, _ in pad], *[int(co) for _, _, co in pad], len(terms),
+        K, NP, L, E, O, N, int(accumulate), stream), 'ball_radial_apply_rot')
+    ball_radial_apply_rot.launches += 1
+    return out
+
+
+ball_radial_apply_rot.launches = 0

@@ -9,7 +9,8 @@ the polar operators of the annulus and disk examples, the sphere operators
 of the shallow-water example, the ball operators of the ball convection
 model, the shell operators and products of the shell convection example
 (transpose, radial and angular components, cross products, spherically
-symmetric NCCs), with numpy ufuncs on operands and the Cartesian advective
+symmetric NCCs), the curl and the tensor NCCs of the ball's internally
+heated convection example, with numpy ufuncs on operands and the Cartesian advective
 CFL frequency,
 IVPs and LBVPs, the InitialValueSolver with SBDF2 (banded or dense
 matsolvers) and the Runge-Kutta schemes (dense matsolvers), the
@@ -28,10 +29,10 @@ from .core.basis_ball import BallBasis, ShellBasis
 from .core.field import Field
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
-    Differentiate, Gradient, Divergence, Laplacian, Trace, Skew, Interpolate,
+    Differentiate, Gradient, Divergence, Laplacian, Curl, Trace, Skew, Interpolate,
     Integrate, Average, Lift, TimeDerivative, Component, Power, UnaryGridFunction,
     AdvectiveCFL, AzimuthalComponent, TransposeComponents, RadialComponent,
-    AngularComponent, grad, div, lap, trace, transpose, radial, angular, skew, azimuthal,
+    AngularComponent, grad, div, curl, lap, trace, transpose, radial, angular, skew, azimuthal,
     integ, ave, interp, dt, lift, convert as Convert,
 )
 from .core.operators_sphere import MulCosine

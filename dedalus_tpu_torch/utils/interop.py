@@ -18,7 +18,8 @@ def set_state_from_reference(solver, arrays, fields=None, layout='c'):
     and the spin components of fields on a ball's or shell's surface).
     `solver` is an IVP or LBVP solver; `fields` names other fields to set
     instead of its variables (the right-hand-side fields of an LBVP, the
-    NCC fields of a problem such as the shell's er, ez and rvec); `layout`
+    NCC fields of a problem such as the shell's er, ez and rvec or the
+    ball's r_vec); `layout`
     is 'c' for coefficient data or 'g' for grid data."""
     for field in (solver.state if fields is None else fields):
         field.change_scales(1)
