@@ -2,11 +2,18 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives nine main paths through the
+CPU-held port at the small sizes, and drives ten main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver named (kernels
     K4, K5, K6, K7, K3), its cold start by phase, 20 timed steps;
+  * the same with `[transforms] fourier_library = jacobi_library = fast`
+    (banded_fast_path: the four-step DFT K10, the DCT wrapping K11a, the
+    ultraspherical conversion K11b and the real-Fourier pack K12 in place of
+    the dense transforms), 20 timed steps, held against the same steps
+    under MMT and the card against the CPU at 64x32; F under both
+    libraries; 'auto' at the threshold (8192); and a crossover table of the
+    fast kernels, MMT and torch.fft per axis size;
   * the banded cold start at 2048x2048 with the default matsolver, which
     leaves the dense path by itself at this size: from build_rbc_problem to
     the end of the first steady step, by phase (kernels K8a, K8b for the f64
@@ -55,7 +62,7 @@ each path's dealias grid.
     python3 chip_smoke.py
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
-banded_path, cold_start_path, example_path, annulus_path, disk_path,
+banded_path, banded_fast_path, cold_start_path, example_path, annulus_path, disk_path,
 ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
@@ -127,7 +134,9 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            grid_product=1e-15, block_tridiag_qr_factor=1e-11, multi_rhs_solve=1e-11,
            banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
            ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
-           shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13)
+           shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13,
+           dft_four_step=1e-13, dct_wrap=1e-13, chebyshev_conversion=1e-12,
+           real_fourier_pack=1e-15)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -176,12 +185,32 @@ KERNELS = dict(   # name: (route, source, replaces)
                 'dedalus_tpu/core/arithmetic.py:1106'),
     ball_radial_apply_rot=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
                            'dedalus_tpu/core/operators_ball.py:214'),
+    dft_four_step=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu',
+                   'dedalus_tpu/ops/fft64.py:96'),
+    dct_wrap=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu', 'dedalus_tpu/ops/fft64.py:227'),
+    chebyshev_conversion=('cuda', 'dedalus_tpu_torch/csrc/conversion_kernels.cu',
+                          'dedalus_tpu/ops/fft64.py:280'),
+    real_fourier_pack=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu',
+                       'dedalus_tpu/ops/transforms.py:77'),
 )
+# The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
+FAST_WRAPPERS = dict(dft_four_step=('dft',),
+                     dct_wrap=('dct2_pre', 'dct2_post', 'dct3_pre', 'dct3_post'),
+                     chebyshev_conversion=('conversion_apply', 'conversion_solve'),
+                     real_fourier_pack=('fourier_pack', 'fourier_unpack'))
+# The crossover table: axis grid sizes, and lines per transform (rbc2048's
+# batched x chain: 8 components of 768 z points)
+CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
+CROSSOVER_LINES = 6144
 # Kernels each main path must launch
 PATH_KERNELS = dict(
     rbc2048=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
              'pencil_gather_scatter', 'grid_product', 'banded_solve_pre', 'banded_solve_post',
              'dense_matvec'),
+    rbc2048_fast=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
+                  'pencil_gather_scatter', 'grid_product', 'banded_solve_pre',
+                  'banded_solve_post', 'dense_matvec', 'dft_four_step', 'dct_wrap',
+                  'chebyshev_conversion', 'real_fourier_pack'),
     coldstart=('block_tridiag_qr_factor', 'multi_rhs_solve', 'residual_norm',
                'banded_solve_pre', 'banded_solve_post', 'block_tridiag_qr_solve',
                'banded_apply', 'history_combine', 'pencil_gather_scatter', 'grid_product',
@@ -375,7 +404,9 @@ def kernel_functions():
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.csrc import residual_norm as rn
+    from dedalus_tpu_torch.ops import fft as offt
     from dedalus_tpu_torch.core import subsystems as sub
+    fast = {name: [getattr(offt, w) for w in ws] for name, ws in FAST_WRAPPERS.items()}
     return dict(block_tridiag_qr_factor=[ob.factor_block_tridiag_qr],
                 multi_rhs_solve=[ob.multi_rhs_solve],
                 banded_solve_pre=[ob.banded_solve_pre],
@@ -394,7 +425,7 @@ def kernel_functions():
                 trailing_apply=[opolar.trailing_apply],
                 shell_radial_transform=[oshell.shell_radial_transform],
                 grid_cross=[oprod.grid_cross],
-                ball_radial_apply_rot=[oball.ball_radial_apply_rot])
+                ball_radial_apply_rot=[oball.ball_radial_apply_rot], **fast)
 
 
 def count_launches(path, steps, run):
@@ -443,12 +474,42 @@ def tally(targets, run):
     return acc
 
 
+def fast_cost(wrapper, a, kw, out):
+    """(bytes, operations) of one call of a fast-transform wrapper: each
+    input read once, each output written once; the DFT's 8 operations per
+    complex multiply-add (N1 + N2 of them per point, and the twiddle's 6),
+    a few per point for the elementwise passes, 2 per band entry."""
+    from dedalus_tpu_torch.ops import fft as offt
+    if wrapper == 'dft':
+        x, axis = a[0], a[2]
+        N = out.shape[axis]
+        N1, N2 = offt.plan(N)
+        return nbytes(x, out), out.numel() * (8 * (N1 + N2) + (6 if N2 > 1 else 0))
+    if wrapper in ('conversion_apply', 'conversion_solve'):
+        band = a[0]
+        return (nbytes(out) * 2 + band.diags.nbytes,
+                2 * len(band.offsets) * out.numel())
+    ops = dict(dct2_pre=0, dct3_post=0, dct2_post=4, dct3_pre=6, fourier_pack=10,
+               fourier_unpack=2)[wrapper]
+    return nbytes(a[0], out), ops * out.numel()
+
+
+def fast_targets():
+    """tally targets of the fast-transform wrappers, one label per kernel."""
+    from dedalus_tpu_torch.ops import fft as offt
+    labels = dict(dft_four_step='K10 dft', dct_wrap='K11a DCT wrapping',
+                  chebyshev_conversion='K11b conversion', real_fourier_pack='K12 pack/unpack')
+    return [(labels[k], offt, w, functools.partial(fast_cost, w))
+            for k, ws in FAST_WRAPPERS.items() for w in ws]
+
+
 def f_profile(solver, state, t, reps=10):
     """K1 and K2 on one evaluation of F: the dense transforms (K1, torch
-    matmul), the polar and sphere kernels and the grid products (KG) inside
-    it, their call counts and summed bounds, and F's own time, with the
-    products through KG and through its plain twin. K2's bound is the sum of
-    its transforms' and kernels' bounds."""
+    matmul) or the fast transforms (K10-K12), the polar and sphere kernels
+    and the grid products (KG) inside it, their call counts and summed
+    bounds, and F's own time, with the products through KG and through its
+    plain twin. K2's bound is the sum of its transforms' and kernels'
+    bounds."""
     from dedalus_tpu_torch.ops import transforms as otr, polar as opolar, ball as oball
     from dedalus_tpu_torch.ops import shell as oshell
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
@@ -525,7 +586,7 @@ def f_profile(solver, state, t, reps=10):
                  ('KG grid_product', arith, 'grid_product', kg_cost),
                  ('KJ shell_radial_transform', oshell, 'shell_radial_transform', kj_cost),
                  ('KG grid_cross', arith, 'grid_cross', cross_cost),
-                 ('K3 eq gather', sub, 'pencil_gather', k3_cost)],
+                 ('K3 eq gather', sub, 'pencil_gather', k3_cost)] + fast_targets(),
                 lambda: solver.traced_F(state, t))
     # F with the products through KG and, for comparison only, through KG's
     # plain twin (which the port never calls on the card), in turns
@@ -1332,6 +1393,351 @@ def banded_path():
     if not max(resid, resid_fixed) <= 1e-9:
         raise AssertionError(f"final solve residual {max(resid, resid_fixed):.3e} > 1e-9")
     print(json.dumps({"rbc2048_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+
+
+def set_libraries(value):
+    """Set [transforms] fourier_library and jacobi_library; returns the old
+    values for restore_libraries."""
+    from dedalus_tpu_torch.utils.config import config
+    old = {k: config.get('transforms', k) for k in ('fourier_library', 'jacobi_library')}
+    for k in old:
+        config.set('transforms', k, value)
+    return old
+
+
+def restore_libraries(old):
+    from dedalus_tpu_torch.utils.config import config
+    for k, v in old.items():
+        config.set('transforms', k, v)
+
+
+def capture_fast_calls(run):
+    """The (args, kwargs) of every call of each fast-transform wrapper
+    during run(): {wrapper name: [(args, kwargs), ...]}."""
+    from dedalus_tpu_torch.ops import fft as offt
+    calls = {w: [] for ws in FAST_WRAPPERS.values() for w in ws}
+    saved = {w: getattr(offt, w) for w in calls}
+    for w, fn in saved.items():
+        def recording(*args, _fn=fn, _w=w, **kw):
+            calls[_w].append((args, kw))
+            return _fn(*args, **kw)
+        functools.update_wrapper(recording, fn)
+        setattr(offt, w, recording)
+    try:
+        run()
+    finally:
+        for w, fn in saved.items():
+            setattr(offt, w, fn)
+    return calls
+
+
+def _call_key(args, kw):
+    """A call's configuration: its tensors' shapes, its band's offsets and
+    size, and its other arguments."""
+    def key(v):
+        if isinstance(v, torch.Tensor):
+            return ('tensor', tuple(v.shape))
+        if hasattr(v, 'offsets'):
+            return ('band', v.offsets, v.M)
+        return v
+    return tuple(key(v) for v in args) + tuple((k, key(v)) for k, v in sorted(kw.items()))
+
+
+def check_fast_kernels(path, calls, per_f, primary=True):
+    """K10, K11a, K11b and K12 against their plain twins on every distinct
+    call F made (`calls`, from capture_fast_calls), and their times at those
+    shapes: each kernel's ms, plain_ms and bound_ms are the sums over one of
+    each distinct call; library_ms sums the PyTorch calls computing the same
+    functions over the calls where one exists (torch.fft for K10's complex
+    loads; a dense matmul and solve_triangular for K11b; none for K11a and
+    K12), with the kernel's time over those calls beside it
+    (ms_where_library)."""
+    from dedalus_tpu_torch.ops import fft as offt
+    for name, wrappers in FAST_WRAPPERS.items():
+        errs, ms, plain_ms, bnd = [], 0.0, 0.0, [0.0, 0.0]
+        lib_ms, ms_lib = None, 0.0
+        shapes, by_wrapper = [], {}
+        for w in wrappers:
+            seen = {}
+            for args, kw in calls[w]:
+                seen.setdefault(_call_key(args, kw), (args, kw))
+            kfn, pfn = getattr(offt, w), getattr(offt, w + '_plain')
+            for args, kw in seen.values():
+                yk, yp = kfn(*args, **kw), pfn(*args, **kw)
+                torch.cuda.synchronize()
+                errs.append(rel_err(yk, yp))
+                reps = 20
+                k_ms = cuda_ms(lambda: kfn(*args, **kw), reps)
+                p_ms = cuda_ms(lambda: pfn(*args, **kw), 3 if 'solve' in w else reps)
+                b, o = fast_cost(w, args, kw, yk)
+                ms += k_ms
+                plain_ms += p_ms
+                bnd[0] += b
+                bnd[1] += o
+                lib = fast_library(w, args, kw)
+                if lib is not None:
+                    lib_ms = (lib_ms or 0.0) + cuda_ms(lib, reps)
+                    ms_lib += k_ms
+                data = args[1] if w.startswith('conversion') else args[0]
+                shapes.append([w, list(data.shape)])
+                by_wrapper.setdefault(w, []).append(dict(shape=shapes[-1][1], ms=k_ms,
+                                                         plain_ms=p_ms, err=errs[-1][0],
+                                                         bound_ms=bound(b, o)[0]))
+                print(f"  {w} {shapes[-1][1]} {dict((k, v) for k, v in kw.items())}: kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound(b, o)[0]:.4f} ms "
+                      f"({bound(b, o)[1]}), rel_err {errs[-1][0]:.2e}", flush=True)
+        if not errs:
+            raise AssertionError(f"{name}: F made no call of its wrappers on the {path} path")
+        b_ms, b_by = bound(*bnd)
+        record(name, path, dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                ms_where_library=ms_lib, bound_ms=b_ms, bound_by=b_by,
+                                shape=shapes, calls_checked=len(errs),
+                                ms_by_wrapper=by_wrapper, launches_per_F=per_f.get(name)),
+               primary, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape'))
+
+
+def fast_library(wrapper, args, kw):
+    """One PyTorch call computing a wrapper's function on the same inputs,
+    or None: torch.fft for the DFT (complex in, or complex in and the real
+    part out: a view), a dense matmul and torch.linalg.solve_triangular for
+    the conversion's apply and solve."""
+    if wrapper == 'dft':
+        x, sign, axis = args[0], args[1], args[2]
+        load, scale = kw.get('load', 'complex'), kw.get('scale', 1.0)
+        if load == 'packed':
+            return None
+        N = x.shape[axis]
+        if sign < 0 and scale == 1.0 and not kw.get('real_out'):
+            return lambda: torch.fft.fft(x, dim=axis)
+        norm = 'backward' if abs(scale * N - 1) < 1e-12 else 'forward' if scale == 1.0 else None
+        if sign < 0 or load != 'complex' or norm is None:
+            return None
+        if kw.get('real_out'):
+            return lambda: torch.fft.ifft(x, dim=axis, norm=norm).real
+        return lambda: torch.fft.ifft(x, dim=axis, norm=norm)
+    if wrapper in ('conversion_apply', 'conversion_solve'):
+        band, x, axis = args
+        if axis % x.ndim != x.ndim - 1:
+            return None
+        U = torch.zeros((band.M, band.M), dtype=torch.float64, device=x.device)
+        for d, off in enumerate(band.offsets):
+            U += torch.diag(torch.as_tensor(band.diags[d][:band.M - off], device=x.device), off)
+        if wrapper == 'conversion_apply':
+            return lambda: torch.matmul(x, U.T)
+        rhs = x[..., :band.M].reshape(-1, band.M)
+        return lambda: torch.linalg.solve_triangular(U, rhs.T, upper=True)
+    return None
+
+
+def fast_vs_mmt_fields(fast_solver, mmt_solver):
+    """Per state field, max |fast - MMT| of the coefficients relative to the
+    largest coefficient of the MMT state, and relative to the field's own
+    max: ({field: error}, {field: error}). The banded solve's roundoff is
+    relative to the state (b ~ 1): a field far below it (u ~ 1e-6 after 25
+    steps from the seeded rest state) carries that roundoff as a large
+    fraction of its own size, with the same plans on the CPU (6.5e-11 of
+    max|u| at 64x32, two runs of the plain twins)."""
+    pairs = []
+    for ff, fm in zip(fast_solver.state, mmt_solver.state):
+        ff.change_scales(1)
+        fm.change_scales(1)
+        pairs.append((ff.name, ff['c'], fm['c']))
+    top = max(float(b.abs().max()) for _, _, b in pairs)
+    to_state, to_own = {}, {}
+    for name, a, b in pairs:
+        diff = float((a - b).abs().max())
+        to_state[name] = diff / top
+        to_own[name] = diff / max(float(b.abs().max()), 1e-300)
+    return to_state, to_own
+
+
+def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
+    """Per axis grid size, the forward and backward transform of `lines`
+    lines (the axis last) as MMT (torch.matmul with an (N, N) matrix: its
+    time does not depend on the values), on the fast kernels (RealFourier,
+    ChebyshevT at da = 0, ChebyshevU at da = 1, through forward_transform /
+    backward_transform under 'fast') and through torch.fft (rfft / irfft,
+    and the complex fft of the DCT's length): mean ms per transform."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.core import basis as tbasis
+    dev = torch.device(DEVICE)
+    rows = []
+    old = set_libraries('fast')
+    try:
+        for N in sizes:
+            reps = 10 if N <= 2048 else 3
+            gen = torch.Generator(device=dev).manual_seed(N)
+            x = torch.randn((lines, N), generator=gen, dtype=torch.float64, device=dev)
+            A = torch.randn((N, N), generator=gen, dtype=torch.float64, device=dev)
+            row = dict(N=N, lines=lines, mmt=cuda_ms(lambda: torch.matmul(x, A.T), reps))
+            del A
+            coord = d3.Coordinate('x')
+            for label, basis in (('RealFourier', tbasis.RealFourier(coord, N, (0, 2 * np.pi))),
+                                 ('ChebyshevT', tbasis.ChebyshevT(coord, N, (-1, 1))),
+                                 ('ChebyshevU', tbasis.ChebyshevU(coord, N, (-1, 1)))):
+                c = basis.forward_transform(x, 1, 1, np.float64)
+                row[label + '_fwd'] = cuda_ms(
+                    lambda: basis.forward_transform(x, 1, 1, np.float64), reps)
+                row[label + '_bwd'] = cuda_ms(
+                    lambda: basis.backward_transform(c, 1, 1, np.float64), reps)
+                del c
+            xc = x.to(torch.complex128)
+            row['torch_rfft'] = cuda_ms(lambda: torch.fft.rfft(x, dim=1), reps)
+            h = torch.fft.rfft(x, dim=1)
+            row['torch_irfft'] = cuda_ms(lambda: torch.fft.irfft(h, n=N, dim=1), reps)
+            row['torch_fft_complex'] = cuda_ms(lambda: torch.fft.fft(xc, dim=1), reps)
+            del x, xc, h
+            torch.cuda.empty_cache()
+            rows.append(row)
+            print(f"crossover N={N}: " + " ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if k not in ('N', 'lines')), flush=True)
+    finally:
+        restore_libraries(old)
+    print(json.dumps({"crossover": rows, "card": smi}))
+    return rows
+
+
+def auto_threshold_check():
+    """Under 'auto', a RealFourier and a ChebyshevT transform at size 8192
+    (the threshold) take the fast path on the card (the fast kernels
+    launch, the dense matmul is never called) and equal the CPU-held port
+    (the plain twins) to K10's tolerance."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.core import basis as tbasis
+    from dedalus_tpu_torch.ops import transforms as otr, fft as offt
+    dev = torch.device(DEVICE)
+    old = set_libraries('auto')
+    N = tbasis.FAST_THRESHOLD
+    errs = {}
+
+    def no_mmt(*a, **kw):
+        raise AssertionError("the dense matrix transform ran under 'auto' at the threshold")
+
+    mmt = otr.apply_matrix
+    otr.apply_matrix = no_mmt
+    try:
+        coord = d3.Coordinate('x')
+        x = torch.as_tensor(np.random.default_rng(8).standard_normal((16, N)))
+        for label, basis in (('RealFourier', tbasis.RealFourier(coord, N, (0, 2 * np.pi))),
+                             ('ChebyshevT', tbasis.ChebyshevT(coord, N, (-1, 1)))):
+            n0 = offt.dft.launches
+            fwd = basis.forward_transform(x.to(dev), 1, 1, np.float64)
+            bwd = basis.backward_transform(fwd, 1, 1, np.float64)
+            torch.cuda.synchronize()
+            if offt.dft.launches - n0 != 2:
+                raise AssertionError(f"{label} at {N}: {offt.dft.launches - n0} K10 launches")
+            fwd_cpu = basis.forward_transform(x, 1, 1, np.float64)
+            bwd_cpu = basis.backward_transform(fwd_cpu, 1, 1, np.float64)
+            errs[label] = (rel_err(fwd.cpu(), fwd_cpu)[0], rel_err(bwd.cpu(), bwd_cpu)[0])
+    finally:
+        otr.apply_matrix = mmt
+        restore_libraries(old)
+    print(f"'auto' at size {N}: fast path on the card, card vs CPU (forward, backward) {errs} "
+          f"(tol {TOL['dft_four_step']:.0e})")
+    if not max(max(e) for e in errs.values()) <= TOL['dft_four_step']:
+        raise AssertionError(f"'auto' at the threshold: card and CPU disagree: {errs}")
+    return errs
+
+
+def banded_fast_path(n_steps=20):
+    """RBC 2048x512 SBDF2 banded with [transforms] fourier_library =
+    jacobi_library = fast: setup and warm-up, K10, K11a, K11b and K12
+    against their twins on every call of one F evaluation, 20 timed steps
+    with the launches counted, the last solve residual, the same steps under
+    MMT from the same initial condition, the card against the CPU at 64x32,
+    F under both libraries, 'auto' at the threshold and the crossover
+    table."""
+    dev, kind, smi = card()
+    old = set_libraries('fast')
+    try:
+        phase(f"banded fast path setup: RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded, "
+              f"fourier_library = jacobi_library = fast, on {kind}")
+        t0 = time.perf_counter()
+        solver = build_rbc(NX, NZ, RA, dev, matsolver='banded')
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        solver.run_steps(DT, 5)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"setup_s {setup_s:.2f} warmup_s {warm_s:.2f} (5 steps incl. factorization "
+              f"and probes)")
+        state, t = solver.state_flat(), solver.sim_time
+
+        phase("K10, K11a, K11b, K12 vs plain twins (every call of one F evaluation)")
+        calls = capture_fast_calls(lambda: solver.traced_F(state, t))
+        per_f = {name: sum(len(calls[w]) for w in ws) for name, ws in FAST_WRAPPERS.items()}
+        print(f"fast-transform calls per F evaluation: {per_f}")
+        check_fast_kernels('rbc2048_fast', calls, per_f)
+        del calls
+
+        phase(f"banded fast path: {n_steps} timed steps")
+        ts = solver.timestepper
+        a, b, c = ts.compute_coefficients([DT, DT], 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches('rbc2048_fast', n_steps, lambda: solver.run_steps(DT, n_steps))
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / n_steps * 1e3
+        resid = last_solve_residual(solver, a, b, c)
+        refinements = ts._factorized[(float(a[0]), float(b[0]))].banded.refinements
+        print(f"[{smi}] RBC {NX}x{NZ} fast transforms: {ms_step:.3f} ms/step, refinements "
+              f"{refinements}, final solve residual {resid:.3e}; launches "
+              f"{ {k: v for k, v in LAUNCHES['rbc2048_fast'].items() if v} }")
+        if not torch.isfinite(solver.state_flat()).all():
+            raise AssertionError("fast path state is not finite")
+        if not resid <= 1e-9:
+            raise AssertionError(f"fast path final solve residual {resid:.3e} > 1e-9")
+
+        phase("F per evaluation under 'fast' and under 'matrix' (same state)")
+        state, t = solver.state_flat(), solver.sim_time
+        f_fast = f_profile(solver, state, t)
+        set_libraries('matrix')
+        f_mmt = f_profile(solver, state, t)
+        set_libraries('fast')
+        print(f"F per evaluation: fast {f_fast['ms']:.3f} ms, matrix {f_mmt['ms']:.3f} ms")
+        print(json.dumps({"rbc2048_F_fast": f_fast, "rbc2048_F_matrix": f_mmt, "card": smi}))
+
+        phase(f"the same {5 + n_steps} steps under MMT from the same initial condition")
+        set_libraries('matrix')
+        mmt = build_rbc(NX, NZ, RA, dev, matsolver='banded')
+        mmt.run_steps(DT, 5)
+        mmt.run_steps(DT, n_steps)
+        torch.cuda.synchronize()
+        errs, errs_own = fast_vs_mmt_fields(solver, mmt)
+        print(f"fast vs MMT after {5 + n_steps} steps, each field relative to the state's "
+              f"largest coefficient (tol 1e-10): {errs}; relative to its own max: {errs_own}")
+        if not max(errs.values()) <= 1e-10:
+            raise AssertionError(f"fast and MMT runs disagree: {errs}")
+        del mmt, solver
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase("RBC 64x32 Ra=1e5 SBDF2 banded, fast, 10 steps: cuda vs cpu")
+        set_libraries('fast')
+        states = {}
+        for d in (DEVICE, 'cpu'):
+            s = build_rbc(64, 32, 1e5, d, matsolver='banded')
+            s.run_steps(DT, 10)
+            states[d] = s.state_flat().cpu()
+        err64 = rel_err(states[DEVICE], states['cpu'])[0]
+        print(f"cuda vs cpu rel_err {err64:.3e} (tol 1e-10)")
+        if not err64 <= 1e-10:
+            raise AssertionError(f"fast: card and CPU trajectories disagree: {err64:.3e}")
+    finally:
+        restore_libraries(old)
+
+    phase("'auto' at the threshold, and the crossover table")
+    auto_errs = auto_threshold_check()
+    crossover = crossover_table(smi)
+    print(json.dumps({"main_path_fast": dict(
+        config=f"RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded, fourier_library = jacobi_library = fast",
+        card=smi, ms_per_step=ms_step, setup_s=setup_s, warmup_s=warm_s,
+        refinements=refinements, final_residual=resid, fast_vs_mmt=errs,
+        fast_vs_mmt_own_max=errs_own,
+        card_vs_cpu_64x32=err64, f_ms_fast=f_fast['ms'], f_ms_matrix=f_mmt['ms'],
+        launches_per_F=per_f, auto_threshold_errs=auto_errs,
+        crossover_sizes=[r['N'] for r in crossover])}))
 
 
 def dense_card_vs_cpu():
@@ -2880,6 +3286,7 @@ def main():
 
     t_start = time.perf_counter()
     banded_path()
+    banded_fast_path()
     cold_start_path()
     dense_card_vs_cpu()
     example_path()
@@ -2900,7 +3307,8 @@ def main():
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',
              'err_f32_branch', 'err_path_sinv', 'err_path_sinv_f32_branch', 'cond_S',
              'err_by_factor', 'pins', 'growth', 'solve_residual', 'solve_residual_plain',
-             'override_ms', 'override_plain_ms', 'override_bound_ms')
+             'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',
+             'calls_checked', 'ms_by_wrapper', 'ms_where_library')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

@@ -2,25 +2,39 @@
 Spectral bases: the Jacobi family on an interval and the real Fourier basis,
 each bundling grids, dense transform matrices and sparse operator matrices.
 
-Mirrors dedalus_tpu/core/basis.py on the dense matrix transform (MMT) path.
-All matrices are built on the host exactly as in the JAX package; transforms
-apply them on the field's device. Bases at or above FAST_THRESHOLD would
-take the JAX package's fast FFT/DCT paths, which are not ported yet
-(ROADMAP M10); ComplexFourier needs complex fields (ROADMAP M2).
+Mirrors dedalus_tpu/core/basis.py. All matrices are built on the host
+exactly as in the JAX package; transforms apply them on the field's device
+(MMT), or take the fast paths of ops/fft.py where `[transforms]
+fourier_library` / `jacobi_library` ask for them, as the JAX package
+dispatches (`_fast_enabled`). ComplexFourier needs complex fields (ROADMAP
+M2c).
 """
 
 import numpy as np
 import torch
 from scipy import sparse
 
-from ..utils.caching import CachedClass, CachedMethod
+from ..utils.caching import CachedClass, CachedMethod, CachedAttribute
+from ..utils.config import config
 from ..spectral import jacobi as jacobi_lib
 from ..spectral import clenshaw
 from ..ops import transforms as ops_transforms
+from ..ops import fft
 
-# The JAX package's default size above which its fast FFT/DCT paths replace
-# the dense matrix transforms (dedalus_tpu/core/basis.py:24)
-FAST_THRESHOLD = 8192
+# Size from which 'auto' takes the fast paths (dedalus_tpu/core/basis.py:24)
+FAST_THRESHOLD = int(config.get('transforms', 'fast_threshold', fallback='8192'))
+
+
+def _fast_enabled(library_key, size):
+    """Transform plan selection, read at every call as the JAX package's
+    (dedalus_tpu/core/basis.py:27-45): 'matrix' = always MMT, 'fast' = always
+    the fast path, 'auto' = fast from FAST_THRESHOLD on."""
+    lib = config.get('transforms', library_key, fallback='auto')
+    if lib == 'matrix':
+        return False
+    if lib in ('fast', 'fft'):
+        return True
+    return size >= FAST_THRESHOLD
 
 # Device copies of host matrices, keyed by (id(host matrix), device); the
 # host matrix is kept alive beside its copy so the id stays unique.
@@ -32,13 +46,6 @@ def device_copy(np_matrix, device):
     if key not in _DEVICE_CACHE:
         _DEVICE_CACHE[key] = (np_matrix, torch.as_tensor(np_matrix, device=device))
     return _DEVICE_CACHE[key][1]
-
-
-def _require_mmt(basis, N):
-    if max(N, basis.size) >= FAST_THRESHOLD:
-        raise NotImplementedError(
-            f"{basis} at grid size {N} would use the fast transform path, "
-            f"which is not ported yet (ROADMAP M10)")
 
 
 class AffineCOV:
@@ -112,13 +119,11 @@ class Basis(metaclass=CachedClass):
 
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
         """grid -> coeff along axis (data at grid size for `scale`)."""
-        _require_mmt(self, self.grid_size(scale))
         matrix = device_copy(self._forward_matrix_host(scale, dtype), data.device)
         return ops_transforms.apply_matrix(matrix, data, axis)
 
     def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
         """coeff -> grid along axis."""
-        _require_mmt(self, self.grid_size(scale))
         matrix = device_copy(self._backward_matrix_host(scale, dtype), data.device)
         return ops_transforms.apply_matrix(matrix, data, axis)
 
@@ -215,6 +220,86 @@ class Jacobi(Basis):
         P[N:, :] = 0
         return np.ascontiguousarray(P.T.astype(dtype))
 
+    # --- fast (DCT) transform path ---
+    # Valid when the grid is Gauss-Chebyshev (a0 = b0 = -1/2) and the coeff
+    # params sit an integer number of ultraspherical conversions above it
+    # (dedalus_tpu/core/basis.py:263-353). The grid is z-ascending
+    # (theta-descending), so the grid data is reversed around the DCT.
+
+    @CachedAttribute
+    def _fast_da(self):
+        """Integer ultraspherical offset, or None if the fast path is invalid."""
+        if (self.a0, self.b0) != (-0.5, -0.5):
+            return None
+        da, db = self.a - self.a0, self.b - self.b0
+        if da != db or da < 0 or da != round(da):
+            return None
+        return int(round(da))
+
+    def _use_fast(self, N):
+        return self._fast_da is not None and _fast_enabled('jacobi_library', max(N, self.size))
+
+    @CachedMethod
+    def _conversion_band(self, M):
+        """The T -> (a,b) conversion (M x M) by its diagonals, for the
+        conversion kernels of ops/fft.py."""
+        K = jacobi_lib.conversion_matrix(M, self.a0, self.b0, self.a, self.b).tocsr()
+        coo = K.tocoo()
+        offsets = sorted(set((coo.col - coo.row).tolist()))
+        diags = []
+        for off in offsets:
+            d = np.zeros(M)
+            vals = K.diagonal(off)
+            d[:len(vals)] = vals
+            diags.append(d)
+        return fft.ConversionBand(diags, offsets)
+
+    @CachedMethod
+    def _fast_scales(self, N):
+        """Orthonormal-T scales of the DCT-II (forward) and DCT-III
+        (backward) on N grid points, host f64."""
+        fwd = np.full(N, np.sqrt(np.pi / 2) / N)
+        fwd[0] = np.sqrt(np.pi) / (2 * N)
+        bwd = np.full(N, 1 / np.sqrt(2 * np.pi))
+        bwd[0] = 1 / np.sqrt(np.pi)
+        return fwd, bwd
+
+    def _fast_forward(self, data, axis, N):
+        """Grid -> coeff: reverse, DCT-II, orthonormal-T scaling, resize to
+        M, conversion (kernels K11a, K10, K11a, K11b)."""
+        _require_real(data)
+        M = self.size
+        scale = device_copy(self._fast_scales(N)[0], data.device)
+        v = fft.dct2_pre(data, axis, flip=True)
+        t = fft.dct2_post(fft.dft(v, -1, axis, load='real'), axis, M, scale)
+        if self._fast_da:
+            t = fft.conversion_apply(self._conversion_band(M), t, axis)
+        return t
+
+    def _fast_backward(self, data, axis, N):
+        """Coeff -> grid: inverse conversion on the first min(M, N)
+        coefficients, scaling, DCT-III, reverse (kernels K11b, K11a, K10,
+        K11a)."""
+        _require_real(data)
+        P = min(self.size, N)
+        scale = device_copy(self._fast_scales(N)[1], data.device)
+        if self._fast_da:
+            data = fft.conversion_solve(self._conversion_band(P), data, axis)
+        v = fft.dft(fft.dct3_pre(data, axis, N, scale), +1, axis, real_out=True)
+        return fft.dct3_post(v, axis, flip=True)
+
+    def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if self._use_fast(N):
+            return self._fast_forward(data, axis, N)
+        return super().forward_transform(data, axis, scale, dtype, tensorsig)
+
+    def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if self._use_fast(N):
+            return self._fast_backward(data, axis, N)
+        return super().backward_transform(data, axis, scale, dtype, tensorsig)
+
     # --- operator matrices ---
 
     @CachedMethod
@@ -279,6 +364,29 @@ class Jacobi(Basis):
 def ChebyshevT(coord, size, bounds, dealias=1, dtype=np.float64):
     """Chebyshev-T basis: Jacobi(-1/2, -1/2)."""
     return Jacobi(coord, size, bounds, a=-0.5, b=-0.5, dealias=dealias, dtype=dtype)
+
+
+def ChebyshevU(coord, size, bounds, dealias=1, dtype=np.float64):
+    """Chebyshev-U coefficients on the Chebyshev-T grid: Jacobi(1/2, 1/2)."""
+    return Jacobi(coord, size, bounds, a=0.5, b=0.5, a0=-0.5, b0=-0.5, dealias=dealias,
+                  dtype=dtype)
+
+
+def ChebyshevV(coord, size, bounds, dealias=1, dtype=np.float64):
+    """Jacobi(3/2, 3/2) coefficients on the Chebyshev-T grid."""
+    return Jacobi(coord, size, bounds, a=1.5, b=1.5, a0=-0.5, b0=-0.5, dealias=dealias,
+                  dtype=dtype)
+
+
+def Legendre(coord, size, bounds, dealias=1, dtype=np.float64):
+    """Legendre basis: Jacobi(0, 0) (no fast path)."""
+    return Jacobi(coord, size, bounds, a=0, b=0, dealias=dealias, dtype=dtype)
+
+
+def _require_real(data):
+    if data.is_complex():
+        raise NotImplementedError("fast transforms of complex fields are not ported yet "
+                                  "(ROADMAP M2c)")
 
 
 class FourierBase(Basis):
@@ -358,6 +466,20 @@ class RealFourier(FourierBase):
         mat *= (self.wavenumbers_native[None, :] <= Kmax)
         mat = mat[:, :self.size]
         return np.ascontiguousarray(mat.astype(dtype))
+
+    def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if self.size > 1 and _fast_enabled('fourier_library', max(N, self.size)):
+            _require_real(data)
+            return ops_transforms.real_fft_forward(data, axis, self.size, self.Kmax_for(N))
+        return super().forward_transform(data, axis, scale, dtype, tensorsig)
+
+    def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if self.size > 1 and _fast_enabled('fourier_library', max(N, self.size)):
+            _require_real(data)
+            return ops_transforms.real_fft_backward(data, axis, N, self.Kmax_for(N))
+        return super().backward_transform(data, axis, scale, dtype, tensorsig)
 
     def valid_coeff_mask(self, tensorsig=()):
         mask = np.ones(self.size, dtype=bool)

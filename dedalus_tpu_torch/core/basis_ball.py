@@ -563,8 +563,20 @@ class SphericalShellRadialBasis(SphericalRadialBasis, Basis):
 
     def _transform(self, data, scale, forward):
         """KJ on (..., N_in) data, the radius trailing: every line through
-        the Jacobi matrix, the weight of this k applied on the grid side."""
+        the Jacobi matrix, the weight of this k applied on the grid side.
+        Where `[transforms] jacobi_library` picks the fast path for the
+        radial Jacobi basis, the JAX package's order instead: the weight
+        multiply on the grid side, then the fast Chebyshev transform."""
         jac = self._jacobi
+        if jac._use_fast(self.grid_size(scale)):
+            w = self.radial_weight(scale, forward)
+            w = None if w is None else device_copy(w, data.device)
+            axis = data.ndim - 1
+            if forward:
+                return jac.forward_transform(data if w is None else data * w, axis, scale,
+                                             np.float64)
+            y = jac.backward_transform(data, axis, scale, np.float64)
+            return y if w is None else y * w
         T = jac._forward_matrix_host(scale, np.float64) if forward else \
             jac._backward_matrix_host(scale, np.float64)
         w = self.radial_weight(scale, forward)

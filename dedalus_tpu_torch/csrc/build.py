@@ -54,6 +54,19 @@ SIGNATURES = {
     'shell_kernels': {
         'kj_shell_radial_f64': [_P] * 5 + [_I] * 3 + [_P],
     },
+    'fft_kernels': {
+        'k10_dft_c128': [_P, _I] + [_P] * 4 + [_I, _D, _P] + [_I] * 4 + [_P],
+        'k11_dct2_pre_f64': [_P] * 2 + [_I] * 4 + [_P],
+        'k11_dct2_post_f64': [_P] * 5 + [_I] * 4 + [_P],
+        'k11_dct3_pre_f64': [_P] * 5 + [_I] * 5 + [_P],
+        'k11_dct3_post_f64': [_P] * 2 + [_I] * 4 + [_P],
+        'k12_fourier_pack_f64': [_P] * 4 + [_I] * 6 + [_D] * 2 + [_P],
+        'k12_fourier_unpack_f64': [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    },
+    'conversion_kernels': {
+        'k11_conversion_apply_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
+        'k11_conversion_solve_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
+    },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 6 + [_I] * 2 + [_P],
         'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],

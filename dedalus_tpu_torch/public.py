@@ -22,7 +22,7 @@ plot tools and post-processing are not ported yet (ROADMAP M9).
 from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates,
                           SphericalCoordinates)
 from .core.distributor import Distributor
-from .core.basis import Jacobi, ChebyshevT, RealFourier
+from .core.basis import Jacobi, ChebyshevT, ChebyshevU, ChebyshevV, Legendre, RealFourier
 from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.basis_sphere import SphereBasis
 from .core.basis_ball import BallBasis, ShellBasis

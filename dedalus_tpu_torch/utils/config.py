@@ -14,6 +14,19 @@ DEFAULTS = {
     'logging': {
         'stdout_level': 'info',
     },
+    'transforms': {
+        # Transform plan per basis family, read at every transform: 'matrix'
+        # (dense MMT, torch.matmul), 'fast' (the four-step DFT, the DCT
+        # wrapping, the ultraspherical conversion and the real-Fourier
+        # packing: ops/fft.py and its kernels), or 'auto' (fast where the
+        # grid or the basis reaches fast_threshold)
+        'fourier_library': 'auto',
+        'jacobi_library': 'auto',
+        # The JAX package's threshold (dedalus_tpu/utils/config.py), measured
+        # there on its own device; this card's crossover is measured by
+        # chip_smoke.py's crossover table and not yet applied
+        'fast_threshold': '8192',
+    },
     'linear algebra': {
         # Default matsolver of the solvers: 'inverse_refined' (dense
         # inverse + one refinement pass, KA) or 'inverse' (dense inverse,
