@@ -2,11 +2,16 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives ten main paths through the
+CPU-held port at the small sizes, and drives twelve main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver named (kernels
     K4, K5, K6, K7, K3), its cold start by phase, 20 timed steps;
+  * the same with matsolver='poly' (poly_path: the sampled separable
+    assembly, the poly factorization from the lazy form by phase, kernel
+    K14c, the separable GEMM-form apply, against its twin on every distinct
+    call of a step), 3 warm-up and 10 timed steps, its final state held
+    against the banded path's after the same steps;
   * the same with `[transforms] fourier_library = jacobi_library = fast`
     (banded_fast_path: the four-step DFT K10, the DCT wrapping K11a, the
     ultraspherical conversion K11b and the real-Fourier pack K12 in place of
@@ -22,7 +27,11 @@ public entry points:
   * the repository's Rayleigh-Benard example, 256x64, Ra=2e6, RK222 with the
     default dense matsolver (inverse_refined) and the example's CFL loop
     and GlobalFlowProperty (kernels KA, KB, KC, KD, K3), 200 timed
-    iterations;
+    iterations; then the same loop under the lu (kernel K14a), mixed (K14b),
+    matrix_free (KB's f32 form) and inverse_refined matsolvers, 50 timed
+    iterations each (matsolver_loops_path), and the dense SBDF2 step under
+    matrix_free; before them RBC 64x32 under poly (the lazy form forced),
+    lu, mixed and matrix_free card vs CPU;
   * the annulus convection example (examples/ivp_annulus_convection.py) at
     256x128, RK222, dense inverse_refined (KA, KB, KC, KE, KF, K3), 100 timed
     steps of the example's loop with its GlobalFlowProperty;
@@ -62,7 +71,8 @@ each path's dealias grid.
     python3 chip_smoke.py
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
-banded_path, banded_fast_path, cold_start_path, example_path, annulus_path, disk_path,
+banded_path, poly_path, banded_fast_path, cold_start_path, example_path,
+matsolver_loops_path, matsolvers_card_vs_cpu, annulus_path, disk_path,
 ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
@@ -128,6 +138,12 @@ SHELL = dict(size=(192, 96, 12), dt=2e-3, warmup=3, steps=50, example=(16, 8, 8)
 # 16x8x12; all at the example's dt
 BALL_IHC = dict(size=(64, 32, 32), dt=2e-3, warmup=3, steps=50, example=(32, 16, 24),
                 example_steps=200, small=(16, 8, 12))
+# K14: the separable apply's f64 sums run over (q, k) in another order than
+# the twin's GEMM and weight contraction; the LU sweeps and the mixed
+# solve's f32 products too, amplified by the factors' conditioning
+SEPARABLE_TOL = 1e-12
+LU_TOL = 1e-12
+MIXED_TOL = 1e-12
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
            cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
@@ -136,7 +152,8 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
            shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13,
            dft_four_step=1e-13, dct_wrap=1e-13, chebyshev_conversion=1e-12,
-           real_fourier_pack=1e-15)
+           real_fourier_pack=1e-15, separable_apply=SEPARABLE_TOL, lu_solve=LU_TOL,
+           mixed_solve=MIXED_TOL)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -192,6 +209,11 @@ KERNELS = dict(   # name: (route, source, replaces)
                           'dedalus_tpu/ops/fft64.py:280'),
     real_fourier_pack=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu',
                        'dedalus_tpu/ops/transforms.py:77'),
+    separable_apply=('cuda', 'dedalus_tpu_torch/csrc/separable_kernels.cu',
+                     'dedalus_tpu/ops/solve.py:317'),
+    lu_solve=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu', 'dedalus_tpu/ops/solve.py:53'),
+    mixed_solve=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
+                 'dedalus_tpu/ops/solve.py:128'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
 FAST_WRAPPERS = dict(dft_four_step=('dft',),
@@ -202,8 +224,22 @@ FAST_WRAPPERS = dict(dft_four_step=('dft',),
 # batched x chain: 8 components of 768 z points)
 CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 CROSSOVER_LINES = 6144
+# The poly path (RBC 2048x512 with matsolver='poly'): warm-up and timed steps
+POLY = dict(warmup=3, steps=10)
+# The RBC example's CFL loop under the other dense matsolvers, and the
+# timed iterations of each
+MATSOLVER_LOOPS = ('lu', 'mixed', 'matrix_free', 'inverse_refined')
+LOOP_ITERATIONS = 50
+_EXAMPLE_KERNELS = ('dense_matvec', 'rk_stage_combine', 'cfl_max', 'pencil_gather_scatter',
+                    'grid_product')
 # Kernels each main path must launch
 PATH_KERNELS = dict(
+    rbc2048_poly=('separable_apply', 'history_combine', 'pencil_gather_scatter',
+                  'grid_product'),
+    rbc256_lu=('lu_solve',) + _EXAMPLE_KERNELS,
+    rbc256_mixed=('mixed_solve',) + _EXAMPLE_KERNELS,
+    rbc256_matrix_free=_EXAMPLE_KERNELS,
+    rbc256_inverse_refined=('dense_refined_solve',) + _EXAMPLE_KERNELS,
     rbc2048=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
              'pencil_gather_scatter', 'grid_product', 'banded_solve_pre', 'banded_solve_post',
              'dense_matvec'),
@@ -425,7 +461,9 @@ def kernel_functions():
                 trailing_apply=[opolar.trailing_apply],
                 shell_radial_transform=[oshell.shell_radial_transform],
                 grid_cross=[oprod.grid_cross],
-                ball_radial_apply_rot=[oball.ball_radial_apply_rot], **fast)
+                ball_radial_apply_rot=[oball.ball_radial_apply_rot],
+                separable_apply=[osolve.separable_apply, osolve.separable_apply_pair],
+                lu_solve=[osolve.lu_solve], mixed_solve=[osolve.mixed_solve], **fast)
 
 
 def count_launches(path, steps, run):
@@ -1758,11 +1796,46 @@ def dense_card_vs_cpu():
             raise AssertionError(f"{scheme}: card and CPU trajectories disagree: {err:.3e}")
 
 
+def build_example(matsolver=None):
+    """The Rayleigh-Benard example at EX_NX x EX_NZ on the card: RK222 on
+    `matsolver` (the default when None), the example's initial condition,
+    CFL and GlobalFlowProperty. Returns (solver, ctx, CFL, flow)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models.rbc import build_rbc_problem
+    problem, ctx = build_rbc_problem(EX_NX, EX_NZ, Rayleigh=EX_RA)
+    solver = problem.build_solver(d3.RK222, matsolver=matsolver)
+    dist, b, u, Lz = ctx['dist'], ctx['b'], ctx['u'], ctx['Lz']
+    x, z = dist.local_grids(ctx['xbasis'], ctx['zbasis'], scales=1)
+    z = torch.as_tensor(z, device=dist.device)
+    b.fill_random('g', seed=42, distribution='normal', scale=1e-3)
+    b['g'] = b['g'] * z * (Lz - z)
+    b['g'] = b['g'] + Lz - z
+    CFL = d3.CFL(solver, initial_dt=0.125, cadence=10, safety=0.5, threshold=0.05,
+                 max_change=1.5, min_change=0.5, max_dt=0.125)
+    CFL.add_velocity(u)
+    flow = d3.GlobalFlowProperty(solver, cadence=10)
+    flow.add_property(np.sqrt(u @ u) / ctx['nu'], name='Re')
+    return solver, ctx, CFL, flow
+
+
+def example_loop(solver, CFL, iterations, dts, peaks):
+    """The example's main loop for `iterations` iterations: a CFL timestep,
+    then its chunk of steps; records each dt and (distinct dt values, peak
+    bytes). Returns a device flag: every state stayed finite."""
+    ok = torch.ones((), dtype=torch.bool, device=solver.dist.device)
+    start = solver.iteration
+    while solver.iteration < start + iterations:
+        dt = CFL.compute_timestep()
+        dts.append(dt)
+        solver.run_steps(dt, CFL.chunk_steps())
+        ok = ok & torch.isfinite(solver.state_flat()).all()
+        peaks.append((len(set(dts)), torch.cuda.max_memory_allocated()))
+    return ok
+
+
 def example_path():
     """The Rayleigh-Benard example: 256x64, Ra=2e6, RK222 with the default
     matsolver, the example's CFL loop and GlobalFlowProperty."""
-    import dedalus_tpu_torch.public as d3
-    from dedalus_tpu_torch.models.rbc import build_rbc_problem
     from dedalus_tpu_torch.ops import solve as osolve
     from dedalus_tpu_torch.csrc import rk_combine as rkc
     from dedalus_tpu_torch.csrc import cfl_max as cm
@@ -1777,22 +1850,10 @@ def example_path():
     print(f"device memory held before setup: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    problem, ctx = build_rbc_problem(EX_NX, EX_NZ, Rayleigh=EX_RA)
-    solver = problem.build_solver(d3.RK222)
-    dist, b, u, Lz = ctx['dist'], ctx['b'], ctx['u'], ctx['Lz']
+    solver, ctx, CFL, flow = build_example()
+    dist, u = ctx['dist'], ctx['u']
     if solver.matsolver != 'inverse_refined' or dist.device.type != dev.type:
         raise AssertionError(f"example path on {solver.matsolver} / {dist.device}")
-    # The example's initial condition
-    x, z = dist.local_grids(ctx['xbasis'], ctx['zbasis'], scales=1)
-    z = torch.as_tensor(z, device=dist.device)
-    b.fill_random('g', seed=42, distribution='normal', scale=1e-3)
-    b['g'] = b['g'] * z * (Lz - z)
-    b['g'] = b['g'] + Lz - z
-    CFL = d3.CFL(solver, initial_dt=0.125, cadence=10, safety=0.5, threshold=0.05,
-                 max_change=1.5, min_change=0.5, max_dt=0.125)
-    CFL.add_velocity(u)
-    flow = d3.GlobalFlowProperty(solver, cadence=10)
-    flow.add_property(np.sqrt(u @ u) / ctx['nu'], name='Re')
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     pencil = solver.pencil
@@ -1805,15 +1866,7 @@ def example_path():
     peaks = []      # (distinct dt values visited, peak bytes) after each chunk
 
     def main_loop(iterations):
-        ok = torch.ones((), dtype=torch.bool, device=dist.device)
-        start = solver.iteration
-        while solver.iteration < start + iterations:
-            dt = CFL.compute_timestep()
-            dts.append(dt)
-            solver.run_steps(dt, CFL.chunk_steps())
-            ok = ok & torch.isfinite(solver.state_flat()).all()
-            peaks.append((len(set(dts)), torch.cuda.max_memory_allocated()))
-        return ok
+        return example_loop(solver, CFL, iterations, dts, peaks)
 
     t0 = time.perf_counter()
     ok = main_loop(11)               # to the first CFL update: factorization + Triton builds
@@ -1888,11 +1941,6 @@ def example_path():
                    bound(nbytes(*grids, Dk), len(grids) * grids[0].numel()))))
     check_k3('rbc256', pencil, state)
     check_kg('rbc256', u)
-    # K14's LU solve (not ported) at this stack: the factors read once
-    perm = torch.empty((G, P), dtype=torch.int32, device=R.device)
-    lu_bound = bound(nbytes(fact.Ainv, perm, R, Xk), 2 * G * P * P)
-    print(json.dumps({"rbc256_to_port": {"K14_lu_solve": dict(
-        shape=[G, P, P], bound_ms=lu_bound[0], bound_by=lu_bound[1])}, "card": smi}))
     check_tolerances({k: RESULTS[k] for k in
                       ('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max')})
 
@@ -3264,6 +3312,316 @@ def ball_ihc_path(steps=BALL_IHC['steps']):
     print(json.dumps({"ball_ihc_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
+def separable_cost(V, st, out):
+    """(bytes, operations) of one separable apply of stack `st` to V."""
+    G, P = V.shape
+    q = st['weights'].shape[1]
+    nbad = st['Abad'].shape[0]
+    return (nbytes(V, st['weights'], st['Bcat'], st['Abad'], out),
+            2 * G * P * P * q + 2 * nbad * P * P)
+
+
+def check_k14c(path, ts, fact, R, X):
+    """K14c against its twin on every distinct call of one poly step: the
+    preconditioner and A applies of the solve (on the step's RHS and
+    state), the step's M apply, and the M/L pair that seeds a run."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    pm, pl, BML = ts._poly_ml()
+    calls = {}
+    for label, V, st in (('preconditioner', R, fact.pre), ('A', X, fact.polyA),
+                         ('M', X, pm)):
+        Yk = osolve.apply_stack(V, st)
+        Yp = osolve.separable_apply_plain(V, st['weights'], st['Bcat'], st['bad'], st['Abad'])
+        torch.cuda.synchronize()
+        b = bound(*separable_cost(V, st, Yk))
+        calls[label] = dict(
+            err=rel_err(Yk, Yp), q=st['weights'].shape[1], nbad=st['Abad'].shape[0],
+            ms=cuda_ms(lambda: osolve.apply_stack(V, st), 3),
+            plain_ms=cuda_ms(lambda: osolve.separable_apply_plain(
+                V, st['weights'], st['Bcat'], st['bad'], st['Abad']), 3),
+            library_ms=cuda_ms(lambda: torch.matmul(V, st['Bcat']), 3),
+            bound_ms=b[0], bound_by=b[1])
+    pair_args = (X, BML, pm['weights'], pm['bad'], pm['Abad'], pl['weights'], pl['bad'],
+                 pl['Abad'])
+    Pk = osolve.separable_apply_pair(*pair_args)
+    Pp = osolve.separable_apply_pair_plain(*pair_args)
+    torch.cuda.synchronize()
+    b = bound(nbytes(X, BML, pm['weights'], pl['weights'], pm['Abad'], pl['Abad'], *Pk),
+              separable_cost(X, pm, Pk[0])[1] + separable_cost(X, pl, Pk[1])[1])
+    calls['M/L pair'] = dict(
+        err=max(rel_err(Pk[0], Pp[0]), rel_err(Pk[1], Pp[1])),
+        q=pm['weights'].shape[1] + pl['weights'].shape[1],
+        ms=cuda_ms(lambda: osolve.separable_apply_pair(*pair_args), 3),
+        plain_ms=cuda_ms(lambda: osolve.separable_apply_pair_plain(*pair_args), 3),
+        library_ms=cuda_ms(lambda: torch.matmul(X, BML), 3), bound_ms=b[0], bound_by=b[1])
+    for label, r in calls.items():
+        print(f"K14c {label} (q={r['q']}): rel_err {r['err'][0]:.3e} kernel {r['ms']:.3f} ms "
+              f"plain {r['plain_ms']:.3f} DGEMM {r['library_ms']:.3f} bound {r['bound_ms']:.3f} "
+              f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)")
+    pre = calls['preconditioner']
+    r = dict(pre, err=max(c['err'] for c in calls.values()), shape=list(R.shape),
+             calls_checked={k: {kk: v for kk, v in c.items() if kk != 'err'} | {'err': c['err'][0]}
+                            for k, c in calls.items()})
+    record('separable_apply', path, r, primary=True)
+
+
+def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
+    """RBC 2048x512 SBDF2 with matsolver='poly': the sampled separable
+    assembly, the poly factorization from the lazy form by phase, K14c
+    against its twin on every distinct call of a step, the timed steps, a
+    breakdown, and the final state against the banded path's after the
+    same steps."""
+    from dedalus_tpu_torch.ops import banded as ob, solve as osolve
+    import dedalus_tpu_torch.core.timesteppers as tsm
+
+    dev, kind, smi = card()
+    phase(f"poly path setup: RBC {NX}x{NZ} Ra={RA:g} SBDF2 matsolver='poly' on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    solver = build_rbc(NX, NZ, RA, dev, matsolver='poly')
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pencil = solver.pencil
+    if pencil.separable is None or pencil.matrices['M'] is not None:
+        raise AssertionError("rbc2048 poly: expected the sampled separable form and no dense "
+                             "stacks")
+    t0 = time.perf_counter()
+    solver.run_steps(DT, warmup)     # two factorizations (startup, main) and the steps
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    phases = dict(ob.phase_seconds)
+    if solver.matsolver != 'poly':
+        raise AssertionError(f"rbc2048 poly escalated to {solver.matsolver}")
+    ts = solver.timestepper
+    a, b, c = ts.compute_coefficients([DT, DT], 2)
+    fact = ts._factorized[(float(a[0]), float(b[0]))]
+    facts = {str(k): dict(q=f.q, q_fit=f.q_fit, rho=f.rho, refinements=f.refinements)
+             for k, f in ts._factorized.items()}
+    print(f"setup_s {setup_s:.2f}, warmup_s {warm_s:.2f} ({warmup} steps, two "
+          f"factorizations); phases {phases}")
+    print(f"G={pencil.G} P={pencil.R} factorizations (a0, b0) -> q, fit q, rho, refinements: "
+          f"{facts}")
+
+    phase("K14c vs its plain twin on every distinct call of one poly step")
+    X = pencil.gather_state(solver.state_flat())
+    R = ts._rhs_prev
+    check_k14c('rbc2048_poly', ts, fact, R, X)
+
+    phase(f"poly path: {n_steps} timed steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count_launches('rbc2048_poly', n_steps, lambda: solver.run_steps(DT, n_steps))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ms_step = run_s / n_steps * 1e3
+    dof = NX * NZ * 4
+    peak = torch.cuda.max_memory_allocated()
+    R = ts._rhs_prev
+    Xs = fact.poly_solve(R)
+    resid = float(torch.linalg.norm(R - osolve.apply_stack(Xs, fact.polyA))
+                  / torch.linalg.norm(R))
+    k14c_per_step = LAUNCHES['rbc2048_poly']['separable_apply'] / n_steps
+    print(f"[{smi}] RBC {NX}x{NZ} poly: {ms_step:.3f} ms/step, "
+          f"{dof * n_steps / run_s:.4e} DOF*steps/s, setup {setup_s:.1f} s, warmup "
+          f"{warm_s:.1f} s, q {fact.q} (fit {fact.q_fit}), rho {fact.rho:.3e}, refinements "
+          f"{fact.refinements}, K14c launches per step {k14c_per_step:g}, peak memory "
+          f"{peak / 2**30:.2f} GiB, last solve residual {resid:.3e}")
+    print(f"launches {LAUNCHES['rbc2048_poly']}")
+    if not resid <= 1e-12:
+        raise AssertionError(f"rbc2048 poly: last solve residual {resid:.3e} > 1e-12")
+
+    phase("poly path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('F', solver, 'traced_F'),
+               ('combine (K7)', tsm, 'history_combine'),
+               ('solve (K14c)', osolve.FactorizedStack, 'poly_solve'),
+               ('scatter', pencil, 'scatter_state')]
+    breakdown('rbc2048_poly', solver, targets, [('K14c, all applies', osolve, 'apply_stack')],
+              lambda: solver.run_steps(DT, 3), smi)
+    n_total = warmup + n_steps + 3
+    state = solver.state_flat().cpu()
+    if not torch.isfinite(state).all():
+        raise AssertionError("rbc2048 poly: state is not finite")
+    record_line = dict(
+        config=f"RBC {NX}x{NZ} Ra={RA:g} SBDF2 poly", card=smi, ms_per_step=ms_step,
+        dof_steps_per_s=dof * n_steps / run_s, setup_s=setup_s, warmup_s=warm_s,
+        setup_phases_s=phases, factorizations=facts, q=fact.q, q_fit=fact.q_fit,
+        rho=fact.rho, refinements=fact.refinements, k14c_launches_per_step=k14c_per_step,
+        peak_bytes=peak, last_solve_residual=resid)
+    del solver, ts, fact, pencil, X, R, Xs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"poly path against the banded path after the same {n_total} steps")
+    sb = build_rbc(NX, NZ, RA, dev, matsolver='banded')
+    sb.run_steps(DT, n_total)
+    ref = sb.state_flat().cpu()
+    del sb
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = float((state - ref).abs().max() / ref.abs().max())
+    print(f"poly against banded after {n_total} steps: {err:.3e} of the state's largest "
+          f"coefficient (tol 1e-10)")
+    record_line['against_banded'] = err
+    print(json.dumps({"poly_path": record_line}))
+    if not err <= 1e-10:
+        raise AssertionError(f"rbc2048 poly and banded disagree: {err:.3e}")
+
+
+def matsolvers_card_vs_cpu(steps=10):
+    """RBC 64x32 SBDF2 under poly (the lazy form forced: no dense stacks,
+    sampled assembly), lu, mixed and matrix_free: the card against the
+    CPU-held port. matrix_free's f32 inverse with one refinement pass
+    leaves ~1e-4 against lu (the JAX package's too): it is held to 10x its
+    own CPU error against the CPU's lu, the others to 1e-10."""
+    from dedalus_tpu_torch.utils.config import config
+    phase(f"RBC 64x32 poly (lazy form forced), lu, mixed, matrix_free, {steps} SBDF2 steps: "
+          f"cuda vs cpu")
+    keys = (('memory', 'max_dense_stack_gb'), ('matrix assembly', 'sampled_min_groups'))
+    old = [config.get(*k) for k in keys]
+    cpu, errs = {}, {}
+    for ms in ('poly', 'lu', 'mixed', 'matrix_free'):
+        states = {}
+        try:
+            if ms == 'poly':
+                config.set(*keys[0], '0')
+                config.set(*keys[1], '8')
+            for d in (DEVICE, 'cpu'):
+                s = build_rbc(64, 32, 1e5, d, matsolver=ms)
+                if ms == 'poly' and s.pencil.matrices['M'] is not None:
+                    raise AssertionError("poly 64x32: the dense stacks were built")
+                s.run_steps(DT, steps)
+                if s.matsolver != ms:
+                    raise AssertionError(f"64x32 {ms} escalated to {s.matsolver}")
+                states[d] = s.state_flat().cpu()
+        finally:
+            for k, v in zip(keys, old):
+                config.set(*k, v)
+        cpu[ms] = states['cpu']
+        errs[ms] = rel_err(states[DEVICE], states['cpu'])[0]
+    tols = {ms: 1e-10 for ms in errs}
+    tols['matrix_free'] = 10 * rel_err(cpu['matrix_free'], cpu['lu'])[0]
+    for ms, err in errs.items():
+        print(f"{ms} cuda vs cpu rel_err {err:.3e} (tol {tols[ms]:.2e})")
+    print(json.dumps({"matsolvers_card_vs_cpu_64x32": errs, "tolerances": tols}))
+    for ms, err in errs.items():
+        if not err <= tols[ms]:
+            raise AssertionError(f"{ms}: card and CPU trajectories disagree: {err:.3e}")
+
+
+def check_k14_dense(fact, R, A):
+    """K14a (lu) or K14b (mixed) against its twin on the loop's last solve,
+    with both residuals against A."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    G, P = R.shape
+    resid = lambda X: float(torch.linalg.norm(torch.matmul(A, X[..., None])[..., 0] - R)
+                            / torch.linalg.norm(R))
+    if fact.method == 'lu':
+        name = 'lu_solve'
+        kernel = lambda: osolve.lu_solve(fact.lu, fact.perm, R)
+        plain = lambda: osolve.lu_solve_plain(fact.lu, fact.perm, R)
+        LU, piv = torch.linalg.lu_factor(A)
+        library = lambda: torch.linalg.lu_solve(LU, piv, R[..., None])
+        Xk = kernel()
+        b = bound(nbytes(fact.lu, fact.perm, R, Xk), 2 * G * P * P)
+    else:
+        name = 'mixed_solve'
+        kernel = lambda: osolve.mixed_solve(fact.Ainv, fact.A, R)
+        plain = lambda: osolve.mixed_solve_plain(fact.Ainv, fact.A, R)
+
+        def library():     # the five products in torch
+            inv = lambda V: torch.matmul(fact.Ainv, V.float()[..., None])[..., 0].double()
+            X = inv(R)
+            for _ in range(2):
+                X = X + inv(R - torch.matmul(fact.A, X[..., None])[..., 0])
+            return X
+
+        Xk = kernel()
+        b = bound(nbytes(fact.Ainv, fact.A, R, Xk), 10 * G * P * P)
+    Xp = plain()
+    torch.cuda.synchronize()
+    RESULTS[name] = dict(err=rel_err(Xk, Xp), ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 20),
+                         library_ms=cuda_ms(library, 20), bound_ms=b[0], bound_by=b[1],
+                         shape=[G, P, P], solve_residual=resid(Xk),
+                         solve_residual_plain=resid(Xp))
+    r = RESULTS[name]
+    print(f"{name}: residuals kernel {r['solve_residual']:.3e} plain "
+          f"{r['solve_residual_plain']:.3e}")
+    check_tolerances({name: r})
+
+
+def matsolver_loops_path(iterations=LOOP_ITERATIONS):
+    """The RBC example (256x64, RK222, its CFL loop) under lu, mixed,
+    matrix_free and inverse_refined, `iterations` timed iterations each in
+    one call, K14a and K14b against their twins on each loop's last solve;
+    then the dense SBDF2 step under matrix_free (its structured refinement
+    against the operators' expression trees), 20 timed steps."""
+    dev, kind, smi = card()
+    out = {}
+    for ms in MATSOLVER_LOOPS:
+        phase(f"RBC {EX_NX}x{EX_NZ} RK222 CFL loop under {ms}: {iterations} timed iterations")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        solver, ctx, CFL, flow = build_example(ms)
+        last, restore_solve = record_solves()
+        dts, peaks = [], []
+        try:
+            t0 = time.perf_counter()
+            ok = example_loop(solver, CFL, 11, dts, peaks)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            path = f'rbc256_{ms}'
+            it0 = solver.iteration
+            t0 = time.perf_counter()
+            ok = ok & count_launches(path, None,
+                                     lambda: example_loop(solver, CFL, iterations, dts, peaks))
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            restore_solve()
+        n_iter = STEPS[path] = solver.iteration - it0
+        ts = solver.timestepper
+        kHii = next(k for k, f in ts._stage_factors.items() if f is last['fact'])
+        A = solver.pencil.combined_with_pivots({'M': 1.0, 'L': kHii})
+        if ms in ('lu', 'mixed'):
+            check_k14_dense(last['fact'], last['R'], A)
+        X = last['X']
+        resid = float(torch.linalg.norm(torch.matmul(A, X[..., None])[..., 0] - last['R'])
+                      / torch.linalg.norm(last['R']))
+        out[ms] = dict(ms_per_step=run_s / n_iter * 1e3, iterations=n_iter, warmup_s=warm_s,
+                       last_solve_residual=resid, max_Re=flow.max('Re'),
+                       peak_bytes=torch.cuda.max_memory_allocated(),
+                       launches_per_step={k: v / n_iter for k, v in LAUNCHES[path].items() if v})
+        print(f"[{smi}] {ms}: {out[ms]['ms_per_step']:.3f} ms/step over {n_iter} iterations, "
+              f"last solve residual {resid:.3e}, max Re {out[ms]['max_Re']:.6g}")
+        if not bool(ok) or not np.isfinite(out[ms]['max_Re']):
+            raise AssertionError(f"rbc256 {ms}: a state is not finite")
+        # (matrix_free's RK stage solve is the f32 inverse alone, as the JAX
+        # package's: its residual, printed, sits at cond(A) times f32's)
+        if ms != 'matrix_free' and not resid <= 1e-12:
+            raise AssertionError(f"rbc256 {ms}: last solve residual {resid:.3e}")
+        del solver, ctx, CFL, flow, last, A, X
+
+    phase(f"RBC {EX_NX}x{EX_NZ} SBDF2 matrix_free (structured refinement): 20 timed steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    solver = build_rbc(EX_NX, EX_NZ, EX_RA, dev, matsolver='matrix_free')
+    solver.run_steps(1e-3, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.run_steps(1e-3, 20)
+    torch.cuda.synchronize()
+    sbdf2_ms = (time.perf_counter() - t0) / 20 * 1e3
+    if not torch.isfinite(solver.state_flat()).all():
+        raise AssertionError("rbc256 SBDF2 matrix_free: state is not finite")
+    print(f"[{smi}] SBDF2 matrix_free at {EX_NX}x{EX_NZ}: {sbdf2_ms:.3f} ms/step")
+    print(json.dumps({"matsolver_loops": out, "sbdf2_matrix_free_ms_per_step": sbdf2_ms,
+                      "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3286,10 +3644,13 @@ def main():
 
     t_start = time.perf_counter()
     banded_path()
+    poly_path()
     banded_fast_path()
     cold_start_path()
     dense_card_vs_cpu()
+    matsolvers_card_vs_cpu()
     example_path()
+    matsolver_loops_path()
     polar_card_vs_cpu()
     annulus_path()
     disk_path()

@@ -8,9 +8,9 @@ the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
 with grouped transforms (ROADMAP K2: plain torch around kernel KG's grid
 products), step / run_steps with
 the evaluator's handler schedule, the run-control properties and
-log_stats; the LBVP factors L once (kernel KA solves it). The nonlinear
-boundary value and eigenvalue solvers and file output are not ported yet
-(ROADMAP M8, M9).
+log_stats; the LBVP factors L once and solves it with the dense or poly
+matsolvers. The nonlinear boundary value and eigenvalue solvers and file
+output are not ported yet (ROADMAP M8, M9).
 """
 
 import logging
@@ -22,7 +22,7 @@ import torch
 from . import subsystems
 from . import timesteppers as timesteppers_module
 from .distributor import Layout
-from ..ops.solve import DENSE_METHODS, FactorizedStack
+from ..ops.solve import FactorizedStack, MATSOLVERS
 from ..utils.config import config
 
 logger = logging.getLogger(__name__)
@@ -42,9 +42,8 @@ class SolverBase:
         self.dtype = problem.dtype
         if matsolver is None:
             matsolver = config.get('linear algebra', 'matrix_factorizer')
-        if matsolver != 'banded' and matsolver not in DENSE_METHODS:
-            raise NotImplementedError(
-                f"matsolver '{matsolver}' is not ported yet (ROADMAP M8)")
+        if matsolver not in MATSOLVERS:
+            raise ValueError(f"Unknown matsolver: {matsolver}")
         self.matsolver = matsolver
         coupling = problem.matrix_coupling
         domains = [eq['domain'] for eq in problem.equations]
@@ -109,6 +108,30 @@ class SolverBase:
         finally:
             for f, lay, sc, data in saved:
                 f.layout, f.scales, f.data = lay, sc, data
+
+    def traced_matrix_apply(self, name, state_flat):
+        """
+        Matrix-free application of the named LHS operator (M or L): bind the
+        state and evaluate the equations' expression trees, gathered into
+        (G, R) pencils; equal to dense_matvec(matrices[name], X) up to
+        roundoff (dedalus_tpu/core/solvers.py:289).
+        """
+        self.pencil.unflatten_fields(state_flat, self.state)
+        datas = []
+        for eq in self.problem.equations:
+            expr = eq.get(name)
+            if expr is None:
+                shape = (tuple(cs.dim for cs in eq['tensorsig'])
+                         + tuple(b.coeff_size if b is not None else 1
+                                 for b in eq['domain'].bases))
+                datas.append(torch.zeros(shape, dtype=torch.float64,
+                                         device=self.dist.device))
+                continue
+            out = expr.evaluate()
+            out.require_coeff_space()
+            out.change_scales(1)
+            datas.append(out.data)
+        return self.pencil.gather_eq_data(datas)
 
     def _rhs_uses_time(self):
         cached = getattr(self, '_rhs_time', None)
@@ -285,9 +308,13 @@ class LinearBoundaryValueSolver(SolverBase):
 
     def __init__(self, problem, **kw):
         super().__init__(problem, **kw)
-        if self.matsolver not in DENSE_METHODS:
+        if self.matsolver == 'banded':
             raise NotImplementedError(
-                f"LBVP with matsolver '{self.matsolver}' is not ported yet (ROADMAP M8)")
+                "LBVP with matsolver 'banded' is not ported yet (ROADMAP M8a)")
+        if self.matsolver == 'matrix_free':
+            # (its refinement runs inside the IVP step; the JAX package's
+            # LBVP solve has no matrix_free form either)
+            raise ValueError("matsolver 'matrix_free' has no LBVP solve")
         self._factorized = None
 
     def solve(self, rebuild_matrices=False):

@@ -68,6 +68,10 @@ class SeparableMatrixStack:
             W[g] = 0.0
         return W
 
+    def dense_B(self, dtype=np.float64):
+        """(d+1, R, C) dense coefficient matrices."""
+        return np.stack([np.asarray(Bp.todense(), dtype=dtype) for Bp in self.B])
+
     def group(self, g):
         """Exact scipy CSR for one group."""
         if g in self.bad:
@@ -85,8 +89,8 @@ class SeparableMatrixStack:
 class LazyCombined:
     """
     Lazy linear combination sum_i c_i * stack_i of the pencil stacks with
-    identity pivots installed, exposed to the banded factorization without
-    ever materializing a dense (G, P, P) array.
+    identity pivots installed, exposed to the banded and poly factorizations
+    without ever materializing a dense (G, P, P) array.
     """
 
     def __init__(self, pencil, coeffs):
@@ -96,6 +100,10 @@ class LazyCombined:
         self.P = pencil.R
         self.shape = (self.G, self.P, self.P)
         self.dtype = pencil.dtype
+
+    def group(self, g):
+        """Dense (P, P) combined matrix for one group, pivots installed."""
+        return np.asarray(self.group_sparse(g).todense())
 
     def group_sparse(self, g, pivot_pairs=None):
         """Sparse combined matrix for one group, pivots installed.
@@ -113,11 +121,28 @@ class LazyCombined:
             A = A + piv
         return A.tocsr()
 
+    def _combined_bad(self):
+        """Bad groups of the combination: the stacks' exceptional groups and
+        the groups whose pivot pattern differs from the first generic one;
+        returns (bad_idx, the generic pivot rows and columns)."""
+        pencil = self.pencil
+        seps = pencil.separable
+        if seps is None:
+            raise ValueError("pencil has no separable representation")
+        bad = set()
+        for name in self.coeffs:
+            bad |= set(seps[name].bad)
+        generic = [g for g in range(self.G) if g not in bad]
+        pat0 = _pivot_key(pencil.pivot_pairs[generic[0]])
+        bad |= {g for g in generic if _pivot_key(pencil.pivot_pairs[g]) != pat0}
+        generic = [g for g in range(self.G) if g not in bad]
+        return tuple(sorted(bad)), pencil.pivot_pairs[generic[0]]
+
     def sparse_form(self):
         """Combined separable sparse form with pivots:
         (B_sparse list, weights (G,d+1), bad {g: exact CSR}, ghat)."""
-        pencil = self.pencil
-        seps = pencil.separable
+        seps = self.pencil.separable
+        bad_idx, (inv_rows, inv_cols) = self._combined_bad()
         degree = max(seps[name].degree for name in self.coeffs)
         Bps = []
         for p in range(degree + 1):
@@ -129,17 +154,6 @@ class LazyCombined:
                     Bp = term if Bp is None else Bp + term
             Bps.append(Bp.tocsr() if Bp is not None
                        else sparse.csr_matrix((self.P, self.P)))
-        # Bad groups: per-stack exceptions + pivot-pattern deviants
-        bad = set()
-        for name in self.coeffs:
-            bad |= set(seps[name].bad)
-        generic = [g for g in range(self.G) if g not in bad]
-        pat0 = _pivot_key(pencil.pivot_pairs[generic[0]])
-        for g in generic:
-            if _pivot_key(pencil.pivot_pairs[g]) != pat0:
-                bad.add(g)
-        generic = [g for g in range(self.G) if g not in bad]
-        inv_rows, inv_cols = pencil.pivot_pairs[generic[0]]
         if inv_rows.size:
             piv = sparse.csr_matrix(
                 (np.ones(inv_rows.size), (inv_rows, inv_cols)),
@@ -147,11 +161,25 @@ class LazyCombined:
             Bps[0] = (Bps[0] + piv).tocsr()
         ghat = seps[next(iter(self.coeffs))].ghat
         W = np.vander(ghat, degree + 1, increasing=True)
-        bad_idx = tuple(sorted(bad))
         for g in bad_idx:
             W[g] = 0.0
         bad_mats = {g: self.group_sparse(g) for g in bad_idx}
         return Bps, W, bad_mats, ghat
+
+    def poly_form(self):
+        """
+        Combined separable form with pivots (dedalus_tpu/core/subsystems.py
+        :227): dict(weights (G, d+1), B (d+1, P, P) dense f64, bad_idx, Abad
+        (nbad, P, P), ghat). Generic groups share one pivot pattern
+        (installed into B_0, whose weight is 1 for every group); groups whose
+        pattern differs are exceptional and stored exactly.
+        """
+        Bps, W, _, ghat = self.sparse_form()
+        bad_idx, _ = self._combined_bad()
+        B = np.stack([np.asarray(Bp.todense()) for Bp in Bps])
+        Abad = (np.stack([self.group(g) for g in bad_idx]) if bad_idx
+                else np.zeros((0, self.P, self.P)))
+        return dict(weights=W, B=B, bad_idx=bad_idx, Abad=Abad, ghat=ghat)
 
     def banded_form(self):
         """Inputs for the bordered block-tridiagonal solver: the pencil's

@@ -8,14 +8,20 @@ MultistepIMEX (SBDF2):
     a0 M X(n) + b0 L X(n) = sum_j c_j F(n-j) - a_j M X(n-j) - b_j L X(n-j)
 
 Each step gathers the state into pencils, applies M and L (banded: kernel
-K4; dense: kernel KB, one launch for the pair), evaluates F, combines the
-histories into the RHS (kernel K7) and solves (banded: K5 inside the banded
-solver, with outer refinement passes when the factorization was built for
-nearby coefficients; dense: kernel KA), then scatters the result back. The
-histories are two-slot rings updated in place, where the JAX package
-rebuilt them every step.
+K4; dense: kernel KB, one launch for the pair; poly: kernel K14c for M,
+with L X derived from the previous solve's right-hand side; matrix_free:
+the operators' expression trees), evaluates F, combines the histories into
+the RHS (kernel K7) and solves (banded: K5 inside the banded solver, with
+outer refinement passes when the factorization was built for nearby
+coefficients; dense: KA, K14a or K14b; poly: the preconditioned refinement
+on K14c; matrix_free: the f32 inverse on KB with refinement against the
+expression trees), then scatters the result back. The histories are
+two-slot rings updated in place, where the JAX package rebuilt them every
+step.
 
-RungeKuttaIMEX (RK111, RK222, RK443, RKSMR, RKGFY), dense matsolvers only:
+RungeKuttaIMEX (RK111, RK222, RK443, RKSMR, RKGFY), dense matsolvers only
+(matrix_free solves a stage with its f32 inverse alone, as the JAX
+package's RK step does):
 
     (M + k H_ii L) X(n,i) = M X(n,0) + k sum_j (A_ij F(n,j) - H_ij L X(n,j))
 
@@ -93,6 +99,10 @@ class MultistepIMEX:
         self._head = 0
         self.dt_hist = deque([0.0] * self.steps, maxlen=self.steps)
         self._iteration = 0
+        # poly: the separable M and L stacks, and the last solve's RHS
+        # (a0 M X + b0 L X of the state it produced)
+        self._poly_ml_cache = None
+        self._rhs_prev = None
 
     # --- factorizations ---
 
@@ -116,6 +126,44 @@ class MultistepIMEX:
             fact.lhs_coeffs = key
         self._factorized[key] = fact
         return fact
+
+    def _poly_ml(self):
+        """The separable M and L stacks (cached) and their side-by-side
+        Bcat for the pair apply: exact from the sampled assembly when
+        present, else fitted from the dense stacks."""
+        if self._poly_ml_cache is None:
+            with ops_banded.PhaseTimer('poly M/L stacks', self.pencil.dist.device):
+                self._poly_ml_cache = self._build_poly_ml()
+        return self._poly_ml_cache
+
+    def _build_poly_ml(self):
+        """(M stack, L stack, their side-by-side Bcat)."""
+        pencil = self.pencil
+        dev = pencil.dist.device
+        if pencil.separable is not None:
+            stacks = []
+            for name in ('M', 'L'):
+                s = pencil.separable[name]
+                bad_idx = tuple(sorted(s.bad))
+                Abad = (np.stack([np.asarray(s.bad[g].todense()) for g in bad_idx])
+                        if bad_idx else np.zeros((0,) + s.shape))
+                stacks.append((s.weights(), s.dense_B(), bad_idx, Abad))
+        else:
+            if pencil.matrices['M'] is None:
+                raise ValueError("pencil stacks are too large for dense storage and "
+                                 "have no separable structure")
+            fits = [ops_solve.fit_separable_stack(pencil.matrices[name].cpu().numpy())
+                    for name in ('M', 'L')]
+            if None in fits:
+                raise ValueError("M/L stacks are not separable in the group index")
+            stacks = [(f['weights'], f['B_host'], f['bad_idx'], f['Abad']) for f in fits]
+        pm, pl = (ops_solve.separable_stack(*st, dev) for st in stacks)
+        # M and L share the state's GEMM: one (P, (qM + qL) P) matrix, with
+        # each stack's Bcat a view of it
+        BML = torch.cat([pm['Bcat'], pl['Bcat']], dim=1)
+        nM = pm['Bcat'].shape[1]
+        pm['Bcat'], pl['Bcat'] = BML[:, :nM], BML[:, nM:]
+        return pm, pl, BML
 
     def _banded_ml(self):
         """The banded M and L operators (cached by the pencil)."""
@@ -208,29 +256,53 @@ class MultistepIMEX:
 
     def _leave_dense_path(self):
         """A dense matsolver whose stacks were not built (too large for
-        [memory] max_dense_stack_gb) switches to banded."""
+        [memory] max_dense_stack_gb) switches to banded where the pencil has
+        a banded plan, else to poly."""
         solver = self.solver
-        if self.pencil.matrices.get('M') is None and solver.matsolver != 'banded':
+        if (self.pencil.matrices.get('M') is None
+                and solver.matsolver not in ('banded', 'poly')):
             if self.pencil.slot_split is not None:
                 raise NotImplementedError(
                     "ball pencil stacks too large for the dense matsolvers: the banded "
                     "ball is not ported yet (ROADMAP M11b-2c)")
-            if self.pencil.banded_plan() is None:
-                raise NotImplementedError(
-                    "pencil stacks too large for the dense matsolvers and without "
-                    "banded structure: the poly matsolver is not ported yet (ROADMAP M8)")
-            logger.info("pencil stacks too large for dense matsolver '%s'; using banded",
-                        solver.matsolver)
-            solver.matsolver = 'banded'
+            new = 'banded' if self.pencil.banded_plan() is not None else 'poly'
+            logger.info("pencil stacks too large for dense matsolver '%s'; using %s",
+                        solver.matsolver, new)
+            solver.matsolver = new
+
+    def _escalate(self, exc):
+        """The next matsolver where the current one cannot serve this pencil
+        (dedalus_tpu/core/timesteppers.py:444-463): banded -> poly ->
+        inverse_refined; raises past the last."""
+        solver = self.solver
+        new = {'banded': 'poly', 'poly': 'inverse_refined'}.get(solver.matsolver)
+        if new is None:
+            raise exc
+        logger.warning("%s matsolver unavailable (%s); using %s", solver.matsolver, exc, new)
+        solver.matsolver = new
+        self._factorized.clear()
+        self._outer_for_key.clear()
 
     def _prepare(self, a0, b0):
-        """Resolve the factorization serving a0 M + b0 L: an existing one
+        """Resolve the factorization serving a0 M + b0 L, leaving a
+        matsolver that cannot serve the pencil for the next one."""
+        self._leave_dense_path()
+        while True:
+            try:
+                return self._prepare_with(a0, b0)
+            except ValueError as exc:
+                self._escalate(exc)
+
+    def _prepare_with(self, a0, b0):
+        """The factorization of the current matsolver: an existing one
         through outer refinement when close enough (banded), else a new
         one."""
         solver = self.solver
-        self._leave_dense_path()
         if solver.matsolver != 'banded':
-            return self._get_factorized(a0, b0)
+            fact = self._get_factorized(a0, b0)
+            if solver.matsolver == 'poly':
+                self._poly_ml()
+            return fact
         key = (float(a0), float(b0))
         fact = None
         if key not in self._factorized:
@@ -266,8 +338,24 @@ class MultistepIMEX:
         solver = self.solver
         pencil = self.pencil
         rv = pencil.row_valid_dev
+        method = solver.matsolver
+        if method == 'matrix_free':
+            return self._step_matrix_free(state_flat, t, coef, a0, b0, fact)
         X = pencil.gather_state(state_flat)
-        if solver.matsolver != 'banded':
+        if method == 'poly':
+            pm = self._poly_ml()[0]
+            MX0 = ops_solve.apply_stack(X, pm)
+            # L X from the previous solve's identity a0 M X + b0 L X = RHS
+            # (exact to its residual): no L apply in the step
+            LX0 = (self._rhs_prev - a0 * MX0) / b0
+            F0 = solver.traced_F(state_flat, t)
+            self._push(MX0, LX0, F0)
+            h, o = self._head, 1 - self._head
+            RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
+                                  self.LX[h], self.LX[o], rv, coef)
+            self._rhs_prev = RHS
+            return pencil.scatter_state(fact.poly_solve(RHS))
+        if method != 'banded':
             MX0, LX0 = ops_solve.dense_matvec(pencil.matrices['M'], X, pencil.matrices['L'])
             F0 = solver.traced_F(state_flat, t)
             self._push(MX0, LX0, F0)
@@ -291,11 +379,44 @@ class MultistepIMEX:
             Xnew = fact.banded.solve(RHS - AX, accumulate=Xnew)
         return pencil.scatter_state(Xnew)
 
+    def _step_matrix_free(self, state_flat, t, coef, a0, b0, fact):
+        """One matrix_free step (dedalus_tpu/core/timesteppers.py:528-531,
+        582-592): M X and L X from the operators' expression trees, the f32
+        inverse (KB's f32 form), then `solver.refinements` (1) passes
+        against a0 M + b0 L applied through the trees."""
+        solver = self.solver
+        pencil = self.pencil
+        rv = pencil.row_valid_dev
+        MX0 = solver.traced_matrix_apply('M', state_flat)
+        LX0 = solver.traced_matrix_apply('L', state_flat)
+        F0 = solver.traced_F(state_flat, t)
+        self._push(MX0, LX0, F0)
+        h, o = self._head, 1 - self._head
+        RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
+                              self.LX[h], self.LX[o], rv, coef)
+        Xnew = ops_solve.inverse32_apply(fact.Ainv, RHS)
+        for _ in range(getattr(solver, 'refinements', 1)):
+            sX = pencil.scatter_state(Xnew)
+            AX = (a0 * solver.traced_matrix_apply('M', sX)
+                  + b0 * solver.traced_matrix_apply('L', sX)) * rv
+            # Identity pivots: the invalid entries of Xnew pass through
+            AX = AX + Xnew * (1.0 - rv)
+            Xnew = Xnew + ops_solve.inverse32_apply(fact.Ainv, RHS - AX)
+        return pencil.scatter_state(Xnew)
+
     def _run(self, a, b, c, dt, n_steps, fact):
         """Advance n_steps applying the same (a, b, c) each step."""
         solver = self.solver
         state = solver.state_flat()
         t = solver.sim_time
+        if solver.matsolver == 'poly':
+            # Seed the carried RHS with a0 M X + b0 L X of the incoming state
+            # (one pair apply), so the first derived L X is exact
+            pm, pl, BML = self._poly_ml()
+            MX, LX = ops_solve.separable_apply_pair(
+                self.pencil.gather_state(state), BML, pm['weights'], pm['bad'], pm['Abad'],
+                pl['weights'], pl['bad'], pl['Abad'])
+            self._rhs_prev = float(a[0]) * MX + float(b[0]) * LX
         n_out = int(self._outer_for_key.get((float(a[0]), float(b[0])), 0))
         coef = torch.tensor([a[1], a[2], b[1], b[2], c[1], c[2]],
                             dtype=torch.float64, device=state.device)
@@ -343,8 +464,9 @@ class MultistepIMEX:
             am, bm, _ = self.compute_coefficients([dt] * self.steps, self.steps)
             with ops_banded.PhaseTimer('main factorization', self.pencil.dist.device):
                 mf = self._prepare(float(am[0]), float(bm[0]))
-            if mf.banded.refinements:
-                self._banded_refs_floor = mf.banded.refinements
+            mb = getattr(mf, 'banded', None)
+            if mb is not None and mb.refinements:
+                self._banded_refs_floor = mb.refinements
         timer = (ops_banded.PhaseTimer('startup steps', self.pencil.dist.device)
                  if solver.matsolver == 'banded' and self.needs_startup
                  else contextlib.nullcontext())

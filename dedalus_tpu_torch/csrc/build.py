@@ -42,6 +42,13 @@ SIGNATURES = {
         'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
         'kb_dense_matvec_f64': [_P] * 5 + [_I] * 4 + [_P],
         'kb_dense_matvec_f32': [_P] * 3 + [_I] * 3 + [_P],
+        'k14a_lu_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
+        'k14b_mixed_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
+    },
+    'separable_kernels': {
+        'k14c_separable_apply_f64': [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P] + [_I] * 3
+                                    + [_P],
+        'k14c_override_f64': [_P] * 4 + [_I] * 2 + [_P],
     },
     'polar_kernels': {
         'ke_polar_apply_f64': [_P] * 3 + [_I] * 5 + [_P],

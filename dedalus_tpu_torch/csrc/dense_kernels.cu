@@ -5,6 +5,10 @@
 //       batched_inverse_solve (no pass).
 //   KB  dense_matvec          replaces dedalus_tpu/ops/solve.py:24
 //       batched_matvec, for one stack or for the M/L pair of a step.
+//   K14a lu_solve             replaces dedalus_tpu/ops/solve.py:53
+//       batched_lu_solve (matsolver 'lu').
+//   K14b mixed_solve          replaces dedalus_tpu/ops/solve.py:128
+//       batched_mixed_solve (matsolver 'mixed').
 //
 // Plain C interface (loaded with ctypes). Every launcher runs on the stream
 // it is given, allocates nothing, does not synchronise, and returns
@@ -220,5 +224,175 @@ extern "C" int kb_dense_matvec_f32(const float* A, const float* X, float* Y, int
     }
     dim3 grid(G, 1, (R + KB_ROWS - 1) / KB_ROWS);
     dense_matvec_f32_kernel<<<grid, KB_THREADS, smem, (cudaStream_t)stream>>>(A, X, Y, R, C);
+    return (int)cudaGetLastError();
+}
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// K14a: X[g] = U[g]^-1 L[g]^-1 (R[g] gathered through perm[g]), from the
+// packed LAPACK factors of one (G, P, P) stack (L unit lower, U upper, both
+// in LU[g], row-major) and the permutation vector of the row pivots.
+//
+// One thread block per group. Each sweep depends on every earlier unknown
+// (2 P dependent steps, 1050 at RBC 256x64), so the solve is latency-bound,
+// not bound by reading the factors (0.0847 ms for 282 MB). The sweeps go by
+// blocks of 32 rows: the rows' products with the unknowns already known are
+// warp dot products over the rows (row-major, coalesced, every warp of the
+// block busy), then one warp finishes the 32x32 triangle with shuffles. Each
+// factor entry is read once; 4 barriers a block of rows, 66 at P = 525,
+// instead of one per row.
+// ---------------------------------------------------------------------------
+
+constexpr int LU_THREADS = 512;
+
+__global__ void __launch_bounds__(LU_THREADS)
+lu_solve_kernel(const double* __restrict__ LU, const int* __restrict__ perm,
+                const double* __restrict__ R, double* __restrict__ X, int P) {
+    extern __shared__ double ys[];
+    const int g = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const double* M = LU + (size_t)g * P * P;
+    for (int i = threadIdx.x; i < P; i += blockDim.x)
+        ys[i] = R[(size_t)g * P + perm[(size_t)g * P + i]];
+    __syncthreads();
+    // Forward sweep, unit lower triangle
+    for (int i0 = 0; i0 < P; i0 += 32) {
+        const int i1 = min(i0 + 32, P);
+        if (i0 > 0) {
+            for (int i = i0 + warp; i < i1; i += nwarps) {
+                const double s = warp_row_dot(M + (size_t)i * P, ys, i0, lane);
+                if (lane == 0) ys[i] -= s;
+            }
+            __syncthreads();
+        }
+        if (warp == 0) {
+            const int i = i0 + lane;
+            double yi = i < i1 ? ys[i] : 0.0;
+            for (int k = 0; k < i1 - i0 - 1; ++k) {
+                const double yk = __shfl_sync(0xffffffffu, yi, k);
+                if (lane > k && i < i1) yi -= M[(size_t)i * P + i0 + k] * yk;
+            }
+            if (i < i1) ys[i] = yi;
+        }
+        __syncthreads();
+    }
+    // Back sweep, upper triangle with its diagonal
+    for (int i1 = P; i1 > 0; i1 -= 32) {
+        const int i0 = max(i1 - 32, 0);
+        if (i1 < P) {
+            for (int i = i0 + warp; i < i1; i += nwarps) {
+                const double s = warp_row_dot(M + (size_t)i * P + i1, ys + i1, P - i1, lane);
+                if (lane == 0) ys[i] -= s;
+            }
+            __syncthreads();
+        }
+        if (warp == 0) {
+            const int i = i0 + lane;
+            double yi = i < i1 ? ys[i] : 0.0;
+            for (int k = i1 - i0 - 1; k >= 0; --k) {
+                if (lane == k) yi = yi / M[(size_t)i * P + i];
+                const double xk = __shfl_sync(0xffffffffu, yi, k);
+                if (lane < k) yi -= M[(size_t)i * P + i0 + k] * xk;
+            }
+            if (i < i1) ys[i] = yi;
+        }
+        __syncthreads();
+    }
+    for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = ys[i];
+}
+
+// ---------------------------------------------------------------------------
+// K14b: the mixed-precision solve, X = Ainv32 R, then two passes of
+// X += Ainv32 (R - A X), with the inverse applied in f32 (the operand cast
+// to f32, f32 sums, the product widened to f64) and the residual and the
+// update in f64, as the reference's batched_mixed_solve.
+//
+// KA's design with an f32 inverse: one block per group runs the whole solve
+// in one launch with the vectors in shared memory (R and X in f64, the f32
+// operand of the inverse, 10.5 KB at P = 525). Bound by reading Ainv32 (141 MB at RBC
+// 256x64) and A (282 MB) once: 0.126 ms; the passes read Ainv32 three times
+// and A twice.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_row_dot_f32(const float* __restrict__ row,
+                                                  const float* __restrict__ x, int n,
+                                                  int lane) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) acc = fmaf(__ldg(row + k), x[k], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return acc;
+}
+
+__global__ void __launch_bounds__(KA_THREADS)
+mixed_solve_kernel(const float* __restrict__ Ainv, const double* __restrict__ A,
+                   const double* __restrict__ R, double* __restrict__ X, int P) {
+    extern __shared__ double smem[];
+    double* rs = smem;
+    double* xs = smem + P;
+    float* v32 = reinterpret_cast<float*>(smem + 2 * P);
+    const int g = blockIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const size_t moff = (size_t)g * P * P;
+    const float* Ai = Ainv + moff;
+    const double* Ag = A + moff;
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+        const double r = R[(size_t)g * P + i];
+        rs[i] = r;
+        v32[i] = (float)r;
+    }
+    __syncthreads();
+    for (int i = warp; i < P; i += nwarps) {
+        const float v = warp_row_dot_f32(Ai + (size_t)i * P, v32, P, lane);
+        if (lane == 0) xs[i] = (double)v;
+    }
+    for (int pass = 0; pass < 2; ++pass) {
+        __syncthreads();
+        // (every row of X is final: the residual overwrites the f32 operand)
+        for (int i = warp; i < P; i += nwarps) {
+            const double v = warp_row_dot(Ag + (size_t)i * P, xs, P, lane);
+            if (lane == 0) v32[i] = (float)(rs[i] - v);
+        }
+        __syncthreads();
+        for (int i = warp; i < P; i += nwarps) {
+            const float v = warp_row_dot_f32(Ai + (size_t)i * P, v32, P, lane);
+            if (lane == 0) xs[i] = xs[i] + (double)v;
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = xs[i];
+}
+
+}  // namespace
+
+extern "C" int k14a_lu_solve_f64(const double* LU, const int* perm, const double* R,
+                                 double* X, int G, int P, void* stream) {
+    const size_t smem = (size_t)P * sizeof(double);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(lu_solve_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    lu_solve_kernel<<<G, LU_THREADS, smem, (cudaStream_t)stream>>>(LU, perm, R, X, P);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int k14b_mixed_solve_f64(const float* Ainv, const double* A, const double* R,
+                                    double* X, int G, int P, void* stream) {
+    const size_t smem = (size_t)2 * P * sizeof(double) + (size_t)P * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(mixed_solve_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    mixed_solve_kernel<<<G, KA_THREADS, smem, (cudaStream_t)stream>>>(Ainv, A, R, X, P);
     return (int)cudaGetLastError();
 }

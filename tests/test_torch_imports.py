@@ -113,3 +113,23 @@ def test_banded_cold_start_import_has_no_jax():
 
 def test_every_module_import_has_no_jax():
     _run('\n'.join(f'import {m}' for m in _port_modules() + ['chip_smoke']))
+
+
+def test_matsolver_path_import_has_no_jax_and_no_card():
+    """The poly, lu, mixed and matrix_free matsolvers (ops/solve.py with
+    kernels K14a-c, the timesteppers' poly and matrix_free steps) import
+    without JAX, and build no kernel at import."""
+    _run('import torch\n'
+         'import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.rbc\n'
+         'import dedalus_tpu_torch.ops.solve as osolve\n'
+         'import dedalus_tpu_torch.core.timesteppers as tsm\n'
+         'import dedalus_tpu_torch.core.solvers as solvers\n'
+         'import dedalus_tpu_torch.csrc.build as build\n'
+         "assert set(osolve.MATSOLVERS) == {'lu', 'inverse', 'inverse_refined', 'mixed',\n"
+         "                                  'matrix_free', 'poly', 'banded'}\n"
+         'assert osolve.separable_apply and osolve.separable_apply_pair\n'
+         'assert osolve.lu_solve and osolve.mixed_solve\n'
+         "assert 'separable_kernels' in build.SIGNATURES\n"
+         'assert build._library is None\n'
+         'assert not torch.cuda.is_initialized()')
