@@ -2,11 +2,17 @@
 Smoke test of dedalus_tpu_torch on one NVIDIA GPU: builds the hand-written
 kernels from the sources in this checkout, checks each against its plain
 PyTorch twin at its main path's shapes, checks the card against the
-CPU-held port at the small sizes, and drives twelve main paths through the
+CPU-held port at the small sizes, and drives the main paths through the
 public entry points:
 
   * Rayleigh-Benard 2048x512, Ra=2e6, SBDF2, banded matsolver named (kernels
     K4, K5, K6, K7, K3), its cold start by phase, 20 timed steps;
+  * the same under SBDF3, SBDF4 and CNAB2 (schemes_path: the slice of the
+    multistep schemes; kernels K7 at history depths 3, 4 and 2, K4, K5, K3,
+    KG), each with its setup and warm-up by phase (the startup steps served
+    by the main factorization through outer passes) and 20 timed steps; K7
+    at every depth 1 to 4 against its twin; RBC 64x32 card vs CPU under each
+    multistep scheme the port added;
   * the same with matsolver='poly' (poly_path: the sampled separable
     assembly, the poly factorization from the lazy form by phase, kernel
     K14c, the separable GEMM-form apply, against its twin on every distinct
@@ -63,7 +69,22 @@ public entry points:
     K7, K3), its setup by phase with the ball NCC blocks of r_vec*T apart,
     3 warm-up and 50 timed steps of the example's run_steps with its
     GlobalFlowProperty; before it, the example as written at 32x16x24
-    (200 steps and its two checks) and card vs CPU at 16x8x12.
+    (200 steps and its two checks) and card vs CPU at 16x8x12;
+  * the shear-flow example (examples/ivp_2d_shear_flow.py,
+    dedalus_tpu_torch.models.shear_flow) at its own 128x256, RK443 on the
+    default dense matsolver over 8192 pencils of P=17 (KA, KB, KC, K3, KG),
+    its setup by phase, 3 warm-up and 100 timed steps of run_steps with
+    its GlobalFlowProperty; card vs CPU at 16x32;
+  * the KdV-Burgers example as written (examples/ivp_1d_kdv_burgers.py,
+    dedalus_tpu_torch.models.kdv): Nx=1024, SBDF2 at dt 2e-3 to t=10
+    through solver.evolve (K7, KA, KB, K3, KG), its mean held; card vs CPU
+    at Nx=128;
+  * conditioned equations: the conditioned heat IVP and 2-D LBVP of the
+    JAX package's tests card vs CPU, with K3's conditioned gather (a
+    per-group source table) held to its twin exactly;
+  * the 2-D Poisson LBVP (examples/lbvp_2d_poisson.py) at 256x128 under
+    'banded' with [memory] max_dense_stack_gb = 0 (K8, K5, K6, K4, K3), card
+    vs CPU.
 
 Every path's grid-space products run through kernel KG, which is checked at
 each path's dealias grid.
@@ -71,7 +92,8 @@ each path's dealias grid.
     python3 chip_smoke.py
 
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
-banded_path, poly_path, banded_fast_path, cold_start_path, example_path,
+banded_path, schemes_path, shear_flow_path, kdv_path, conditions_path,
+banded_lbvp_path, poly_path, banded_fast_path, cold_start_path, example_path,
 matsolver_loops_path, matsolvers_card_vs_cpu, annulus_path, disk_path,
 ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
@@ -232,8 +254,36 @@ MATSOLVER_LOOPS = ('lu', 'mixed', 'matrix_free', 'inverse_refined')
 LOOP_ITERATIONS = 50
 _EXAMPLE_KERNELS = ('dense_matvec', 'rk_stage_combine', 'cfl_max', 'pencil_gather_scatter',
                     'grid_product')
+# The schemes path: RBC 2048x512 banded under each timed scheme, its warm-up
+# (startup steps, main factorization, probes) and timed steps; the seven
+# multistep schemes the port added to SBDF2, card vs CPU at 64x32
+SCHEMES = dict(timed=('SBDF3', 'SBDF4', 'CNAB2'), warmup=5, steps=20,
+               card_vs_cpu=('CNAB1', 'SBDF1', 'CNAB2', 'MCNAB2', 'CNLF2', 'SBDF3', 'SBDF4'))
+# The shear-flow example (examples/ivp_2d_shear_flow.py): its own size, the
+# card-vs-CPU size, its dt, warm-up and timed steps (the example runs 2000)
+SHEAR = dict(size=(128, 256), small=(16, 32), dt=1e-3, warmup=3, steps=100)
+# The KdV-Burgers example as written (examples/ivp_1d_kdv_burgers.py) and
+# its card-vs-CPU size and steps
+# warm_steps: the example's first steps, timed apart from its steady rest
+KDV = dict(Nx=1024, dt=2e-3, stop_sim_time=10, small=128, small_steps=200, warm_steps=100)
+# The 2-D Poisson LBVP (examples/lbvp_2d_poisson.py) at its own size under
+# 'banded', with [memory] max_dense_stack_gb = 0
+POISSON = (256, 128)
+_BANDED_STEP_KERNELS = ('history_combine', 'banded_apply', 'block_tridiag_qr_solve',
+                        'pencil_gather_scatter', 'grid_product')
 # Kernels each main path must launch
 PATH_KERNELS = dict(
+    rbc2048_sbdf3=_BANDED_STEP_KERNELS,
+    rbc2048_sbdf4=_BANDED_STEP_KERNELS,
+    rbc2048_cnab2=_BANDED_STEP_KERNELS,
+    shear128=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine',
+              'pencil_gather_scatter', 'grid_product'),
+    kdv1024=('history_combine', 'dense_refined_solve', 'dense_matvec', 'pencil_gather_scatter',
+             'grid_product'),
+    conditions=('history_combine', 'dense_refined_solve', 'dense_matvec',
+                'pencil_gather_scatter'),
+    lbvp_banded=('block_tridiag_qr_solve', 'banded_apply', 'banded_solve_pre',
+                 'banded_solve_post', 'pencil_gather_scatter'),
     rbc2048_poly=('separable_apply', 'history_combine', 'pencil_gather_scatter',
                   'grid_product'),
     rbc256_lu=('lu_solve',) + _EXAMPLE_KERNELS,
@@ -1089,19 +1139,20 @@ def check_k457(path, solver, fact, abc, primary=False):
     dev = bb.device
     G, Nb, nb = pencil.G, bb.Nb, bb.nb
     bM, bL = ts._banded_ml()
-    coef = torch.tensor([a[1], a[2], b[1], b[2], c[1], c[2]], dtype=torch.float64, device=dev)
-    h, o = ts._head, 1 - ts._head
-    hist = (ts.F[h], ts.F[o], ts.MX[h], ts.MX[o], ts.LX[h], ts.LX[o], pencil.row_valid_dev)
+    coef = ts.coefficient_vector(a, b, c, dev)
+    F, MX, LX = ts.histories()
+    hist = (F, MX, LX, pencil.row_valid_dev)
     RHS_plain = hc.history_combine_plain(*hist, coef)
     RHS_k = hc.history_combine(*hist, coef)
     torch.cuda.synchronize()
     record('history_combine', path, dict(
-        err=rel_err(RHS_k, RHS_plain), shape=list(RHS_k.shape),
+        err=rel_err(RHS_k, RHS_plain), shape=[len(F)] + list(RHS_k.shape),
         ms=cuda_ms(lambda: hc.history_combine(*hist, coef), 50),
         plain_ms=cuda_ms(lambda: hc.history_combine_plain(*hist, coef), 50),
         library_ms=None,
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*hist, coef, RHS_k), 12 * RHS_k.numel())))), primary)
+                   bound(nbytes(*F, *MX, *LX, pencil.row_valid_dev, coef, RHS_k),
+                         6 * len(F) * RHS_k.numel())))), primary)
 
     fac = bb.arrs['fac']
     rc = ob.banded_solve_pre_plain(RHS_plain, bb.arrs['row_perm'], bb.arrs['Dr'],
@@ -1141,16 +1192,13 @@ def check_k457(path, solver, fact, abc, primary=False):
 
 
 def last_solve_residual(solver, a, b, c):
-    """Relative residual |A X - RHS| / |RHS| of the last SBDF2 step's solve,
-    with the plain K4 and the plain K7."""
+    """Relative residual |A X - RHS| / |RHS| of the last multistep step's
+    solve, with the plain K4 and the plain K7."""
     from dedalus_tpu_torch.csrc import history_combine as hc
     ts, pencil = solver.timestepper, solver.pencil
     bM, bL = ts._banded_ml()
-    coef = torch.tensor([a[1], a[2], b[1], b[2], c[1], c[2]], dtype=torch.float64,
-                        device=pencil.row_valid_dev.device)
-    h, o = ts._head, 1 - ts._head
-    RHS = hc.history_combine_plain(ts.F[h], ts.F[o], ts.MX[h], ts.MX[o],
-                                   ts.LX[h], ts.LX[o], pencil.row_valid_dev, coef)
+    coef = ts.coefficient_vector(a, b, c, pencil.row_valid_dev.device)
+    RHS = hc.history_combine_plain(*ts.histories(), pencil.row_valid_dev, coef)
     Xf = pencil.gather_state(solver.state_flat())
     AX = (float(a[0]) * plain_operator_apply(bM, Xf)
           + float(b[0]) * plain_operator_apply(bL, Xf)) * pencil.row_valid_dev
@@ -1796,6 +1844,63 @@ def dense_card_vs_cpu():
             raise AssertionError(f"{scheme}: card and CPU trajectories disagree: {err:.3e}")
 
 
+def check_dense_kernels(path, solver, dt, R, primary=False):
+    """KA, KB and KC against their plain twins at a dense Runge-Kutta path's
+    shapes: stage 2's solve at step size dt on a recorded right-hand side R
+    (with one refinement pass and with none), the M and L applies of the
+    state (the pair and L alone), and stage 2's combine."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    from dedalus_tpu_torch.csrc import rk_combine as rkc
+    ts, pencil = solver.timestepper, solver.pencil
+    G, P = pencil.G, pencil.R
+    fact, coef2 = ts._stage_stacks(dt)[1]
+    Mm, Lm, rv = pencil.matrices['M'], pencil.matrices['L'], pencil.row_valid_dev
+    state = solver.state_flat()
+    X = pencil.gather_state(state).contiguous()
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape')
+
+    Xk = osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1)
+    Xp = osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1)
+    X0k = osolve.dense_refined_solve(fact.Ainv, None, R, 0)
+    X0p = osolve.dense_refined_solve_plain(fact.Ainv, None, R, 0)
+    torch.cuda.synchronize()
+    record('dense_refined_solve', path, dict(
+        err=max(rel_err(Xk, Xp), rel_err(X0k, X0p)), shape=[G, P],
+        ms=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1), 20),
+        plain_ms=cuda_ms(lambda: osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1), 20),
+        library_ms=cuda_ms(lambda: torch.matmul(fact.Ainv, R[..., None]), 20),
+        ms_zero_pass=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, None, R, 0), 20),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(fact.Ainv, fact.A, R, Xk), 6 * G * P * P)))), primary,
+        keys=keys + ('ms_zero_pass',))
+
+    MXk, LXk = osolve.dense_matvec(Mm, X, Lm)
+    MXp, LXp = osolve.dense_matvec_plain(Mm, X, Lm)
+    Lk = osolve.dense_matvec(Lm, X)
+    torch.cuda.synchronize()
+    record('dense_matvec', path, dict(
+        err=max(rel_err(MXk, MXp), rel_err(LXk, LXp), rel_err(Lk, LXp)), shape=[G, P],
+        ms=cuda_ms(lambda: osolve.dense_matvec(Lm, X), 20),
+        plain_ms=cuda_ms(lambda: osolve.dense_matvec_plain(Lm, X), 20),
+        library_ms=cuda_ms(lambda: torch.matmul(Lm, X[..., None]), 20),
+        ms_pair=cuda_ms(lambda: osolve.dense_matvec(Mm, X, Lm), 20),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(Lm, X, Lk), 2 * G * P * P)))),
+        primary, keys=keys + ('ms_pair',))
+
+    F = [solver.traced_F(state, solver.sim_time) for _ in range(2)]
+    LX = [LXp, Lk]
+    Ck = rkc.rk_stage_combine(MXp, F, LX, rv, coef2)
+    Cp = rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2)
+    torch.cuda.synchronize()
+    record('rk_stage_combine', path, dict(
+        err=rel_err(Ck, Cp), shape=[len(F), G, P],
+        ms=cuda_ms(lambda: rkc.rk_stage_combine(MXp, F, LX, rv, coef2), 50),
+        plain_ms=cuda_ms(lambda: rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2), 50),
+        library_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(MXp, *F, *LX, rv, coef2, Ck), 9 * Ck.numel())))), primary)
+
+
 def build_example(matsolver=None):
     """The Rayleigh-Benard example at EX_NX x EX_NZ on the card: RK222 on
     `matsolver` (the default when None), the example's initial condition,
@@ -1837,7 +1942,6 @@ def example_path():
     """The Rayleigh-Benard example: 256x64, Ra=2e6, RK222 with the default
     matsolver, the example's CFL loop and GlobalFlowProperty."""
     from dedalus_tpu_torch.ops import solve as osolve
-    from dedalus_tpu_torch.csrc import rk_combine as rkc
     from dedalus_tpu_torch.csrc import cfl_max as cm
 
     dev, kind, smi = card()
@@ -1876,57 +1980,8 @@ def example_path():
 
     phase("KA, KB, KC, KD vs plain twins (example-path shapes)")
     ts = solver.timestepper
-    dt = CFL.stored_dt
-    stages = ts._stage_stacks(dt)
-    fact, coef2 = stages[1]
-    Mm, Lm, rv = pencil.matrices['M'], pencil.matrices['L'], pencil.row_valid_dev
     state = solver.state_flat()
-    X = pencil.gather_state(state).contiguous()
-    R = last['R']
-
-    Xk = osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1)
-    Xp = osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1)
-    torch.cuda.synchronize()
-    RESULTS['dense_refined_solve'] = dict(
-        err=rel_err(Xk, Xp),
-        ms=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1), 20),
-        plain_ms=cuda_ms(lambda: osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1), 20),
-        library_ms=cuda_ms(lambda: torch.matmul(fact.Ainv, R[..., None]), 20),
-        ms_zero_pass=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, None, R, 0), 20),
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(fact.Ainv, fact.A, R, Xk), 6 * G * P * P))))
-    X0k = osolve.dense_refined_solve(fact.Ainv, None, R, 0)
-    X0p = osolve.dense_refined_solve_plain(fact.Ainv, None, R, 0)
-    torch.cuda.synchronize()
-    err0 = rel_err(X0k, X0p)
-    print(f"dense_refined_solve zero-pass: rel_err {err0[0]:.3e}")
-    RESULTS['dense_refined_solve']['err'] = max(RESULTS['dense_refined_solve']['err'], err0)
-
-    MXk, LXk = osolve.dense_matvec(Mm, X, Lm)
-    MXp, LXp = osolve.dense_matvec_plain(Mm, X, Lm)
-    Lk = osolve.dense_matvec(Lm, X)
-    torch.cuda.synchronize()
-    RESULTS['dense_matvec'] = dict(
-        err=max(rel_err(MXk, MXp), rel_err(LXk, LXp), rel_err(Lk, LXp)),
-        ms=cuda_ms(lambda: osolve.dense_matvec(Lm, X), 20),
-        plain_ms=cuda_ms(lambda: osolve.dense_matvec_plain(Lm, X), 20),
-        library_ms=cuda_ms(lambda: torch.matmul(Lm, X[..., None]), 20),
-        ms_pair=cuda_ms(lambda: osolve.dense_matvec(Mm, X, Lm), 20),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(Lm, X, Lk), 2 * G * P * P))))
-
-    F = [solver.traced_F(state, solver.sim_time) for _ in range(2)]
-    LX = [LXp, Lk]
-    Ck = rkc.rk_stage_combine(MXp, F, LX, rv, coef2)
-    Cp = rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2)
-    torch.cuda.synchronize()
-    RESULTS['rk_stage_combine'] = dict(
-        err=rel_err(Ck, Cp),
-        ms=cuda_ms(lambda: rkc.rk_stage_combine(MXp, F, LX, rv, coef2), 50),
-        plain_ms=cuda_ms(lambda: rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2), 50),
-        library_ms=None,
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(MXp, *F, *LX, rv, coef2, Ck), 9 * Ck.numel()))))
-
+    check_dense_kernels('rbc256', solver, CFL.stored_dt, last['R'], primary=True)
     grids = CFL.frequency_grids()
     Dk = cm.cfl_max(grids)
     Dp = cm.cfl_max_plain(grids)
@@ -1941,8 +1996,7 @@ def example_path():
                    bound(nbytes(*grids, Dk), len(grids) * grids[0].numel()))))
     check_k3('rbc256', pencil, state)
     check_kg('rbc256', u)
-    check_tolerances({k: RESULTS[k] for k in
-                      ('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max')})
+    check_tolerances({'cfl_max': RESULTS['cfl_max']})
 
     phase(f"example path: {EX_ITERATIONS} timed iterations of the CFL loop")
     dts.clear()
@@ -3622,6 +3676,472 @@ def matsolver_loops_path(iterations=LOOP_ITERATIONS):
                       "card": smi}))
 
 
+
+# --- the Cartesian IVP family: the multistep schemes, the shear flow, KdV,
+# conditioned equations and the banded LBVP ---
+
+def check_k7_depths(path, pencil):
+    """K7 at history depths 1 to 4 at a pencil's shapes against its plain
+    twin, on seeded slots and coefficients: ms, the twin's ms, the einsum
+    form of the JAX package on pre-stacked slots (the torch sequence the
+    kernel replaces), and the bound of each depth. Every depth's variant is
+    compiled before any is timed."""
+    from dedalus_tpu_torch.csrc import history_combine as hc
+    rv = pencil.row_valid_dev
+    dev = rv.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rand = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    cases = {}
+    for s in (1, 2, 3, 4):
+        F, MX, LX = ([rand(*rv.shape) for _ in range(s)] for _ in range(3))
+        cases[s] = (F, MX, LX, rand(3 * s))
+        hc.history_combine(F, MX, LX, rv, cases[s][3])
+    torch.cuda.synchronize()
+    by_depth, errs = {}, []
+    for s, (F, MX, LX, coef) in cases.items():
+        yk = hc.history_combine(F, MX, LX, rv, coef)
+        yp = hc.history_combine_plain(F, MX, LX, rv, coef)
+        torch.cuda.synchronize()
+        errs.append(rel_err(yk, yp))
+        Fs, Ms, Ls = torch.stack(F), torch.stack(MX), torch.stack(LX)
+        a, b, c = coef[:s], coef[s:2 * s], coef[2 * s:]
+
+        def seq():
+            return (torch.einsum('j,jgr->gr', c, Fs) - torch.einsum('j,jgr->gr', a, Ms)
+                    - torch.einsum('j,jgr->gr', b, Ls)) * rv
+
+        bound_ms, bound_by = bound(nbytes(*F, *MX, *LX, rv, coef, yk), 6 * s * yk.numel())
+        by_depth[s] = dict(
+            err=errs[-1][0], ms=cuda_ms(lambda: hc.history_combine(F, MX, LX, rv, coef), 50),
+            plain_ms=cuda_ms(lambda: hc.history_combine_plain(F, MX, LX, rv, coef), 50),
+            torch_sequence_ms=cuda_ms(seq, 50), bound_ms=bound_ms, bound_by=bound_by)
+        d = by_depth[s]
+        print(f"K7 at depth {s} on {list(rv.shape)}: rel_err {d['err']:.3e} kernel "
+              f"{d['ms']:.4f} ms plain {d['plain_ms']:.4f} ms torch sequence "
+              f"{d['torch_sequence_ms']:.4f} ms bound {d['bound_ms']:.4f} ms "
+              f"({100 * d['bound_ms'] / d['ms']:.0f}% of it)")
+        del F, MX, LX, Fs, Ms, Ls
+    r = RESULTS['history_combine']
+    r['err'] = max([r['err']] + errs)
+    r['by_depth'] = by_depth
+    if not max(errs)[0] <= TOL['history_combine']:
+        raise AssertionError(f"history_combine disagrees with its plain twin at depth "
+                             f"{max(by_depth, key=lambda k: by_depth[k]['err'])}")
+
+
+def schemes_path():
+    """RBC 2048x512 banded under SBDF3, SBDF4 and CNAB2 (the matsolver
+    named): for each, setup by phase, the warm-up steps (the startup keys
+    served by the main factorization through outer passes, by phase), 20
+    timed steps with K7 at the scheme's depth, K4, K5, K3 and KG, and the
+    last solve's residual; K7 at every depth on these pencils; then RBC
+    64x32 card vs CPU under each multistep scheme the port added."""
+    from dedalus_tpu_torch.ops import banded as ob
+    dev, kind, smi = card()
+    for i, scheme in enumerate(SCHEMES['timed']):
+        path = f"rbc2048_{scheme.lower()}"
+        phase(f"schemes path: RBC {NX}x{NZ} Ra={RA:g} {scheme} banded on {kind}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ob.phase_seconds.clear()
+        t0 = time.perf_counter()
+        solver = build_rbc(NX, NZ, RA, dev, scheme=scheme, matsolver='banded')
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_phases = dict(ob.phase_seconds)
+        ob.phase_seconds.clear()
+        t0 = time.perf_counter()
+        solver.run_steps(DT, SCHEMES['warmup'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_phases = dict(ob.phase_seconds)
+        ts = solver.timestepper
+        depth = ts.steps
+        a, b, c = ts.compute_coefficients([DT] * depth, depth)
+        main = (float(a[0]), float(b[0]))
+        fact = ts._factorized[main]
+        bb = fact.banded
+        startup = {f"a0={k[0]:.6g} b0={k[1]:.6g}": n for k, n in ts._outer_for_key.items()
+                   if k != main}
+        print(f"setup {setup_s:.2f} s {setup_phases}; {SCHEMES['warmup']} warm-up steps "
+              f"{warm_s:.2f} s {warm_phases}")
+        print(f"depth {depth}; main key a0={main[0]:.6g} b0={main[1]:.6g}: "
+              f"{bb.refinements} refinements; startup keys and their outer passes {startup}; "
+              f"factorizations {len(ts._factorized)}")
+        if i == 0:
+            phase(f"K4, K5, K7 at depth {depth} vs plain twins; K7 at every depth")
+            check_k457(path, solver, fact, (a, b, c))
+            check_k7_depths(path, solver.pencil)
+        n_steps = SCHEMES['steps']
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches(path, n_steps, lambda: solver.run_steps(DT, n_steps))
+        torch.cuda.synchronize()
+        ms_step = (time.perf_counter() - t0) / n_steps * 1e3
+        resid = last_solve_residual(solver, a, b, c)
+        state = solver.state_flat()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{smi}] RBC {NX}x{NZ} {scheme}: {ms_step:.3f} ms/step, last solve residual "
+              f"{resid:.3e}, peak memory {peak / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in LAUNCHES[path].items() if v} }")
+        print(json.dumps({"schemes_path": dict(
+            config=f"RBC {NX}x{NZ} Ra={RA:g} {scheme} banded", card=smi, depth=depth,
+            ms_per_step=ms_step, setup_s=setup_s, setup_phases_s=setup_phases,
+            warmup_s=warm_s, warmup_phases_s=warm_phases, refinements=bb.refinements,
+            startup_outer_passes=startup, factorizations=len(ts._factorized),
+            final_residual=resid, peak_bytes=peak)}))
+        if not torch.isfinite(state).all():
+            raise AssertionError(f"{path}: state is not finite")
+        if not resid <= 1e-9:
+            raise AssertionError(f"{path}: final solve residual {resid:.3e} > 1e-9")
+        del solver, ts, fact, bb, state
+
+    for scheme in SCHEMES['card_vs_cpu']:
+        states = {}
+        for d in (DEVICE, 'cpu'):
+            s = build_rbc(64, 32, 1e5, d, scheme=scheme, matsolver='banded')
+            s.run_steps(DT, 10)
+            states[d] = s.state_flat().cpu()
+        err = rel_err(states[DEVICE], states['cpu'])[0]
+        print(f"RBC 64x32 {scheme} banded, 10 steps: cuda vs cpu rel_err {err:.3e} (tol 1e-10)")
+        if not err <= 1e-10:
+            raise AssertionError(f"{scheme}: card and CPU trajectories disagree: {err:.3e}")
+
+
+def build_shear(size, device):
+    """The shear-flow example at `size` with RK443 and its flow property:
+    (solver, ctx, flow)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import shear_flow as sf
+    problem, ctx = sf.build_shear_flow_problem(*size, device=device)
+    sf.set_initial_condition(ctx)
+    solver = problem.build_solver(d3.RK443)
+    return solver, ctx, sf.add_flow_property(solver, ctx)
+
+
+def shear_flow_path(steps=SHEAR['steps']):
+    """The shear-flow example at its own 128x256, RK443 on the default dense
+    matsolver: card vs CPU at 16x32, setup by phase, 3 warm-up steps, KA,
+    KB, KC, K3 and KG against their twins, `steps` timed steps of the
+    example's run_steps with its GlobalFlowProperty, and a breakdown."""
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    import dedalus_tpu_torch.core.arithmetic as arith
+    from dedalus_tpu_torch.ops import banded as ob, solve as osolve
+    dev, kind, smi = card()
+    dt = SHEAR['dt']
+
+    phase(f"shear flow {SHEAR['small'][0]}x{SHEAR['small'][1]} RK443, 20 steps: cuda vs cpu")
+    states = {}
+    for d in (DEVICE, 'cpu'):
+        s, _, _ = build_shear(SHEAR['small'], d)
+        s.run_steps(dt, 20)
+        states[d] = s.state_flat().cpu()
+    err = rel_err(states[DEVICE], states['cpu'])[0]
+    print(f"cuda vs cpu rel_err {err:.3e} (tol 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError(f"shear flow: card and CPU trajectories disagree: {err:.3e}")
+
+    Nx, Nz = SHEAR['size']
+    phase(f"shear flow path setup: {Nx}x{Nz} RK443 default matsolver on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    solver, ctx, flow = build_shear(SHEAR['size'], None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_phases = dict(ob.phase_seconds)
+    pencil = solver.pencil
+    if solver.matsolver != 'inverse_refined' or solver.dist.device.type != dev.type:
+        raise AssertionError(f"shear flow on {solver.matsolver} / {solver.dist.device}")
+    print(f"setup {setup_s:.2f} s by phase {setup_phases}; G={pencil.G} P={pencil.R}")
+    last, restore_solve = record_solves()
+    t0 = time.perf_counter()
+    solver.run_steps(dt, SHEAR['warmup'])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"warmup_s {warm_s:.2f} ({SHEAR['warmup']} steps incl. the stage factorizations)")
+
+    phase("KA, KB, KC, K3, KG vs plain twins (shear-flow shapes)")
+    check_dense_kernels('shear128', solver, dt, last['R'])
+    check_k3('shear128', pencil, solver.state_flat())
+    check_kg('shear128', ctx['u'])
+    check_tolerances({'pencil_gather_scatter': RESULTS['pencil_gather_scatter']})
+
+    phase(f"shear flow path: {steps} timed steps")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    count_launches('shear128', steps, lambda: solver.run_steps(dt, steps))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    restore_solve()
+    ms_step = run_s / steps * 1e3
+    re_max = flow.max('Re_pt')
+    peak = torch.cuda.max_memory_allocated()
+    resid = solve_residual(last)
+    per_step = {k: v / steps for k, v in LAUNCHES['shear128'].items() if v}
+    print(f"[{smi}] shear flow {Nx}x{Nz} RK443: {ms_step:.3f} ms/step, setup {setup_s:.1f} s, "
+          f"max Re_pt {re_max:.6g}, last solve residual {resid:.3e}, peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per step {per_step}")
+    print(json.dumps({"shear_flow_path": dict(
+        config=f"shear flow {Nx}x{Nz} RK443 {solver.matsolver}", card=smi, ms_per_step=ms_step,
+        steps=steps, setup_s=setup_s, setup_phases_s=setup_phases, warmup_s=warm_s,
+        max_Re_pt=re_max, last_solve_residual=resid, peak_bytes=peak,
+        launches_per_step=per_step, card_vs_cpu=err)}))
+    if not (np.isfinite(re_max) and torch.isfinite(solver.state_flat()).all()):
+        raise AssertionError("shear flow: Re_pt or the state is not finite")
+    if not resid <= 1e-12:
+        raise AssertionError(f"shear flow: last solve residual {resid:.3e} > 1e-12")
+
+    phase("shear flow path: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('combine (KC)', tsm, 'rk_stage_combine'),
+               ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'), ('flow handler', flow.handler, 'process')]
+    breakdown('shear128', solver, targets, [('KG', arith, 'grid_product')],
+              lambda: solver.run_steps(dt, 20), smi)
+
+
+def build_kdv(Nx, device):
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models.kdv import build_kdv_problem
+    problem, ctx = build_kdv_problem(Nx=Nx, device=device)
+    return problem.build_solver(d3.SBDF2), ctx
+
+
+def kdv_path():
+    """The KdV-Burgers example as written: Nx=1024, SBDF2 at dt 2e-3 to
+    stop_sim_time 10 through solver.evolve, its mean held; card vs CPU at
+    Nx=128 after 200 steps."""
+    dev, kind, smi = card()
+    phase(f"KdV-Burgers Nx={KDV['small']} SBDF2, {KDV['small_steps']} steps: cuda vs cpu")
+    states = {}
+    for d in (DEVICE, 'cpu'):
+        s, _ = build_kdv(KDV['small'], d)
+        for _ in range(KDV['small_steps']):
+            s.step(KDV['dt'])
+        states[d] = s.state_flat().cpu()
+    err = rel_err(states[DEVICE], states['cpu'])[0]
+    print(f"cuda vs cpu rel_err {err:.3e} (tol 1e-10)")
+    if not err <= 1e-10:
+        raise AssertionError(f"KdV: card and CPU trajectories disagree: {err:.3e}")
+
+    phase(f"KdV path: the example as written, Nx={KDV['Nx']} SBDF2 dt={KDV['dt']:g} to "
+          f"t={KDV['stop_sim_time']} through evolve on {kind}")
+    t0 = time.perf_counter()
+    solver, ctx = build_kdv(KDV['Nx'], None)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    u = ctx['u']
+    u.change_scales(1)
+    mass0 = float(u['g'].mean())
+    # The example's one run, split at warm_steps so that its steady steps
+    # are timed apart from the first steps' factorization and builds
+    ends = (KDV['warm_steps'] * KDV['dt'], KDV['stop_sim_time'])
+    run_s, iters = [], []
+
+    def evolve_in_parts():
+        for end in ends:
+            solver.stop_sim_time = end
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.evolve(KDV['dt'], log_cadence=1000)
+            torch.cuda.synchronize()
+            run_s.append(time.perf_counter() - t0)
+            iters.append(solver.iteration)
+
+    count_launches('kdv1024', None, evolve_in_parts)
+    n = STEPS['kdv1024'] = solver.iteration
+    u.change_scales(1)
+    g = u['g']
+    drift = abs(float(g.mean()) - mass0)
+    finite = bool(torch.isfinite(g).all())
+    ms_step = sum(run_s) / n * 1e3
+    n_steady = iters[1] - iters[0]
+    steady_ms = run_s[1] / n_steady * 1e3
+    print(f"[{smi}] KdV-Burgers Nx={KDV['Nx']}: {n} steps, {ms_step:.4f} ms/step (the first "
+          f"steps' factorization and kernel builds included), {steady_ms:.4f} ms/step over "
+          f"its last {n_steady} steps, {run_s[0] / iters[0] * 1e3:.4f} over its first "
+          f"{iters[0]}, setup {setup_s:.2f} s, mean drift {drift:.3e}; launches per step "
+          f"{ {k: v / n for k, v in LAUNCHES['kdv1024'].items() if v} }")
+    print(json.dumps({"kdv_path": dict(
+        config=f"KdV-Burgers Nx={KDV['Nx']} SBDF2 dt={KDV['dt']} {solver.matsolver}", card=smi,
+        steps=n, ms_per_step=ms_step, steady_steps=n_steady, steady_ms_per_step=steady_ms,
+        setup_s=setup_s, mean_drift=drift, card_vs_cpu=err)}))
+    if not finite:
+        raise AssertionError("KdV: state is not finite")
+    if not drift < 1e-12:
+        raise AssertionError(f"KdV: mean drifted by {drift:.3e}")
+
+
+def build_conditioned_heat(device):
+    """tests/test_ivp.py:806-840: dt(u) - dx(dx(u)) = f where nx != 0, the
+    gauge u = 0 where nx == 0, SBDF2."""
+    import dedalus_tpu_torch.public as d3
+    c = d3.Coordinate('x')
+    dist = d3.Distributor(c, dtype=np.float64, device=device)
+    xb = d3.RealFourier(c, size=32, bounds=(0, 2 * np.pi))
+    u = dist.Field(name='u', bases=xb)
+    f = dist.Field(name='f', bases=xb)
+    x = dist.local_grid(xb, scale=1).ravel()
+    f['g'] = np.cos(3 * x) + 0.7
+    dx = lambda A: d3.Differentiate(A, c)
+    problem = d3.IVP([u], namespace=locals())
+    problem.add_equation("dt(u) - dx(dx(u)) = f", condition="nx != 0")
+    problem.add_equation("u = 0", condition="nx == 0")
+    solver = problem.build_solver(d3.SBDF2)
+    u['g'] = np.sin(x) + 2.0
+    return solver
+
+
+def build_conditioned_lbvp(device):
+    """tests/test_lbvp.py:140-168: conditioned boundary rows merged into one
+    row block beside unconditioned equations."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates('x', 'z')
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xb = d3.RealFourier(coords['x'], size=16, bounds=(0, 2 * np.pi))
+    zb = d3.ChebyshevT(coords['z'], size=24, bounds=(0, 1))
+    u = dist.Field(name='u', bases=(xb, zb))
+    tau1 = dist.Field(name='tau1', bases=xb)
+    tau2 = dist.Field(name='tau2', bases=xb)
+    lift = lambda A, n: d3.Lift(A, zb.derivative_basis(2), n)
+    integz = lambda A: d3.Integrate(A, coords['z'])
+    x, z = dist.local_grids(xb, zb, scales=1)
+    F = dist.Field(name='F', bases=(xb, zb))
+    F['g'] = -4 * np.sin(2 * x) * z * (1 - z) - 2 * np.sin(2 * x) + 2
+    problem = d3.LBVP([u, tau1, tau2], namespace=locals())
+    problem.add_equation("lap(u) + lift(tau1,-1) + lift(tau2,-2) = F")
+    problem.add_equation("u(z=0) = 0", condition="nx != 0")
+    problem.add_equation("integz(u) = 0", condition="nx == 0")
+    problem.add_equation("u(z=1) = 0")
+    return problem.build_solver()
+
+
+def conditions_path():
+    """Conditioned equations on the card: the conditioned heat IVP (100
+    SBDF2 steps) and the conditioned 2-D LBVP, card vs CPU; K3's
+    conditioned gather against its twin, exactly."""
+    from dedalus_tpu_torch.core import subsystems as sub
+    dev, kind, smi = card()
+    phase(f"conditioned heat IVP (100 SBDF2 steps) and 2-D LBVP: cuda vs cpu on {kind}")
+    states = {}
+    for d in (DEVICE, 'cpu'):
+        s = build_conditioned_heat(d)
+        if d == DEVICE:
+            count_launches('conditions', 100, lambda: s.run_steps(1e-3, 100))
+        else:
+            s.run_steps(1e-3, 100)
+        states[d] = s.state_flat().cpu()
+    err_ivp = rel_err(states[DEVICE], states['cpu'])[0]
+    lb = {}
+    for d in (DEVICE, 'cpu'):
+        s = build_conditioned_lbvp(d)
+        s.solve()
+        lb[d] = s
+    err_lbvp = rel_err(lb[DEVICE].state_flat().cpu(), lb['cpu'].state_flat())[0]
+    mean = float(states[DEVICE].mean())
+    print(f"conditioned IVP cuda vs cpu rel_err {err_ivp:.3e}, LBVP {err_lbvp:.3e} (tol 1e-10); "
+          f"launches { {k: v for k, v in LAUNCHES['conditions'].items() if v} }")
+    if not max(err_ivp, err_lbvp) <= 1e-10:
+        raise AssertionError(f"conditioned problems: card and CPU disagree: "
+                             f"{err_ivp:.3e} {err_lbvp:.3e}")
+
+    phase("K3 on the conditioned LBVP's pencils, its conditioned gather alone")
+    check_k3('conditions', lb[DEVICE].pencil, lb[DEVICE].state_flat())
+    gm = lb[DEVICE].pencil.eq_gather
+    if gm.gsrc is None:
+        raise AssertionError("the conditioned LBVP's gather has no source table")
+    gen = torch.Generator(device=gm.valid.device).manual_seed(13)
+    srcs = [torch.randn(n, generator=gen, dtype=torch.float64, device=gm.valid.device)
+            for n in gm.src_sizes]
+    yk = sub.pencil_gather(gm, srcs)
+    yp = sub.pencil_gather_plain(gm.to('cpu'), [t.cpu() for t in srcs])
+    torch.cuda.synchronize()
+    exact = torch.equal(yk.cpu(), yp)
+    err = float((yk.cpu() - yp).abs().max())
+    cond = dict(exact=exact, max_abs_err=err, shape=list(yk.shape),
+                ms=cuda_ms(lambda: sub.pencil_gather(gm, srcs), 50),
+                plain_ms=cuda_ms(lambda: sub.pencil_gather_plain(gm, srcs), 50),
+                **dict(zip(('bound_ms', 'bound_by'),
+                           bound(nbytes(*srcs, gm.gsrc, gm.idx, gm.valid_u8, yk), 0))))
+    r = RESULTS['pencil_gather_scatter']
+    r['conditioned'] = cond
+    r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
+    print(f"K3 conditioned on {cond['shape']}: {'exact' if exact else f'max_abs {err:.3e}'}; "
+          f"kernel {cond['ms']:.4f} ms plain {cond['plain_ms']:.4f} ms bound "
+          f"{cond['bound_ms']:.5f} ms; the IVP's mean {mean:.3e}")
+    if not exact:
+        raise AssertionError(f"K3's conditioned gather differs from its twin: {err:.3e}")
+
+
+def build_poisson(device):
+    """examples/lbvp_2d_poisson.py at POISSON under 'banded'."""
+    import dedalus_tpu_torch.public as d3
+    Nx, Ny = POISSON
+    Lx, Ly = 2 * np.pi, np.pi
+    coords = d3.CartesianCoordinates('x', 'y')
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xbasis = d3.RealFourier(coords['x'], size=Nx, bounds=(0, Lx))
+    ybasis = d3.ChebyshevT(coords['y'], size=Ny, bounds=(0, Ly))
+    u = dist.Field(name='u', bases=(xbasis, ybasis))
+    tau_1 = dist.Field(name='tau_1', bases=xbasis)
+    tau_2 = dist.Field(name='tau_2', bases=xbasis)
+    f = dist.Field(name='f', bases=(xbasis, ybasis))
+    g = dist.Field(name='g', bases=xbasis)
+    x, y = dist.local_grids(xbasis, ybasis, scales=1)
+    f['g'] = -10 * np.sin(x / 2)**2 * (y - y**2 / 4)
+    g['g'] = np.sin(8 * x)
+    dy = lambda A: d3.Differentiate(A, coords['y'])
+    lift = lambda A, n: d3.Lift(A, ybasis.derivative_basis(2), n)
+    problem = d3.LBVP([u, tau_1, tau_2], namespace=locals())
+    problem.add_equation("lap(u) + lift(tau_1,-1) + lift(tau_2,-2) = f")
+    problem.add_equation("u(y=0) = g")
+    problem.add_equation("dy(u)(y=Ly) = 0")
+    return problem.build_solver(matsolver='banded'), u, g
+
+
+def banded_lbvp_path():
+    """The 2-D Poisson LBVP at its own size under 'banded' with [memory]
+    max_dense_stack_gb = 0 (the lazy stack, factored by K8 and solved by
+    K5/K6 with K4 refinement): card vs CPU, and its boundary error."""
+    from dedalus_tpu_torch.utils.config import config
+    dev, kind, smi = card()
+    phase(f"banded LBVP: 2-D Poisson {POISSON[0]}x{POISSON[1]}, max_dense_stack_gb = 0: "
+          f"cuda vs cpu on {kind}")
+    old = config.get('memory', 'max_dense_stack_gb')
+    config.set('memory', 'max_dense_stack_gb', '0')
+    try:
+        out = {}
+        for d in (DEVICE, 'cpu'):
+            solver, u, g = build_poisson(d)
+            if solver.pencil.matrices['L'] is not None:
+                raise AssertionError("the Poisson LBVP built dense stacks")
+            t0 = time.perf_counter()
+            if d == DEVICE:
+                count_launches('lbvp_banded', 1, solver.solve)
+                torch.cuda.synchronize()
+            else:
+                solver.solve()
+            solve_s = time.perf_counter() - t0
+            ub = u(y=0).evaluate()
+            ub.change_scales(1)
+            out[d] = (solver.state_flat().cpu(), float((ub['g'] - g['g']).abs().max()), solve_s,
+                      solver._factorized.banded.refinements)
+    finally:
+        config.set('memory', 'max_dense_stack_gb', old)
+    err = rel_err(out[DEVICE][0], out['cpu'][0])[0]
+    print(f"[{smi}] banded LBVP: cuda vs cpu rel_err {err:.3e} (tol 1e-10); boundary error "
+          f"{out[DEVICE][1]:.3e}; factor and solve {out[DEVICE][2]:.2f} s on the card, "
+          f"{out['cpu'][2]:.2f} s on the CPU; refinements {out[DEVICE][3]}; launches "
+          f"{ {k: v for k, v in LAUNCHES['lbvp_banded'].items() if v} }")
+    if not err <= 1e-10:
+        raise AssertionError(f"banded LBVP: card and CPU disagree: {err:.3e}")
+    if not out[DEVICE][1] <= 1e-10:
+        raise AssertionError(f"banded LBVP: boundary error {out[DEVICE][1]:.3e}")
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -3644,13 +4164,18 @@ def main():
 
     t_start = time.perf_counter()
     banded_path()
+    schemes_path()
     poly_path()
     banded_fast_path()
     cold_start_path()
     dense_card_vs_cpu()
+    kdv_path()
+    conditions_path()
+    banded_lbvp_path()
     matsolvers_card_vs_cpu()
     example_path()
     matsolver_loops_path()
+    shear_flow_path()
     polar_card_vs_cpu()
     annulus_path()
     disk_path()
@@ -3669,7 +4194,7 @@ def main():
              'err_f32_branch', 'err_path_sinv', 'err_path_sinv_f32_branch', 'cond_S',
              'err_by_factor', 'pins', 'growth', 'solve_residual', 'solve_residual_plain',
              'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',
-             'calls_checked', 'ms_by_wrapper', 'ms_where_library')
+             'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

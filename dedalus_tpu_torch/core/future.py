@@ -4,8 +4,8 @@ Deferred-evaluation operator trees.
 Mirrors dedalus_tpu/core/future.py: the tree protocol the IVP needs (split,
 replace, linearity checks, matrix dependence and coupling, expression
 matrices), evaluated eagerly over torch tensors. The Frechet differentials
-of the boundary value and eigenvalue problems are not ported yet (ROADMAP
-M8).
+of the nonlinear boundary value and eigenvalue problems are not ported yet
+(ROADMAP M8b).
 """
 
 import numbers

@@ -3,8 +3,10 @@ Problem classes: initial value and linear boundary value problems.
 
 Mirrors dedalus_tpu/core/problems.py: string equation entry via namespace
 evaluation, linearity and first-order checks, the M/L/F split of
-M.dt(X) + L.X = F(X, t) and the L/F split of L.X = F. Nonlinear boundary
-value and eigenvalue problems are not ported yet (ROADMAP M8).
+M.dt(X) + L.X = F(X, t) and the L/F split of L.X = F, and the condition
+string of each equation (the pencil system evaluates it per group).
+Nonlinear boundary value and eigenvalue problems are not ported yet
+(ROADMAP M8b).
 """
 
 import numpy as np

@@ -6,11 +6,13 @@ LinearBoundaryValueSolver:
 subproblem enumeration and the pencil system, the default matsolver from
 the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
 with grouped transforms (ROADMAP K2: plain torch around kernel KG's grid
-products), step / run_steps with
-the evaluator's handler schedule, the run-control properties and
-log_stats; the LBVP factors L once and solves it with the dense or poly
-matsolvers. The nonlinear boundary value and eigenvalue solvers and file
-output are not ported yet (ROADMAP M8, M9).
+products), step / run_steps / evolve with
+the evaluator's handler schedule (evolve with a CFL runs the chunked loop),
+the run-control properties, log_stats and the profile option (a
+torch.profiler trace and a cProfile dump); the LBVP factors L once and
+solves it with the dense, poly or banded matsolvers. The nonlinear boundary
+value and eigenvalue solvers and file output are not ported yet (ROADMAP
+M8b, M9).
 """
 
 import logging
@@ -302,15 +304,15 @@ class SolverBase:
 
 
 class LinearBoundaryValueSolver(SolverBase):
-    """L.X = F: one factorization of the pivoted L stack, one solve."""
+    """L.X = F: one factorization of the pivoted L stack, one solve. Under
+    'banded' the stack must be past [memory] max_dense_stack_gb (a dense
+    stack is refused with a ValueError, as the JAX package refuses it): the
+    bordered banded solver then factors its sparse form."""
 
     matrix_names = ('L',)
 
     def __init__(self, problem, **kw):
         super().__init__(problem, **kw)
-        if self.matsolver == 'banded':
-            raise NotImplementedError(
-                "LBVP with matsolver 'banded' is not ported yet (ROADMAP M8a)")
         if self.matsolver == 'matrix_free':
             # (its refinement runs inside the IVP step; the JAX package's
             # LBVP solve has no matrix_free form either)
@@ -335,13 +337,15 @@ class InitialValueSolver(SolverBase):
     allow_slot_split = True
 
     def __init__(self, problem, timestepper, enforce_real_cadence=100, warmup_iterations=10,
-                 **kw):
+                 profile=False, profile_dir='profiles', **kw):
         super().__init__(problem, **kw)
+        # profile=True wraps evolve in a torch.profiler trace (the device
+        # timeline, for Perfetto or TensorBoard) and a host cProfile dump,
+        # both written into profile_dir
+        self.profile = bool(profile)
+        self.profile_dir = profile_dir
         if isinstance(timestepper, str):
             timestepper = timesteppers_module.schemes[timestepper]
-        if timestepper not in timesteppers_module.schemes.values():
-            raise NotImplementedError(
-                f"timestepper {timestepper} is not ported yet (ROADMAP M8)")
         self.timestepper = timestepper(self)
         self.enforce_real_cadence = enforce_real_cadence
         self._sim_time = 0.0
@@ -468,6 +472,69 @@ class InitialValueSolver(SolverBase):
                 sim_time=self.sim_time, timestep=dt)
         if self.enforce_real_cadence and n_steps >= self.enforce_real_cadence:
             self.enforce_hermitian_symmetry(self.state)
+
+    def _evolve_cfl(self, cfl, log_cadence=100):
+        """The CFL-adaptive loop in chunks: between CFL updates dt is
+        constant, so each span runs as one run_steps call (handler cadences
+        still fire exactly through its chunking)."""
+        while self.proceed:
+            dt = cfl.compute_timestep()
+            n = cfl.chunk_steps()
+            self.run_steps(dt, n)
+            if self.iteration % log_cadence < n:
+                logger.info(f"Iteration={self.iteration}, "
+                            f"Time={self.sim_time:.6e}, dt={dt:.3e}")
+        self.log_stats()
+
+    def evolve(self, timestep_function, log_cadence=100):
+        """Advance until a stop criterion triggers, at a float dt or the
+        value of a callable each step; a CFL instance selects the chunked
+        loop."""
+        from ..extras.flow_tools import CFL
+        if isinstance(timestep_function, CFL):
+            return self._evolve_cfl(timestep_function, log_cadence)
+        trace = host = None
+        if self.profile:
+            import os
+            import cProfile
+            os.makedirs(self.profile_dir, exist_ok=True)
+            trace = self._start_trace()
+            host = cProfile.Profile()
+            host.enable()
+        try:
+            while self.proceed:
+                dt = timestep_function() if callable(timestep_function) else timestep_function
+                self.step(dt)
+                if self.iteration % log_cadence == 0:
+                    logger.info(f"Iteration={self.iteration}, Time={self.sim_time:.6e}, "
+                                f"dt={dt:.3e}")
+        except Exception:
+            logger.error("Exception raised, triggering end of main loop.")
+            raise
+        finally:
+            if self.profile:
+                import os
+                host.disable()
+                host.dump_stats(os.path.join(self.profile_dir, 'runtime.prof'))
+                if trace is not None:
+                    trace.stop()
+                    trace.export_chrome_trace(os.path.join(self.profile_dir, 'trace.json'))
+            self.log_stats()
+
+    def _start_trace(self):
+        """A running torch.profiler trace of the host and, on a CUDA
+        device, the card; None where the profiler cannot start."""
+        from torch.profiler import profile, ProfilerActivity
+        activities = [ProfilerActivity.CPU]
+        if self.dist.device.type == 'cuda':
+            activities.append(ProfilerActivity.CUDA)
+        try:
+            trace = profile(activities=activities)
+            trace.start()
+        except Exception as exc:   # a build or sandbox without profiler support
+            logger.warning("torch profiler unavailable: %s", exc)
+            return None
+        return trace
 
     def log_stats(self, format='.4g'):
         """Log run statistics: wall times and mode-stages/sec throughput."""

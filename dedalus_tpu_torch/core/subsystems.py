@@ -26,8 +26,13 @@ ball domains:
     the left-hand side) is then split into one pencil per (m, ell slot), the
     reference's own (m, ell) subproblems, before the dense stacks are built.
 
-Conditioned equations and mesh padding are not ported yet (ROADMAP M8,
-M12).
+  * conditioned equations (the `condition` string of add_equation,
+    evaluated on each group's `n<coord>` values) keep their rows only in the
+    groups where the condition holds; equal-size equations active in
+    disjoint groups share one row block, whose right-hand side kernel K3
+    gathers from the active member of each group.
+
+Mesh padding is not ported yet (ROADMAP M12).
 """
 
 import copy
@@ -205,11 +210,22 @@ def _pivot_key(pair):
 class Subproblem:
     """One mode group: geometry queries used by expression_matrices."""
 
-    def __init__(self, dist, coupled, group, group_wavenumbers):
+    def __init__(self, dist, coupled, group, group_wavenumbers, group_native=None):
         self.dist = dist
         self.coupled = tuple(coupled)             # per axis
         self.group = tuple(group)                 # int for separable axes, None for coupled
         self.group_wavenumbers = group_wavenumbers  # dict axis -> wavenumber (fit coordinate)
+        # dict axis -> native integer group value (the Fourier wavenumber);
+        # the enumeration index where absent
+        self.group_native = group_native or {}
+
+    @property
+    def group_dict(self):
+        """The namespace of equation conditions: 'n' + coordinate name ->
+        this group's native value along that axis (coupled axes carry no
+        group)."""
+        return {'n' + self.dist.coords[axis].name: self.group_native.get(axis, g)
+                for axis, g in enumerate(self.group) if g is not None}
 
     def axis_width(self, basis, axis):
         if basis is None:
@@ -325,6 +341,7 @@ def enumerate_subproblems(dist, domains, coupling):
         idx = idx[::-1]
         group = []
         wavenumbers = {}
+        native = {}
         for i in range(dim):
             if coupled[i]:
                 group.append(None)
@@ -333,10 +350,12 @@ def enumerate_subproblems(dist, domains, coupling):
             else:
                 group.append(idx[i])
                 basis = axis_bases[i]
+                gs = basis.group_shape[0]
                 if hasattr(basis, 'wavenumbers'):
-                    gs = basis.group_shape[0]
                     wavenumbers[i] = float(np.asarray(basis.wavenumbers)[idx[i] * gs])
-        subproblems.append(Subproblem(dist, coupled, group, wavenumbers))
+                if hasattr(basis, 'wavenumbers_native'):
+                    native[i] = int(np.asarray(basis.wavenumbers_native)[idx[i] * gs])
+        subproblems.append(Subproblem(dist, coupled, group, wavenumbers, native))
     return coupled, subproblems
 
 
@@ -365,7 +384,9 @@ class PencilSystem:
             self._build_layout()
         with PhaseTimer('pencil assembly', dev):
             self._assemble(matrix_names)
-        if allow_slot_split:
+        # (slot splitting assumes one equation per row block: conditioned
+        # pencils keep the joint layout)
+        if allow_slot_split and self.eq_active is None:
             with PhaseTimer('slot split', dev):
                 self._try_slot_split()
         with PhaseTimer('dense stacks', dev):
@@ -375,21 +396,20 @@ class PencilSystem:
 
     def _build_layout(self):
         sp0 = self.subproblems[0]
-        if any((eq.get('condition') or 'True') != 'True' for eq in self.equations):
-            raise NotImplementedError(
-                "conditioned equations are not ported yet (ROADMAP M8)")
         # Variable (column) layout
         self.var_sizes = [sp0.field_size(v) for v in self.variables]
         self.var_offsets = np.concatenate([[0], np.cumsum(self.var_sizes)]).astype(int)
         self.C = int(self.var_offsets[-1])
-        # Equation (row) layout
+        # Equation (row) layout: eq_offsets[e] is equation e's row offset,
+        # eq_offsets[-1] the row count
         self.eq_sizes = [self._eq_size(sp0, eq) for eq in self.equations]
-        self.eq_offsets = np.concatenate([[0], np.cumsum(self.eq_sizes)]).astype(int)
-        self.R = int(self.eq_offsets[-1])
+        row_offsets, self.R = self._row_blocks()
+        self.eq_offsets = np.concatenate([row_offsets, [self.R]]).astype(int)
         if self.R != self.C:
             raise ValueError(
                 f"Pencil system is not square: {self.R} equation rows vs {self.C} "
-                f"variable columns. Check boundary conditions and gauge conditions.")
+                f"variable columns. Check boundary conditions, gauge conditions, "
+                f"and that conditioned equations come in complementary sets.")
         # Field coefficient flat offsets (for the concatenated state vector)
         self.state_sizes = [int(np.prod(self._coeff_shape(v))) for v in self.variables]
         self.state_offsets = np.concatenate([[0], np.cumsum(self.state_sizes)]).astype(int)
@@ -421,6 +441,8 @@ class PencilSystem:
                 self.col_valid[g, col:col + m.size] = m
                 col += m.size
             for e_i, eq in enumerate(self.equations):
+                if self.eq_active is not None and not self.eq_active[e_i, g]:
+                    continue
                 m = sp.valid_mask(eq['domain'], eq['tensorsig'])
                 r0 = self.eq_offsets[e_i]
                 self.row_valid[g, r0:r0 + m.size] = m
@@ -431,6 +453,43 @@ class PencilSystem:
             raise ValueError(
                 f"Valid modes not square in groups {bad}: rows {nrow[bad]} vs cols {ncol[bad]}")
         self._build_maps()
+
+    def _row_blocks(self):
+        """Each equation's row offset and the row count. Sets eq_active, the
+        (equations, G) activity of the condition strings (None when no
+        equation is conditioned, dedalus_tpu/core/subsystems.py:473-526):
+        an equation active in every group gets its own block; a partly
+        active one joins the first open block of its size whose members are
+        active in none of its groups, else opens a block."""
+        conds = [eq.get('condition') or 'True' for eq in self.equations]
+        offsets = np.zeros(len(self.equations), dtype=int)
+        if all(c == 'True' for c in conds):
+            self.eq_active = None
+            offsets[:] = np.concatenate([[0], np.cumsum(self.eq_sizes)[:-1]])
+            return offsets, int(sum(self.eq_sizes))
+        active = np.zeros((len(self.equations), len(self.subproblems)), dtype=bool)
+        for e_i, cond in enumerate(conds):
+            code = compile(cond, '<equation condition>', 'eval')
+            for g, sp in enumerate(self.subproblems):
+                active[e_i, g] = bool(eval(code, {}, sp.group_dict))
+        self.eq_active = active
+        open_blocks = []      # partly covered blocks awaiting complements
+        total = 0
+        for e_i, size in enumerate(self.eq_sizes):
+            if active[e_i].all():
+                offsets[e_i] = total
+                total += size
+                continue
+            block = next((b for b in open_blocks if b['size'] == size
+                          and not (b['covered'] & active[e_i]).any()), None)
+            if block is None:
+                block = dict(size=size, offset=total, covered=active[e_i].copy())
+                open_blocks.append(block)
+                total += size
+            else:
+                block['covered'] |= active[e_i]
+            offsets[e_i] = block['offset']
+        return offsets, total
 
     def _build_maps(self):
         """Kernel K3's gather and scatter maps of the current index maps."""
@@ -445,7 +504,8 @@ class PencilSystem:
         # Kernel K3's descriptions of the three moves
         self.state_gather = GatherMap([self.var_index_map], [self._gs_plan],
                                       self.col_valid, dev)
-        self.eq_gather = GatherMap(self.eq_index_maps, self._eq_plans, self.row_valid, dev)
+        self.eq_gather = GatherMap(self.eq_index_maps, self._eq_plans, self.row_valid, dev,
+                                   active=self.eq_active, row_offsets=self.eq_offsets[:-1])
         self.state_scatter = ScatterMap(self.var_index_map, self.state_total, dev)
         # The row mask as a float64 multiplier, for the step's masked sums
         self.row_valid_dev = self.eq_gather.valid
@@ -495,6 +555,8 @@ class PencilSystem:
         for name in names:
             rows, cols, vals = [], [], []
             for e_i, eq in enumerate(self.equations):
+                if self.eq_active is not None and not self.eq_active[e_i, g]:
+                    continue
                 expr = eq.get(name)
                 if expr is None or (isinstance(expr, (int, float)) and expr == 0):
                     continue
@@ -585,6 +647,10 @@ class PencilSystem:
         pat_keys = {}
         for g in range(G):
             key = (self.row_valid[g].tobytes(), self.col_valid[g].tobytes())
+            if self.eq_active is not None:
+                # A condition's flip changes the matrices' content even where
+                # the validity patterns agree: such groups are assembled exactly
+                key += (self.eq_active[:, g].tobytes(),)
             pat_keys.setdefault(key, []).append(g)
         majority = max(pat_keys.values(), key=len)
         special = sorted(set(range(G)) - set(majority))
@@ -781,7 +847,8 @@ class PencilSystem:
                 group = list(base.group)
                 group[colat_axis] = j
                 new_sps.append(Subproblem(self.dist, coupled_new, group,
-                                          dict(base.group_wavenumbers)))
+                                          dict(base.group_wavenumbers),
+                                          dict(base.group_native)))
         self.subproblems = new_sps
         self.pivot_pairs = [(np.nonzero(~self.row_valid[g])[0], np.nonzero(~self.col_valid[g])[0])
                             for g in range(self.G)]
@@ -829,7 +896,9 @@ class PencilSystem:
             return self._banded_plan
         from ..ops import banded as ops_banded
         plan = None
-        order = banded_order(self)
+        # Conditioned equations share row blocks, where the ordering below
+        # takes one equation per block: the other matsolvers serve them
+        order = banded_order(self) if self.eq_active is None else None
         pat = None
         if order is not None and self.separable is not None:
             # Union pattern over all stacks + generic pivots + bad groups
@@ -862,10 +931,19 @@ class PencilSystem:
         self._banded_plan = plan
         return plan
 
+    def _require_banded_plan(self):
+        """The banded plan; a ValueError where there is none, which moves
+        an IVP's stepper on to the next matsolver (the JAX package's
+        banded_operator fails with a TypeError there instead)."""
+        plan = self.banded_plan()
+        if plan is None:
+            raise ValueError("pencil has no bordered-banded structure")
+        return plan
+
     def banded_stack(self, name):
         """BandedBlocks form of a raw (unpivoted) named stack (M or L)."""
         from ..ops import banded as ops_banded
-        plan = self.banded_plan()
+        plan = self._require_banded_plan()
         if self.separable is not None:
             sep = self.separable[name]
             return ops_banded.build_banded_blocks(
@@ -883,7 +961,7 @@ class PencilSystem:
         if not hasattr(self, '_banded_ops'):
             self._banded_ops = {}
         if name not in self._banded_ops:
-            plan = self.banded_plan()
+            plan = self._require_banded_plan()
             device = self.dist.device
             sep = self.separable[name] if self.separable is not None else None
             if sep is not None:
@@ -1038,14 +1116,25 @@ class GatherMap:
     description kernel K3 reads: each column's source and either the affine
     model of the plans (index i0 + g * stride, where every plan exists) or
     the generic index map.
+
+    With conditioned equations (`active`, the (sources, G) activity, and
+    `row_offsets`, each source's first column), sources of equal size share
+    a column block and the source of a column depends on the group: K3 then
+    reads the (G, C) source table `gsrc` (one byte per entry) and the
+    generic index map of the active member in each group.
     """
 
-    def __init__(self, maps, plans, valid, device):
+    def __init__(self, maps, plans, valid, device, active=None, row_offsets=None):
         self.plans = plans
         self.src_sizes = [int(m.max(initial=0)) + 1 for m in maps]
         self.maps = [torch.as_tensor(m.astype(np.int64), device=device) for m in maps]
         self.valid = torch.as_tensor(valid.astype(np.float64), device=device)
+        self.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=device)
         self.G, self.C = valid.shape
+        self.active = self.gsrc = None
+        if active is not None:
+            self._conditioned(maps, active, row_offsets, device)
+            return
         self.col_src = torch.as_tensor(
             np.concatenate([np.full(m.shape[1], e) for e, m in enumerate(maps)]).astype(np.int32),
             device=device)
@@ -1057,7 +1146,21 @@ class GatherMap:
         else:
             self.i0 = self.stride = None
             self.idx = torch.cat(self.maps, dim=1).contiguous()
-        self.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=device)
+
+    def _conditioned(self, maps, active, row_offsets, device):
+        """The group-dependent source table and index map of merged blocks
+        (entries no member covers read source 0 at index 0, masked)."""
+        gsrc = np.zeros((self.G, self.C), dtype=np.uint8)
+        idx = np.zeros((self.G, self.C), dtype=np.int64)
+        for e, (m, r0) in enumerate(zip(maps, row_offsets)):
+            rows = active[e]
+            gsrc[rows, r0:r0 + m.shape[1]] = e
+            idx[rows, r0:r0 + m.shape[1]] = m[rows]
+        self.row_offsets = [int(r) for r in row_offsets]
+        self.active = torch.as_tensor(active.astype(np.float64), device=device)
+        self.gsrc = torch.as_tensor(gsrc, device=device)
+        self.idx = torch.as_tensor(idx, device=device)
+        self.col_src = self.i0 = self.stride = None
 
     def to(self, device):
         """A copy with every tensor on `device` (to run the plain twin on
@@ -1067,7 +1170,8 @@ class GatherMap:
         new.plans = [None if p is None else {k: move(v) for k, v in p.items()}
                      for p in self.plans]
         new.maps = [m.to(device) for m in self.maps]
-        for name in ('valid', 'col_src', 'i0', 'stride', 'idx', 'valid_u8'):
+        for name in ('valid', 'col_src', 'i0', 'stride', 'idx', 'valid_u8', 'active',
+                     'gsrc'):
             setattr(new, name, move(getattr(self, name)))
         return new
 
@@ -1100,9 +1204,16 @@ class ScatterMap:
 
 def pencil_gather_plain(gmap, srcs):
     """Plain torch K3 gather: each source through its structured plan (or
-    its index map), concatenated and masked."""
+    its index map), concatenated and masked. With conditioned equations,
+    each source masked by its activity and added into its row block
+    (dedalus_tpu/core/subsystems.py:1303-1314)."""
     cols = [_plan_gather(plan, flat) if plan is not None else flat[idx]
             for flat, plan, idx in zip(srcs, gmap.plans, gmap.maps)]
+    if gmap.active is not None:
+        Y = torch.zeros((gmap.G, gmap.C), dtype=torch.float64, device=srcs[0].device)
+        for e, (col, r0) in enumerate(zip(cols, gmap.row_offsets)):
+            Y[:, r0:r0 + col.shape[1]] += col * gmap.active[e, :, None]
+        return Y * gmap.valid
     Y = torch.cat(cols, dim=1) if len(cols) > 1 else cols[0]
     return Y * gmap.valid
 
@@ -1112,8 +1223,9 @@ def pencil_gather(gmap, srcs):
     K3 gather: flat float64 sources -> (G, C) pencils, masked by validity.
 
     Replaces dedalus_tpu/core/subsystems.py _plan_gather, gather_state and
-    gather_eq_data. CPU tensors run the plain twin; CUDA tensors launch
-    csrc/pencil_kernels.cu k3_pencil_gather_f64, one launch for all sources.
+    gather_eq_data, its conditioned branch included. CPU tensors run the
+    plain twin; CUDA tensors launch csrc/pencil_kernels.cu
+    k3_pencil_gather_f64, one launch for all sources.
     """
     if srcs[0].device.type == 'cpu':
         return pencil_gather_plain(gmap, srcs)
@@ -1132,7 +1244,7 @@ def pencil_gather(gmap, srcs):
     p = lambda t: 0 if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().k3_pencil_gather_f64(
-        ctypes.addressof(ptrs), len(srcs), gmap.col_src.data_ptr(), p(gmap.i0),
+        ctypes.addressof(ptrs), len(srcs), p(gmap.col_src), p(gmap.gsrc), p(gmap.i0),
         p(gmap.stride), p(gmap.idx), gmap.valid_u8.data_ptr(), out.data_ptr(),
         gmap.G, gmap.C, stream), 'pencil_gather')
     pencil_gather.launches += 1

@@ -1,23 +1,26 @@
 """
-IMEX timesteppers: SBDF2 and the Runge-Kutta family.
+IMEX timesteppers: the multistep family (CNAB1, SBDF1, CNAB2, MCNAB2,
+SBDF2, CNLF2, SBDF3, SBDF4) and the Runge-Kutta family.
 
-Mirrors dedalus_tpu/core/timesteppers.py.
+Mirrors dedalus_tpu/core/timesteppers.py, with the same variable-step
+coefficients and startup recursion (a scheme of history depth s takes its
+first s - 1 steps with the coefficients of its lower-order relative).
 
-MultistepIMEX (SBDF2):
+MultistepIMEX, history depth s = 1 to 4:
 
     a0 M X(n) + b0 L X(n) = sum_j c_j F(n-j) - a_j M X(n-j) - b_j L X(n-j)
 
 Each step gathers the state into pencils, applies M and L (banded: kernel
 K4; dense: kernel KB, one launch for the pair; poly: kernel K14c for M,
 with L X derived from the previous solve's right-hand side; matrix_free:
-the operators' expression trees), evaluates F, combines the histories into
-the RHS (kernel K7) and solves (banded: K5 inside the banded solver, with
-outer refinement passes when the factorization was built for nearby
-coefficients; dense: KA, K14a or K14b; poly: the preconditioned refinement
-on K14c; matrix_free: the f32 inverse on KB with refinement against the
-expression trees), then scatters the result back. The histories are
-two-slot rings updated in place, where the JAX package rebuilt them every
-step.
+the operators' expression trees), evaluates F, combines the s-deep
+histories into the RHS (kernel K7, one launch over the s slots) and solves
+(banded: K5 inside the banded solver, with outer refinement passes when
+the factorization was built for nearby coefficients, as the startup steps'
+are; dense: KA, K14a or K14b; poly: the preconditioned refinement on K14c;
+matrix_free: the f32 inverse on KB with refinement against the expression
+trees), then scatters the result back. The histories are s-slot rings
+updated by reference, where the JAX package rebuilt them every step.
 
 RungeKuttaIMEX (RK111, RK222, RK443, RKSMR, RKGFY), dense matsolvers only
 (matrix_free solves a stage with its f32 inverse alone, as the JAX
@@ -29,8 +32,7 @@ per stage: L X(n,i-1) by KB (M X and L X together at the first stage), F,
 the stage combine (kernel KC), the solve (KA) and the scatter.
 
 The JAX whole-run programs (a jit around a fori_loop) become plain Python
-loops of eager steps. The other multistep schemes are not ported yet
-(ROADMAP M8).
+loops of eager steps.
 """
 
 import contextlib
@@ -69,17 +71,14 @@ def _evaluate_handlers(solver, dt, wall_time):
 
 
 class MultistepIMEX:
-    """Variable-step IMEX multistep scheme (two-step schemes) on the banded
-    or a dense matsolver."""
+    """Variable-step IMEX multistep scheme of history depth `steps` (1 to
+    4) on the banded, poly, matrix_free or a dense matsolver."""
 
     # Outer curves are probed at the bucket ceiling of the measured rho and
     # shared by any pair at or below it.
     _OUTER_BUCKETS = (0.05, 0.1, 0.2, 0.35, 0.55, 0.7)
 
     def __init__(self, solver):
-        if self.steps != 2:
-            raise NotImplementedError(
-                f"{type(self).__name__}: only two-step schemes are ported (ROADMAP M8)")
         self.solver = solver
         self.pencil = solver.pencil
         self._factorized = {}
@@ -92,10 +91,11 @@ class MultistepIMEX:
         G, R = self.pencil.G, self.pencil.R
         dev = solver.dist.device
         zero = lambda: torch.zeros((G, R), dtype=torch.float64, device=dev)
-        # Two-slot history rings: slot self._head holds the newest entry
-        self.MX = [zero(), zero()]
-        self.LX = [zero(), zero()]
-        self.F = [zero(), zero()]
+        # s-slot history rings: slot self._head holds the newest entry,
+        # the slots after it (cyclically) the older ones
+        self.MX = [zero() for _ in range(self.steps)]
+        self.LX = [zero() for _ in range(self.steps)]
+        self.F = [zero() for _ in range(self.steps)]
         self._head = 0
         self.dt_hist = deque([0.0] * self.steps, maxlen=self.steps)
         self._iteration = 0
@@ -328,10 +328,27 @@ class MultistepIMEX:
     # --- stepping ---
 
     def _push(self, MX0, LX0, F0):
-        """Newest entries into the rings (over the oldest slot)."""
-        old = 1 - self._head
+        """Newest entries into the rings (over the oldest slot, by
+        reference: nothing is copied)."""
+        old = (self._head - 1) % self.steps
         self.MX[old], self.LX[old], self.F[old] = MX0, LX0, F0
         self._head = old
+
+    def histories(self):
+        """The F, MX and LX slots, each list newest first."""
+        order = [(self._head + j) % self.steps for j in range(self.steps)]
+        return ([self.F[i] for i in order], [self.MX[i] for i in order],
+                [self.LX[i] for i in order])
+
+    def _combine(self, coef):
+        """The step's right-hand side from the rings (K7)."""
+        return history_combine(*self.histories(), self.pencil.row_valid_dev, coef)
+
+    def coefficient_vector(self, a, b, c, device):
+        """K7's (3 s,) float64 vector [a1..as, b1..bs, c1..cs] on the device."""
+        s = self.steps
+        vals = [float(v) for v in (*a[1:s + 1], *b[1:s + 1], *c[1:s + 1])]
+        return torch.tensor(vals, dtype=torch.float64, device=device)
 
     def _step(self, state_flat, t, coef, a0, b0, n_out, fact):
         """One step on the flat coefficient state; returns the new state."""
@@ -350,27 +367,21 @@ class MultistepIMEX:
             LX0 = (self._rhs_prev - a0 * MX0) / b0
             F0 = solver.traced_F(state_flat, t)
             self._push(MX0, LX0, F0)
-            h, o = self._head, 1 - self._head
-            RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
-                                  self.LX[h], self.LX[o], rv, coef)
+            RHS = self._combine(coef)
             self._rhs_prev = RHS
             return pencil.scatter_state(fact.poly_solve(RHS))
         if method != 'banded':
             MX0, LX0 = ops_solve.dense_matvec(pencil.matrices['M'], X, pencil.matrices['L'])
             F0 = solver.traced_F(state_flat, t)
             self._push(MX0, LX0, F0)
-            h, o = self._head, 1 - self._head
-            RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
-                                  self.LX[h], self.LX[o], rv, coef)
+            RHS = self._combine(coef)
             return pencil.scatter_state(fact.solve(RHS))
         bM, bL = self._banded_ml()
         MX0 = bM.apply(X)
         LX0 = bL.apply(X)
         F0 = solver.traced_F(state_flat, t)
         self._push(MX0, LX0, F0)
-        h, o = self._head, 1 - self._head
-        RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
-                              self.LX[h], self.LX[o], rv, coef)
+        RHS = self._combine(coef)
         Xnew = fact.banded.solve(RHS)
         # Outer refinement against the true step matrix when the
         # factorization was built for nearby coefficients (startup steps)
@@ -391,9 +402,7 @@ class MultistepIMEX:
         LX0 = solver.traced_matrix_apply('L', state_flat)
         F0 = solver.traced_F(state_flat, t)
         self._push(MX0, LX0, F0)
-        h, o = self._head, 1 - self._head
-        RHS = history_combine(self.F[h], self.F[o], self.MX[h], self.MX[o],
-                              self.LX[h], self.LX[o], rv, coef)
+        RHS = self._combine(coef)
         Xnew = ops_solve.inverse32_apply(fact.Ainv, RHS)
         for _ in range(getattr(solver, 'refinements', 1)):
             sX = pencil.scatter_state(Xnew)
@@ -418,8 +427,7 @@ class MultistepIMEX:
                 pl['weights'], pl['bad'], pl['Abad'])
             self._rhs_prev = float(a[0]) * MX + float(b[0]) * LX
         n_out = int(self._outer_for_key.get((float(a[0]), float(b[0])), 0))
-        coef = torch.tensor([a[1], a[2], b[1], b[2], c[1], c[2]],
-                            dtype=torch.float64, device=state.device)
+        coef = self.coefficient_vector(a, b, c, state.device)
         for _ in range(n_steps):
             state = self._step(state, t, coef, float(a[0]), float(b[0]), n_out, fact)
             t = t + dt
@@ -487,8 +495,25 @@ class MultistepIMEX:
         solver.iteration += n_steps
 
 
-class SBDF1:
-    """1st-order semi-implicit BDF coefficients (SBDF2's startup step)."""
+@add_scheme
+class CNAB1(MultistepIMEX):
+    """1st-order Crank-Nicolson / Adams-Bashforth [Wang & Ruuth 2008 eq 2.5.3]."""
+
+    steps = 1
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        k0 = timesteps[0]
+        a = np.array([1 / k0, -1 / k0])
+        b = np.array([1 / 2, 1 / 2])
+        c = np.array([0.0, 1.0])
+        return a, b, c
+
+
+@add_scheme
+class SBDF1(MultistepIMEX):
+    """1st-order semi-implicit BDF (backward Euler / forward Euler)
+    [Wang & Ruuth 2008 eq 2.6]."""
 
     steps = 1
 
@@ -498,6 +523,44 @@ class SBDF1:
         a = np.array([1 / k0, -1 / k0])
         b = np.array([1.0, 0.0])
         c = np.array([0.0, 1.0])
+        return a, b, c
+
+
+@add_scheme
+class CNAB2(MultistepIMEX):
+    """2nd-order Crank-Nicolson / Adams-Bashforth [Wang & Ruuth 2008 eq 2.9]."""
+
+    steps = 2
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        if iteration < 1:
+            a, b, c = CNAB1.compute_coefficients(timesteps, iteration)
+            return _pad(a, 3), _pad(b, 3), _pad(c, 3)
+        k1, k0 = timesteps[0], timesteps[1]
+        w1 = k1 / k0
+        a = np.array([1 / k1, -1 / k1, 0.0])
+        b = np.array([1 / 2, 1 / 2, 0.0])
+        c = np.array([0.0, 1 + w1 / 2, -w1 / 2])
+        return a, b, c
+
+
+@add_scheme
+class MCNAB2(MultistepIMEX):
+    """2nd-order modified CNAB [Wang & Ruuth 2008 eq 2.10]."""
+
+    steps = 2
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        if iteration < 1:
+            a, b, c = CNAB1.compute_coefficients(timesteps, iteration)
+            return _pad(a, 3), _pad(b, 3), _pad(c, 3)
+        k1, k0 = timesteps[0], timesteps[1]
+        w1 = k1 / k0
+        a = np.array([1 / k1, -1 / k1, 0.0])
+        b = np.array([(8 + 1 / w1) / 16, (7 - 1 / w1) / 16, 1 / 16])
+        c = np.array([0.0, 1 + w1 / 2, -w1 / 2])
         return a, b, c
 
 
@@ -519,6 +582,87 @@ class SBDF2(MultistepIMEX):
                       w1**2 / (1 + w1) / k1])
         b = np.array([1.0, 0.0, 0.0])
         c = np.array([0.0, 1 + w1, -w1])
+        return a, b, c
+
+
+@add_scheme
+class CNLF2(MultistepIMEX):
+    """2nd-order Crank-Nicolson leap-frog [Wang & Ruuth 2008 eq 2.11]."""
+
+    steps = 2
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        if iteration < 1:
+            a, b, c = CNAB1.compute_coefficients(timesteps, iteration)
+            return _pad(a, 3), _pad(b, 3), _pad(c, 3)
+        k1, k0 = timesteps[0], timesteps[1]
+        w1 = k1 / k0
+        a = np.array([1 / (1 + w1) / k1, (w1 - 1) / k1, -w1**2 / (1 + w1) / k1])
+        b = np.array([1 / (2 * w1), (1 - 1 / w1) / 2, 1 / 2])
+        c = np.array([0.0, 1.0, 0.0])
+        return a, b, c
+
+
+@add_scheme
+class SBDF3(MultistepIMEX):
+    """3rd-order semi-implicit BDF [Wang & Ruuth 2008 eq 2.14]."""
+
+    steps = 3
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        if iteration < 2:
+            a, b, c = SBDF2.compute_coefficients(timesteps, iteration)
+            return _pad(a, 4), _pad(b, 4), _pad(c, 4)
+        k2, k1, k0 = timesteps[0], timesteps[1], timesteps[2]
+        w2 = k2 / k1
+        w1 = k1 / k0
+        a = np.array([
+            (1 + w2 / (1 + w2) + w1 * w2 / (1 + w1 * (1 + w2))) / k2,
+            (-1 - w2 - w1 * w2 * (1 + w2) / (1 + w1)) / k2,
+            w2**2 * (w1 + 1 / (1 + w2)) / k2,
+            -w1**3 * w2**2 * (1 + w2) / (1 + w1) / (1 + w1 + w1 * w2) / k2])
+        b = np.array([1.0, 0.0, 0.0, 0.0])
+        c = np.array([
+            0.0,
+            (1 + w2) * (1 + w1 * (1 + w2)) / (1 + w1),
+            -w2 * (1 + w1 * (1 + w2)),
+            w1 * w1 * w2 * (1 + w2) / (1 + w1)])
+        return a, b, c
+
+
+@add_scheme
+class SBDF4(MultistepIMEX):
+    """4th-order semi-implicit BDF [Wang & Ruuth 2008 eq 2.15]."""
+
+    steps = 4
+
+    @classmethod
+    def compute_coefficients(cls, timesteps, iteration):
+        if iteration < 3:
+            a, b, c = SBDF3.compute_coefficients(timesteps, iteration)
+            return _pad(a, 5), _pad(b, 5), _pad(c, 5)
+        k3, k2, k1, k0 = timesteps[0], timesteps[1], timesteps[2], timesteps[3]
+        w3 = k3 / k2
+        w2 = k2 / k1
+        w1 = k1 / k0
+        A1 = 1 + w1 * (1 + w2)
+        A2 = 1 + w2 * (1 + w3)
+        A3 = 1 + w1 * A2
+        a = np.array([
+            (1 + w3 / (1 + w3) + w2 * w3 / A2 + w1 * w2 * w3 / A3) / k3,
+            (-1 - w3 * (1 + w2 * (1 + w3) / (1 + w2) * (1 + w1 * A2 / A1))) / k3,
+            w3 * (w3 / (1 + w3) + w2 * w3 * (A3 + w1) / (1 + w1)) / k3,
+            -w2**3 * w3**2 * (1 + w3) / (1 + w2) * A3 / A2 / k3,
+            (1 + w3) / (1 + w1) * A2 / A1 * w1**4 * w2**3 * w3**2 / A3 / k3])
+        b = np.array([1.0, 0.0, 0.0, 0.0, 0.0])
+        c = np.array([
+            0.0,
+            w2 * (1 + w3) / (1 + w2) * ((1 + w3) * (A3 + w1) + (1 + w1) / w2) / A1,
+            -A2 * A3 * w3 / (1 + w1),
+            w2**2 * w3 * (1 + w3) / (1 + w2) * A3,
+            -w1**3 * w2**2 * w3 * (1 + w3) / (1 + w1) * A2 / A1])
         return a, b, c
 
 

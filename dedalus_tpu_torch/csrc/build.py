@@ -75,7 +75,7 @@ SIGNATURES = {
         'k11_conversion_solve_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
     },
     'pencil_kernels': {
-        'k3_pencil_gather_f64': [_P, _I] + [_P] * 6 + [_I] * 2 + [_P],
+        'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
         'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],
     },
 }

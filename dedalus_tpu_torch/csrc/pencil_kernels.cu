@@ -17,6 +17,14 @@
 // source among up to K3_MAX_SRC pointers passed by value. One thread per
 // (g, c): consecutive columns of a field read consecutive state entries.
 //
+// Conditioned equations (dedalus_tpu/core/subsystems.py:1303-1314): equal
+// size equations active in disjoint groups share a row block, so a row's
+// source depends on the group. The optional (G, C) byte table gsrc then
+// overrides col_src, e = gsrc[g, c], with the generic index map of the
+// active member, j = idx[g, c]; one pointer more, and the same single
+// launch. The plain twin adds each member masked by its activity, which is
+// the active member's value exactly.
+//
 // Scatter: out[t] = sum of X[g, c] over the (g, c) with j(g, c) = t, added
 // in the order of the flat position g * C + c, starting from 0.0: exactly
 // the sequential index_add_ of the generic map, bit for bit, also where an
@@ -43,7 +51,8 @@ struct Sources {
 
 __global__ void __launch_bounds__(K3_THREADS)
 pencil_gather_kernel(Sources src, const int* __restrict__ col_src,
-                     const int64_t* __restrict__ i0, const int64_t* __restrict__ stride,
+                     const uint8_t* __restrict__ gsrc, const int64_t* __restrict__ i0,
+                     const int64_t* __restrict__ stride,
                      const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
                      double* __restrict__ out, int G, int C) {
     const int c = blockIdx.x * blockDim.x + threadIdx.x;
@@ -53,7 +62,7 @@ pencil_gather_kernel(Sources src, const int* __restrict__ col_src,
     const int64_t j = idx ? idx[pos] : i0[c] + (int64_t)g * stride[c];
     // Select the source with static indices only: a dynamic index into the
     // by-value pointer table would copy it to local memory in every thread
-    const int e = col_src ? col_src[c] : 0;
+    const int e = gsrc ? (int)gsrc[pos] : (col_src ? col_src[c] : 0);
     const double* s = src.p[0];
 #pragma unroll
     for (int k = 1; k < K3_MAX_SRC; ++k)
@@ -78,16 +87,17 @@ pencil_scatter_kernel(const double* __restrict__ X, const int* __restrict__ offs
 }  // namespace
 
 extern "C" int k3_pencil_gather_f64(const double* const* srcs, int nsrc, const int* col_src,
-                                    const int64_t* i0, const int64_t* stride,
+                                    const uint8_t* gsrc, const int64_t* i0, const int64_t* stride,
                                     const int64_t* idx, const uint8_t* valid, double* out,
                                     int G, int C, void* stream) {
-    if (nsrc < 1 || nsrc > K3_MAX_SRC || G < 1 || C < 1 || (!idx && (!i0 || !stride)))
+    if (nsrc < 1 || nsrc > K3_MAX_SRC || G < 1 || C < 1 || (!idx && (!i0 || !stride))
+        || (gsrc && !idx))
         return (int)cudaErrorInvalidValue;
     Sources src = {};
     for (int e = 0; e < nsrc; ++e) src.p[e] = srcs[e];
     dim3 grid((C + K3_THREADS - 1) / K3_THREADS, G);
     pencil_gather_kernel<<<grid, K3_THREADS, 0, (cudaStream_t)stream>>>(
-        src, col_src, i0, stride, idx, valid, out, G, C);
+        src, col_src, gsrc, i0, stride, idx, valid, out, G, C);
     return (int)cudaGetLastError();
 }
 

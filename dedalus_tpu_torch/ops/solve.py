@@ -614,10 +614,9 @@ class FactorizedStack:
         # pairing; the refinement apply and dense overrides must match it.
         ppairs = (pencil.banded_pivot_pairs(bf['order']) if exact is not None
                   else pencil.pivot_pairs)
-        bM = pencil.banded_operator('M')
-        bL = pencil.banded_operator('L')
-        a0 = A.coeffs.get('M', 0.0)
-        b0 = A.coeffs.get('L', 0.0)
+        # The exact apply of the stacks the combination names (M and L in
+        # a step, L alone in an LBVP)
+        terms = [(c, pencil.banded_operator(name)) for name, c in A.coeffs.items()]
         gs, rs, cs = [], [], []
         for g, (ir, ic) in enumerate(ppairs):
             gs.extend([g] * len(ir))
@@ -628,7 +627,9 @@ class FactorizedStack:
         cidx = torch.as_tensor(cs, dtype=torch.int64, device=device)
 
         def exact_apply(X):
-            Y = a0 * bM.apply(X) + b0 * bL.apply(X)
+            Y = None
+            for c, op in terms:
+                Y = c * op.apply(X) if Y is None else Y + c * op.apply(X)
             if gs:
                 Y.index_put_((gidx, ridx), X[gidx, cidx], accumulate=True)
             return Y

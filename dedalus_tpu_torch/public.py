@@ -12,10 +12,12 @@ model, the shell operators and products of the shell convection example
 symmetric NCCs), the curl and the tensor NCCs of the ball's internally
 heated convection example, with numpy ufuncs on operands and the Cartesian advective
 CFL frequency,
-IVPs and LBVPs, the InitialValueSolver with SBDF2 (banded or dense
-matsolvers) and the Runge-Kutta schemes (dense matsolvers), the
-LinearBoundaryValueSolver (dense matsolvers), the dictionary handlers of
-the evaluator, and the CFL and GlobalFlowProperty flow tools. File output,
+IVPs and LBVPs with conditioned equations, the InitialValueSolver with the
+eight multistep schemes (CNAB1, SBDF1, CNAB2, MCNAB2, SBDF2, CNLF2, SBDF3,
+SBDF4, on every matsolver) and the five Runge-Kutta schemes (dense
+matsolvers) and its evolve loop, the LinearBoundaryValueSolver (dense, poly
+and banded matsolvers), the dictionary handlers of the evaluator, and the
+CFL and GlobalFlowProperty flow tools. File output,
 plot tools and post-processing are not ported yet (ROADMAP M9).
 """
 
@@ -40,7 +42,11 @@ from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct
 from .core.arithmetic import DotProduct as dot
 from .core.arithmetic import CrossProduct as cross
 from .core.problems import IVP, InitialValueProblem, LBVP, LinearBoundaryValueProblem
-from .core.timesteppers import SBDF2, RK111, RK222, RK443, RKSMR, RKGFY
+from .core.timesteppers import (
+    schemes as timestepper_schemes,
+    CNAB1, SBDF1, CNAB2, MCNAB2, SBDF2, CNLF2, SBDF3, SBDF4,
+    RK111, RK222, RK443, RKSMR, RKGFY,
+)
 from .core.solvers import InitialValueSolver, LinearBoundaryValueSolver
 from .extras.flow_tools import GlobalArrayReducer, GlobalFlowProperty, CFL
 

@@ -82,24 +82,38 @@ def test_torch_factorization_matches_reference(reference, G, Nb, nb):
     np.testing.assert_array_equal(got['pins'].numpy(), ref['pins'])
 
 
-def test_k7_plain_matches_reference_combine():
+@pytest.mark.parametrize('depth', [1, 2, 3, 4])
+def test_k7_plain_matches_reference_combine(depth):
+    """K7 over s-slot histories (newest first) against the JAX package's
+    einsum form, with the uniform-step coefficients of the scheme of that
+    depth."""
+    import dedalus_tpu.core.timesteppers as jts
+    scheme = {1: jts.SBDF1, 2: jts.SBDF2, 3: jts.SBDF3, 4: jts.SBDF4}[depth]
     rng = np.random.default_rng(9)
     G, R = 8, 37
-    Fh, MXh, LXh = (rng.standard_normal((2, G, R)) for _ in range(3))
+    Fh, MXh, LXh = (rng.standard_normal((depth, G, R)) for _ in range(3))
     rv = rng.random((G, R)) > 0.2
-    k1 = k0 = 1e-3
-    w1 = k1 / k0
-    a = np.array([(1 + 2 * w1) / (1 + w1) / k1, -(1 + w1) / k1, w1**2 / (1 + w1) / k1])
-    b = np.array([1.0, 0.0, 0.0])
-    c = np.array([0.0, 1 + w1, -w1])
+    a, b, c = scheme.compute_coefficients([1e-3] * depth, depth)
+    # CNAB's b is nonzero past slot 0: take it for b so every term counts
+    b = b + np.arange(1, depth + 2) / 7
     ref = np.asarray((jnp.einsum('j,jgr->gr', c[1:], Fh)
                       - jnp.einsum('j,jgr->gr', a[1:], MXh)
                       - jnp.einsum('j,jgr->gr', b[1:], LXh)) * jnp.asarray(rv))
     t = torch.as_tensor
-    coef = t([a[1], a[2], b[1], b[2], c[1], c[2]], dtype=torch.float64)
-    got = history_combine(t(Fh[0]), t(Fh[1]), t(MXh[0]), t(MXh[1]), t(LXh[0]),
-                          t(LXh[1]), t(rv.astype(np.float64)), coef)
+    coef = t(np.concatenate([a[1:], b[1:], c[1:]]), dtype=torch.float64)
+    got = history_combine([t(f) for f in Fh], [t(m) for m in MXh], [t(x) for x in LXh],
+                          t(rv.astype(np.float64)), coef)
     assert _rel(got.numpy(), ref) <= 1e-15
+
+
+def test_k7_rejects_bad_depth_and_coefficients():
+    t = torch.zeros((2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match='slots'):
+        history_combine([t] * 5, [t] * 5, [t] * 5, t, torch.zeros(15, dtype=torch.float64))
+    with pytest.raises(ValueError, match='slots'):
+        history_combine([], [], [], t, torch.zeros(0, dtype=torch.float64))
+    with pytest.raises(ValueError, match='coef'):
+        history_combine([t] * 2, [t] * 2, [t] * 2, t, torch.zeros(6 + 1, dtype=torch.float64))
 
 
 @pytest.fixture(scope='module', autouse=True)

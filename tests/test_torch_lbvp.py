@@ -224,18 +224,30 @@ def test_cartesian_skew_and_average_match_reference(name):
 
 
 def test_conditioned_equations_are_not_ported():
+    """Conditioned equations are ported now (this test once held their
+    refusal): the conditioned Poisson problem of tests/test_lbvp.py:119-138
+    on the port matches the JAX package's and the exact solution."""
+    import dedalus_tpu.public as jd3
     import dedalus_tpu_torch.public as td3
-    c = td3.Coordinate('x')
-    dist = td3.Distributor(c, dtype=np.float64, device='cpu')
-    xb = td3.RealFourier(c, size=32, bounds=(0, 2 * np.pi))
-    u = dist.Field(name='u', bases=xb)
-    f = dist.Field(name='f', bases=xb)
-    dx = lambda A: td3.Differentiate(A, c)
-    problem = td3.LBVP([u], namespace=locals())
-    problem.add_equation("dx(dx(u)) = f", condition="nx != 0")
-    problem.add_equation("u = 0", condition="nx == 0")
-    with pytest.raises(NotImplementedError, match="conditioned"):
-        problem.build_solver()
+    outs = []
+    for d3, dkw in ((jd3, {}), (td3, dict(device='cpu'))):
+        c = d3.Coordinate('x')
+        dist = d3.Distributor(c, dtype=np.float64, **dkw)
+        xb = d3.RealFourier(c, size=32, bounds=(0, 2 * np.pi))
+        u = dist.Field(name='u', bases=xb)
+        f = dist.Field(name='f', bases=xb)
+        x = np.asarray(dist.local_grid(xb, scale=1)).ravel()
+        f['g'] = -np.sin(x) - 4 * np.cos(2 * x)
+        dx = lambda A: d3.Differentiate(A, c)
+        problem = d3.LBVP([u], namespace=locals())
+        problem.add_equation("dx(dx(u)) = f", condition="nx != 0")
+        problem.add_equation("u = 0", condition="nx == 0")
+        solver = problem.build_solver()
+        solver.solve()
+        u.change_scales(1)
+        outs.append(np.asarray(u['g']) if d3 is jd3 else u['g'].numpy())
+    assert np.abs(outs[1] - (np.sin(x) + np.cos(2 * x))).max() < 1e-12
+    assert np.abs(outs[1] - outs[0]).max() <= 1e-12
 
 
 def test_lbvp_defaults_to_the_card():
