@@ -23,8 +23,9 @@ public entry points:
     ultraspherical conversion K11b and the real-Fourier pack K12 in place of
     the dense transforms), 20 timed steps, held against the same steps
     under MMT and the card against the CPU at 64x32; F under both
-    libraries; 'auto' at the threshold (8192); and a crossover table of the
-    fast kernels, MMT and torch.fft per axis size;
+    libraries; 'auto' at the threshold (8192) (the crossover table of the
+    fast kernels, MMT and torch.fft per axis size is run by hand:
+    `python3 -c "import chip_smoke as c; c.crossover_table(c.card()[2])"`);
   * the banded cold start at 2048x2048 with the default matsolver, which
     leaves the dense path by itself at this size: from build_rbc_problem to
     the end of the first steady step, by phase (kernels K8a, K8b for the f64
@@ -38,6 +39,16 @@ public entry points:
     iterations each (matsolver_loops_path), and the dense SBDF2 step under
     matrix_free; before them RBC 64x32 under poly (the lazy form forced),
     lu, mixed and matrix_free card vs CPU;
+  * the same example in complex128 (complex_rbc_path: the example's lines
+    with `dtype = np.complex128` and ComplexFourier in x, its initial
+    condition taken real, its CFL; G=256 one-mode groups of P=263) under
+    `[transforms] fourier_library = jacobi_library = fast` (K10 with K12's
+    complex select and scatter, K11a and K11b on the real and imaginary
+    parts as one batch) and under `matrix`, 200 timed iterations each with
+    the complex forms of KA, KB, K3, KG and KD (KC and K7 on real views,
+    K14a's complex form checked), both held against the real form after 20
+    steps at dt 0.125; before it RK222 and SBDF2 under both libraries card
+    vs CPU at 64x32 (complex_card_vs_cpu);
   * the annulus convection example (examples/ivp_annulus_convection.py) at
     256x128, RK222, dense inverse_refined (KA, KB, KC, KE, KF, K3), 100 timed
     steps of the example's loop with its GlobalFlowProperty;
@@ -94,7 +105,8 @@ each path's dealias grid.
 To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
 banded_path, schemes_path, shear_flow_path, kdv_path, conditions_path,
 banded_lbvp_path, poly_path, banded_fast_path, cold_start_path, example_path,
-matsolver_loops_path, matsolvers_card_vs_cpu, annulus_path, disk_path,
+matsolver_loops_path, matsolvers_card_vs_cpu, complex_card_vs_cpu,
+complex_rbc_path, annulus_path, disk_path,
 ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
@@ -175,7 +187,9 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13,
            dft_four_step=1e-13, dct_wrap=1e-13, chebyshev_conversion=1e-12,
            real_fourier_pack=1e-15, separable_apply=SEPARABLE_TOL, lu_solve=LU_TOL,
-           mixed_solve=MIXED_TOL)
+           mixed_solve=MIXED_TOL, complex_fourier_select=1e-15, dense_refined_solve_c128=1e-13,
+           dense_matvec_c128=1e-14, pencil_gather_scatter_c128=0.0, grid_product_c128=1e-15,
+           cfl_max_c128=1e-14, lu_solve_c128=LU_TOL)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -236,12 +250,28 @@ KERNELS = dict(   # name: (route, source, replaces)
     lu_solve=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu', 'dedalus_tpu/ops/solve.py:53'),
     mixed_solve=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
                  'dedalus_tpu/ops/solve.py:128'),
+    # The complex128 forms (ComplexFourier problems)
+    complex_fourier_select=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu',
+                            'dedalus_tpu/ops/transforms.py:45'),
+    dense_refined_solve_c128=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
+                              'dedalus_tpu/ops/solve.py:120'),
+    dense_matvec_c128=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
+                       'dedalus_tpu/ops/solve.py:24'),
+    pencil_gather_scatter_c128=('cuda', 'dedalus_tpu_torch/csrc/pencil_kernels.cu',
+                                'dedalus_tpu/core/subsystems.py:1224'),
+    grid_product_c128=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
+                       'dedalus_tpu/core/arithmetic.py:252'),
+    cfl_max_c128=('triton', 'dedalus_tpu_torch/csrc/cfl_max.py',
+                  'dedalus_tpu/extras/flow_tools.py:167'),
+    lu_solve_c128=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
+                   'dedalus_tpu/ops/solve.py:53'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
 FAST_WRAPPERS = dict(dft_four_step=('dft',),
                      dct_wrap=('dct2_pre', 'dct2_post', 'dct3_pre', 'dct3_post'),
                      chebyshev_conversion=('conversion_apply', 'conversion_solve'),
-                     real_fourier_pack=('fourier_pack', 'fourier_unpack'))
+                     real_fourier_pack=('fourier_pack', 'fourier_unpack'),
+                     complex_fourier_select=('fourier_select', 'fourier_scatter'))
 # The crossover table: axis grid sizes, and lines per transform (rbc2048's
 # batched x chain: 8 components of 768 z points)
 CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -254,6 +284,17 @@ MATSOLVER_LOOPS = ('lu', 'mixed', 'matrix_free', 'inverse_refined')
 LOOP_ITERATIONS = 50
 _EXAMPLE_KERNELS = ('dense_matvec', 'rk_stage_combine', 'cfl_max', 'pencil_gather_scatter',
                     'grid_product')
+# The RBC example in complex128 (ComplexFourier in x): the complex forms of
+# KA, KB, K3, KG and KD, and KC through its real view
+_COMPLEX_KERNELS = ('dense_refined_solve_c128', 'dense_matvec_c128', 'rk_stage_combine',
+                    'cfl_max_c128', 'pencil_gather_scatter_c128', 'grid_product_c128')
+# The complex example path: its two transform libraries, warm-up and timed
+# CFL-loop iterations, the timed iterations under matsolver='lu', the steps
+# at the CFL's first dt held against the real form, and the card-vs-CPU
+# size, Ra and steps
+COMPLEX = dict(libraries=('fast', 'matrix'), warmup=3, iterations=200, lu_iterations=20,
+               compare_steps=20, compare_dt=0.125, small=(64, 32), small_ra=1e5,
+               small_steps=10)
 # The schemes path: RBC 2048x512 banded under each timed scheme, its warm-up
 # (startup steps, main factorization, probes) and timed steps; the seven
 # multistep schemes the port added to SBDF2, card vs CPU at 64x32
@@ -303,6 +344,10 @@ PATH_KERNELS = dict(
                'dense_matvec'),
     rbc256=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max',
             'pencil_gather_scatter', 'grid_product'),
+    rbc256c_fast=_COMPLEX_KERNELS + ('complex_fourier_select', 'dft_four_step', 'dct_wrap',
+                                     'chebyshev_conversion'),
+    rbc256c_matrix=_COMPLEX_KERNELS,
+    rbc256c_lu=('lu_solve_c128',) + _COMPLEX_KERNELS[1:],
     annulus=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
              'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
     disk=('dense_refined_solve', 'dense_matvec', 'history_combine', 'polar_apply',
@@ -320,6 +365,8 @@ PATH_KERNELS = dict(
               'spin_recombine', 'pencil_gather_scatter', 'grid_product', 'grid_cross'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
+K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
+STEP_STACKS = {}    # dense path -> what its step reads outside F (step_stacks)
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
 STEPS = {}      # main path -> steps of its timed run
 
@@ -484,7 +531,8 @@ def card():
 
 
 def kernel_functions():
-    """The launch-counting wrappers of each kernel, by kernel name."""
+    """The wrappers of each kernel, by kernel name. A `_c128` kernel is the
+    complex128 form of its wrappers, counted apart (build.count)."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
     from dedalus_tpu_torch.ops import products as oprod, ball as oball, shell as oshell
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
@@ -493,7 +541,11 @@ def kernel_functions():
     from dedalus_tpu_torch.ops import fft as offt
     from dedalus_tpu_torch.core import subsystems as sub
     fast = {name: [getattr(offt, w) for w in ws] for name, ws in FAST_WRAPPERS.items()}
-    return dict(block_tridiag_qr_factor=[ob.factor_block_tridiag_qr],
+    return dict(dense_refined_solve_c128=[osolve.dense_refined_solve],
+                dense_matvec_c128=[osolve.dense_matvec], cfl_max_c128=[cm.cfl_max],
+                pencil_gather_scatter_c128=[sub.pencil_gather, sub.pencil_scatter],
+                grid_product_c128=[oprod.grid_product], lu_solve_c128=[osolve.lu_solve],
+                block_tridiag_qr_factor=[ob.factor_block_tridiag_qr],
                 multi_rhs_solve=[ob.multi_rhs_solve],
                 banded_solve_pre=[ob.banded_solve_pre],
                 banded_solve_post=[ob.banded_solve_post],
@@ -516,6 +568,13 @@ def kernel_functions():
                 lu_solve=[osolve.lu_solve], mixed_solve=[osolve.mixed_solve], **fast)
 
 
+def launches(name, fns):
+    """The summed launch count of kernel `name` over its wrappers."""
+    from dedalus_tpu_torch.csrc import build
+    attr = build.counter(torch.complex128 if name.endswith('_c128') else torch.float64)
+    return sum(getattr(f, attr) for f in fns)
+
+
 def count_launches(path, steps, run):
     """Run a main path's timed run with every kernel count set to 0 just
     before and read just after; fail if a kernel of the path was not
@@ -523,9 +582,9 @@ def count_launches(path, steps, run):
     fns = kernel_functions()
     for fs in fns.values():
         for f in fs:
-            f.launches = 0
+            f.launches = f.launches_c128 = 0
     out = run()
-    LAUNCHES[path] = {name: sum(f.launches for f in fs) for name, fs in fns.items()}
+    LAUNCHES[path] = {name: launches(name, fs) for name, fs in fns.items()}
     STEPS[path] = steps
     for name in PATH_KERNELS[path]:
         if LAUNCHES[path][name] <= 0:
@@ -562,12 +621,35 @@ def tally(targets, run):
     return acc
 
 
+def k12_complex_bytes(wrapper, shape, axis, N, M, Kmax):
+    """Bytes K12's complex select (Z -> ordered coefficients) or scatter
+    (coefficients -> zero-padded spectrum) must move on a line batch of
+    `shape`: the distinct values it reads, only the retained ones (|k| <=
+    Kmax), and every point it writes (M for the select, N for the
+    scatter)."""
+    from dedalus_tpu_torch.ops import fft as offt
+    size = shape[axis % len(shape)]
+    lines = int(np.prod(shape)) // size
+    index = offt._select_index if wrapper == 'fourier_select' else offt._scatter_index
+    src, valid = index(M, N, Kmax, 'cpu')
+    reads = len(torch.unique(src[valid]))
+    return 16 * lines * (reads + (M if wrapper == 'fourier_select' else N))
+
+
 def fast_cost(wrapper, a, kw, out):
     """(bytes, operations) of one call of a fast-transform wrapper: each
-    input read once, each output written once; the DFT's 8 operations per
-    complex multiply-add (N1 + N2 of them per point, and the twiddle's 6),
-    a few per point for the elementwise passes, 2 per band entry."""
+    input read once, each output written once (K12's complex select and
+    scatter: the retained values read, k12_complex_bytes); the DFT's 8
+    operations per complex multiply-add (N1 + N2 of them per point, and the
+    twiddle's 6), a few per point for the elementwise passes, 2 per band
+    entry."""
     from dedalus_tpu_torch.ops import fft as offt
+    if wrapper == 'fourier_select':
+        Z, axis, M, Kmax = a
+        return k12_complex_bytes(wrapper, Z.shape, axis, Z.shape[axis], M, Kmax), 0
+    if wrapper == 'fourier_scatter':
+        c, axis, N, Kmax = a
+        return k12_complex_bytes(wrapper, c.shape, axis, N, c.shape[axis], Kmax), 0
     if wrapper == 'dft':
         x, axis = a[0], a[2]
         N = out.shape[axis]
@@ -586,12 +668,13 @@ def fast_targets():
     """tally targets of the fast-transform wrappers, one label per kernel."""
     from dedalus_tpu_torch.ops import fft as offt
     labels = dict(dft_four_step='K10 dft', dct_wrap='K11a DCT wrapping',
-                  chebyshev_conversion='K11b conversion', real_fourier_pack='K12 pack/unpack')
+                  chebyshev_conversion='K11b conversion', real_fourier_pack='K12 pack/unpack',
+                  complex_fourier_select='K12 complex select/scatter')
     return [(labels[k], offt, w, functools.partial(fast_cost, w))
             for k, ws in FAST_WRAPPERS.items() for w in ws]
 
 
-def f_profile(solver, state, t, reps=10):
+def f_profile(solver, state, t, reps=10, path=None):
     """K1 and K2 on one evaluation of F: the dense transforms (K1, torch
     matmul) or the fast transforms (K10-K12), the polar and sphere kernels
     and the grid products (KG) inside it, their call counts and summed
@@ -690,10 +773,13 @@ def f_profile(solver, state, t, reps=10):
     turns = [f_ms(p) for p in (oprod.grid_product_plain, oprod.grid_product,
                                oprod.grid_product, oprod.grid_product_plain)]
     ms, ms_plain = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    k2_bound = sum(v[1] for k, v in acc.items() if k != fast)
+    if path is not None:
+        K2_BOUND[path] = k2_bound
+        STEP_STACKS[path] = step_stacks(solver)
     return dict(ms=ms, ms_plain_products=ms_plain, ms_turns=turns,
                 calls={k: v[0] for k, v in acc.items()},
-                bound_ms={k: v[1] for k, v in acc.items()},
-                k2_bound_ms=sum(v[1] for k, v in acc.items() if k != fast))
+                bound_ms={k: v[1] for k, v in acc.items()}, k2_bound_ms=k2_bound)
 
 
 def kj_bytes_flops(T, x, y, w_in=None, w_out=None):
@@ -702,14 +788,16 @@ def kj_bytes_flops(T, x, y, w_in=None, w_out=None):
     return nbytes(T, x, y, w_in, w_out), 2 * y.numel() * T.shape[1]
 
 
-def check_k3(path, pencil, state, primary=False):
+def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
     """K3 against its plain twins run on copies of the same inputs on the
     CPU: exactly equal (the card's index_add_ sums repeated targets in
-    atomic order; the kernel and the CPU twin in flat-position order)."""
+    atomic order; the kernel and the CPU twin in flat-position order).
+    Recorded under `name` (the complex128 form: 'pencil_gather_scatter_c128',
+    on a complex state)."""
     from dedalus_tpu_torch.core import subsystems as sub
     sg, eg, ss = pencil.state_gather, pencil.eq_gather, pencil.state_scatter
     gen = torch.Generator(device=state.device).manual_seed(3)
-    srcs = [torch.randn(n, generator=gen, dtype=torch.float64, device=state.device)
+    srcs = [torch.randn(n, generator=gen, dtype=state.dtype, device=state.device)
             for n in eg.src_sizes]
     X = sub.pencil_gather(sg, [state])
     Y = sub.pencil_scatter(ss, X)
@@ -735,17 +823,17 @@ def check_k3(path, pencil, state, primary=False):
         **dict(zip(('bound_ms', 'bound_by'), bound(
             nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src, X)
             + nbytes(X, ss.offsets, ss.entries, Y), 2 * X.numel()))))
-    prev = RESULTS.get('pencil_gather_scatter')
+    prev = RESULTS.get(name)
     by_path = dict(prev['by_path']) if prev else {}
     by_path[path] = {k: r[k] for k in ('ms', 'ms_gather', 'ms_scatter', 'plain_ms',
                                        'library_ms', 'bound_ms', 'shape')}
     if primary or prev is None:
-        RESULTS['pencil_gather_scatter'] = r
+        RESULTS[name] = r
     else:
         r = prev
         r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
     r['by_path'] = by_path
-    print(f"K3 on the {path} pencils (G={pencil.G}, C={pencil.C}): "
+    print(f"K3 ({state.dtype}) on the {path} pencils (G={pencil.G}, C={pencil.C}): "
           f"{'exact' if exact else f'max_abs {err:.3e}'}")
 
 
@@ -756,21 +844,25 @@ KG_CASES = (   # (label, a's tensor shape, b's, contract, einsum of the same con
 )
 
 
-def check_kg(path, field, primary=False, cases=KG_CASES):
+def check_kg(path, field, primary=False, cases=KG_CASES, name='grid_product'):
     """KG against its plain twin and torch.einsum at a path's product shapes
     on the dealias grid of `field`: the vector-gradient contraction
     u@grad(u) (timed), the scalar advection u@grad(b), the scaled outer
     product h*u, and an operand constant along the first grid axis (read
-    through a zero stride)."""
+    through a zero stride). On a complex field the operands are complex128
+    (the CPLX variant, recorded as 'grid_product_c128'; the outer product
+    with a complex alpha; 8 operations a complex multiply-add)."""
     from dedalus_tpu_torch.ops import products as oprod
     grid = tuple(field.domain.grid_shape(field.domain.dealias))
     dev = field.data.device
+    dtype = field.data.dtype
+    ops = 4 if dtype.is_complex else 1
     gen = torch.Generator(device=dev).manual_seed(11)
-    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=dtype, device=dev)
     errs, timed = [], None
     for label, ta, tb, contract, spec in cases:
         a, b = rand(ta + grid), rand(tb + grid)
-        alpha = 1.0 if contract else -0.5
+        alpha = 1.0 if contract else (-0.5 + 0.25j if ops > 1 else -0.5)
         args = (a, b, len(ta), len(tb), contract, alpha)
         yk, yp = oprod.grid_product(*args), oprod.grid_product_plain(*args)
         torch.cuda.synchronize()
@@ -785,7 +877,7 @@ def check_kg(path, field, primary=False, cases=KG_CASES):
                 plain_device_ms=device_ms(lambda: oprod.grid_product_plain(*args)),
                 **dict(zip(('bound_ms', 'bound_by'),
                            bound(nbytes(a, b, yk),
-                                 2 * (ta[-1] if contract else 1) * yk.numel()))))
+                                 ops * 2 * (ta[-1] if contract else 1) * yk.numel()))))
     # A profile constant along the first grid axis against a tensor in the
     # layout the azimuth transform leaves (that axis outermost in memory)
     profile, full = rand((2, 1) + grid[1:]), rand(grid[:1] + (2, 2) + grid[1:]).movedim(0, 2)
@@ -794,7 +886,7 @@ def check_kg(path, field, primary=False, cases=KG_CASES):
     torch.cuda.synchronize()
     errs.append(rel_err(yk, yp))
     r = dict(timed, err=max(errs))
-    prev = RESULTS.get('grid_product')
+    prev = RESULTS.get(name)
     by_path = dict(prev['by_path']) if prev else {}
     by_path[path] = {k: timed[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
                                            'device_ms', 'plain_device_ms', 'shape')}
@@ -804,14 +896,14 @@ def check_kg(path, field, primary=False, cases=KG_CASES):
     elif prev is not None:
         r['err'] = max(prev['err'], r['err'])
     r['by_path'] = by_path
-    RESULTS['grid_product'] = r
-    print(f"KG on the {path} dealias grid {grid}: rel_err {max(errs)[0]:.3e} (tol "
-          f"{TOL['grid_product']:.0e}); {timed['what']} kernel {timed['ms']:.4f} ms plain "
+    RESULTS[name] = r
+    print(f"KG ({dtype}) on the {path} dealias grid {grid}: rel_err {max(errs)[0]:.3e} (tol "
+          f"{TOL[name]:.0e}); {timed['what']} kernel {timed['ms']:.4f} ms plain "
           f"{timed['plain_ms']:.4f} ms einsum {timed['library_ms']:.4f} ms bound "
           f"{timed['bound_ms']:.4f} ms; on the device {timed['device_ms']} ms, plain "
           f"{timed['plain_device_ms']} ms")
-    if not max(errs)[0] <= TOL['grid_product']:
-        raise AssertionError(f"grid_product disagrees with its plain twin on the {path} "
+    if not max(errs)[0] <= TOL[name]:
+        raise AssertionError(f"{name} disagrees with its plain twin on the {path} "
                              f"grid: {max(errs)[0]:.3e}")
 
 
@@ -1008,13 +1100,13 @@ def time_probes(path, solver, fact, smi):
 
     for label, probe in (('inner', lambda: fact.banded._probe_refinement_curve()),
                          ('outer', lambda: ts._probe_outer_curve(fact, a1, b1))):
-        before = {name: sum(f.launches for f in fs) for name, fs in fns.items()}
+        before = {name: launches(name, fs) for name, fs in fns.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         curve = probe()
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        counts = {name: sum(f.launches for f in fs) - before[name] for name, fs in fns.items()}
+        counts = {name: launches(name, fs) - before[name] for name, fs in fns.items()}
         counts = {k: v for k, v in counts.items() if v}
         bound_ms = sum(n * bound_of(k) for k, n in counts.items())
         out[label] = dict(ms=ms, passes=len(curve) - 1, launches=counts, bound_ms=bound_ms,
@@ -1529,17 +1621,22 @@ def _call_key(args, kw):
     return tuple(key(v) for v in args) + tuple((k, key(v)) for k, v in sorted(kw.items()))
 
 
-def check_fast_kernels(path, calls, per_f, primary=True):
-    """K10, K11a, K11b and K12 against their plain twins on every distinct
-    call F made (`calls`, from capture_fast_calls), and their times at those
-    shapes: each kernel's ms, plain_ms and bound_ms are the sums over one of
-    each distinct call; library_ms sums the PyTorch calls computing the same
-    functions over the calls where one exists (torch.fft for K10's complex
-    loads; a dense matmul and solve_triangular for K11b; none for K11a and
-    K12), with the kernel's time over those calls beside it
-    (ms_where_library)."""
+def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_names=()):
+    """K10, K11a, K11b and K12 (`names`: the entries of FAST_WRAPPERS with
+    calls on this path, all by default) against their plain twins on every
+    distinct call F made (`calls`, from capture_fast_calls), and their times
+    at those shapes: each kernel's ms, plain_ms and bound_ms are the sums
+    over one of each distinct call; library_ms sums the PyTorch calls
+    computing the same functions over the calls where one exists (torch.fft
+    for K10's complex loads; a dense matmul and solve_triangular for K11b;
+    index_select for K12's complex select and scatter; none for K11a and
+    K12's real pack), with the kernel's time over those calls beside it
+    (ms_where_library). `primary_names` are recorded as primary whatever
+    `primary` says."""
     from dedalus_tpu_torch.ops import fft as offt
     for name, wrappers in FAST_WRAPPERS.items():
+        if names is not None and name not in names:
+            continue
         errs, ms, plain_ms, bnd = [], 0.0, 0.0, [0.0, 0.0]
         lib_ms, ms_lib = None, 0.0
         shapes, by_wrapper = [], {}
@@ -1579,14 +1676,17 @@ def check_fast_kernels(path, calls, per_f, primary=True):
                                 ms_where_library=ms_lib, bound_ms=b_ms, bound_by=b_by,
                                 shape=shapes, calls_checked=len(errs),
                                 ms_by_wrapper=by_wrapper, launches_per_F=per_f.get(name)),
-               primary, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape'))
+               primary or name in primary_names,
+               keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape'))
 
 
 def fast_library(wrapper, args, kw):
     """One PyTorch call computing a wrapper's function on the same inputs,
     or None: torch.fft for the DFT (complex in, or complex in and the real
     part out: a view), a dense matmul and torch.linalg.solve_triangular for
-    the conversion's apply and solve."""
+    the conversion's apply and solve, index_select for the complex select
+    and scatter (without their masks)."""
+    from dedalus_tpu_torch.ops import fft as offt
     if wrapper == 'dft':
         x, sign, axis = args[0], args[1], args[2]
         load, scale = kw.get('load', 'complex'), kw.get('scale', 1.0)
@@ -1601,6 +1701,14 @@ def fast_library(wrapper, args, kw):
         if kw.get('real_out'):
             return lambda: torch.fft.ifft(x, dim=axis, norm=norm).real
         return lambda: torch.fft.ifft(x, dim=axis, norm=norm)
+    if wrapper == 'fourier_select':
+        Z, axis, M, Kmax = args
+        idx = offt._select_index(M, Z.shape[axis], Kmax, Z.device)[0]
+        return lambda: torch.index_select(Z, axis, idx)
+    if wrapper == 'fourier_scatter':
+        c, axis, N, Kmax = args
+        idx = offt._scatter_index(c.shape[axis], N, Kmax, c.device)[0]
+        return lambda: torch.index_select(c, axis, idx)
     if wrapper in ('conversion_apply', 'conversion_solve'):
         band, x, axis = args
         if axis % x.ndim != x.ndim - 1:
@@ -1642,8 +1750,11 @@ def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
     lines (the axis last) as MMT (torch.matmul with an (N, N) matrix: its
     time does not depend on the values), on the fast kernels (RealFourier,
     ChebyshevT at da = 0, ChebyshevU at da = 1, through forward_transform /
-    backward_transform under 'fast') and through torch.fft (rfft / irfft,
-    and the complex fft of the DCT's length): mean ms per transform."""
+    backward_transform under 'fast'; ComplexFourier on complex128 lines, K10
+    with K12's complex select and scatter) and through torch.fft (rfft /
+    irfft, and the complex fft of the DCT's length, which is also the
+    ComplexFourier transform's): mean ms per transform. Run by hand; no
+    kernel is held against a twin here."""
     import dedalus_tpu_torch.public as d3
     from dedalus_tpu_torch.core import basis as tbasis
     dev = torch.device(DEVICE)
@@ -1668,6 +1779,13 @@ def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
                     lambda: basis.backward_transform(c, 1, 1, np.float64), reps)
                 del c
             xc = x.to(torch.complex128)
+            cf = tbasis.ComplexFourier(coord, N, (0, 2 * np.pi))
+            c = cf.forward_transform(xc, 1, 1, np.complex128)
+            row['ComplexFourier_fwd'] = cuda_ms(
+                lambda: cf.forward_transform(xc, 1, 1, np.complex128), reps)
+            row['ComplexFourier_bwd'] = cuda_ms(
+                lambda: cf.backward_transform(c, 1, 1, np.complex128), reps)
+            del c
             row['torch_rfft'] = cuda_ms(lambda: torch.fft.rfft(x, dim=1), reps)
             h = torch.fft.rfft(x, dim=1)
             row['torch_irfft'] = cuda_ms(lambda: torch.fft.irfft(h, n=N, dim=1), reps)
@@ -1731,8 +1849,9 @@ def banded_fast_path(n_steps=20):
     against their twins on every call of one F evaluation, 20 timed steps
     with the launches counted, the last solve residual, the same steps under
     MMT from the same initial condition, the card against the CPU at 64x32,
-    F under both libraries, 'auto' at the threshold and the crossover
-    table."""
+    F under both libraries and 'auto' at the threshold. (The crossover
+    table, crossover_table(), is run by hand: it holds no kernel against a
+    twin.)"""
     dev, kind, smi = card()
     old = set_libraries('fast')
     try:
@@ -1754,7 +1873,9 @@ def banded_fast_path(n_steps=20):
         calls = capture_fast_calls(lambda: solver.traced_F(state, t))
         per_f = {name: sum(len(calls[w]) for w in ws) for name, ws in FAST_WRAPPERS.items()}
         print(f"fast-transform calls per F evaluation: {per_f}")
-        check_fast_kernels('rbc2048_fast', calls, per_f)
+        check_fast_kernels('rbc2048_fast', calls, per_f,
+                           names=('dft_four_step', 'dct_wrap', 'chebyshev_conversion',
+                                  'real_fourier_pack'))
         del calls
 
         phase(f"banded fast path: {n_steps} timed steps")
@@ -1813,17 +1934,15 @@ def banded_fast_path(n_steps=20):
     finally:
         restore_libraries(old)
 
-    phase("'auto' at the threshold, and the crossover table")
+    phase("'auto' at the threshold")
     auto_errs = auto_threshold_check()
-    crossover = crossover_table(smi)
     print(json.dumps({"main_path_fast": dict(
         config=f"RBC {NX}x{NZ} Ra={RA:g} SBDF2 banded, fourier_library = jacobi_library = fast",
         card=smi, ms_per_step=ms_step, setup_s=setup_s, warmup_s=warm_s,
         refinements=refinements, final_residual=resid, fast_vs_mmt=errs,
         fast_vs_mmt_own_max=errs_own,
         card_vs_cpu_64x32=err64, f_ms_fast=f_fast['ms'], f_ms_matrix=f_mmt['ms'],
-        launches_per_F=per_f, auto_threshold_errs=auto_errs,
-        crossover_sizes=[r['N'] for r in crossover])}))
+        launches_per_F=per_f, auto_threshold_errs=auto_errs)}))
 
 
 def dense_card_vs_cpu():
@@ -1844,11 +1963,14 @@ def dense_card_vs_cpu():
             raise AssertionError(f"{scheme}: card and CPU trajectories disagree: {err:.3e}")
 
 
-def check_dense_kernels(path, solver, dt, R, primary=False):
+def check_dense_kernels(path, solver, dt, R, primary=False, suffix=''):
     """KA, KB and KC against their plain twins at a dense Runge-Kutta path's
     shapes: stage 2's solve at step size dt on a recorded right-hand side R
     (with one refinement pass and with none), the M and L applies of the
-    state (the pair and L alone), and stage 2's combine."""
+    state (the pair and L alone), and stage 2's combine. KA and KB record
+    under their names + `suffix` (their complex128 forms: '_c128'; a
+    complex multiply-add is 8 operations), KC under its own (complex
+    stages run its float64 kernel on their real views)."""
     from dedalus_tpu_torch.ops import solve as osolve
     from dedalus_tpu_torch.csrc import rk_combine as rkc
     ts, pencil = solver.timestepper, solver.pencil
@@ -1859,32 +1981,33 @@ def check_dense_kernels(path, solver, dt, R, primary=False):
     X = pencil.gather_state(state).contiguous()
     keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape')
 
+    ops = 4 if R.is_complex() else 1    # operations of a multiply-add, over f64's
     Xk = osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1)
     Xp = osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1)
     X0k = osolve.dense_refined_solve(fact.Ainv, None, R, 0)
     X0p = osolve.dense_refined_solve_plain(fact.Ainv, None, R, 0)
     torch.cuda.synchronize()
-    record('dense_refined_solve', path, dict(
+    record('dense_refined_solve' + suffix, path, dict(
         err=max(rel_err(Xk, Xp), rel_err(X0k, X0p)), shape=[G, P],
         ms=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, fact.A, R, 1), 20),
         plain_ms=cuda_ms(lambda: osolve.dense_refined_solve_plain(fact.Ainv, fact.A, R, 1), 20),
         library_ms=cuda_ms(lambda: torch.matmul(fact.Ainv, R[..., None]), 20),
         ms_zero_pass=cuda_ms(lambda: osolve.dense_refined_solve(fact.Ainv, None, R, 0), 20),
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(fact.Ainv, fact.A, R, Xk), 6 * G * P * P)))), primary,
+                   bound(nbytes(fact.Ainv, fact.A, R, Xk), ops * 6 * G * P * P)))), primary,
         keys=keys + ('ms_zero_pass',))
 
     MXk, LXk = osolve.dense_matvec(Mm, X, Lm)
     MXp, LXp = osolve.dense_matvec_plain(Mm, X, Lm)
     Lk = osolve.dense_matvec(Lm, X)
     torch.cuda.synchronize()
-    record('dense_matvec', path, dict(
+    record('dense_matvec' + suffix, path, dict(
         err=max(rel_err(MXk, MXp), rel_err(LXk, LXp), rel_err(Lk, LXp)), shape=[G, P],
         ms=cuda_ms(lambda: osolve.dense_matvec(Lm, X), 20),
         plain_ms=cuda_ms(lambda: osolve.dense_matvec_plain(Lm, X), 20),
         library_ms=cuda_ms(lambda: torch.matmul(Lm, X[..., None]), 20),
         ms_pair=cuda_ms(lambda: osolve.dense_matvec(Mm, X, Lm), 20),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(Lm, X, Lk), 2 * G * P * P)))),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(Lm, X, Lk), ops * 2 * G * P * P)))),
         primary, keys=keys + ('ms_pair',))
 
     F = [solver.traced_F(state, solver.sim_time) for _ in range(2)]
@@ -1898,7 +2021,8 @@ def check_dense_kernels(path, solver, dt, R, primary=False):
         plain_ms=cuda_ms(lambda: rkc.rk_stage_combine_plain(MXp, F, LX, rv, coef2), 50),
         library_ms=None,
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(MXp, *F, *LX, rv, coef2, Ck), 9 * Ck.numel())))), primary)
+                   bound(nbytes(MXp, *F, *LX, rv, coef2, Ck), 9 * ops * Ck.numel())))),
+        primary and not suffix)
 
 
 def build_example(matsolver=None):
@@ -1986,17 +2110,16 @@ def example_path():
     Dk = cm.cfl_max(grids)
     Dp = cm.cfl_max_plain(grids)
     torch.cuda.synchronize()
-    RESULTS['cfl_max'] = dict(
-        err=rel_err(Dk, Dp),
+    record('cfl_max', 'rbc256', dict(
+        err=rel_err(Dk, Dp), shape=[list(g.shape) for g in grids],
         ms=cuda_ms(lambda: cm.cfl_max(grids), 50),
         plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
         library_ms=(cuda_ms(lambda: torch.linalg.vector_norm(grids[0], float('inf')), 50)
                     if len(grids) == 1 else None),
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*grids, Dk), len(grids) * grids[0].numel()))))
+                   bound(nbytes(*grids, Dk), len(grids) * grids[0].numel())))), True)
     check_k3('rbc256', pencil, state)
     check_kg('rbc256', u)
-    check_tolerances({'cfl_max': RESULTS['cfl_max']})
 
     phase(f"example path: {EX_ITERATIONS} timed iterations of the CFL loop")
     dts.clear()
@@ -2060,8 +2183,402 @@ def example_path():
     import dedalus_tpu_torch.core.arithmetic as arith
     breakdown('rbc256', solver, targets, [('KG', arith, 'grid_product')],
               lambda: main_loop(seg_iterations), smi)
-    print(json.dumps({"rbc256_F": f_profile(solver, solver.state_flat(), solver.sim_time),
+    print(json.dumps({"rbc256_F": f_profile(solver, solver.state_flat(), solver.sim_time,
+                                            path='rbc256'),
                       "card": smi}))
+
+
+# ---------------------------------------------------------------------------
+# The RBC example in complex128: ComplexFourier in x
+# ---------------------------------------------------------------------------
+
+def build_complex_rbc(Nx, Nz, Ra, device, scheme='RK222', dtype=np.complex128,
+                      matsolver=None):
+    """The Rayleigh-Benard example's own lines (examples/ivp_2d_rayleigh_benard.py)
+    with `dtype = np.complex128` and d3.ComplexFourier in x (RealFourier for
+    float64), on `device`. The initial condition is the example's, taken
+    real: the real form's seeded noise (the draw of its fill_random), times
+    z (Lz - z), on the conduction profile. `matsolver` None is the default.
+    Returns (solver, ctx)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.utils.random_arrays import chunked_random_field
+    Lx, Lz = 4, 1
+    Prandtl = 1
+    dealias = 3 / 2
+    coords = d3.CartesianCoordinates('x', 'z')
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    Fourier = d3.ComplexFourier if np.dtype(dtype).kind == 'c' else d3.RealFourier
+    xbasis = Fourier(coords['x'], size=Nx, bounds=(0, Lx), dealias=dealias)
+    zbasis = d3.ChebyshevT(coords['z'], size=Nz, bounds=(0, Lz), dealias=dealias)
+    p = dist.Field(name='p', bases=(xbasis, zbasis))
+    b = dist.Field(name='b', bases=(xbasis, zbasis))
+    u = dist.VectorField(coords, name='u', bases=(xbasis, zbasis))
+    tau_p = dist.Field(name='tau_p')
+    tau_b1 = dist.Field(name='tau_b1', bases=xbasis)
+    tau_b2 = dist.Field(name='tau_b2', bases=xbasis)
+    tau_u1 = dist.VectorField(coords, name='tau_u1', bases=xbasis)
+    tau_u2 = dist.VectorField(coords, name='tau_u2', bases=xbasis)
+    kappa = (Ra * Prandtl)**(-1/2)
+    nu = (Ra / Prandtl)**(-1/2)
+    x, z = dist.local_grids(xbasis, zbasis, scales=1)
+    ex, ez = coords.unit_vector_fields(dist)
+    lift_basis = zbasis.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)
+    grad_u = d3.grad(u) + ez * lift(tau_u1)
+    grad_b = d3.grad(b) + ez * lift(tau_b1)
+    problem = d3.IVP([p, b, u, tau_p, tau_b1, tau_b2, tau_u1, tau_u2], namespace=locals())
+    problem.add_equation("trace(grad_u) + tau_p = 0")
+    problem.add_equation("dt(b) - kappa*div(grad_b) + lift(tau_b2) = - u@grad(b)")
+    problem.add_equation("dt(u) - nu*div(grad_u) + grad(p) - b*ez + lift(tau_u2) = - u@grad(u)")
+    problem.add_equation("b(z=0) = Lz")
+    problem.add_equation("u(z=0) = 0")
+    problem.add_equation("b(z=Lz) = 0")
+    problem.add_equation("u(z=Lz) = 0")
+    problem.add_equation("integ(p) = 0")
+    solver = problem.build_solver(getattr(d3, scheme), matsolver=matsolver)
+    noise = chunked_random_field((Nx, Nz), 42, 'normal', np.float64, scale=1e-3)
+    b['g'] = (noise * z * (Lz - z) + Lz - z).astype(dtype)
+    return solver, dict(dist=dist, b=b, u=u, nu=nu, xbasis=xbasis, zbasis=zbasis)
+
+
+def grid_state(solver):
+    """The state fields' grid values at scale 1, on the host, by name."""
+    out = {}
+    for f in solver.state:
+        f.change_scales(1)
+        out[f.name] = f['g'].detach().cpu().clone()
+    return out
+
+
+def complex_vs_real(complex_solver, real_solver):
+    """Per field, max |complex form - real form| of the grid values relative
+    to the largest value of the real form's state, and the largest
+    imaginary part of the complex form relative to the same."""
+    gc_, gr = grid_state(complex_solver), grid_state(real_solver)
+    top = max(float(v.abs().max()) for v in gr.values())
+    errs = {k: float((gc_[k] - gr[k]).abs().max()) / top for k in gr}
+    imag = max(float(v.imag.abs().max()) for v in gc_.values()) / top
+    return errs, imag
+
+
+def complex_card_vs_cpu(steps=COMPLEX['small_steps']):
+    """The RBC example in complex128 at 64x32, Ra=1e5: card against the
+    CPU-held port under RK222 and SBDF2, each with both transform libraries
+    `matrix` and `fast`, 10 steps at dt 1e-3."""
+    Nx, Nz = COMPLEX['small']
+    for lib in ('matrix', 'fast'):
+        old = set_libraries(lib)
+        try:
+            for scheme in ('RK222', 'SBDF2'):
+                phase(f"complex RBC {Nx}x{Nz} Ra={COMPLEX['small_ra']:g} {scheme}, "
+                      f"transforms {lib}, {steps} steps: cuda vs cpu")
+                states = {}
+                for d in (DEVICE, 'cpu'):
+                    s, _ = build_complex_rbc(Nx, Nz, COMPLEX['small_ra'], d, scheme=scheme)
+                    if s.matsolver != 'inverse_refined':
+                        raise AssertionError(f"default matsolver is {s.matsolver}")
+                    s.run_steps(DT, steps)
+                    states[d] = s.state_flat().cpu()
+                if not states[DEVICE].is_complex():
+                    raise AssertionError("the complex RBC state is not complex")
+                err = rel_err(states[DEVICE], states['cpu'])[0]
+                print(f"complex {scheme} {lib} cuda vs cpu rel_err {err:.3e} (tol 1e-10)")
+                if not err <= 1e-10:
+                    raise AssertionError(f"complex {scheme} {lib}: card and CPU disagree: "
+                                         f"{err:.3e}")
+        finally:
+            restore_libraries(old)
+
+
+def check_complex_kernels(path, solver, ctx, CFL, last, primary):
+    """The complex forms of KA, KB, KD, K3 and KG (and KC and K7's real
+    views) against their plain twins at the complex example path's shapes,
+    with times, bounds and library times."""
+    from dedalus_tpu_torch.csrc import cfl_max as cm, history_combine as hc
+    pencil = solver.pencil
+    state = solver.state_flat()
+    check_dense_kernels(path, solver, CFL.stored_dt, last['R'], primary=primary,
+                        suffix='_c128')
+    grids = CFL.frequency_grids()
+    Dk = cm.cfl_max(grids)
+    Dp = cm.cfl_max_plain(grids)
+    torch.cuda.synchronize()
+    record('cfl_max_c128', path, dict(
+        err=rel_err(Dk, Dp), shape=[list(g.shape) for g in grids],
+        ms=cuda_ms(lambda: cm.cfl_max(grids), 50),
+        plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
+        library_ms=(cuda_ms(lambda: torch.linalg.vector_norm(torch.abs(grids[0]),
+                                                             float('inf')), 50)
+                    if len(grids) == 1 else None),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(*grids, Dk), 4 * len(grids) * grids[0].numel())))), primary)
+    check_k3(path, pencil, state, primary=primary, name='pencil_gather_scatter_c128')
+    check_kg(path, ctx['u'], primary=primary, name='grid_product_c128')
+    # K7 on complex slots (its float64 kernel on their real views)
+    G, P = pencil.G, pencil.R
+    gen = torch.Generator(device=state.device).manual_seed(5)
+    slots = [torch.randn((G, P), generator=gen, dtype=torch.complex128, device=state.device)
+             for _ in range(6)]
+    coef = torch.tensor([0.5, -0.25, 1.0, 0.1, 1.5, -0.5], dtype=torch.float64,
+                        device=state.device)
+    args = (slots[0:2], slots[2:4], slots[4:6], pencil.row_valid_dev, coef)
+    e7 = rel_err(hc.history_combine(*args), hc.history_combine_plain(*args))
+    torch.cuda.synchronize()
+    print(f"K7 on complex slots (real views) rel_err {e7[0]:.3e} (tol "
+          f"{TOL['history_combine']:.0e})")
+    if not e7[0] <= TOL['history_combine']:
+        raise AssertionError(f"K7 on complex slots disagrees with its twin: {e7[0]:.3e}")
+
+
+def complex_rbc_run(lib, dev, kind, smi):
+    """One library's run of complex_rbc_path (its locals, the solver among
+    them, are freed on return, so the next run's peak is its own); returns
+    its summary."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    import dedalus_tpu_torch.public as d3
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    import dedalus_tpu_torch.core.arithmetic as arith
+    path = f'rbc256c_{lib}'
+    old = set_libraries(lib)
+    try:
+        phase(f"complex example path setup: RBC {EX_NX}x{EX_NZ} Ra={EX_RA:g} complex128 "
+              f"RK222 default matsolver, transforms {lib}, on {kind}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        print(f"device memory held before setup: "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        solver, ctx = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev)
+        CFL = d3.CFL(solver, initial_dt=0.125, cadence=10, safety=0.5, threshold=0.05,
+                     max_change=1.5, min_change=0.5, max_dt=0.125)
+        CFL.add_velocity(ctx['u'])
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        pencil = solver.pencil
+        G, P = pencil.G, pencil.R
+        if solver.matsolver != 'inverse_refined' or not pencil.matrices['M'].is_complex():
+            raise AssertionError(f"complex path on {solver.matsolver}, "
+                                 f"{pencil.matrices['M'].dtype} stacks")
+        print(f"setup_s {setup_s:.2f}; G={G} P={P} complex dense stacks "
+              f"{pencil.matrices['M'].numel() * 16 / 1e6:.1f} MB each")
+        last, restore_solve = record_solves()
+        dts, peaks = [], []
+        t0 = time.perf_counter()
+        ok = example_loop(solver, CFL, COMPLEX['warmup'], dts, peaks)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        print(f"warmup_s {warm_s:.2f} ({solver.iteration} iterations)")
+
+        if lib == 'fast':
+            phase("K10, K11a, K11b and K12's complex select and scatter vs plain twins "
+                  "(every call of one F evaluation)")
+            state, t = solver.state_flat(), solver.sim_time
+            calls = capture_fast_calls(lambda: solver.traced_F(state, t))
+            per_f = {name: sum(len(calls[w]) for w in ws)
+                     for name, ws in FAST_WRAPPERS.items()}
+            print(f"fast-transform calls per F evaluation: {per_f}")
+            check_fast_kernels(path, calls, per_f, primary=False,
+                               names=('dft_four_step', 'dct_wrap', 'chebyshev_conversion',
+                                      'complex_fourier_select'),
+                               primary_names=('complex_fourier_select',))
+            complex_transform_times(calls, smi)
+            del calls
+        phase(f"complex KA, KB, KD, K3, KG vs plain twins ({path} shapes)")
+        check_complex_kernels(path, solver, ctx, CFL, last, primary=(lib == 'fast'))
+
+        phase(f"{path}: {COMPLEX['iterations']} timed iterations of the CFL loop")
+        dts.clear()
+        peaks.clear()
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = ok & count_launches(path, None, lambda: example_loop(
+            solver, CFL, COMPLEX['iterations'], dts, peaks))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        restore_solve()
+        n_iter = STEPS[path] = solver.iteration - it0
+        ms_step = run_s / n_iter * 1e3
+        resid = solve_residual(last)
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / n_iter for k, v in LAUNCHES[path].items() if v}
+        print(f"[{smi}] RBC {EX_NX}x{EX_NZ} complex128 RK222 CFL loop, transforms {lib}: "
+              f"{ms_step:.3f} ms/step over {n_iter} iterations, setup {setup_s:.2f} s, "
+              f"warmup {warm_s:.2f} s, peak memory {peak / 2**30:.2f} GiB; dt visited "
+              f"{sorted(set(dts), reverse=True)}; last solve residual {resid:.3e}")
+        print(f"launches per step {per_step}")
+        if not bool(ok):
+            raise AssertionError(f"a step of {path} produced a non-finite value")
+        if not resid <= 1e-12:
+            raise AssertionError(f"{path}: last solve residual {resid:.3e} > 1e-12")
+
+        phase(f"{path}: where the time goes (device synchronised around each segment)")
+        ts = solver.timestepper
+        targets = [('gather', pencil, 'gather_state'),
+                   ('M/L apply (KB)', osolve, 'dense_matvec'),
+                   ('F', solver, 'traced_F'), ('combine (KC)', tsm, 'rk_stage_combine'),
+                   ('solve (KA)', osolve.FactorizedStack, 'solve'),
+                   ('scatter', pencil, 'scatter_state'), ('CFL (KD)', CFL, 'max_frequency'),
+                   ('new factorization', ts, '_get_stage_factor')]
+        breakdown(path, solver, targets, [('KG', arith, 'grid_product')],
+                  lambda: example_loop(solver, CFL, 20, [], []), smi)
+        print(json.dumps({f"{path}_F": f_profile(solver, solver.state_flat(), solver.sim_time,
+                                                 path=path), "card": smi}))
+        return dict(
+            config=f"RBC {EX_NX}x{EX_NZ} Ra={EX_RA:g} complex128 RK222 "
+                   f"{solver.matsolver} CFL, transforms {lib}", card=smi,
+            ms_per_step=ms_step, iterations=n_iter, setup_s=setup_s, warmup_s=warm_s,
+            dts=dts, peak_bytes=peak, launches_per_step=per_step,
+            last_solve_residual=resid, G=G, P=P)
+    finally:
+        restore_libraries(old)
+
+
+def complex_lu_run(dev, smi, iterations=COMPLEX['lu_iterations']):
+    """The complex example's CFL loop under matsolver='lu' (K14a's
+    complex128 form in every stage solve): 3 warm-up and `iterations` timed
+    iterations, then K14a against its twin on the loop's last solve."""
+    import dedalus_tpu_torch.public as d3
+    path = 'rbc256c_lu'
+    phase(f"{path}: RBC {EX_NX}x{EX_NZ} complex128 RK222 CFL loop under lu, "
+          f"{iterations} timed iterations")
+    gc.collect()
+    torch.cuda.empty_cache()
+    solver, ctx = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev, matsolver='lu')
+    CFL = d3.CFL(solver, initial_dt=0.125, cadence=10, safety=0.5, threshold=0.05,
+                 max_change=1.5, min_change=0.5, max_dt=0.125)
+    CFL.add_velocity(ctx['u'])
+    last, restore_solve = record_solves()
+    dts, peaks = [], []
+    try:
+        ok = example_loop(solver, CFL, COMPLEX['warmup'], dts, peaks)
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = ok & count_launches(path, None,
+                                 lambda: example_loop(solver, CFL, iterations, dts, peaks))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n_iter = STEPS[path] = solver.iteration - it0
+    ts = solver.timestepper
+    kHii = next(k for k, f in ts._stage_factors.items() if f is last['fact'])
+    A = solver.pencil.combined_with_pivots({'M': 1.0, 'L': kHii})
+    check_k14_dense(last['fact'], last['R'], A)
+    out = dict(ms_per_step=run_s / n_iter * 1e3, iterations=n_iter,
+               last_solve_residual=RESULTS['lu_solve_c128']['solve_residual'],
+               launches_per_step={k: v / n_iter for k, v in LAUNCHES[path].items() if v})
+    print(f"[{smi}] RBC {EX_NX}x{EX_NZ} complex128 RK222 CFL loop under lu: "
+          f"{out['ms_per_step']:.3f} ms/step over {n_iter} iterations; launches per step "
+          f"{out['launches_per_step']}")
+    if not bool(ok):
+        raise AssertionError(f"a step of {path} produced a non-finite value")
+    if not out['last_solve_residual'] <= 1e-12:
+        raise AssertionError(f"{path}: last solve residual {out['last_solve_residual']:.3e}")
+    return out
+
+
+def complex_rbc_path():
+    """The RBC example in complex128 at 256x64, Ra=2e6, RK222 on the default
+    dense matsolver (inverse_refined), the example's CFL (cadence 10,
+    safety 0.5, max_dt 0.125) and its initial condition taken real: under
+    `[transforms] fourier_library = jacobi_library = fast` (K10, K11a, K11b
+    and K12's complex select and scatter), then under `matrix`, each with 3
+    warm-up and 200 timed CFL-loop iterations, the complex kernels against
+    their twins, a per-segment breakdown and the peak memory; then both
+    forms held against the real form after 20 steps at dt 0.125 (the CFL's
+    first value). The example's GlobalFlowProperty is left out: its max
+    of complex data raises TypeError, in the JAX package too."""
+    dev, kind, smi = card()
+    summary = {}
+    for lib in COMPLEX['libraries']:
+        summary[f'rbc256c_{lib}'] = complex_rbc_run(lib, dev, kind, smi)
+    summary['rbc256c_lu'] = complex_lu_run(dev, smi)
+
+    phase(f"complex forms vs the real form: {COMPLEX['compare_steps']} steps at dt "
+          f"{COMPLEX['compare_dt']} from the same real initial condition")
+    n, dt = COMPLEX['compare_steps'], COMPLEX['compare_dt']
+    real, _ = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev, dtype=np.float64)
+    real.run_steps(dt, n // 2)
+    half = grid_state(real)
+    real.run_steps(dt, n - n // 2)
+    compare = {}
+    for lib in COMPLEX['libraries']:
+        old = set_libraries(lib)
+        try:
+            cs, _ = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev)
+            cs.run_steps(dt, n // 2)
+            mid = {k: float((v - half[k]).abs().max()) for k, v in grid_state(cs).items()}
+            cs.run_steps(dt, n - n // 2)
+            errs, imag = complex_vs_real(cs, real)
+            top = max(float(v.abs().max()) for v in half.values())
+            compare[lib] = dict(errs=errs, imag=imag,
+                                errs_at_half={k: v / top for k, v in mid.items()})
+            del cs
+        finally:
+            restore_libraries(old)
+        print(f"complex ({lib}) vs real after {n} steps, each field relative to the real "
+              f"state's largest value (tol 1e-10): {compare[lib]['errs']}; after {n // 2}: "
+              f"{compare[lib]['errs_at_half']}; largest imaginary part "
+              f"{compare[lib]['imag']:.3e}")
+    del real
+    print(json.dumps({"complex_path": dict(summary, vs_real=compare, card=smi)}))
+    for lib, c in compare.items():
+        if not max(c['errs'].values()) <= 1e-10:
+            raise AssertionError(f"complex ({lib}) and real forms disagree: {c['errs']}")
+
+
+def complex_transform_times(calls, smi):
+    """The whole ComplexFourier transform of each distinct select and
+    scatter call of one F (K10 with K12's complex form) beside torch.fft's
+    (fft / N and index_select; index_copy into zeros and ifft times N), at
+    the same shapes: ms per call, and the bound of the K12 part alone (the
+    retained values of each line read, its M or N points written once:
+    k12_complex_bytes)."""
+    from dedalus_tpu_torch.ops import transforms as otr, fft as offt
+    rows = []
+    for w in ('fourier_select', 'fourier_scatter'):
+        seen = {}
+        for args, kw in calls[w]:
+            seen.setdefault(_call_key(args, kw), args)
+        for args in seen.values():
+            if w == 'fourier_select':
+                Z, axis, M, Kmax = args
+                N = Z.shape[axis]
+                idx, valid = offt._select_index(M, N, Kmax, Z.device)
+                vshape = [1] * Z.ndim
+                vshape[axis] = M
+                vmask = valid.reshape(vshape)
+                kernel = lambda: otr.complex_fft_forward(Z, axis, M, Kmax)
+                library = lambda: torch.index_select(torch.fft.fft(Z, dim=axis) / N, axis,
+                                                     idx) * vmask
+                out = offt.fourier_select(Z, axis, M, Kmax)
+                lines = Z.numel() // N
+            else:
+                c, axis, N, Kmax = args
+                M = c.shape[axis]
+                idx, valid = offt._scatter_index(M, N, Kmax, c.device)
+                vshape = [1] * c.ndim
+                vshape[axis] = N
+                vmask = valid.reshape(vshape)
+                kernel = lambda: otr.complex_fft_backward(c, axis, N, Kmax)
+                library = lambda: torch.fft.ifft(torch.index_select(c, axis, idx) * vmask,
+                                                 dim=axis, norm='forward')
+                out = offt.fourier_scatter(c, axis, N, Kmax)
+                lines = c.numel() // M
+            row = dict(wrapper=w, shape=list(args[0].shape), N=N, M=M, lines=lines,
+                       transform_ms=cuda_ms(kernel, 20), torch_fft_ms=cuda_ms(library, 20),
+                       k12_bound_ms=bound(k12_complex_bytes(w, args[0].shape, axis, N, M,
+                                                            args[3]), 0)[0])
+            rows.append(row)
+            print(f"  ComplexFourier {'forward' if w == 'fourier_select' else 'backward'} "
+                  f"{row['shape']} (N={N}, M={M}): K10 + K12 {row['transform_ms']:.4f} ms, "
+                  f"torch.fft {row['torch_fft_ms']:.4f} ms; K12 bound "
+                  f"{row['k12_bound_ms']:.4f} ms", flush=True)
+    print(json.dumps({"complex_fourier_transforms": rows, "card": smi}))
 
 
 def breakdown(path, solver, targets, nested, run, smi):
@@ -2328,7 +2845,7 @@ def polar_path(geometry, steps=POLAR_STEPS):
     nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
               ('KG', arith, 'grid_product')]
     breakdown(geometry, solver, targets, nested, lambda: main_loop(20), smi)
-    print(json.dumps({f"{geometry}_F": f_profile(solver, state, solver.sim_time),
+    print(json.dumps({f"{geometry}_F": f_profile(solver, state, solver.sim_time, path=geometry),
                       "card": smi}))
 
 
@@ -2503,7 +3020,8 @@ def sphere_path(steps=SPHERE['steps']):
     nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
               ('KG', arith, 'grid_product')]
     breakdown('sphere', solver, targets, nested, lambda: main_loop(20), smi)
-    print(json.dumps({"sphere_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+    print(json.dumps({"sphere_F": f_profile(solver, state, solver.sim_time, path='sphere'),
+                      "card": smi}))
 
 
 BALL_KG_CASES = (
@@ -2810,7 +3328,8 @@ def ball_path(steps=BALL['steps']):
               ('KE trailing', opolar, 'trailing_apply'), ('KF', kf, 'spin_recombine'),
               ('KG', arith, 'grid_product')]
     breakdown('ball', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
-    print(json.dumps({"ball_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+    print(json.dumps({"ball_F": f_profile(solver, state, solver.sim_time, path='ball'),
+                      "card": smi}))
 
 
 SHELL_KG_CASES = (
@@ -3084,7 +3603,8 @@ def shell_path(steps=SHELL['steps']):
               ('KF', kf, 'spin_recombine'), ('KG', arith, 'grid_product'),
               ('KG cross', arith, 'grid_cross')]
     breakdown('shell', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
-    print(json.dumps({"shell_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+    print(json.dumps({"shell_F": f_profile(solver, state, solver.sim_time, path='shell'),
+                      "card": smi}))
 
 
 BALL_IHC_KG_CASES = (
@@ -3363,7 +3883,8 @@ def ball_ihc_path(steps=BALL_IHC['steps']):
               ('KF', kf, 'spin_recombine'), ('KG', arith, 'grid_product'),
               ('KG cross', arith, 'grid_cross')]
     breakdown('ball_ihc', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
-    print(json.dumps({"ball_ihc_F": f_profile(solver, state, solver.sim_time), "card": smi}))
+    print(json.dumps({"ball_ihc_F": f_profile(solver, state, solver.sim_time, path='ball_ihc'),
+                      "card": smi}))
 
 
 def separable_cost(V, st, out):
@@ -3567,19 +4088,21 @@ def matsolvers_card_vs_cpu(steps=10):
 
 def check_k14_dense(fact, R, A):
     """K14a (lu) or K14b (mixed) against its twin on the loop's last solve,
-    with both residuals against A."""
+    with both residuals against A. K14a on a complex stack records as
+    'lu_solve_c128' (a complex multiply-add is 8 operations)."""
     from dedalus_tpu_torch.ops import solve as osolve
     G, P = R.shape
+    ops = 4 if R.is_complex() else 1
     resid = lambda X: float(torch.linalg.norm(torch.matmul(A, X[..., None])[..., 0] - R)
                             / torch.linalg.norm(R))
     if fact.method == 'lu':
-        name = 'lu_solve'
+        name = 'lu_solve_c128' if R.is_complex() else 'lu_solve'
         kernel = lambda: osolve.lu_solve(fact.lu, fact.perm, R)
         plain = lambda: osolve.lu_solve_plain(fact.lu, fact.perm, R)
         LU, piv = torch.linalg.lu_factor(A)
         library = lambda: torch.linalg.lu_solve(LU, piv, R[..., None])
         Xk = kernel()
-        b = bound(nbytes(fact.lu, fact.perm, R, Xk), 2 * G * P * P)
+        b = bound(nbytes(fact.lu, fact.perm, R, Xk), ops * 2 * G * P * P)
     else:
         name = 'mixed_solve'
         kernel = lambda: osolve.mixed_solve(fact.Ainv, fact.A, R)
@@ -4142,6 +4665,86 @@ def banded_lbvp_path():
     if not out[DEVICE][1] <= 1e-10:
         raise AssertionError(f"banded LBVP: boundary error {out[DEVICE][1]:.3e}")
 
+def step_stacks(solver):
+    """What K15's launches outside F read on a dense path, from its solver:
+    G, P, the bytes of a (G, P) vector and of a (G, P, P) stack, the
+    refinement passes of the solve, the multiply-add's operations over
+    float64's (4 complex), and the scheme's stages (RK) or history depth."""
+    pencil, ts = solver.pencil, solver.timestepper
+    if solver.matsolver not in ('inverse', 'inverse_refined'):
+        raise ValueError(f"K15's bound takes the inverse solves, not {solver.matsolver}")
+    L = pencil.matrices['L']
+    G, P = pencil.G, pencil.R
+    return dict(G=G, P=P, vec=G * P * L.element_size(), stack=L.nbytes,
+                passes=1 if solver.matsolver == 'inverse_refined' else 0,
+                ops=4 if L.is_complex() else 1, parts=2 if L.is_complex() else 1,
+                stages=getattr(ts, 'stages', None), depth=ts.steps)
+
+
+def step_bounds(sh, counts, steps, suffix):
+    """K15's bounds per step outside F on one path (ms), from step_stacks:
+    KA reads Ainv (and A when it refines), R and writes X; KB's first launch
+    of a step applies the M/L pair (two stacks, X, two products), the rest
+    one stack; KC at stage i reads MX0, i F and i LX slots and the row mask
+    and writes the RHS (its launches spread evenly over the stages); K7 at depth s reads 3 s slots and the mask and
+    writes one. KC and K7 count per float64 part (a complex slot is two)."""
+    G, P, vec, stack, ops = sh['G'], sh['P'], sh['vec'], sh['stack'], sh['ops']
+    mask, n_el = G * P * 8, G * P * sh['parts']
+    per_step = lambda name: counts.get(name, 0) / steps
+    out = {}
+    n = per_step('dense_refined_solve' + suffix)
+    if n:
+        out['dense_refined_solve' + suffix] = n * bound(
+            (1 + sh['passes']) * stack + 2 * vec,
+            ops * (2 + 4 * sh['passes']) * G * P * P)[0]
+    n = per_step('dense_matvec' + suffix)
+    if n:
+        out['dense_matvec' + suffix] = (bound(2 * stack + 3 * vec, ops * 4 * G * P * P)[0]
+                                        + (n - 1) * bound(stack + 2 * vec,
+                                                          ops * 2 * G * P * P)[0])
+    n = per_step('rk_stage_combine')
+    if n:
+        S = sh['stages']
+        out['rk_stage_combine'] = n / S * sum(
+            bound((2 + 2 * i) * vec + mask, (4 * i + 1) * n_el)[0] for i in range(1, S + 1))
+    n = per_step('history_combine')
+    if n:
+        d = sh['depth']
+        out['history_combine'] = n * bound((3 * d + 1) * vec + mask, (6 * d + 1) * n_el)[0]
+    return out
+
+
+def k15_bounds():
+    """K15's bound per dense path (ms per step): the bounds of the step's
+    launches outside F at the path's own stacks (step_bounds); KD's and
+    K3's at the path's own shapes, where the path checked them; plus F's
+    evaluations a step (one per three K3 launches: a stage gathers the
+    state, gathers F's data and scatters) times K2's bound per evaluation
+    (f_profile)."""
+    out = {}
+    for path, k2 in K2_BOUND.items():
+        counts, steps = LAUNCHES.get(path), STEPS.get(path)
+        if not counts or not steps:
+            continue
+        suffix = '_c128' if path.startswith('rbc256c') else ''
+        parts = step_bounds(STEP_STACKS[path], counts, steps, suffix)
+        for name in ('cfl_max' + suffix, 'pencil_gather_scatter' + suffix):
+            n = counts.get(name, 0) / steps
+            if not n:
+                continue
+            own = RESULTS[name].get('by_path', {}).get(path)
+            if own is None:
+                raise AssertionError(f"K15 on {path}: {name} was not checked at its shapes")
+            n_f = n / 3 if name.startswith('pencil') else n
+            parts[name] = n_f * own['bound_ms']
+        n_f = counts.get('pencil_gather_scatter' + suffix, 0) / steps / 3
+        parts['F (K2)'] = n_f * k2
+        out[path] = dict(bound_ms=sum(parts.values()), parts=parts, F_per_step=n_f)
+        print(f"K15 on {path}: bound {out[path]['bound_ms']:.4f} ms/step = " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items()))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device")
@@ -4175,6 +4778,8 @@ def main():
     matsolvers_card_vs_cpu()
     example_path()
     matsolver_loops_path()
+    complex_card_vs_cpu()
+    complex_rbc_path()
     shear_flow_path()
     polar_card_vs_cpu()
     annulus_path()
@@ -4208,6 +4813,7 @@ def main():
             **{k: v for k, v in r.items() if k in extra}))
         if not by_path:
             raise AssertionError(f"kernel {name} was launched by no main path")
+    print(json.dumps({"k15_bounds": k15_bounds()}))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

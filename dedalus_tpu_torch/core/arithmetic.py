@@ -190,15 +190,14 @@ class Multiply(Future):
                 operands.append(a)
         if not 1 <= len(operands) <= 2:
             raise ValueError("Multiply takes one or two non-numeric operands")
-        if isinstance(self.scalar, complex):
-            raise NotImplementedError(
-                "complex scalars are not ported yet (ROADMAP M2)")
         super().__init__(*operands)
 
     def _init_metadata(self):
         ops = self._operands
         self.tensorsig = sum((op.tensorsig for op in ops), ())
         self.dtype = np.result_type(*[op.dtype for op in ops])
+        if isinstance(self.scalar, complex):
+            self.dtype = np.result_type(np.complex128, self.dtype)
         self.domain = merge_domains(self.dist, *[op.domain for op in ops])
 
     def new_operands(self, *operands):
@@ -354,7 +353,9 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
                     axis_mats.append(op_basis.ncc_matrix(ncc_basis, out_basis, c_i,
                                                          cutoff=1e-10))
         if not coeffs_consumed:
-            scalar = float(coeffs[i].ravel()[0])
+            # Fully constant NCC: the component value scales the block
+            scalar = (complex(coeffs[i].ravel()[0]) if np.iscomplexobj(coeffs)
+                      else float(coeffs[i].ravel()[0]))
         mat = axis_mats[0]
         for m in axis_mats[1:]:
             mat = sparse.kron(mat, m)
@@ -614,11 +615,11 @@ def _axis_coeffs(comp_coeffs, axis, spatial_shape):
 
 def _constant_embedding(basis):
     """Column embedding a constant value into basis coefficients."""
-    from .basis import Jacobi
+    from .basis import Jacobi, ComplexFourier
     from ..spectral import jacobi as jacobi_lib
     if hasattr(basis, 'constant_column'):
         return basis.constant_column(0)
-    col = np.zeros((basis.size, 1))
+    col = np.zeros((basis.size, 1), dtype=complex if isinstance(basis, ComplexFourier) else float)
     if isinstance(basis, Jacobi):
         col[0, 0] = float(np.sqrt(jacobi_lib.mass(basis.a, basis.b)))
     else:

@@ -1,13 +1,15 @@
 """
-Spectral bases: the Jacobi family on an interval and the real Fourier basis,
-each bundling grids, dense transform matrices and sparse operator matrices.
+Spectral bases: the Jacobi family on an interval and the real and complex
+Fourier bases, each bundling grids, dense transform matrices and sparse
+operator matrices.
 
 Mirrors dedalus_tpu/core/basis.py. All matrices are built on the host
 exactly as in the JAX package; transforms apply them on the field's device
 (MMT), or take the fast paths of ops/fft.py where `[transforms]
 fourier_library` / `jacobi_library` ask for them, as the JAX package
-dispatches (`_fast_enabled`). ComplexFourier needs complex fields (ROADMAP
-M2c).
+dispatches (`_fast_enabled`). ComplexFourier requires complex fields; the
+fast Jacobi transforms of complex data send the real and imaginary parts
+through the same kernel launches as one batch of twice the lines.
 """
 
 import numpy as np
@@ -36,15 +38,17 @@ def _fast_enabled(library_key, size):
         return True
     return size >= FAST_THRESHOLD
 
-# Device copies of host matrices, keyed by (id(host matrix), device); the
-# host matrix is kept alive beside its copy so the id stays unique.
+# Device copies of host matrices, keyed by (id(host matrix), device, dtype);
+# the host matrix is kept alive beside its copy so the id stays unique.
 _DEVICE_CACHE = {}
 
 
-def device_copy(np_matrix, device):
-    key = (id(np_matrix), str(device))
+def device_copy(np_matrix, device, dtype=None):
+    """The copy of a host matrix on `device`, cast to the torch `dtype`
+    where given (a real operator matrix applied to complex data)."""
+    key = (id(np_matrix), str(device), dtype)
     if key not in _DEVICE_CACHE:
-        _DEVICE_CACHE[key] = (np_matrix, torch.as_tensor(np_matrix, device=device))
+        _DEVICE_CACHE[key] = (np_matrix, torch.as_tensor(np_matrix, device=device, dtype=dtype))
     return _DEVICE_CACHE[key][1]
 
 
@@ -267,7 +271,8 @@ class Jacobi(Basis):
     def _fast_forward(self, data, axis, N):
         """Grid -> coeff: reverse, DCT-II, orthonormal-T scaling, resize to
         M, conversion (kernels K11a, K10, K11a, K11b)."""
-        _require_real(data)
+        if data.is_complex():
+            return _by_parts(self._fast_forward, data, axis, N)
         M = self.size
         scale = device_copy(self._fast_scales(N)[0], data.device)
         v = fft.dct2_pre(data, axis, flip=True)
@@ -280,7 +285,8 @@ class Jacobi(Basis):
         """Coeff -> grid: inverse conversion on the first min(M, N)
         coefficients, scaling, DCT-III, reverse (kernels K11b, K11a, K10,
         K11a)."""
-        _require_real(data)
+        if data.is_complex():
+            return _by_parts(self._fast_backward, data, axis, N)
         P = min(self.size, N)
         scale = device_copy(self._fast_scales(N)[1], data.device)
         if self._fast_da:
@@ -383,10 +389,20 @@ def Legendre(coord, size, bounds, dealias=1, dtype=np.float64):
     return Jacobi(coord, size, bounds, a=0, b=0, dealias=dealias, dtype=dtype)
 
 
+def _by_parts(transform, data, axis, N):
+    """A real transform of complex data: the real and imaginary parts as a
+    trailing axis of two (torch.view_as_real), so each kernel of the real
+    transform runs once on twice the lines (the JAX package transforms the
+    parts one after the other, dedalus_tpu/core/basis.py:303-341)."""
+    axis = axis % data.dim()
+    out = transform(torch.view_as_real(data.contiguous()), axis, N)
+    return torch.view_as_complex(out.contiguous())
+
+
 def _require_real(data):
     if data.is_complex():
-        raise NotImplementedError("fast transforms of complex fields are not ported yet "
-                                  "(ROADMAP M2c)")
+        raise ValueError("RealFourier transforms take real data; complex data needs "
+                         "ComplexFourier")
 
 
 class FourierBase(Basis):
@@ -538,3 +554,119 @@ class RealFourier(FourierBase):
 
     def __hash__(self):
         return hash(self._key())
+
+
+class ComplexFourier(FourierBase):
+    """
+    Complex exponential basis: unit-amplitude modes exp(i k theta), with the
+    coefficients ordered k = 0, 1, ..., KM, (KM + 1 for even sizes: the
+    zeroed Nyquist slot), -KM, ..., -1 (dedalus_tpu/core/basis.py:480-560).
+    Group shape (1,): one signed wavenumber per group. Requires complex
+    fields.
+    """
+
+    @property
+    def wavenumbers_native(self):
+        M = self.size
+        KM = (M - 1) // 2
+        return (np.arange(M) + KM) % M - KM
+
+    @property
+    def wavenumbers(self):
+        return self.wavenumbers_native * self.COV.stretch
+
+    @property
+    def group_shape(self):
+        return (1,)
+
+    @CachedMethod
+    def forward_matrix(self, scale, dtype):
+        N = self.grid_size(scale)
+        Kmax = self.Kmax_for(N)
+        K = self.wavenumbers_native[:, None]
+        X = 2 * np.pi * np.arange(N)[None, :] / N
+        mat = np.exp(-1j * K * X) / N
+        mat *= (np.abs(K) <= Kmax)
+        return np.ascontiguousarray(mat.astype(dtype))
+
+    @CachedMethod
+    def backward_matrix(self, scale, dtype):
+        N = self.grid_size(scale)
+        Kmax = self.Kmax_for(N)
+        K = self.wavenumbers_native[None, :]
+        X = 2 * np.pi * np.arange(N)[:, None] / N
+        mat = np.exp(1j * K * X)
+        mat *= (np.abs(K) <= Kmax)
+        return np.ascontiguousarray(mat.astype(dtype))
+
+    def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if _fast_enabled('fourier_library', max(N, self.size)):
+            return ops_transforms.complex_fft_forward(data, axis, self.size, self.Kmax_for(N))
+        return super().forward_transform(data, axis, scale, dtype, tensorsig)
+
+    def backward_transform(self, data, axis, scale, dtype, tensorsig=()):
+        N = self.grid_size(scale)
+        if _fast_enabled('fourier_library', max(N, self.size)):
+            return ops_transforms.complex_fft_backward(data, axis, N, self.Kmax_for(N))
+        return super().backward_transform(data, axis, scale, dtype, tensorsig)
+
+    def valid_coeff_mask(self, tensorsig=()):
+        # For even sizes the wrap-around slot KM + 1 is the zeroed Nyquist mode
+        mask = np.ones(self.size, dtype=bool)
+        if self.size % 2 == 0:
+            mask[(self.size - 1) // 2 + 1] = False
+        return mask
+
+    def group_valid_mask(self, group, tensorsig=()):
+        KM = (self.size - 1) // 2
+        return np.array([not (self.size % 2 == 0 and group == KM + 1)])
+
+    # --- operator matrices ---
+
+    @CachedMethod
+    def differentiation_matrix(self):
+        return sparse.diags(1j * self.wavenumbers, format='csr')
+
+    @CachedMethod
+    def interpolation_vector(self, position):
+        theta = self.COV.native_coord(position)
+        E = np.exp(1j * self.wavenumbers_native * theta)
+        return sparse.csr_matrix(E[None, :])
+
+    @CachedMethod
+    def integration_vector(self):
+        I = np.zeros(self.size, dtype=complex)
+        I[0] = self.length
+        return sparse.csr_matrix(I[None, :])
+
+    def ncc_matrix(self, ncc_basis, out_basis, coeffs, cutoff=1e-6):
+        raise NotImplementedError(
+            "NCCs varying along a Fourier axis are not ported yet (ROADMAP M3)")
+
+    def __repr__(self):
+        return f"ComplexFourier({self.coord.name}, size={self.size})"
+
+    def _key(self):
+        return ('ComplexFourier', self.coord.name, self.size, self.bounds, self.dealias)
+
+    def __eq__(self, other):
+        if isinstance(other, ComplexFourier):
+            return self._key() == other._key()
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self._key())
+
+
+def Fourier(*args, dtype=None, **kw):
+    """RealFourier for float64, ComplexFourier for complex128
+    (dedalus_tpu/core/basis.py:603)."""
+    if dtype is None:
+        raise ValueError("dtype must be specified")
+    dtype = np.dtype(dtype)
+    if dtype == np.float64:
+        return RealFourier(*args, **kw)
+    if dtype == np.complex128:
+        return ComplexFourier(*args, **kw)
+    raise ValueError(f"Unrecognized dtype: {dtype}")

@@ -101,9 +101,10 @@ class Distributor:
 _TORCH_DTYPES = {
     np.dtype(np.float64): torch.float64,
     np.dtype(np.float32): torch.float32,
+    np.dtype(np.complex128): torch.complex128,
 }
 
 
 def torch_dtype(dtype):
-    """numpy float dtype -> torch dtype."""
+    """numpy float or complex dtype -> torch dtype."""
     return _TORCH_DTYPES[np.dtype(dtype)]

@@ -103,10 +103,12 @@ class Field(Operand):
         self.name = name
         self.tensorsig = tuple(tensorsig) if tensorsig else ()
         self.dtype = np.dtype(dtype) if dtype is not None else dist.dtype
-        if not np.issubdtype(self.dtype, np.floating):
-            raise NotImplementedError(
-                "complex fields are not ported yet (ROADMAP M2)")
         self.domain = Domain(dist, bases)
+        # Complex bases require complex dtype
+        from .basis import ComplexFourier
+        if (any(isinstance(b, ComplexFourier) for b in self.domain.bases)
+                and not np.issubdtype(self.dtype, np.complexfloating)):
+            raise ValueError("ComplexFourier basis requires complex dtype")
         self.scales = tuple(1.0 for _ in range(dist.dim))
         self.layout = dist.coeff_layout
 

@@ -21,10 +21,9 @@ def as_operand(x, dist=None, dtype=None):
     if isinstance(x, numbers.Number):
         if dist is None:
             raise ValueError("Cannot cast number without a distributor")
-        if isinstance(x, complex):
-            raise NotImplementedError(
-                "complex constants are not ported yet (ROADMAP M2)")
-        out = Field(dist, dtype=dtype if dtype is not None else dist.dtype)
+        if dtype is None:
+            dtype = np.complex128 if isinstance(x, complex) else dist.dtype
+        out = Field(dist, dtype=dtype)
         out['g'] = x
         return out
     raise ValueError(f"Cannot cast {x!r} to an operand")

@@ -47,8 +47,8 @@ def host_matrix(key, host_matrix_builder):
     return _HOST_MATRIX_CACHE[key]
 
 
-def device_matrix(key, host_matrix_builder, device):
-    return device_copy(host_matrix(key, host_matrix_builder), device)
+def device_matrix(key, host_matrix_builder, device, dtype=None):
+    return device_copy(host_matrix(key, host_matrix_builder), device, dtype)
 
 
 class LinearOperator(Future):
@@ -156,8 +156,15 @@ class SpectralOperator1D(LinearOperator):
         field = arg_fields[0]
         field.require_coeff_space()
         data_axis = len(self.tensorsig) + self.axis
-        mat = device_matrix(self._matrix_key(), self.full_matrix, field.data.device)
-        data = ops_transforms.apply_matrix(mat, field.data, data_axis)
+        data = field.data
+        mat = device_matrix(self._matrix_key(), self.full_matrix, data.device)
+        if mat.dtype != data.dtype:
+            # A real matrix on complex data, as the JAX package's promotion
+            # (dedalus_tpu/core/operators.py:166): the copy in the common type
+            dt = torch.promote_types(mat.dtype, data.dtype)
+            mat = device_matrix(self._matrix_key(), self.full_matrix, data.device, dt)
+            data = data.to(dt)
+        data = ops_transforms.apply_matrix(mat, data, data_axis)
         return self._build_output(self.dist.coeff_layout, data, scales=field.scales)
 
     def _matrix_key(self):

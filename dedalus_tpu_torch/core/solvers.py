@@ -23,7 +23,7 @@ import torch
 
 from . import subsystems
 from . import timesteppers as timesteppers_module
-from .distributor import Layout
+from .distributor import Layout, torch_dtype
 from ..ops.solve import FactorizedStack, MATSOLVERS
 from ..utils.config import config
 
@@ -126,7 +126,7 @@ class SolverBase:
                 shape = (tuple(cs.dim for cs in eq['tensorsig'])
                          + tuple(b.coeff_size if b is not None else 1
                                  for b in eq['domain'].bases))
-                datas.append(torch.zeros(shape, dtype=torch.float64,
+                datas.append(torch.zeros(shape, dtype=torch_dtype(self.pencil.dtype),
                                          device=self.dist.device))
                 continue
             out = expr.evaluate()
@@ -347,7 +347,10 @@ class InitialValueSolver(SolverBase):
         if isinstance(timestepper, str):
             timestepper = timesteppers_module.schemes[timestepper]
         self.timestepper = timestepper(self)
-        self.enforce_real_cadence = enforce_real_cadence
+        # The grid round trip that projects out redundant real-dtype modes
+        # (none in complex data)
+        real = not np.issubdtype(self.dtype, np.complexfloating)
+        self.enforce_real_cadence = enforce_real_cadence if real else None
         self._sim_time = 0.0
         self.iteration = self.initial_iteration = 0
         self.stop_sim_time = np.inf

@@ -1108,6 +1108,10 @@ def _plan_gather(plan, flat):
 # K3: the pencil gather and scatter (hand-written CUDA kernels + plain twins)
 # ---------------------------------------------------------------------------
 
+# The element types of K3's f64 and c128 instantiations
+_K3_DTYPES = (torch.float64, torch.complex128)
+
+
 class GatherMap:
     """
     One gather from flat source arrays (the state, or each equation's RHS
@@ -1210,7 +1214,7 @@ def pencil_gather_plain(gmap, srcs):
     cols = [_plan_gather(plan, flat) if plan is not None else flat[idx]
             for flat, plan, idx in zip(srcs, gmap.plans, gmap.maps)]
     if gmap.active is not None:
-        Y = torch.zeros((gmap.G, gmap.C), dtype=torch.float64, device=srcs[0].device)
+        Y = torch.zeros((gmap.G, gmap.C), dtype=srcs[0].dtype, device=srcs[0].device)
         for e, (col, r0) in enumerate(zip(cols, gmap.row_offsets)):
             Y[:, r0:r0 + col.shape[1]] += col * gmap.active[e, :, None]
         return Y * gmap.valid
@@ -1220,38 +1224,44 @@ def pencil_gather_plain(gmap, srcs):
 
 def pencil_gather(gmap, srcs):
     """
-    K3 gather: flat float64 sources -> (G, C) pencils, masked by validity.
+    K3 gather: flat float64 or complex128 sources -> (G, C) pencils, masked
+    by validity.
 
     Replaces dedalus_tpu/core/subsystems.py _plan_gather, gather_state and
     gather_eq_data, its conditioned branch included. CPU tensors run the
     plain twin; CUDA tensors launch csrc/pencil_kernels.cu
-    k3_pencil_gather_f64, one launch for all sources.
+    k3_pencil_gather_f64 (or _c128), one launch for all sources; counted per
+    form (build.count).
     """
     if srcs[0].device.type == 'cpu':
         return pencil_gather_plain(gmap, srcs)
     import ctypes
     from ..csrc import build
     dev = gmap.valid.device
+    dt = srcs[0].dtype
     if len(srcs) != len(gmap.maps):
         raise ValueError(f"K3 gather: {len(gmap.maps)} sources expected")
+    if dt not in _K3_DTYPES:
+        raise TypeError(f"K3 gather: float64 or complex128 sources, got {dt}")
     for flat, size in zip(srcs, gmap.src_sizes):
-        if (flat.device != dev or flat.dtype != torch.float64 or flat.dim() != 1
+        if (flat.device != dev or flat.dtype != dt or flat.dim() != 1
                 or not flat.is_contiguous() or flat.numel() < size):
-            raise ValueError(f"K3 gather: sources must be contiguous 1-D float64 on {dev}, "
+            raise ValueError(f"K3 gather: sources must be contiguous 1-D {dt} on {dev}, "
                              f"of sizes {gmap.src_sizes}")
-    out = torch.empty((gmap.G, gmap.C), dtype=torch.float64, device=dev)
+    out = torch.empty((gmap.G, gmap.C), dtype=dt, device=dev)
     ptrs = (ctypes.c_void_p * len(srcs))(*[f.data_ptr() for f in srcs])
     p = lambda t: 0 if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(build.library().k3_pencil_gather_f64(
+    build.check(build.launcher('k3_pencil_gather', dt)(
         ctypes.addressof(ptrs), len(srcs), p(gmap.col_src), p(gmap.gsrc), p(gmap.i0),
         p(gmap.stride), p(gmap.idx), gmap.valid_u8.data_ptr(), out.data_ptr(),
         gmap.G, gmap.C, stream), 'pencil_gather')
-    pencil_gather.launches += 1
+    build.count(pencil_gather, dt)
     return out
 
 
 pencil_gather.launches = 0
+pencil_gather.launches_c128 = 0
 
 
 def pencil_scatter_plain(smap, X):
@@ -1268,26 +1278,27 @@ def pencil_scatter(smap, X):
 
     Replaces dedalus_tpu/core/subsystems.py _plan_scatter and scatter_state.
     CPU tensors run the plain twin; CUDA tensors launch
-    csrc/pencil_kernels.cu k3_pencil_scatter_f64.
+    csrc/pencil_kernels.cu k3_pencil_scatter_f64 (or _c128); counted per form (build.count).
     """
     if X.device.type == 'cpu':
         return pencil_scatter_plain(smap, X)
     from ..csrc import build
     dev = smap.idx.device
-    if (X.device != dev or X.dtype != torch.float64 or X.numel() != smap.idx.numel()
+    if (X.device != dev or X.dtype not in _K3_DTYPES or X.numel() != smap.idx.numel()
             or not X.is_contiguous()):
-        raise ValueError(f"K3 scatter: X must be contiguous float64 with "
+        raise ValueError(f"K3 scatter: X must be contiguous float64 or complex128 with "
                          f"{smap.idx.numel()} entries on {dev}")
-    out = torch.empty(smap.total, dtype=torch.float64, device=dev)
+    out = torch.empty(smap.total, dtype=X.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(build.library().k3_pencil_scatter_f64(
+    build.check(build.launcher('k3_pencil_scatter', X.dtype)(
         X.data_ptr(), smap.offsets.data_ptr(), smap.entries.data_ptr(), out.data_ptr(),
         smap.total, stream), 'pencil_scatter')
-    pencil_scatter.launches += 1
+    build.count(pencil_scatter, X.dtype)
     return out
 
 
 pencil_scatter.launches = 0
+pencil_scatter.launches_c128 = 0
 
 
 def banded_order(pencil):

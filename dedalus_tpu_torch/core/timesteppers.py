@@ -42,6 +42,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .distributor import torch_dtype
 from ..ops import banded as ops_banded
 from ..ops import solve as ops_solve
 from ..csrc.history_combine import history_combine
@@ -90,7 +91,8 @@ class MultistepIMEX:
         self._outer_uses = {}
         G, R = self.pencil.G, self.pencil.R
         dev = solver.dist.device
-        zero = lambda: torch.zeros((G, R), dtype=torch.float64, device=dev)
+        dt = torch_dtype(self.pencil.dtype)
+        zero = lambda: torch.zeros((G, R), dtype=dt, device=dev)
         # s-slot history rings: slot self._head holds the newest entry,
         # the slots after it (cyclically) the older ones
         self.MX = [zero() for _ in range(self.steps)]
@@ -257,8 +259,10 @@ class MultistepIMEX:
     def _leave_dense_path(self):
         """A dense matsolver whose stacks were not built (too large for
         [memory] max_dense_stack_gb) switches to banded where the pencil has
-        a banded plan, else to poly."""
+        a banded plan, else to poly. Complex pencils stay on the dense path:
+        past the limit they raise."""
         solver = self.solver
+        _require_dense_if_complex(self.pencil)
         if (self.pencil.matrices.get('M') is None
                 and solver.matsolver not in ('banded', 'poly')):
             if self.pencil.slot_split is not None:
@@ -672,6 +676,19 @@ def _pad(x, n):
     return out
 
 
+def _require_dense_if_complex(pencil):
+    """Complex pencils are solved on their dense stacks only: neither the
+    banded nor the poly matsolver has a complex form (nor has the JAX
+    package's, which fails on them, dedalus_tpu/ops/solve.py:588)."""
+    if np.issubdtype(pencil.dtype, np.complexfloating) and pencil.matrices.get('M') is None:
+        G, P = pencil.G, pencil.R
+        gb = G * P * P * pencil.dtype.itemsize / 2**30
+        limit = config.getfloat('memory', 'max_dense_stack_gb')
+        raise ValueError(
+            f"complex pencil stacks (G={G}, P={P}: {gb:.3g} GB each) exceed [memory] "
+            f"max_dense_stack_gb = {limit:g}; complex problems need the dense matsolvers")
+
+
 class RungeKuttaIMEX:
     """
     DIRK + ERK IMEX Runge-Kutta schemes on the dense matsolvers.
@@ -694,6 +711,7 @@ class RungeKuttaIMEX:
     def _get_stage_factor(self, kHii):
         key = float(kHii)
         if key not in self._stage_factors:
+            _require_dense_if_complex(self.pencil)
             method = self.solver.matsolver
             if method not in ops_solve.DENSE_METHODS:
                 raise ValueError(f"Unknown matsolver: {method}")

@@ -40,9 +40,12 @@ SIGNATURES = {
     },
     'dense_kernels': {
         'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
+        'ka_dense_refined_solve_c128': [_P] * 4 + [_I] * 3 + [_P],
         'kb_dense_matvec_f64': [_P] * 5 + [_I] * 4 + [_P],
+        'kb_dense_matvec_c128': [_P] * 5 + [_I] * 4 + [_P],
         'kb_dense_matvec_f32': [_P] * 3 + [_I] * 3 + [_P],
         'k14a_lu_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
+        'k14a_lu_solve_c128': [_P] * 4 + [_I] * 2 + [_P],
         'k14b_mixed_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
     },
     'separable_kernels': {
@@ -69,6 +72,8 @@ SIGNATURES = {
         'k11_dct3_post_f64': [_P] * 2 + [_I] * 4 + [_P],
         'k12_fourier_pack_f64': [_P] * 4 + [_I] * 6 + [_D] * 2 + [_P],
         'k12_fourier_unpack_f64': [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I, _P],
+        'k12_fourier_select_c128': [_P] * 2 + [_I] * 5 + [_P],
+        'k12_fourier_scatter_c128': [_P] * 2 + [_I] * 5 + [_P],
     },
     'conversion_kernels': {
         'k11_conversion_apply_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
@@ -76,7 +81,9 @@ SIGNATURES = {
     },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
+        'k3_pencil_gather_c128': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
         'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],
+        'k3_pencil_scatter_c128': [_P] * 4 + [_I, _P],
     },
 }
 
@@ -144,6 +151,28 @@ def library():
     build_seconds = time.perf_counter() - t0
     _library = types.SimpleNamespace(**fns)
     return _library
+
+
+# The name suffix of a kernel's instantiation for each element type (torch
+# dtype names: this module imports no torch)
+SUFFIX = {'torch.float64': 'f64', 'torch.complex128': 'c128'}
+
+
+def launcher(name, dtype):
+    """The launcher `name`_f64 or `name`_c128 for tensors of `dtype`."""
+    return getattr(library(), f"{name}_{SUFFIX[str(dtype)]}")
+
+
+def counter(dtype):
+    """The attribute that counts a wrapper's launches on `dtype`: the
+    complex128 form's in `launches_c128`, every other form's in `launches`."""
+    return 'launches_c128' if str(dtype) == 'torch.complex128' else 'launches'
+
+
+def count(wrapper, dtype):
+    """Add one launch of `wrapper`'s kernel on `dtype` to its count."""
+    attr = counter(dtype)
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def check(status, name):

@@ -14,6 +14,13 @@
 // it is given, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 //
+// KA, KB and K14a are templates over the element type: one instantiation in
+// float64 and one in complex128 (double2, torch's interleaved (re, im)),
+// the same one-block-per-group designs with the complex multiply-add in
+// f64 (four FMAs an entry). The complex stacks of a ComplexFourier pencil
+// (RBC 256x64 in complex128: G = 256, P = 263, 283 MB per stack) are read
+// with one 16-byte load an entry, so no row needs the odd-width peel.
+//
 // Both are batched f64 matrix-vector products over (G, P, P) stacks: each
 // matrix entry is used once per product, so they are bound by device-memory
 // bandwidth (RBC 256x64: G=128, P=525, 282 MB per stack). The design reads
@@ -28,6 +35,42 @@
 #include <stdint.h>
 
 namespace {
+
+// Element arithmetic of the templated kernels: plain f64 operators for
+// double, the complex product in FMAs for double2.
+__device__ __forceinline__ double zero_of(double) { return 0.0; }
+__device__ __forceinline__ double2 zero_of(double2) { return make_double2(0.0, 0.0); }
+__device__ __forceinline__ double add(double a, double b) { return a + b; }
+__device__ __forceinline__ double2 add(double2 a, double2 b) {
+    return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double sub(double a, double b) { return a - b; }
+__device__ __forceinline__ double2 sub(double2 a, double2 b) {
+    return make_double2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double mul(double a, double b) { return a * b; }
+__device__ __forceinline__ double2 mul(double2 a, double2 b) {
+    return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+// acc + a b
+__device__ __forceinline__ double2 cfma(double2 a, double2 b, double2 acc) {
+    acc.x = fma(a.x, b.x, acc.x);
+    acc.x = fma(-a.y, b.y, acc.x);
+    acc.y = fma(a.x, b.y, acc.y);
+    acc.y = fma(a.y, b.x, acc.y);
+    return acc;
+}
+__device__ __forceinline__ double div(double a, double b) { return a / b; }
+__device__ __forceinline__ double2 div(double2 a, double2 b) {
+    const double d = fma(b.x, b.x, b.y * b.y);
+    return make_double2(fma(a.x, b.x, a.y * b.y) / d, fma(a.y, b.x, -a.x * b.y) / d);
+}
+__device__ __forceinline__ double shfl(double v, int k) {
+    return __shfl_sync(0xffffffffu, v, k);
+}
+__device__ __forceinline__ double2 shfl(double2 v, int k) {
+    return make_double2(__shfl_sync(0xffffffffu, v.x, k), __shfl_sync(0xffffffffu, v.y, k));
+}
 
 __device__ __forceinline__ double warp_row_dot(const double* __restrict__ row,
                                                const double* __restrict__ x,
@@ -51,6 +94,22 @@ __device__ __forceinline__ double warp_row_dot(const double* __restrict__ row,
     return acc;
 }
 
+// The complex row: one 16-byte entry a lane, the partial sums met in
+// shuffles of both parts.
+__device__ __forceinline__ double2 warp_row_dot(const double2* __restrict__ row,
+                                                const double2* __restrict__ x,
+                                                int n, int lane) {
+    double2 acc = make_double2(0.0, 0.0);
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) acc = cfma(__ldg(row + k), x[k], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+    }
+    return acc;
+}
+
 // ---------------------------------------------------------------------------
 // KA: X[g] = Ainv[g] R[g], then PASSES refinement passes
 //     X[g] += Ainv[g] (R[g] - A[g] X[g]).
@@ -65,58 +124,65 @@ __device__ __forceinline__ double warp_row_dot(const double* __restrict__ row,
 
 constexpr int KA_THREADS = 1024;
 
-template <int PASSES>
+template <typename T, int PASSES>
 __global__ void __launch_bounds__(KA_THREADS)
-dense_refined_solve_kernel(const double* __restrict__ Ainv, const double* __restrict__ A,
-                           const double* __restrict__ R, double* __restrict__ X, int P) {
-    extern __shared__ double smem[];
-    double* rs = smem;          // R[g]
-    double* xs = smem + P;      // the solution
-    double* res = smem + 2 * P; // the residual
+dense_refined_solve_kernel(const T* __restrict__ Ainv, const T* __restrict__ A,
+                           const T* __restrict__ R, T* __restrict__ X, int P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* rs = reinterpret_cast<T*>(smem_raw);  // R[g]
+    T* xs = rs + P;                          // the solution
+    T* res = rs + 2 * P;                     // the residual
     const int g = blockIdx.x;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
     const size_t moff = (size_t)g * P * P;
-    const double* Ai = Ainv + moff;
+    const T* Ai = Ainv + moff;
     for (int i = threadIdx.x; i < P; i += blockDim.x) rs[i] = R[(size_t)g * P + i];
     __syncthreads();
     for (int i = warp; i < P; i += nwarps) {
-        const double v = warp_row_dot(Ai + (size_t)i * P, rs, P, lane);
+        const T v = warp_row_dot(Ai + (size_t)i * P, rs, P, lane);
         if (lane == 0) xs[i] = v;
     }
 #pragma unroll
     for (int p = 0; p < PASSES; ++p) {
         __syncthreads();
-        const double* Ag = A + moff;
+        const T* Ag = A + moff;
         for (int i = warp; i < P; i += nwarps) {
-            const double v = warp_row_dot(Ag + (size_t)i * P, xs, P, lane);
-            if (lane == 0) res[i] = rs[i] - v;
+            const T v = warp_row_dot(Ag + (size_t)i * P, xs, P, lane);
+            if (lane == 0) res[i] = sub(rs[i], v);
         }
         __syncthreads();
         // Row i of the correction reads only the residual and updates only
         // xs[i], so it can run in place
         for (int i = warp; i < P; i += nwarps) {
-            const double v = warp_row_dot(Ai + (size_t)i * P, res, P, lane);
-            if (lane == 0) xs[i] = xs[i] + v;
+            const T v = warp_row_dot(Ai + (size_t)i * P, res, P, lane);
+            if (lane == 0) xs[i] = add(xs[i], v);
         }
     }
     __syncthreads();
     for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = xs[i];
 }
 
-template <int PASSES>
-int launch_ka(const double* Ainv, const double* A, const double* R, double* X,
-              int G, int P, cudaStream_t stream) {
-    const size_t smem = (size_t)3 * P * sizeof(double);
+template <typename T, int PASSES>
+int launch_ka(const T* Ainv, const T* A, const T* R, T* X, int G, int P, cudaStream_t stream) {
+    const size_t smem = (size_t)3 * P * sizeof(T);
     if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(dense_refined_solve_kernel<PASSES>,
+        cudaError_t err = cudaFuncSetAttribute(dense_refined_solve_kernel<T, PASSES>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    dense_refined_solve_kernel<PASSES><<<G, KA_THREADS, smem, stream>>>(Ainv, A, R, X, P);
+    dense_refined_solve_kernel<T, PASSES><<<G, KA_THREADS, smem, stream>>>(Ainv, A, R, X, P);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_ka(const T* Ainv, const T* A, const T* R, T* X, int G, int P, int passes,
+                cudaStream_t stream) {
+    if (passes == 0) return launch_ka<T, 0>(Ainv, A, R, X, G, P, stream);
+    if (passes == 1) return launch_ka<T, 1>(Ainv, A, R, X, G, P, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -129,14 +195,16 @@ int launch_ka(const double* Ainv, const double* A, const double* R, double* X,
 constexpr int KB_THREADS = 256;
 constexpr int KB_ROWS = 64;   // rows per block: 8 per warp
 
+template <typename T>
 __global__ void __launch_bounds__(KB_THREADS)
-dense_matvec_kernel(const double* __restrict__ A0, const double* __restrict__ A1,
-                    const double* __restrict__ X, double* __restrict__ Y0,
-                    double* __restrict__ Y1, int R, int C) {
-    extern __shared__ double xs[];
+dense_matvec_kernel(const T* __restrict__ A0, const T* __restrict__ A1,
+                    const T* __restrict__ X, T* __restrict__ Y0, T* __restrict__ Y1, int R,
+                    int C) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* xs = reinterpret_cast<T*>(smem_raw);
     const int g = blockIdx.x;
-    const double* A = blockIdx.y ? A1 : A0;
-    double* Y = blockIdx.y ? Y1 : Y0;
+    const T* A = blockIdx.y ? A1 : A0;
+    T* Y = blockIdx.y ? Y1 : Y0;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
@@ -144,11 +212,27 @@ dense_matvec_kernel(const double* __restrict__ A0, const double* __restrict__ A1
     __syncthreads();
     const int r0 = blockIdx.z * KB_ROWS;
     const int r1 = min(R, r0 + KB_ROWS);
-    const double* Ag = A + (size_t)g * R * C;
+    const T* Ag = A + (size_t)g * R * C;
     for (int i = r0 + warp; i < r1; i += nwarps) {
-        const double v = warp_row_dot(Ag + (size_t)i * C, xs, C, lane);
+        const T v = warp_row_dot(Ag + (size_t)i * C, xs, C, lane);
         if (lane == 0) Y[(size_t)g * R + i] = v;
     }
+}
+
+template <typename T>
+int launch_kb(const T* A0, const T* A1, const T* X, T* Y0, T* Y1, int G, int R, int C,
+              int nstack, cudaStream_t stream) {
+    if (nstack != 1 && nstack != 2) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)C * sizeof(T);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(dense_matvec_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 grid(G, nstack, (R + KB_ROWS - 1) / KB_ROWS);
+    dense_matvec_kernel<T><<<grid, KB_THREADS, smem, stream>>>(A0, A1, X, Y0, Y1, R, C);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -156,26 +240,25 @@ dense_matvec_kernel(const double* __restrict__ A0, const double* __restrict__ A1
 extern "C" int ka_dense_refined_solve_f64(const double* Ainv, const double* A,
                                           const double* R, double* X, int G, int P,
                                           int passes, void* stream) {
-    if (passes == 0) return launch_ka<0>(Ainv, A, R, X, G, P, (cudaStream_t)stream);
-    if (passes == 1) return launch_ka<1>(Ainv, A, R, X, G, P, (cudaStream_t)stream);
-    return (int)cudaErrorInvalidValue;
+    return dispatch_ka(Ainv, A, R, X, G, P, passes, (cudaStream_t)stream);
+}
+
+extern "C" int ka_dense_refined_solve_c128(const void* Ainv, const void* A, const void* R,
+                                           void* X, int G, int P, int passes, void* stream) {
+    return dispatch_ka((const double2*)Ainv, (const double2*)A, (const double2*)R,
+                       (double2*)X, G, P, passes, (cudaStream_t)stream);
 }
 
 extern "C" int kb_dense_matvec_f64(const double* A0, const double* A1, const double* X,
                                    double* Y0, double* Y1, int G, int R, int C,
                                    int nstack, void* stream) {
-    if (nstack != 1 && nstack != 2) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)C * sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(dense_matvec_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    dim3 grid(G, nstack, (R + KB_ROWS - 1) / KB_ROWS);
-    dense_matvec_kernel<<<grid, KB_THREADS, smem, (cudaStream_t)stream>>>(A0, A1, X, Y0, Y1,
-                                                                        R, C);
-    return (int)cudaGetLastError();
+    return launch_kb(A0, A1, X, Y0, Y1, G, R, C, nstack, (cudaStream_t)stream);
+}
+
+extern "C" int kb_dense_matvec_c128(const void* A0, const void* A1, const void* X, void* Y0,
+                                    void* Y1, int G, int R, int C, int nstack, void* stream) {
+    return launch_kb((const double2*)A0, (const double2*)A1, (const double2*)X, (double2*)Y0,
+                     (double2*)Y1, G, R, C, nstack, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -246,15 +329,18 @@ namespace {
 
 constexpr int LU_THREADS = 512;
 
+template <typename T>
 __global__ void __launch_bounds__(LU_THREADS)
-lu_solve_kernel(const double* __restrict__ LU, const int* __restrict__ perm,
-                const double* __restrict__ R, double* __restrict__ X, int P) {
-    extern __shared__ double ys[];
+lu_solve_kernel(const T* __restrict__ LU, const int* __restrict__ perm,
+                const T* __restrict__ R, T* __restrict__ X, int P) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* ys = reinterpret_cast<T*>(smem_raw);
     const int g = blockIdx.x;
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     const int nwarps = blockDim.x >> 5;
-    const double* M = LU + (size_t)g * P * P;
+    const T* M = LU + (size_t)g * P * P;
+    const T zero = zero_of(T());
     for (int i = threadIdx.x; i < P; i += blockDim.x)
         ys[i] = R[(size_t)g * P + perm[(size_t)g * P + i]];
     __syncthreads();
@@ -263,17 +349,17 @@ lu_solve_kernel(const double* __restrict__ LU, const int* __restrict__ perm,
         const int i1 = min(i0 + 32, P);
         if (i0 > 0) {
             for (int i = i0 + warp; i < i1; i += nwarps) {
-                const double s = warp_row_dot(M + (size_t)i * P, ys, i0, lane);
-                if (lane == 0) ys[i] -= s;
+                const T s = warp_row_dot(M + (size_t)i * P, ys, i0, lane);
+                if (lane == 0) ys[i] = sub(ys[i], s);
             }
             __syncthreads();
         }
         if (warp == 0) {
             const int i = i0 + lane;
-            double yi = i < i1 ? ys[i] : 0.0;
+            T yi = i < i1 ? ys[i] : zero;
             for (int k = 0; k < i1 - i0 - 1; ++k) {
-                const double yk = __shfl_sync(0xffffffffu, yi, k);
-                if (lane > k && i < i1) yi -= M[(size_t)i * P + i0 + k] * yk;
+                const T yk = shfl(yi, k);
+                if (lane > k && i < i1) yi = sub(yi, mul(M[(size_t)i * P + i0 + k], yk));
             }
             if (i < i1) ys[i] = yi;
         }
@@ -284,24 +370,38 @@ lu_solve_kernel(const double* __restrict__ LU, const int* __restrict__ perm,
         const int i0 = max(i1 - 32, 0);
         if (i1 < P) {
             for (int i = i0 + warp; i < i1; i += nwarps) {
-                const double s = warp_row_dot(M + (size_t)i * P + i1, ys + i1, P - i1, lane);
-                if (lane == 0) ys[i] -= s;
+                const T s = warp_row_dot(M + (size_t)i * P + i1, ys + i1, P - i1, lane);
+                if (lane == 0) ys[i] = sub(ys[i], s);
             }
             __syncthreads();
         }
         if (warp == 0) {
             const int i = i0 + lane;
-            double yi = i < i1 ? ys[i] : 0.0;
+            T yi = i < i1 ? ys[i] : zero;
             for (int k = i1 - i0 - 1; k >= 0; --k) {
-                if (lane == k) yi = yi / M[(size_t)i * P + i];
-                const double xk = __shfl_sync(0xffffffffu, yi, k);
-                if (lane < k) yi -= M[(size_t)i * P + i0 + k] * xk;
+                if (lane == k) yi = div(yi, M[(size_t)i * P + i]);
+                const T xk = shfl(yi, k);
+                if (lane < k) yi = sub(yi, mul(M[(size_t)i * P + i0 + k], xk));
             }
             if (i < i1) ys[i] = yi;
         }
         __syncthreads();
     }
     for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = ys[i];
+}
+
+template <typename T>
+int launch_lu(const T* LU, const int* perm, const T* R, T* X, int G, int P,
+              cudaStream_t stream) {
+    const size_t smem = (size_t)P * sizeof(T);
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(lu_solve_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    lu_solve_kernel<T><<<G, LU_THREADS, smem, stream>>>(LU, perm, R, X, P);
+    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -373,15 +473,13 @@ mixed_solve_kernel(const float* __restrict__ Ainv, const double* __restrict__ A,
 
 extern "C" int k14a_lu_solve_f64(const double* LU, const int* perm, const double* R,
                                  double* X, int G, int P, void* stream) {
-    const size_t smem = (size_t)P * sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(lu_solve_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    lu_solve_kernel<<<G, LU_THREADS, smem, (cudaStream_t)stream>>>(LU, perm, R, X, P);
-    return (int)cudaGetLastError();
+    return launch_lu(LU, perm, R, X, G, P, (cudaStream_t)stream);
+}
+
+extern "C" int k14a_lu_solve_c128(const void* LU, const int* perm, const void* R, void* X,
+                                  int G, int P, void* stream) {
+    return launch_lu((const double2*)LU, perm, (const double2*)R, (double2*)X, G, P,
+                     (cudaStream_t)stream);
 }
 
 extern "C" int k14b_mixed_solve_f64(const float* Ainv, const double* A, const double* R,

@@ -42,7 +42,10 @@
 // K11a and K12 are elementwise passes with an index remap: one thread per
 // output point in a grid-stride loop, each output written once, each input
 // read once or twice (DCT-III pre reads x[k] and x[N - k]; K12's even/odd
-// unpack reads Z[k] and Z[N/2 - k]); bound by bytes.
+// unpack reads Z[k] and Z[N/2 - k]); bound by bytes. K12's complex form is
+// a gather both ways: the select reads the M retained points of each
+// length-N line, the scatter writes all N points of each line (zero where
+// no coefficient lands), so neither needs a zeroing pass or atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -245,6 +248,47 @@ __global__ void fourier_unpack_kernel(const double* __restrict__ c, double2* __r
     }
 }
 
+// K12 complex, forward: out[m] = Z[k >= 0 ? k : N + k] for the ordered
+// wavenumber k of slot m when |k| <= Kmax, else 0 (the index is clipped
+// into the line first, as the reference's jnp.clip; its mask zeroes it).
+__global__ void fourier_select_kernel(const double2* __restrict__ Z, double2* __restrict__ out,
+                                      i64 total, int N, int M, int inner, int Kmax) {
+    const int KM = (M - 1) / 2;
+    GRID_STRIDE(t, total) {
+        const i64 i = t % inner, r = t / inner;
+        const int m = (int)(r % M);
+        const i64 o = r / M;
+        const int k = (m + KM) % M - KM;
+        double2 v = make_double2(0.0, 0.0);
+        if (k <= Kmax && -k <= Kmax) {
+            int src = k >= 0 ? k : N + k;
+            src = src < 0 ? 0 : (src > N - 1 ? N - 1 : src);
+            v = __ldg(Z + (o * N + src) * inner + i);
+        }
+        out[t] = v;
+    }
+}
+
+// K12 complex, backward: full[n] = c[k mod M] with k = n (n <= N/2) or
+// n - N, where |k| <= min(Kmax, KM); 0 elsewhere.
+__global__ void fourier_scatter_kernel(const double2* __restrict__ c, double2* __restrict__ full,
+                                       i64 total, int M, int N, int inner, int Kmax) {
+    const int KM = (M - 1) / 2;
+    const int kmax = Kmax < KM ? Kmax : KM;
+    GRID_STRIDE(t, total) {
+        const i64 i = t % inner, r = t / inner;
+        const int n = (int)(r % N);
+        const i64 o = r / N;
+        const int k = n <= N / 2 ? n : n - N;
+        double2 v = make_double2(0.0, 0.0);
+        if (k <= kmax && -k <= kmax) {
+            const int m = k >= 0 ? k : M + k;
+            v = __ldg(c + (o * M + m) * inner + i);
+        }
+        full[t] = v;
+    }
+}
+
 }  // namespace
 
 extern "C" int k10_dft_c128(const double* x, int load, const void* W1, const void* twT,
@@ -333,5 +377,23 @@ extern "C" int k12_fourier_unpack_f64(const double* c, void* full, int outer, in
     const i64 total = (i64)outer * N * inner;
     fourier_unpack_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
         c, (double2*)full, total, L, N, inner, Kmax, s0, s, keep_b0);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int k12_fourier_select_c128(const void* Z, void* out, int outer, int N, int M,
+                                       int inner, int Kmax, void* stream) {
+    if (outer < 1 || N < 1 || M < 1 || inner < 1) return (int)cudaErrorInvalidValue;
+    const i64 total = (i64)outer * M * inner;
+    fourier_select_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
+        (const double2*)Z, (double2*)out, total, N, M, inner, Kmax);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int k12_fourier_scatter_c128(const void* c, void* full, int outer, int M, int N,
+                                        int inner, int Kmax, void* stream) {
+    if (outer < 1 || N < 1 || M < 1 || inner < 1) return (int)cudaErrorInvalidValue;
+    const i64 total = (i64)outer * N * inner;
+    fourier_scatter_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
+        (const double2*)c, (double2*)full, total, M, N, inner, Kmax);
     return (int)cudaGetLastError();
 }

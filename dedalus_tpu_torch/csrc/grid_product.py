@@ -30,8 +30,14 @@ replaces the jnp.cross of CrossProduct.operate (:1069-1112): the same
 streaming pass, each point's six inputs loaded once and three outputs
 written.
 
-One compiled kernel per (A, B, C) serves every layout: the grid sizes, the
-ten strides and alpha travel as data, in one small int64 tensor on the
+Complex operands (the grid data of a ComplexFourier problem) take the
+kernel's constexpr CPLX variant: the tensors are read as float64 views of
+their interleaved (re, im) pairs (strides in doubles, the imaginary part
+one double past the real), each term is a complex multiply-add in f64 and
+alpha may be complex; the same single pass, twice the bytes.
+
+One compiled kernel per (A, B, C, CPLX) serves every layout: the grid
+sizes, the ten strides and alpha travel as data, in one small int64 tensor on the
 data's device that is built once for each distinct (sizes, strides, alpha)
 and cached, rather than as scalar arguments, which Triton would specialise
 on (a stride of 1, a multiple of 16) and compile anew when a layout
@@ -56,11 +62,13 @@ def _build_kernel():
 
     @triton.jit
     def kernel(a, b, out, desc, n_pos,
-               A: tl.constexpr, B: tl.constexpr, C: tl.constexpr, BLOCK: tl.constexpr):
+               A: tl.constexpr, B: tl.constexpr, C: tl.constexpr, CPLX: tl.constexpr,
+               BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n_pos
-        # desc: n1, n2, a's strides (A, C, grid 0..2), b's (C, B, grid 0..2), alpha's bits
+        # desc: n1, n2, a's strides (A, C, grid 0..2), b's (C, B, grid 0..2),
+        # the bits of alpha's real and imaginary parts
         n1 = tl.load(desc)
         n2 = tl.load(desc + 1)
         a_sA = tl.load(desc + 2)
@@ -81,13 +89,34 @@ def _build_kernel():
         i0 = t // n1
         pa = a + i0 * a_s0 + i1 * a_s1 + i2 * a_s2
         pb = b + i0 * b_s0 + i1 * b_s1 + i2 * b_s2
-        for iA in tl.static_range(A):
-            for iB in tl.static_range(B):
-                acc = tl.load(pa + iA * a_sA, mask=mask) * tl.load(pb + iB * b_sB, mask=mask)
-                for c in tl.static_range(1, C):
-                    acc += tl.load(pa + iA * a_sA + c * a_sC, mask=mask) \
-                        * tl.load(pb + c * b_sC + iB * b_sB, mask=mask)
-                tl.store(out + (iA * B + iB) * n_pos + offs, scale * acc, mask=mask)
+        if CPLX:
+            scale_i = tl.load(desc + 13).to(tl.float64, bitcast=True)
+            for iA in tl.static_range(A):
+                for iB in tl.static_range(B):
+                    xr = tl.load(pa + iA * a_sA, mask=mask)
+                    xi = tl.load(pa + iA * a_sA + 1, mask=mask)
+                    yr = tl.load(pb + iB * b_sB, mask=mask)
+                    yi = tl.load(pb + iB * b_sB + 1, mask=mask)
+                    acc_r = xr * yr - xi * yi
+                    acc_i = xr * yi + xi * yr
+                    for c in tl.static_range(1, C):
+                        xr = tl.load(pa + iA * a_sA + c * a_sC, mask=mask)
+                        xi = tl.load(pa + iA * a_sA + c * a_sC + 1, mask=mask)
+                        yr = tl.load(pb + c * b_sC + iB * b_sB, mask=mask)
+                        yi = tl.load(pb + c * b_sC + iB * b_sB + 1, mask=mask)
+                        acc_r += xr * yr - xi * yi
+                        acc_i += xr * yi + xi * yr
+                    po = out + 2 * ((iA * B + iB) * n_pos + offs)
+                    tl.store(po, scale * acc_r - scale_i * acc_i, mask=mask)
+                    tl.store(po + 1, scale * acc_i + scale_i * acc_r, mask=mask)
+        else:
+            for iA in tl.static_range(A):
+                for iB in tl.static_range(B):
+                    acc = tl.load(pa + iA * a_sA, mask=mask) * tl.load(pb + iB * b_sB, mask=mask)
+                    for c in tl.static_range(1, C):
+                        acc += tl.load(pa + iA * a_sA + c * a_sC, mask=mask) \
+                            * tl.load(pb + c * b_sC + iB * b_sB, mask=mask)
+                    tl.store(out + (iA * B + iB) * n_pos + offs, scale * acc, mask=mask)
 
     return kernel
 
@@ -133,31 +162,42 @@ def _build_cross_kernel():
 
 
 def _descriptor(a3, b3, alpha, grid):
-    """The cached int64 device tensor of a launch's sizes, strides and
-    alpha; the stride of a size-1 axis is 0."""
-    sa = tuple(0 if n == 1 else s for n, s in zip(a3.shape, a3.stride()))
-    sb = tuple(0 if n == 1 else s for n, s in zip(b3.shape, b3.stride()))
+    """The cached int64 device tensor of a launch's sizes, strides (in
+    doubles: twice the element strides of complex operands) and alpha's
+    real and imaginary parts; the stride of a size-1 axis is 0."""
+    w = 2 if a3.is_complex() else 1
+    sa = tuple(0 if n == 1 else w * s for n, s in zip(a3.shape, a3.stride()))
+    sb = tuple(0 if n == 1 else w * s for n, s in zip(b3.shape, b3.stride()))
+    alpha = complex(alpha)
     key = (grid[1], grid[2], sa, sb, alpha, a3.device)
     desc = _descriptors.get(key)
     if desc is None:
-        bits = int(np.array(alpha, dtype=np.float64).view(np.int64))
-        desc = _descriptors[key] = torch.tensor([grid[1], grid[2], *sa, *sb, bits],
+        bits = [int(np.array(v, dtype=np.float64).view(np.int64))
+                for v in (alpha.real, alpha.imag)]
+        desc = _descriptors[key] = torch.tensor([grid[1], grid[2], *sa, *sb, *bits],
                                                 dtype=torch.int64, device=a3.device)
     return desc
 
 
+def _doubles(t):
+    """The float64 storage a kernel reads: the (re, im) view of complex data."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
 def launch(a3, b3, out, alpha, grid):
-    """Launch KG on a3 (A, C, *grid_a) and b3 (C, B, *grid_b), float64 CUDA
-    tensors of any strides whose grid axes have the output's size or 1, into
-    the contiguous out (A, B, *grid); alpha is a Python float. `grid` is the
-    output grid shape padded to three axes."""
+    """Launch KG on a3 (A, C, *grid_a) and b3 (C, B, *grid_b), CUDA tensors
+    of one dtype (float64, or complex128 for the CPLX variant) and any
+    strides whose grid axes have the output's size or 1, into the contiguous
+    out (A, B, *grid); alpha is a Python number (complex only with complex
+    operands). `grid` is the output grid shape padded to three axes."""
     global _kernel
     if _kernel is None:
         _kernel = _build_kernel()
     n_pos = grid[0] * grid[1] * grid[2]
     _kernel[(-(-n_pos // BLOCK),)](
-        a3, b3, out, _descriptor(a3, b3, float(alpha), grid), n_pos,
-        A=a3.shape[0], B=b3.shape[1], C=a3.shape[1], BLOCK=BLOCK, num_warps=4)
+        _doubles(a3), _doubles(b3), _doubles(out), _descriptor(a3, b3, alpha, grid), n_pos,
+        A=a3.shape[0], B=b3.shape[1], C=a3.shape[1], CPLX=a3.is_complex(), BLOCK=BLOCK,
+        num_warps=4)
 
 
 def launch_cross(a3, b3, out, alpha, grid):

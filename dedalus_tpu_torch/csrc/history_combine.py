@@ -20,6 +20,12 @@ Triton kernel as float32. The slot pointers are padded to four and the
 depth is a constexpr, so each depth compiles its own variant of one
 kernel. `triton` is imported inside the launching function, so machines
 without it (the CPU test runs) only ever take the plain twin.
+
+Complex (G, R) slots (ComplexFourier pencils) need no kernel of their own:
+the coefficients are real, so the combine acts on the real and imaginary
+parts alike, and the slots go into the same kernel as float64 (G, R, 2)
+views (torch.view_as_real). The constexpr PARTS (1, or 2 for such views)
+makes the kernel read the row mask at flat index // PARTS.
 """
 
 import torch
@@ -27,6 +33,23 @@ import torch
 BLOCK = 1024
 MAX_DEPTH = 4
 _kernel = None
+
+
+def real_views(arrays):
+    """Complex arrays as float64 views with a trailing (re, im) axis, and
+    the parts per entry (2); real arrays pass through (1)."""
+    if not arrays[0].is_complex():
+        return arrays, 1
+    return [torch.view_as_real(t) for t in arrays], 2
+
+
+def check_mask(rv, like, parts, name):
+    """Raise unless rv is a contiguous float64 row mask on like's device
+    with one entry per `parts` entries of like."""
+    if (rv.device != like.device or rv.dtype != torch.float64 or not rv.is_contiguous()
+            or rv.numel() * parts != like.numel()):
+        raise ValueError(f"{name}: rv must be a contiguous float64 mask with one entry "
+                         f"per coefficient, on the arrays' device")
 
 
 def history_combine_plain(F, MX, LX, rv, coef):
@@ -48,7 +71,7 @@ def _build_kernel():
 
     @triton.jit
     def kernel(F0, F1, F2, F3, M0, M1, M2, M3, L0, L1, L2, L3, rv, coef, out, n,
-               S: tl.constexpr, BLOCK: tl.constexpr):
+               S: tl.constexpr, PARTS: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n
@@ -67,7 +90,7 @@ def _build_kernel():
             csum = csum + tl.load(coef + 2 * S + 3) * tl.load(F3 + offs, mask=mask)
             asum = asum + tl.load(coef + 3) * tl.load(M3 + offs, mask=mask)
             bsum = bsum + tl.load(coef + S + 3) * tl.load(L3 + offs, mask=mask)
-        v = tl.load(rv + offs, mask=mask)
+        v = tl.load(rv + offs // PARTS, mask=mask)
         tl.store(out + offs, ((csum - asum) - bsum) * v, mask=mask)
 
     return kernel
@@ -75,9 +98,9 @@ def _build_kernel():
 
 def history_combine(F, MX, LX, rv, coef):
     """K7 wrapper: CPU tensors take the plain twin; CUDA tensors launch the
-    Triton kernel. F, MX and LX are sequences of s (G, R) float64 slots,
-    newest first, with 1 <= s <= 4; rv is (G, R) float64 and coef (3 s,)
-    float64, all on one device."""
+    Triton kernel. F, MX and LX are sequences of s (G, R) float64 or
+    complex128 slots, newest first, with 1 <= s <= 4; rv is (G, R) float64
+    and coef (3 s,) float64, all on one device."""
     s = len(F)
     if not 1 <= s <= MAX_DEPTH or len(MX) != s or len(LX) != s:
         raise ValueError(f"history_combine: 1 to {MAX_DEPTH} slots of F, MX and LX")
@@ -86,12 +109,14 @@ def history_combine(F, MX, LX, rv, coef):
     if F[0].device.type == 'cpu':
         return history_combine_plain(F, MX, LX, rv, coef)
     global _kernel
-    arrays = (*F, *MX, *LX, rv)
-    for t in arrays:
+    slots, parts = real_views([*F, *MX, *LX])
+    F, MX, LX = slots[:s], slots[s:2 * s], slots[2 * s:]
+    for t in slots:
         if (t.device != F[0].device or t.dtype != torch.float64
                 or t.shape != F[0].shape or not t.is_contiguous()):
             raise ValueError("history_combine: arrays must be contiguous float64 "
                              "tensors of one shape on one device")
+    check_mask(rv, F[0], parts, 'history_combine')
     if coef.device != F[0].device or coef.dtype != torch.float64:
         raise ValueError("history_combine: coef must be float64 on the device")
     if _kernel is None:
@@ -100,9 +125,9 @@ def history_combine(F, MX, LX, rv, coef):
     out = torch.empty_like(F[0])
     n = out.numel()
     _kernel[(-(-n // BLOCK),)](*pad(F), *pad(MX), *pad(LX), rv, coef, out, n,
-                               S=s, BLOCK=BLOCK, num_warps=4)
+                               S=s, PARTS=parts, BLOCK=BLOCK, num_warps=4)
     history_combine.launches += 1
-    return out
+    return torch.view_as_complex(out) if parts == 2 else out
 
 
 history_combine.launches = 0

@@ -16,6 +16,15 @@ from ..core.future import Future
 from ..csrc.cfl_max import cfl_max
 
 
+def _require_real(data, what):
+    """min and max have no meaning on complex data: the JAX package's
+    float(jnp.max(...)) raises TypeError there
+    (dedalus_tpu/extras/flow_tools.py:39), and so does this one."""
+    if data.is_complex():
+        raise TypeError(f"global {what} of complex data: take a modulus or a real part "
+                        f"in the property")
+
+
 class GlobalArrayReducer:
     """Global reductions over (serial) device data; only the scalar is
     transferred."""
@@ -27,9 +36,11 @@ class GlobalArrayReducer:
         return float(value)
 
     def global_min(self, data, empty=np.inf):
+        _require_real(data, 'min')
         return float(torch.min(data)) if data.numel() else empty
 
     def global_max(self, data, empty=-np.inf):
+        _require_real(data, 'max')
         return float(torch.max(data)) if data.numel() else empty
 
     def global_mean(self, data):

@@ -1,8 +1,9 @@
 """
 Fast spectral transforms in complex128: the four-step DFT (K10), the DCT-II
 and DCT-III wrapping (K11a), the ultraspherical conversion and its inverse
-(K11b) and the real-Fourier pack and unpack (K12), each a kernel wrapper
-with its plain torch twin beside it.
+(K11b), the real-Fourier pack and unpack (K12) and the complex-Fourier
+select and scatter (K12's complex form), each a kernel wrapper with its
+plain torch twin beside it.
 
 The counterpart of dedalus_tpu/ops/fft64.py and of the fast paths of
 dedalus_tpu/ops/transforms.py. The JAX package carries complex values as
@@ -19,7 +20,7 @@ Every wrapper works along one axis of a contiguous tensor read as
 (outer, L, inner), with L the axis length: the kernels take the axis where
 it lies, so no transform copies its data to move the axis last. A CPU
 tensor takes the plain twin; a CUDA tensor launches the kernel
-(csrc/fft_kernels.cu: K10, K11a, K12; csrc/conversion_kernels.cu: K11b) or
+(csrc/fft_kernels.cu: K10, K11a, K12 in both forms; csrc/conversion_kernels.cu: K11b) or
 raises. Each wrapper counts its launches in `.launches`.
 
 The composite transforms below (`fft`, `ifft`, `rfft`, `irfft`, `dct2`,
@@ -32,7 +33,8 @@ import numpy as np
 import torch
 
 __all__ = ['good_factors', 'dft', 'dft_plain', 'dct2_pre', 'dct2_post', 'dct3_pre',
-           'dct3_post', 'fourier_pack', 'fourier_unpack', 'ConversionBand',
+           'dct3_post', 'fourier_pack', 'fourier_unpack', 'fourier_select',
+           'fourier_scatter', 'ConversionBand',
            'conversion_apply', 'conversion_solve', 'fft', 'ifft', 'rfft', 'irfft',
            'dct2', 'dct3']
 
@@ -479,6 +481,99 @@ def fourier_unpack(c, axis, N, Kmax, s0, s, keep_b0=False):
 
 fourier_unpack.launches = 0
 
+
+
+# ---------------------------------------------------------------------------
+# K12, complex form: the select and scatter of ordered complex coefficients
+# ---------------------------------------------------------------------------
+
+def _ordered_wavenumbers(M):
+    """The signed wavenumber of each of M ordered coefficients."""
+    KM = (M - 1) // 2
+    return (np.arange(M) + KM) % M - KM
+
+
+def _select_index(M, N, Kmax, device):
+    """(source index in the length-N spectrum, validity) of each ordered
+    coefficient: k >= 0 at k, k < 0 at N + k, clipped into the line and
+    masked where |k| > Kmax (as jnp.clip and `valid` in the reference)."""
+    def build():
+        k = _ordered_wavenumbers(M)
+        idx = np.clip(np.where(k >= 0, k, N + k), 0, N - 1)
+        return idx, np.abs(k) <= Kmax
+    return _on(('select', M, N, int(Kmax)), device, build)
+
+
+def _scatter_index(M, N, Kmax, device):
+    """(source coefficient, validity) of each point of the length-N
+    spectrum: n <= Kmax takes k = n, n >= N - Kmax takes k = n - N (the
+    coefficient at k mod M); the rest is zero."""
+    def build():
+        n = np.arange(N)
+        k = np.where(n <= N // 2, n, n - N)
+        valid = np.abs(k) <= min(Kmax, (M - 1) // 2)
+        return np.where(valid, k % M, 0), valid
+    return _on(('scatter', M, N, int(Kmax)), device, build)
+
+
+def fourier_select_plain(Z, axis, M, Kmax):
+    axis = axis % Z.ndim
+    idx, valid = _select_index(M, Z.shape[axis], Kmax, Z.device)
+    return torch.index_select(Z, axis, idx) * _vec(valid, Z.ndim, axis)
+
+
+def fourier_select(Z, axis, M, Kmax):
+    """
+    K12, complex forward: the M ordered coefficients (k = 0..KM, -KM..-1)
+    of complex128 length-N spectra Z along `axis`: out[m] = Z[k] (k >= 0)
+    or Z[N + k] (k < 0) for |k| <= Kmax, zero otherwise (the even-size
+    slot KM + 1 and, when M > N, every mode past the grid's).
+    """
+    if Z.device.type == 'cpu':
+        return fourier_select_plain(Z, axis, M, Kmax)
+    from ..csrc import build
+    Z = Z.contiguous()
+    axis, outer, N, inner = _lines(Z.shape, axis)
+    _check_cuda('fourier_select', Z, torch.complex128)
+    out = torch.empty(_with_axis(Z.shape, axis, M), dtype=torch.complex128, device=Z.device)
+    build.check(build.library().k12_fourier_select_c128(
+        Z.data_ptr(), out.data_ptr(), outer, N, M, inner, int(min(Kmax, 2**30)), _stream(Z)),
+        'fourier_select')
+    fourier_select.launches += 1
+    return out
+
+
+fourier_select.launches = 0
+
+
+def fourier_scatter_plain(c, axis, N, Kmax):
+    axis = axis % c.ndim
+    idx, valid = _scatter_index(c.shape[axis], N, Kmax, c.device)
+    return torch.index_select(c, axis, idx) * _vec(valid, c.ndim, axis)
+
+
+def fourier_scatter(c, axis, N, Kmax):
+    """
+    K12, complex backward: the length-N spectra of M ordered complex128
+    coefficients c along `axis`: point n takes the coefficient of k = n
+    (n <= N//2) or k = n - N, for |k| <= Kmax and |k| <= (M-1)//2, zero
+    elsewhere; K10's input for the inverse.
+    """
+    if c.device.type == 'cpu':
+        return fourier_scatter_plain(c, axis, N, Kmax)
+    from ..csrc import build
+    c = c.contiguous()
+    axis, outer, M, inner = _lines(c.shape, axis)
+    _check_cuda('fourier_scatter', c, torch.complex128)
+    full = torch.empty(_with_axis(c.shape, axis, N), dtype=torch.complex128, device=c.device)
+    build.check(build.library().k12_fourier_scatter_c128(
+        c.data_ptr(), full.data_ptr(), outer, M, N, inner, int(min(Kmax, 2**30)), _stream(c)),
+        'fourier_scatter')
+    fourier_scatter.launches += 1
+    return full
+
+
+fourier_scatter.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,16 @@ and its cross form for the CrossProduct node (:1069-1112),
     out[i, x] = s * (a[j, x] * b[k, x] - a[k, x] * b[j, x]),  (i, j, k) cyclic,
 
 with s = -1 on a left-handed frame such as the spherical (phi, theta, r).
+The product takes complex128 operands too (its Triton kernel's complex
+variant), for the right-hand sides of ComplexFourier problems.
 CPU tensors run the plain twin, which is the reference's
 broadcast-multiply(-and-sum); CUDA tensors launch the Triton kernel of
 csrc/grid_product.py, one launch per product node, or raise.
 """
 
 import torch
+
+from ..csrc import build
 
 MAX_GRID_DIMS = 3
 
@@ -44,21 +48,27 @@ def grid_product_plain(a, b, na, nb, contract, alpha=1.0):
 
 def grid_product(a, b, na, nb, contract, alpha=1.0):
     """
-    KG wrapper. a and b are float64 grid data of one device with na and nb
-    leading tensor axes and the same number of grid axes (at most three),
-    each grid axis of the output's size or of size 1. Returns the contiguous
-    (ta[:-1] + tb[1:] if contract else ta + tb) + grid tensor.
+    KG wrapper. a and b are float64 or complex128 grid data of one device
+    with na and nb leading tensor axes and the same number of grid axes (at
+    most three), each grid axis of the output's size or of size 1 (a real
+    operand beside a complex one is promoted). Returns the contiguous
+    (ta[:-1] + tb[1:] if contract else ta + tb) + grid tensor. Launches
+    count per form (build.count).
     """
     if a.device.type == 'cpu':
         return grid_product_plain(a, b, na, nb, contract, alpha)
     from ..csrc import grid_product as kg
     ga, gb = tuple(a.shape[na:]), tuple(b.shape[nb:])
-    if (a.dtype != torch.float64 or b.dtype != torch.float64 or b.device != a.device
+    dt = torch.complex128 if (a.is_complex() or b.is_complex()
+                              or isinstance(alpha, complex)) else torch.float64
+    if (a.dtype not in (torch.float64, torch.complex128)
+            or b.dtype not in (torch.float64, torch.complex128) or b.device != a.device
             or len(ga) != len(gb) or len(ga) > MAX_GRID_DIMS
             or any(x != y and 1 not in (x, y) for x, y in zip(ga, gb))):
-        raise ValueError(f"KG: operands must be float64 on one device with broadcastable "
-                         f"grids of at most {MAX_GRID_DIMS} axes, got {tuple(a.shape)} "
-                         f"{a.dtype} and {tuple(b.shape)} {b.dtype}")
+        raise ValueError(f"KG: operands must be float64 or complex128 on one device with "
+                         f"broadcastable grids of at most {MAX_GRID_DIMS} axes, got "
+                         f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}")
+    a, b = a.to(dt), b.to(dt)
     ta, tb = tuple(a.shape[:na]), tuple(b.shape[:nb])
     if contract:
         if not (na and nb and ta[-1] == tb[0]):
@@ -67,18 +77,20 @@ def grid_product(a, b, na, nb, contract, alpha=1.0):
     else:
         C = 1
     grid = tuple(max(x, y) for x, y in zip(ga, gb))
-    out = torch.empty(ta + tb + grid, dtype=torch.float64, device=a.device)
-    if max(a.numel(), b.numel(), out.numel()) >= 2**31:
-        raise ValueError("KG: operands of 2^31 elements or more are not supported")
+    out = torch.empty(ta + tb + grid, dtype=dt, device=a.device)
+    # (the kernel indexes doubles: a complex element is two)
+    if (2 if out.is_complex() else 1) * max(a.numel(), b.numel(), out.numel()) >= 2**31:
+        raise ValueError("KG: operands of 2^31 doubles or more are not supported")
     A, B = _prod(ta), _prod(tb)
     pad = (1,) * (MAX_GRID_DIMS - len(grid))
     kg.launch(a.reshape((A, C) + pad + ga), b.reshape((C, B) + pad + gb), out, alpha,
               pad + grid)
-    grid_product.launches += 1
+    build.count(grid_product, dt)
     return out
 
 
 grid_product.launches = 0
+grid_product.launches_c128 = 0
 
 
 def grid_cross_plain(a, b, sign=1.0):

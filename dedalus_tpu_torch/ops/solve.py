@@ -11,6 +11,7 @@ Mirrors dedalus_tpu/ops/solve.py for its seven matsolvers:
     refinement pass against the pivoted stack A. The M and L applies of the
     step are kernel KB (same source);
   * 'lu': LU factors with row pivots, solved by kernel K14a (same source);
+    KA, KB and K14a also take complex128 stacks (ComplexFourier pencils);
   * 'mixed': the inverse in f32 and A in f64, solved by kernel K14b (f32
     inverse applies, two f64 refinement passes; same source);
   * 'matrix_free': the f32 inverse (KB's f32 form); the multistep step
@@ -36,6 +37,12 @@ from ..utils.config import config
 
 DENSE_METHODS = ('lu', 'inverse', 'inverse_refined', 'mixed', 'matrix_free')
 MATSOLVERS = DENSE_METHODS + ('poly', 'banded')
+# Matsolvers that solve complex stacks: the float32 inverse of 'mixed' and
+# 'matrix_free' would drop the imaginary part, and 'poly' and 'banded'
+# have no complex form in the JAX package either
+COMPLEX_METHODS = ('lu', 'inverse', 'inverse_refined')
+# The element types of the kernels' f64 and c128 instantiations
+KERNEL_DTYPES = (torch.float64, torch.complex128)
 
 
 # ---------------------------------------------------------------------------
@@ -53,14 +60,14 @@ def dense_matvec_plain(A0, X, A1=None):
 def dense_matvec(A0, X, A1=None):
     """
     KB: (G, R, C) @ (G, C) -> (G, R) for one stack, or for two stacks on
-    the same vectors (the M/L pair of a step) in one launch; float64, or one
-    float32 stack (the dense override rows of the banded solve,
-    dedalus_tpu/ops/banded.py:1822).
+    the same vectors (the M/L pair of a step) in one launch; float64 or
+    complex128, or one float32 stack (the dense override rows of the banded
+    solve, dedalus_tpu/ops/banded.py:1822).
 
     Replaces dedalus_tpu/ops/solve.py:24 batched_matvec. CPU tensors run
     the plain twin; CUDA tensors launch csrc/dense_kernels.cu
     dense_matvec_kernel (bound by reading the stacks once: 282 MB per stack
-    at RBC 256x64).
+    at RBC 256x64). Launches count per form (build.count).
     """
     if X.device.type == 'cpu':
         return dense_matvec_plain(A0, X, A1)
@@ -68,8 +75,8 @@ def dense_matvec(A0, X, A1=None):
     G, R, C = A0.shape
     stacks = (A0,) if A1 is None else (A0, A1)
     dt = A0.dtype
-    if dt != torch.float64 and (dt != torch.float32 or A1 is not None):
-        raise TypeError("KB: float64 stacks, or one float32 stack")
+    if dt not in KERNEL_DTYPES and (dt != torch.float32 or A1 is not None):
+        raise TypeError("KB: float64 or complex128 stacks, or one float32 stack")
     for t in stacks:
         if (t.device != X.device or t.dtype != dt or tuple(t.shape) != (G, R, C)
                 or not t.is_contiguous()):
@@ -85,14 +92,15 @@ def dense_matvec(A0, X, A1=None):
         build.check(build.library().kb_dense_matvec_f32(
             A0.data_ptr(), X.data_ptr(), Y0.data_ptr(), G, R, C, stream), 'dense_matvec')
     else:
-        build.check(build.library().kb_dense_matvec_f64(
+        build.check(build.launcher('kb_dense_matvec', dt)(
             A0.data_ptr(), ptr(A1), X.data_ptr(), Y0.data_ptr(), ptr(Y1), G, R, C,
             len(stacks), stream), 'dense_matvec')
-    dense_matvec.launches += 1
+    build.count(dense_matvec, dt)
     return Y0 if A1 is None else (Y0, Y1)
 
 
 dense_matvec.launches = 0
+dense_matvec.launches_c128 = 0
 
 
 def batched_matvec(A, X):
@@ -116,14 +124,15 @@ def dense_refined_solve_plain(Ainv, A, R, passes):
 def dense_refined_solve(Ainv, A, R, passes):
     """
     KA: solve the (G, P, P) stack from its inverse with `passes` (0 or 1)
-    refinement passes against A, R (G, P) -> X (G, P).
+    refinement passes against A, R (G, P) -> X (G, P); float64 or
+    complex128.
 
     Replaces dedalus_tpu/ops/solve.py:120 batched_refined_solve (passes=1)
     and :115 batched_inverse_solve (passes=0). CPU tensors run the plain
     twin; CUDA tensors launch csrc/dense_kernels.cu
     dense_refined_solve_kernel: one thread block per group runs the whole
     solve with the vectors in shared memory (bound by reading Ainv and A:
-    564 MB at RBC 256x64).
+    564 MB at RBC 256x64). Launches count per form (build.count).
     """
     if R.device.type == 'cpu':
         return dense_refined_solve_plain(Ainv, A, R, passes)
@@ -131,24 +140,28 @@ def dense_refined_solve(Ainv, A, R, passes):
     if passes not in (0, 1):
         raise ValueError("KA: passes must be 0 or 1")
     G, P, _ = Ainv.shape
+    dt = R.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError("KA: float64 or complex128 stacks")
     stacks = (Ainv,) if passes == 0 else (Ainv, A)
     for t in stacks:
-        if (t.device != R.device or t.dtype != torch.float64 or tuple(t.shape) != (G, P, P)
+        if (t.device != R.device or t.dtype != dt or tuple(t.shape) != (G, P, P)
                 or not t.is_contiguous()):
-            raise ValueError(f"KA: stacks must be contiguous float64 ({G}, {P}, {P}) "
+            raise ValueError(f"KA: stacks must be contiguous {dt} ({G}, {P}, {P}) "
                              f"tensors on {R.device}")
-    if R.dtype != torch.float64 or tuple(R.shape) != (G, P) or not R.is_contiguous():
-        raise ValueError(f"KA: R must be a contiguous float64 ({G}, {P}) tensor")
+    if tuple(R.shape) != (G, P) or not R.is_contiguous():
+        raise ValueError(f"KA: R must be a contiguous {dt} ({G}, {P}) tensor")
     X = torch.empty_like(R)
     stream = torch.cuda.current_stream(R.device).cuda_stream
-    build.check(build.library().ka_dense_refined_solve_f64(
+    build.check(build.launcher('ka_dense_refined_solve', dt)(
         Ainv.data_ptr(), stacks[-1].data_ptr(), R.data_ptr(), X.data_ptr(), G, P,
         passes, stream), 'dense_refined_solve')
-    dense_refined_solve.launches += 1
+    build.count(dense_refined_solve, dt)
     return X
 
 
 dense_refined_solve.launches = 0
+dense_refined_solve.launches_c128 = 0
 
 
 def batched_inverse_solve(Ainv, R):
@@ -217,31 +230,36 @@ def lu_solve_plain(lu, perm, R):
 def lu_solve(lu, perm, R):
     """
     K14a: X = U^-1 L^-1 (R gathered through perm) for a (G, P, P) stack of
-    packed LU factors, R (G, P) -> X (G, P), f64.
+    packed LU factors, R (G, P) -> X (G, P), float64 or complex128.
 
     Replaces dedalus_tpu/ops/solve.py:53 batched_lu_solve. CPU tensors run
     the plain twin; CUDA tensors launch csrc/dense_kernels.cu
     lu_solve_kernel (one block per group; latency-bound by its 2 P
-    dependent steps, its byte bound 0.0847 ms at RBC 256x64).
+    dependent steps, its byte bound 0.0847 ms at RBC 256x64). Launches
+    count per form (build.count).
     """
     if R.device.type == 'cpu':
         return lu_solve_plain(lu, perm, R)
     from ..csrc import build
     G, P, _ = lu.shape
-    _check(lu, torch.float64, (G, P, P), 'lu', 'K14a')
+    dt = R.dtype
+    if dt not in KERNEL_DTYPES:
+        raise TypeError("K14a: float64 or complex128 factors")
+    _check(lu, dt, (G, P, P), 'lu', 'K14a')
     _check(perm, torch.int32, (G, P), 'perm', 'K14a')
-    _check(R, torch.float64, (G, P), 'R', 'K14a')
+    _check(R, dt, (G, P), 'R', 'K14a')
     if lu.device != R.device or perm.device != R.device:
         raise ValueError("K14a: factors and R must lie on one device")
     X = torch.empty_like(R)
-    build.check(build.library().k14a_lu_solve_f64(
+    build.check(build.launcher('k14a_lu_solve', dt)(
         lu.data_ptr(), perm.data_ptr(), R.data_ptr(), X.data_ptr(), G, P, _cuda_stream(R)),
         'lu_solve')
-    lu_solve.launches += 1
+    build.count(lu_solve, dt)
     return X
 
 
 lu_solve.launches = 0
+lu_solve.launches_c128 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +610,10 @@ class FactorizedStack:
                     f"matsolver '{method}' needs dense (G,P,P) stacks, which "
                     f"exceed the configured memory limit here; use "
                     f"matsolver='banded' or 'poly'")
+            if A.is_complex() and method not in COMPLEX_METHODS:
+                raise ValueError(
+                    f"matsolver '{method}' keeps its inverse in float32, which would drop "
+                    f"the imaginary part of a complex stack; use one of {COMPLEX_METHODS}")
             if method == 'lu':
                 self.lu, self.perm = lu_factor_stack(A)
                 return

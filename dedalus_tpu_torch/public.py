@@ -2,9 +2,10 @@
 Public API, star-importable as `import dedalus_tpu_torch.public as d3`.
 
 The ported subset of dedalus_tpu/public.py: Cartesian, polar, S2 and
-spherical coordinates, the RealFourier and Jacobi bases on the
-matrix-transform path, the annulus, disk, sphere, ball and shell bases
-(real dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP,
+spherical coordinates, the RealFourier, ComplexFourier (complex dtype, the
+Cartesian dense path) and Jacobi bases with their matrix and fast
+transforms, the `Fourier` factory, the annulus, disk, sphere, ball and shell
+bases (real dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP,
 the polar operators of the annulus and disk examples, the sphere operators
 of the shallow-water example, the ball operators of the ball convection
 model, the shell operators and products of the shell convection example
@@ -24,7 +25,8 @@ plot tools and post-processing are not ported yet (ROADMAP M9).
 from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates,
                           SphericalCoordinates)
 from .core.distributor import Distributor
-from .core.basis import Jacobi, ChebyshevT, ChebyshevU, ChebyshevV, Legendre, RealFourier
+from .core.basis import (Jacobi, ChebyshevT, ChebyshevU, ChebyshevV, Legendre, RealFourier,
+                         ComplexFourier, Fourier)
 from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.basis_sphere import SphereBasis
 from .core.basis_ball import BallBasis, ShellBasis
