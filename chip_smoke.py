@@ -71,6 +71,17 @@ public entry points:
     form, KF, KG and its cross form for the Coriolis term, KA, KB, K7, K3),
     its setup by phase, 3 warm-up and 50 timed steps of the example's
     run_steps with its GlobalFlowProperty;
+  * the same shell example in complex128 (complex_shell_path: the
+    signed (+m, -m) azimuth, 9216 per-(m, ell) pencils of P=137, complex
+    stacks of 2.77 GB under [memory] max_dense_stack_gb = 3) from its
+    initial condition taken real, its Coriolis term once through
+    SphericalZCross (the ZCross kernel) and once as written (KG's complex
+    cross form), with KF's complex form, KE's signed trailing form and
+    the complex routes of KH, KI, KJ, K3, KG, KA, KB, K7; setup by phase,
+    3 warm-up and 50 timed steps each, the two forms held against each
+    other and against the real form after 20 steps, SphericalEllProduct
+    on KH against the CPU; before it the complex shell at 16x8x8 under
+    both forms and the complex ball at 8x4x10 card vs CPU;
   * the ball's internally heated convection example
     (examples/ivp_ball_internally_heated_convection.py,
     dedalus_tpu_torch.models.ball.build_ball_ihc_problem) at 64x32x32, SBDF2
@@ -106,7 +117,7 @@ To run one path: `python3 -c "import chip_smoke as c; c.sphere_path()"` (or
 banded_path, schemes_path, shear_flow_path, kdv_path, conditions_path,
 banded_lbvp_path, poly_path, banded_fast_path, cold_start_path, example_path,
 matsolver_loops_path, matsolvers_card_vs_cpu, complex_card_vs_cpu,
-complex_rbc_path, annulus_path, disk_path,
+complex_rbc_path, complex_spherical_card_vs_cpu, complex_shell_path, annulus_path, disk_path,
 ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
@@ -189,7 +200,10 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            real_fourier_pack=1e-15, separable_apply=SEPARABLE_TOL, lu_solve=LU_TOL,
            mixed_solve=MIXED_TOL, complex_fourier_select=1e-15, dense_refined_solve_c128=1e-13,
            dense_matvec_c128=1e-14, pencil_gather_scatter_c128=0.0, grid_product_c128=1e-15,
-           cfl_max_c128=1e-14, lu_solve_c128=LU_TOL)
+           cfl_max_c128=1e-14, lu_solve_c128=LU_TOL, zcross=1e-15, spin_recombine_c128=1e-15,
+           trailing_apply_signed=1e-13, polar_apply_signed=1e-13, polar_apply_c128=1e-13,
+           grid_cross_c128=1e-15, ball_radial_apply_c128=1e-13, ball_radial_apply_rot_c128=1e-13,
+           regularity_recombine_c128=1e-15, shell_radial_transform_c128=1e-13)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -265,6 +279,23 @@ KERNELS = dict(   # name: (route, source, replaces)
                   'dedalus_tpu/extras/flow_tools.py:167'),
     lu_solve_c128=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
                    'dedalus_tpu/ops/solve.py:53'),
+    # Complex curvilinear data and the Coriolis operator (the complex shell)
+    zcross=('triton', 'dedalus_tpu_torch/csrc/zcross.py',
+            'dedalus_tpu/core/operators_ball.py:1139'),
+    spin_recombine_c128=('triton', 'dedalus_tpu_torch/csrc/spin_recombine.py',
+                         'dedalus_tpu/core/basis_polar.py:296'),
+    trailing_apply_signed=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
+                           'dedalus_tpu/core/basis_sphere.py:157'),
+    grid_cross_c128=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
+                     'dedalus_tpu/core/arithmetic.py:1106'),
+    ball_radial_apply_c128=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
+                            'dedalus_tpu/core/basis_ball.py:221'),
+    ball_radial_apply_rot_c128=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
+                                'dedalus_tpu/core/operators_ball.py:214'),
+    regularity_recombine_c128=('triton', 'dedalus_tpu_torch/csrc/regularity_recombine.py',
+                               'dedalus_tpu/core/basis_ball.py:92'),
+    shell_radial_transform_c128=('cuda', 'dedalus_tpu_torch/csrc/shell_kernels.cu',
+                                 'dedalus_tpu/core/basis_ball.py:597'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
 FAST_WRAPPERS = dict(dft_four_step=('dft',),
@@ -312,6 +343,13 @@ KDV = dict(Nx=1024, dt=2e-3, stop_sim_time=10, small=128, small_steps=200, warm_
 POISSON = (256, 128)
 _BANDED_STEP_KERNELS = ('history_combine', 'banded_apply', 'block_tridiag_qr_solve',
                         'pencil_gather_scatter', 'grid_product')
+# The complex shell paths' kernels (complex_shell_path): the complex forms
+# of KA, KB, K3, KG, KH, KI, KJ, KF and KE's signed form, K7 on real views
+_SHELL_C_KERNELS = ('dense_refined_solve_c128', 'dense_matvec_c128', 'history_combine',
+                    'ball_radial_apply_c128', 'regularity_recombine_c128',
+                    'trailing_apply_signed', 'spin_recombine_c128',
+                    'pencil_gather_scatter_c128', 'grid_product_c128',
+                    'shell_radial_transform_c128')
 # Kernels each main path must launch
 PATH_KERNELS = dict(
     rbc2048_sbdf3=_BANDED_STEP_KERNELS,
@@ -363,6 +401,12 @@ PATH_KERNELS = dict(
     ball_ihc=('dense_refined_solve', 'dense_matvec', 'history_combine', 'ball_radial_apply',
               'ball_radial_apply_rot', 'regularity_recombine', 'trailing_apply',
               'spin_recombine', 'pencil_gather_scatter', 'grid_product', 'grid_cross'),
+    ball_ihc_c=('dense_refined_solve_c128', 'dense_matvec_c128', 'history_combine',
+                'ball_radial_apply_c128', 'ball_radial_apply_rot_c128',
+                'regularity_recombine_c128', 'trailing_apply_signed', 'spin_recombine_c128',
+                'pencil_gather_scatter_c128', 'grid_product_c128', 'grid_cross_c128'),
+    shell192c_zcross=_SHELL_C_KERNELS + ('zcross',),
+    shell192c=_SHELL_C_KERNELS + ('grid_cross_c128',),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -532,12 +576,13 @@ def card():
 
 def kernel_functions():
     """The wrappers of each kernel, by kernel name. A `_c128` kernel is the
-    complex128 form of its wrappers, counted apart (build.count)."""
+    complex128 form of its wrappers and a `_signed` one KE's signed form,
+    each counted apart (build.count); zcross counts both dtypes."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
     from dedalus_tpu_torch.ops import products as oprod, ball as oball, shell as oshell
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
-    from dedalus_tpu_torch.csrc import residual_norm as rn
+    from dedalus_tpu_torch.csrc import residual_norm as rn, zcross as kz
     from dedalus_tpu_torch.ops import fft as offt
     from dedalus_tpu_torch.core import subsystems as sub
     fast = {name: [getattr(offt, w) for w in ws] for name, ws in FAST_WRAPPERS.items()}
@@ -545,6 +590,13 @@ def kernel_functions():
                 dense_matvec_c128=[osolve.dense_matvec], cfl_max_c128=[cm.cfl_max],
                 pencil_gather_scatter_c128=[sub.pencil_gather, sub.pencil_scatter],
                 grid_product_c128=[oprod.grid_product], lu_solve_c128=[osolve.lu_solve],
+                zcross=[kz.zcross], spin_recombine_c128=[kf.spin_recombine_complex],
+                trailing_apply_signed=[opolar.trailing_apply],
+                grid_cross_c128=[oprod.grid_cross],
+                ball_radial_apply_c128=[oball.ball_radial_apply],
+                ball_radial_apply_rot_c128=[oball.ball_radial_apply_rot],
+                regularity_recombine_c128=[ki.regularity_recombine],
+                shell_radial_transform_c128=[oshell.shell_radial_transform],
                 block_tridiag_qr_factor=[ob.factor_block_tridiag_qr],
                 multi_rhs_solve=[ob.multi_rhs_solve],
                 banded_solve_pre=[ob.banded_solve_pre],
@@ -569,9 +621,10 @@ def kernel_functions():
 
 
 def launches(name, fns):
-    """The summed launch count of kernel `name` over its wrappers."""
+    """The summed launch count of kernel `name` over its wrappers: a name's
+    form suffix (`_c128`, `_signed`) names the count (build.counter)."""
     from dedalus_tpu_torch.csrc import build
-    attr = build.counter(torch.complex128 if name.endswith('_c128') else torch.float64)
+    attr = build.counter(name.rpartition('_')[2])
     return sum(getattr(f, attr) for f in fns)
 
 
@@ -579,10 +632,11 @@ def count_launches(path, steps, run):
     """Run a main path's timed run with every kernel count set to 0 just
     before and read just after; fail if a kernel of the path was not
     launched. Returns run()'s result."""
+    from dedalus_tpu_torch.csrc import build
     fns = kernel_functions()
     for fs in fns.values():
         for f in fs:
-            f.launches = f.launches_c128 = 0
+            build.reset(f)
     out = run()
     LAUNCHES[path] = {name: launches(name, fs) for name, fs in fns.items()}
     STEPS[path] = steps
@@ -684,7 +738,13 @@ def f_profile(solver, state, t, reps=10, path=None):
     from dedalus_tpu_torch.ops import transforms as otr, polar as opolar, ball as oball
     from dedalus_tpu_torch.ops import shell as oshell
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
+    from dedalus_tpu_torch.csrc import zcross as kz
     from dedalus_tpu_torch.core import subsystems as sub, arithmetic as arith
+
+    def cx(t):
+        """Operations of a real-by-element multiply-add over float64's: two
+        on complex data."""
+        return 2 if t.is_complex() else 1
 
     def k1_cost(a, kw, out):
         mat, data = a[0], a[1]
@@ -700,10 +760,16 @@ def f_profile(solver, state, t, reps=10, path=None):
     def ke_cost(a, kw, out):
         S, x = a[0], a[1]
         extra = out if kw.get('accumulate') else None
-        return nbytes(S, x, out, extra), 2 * S.shape[1] * x.numel()
+        return nbytes(S, x, out, extra), 2 * cx(x) * S.shape[-2] * x.numel()
 
     def kf_cost(a, kw, out):
         return 2 * nbytes(a[0]), 7 * a[0].numel()
+
+    def kf_complex_cost(a, kw, out):
+        return 2 * nbytes(a[0]), 14 * a[0].numel()
+
+    def zc_cost(a, kw, out):
+        return zcross_cost(a[0], out)
 
     def kh_cost(a, kw, out):
         S, x, pairs, o = a[0], a[1], a[2], a[3]
@@ -711,7 +777,7 @@ def f_profile(solver, state, t, reps=10, path=None):
         extra = per_out if kw.get('accumulate') else 0
         cols = x[0].numel() // x.shape[-1] * len(pairs)
         return (nbytes(S) + len(pairs) * (per_in + per_out + extra),
-                2 * S.shape[2] * x.shape[-1] * cols)
+                2 * cx(x) * S.shape[2] * x.shape[-1] * cols)
 
     def kh_rot_cost(a, kw, out):
         terms, x, o = a[0], a[1], a[2]
@@ -722,34 +788,37 @@ def f_profile(solver, state, t, reps=10, path=None):
         S = terms[0][0]
         cols = x[0].numel() // x.shape[-1] * len(terms)
         return (len(terms) * nbytes(S) + len(ins) * per_in + len(outs) * per_out + extra,
-                2 * S.shape[1] * x.shape[-1] * cols)
+                2 * cx(x) * S.shape[1] * x.shape[-1] * cols)
 
     def ki_cost(a, kw, out):
-        return nbytes(a[0], a[1], out), 2 * a[0].shape[0] * a[0].numel()
+        return nbytes(a[0], a[1], out), 2 * cx(a[0]) * a[0].shape[0] * a[0].numel()
 
     def kt_cost(a, kw, out):
         S, x, n = a[0], a[1], len(a[3])
         return (nbytes(S) + n * (nbytes(x) + nbytes(out)) // x.shape[0],
-                2 * S.shape[2] * n * (out.numel() // out.shape[0]))
+                2 * cx(x) * S.shape[-1] * n * (out.numel() // out.shape[0]))
 
     def k3_cost(a, kw, out):
         return 2 * nbytes(out), out.numel()
 
     def kg_cost(a, kw, out):
         contracted = a[1].shape[0] if a[4] else 1
-        return nbytes(a[0], a[1], out), 2 * contracted * out.numel()
+        return nbytes(a[0], a[1], out), 2 * cx(out)**2 * contracted * out.numel()
 
     def kj_cost(a, kw, out):
         return kj_bytes_flops(a[0], a[1], out, *a[2:4])
 
     def cross_cost(a, kw, out):
-        return nbytes(a[0], a[1], out), 4 * out.numel()
+        return nbytes(a[0], a[1], out), 4 * cx(out)**2 * out.numel()
 
     fast = 'K10-K12 fast transforms at the K1 shapes'
     acc = tally([('K1 apply_matrix', otr, 'apply_matrix', k1_cost),
                  (fast, otr, 'apply_matrix', fast_cost),
                  ('KE polar_apply', opolar, 'polar_apply', ke_cost),
                  ('KF spin_recombine', kf, 'spin_recombine', kf_cost),
+                 ('KF complex spin_recombine_complex', kf, 'spin_recombine_complex',
+                  kf_complex_cost),
+                 ('ZCross zcross', kz, 'zcross', zc_cost),
                  ('KH ball_radial_apply', oball, 'ball_radial_apply', kh_cost),
                  ('KH rot ball_radial_apply_rot', oball, 'ball_radial_apply_rot', kh_rot_cost),
                  ('KI regularity_recombine', ki, 'regularity_recombine', ki_cost),
@@ -784,8 +853,10 @@ def f_profile(solver, state, t, reps=10, path=None):
 
 def kj_bytes_flops(T, x, y, w_in=None, w_out=None):
     """KJ's work: x read once, y written once, T and the weights once; two
-    operations per multiply-add of each line's matrix product."""
-    return nbytes(T, x, y, w_in, w_out), 2 * y.numel() * T.shape[1]
+    operations per multiply-add of each line's matrix product (four on
+    complex lines)."""
+    ops = 4 if y.is_complex() else 2
+    return nbytes(T, x, y, w_in, w_out), ops * y.numel() * T.shape[1]
 
 
 def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
@@ -3504,7 +3575,10 @@ def shell_path(steps=SHELL['steps']):
     condition, the GlobalFlowProperty of u@u every 10 iterations, run_steps
     at dt=2e-3: setup by phase, 3 warm-up steps, the shell kernels, K3 and
     KG against their twins, `steps` timed steps, the walls, and a
-    per-segment breakdown."""
+    per-segment breakdown. Returns what the complex shell path is held
+    to: the initial buoyancy's grid values (numpy), and after
+    SHELL_C['compare_steps'] steps the state's grid values on the host and
+    u on the dealias grid."""
     import dedalus_tpu_torch.public as d3
     import dedalus_tpu_torch.core.timesteppers as tsm
     from dedalus_tpu_torch.models import shell as msh
@@ -3533,6 +3607,8 @@ def shell_path(steps=SHELL['steps']):
     flow = msh.add_flow_property(solver, ctx)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
+    ctx['b'].change_scales(1)
+    reference = dict(b0=ctx['b']['g'].cpu().numpy().copy())
     setup = dict(problem_s=t1 - t0, solver_s=t2 - t1, initial_condition_s=t3 - t2,
                  total_s=t3 - t0, **{k + '_s': v for k, v in ob.phase_seconds.items()})
     pencil = solver.pencil
@@ -3552,6 +3628,9 @@ def shell_path(steps=SHELL['steps']):
         warm_s = time.perf_counter() - t0
         print(f"warmup_s {warm_s:.2f} ({SHELL['warmup']} steps incl. factorizations and "
               f"Triton builds)")
+        solver.run_steps(dt, SHELL_C['compare_steps'] - SHELL['warmup'])
+        reference.update(state=grid_state(solver),
+                         u=ctx['u']['g', ctx['shell'].dealias].contiguous().clone())
 
         phase("KJ, KG cross, KH, KI, K3, KG vs plain twins (shell-path shapes)")
         check_shell_kernels(solver, ctx)
@@ -3605,6 +3684,624 @@ def shell_path(steps=SHELL['steps']):
     breakdown('shell', solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
     print(json.dumps({"shell_F": f_profile(solver, state, solver.sim_time, path='shell'),
                       "card": smi}))
+    return reference
+
+
+# The shell example in complex128 (complex_shell_path): the timed size, its
+# warm-up, the steps at which its two Coriolis forms and the real form are
+# held against each other, its timed steps, the [memory] max_dense_stack_gb
+# its complex stacks need (9216 pencils of P=137: 2.77 GB each, over the
+# default 2), and the card-vs-CPU sizes of the shell and of the ball
+SHELL_C = dict(size=(192, 96, 12), dt=2e-3, warmup=3, compare_steps=20, steps=50,
+               max_dense_stack_gb='3', example=(16, 8, 8), ball=(8, 4, 10), ball_dt=2e-3)
+SHELL_VARIABLES = ('p', 'b', 'u', 'tau_p', 'tau_b1', 'tau_b2', 'tau_u1', 'tau_u2')
+# The example's equations (examples/ivp_shell_convection.py:89-99) with its
+# Coriolis term written through the Coriolis operator
+SHELL_ZCROSS_EQUATIONS = (
+    "trace(grad_u) + tau_p = 0",
+    "dt(b) - kappa*div(grad_b) + lift(tau_b2) = - u@grad(b)",
+    "dt(u) - nu*div(grad_u) + grad(p) - b*er + lift(tau_u2) = - u@grad(u) - 2*Omega*zcross(u)",
+    "b(r=Ri) = 1", "u(r=Ri) = 0", "b(r=Ro) = 0", "radial(u(r=Ro)) = 0", "shear_stress = 0",
+    "integ(p) = 0")
+# The complex shell path's kernel checks: the shapes' seeded data
+COMPLEX_SHELL_SEED = 19
+
+
+def build_shell_c(size, device, zcross, dtype=np.complex128):
+    """The shell example (models/shell.py) in `dtype` on `device`, SBDF2 on
+    the default matsolver, its Coriolis term as written
+    (-2*Omega*cross(ez, u)) or, with `zcross`, through the Coriolis
+    operator: the example's lines with that one term written
+    -2*Omega*zcross(u), zcross = SphericalZCross. No initial condition
+    (set_shell_ic). Returns (solver, ctx, seconds of the problem and of the
+    solver's build)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import shell as msh
+    from dedalus_tpu_torch.core.operators_ball import SphericalZCross
+    t0 = time.perf_counter()
+    problem, ctx = msh.build_shell_problem(*size, dtype=dtype, device=device)
+    if zcross:
+        problem = d3.IVP([ctx[n] for n in SHELL_VARIABLES],
+                         namespace=dict(ctx, zcross=SphericalZCross))
+        for eq in SHELL_ZCROSS_EQUATIONS:
+            problem.add_equation(eq)
+    t1 = time.perf_counter()
+    solver = problem.build_solver(d3.SBDF2)
+    if solver.matsolver != 'inverse_refined':
+        raise AssertionError(f"complex shell: default matsolver is {solver.matsolver}")
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    return solver, ctx, dict(problem_s=t1 - t0, solver_s=time.perf_counter() - t1)
+
+
+def shell_real_ic(size):
+    """The example's initial buoyancy, taken real: the float64 port's
+    (models/shell.py set_initial_condition, its noise drawn on the host) on
+    the grid at scale 1, as numpy."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import shell as msh
+    Ri, Ro = msh.RADII
+    coords = d3.SphericalCoordinates('phi', 'theta', 'r')
+    dist = d3.Distributor(coords, dtype=np.float64, device='cpu')
+    shell = d3.ShellBasis(coords, size, radii=(Ri, Ro), dealias=3 / 2, dtype=np.float64)
+    b = dist.Field(name='b', bases=shell)
+    phi, theta, r = dist.local_grids(shell, scales=1)
+    shp = np.broadcast_shapes(phi.shape, theta.shape, r.shape)
+    msh.set_initial_condition(dict(b=b, r=r, shp=shp, Ri=Ri, Ro=Ro))
+    return b['g'].numpy().copy()
+
+
+def set_shell_ic(ctx, bg):
+    """The buoyancy from the real grid data bg (u and the taus zero)."""
+    b = ctx['b']
+    b.change_scales(1)
+    b['g'] = bg.astype(b.dtype)
+
+
+def state_errs(a, b):
+    """Per state field, max |a - b| of the coefficients relative to b's own
+    max (the gauge tau_p, zero up to round-off, against 1e-20)."""
+    errs = {}
+    for fa, fb in zip(a.state, b.state):
+        x, y = fa['c'].cpu(), fb['c'].cpu()
+        errs[fb.name] = float((x - y).abs().max()) / max(float(y.abs().max()), 1e-20)
+    return errs
+
+
+def complex_spherical_card_vs_cpu(steps=20):
+    """Complex curvilinear data card against CPU: the shell example at
+    16x8x8 in complex128 under both Coriolis forms (20 SBDF2 steps at
+    dt=2e-3 from the real initial condition) and the ball model at 8x4x10
+    in complex128 (20 SBDF2 steps at dt=2e-3 from the CPU's initial state),
+    then the ball's internally heated convection example in complex128 at
+    16x8x12 (20 SBDF2 steps at dt=2e-3, the card's steps a counted main
+    path, and KH's rotation form on complex data against its twin at its
+    curl's shapes), each field within 1e-10 of its own max; the walls on
+    the card within 1e-12 (the shell's u(r=Ri), radial(u(r=Ro)) and shear
+    stress; the ball's u(r=1) and div(u); the example's radial(u(r=1)),
+    div(u) and shear stress)."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models import shell as msh, ball as mb
+    from dedalus_tpu_torch.utils.interop import set_state_from_reference
+    size = SHELL_C['example']
+    bg = shell_real_ic(size)
+    for zcross in (True, False):
+        form = 'zcross(u)' if zcross else 'cross(ez, u)'
+        phase(f"complex shell {size[0]}x{size[1]}x{size[2]} SBDF2, Coriolis as {form}, "
+              f"{steps} steps: cuda vs cpu")
+        runs = {}
+        for d in (DEVICE, 'cpu'):
+            solver, ctx, _ = build_shell_c(size, d, zcross)
+            set_shell_ic(ctx, bg)
+            solver.run_steps(SHELL['dt'], steps)
+            runs[d] = (solver, ctx)
+        errs = state_errs(runs[DEVICE][0], runs['cpu'][0])
+        walls = msh.wall_residuals(runs[DEVICE][1])
+        print(f"complex shell ({form}) cuda vs cpu rel_err {errs} (tol 1e-10); on the card "
+              f"walls {walls} (tol 1e-12)")
+        if not (runs[DEVICE][0].pencil.dtype == np.complex128
+                and all(torch.isfinite(f['c']).all() for f in runs[DEVICE][0].state)):
+            raise AssertionError("complex shell: the card's state is not finite complex128")
+        if not max(errs.values()) <= 1e-10:
+            raise AssertionError(f"complex shell ({form}): card and CPU disagree: {errs}")
+        if not max(walls) <= 1e-12:
+            raise AssertionError(f"complex shell ({form}): wall residuals {walls} > 1e-12")
+    size = SHELL_C['ball']
+    phase(f"complex ball {size[0]}x{size[1]}x{size[2]} SBDF2, {steps} steps: cuda vs cpu")
+    runs = {}
+    for d in ('cpu', DEVICE):
+        problem, ctx = mb.build_ball_problem(*size, dtype=np.complex128, device=d)
+        solver = problem.build_solver(d3.SBDF2)
+        if d == 'cpu':
+            mb.set_conductive_ic(ctx, seed=42)
+        else:
+            set_state_from_reference(solver, {f.name: f['c'].numpy()
+                                              for f in runs['cpu'][0].state})
+        runs[d] = (solver, ctx)
+    for solver, _ in runs.values():
+        solver.run_steps(SHELL_C['ball_dt'], steps)
+    errs = state_errs(runs[DEVICE][0], runs['cpu'][0])
+    u = runs[DEVICE][1]['u']
+    walls = []
+    for expr in (u(r=1), d3.div(u)):
+        f = expr.evaluate()
+        f.require_coeff_space()
+        walls.append(float(f.data.abs().max()))
+    print(f"complex ball cuda vs cpu rel_err {errs} (tol 1e-10); on the card max|u(r=1)| "
+          f"{walls[0]:.3e}, max|div(u)| {walls[1]:.3e} (tol 1e-12)")
+    if not max(errs.values()) <= 1e-10:
+        raise AssertionError(f"complex ball: card and CPU disagree: {errs}")
+    if not max(walls) <= 1e-12:
+        raise AssertionError(f"complex ball: residuals {walls} > 1e-12")
+
+    # The internally heated convection example in complex128: its curl runs
+    # KH's rotation form on complex data (the product by i)
+    size = BALL_IHC['small']
+    phase(f"complex ball_ihc {size[0]}x{size[1]}x{size[2]} SBDF2, {steps} steps: cuda vs cpu, "
+          f"the card's steps counted")
+    runs = {}
+    for d in ('cpu', DEVICE):
+        problem, ctx = mb.build_ball_ihc_problem(*size, dtype=np.complex128, device=d)
+        solver = problem.build_solver(d3.SBDF2)
+        mb.set_ihc_ic(ctx)
+        runs[d] = (solver, ctx)
+    runs['cpu'][0].run_steps(BALL_IHC['dt'], steps)
+    count_launches('ball_ihc_c', steps, lambda: runs[DEVICE][0].run_steps(BALL_IHC['dt'], steps))
+    errs = state_errs(runs[DEVICE][0], runs['cpu'][0])
+    resid = mb.ihc_residuals(runs[DEVICE][1])
+    per_step = {k: v / steps for k, v in LAUNCHES['ball_ihc_c'].items() if v}
+    print(f"complex ball_ihc cuda vs cpu rel_err {errs} (tol 1e-10); on the card "
+          f"max|radial(u(r=1))|, max|div u|, max|shear stress| {resid} (tol 1e-12); launches "
+          f"per step {per_step}")
+    if not (runs[DEVICE][0].pencil.dtype == np.complex128
+            and all(torch.isfinite(f['c']).all() for f in runs[DEVICE][0].state)):
+        raise AssertionError("complex ball_ihc: the card's state is not finite complex128")
+    if not max(errs.values()) <= 1e-10:
+        raise AssertionError(f"complex ball_ihc: card and CPU disagree: {errs}")
+    if not max(resid) <= 1e-12:
+        raise AssertionError(f"complex ball_ihc: residuals {resid} > 1e-12")
+    phase("KH rotation form, complex128, vs its plain twin (the complex curl's shapes)")
+    u = runs[DEVICE][1]['u']
+    gen = torch.Generator(device=u.data.device).manual_seed(COMPLEX_SHELL_SEED)
+    crand = lambda shape: torch.complex(
+        *(torch.randn(shape, generator=gen, dtype=torch.float64, device=u.data.device)
+          for _ in range(2)))
+    check_kh_rot('ball_radial_apply_rot_c128', 'ball_ihc_c', d3.curl(u), crand, True)
+
+
+def zcross_cost(u, out):
+    """The ZCross kernel's work: u and the output once, the two angle
+    vectors; 5 operations a point (3 products, an add, the signs folded),
+    twice on complex data."""
+    return nbytes(u, out) + 2 * u.shape[2] * 8, 5 * u[0].numel() * (2 if u.is_complex() else 1)
+
+
+def check_complex_shell_kernels(path, solver, ctx, u_f64):
+    """The new kernels and the complex routes against their plain twins at
+    the complex shell path's shapes, seeded complex data: ZCross on the
+    dealias grid (and in float64 on the real shell192's u), KF's complex
+    form on u's and grad(u)'s colatitude input, KE's signed form (the
+    trailing form on grad(u)'s SWSH stack of spin 0; the per-m form on the
+    same stack), KE on complex data with a shared stack (the interpolation
+    block of u at r=Ro), KG's complex cross form on ez x u, KH on
+    grad(b)'s per-ell stack, KI on grad(u)'s recombination, KJ backward to
+    the dealias radius, K3 on the pencils and K7 on complex slots."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.ops import shell as oshell, products as oprod, ball as oball
+    from dedalus_tpu_torch.ops import polar as opolar
+    from dedalus_tpu_torch.csrc import (regularity_recombine as ki, spin_recombine as kf,
+                                        zcross as kz, history_combine as hc)
+    from dedalus_tpu_torch.core.basis import device_copy
+    from dedalus_tpu_torch.core.basis_polar import _unitary
+    from dedalus_tpu_torch.core.operators_ball import SphericalZCross
+    from dedalus_tpu_torch.models import shell as msh
+    u, shell = ctx['u'], ctx['shell']
+    dev = u.data.device
+    M, L, N = u['c'].shape[1:]
+    K = M // 2
+    rb, cb = shell.radial_basis, shell.colatitude_basis
+    Ng, Lg = rb.grid_size(shell.dealias[2]), cb.grid_size(shell.dealias[1])
+    Mg = shell.azimuth_basis.grid_size(shell.dealias[0])
+    gen = torch.Generator(device=dev).manual_seed(COMPLEX_SHELL_SEED)
+    crand = lambda shape: torch.complex(
+        torch.randn(shape, generator=gen, dtype=torch.float64, device=dev),
+        torch.randn(shape, generator=gen, dtype=torch.float64, device=dev))
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape')
+
+    # ZCross on the dealias grid, both dtypes
+    ct, st = SphericalZCross(u)._angle_vectors(shell.dealias[1], dev)
+    ug = crand((3, Mg, Lg, Ng))
+    zk, zp = kz.zcross(ug, ct, st), kz.zcross_plain(ug, ct, st)
+    zk64, zp64 = kz.zcross(u_f64, ct, st), kz.zcross_plain(u_f64, ct, st)
+    # The library's one call: the cross product with ez = (0, -sin, cos) on
+    # the (phi, theta, r) frame, ez broadcast over the azimuth and radius
+    ez = torch.stack([torch.zeros_like(ct), -st, ct]).view(3, 1, -1, 1).to(ug.dtype)
+    lib = torch.linalg.cross(ug, ez, dim=0)
+    torch.cuda.synchronize()
+    if not rel_err(lib, zp)[0] <= 1e-15:
+        raise AssertionError(f"zcross: torch.linalg.cross(u, ez) is not ez x u: "
+                             f"{rel_err(lib, zp)}")
+    record('zcross', path, dict(
+        err=rel_err(zk, zp), err_f64=rel_err(zk64, zp64), shape=list(ug.shape),
+        what='ez x u on the dealias grid, complex128 (err_f64: float64, the real shell192 u)',
+        ms=cuda_ms(lambda: kz.zcross(ug, ct, st), 50),
+        plain_ms=cuda_ms(lambda: kz.zcross_plain(ug, ct, st), 50),
+        library_ms=cuda_ms(lambda: torch.linalg.cross(ug, ez, dim=0), 50),
+        ms_f64=cuda_ms(lambda: kz.zcross(u_f64, ct, st), 50),
+        device_ms=device_ms(lambda: kz.zcross(ug, ct, st)),
+        library_device_ms=device_ms(lambda: torch.linalg.cross(ug, ez, dim=0)),
+        **dict(zip(('bound_ms', 'bound_by'), bound(*zcross_cost(ug, zk))))), True,
+        keys=keys + ('ms_f64', 'device_ms', 'library_device_ms'))
+    if not rel_err(zk64, zp64)[0] <= TOL['zcross']:
+        raise AssertionError(f"zcross (float64) disagrees with its twin: {rel_err(zk64, zp64)}")
+
+    # KF's complex form: the colatitude transform's input of u (rank 1) and
+    # of grad(u) (rank 2, each rank)
+    U = _unitary(shell.coordsys, True, dev)
+    x1, x2 = crand((3, M, Lg, Ng)), crand((3, 3, M, Lg, Ng))
+    pairs = [(kf.spin_recombine_complex(x1, 0, U), kf.spin_recombine_complex_plain(x1, 0, U))]
+    for rank in (0, 1):
+        pairs.append((kf.spin_recombine_complex(x2, rank, U),
+                      kf.spin_recombine_complex_plain(x2, rank, U)))
+    torch.cuda.synchronize()
+    record('spin_recombine_c128', path, dict(
+        err=max(rel_err(a, b) for a, b in pairs), shape=list(x1.shape),
+        what="u's colatitude input, rank 1 (3 x M x L_g x N_g), forward",
+        ms=cuda_ms(lambda: kf.spin_recombine_complex(x1, 0, U), 50),
+        plain_ms=cuda_ms(lambda: kf.spin_recombine_complex_plain(x1, 0, U), 50),
+        library_ms=cuda_ms(lambda: torch.tensordot(U, x1, dims=([1], [0])), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(2 * nbytes(x1) + nbytes(U),
+                                                   14 * x1.numel() * 2 // 3)))), True)
+
+    # KE, signed form: the backward SWSH stack of spin 0, trailing, on the
+    # three spin-0 components of grad(u); the per-m form on the same stack
+    St = device_copy(cb._transform_stacks(shell.dealias[1], 0, 'b'), dev)
+    if St.dim() != 4:
+        raise AssertionError("complex shell: the SWSH stacks are not signed")
+    xt = crand((9, M, L, Ng))
+    comps = [1, 3, 8]
+    outt = torch.zeros((9, M, Lg, Ng), dtype=torch.complex128, device=dev)
+    tk = opolar.trailing_apply(St, xt, outt.clone(), comps)
+    tp = opolar.trailing_apply_plain(St, xt, outt.clone(), comps)
+    base_t = crand(tk.shape)
+    tak = opolar.trailing_apply(St, xt, base_t.clone(), comps, accumulate=True)
+    tap = opolar.trailing_apply_plain(St, xt, base_t.clone(), comps, accumulate=True)
+    torch.cuda.synchronize()
+    Stc = St.to(torch.complex128)
+    x5 = xt[comps].view(3, K, 2, L, Ng)
+    scratch_t = torch.empty_like(outt)
+    record('trailing_apply_signed', path, dict(
+        err=max(rel_err(tk, tp), rel_err(tak, tap)), shape=list(St.shape) + [Ng, len(comps)],
+        what='backward signed SWSH stack, spin 0, radius trailing, 3 components of grad(u)',
+        ms=cuda_ms(lambda: opolar.trailing_apply(St, xt, scratch_t, comps), 50),
+        plain_ms=cuda_ms(lambda: opolar.trailing_apply_plain(St, xt, scratch_t, comps), 50),
+        library_ms=cuda_ms(lambda: torch.matmul(Stc, x5), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(St) + 3 * (nbytes(xt) + nbytes(tk)) // 9,
+                         4 * L * 3 * M * Lg * Ng)))), True)
+    xp = crand((3, M, L))
+    pk, pp = opolar.polar_apply(St, xp), opolar.polar_apply_plain(St, xp)
+    torch.cuda.synchronize()
+    record('polar_apply_signed', path, dict(
+        err=rel_err(pk, pp), shape=list(St.shape) + [3],
+        what='the per-m form on the same signed stack, 3 components (no main path runs it)',
+        ms=cuda_ms(lambda: opolar.polar_apply(St, xp), 50),
+        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(St, xp), 50),
+        library_ms=cuda_ms(lambda: torch.matmul(Stc, xp.view(3, K, 2, L, 1)), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(St, xp, pk), 4 * Lg * xp.numel())))),
+        True)
+
+    # KE on complex data, shared stack: u's interpolation block at r = Ro
+    op = u(r=msh.RADII[1])
+    stack = torch.as_tensor(np.stack([op._interp_block_m(m).toarray() for m in range(K)]),
+                            device=dev)
+    d = crand((2 * K, 3 * L * N))
+    ek, ep = opolar.polar_apply(stack, d), opolar.polar_apply_plain(stack, d)
+    torch.cuda.synchronize()
+    stack_c = stack.to(torch.complex128)
+    record('polar_apply_c128', path, dict(
+        err=rel_err(ek, ep), shape=list(stack.shape),
+        what="u(r=Ro)'s interpolation block on complex data (the walls; no main path runs it)",
+        ms=cuda_ms(lambda: opolar.polar_apply(stack, d), 50),
+        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(stack, d), 50),
+        library_ms=cuda_ms(lambda: torch.matmul(stack_c, d.view(K, 2, -1).transpose(1, 2)), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(stack, d, ek), 4 * stack.shape[1] * d.numel())))), True)
+
+    # KG cross, complex: ez x u on the dealias grid, the left-handed sign
+    ezg = ctx['ez']['g', shell.dealias].contiguous()
+    uc = crand(tuple(ezg.shape))
+    ck, cp = oprod.grid_cross(ezg, uc, -1.0), oprod.grid_cross_plain(ezg, uc, -1.0)
+    torch.cuda.synchronize()
+    record('grid_cross_c128', path, dict(
+        err=rel_err(ck, cp), shape=list(ck.shape), what='-(ez x u) on the dealias grid',
+        ms=cuda_ms(lambda: oprod.grid_cross(ezg, uc, -1.0), 50),
+        plain_ms=cuda_ms(lambda: oprod.grid_cross_plain(ezg, uc, -1.0), 50),
+        library_ms=cuda_ms(lambda: -torch.linalg.cross(ezg, uc, dim=0), 50),
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(ezg, uc, ck), 4 * 4 * ck.numel())))),
+        True)
+
+    # KH, complex: grad(b)'s per-ell stack, (L, N, N), and accumulating
+    S = d3.grad(ctx['b'])._pair_stack((), (0,), dev)
+    x = crand((1, K, 2, L, N))
+    outk = torch.empty((1, K, 2, L, N), dtype=torch.complex128, device=dev)
+    oball.ball_radial_apply(S, x, [(0, 0)], outk)
+    outp = oball.ball_radial_apply_plain(S, x, [(0, 0)], torch.empty_like(outk))
+    base = crand(outk.shape)
+    ak = oball.ball_radial_apply(S, x, [(0, 0)], base.clone(), accumulate=True)
+    ap = oball.ball_radial_apply_plain(S, x, [(0, 0)], base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    Svc = oball.per_slot_view(S, K, L).to(torch.complex128)
+    live = sum(max(min(L, S.shape[0] - k), 0) for k in range(K))
+    scratch = torch.empty_like(outk)
+    record('ball_radial_apply_c128', path, dict(
+        err=max(rel_err(outk, outp), rel_err(ak, ap)), shape=list(S.shape) + [1],
+        what="grad(b)'s per-ell stack on complex data",
+        ms=cuda_ms(lambda: oball.ball_radial_apply(S, x, [(0, 0)], scratch), 50),
+        plain_ms=cuda_ms(lambda: oball.ball_radial_apply_plain(S, x, [(0, 0)], scratch), 50),
+        library_ms=cuda_ms(lambda: torch.einsum('klon,ckpln->ckplo', Svc, x), 50),
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(S, outk) + 2 * live * N * 16, 4 * N * N * 2 * live)))), True)
+
+    # KI, complex: ranks 2 and 1 at the dealias radius
+    errs, timed = [], None
+    for C in (9, 3):
+        Q = rb._Q_stack_device(2 if C == 9 else 1, K, L, dev)
+        xi = crand((C, K, 2, L, Ng))
+        for fwd in (True, False):
+            yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            torch.cuda.synchronize()
+            errs.append(rel_err(yk, yp))
+        if timed is None:
+            Qc = Q.to(torch.complex128)
+            timed = dict(
+                shape=list(xi.shape), what="backward recombination of grad(u), complex",
+                ms=cuda_ms(lambda: ki.regularity_recombine(xi, Q, False), 50),
+                plain_ms=cuda_ms(lambda: ki.regularity_recombine_plain(xi, Q, False), 50),
+                library_ms=cuda_ms(lambda: torch.einsum('klab,bkpln->akpln', Qc, xi), 50),
+                **dict(zip(('bound_ms', 'bound_by'),
+                           bound(nbytes(xi, yk) + L * C * C * 8, 4 * C * xi.numel()))))
+    record('regularity_recombine_c128', path, dict(timed, err=max(errs)), True)
+
+    # KJ, complex: a k = 1 vector backward to the dealias radius, and forward
+    rb1 = rb.derivative_basis(1)
+    errs = []
+    for forward in (False, True):
+        T = device_copy(rb1._jacobi._forward_matrix_host(shell.dealias[2], np.float64) if forward
+                        else rb1._jacobi._backward_matrix_host(shell.dealias[2], np.float64), dev)
+        w = device_copy(rb1.radial_weight(shell.dealias[2], forward), dev)
+        w_in, w_out = (w, None) if forward else (None, w)
+        xj = crand((3 * M * L, Ng if forward else N))
+        yk = oshell.shell_radial_transform(T, xj, w_in, w_out)
+        errs.append(rel_err(yk, oshell.shell_radial_transform_plain(T, xj, w_in, w_out)))
+        if not forward:
+            Tc = T.mT.to(torch.complex128)
+            kj = dict(
+                shape=[list(xj.shape), list(yk.shape)],
+                what='backward transform of a complex k = 1 vector to the dealias radius',
+                ms=cuda_ms(lambda: oshell.shell_radial_transform(T, xj, w_in, w_out), 50),
+                plain_ms=cuda_ms(lambda: oshell.shell_radial_transform_plain(
+                    T, xj, w_in, w_out), 50),
+                library_ms=cuda_ms(lambda: torch.matmul(xj, Tc) * w_out, 50),
+                **dict(zip(('bound_ms', 'bound_by'), bound(
+                    nbytes(T, xj, yk, w_out), 4 * yk.numel() * T.shape[1]))))
+    torch.cuda.synchronize()
+    record('shell_radial_transform_c128', path, dict(kj, err=max(errs)), True)
+
+    # K3 and KG on the complex pencils and grid; K7 on complex slots
+    pencil = solver.pencil
+    check_k3(path, pencil, solver.state_flat(), name='pencil_gather_scatter_c128')
+    check_kg(path, u, cases=SHELL_KG_CASES, name='grid_product_c128')
+    G, P = pencil.G, pencil.R
+    slots = [crand((G, P)) for _ in range(6)]
+    coef = torch.tensor([0.5, -0.25, 1.0, 0.1, 1.5, -0.5], dtype=torch.float64, device=dev)
+    args = (slots[0:2], slots[2:4], slots[4:6], pencil.row_valid_dev, coef)
+    e7 = rel_err(hc.history_combine(*args), hc.history_combine_plain(*args))
+    torch.cuda.synchronize()
+    print(f"K7 on complex slots (real views) at G={G}, P={P}: rel_err {e7[0]:.3e} (tol "
+          f"{TOL['history_combine']:.0e})")
+    if not e7[0] <= TOL['history_combine']:
+        raise AssertionError(f"K7 on complex slots disagrees with its twin: {e7[0]:.3e}")
+
+
+def complex_shell_run(path, zcross, bg, dev, kind, smi, steps, real=None, other=None,
+                      u_f64=None):
+    """One Coriolis form of complex_shell_path (its locals, the solver among
+    them, are freed on return, so the next run's peak is its own): setup by
+    phase, the warm-up, the state after SHELL_C['compare_steps'] steps held
+    against the real form (`real`) or the other form's (`other`), the
+    kernel checks (with u_f64), the timed steps, the walls, a breakdown and
+    F's profile. Returns its summary and its state after the compared
+    steps."""
+    import dedalus_tpu_torch.core.timesteppers as tsm
+    from dedalus_tpu_torch.models import shell as msh
+    from dedalus_tpu_torch.ops import solve as osolve, polar as opolar, ball as oball
+    from dedalus_tpu_torch.ops import banded as ob, shell as oshell
+    from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
+    from dedalus_tpu_torch.csrc import zcross as kz
+    from dedalus_tpu_torch.core import arithmetic as arith
+    from dedalus_tpu_torch.core.operators_ball import SphericalEllProduct
+    size, dt = SHELL_C['size'], SHELL_C['dt']
+    form = 'zcross(u)' if zcross else 'cross(ez, u)'
+    phase(f"complex shell path ({path}): {size[0]}x{size[1]}x{size[2]} complex128, Coriolis "
+          f"as -2*Omega*{form}, SBDF2 dt={dt:g}, max_dense_stack_gb = "
+          f"{SHELL_C['max_dense_stack_gb']}, on {kind}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier paths left allocated (the port's cached device matrices,
+    # such as the walls' interpolation blocks): inside the peak, not of it
+    held_before = torch.cuda.memory_allocated()
+    ob.phase_seconds.clear()
+    solver, ctx, secs = build_shell_c(size, dev, zcross)
+    t0 = time.perf_counter()
+    set_shell_ic(ctx, bg)
+    torch.cuda.synchronize()
+    setup = dict(secs, initial_condition_s=time.perf_counter() - t0,
+                 **{k + '_s': v for k, v in ob.phase_seconds.items()})
+    setup['total_s'] = setup['problem_s'] + setup['solver_s'] + setup['initial_condition_s']
+    pencil = solver.pencil
+    stack_gb = pencil.matrices['M'].numel() * 16 / 1e9
+    if pencil.slot_split != (size[0] // 2, size[1]) or pencil.dtype != np.complex128:
+        raise AssertionError(f"{path}: pencils not split per (m, ell) in complex128: "
+                             f"{pencil.slot_split} {pencil.dtype}")
+    print(f"setup by phase {setup}; G={pencil.G} P={pencil.R} complex dense stacks "
+          f"{stack_gb:.3f} GB each")
+
+    last, restore_solve = record_solves()
+    try:
+        t0 = time.perf_counter()
+        solver.run_steps(dt, SHELL_C['warmup'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        solver.run_steps(dt, SHELL_C['compare_steps'] - SHELL_C['warmup'])
+        state20 = grid_state(solver)
+        top = max(float(v.abs().max()) for v in state20.values())
+        imag = max(float(v.imag.abs().max()) for v in state20.values()) / top
+        held = {}
+        if real is not None:
+            errs = {k: float((state20[k] - real[k]).abs().max()) / top for k in real}
+            print(f"{path} against the real form after {SHELL_C['compare_steps']} steps "
+                  f"(grid, of the state's largest value): {errs} (tol 1e-10); largest "
+                  f"imaginary part {imag:.3e} of it")
+            if not max(errs.values()) <= 1e-10:
+                raise AssertionError(f"{path}: complex and real forms disagree: {errs}")
+            held = dict(vs_real=errs, max_imag=imag)
+        if other is not None:
+            errs = {k: float((state20[k] - other[k]).abs().max()) / top for k in other}
+            own = {k: float((state20[k] - other[k]).abs().max())
+                   / max(float(other[k].abs().max()), 1e-300) for k in other}
+            print(f"{path} against the zcross(u) form after {SHELL_C['compare_steps']} steps "
+                  f"(grid, of the state's largest value): {errs} (tol 1e-12); of each "
+                  f"field's own max: {own}")
+            if not max(errs.values()) <= 1e-12:
+                raise AssertionError(f"{path}: the two Coriolis forms disagree: {errs}")
+            held = dict(vs_zcross_form=errs, vs_zcross_form_own=own, max_imag=imag)
+
+        if u_f64 is not None:
+            phase(f"ZCross, KF complex, KE signed, KG cross complex, KH/KI/KJ complex, K3, "
+                  f"KG, K7 vs plain twins ({path} shapes)")
+            check_complex_shell_kernels(path, solver, ctx, u_f64)
+        else:
+            check_k3(path, pencil, solver.state_flat(), name='pencil_gather_scatter_c128')
+
+        phase(f"{path}: {steps} timed steps of run_steps")
+        it0 = solver.iteration
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count_launches(path, steps, lambda: solver.run_steps(dt, steps))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        restore_solve()
+    n = solver.iteration - it0
+    ms_step = run_s / n * 1e3
+    dof = size[0] * size[1] * size[2] * 5
+    state = solver.state_flat()
+    resid = solve_residual(last)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / n for k, v in LAUNCHES[path].items() if v}
+    walls = msh.wall_residuals(ctx)
+    print(f"[{smi}] {path} {size[0]}x{size[1]}x{size[2]} complex128 SBDF2: {ms_step:.3f} ms/step "
+          f"over {n} steps, {dof * n / run_s:.4e} DOF*steps/s, setup {setup['total_s']:.2f} s, "
+          f"warmup {warm_s:.2f} s ({SHELL_C['warmup']} steps), peak memory "
+          f"{peak / 2**30:.2f} GiB, of which {held_before / 2**30:.2f} GiB held before the run")
+    print(f"launches per step {per_step}; last solve residual {resid:.3e}; walls "
+          f"(u(r=Ri), radial(u(r=Ro)), shear stress) {walls}")
+    if not torch.isfinite(state).all():
+        raise AssertionError(f"{path}: the state is not finite")
+    if not resid <= 1e-12:
+        raise AssertionError(f"{path}: last solve residual {resid:.3e} > 1e-12")
+    if not max(walls) <= 1e-12:
+        raise AssertionError(f"{path}: wall residuals {walls} > 1e-12")
+
+    ell = None
+    if zcross:
+        # SphericalEllProduct on the final state, through KH, against the
+        # CPU-held port's evaluation from the same coefficients
+        phase(f"{path}: SphericalEllProduct(u, ell (ell + 1)) on the final state vs the CPU")
+        ell_func = lambda l: l * (l + 1)
+        u, coords = ctx['u'], ctx['coords']
+        kh0 = oball.ball_radial_apply.launches_c128
+        e = SphericalEllProduct(u, coords, ell_func).evaluate()
+        e.require_coeff_space()
+        kh_calls = oball.ball_radial_apply.launches_c128 - kh0
+        cpu = shell_field_on_cpu(u)
+        ec = SphericalEllProduct(cpu, cpu.tensorsig[0], ell_func).evaluate()
+        ec.require_coeff_space()
+        ell = rel_err(e.data.cpu(), ec.data)
+        print(f"EllProduct card vs CPU rel_err {ell[0]:.3e} (tol 1e-12), KH launches {kh_calls}")
+        if not (ell[0] <= 1e-12 and kh_calls > 0):
+            raise AssertionError(f"EllProduct: card and CPU disagree ({ell}) or KH was not "
+                                 f"launched ({kh_calls})")
+
+    phase(f"{path}: where the time goes (device synchronised around each segment)")
+    targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
+               ('F', solver, 'traced_F'), ('solve (KA)', osolve.FactorizedStack, 'solve'),
+               ('scatter', pencil, 'scatter_state'),
+               ('history combine (K7)', tsm, 'history_combine')]
+    coriolis = [('ZCross', kz, 'zcross')] if zcross else [('KG cross', arith, 'grid_cross')]
+    nested = coriolis + [('KJ', oshell, 'shell_radial_transform'),
+                         ('KH', oball, 'ball_radial_apply'),
+                         ('KI', ki, 'regularity_recombine'),
+                         ('KE signed', opolar, 'trailing_apply'),
+                         ('KF complex', kf, 'spin_recombine_complex'),
+                         ('KG', arith, 'grid_product')]
+    breakdown(path, solver, targets, nested, lambda: solver.run_steps(dt, 10), smi)
+    print(json.dumps({f"{path}_F": f_profile(solver, state, solver.sim_time, path=path),
+                      "card": smi}))
+    summary = dict(
+        config=f"shell {size[0]}x{size[1]}x{size[2]} complex128 Ra=3500 Pr=1 Ek=0.1 SBDF2 "
+               f"dt={dt:g} {solver.matsolver}, Coriolis -2*Omega*{form}",
+        card=smi, ms_per_step=ms_step, steps=n, dof_steps_per_s=dof * n / run_s, setup=setup,
+        warmup_s=warm_s, G=pencil.G, P=pencil.R, stack_gb=stack_gb, peak_bytes=peak,
+        held_before_bytes=held_before,
+        launches_per_step=per_step, last_solve_residual=resid, wall_residuals=walls,
+        ell_product_err=ell, **held)
+    print(json.dumps({f"{path}_path": summary}))
+    return summary, state20
+
+
+def shell_field_on_cpu(u):
+    """A CPU-held copy of a shell vector field of the card (its basis
+    rebuilt on a CPU distributor, its coefficients copied)."""
+    import dedalus_tpu_torch.public as d3
+    shell = u.domain.bases[-1].parent
+    coords = d3.SphericalCoordinates('phi', 'theta', 'r')
+    dist = d3.Distributor(coords, dtype=u.dtype, device='cpu')
+    basis = d3.ShellBasis(coords, shell.shape, radii=shell.radii, dealias=shell.dealias,
+                          dtype=u.dtype)
+    out = dist.VectorField(coords, name=u.name, bases=basis)
+    u.require_coeff_space()
+    out['c'] = u.data.cpu().numpy()
+    return out
+
+
+def complex_shell_path(reference=None, steps=SHELL_C['steps']):
+    """The shell convection example in complex128 at 192x96x12 (G=9216
+    per-(m, ell) pencils of P=137, complex stacks of 2.77 GB each, under
+    [memory] max_dense_stack_gb = 3, set here and restored), SBDF2 at
+    dt=2e-3 on the default matsolver, from the example's initial condition
+    taken real (its GlobalFlowProperty max is left out: the reference
+    raises on complex data too): run A with the Coriolis term through
+    SphericalZCross, run B as written (KG's complex cross form). The real
+    form is shell_path()'s run (`reference`, its return; run here when not
+    given): its initial buoyancy starts both runs, A is held against its
+    state after 20 steps and B against A's."""
+    from dedalus_tpu_torch.utils.config import config
+    if reference is None:
+        reference = shell_path()
+    dev, kind, smi = card()
+    old = config.get('memory', 'max_dense_stack_gb')
+    config.set('memory', 'max_dense_stack_gb', SHELL_C['max_dense_stack_gb'])
+    try:
+        bg = reference['b0']
+        _, state_a = complex_shell_run('shell192c_zcross', True, bg, dev, kind, smi, steps,
+                                       real=reference['state'], u_f64=reference['u'])
+        complex_shell_run('shell192c', False, bg, dev, kind, smi, steps, other=state_a)
+    finally:
+        config.set('memory', 'max_dense_stack_gb', old)
 
 
 BALL_IHC_KG_CASES = (
@@ -3681,24 +4378,19 @@ def ball_ihc_example():
                              f"div {div:.3e}")
 
 
-def check_ball_ihc_kernels(solver, ctx):
-    """KH's pair-rotation form and KG's cross form against their plain
-    twins at the example's shapes: the rotation form on curl(u)'s four
-    imaginary per-ell stacks in one launch (pair slots NP = 2 and, on the
-    same stacks, NP = 1), storing and accumulating, with seeded random data
-    of u's coefficient shape; KG cross on (curl(u), u) of the current state
-    on the dealias grid, the left-handed sign."""
-    import dedalus_tpu_torch.public as d3
-    from dedalus_tpu_torch.ops import ball as oball, products as oprod
+def check_kh_rot(name, path, op, rand, primary):
+    """KH's pair-rotation form against its plain twin at the shapes of the
+    curl op = curl(u): its four imaginary per-ell stacks in one launch (pair
+    slots NP = 2 and, on the same stacks, NP = 1), storing and accumulating,
+    on seeded data rand(shape) of u's coefficient shape and dtype: the
+    rotation of the (cos, -sin) pair on float64 data (zero at NP = 1), the
+    product by i on complex128 data. Timed at NP = 2."""
+    from dedalus_tpu_torch.ops import ball as oball
     from dedalus_tpu_torch.core.operators_ball import _comp_indices, _flat
-    u, ball = ctx['u'], ctx['ball']
+    u = op.args[0]
     dev = u.data.device
     M, L, N = u['c'].shape[1:]
     K = M // 2
-    gen = torch.Generator(device=dev).manual_seed(19)
-    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
-
-    op = d3.curl(u)
     terms = []
     for ii in _comp_indices(u.tensorsig):
         for oi in op.regindices_out(ii):
@@ -3712,9 +4404,9 @@ def check_ball_ihc_kernels(solver, ctx):
         raise AssertionError(f"curl: {len(terms)} imaginary stacks, not 4")
     E, O = terms[0][0].shape[:2]
     errs = []
-    for NP in (1, 2):   # the timed calls below take the curl's shapes, NP = 2
+    for NP in (1, 2):
         x = rand((3, K, NP, L, N))
-        outk = torch.empty((3, K, NP, L, O), dtype=torch.float64, device=dev)
+        outk = torch.empty((3, K, NP, L, O), dtype=x.dtype, device=dev)
         oball.ball_radial_apply_rot(terms, x, outk)
         outp = oball.ball_radial_apply_rot_plain(terms, x, torch.empty_like(outk))
         base = rand(outk.shape)
@@ -3722,13 +4414,14 @@ def check_ball_ihc_kernels(solver, ctx):
         ap = oball.ball_radial_apply_rot_plain(terms, x, base.clone(), accumulate=True)
         torch.cuda.synchronize()
         errs += [rel_err(outk, outp), rel_err(ak, ap)]
-        if NP == 1 and not (outk.abs().max() == 0 and torch.equal(ak, base)):
+        if NP == 1 and not x.is_complex() and not (outk.abs().max() == 0
+                                                   and torch.equal(ak, base)):
             raise AssertionError("KH rotation form at NP = 1: not zero")
     scratch = torch.empty_like(outk)
-    views = [(oball.per_slot_view(S, K, L), ci, co) for S, ci, co in terms]
+    views = [(oball.per_slot_view(S, K, L).to(x.dtype), ci, co) for S, ci, co in terms]
 
     def library():
-        rot = torch.stack([-x[:, :, 1], x[:, :, 0]], 2)
+        rot = 1j * x if x.is_complex() else torch.stack([-x[:, :, 1], x[:, :, 0]], 2)
         res = {}
         for Sv, ci, co in views:
             r = torch.einsum('klon,kpln->kplo', Sv, rot[ci])
@@ -3736,11 +4429,13 @@ def check_ball_ihc_kernels(solver, ctx):
         return res
 
     # What the function needs: each stack once, the three input components'
-    # and the three outputs' slots (inputs only where k + l < E)
+    # and the three outputs' slots (inputs only where k + l < E); complex
+    # data takes each real product twice
     live = sum(max(min(L, E - k), 0) for k in range(K))
-    record('ball_radial_apply_rot', 'ball_ihc', dict(
+    parts = 2 if x.is_complex() else 1
+    record(name, path, dict(
         err=max(errs), shape=[4] + list(terms[0][0].shape),
-        what="curl(u)'s 4 imaginary per-ell stacks, pair-rotated, one launch",
+        what=f"curl(u)'s 4 imaginary per-ell stacks, {x.dtype}, one launch",
         ms=cuda_ms(lambda: oball.ball_radial_apply_rot(terms, x, scratch), 50),
         plain_ms=cuda_ms(lambda: oball.ball_radial_apply_rot_plain(terms, x, scratch), 50),
         library_ms=cuda_ms(library, 50),
@@ -3748,10 +4443,28 @@ def check_ball_ihc_kernels(solver, ctx):
                                                                   accumulate=True), 50),
         device_ms=device_ms(lambda: oball.ball_radial_apply_rot(terms, x, scratch)),
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(4 * nbytes(terms[0][0]) + 3 * 2 * live * N * 8 + nbytes(scratch),
-                         2 * O * N * 2 * live * 4)))),
-        True, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'ms_accumulate',
-                    'device_ms'))
+                   bound(4 * nbytes(terms[0][0]) + 3 * 2 * live * N * x.element_size()
+                         + nbytes(scratch), 2 * O * N * 2 * live * 4 * parts)))),
+        primary, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'ms_accumulate',
+                       'device_ms'))
+
+
+def check_ball_ihc_kernels(solver, ctx):
+    """KH's pair-rotation form and KG's cross form against their plain
+    twins at the example's shapes: the rotation form on curl(u)'s four
+    imaginary per-ell stacks in one launch (pair slots NP = 2 and, on the
+    same stacks, NP = 1), storing and accumulating, with seeded random data
+    of u's coefficient shape (check_kh_rot); KG cross on (curl(u), u) of
+    the current state on the dealias grid, the left-handed sign."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.ops import products as oprod
+    u, ball = ctx['u'], ctx['ball']
+    dev = u.data.device
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+
+    op = d3.curl(u)
+    check_kh_rot('ball_radial_apply_rot', 'ball_ihc', op, rand, True)
 
     # KG cross: curl(u) x u of the current state on the dealias grid
     w = op.evaluate()
@@ -4726,7 +5439,7 @@ def k15_bounds():
         counts, steps = LAUNCHES.get(path), STEPS.get(path)
         if not counts or not steps:
             continue
-        suffix = '_c128' if path.startswith('rbc256c') else ''
+        suffix = '_c128' if path.startswith(('rbc256c', 'shell192c')) else ''
         parts = step_bounds(STEP_STACKS[path], counts, steps, suffix)
         for name in ('cfl_max' + suffix, 'pencil_gather_scatter' + suffix):
             n = counts.get(name, 0) / steps
@@ -4765,41 +5478,54 @@ def main():
     print(f"CUDA kernels built (one nvcc per source, in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # Each phase's seconds, printed before the kernels line
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
     t_start = time.perf_counter()
-    banded_path()
-    schemes_path()
-    poly_path()
-    banded_fast_path()
-    cold_start_path()
-    dense_card_vs_cpu()
-    kdv_path()
-    conditions_path()
-    banded_lbvp_path()
-    matsolvers_card_vs_cpu()
-    example_path()
-    matsolver_loops_path()
-    complex_card_vs_cpu()
-    complex_rbc_path()
-    shear_flow_path()
-    polar_card_vs_cpu()
-    annulus_path()
-    disk_path()
-    sphere_card_vs_cpu()
-    sphere_path()
-    ball_card_vs_cpu()
-    ball_path()
-    shell_card_vs_cpu()
-    shell_path()
-    ball_ihc_card_vs_cpu()
-    ball_ihc_example()
-    ball_ihc_path()
+    timed(banded_path)
+    timed(schemes_path)
+    timed(poly_path)
+    timed(banded_fast_path)
+    timed(cold_start_path)
+    timed(dense_card_vs_cpu)
+    timed(kdv_path)
+    timed(conditions_path)
+    timed(banded_lbvp_path)
+    timed(matsolvers_card_vs_cpu)
+    timed(example_path)
+    timed(matsolver_loops_path)
+    timed(complex_card_vs_cpu)
+    timed(complex_rbc_path)
+    timed(shear_flow_path)
+    timed(polar_card_vs_cpu)
+    timed(annulus_path)
+    timed(disk_path)
+    timed(sphere_card_vs_cpu)
+    timed(sphere_path)
+    timed(ball_card_vs_cpu)
+    timed(ball_path)
+    timed(shell_card_vs_cpu)
+    shell_reference = timed(shell_path)
+    timed(complex_spherical_card_vs_cpu)
+    timed(complex_shell_path, shell_reference)
+    del shell_reference
+    timed(ball_ihc_card_vs_cpu)
+    timed(ball_ihc_example)
+    timed(ball_ihc_path)
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',
              'err_f32_branch', 'err_path_sinv', 'err_path_sinv_f32_branch', 'cond_S',
              'err_by_factor', 'pins', 'growth', 'solve_residual', 'solve_residual_plain',
              'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',
-             'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned')
+             'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned',
+             'err_f64', 'ms_f64', 'library_device_ms')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]
@@ -4813,7 +5539,13 @@ def main():
             **{k: v for k, v in r.items() if k in extra}))
         if not by_path:
             raise AssertionError(f"kernel {name} was launched by no main path")
+    # Forms checked against their twins that no main path launches
+    off_path = {name: {k: r.get(k) for k in ('err', 'ms', 'plain_ms', 'library_ms', 'bound_ms',
+                                              'bound_by', 'shape', 'what')}
+                for name, r in RESULTS.items() if name not in KERNELS}
+    print(json.dumps({"checked_off_the_main_paths": off_path}))
     print(json.dumps({"k15_bounds": k15_bounds()}))
+    print(json.dumps({"phase_seconds": seconds}))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -244,12 +244,12 @@ class Multiply(Future):
         # An NCC factor varying along an axis couples mode groups along it.
         # Curvilinear azimuth axes stay separable: the NCCs supported there
         # are axisymmetric (checked where their blocks are built).
-        from .basis_polar import AzimuthBasis
+        from .basis_polar import AZIMUTH_BASES
         for op in self._operands:
             if not op.has(*vars):
                 vary = np.array(op.domain.nonconstant)
                 for ax, b in enumerate(op.domain.bases):
-                    if isinstance(b, AzimuthBasis):
+                    if isinstance(b, AZIMUTH_BASES):
                         vary[ax] = False
                 out |= vary
         return out
@@ -306,7 +306,7 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
     ncomp_ncc = prod(tuple(cs.dim for cs in ncc_field.tensorsig)) or 1
     spatial_shape = coeffs.shape[len(ncc_field.tensorsig):]
     coeffs = coeffs.reshape((ncomp_ncc,) + spatial_shape)
-    from .basis_polar import AzimuthBasis
+    from .basis_polar import AZIMUTH_BASES
     radial_axis = _shell_axis(operand)
     blocks = []
     for i in range(ncomp_ncc):
@@ -331,7 +331,7 @@ def build_ncc_blocks(ncc, operand, out_domain, subproblem):
                 coeffs_consumed = coeffs_consumed or ncc_basis is not None
                 axis_mats.append(block)
             elif not coupled:
-                if ncc_basis is not None and not isinstance(ncc_basis, AzimuthBasis):
+                if ncc_basis is not None and not isinstance(ncc_basis, AZIMUTH_BASES):
                     raise NotImplementedError(
                         "NCCs varying along separable axes are not supported yet")
                 # An axisymmetric NCC: the azimuth factor is its m = 0 value

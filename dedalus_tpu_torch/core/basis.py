@@ -659,6 +659,129 @@ class ComplexFourier(FourierBase):
         return hash(self._key())
 
 
+class ExponentialFourier(FourierBase):
+    """
+    Complex exponential basis with paired (+k, -k) coefficient slots
+    [e^0, (dead), e^{+i th}, e^{-i th}, e^{+2i th}, e^{-2i th}, ...]
+    (dedalus_tpu/core/basis.py:784-900): group shape (2,) per |k|, as
+    RealFourier's pairs, so the per-m machinery of the curvilinear bases
+    batches signed wavenumbers (slot 0 = +m, slot 1 = -m). The k = 0 pair's
+    second slot is a dead pad. The azimuth of complex curvilinear fields.
+    Its transforms are the dense complex MMT (K1, torch.matmul), as the JAX
+    package has no fast form for it either.
+    """
+
+    @CachedAttribute
+    def wavenumbers_native(self):
+        slot = np.arange(self.size)
+        return np.where(slot % 2 == 0, slot // 2, -(slot // 2))
+
+    @property
+    def wavenumbers(self):
+        return self.wavenumbers_native * self.COV.stretch
+
+    @property
+    def group_shape(self):
+        return (min(self.size, 2),)
+
+    def _dead_mask(self):
+        """True on live slots; slot 1 (the -0 pad) is dead."""
+        mask = np.ones(self.size, dtype=bool)
+        if self.size > 1:
+            mask[1] = False
+        return mask
+
+    def _live_kmax(self, N):
+        return min(self.Kmax_for(N), (self.size - 1) // 2)
+
+    @CachedMethod
+    def forward_matrix(self, scale, dtype):
+        N = self.grid_size(scale)
+        K = self.wavenumbers_native[:, None]
+        X = 2 * np.pi * np.arange(N)[None, :] / N
+        mat = np.exp(-1j * K * X) / N
+        mat *= (np.abs(K) <= self._live_kmax(N))
+        mat *= self._dead_mask()[:, None]
+        return np.ascontiguousarray(mat.astype(np.complex128))
+
+    @CachedMethod
+    def backward_matrix(self, scale, dtype):
+        N = self.grid_size(scale)
+        K = self.wavenumbers_native[None, :]
+        X = 2 * np.pi * np.arange(N)[:, None] / N
+        mat = np.exp(1j * K * X)
+        mat *= (np.abs(K) <= self._live_kmax(N))
+        mat *= self._dead_mask()[None, :]
+        return np.ascontiguousarray(mat.astype(np.complex128))
+
+    def valid_coeff_mask(self, tensorsig=()):
+        return self._dead_mask()
+
+    def group_valid_mask(self, group, tensorsig=()):
+        width = min(self.size, 2)
+        if group == 0:
+            return np.array([True, False])[:width]
+        return np.ones(width, dtype=bool)
+
+    # --- operator matrices ---
+
+    @CachedMethod
+    def differentiation_matrix(self):
+        return sparse.diags(1j * self.wavenumbers, format='csr')
+
+    @CachedMethod
+    def interpolation_vector(self, position):
+        theta = self.COV.native_coord(position)
+        E = np.exp(1j * self.wavenumbers_native * theta) * self._dead_mask()
+        return sparse.csr_matrix(E[None, :].astype(complex))
+
+    @CachedMethod
+    def integration_vector(self):
+        I = np.zeros(self.size, dtype=complex)
+        I[0] = self.length
+        return sparse.csr_matrix(I[None, :])
+
+    @CachedMethod
+    def hilbert_matrix(self):
+        return sparse.diags(-1j * np.sign(self.wavenumbers_native).astype(complex),
+                            format='csr')
+
+    def ncc_matrix(self, ncc_basis, out_basis, coeffs, cutoff=1e-6):
+        """Multiplication: the convolution over signed wavenumbers."""
+        M = self.size
+        k = self.wavenumbers_native
+        live = self._dead_mask()
+        slot_of = {}
+        for slot in range(M):
+            if live[slot] and k[slot] not in slot_of:
+                slot_of[k[slot]] = slot
+        coeffs = np.ravel(coeffs)
+        rows, cols, vals = [], [], []
+        for j in range(M):
+            if not live[j] or abs(coeffs[j]) <= cutoff:
+                continue
+            for n in range(M):
+                if live[n] and k[j] + k[n] in slot_of:
+                    rows.append(slot_of[k[j] + k[n]])
+                    cols.append(n)
+                    vals.append(coeffs[j])
+        return sparse.csr_matrix((vals, (rows, cols)), shape=(M, M))
+
+    def __repr__(self):
+        return f"ExponentialFourier({self.coord.name}, size={self.size})"
+
+    def _key(self):
+        return ('ExponentialFourier', self.coord.name, self.size, self.bounds, self.dealias)
+
+    def __eq__(self, other):
+        if isinstance(other, ExponentialFourier):
+            return self._key() == other._key()
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self._key())
+
+
 def Fourier(*args, dtype=None, **kw):
     """RealFourier for float64, ComplexFourier for complex128
     (dedalus_tpu/core/basis.py:603)."""

@@ -2,11 +2,12 @@
 Ball and spherical-shell bases: the 3-D spherical domains (azimuth x
 colatitude x radius) built from spin-weighted spherical harmonics and, along
 the radius, generalized 3-D Zernike functions (the ball) or the shell's
-weighted Jacobi functions (dR/r)^k P_n^(a, b) (the shell), real dtype.
+weighted Jacobi functions (dR/r)^k P_n^(a, b) (the shell).
 
 Mirrors dedalus_tpu/core/basis_ball.py. A spherical field's coefficient data
 is (components..., M, L, N): the azimuth is RealFourier with interleaved
-(cos, -sin) pairs, colatitude slot j of azimuthal wavenumber m holds
+(cos, -sin) pairs in real dtype, ExponentialFourier with signed (+m, -m)
+slots in complex dtype; colatitude slot j of azimuthal wavenumber m holds
 ell = |m| + j for every component (the ell-aligned storage of
 core/basis_sphere.py). On the ball radial slot n is valid while
 n < N - ell // 2 (the triangular truncation, expressed through validity
@@ -21,6 +22,12 @@ holds regularity components, grid data coordinate components (phi, theta, r):
     the shell one ell-independent weighted Jacobi transform for every line
     (kernel KJ, ops/shell.py).
 
+The per-(m, ell) radial stacks depend on ell = |m| + j alone, so the signed
+slots share them: complex data goes through the same stacks, KH, KI and KJ
+taking it by their complex routes (ops/ball.py, ops/shell.py,
+csrc/regularity_recombine.py), and only the validity of the dead -0 slot
+differs from the real layout.
+
 Operator matrices are host scipy, built exactly as in the JAX package,
 the ball's radial NCC products too: per (ell, regularity total) for a
 scalar NCC, and per (ell, regularity triple) in the envelope-shifted
@@ -32,7 +39,7 @@ import torch
 from scipy import sparse
 
 from .basis import Basis, device_copy
-from .basis_polar import make_azimuth_basis
+from .basis_polar import make_azimuth_basis, signed_pairs
 from .basis_sphere import ColatitudeBasis
 from .coords import SphericalCoordinates
 from ..csrc import regularity_recombine as ki
@@ -246,7 +253,8 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
         """Flattened (azimuth pair, L, n) mask: slot j holds ell = |m| + j;
         radial slot n valid while n < n_size(ell); a tensor component also
         needs its regularity class to exist at ell. The m = 0 sin parts
-        follow the cos parts except (ell == 0, sin) for rank <= 1."""
+        follow the cos parts except (ell == 0, sin) for rank <= 1; with
+        signed (+m, -m) slots the whole -0 slot is dead."""
         L = self.parent.colatitude_basis.size
         mask = np.zeros((L, self.size), dtype=bool)
         for j in range(max(L - abs(m), 0)):
@@ -256,7 +264,9 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
             mask[j, :self.n_size(ell)] = True
         out = np.zeros((az_w,) + mask.shape, dtype=bool)
         out[0] = mask
-        if az_w > 1:
+        if az_w > 1 and signed_pairs(self.parent):
+            out[1] = np.zeros_like(mask) if m == 0 else mask    # the dead -0 slot
+        elif az_w > 1:
             sinmask = mask.copy()
             if len(tensorsig) <= 1 and m == 0:
                 sinmask[0] = False  # slot j = 0 holds ell = 0 at m = 0
@@ -360,11 +370,11 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
     def _ncc_cached(self, what, coeffs, args, build):
         """Cache of radial NCC products by the coefficients' bytes: every
         pencil group asks for the same ones."""
-        coeffs = np.ascontiguousarray(np.ravel(coeffs), dtype=np.float64)
-        key = (what, coeffs.tobytes()) + tuple(args)
+        coeffs = np.ascontiguousarray(np.ravel(coeffs))
+        key = (what, coeffs.dtype.str, coeffs.tobytes()) + tuple(args)
         cache = self.__dict__.setdefault('_ncc_cache', {})
         if key not in cache:
-            cache[key] = build(coeffs)
+            cache[key] = _by_parts(coeffs, build)
         return cache[key]
 
     def _ncc_scalar_ell(self, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff, ell, reg):
@@ -457,6 +467,18 @@ class BallRadialBasis(SphericalRadialBasis, Basis):
         return self._ncc_cached('comp', ncc_radial_coeffs,
                                 (ncc_k, float(ncc_alpha), ell, reg_ncc, reg_arg, reg_out,
                                  dk_out, cutoff), build)
+
+
+def _by_parts(coeffs, build):
+    """A radial product matrix, linear in the NCC's coefficients, built from
+    float64 coefficients: those of a complex field as build(re) + i
+    build(im) (the imaginary part skipped where it is zero)."""
+    if not np.iscomplexobj(coeffs):
+        return build(np.ascontiguousarray(coeffs, dtype=np.float64))
+    mat = build(np.ascontiguousarray(coeffs.real))
+    if np.any(coeffs.imag):
+        mat = mat + 1j * build(np.ascontiguousarray(coeffs.imag))
+    return mat
 
 
 def _pad_square(mat, n):
@@ -618,7 +640,8 @@ class SphericalShellRadialBasis(SphericalRadialBasis, Basis):
     def joint_valid_for_m(self, m, tensorsig=(), comp_idx=(), az_w=1):
         """Flattened (azimuth pair, L, n) mask: every radial slot of an ell
         whose regularity class exists; the m = 0 sin parts follow the cos
-        parts except (ell == 0, sin) for rank <= 1."""
+        parts except (ell == 0, sin) for rank <= 1; with signed (+m, -m)
+        slots the whole -0 slot is dead."""
         L = self.parent.colatitude_basis.size
         mask = np.zeros((L, self.size), dtype=bool)
         for j in range(max(L - abs(m), 0)):
@@ -628,7 +651,9 @@ class SphericalShellRadialBasis(SphericalRadialBasis, Basis):
             mask[j, :] = True
         out = np.zeros((az_w,) + mask.shape, dtype=bool)
         out[0] = mask
-        if az_w > 1:
+        if az_w > 1 and signed_pairs(self.parent):
+            out[1] = np.zeros_like(mask) if m == 0 else mask    # the dead -0 slot
+        elif az_w > 1:
             sinmask = mask.copy()
             if len(tensorsig) <= 1 and m == 0:
                 sinmask[0] = False  # slot j = 0 holds ell = 0 at m = 0
@@ -696,11 +721,13 @@ class SphericalShellRadialBasis(SphericalRadialBasis, Basis):
         coefficients `ncc_radial_coeffs` (basis k = ncc_k): the radial
         Clenshaw sum, ell-independent on the shell (cached by the
         coefficients' bytes: every pencil group asks for the same one)."""
-        coeffs = np.ascontiguousarray(np.ravel(ncc_radial_coeffs), dtype=np.float64)
-        key = (coeffs.tobytes(), ncc_k, tuple(np.ravel(ncc_alpha)), dk_out, cutoff)
+        coeffs = np.ascontiguousarray(np.ravel(ncc_radial_coeffs))
+        key = (coeffs.dtype.str, coeffs.tobytes(), ncc_k, tuple(np.ravel(ncc_alpha)), dk_out,
+               cutoff)
         cache = self.__dict__.setdefault('_ncc_cache', {})
         if key not in cache:
-            cache[key] = self._ncc_radial_matrix(coeffs, ncc_k, ncc_alpha, dk_out, cutoff)
+            cache[key] = _by_parts(coeffs, lambda c: self._ncc_radial_matrix(
+                c, ncc_k, ncc_alpha, dk_out, cutoff))
         return cache[key]
 
     def _ncc_radial_matrix(self, ncc_radial_coeffs, ncc_k, ncc_alpha, dk_out, cutoff):

@@ -1,31 +1,34 @@
 """
-Polar bases: the annulus and the disk, real dtype; and the azimuth basis,
-spin recombination and per-(m, spin) stack apply they share with the sphere
+Polar bases: the annulus and the disk; and the azimuth bases, spin
+recombination and per-(m, spin) stack apply they share with the sphere
 (core/basis_sphere.py).
 
 Mirrors dedalus_tpu/core/basis_polar.py. An annulus or disk field's
-coefficient data is (components..., M, N): the azimuth is RealFourier with
-interleaved (cos, -sin) pairs, so the radial transform sees M/2 azimuthal
-wavenumbers m, each with a pair of slots. Coefficient data holds spin
-components and grid data coordinate components; the radial transform
-recombines them (kernel KF, csrc/spin_recombine.py).
+coefficient data is (components..., M, N). In real dtype the azimuth is
+RealFourier with interleaved (cos, -sin) pairs, so the radial transform
+sees M/2 azimuthal wavenumbers m, each with a pair of slots. In complex
+dtype it is ExponentialFourier with signed (+m, -m) slot pairs (the -0 slot
+dead), so each slot takes the spin-weighted radial family of its own signed
+wavenumber: l = |m + s| in slot 0 and |-m + s| in slot 1. Coefficient data
+holds spin components and grid data coordinate components; the radial
+transform recombines them (kernel KF, csrc/spin_recombine.py: its real
+form on the (cos, -sin) pairs, its complex form on complex data).
 
   * annulus: the radial transform is one dense Jacobi matrix (K1, torch
     matmul) in z = 2r/dR - rho with a (dR/r)^k radial factor;
-  * disk: per-m Zernike matrices stacked over m, applied by kernel KE
-    (ops/polar.py) with rectangular storage and the reference's triangular
-    truncation expressed through validity masks (n_size(m)).
+  * disk: per-m Zernike matrices stacked over m (signed: over (m, slot)),
+    applied by kernel KE (ops/polar.py) with rectangular storage and the
+    reference's triangular truncation expressed through validity masks
+    (n_size(m)).
 
-Operator matrices are host scipy, built exactly as in the JAX package. The
-complex-dtype azimuth (signed (+m, -m) slots) waits for ComplexFourier
-(ROADMAP M2).
+Operator matrices are host scipy, built exactly as in the JAX package.
 """
 
 import numpy as np
 import torch
 from scipy import sparse
 
-from .basis import Basis, RealFourier, Jacobi, device_copy
+from .basis import Basis, RealFourier, ExponentialFourier, Jacobi, device_copy
 from .coords import PolarCoordinates
 from ..csrc import spin_recombine as kf
 from ..ops import polar as ops_polar
@@ -55,13 +58,27 @@ class AzimuthBasis(RealFourier):
         return super().valid_coeff_mask(tensorsig)
 
 
+class ExponentialAzimuthBasis(ExponentialFourier):
+    """Periodic azimuth basis on [0, 2 pi) of a polar or S2 system, complex
+    dtype: signed (+m, -m) slot pairs, so the spin-weighted radial and
+    colatitude transforms take the family of each signed wavenumber."""
+
+
+# The azimuth bases of curvilinear systems, either dtype
+AZIMUTH_BASES = (AzimuthBasis, ExponentialAzimuthBasis)
+
+
 def make_azimuth_basis(coord, size, dealias, dtype):
-    """Azimuth basis of a polar or sphere facade (real dtypes only)."""
-    if np.dtype(dtype).kind != 'f':
-        raise NotImplementedError(
-            "complex curvilinear fields (signed (+m, -m) azimuth slots) are not "
-            "ported yet (ROADMAP M2)")
-    return AzimuthBasis(coord, size, bounds=(0, 2 * np.pi), dealias=dealias, dtype=dtype)
+    """Azimuth basis of a polar or sphere facade, matching the dtype's pair
+    convention (dedalus_tpu/core/basis_polar.py:47-52)."""
+    cls = AzimuthBasis if np.dtype(dtype).kind == 'f' else ExponentialAzimuthBasis
+    return cls(coord, size, bounds=(0, 2 * np.pi), dealias=dealias, dtype=dtype)
+
+
+def signed_pairs(facade):
+    """True when the facade's azimuth stores signed (+m, -m) pairs (complex
+    dtype)."""
+    return isinstance(facade.azimuth_basis, ExponentialAzimuthBasis)
 
 
 # ---------------------------------------------------------------------------
@@ -85,15 +102,35 @@ def spin_matrix(coordsys, forward):
     return np.kron(U.real, np.eye(2)) + np.kron(U.imag, R90)
 
 
+def _unitary(coordsys, forward, device):
+    """The complex coord<->spin unitary on `device` (its radial row and
+    column, for a spherical system, the identity's)."""
+    key = (type(coordsys).__name__, forward, str(device), 'complex')
+    if key not in _W_CACHE:
+        U = coordsys.U_forward(1) if forward else coordsys.U_backward(1)
+        spin_matrix(coordsys, forward)     # checks the radial pass-through
+        _W_CACHE[key] = torch.as_tensor(np.asarray(U, dtype=np.complex128), device=device)
+    return _W_CACHE[key]
+
+
 def spin_recombine(coordsys, tensorsig, data, azimuth_axis, forward):
     """
-    Apply the coord<->spin unitary over each tensor rank of `coordsys`, on
+    Apply the coord<->spin unitary over each tensor rank of `coordsys`: on
     real data whose azimuth axis (`azimuth_axis`, counted in the full data
-    array) holds interleaved (cos, -sin) pairs. A rank-2 tensor is
-    recombined rank by rank. Each rank is one launch of kernel KF; the
-    radial component of a spherical rank passes through it.
+    array) holds interleaved (cos, -sin) pairs through the pair expansion W,
+    on complex data (signed slots) as the complex unitary itself. A rank-2
+    tensor is recombined rank by rank. Each rank is one launch of kernel KF
+    (its complex form for complex data); the radial component of a
+    spherical rank passes through it.
     """
     if not any(cs is coordsys for cs in tensorsig):
+        return data
+    if data.is_complex():
+        U = _unitary(coordsys, forward, data.device)
+        data = data.contiguous()
+        for i, cs in enumerate(tensorsig):
+            if cs is coordsys:
+                data = kf.spin_recombine_complex(data, i, U)
         return data
     key = (type(coordsys).__name__, forward, str(data.device))
     if key not in _W_CACHE:
@@ -404,7 +441,8 @@ class DiskRadialBasis(Basis):
     # --- transforms: per-(m, s) Zernike stacks (kernel KE) ---
 
     def _one_m_matrices(self, m, s, z, w):
-        """(forward, backward) radial matrices of one azimuthal wavenumber."""
+        """(forward, backward) radial matrices of one signed azimuthal
+        wavenumber."""
         n = self.size
         l = abs(m + s)
         ns = self.n_size(m)
@@ -428,16 +466,21 @@ class DiskRadialBasis(Basis):
     @CachedMethod
     def _transform_stacks(self, scale, s, direction):
         """Host stacks of per-m matrices, (KM+1, n, Nrg) forward ('f') or
-        (KM+1, Nrg, n) backward ('b')."""
+        (KM+1, Nrg, n) backward ('b'); with signed (+m, -m) slots
+        (KM+1, 2, n, Nrg) or (KM+1, 2, Nrg, n), slot 1 at l = |-m + s|."""
         Nrg = self.grid_size(scale)
         M = self.parent.azimuth_basis.size
         KM = (M - 1) // 2
         z, w = zernike_lib.quadrature(2, Nrg, k=self.alpha)
         n = self.size
-        fwd = np.zeros((KM + 1, n, Nrg))
-        bwd = np.zeros((KM + 1, Nrg, n))
+        signs = (1, -1) if signed_pairs(self.parent) else (1,)
+        fwd = np.zeros((KM + 1, len(signs), n, Nrg))
+        bwd = np.zeros((KM + 1, len(signs), Nrg, n))
         for m in range(KM + 1):
-            fwd[m], bwd[m] = self._one_m_matrices(m, s, z, w)
+            for slot, sign in enumerate(signs):
+                fwd[m, slot], bwd[m, slot] = self._one_m_matrices(sign * m, s, z, w)
+        if len(signs) == 1:
+            fwd, bwd = fwd[:, 0], bwd[:, 0]
         return np.ascontiguousarray(fwd if direction == 'f' else bwd)
 
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
@@ -516,6 +559,8 @@ class DiskRadialBasis(Basis):
         if m != 0:
             return sparse.csr_matrix((self.size, 1))
         fwd = self._transform_stacks(1, 0, 'f')[0]
+        if fwd.ndim == 3:   # signed pairs: the +0 slot
+            fwd = fwd[0]
         col = fwd @ np.ones(fwd.shape[1])
         return sparse.csr_matrix(col[:, None])
 

@@ -1,5 +1,5 @@
 """
-Sphere-surface (S2) basis: spin-weighted spherical harmonics, real dtype.
+Sphere-surface (S2) basis: spin-weighted spherical harmonics.
 
 Mirrors dedalus_tpu/core/basis_sphere.py. A sphere field's coefficient data
 is (components..., M, N): the azimuth is RealFourier with interleaved
@@ -17,9 +17,12 @@ the per-ell regularity recombination can mix components, and slots with
 ell < |s| stay invalid. There the data carries a trailing radius axis, which
 the trailing form of kernel KE batches through each per-m product in place.
 
+In complex dtype the azimuth holds signed (+m, -m) slot pairs
+(ExponentialFourier): the SWSH stacks are signed, (KM+1, 2, ...), slot 1
+holding the harmonics of -m, applied by KE's signed form; the dead -0 slot
+is invalid for every component.
+
 The colatitude grid is stored in increasing theta (decreasing z = cos theta).
-The complex dtype (signed (+m, -m) azimuth slots) waits for ComplexFourier
-(ROADMAP M2).
 """
 
 import numpy as np
@@ -27,7 +30,8 @@ import torch
 from scipy import sparse
 
 from .basis import Basis, device_copy
-from .basis_polar import make_azimuth_basis, spin_recombine, apply_spin_stacks, _comp_spin_map
+from .basis_polar import (make_azimuth_basis, spin_recombine, apply_spin_stacks, _comp_spin_map,
+                          signed_pairs)
 from .coords import S2Coordinates
 from ..ops import polar as ops_polar
 from ..utils.caching import CachedMethod
@@ -102,7 +106,8 @@ class ColatitudeBasis(Basis):
     # --- transforms: per-(m, s) SWSH stacks (kernel KE) ---
 
     def _one_m_swsh(self, m, s, z, w, Lmax_g):
-        """(forward, backward) SWSH matrices of one azimuthal wavenumber."""
+        """(forward, backward) SWSH matrices of one signed azimuthal
+        wavenumber."""
         n = self.size
         fwd = np.zeros((n, z.size))
         bwd = np.zeros((z.size, n))
@@ -119,16 +124,21 @@ class ColatitudeBasis(Basis):
     @CachedMethod
     def _transform_stacks(self, scale, s, direction):
         """Host stacks of per-m matrices, (KM+1, n, Ng) forward ('f') or
-        (KM+1, Ng, n) backward ('b')."""
+        (KM+1, Ng, n) backward ('b'); with signed (+m, -m) slots
+        (KM+1, 2, n, Ng) or (KM+1, 2, Ng, n), slot 1 the harmonics of -m."""
         Ng = self.grid_size(scale)
         M = self.parent.azimuth_basis.size
         KM = (M - 1) // 2
         z, w = self._zw(scale)
         n = self.size
-        fwd = np.zeros((KM + 1, n, Ng))
-        bwd = np.zeros((KM + 1, Ng, n))
+        signs = (1, -1) if signed_pairs(self.parent) else (1,)
+        fwd = np.zeros((KM + 1, len(signs), n, Ng))
+        bwd = np.zeros((KM + 1, len(signs), Ng, n))
         for m in range(KM + 1):
-            fwd[m], bwd[m] = self._one_m_swsh(m, s, z, w, Ng - 1)
+            for slot, sign in enumerate(signs):
+                fwd[m, slot], bwd[m, slot] = self._one_m_swsh(sign * m, s, z, w, Ng - 1)
+        if len(signs) == 1:
+            fwd, bwd = fwd[:, 0], bwd[:, 0]
         return np.ascontiguousarray(fwd if direction == 'f' else bwd)
 
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
@@ -178,11 +188,14 @@ class ColatitudeBasis(Basis):
         """Joint (azimuth pair, ell-slot) validity: the sin parts follow the
         cos parts, except that (ell == 0, sin) drops for rank <= 1 (real
         scalars and vectors; the m = 0 symmetry is not imposed for
-        ell > 0)."""
+        ell > 0). Signed (+m, -m) pairs instead drop the whole dead slot of
+        the m = 0 pair."""
         cosmask = self.component_valid_for_m(m, tensorsig, cidx)
         out = np.zeros((az_w, self.size), dtype=bool)
         out[0] = cosmask
-        if az_w > 1:
+        if az_w > 1 and signed_pairs(self.parent):
+            out[1] = np.zeros_like(cosmask) if m == 0 else cosmask
+        elif az_w > 1:
             sinmask = cosmask.copy()
             if len(tensorsig) <= 1 and m == 0:
                 # the slot of ell = 0, for spin 0 only (higher |s| exclude it)

@@ -15,9 +15,16 @@ kernel KH (ops/ball.py), the lift and interpolation blocks with kernel KE
 (ops/polar.py). The curl's radial matrices are imaginary: in real dtype
 their imaginary parts act on the rotated (cos, -sin) pair, in the pencil
 matrices through J = [[0, -1], [1, 0]] and in eager evaluation through
-KH's pair-rotation form.
+KH's pair-rotation form. In complex dtype (signed (+m, -m) slots) they act
+as the complex matrices they are: the pencil blocks carry i times the
+imaginary part on each slot, and KH's rotation form multiplies by i.
 
-The ell products and the z-cross wait for ROADMAP queue 2 (A1).
+SphericalEllProduct multiplies each (ell, regularity) component by a
+function of ell: a BallRegOperator whose per-ell radial matrices are that
+value times the identity, applied by KH. SphericalZCross is the Coriolis
+operator ez x u: on the grid a fused pass (csrc/zcross.py), in the pencils
+(complex dtype only, as in the JAX package) the SWSH Cos and Sin ladders of
+spectral/sphere.py conjugated to regularity components.
 """
 
 import functools
@@ -30,10 +37,13 @@ from .domain import Domain
 from .basis import device_copy
 from .operators import LinearOperator, device_matrix, host_matrix
 from .basis_ball import SphericalRadialBasis, SphericalShellRadialBasis, _pairs
+from .basis_polar import signed_pairs
 from .coords import SphericalCoordinates
+from ..csrc import zcross as kz
 from ..ops import ball as ops_ball
 from ..ops import polar as ops_polar
 from ..spectral import intertwiner as it
+from ..spectral import sphere as sphere_lib
 
 
 # Whether a component pair's stack of an operator has any entry, by its key
@@ -146,8 +156,8 @@ class BallRegOperator(LinearOperator):
         """Component-major pencil matrix: for each pair's slots (ell =
         |m| + j), its radial matrix, repeated over the azimuth pair slots
         (an imaginary part through the pair rotation J = [[0, -1], [1, 0]],
-        which is zero where the azimuth has one slot); assembled in one COO
-        pass."""
+        which is zero where the azimuth has one slot; in complex dtype as
+        i times itself on each slot); assembled in one COO pass."""
         m = subproblem.group[self.azimuth_axis]
         m = m if m is not None else 0
         az_w = subproblem.axis_width(
@@ -156,6 +166,7 @@ class BallRegOperator(LinearOperator):
         n_in, n_out = self.radial_in.size, self.radial_out.size
         ts_in, ts_out = self.operand.tensorsig, self.tensorsig
         Rb, Cb = az_w * L * n_out, az_w * L * n_in
+        complex_dtype = np.issubdtype(self.dtype, np.complexfloating)
         rows, cols, vals = [], [], []
         for ii in _comp_indices(ts_in):
             for oi in self.regindices_out(ii):
@@ -168,6 +179,8 @@ class BallRegOperator(LinearOperator):
                     # (output slot, input slot, sign) of the identity, or of J
                     if part != 'im':
                         slots = [(p, p, 1.0) for p in range(az_w)]
+                    elif complex_dtype:
+                        slots = [(p, p, 1j) for p in range(az_w)]
                     elif az_w == 2:
                         slots = [(0, 1, -1.0), (1, 0, 1.0)]
                     else:
@@ -379,6 +392,31 @@ class SphericalCurl(BallRegOperator):
         if in_idx[0] == 2 and out_idx[0] == 1:
             return 1j * _xi(-1, ell + reg) * rb.operator_matrix_ell('D+', ell, reg)
         return None
+
+
+class SphericalEllProduct(BallRegOperator):
+    """Multiplication by ell_func(ell + regtotal) per (ell, regularity)
+    component (dedalus_tpu/core/operators_ball.py:360-379): its radial
+    matrix at each ell is that value times the identity. No kernel of its
+    own: BallRegOperator.operate applies its per-ell stacks with KH (the
+    complex route on complex data), one launch per component."""
+
+    dk = 0
+    name = 'SphericalEllProduct'
+
+    def __init__(self, operand, coordsys, ell_func):
+        self.ell_func = ell_func
+        super().__init__(operand, coordsys)
+
+    def new_operands(self, operand):
+        return SphericalEllProduct(operand, self.coordsys, self.ell_func)
+
+    def _extra_key(self):
+        return (self.ell_func,)
+
+    def radial_matrix_ell(self, in_idx, out_idx, ell):
+        reg = it.regtotal(in_idx)
+        return float(self.ell_func(ell + reg)) * self.radial_in.operator_matrix_ell('Id', ell, reg)
 
 
 class BallConvert(BallRegOperator):
@@ -884,3 +922,138 @@ class BallConstantEmbed(LinearOperator):
         n = self.target_radial.size
         out = (data[..., 0] * col[:, 0]).reshape(tuple(data.shape[:-2]) + (L, n))
         return self._build_output(self.dist.coeff_layout, out, scales=None)
+
+
+class SphericalZCross(LinearOperator):
+    """
+    ez x u for ball and shell vector fields, with ez = cos(theta) e_r -
+    sin(theta) e_theta the axial unit vector: the Coriolis operator
+    (dedalus_tpu/core/operators_ball.py:1009-1157).
+
+    On the grid (explicit, right-hand-side use, both dtypes) it is one fused
+    pass of the ZCross kernel (csrc/zcross.py). Its pencil matrices lower it
+    to banded SWSH angular ladders: in spin components
+        (ez x u)_s = s*i*Cos u_s + (s*i/sqrt(2)) Sin_{ds=s} u_r   (s = +-1)
+        (ez x u)_r = sum_s (s*i/sqrt(2)) Sin_{ds=-s} u_s
+    (Cos couples ell +- 1 at fixed spin; Sin shifts spin with an ell-banded
+    matrix), conjugated to regularity components by the per-ell Q
+    intertwiners, built on the host per signed m. They need complex dtype
+    (the +-i factors), as in the JAX package.
+    """
+
+    name = 'ZCross'
+
+    def __init__(self, operand):
+        if len(operand.tensorsig) != 1 or not isinstance(operand.tensorsig[0],
+                                                         SphericalCoordinates):
+            raise ValueError("ZCross requires a spherical vector field")
+        self.coordsys = operand.tensorsig[0]
+        self.azimuth_axis = self.coordsys.coords[0].axis
+        self.colatitude_axis = self.coordsys.coords[1].axis
+        self.radius_axis = self.coordsys.coords[2].axis
+        self.radial_in = operand.domain.bases[self.radius_axis]
+        if not isinstance(self.radial_in, SphericalRadialBasis):
+            raise ValueError("ZCross requires a ball/shell radial basis")
+        super().__init__(operand)
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        self.domain = op.domain
+
+    def new_operands(self, operand):
+        return SphericalZCross(operand)
+
+    def matrix_dependence(self, *vars):
+        out = self.operand.matrix_dependence(*vars).copy()
+        out[self.azimuth_axis] = True
+        return out
+
+    def matrix_coupling(self, *vars):
+        out = self.operand.matrix_coupling(*vars).copy()
+        out[self.colatitude_axis] = True
+        # the joint (ell, n) pencil layout takes the radius in whenever the
+        # colatitude couples
+        out[self.radius_axis] = True
+        return out
+
+    def _spin_slot_matrix(self, m):
+        """(3, L, 3, L) spin-component slot-coupling matrix at signed m."""
+        colat = self.radial_in.parent.colatitude_basis
+        L, Lmax = colat.size, colat.Lmax
+        spin_of = {0: -1, 1: +1, 2: 0}
+
+        def off(s):
+            return max(abs(m), abs(s)) - abs(m)
+
+        def place(M, si, sj, packed, scale):
+            r0, c0 = off(spin_of[si]), off(spin_of[sj])
+            A = np.asarray(sparse.csr_matrix(packed).todense())
+            r1, c1 = min(r0 + A.shape[0], L), min(c0 + A.shape[1], L)
+            M[si, r0:r1, sj, c0:c1] += scale * A[:r1 - r0, :c1 - c0]
+
+        M = np.zeros((3, L, 3, L), dtype=complex)
+        for si, s in ((0, -1), (1, +1)):
+            place(M, si, si, sphere_lib.operator('Cos', 0, Lmax, m, s), s * 1j)
+            place(M, si, 2, sphere_lib.operator('Sin', s, Lmax, m, 0), s * 1j / np.sqrt(2))
+            place(M, 2, si, sphere_lib.operator('Sin', -s, Lmax, m, s), s * 1j / np.sqrt(2))
+        return M
+
+    def _reg_slot_matrix(self, m):
+        """Regularity-space (3L, 3L) matrix at signed m (Q-conjugated)."""
+        L = self.radial_in.parent.colatitude_basis.size
+        Qs = np.zeros((L, 3, 3))
+        for j in range(L - abs(m)):
+            Qs[j] = it.Q_matrix(abs(m) + j, 1)
+        # reg = Q^T spin (Q real orthogonal): M_reg = Q^T M_spin Q per slot
+        Mreg = np.einsum('jsa,sjtk,ktb->ajbk', Qs, self._spin_slot_matrix(m), Qs)
+        return Mreg.reshape(3 * L, 3 * L)
+
+    def subproblem_matrix(self, subproblem):
+        if not np.issubdtype(self.dtype, np.complexfloating):
+            raise NotImplementedError(
+                "ZCross subproblem matrices require complex dtype; use the "
+                "explicit (RHS) form for real-dtype IVPs")
+        m = subproblem.group[self.azimuth_axis]
+        m = m if m is not None else 0
+        az_w = subproblem.axis_width(
+            self.operand.domain.bases[self.azimuth_axis], self.azimuth_axis)
+        rb = self.radial_in
+        L, n = rb.parent.colatitude_basis.size, rb.size
+        signed = signed_pairs(rb.parent)
+        # Layout: components outermost, then (azimuth slot q, L, n)
+        rowsz = az_w * L * n
+        out = sparse.lil_matrix((3 * rowsz, 3 * rowsz), dtype=complex)
+        for q in range(az_w):
+            ms = -m if (q == 1 and signed) else m
+            Mq = sparse.kron(sparse.csr_matrix(self._reg_slot_matrix(ms)),
+                             sparse.identity(n), format='csr')
+            for a in range(3):
+                for b in range(3):
+                    blk = Mq[a * L * n:(a + 1) * L * n, b * L * n:(b + 1) * L * n]
+                    r0, c0 = a * rowsz + q * L * n, b * rowsz + q * L * n
+                    out[r0:r0 + L * n, c0:c0 + L * n] = blk
+        return sparse.csr_matrix(out)
+
+    def expression_matrices(self, subproblem, vars, **kw):
+        op_mats = self.operand.expression_matrices(subproblem, vars, **kw)
+        mat = self.subproblem_matrix(subproblem)
+        return {v: mat @ mm for v, mm in op_mats.items()}
+
+    def _angle_vectors(self, scale, device):
+        """(cos theta, sin theta) on the colatitude grid at `scale`, float64
+        on `device`."""
+        colat = self.radial_in.parent.colatitude_basis
+        key = ('ZCrossAngles', colat._key(), float(scale))
+        theta = lambda: np.asarray(colat.global_grid(scale))
+        return (device_matrix(key + ('cos',), lambda: np.cos(theta()), device),
+                device_matrix(key + ('sin',), lambda: np.sin(theta()), device))
+
+    def operate(self, arg_fields):
+        from .arithmetic import _to_dealias_grid
+        data = _to_dealias_grid(arg_fields[0])
+        scales = self.domain.dealias
+        ct, st = self._angle_vectors(scales[self.colatitude_axis], data.device)
+        out = kz.zcross(data.contiguous(), ct, st)
+        return self._build_output(self.dist.grid_layout, out, scales=scales)

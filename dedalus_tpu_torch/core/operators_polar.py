@@ -11,6 +11,10 @@ applies them with kernel KE (ops/polar.py).
 
 Spin conventions: component ordering (-, +); u_s = (u_r + s*1j*u_phi)/sqrt(2);
 coefficient data holds spin components, grid data coordinate components.
+In complex dtype the azimuth holds signed (+m, -m) slots: each slot takes
+the radial matrix of its own signed wavenumber, so the pencil matrices are
+block-diagonal over the two slots and the device stacks are signed,
+(KM+1, 2, n_out, n_in), applied by KE's signed form.
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ from scipy import sparse
 
 from .domain import Domain
 from .operators import LinearOperator, device_matrix
+from .basis_polar import signed_pairs
 from ..ops import polar as ops_polar
 from ..utils.general import prod
 
@@ -73,6 +78,12 @@ class PolarMOperator(LinearOperator):
     def radial_matrix(self, in_idx, out_idx, m):
         raise NotImplementedError
 
+    @property
+    def signed(self):
+        """Whether the operand's azimuth holds signed (+m, -m) slots."""
+        radial = self.radial_in if self.radial_in is not None else self.radial_out
+        return signed_pairs(radial.parent)
+
     def subproblem_matrix(self, subproblem):
         m = subproblem.group[self.azimuth_axis]
         op = self.operand
@@ -87,8 +98,15 @@ class PolarMOperator(LinearOperator):
             row = []
             for ii in self._comp_indices(op.tensorsig):
                 if oi in self.spinindices_out(ii):
-                    A = self.radial_matrix(ii, oi, m if m is not None else 0)
-                    blk = sparse.kron(sparse.identity(lead_w * az_w), A)
+                    mm = m if m is not None else 0
+                    if self.signed and az_w == 2:
+                        # per-slot radial matrices of +m and -m
+                        A = sparse.block_diag([self.radial_matrix(ii, oi, mm),
+                                               self.radial_matrix(ii, oi, -mm)], format='csr')
+                        blk = sparse.kron(sparse.identity(lead_w), A)
+                    else:
+                        A = self.radial_matrix(ii, oi, mm)
+                        blk = sparse.kron(sparse.identity(lead_w * az_w), A)
                 else:
                     blk = sparse.csr_matrix((lead_w * az_w * nr_out, lead_w * az_w * nr_in))
                 row.append(blk)
@@ -100,13 +118,19 @@ class PolarMOperator(LinearOperator):
     # --- eager evaluation (kernel KE) ---
 
     def _matrix_stack(self, in_idx, out_idx, device):
-        """Device stack (KM+1, n_out, n_in) of the per-m radial matrices."""
+        """Device stack (KM+1, n_out, n_in) of the per-m radial matrices, or
+        (KM+1, 2, n_out, n_in) per signed (+m, -m) slot."""
         az_basis = self.operand.domain.bases[self.azimuth_axis]
         KM = (az_basis.size - 1) // 2
+        signs = (1, -1) if self.signed else (1,)
         key = (type(self).__name__, self.radial_in._key() if self.radial_in else None,
-               self.radial_out._key() if self.radial_out else None, in_idx, out_idx, KM)
-        build = lambda: np.stack([self.radial_matrix(in_idx, out_idx, m).toarray()
-                                  for m in range(KM + 1)])
+               self.radial_out._key() if self.radial_out else None, in_idx, out_idx, KM,
+               len(signs))
+
+        def build():
+            S = np.stack([[self.radial_matrix(in_idx, out_idx, sign * m).toarray()
+                           for sign in signs] for m in range(KM + 1)])
+            return S[:, 0] if len(signs) == 1 else S
         return device_matrix(key, build, device)
 
     def _out_size(self):

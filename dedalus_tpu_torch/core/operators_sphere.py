@@ -108,7 +108,8 @@ class SpinSkew(LinearOperator):
     """
     90-degree tangent-plane rotation of a spin vector: skew(u)_s = -s*1j*u_s,
     which on the real (cos, -sin) azimuth pairs is the pair rotation
-    (a, b) -> (s*b, -s*a). Valid for polar and S2 systems alike.
+    (a, b) -> (s*b, -s*a), and on complex data (signed slots) the product
+    itself. Valid for polar and S2 systems alike.
     """
 
     def __init__(self, operand):
@@ -130,6 +131,12 @@ class SpinSkew(LinearOperator):
         field.require_coeff_space()
         data = field.data
         nt = len(field.tensorsig)
+        if data.is_complex():
+            spins = np.zeros(field.tensor_shape + (1,) * (data.ndim - nt))
+            for idx in np.ndindex(*field.tensor_shape):
+                spins[idx] = self.coordsys.spintotal(field.tensorsig, idx)
+            out = torch.as_tensor(-1j * spins, dtype=data.dtype, device=data.device) * data
+            return self._build_output(self.dist.coeff_layout, out, scales=field.scales)
         az = nt + self.azimuth_axis
         pairs = data.unflatten(az, (data.shape[az] // 2, 2))
         a, b = pairs.select(az + 1, 0), pairs.select(az + 1, 1)
@@ -157,7 +164,12 @@ class SpinSkew(LinearOperator):
             for ii in idxs:
                 if oi == ii:
                     s = self.coordsys.spintotal(self.tensorsig, ii)
-                    P = np.array([[0., s], [-s, 0.]]) if az_w == 2 else np.array([[0.0]])
+                    if np.issubdtype(self.dtype, np.complexfloating):
+                        P = (-s * 1j) * np.eye(az_w)    # signed slots: componentwise
+                    elif az_w == 2:
+                        P = np.array([[0., s], [-s, 0.]])
+                    else:
+                        P = np.array([[0.0]])
                     row.append(sparse.kron(sparse.identity(lead_w),
                                            sparse.kron(sparse.csr_matrix(P),
                                                        sparse.identity(n))))

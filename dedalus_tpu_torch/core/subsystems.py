@@ -752,7 +752,8 @@ class PencilSystem:
         per (m, ell slot) when no matrix couples two slots (no angular
         operator on the left-hand side): the pencil size drops from
         ncomp*az*L*n to ncomp*az*n, which is what lets the dense stacks of a
-        ball at 64x32x32 fit on the card.
+        ball at 64x32x32 fit on the card. Complex pencils whose matrices
+        couple slots raise a ValueError: the JAX package cannot step them.
         """
         from .basis_ball import SphericalRadialBasis
         if self.separable is not None:
@@ -800,6 +801,15 @@ class PencilSystem:
             for A in self.matrices_scipy[name]:
                 coo = sparse.coo_matrix(A)
                 if np.any(slot_of_row[coo.row] != slot_of_col[coo.col]):
+                    if np.issubdtype(self.dtype, np.complexfloating):
+                        # The JAX package's first step fails on such pencils
+                        # (a TypeError gathering the equation data,
+                        # dedalus_tpu/core/subsystems.py:1298 via :1417)
+                        raise ValueError(
+                            "complex ball and shell IVPs whose left-hand side couples ell "
+                            "slots (an angular operator such as SphericalZCross on the LHS) "
+                            "are not supported, as in the JAX package: move the term to "
+                            "the right-hand side")
                     logger.info("slot split: matrices couple ell slots; keeping joint pencils")
                     return
         Gs = self.G

@@ -54,15 +54,18 @@ SIGNATURES = {
         'k14c_override_f64': [_P] * 4 + [_I] * 2 + [_P],
     },
     'polar_kernels': {
-        'ke_polar_apply_f64': [_P] * 3 + [_I] * 5 + [_P],
-        'ke_trailing_apply_f64': [_P] * 3 + [_I] * 10 + [_P],
+        'ke_polar_apply_f64': [_P] * 3 + [_I] * 8 + [_P],
+        'ke_trailing_apply_f64': [_P] * 3 + [_I] * 11 + [_P],
     },
     'ball_kernels': {
         'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],
+        'kh_ball_radial_apply_c128': [_P] * 3 + [_I] * 16 + [_P],
         'kh_ball_radial_rot_apply_f64': [_P] * 6 + [_I] * 16 + [_P],
+        'kh_ball_radial_rot_apply_c128': [_P] * 6 + [_I] * 16 + [_P],
     },
     'shell_kernels': {
         'kj_shell_radial_f64': [_P] * 5 + [_I] * 3 + [_P],
+        'kj_shell_radial_c128': [_P] * 5 + [_I] * 3 + [_P],
     },
     'fft_kernels': {
         'k10_dft_c128': [_P, _I] + [_P] * 4 + [_I, _D, _P] + [_I] * 4 + [_P],
@@ -163,16 +166,33 @@ def launcher(name, dtype):
     return getattr(library(), f"{name}_{SUFFIX[str(dtype)]}")
 
 
-def counter(dtype):
-    """The attribute that counts a wrapper's launches on `dtype`: the
-    complex128 form's in `launches_c128`, every other form's in `launches`."""
-    return 'launches_c128' if str(dtype) == 'torch.complex128' else 'launches'
+# The forms of a kernel counted apart from its float64 launches, by the
+# suffix of their count (`launches_<suffix>`) and of their kernel's name in
+# chip_smoke.py: complex128 data, and KE's signed (m, +-) stacks
+FORMS = {'torch.complex128': 'c128', 'signed': 'signed'}
 
 
-def count(wrapper, dtype):
-    """Add one launch of `wrapper`'s kernel on `dtype` to its count."""
-    attr = counter(dtype)
+def counter(form):
+    """The attribute that counts a wrapper's launches in `form`: a dtype,
+    'signed', or a form's suffix ('c128', 'signed'). A counted form's
+    launches go in `launches_<suffix>`, every other form's in `launches`."""
+    form = str(form)
+    suffix = FORMS.get(form, form if form in FORMS.values() else None)
+    return f'launches_{suffix}' if suffix else 'launches'
+
+
+def count(wrapper, form):
+    """Add one launch of `wrapper`'s kernel in `form` (as in counter) to its
+    count."""
+    attr = counter(form)
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+def reset(wrapper):
+    """Set every launch count that `wrapper` keeps to 0."""
+    for attr in ['launches'] + [f'launches_{suffix}' for suffix in FORMS.values()]:
+        if hasattr(wrapper, attr):
+            setattr(wrapper, attr, 0)
 
 
 def check(status, name):

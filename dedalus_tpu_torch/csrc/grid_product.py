@@ -28,7 +28,9 @@ The cross form, out[i] = alpha * (a[j] * b[k] - a[k] * b[j]) over the
 cyclic (i, j, k) of three components (alpha = -1 on a left-handed frame),
 replaces the jnp.cross of CrossProduct.operate (:1069-1112): the same
 streaming pass, each point's six inputs loaded once and three outputs
-written.
+written. Its constexpr CPLX variant takes complex128 operands (the shell's
+Coriolis term of a complex field) as KG's does: (re, im) doubles, complex
+products in f64, alpha real (the frame's sign).
 
 Complex operands (the grid data of a ComplexFourier problem) take the
 kernel's constexpr CPLX variant: the tensors are read as float64 views of
@@ -126,7 +128,7 @@ def _build_cross_kernel():
     import triton.language as tl
 
     @triton.jit
-    def kernel(a, b, out, desc, n_pos, BLOCK: tl.constexpr):
+    def kernel(a, b, out, desc, n_pos, CPLX: tl.constexpr, BLOCK: tl.constexpr):
         pid = tl.program_id(0)
         offs = pid * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n_pos
@@ -148,15 +150,43 @@ def _build_cross_kernel():
         i0 = t // n1
         pa = a + i0 * a_s0 + i1 * a_s1 + i2 * a_s2
         pb = b + i0 * b_s0 + i1 * b_s1 + i2 * b_s2
-        a0 = tl.load(pa, mask=mask)
-        a1 = tl.load(pa + a_sc, mask=mask)
-        a2 = tl.load(pa + 2 * a_sc, mask=mask)
-        b0 = tl.load(pb, mask=mask)
-        b1 = tl.load(pb + b_sc, mask=mask)
-        b2 = tl.load(pb + 2 * b_sc, mask=mask)
-        tl.store(out + offs, scale * (a1 * b2 - a2 * b1), mask=mask)
-        tl.store(out + n_pos + offs, scale * (a2 * b0 - a0 * b2), mask=mask)
-        tl.store(out + 2 * n_pos + offs, scale * (a0 * b1 - a1 * b0), mask=mask)
+        if CPLX:
+            a0r = tl.load(pa, mask=mask)
+            a0i = tl.load(pa + 1, mask=mask)
+            a1r = tl.load(pa + a_sc, mask=mask)
+            a1i = tl.load(pa + a_sc + 1, mask=mask)
+            a2r = tl.load(pa + 2 * a_sc, mask=mask)
+            a2i = tl.load(pa + 2 * a_sc + 1, mask=mask)
+            b0r = tl.load(pb, mask=mask)
+            b0i = tl.load(pb + 1, mask=mask)
+            b1r = tl.load(pb + b_sc, mask=mask)
+            b1i = tl.load(pb + b_sc + 1, mask=mask)
+            b2r = tl.load(pb + 2 * b_sc, mask=mask)
+            b2i = tl.load(pb + 2 * b_sc + 1, mask=mask)
+            po = out + 2 * offs
+            # x y - z w in complex arithmetic, per output component
+            tl.store(po, scale * ((a1r * b2r - a1i * b2i) - (a2r * b1r - a2i * b1i)),
+                     mask=mask)
+            tl.store(po + 1, scale * ((a1r * b2i + a1i * b2r) - (a2r * b1i + a2i * b1r)),
+                     mask=mask)
+            tl.store(po + 2 * n_pos, scale * ((a2r * b0r - a2i * b0i) - (a0r * b2r - a0i * b2i)),
+                     mask=mask)
+            tl.store(po + 2 * n_pos + 1,
+                     scale * ((a2r * b0i + a2i * b0r) - (a0r * b2i + a0i * b2r)), mask=mask)
+            tl.store(po + 4 * n_pos, scale * ((a0r * b1r - a0i * b1i) - (a1r * b0r - a1i * b0i)),
+                     mask=mask)
+            tl.store(po + 4 * n_pos + 1,
+                     scale * ((a0r * b1i + a0i * b1r) - (a1r * b0i + a1i * b0r)), mask=mask)
+        else:
+            a0 = tl.load(pa, mask=mask)
+            a1 = tl.load(pa + a_sc, mask=mask)
+            a2 = tl.load(pa + 2 * a_sc, mask=mask)
+            b0 = tl.load(pb, mask=mask)
+            b1 = tl.load(pb + b_sc, mask=mask)
+            b2 = tl.load(pb + 2 * b_sc, mask=mask)
+            tl.store(out + offs, scale * (a1 * b2 - a2 * b1), mask=mask)
+            tl.store(out + n_pos + offs, scale * (a2 * b0 - a0 * b2), mask=mask)
+            tl.store(out + 2 * n_pos + offs, scale * (a0 * b1 - a1 * b0), mask=mask)
 
     return kernel
 
@@ -202,13 +232,14 @@ def launch(a3, b3, out, alpha, grid):
 
 def launch_cross(a3, b3, out, alpha, grid):
     """Launch KG's cross form on a3 (3, 1, *grid_a) and b3 (1, 3, *grid_b),
-    float64 CUDA tensors of any strides whose grid axes have the output's
-    size or 1, into the contiguous out (3, *grid); alpha is a Python float
-    (the frame's sign). `grid` is the output grid shape padded to three
-    axes."""
+    CUDA tensors of one dtype (float64, or complex128 for the CPLX variant)
+    and any strides whose grid axes have the output's size or 1, into the
+    contiguous out (3, *grid); alpha is a Python float (the frame's sign).
+    `grid` is the output grid shape padded to three axes."""
     global _cross_kernel
     if _cross_kernel is None:
         _cross_kernel = _build_cross_kernel()
     n_pos = grid[0] * grid[1] * grid[2]
     _cross_kernel[(-(-n_pos // BLOCK),)](
-        a3, b3, out, _descriptor(a3, b3, float(alpha), grid), n_pos, BLOCK=BLOCK, num_warps=4)
+        _doubles(a3), _doubles(b3), _doubles(out), _descriptor(a3, b3, float(alpha), grid),
+        n_pos, CPLX=a3.is_complex(), BLOCK=BLOCK, num_warps=4)

@@ -21,6 +21,11 @@ once). A program loads the C inputs of a block of (k, p, l, n) positions
 once and writes the C outputs; the Q entries of a position's (k, l) are
 gathered from the (K, L, C, C) stack, which stays in cache.
 
+Complex data (the signed (+m, -m) slots of a complex128 field) runs as its
+float64 (re, im) view: Q is real and acts on both parts alike, so the pair
+is a trailing radial axis of twice the length, N -> 2N, in the same kernel;
+those launches count in `launches_c128`.
+
 Q travels as a float64 tensor on the data's device: Python floats would
 reach the Triton kernel as float32. `triton` is imported inside the
 launching function, so machines without it only ever take the plain twin.
@@ -36,7 +41,7 @@ def regularity_recombine_plain(x, Q, forward):
     """Plain torch KI (the JAX package's einsum): x (C, K, NP, L, N), Q
     (K, L, C, C)."""
     eq = 'klba,bkpln->akpln' if forward else 'klab,bkpln->akpln'
-    return torch.einsum(eq, Q, x)
+    return torch.einsum(eq, Q.to(x.dtype), x)
 
 
 def _build_kernel():
@@ -70,17 +75,19 @@ def _build_kernel():
 
 def regularity_recombine(x, Q, forward):
     """
-    KI wrapper: mix the C components of contiguous float64 ball data x
-    (C, K, NP, L, N) through the per-(k, l) intertwiners Q (K, L, C, C),
+    KI wrapper: mix the C components of contiguous float64 or complex128
+    ball data x (C, K, NP, L, N) through the per-(k, l) intertwiners Q (K, L, C, C),
     forward (spin -> regularity, Q^T) or backward (Q). CPU tensors take the
     plain twin; CUDA tensors launch the Triton kernel.
     """
     if x.device.type == 'cpu':
         return regularity_recombine_plain(x, Q, forward)
     global _kernel
+    from . import build
     C, K, NP, L, N = x.shape
-    if x.dtype != torch.float64 or not x.is_contiguous():
-        raise ValueError("regularity_recombine: x must be a contiguous float64 tensor")
+    if x.dtype not in (torch.float64, torch.complex128) or not x.is_contiguous():
+        raise ValueError("regularity_recombine: x must be a contiguous float64 or complex128 "
+                         "tensor")
     if (Q.device != x.device or Q.dtype != torch.float64 or not Q.is_contiguous()
             or tuple(Q.shape) != (K, L, C, C)):
         raise ValueError(f"regularity_recombine: Q must be a contiguous float64 "
@@ -90,11 +97,15 @@ def regularity_recombine(x, Q, forward):
     if _kernel is None:
         _kernel = _build_kernel()
     out = torch.empty_like(x)
+    xd, od = x, out
+    if x.is_complex():
+        # the (re, im) pair as a trailing radial axis of twice the length
+        xd, od, N = torch.view_as_real(x), torch.view_as_real(out), 2 * N
     n_pos = K * NP * L * N
-    _kernel[(-(-n_pos // BLOCK),)](x, out, Q, n_pos, NP, L, N, C=C, FORWARD=bool(forward),
+    _kernel[(-(-n_pos // BLOCK),)](xd, od, Q, n_pos, NP, L, N, C=C, FORWARD=bool(forward),
                                    BLOCK=BLOCK, num_warps=4)
-    regularity_recombine.launches += 1
+    build.count(regularity_recombine, x.dtype)
     return out
 
 
-regularity_recombine.launches = 0
+regularity_recombine.launches = regularity_recombine.launches_c128 = 0

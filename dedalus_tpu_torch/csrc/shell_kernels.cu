@@ -22,6 +22,10 @@
 // land), then each thread computes outputs (b, o), o fastest, so the stores
 // of consecutive threads are consecutive addresses; w_out is applied on the
 // store. Every output reads its N products from shared memory.
+//
+// Complex data (a complex128 shell field) takes kj_shell_radial_c128, the
+// same kernel on double2 (re, im) elements: T and the weights are real, so
+// each product is real times complex and both parts share the loads of T.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,53 +36,80 @@ constexpr int KJ_THREADS = 256;
 constexpr int KJ_MAX_ROWS = 128;
 constexpr int KJ_SMEM_DOUBLES = 12 * 1024;   // 96 kB
 
+__device__ __forceinline__ double scale(double v, double w) { return v * w; }
+__device__ __forceinline__ double2 scale(double2 v, double w) {
+    return make_double2(v.x * w, v.y * w);
+}
+__device__ __forceinline__ double madd(double a, double x, double acc) { return fma(a, x, acc); }
+__device__ __forceinline__ double2 madd(double a, double2 x, double2 acc) {
+    return make_double2(fma(a, x.x, acc.x), fma(a, x.y, acc.y));
+}
+template <typename V> __device__ __forceinline__ V zero();
+template <> __device__ __forceinline__ double zero<double>() { return 0.0; }
+template <> __device__ __forceinline__ double2 zero<double2>() { return make_double2(0.0, 0.0); }
+
+template <typename V>
 __global__ void __launch_bounds__(KJ_THREADS)
-shell_radial_kernel(const double* __restrict__ T, const double* __restrict__ x,
+shell_radial_kernel(const double* __restrict__ T, const V* __restrict__ x,
                     const double* __restrict__ w_in, const double* __restrict__ w_out,
-                    double* __restrict__ y, int B, int O, int N, int rows) {
-    extern __shared__ double sm[];
-    double* Ts = sm;                 // [O][N]
-    double* xs = sm + (size_t)O * N; // [rows][N]
+                    V* __restrict__ y, int B, int O, int N, int rows) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    double* Ts = reinterpret_cast<double*>(smem_raw);          // [O][N]
+    V* xs = reinterpret_cast<V*>(smem_raw + (((size_t)O * N * sizeof(double) + 15) & ~(size_t)15));
     const int b0 = blockIdx.x * rows;
     const int nb = min(rows, B - b0);
     for (int t = threadIdx.x; t < O * N; t += blockDim.x) Ts[t] = __ldg(T + t);
-    const double* xb = x + (size_t)b0 * N;
+    const V* xb = x + (size_t)b0 * N;
     for (int t = threadIdx.x; t < nb * N; t += blockDim.x) {
-        double v = __ldg(xb + t);
-        if (w_in != nullptr) v *= __ldg(w_in + (t % N));
+        V v = xb[t];
+        if (w_in != nullptr) v = scale(v, __ldg(w_in + (t % N)));
         xs[t] = v;
     }
     __syncthreads();
-    double* yb = y + (size_t)b0 * O;
+    V* yb = y + (size_t)b0 * O;
     for (int t = threadIdx.x; t < nb * O; t += blockDim.x) {
         const int b = t / O, o = t - b * O;
         const double* trow = Ts + (size_t)o * N;
-        const double* xrow = xs + (size_t)b * N;
-        double acc = 0.0;
-        for (int n = 0; n < N; ++n) acc = fma(trow[n], xrow[n], acc);
-        if (w_out != nullptr) acc *= __ldg(w_out + o);
+        const V* xrow = xs + (size_t)b * N;
+        V acc = zero<V>();
+        for (int n = 0; n < N; ++n) acc = madd(trow[n], xrow[n], acc);
+        if (w_out != nullptr) acc = scale(acc, __ldg(w_out + o));
         yb[t] = acc;
     }
 }
 
-}  // namespace
-
-extern "C" int kj_shell_radial_f64(const double* T, const double* x, const double* w_in,
-                                   const double* w_out, double* y, int B, int O, int N,
-                                   void* stream) {
+template <typename V>
+int shell_radial(const double* T, const void* x, const double* w_in, const double* w_out,
+                 void* y, int B, int O, int N, void* stream) {
     if (B < 1 || O < 1 || N < 1) return (int)cudaErrorInvalidValue;
-    const int free_doubles = KJ_SMEM_DOUBLES - O * N;
-    if (free_doubles < N) return (int)cudaErrorInvalidValue;
-    const int rows = min(KJ_MAX_ROWS, free_doubles / N);
-    const size_t smem = ((size_t)O * N + (size_t)rows * N) * sizeof(double);
+    const int width = sizeof(V) / sizeof(double);
+    const int t_doubles = (O * N + 1) & ~1;      // T, padded to 16 bytes
+    const int free_doubles = KJ_SMEM_DOUBLES - t_doubles;
+    if (free_doubles < width * N) return (int)cudaErrorInvalidValue;
+    const int rows = min(KJ_MAX_ROWS, free_doubles / (width * N));
+    const size_t smem = ((size_t)t_doubles + (size_t)rows * width * N) * sizeof(double);
     if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(shell_radial_kernel,
+        cudaError_t err = cudaFuncSetAttribute(shell_radial_kernel<V>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
     const int blocks = (B + rows - 1) / rows;
-    shell_radial_kernel<<<blocks, KJ_THREADS, smem, (cudaStream_t)stream>>>(
-        T, x, w_in, w_out, y, B, O, N, rows);
+    shell_radial_kernel<V><<<blocks, KJ_THREADS, smem, (cudaStream_t)stream>>>(
+        T, (const V*)x, w_in, w_out, (V*)y, B, O, N, rows);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int kj_shell_radial_f64(const double* T, const void* x, const double* w_in,
+                                   const double* w_out, void* y, int B, int O, int N,
+                                   void* stream) {
+    return shell_radial<double>(T, x, w_in, w_out, y, B, O, N, stream);
+}
+
+extern "C" int kj_shell_radial_c128(const double* T, const void* x, const double* w_in,
+                                    const double* w_out, void* y, int B, int O, int N,
+                                    void* stream) {
+    return shell_radial<double2>(T, x, w_in, w_out, y, B, O, N, stream);
 }

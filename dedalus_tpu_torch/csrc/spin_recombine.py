@@ -25,12 +25,27 @@ no reuse: one fused elementwise pass, bound by device-memory bandwidth
 W travels as a (4, 4) float64 tensor on the data's device: Python floats
 would reach the Triton kernel as float32. `triton` is imported inside the
 launching function, so machines without it only ever take the plain twin.
+
+KF's complex form (spin_recombine_complex) replaces the same function for
+complex dtype (basis_polar.py:296-298, `real=False`): on the signed
+(+m, -m) slots of complex data the unitary needs no pair expansion,
+
+    out[.., c', ..] = sum_c U[c', c] x[.., c, ..]
+
+over the two angular components of the rank, the radial one of a spherical
+rank passing through in the same launch. A program loads the two angular
+complex inputs of a position as their (re, im) doubles, applies the 2x2
+complex U (a (2, 2, 2) float64 tensor of its parts) and writes the two
+outputs: the same single elementwise pass as the real form, bound by
+device-memory bandwidth. Its launches count in
+`spin_recombine_complex.launches_c128`.
 """
 
 import torch
 
 BLOCK = 512
 _kernel = None
+_complex_kernel = None
 
 
 def _view6(shape, rank, azimuth_axis):
@@ -132,3 +147,89 @@ def spin_recombine(x, rank, azimuth_axis, W):
 
 
 spin_recombine.launches = 0
+
+
+def _split(shape, rank):
+    """(pre, C, rest) sizes of data recombined along tensor rank `rank`."""
+    pre = 1
+    for n in shape[:rank]:
+        pre *= n
+    rest = 1
+    for n in shape[rank + 1:]:
+        rest *= n
+    return pre, shape[rank], rest
+
+
+def spin_recombine_complex_plain(x, rank, U):
+    """Plain torch KF, complex form (the JAX package's tensordot of the
+    full unitary U (C, C) over tensor rank `rank`)."""
+    return torch.movedim(torch.tensordot(U, x, dims=([1], [rank])), 0, rank)
+
+
+def _build_complex_kernel():
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def kernel(x, out, u, n_pos, R, C: tl.constexpr, BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n_pos
+        # position -> (a, r) of the (pre, rest) positions; doubles: (re, im)
+        r = offs % R
+        a = offs // R
+        base = 2 * (a * (C * R) + r)
+        sc = 2 * R                          # component stride in doubles
+        x0r = tl.load(x + base, mask=mask)
+        x0i = tl.load(x + base + 1, mask=mask)
+        x1r = tl.load(x + base + sc, mask=mask)
+        x1i = tl.load(x + base + sc + 1, mask=mask)
+        for row in tl.static_range(2):
+            u0r = tl.load(u + 4 * row)
+            u0i = tl.load(u + 4 * row + 1)
+            u1r = tl.load(u + 4 * row + 2)
+            u1i = tl.load(u + 4 * row + 3)
+            re = (u0r * x0r - u0i * x0i) + (u1r * x1r - u1i * x1i)
+            im = (u0r * x0i + u0i * x0r) + (u1r * x1i + u1i * x1r)
+            tl.store(out + base + row * sc, re, mask=mask)
+            tl.store(out + base + row * sc + 1, im, mask=mask)
+        if C == 3:
+            # the radial component passes through
+            tl.store(out + base + 2 * sc, tl.load(x + base + 2 * sc, mask=mask), mask=mask)
+            tl.store(out + base + 2 * sc + 1, tl.load(x + base + 2 * sc + 1, mask=mask),
+                     mask=mask)
+
+    return kernel
+
+
+def spin_recombine_complex(x, rank, U):
+    """
+    KF wrapper, complex form: recombine tensor rank `rank` of contiguous
+    complex128 data x with the unitary U (C, C) complex128 on the data's
+    device, C = 2 (polar) or 3 (spherical, whose radial row and column must
+    be the identity's: U's angular block is what the kernel applies). CPU
+    tensors take the plain twin; CUDA tensors launch the Triton kernel.
+    """
+    if x.device.type == 'cpu':
+        return spin_recombine_complex_plain(x, rank, U)
+    global _complex_kernel
+    from . import build
+    if x.dtype != torch.complex128 or not x.is_contiguous():
+        raise ValueError("spin_recombine_complex: x must be a contiguous complex128 tensor")
+    pre, C, R = _split(tuple(x.shape), rank)
+    if (U.device != x.device or U.dtype != torch.complex128 or tuple(U.shape) != (C, C)
+            or C not in (2, 3)):
+        raise ValueError("spin_recombine_complex: U must be (C, C) complex128 on the data's "
+                         "device, C = 2 or 3, the size of the rank")
+    if _complex_kernel is None:
+        _complex_kernel = _build_complex_kernel()
+    u = torch.view_as_real(U[:2, :2].contiguous()).contiguous()
+    out = torch.empty_like(x)
+    n_pos = pre * R
+    _complex_kernel[(-(-n_pos // BLOCK),)](torch.view_as_real(x), torch.view_as_real(out), u,
+                                           n_pos, R, C=C, BLOCK=BLOCK, num_warps=4)
+    build.count(spin_recombine_complex, x.dtype)
+    return out
+
+
+spin_recombine_complex.launches = spin_recombine_complex.launches_c128 = 0

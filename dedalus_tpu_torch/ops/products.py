@@ -12,8 +12,8 @@ and its cross form for the CrossProduct node (:1069-1112),
     out[i, x] = s * (a[j, x] * b[k, x] - a[k, x] * b[j, x]),  (i, j, k) cyclic,
 
 with s = -1 on a left-handed frame such as the spherical (phi, theta, r).
-The product takes complex128 operands too (its Triton kernel's complex
-variant), for the right-hand sides of ComplexFourier problems.
+The product and its cross form take complex128 operands too (their Triton
+kernels' complex variants), for the right-hand sides of complex problems.
 CPU tensors run the plain twin, which is the reference's
 broadcast-multiply(-and-sum); CUDA tensors launch the Triton kernel of
 csrc/grid_product.py, one launch per product node, or raise.
@@ -102,29 +102,34 @@ def grid_cross_plain(a, b, sign=1.0):
 
 def grid_cross(a, b, sign=1.0):
     """
-    KG's cross form: a and b are float64 grid data of one device, each
+    KG's cross form: a and b are float64 or complex128 grid data of one
+    device (a real operand beside a complex one is promoted), each
     (3, grid...) with at most three grid axes of the output's size or of
     size 1. Returns the contiguous (3, grid...) tensor sign * (a x b).
+    Launches count per form (build.count).
     """
     if a.device.type == 'cpu':
         return grid_cross_plain(a, b, sign)
     from ..csrc import grid_product as kg
     ga, gb = tuple(a.shape[1:]), tuple(b.shape[1:])
-    if (a.dtype != torch.float64 or b.dtype != torch.float64 or b.device != a.device
+    dtypes = (torch.float64, torch.complex128)
+    if (a.dtype not in dtypes or b.dtype not in dtypes or b.device != a.device
             or a.shape[0] != 3 or b.shape[0] != 3 or len(ga) != len(gb)
             or len(ga) > MAX_GRID_DIMS or any(x != y and 1 not in (x, y) for x, y in zip(ga, gb))):
-        raise ValueError(f"KG cross: operands must be float64 3-vectors on one device with "
-                         f"broadcastable grids of at most {MAX_GRID_DIMS} axes, got "
+        raise ValueError(f"KG cross: operands must be float64 or complex128 3-vectors on one "
+                         f"device with broadcastable grids of at most {MAX_GRID_DIMS} axes, got "
                          f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}")
+    dt = torch.complex128 if (a.is_complex() or b.is_complex()) else torch.float64
+    a, b = a.to(dt), b.to(dt)
     grid = tuple(max(x, y) for x, y in zip(ga, gb))
-    out = torch.empty((3,) + grid, dtype=torch.float64, device=a.device)
-    if max(a.numel(), b.numel(), out.numel()) >= 2**31:
-        raise ValueError("KG cross: operands of 2^31 elements or more are not supported")
+    out = torch.empty((3,) + grid, dtype=dt, device=a.device)
+    if (2 if out.is_complex() else 1) * max(a.numel(), b.numel(), out.numel()) >= 2**31:
+        raise ValueError("KG cross: operands of 2^31 doubles or more are not supported")
     pad = (1,) * (MAX_GRID_DIMS - len(grid))
     kg.launch_cross(a.reshape((3, 1) + pad + ga), b.reshape((1, 3) + pad + gb), out,
                     float(sign), pad + grid)
-    grid_cross.launches += 1
+    build.count(grid_cross, dt)
     return out
 
 
-grid_cross.launches = 0
+grid_cross.launches = grid_cross.launches_c128 = 0

@@ -20,7 +20,10 @@ grad(u) at k = 1), so the weight comes with each call.
 CPU tensors run the plain twin, the reference's weight multiply and
 contraction; CUDA tensors launch csrc/shell_kernels.cu
 kj_shell_radial_f64, which reads x in place, applies w_in on the load and
-w_out on the store, and writes the radius trailing.
+w_out on the store, and writes the radius trailing. Complex data (a
+complex128 shell field) takes its complex128 instantiation,
+kj_shell_radial_c128: T and the weights stay real, each element a (re, im)
+pair; its launches count in `launches_c128`.
 """
 
 import torch
@@ -30,7 +33,7 @@ def shell_radial_transform_plain(T, x, w_in=None, w_out=None):
     """Plain torch KJ (the JAX package's form): weight, contract, weight."""
     if w_in is not None:
         x = x * w_in
-    y = torch.movedim(torch.tensordot(T, x, dims=([1], [1])), 0, 1)
+    y = torch.movedim(torch.tensordot(T.to(x.dtype), x, dims=([1], [1])), 0, 1)
     if w_out is not None:
         y = y * w_out
     return y
@@ -39,18 +42,20 @@ def shell_radial_transform_plain(T, x, w_in=None, w_out=None):
 def shell_radial_transform(T, x, w_in=None, w_out=None):
     """
     KJ: y (B, O) = w_out * (T (O, N) applied to w_in * x (B, N)) row by row;
-    T, x and the optional weights w_in (N,) and w_out (O,) are float64 on
-    one device, x contiguous. Returns a new contiguous tensor.
+    T and the optional weights w_in (N,) and w_out (O,) are float64 and x
+    float64 or complex128, on one device, x contiguous. Returns a new
+    contiguous tensor of x's dtype.
     """
     if x.device.type == 'cpu':
         return shell_radial_transform_plain(T, x, w_in, w_out)
     from ..csrc import build
     B, N = x.shape
     O = T.shape[0]
-    if (x.dtype != torch.float64 or not x.is_contiguous() or T.dtype != torch.float64
-            or T.device != x.device or T.dim() != 2 or T.shape[1] != N):
+    if (x.dtype not in (torch.float64, torch.complex128) or not x.is_contiguous()
+            or T.dtype != torch.float64 or T.device != x.device or T.dim() != 2
+            or T.shape[1] != N):
         raise ValueError(f"KJ: T must be a float64 (O, {N}) tensor on {x.device} and x a "
-                         f"contiguous float64 (B, {N}) tensor")
+                         f"contiguous float64 or complex128 (B, {N}) tensor")
     for w, n in ((w_in, N), (w_out, O)):
         if w is not None and (w.dtype != torch.float64 or w.device != x.device
                               or tuple(w.shape) != (n,)):
@@ -60,14 +65,14 @@ def shell_radial_transform(T, x, w_in=None, w_out=None):
     T = T.contiguous()
     w_in = None if w_in is None else w_in.contiguous()
     w_out = None if w_out is None else w_out.contiguous()
-    y = torch.empty((B, O), dtype=torch.float64, device=x.device)
+    y = torch.empty((B, O), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(build.library().kj_shell_radial_f64(
+    build.check(build.launcher('kj_shell_radial', x.dtype)(
         T.data_ptr(), x.data_ptr(), ptr(w_in), ptr(w_out), y.data_ptr(), B, O, N, stream),
         'shell_radial_transform')
-    shell_radial_transform.launches += 1
+    build.count(shell_radial_transform, x.dtype)
     return y
 
 
-shell_radial_transform.launches = 0
+shell_radial_transform.launches = shell_radial_transform.launches_c128 = 0

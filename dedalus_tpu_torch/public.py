@@ -5,13 +5,16 @@ The ported subset of dedalus_tpu/public.py: Cartesian, polar, S2 and
 spherical coordinates, the RealFourier, ComplexFourier (complex dtype, the
 Cartesian dense path) and Jacobi bases with their matrix and fast
 transforms, the `Fourier` factory, the annulus, disk, sphere, ball and shell
-bases (real dtype), fields, the Cartesian operators of the Rayleigh-Benard IVP,
+bases (real and complex dtype: the curvilinear azimuth of complex fields
+holds signed (+m, -m) slots), fields, the Cartesian operators of the Rayleigh-Benard IVP,
 the polar operators of the annulus and disk examples, the sphere operators
 of the shallow-water example, the ball operators of the ball convection
 model, the shell operators and products of the shell convection example
 (transpose, radial and angular components, cross products, spherically
 symmetric NCCs), the curl and the tensor NCCs of the ball's internally
-heated convection example, with numpy ufuncs on operands and the Cartesian advective
+heated convection example, the ell product SphericalEllProduct (the
+z-cross SphericalZCross is imported from core.operators_ball, as in the JAX
+package), with numpy ufuncs on operands and the Cartesian advective
 CFL frequency,
 IVPs and LBVPs with conditioned equations, the InitialValueSolver with the
 eight multistep schemes (CNAB1, SBDF1, CNAB2, MCNAB2, SBDF2, CNLF2, SBDF3,
@@ -40,6 +43,7 @@ from .core.operators import (
     integ, ave, interp, dt, lift, convert as Convert,
 )
 from .core.operators_sphere import MulCosine
+from .core.operators_ball import SphericalEllProduct
 from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct
 from .core.arithmetic import DotProduct as dot
 from .core.arithmetic import CrossProduct as cross

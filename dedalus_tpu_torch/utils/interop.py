@@ -15,7 +15,9 @@ def set_state_from_reference(solver, arrays, fields=None, layout='c'):
     as dedalus_tpu's Field data at scale 1; in coefficient layout polar and
     sphere fields in their rectangular (m, slot) storage, ball and shell
     fields in their (m, ell slot, n) storage with regularity components,
-    and the spin components of fields on a ball's or shell's surface).
+    and the spin components of fields on a ball's or shell's surface;
+    complex fields of the curvilinear bases in their signed (+m, -m) slot
+    storage, the dead -0 slot included).
     `solver` is an IVP or LBVP solver; `fields` names other fields to set
     instead of its variables (the right-hand-side fields of an LBVP, the
     NCC fields of a problem such as the shell's er, ez and rvec or the

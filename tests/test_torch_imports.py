@@ -133,3 +133,23 @@ def test_matsolver_path_import_has_no_jax_and_no_card():
          "assert 'separable_kernels' in build.SIGNATURES\n"
          'assert build._library is None\n'
          'assert not torch.cuda.is_initialized()')
+
+
+def test_complex_shell_path_import_has_no_jax_and_no_card():
+    """The complex curvilinear path (the signed-slot azimuth, the ZCross
+    kernel, KF's and KE's complex forms, SphericalEllProduct) imports
+    without JAX, and builds no kernel and touches no card at import."""
+    _run('import numpy as np, torch\n'
+         'import dedalus_tpu_torch.public as d3\n'
+         'import dedalus_tpu_torch.models.shell\n'
+         'import dedalus_tpu_torch.csrc.zcross as kz\n'
+         'import dedalus_tpu_torch.csrc.spin_recombine as kf\n'
+         'import dedalus_tpu_torch.csrc.build as build\n'
+         'from dedalus_tpu_torch.core.operators_ball import SphericalZCross\n'
+         'from dedalus_tpu_torch.core.basis_polar import ExponentialAzimuthBasis\n'
+         'assert d3.SphericalEllProduct and kz.zcross and kf.spin_recombine_complex\n'
+         "c = d3.SphericalCoordinates('phi', 'theta', 'r')\n"
+         'shell = d3.ShellBasis(c, (8, 4, 6), radii=(7, 10), dtype=np.complex128)\n'
+         'assert isinstance(shell.azimuth_basis, ExponentialAzimuthBasis)\n'
+         'assert build._library is None and kz._kernel is None\n'
+         'assert not torch.cuda.is_initialized()')

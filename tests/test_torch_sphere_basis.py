@@ -198,7 +198,10 @@ def test_sphere_basis_rejects_other_coordinates_and_complex():
     td3.Distributor(polar, dtype=np.float64, device='cpu')
     with pytest.raises(ValueError):
         td3.SphereBasis(polar, SHAPE)
+    # Complex dtype is no longer refused: it takes the signed (+m, -m)
+    # azimuth (tests/test_torch_complex_curvilinear.py holds its transforms)
+    from dedalus_tpu_torch.core.basis_polar import ExponentialAzimuthBasis
     coords = td3.S2Coordinates('phi', 'theta')
-    td3.Distributor(coords, dtype=np.float64, device='cpu')
-    with pytest.raises(NotImplementedError):
-        td3.SphereBasis(coords, SHAPE, dtype=np.complex128)
+    td3.Distributor(coords, dtype=np.complex128, device='cpu')
+    sphere = td3.SphereBasis(coords, SHAPE, dtype=np.complex128)
+    assert isinstance(sphere.azimuth_basis, ExponentialAzimuthBasis)
