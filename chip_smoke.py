@@ -109,7 +109,19 @@ public entry points:
     vs CPU.
 
 Every path's grid-space products run through kernel KG, which is checked at
-each path's dealias grid.
+each path's dealias grid. The Cartesian paths stage each batched transform
+chain through kernel K2a, checked against its twin (exactly) at rbc2048's,
+rbc256's and rbc256c's shapes, with K1's in-place layout timed against the
+tensordot form at rbc2048's.
+
+Every initial value path's timed steps replay each step as a captured CUDA
+graph (dedalus_tpu_torch/core/graphs.py); a path whose timed run replayed
+none fails. graph_inputs_path replays a forced heat equation's step on a
+new state and on an external field's new data; rbc2048, rbc256, shell192
+and both shell192c forms hold 20 steps of graph against eager bit for bit
+(or within eager's own spread); every breakdown (and rbc2048) prints the
+graph's and the eager step's ms/step and the replayed step's device busy
+share.
 
     python3 chip_smoke.py
 
@@ -203,7 +215,8 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            cfl_max_c128=1e-14, lu_solve_c128=LU_TOL, zcross=1e-15, spin_recombine_c128=1e-15,
            trailing_apply_signed=1e-13, polar_apply_signed=1e-13, polar_apply_c128=1e-13,
            grid_cross_c128=1e-15, ball_radial_apply_c128=1e-13, ball_radial_apply_rot_c128=1e-13,
-           regularity_recombine_c128=1e-15, shell_radial_transform_c128=1e-13)
+           regularity_recombine_c128=1e-15, shell_radial_transform_c128=1e-13,
+           rhs_stage=0.0, rhs_stage_c128=0.0)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -296,6 +309,10 @@ KERNELS = dict(   # name: (route, source, replaces)
                                'dedalus_tpu/core/basis_ball.py:92'),
     shell_radial_transform_c128=('cuda', 'dedalus_tpu_torch/csrc/shell_kernels.cu',
                                  'dedalus_tpu/core/basis_ball.py:597'),
+    # The RHS's grouped staging (K2a) and its complex form
+    rhs_stage=('cuda', 'dedalus_tpu_torch/csrc/rhs_kernels.cu', 'dedalus_tpu/core/solvers.py:210'),
+    rhs_stage_c128=('cuda', 'dedalus_tpu_torch/csrc/rhs_kernels.cu',
+                    'dedalus_tpu/core/solvers.py:210'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
 FAST_WRAPPERS = dict(dft_four_step=('dft',),
@@ -371,7 +388,7 @@ PATH_KERNELS = dict(
     rbc256_inverse_refined=('dense_refined_solve',) + _EXAMPLE_KERNELS,
     rbc2048=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
              'pencil_gather_scatter', 'grid_product', 'banded_solve_pre', 'banded_solve_post',
-             'dense_matvec'),
+             'dense_matvec', 'rhs_stage'),
     rbc2048_fast=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
                   'pencil_gather_scatter', 'grid_product', 'banded_solve_pre',
                   'banded_solve_post', 'dense_matvec', 'dft_four_step', 'dct_wrap',
@@ -381,10 +398,10 @@ PATH_KERNELS = dict(
                'banded_apply', 'history_combine', 'pencil_gather_scatter', 'grid_product',
                'dense_matvec'),
     rbc256=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max',
-            'pencil_gather_scatter', 'grid_product'),
+            'pencil_gather_scatter', 'grid_product', 'rhs_stage'),
     rbc256c_fast=_COMPLEX_KERNELS + ('complex_fourier_select', 'dft_four_step', 'dct_wrap',
-                                     'chebyshev_conversion'),
-    rbc256c_matrix=_COMPLEX_KERNELS,
+                                     'chebyshev_conversion', 'rhs_stage_c128'),
+    rbc256c_matrix=_COMPLEX_KERNELS + ('rhs_stage_c128',),
     rbc256c_lu=('lu_solve_c128',) + _COMPLEX_KERNELS[1:],
     annulus=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'polar_apply',
              'spin_recombine', 'pencil_gather_scatter', 'grid_product'),
@@ -413,6 +430,10 @@ K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
 STEP_STACKS = {}    # dense path -> what its step reads outside F (step_stacks)
 LAUNCHES = {}   # main path -> {kernel name: launches in its timed run}
 STEPS = {}      # main path -> steps of its timed run
+GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager steps
+GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
+# Main paths whose counted run takes no timestep (a boundary value solve)
+NO_STEP_PATHS = ('lbvp_banded',)
 
 
 def phase(msg):
@@ -540,16 +561,21 @@ def segment_times(targets, run):
 
 
 def record_solves():
-    """Keep the last dense solve of a run: patches FactorizedStack.solve and
-    returns (last, restore), `last` holding that solve's factorization,
-    right-hand side and solution once one has run."""
+    """Keep the last eager dense solve of a run: patches
+    FactorizedStack.solve and returns (last, restore), `last` holding that
+    solve's factorization, right-hand side and solution once one has run.
+    A solve inside a graph's capture is not kept: its tensors are the
+    graph's, which a later replay of another graph may overwrite (its
+    factorization's eager solves, each new factorization's first step, are
+    kept)."""
     from dedalus_tpu_torch.ops import solve as osolve
     last = {}
     solve = osolve.FactorizedStack.solve
 
     def recording_solve(self, R):
         X = solve(self, R)
-        last.update(fact=self, R=R, X=X)
+        if not torch.cuda.is_current_stream_capturing():
+            last.update(fact=self, R=R, X=X)
         return X
 
     def restore():
@@ -583,10 +609,11 @@ def kernel_functions():
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.csrc import residual_norm as rn, zcross as kz
-    from dedalus_tpu_torch.ops import fft as offt
+    from dedalus_tpu_torch.ops import fft as offt, staging
     from dedalus_tpu_torch.core import subsystems as sub
     fast = {name: [getattr(offt, w) for w in ws] for name, ws in FAST_WRAPPERS.items()}
-    return dict(dense_refined_solve_c128=[osolve.dense_refined_solve],
+    return dict(rhs_stage=[staging.stage], rhs_stage_c128=[staging.stage],
+                dense_refined_solve_c128=[osolve.dense_refined_solve],
                 dense_matvec_c128=[osolve.dense_matvec], cfl_max_c128=[cm.cfl_max],
                 pencil_gather_scatter_c128=[sub.pencil_gather, sub.pencil_scatter],
                 grid_product_c128=[oprod.grid_product], lu_solve_c128=[osolve.lu_solve],
@@ -631,18 +658,49 @@ def launches(name, fns):
 def count_launches(path, steps, run):
     """Run a main path's timed run with every kernel count set to 0 just
     before and read just after; fail if a kernel of the path was not
-    launched. Returns run()'s result."""
+    launched. A captured step's launches count once per replay of its graph
+    (build.Capture). The run's steps are counted too: replays of captured
+    graphs (with the launches of the port's kernels each graph holds),
+    captures and eager steps; an initial value path whose timed run
+    replayed no graph fails. Returns run()'s result."""
     from dedalus_tpu_torch.csrc import build
+    from dedalus_tpu_torch.core import graphs
     fns = kernel_functions()
     for fs in fns.values():
         for f in fs:
             build.reset(f)
-    out = run()
+    tally_steps = dict(replays=0, eager=0, captures=0, kernels={})
+    run_step = graphs.StepProgram.run
+
+    def counted(self, cache, key, body, eager=False):
+        replays, captures = self.replays, self.captures
+        out = run_step(self, cache, key, body, eager)
+        tally_steps['captures'] += self.captures - captures
+        if self.replays > replays:
+            tally_steps['replays'] += 1
+            n = cache.graphs[key][1].total
+            tally_steps['kernels'][n] = tally_steps['kernels'].get(n, 0) + 1
+        else:
+            tally_steps['eager'] += 1
+        return out
+
+    graphs.StepProgram.run = counted
+    try:
+        out = run()
+    finally:
+        graphs.StepProgram.run = run_step
     LAUNCHES[path] = {name: launches(name, fs) for name, fs in fns.items()}
     STEPS[path] = steps
+    GRAPH_STEPS[path] = tally_steps
+    print(f"{path} timed run: {tally_steps['replays']} steps replayed from graphs "
+          f"({{launches of the port's kernels in the graph: steps}} "
+          f"{tally_steps['kernels']}), {tally_steps['captures']} captures, "
+          f"{tally_steps['eager']} eager steps")
     for name in PATH_KERNELS[path]:
         if LAUNCHES[path][name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
+    if path not in NO_STEP_PATHS and tally_steps['replays'] <= 0:
+        raise AssertionError(f"the {path} path's timed steps replayed no captured graph")
     return out
 
 
@@ -736,7 +794,7 @@ def f_profile(solver, state, t, reps=10, path=None):
     plain twin. K2's bound is the sum of its transforms' and kernels'
     bounds."""
     from dedalus_tpu_torch.ops import transforms as otr, polar as opolar, ball as oball
-    from dedalus_tpu_torch.ops import shell as oshell
+    from dedalus_tpu_torch.ops import shell as oshell, staging
     from dedalus_tpu_torch.csrc import spin_recombine as kf, regularity_recombine as ki
     from dedalus_tpu_torch.csrc import zcross as kz
     from dedalus_tpu_torch.core import subsystems as sub, arithmetic as arith
@@ -811,6 +869,9 @@ def f_profile(solver, state, t, reps=10, path=None):
     def cross_cost(a, kw, out):
         return nbytes(a[0], a[1], out), 4 * cx(out)**2 * out.numel()
 
+    def k2a_cost(a, kw, out):
+        return nbytes(*a[0], out), 0
+
     fast = 'K10-K12 fast transforms at the K1 shapes'
     acc = tally([('K1 apply_matrix', otr, 'apply_matrix', k1_cost),
                  (fast, otr, 'apply_matrix', fast_cost),
@@ -826,7 +887,8 @@ def f_profile(solver, state, t, reps=10, path=None):
                  ('KG grid_product', arith, 'grid_product', kg_cost),
                  ('KJ shell_radial_transform', oshell, 'shell_radial_transform', kj_cost),
                  ('KG grid_cross', arith, 'grid_cross', cross_cost),
-                 ('K3 eq gather', sub, 'pencil_gather', k3_cost)] + fast_targets(),
+                 ('K3 eq gather', sub, 'pencil_gather', k3_cost),
+                 ('K2a stage', staging, 'stage', k2a_cost)] + fast_targets(),
                 lambda: solver.traced_F(state, t))
     # F with the products through KG and, for comparison only, through KG's
     # plain twin (which the port never calls on the card), in turns
@@ -906,6 +968,104 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
     r['by_path'] = by_path
     print(f"K3 ({state.dtype}) on the {path} pencils (G={pencil.G}, C={pencil.C}): "
           f"{'exact' if exact else f'max_abs {err:.3e}'}")
+
+
+def check_k2a(path, solver, primary=False):
+    """K2a against its plain twin on every distinct staging of one F at a
+    path's shapes (the grouped memo's backward batch, the roots' forward
+    batch and, under `fast`, the transforms' zero pads and truncations):
+    equal bit for bit. Its ms, plain_ms and bound_ms (the slabs' elements
+    read once and the batch written once, over 3.35 TB/s) are sums over the
+    distinct calls; library_ms is torch.cat of the same slabs (a contiguous
+    batch) over the calls without a resize, beside the kernel's time over
+    those calls (ms_where_library). Recorded as rhs_stage, or rhs_stage_c128
+    on complex data."""
+    from dedalus_tpu_torch.ops import staging
+    calls = []
+    stage = staging.stage
+
+    def recording(slabs, axis=None, size=None):
+        calls.append((list(slabs), axis, size))
+        return stage(slabs, axis, size)
+
+    # (keeps the wrapper's launch counts, which stage adds to by name)
+    functools.update_wrapper(recording, stage)
+    staging.stage = recording
+    try:
+        solver.traced_F(solver.state_flat(), solver.sim_time)
+    finally:
+        staging.stage = stage
+    seen = {}
+    for slabs, axis, size in calls:
+        key = (tuple((tuple(x.shape), x.stride()) for x in slabs), axis, size)
+        seen.setdefault(key, (slabs, axis, size))
+    if not seen:
+        raise AssertionError(f"K2a: F made no staging on the {path} path")
+    exact, err = True, 0.0
+    ms = plain_ms = ms_lib = 0.0
+    lib_ms, moved, shapes = None, 0, []
+    for slabs, axis, size in seen.values():
+        yk, yp = stage(slabs, axis, size), staging.stage_plain(slabs, axis, size)
+        torch.cuda.synchronize()
+        exact = exact and torch.equal(yk, yp)
+        err = max(err, float((yk - yp).abs().max()))
+        k_ms = cuda_ms(lambda: stage(slabs, axis, size), 50)
+        ms += k_ms
+        plain_ms += cuda_ms(lambda: staging.stage_plain(slabs, axis, size), 50)
+        if axis is None:
+            lib_ms = (lib_ms or 0.0) + cuda_ms(lambda: torch.cat(slabs, dim=0), 50)
+            ms_lib += k_ms
+        read = sum(x.numel() // x.shape[axis] * min(x.shape[axis], size) if axis is not None
+                   else x.numel() for x in slabs)
+        moved += (read + yk.numel()) * yk.element_size()
+        shapes.append([[list(x.shape) for x in slabs], axis, size])
+    name = 'rhs_stage_c128' if yk.is_complex() else 'rhs_stage'
+    record(name, path, dict(err=(0.0 if exact else max(err, 1e-300), err), ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms, ms_where_library=ms_lib,
+                            shape=shapes, calls_checked=len(seen),
+                            **dict(zip(('bound_ms', 'bound_by'), bound(moved, 0)))), primary)
+
+
+def k1_layouts(path, solver, smi, reps=20):
+    """K1's two layouts on every transform of one F at a path's shapes: the
+    product reading the data in place (ops/transforms.py apply_matrix: one
+    GEMM, or a batch of them with the matrix's batch stride 0) against the
+    tensordot form the port had before it (a permute().contiguous() copy
+    before the product on a middle axis, and its moved result copied again
+    by what reads it next, counted here as a contiguous()). Summed ms of
+    each over the calls, and their largest difference."""
+    from dedalus_tpu_torch.ops import transforms as otr
+    calls = []
+    apply = otr.apply_matrix
+
+    def recording(matrix, data, axis):
+        calls.append((matrix, data, axis))
+        return apply(matrix, data, axis)
+
+    otr.apply_matrix = recording
+    try:
+        solver.traced_F(solver.state_flat(), solver.sim_time)
+    finally:
+        otr.apply_matrix = apply
+
+    def tensordot(m, d, a):
+        return torch.movedim(torch.tensordot(m, d, dims=([1], [a])), 0, a).contiguous()
+
+    err, ms_view, ms_td = 0.0, 0.0, 0.0
+    for m, d, a in calls:
+        y, z = apply(m, d, a), tensordot(m, d, a)
+        torch.cuda.synchronize()
+        err = max(err, rel_err(y, z)[0])
+        ms_view += cuda_ms(lambda m=m, d=d, a=a: apply(m, d, a), reps)
+        ms_td += cuda_ms(lambda m=m, d=d, a=a: tensordot(m, d, a), reps)
+    out = dict(calls=len(calls), ms_in_place=ms_view, ms_tensordot_contiguous=ms_td,
+               max_rel_diff=err)
+    print(f"[{smi}] K1 on the {path} F's {len(calls)} transforms: in place {ms_view:.4f} ms, "
+          f"tensordot with the copies {ms_td:.4f} ms; largest relative difference {err:.2e}")
+    print(json.dumps({f"{path}_k1_layouts": out, "card": smi}))
+    if not err <= 1e-13:
+        raise AssertionError(f"K1's layouts disagree on {path}: {err:.3e}")
+    return out
 
 
 KG_CASES = (   # (label, a's tensor shape, b's, contract, einsum of the same contraction)
@@ -1434,7 +1594,9 @@ def cold_start_path(Nx=COLD_NX, Nz=COLD_NZ, n_steps=20):
         torch.cuda.synchronize()
         marks['setup'] = time.perf_counter()
         ts = solver.timestepper
-        step, traced_F = ts._step, solver.traced_F
+        # (a step ends when the program's run returns: an eager step, or a
+        # graph's capture and its replay)
+        step, traced_F = ts.program.run, solver.traced_F
 
         def timed_step(*args, **kw):
             out = step(*args, **kw)
@@ -1452,7 +1614,7 @@ def cold_start_path(Nx=COLD_NX, Nz=COLD_NZ, n_steps=20):
             del solver.traced_F
             return out
 
-        ts._step = timed_step
+        ts.program.run = timed_step
         solver.traced_F = first_F
         try:
             # (run_steps resolves the main factorization first only when it is
@@ -1460,7 +1622,7 @@ def cold_start_path(Nx=COLD_NX, Nz=COLD_NZ, n_steps=20):
             # two steady steps)
             solver.run_steps(DT, 3)
         finally:
-            del ts._step
+            del ts.program.run
         return solver
 
     solver = count_launches('coldstart', 3, drive)
@@ -1543,6 +1705,68 @@ def cold_start_path(Nx=COLD_NX, Nz=COLD_NZ, n_steps=20):
         raise AssertionError("the timed steps built another factorization")
 
 
+def forced_heat(device):
+    """dt(u) - dx(dx(u)) = f*np.cos(t) - u*dx(u) on a RealFourier line of
+    1024 points, f an external field, SBDF2: (solver, f, x)."""
+    import dedalus_tpu_torch.public as d3
+    c = d3.Coordinate('x')
+    dist = d3.Distributor(c, dtype=np.float64, device=device)
+    xb = d3.RealFourier(c, size=1024, bounds=(0, 2 * np.pi), dealias=3 / 2)
+    u = dist.Field(name='u', bases=xb)
+    f = dist.Field(name='f', bases=xb)
+    t = dist.Field(name='t')
+    dx = lambda A: d3.Differentiate(A, c)
+    problem = d3.IVP([u], time=t, namespace=dict(u=u, f=f, t=t, dx=dx, np=np))
+    problem.add_equation("dt(u) - dx(dx(u)) = f*np.cos(t) - u*dx(u)")
+    solver = problem.build_solver(d3.SBDF2)
+    x = dist.local_grid(xb, scale=1).ravel()
+    u['g'] = 0.5 * np.sin(x)
+    f['g'] = np.cos(3 * x) + 0.7
+    return solver, f, x
+
+
+def graph_inputs_path():
+    """A replayed step reads its inputs anew: on a time-dependent forced
+    heat equation, after a state set between runs and after an external
+    field's new data, the step replayed from its graph evaluates F (the
+    ring's newest slot) at those inputs, as the eager traced_F of the same
+    inputs does (1e-14 of its max), and not at the earlier ones; the time
+    the graph advances on the device meets the host's."""
+    dev, kind, smi = card()
+    phase(f"graph inputs: a forced heat equation on {kind}, replays on changed inputs")
+    solver, f, x = forced_heat(dev)
+    ts = solver.timestepper
+    solver.run_steps(0.05, 4)
+    checks = {}
+    for what in ('state', 'external field'):
+        X, t0 = solver.state_flat().clone(), solver.sim_time
+        before = solver.traced_F(X, t0)
+        if what == 'state':
+            for fld in solver.state:
+                fld.require_coeff_space()
+                fld.data = fld.data * 1.5 + 1e-3
+            X = solver.state_flat().clone()
+        else:
+            f['g'] = np.sin(5 * x) - 0.2
+        replays = ts.program.replays
+        solver.run_steps(0.05, 1)
+        got = ts.F[ts._head].clone()
+        ref = solver.traced_F(X, t0)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)[0]
+        moved = rel_err(ref, before)[0]
+        clock = abs(float(ts.program.t) - solver.sim_time)
+        checks[what] = dict(rel_err=err, changed_by=moved, replayed=ts.program.replays - replays,
+                            clock_err=clock)
+        print(f"new {what}: replayed F vs eager F rel_err {err:.3e} (tol 1e-14); the new F "
+              f"differs from the earlier by {moved:.3e}; replays {checks[what]['replayed']}; "
+              f"device clock - host time {clock:.3e}")
+        if not (err <= 1e-14 and moved > 1e-3 and checks[what]['replayed'] == 1
+                and clock == 0.0):
+            raise AssertionError(f"graph inputs ({what}): {checks[what]}")
+    print(json.dumps({"graph_inputs": checks, "card": smi}))
+
+
 def banded_path():
     """RBC 2048x512 SBDF2 banded: its cold start by phase, K4, K5, K6, K7, K9
     and K3 against their twins, the two probes alone, the card against the
@@ -1586,6 +1810,8 @@ def banded_path():
     RHS_plain = check_k457('rbc2048', solver, fact, (a, b, c), primary=True)
     check_k3('rbc2048', pencil, solver.state_flat(), primary=True)
     check_kg('rbc2048', solver.state[0])
+    check_k2a('rbc2048', solver, primary=True)
+    k1_layouts('rbc2048', solver, smi)
     check_tolerances({'pencil_gather_scatter': RESULTS['pencil_gather_scatter']})
 
     phase("K6, K9 vs plain twins and the two probes (banded-path shapes)")
@@ -1641,6 +1867,9 @@ def banded_path():
         raise AssertionError("state is not finite")
     if not max(resid, resid_fixed) <= 1e-9:
         raise AssertionError(f"final solve residual {max(resid, resid_fixed):.3e} > 1e-9")
+    phase("banded path: graph against eager, and the replayed step's device time")
+    graph_vs_eager('rbc2048', solver, DT, smi)
+    step_times('rbc2048', solver, lambda: solver.run_steps(DT, 10), smi)
     print(json.dumps({"rbc2048_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
@@ -2191,6 +2420,7 @@ def example_path():
                    bound(nbytes(*grids, Dk), len(grids) * grids[0].numel())))), True)
     check_k3('rbc256', pencil, state)
     check_kg('rbc256', u)
+    check_k2a('rbc256', solver)
 
     phase(f"example path: {EX_ITERATIONS} timed iterations of the CFL loop")
     dts.clear()
@@ -2242,6 +2472,7 @@ def example_path():
         raise AssertionError("max Re is not finite")
     if not resid <= 1e-12:
         raise AssertionError(f"last solve residual {resid:.3e} > 1e-12")
+    graph_vs_eager('rbc256', solver, CFL.stored_dt, smi)
 
     phase("example path: where the time goes (device synchronised around each segment)")
     import dedalus_tpu_torch.core.timesteppers as tsm
@@ -2385,6 +2616,7 @@ def check_complex_kernels(path, solver, ctx, CFL, last, primary):
                    bound(nbytes(*grids, Dk), 4 * len(grids) * grids[0].numel())))), primary)
     check_k3(path, pencil, state, primary=primary, name='pencil_gather_scatter_c128')
     check_kg(path, ctx['u'], primary=primary, name='grid_product_c128')
+    check_k2a(path, solver, primary=primary)
     # K7 on complex slots (its float64 kernel on their real views)
     G, P = pencil.G, pencil.R
     gen = torch.Generator(device=state.device).manual_seed(5)
@@ -2652,13 +2884,133 @@ def complex_transform_times(calls, smi):
     print(json.dumps({"complex_fourier_transforms": rows, "card": smi}))
 
 
+def run_ms(solver, run, eager=False):
+    """ms/step of run(): its steps replayed from their captured graphs, or
+    with `eager` run eagerly (the timestepper's private `_eager`)."""
+    ts = solver.timestepper
+    it1 = solver.iteration
+    ts._eager = eager
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+    finally:
+        ts._eager = False
+    return (time.perf_counter() - t0) / (solver.iteration - it1) * 1e3
+
+
+def device_per_step(solver, run):
+    """(device ms, device records) a step of run() with its graphs
+    replayed, from the profiler's kernel, copy and set records; (None, None)
+    where the profiler recorded no device time."""
+    from torch.profiler import profile, ProfilerActivity
+    it1 = solver.iteration
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = solver.iteration - it1
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(getattr(e, 'self_device_time_total', None) or
+                   getattr(e, 'self_cuda_time_total', 0) for e in evs)
+    if not total_us:
+        print("the profiler recorded no device time: not measured")
+        return None, None
+    return total_us / n * 1e-3, sum(e.count for e in evs) / n
+
+
+def step_times(path, solver, run, smi):
+    """A step of run() replayed from its graphs against the same step run
+    eagerly, in one process: ms/step of each, and the device's busy share
+    of the replayed step (its summed device time over its ms/step)."""
+    graph_ms = run_ms(solver, run)
+    eager_ms = run_ms(solver, run, eager=True)
+    dev_ms, records = device_per_step(solver, run)
+    busy = None if dev_ms is None else dev_ms / graph_ms
+    out = dict(graph_ms_per_step=graph_ms, eager_ms_per_step=eager_ms,
+               device_ms_per_step=dev_ms, device_records_per_step=records, busy_share=busy)
+    print(f"[{smi}] {path}: graph {graph_ms:.4f} ms/step, eager {eager_ms:.4f} ms/step; the "
+          f"replayed step's device time {dev_ms} ms ({records} kernel, copy and set records), "
+          f"busy share {busy}")
+    print(json.dumps({f"{path}_steps": out, "card": smi}))
+    return out
+
+
+def step_snapshot(solver):
+    """What a timestepper carries from step to step, copied: the state, the
+    time and iteration, and a multistep scheme's rings, head, dt history
+    and iteration."""
+    ts = solver.timestepper
+    snap = dict(state=solver.state_flat().clone(), t=solver.sim_time, it=solver.iteration)
+    if hasattr(ts, 'MX'):
+        snap.update(rings=[[x.clone() for x in ring] for ring in (ts.MX, ts.LX, ts.F)],
+                    head=ts._head, dt_hist=list(ts.dt_hist), ts_it=ts._iteration)
+    return snap
+
+
+def restore_snapshot(solver, snap):
+    """Back to a step_snapshot (the rings copied into their slots in place:
+    the captured graphs read those slots)."""
+    from collections import deque
+    ts = solver.timestepper
+    solver.pencil.unflatten_fields(snap['state'].clone(), solver.state)
+    solver.sim_time = snap['t']
+    solver.iteration = snap['it']
+    if 'rings' in snap:
+        for ring, saved in zip((ts.MX, ts.LX, ts.F), snap['rings']):
+            for slot, x in zip(ring, saved):
+                slot.copy_(x)
+        ts._head, ts._iteration = snap['head'], snap['ts_it']
+        ts.dt_hist = deque(snap['dt_hist'], maxlen=ts.steps)
+
+
+def graph_vs_eager(path, solver, dt, smi, steps=20):
+    """`steps` steps at dt from one state, twice replayed from their graphs
+    and three times run eagerly: the graph runs held to the eager ones bit
+    for bit where the eager runs agree bit for bit, else within their
+    spread (the largest difference among the three), which is printed; and
+    ms/step of each run."""
+    snap = step_snapshot(solver)
+    runs = []
+    for eager in (False, False, True, True, True):
+        restore_snapshot(solver, snap)
+        ms = run_ms(solver, lambda: solver.run_steps(dt, steps), eager)
+        runs.append((eager, solver.state_flat().clone(), ms))
+    graph = [x for e, x, _ in runs if not e]
+    eager = [x for e, x, _ in runs if e]
+    diff = lambda a, b: float((a - b).abs().max())
+    spread = max(diff(a, b) for i, a in enumerate(eager) for b in eager[i + 1:])
+    err = max(diff(g, e) for g in graph for e in eager)
+    scale = float(eager[0].abs().max())
+    out = dict(steps=steps, dt=dt, graph_vs_eager_max_abs=err, eager_spread_max_abs=spread,
+               graph_vs_graph_max_abs=diff(*graph), scale=scale,
+               graph_ms_per_step=[ms for e, _, ms in runs if not e],
+               eager_ms_per_step=[ms for e, _, ms in runs if e])
+    GRAPH_VS_EAGER[path] = out
+    print(f"[{smi}] {path} after {steps} steps at dt {dt:g}: graph vs eager max_abs {err:.3e}, "
+          f"eager run-to-run spread {spread:.3e}, graph vs graph {out['graph_vs_graph_max_abs']:.3e} "
+          f"(state max {scale:.3e}); ms/step graph {out['graph_ms_per_step']} eager "
+          f"{out['eager_ms_per_step']}")
+    print(json.dumps({f"{path}_graph_vs_eager": out, "card": smi}))
+    if not err <= spread:
+        raise AssertionError(f"{path}: graph and eager steps disagree ({err:.3e}) beyond eager's "
+                             f"own spread ({spread:.3e})")
+    return out
+
+
 def breakdown(path, solver, targets, nested, run, smi):
     """Per-segment ms/step of run() with the device synchronised around each
-    segment; `nested` segments run inside a top-level one (F) and are
-    printed beside it, not summed."""
+    segment (the eager step: a replayed graph has no segments); `nested`
+    segments run inside a top-level one (F) and are printed beside it, not
+    summed. Then step_times of the same run."""
     it1 = solver.iteration
     t0 = time.perf_counter()
-    segs = segment_times(targets + nested, run)
+    solver.timestepper._eager = True
+    try:
+        segs = segment_times(targets + nested, run)
+    finally:
+        solver.timestepper._eager = False
     torch.cuda.synchronize()
     seg_n = solver.iteration - it1
     seg_total = (time.perf_counter() - t0) / seg_n * 1e3
@@ -2672,6 +3024,7 @@ def breakdown(path, solver, targets, nested, run, smi):
           f"(synced step {seg_total:.4f} ms over {seg_n} iterations)")
     print(json.dumps({f"{path}_segments_ms_per_step": segs, "synced_step_ms": seg_total,
                       "iterations": seg_n, "card": smi}))
+    step_times(path, solver, run, smi)
 
 
 def build_polar(geometry, size, device):
@@ -3670,6 +4023,7 @@ def shell_path(steps=SHELL['steps']):
         raise AssertionError(f"shell: the run blew up (max|u| {max_u:.3g})")
     if not resid <= 1e-12:
         raise AssertionError(f"shell: last solve residual {resid:.3e} > 1e-12")
+    graph_vs_eager('shell', solver, dt, smi)
 
     phase("shell path: where the time goes (device synchronised around each segment)")
     targets = [('gather', pencil, 'gather_state'), ('M/L apply (KB)', osolve, 'dense_matvec'),
@@ -4215,6 +4569,7 @@ def complex_shell_run(path, zcross, bg, dev, kind, smi, steps, real=None, other=
         raise AssertionError(f"{path}: last solve residual {resid:.3e} > 1e-12")
     if not max(walls) <= 1e-12:
         raise AssertionError(f"{path}: wall residuals {walls} > 1e-12")
+    graph_vs_eager(path, solver, dt, smi)
 
     ell = None
     if zcross:
@@ -4695,7 +5050,7 @@ def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
 
     phase("K14c vs its plain twin on every distinct call of one poly step")
     X = pencil.gather_state(solver.state_flat())
-    R = ts._rhs_prev
+    R = ts.program.rhs_prev
     check_k14c('rbc2048_poly', ts, fact, R, X)
 
     phase(f"poly path: {n_steps} timed steps")
@@ -4707,7 +5062,7 @@ def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
     ms_step = run_s / n_steps * 1e3
     dof = NX * NZ * 4
     peak = torch.cuda.max_memory_allocated()
-    R = ts._rhs_prev
+    R = ts.program.rhs_prev
     Xs = fact.poly_solve(R)
     resid = float(torch.linalg.norm(R - osolve.apply_stack(Xs, fact.polyA))
                   / torch.linalg.norm(R))
@@ -4728,7 +5083,7 @@ def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
                ('scatter', pencil, 'scatter_state')]
     breakdown('rbc2048_poly', solver, targets, [('K14c, all applies', osolve, 'apply_stack')],
               lambda: solver.run_steps(DT, 3), smi)
-    n_total = warmup + n_steps + 3
+    n_total = solver.iteration       # (the breakdown's step times take steps too)
     state = solver.state_flat().cpu()
     if not torch.isfinite(state).all():
         raise AssertionError("rbc2048 poly: state is not finite")
@@ -5488,6 +5843,7 @@ def main():
         return out
 
     t_start = time.perf_counter()
+    timed(graph_inputs_path)
     timed(banded_path)
     timed(schemes_path)
     timed(poly_path)
@@ -5545,6 +5901,7 @@ def main():
                 for name, r in RESULTS.items() if name not in KERNELS}
     print(json.dumps({"checked_off_the_main_paths": off_path}))
     print(json.dumps({"k15_bounds": k15_bounds()}))
+    print(json.dumps({"graph_steps": GRAPH_STEPS, "graph_vs_eager": GRAPH_VS_EAGER}))
     print(json.dumps({"phase_seconds": seconds}))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

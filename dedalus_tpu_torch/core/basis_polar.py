@@ -218,18 +218,25 @@ class AnnulusRadialBasis(Basis):
         z = jacobi_lib.build_grid(self.grid_size(scale), self.alpha[0], self.alpha[1])
         return (self.dR / 2) * (z + self.rho)
 
-    def _radial_factor(self, factor, data, axis):
+    @CachedMethod
+    def _radial_factor_host(self, scale, forward):
+        """(r / dR)^k on the radial grid at `scale` (its inverse backward)."""
+        r = np.asarray(self.global_grid(scale))
+        return (r / self.dR)**self.k if forward else (self.dR / r)**self.k
+
+    def _radial_factor(self, scale, forward, data, axis):
+        """The radial factor on data's device, shaped to broadcast along
+        `axis` (uploaded once: a step reads no host data)."""
         shape = [1] * data.ndim
-        shape[axis] = factor.size
-        return torch.as_tensor(factor, device=data.device).reshape(shape)
+        shape[axis] = -1
+        return device_copy(self._radial_factor_host(scale, forward), data.device).reshape(shape)
 
     # --- transforms (spin recombination + radial factor) ---
 
     def forward_transform(self, data, axis, scale, dtype, tensorsig=()):
         # data: (comps..., M, r_grid); the azimuth is already in coeff space
         if self.k:
-            r = np.asarray(self.global_grid(scale))
-            data = data * self._radial_factor((r / self.dR)**self.k, data, axis)
+            data = data * self._radial_factor(scale, True, data, axis)
         data = spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=True)
         return self._jacobi.forward_transform(data, axis, scale, dtype)
 
@@ -237,8 +244,7 @@ class AnnulusRadialBasis(Basis):
         data = self._jacobi.backward_transform(data, axis, scale, dtype)
         data = spin_recombine(self.parent.coordsys, tensorsig, data, axis - 1, forward=False)
         if self.k:
-            r = np.asarray(self.global_grid(scale))
-            data = data * self._radial_factor((self.dR / r)**self.k, data, axis)
+            data = data * self._radial_factor(scale, False, data, axis)
         return data
 
     # --- operator matrices ---

@@ -588,7 +588,11 @@ class SphericalComponent(LinearOperator):
     def operate(self, arg_fields):
         field = arg_fields[0]
         data = field.data
-        sel = torch.as_tensor(self.comps, device=data.device)
+        # (the index uploaded once per device: a step reads no host data)
+        cache = self.__dict__.setdefault('_sel', {})
+        sel = cache.get(data.device)
+        if sel is None:
+            sel = cache[data.device] = torch.as_tensor(self.comps, device=data.device)
         out = torch.index_select(data, self.index, sel)
         if not self.s2_out:
             out = out.squeeze(self.index)

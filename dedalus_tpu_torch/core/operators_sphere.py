@@ -126,24 +126,32 @@ class SpinSkew(LinearOperator):
     def new_operands(self, operand):
         return SpinSkew(operand)
 
+    def _spins(self, field, spatial, data, factor):
+        """factor times each component's spin total, broadcast over
+        `spatial` axes, on data's device (uploaded once: a step reads no host
+        data)."""
+        cache = self.__dict__.setdefault('_spin_cache', {})
+        key = (field.tensor_shape, spatial, data.dtype, data.device, factor)
+        if key not in cache:
+            spins = np.zeros(field.tensor_shape + (1,) * spatial)
+            for idx in np.ndindex(*field.tensor_shape):
+                spins[idx] = self.coordsys.spintotal(field.tensorsig, idx)
+            cache[key] = torch.as_tensor(factor * spins, dtype=data.dtype, device=data.device)
+        return cache[key]
+
     def operate(self, arg_fields):
         field = arg_fields[0]
         field.require_coeff_space()
         data = field.data
         nt = len(field.tensorsig)
         if data.is_complex():
-            spins = np.zeros(field.tensor_shape + (1,) * (data.ndim - nt))
-            for idx in np.ndindex(*field.tensor_shape):
-                spins[idx] = self.coordsys.spintotal(field.tensorsig, idx)
-            out = torch.as_tensor(-1j * spins, dtype=data.dtype, device=data.device) * data
+            s = self._spins(field, data.ndim - nt, data, -1j)
+            out = s * data
             return self._build_output(self.dist.coeff_layout, out, scales=field.scales)
         az = nt + self.azimuth_axis
         pairs = data.unflatten(az, (data.shape[az] // 2, 2))
         a, b = pairs.select(az + 1, 0), pairs.select(az + 1, 1)
-        spins = np.zeros(field.tensor_shape + (1,) * (a.ndim - nt))
-        for idx in np.ndindex(*field.tensor_shape):
-            spins[idx] = self.coordsys.spintotal(field.tensorsig, idx)
-        s = torch.as_tensor(spins, dtype=data.dtype, device=data.device)
+        s = self._spins(field, a.ndim - nt, data, 1)
         out = torch.stack([s * b, -s * a], dim=az + 1).flatten(az, az + 1)
         return self._build_output(self.dist.coeff_layout, out, scales=field.scales)
 

@@ -5,8 +5,8 @@ Mirrors dedalus_tpu/core/solvers.py SolverBase, InitialValueSolver and
 LinearBoundaryValueSolver:
 subproblem enumeration and the pencil system, the default matsolver from
 the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
-with grouped transforms (ROADMAP K2: plain torch around kernel KG's grid
-products), step / run_steps / evolve with
+with grouped transforms (ROADMAP K2: each chain's batch staged by kernel
+K2a, the grid products by kernel KG), step / run_steps / evolve with
 the evaluator's handler schedule (evolve with a CFL runs the chunked loop),
 the run-control properties, log_stats and the profile option (a
 torch.profiler trace and a cProfile dump); the LBVP factors L once and
@@ -24,6 +24,7 @@ import torch
 from . import subsystems
 from . import timesteppers as timesteppers_module
 from .distributor import Layout, torch_dtype
+from ..ops import staging
 from ..ops.solve import FactorizedStack, MATSOLVERS
 from ..utils.config import config
 
@@ -86,13 +87,16 @@ class SolverBase:
         Flat coeff state (+ sim time) -> (G, R) RHS pencils. Binds the state
         onto the Field objects and evaluates the operator trees, with all
         grid-space operand prefetches batched into one backward-transform
-        chain and the RHS roots into one forward chain.
+        chain and the RHS roots into one forward chain. t is a float or a
+        0-d float64 tensor on the device (the step program's clock, which a
+        captured graph reads at each replay).
         """
         self.pencil.unflatten_fields(state_flat, self.state)
         if self._rhs_uses_time():
-            # A host value copied to the device: only when F reads it
+            if not isinstance(t, torch.Tensor):
+                t = torch.full((), float(t), dtype=torch.float64, device=self.dist.device)
             self.problem.time.preset_data(self.dist.grid_layout,
-                                          np.full((1,) * self.dist.dim, float(t)))
+                                          t.reshape((1,) * self.dist.dim))
         # External (non-state) fields of the RHS trees keep their data
         ext = self._rhs_external_fields()
         saved = [(f, f.layout, f.scales, f.data) for f in ext]
@@ -190,9 +194,13 @@ class SolverBase:
 
     @staticmethod
     def _grid_arg_node_types():
-        from .arithmetic import Add, Multiply, DotProduct
-        from .operators import Power
-        return (Add, Multiply, DotProduct, Power)
+        """The nodes evaluated on the dealias grid (as the JAX package's
+        dedalus_tpu/core/solvers.py:158-163): their operands are fetched
+        there, and an operand of one of these types is evaluated there in
+        turn, not collected."""
+        from .arithmetic import Add, Multiply, DotProduct, CrossProduct
+        from .operators import Power, UnaryGridFunction
+        return (Add, Multiply, DotProduct, CrossProduct, Power, UnaryGridFunction)
 
     def _grouped_grid_memo(self):
         """Prefetch every grid-space operand of the RHS trees through ONE
@@ -237,7 +245,8 @@ class SolverBase:
                 nc = f.ncomp
                 slabs.append(f.data.reshape((nc,) + tuple(f.data.shape[len(f.tensorsig):])))
                 metas.append((n, f.tensorsig, nc))
-            batch = torch.cat(slabs, dim=0)
+            # (K2a: one launch stages the slabs; one slab is read in place)
+            batch = staging.stage(slabs) if len(slabs) > 1 else slabs[0]
             gdata = self._batched_backward(nodes[0].domain, batch, scales)
             off = 0
             for n, ts, nc in metas:
@@ -282,7 +291,7 @@ class SolverBase:
                 continue                      # nothing to amortize
             slabs = [F.data.reshape((F.ncomp,) + tuple(F.data.shape[len(F.tensorsig):]))
                      for F in fields]
-            data = torch.cat(slabs, dim=0)
+            data = staging.stage(slabs) if len(slabs) > 1 else slabs[0]
             domain = fields[0].domain
             layout = self.dist.grid_layout
             while any(layout.grid_space):

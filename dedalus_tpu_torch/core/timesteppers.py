@@ -31,8 +31,15 @@ package's RK step does):
 per stage: L X(n,i-1) by KB (M X and L X together at the first stage), F,
 the stage combine (kernel KC), the solve (KA) and the scatter.
 
-The JAX whole-run programs (a jit around a fori_loop) become plain Python
-loops of eager steps.
+The JAX whole-run programs (a jit around a fori_loop) become the step
+program of core/graphs.py: a step reads and writes static buffers (the
+state, the clock, the coefficient vector, poly's carried RHS and the
+history rings, whose slots are overwritten in place), and on the card each
+distinct step is captured once as a CUDA graph and replayed: the multistep
+schemes keep one graph per ring phase (the slot the step writes), the RK
+schemes one per step size with its stages inside. On the CPU, and on the
+card with the timestepper's private `_eager` set, the same step runs
+eagerly.
 """
 
 import contextlib
@@ -43,6 +50,7 @@ import numpy as np
 import torch
 
 from .distributor import torch_dtype
+from .graphs import GraphCache, StepProgram, graph_cache
 from ..ops import banded as ops_banded
 from ..ops import solve as ops_solve
 from ..csrc.history_combine import history_combine
@@ -101,10 +109,13 @@ class MultistepIMEX:
         self._head = 0
         self.dt_hist = deque([0.0] * self.steps, maxlen=self.steps)
         self._iteration = 0
-        # poly: the separable M and L stacks, and the last solve's RHS
-        # (a0 M X + b0 L X of the state it produced)
+        # poly: the separable M and L stacks (the step program carries the
+        # last solve's RHS, a0 M X + b0 L X of the state it produced)
         self._poly_ml_cache = None
-        self._rhs_prev = None
+        # The step's static buffers and graphs; `_eager` runs the step
+        # eagerly on the card as well (the graph-vs-eager check)
+        self.program = StepProgram(solver, coef_size=3 * self.steps)
+        self._eager = False
 
     # --- factorizations ---
 
@@ -331,22 +342,27 @@ class MultistepIMEX:
 
     # --- stepping ---
 
-    def _push(self, MX0, LX0, F0):
-        """Newest entries into the rings (over the oldest slot, by
-        reference: nothing is copied)."""
-        old = (self._head - 1) % self.steps
-        self.MX[old], self.LX[old], self.F[old] = MX0, LX0, F0
-        self._head = old
+    def _store(self, head, MX0, LX0, F0):
+        """The newest entries into the ring slot before `head` (the oldest),
+        copied in place: the slots are static buffers of the step program.
+        Returns the new head."""
+        new = (head - 1) % self.steps
+        self.MX[new].copy_(MX0)
+        self.LX[new].copy_(LX0)
+        self.F[new].copy_(F0)
+        return new
 
-    def histories(self):
-        """The F, MX and LX slots, each list newest first."""
-        order = [(self._head + j) % self.steps for j in range(self.steps)]
+    def histories(self, head=None):
+        """The F, MX and LX slots, each list newest first (from the slot
+        `head`, by default the current one)."""
+        head = self._head if head is None else head
+        order = [(head + j) % self.steps for j in range(self.steps)]
         return ([self.F[i] for i in order], [self.MX[i] for i in order],
                 [self.LX[i] for i in order])
 
-    def _combine(self, coef):
+    def _combine(self, coef, head):
         """The step's right-hand side from the rings (K7)."""
-        return history_combine(*self.histories(), self.pencil.row_valid_dev, coef)
+        return history_combine(*self.histories(head), self.pencil.row_valid_dev, coef)
 
     def coefficient_vector(self, a, b, c, device):
         """K7's (3 s,) float64 vector [a1..as, b1..bs, c1..cs] on the device."""
@@ -354,59 +370,64 @@ class MultistepIMEX:
         vals = [float(v) for v in (*a[1:s + 1], *b[1:s + 1], *c[1:s + 1])]
         return torch.tensor(vals, dtype=torch.float64, device=device)
 
-    def _step(self, state_flat, t, coef, a0, b0, n_out, fact):
-        """One step on the flat coefficient state; returns the new state."""
+    def _step(self, head, dt, a0, b0, n_out, fact):
+        """One step of the program (core/graphs.py): from its state and
+        clock, the newest ring entries into the slot before `head`, the
+        solve, and the new state and clock written back into its buffers.
+        Reads no host data: on the card it is what a graph captures."""
         solver = self.solver
         pencil = self.pencil
+        prog = self.program
+        state_flat, t, coef = prog.state, prog.t, prog.coef
         rv = pencil.row_valid_dev
         method = solver.matsolver
+        X = None if method == 'matrix_free' else pencil.gather_state(state_flat)
         if method == 'matrix_free':
-            return self._step_matrix_free(state_flat, t, coef, a0, b0, fact)
-        X = pencil.gather_state(state_flat)
-        if method == 'poly':
+            Xnew = self._step_matrix_free(head, a0, b0, fact)
+        elif method == 'poly':
             pm = self._poly_ml()[0]
             MX0 = ops_solve.apply_stack(X, pm)
             # L X from the previous solve's identity a0 M X + b0 L X = RHS
             # (exact to its residual): no L apply in the step
-            LX0 = (self._rhs_prev - a0 * MX0) / b0
+            LX0 = (prog.rhs_prev - a0 * MX0) / b0
             F0 = solver.traced_F(state_flat, t)
-            self._push(MX0, LX0, F0)
-            RHS = self._combine(coef)
-            self._rhs_prev = RHS
-            return pencil.scatter_state(fact.poly_solve(RHS))
-        if method != 'banded':
+            RHS = self._combine(coef, self._store(head, MX0, LX0, F0))
+            prog.rhs_prev.copy_(RHS)
+            Xnew = fact.poly_solve(RHS)
+        elif method != 'banded':
             MX0, LX0 = ops_solve.dense_matvec(pencil.matrices['M'], X, pencil.matrices['L'])
             F0 = solver.traced_F(state_flat, t)
-            self._push(MX0, LX0, F0)
-            RHS = self._combine(coef)
-            return pencil.scatter_state(fact.solve(RHS))
-        bM, bL = self._banded_ml()
-        MX0 = bM.apply(X)
-        LX0 = bL.apply(X)
-        F0 = solver.traced_F(state_flat, t)
-        self._push(MX0, LX0, F0)
-        RHS = self._combine(coef)
-        Xnew = fact.banded.solve(RHS)
-        # Outer refinement against the true step matrix when the
-        # factorization was built for nearby coefficients (startup steps)
-        for _ in range(n_out):
-            AX = (a0 * bM.apply(Xnew) + b0 * bL.apply(Xnew)) * rv
-            Xnew = fact.banded.solve(RHS - AX, accumulate=Xnew)
-        return pencil.scatter_state(Xnew)
+            RHS = self._combine(coef, self._store(head, MX0, LX0, F0))
+            Xnew = fact.solve(RHS)
+        else:
+            bM, bL = self._banded_ml()
+            MX0 = bM.apply(X)
+            LX0 = bL.apply(X)
+            F0 = solver.traced_F(state_flat, t)
+            RHS = self._combine(coef, self._store(head, MX0, LX0, F0))
+            Xnew = fact.banded.solve(RHS)
+            # Outer refinement against the true step matrix when the
+            # factorization was built for nearby coefficients (startup steps)
+            for _ in range(n_out):
+                AX = (a0 * bM.apply(Xnew) + b0 * bL.apply(Xnew)) * rv
+                Xnew = fact.banded.solve(RHS - AX, accumulate=Xnew)
+        state_flat.copy_(pencil.scatter_state(Xnew))
+        t.add_(dt)
 
-    def _step_matrix_free(self, state_flat, t, coef, a0, b0, fact):
-        """One matrix_free step (dedalus_tpu/core/timesteppers.py:528-531,
-        582-592): M X and L X from the operators' expression trees, the f32
-        inverse (KB's f32 form), then `solver.refinements` (1) passes
-        against a0 M + b0 L applied through the trees."""
+    def _step_matrix_free(self, head, a0, b0, fact):
+        """The solve of one matrix_free step (dedalus_tpu/core/
+        timesteppers.py:528-531, 582-592): M X and L X from the operators'
+        expression trees, the f32 inverse (KB's f32 form), then
+        `solver.refinements` (1) passes against a0 M + b0 L applied through
+        the trees. Returns the new pencils."""
         solver = self.solver
         pencil = self.pencil
+        prog = self.program
         rv = pencil.row_valid_dev
-        MX0 = solver.traced_matrix_apply('M', state_flat)
-        LX0 = solver.traced_matrix_apply('L', state_flat)
-        F0 = solver.traced_F(state_flat, t)
-        self._push(MX0, LX0, F0)
-        RHS = self._combine(coef)
+        MX0 = solver.traced_matrix_apply('M', prog.state)
+        LX0 = solver.traced_matrix_apply('L', prog.state)
+        F0 = solver.traced_F(prog.state, prog.t)
+        RHS = self._combine(prog.coef, self._store(head, MX0, LX0, F0))
         Xnew = ops_solve.inverse32_apply(fact.Ainv, RHS)
         for _ in range(getattr(solver, 'refinements', 1)):
             sX = pencil.scatter_state(Xnew)
@@ -415,26 +436,36 @@ class MultistepIMEX:
             # Identity pivots: the invalid entries of Xnew pass through
             AX = AX + Xnew * (1.0 - rv)
             Xnew = Xnew + ops_solve.inverse32_apply(fact.Ainv, RHS - AX)
-        return pencil.scatter_state(Xnew)
+        return Xnew
 
     def _run(self, a, b, c, dt, n_steps, fact):
-        """Advance n_steps applying the same (a, b, c) each step."""
+        """Advance n_steps applying the same (a, b, c) each step: the step
+        program loaded with the state, time and coefficients, one step (a
+        graph's replay on the card) per ring phase in turn."""
         solver = self.solver
-        state = solver.state_flat()
-        t = solver.sim_time
-        if solver.matsolver == 'poly':
-            # Seed the carried RHS with a0 M X + b0 L X of the incoming state
-            # (one pair apply), so the first derived L X is exact
-            pm, pl, BML = self._poly_ml()
-            MX, LX = ops_solve.separable_apply_pair(
-                self.pencil.gather_state(state), BML, pm['weights'], pm['bad'], pm['Abad'],
-                pl['weights'], pl['bad'], pl['Abad'])
-            self._rhs_prev = float(a[0]) * MX + float(b[0]) * LX
-        n_out = int(self._outer_for_key.get((float(a[0]), float(b[0])), 0))
-        coef = self.coefficient_vector(a, b, c, state.device)
-        for _ in range(n_steps):
-            state = self._step(state, t, coef, float(a[0]), float(b[0]), n_out, fact)
-            t = t + dt
+        prog = self.program
+        a0, b0 = float(a[0]), float(b[0])
+        ext = prog.load(solver.state_flat(), solver.sim_time)
+        try:
+            if solver.matsolver == 'poly':
+                # Seed the carried RHS with a0 M X + b0 L X of the incoming
+                # state (one pair apply), so the first derived L X is exact
+                pm, pl, BML = self._poly_ml()
+                MX, LX = ops_solve.separable_apply_pair(
+                    self.pencil.gather_state(prog.state), BML, pm['weights'], pm['bad'],
+                    pm['Abad'], pl['weights'], pl['bad'], pl['Abad'])
+                prog.carried_rhs(MX).copy_(a0 * MX + b0 * LX)
+            n_out = int(self._outer_for_key.get((a0, b0), 0))
+            prog.coef.copy_(self.coefficient_vector(a, b, c, prog.coef.device))
+            cache = graph_cache(fact)
+            key = (solver.matsolver, a0, b0, n_out, float(dt), _structure(fact), ext)
+            for _ in range(n_steps):
+                head = self._head
+                prog.run(cache, key + (head,),
+                         lambda: self._step(head, dt, a0, b0, n_out, fact), eager=self._eager)
+                self._head = (head - 1) % self.steps
+        finally:
+            state = prog.unload()
         self.pencil.unflatten_fields(state, solver.state)
         solver.sim_time = solver.sim_time + dt * n_steps
 
@@ -676,6 +707,15 @@ def _pad(x, n):
     return out
 
 
+def _structure(fact):
+    """What a captured step bakes in from its factorization beside its
+    addresses: the refinement and pass counts the solve loops over (the
+    smoke and the startup keys may change them between runs)."""
+    banded = getattr(fact, 'banded', None)
+    return (getattr(fact, 'passes', None), getattr(fact, 'refinements', None),
+            getattr(banded, 'refinements', None))
+
+
 def _require_dense_if_complex(pencil):
     """Complex pencils are solved on their dense stacks only: neither the
     banded nor the poly matsolver has a complex form (nor has the JAX
@@ -707,6 +747,10 @@ class RungeKuttaIMEX:
         # every one: a CFL run adds one per dt it visits)
         self._stage_factors = {}
         self._stage_cache = {}
+        # The step's static buffers and graphs; `_eager` runs the step
+        # eagerly on the card as well (the graph-vs-eager check)
+        self.program = StepProgram(solver)
+        self._eager = False
 
     def _get_stage_factor(self, kHii):
         key = float(kHii)
@@ -722,7 +766,9 @@ class RungeKuttaIMEX:
     def _stage_stacks(self, k):
         """Per stage at step size k: the factorization (a reference to the
         shared one, where the JAX package stacks a copy per stage) and the
-        (2 i,) device coefficients [k A_ij..., k H_ij...] of the combine."""
+        (2 i,) device coefficients [k A_ij..., k H_ij...] of the combine.
+        The step size's entry also holds its captured steps (a
+        GraphCache), which go with it."""
         stages = self._stage_cache.pop(k, None)
         if stages is None:
             # Evict down to limit-1 step sizes before building, so the new
@@ -740,39 +786,51 @@ class RungeKuttaIMEX:
                 fact = self._get_stage_factor(kHs[i - 1])
                 coef = [k * self.A[i, j] for j in range(i)] + [k * self.H[i, j] for j in range(i)]
                 per_stage.append((fact, torch.tensor(coef, dtype=torch.float64, device=dev)))
-            stages = (per_stage, set(kHs))
+            stages = (per_stage, set(kHs), GraphCache())
         self._stage_cache[k] = stages
         return stages[0]
 
-    def _step(self, state_flat, t0, k, stages):
-        """One step on the flat coefficient state; returns the new state."""
+    def _step(self, k, stages):
+        """One step of the program (core/graphs.py) at step size k: the
+        stages from its state and clock (the stage times t + k c_i computed
+        on the device), the new state and clock written back into its
+        buffers. Reads no host data: on the card it is what a graph
+        captures."""
         solver = self.solver
         pencil = self.pencil
+        prog = self.program
         rv = pencil.row_valid_dev
         Mmat, Lmat = pencil.matrices['M'], pencil.matrices['L']
-        X = pencil.gather_state(state_flat)
+        X = pencil.gather_state(prog.state)
         MX0, LX0 = ops_solve.dense_matvec(Mmat, X, Lmat)
         LX = [LX0]
         F = []
-        state = state_flat
+        state = prog.state
         for i in range(1, self.stages + 1):
             if i > 1:
                 LX.append(ops_solve.dense_matvec(Lmat, pencil.gather_state(state)))
-            F.append(solver.traced_F(state, t0 + k * self.c[i - 1]))
+            F.append(solver.traced_F(state, prog.t + k * self.c[i - 1]))
             fact, coef = stages[i - 1]
             RHS = rk_stage_combine(MX0, F, LX, rv, coef)
             state = pencil.scatter_state(fact.solve(RHS))
-        return state
+        prog.state.copy_(state)
+        prog.t.add_(k)
 
     def _run(self, k, n_steps):
-        """Advance n_steps at fixed step size k."""
+        """Advance n_steps at fixed step size k: the step program loaded
+        with the state and time, one step (a graph's replay on the card)
+        each."""
         solver = self.solver
+        prog = self.program
         stages = self._stage_stacks(k)
-        state = solver.state_flat()
-        t = solver.sim_time
-        for _ in range(n_steps):
-            state = self._step(state, t, k, stages)
-            t = t + k
+        cache = self._stage_cache[k][2]
+        ext = prog.load(solver.state_flat(), solver.sim_time)
+        try:
+            key = (tuple(_structure(fact) for fact, _ in stages), ext)
+            for _ in range(n_steps):
+                prog.run(cache, key, lambda: self._step(k, stages), eager=self._eager)
+        finally:
+            state = prog.unload()
         self.pencil.unflatten_fields(state, solver.state)
         solver.sim_time = solver.sim_time + k * n_steps
 

@@ -82,6 +82,10 @@ SIGNATURES = {
         'k11_conversion_apply_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
         'k11_conversion_solve_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
     },
+    'rhs_kernels': {
+        'k2a_stage_f64': [_P, _I, _P] + [_I] * 4 + [_P],
+        'k2a_stage_c128': [_P, _I, _P] + [_I] * 4 + [_P],
+    },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
         'k3_pencil_gather_c128': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
@@ -181,11 +185,47 @@ def counter(form):
     return f'launches_{suffix}' if suffix else 'launches'
 
 
-def count(wrapper, form):
+# The launches counted while a CUDA graph is captured: {(wrapper, count
+# attribute): launches per replay}, or None outside a capture
+_capturing = None
+
+
+def count(wrapper, form=None):
     """Add one launch of `wrapper`'s kernel in `form` (as in counter) to its
-    count."""
+    count. Inside a capture (`Capture`) the launch is recorded instead: it
+    counts once per replay of the graph."""
     attr = counter(form)
+    if _capturing is not None:
+        key = (wrapper, attr)
+        _capturing[key] = _capturing.get(key, 0) + 1
+        return
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
+class Capture:
+    """Around a CUDA graph's capture: the wrappers' launches recorded during
+    it (`launches`), which `replayed` adds to their counts once per replay."""
+
+    def __enter__(self):
+        global _capturing
+        if _capturing is not None:
+            raise RuntimeError("nested launch-count capture")
+        self.launches = _capturing = {}
+        return self
+
+    def __exit__(self, *exc):
+        global _capturing
+        _capturing = None
+        return False
+
+    def replayed(self, times=1):
+        for (wrapper, attr), n in self.launches.items():
+            setattr(wrapper, attr, getattr(wrapper, attr) + n * times)
+
+    @property
+    def total(self):
+        """Kernel launches of this repository per replay."""
+        return sum(self.launches.values())
 
 
 def reset(wrapper):

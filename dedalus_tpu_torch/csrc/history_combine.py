@@ -30,6 +30,8 @@ makes the kernel read the row mask at flat index // PARTS.
 
 import torch
 
+from . import build
+
 BLOCK = 1024
 MAX_DEPTH = 4
 _kernel = None
@@ -126,7 +128,7 @@ def history_combine(F, MX, LX, rv, coef):
     n = out.numel()
     _kernel[(-(-n // BLOCK),)](*pad(F), *pad(MX), *pad(LX), rv, coef, out, n,
                                S=s, PARTS=parts, BLOCK=BLOCK, num_warps=4)
-    history_combine.launches += 1
+    build.count(history_combine)
     return torch.view_as_complex(out) if parts == 2 else out
 
 

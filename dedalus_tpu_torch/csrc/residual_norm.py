@@ -21,6 +21,8 @@ matrix product. The norm stays on the device as a 0-d float64 tensor.
 
 import torch
 
+from . import build
+
 BLOCK = 1024
 _kernels = None
 
@@ -128,7 +130,7 @@ def residual_norm(R, Y0, Y1=None, coef=None, rv=None, scale=None):
         enable_fp_fusion=False)
     residual_final[(1,)](part, absent if sumsq else scale, out, G, ntiles, SUMSQ=sumsq,
                          BLOCK=BLOCK, num_warps=4)
-    residual_norm.launches += 1
+    build.count(residual_norm)
     return res, out
 
 

@@ -24,6 +24,8 @@ without it (the CPU test runs) only ever take the plain twin.
 
 import torch
 
+from . import build
+
 from .history_combine import check_mask, real_views
 
 BLOCK = 1024
@@ -96,7 +98,7 @@ def rk_stage_combine(MX0, F, LX, rv, coef):
     size = MX0.numel()
     _kernel[(-(-size // BLOCK),)](MX0, *pad(F), *pad(LX), rv, coef, out, size,
                                   NJ=n, PARTS=parts, BLOCK=BLOCK, num_warps=4)
-    rk_stage_combine.launches += 1
+    build.count(rk_stage_combine)
     return torch.view_as_complex(out) if parts == 2 else out
 
 

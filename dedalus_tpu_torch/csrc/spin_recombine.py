@@ -43,6 +43,8 @@ device-memory bandwidth. Its launches count in
 
 import torch
 
+from . import build
+
 BLOCK = 512
 _kernel = None
 _complex_kernel = None
@@ -142,7 +144,7 @@ def spin_recombine(x, rank, azimuth_axis, W):
     n_pos = pre * mid * K * N
     _kernel[(-(-n_pos // BLOCK),)](x, out, W, n_pos, mid, K, N, C=c, BLOCK=BLOCK,
                                    num_warps=4)
-    spin_recombine.launches += 1
+    build.count(spin_recombine)
     return out
 
 
@@ -213,7 +215,6 @@ def spin_recombine_complex(x, rank, U):
     if x.device.type == 'cpu':
         return spin_recombine_complex_plain(x, rank, U)
     global _complex_kernel
-    from . import build
     if x.dtype != torch.complex128 or not x.is_contiguous():
         raise ValueError("spin_recombine_complex: x must be a contiguous complex128 tensor")
     pre, C, R = _split(tuple(x.shape), rank)

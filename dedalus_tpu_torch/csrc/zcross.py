@@ -30,6 +30,8 @@ ever take the plain twin. Launches, in both dtypes, count in
 
 import torch
 
+from . import build
+
 BLOCK = 512
 _kernel = None
 
@@ -95,7 +97,7 @@ def zcross(u, ct, st):
     od = torch.view_as_real(out) if w == 2 else out
     _kernel[(-(-n_pos // BLOCK),)](ud, od, ct.contiguous(), st.contiguous(), n_pos, N1,
                                    u.shape[3] * w, BLOCK=BLOCK, num_warps=4)
-    zcross.launches += 1
+    build.count(zcross)
     return out
 
 

@@ -350,7 +350,7 @@ def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None):
         diag.data_ptr(), sub.data_ptr(), sup.data_ptr(),
         *(qr[k].data_ptr() for k in FACTOR_KEYS), pins.data_ptr(), qr['sigma'].data_ptr(),
         *p32, G, Nb, nb, float(pin_tol), stream), 'block_tridiag_qr_factor')
-    factor_block_tridiag_qr.launches += 1
+    build.count(factor_block_tridiag_qr)
     qr['pins'] = pins.view(torch.bool)
     return qr
 
@@ -406,7 +406,7 @@ def multi_rhs_solve(qr, Rhs):
     build.check(build.library().k8_multi_rhs_solve_f64(
         *(qr[key].data_ptr() for key in FACTOR_KEYS), Rhs.data_ptr(), X.data_ptr(),
         G, Nb, nb, k, stream), 'multi_rhs_solve')
-    multi_rhs_solve.launches += 1
+    build.count(multi_rhs_solve)
     return X
 
 
@@ -473,7 +473,7 @@ def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
     build.check(fn(Qt.data_ptr(), QtL.data_ptr(), Rinv.data_ptr(), R1.data_ptr(),
                    R2.data_ptr(), r.data_ptr(), x.data_ptr(), G, Nb, nb, stream),
                 'block_tridiag_qr_solve')
-    block_tridiag_qr_solve.launches += 1
+    build.count(block_tridiag_qr_solve)
     return x
 
 
@@ -604,7 +604,7 @@ def banded_apply(ops, xp, w=None, groups=None, out=None):
         Pp, ops['mask_sub'], ops['mask_sup'], ops['mask_UcolT'],
         ops['mask_Vrow'], stream)
     build.check(status, 'banded_apply')
-    banded_apply.launches += 1
+    build.count(banded_apply)
     return y
 
 
@@ -706,7 +706,7 @@ def banded_solve_pre(R, row_perm, Dr, fdt):
     build.check(build.library().k6_solve_pre_f64(
         R.data_ptr(), row_perm.data_ptr(), Dr.data_ptr(), rc.data_ptr(), G, P, Pp,
         int(fdt == torch.float64), stream), 'banded_solve_pre')
-    banded_solve_pre.launches += 1
+    build.count(banded_solve_pre)
     return rc
 
 
@@ -798,7 +798,7 @@ def banded_solve_post(fac, y, Dc, col_unperm, col_perm, P, xbad=None, bad_idx=No
         bad_idx.data_ptr() if nbad else 0, nbad, X.data_ptr(), G, P, Pp, B,
         int(fdt == torch.float64), int(wb64), int(accumulate is not None), stream),
         'banded_solve_post')
-    banded_solve_post.launches += 1
+    build.count(banded_solve_post)
     return X
 
 

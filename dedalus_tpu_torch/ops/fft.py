@@ -32,6 +32,8 @@ these wrappers.
 import numpy as np
 import torch
 
+from . import staging
+
 __all__ = ['good_factors', 'dft', 'dft_plain', 'dct2_pre', 'dct2_post', 'dct3_pre',
            'dct3_post', 'fourier_pack', 'fourier_unpack', 'fourier_select',
            'fourier_scatter', 'ConversionBand',
@@ -227,7 +229,7 @@ def dft(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
     build.check(build.library().k10_dft_c128(
         x.data_ptr(), LOADS[load], W1.data_ptr(), _ptr(twT), _ptr(W2), y.data_ptr(),
         int(real_out), float(scale), _ptr(scratch), outer, N1, N2, inner, _stream(x)), 'dft')
-    dft.launches += 1
+    build.count(dft)
     return y
 
 
@@ -278,7 +280,7 @@ def dct2_pre(x, axis, flip=False):
     v = torch.empty_like(x)
     build.check(build.library().k11_dct2_pre_f64(
         x.data_ptr(), v.data_ptr(), outer, N, inner, int(flip), _stream(x)), 'dct2_pre')
-    dct2_pre.launches += 1
+    build.count(dct2_pre)
     return v
 
 
@@ -309,7 +311,7 @@ def dct2_post(V, axis, M, scale=None):
     build.check(build.library().k11_dct2_post_f64(
         V.data_ptr(), wr.data_ptr(), wi.data_ptr(), _ptr(scale), t.data_ptr(), outer, N, M,
         inner, _stream(V)), 'dct2_post')
-    dct2_post.launches += 1
+    build.count(dct2_post)
     return t
 
 
@@ -346,7 +348,7 @@ def dct3_pre(c, axis, N, scale=None):
     build.check(build.library().k11_dct3_pre_f64(
         c.data_ptr(), _ptr(scale), wr.data_ptr(), wi.data_ptr(), V.data_ptr(), outer, L,
         min(L, N), N, inner, _stream(c)), 'dct3_pre')
-    dct3_pre.launches += 1
+    build.count(dct3_pre)
     return V
 
 
@@ -370,7 +372,7 @@ def dct3_post(v, axis, flip=False):
     g = torch.empty_like(v)
     build.check(build.library().k11_dct3_post_f64(
         v.data_ptr(), g.data_ptr(), outer, N, inner, int(flip), _stream(v)), 'dct3_post')
-    dct3_post.launches += 1
+    build.count(dct3_post)
     return g
 
 
@@ -432,7 +434,7 @@ def fourier_pack(Z, axis, N, M, Kmax, s0, s, packed):
     build.check(build.library().k12_fourier_pack_f64(
         Z.data_ptr(), _ptr(twr), _ptr(twi), out.data_ptr(), outer, Lz, N, M, inner,
         int(Kmax), float(s0), float(s), _stream(Z)), 'fourier_pack')
-    fourier_pack.launches += 1
+    build.count(fourier_pack)
     return out
 
 
@@ -475,7 +477,7 @@ def fourier_unpack(c, axis, N, Kmax, s0, s, keep_b0=False):
     build.check(build.library().k12_fourier_unpack_f64(
         c.data_ptr(), full.data_ptr(), outer, L, N, inner, int(min(Kmax, 2**30)), float(s0),
         float(s), int(keep_b0), _stream(c)), 'fourier_unpack')
-    fourier_unpack.launches += 1
+    build.count(fourier_unpack)
     return full
 
 
@@ -539,7 +541,7 @@ def fourier_select(Z, axis, M, Kmax):
     build.check(build.library().k12_fourier_select_c128(
         Z.data_ptr(), out.data_ptr(), outer, N, M, inner, int(min(Kmax, 2**30)), _stream(Z)),
         'fourier_select')
-    fourier_select.launches += 1
+    build.count(fourier_select)
     return out
 
 
@@ -569,7 +571,7 @@ def fourier_scatter(c, axis, N, Kmax):
     build.check(build.library().k12_fourier_scatter_c128(
         c.data_ptr(), full.data_ptr(), outer, M, N, inner, int(min(Kmax, 2**30)), _stream(c)),
         'fourier_scatter')
-    fourier_scatter.launches += 1
+    build.count(fourier_scatter)
     return full
 
 
@@ -629,7 +631,7 @@ def conversion_apply(band, x, axis):
     build.check(build.library().k11_conversion_apply_f64(
         D.data_ptr(), offs.data_ptr(), len(band.offsets), x.data_ptr(), y.data_ptr(), outer, N,
         band.M, inner, _stream(x)), 'conversion_apply')
-    conversion_apply.launches += 1
+    build.count(conversion_apply)
     return y
 
 
@@ -668,7 +670,7 @@ def conversion_solve(band, b, axis):
     build.check(build.library().k11_conversion_solve_f64(
         D.data_ptr(), offs.data_ptr(), len(band.offsets), b.data_ptr(), x.data_ptr(), outer, L,
         band.M, inner, _stream(b)), 'conversion_solve')
-    conversion_solve.launches += 1
+    build.count(conversion_solve)
     return x
 
 
@@ -681,16 +683,19 @@ conversion_solve.launches = 0
 # ---------------------------------------------------------------------------
 
 def resize_axis(data, new_size, axis):
-    """Zero-pad or truncate `data` to `new_size` along `axis`."""
+    """Zero-pad or truncate `data` to `new_size` along `axis`: on a CUDA
+    tensor one launch of K2a (ops/staging.py) writes the resized copy, on a
+    CPU tensor its plain twin pads with zeros and torch.cat or narrows."""
     axis = axis % data.ndim
     old = data.shape[axis]
     if new_size == old:
         return data
-    if new_size < old:
-        return torch.narrow(data, axis, 0, new_size)
-    pad = torch.zeros(_with_axis(data.shape, axis, new_size - old), dtype=data.dtype,
-                      device=data.device)
-    return torch.cat([data, pad], dim=axis)
+    if data.device.type == 'cpu':
+        return staging.resize_plain(data, new_size, axis)
+    outer = int(np.prod(data.shape[:axis], dtype=np.int64))
+    inner = int(np.prod(data.shape[axis + 1:], dtype=np.int64))
+    out = staging.stage([data.reshape(outer, old, inner)], axis=1, size=new_size)
+    return out.reshape(_with_axis(data.shape, axis, new_size))
 
 
 def fft(x, axis=-1):

@@ -302,7 +302,7 @@ def mixed_solve(Ainv32, A, R):
     build.check(build.library().k14b_mixed_solve_f64(
         Ainv32.data_ptr(), A.data_ptr(), R.data_ptr(), X.data_ptr(), G, P, _cuda_stream(R)),
         'mixed_solve')
-    mixed_solve.launches += 1
+    build.count(mixed_solve)
     return X
 
 
@@ -409,8 +409,9 @@ def separable_apply(X, weights, Bcat, bad_idx=(), Abad=None):
     """
     if X.device.type == 'cpu':
         return separable_apply_plain(X, weights, Bcat, bad_idx, Abad)
+    from ..csrc import build
     Y, = _separable_launch(X, Bcat, [(weights, 0, bad_idx, Abad)])
-    separable_apply.launches += 1
+    build.count(separable_apply)
     return Y
 
 
@@ -426,8 +427,9 @@ def separable_apply_pair(X, Bcat, wA, badA, CA, wB, badB, CB):
     """
     if X.device.type == 'cpu':
         return separable_apply_pair_plain(X, Bcat, wA, badA, CA, wB, badB, CB)
+    from ..csrc import build
     YA, YB = _separable_launch(X, Bcat, [(wA, 0, badA, CA), (wB, wA.shape[1], badB, CB)])
-    separable_apply_pair.launches += 1
+    build.count(separable_apply_pair)
     return YA, YB
 
 

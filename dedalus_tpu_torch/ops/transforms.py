@@ -12,6 +12,7 @@ with the select and scatter of the ordered complex coefficients around it
 the interleaved (cos, -sin) coefficients around it (K12).
 """
 
+import numpy as np
 import torch
 
 from . import fft
@@ -22,9 +23,28 @@ __all__ = ['apply_matrix', 'complex_fft_forward', 'complex_fft_backward', 'real_
 
 
 def apply_matrix(matrix, data, axis):
-    """Contract `matrix` (M, N) against `data` along `axis` (size N) -> size M."""
-    out = torch.tensordot(matrix, data, dims=([1], [axis]))
-    return torch.movedim(out, 0, axis)
+    """Contract `matrix` (M, N) against `data` along `axis` (size N) -> size M,
+    written contiguous in data's axis order. data is read in place as
+    (outer, N, inner): one GEMM with op(matrix^T) along the last axis, one
+    along the first, else a batch of (M, N) x (N, inner) products over the
+    outer index with the matrix's batch stride 0. No permute().contiguous()
+    copy goes around the product, as a tensordot on a middle axis needs."""
+    axis = axis % data.ndim
+    shape = tuple(data.shape)
+    N, M = shape[axis], matrix.shape[0]
+    if matrix.shape[1] != N:
+        # (a size-1 basis's 1 x 1 matrix on longer lines broadcasts in
+        # tensordot's contraction)
+        return torch.movedim(torch.tensordot(matrix, data, dims=([1], [axis])), 0, axis)
+    outer = int(np.prod(shape[:axis], dtype=np.int64))
+    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    if inner == 1:
+        out = torch.matmul(data.reshape(outer, N), matrix.t())
+    elif outer == 1:
+        out = torch.matmul(matrix, data.reshape(N, inner))
+    else:
+        out = torch.matmul(matrix, data.reshape(outer, N, inner))
+    return out.reshape(shape[:axis] + (M,) + shape[axis + 1:])
 
 
 def complex_fft_forward(gdata, axis, M, Kmax):
