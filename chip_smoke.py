@@ -19,13 +19,12 @@ public entry points:
     call of a step), 3 warm-up and 10 timed steps, its final state held
     against the banded path's after the same steps;
   * the same with `[transforms] fourier_library = jacobi_library = fast`
-    (banded_fast_path: the four-step DFT K10, the DCT wrapping K11a, the
+    (banded_fast_path: the radix FFT K10, the DCT wrapping K11a, the
     ultraspherical conversion K11b and the real-Fourier pack K12 in place of
     the dense transforms), 20 timed steps, held against the same steps
     under MMT and the card against the CPU at 64x32; F under both
-    libraries; 'auto' at the threshold (8192) (the crossover table of the
-    fast kernels, MMT and torch.fft per axis size is run by hand:
-    `python3 -c "import chip_smoke as c; c.crossover_table(c.card()[2])"`);
+    libraries; 'auto' at the threshold (8192); then the crossover table of
+    the fast kernels, MMT and torch.fft per axis size (crossover_table);
   * the banded cold start at 2048x2048 with the default matsolver, which
     leaves the dense path by itself at this size: from build_rbc_problem to
     the end of the first steady step, by phase (kernels K8a, K8b for the f64
@@ -208,7 +207,7 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
            ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
            shell_radial_transform=1e-13, grid_cross=1e-15, ball_radial_apply_rot=1e-13,
-           dft_four_step=1e-13, dct_wrap=1e-13, chebyshev_conversion=1e-12,
+           dft=1e-13, dct_wrap=1e-13, chebyshev_conversion=1e-12,
            real_fourier_pack=1e-15, separable_apply=SEPARABLE_TOL, lu_solve=LU_TOL,
            mixed_solve=MIXED_TOL, complex_fourier_select=1e-15, dense_refined_solve_c128=1e-13,
            dense_matvec_c128=1e-14, pencil_gather_scatter_c128=0.0, grid_product_c128=1e-15,
@@ -265,8 +264,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                 'dedalus_tpu/core/arithmetic.py:1106'),
     ball_radial_apply_rot=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
                            'dedalus_tpu/core/operators_ball.py:214'),
-    dft_four_step=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu',
-                   'dedalus_tpu/ops/fft64.py:96'),
+    dft=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu', 'dedalus_tpu/ops/fft64.py:96'),
     dct_wrap=('cuda', 'dedalus_tpu_torch/csrc/fft_kernels.cu', 'dedalus_tpu/ops/fft64.py:227'),
     chebyshev_conversion=('cuda', 'dedalus_tpu_torch/csrc/conversion_kernels.cu',
                           'dedalus_tpu/ops/fft64.py:280'),
@@ -315,7 +313,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                     'dedalus_tpu/core/solvers.py:210'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
-FAST_WRAPPERS = dict(dft_four_step=('dft',),
+FAST_WRAPPERS = dict(dft=('dft',),
                      dct_wrap=('dct2_pre', 'dct2_post', 'dct3_pre', 'dct3_post'),
                      chebyshev_conversion=('conversion_apply', 'conversion_solve'),
                      real_fourier_pack=('fourier_pack', 'fourier_unpack'),
@@ -324,6 +322,11 @@ FAST_WRAPPERS = dict(dft_four_step=('dft',),
 # batched x chain: 8 components of 768 z points)
 CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
 CROSSOVER_LINES = 6144
+# ChebyshevU's sizes in the smoke's table: its conversion band is built on
+# the host by quadrature (spectral/jacobi.py conversion_matrix, O(N^2): tens
+# of seconds at 8192, minutes at 16384), a set-up cost outside the kernels;
+# crossover_table() by hand times every size
+CROSSOVER_U_MAX = 4096
 # The poly path (RBC 2048x512 with matsolver='poly'): warm-up and timed steps
 POLY = dict(warmup=3, steps=10)
 # The RBC example's CFL loop under the other dense matsolvers, and the
@@ -391,7 +394,7 @@ PATH_KERNELS = dict(
              'dense_matvec', 'rhs_stage'),
     rbc2048_fast=('block_tridiag_qr_solve', 'banded_apply', 'history_combine',
                   'pencil_gather_scatter', 'grid_product', 'banded_solve_pre',
-                  'banded_solve_post', 'dense_matvec', 'dft_four_step', 'dct_wrap',
+                  'banded_solve_post', 'dense_matvec', 'dft', 'dct_wrap',
                   'chebyshev_conversion', 'real_fourier_pack'),
     coldstart=('block_tridiag_qr_factor', 'multi_rhs_solve', 'residual_norm',
                'banded_solve_pre', 'banded_solve_post', 'block_tridiag_qr_solve',
@@ -399,7 +402,7 @@ PATH_KERNELS = dict(
                'dense_matvec'),
     rbc256=('dense_refined_solve', 'dense_matvec', 'rk_stage_combine', 'cfl_max',
             'pencil_gather_scatter', 'grid_product', 'rhs_stage'),
-    rbc256c_fast=_COMPLEX_KERNELS + ('complex_fourier_select', 'dft_four_step', 'dct_wrap',
+    rbc256c_fast=_COMPLEX_KERNELS + ('complex_fourier_select', 'dft', 'dct_wrap',
                                      'chebyshev_conversion', 'rhs_stage_c128'),
     rbc256c_matrix=_COMPLEX_KERNELS + ('rhs_stage_c128',),
     rbc256c_lu=('lu_solve_c128',) + _COMPLEX_KERNELS[1:],
@@ -751,11 +754,9 @@ def k12_complex_bytes(wrapper, shape, axis, N, M, Kmax):
 def fast_cost(wrapper, a, kw, out):
     """(bytes, operations) of one call of a fast-transform wrapper: each
     input read once, each output written once (K12's complex select and
-    scatter: the retained values read, k12_complex_bytes); the DFT's 8
-    operations per complex multiply-add (N1 + N2 of them per point, and the
-    twiddle's 6), a few per point for the elementwise passes, 2 per band
-    entry."""
-    from dedalus_tpu_torch.ops import fft as offt
+    scatter: the retained values read, k12_complex_bytes); the DFT's
+    5 N log2 N operations per complex line of N points (a radix FFT's), a
+    few per point for the elementwise passes, 2 per band entry."""
     if wrapper == 'fourier_select':
         Z, axis, M, Kmax = a
         return k12_complex_bytes(wrapper, Z.shape, axis, Z.shape[axis], M, Kmax), 0
@@ -765,8 +766,7 @@ def fast_cost(wrapper, a, kw, out):
     if wrapper == 'dft':
         x, axis = a[0], a[2]
         N = out.shape[axis]
-        N1, N2 = offt.plan(N)
-        return nbytes(x, out), out.numel() * (8 * (N1 + N2) + (6 if N2 > 1 else 0))
+        return nbytes(x, out), 5 * out.numel() * np.log2(N)
     if wrapper in ('conversion_apply', 'conversion_solve'):
         band = a[0]
         return (nbytes(out) * 2 + band.diags.nbytes,
@@ -779,7 +779,7 @@ def fast_cost(wrapper, a, kw, out):
 def fast_targets():
     """tally targets of the fast-transform wrappers, one label per kernel."""
     from dedalus_tpu_torch.ops import fft as offt
-    labels = dict(dft_four_step='K10 dft', dct_wrap='K11a DCT wrapping',
+    labels = dict(dft='K10 dft', dct_wrap='K11a DCT wrapping',
                   chebyshev_conversion='K11b conversion', real_fourier_pack='K12 pack/unpack',
                   complex_fourier_select='K12 complex select/scatter')
     return [(labels[k], offt, w, functools.partial(fast_cost, w))
@@ -923,10 +923,15 @@ def kj_bytes_flops(T, x, y, w_in=None, w_out=None):
 
 def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
     """K3 against its plain twins run on copies of the same inputs on the
-    CPU: exactly equal (the card's index_add_ sums repeated targets in
-    atomic order; the kernel and the CPU twin in flat-position order).
-    Recorded under `name` (the complex128 form: 'pencil_gather_scatter_c128',
-    on a complex state)."""
+    CPU: exactly equal on the masked pencils the gather produces (the CPU
+    twin's index_add_ and the kernel's tree sum of a constant field's G
+    sources agree wherever one source is non-zero). Then the scatter on an
+    unmasked random X: two launches equal bit for bit, and within 4 eps
+    sum|x| of the twin per target (each part of complex data). Times: the
+    gather and the scatter, the plain twins, index_select + index_add_, and
+    index_add_ alone beside the scatter (library_ms_scatter). Recorded
+    under `name` (the complex128 form: 'pencil_gather_scatter_c128', on a
+    complex state)."""
     from dedalus_tpu_torch.core import subsystems as sub
     sg, eg, ss = pencil.state_gather, pencil.eq_gather, pencil.state_scatter
     gen = torch.Generator(device=state.device).manual_seed(3)
@@ -935,31 +940,51 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
     X = sub.pencil_gather(sg, [state])
     Y = sub.pencil_scatter(ss, X)
     E = sub.pencil_gather(eg, srcs)
+    Xu = torch.randn(X.shape, generator=gen, dtype=X.dtype, device=X.device)
+    Yu, Yu2 = sub.pencil_scatter(ss, Xu), sub.pencil_scatter(ss, Xu)
     torch.cuda.synchronize()
+    ss_cpu = ss.to('cpu')
     pairs = [(X, sub.pencil_gather_plain(sg.to('cpu'), [state.cpu()])),
-             (Y, sub.pencil_scatter_plain(ss.to('cpu'), X.cpu())),
+             (Y, sub.pencil_scatter_plain(ss_cpu, X.cpu())),
              (E, sub.pencil_gather_plain(eg.to('cpu'), [s.cpu() for s in srcs]))]
     err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
     exact = all(torch.equal(a.cpu(), b) for a, b in pairs)
+    # Unmasked: |kernel - twin| <= 4 eps sum|x| per target and part
+    parts = (torch.real, torch.imag) if Xu.is_complex() else (lambda t: t,)
+    ref = sub.pencil_scatter_plain(ss_cpu, Xu.cpu())
+    ratio = 0.0
+    for part in parts:
+        diff = (part(Yu.cpu()) - part(ref)).abs()
+        allowed = 4 * torch.finfo(torch.float64).eps * sub.pencil_scatter_plain(
+            ss_cpu, part(Xu.cpu()).abs().contiguous())
+        if not (diff <= allowed).all():
+            raise AssertionError(f"K3 scatter on {path}: unmasked X past 4 eps sum|x|")
+        ratio = max(ratio, float((diff / allowed.clamp(min=1e-300)).max()))
+    unmasked = dict(deterministic=torch.equal(Yu, Yu2), ratio_to_bound=ratio,
+                    max_abs=float((Yu.cpu() - ref).abs().max()))
+    if not unmasked['deterministic']:
+        raise AssertionError(f"K3 scatter on {path}: two launches on one X differ")
     idx = sg.maps[0].reshape(-1)
     ms_g = cuda_ms(lambda: sub.pencil_gather(sg, [state]), 50)
     ms_s = cuda_ms(lambda: sub.pencil_scatter(ss, X), 50)
+    lib_g = cuda_ms(lambda: state.index_select(0, idx), 50)
+    lib_s = cuda_ms(lambda: torch.zeros_like(state).index_add_(0, ss.idx, X.view(-1)), 50)
     r = dict(
         err=(0.0 if exact else max(err, 1e-300), err), ms=ms_g + ms_s, ms_gather=ms_g,
         ms_scatter=ms_s, ms_eq_gather=cuda_ms(lambda: sub.pencil_gather(eg, srcs), 50),
         plain_ms=(cuda_ms(lambda: sub.pencil_gather_plain(sg, [state]), 50)
                   + cuda_ms(lambda: sub.pencil_scatter_plain(ss, X), 50)),
-        library_ms=(cuda_ms(lambda: state.index_select(0, idx), 50)
-                    + cuda_ms(lambda: torch.zeros_like(state).index_add_(0, ss.idx, X.view(-1)),
-                              50)),
+        library_ms=lib_g + lib_s, library_ms_scatter=lib_s, unmasked=unmasked,
         shape=[pencil.G, pencil.C],
         **dict(zip(('bound_ms', 'bound_by'), bound(
             nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src, X)
-            + nbytes(X, ss.offsets, ss.entries, Y), 2 * X.numel()))))
+            + nbytes(X, ss.single_dst, ss.single_src, ss.multi_dst, ss.multi_off, ss.multi_src,
+                     Y), 2 * X.numel()))))
     prev = RESULTS.get(name)
     by_path = dict(prev['by_path']) if prev else {}
     by_path[path] = {k: r[k] for k in ('ms', 'ms_gather', 'ms_scatter', 'plain_ms',
-                                       'library_ms', 'bound_ms', 'shape')}
+                                       'library_ms', 'library_ms_scatter', 'bound_ms', 'shape',
+                                       'unmasked')}
     if primary or prev is None:
         RESULTS[name] = r
     else:
@@ -967,7 +992,9 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
         r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
     r['by_path'] = by_path
     print(f"K3 ({state.dtype}) on the {path} pencils (G={pencil.G}, C={pencil.C}): "
-          f"{'exact' if exact else f'max_abs {err:.3e}'}")
+          f"{'exact' if exact else f'max_abs {err:.3e}'}; scatter {ms_s:.4f} ms, index_add_ "
+          f"{lib_s:.4f} ms, gather {ms_g:.4f} ms; unmasked X: deterministic, "
+          f"{ratio:.3e} of 4 eps sum|x| (max_abs {unmasked['max_abs']:.3e})")
 
 
 def check_k2a(path, solver, primary=False):
@@ -2045,7 +2072,7 @@ def fast_vs_mmt_fields(fast_solver, mmt_solver):
     return to_state, to_own
 
 
-def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
+def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES, u_max=None):
     """Per axis grid size, the forward and backward transform of `lines`
     lines (the axis last) as MMT (torch.matmul with an (N, N) matrix: its
     time does not depend on the values), on the fast kernels (RealFourier,
@@ -2053,8 +2080,10 @@ def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
     backward_transform under 'fast'; ComplexFourier on complex128 lines, K10
     with K12's complex select and scatter) and through torch.fft (rfft /
     irfft, and the complex fft of the DCT's length, which is also the
-    ComplexFourier transform's): mean ms per transform. Run by hand; no
-    kernel is held against a twin here."""
+    ComplexFourier transform's): mean ms per transform, and where
+    `fast_threshold` would sit on each basis (the first size from which the
+    fast plan beats MMT both ways; ChebyshevU only up to `u_max` where
+    given). No kernel is held against a twin here."""
     import dedalus_tpu_torch.public as d3
     from dedalus_tpu_torch.core import basis as tbasis
     dev = torch.device(DEVICE)
@@ -2072,6 +2101,8 @@ def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
             for label, basis in (('RealFourier', tbasis.RealFourier(coord, N, (0, 2 * np.pi))),
                                  ('ChebyshevT', tbasis.ChebyshevT(coord, N, (-1, 1))),
                                  ('ChebyshevU', tbasis.ChebyshevU(coord, N, (-1, 1)))):
+                if label == 'ChebyshevU' and u_max is not None and N > u_max:
+                    continue
                 c = basis.forward_transform(x, 1, 1, np.float64)
                 row[label + '_fwd'] = cuda_ms(
                     lambda: basis.forward_transform(x, 1, 1, np.float64), reps)
@@ -2097,7 +2128,18 @@ def crossover_table(smi, sizes=CROSSOVER_SIZES, lines=CROSSOVER_LINES):
                 f"{k} {v:.4f}" for k, v in row.items() if k not in ('N', 'lines')), flush=True)
     finally:
         restore_libraries(old)
-    print(json.dumps({"crossover": rows, "card": smi}))
+    # fast_threshold per basis: the first size from which fast beats MMT both ways
+    threshold = {}
+    for label in ('RealFourier', 'ChebyshevT', 'ChebyshevU', 'ComplexFourier'):
+        timed = [r for r in rows if label + '_fwd' in r]
+        wins = [max(r[label + '_fwd'], r[label + '_bwd']) < r['mmt'] for r in timed]
+        first = [r['N'] for i, r in enumerate(timed) if all(wins[i:])]
+        threshold[label] = first[0] if first else f"above {timed[-1]['N']}"
+    from dedalus_tpu_torch.core import basis as tbasis
+    print(f"[{smi}] where fast_threshold would sit (first size from which the fast plan "
+          f"beats MMT both ways, up to {sizes[-1]}): {threshold}; the port's "
+          f"fast_threshold stays {tbasis.FAST_THRESHOLD}")
+    print(json.dumps({"crossover": rows, "crossover_threshold": threshold, "card": smi}))
     return rows
 
 
@@ -2137,8 +2179,8 @@ def auto_threshold_check():
         otr.apply_matrix = mmt
         restore_libraries(old)
     print(f"'auto' at size {N}: fast path on the card, card vs CPU (forward, backward) {errs} "
-          f"(tol {TOL['dft_four_step']:.0e})")
-    if not max(max(e) for e in errs.values()) <= TOL['dft_four_step']:
+          f"(tol {TOL['dft']:.0e})")
+    if not max(max(e) for e in errs.values()) <= TOL['dft']:
         raise AssertionError(f"'auto' at the threshold: card and CPU disagree: {errs}")
     return errs
 
@@ -2150,8 +2192,7 @@ def banded_fast_path(n_steps=20):
     with the launches counted, the last solve residual, the same steps under
     MMT from the same initial condition, the card against the CPU at 64x32,
     F under both libraries and 'auto' at the threshold. (The crossover
-    table, crossover_table(), is run by hand: it holds no kernel against a
-    twin.)"""
+    table, crossover_table(), runs after it in the smoke.)"""
     dev, kind, smi = card()
     old = set_libraries('fast')
     try:
@@ -2174,7 +2215,7 @@ def banded_fast_path(n_steps=20):
         per_f = {name: sum(len(calls[w]) for w in ws) for name, ws in FAST_WRAPPERS.items()}
         print(f"fast-transform calls per F evaluation: {per_f}")
         check_fast_kernels('rbc2048_fast', calls, per_f,
-                           names=('dft_four_step', 'dct_wrap', 'chebyshev_conversion',
+                           names=('dft', 'dct_wrap', 'chebyshev_conversion',
                                   'real_fourier_pack'))
         del calls
 
@@ -2683,7 +2724,7 @@ def complex_rbc_run(lib, dev, kind, smi):
                      for name, ws in FAST_WRAPPERS.items()}
             print(f"fast-transform calls per F evaluation: {per_f}")
             check_fast_kernels(path, calls, per_f, primary=False,
-                               names=('dft_four_step', 'dct_wrap', 'chebyshev_conversion',
+                               names=('dft', 'dct_wrap', 'chebyshev_conversion',
                                       'complex_fourier_select'),
                                primary_names=('complex_fourier_select',))
             complex_transform_times(calls, smi)
@@ -5848,6 +5889,7 @@ def main():
     timed(schemes_path)
     timed(poly_path)
     timed(banded_fast_path)
+    timed(crossover_table, smi, CROSSOVER_SIZES, CROSSOVER_LINES, CROSSOVER_U_MAX)
     timed(cold_start_path)
     timed(dense_card_vs_cpu)
     timed(kdv_path)
@@ -5876,7 +5918,8 @@ def main():
     timed(ball_ihc_path)
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
-             'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'shape', 'by_path',
+             'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'library_ms_scatter',
+             'unmasked', 'shape', 'by_path',
              'err_f32_branch', 'err_path_sinv', 'err_path_sinv_f32_branch', 'cond_S',
              'err_by_factor', 'pins', 'growth', 'solve_residual', 'solve_residual_plain',
              'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',

@@ -1193,9 +1193,12 @@ class GatherMap:
 class ScatterMap:
     """
     The scatter (G, C) -> (total,) of a generic index map: the map itself
-    (the plain twin's index_add_) and, for kernel K3, its entries grouped by
-    target as a CSR list, each target's sources in flat-position order (the
-    order in which index_add_ adds them).
+    (the plain twin's index_add_), its entries grouped by target as a CSR
+    list (each target's sources in flat-position order, the order in which
+    index_add_ adds them), and kernel K3's split of the targets: those with
+    at most one source (`single_dst`, `single_src`, -1 where none lands)
+    and those with several (`multi_dst`, their CSR `multi_off` over
+    `multi_src`), one block's tree sum each.
     """
 
     def __init__(self, idx, total, device):
@@ -1203,15 +1206,29 @@ class ScatterMap:
         self.total = total
         self.idx = torch.as_tensor(flat, device=device)
         order = np.argsort(flat, kind='stable')
+        counts = np.bincount(flat, minlength=total)
         offsets = np.zeros(total + 1, dtype=np.int64)
-        np.cumsum(np.bincount(flat, minlength=total), out=offsets[1:])
-        self.offsets = torch.as_tensor(offsets.astype(np.int32), device=device)
-        self.entries = torch.as_tensor(order.astype(np.int32), device=device)
+        np.cumsum(counts, out=offsets[1:])
+        single = np.flatnonzero(counts <= 1)
+        single_src = np.full(single.shape, -1, dtype=np.int64)
+        one = counts[single] == 1
+        single_src[one] = order[offsets[single[one]]]
+        multi = np.flatnonzero(counts > 1)
+        as_i32 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+        self.offsets = as_i32(offsets)
+        self.entries = as_i32(order)
+        self.single_dst, self.single_src = as_i32(single), as_i32(single_src)
+        self.multi_dst = as_i32(multi)
+        self.multi_off = as_i32(np.concatenate([[0], np.cumsum(counts[multi])]))
+        self.multi_src = as_i32(order[counts[flat[order]] > 1])
+
+    _TENSORS = ('idx', 'offsets', 'entries', 'single_dst', 'single_src', 'multi_dst',
+                'multi_off', 'multi_src')
 
     def to(self, device):
         """A copy with every tensor on `device`."""
         new = copy.copy(self)
-        for name in ('idx', 'offsets', 'entries'):
+        for name in self._TENSORS:
             setattr(new, name, getattr(self, name).to(device))
         return new
 
@@ -1282,9 +1299,11 @@ def pencil_scatter_plain(smap, X):
 
 def pencil_scatter(smap, X):
     """
-    K3 scatter: (G, C) pencils -> (total,) flat state, equal bit for bit to
-    the sequential index_add_ of the generic map (repeated targets summed in
-    flat-position order).
+    K3 scatter: (G, C) pencils -> (total,) flat state, the sum of the
+    entries landing on each target. Equal bit for bit to the sequential
+    index_add_ of the generic map wherever a target has at most one
+    non-zero source (every gathered pencil: invalid entries are zero);
+    elsewhere a fixed tree sum, deterministic and within 4 eps sum|x| of it.
 
     Replaces dedalus_tpu/core/subsystems.py _plan_scatter and scatter_state.
     CPU tensors run the plain twin; CUDA tensors launch
@@ -1301,8 +1320,10 @@ def pencil_scatter(smap, X):
     out = torch.empty(smap.total, dtype=X.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.launcher('k3_pencil_scatter', X.dtype)(
-        X.data_ptr(), smap.offsets.data_ptr(), smap.entries.data_ptr(), out.data_ptr(),
-        smap.total, stream), 'pencil_scatter')
+        X.data_ptr(), smap.single_dst.data_ptr(), smap.single_src.data_ptr(),
+        smap.single_dst.numel(), smap.multi_dst.data_ptr(), smap.multi_off.data_ptr(),
+        smap.multi_src.data_ptr(), smap.multi_dst.numel(), out.data_ptr(), stream),
+        'pencil_scatter')
     build.count(pencil_scatter, X.dtype)
     return out
 

@@ -68,7 +68,7 @@ SIGNATURES = {
         'kj_shell_radial_c128': [_P] * 5 + [_I] * 3 + [_P],
     },
     'fft_kernels': {
-        'k10_dft_c128': [_P, _I] + [_P] * 4 + [_I, _D, _P] + [_I] * 4 + [_P],
+        'k10_fft_c128': [_P] * 8 + [_D, _P],
         'k11_dct2_pre_f64': [_P] * 2 + [_I] * 4 + [_P],
         'k11_dct2_post_f64': [_P] * 5 + [_I] * 4 + [_P],
         'k11_dct3_pre_f64': [_P] * 5 + [_I] * 5 + [_P],
@@ -89,8 +89,8 @@ SIGNATURES = {
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
         'k3_pencil_gather_c128': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
-        'k3_pencil_scatter_f64': [_P] * 4 + [_I, _P],
-        'k3_pencil_scatter_c128': [_P] * 4 + [_I, _P],
+        'k3_pencil_scatter_f64': [_P] * 3 + [_I] + [_P] * 3 + [_I, _P, _P],
+        'k3_pencil_scatter_c128': [_P] * 3 + [_I] + [_P] * 3 + [_I, _P, _P],
     },
 }
 

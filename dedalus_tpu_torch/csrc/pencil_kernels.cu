@@ -25,21 +25,36 @@
 // launch. The plain twin adds each member masked by its activity, which is
 // the active member's value exactly.
 //
-// Scatter: out[t] = sum of X[g, c] over the (g, c) with j(g, c) = t, added
-// in the order of the flat position g * C + c, starting from 0.0: exactly
-// the sequential index_add_ of the generic map, bit for bit, also where an
-// index repeats (the constant fields shared by all groups). The (g, c)
-// lists are a CSR by target built once per pencil layout; one thread per
-// state entry, so no atomics. Where a target has one source it is a plain
-// store of 0.0 + x.
+// Scatter: out[t] = the sum of X[g, c] over the (g, c) with j(g, c) = t
+// (the generic index map; 0.0 where no entry lands). The targets are split
+// once per pencil layout (core/subsystems.py ScatterMap):
+//   - targets with at most one source (every entry of a pencil layout but
+//     the constant fields'): one thread each stores 0.0 + X[src] (0.0
+//     without a source), with no loop;
+//   - targets with several sources (a constant field's entry, one source
+//     per group: G of them): one block each. Thread k sums the sources
+//     k, k + K3_THREADS, ... of the target's list (flat-position order)
+//     from +0.0, and a fixed shared-memory tree (halving strides) combines
+//     the K3_THREADS partial sums.
+// One launch: the multi-source blocks first (they start early and overlap
+// the stores), then the single-source blocks. No atomics, and the order of
+// every sum is fixed, so two launches on the same X are equal bit for bit.
+// Exactness against the sequential index_add_ (the plain twin): bit for
+// bit wherever a target has at most one non-zero source, which holds for
+// every pencil the gather produces (invalid entries are masked to 0, and a
+// constant field is valid in one group only). On an arbitrary X a
+// multi-source target is a tree sum in another order than index_add_'s,
+// within 4 eps sum|x| of it.
 //
 // Both are templates over the element type: float64, and complex128 (the
 // state of a ComplexFourier problem) as one double2 (re, im) an entry in the
 // same single launch; a constant field's scatter sums both parts.
 //
 // Both are bound by device-memory bandwidth: the state or pencil data once
-// each way, plus the index data (the CSR's int32 source list: half the
-// bytes of the pencil data; the affine gather reads only two C-vectors).
+// each way, plus the index data (the scatter's int32 target and source
+// lists: the bytes of the pencil data in f64; the affine gather reads only
+// two C-vectors). The multi-source block makes G / K3_THREADS loads a
+// thread (36 at G = 9216) where one thread made all G before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,16 +105,33 @@ pencil_gather_kernel(Sources src, const int* __restrict__ col_src,
 
 template <typename T>
 __global__ void __launch_bounds__(K3_THREADS)
-pencil_scatter_kernel(const T* __restrict__ X, const int* __restrict__ offsets,
-                      const int* __restrict__ entries, T* __restrict__ out, int total) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= total) return;
-    T acc = zero_of(T());
-    // A constant field's entry has one source per group (G of them): the
-    // adds stay in order, the unrolled loads overlap
-#pragma unroll 8
-    for (int k = offsets[t]; k < offsets[t + 1]; ++k) acc = add(acc, X[entries[k]]);
-    out[t] = acc;
+pencil_scatter_kernel(const T* __restrict__ X, const int* __restrict__ single_dst,
+                      const int* __restrict__ single_src, int n_single,
+                      const int* __restrict__ multi_dst, const int* __restrict__ multi_off,
+                      const int* __restrict__ multi_src, int n_multi, T* __restrict__ out) {
+    if ((int)blockIdx.x < n_multi) {
+        __shared__ T part[K3_THREADS];
+        const int m = blockIdx.x;
+        const int end = multi_off[m + 1];
+        T acc = zero_of(T());
+#pragma unroll 4
+        for (int k = multi_off[m] + threadIdx.x; k < end; k += K3_THREADS)
+            acc = add(acc, X[multi_src[k]]);
+        part[threadIdx.x] = acc;
+        __syncthreads();
+#pragma unroll
+        for (int s = K3_THREADS / 2; s > 0; s >>= 1) {
+            if ((int)threadIdx.x < s)
+                part[threadIdx.x] = add(part[threadIdx.x], part[threadIdx.x + s]);
+            __syncthreads();
+        }
+        if (threadIdx.x == 0) out[multi_dst[m]] = part[0];
+        return;
+    }
+    const int t = (blockIdx.x - n_multi) * K3_THREADS + threadIdx.x;
+    if (t >= n_single) return;
+    const int src = single_src[t];
+    out[single_dst[t]] = src >= 0 ? add(zero_of(T()), X[src]) : zero_of(T());
 }
 
 template <typename T>
@@ -118,11 +150,13 @@ int launch_gather(const void* const* srcs, int nsrc, const int* col_src, const u
 }
 
 template <typename T>
-int launch_scatter(const T* X, const int* offsets, const int* entries, T* out, int total,
-                   cudaStream_t stream) {
-    if (total < 1) return (int)cudaErrorInvalidValue;
-    pencil_scatter_kernel<T><<<(total + K3_THREADS - 1) / K3_THREADS, K3_THREADS, 0, stream>>>(
-        X, offsets, entries, out, total);
+int launch_scatter(const T* X, const int* single_dst, const int* single_src, int n_single,
+                   const int* multi_dst, const int* multi_off, const int* multi_src,
+                   int n_multi, T* out, cudaStream_t stream) {
+    if (n_single < 0 || n_multi < 0 || n_single + n_multi < 1) return (int)cudaErrorInvalidValue;
+    const int blocks = n_multi + (n_single + K3_THREADS - 1) / K3_THREADS;
+    pencil_scatter_kernel<T><<<blocks, K3_THREADS, 0, stream>>>(
+        X, single_dst, single_src, n_single, multi_dst, multi_off, multi_src, n_multi, out);
     return (int)cudaGetLastError();
 }
 
@@ -145,13 +179,18 @@ extern "C" int k3_pencil_gather_c128(const void* const* srcs, int nsrc, const in
                          C, (cudaStream_t)stream);
 }
 
-extern "C" int k3_pencil_scatter_f64(const double* X, const int* offsets, const int* entries,
-                                     double* out, int total, void* stream) {
-    return launch_scatter(X, offsets, entries, out, total, (cudaStream_t)stream);
+extern "C" int k3_pencil_scatter_f64(const double* X, const int* single_dst,
+                                     const int* single_src, int n_single, const int* multi_dst,
+                                     const int* multi_off, const int* multi_src, int n_multi,
+                                     double* out, void* stream) {
+    return launch_scatter(X, single_dst, single_src, n_single, multi_dst, multi_off, multi_src,
+                          n_multi, out, (cudaStream_t)stream);
 }
 
-extern "C" int k3_pencil_scatter_c128(const void* X, const int* offsets, const int* entries,
-                                      void* out, int total, void* stream) {
-    return launch_scatter((const double2*)X, offsets, entries, (double2*)out, total,
-                          (cudaStream_t)stream);
+extern "C" int k3_pencil_scatter_c128(const void* X, const int* single_dst,
+                                      const int* single_src, int n_single, const int* multi_dst,
+                                      const int* multi_off, const int* multi_src, int n_multi,
+                                      void* out, void* stream) {
+    return launch_scatter((const double2*)X, single_dst, single_src, n_single, multi_dst,
+                          multi_off, multi_src, n_multi, (double2*)out, (cudaStream_t)stream);
 }

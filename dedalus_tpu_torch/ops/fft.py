@@ -1,5 +1,5 @@
 """
-Fast spectral transforms in complex128: the four-step DFT (K10), the DCT-II
+Fast spectral transforms in complex128: the DFT (K10), the DCT-II
 and DCT-III wrapping (K11a), the ultraspherical conversion and its inverse
 (K11b), the real-Fourier pack and unpack (K12) and the complex-Fourier
 select and scatter (K12's complex form), each a kernel wrapper with its
@@ -8,13 +8,15 @@ plain torch twin beside it.
 The counterpart of dedalus_tpu/ops/fft64.py and of the fast paths of
 dedalus_tpu/ops/transforms.py. The JAX package carries complex values as
 split (re, im) f64 pairs because its device has no complex128; the card has
-it, so the port carries complex128 and keeps the algorithms: for N = N1*N2
-(`good_factors`, the most balanced pair with N1 >= 4) the DFT is a length-N1
-DFT over n1 with the twiddle W_N^{n2 k1} fused, then a length-N2 DFT over
-n2, output index k = k1 + N1*k2; where N has no such pair or N < 16 it is
-the direct N-point DFT. The DFT matrices and twiddles are built on the host
-in f64 as the JAX package builds them and cached on each device per
-(N, sign); sign -1 is forward, +1 inverse (1/N applied by the caller).
+it, so the port carries complex128. K10's plain twin keeps the JAX
+package's algorithm: for N = N1*N2 (`good_factors`, the most balanced pair
+with N1 >= 4) the DFT is a length-N1 DFT over n1 with the twiddle
+W_N^{n2 k1} fused, then a length-N2 DFT over n2, output index
+k = k1 + N1*k2; where N has no such pair or N < 16 it is the direct N-point
+DFT. The kernel is a mixed-radix FFT of the same function (`radix_plan`).
+The DFT matrices, twiddles and roots are built on the host in f64 and
+cached on each device per (N, sign); sign -1 is forward, +1 inverse (1/N
+applied by the caller).
 
 Every wrapper works along one axis of a contiguous tensor read as
 (outer, L, inner), with L the axis length: the kernels take the axis where
@@ -201,6 +203,206 @@ def dft_plain(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
     return torch.movedim(y, -1, axis)
 
 
+# The radix plan K10 runs (csrc/fft_kernels.cu k10_fft_c128). A line of L
+# points is transformed in one block's shared memory by in-place
+# decimation-in-frequency passes: pass s of radix r on sub-blocks of M
+# points (M / r = the span) reads the r points b M + n1 + span j, takes
+# their length-r DFT, multiplies output k2 by W_M^(n1 k2) (the pass's
+# twiddle table) and writes it back at b M + n1 + span k2. After the passes
+# the point X[k] sits at the digit-reversed position pos[k % (L / tail)]
+# (a table the kernel stages in shared memory), or, where a prime factor
+# above 5 is left (the tail), the store takes that length-tail DFT of the
+# block starting there. Lines too long for one block's shared memory run
+# as two launches around the twiddle of the four-step split.
+K10_SMEM_BYTES = 230400     # a block's lines and pos: 227 KB less its line tables
+K10_MAX_LINES = 64          # lines per block (the kernel's per-line tables)
+K10_BLOCK_POINTS = 4096     # points a block aims to hold where lines are short
+# The integer launch parameters, in the order k10_fft_c128 reads them
+K10_FIELDS = ('L', 'npass', 'tail', 'load', 'real_out', 'sign', 'outer', 'inner', 'ti',
+              'in_o1', 'in_o2', 'in_od', 'in_n', 'in_pair', 'in_idiv', 'in_imul', 'out_o1',
+              'out_o2', 'out_od', 'out_k', 'tw4_div', 'tw4_n')
+
+
+def _prime_factors(N):
+    out, p = [], 2
+    while p * p <= N:
+        while N % p == 0:
+            out.append(p)
+            N //= p
+        p += 1
+    return out + ([N] if N > 1 else [])
+
+
+def radix_plan(N):
+    """(radices, tail) of K10's in-block FFT of length N: the 3s and the
+    5s first, then radix-8 passes and one of 4 or 2 for the rest of the
+    power of two (so the radix-8 passes' spans are powers of two); the tail
+    is the one prime factor above 5 (1 if none). None where N has two or
+    more such factors."""
+    f = _prime_factors(N)
+    twos = f.count(2)
+    big = [p for p in f if p > 5]
+    if len(big) > 1:
+        return None
+    radices = sorted(p for p in f if p in (3, 5))
+    radices += [8] * (twos // 3) + {0: [], 1: [2], 2: [4]}[twos % 3]
+    return tuple(radices), (big[0] if big else 1)
+
+
+def unit_roots(M, sign):
+    """W_M^m = exp(sign 2 pi i m / M), m < M, in complex128, rounded from
+    long-double cos and sin of the angle reduced to [-pi, pi), exact at the
+    multiples of pi/4 (the kernel's radix-4 and radix-8 constants)."""
+    m = np.arange(M)
+    pi = np.longdouble('3.14159265358979323846264338327950288')
+    ang = 2 * pi * ((m + M // 2) % M - M // 2).astype(np.longdouble) / M
+    c, s = np.cos(ang).astype(np.float64), np.sin(ang).astype(np.float64)
+    eighth = (8 * m) % M == 0
+    j = (8 * m[eighth]) // M
+    h = np.sqrt(0.5)
+    c[eighth] = np.array([1.0, h, 0.0, -h, -1.0, -h, 0.0, h])[j]
+    s[eighth] = np.array([0.0, h, 1.0, h, 0.0, -h, -1.0, -h])[j]
+    return c + 1j * sign * s
+
+
+def radix_tables(L, sign):
+    """K10's host tables of a length-L line: the pass schedule (radix,
+    span, twiddle offset) per pass, the passes' twiddles W_M^(n1 k2) for
+    k2 = 1..r-1 (k2-major, n1 fastest) concatenated, the roots W_L^m (the
+    odd radices' and the tail's), and the digit-reversed block starts pos."""
+    radices, tail = radix_plan(L)
+    sched, tws, off, M = [], [], 0, L
+    for r in radices:
+        span = M // r
+        q = (np.arange(1, r)[:, None] * np.arange(span)[None, :]) % M
+        tws.append(unit_roots(M, sign)[q].ravel())
+        sched += [r, span, off]
+        off += tws[-1].size
+        M = span
+    k = np.arange(L // tail)
+    b = np.zeros_like(k)
+    for r in radices:
+        b = b * r + k % r
+        k = k // r
+    tw = np.concatenate(tws) if tws else np.ones(1, dtype=np.complex128)
+    return dict(radices=radices, tail=tail, sched=np.array(sched or [0], dtype=np.int32),
+                tw=tw, root=unit_roots(L, sign), pos=(b * tail).astype(np.int32))
+
+
+def _pow2_floor(n):
+    return 1 << (max(int(n), 1).bit_length() - 1)
+
+
+def _lines_per_block(L, outer, inner, elem_bytes):
+    """Lines a K10 block holds (0 where one line does not fit): along a
+    strided axis at least 64 contiguous bytes a row (4 complex or 8 real
+    lines), more where lines are short; along the last axis enough lines
+    for about K10_BLOCK_POINTS points."""
+    fit = (K10_SMEM_BYTES - 4 * L) // (16 * L)
+    if fit < 1:
+        return 0
+    want = _pow2_floor(max(1, K10_BLOCK_POINTS // L))
+    if inner > 1:
+        ti = min(max(64 // elem_bytes, want), K10_MAX_LINES, _pow2_floor(2 * inner - 1))
+    else:
+        ti = min(want, K10_MAX_LINES, _pow2_floor(2 * outer - 1))
+    return min(ti, _pow2_floor(fit))
+
+
+def _four_step_split(N):
+    """(N1, N2), N = N1 N2, the most balanced pair whose two lines each fit
+    one block with a radix plan, or None."""
+    best = None
+    for n1 in range(2, int(np.sqrt(N)) + 1):
+        if N % n1:
+            continue
+        if all(radix_plan(n) is not None and _lines_per_block(n, 1, 1, 16) for n in
+               (n1, N // n1)):
+            best = (n1, N // n1)
+    return best
+
+
+def dft_launches(shape, axis, load, sign, scale=1.0, real_out=False):
+    """K10's launches for a dft() call on a contiguous tensor of `shape`:
+    one, or two around the four-step twiddle where a line does not fit one
+    block. Each is a dict of the K10_FIELDS, the scale, the length of the
+    four-step root table (`tw4`, 0 if none) and where it reads and writes
+    ('x', 'y' or the complex128 'scratch' of the line batch). Element
+    addresses (in the loaded type: complex128, or float64 for the real and
+    packed loads): line (ob, j), ob < outer, j < inner, reads point n at
+    (ob // in_od) in_o1 + (ob % in_od) in_o2 + (j // in_idiv) in_imul
+    + j % in_idiv + n in_n (a packed load's imaginary part in_pair after)
+    and writes point k at (ob // out_od) out_o1 + (ob % out_od) out_o2 + j
+    + k out_k."""
+    axis, outer, Lx, inner = _lines(shape, axis)
+    packed = load == 'packed'
+    N = Lx // 2 if packed else Lx
+    esize = 16 if load == 'complex' else 8
+    w = 2 if packed else 1
+    common = dict(load=LOADS[load], sign=int(sign), in_pair=inner, in_o2=0, out_o2=0)
+    ti = _lines_per_block(N, outer, inner, esize) if radix_plan(N) else 0
+    if ti:
+        return [dict(common, L=N, outer=outer, inner=inner, ti=ti, in_o1=Lx * inner, in_od=1,
+                     in_n=w * inner, in_idiv=inner, in_imul=0, out_o1=N * inner, out_od=1,
+                     out_k=inner, real_out=int(real_out), scale=float(scale), tw4=0,
+                     tw4_div=0, src='x', dst='y')]
+    split = _four_step_split(N)
+    if split is None:
+        raise ValueError(f"K10: no radix plan for a line of {N} points")
+    N1, N2 = split
+    inner_a = N2 * inner
+    first = dict(common, L=N1, outer=outer, inner=inner_a,
+                 ti=_lines_per_block(N1, outer, inner_a, esize), in_o1=Lx * inner, in_od=1,
+                 in_n=w * N2 * inner, in_idiv=inner, in_imul=w * inner, out_o1=N * inner,
+                 out_od=1, out_k=N2 * inner, real_out=0, scale=1.0, tw4=N, tw4_div=inner,
+                 src='x', dst='scratch')
+    second = dict(common, L=N2, outer=outer * N1, inner=inner, load=LOADS['complex'],
+                  ti=_lines_per_block(N2, outer * N1, inner, 16), in_o1=N2 * inner, in_od=1,
+                  in_n=inner, in_idiv=inner, in_imul=0, out_o1=N * inner, out_o2=inner,
+                  out_od=N1, out_k=N1 * inner, real_out=int(real_out), scale=float(scale),
+                  tw4=0, tw4_div=0, src='scratch', dst='y')
+    return [first, second]
+
+
+def _radix_device(L, sign, device):
+    """K10's tables of a length-L line on `device`: (sched, tw, root, pos)."""
+    def build():
+        t = radix_tables(L, sign)
+        return t['sched'], t['tw'], t['root'], t['pos']
+    return _on(('radix', L, sign), device, build)
+
+
+def _roots_device(N, sign, device):
+    return _on(('roots', N, sign), device, lambda: (unit_roots(N, sign),))[0]
+
+
+_K10_CALLS = {}
+
+
+def _k10_calls(shape, axis, load, sign, scale, real_out, device):
+    """The launches of a dft() call, cached per call configuration: for
+    each, its source and destination buffer names, its table pointers, its
+    integer parameters (a ctypes array of K10_FIELDS) and its scale (the
+    tables stay referenced by the cached entry)."""
+    key = (shape, axis, load, sign, scale, real_out, str(device))
+    if key not in _K10_CALLS:
+        import ctypes
+        calls = []
+        for a in dft_launches(shape, axis, load, sign, scale, real_out):
+            tables = _radix_device(a['L'], sign, device)
+            tw4 = _roots_device(a['tw4'], sign, device) if a['tw4'] else None
+            radices, tail = radix_plan(a['L'])
+            p = dict(a, npass=len(radices), tail=tail, tw4_n=a['tw4'])
+            sched, tw, root, pos = tables
+            calls.append((a['src'], a['dst'],
+                          (tw.data_ptr(), root.data_ptr(), pos.data_ptr(), sched.data_ptr(),
+                           _ptr(tw4)),
+                          (ctypes.c_longlong * len(K10_FIELDS))(*[int(p[k]) for k in K10_FIELDS]),
+                          a['scale'], (tables, tw4)))
+        _K10_CALLS[key] = calls
+    return _K10_CALLS[key]
+
+
 def dft(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
     """
     K10: the DFT (sign -1) or unscaled inverse DFT (sign +1) of every line
@@ -208,35 +410,38 @@ def dft(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
     ('complex'), as float64 with zero imaginary part ('real'), or as float64
     pairs z[n] = x[2n] + i x[2n+1] of half the axis length ('packed').
     Returns complex128, or float64 holding scale * Re(X) when `real_out`.
+    CPU tensors run the plain twin (the four-step einsum); CUDA tensors
+    launch csrc/fft_kernels.cu k10_fft_c128, the radix FFT of
+    radix_tables() (two launches for a line longer than one block holds,
+    dft_launches()), each counted.
     """
     if x.device.type == 'cpu':
         return dft_plain(x, sign, axis, load, scale, real_out)
+    import ctypes
     from ..csrc import build
     x = x.contiguous()
     axis, outer, L, inner = _lines(x.shape, axis)
-    N = L // 2 if load == 'packed' else L
     if load == 'packed' and L % 2:
         raise ValueError("dft: a packed load needs an even axis length")
+    N = L // 2 if load == 'packed' else L
     _check_cuda('dft', x, torch.complex128 if load == 'complex' else torch.float64)
-    W1, _, W2, twT = dft_constants(N, sign, x.device)
-    N1, N2 = plan(N)
     y = torch.empty(_with_axis(x.shape, axis, N), device=x.device,
                     dtype=torch.float64 if real_out else torch.complex128)
-    lines = outer * inner
-    scratch = None
-    if 32 * N > DFT_SMEM_BYTES:
-        scratch = torch.empty((lines, 2 * N), dtype=torch.complex128, device=x.device)
-    build.check(build.library().k10_dft_c128(
-        x.data_ptr(), LOADS[load], W1.data_ptr(), _ptr(twT), _ptr(W2), y.data_ptr(),
-        int(real_out), float(scale), _ptr(scratch), outer, N1, N2, inner, _stream(x)), 'dft')
-    build.count(dft)
+    calls = _k10_calls(tuple(x.shape), axis, load, int(sign), float(scale), bool(real_out),
+                       x.device)
+    bufs = dict(x=x, y=y)
+    if len(calls) > 1:
+        bufs['scratch'] = torch.empty(outer * N * inner, dtype=torch.complex128,
+                                      device=x.device)
+    launch, stream = build.library().k10_fft_c128, _stream(x)
+    for src, dst, tables, params, sc, _ in calls:
+        build.check(launch(bufs[src].data_ptr(), bufs[dst].data_ptr(), *tables,
+                           ctypes.addressof(params), sc, stream), 'dft')
+        build.count(dft)
     return y
 
 
 dft.launches = 0
-# Shared memory of one K10 block (the line and its stage-1 result, 32 bytes
-# per point); longer lines stage through a global scratch (N > 6400)
-DFT_SMEM_BYTES = 200 * 1024
 
 
 # ---------------------------------------------------------------------------
