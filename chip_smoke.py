@@ -458,13 +458,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, name=None):
     """Mean time the device spends in the kernels of one fn() call, in ms,
-    from the profiler's kernel records: what a launch-bound call leaves of
-    the device's time, where cuda_ms reads the host's launch rate. None
-    where the profiler records no device time (in a long process it
-    sometimes stops delivering kernel records; the event times of cuda_ms
-    stand beside every use of this one)."""
+    from the profiler's kernel records (only those whose name holds `name`
+    where given): what a launch-bound call leaves of the device's time,
+    where cuda_ms reads the host's launch rate. None where the profiler
+    records no device time (in a long process it sometimes stops delivering
+    kernel records; the event times of cuda_ms stand beside every use of
+    this one)."""
     from torch.profiler import profile, ProfilerActivity
     fn()
     for _ in range(2):
@@ -476,7 +477,8 @@ def device_ms(fn, reps=20):
         # Kernel records only: an aten operator's record repeats its kernels' time
         total_us = sum(getattr(e, 'self_device_time_total', None) or
                        getattr(e, 'self_cuda_time_total', 0) for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and (name is None or name in e.key))
         if total_us > 0:
             return total_us / reps * 1e-3
     print("the profiler recorded no device time: not measured")
@@ -505,17 +507,6 @@ def build_rbc(Nx, Nz, Ra, device, scheme='SBDF2', **kw):
     solver = problem.build_solver(getattr(d3, scheme), **kw)
     initial_condition(ctx, seed=42)
     return solver
-
-
-def plain_operator_apply(op, X):
-    """SeparableBandedOperator.apply through the plain K4 twin."""
-    import torch.nn.functional as F
-    from dedalus_tpu_torch.ops.banded import banded_apply_plain
-    xp = F.pad(X[:, op.col_perm], (0, op.pad))
-    y = banded_apply_plain(op.ops, xp, w=op.w)
-    if op.bad_idx:
-        y = banded_apply_plain(op.bad_ops, xp, groups=op.badg, out=y)
-    return y[:, :op.P][:, op.row_unperm]
 
 
 def k4_flops(ops, G):
@@ -1030,27 +1021,50 @@ def check_k2a(path, solver, primary=False):
         raise AssertionError(f"K2a: F made no staging on the {path} path")
     exact, err = True, 0.0
     ms = plain_ms = ms_lib = 0.0
-    lib_ms, moved, shapes = None, 0, []
+    dev_ms = dev_lib = dev_where = 0.0
+    lib_ms, moved, shapes, calls = None, 0, [], []
     for slabs, axis, size in seen.values():
         yk, yp = stage(slabs, axis, size), staging.stage_plain(slabs, axis, size)
         torch.cuda.synchronize()
         exact = exact and torch.equal(yk, yp)
         err = max(err, float((yk - yp).abs().max()))
         k_ms = cuda_ms(lambda: stage(slabs, axis, size), 50)
+        k_dev = device_ms(lambda: stage(slabs, axis, size)) or 0.0
         ms += k_ms
+        dev_ms += k_dev
         plain_ms += cuda_ms(lambda: staging.stage_plain(slabs, axis, size), 50)
-        if axis is None:
-            lib_ms = (lib_ms or 0.0) + cuda_ms(lambda: torch.cat(slabs, dim=0), 50)
-            ms_lib += k_ms
         read = sum(x.numel() // x.shape[axis] * min(x.shape[axis], size) if axis is not None
                    else x.numel() for x in slabs)
         moved += (read + yk.numel()) * yk.element_size()
+        call = dict(shapes=[list(x.shape) for x in slabs], axis=axis, size=size, ms=k_ms,
+                    device_ms=k_dev, bound_ms=bound((read + yk.numel()) * yk.element_size(),
+                                                    0)[0])
+        if axis is None:
+            c_ms = cuda_ms(lambda: torch.cat(slabs, dim=0), 50)
+            c_dev = device_ms(lambda: torch.cat(slabs, dim=0)) or 0.0
+            lib_ms = (lib_ms or 0.0) + c_ms
+            ms_lib += k_ms
+            dev_lib += c_dev
+            dev_where += k_dev
+            call.update(cat_ms=c_ms, cat_device_ms=c_dev)
+        calls.append(call)
         shapes.append([[list(x.shape) for x in slabs], axis, size])
     name = 'rhs_stage_c128' if yk.is_complex() else 'rhs_stage'
+    bound_ms = bound(moved, 0)[0]
+    share = bound_ms / dev_ms if dev_ms else None
+    print(f"K2a on {path}: {len(seen)} calls, {'exact' if exact else f'max_abs {err:.3e}'}; "
+          f"kernel {ms:.4f} ms by events, {dev_ms:.4f} on the device (the byte bound "
+          f"{bound_ms:.4f} ms: {share} of the device time); where torch.cat covers the call: "
+          f"kernel {ms_lib:.4f} / {dev_where:.4f} ms, cat {lib_ms} / {dev_lib:.4f} ms "
+          f"(events / device)")
     record(name, path, dict(err=(0.0 if exact else max(err, 1e-300), err), ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms, ms_where_library=ms_lib,
+                            device_ms=dev_ms, library_device_ms=dev_lib,
+                            device_ms_where_library=dev_where, calls=calls,
                             shape=shapes, calls_checked=len(seen),
-                            **dict(zip(('bound_ms', 'bound_by'), bound(moved, 0)))), primary)
+                            **dict(zip(('bound_ms', 'bound_by'), bound(moved, 0)))), primary,
+           keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'device_ms',
+                 'library_device_ms', 'device_ms_where_library', 'ms_where_library', 'calls'))
 
 
 def k1_layouts(path, solver, smi, reps=20):
@@ -1478,17 +1492,272 @@ def check_k8(path, bb, primary=True):
         primary)
 
 
+def k4_forms(fact, ts=None, abc=None):
+    """The K4 forms a banded path runs, as (label, apply set, keyword
+    arguments of ops.banded.banded_apply): on an IVP (its timestepper ts
+    and step coefficients abc) M and L alone, the step's pair and the outer
+    pass's residual; the solver's exact apply with its pivot pairs and its
+    refinement residual."""
+    from dedalus_tpu_torch.ops import banded as ob
+    forms = []
+    if ts is not None:
+        mls = ts._banded_ml_set()
+        bM, bL = mls.ops
+        a, b, _ = abc
+        forms += [('M', ob.BandedApplySet([bM]), {}), ('L', ob.BandedApplySet([bL]), {}),
+                  ('pair', mls, dict(pair=True)),
+                  ('outer', mls, dict(coefs=(float(a[0]), float(b[0])), R=True, rv=True))]
+    else:
+        forms.append(('L', ob.BandedApplySet(fact.apply_set.ops), {}))
+    piv = fact.apply_set.pivots is not None
+    forms += [('exact', fact.apply_set, dict(coefs=fact.apply_set.coefs, pivots=piv)),
+              ('residual', fact.apply_set, dict(coefs=fact.apply_set.coefs, pivots=piv, R=True))]
+    return forms
+
+
+def k4_work(aset, X, kw):
+    """(bytes, operations) of one K4 form: X (and R, rv) read once, each
+    output written once, every operator's arrays read once; 2 operations a
+    multiply-add of the present panels, the exceptional groups through
+    their own blocks."""
+    moved = X.numel() * 8 * (1 + ('R' in kw) + ('rv' in kw) + (2 if kw.get('pair') else 1))
+    flops = 0
+    for op in aset.ops:
+        groups = [(op.ops, op.G)]
+        if getattr(op, 'bad_idx', ()):
+            groups = [(op.ops, op.G - len(op.bad_idx)), (op.bad_ops, len(op.bad_idx))]
+        for ops, n in groups:
+            flops += k4_flops(ops, n) if ops['Gs'] == 1 else k4_flops(ops, 1) * n
+            moved += nbytes(*(ops[k] for k in ('diag', 'sub', 'sup', 'UcolT', 'Vrow')))
+        moved += nbytes(getattr(op, 'w', None))
+    return moved, flops
+
+
+def check_k4(path, pencil, fact, primary=False, ts=None, abc=None, R=None, reps=20):
+    """Every K4 form of a banded path (k4_forms) against its plain twin on a
+    seeded X (and R, the row mask): within TOL['banded_apply'] of the
+    twin, two launches equal bit for bit; each form's kernel time by events
+    and on the device, its twin's, its bound by bytes and by operations.
+    On an IVP also the set of K4 calls of one steady step as the step makes
+    them (the pair, then one refinement residual a pass) and K4's launches
+    in it. Recorded as banded_apply (ms: the pair on an IVP, the residual
+    on an LBVP)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    dev = pencil.row_valid_dev.device
+    G, P = pencil.G, pencil.R
+    gen = torch.Generator(device=dev).manual_seed(23)
+    X = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    R = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev) if R is None else R
+    rv = pencil.row_valid_dev
+    forms, errs, same = {}, [], True
+    for label, aset, kw in k4_forms(fact, ts, abc):
+        kw = dict(kw, **{k: v for k, v in (('R', R), ('rv', rv)) if kw.get(k) is True})
+        call = lambda: ob.banded_apply(aset, X, **kw)
+        twin = lambda: ob.banded_apply_plain_set(aset, X, **kw)
+        yk, yk2, yp = call(), call(), twin()
+        torch.cuda.synchronize()
+        yk, yk2, yp = [y if isinstance(y, tuple) else (y,) for y in (yk, yk2, yp)]
+        equal = all(torch.equal(a, b) for a, b in zip(yk, yk2))
+        err = max(rel_err(a, b) for a, b in zip(yk, yp))
+        moved, flops = k4_work(aset, X, kw)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS * 1e3
+        forms[label] = dict(err=err[0], max_abs=err[1], two_launches_equal=equal,
+                            ms=cuda_ms(call, reps), device_ms=device_ms(call, reps),
+                            plain_ms=cuda_ms(twin, 3), bound_bytes_ms=t_bytes,
+                            bound_operations_ms=t_ops)
+        errs.append(err)
+        same = same and equal
+        f = forms[label]
+        print(f"K4 {label} on {path}: rel_err {err[0]:.3e}, two launches "
+              f"{'equal' if equal else 'DIFFER'}; kernel {f['ms']:.4f} ms (device "
+              f"{f['device_ms']}), plain {f['plain_ms']:.4f} ms; bound {t_bytes:.4f} ms by bytes, "
+              f"{t_ops:.4f} ms by operations")
+    if not same:
+        raise AssertionError(f"K4 on {path}: two launches of one form differ")
+    main = 'pair' if 'pair' in forms else 'residual'
+    m = forms[main]
+    r = dict(err=max(errs), shape=[G, P], ms=m['ms'], device_ms=m['device_ms'],
+             plain_ms=m['plain_ms'], library_ms=None, forms=forms,
+             **dict(zip(('bound_ms', 'bound_by'),
+                        max((m['bound_bytes_ms'], 'bytes'),
+                            (m['bound_operations_ms'], 'operations')))))
+    if ts is not None:
+        mls = ts._banded_ml_set()
+        n_ref = fact.banded.refinements
+
+        def step_set():
+            mls.pair(X)
+            for _ in range(n_ref):
+                fact.banded.exact_residual(R, X)
+
+        bound = (m['bound_bytes_ms'] + n_ref * forms['residual']['bound_bytes_ms'],
+                 m['bound_operations_ms'] + n_ref * forms['residual']['bound_operations_ms'])
+        r['step_set'] = dict(refinements=n_ref, ms=cuda_ms(step_set, reps),
+                             device_ms=device_ms(step_set, reps), bound_bytes_ms=bound[0],
+                             bound_operations_ms=bound[1])
+        s = r['step_set']
+        print(f"K4 on {path}, this check's timing of a step's calls (the pair and {n_ref} "
+              f"residuals; the step's own launches are counted on its main path): "
+              f"{s['ms']:.4f} ms (device {s['device_ms']}); bound "
+              f"{bound[0]:.4f} ms by bytes, {bound[1]:.4f} ms by operations")
+    record('banded_apply', path, r, primary,
+           keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'forms', 'device_ms')
+           + (('step_set',) if ts is not None else ()))
+
+
+def check_k4_per_group(path, pencil, reps=5):
+    """K4 on per-group blocks only (Gs == G: BandedOperator, the form of
+    exact per-group pencils and of the banded solver's default exact apply),
+    L alone and the (M, L) pair, against the twin; two launches equal."""
+    from dedalus_tpu_torch.ops import banded as ob
+    dev = pencil.row_valid_dev.device
+    ops = [ob.BandedOperator(pencil.banded_stack(name), dev) for name in ('M', 'L')]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    X = torch.randn((pencil.G, pencil.R), generator=gen, dtype=torch.float64, device=dev)
+    out = {}
+    for label, aset, kw in (('L', ob.BandedApplySet(ops[1:]), {}),
+                            ('pair', ob.BandedApplySet(ops), dict(pair=True))):
+        yk, yk2, yp = (f() for f in (lambda: ob.banded_apply(aset, X, **kw),
+                                     lambda: ob.banded_apply(aset, X, **kw),
+                                     lambda: ob.banded_apply_plain_set(aset, X, **kw)))
+        torch.cuda.synchronize()
+        yk, yk2, yp = [y if isinstance(y, tuple) else (y,) for y in (yk, yk2, yp)]
+        err = max(rel_err(a, b) for a, b in zip(yk, yp))
+        equal = all(torch.equal(a, b) for a, b in zip(yk, yk2))
+        out[label] = dict(err=err[0], two_launches_equal=equal, shape=[pencil.G, pencil.R],
+                          ms=cuda_ms(lambda: ob.banded_apply(aset, X, **kw), reps))
+        print(f"K4 per-group blocks (Gs == G) {label} on {path}: rel_err {err[0]:.3e}, two "
+              f"launches {'equal' if equal else 'DIFFER'}, {out[label]['ms']:.4f} ms")
+        if not (equal and err[0] <= TOL['banded_apply']):
+            raise AssertionError(f"K4 on per-group blocks ({label}, {path}): {err[0]:.3e}, "
+                                 f"equal {equal}")
+    r = RESULTS['banded_apply']
+    r['per_group'] = out
+    r['err'] = max(r['err'], max((v['err'], 0.0) for v in out.values()))
+
+
+def step_kernel_table(solver, run):
+    """The replayed steps of run() by kernel name, from the profiler's
+    device records: {name: [records a step, device ms a step]}, largest
+    first."""
+    from torch.profiler import profile, ProfilerActivity
+    it1 = solver.iteration
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = solver.iteration - it1
+    table = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, 'self_device_time_total', None) or getattr(e, 'self_cuda_time_total', 0)
+            row = table.setdefault(e.key[:120], [0.0, 0.0])
+            row[0] += e.count / n
+            row[1] += us / n * 1e-3
+    return dict(sorted(table.items(), key=lambda kv: -kv[1][1]))
+
+
+def ab_side(root, steps=20):
+    """rbc2048 at FIXED_REFINEMENTS with the package of the checkout at
+    `root` (this one, or a parent's unpacked by git archive): the replayed
+    step's ms and its kernels by name, K4 on the L apply (events, and its
+    own kernel on the device), K2a and torch.cat on the staging calls of
+    one F (events and device). Prints one JSON line; ab_compare runs it."""
+    root = str(__import__('pathlib').Path(root).resolve())
+    sys.path.insert(0, root)
+    import dedalus_tpu_torch
+    from dedalus_tpu_torch.ops import staging
+    if not dedalus_tpu_torch.__file__.startswith(root):
+        raise AssertionError(f"dedalus_tpu_torch came from {dedalus_tpu_torch.__file__}")
+    dev, kind, smi = card()
+    solver = build_rbc(NX, NZ, RA, dev, matsolver='banded')
+    solver.run_steps(DT, 5)
+    ts = solver.timestepper
+    a, b, c = ts.compute_coefficients([DT, DT], 2)
+    bb = ts._factorized[(float(a[0]), float(b[0]))].banded
+    bb.refinements = ts._banded_refs_floor = FIXED_REFINEMENTS
+    solver.run_steps(DT, 2)
+    graph_ms = [run_ms(solver, lambda: solver.run_steps(DT, steps)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: solver.run_steps(DT, 10))
+    X = solver.pencil.gather_state(solver.state_flat())
+    bM, bL = ts._banded_ml()
+    k4 = dict(L_ms=cuda_ms(lambda: bL.apply(X), 20), M_ms=cuda_ms(lambda: bM.apply(X), 20),
+              L_kernel_device_ms=device_ms(lambda: bL.apply(X), name='banded_apply_kernel'),
+              L_device_ms=device_ms(lambda: bL.apply(X)))
+    calls = []
+    stage = staging.stage
+
+    def recording(slabs, axis=None, size=None):
+        calls.append((list(slabs), axis, size))
+        return stage(slabs, axis, size)
+
+    # (keeps the wrapper's launch counts, which stage adds to by name)
+    functools.update_wrapper(recording, stage)
+    staging.stage = recording
+    try:
+        solver.traced_F(solver.state_flat(), solver.sim_time)
+    finally:
+        staging.stage = stage
+    k2a = []
+    for slabs, axis, size in calls:
+        row = dict(shapes=[list(x.shape) for x in slabs], axis=axis, size=size,
+                   ms=cuda_ms(lambda: stage(slabs, axis, size), 50),
+                   device_ms=device_ms(lambda: stage(slabs, axis, size), name='stage_kernel'))
+        if axis is None:
+            row.update(cat_ms=cuda_ms(lambda: torch.cat(slabs, dim=0), 50),
+                       cat_device_ms=device_ms(lambda: torch.cat(slabs, dim=0)))
+        k2a.append(row)
+    out = dict(root=root, card=smi, graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
+               step_kernels=dict(list(table.items())[:25]),
+               k4_step=[sum(v[0] for k, v in table.items() if 'banded_apply_kernel' in k),
+                        sum(v[1] for k, v in table.items() if 'banded_apply_kernel' in k)],
+               records_per_step=sum(v[0] for v in table.values()),
+               device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
+    print(json.dumps({"ab_side": out}))
+
+
+def ab_compare(parent_root, order=('parent', 'change', 'change', 'parent')):
+    """ab_side for the parent's checkout (`parent_root`, unpacked there by
+    git archive) and this one, each in a process of its own, in the order
+    parent, change, change, parent on one card: prints each side's line and
+    the two sides' means."""
+    here = str(__import__('pathlib').Path(__file__).resolve().parent)
+    roots = dict(parent=str(__import__('pathlib').Path(parent_root).resolve()), change=here)
+    sides = {}
+    for label in order:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-c', f"import chip_smoke as c; c.ab_side({roots[label]!r})"],
+                              cwd=here, capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"ab_side"')]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"ab_side({label}) failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        side = json.loads(lines[-1])['ab_side']
+        side['seconds'] = time.perf_counter() - t0
+        sides.setdefault(label, []).append(side)
+        print(json.dumps({"ab": label, **side}))
+    for label, runs in sides.items():
+        g = [x for r in runs for x in r['graph_ms_per_step']]
+        print(f"[{runs[0]['card']}] {label}: graph ms/step {g}; K4 a replayed step "
+              f"{[r['k4_step'] for r in runs]} (records, device ms); records a step "
+              f"{[r['records_per_step'] for r in runs]}; K4 L apply "
+              f"{[round(r['k4']['L_ms'], 4) for r in runs]} ms (its kernel on the device "
+              f"{[r['k4']['L_kernel_device_ms'] for r in runs]}); K2a "
+              f"{[[(round(c['ms'], 4), c['device_ms'], c.get('cat_ms'), c.get('cat_device_ms')) for c in r['k2a']] for r in runs]}")
+    return sides
+
+
 def check_k457(path, solver, fact, abc, primary=False):
     """K7, K5 and K4 against their plain twins at a banded path's shapes:
     the history combine of the solver's rings, the sweeps on that right-hand
-    side, the M and L applies on the state. Returns the right-hand side."""
+    side, every K4 form of the step (check_k4). Returns the right-hand
+    side."""
     from dedalus_tpu_torch.ops import banded as ob
     from dedalus_tpu_torch.csrc import history_combine as hc
     ts, pencil, bb = solver.timestepper, solver.pencil, fact.banded
     a, b, c = abc
     dev = bb.device
     G, Nb, nb = pencil.G, bb.Nb, bb.nb
-    bM, bL = ts._banded_ml()
     coef = ts.coefficient_vector(a, b, c, dev)
     F, MX, LX = ts.histories()
     hist = (F, MX, LX, pencil.row_valid_dev)
@@ -1519,25 +1788,7 @@ def check_k457(path, solver, fact, abc, primary=False):
         library_ms=None,
         **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(*fargs, y_k), k5_flops)))), primary)
 
-    X = pencil.gather_state(solver.state_flat())
-    xp = torch.nn.functional.pad(X[:, bL.col_perm], (0, bL.pad)).contiguous()
-    errs = []
-    for op in (bM, bL):
-        yk = ob.banded_apply(op.ops, xp, w=op.w)
-        yp = ob.banded_apply_plain(op.ops, xp, w=op.w)
-        if op.bad_idx:
-            yk = ob.banded_apply(op.bad_ops, xp, groups=op.badg, out=yk)
-            yp = ob.banded_apply_plain(op.bad_ops, xp, groups=op.badg, out=yp)
-        torch.cuda.synchronize()
-        errs.append(rel_err(yk, yp))
-    k4_tensors = [bL.ops[k] for k in ('diag', 'sub', 'sup', 'UcolT', 'Vrow')]
-    record('banded_apply', path, dict(
-        err=max(errs), shape=list(xp.shape),
-        ms=cuda_ms(lambda: ob.banded_apply(bL.ops, xp, w=bL.w), 50),
-        plain_ms=cuda_ms(lambda: ob.banded_apply_plain(bL.ops, xp, w=bL.w), 10),
-        library_ms=None,
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*k4_tensors, xp, xp, bL.w), k4_flops(bL.ops, G))))), primary)
+    check_k4(path, pencil, fact, primary, ts=ts, abc=abc, R=RHS_plain)
     return RHS_plain
 
 
@@ -1550,8 +1801,7 @@ def last_solve_residual(solver, a, b, c):
     coef = ts.coefficient_vector(a, b, c, pencil.row_valid_dev.device)
     RHS = hc.history_combine_plain(*ts.histories(), pencil.row_valid_dev, coef)
     Xf = pencil.gather_state(solver.state_flat())
-    AX = (float(a[0]) * plain_operator_apply(bM, Xf)
-          + float(b[0]) * plain_operator_apply(bL, Xf)) * pencil.row_valid_dev
+    AX = (float(a[0]) * bM.apply_plain(Xf) + float(b[0]) * bL.apply_plain(Xf)) * pencil.row_valid_dev
     return float(torch.linalg.norm(RHS - AX) / torch.linalg.norm(RHS))
 
 
@@ -1846,12 +2096,14 @@ def banded_path():
     check_k9('rbc2048', solver, RHS_plain)
     time_probes('rbc2048', solver, fact, smi)
 
-    phase("RBC 64x32 Ra=1e5 SBDF2 banded, 10 steps: cuda vs cpu")
+    phase("RBC 64x32 Ra=1e5 SBDF2 banded, 10 steps: cuda vs cpu; K4 on per-group blocks")
     states = {}
     for d in (DEVICE, 'cpu'):
         s = build_rbc(64, 32, 1e5, d, matsolver='banded')
         s.run_steps(DT, 10)
         states[d] = s.state_flat().cpu()
+        if d == DEVICE:
+            check_k4_per_group('rbc64', s.pencil)
     err64 = rel_err(states[DEVICE], states['cpu'])[0]
     print(f"cuda vs cpu rel_err {err64:.3e} (tol 1e-10)")
     if not err64 <= 1e-10:
@@ -1897,6 +2149,12 @@ def banded_path():
     phase("banded path: graph against eager, and the replayed step's device time")
     graph_vs_eager('rbc2048', solver, DT, smi)
     step_times('rbc2048', solver, lambda: solver.run_steps(DT, 10), smi)
+    table = step_kernel_table(solver, lambda: solver.run_steps(DT, 10))
+    k4 = [v for k, v in table.items() if 'banded_apply_kernel' in k]
+    print(f"[{smi}] rbc2048: K4 launches a replayed step {LAUNCHES['rbc2048']['banded_apply'] / n_steps} "
+          f"(count_launches; PR 15: 12); the profiler's K4 records a step "
+          f"{sum(v[0] for v in k4)}, {sum(v[1] for v in k4):.4f} ms a step on the device")
+    print(json.dumps({"rbc2048_step_kernels": table, "card": smi}))
     print(json.dumps({"rbc2048_F": f_profile(solver, state, solver.sim_time), "card": smi}))
 
 
@@ -2236,6 +2494,8 @@ def banded_fast_path(n_steps=20):
             raise AssertionError("fast path state is not finite")
         if not resid <= 1e-9:
             raise AssertionError(f"fast path final solve residual {resid:.3e} > 1e-9")
+        check_k4('rbc2048_fast', solver.pencil, ts._factorized[(float(a[0]), float(b[0]))],
+                 ts=ts, abc=(a, b, c), reps=5)
 
         phase("F per evaluation under 'fast' and under 'matrix' (same state)")
         state, t = solver.state_flat(), solver.sim_time
@@ -2943,22 +3203,15 @@ def run_ms(solver, run, eager=False):
 
 def device_per_step(solver, run):
     """(device ms, device records) a step of run() with its graphs
-    replayed, from the profiler's kernel, copy and set records; (None, None)
-    where the profiler recorded no device time."""
-    from torch.profiler import profile, ProfilerActivity
-    it1 = solver.iteration
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    n = solver.iteration - it1
-    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    total_us = sum(getattr(e, 'self_device_time_total', None) or
-                   getattr(e, 'self_cuda_time_total', 0) for e in evs)
-    if not total_us:
+    replayed, from the profiler's kernel, copy and set records
+    (step_kernel_table); (None, None) where the profiler recorded no device
+    time."""
+    table = step_kernel_table(solver, run)
+    total = sum(v[1] for v in table.values())
+    if not total:
         print("the profiler recorded no device time: not measured")
         return None, None
-    return total_us / n * 1e-3, sum(e.count for e in evs) / n
+    return total, sum(v[0] for v in table.values())
 
 
 def step_times(path, solver, run, smi):
@@ -5681,6 +5934,11 @@ def conditions_path():
         raise AssertionError(f"conditioned problems: card and CPU disagree: "
                              f"{err_ivp:.3e} {err_lbvp:.3e}")
 
+    if lb[DEVICE].pencil.banded_plan() is not None:
+        raise AssertionError("a conditioned pencil has a banded plan: K4 has no form for it")
+    print("conditioned pencils have no banded plan (core/subsystems.py banded_plan): "
+          "no K4 form runs on them")
+
     phase("K3 on the conditioned LBVP's pencils, its conditioned gather alone")
     check_k3('conditions', lb[DEVICE].pencil, lb[DEVICE].state_flat())
     gm = lb[DEVICE].pencil.eq_gather
@@ -5755,6 +6013,7 @@ def banded_lbvp_path():
             if d == DEVICE:
                 count_launches('lbvp_banded', 1, solver.solve)
                 torch.cuda.synchronize()
+                check_k4('lbvp_banded', solver.pencil, solver._factorized, reps=5)
             else:
                 solver.solve()
             solve_s = time.perf_counter() - t0
@@ -5924,7 +6183,8 @@ def main():
              'err_by_factor', 'pins', 'growth', 'solve_residual', 'solve_residual_plain',
              'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',
              'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned',
-             'err_f64', 'ms_f64', 'library_device_ms')
+             'err_f64', 'ms_f64', 'library_device_ms', 'forms', 'step_set', 'per_group',
+             'device_ms_where_library', 'calls')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

@@ -182,6 +182,14 @@ class MultistepIMEX:
         """The banded M and L operators (cached by the pencil)."""
         return self.pencil.banded_operator('M'), self.pencil.banded_operator('L')
 
+    def _banded_ml_set(self):
+        """M and L as one K4 apply set: the step's pair (M X, L X) and the
+        outer pass's residual, each one launch."""
+        mls = getattr(self, '_ml_set', None)
+        if mls is None or mls.ops != list(self._banded_ml()):
+            mls = self._ml_set = ops_banded.BandedApplySet(self._banded_ml())
+        return mls
+
     def _outer_reuse(self, a0, b0):
         """Serve the LHS a0 M + b0 L from an existing factorization of nearby
         coefficients through outer iterative refinement instead of building
@@ -243,7 +251,8 @@ class MultistepIMEX:
     def _probe_outer_curve(self, fact, a0, b0, cap=48):
         """Relative residual after k outer passes on a numpy-seeded RHS
         (the same vector as dedalus_tpu's probe), stopping on stagnation."""
-        bM, bL = self._banded_ml()
+        bM = self._banded_ml()[0]
+        mls = self._banded_ml_set()
         rv = self.pencil.row_valid_dev
         rng = np.random.default_rng(11)
         R = torch.as_tensor(rng.standard_normal((bM.G, bM.P)), device=rv.device) * rv
@@ -254,7 +263,7 @@ class MultistepIMEX:
             for _ in range(cap + 1):
                 # (K9: the residual and its norm; one scalar per pass reaches
                 # the host, for the stagnation test)
-                res, sumsq = residual_norm(R, bM.apply(X), bL.apply(X), ab, rv)
+                res, sumsq = residual_norm(R, *mls.pair(X), ab, rv)
                 X = fact.banded.solve(res, accumulate=X)
                 norms.append(float(sumsq) ** 0.5)
                 if len(norms) >= 4 and norms[-1] > 0.8 * norms[-3]:
@@ -400,17 +409,17 @@ class MultistepIMEX:
             RHS = self._combine(coef, self._store(head, MX0, LX0, F0))
             Xnew = fact.solve(RHS)
         else:
-            bM, bL = self._banded_ml()
-            MX0 = bM.apply(X)
-            LX0 = bL.apply(X)
+            mls = self._banded_ml_set()
+            MX0, LX0 = mls.pair(X)
             F0 = solver.traced_F(state_flat, t)
             RHS = self._combine(coef, self._store(head, MX0, LX0, F0))
             Xnew = fact.banded.solve(RHS)
             # Outer refinement against the true step matrix when the
-            # factorization was built for nearby coefficients (startup steps)
+            # factorization was built for nearby coefficients (startup
+            # steps): RHS - (a0 M X + b0 L X) rv, one K4 launch
             for _ in range(n_out):
-                AX = (a0 * bM.apply(Xnew) + b0 * bL.apply(Xnew)) * rv
-                Xnew = fact.banded.solve(RHS - AX, accumulate=Xnew)
+                Xnew = fact.banded.solve(mls.combine((a0, b0), Xnew, R=RHS, rv=rv),
+                                         accumulate=Xnew)
         state_flat.copy_(pencil.scatter_state(Xnew))
         t.add_(dt)
 

@@ -5,7 +5,9 @@
 //       which compute the same sweeps).
 //   K4  banded_apply             replaces dedalus_tpu/ops/banded.py:951
 //       apply_band, :967 apply_full, and the apply functions of
-//       SeparableBandedOperator (:1901) and BandedOperator (:1946).
+//       SeparableBandedOperator (:1901) and BandedOperator (:1946), with
+//       the step's combinations of them (dedalus_tpu/core/timesteppers.py
+//       and the refinement residual) in the same launch.
 //   K8a block_tridiag_qr_factor  replaces dedalus_tpu/ops/banded.py:364
 //       _factor_device (host form :286 _factor_host): the f64 factorization.
 //   K8b multi_rhs_solve          replaces dedalus_tpu/ops/banded.py:454
@@ -203,188 +205,566 @@ extern "C" int k5_block_tridiag_qr_solve_f64(
 }
 
 // ---------------------------------------------------------------------------
-// K4: exact f64 banded apply  y[g] = sum_p w[g,p] (A_p x[g]), with
-//   A_p x = band_p x + UcolT_p^T x[bcol0 : bcol0+nbord] + (Vrow_p x on the
-//   first nbord rows).
+// K4: the exact f64 applies of one or two banded operators of one ordering,
+// in pencil coordinates, in one launch. Term k (k < nterms) is
+//   y_k[g] = sum_p coef_k w_k[g,p] (A_kp x[g])      (shared parts, Gs == 1)
+//          + coef_k (A_k[b] x[g])                      (per-group blocks b)
+// with A x = band x + UcolT^T x[bcol0 : bcol0 + nbord] + (Vrow x on the
+// first nbord rows), x[g, j] = X[g, col_perm[j]] (zero for j >= P), and
+// lands in output out_k: two outputs (the step's M X and L X from one read
+// of X), or one (their combination), to which the pivot pairs add X[g, c]
+// on row r; then the row mask (rv) and the residual (R - .) apply, and
+// row j of the banded order is stored at Y[g, row_perm[j]].
 //
-// Block arrays are stacked over parts p and block groups:
-//   diag/sub/sup (nparts, Gs, Nb, nb, nb), UcolT/Vrow (nparts, Gs, nbord, Pp).
-// Gs == 1 means the blocks are shared by every group (the separable parts of
-// SeparableBandedOperator); otherwise block group b belongs to output b
-// (BandedOperator, and the exceptional groups of the separable form).
-// `groups` (optional, length Gout) maps output b to its row of x and y, so
-// the exceptional groups are applied in place over the rows the first launch
-// wrote. `w` (optional, (G, nparts)) weights the parts; absent weights are 1.
-// A bit p of mask_* says part p carries that panel (all-zero panels are
-// skipped).
+// The plan (ops/banded.py k4_plan, k4_band_fragments, k4_border_fragments)
+// is host code that tests/test_torch_banded_plan.py emulates block by
+// block. Blocks: tiles of K4_GT groups; per tile nv border-row units, then
+// nchunks band units of BR block rows.
+//  * Band unit: stages the x window of its block rows for the tile in
+//    shared memory (gathered through col_perm) and the border columns'
+//    values; then per (block row, term, part) one stage: the part's
+//    prepacked B fragments of that block row (k4_band_fragments: sub, diag,
+//    sup and Ucol panels, 32 lanes a fragment) copied into shared memory
+//    by cp.async one stage ahead (two buffers), and each warp's 16x8x4 f64
+//    tensor-core products (mma.sync m16n8k4, sm_90's DMMA shape) for its 16
+//    groups: A the staged x scaled by coef w[g,p], one accumulator for all
+//    parts and terms of an output. Then the exceptional groups (per-group
+//    blocks, their shared weights zero) add their exact apply, one thread
+//    per (group, row), the pivots add, and the rows are stored; border
+//    rows (j < nbord, unit 0 only) go to the tile's partial buffer instead.
+//  * Border-row unit: the Vrow products over its range of pencil columns,
+//    in sub-chunks of K4_VK k-steps whose X (read in place, coalesced) and
+//    Vrow fragments (k4_border_fragments, pencil columns) are staged in
+//    shared memory, and the exceptional groups' border rows over the same
+//    columns, into its slot of the partial buffer.
+//  * The last of a tile's nv + 1 border contributors to arrive (an atomic
+//    counter, reset by it) adds the slots in the fixed order nv, 0, ...,
+//    nv - 1 and stores the border rows: two launches agree bit for bit.
 //
-// Grid: (Nb + nbx, ceil(Gout / gtile)). Blocks bx < Nb compute band row
-// block bx for a tile of gtile groups: one thread per (row, group), with the
-// groups of one row on neighbouring lanes, so a warp's reads of a block row
-// hit a few addresses (broadcast) instead of one per lane; the three
-// nb-wide x windows and the border values are staged in shared memory, and
-// the results are staged there too and written out row-contiguous per group.
-// Blocks bx >= Nb compute the nbord border rows (whose Vrow content spans
-// the whole pencil) one warp per (group, row) with a shuffle reduction, so
-// no row is written by two blocks and no atomics are needed.
-//
-// Bound: vector traffic. x read and y written once (~67 MB at 2048x512);
-// the shared parts (~5.6 MB) stay in L2.
+// Bound: operations (DMMA at 67 TFLOP/s) against bytes (X read once, each
+// output written once); the fragments (~16 MB at rbc2048) are read from L2
+// by every tile, two blocks of four warps an SM.
 // ---------------------------------------------------------------------------
 
-__global__ void banded_apply_kernel(
-        const double* __restrict__ xp, double* __restrict__ y,
-        const double* __restrict__ w, const int64_t* __restrict__ groups,
-        const double* __restrict__ diag, const double* __restrict__ sub,
-        const double* __restrict__ sup, const double* __restrict__ UcolT,
-        const double* __restrict__ Vrow,
-        int Gout, int nparts, int Gs, int Nb, int nb, int nbord, int bcol0,
-        int Pp, unsigned mask_sub, unsigned mask_sup, unsigned mask_U,
-        unsigned mask_V, int gtile) {
+#define K4_WARPS 4
+#define K4_MTILES 2                         // the two 8-row halves of a warp's m16 tile
+#define K4_GT (8 * K4_WARPS * K4_MTILES)   // groups a tile: ops/banded.py K4_GT
+#define K4_MAXP 6
+#define K4_MAXNT 4
+#define K4_MAXOUT 2
+#define K4_VK 8                             // k-steps a staged border-row sub-chunk
+#define K4_TERM_INTS 12
+#define K4_PLAN_INTS 4
+#define K4_SMEM (227 * 1024)                // shared memory a block may use
+
+struct K4Term {
+    const double* band;     // (Nb, nparts, KS, NT, 32) fragments, or null
+    const double* border;   // (nparts, KSV, NTV, 32) fragments, or null
+    const double* w;        // (G, nparts) weights
+    const double* gdiag;    // per-group blocks (Gb, Nb, nb, nb), or null
+    const double* gsub;
+    const double* gsup;
+    const double* gU;       // (Gb, nbord, Pp)
+    const double* gV;       // (Gb, nbord, P): border rows in pencil columns
+    double coef;
+    int nparts, mask_sub, mask_sup, mask_U, mask_V;
+    int gmask;              // bits 0-3: per-group sub, sup, U, V present
+    int out;
+};
+
+struct K4Params {
+    K4Term term[2];
+    const double* X;
+    double* Y0;
+    double* Y1;
+    const double* R;
+    const double* rv;
+    const int* cp;
+    const int* rp;
+    const int* bad_off;
+    const int* bad;
+    const int* piv_off;
+    const int* piv;
+    double* partial;
+    int* counter;
+    int nterms, G, P, Nb, nb, nbord, bcol0, BR, nchunks, nv, vks, KSV, W, nout;
+    int KB, KU, KS, NT, NTV, ntiles, XB, YR;
+};
+
+// D (16x8) += A (16x4) B (4x8) in f64 on the tensor cores (sm_90's shape):
+// lane l holds A rows l/4 and l/4 + 8 at column l%4 (a0, a1), B row l%4 at
+// column l/4, D rows l/4 (d0, d1) and l/4 + 8 (d2, d3) at columns 2 (l%4)
+// and 2 (l%4) + 1
+__device__ __forceinline__ void dmma(double& d0, double& d1, double& d2, double& d3, double a0,
+                                     double a1, double b) {
+    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, "
+                 "{%6}, {%0,%1,%2,%3};\n"
+                 : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3) : "d"(a0), "d"(a1), "d"(b));
+}
+
+// The partial buffer's slot s of output o, tile t: (K4_GT, nbord)
+__device__ __forceinline__ double* k4_slot(const K4Params& p, int o, int t, int s) {
+    return p.partial + ((long long)(o * p.ntiles + t) * (p.nv + 1) + s) * K4_GT * p.nbord;
+}
+
+// Pencil row `row` of output o for group g: the row mask, the residual,
+// the store
+__device__ __forceinline__ void k4_store(const K4Params& p, int o, int g, int row, double v) {
+    const long long at = (long long)g * p.P + row;
+    if (p.rv) v *= p.rv[at];
+    if (p.R) v = p.R[at] - v;
+    (o == 0 ? p.Y0 : p.Y1)[at] = v;
+}
+
+// The pivot records [e0, e1) of tile t whose banded rows lie in
+// [j0, j0 + n): y[gl * stride + (j - j0)] += X[g, col] (output 0)
+__device__ void k4_pivots(const K4Params& p, int t, int e0, int e1, int j0, int n, double* y,
+                          int stride) {
+    for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+        const int* rec = p.piv + (long long)e * K4_PLAN_INTS;
+        const int gl = rec[0], j = rec[1];
+        if (j < j0 || j >= j0 + n) continue;
+        y[gl * stride + (j - j0)] += p.X[(long long)(t * K4_GT + gl) * p.P + rec[2]];
+    }
+}
+
+// Copy n doubles (n even, both ends 16-byte aligned) from global to shared
+// memory with cp.async, all threads of the block; the caller commits
+__device__ __forceinline__ void k4_copy_async(double* dst, const double* src, int n) {
+    for (int k = 2 * threadIdx.x; k < n; k += 2 * blockDim.x)
+        __pipeline_memcpy_async(dst + k, src + k, 16);
+}
+
+// The 16x8x4 products of one stage: `nks` k-steps of A (this lane's two
+// rows of the staged x, `xcol` the column of k-step 0, `xstride` its row
+// stride) times the staged B fragments `B` (k-step s, n-tile nt at
+// B[(s * NT + nt) * 32 + lane]), A scaled by this lane's weights wc
+__device__ __forceinline__ void k4_products(double (&acc)[K4_MTILES][K4_MAXNT][2],
+                                            const double* xs, const int (&grow)[K4_MTILES],
+                                            int xstride, int xcol, const double* B, int nks,
+                                            int NT, const double (&wc)[K4_MTILES]) {
+    const int lane = threadIdx.x & 31;
+    for (int ks = 0; ks < nks; ++ks) {
+        double a[K4_MTILES];
+#pragma unroll
+        for (int mt = 0; mt < K4_MTILES; ++mt)
+            a[mt] = xs[grow[mt] * xstride + xcol + ks * 4 + (lane & 3)] * wc[mt];
+#pragma unroll
+        for (int nt = 0; nt < K4_MAXNT; ++nt) {
+            if (nt >= NT) break;
+            const double b = B[(ks * NT + nt) * 32 + lane];
+            dmma(acc[0][nt][0], acc[0][nt][1], acc[1][nt][0], acc[1][nt][1], a[0], a[1], b);
+        }
+    }
+}
+
+__device__ void k4_band_unit(const K4Params& p, double* sh, int t, int c) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int lq = lane & 3, lm = lane >> 2;
+    const int nb = p.nb, W = p.W, XB = p.XB, YR = p.YR;
+    const int i0 = c * p.BR;
+    const int i1 = min(i0 + p.BR, p.Nb);
+    const int g0 = t * K4_GT;
+    const int win0 = (i0 - 1) * nb;
+    const int span = p.KS * p.NT * 32;    // one part's fragments of one block row
+    double* xs = sh;                      // (K4_GT, W) x window
+    double* xb = xs + K4_GT * W;          // (K4_GT, XB) border columns' values
+    double* ys = xb + K4_GT * XB;         // (nout, K4_GT, YR) one block row's results
+    double* bs = ys + p.nout * K4_GT * YR;    // two stages' fragments, span each
+    double* ws = bs + 2 * span;           // (terms, K4_MAXP, K4_GT) coef w[g, p]
+    int* rps = reinterpret_cast<int*>(ws + p.nterms * K4_MAXP * K4_GT);   // row_perm of the rows
+    const int pslot = t * (p.nchunks + 1) + c;
+    const int piv0 = p.piv_off[pslot], piv1 = p.piv_off[pslot + 1];
+    // The stages: (block row, term, part) in order, each one part's
+    // fragments, copied into alternate buffers one stage ahead
+    int nstage = 0;
+    for (int k = 0; k < p.nterms; ++k)
+        if (p.term[k].band) nstage += p.term[k].nparts;
+    const int per_row = nstage;
+    nstage *= i1 - i0;
+    auto stage_src = [&](int s, int& i, int& k, int& pp) {
+        i = i0 + s / per_row;
+        int r = s - (i - i0) * per_row;
+        // outputs in order, the terms of each in order
+        for (int o = 0; o < p.nout; ++o)
+            for (k = 0; k < p.nterms; ++k) {
+                const K4Term& T = p.term[k];
+                if (T.out != o || !T.band) continue;
+                if (r < T.nparts) { pp = r; return T.band + ((long long)i * T.nparts + pp) * span; }
+                r -= T.nparts;
+            }
+        return (const double*)nullptr;
+    };
+    if (nstage) {
+        int i, k, pp;
+        k4_copy_async(bs, stage_src(0, i, k, pp), span);
+    }
+    // The x window and the border columns' values, gathered through
+    // col_perm by cp.async (zero-filled outside the pencils), in flight
+    // with stage 0's fragments; the weights coef w[g, p] of every part
+#pragma unroll 8
+    for (int e = tid; e < K4_GT * W; e += blockDim.x) {
+        const int gl = e / W, j = win0 + (e - gl * W);
+        const bool in = g0 + gl < p.G && j >= 0 && j < p.P;
+        __pipeline_memcpy_async(xs + e, in ? p.X + (long long)(g0 + gl) * p.P + p.cp[j] : p.X,
+                                8, in ? 0 : 8);
+    }
+#pragma unroll 4
+    for (int e = tid; e < K4_GT * XB; e += blockDim.x) {
+        const int gl = e / XB, cc = e - gl * XB;
+        const bool in = g0 + gl < p.G && cc < p.nbord;
+        __pipeline_memcpy_async(
+            xb + e, in ? p.X + (long long)(g0 + gl) * p.P + p.cp[p.bcol0 + cc] : p.X, 8,
+            in ? 0 : 8);
+    }
+    for (int e = tid; e < (i1 - i0) * nb; e += blockDim.x) {
+        const bool in = i0 * nb + e < p.P;
+        __pipeline_memcpy_async(rps + e, p.rp + (in ? i0 * nb + e : 0), 4, in ? 0 : 4);
+    }
+    __pipeline_commit();
+    for (int e = tid; e < p.nterms * K4_MAXP * K4_GT; e += blockDim.x) {
+        const int k = e / (K4_MAXP * K4_GT), pp = (e / K4_GT) % K4_MAXP, gl = e % K4_GT;
+        const K4Term& T = p.term[k];
+        ws[e] = (T.band && pp < T.nparts && g0 + gl < p.G)
+                ? T.coef * T.w[(long long)(g0 + gl) * T.nparts + pp] : 0.0;
+    }
+    const int bad0 = p.bad_off[t], nbad = p.bad_off[t + 1] - bad0;
+    int grow[K4_MTILES];                  // this lane's group (row of A) in each m-tile
+#pragma unroll
+    for (int mt = 0; mt < K4_MTILES; ++mt) grow[mt] = warp * 8 * K4_MTILES + mt * 8 + lm;
+    double acc[K4_MTILES][K4_MAXNT][2];
+    int s = 0;
+    for (int i = i0; i < i1; ++i) {
+        for (int o = 0; o < p.nout; ++o) {
+#pragma unroll
+            for (int mt = 0; mt < K4_MTILES; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < K4_MAXNT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = 0.0;
+            for (int k = 0; k < p.nterms; ++k) {
+                const K4Term& T = p.term[k];
+                if (T.out != o || T.band == nullptr) continue;
+                for (int pp = 0; pp < T.nparts; ++pp, ++s) {
+                    if (s + 1 < nstage) {
+                        int i2, k2, p2;
+                        k4_copy_async(bs + ((s + 1) & 1) * span, stage_src(s + 1, i2, k2, p2), span);
+                    }
+                    __pipeline_commit();
+                    __pipeline_wait_prior(1);
+                    __syncthreads();
+                    const double* B = bs + (s & 1) * span;
+                    double wc[K4_MTILES];
+#pragma unroll
+                    for (int mt = 0; mt < K4_MTILES; ++mt)
+                        wc[mt] = ws[(k * K4_MAXP + pp) * K4_GT + grow[mt]];
+                    const int base = (i - i0) * nb;   // x window column of block row i - 1
+                    if (i > 0 && ((T.mask_sub >> pp) & 1))
+                        k4_products(acc, xs, grow, W, base, B, p.KB, p.NT, wc);
+                    k4_products(acc, xs, grow, W, base + nb, B + p.KB * p.NT * 32, p.KB, p.NT, wc);
+                    if (i < p.Nb - 1 && ((T.mask_sup >> pp) & 1))
+                        k4_products(acc, xs, grow, W, base + 2 * nb, B + 2 * p.KB * p.NT * 32,
+                                    p.KB, p.NT, wc);
+                    if ((T.mask_U >> pp) & 1)
+                        k4_products(acc, xb, grow, XB, 0, B + 3 * p.KB * p.NT * 32, p.KU, p.NT,
+                                    wc);
+                    __syncthreads();          // the buffer is free for stage s + 2
+                }
+            }
+#pragma unroll
+            for (int mt = 0; mt < K4_MTILES; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < K4_MAXNT; ++nt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const int r = nt * 8 + 2 * lq + h;
+                        if (nt < p.NT && r < nb) ys[(o * K4_GT + grow[mt]) * YR + r] = acc[mt][nt][h];
+                    }
+        }
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        // The exceptional groups: their exact per-group apply, added (their
+        // shared weights are zero), one thread per (group, row)
+        for (int e = tid; e < nbad * nb; e += blockDim.x) {
+            const int eb = e / nb, r = e - eb * nb;
+            const int* rec = p.bad + (long long)(bad0 + eb) * K4_PLAN_INTS;
+            const int gl = rec[0];
+            const double* xw = xs + gl * W + (i - i0) * nb;   // x of block rows i-1, i, i+1
+            for (int kt = 0; kt < p.nterms; ++kt) {
+                const K4Term& T = p.term[kt];
+                const int b = rec[1 + kt];
+                if (b < 0) continue;
+                const long long off = ((long long)b * p.Nb + i) * nb * nb + (long long)r * nb;
+                double sum = 0.0;
+#pragma unroll 8
+                for (int cc = 0; cc < nb; ++cc) sum += T.gdiag[off + cc] * xw[nb + cc];
+                if ((T.gmask & 1) && i > 0)
+#pragma unroll 8
+                    for (int cc = 0; cc < nb; ++cc) sum += T.gsub[off + cc] * xw[cc];
+                if ((T.gmask & 2) && i < p.Nb - 1)
+#pragma unroll 8
+                    for (int cc = 0; cc < nb; ++cc) sum += T.gsup[off + cc] * xw[2 * nb + cc];
+                if (T.gmask & 4) {
+                    const double* u = T.gU + (long long)b * p.nbord * (p.Nb * nb) + i * nb + r;
+#pragma unroll 8
+                    for (int cc = 0; cc < p.nbord; ++cc)
+                        sum += u[(long long)cc * (p.Nb * nb)] * xb[gl * XB + cc];
+                }
+                ys[(T.out * K4_GT + gl) * YR + r] += T.coef * sum;
+            }
+        }
+        __syncthreads();
+        if (piv1 > piv0) {
+            k4_pivots(p, t, piv0, piv1, max(i * nb, p.nbord), (i + 1) * nb - max(i * nb, p.nbord),
+                      ys + max(p.nbord - i * nb, 0), YR);
+            __syncthreads();
+        }
+#pragma unroll 8
+        for (int e = tid; e < K4_GT * nb; e += blockDim.x) {
+            const int gl = e / nb, r = e - gl * nb;
+            const int g = g0 + gl, j = i * nb + r;
+            if (g >= p.G || j >= p.P) continue;
+            const int row = rps[j - i0 * nb];
+            for (int o = 0; o < p.nout; ++o) {
+                const double v = ys[(o * K4_GT + gl) * YR + r];
+                if (j < p.nbord) k4_slot(p, o, t, p.nv)[gl * p.nbord + j] = v;
+                else k4_store(p, o, g, row, v);
+            }
+        }
+        __syncthreads();
+    }
+}
+
+__device__ void k4_border_unit(const K4Params& p, double* sh, int t, int v) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int lq = lane & 3, lm = lane >> 2;
+    const int g0 = t * K4_GT;
+    const int ks0 = v * p.vks, ks1 = min(ks0 + p.vks, p.KSV);
+    const int VW = 4 * K4_VK + 4;         // staged X row stride (4 mod 16 doubles)
+    const int vspan = K4_VK * p.NTV * 32; // one part's fragments of a sub-chunk
+    double* xv = sh;                      // (K4_GT, VW) X sub-chunk
+    double* vs = xv + K4_GT * VW;         // every term's and part's fragments of it
+    int grow[K4_MTILES];
+#pragma unroll
+    for (int mt = 0; mt < K4_MTILES; ++mt) grow[mt] = warp * 8 * K4_MTILES + mt * 8 + lm;
+    double acc[K4_MAXOUT][K4_MTILES][K4_MAXNT][2];
+#pragma unroll
+    for (int o = 0; o < K4_MAXOUT; ++o)
+#pragma unroll
+        for (int mt = 0; mt < K4_MTILES; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < K4_MAXNT; ++nt) acc[o][mt][nt][0] = acc[o][mt][nt][1] = 0.0;
+    for (int kc = ks0; kc < ks1; kc += K4_VK) {
+        const int nks = min(K4_VK, ks1 - kc);
+        const int c0 = 4 * kc;
+#pragma unroll 8
+        for (int e = tid; e < K4_GT * 4 * K4_VK; e += blockDim.x) {
+            const int gl = e / (4 * K4_VK), cc = e - gl * (4 * K4_VK);
+            const int g = g0 + gl, col = c0 + cc;
+            const bool in = g < p.G && col < p.P && cc < 4 * nks;
+            __pipeline_memcpy_async(xv + gl * VW + cc, in ? p.X + (long long)g * p.P + col : p.X,
+                                    8, in ? 0 : 8);
+        }
+        double* dst = vs;
+        for (int k = 0; k < p.nterms; ++k) {
+            const K4Term& T = p.term[k];
+            if (!T.border) continue;
+            for (int pp = 0; pp < T.nparts; ++pp, dst += vspan)
+                k4_copy_async(dst, T.border + ((long long)pp * p.KSV + kc) * p.NTV * 32,
+                              nks * p.NTV * 32);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        const double* src = vs;
+        for (int k = 0; k < p.nterms; ++k) {
+            const K4Term& T = p.term[k];
+            if (!T.border) continue;
+            for (int pp = 0; pp < T.nparts; ++pp, src += vspan) {
+                if (!((T.mask_V >> pp) & 1)) continue;
+                double wc[K4_MTILES];
+#pragma unroll
+                for (int mt = 0; mt < K4_MTILES; ++mt) {
+                    const int g = g0 + grow[mt];
+                    wc[mt] = g < p.G ? T.coef * T.w[(long long)g * T.nparts + pp] : 0.0;
+                }
+                if (T.out == 0) k4_products(acc[0], xv, grow, VW, 0, src, nks, p.NTV, wc);
+                else k4_products(acc[1], xv, grow, VW, 0, src, nks, p.NTV, wc);
+            }
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int o = 0; o < K4_MAXOUT; ++o) {
+        if (o >= p.nout) break;
+        double* slot = k4_slot(p, o, t, v);
+#pragma unroll
+        for (int mt = 0; mt < K4_MTILES; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < K4_MAXNT; ++nt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int r = nt * 8 + 2 * lq + h;
+                    if (nt < p.NTV && r < p.nbord) slot[grow[mt] * p.nbord + r] = acc[o][mt][nt][h];
+                }
+    }
+    __syncthreads();
+    // The exceptional groups' border rows over this unit's columns
+    const int c0 = ks0 * 4, c1 = min(ks1 * 4, p.P);
+    const int bad0 = p.bad_off[t], nbad = p.bad_off[t + 1] - bad0;
+    for (int e = tid; e < nbad * p.nbord; e += blockDim.x) {
+        const int eb = e / p.nbord, r = e - eb * p.nbord;
+        const int* rec = p.bad + (long long)(bad0 + eb) * K4_PLAN_INTS;
+        const int gl = rec[0];
+        const double* xg = p.X + (long long)(g0 + gl) * p.P;
+        for (int kt = 0; kt < p.nterms; ++kt) {
+            const K4Term& T = p.term[kt];
+            const int b = rec[1 + kt];
+            if (b < 0 || !(T.gmask & 8)) continue;
+            const double* vr = T.gV + ((long long)b * p.nbord + r) * p.P;
+            double sum = 0.0;
+#pragma unroll 8
+            for (int cc = c0; cc < c1; ++cc) sum += vr[cc] * xg[cc];
+            k4_slot(p, T.out, t, v)[gl * p.nbord + r] += T.coef * sum;
+        }
+    }
+}
+
+// The border rows of tile t, by the last of its contributors
+__device__ void k4_finish(const K4Params& p, double* sh, int t) {
+    const int n = K4_GT * p.nbord;
+    for (int k = threadIdx.x; k < p.nout * n; k += blockDim.x) {
+        const int o = k / n, e = k - o * n;
+        // (the loads of 8 slots in flight at once, added in slot order)
+        double s = __ldcg(k4_slot(p, o, t, p.nv) + e);
+        for (int v0 = 0; v0 < p.nv; v0 += 8) {
+            double part[8];
+#pragma unroll
+            for (int v = 0; v < 8; ++v)
+                part[v] = v0 + v < p.nv ? __ldcg(k4_slot(p, o, t, v0 + v) + e) : 0.0;
+#pragma unroll
+            for (int v = 0; v < 8; ++v)
+                if (v0 + v < p.nv) s += part[v];
+        }
+        sh[k] = s;
+    }
+    __syncthreads();
+    const int pslot = t * (p.nchunks + 1) + p.nchunks;
+    k4_pivots(p, t, p.piv_off[pslot], p.piv_off[pslot + 1], 0, p.nbord, sh, p.nbord);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+        const int gl = k / p.nbord, j = k - gl * p.nbord;
+        const int g = t * K4_GT + gl;
+        if (g >= p.G || j >= p.P) continue;
+        for (int o = 0; o < p.nout; ++o) k4_store(p, o, g, p.rp[j], sh[o * n + k]);
+    }
+}
+
+__global__ void __launch_bounds__(K4_WARPS * 32, 2)
+banded_apply_kernel(const __grid_constant__ K4Params p) {
     extern __shared__ double sh[];
-    const int tid = threadIdx.x;
-    const int bx = blockIdx.x;
-    const int tile0 = blockIdx.y * gtile;
-    const long long bsz = (long long)nb * nb;
-
-    if (bx < Nb) {
-        // ---------------- band rows of block i ----------------
-        const int i = bx;
-        const int wn = 3 * nb;
-        double* xs = sh;                       // gtile x 3nb window
-        double* xbs = xs + gtile * wn;         // gtile x nbord border values
-        double* ys = xbs + gtile * nbord;      // gtile x nb results
-        for (int k = tid; k < gtile * wn; k += blockDim.x) {
-            const int gl = k / wn, c = k % wn;
-            const int b = tile0 + gl;
-            const int col = (i - 1) * nb + c;
-            double val = 0.0;
-            if (b < Gout && col >= 0 && col < Pp) {
-                const long long g = groups ? groups[b] : b;
-                val = xp[g * Pp + col];
-            }
-            xs[k] = val;
-        }
-        for (int k = tid; k < gtile * nbord; k += blockDim.x) {
-            const int gl = k / nbord, c = k % nbord;
-            const int b = tile0 + gl;
-            double val = 0.0;
-            if (b < Gout) {
-                const long long g = groups ? groups[b] : b;
-                val = xp[g * Pp + bcol0 + c];
-            }
-            xbs[k] = val;
-        }
-        __syncthreads();
-        const int ri = tid / gtile, gl = tid % gtile;
-        const int b = tile0 + gl;
-        const int row = i * nb + ri;
-        if (ri < nb && b < Gout && row >= nbord) {
-            const long long g = groups ? groups[b] : b;
-            const long long gb = (Gs == 1) ? 0 : b;
-            const double* xw = xs + gl * wn;
-            const double* xbd = xbs + gl * nbord;
-            double acc = 0.0;
-            for (int p = 0; p < nparts; ++p) {
-                const double wp = w ? w[g * nparts + p] : 1.0;
-                const long long pg = (long long)p * Gs + gb;
-                const long long off = (pg * Nb + i) * bsz + (long long)ri * nb;
-                double s = 0.0;
-                const double* dr = diag + off;
-                for (int k = 0; k < nb; ++k) s += dr[k] * xw[nb + k];
-                if (((mask_sub >> p) & 1u) && i > 0) {
-                    const double* sr = sub + off;
-                    for (int k = 0; k < nb; ++k) s += sr[k] * xw[k];
-                }
-                if (((mask_sup >> p) & 1u) && i < Nb - 1) {
-                    const double* ur = sup + off;
-                    for (int k = 0; k < nb; ++k) s += ur[k] * xw[2 * nb + k];
-                }
-                if ((mask_U >> p) & 1u) {
-                    const double* uc = UcolT + pg * nbord * (long long)Pp + row;
-                    for (int c = 0; c < nbord; ++c) s += uc[(long long)c * Pp] * xbd[c];
-                }
-                acc += wp * s;
-            }
-            ys[gl * nb + ri] = acc;
-        }
-        __syncthreads();
-        for (int k = tid; k < gtile * nb; k += blockDim.x) {
-            const int gl2 = k / nb, r2 = k % nb;
-            const int b2 = tile0 + gl2;
-            const int row2 = i * nb + r2;
-            if (b2 < Gout && row2 >= nbord) {
-                const long long g2 = groups ? groups[b2] : b2;
-                y[g2 * Pp + row2] = ys[k];
-            }
-        }
-        return;
+    __shared__ int last;
+    // Blocks: every tile's border-row units, then the band units chunk by
+    // chunk (ops/banded.py k4_block): a tile's border rows finish early,
+    // and the blocks of one chunk read the same fragments one after another
+    const int nvb = p.ntiles * p.nv;
+    int t;
+    if ((int)blockIdx.x < nvb) {
+        t = blockIdx.x / p.nv;
+        k4_border_unit(p, sh, t, blockIdx.x - t * p.nv);
+    } else {
+        const int c = (blockIdx.x - nvb) / p.ntiles;
+        t = blockIdx.x - nvb - c * p.ntiles;
+        k4_band_unit(p, sh, t, c);
+        if (c != 0) return;
     }
-
-    // ---------------- border rows r < nbord ----------------
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const int pair = (bx - Nb) * nwarps + warp;
-    if (pair >= gtile * nbord) return;
-    const int gl = pair / nbord, r = pair % nbord;
-    const int b = tile0 + gl;
-    if (b >= Gout) return;
-    const long long g = groups ? groups[b] : b;
-    const long long gb = (Gs == 1) ? 0 : b;
-    const double* xg = xp + g * Pp;
-    const int blk = r / nb, ri = r % nb;
-    double acc = 0.0;
-    for (int p = 0; p < nparts; ++p) {
-        const double wp = w ? w[g * nparts + p] : 1.0;
-        const long long pg = (long long)p * Gs + gb;
-        const long long off = (pg * Nb + blk) * bsz + (long long)ri * nb;
-        double s = 0.0;
-        for (int k = lane; k < nb; k += 32) {
-            s += diag[off + k] * xg[blk * nb + k];
-            if (((mask_sub >> p) & 1u) && blk > 0)
-                s += sub[off + k] * xg[(blk - 1) * nb + k];
-            if (((mask_sup >> p) & 1u) && blk < Nb - 1)
-                s += sup[off + k] * xg[(blk + 1) * nb + k];
-        }
-        if ((mask_U >> p) & 1u) {
-            const double* uc = UcolT + pg * nbord * (long long)Pp + r;
-            for (int c = lane; c < nbord; c += 32)
-                s += uc[(long long)c * Pp] * xg[bcol0 + c];
-        }
-        if ((mask_V >> p) & 1u) {
-            const double* vr = Vrow + (pg * nbord + r) * (long long)Pp;
-            for (int c = lane; c < Pp; c += 32) s += vr[c] * xg[c];
-        }
-        acc += wp * s;
+    // Arrival: the last of the tile's nv + 1 border contributors finishes
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        last = atomicAdd(p.counter + t, 1) == p.nv;
+        if (last) p.counter[t] = 0;
     }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) y[g * Pp + r] = acc;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    k4_finish(p, sh, t);
 }
 
 extern "C" int k4_banded_apply_f64(
-        const double* xp, double* y, const double* w, const int64_t* groups,
-        const double* diag, const double* sub, const double* sup,
-        const double* UcolT, const double* Vrow,
-        int Gout, int nparts, int Gs, int Nb, int nb, int nbord, int bcol0,
-        int Pp, unsigned mask_sub, unsigned mask_sup, unsigned mask_U,
-        unsigned mask_V, void* stream) {
-    const int threads = 256;
-    int gtile = threads / nb;
-    if (gtile < 1) return (int)cudaErrorInvalidValue;   // nb > 256: not supported
-    if (gtile > Gout) gtile = Gout;
-    const int nwarps = threads / 32;
-    const int nbx = (gtile * nbord + nwarps - 1) / nwarps;
-    const size_t smem = (size_t)gtile * (4 * nb + nbord) * sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(banded_apply_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        const long long* terms, const double* coefs, int nterms, const double* X, double* Y0,
+        double* Y1, const double* R, const double* rv, const int* cp, const int* rp,
+        const int* bad_off, const int* bad, const int* piv_off, const int* piv,
+        double* partial, int* counter, int G, int P, int Nb, int nb, int nbord, int bcol0,
+        int BR, int nchunks, int nv, int vks, int KSV, int W, int nout, void* stream) {
+    static size_t smem_set = 0;   // the size attribute set so far
+    if (nterms < 1 || nterms > 2 || nout < 1 || nout > 2 || nb > 8 * K4_MAXNT
+            || nbord > 8 * K4_MAXNT || nbord < 1 || BR * nb < nbord)
+        return (int)cudaErrorInvalidValue;
+    K4Params p = {};
+    for (int k = 0; k < nterms; ++k) {
+        const long long* e = terms + k * K4_TERM_INTS;
+        K4Term& T = p.term[k];
+        T.band = (const double*)e[0];
+        T.border = (const double*)e[1];
+        T.w = (const double*)e[2];
+        T.nparts = (int)e[3];
+        T.mask_sub = (int)(e[4] & 0xff);
+        T.mask_sup = (int)((e[4] >> 8) & 0xff);
+        T.mask_U = (int)((e[4] >> 16) & 0xff);
+        T.mask_V = (int)((e[4] >> 24) & 0xff);
+        T.gdiag = (const double*)e[5];
+        T.gsub = (const double*)e[6];
+        T.gsup = (const double*)e[7];
+        T.gU = (const double*)e[8];
+        T.gV = (const double*)e[9];
+        T.gmask = (int)e[10];
+        T.out = (int)e[11];
+        T.coef = coefs[k];
+        if (T.nparts > K4_MAXP || T.out < 0 || T.out >= nout
+                || ((T.band || T.border) && !T.w)) return (int)cudaErrorInvalidValue;
     }
-    dim3 grid(Nb + nbx, (Gout + gtile - 1) / gtile);
-    banded_apply_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        xp, y, w, groups, diag, sub, sup, UcolT, Vrow, Gout, nparts, Gs, Nb,
-        nb, nbord, bcol0, Pp, mask_sub, mask_sup, mask_U, mask_V, gtile);
+    p.X = X; p.Y0 = Y0; p.Y1 = Y1; p.R = R; p.rv = rv; p.cp = cp; p.rp = rp;
+    p.bad_off = bad_off; p.bad = bad; p.piv_off = piv_off; p.piv = piv;
+    p.partial = partial; p.counter = counter;
+    p.nterms = nterms; p.G = G; p.P = P; p.Nb = Nb; p.nb = nb; p.nbord = nbord;
+    p.bcol0 = bcol0; p.BR = BR; p.nchunks = nchunks; p.nv = nv; p.vks = vks; p.KSV = KSV;
+    p.W = W; p.nout = nout;
+    p.KB = (nb + 3) / 4;
+    p.KU = (nbord + 3) / 4;
+    p.KS = 3 * p.KB + p.KU;
+    p.NT = (nb + 7) / 8;
+    p.NTV = (nbord + 7) / 8;
+    p.ntiles = (G + K4_GT - 1) / K4_GT;
+    p.XB = 4 * p.KU;
+    p.YR = nb > nbord ? nb : nbord;
+    int vparts = 0;
+    for (int k = 0; k < nterms; ++k)
+        if (p.term[k].border) vparts += p.term[k].nparts;
+    const size_t band = (size_t)K4_GT * (W + p.XB + nout * p.YR + nterms * K4_MAXP)
+                        + 2 * (size_t)p.KS * p.NT * 32 + (BR * nb + 1) / 2;
+    const size_t border = (size_t)K4_GT * (4 * K4_VK + 4) + (size_t)vparts * K4_VK * p.NTV * 32;
+    const size_t fin = (size_t)nout * K4_GT * nbord;
+    size_t smem = band > fin ? band : fin;
+    smem = (smem > border ? smem : border) * sizeof(double);
+    if (smem > K4_SMEM || vks % K4_VK) return (int)cudaErrorInvalidValue;
+    if (smem > smem_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            banded_apply_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_set = smem;
+    }
+    const long long blocks = (long long)p.ntiles * (nv + nchunks);
+    banded_apply_kernel<<<(unsigned)blocks, K4_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
+}
+
+// The tile geometry above, for ops/banded.py, whose plan (k4_plan) is built
+// for it: banded_apply compares it with its own before the first launch.
+extern "C" int k4_geometry(int* out, int n) {
+    const int g[] = {K4_WARPS, K4_MTILES, K4_GT, K4_MAXP, K4_MAXNT, K4_VK, K4_PLAN_INTS,
+                     K4_SMEM};
+    if (n != (int)(sizeof(g) / sizeof(g[0]))) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n; ++i) out[i] = g[i];
+    return (int)cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------

@@ -25,14 +25,14 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_U = ctypes.c_uint
 _D = ctypes.c_double
 # Exported launchers of each source (by file stem) and their argument types
 SIGNATURES = {
     'banded_kernels': {
         'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 3 + [_P],
         'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 3 + [_P],
-        'k4_banded_apply_f64': [_P] * 9 + [_I] * 8 + [_U] * 4 + [_P],
+        'k4_banded_apply_f64': [_P, _P, _I] + [_P] * 13 + [_I] * 13 + [_P],
+        'k4_geometry': [_P, _I],
         'k8_block_tridiag_qr_factor_f64': [_P] * 15 + [_I] * 3 + [_D, _P],
         'k8_multi_rhs_solve_f64': [_P] * 7 + [_I] * 4 + [_P],
         'k6_solve_pre_f64': [_P] * 4 + [_I] * 4 + [_P],
@@ -83,8 +83,9 @@ SIGNATURES = {
         'k11_conversion_solve_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
     },
     'rhs_kernels': {
-        'k2a_stage_f64': [_P, _I, _P] + [_I] * 4 + [_P],
-        'k2a_stage_c128': [_P, _I, _P] + [_I] * 4 + [_P],
+        'k2a_geometry': [_P, _I],
+        'k2a_stage_f64': [_P, _I, _P] + [_I] * 6 + [_P],
+        'k2a_stage_c128': [_P, _I, _P] + [_I] * 6 + [_P],
     },
     'pencil_kernels': {
         'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
@@ -233,6 +234,22 @@ def reset(wrapper):
     for attr in ['launches'] + [f'launches_{suffix}' for suffix in FORMS.values()]:
         if hasattr(wrapper, attr):
             setattr(wrapper, attr, 0)
+
+
+_geometry_checked = set()
+
+
+def check_geometry(name, expected):
+    """Raise unless the library's `name` getter reports `expected`: the
+    constants of a kernel source that a host plan restates (checked once)."""
+    if name in _geometry_checked:
+        return
+    out = (ctypes.c_int * len(expected))()
+    check(getattr(library(), name)(out, len(expected)), name)
+    if tuple(out) != tuple(expected):
+        raise RuntimeError(f"{name}: the kernel source gives {tuple(out)}, the host plan "
+                           f"is built for {tuple(expected)}")
+    _geometry_checked.add(name)
 
 
 def check(status, name):

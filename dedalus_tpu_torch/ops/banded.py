@@ -21,6 +21,7 @@ package (flat-packed layouts, blocked and prefix sweep profiles, the
 factor disk cache, the curve sidecar) are not carried over.
 """
 
+import ctypes
 import logging
 import os
 import time
@@ -481,8 +482,23 @@ block_tridiag_qr_solve.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: exact f64 banded apply (hand-written CUDA kernel + plain twin)
+# K4: exact f64 banded apply (hand-written CUDA kernel + plain twins)
 # ---------------------------------------------------------------------------
+
+# The launch geometry of K4: csrc/banded_kernels.cu's #defines of the same
+# names (its k4_geometry; banded_apply checks the two agree):
+K4_WARPS = 4          # warps a block
+K4_MTILES = 2         # 8-group halves of a warp's 16-group m16n8k4 tile
+K4_GT = 8 * K4_WARPS * K4_MTILES    # groups a tile (64)
+K4_BR = 2             # block rows a band unit (at least the border rows' span)
+K4_MAXP = 6           # shared parts a term
+K4_MAXNT = 4          # 8-row n-tiles: nb <= 32 and nbord <= 32
+K4_VK = 8             # k-steps a staged sub-chunk of a border-row unit
+K4_V_KSTEPS = 32      # k-steps (4 pencil columns each) a border-row unit
+K4_PLAN_INTS = 4      # int32 entries a pivot or exceptional-group record
+K4_SMEM = 227 * 1024  # shared memory a block may use
+K4_GEOMETRY = (K4_WARPS, K4_MTILES, K4_GT, K4_MAXP, K4_MAXNT, K4_VK, K4_PLAN_INTS, K4_SMEM)
+
 
 def stack_parts(parts, device):
     """Device form of a list of BandedBlocks (the polynomial parts of a
@@ -532,10 +548,11 @@ def _apply_full_plain(ops, p, gsel, xp):
 
 
 def banded_apply_plain(ops, xp, w=None, groups=None, out=None):
-    """Plain torch K4 (the JAX package's CPU arithmetic). Without `groups`:
-    y[g] = sum_p w[g,p] A_p xp[g] over all groups (shared Gs == 1 blocks
-    broadcast, Gs == G blocks per group). With `groups`: out[groups[b]] =
-    sum_p A_p[b] xp[groups[b]], written over `out`."""
+    """The JAX package's CPU arithmetic of one operator on padded permuted
+    pencils xp (G, Pp). Without `groups`: y[g] = sum_p w[g,p] A_p xp[g]
+    over all groups (shared Gs == 1 blocks broadcast, Gs == G blocks per
+    group). With `groups`: out[groups[b]] = sum_p A_p[b] xp[groups[b]],
+    written over `out`."""
     Gs = ops['Gs']
     if groups is None:
         gsel = None if Gs == 1 else torch.arange(Gs, device=xp.device)
@@ -555,78 +572,415 @@ def banded_apply_plain(ops, xp, w=None, groups=None, out=None):
     return out
 
 
-def banded_apply(ops, xp, w=None, groups=None, out=None):
+def _k4_term(op):
+    """What K4 reads of one operator: its shared parts (Gs == 1, with
+    per-group weights), its per-group blocks (nparts 1: the exceptional
+    groups of a separable operator, or every group of a BandedOperator)
+    and the (G,) table of each group's index into them (-1: none)."""
+    if isinstance(op, SeparableBandedOperator):
+        index = np.full(op.G, -1, dtype=np.int64)
+        index[list(op.bad_idx)] = np.arange(len(op.bad_idx))
+        return dict(shared=op.ops, w=op.w, group=op.bad_ops if op.bad_idx else None,
+                    index=index)
+    return dict(shared=None, w=None, group=op.ops, index=np.arange(op.G))
+
+
+def k4_band_fragments(ops, p):
+    """Part p's band and Ucol panels of shared blocks as the B operands of
+    K4's 16x8x4 f64 products: (Nb, 3 KB + KU, NT, 32), one 32-lane fragment
+    per (block row i, k-step s, n-tile nt). Lane l holds B[k][n] with
+    k = 4 s' + l % 4 (a column of the panel) and n = 8 nt + l // 4 (a row
+    of block row i): k-steps s < 3 KB run over the sub, diag and sup panels
+    (KB = ceil(nb / 4) each), the last KU = ceil(nbord / 4) over the border
+    columns (B[c][n] = UcolT[c, i nb + n]). Entries past nb rows or
+    columns, the sub panel of block row 0 and the sup panel of the last
+    are zero."""
+    Nb, nb, nbord = ops['Nb'], ops['nb'], ops['nbord']
+    KB, KU, NT = -(-nb // 4), -(-nbord // 4), -(-nb // 8)
+
+    def frags(panel, kdim):
+        # panel (Nb, rows n, cols k) -> (Nb, kdim / 4, NT, 32)
+        padded = np.zeros((Nb, NT * 8, kdim))
+        padded[:, :panel.shape[1], :panel.shape[2]] = panel
+        return (padded.reshape(Nb, NT, 8, kdim // 4, 4).transpose(0, 3, 1, 2, 4)
+                .reshape(Nb, kdim // 4, NT, 32))
+
+    out = []
+    for key in ('sub', 'diag', 'sup'):
+        if key != 'diag' and not ops['mask_' + key] >> p & 1:
+            out.append(np.zeros((Nb, KB, NT, 32)))
+            continue
+        panel = ops[key][p, 0].cpu().numpy().copy()
+        if key == 'sub':
+            panel[0] = 0.0
+        elif key == 'sup':
+            panel[-1] = 0.0
+        out.append(frags(panel, 4 * KB))
+    if ops['mask_UcolT'] >> p & 1:
+        U = ops['UcolT'][p, 0].cpu().numpy()                 # (nbord, Pp)
+        out.append(frags(U.T.reshape(Nb, nb, nbord), 4 * KU))
+    else:
+        out.append(np.zeros((Nb, KU, NT, 32)))
+    return np.concatenate(out, axis=1)
+
+
+def k4_border_fragments(V, col_perm, P):
+    """Border rows V (nbord, Pp) of permuted columns as B operands over
+    pencil columns: (ceil(P / 4), NTV, 32), lane l of (k-step s, n-tile
+    nt) holding Vpen[8 nt + l // 4, 4 s + l % 4] with Vpen[:, col_perm[j]]
+    = V[:, j] (j < P; the padded columns multiply zeros)."""
+    nbord = V.shape[0]
+    KSV, NTV = -(-P // 4), -(-nbord // 8)
+    Vpen = np.zeros((NTV * 8, KSV * 4))
+    Vpen[:nbord, col_perm] = V[:, :P]
+    return Vpen.reshape(NTV, 8, KSV, 4).transpose(2, 0, 1, 3).reshape(KSV, NTV, 32)
+
+
+def k4_plan(terms, outs, G, P, pivots=None):
     """
-    K4: exact f64 banded apply on padded permuted pencils xp (G, Pp).
+    K4's launch plan for the applies `terms` (one or two operators of one
+    ordering, as _k4_term gives them) into outputs `outs` (per term: 0 or
+    1) on (G, P) pencils, host side.
+
+    Geometry: tiles of K4_GT groups; per tile, `nv` border-row units (each
+    the products of the border rows' Vrow with K4_V_KSTEPS k-steps of 4
+    pencil columns, `vks` k-steps a unit) and `nchunks` band units (each
+    `BR` block rows: the band and Ucol products, the exceptional groups,
+    the pivots and the stores of its rows). k4_block maps a block to its
+    unit: every tile's border-row units first, then the band units chunk
+    by chunk.
+
+    Loads and stores are in pencil coordinates: a band unit stages x[g, j]
+    = X[g, col_perm[j]] of its window (zero for j >= P) and writes row j
+    of the banded order to Y[g, row_perm[j]]; rows j >= P are dropped.
+
+    Border rows (j < nbord, inside band unit 0 since BR nb >= nbord): each
+    border-row unit v writes its partial sums to slot v of the tile's
+    partial buffer, band unit 0 its band and Ucol part to slot nv. The last
+    of those nv + 1 blocks to finish (a per-tile arrival counter) adds
+    them in the fixed order slot nv, 0, 1, ..., nv - 1 and stores the
+    border rows: the order does not depend on which block finished last.
+
+    Exceptional table `bad` (CSR over tiles, K4_PLAN_INTS int32 a record):
+    (group in tile, index into term 0's per-group blocks or -1, the same
+    for term 1, 0). Pivot table `piv` (CSR over (tile, band unit), the
+    border rows in slot nchunks): (group in tile, banded row j, pencil
+    column, 0), each (group, row) once: Y[g, row_perm[j]] += X[g, col]
+    before the residual.
+    """
+    op0 = terms[0]['shared'] if terms[0]['shared'] is not None else terms[0]['group']
+    Nb, nb, nbord, bcol0 = op0['Nb'], op0['nb'], op0['nbord'], op0['bcol0']
+    for t in terms:
+        for ops in (t['shared'], t['group']):
+            if ops is not None and (ops['Nb'], ops['nb'], ops['nbord'], ops['bcol0']) != (
+                    Nb, nb, nbord, bcol0):
+                raise ValueError("K4: the operators of one launch must share their ordering")
+        if t['shared'] is not None and (t['shared']['Gs'] != 1
+                                        or t['shared']['nparts'] > K4_MAXP):
+            raise ValueError(f"K4: shared parts must be Gs == 1 and at most {K4_MAXP}")
+        if t['group'] is not None and t['group']['nparts'] != 1:
+            raise ValueError("K4: per-group blocks have one part")
+    if nb > 8 * K4_MAXNT or nbord > 8 * K4_MAXNT:
+        raise ValueError(f"K4: blocks and borders of at most {8 * K4_MAXNT} rows "
+                         f"(nb={nb}, nbord={nbord})")
+    if G * Nb * nb >= 2**31:
+        raise ValueError("K4: pencils of 2^31 elements or more are not supported")
+    BR = max(K4_BR, -(-nbord // nb))
+    nchunks = -(-Nb // BR)
+    ntiles = -(-G // K4_GT)
+    KSV = -(-P // 4)
+    nv = -(-KSV // K4_V_KSTEPS)
+    vks = -(-KSV // nv)
+    vks += (-vks) % K4_VK
+    KB, KU = -(-nb // 4), -(-nbord // 4)
+    # x window of a band unit: permuted columns (i0 - 1) nb ... i1 nb + 4 KB,
+    # its row stride padded to 4 mod 16 doubles (conflict-free fragment loads)
+    W = (BR + 1) * nb + 4 * KB
+    W += (4 - W) % 16
+    NT, NTV, nout = -(-nb // 8), -(-nbord // 8), max(outs) + 1
+    vparts = sum(t['shared']['nparts'] for t in terms
+                 if t['shared'] is not None and t['shared']['mask_Vrow'])
+    smem = 8 * max(K4_GT * (W + 4 * KU + nout * max(nb, nbord) + len(terms) * K4_MAXP)
+                   + 2 * (3 * KB + KU) * NT * 32 + (BR * nb + 1) // 2,
+                   K4_GT * (4 * K4_VK + 4) + vparts * K4_VK * NTV * 32)
+    if smem > K4_SMEM:
+        raise ValueError(f"K4: {smem} bytes of shared memory a block (nb={nb}, nbord={nbord})")
+    bad_rows = [[] for _ in range(ntiles)]
+    idx = [t['index'] for t in terms] + [np.full(G, -1)] * (2 - len(terms))
+    for g in np.nonzero((idx[0] >= 0) | (idx[1] >= 0))[0]:
+        bad_rows[g // K4_GT].append((g % K4_GT, idx[0][g], idx[1][g], 0))
+    bad_off = np.cumsum([0] + [len(r) for r in bad_rows]).astype(np.int32)
+    bad = np.asarray([r for rows in bad_rows for r in rows] or np.zeros((0, 4)),
+                     dtype=np.int32).reshape(-1, K4_PLAN_INTS)
+    piv_off = np.zeros(ntiles * (nchunks + 1) + 1, dtype=np.int32)
+    piv = np.zeros((0, K4_PLAN_INTS), dtype=np.int32)
+    if pivots is not None:
+        gs, rs, cs = (np.asarray(a, dtype=np.int64) for a in pivots[:3])
+        rinv = np.empty(P, dtype=np.int64)
+        rinv[pivots[3]] = np.arange(P)
+        j = rinv[rs]
+        if np.unique(gs * P + j).size != gs.size:
+            raise ValueError("K4: a pivot row appears twice in one group")
+        slot = np.where(j < nbord, nchunks, (j // nb) // BR)
+        key = (gs // K4_GT) * (nchunks + 1) + slot
+        order = np.lexsort((j, gs, key))
+        piv = np.stack([gs % K4_GT, j, cs, np.zeros_like(gs)], axis=1)[order].astype(np.int32)
+        piv_off[1:] = np.cumsum(np.bincount(key, minlength=ntiles * (nchunks + 1)))
+    return dict(Nb=Nb, nb=nb, nbord=nbord, bcol0=bcol0, G=G, P=P, Pp=Nb * nb, BR=BR,
+                nchunks=nchunks, ntiles=ntiles, nv=nv, vks=vks, KSV=KSV, KB=KB, KU=KU,
+                NT=NT, NTV=NTV, W=W, outs=tuple(outs), nout=nout, bad_off=bad_off, bad=bad,
+                piv_off=piv_off, piv=piv, blocks=ntiles * (nv + nchunks), smem=smem)
+
+
+def k4_block(plan, b):
+    """The unit block b of a K4 launch runs: ('border', tile, unit) for
+    b < ntiles nv, else ('band', tile, chunk), chunk-major (the kernel's
+    own mapping)."""
+    nvb = plan['ntiles'] * plan['nv']
+    if b < nvb:
+        return ('border',) + divmod(b, plan['nv'])
+    c, t = divmod(b - nvb, plan['ntiles'])
+    return 'band', t, c
+
+
+def k4_term_arrays(term, col_perm, P, device):
+    """The device arrays K4 reads of one term, built once per operator:
+    the shared parts' band and border fragments (k4_band_fragments,
+    k4_border_fragments) and the per-group blocks' border rows in pencil
+    columns (Gb, nbord, P)."""
+    sh, grp = term['shared'], term['group']
+    out = {}
+    if sh is not None:
+        put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+        out['band'] = put(np.stack([k4_band_fragments(sh, p) for p in range(sh['nparts'])],
+                                   axis=1))
+        if sh['mask_Vrow']:
+            V = sh['Vrow'][:, 0].cpu().numpy()
+            out['border'] = put(np.stack([k4_border_fragments(V[p], col_perm, P)
+                                          for p in range(sh['nparts'])]))
+    if grp is not None and grp['mask_Vrow']:
+        V = grp['Vrow'][0]
+        cp = torch.as_tensor(col_perm, device=V.device)
+        Vpen = torch.zeros(V.shape[:2] + (P,), dtype=V.dtype, device=V.device)
+        Vpen[:, :, cp] = V[:, :, :P]
+        out['group_border'] = Vpen.to(device)
+    return out
+
+
+def banded_apply_plain_set(apply_set, X, coefs=None, pair=False, R=None, rv=None,
+                           pivots=False):
+    """Plain twin of `banded_apply`: the composition the port ran before
+    K4 fused it. Each operator's own apply (gather, pad, plain apply,
+    exceptional overwrite, unpermute), then the pair, or the combination
+    with the pivot pairs, the row mask and the residual."""
+    ops = apply_set.ops
+    if pair:
+        return tuple(op.apply_plain(X) for op in ops)
+    if coefs is None:
+        Y = ops[0].apply_plain(X)
+    else:
+        Y = None
+        for c, op in zip(coefs, ops):
+            Y = c * op.apply_plain(X) if Y is None else Y + c * op.apply_plain(X)
+    if pivots:
+        g, r, col = apply_set.pivots
+        Y.index_put_((g, r), X[g, col], accumulate=True)
+    if rv is not None:
+        Y = Y * rv
+    if R is not None:
+        Y = R - Y
+    return Y
+
+
+def banded_apply(apply_set, X, coefs=None, pair=False, R=None, rv=None, pivots=False):
+    """
+    K4: the exact f64 applies of one or two banded operators of one
+    ordering (`apply_set.ops`) on pencils X (G, P), in one launch. With
+    `pair`: (A_0 X, A_1 X). Else Y = sum_k coefs[k] A_k X, plus X[g, c] on
+    each pivot pair (g, r, c) of the set where `pivots`, times the row mask
+    `rv` where given, and R - Y where R is given.
 
     Replaces dedalus_tpu/ops/banded.py:951 apply_band, :967 apply_full and
     the apply functions of SeparableBandedOperator (:1901) and
-    BandedOperator (:1946). CPU tensors run the plain twin; CUDA tensors
-    launch csrc/banded_kernels.cu banded_apply_kernel (bound by the vector
-    traffic: x read and y written once; the shared part blocks stay in L2).
-    With `groups` the launch overwrites those rows of `out` (the
-    exceptional groups of the separable form).
+    BandedOperator (:1946), with the combinations of
+    core/timesteppers.py:404-405, 412 and ops/solve.py exact_apply around
+    them. CPU tensors run the plain twin (banded_apply_plain_set); CUDA
+    tensors launch csrc/banded_kernels.cu k4_banded_apply_f64 (plan:
+    k4_plan): the band rows as 16x8x4 f64 tensor-core products of staged
+    pencil windows with the shared part panels, the border rows as products
+    split over pencil columns and added in a fixed order, the exceptional
+    groups and pivots in the same launch, loads and stores in pencil
+    coordinates.
     """
-    if xp.device.type == 'cpu':
-        return banded_apply_plain(ops, xp, w=w, groups=groups, out=out)
+    if X.device.type == 'cpu':
+        return banded_apply_plain_set(apply_set, X, coefs, pair, R, rv, pivots)
     from ..csrc import build
-    G, Pp = xp.shape
-    Nb, nb = ops['Nb'], ops['nb']
-    if xp.dtype != torch.float64 or Pp != Nb * nb:
-        raise ValueError(f"K4: xp must be float64 of width {Nb * nb}")
-    xp = xp.contiguous()
-    if groups is None:
-        Gout = G
-        y = torch.empty_like(xp)
-        if ops['Gs'] not in (1, G):
-            raise ValueError("K4: per-group blocks must cover every group")
-    else:
-        Gout = int(groups.shape[0])
-        if groups.dtype != torch.int64 or groups.device != xp.device:
-            raise ValueError("K4: groups must be int64 on the pencils' device")
-        if ops['Gs'] != Gout or out is None or out.shape != xp.shape:
-            raise ValueError("K4: group-indexed launch needs matching blocks and out")
-        y = out
-    if w is not None and (w.dtype != torch.float64 or tuple(w.shape) != (G, ops['nparts'])
-                          or not w.is_contiguous()):
-        raise ValueError("K4: w must be contiguous float64 (G, nparts)")
-    for key in ('diag', 'sub', 'sup', 'UcolT', 'Vrow'):
-        t = ops[key]
-        if t is not None and (t.device != xp.device or not t.is_contiguous()):
-            raise ValueError(f"K4: {key} must be contiguous on {xp.device}")
-    ptr = lambda t: 0 if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    status = build.library().k4_banded_apply_f64(
-        xp.data_ptr(), y.data_ptr(), ptr(w), ptr(groups),
-        ptr(ops['diag']), ptr(ops['sub']), ptr(ops['sup']),
-        ptr(ops['UcolT']), ptr(ops['Vrow']),
-        Gout, ops['nparts'], ops['Gs'], Nb, nb, ops['nbord'], ops['bcol0'],
-        Pp, ops['mask_sub'], ops['mask_sup'], ops['mask_UcolT'],
-        ops['mask_Vrow'], stream)
-    build.check(status, 'banded_apply')
+    dev = X.device
+    X, R, rv = (None if t is None else t.contiguous() for t in (X, R, rv))
+    G, P = X.shape
+    n = len(apply_set.ops)
+    if pair and n != 2:
+        raise ValueError("K4: a pair apply takes two operators")
+    coefs = (1.0,) * n if coefs is None else tuple(float(c) for c in coefs)
+    if len(coefs) != n:
+        raise ValueError("K4: one coefficient an operator")
+    if pair and (R is not None or rv is not None or pivots):
+        raise ValueError("K4: a pair apply has no residual, row mask or pivots")
+    for name, t in (('X', X), ('R', R), ('rv', rv)):
+        if t is not None and (t.device != dev or t.dtype != torch.float64
+                              or tuple(t.shape) != (G, P) or not t.is_contiguous()):
+            raise ValueError(f"K4: {name} must be a float64 ({G}, {P}) tensor on {dev}")
+    build.check_geometry('k4_geometry', K4_GEOMETRY)
+    dp = apply_set.device_plan(pair, pivots, dev)
+    plan = dp['plan']
+    if (plan['G'], plan['P']) != (G, P):
+        raise ValueError(f"K4: the operators act on ({plan['G']}, {plan['P']}) pencils")
+    Y = [torch.empty_like(X) for _ in range(plan['nout'])]
+    cvals = (ctypes.c_double * n)(*coefs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    build.check(build.library().k4_banded_apply_f64(
+        ctypes.addressof(dp['table']), ctypes.addressof(cvals), n,
+        X.data_ptr(), Y[0].data_ptr(), Y[-1].data_ptr(),
+        0 if R is None else R.data_ptr(), 0 if rv is None else rv.data_ptr(),
+        dp['col_perm'].data_ptr(), dp['row_perm'].data_ptr(),
+        dp['bad_off'].data_ptr(), dp['bad'].data_ptr(),
+        dp['piv_off'].data_ptr(), dp['piv'].data_ptr(),
+        dp['partial'].data_ptr(), dp['counter'].data_ptr(),
+        *(plan[k] for k in ('G', 'P', 'Nb', 'nb', 'nbord', 'bcol0', 'BR', 'nchunks', 'nv',
+                            'vks', 'KSV', 'W', 'nout')), stream), 'banded_apply')
     build.count(banded_apply)
-    return y
+    return tuple(Y) if pair else Y[0]
 
 
 banded_apply.launches = 0
 
 
-class SeparableBandedOperator:
-    """Exact f64 banded apply straight from the separable form
-    A(g) = sum_p ghat[g]^p B_p: the d+1 group-independent parts plus
-    per-group weights, with the exceptional groups overwritten from their
-    exact banded stacks."""
+def _k4_term_table(dp):
+    """The launcher's int64 table of each term (csrc/banded_kernels.cu
+    K4_TERM_INTS a term): fragments, weights, per-group blocks, the present
+    panels' masks (sub, sup, Ucol, Vrow bytes) and the output."""
+    ptr = lambda v: 0 if v is None else v.data_ptr()
+    masks = lambda o: (o['mask_sub'] | o['mask_sup'] << 8 | o['mask_UcolT'] << 16
+                       | o['mask_Vrow'] << 24)
+    rows = []
+    for k, (t, a) in enumerate(zip(dp['terms'], dp['arrays'])):
+        sh, grp = t['shared'], t['group']
+        rows += [ptr(a.get('band')), ptr(a.get('border')), ptr(t['w']),
+                 0 if sh is None else sh['nparts'], 0 if sh is None else masks(sh)]
+        if grp is None:
+            rows += [0] * 6
+        else:
+            rows += [grp['diag'].data_ptr(), ptr(grp['sub']), ptr(grp['sup']),
+                     ptr(grp['UcolT']), ptr(a.get('group_border')),
+                     (grp['mask_sub'] & 1) | (grp['mask_sup'] & 1) << 1
+                     | (grp['mask_UcolT'] & 1) << 2 | (grp['mask_Vrow'] & 1) << 3]
+        rows.append(dp['plan']['outs'][k])
+    return (ctypes.c_longlong * len(rows))(*rows)
 
-    def __init__(self, parts, weights, order, nb, device, bad=None):
-        self.ops = stack_parts(parts, device)
-        self.w = torch.as_tensor(np.ascontiguousarray(weights), dtype=torch.float64,
-                                 device=device)
+
+class BandedApplySet:
+    """
+    The exact applies of one or two banded operators of one ordering
+    (SeparableBandedOperator or BandedOperator, M and L in a step), in one
+    K4 launch each: `pair` (A_0 X, A_1 X), `combine` sum_k c_k A_k X with
+    the set's pivot pairs, a row mask and a residual. `pivots` (device
+    int64 groups, rows, columns in pencil coordinates, and the ordering's
+    row_perm as a numpy array): the identity pivots that exact_apply adds.
+    `coefs` (one a term, 1.0 each by default): the combination the set
+    stands for as a refinement operator (`BorderedBandedSolver.exact_apply`).
+    The device plan and each operator's fragments are built at the first
+    launch (eagerly: a step's first run through a factorization is eager)
+    and kept.
+    """
+
+    def __init__(self, ops, pivots=None, coefs=None):
+        self.ops = list(ops)
+        self.pivots = pivots
+        self.coefs = tuple(coefs) if coefs is not None else (1.0,) * len(self.ops)
+        self._plans = {}
+
+    def pair(self, X):
+        return banded_apply(self, X, pair=True)
+
+    def combine(self, coefs, X, R=None, rv=None, pivots=False):
+        return banded_apply(self, X, coefs, R=R, rv=rv, pivots=pivots)
+
+    def device_plan(self, pair, pivots, device):
+        key = (bool(pair), bool(pivots))
+        dp = self._plans.get(key)
+        if dp is not None:
+            return dp
+        op0 = self.ops[0]
+        cp = np.asarray(op0.col_perm.cpu().numpy())
+        rp = np.asarray(op0.row_perm)
+        for op in self.ops[1:]:
+            if not (np.array_equal(op.col_perm.cpu().numpy(), cp)
+                    and np.array_equal(op.row_perm, rp)):
+                raise ValueError("K4: the operators of one launch must share their ordering")
+        terms = [_k4_term(op) for op in self.ops]
+        outs = (0, 1) if pair else (0,) * len(self.ops)
+        piv = None
+        if pivots:
+            g, r, c = (t.cpu().numpy() for t in self.pivots)
+            piv = (g, r, c, rp)
+        plan = k4_plan(terms, outs, op0.G, op0.P, piv)
+        put = lambda a, dt=torch.int32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                                        device=device)
+        dp = dict(plan=plan, terms=terms,
+                  arrays=[op.k4_arrays(device) for op in self.ops],
+                  col_perm=put(cp), row_perm=put(rp),
+                  bad_off=put(plan['bad_off']), bad=put(plan['bad']),
+                  piv_off=put(plan['piv_off']), piv=put(plan['piv']),
+                  partial=torch.empty(plan['nout'] * plan['ntiles'] * (plan['nv'] + 1)
+                                      * K4_GT * plan['nbord'], dtype=torch.float64,
+                                      device=device),
+                  counter=torch.zeros(plan['ntiles'], dtype=torch.int32, device=device))
+        dp['table'] = _k4_term_table(dp)
+        self._plans[key] = dp
+        return dp
+
+
+class _BandedApplyBase:
+    """The pencil-coordinate apply shared by the two operator forms."""
+
+    def _orders(self, order, device):
         rp = np.asarray(order['row_perm'])
         cp = np.asarray(order['col_perm'])
         rinv = np.empty_like(rp)
         rinv[rp] = np.arange(rp.size)
         self.col_perm = torch.as_tensor(cp, device=device)
         self.row_unperm = torch.as_tensor(rinv, device=device)
+        self.row_perm = rp
+        self._set = None
+        self._k4 = None
+
+    def apply(self, X):
+        """(G, P) -> (G, P) in pencil coordinates (K4 on the card)."""
+        if X.device.type == 'cpu':
+            return self.apply_plain(X)
+        if self._set is None:
+            self._set = BandedApplySet([self])
+        return self._set.combine(None, X)
+
+    def k4_arrays(self, device):
+        """This operator's K4 device arrays (k4_term_arrays), built once."""
+        if self._k4 is None:
+            self._k4 = k4_term_arrays(_k4_term(self), self.col_perm.cpu().numpy(), self.P,
+                                      device)
+        return self._k4
+
+
+class SeparableBandedOperator(_BandedApplyBase):
+    """Exact f64 banded apply straight from the separable form
+    A(g) = sum_p ghat[g]^p B_p: the d+1 group-independent parts plus
+    per-group weights, with the exceptional groups overwritten from their
+    exact banded stacks (their weights are zero: SeparableStack.weights)."""
+
+    def __init__(self, parts, weights, order, nb, device, bad=None):
+        self.ops = stack_parts(parts, device)
+        self.w = torch.as_tensor(np.ascontiguousarray(weights), dtype=torch.float64,
+                                 device=device)
+        self._orders(order, device)
         self.bad_idx = ()
         if bad:
             self.bad_idx, bad_blocks = bad
@@ -637,34 +991,30 @@ class SeparableBandedOperator:
         self.pad = parts[0].pad
         self.G = self.w.shape[0]
 
-    def apply(self, X):
-        """(G, P) -> (G, P) in pencil coordinates."""
+    def apply_plain(self, X):
+        """The plain twin of apply: gather, pad, plain K4, the exceptional
+        groups' overwrite, unpermute."""
         xp = F.pad(X[:, self.col_perm], (0, self.pad))
-        y = banded_apply(self.ops, xp, w=self.w)
+        y = banded_apply_plain(self.ops, xp, w=self.w)
         if self.bad_idx:
-            y = banded_apply(self.bad_ops, xp, groups=self.badg, out=y)
+            y = banded_apply_plain(self.bad_ops, xp, groups=self.badg, out=y)
         return y[:, :self.P][:, self.row_unperm]
 
 
-class BandedOperator:
+class BandedOperator(_BandedApplyBase):
     """Exact f64 banded apply from per-group blocks."""
 
     def __init__(self, blocks, device):
         self.blocks = blocks
         self.ops = stack_parts([blocks], device)
-        rp = np.asarray(blocks.order['row_perm'])
-        cp = np.asarray(blocks.order['col_perm'])
-        rinv = np.empty_like(rp)
-        rinv[rp] = np.arange(rp.size)
-        self.col_perm = torch.as_tensor(cp, device=device)
-        self.row_unperm = torch.as_tensor(rinv, device=device)
+        self._orders(blocks.order, device)
         self.P = blocks.P
         self.pad = blocks.pad
         self.G = blocks.G
 
-    def apply(self, X):
+    def apply_plain(self, X):
         xp = F.pad(X[:, self.col_perm], (0, self.pad))
-        return banded_apply(self.ops, xp)[:, :self.P][:, self.row_unperm]
+        return banded_apply_plain(self.ops, xp)[:, :self.P][:, self.row_unperm]
 
 
 # ---------------------------------------------------------------------------
@@ -868,14 +1218,17 @@ class BorderedBandedSolver:
     (K4).
 
     The factorization runs in f64 on `device` (K8a, K8b), chunked over
-    groups, and only f32 factors persist. `exact_apply` (X -> A X in f64) is the refinement
-    operator; by default the solver's own blocks. All device arrays of a
+    groups, and only f32 factors persist. `apply_set` (a BandedApplySet, by
+    default the solver's own blocks) is the refinement operator A: its
+    combination `coefs` with its pivot pairs, one K4 launch for `exact_apply`
+    (X -> A X in f64) and one for `exact_residual` (R, X -> R - A X), which
+    each refinement pass solves with. All device arrays of a
     solve live in `self.arrs` (see banded_arrays_from_reference for loading
     another factorization of the same system).
     """
 
     def __init__(self, blocks, device, refinements=None, bad=None,
-                 group_dense=None, exact_apply=None):
+                 group_dense=None, apply_set=None):
         self.blocks = blocks
         self.device = torch.device(device)
         self.order = blocks.order
@@ -1000,10 +1353,20 @@ class BorderedBandedSolver:
                                         .to(FACTOR_DTYPE) for a in Abad])
                 self.arrs['Abad_inv'] = Abad_inv.contiguous()
                 self.arrs['bad_idx'] = torch.as_tensor(self.bad_idx, device=self.device)
-        if exact_apply is None:
-            exact_apply = BandedOperator(blocks, self.device).apply
-        self.exact_apply = exact_apply
+        if apply_set is None:
+            apply_set = BandedApplySet([BandedOperator(blocks, self.device)])
+        self.apply_set = apply_set
         self._resolve_refinements()
+
+    def exact_apply(self, X):
+        """A X in f64 (one K4 launch on the card)."""
+        a = self.apply_set
+        return a.combine(a.coefs, X, pivots=a.pivots is not None)
+
+    def exact_residual(self, R, X):
+        """R - A X in f64 (one K4 launch on the card)."""
+        a = self.apply_set
+        return a.combine(a.coefs, X, R=R, pivots=a.pivots is not None)
 
     @staticmethod
     def _extend_with_pins(W1, Vfull, pin_cols):
@@ -1257,5 +1620,5 @@ class BorderedBandedSolver:
             return self._once(self.arrs, R, accumulate=accumulate)
         X = self._once(self.arrs, R)
         for _ in range(refinements):
-            X = self._once(self.arrs, R - self.exact_apply(X), accumulate=X)
+            X = self._once(self.arrs, self.exact_residual(R, X), accumulate=X)
         return X if accumulate is None else accumulate.add_(X)

@@ -646,25 +646,21 @@ class FactorizedStack:
             gs.extend([g] * len(ir))
             rs.extend(ir.tolist())
             cs.extend(ic.tolist())
-        gidx = torch.as_tensor(gs, dtype=torch.int64, device=device)
-        ridx = torch.as_tensor(rs, dtype=torch.int64, device=device)
-        cidx = torch.as_tensor(cs, dtype=torch.int64, device=device)
-
-        def exact_apply(X):
-            Y = None
-            for c, op in terms:
-                Y = c * op.apply(X) if Y is None else Y + c * op.apply(X)
-            if gs:
-                Y.index_put_((gidx, ridx), X[gidx, cidx], accumulate=True)
-            return Y
-
+        pivots = None
+        if gs:
+            pivots = tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                           for a in (gs, rs, cs))
+        # (one K4 launch: sum_k c_k A_k X plus the pivot pairs, and the
+        # refinement's residual R - that)
+        self.apply_set = ops_banded.BandedApplySet([op for _, op in terms], pivots=pivots,
+                                                   coefs=[c for c, _ in terms])
         if exact is not None:
             group_dense = lambda g: A.group_sparse(g, pivot_pairs=ppairs)
         else:
             group_dense = A.group_sparse
         self.banded = ops_banded.BorderedBandedSolver(
             blocks, device, bad=bf['bad'],
-            group_dense=group_dense, exact_apply=exact_apply)
+            group_dense=group_dense, apply_set=self.apply_set)
 
     # --- poly ---
 
