@@ -202,7 +202,7 @@ LU_TOL = 1e-12
 MIXED_TOL = 1e-12
 TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-14,
            dense_refined_solve=1e-13, dense_matvec=1e-14, rk_stage_combine=1e-14,
-           cfl_max=1e-14, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
+           cfl_max=0.0, polar_apply=1e-13, spin_recombine=1e-15, pencil_gather_scatter=0.0,
            grid_product=1e-15, block_tridiag_qr_factor=1e-11, multi_rhs_solve=1e-11,
            banded_solve_pre=0.0, banded_solve_post=1e-13, residual_norm=1e-14,
            ball_radial_apply=1e-13, regularity_recombine=1e-15, trailing_apply=1e-13,
@@ -232,7 +232,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                   'dedalus_tpu/ops/solve.py:24'),
     rk_stage_combine=('triton', 'dedalus_tpu_torch/csrc/rk_combine.py',
                       'dedalus_tpu/core/timesteppers.py:971'),
-    cfl_max=('triton', 'dedalus_tpu_torch/csrc/cfl_max.py',
+    cfl_max=('cuda', 'dedalus_tpu_torch/csrc/cfl_kernels.cu',
              'dedalus_tpu/extras/flow_tools.py:167'),
     polar_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                  'dedalus_tpu/core/basis_polar.py:527'),
@@ -286,7 +286,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                                 'dedalus_tpu/core/subsystems.py:1224'),
     grid_product_c128=('triton', 'dedalus_tpu_torch/csrc/grid_product.py',
                        'dedalus_tpu/core/arithmetic.py:252'),
-    cfl_max_c128=('triton', 'dedalus_tpu_torch/csrc/cfl_max.py',
+    cfl_max_c128=('cuda', 'dedalus_tpu_torch/csrc/cfl_kernels.cu',
                   'dedalus_tpu/extras/flow_tools.py:167'),
     lu_solve_c128=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
                    'dedalus_tpu/ops/solve.py:53'),
@@ -1190,6 +1190,11 @@ def check_tolerances(results):
             raise AssertionError(f"{name} disagrees with its plain twin: {r['err'][0]:.3e}")
 
 
+# A kernel's numbers by path where its device time stands beside its events
+DEVICE_KEYS = ('ms', 'device_ms', 'plain_ms', 'library_ms', 'library_device_ms', 'bound_ms',
+               'shape')
+
+
 def record(name, path, r, primary, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape')):
     """Merge a kernel's check at one path's shapes into RESULTS: the JSON
     line reports the primary path's numbers, the largest error of all paths,
@@ -1657,18 +1662,29 @@ def step_kernel_table(solver, run):
     return dict(sorted(table.items(), key=lambda kv: -kv[1][1]))
 
 
-def ab_side(root, steps=20):
-    """rbc2048 at FIXED_REFINEMENTS with the package of the checkout at
-    `root` (this one, or a parent's unpacked by git archive): the replayed
-    step's ms and its kernels by name, K4 on the L apply (events, and its
-    own kernel on the device), K2a and torch.cat on the staging calls of
-    one F (events and device). Prints one JSON line; ab_compare runs it."""
-    root = str(__import__('pathlib').Path(root).resolve())
-    sys.path.insert(0, root)
-    import dedalus_tpu_torch
+def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
+    """KE's rows of the replayed steps of run() (step_kernel_table): records
+    and device ms a step, beside the step's whole device time."""
+    table = step_kernel_table(solver, run)
+    rows = {k: v for k, v in table.items() if kernel in k}
+    out = dict(rows=rows, records_per_step=sum(v[0] for v in rows.values()),
+               device_ms_per_step=sum(v[1] for v in rows.values()),
+               step_device_ms=sum(v[1] for v in table.values()))
+    print(f"[{smi}] {path}: KE a replayed step {out['records_per_step']:.2f} launches, "
+          f"{out['device_ms_per_step']:.4f} device ms of the step's {out['step_device_ms']:.4f}")
+    print(json.dumps({f"{path}_ke_step": out, "card": smi}))
+    return out
+
+
+# The paths ab_compare reads by default: those whose replayed step runs KE
+AB_PATHS = ('disk', 'sphere', 'annulus')
+
+
+def ab_rbc2048(steps):
+    """rbc2048 at FIXED_REFINEMENTS: the replayed step's ms and its kernels
+    by name, K4 on the L apply (events, and its own kernel on the device),
+    K2a and torch.cat on the staging calls of one F (events and device)."""
     from dedalus_tpu_torch.ops import staging
-    if not dedalus_tpu_torch.__file__.startswith(root):
-        raise AssertionError(f"dedalus_tpu_torch came from {dedalus_tpu_torch.__file__}")
     dev, kind, smi = card()
     solver = build_rbc(NX, NZ, RA, dev, matsolver='banded')
     solver.run_steps(DT, 5)
@@ -1707,26 +1723,76 @@ def ab_side(root, steps=20):
             row.update(cat_ms=cuda_ms(lambda: torch.cat(slabs, dim=0), 50),
                        cat_device_ms=device_ms(lambda: torch.cat(slabs, dim=0)))
         k2a.append(row)
-    out = dict(root=root, card=smi, graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
-               step_kernels=dict(list(table.items())[:25]),
-               k4_step=[sum(v[0] for k, v in table.items() if 'banded_apply_kernel' in k),
-                        sum(v[1] for k, v in table.items() if 'banded_apply_kernel' in k)],
-               records_per_step=sum(v[0] for v in table.values()),
-               device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
+    return dict(graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
+                step_kernels=dict(list(table.items())[:25]),
+                k4_step=[sum(v[0] for k, v in table.items() if 'banded_apply_kernel' in k),
+                         sum(v[1] for k, v in table.items() if 'banded_apply_kernel' in k)],
+                records_per_step=sum(v[0] for v in table.values()),
+                device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
+
+
+def ab_ke_path(path, steps):
+    """A polar or sphere path at its timed size, stepped as its example
+    loop steps it (solver.step, no flow property): the replayed step's ms,
+    KE's launches and device ms a replayed step (ke_step_rows), and KE's
+    checked call of the path (polar_ke_case) by events and on the device
+    beside torch.matmul."""
+    import dedalus_tpu_torch.public as d3
+    dev, kind, smi = card()
+    if path == 'sphere':
+        from dedalus_tpu_torch.models import sphere as ms
+        lsolver, ivp, ctx = build_sphere(SPHERE['size'], None)
+        ms.balanced_initial_condition(lsolver, ctx)
+        solver, dt = ivp.build_solver(d3.RK222), ms.TIMESTEP
+    else:
+        solver, ctx = build_polar(path, POLAR[path]['size'], None)
+        dt = POLAR[path]['timed_dt']
+
+    def run(n):
+        for _ in range(n):
+            solver.step(dt)
+
+    run(5)
+    graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+    ke_step = ke_step_rows(path, solver, lambda: run(10), smi)
+    S, x, what = polar_ke_case(path, ctx)
+    K, O, I = S.shape
+    xt = x.view(K, 2, I).transpose(1, 2)
+    call = ke_times(S, x, lambda: torch.matmul(S, xt), 2, what=what)
+    return dict(graph_ms_per_step=graph_ms, ke_step=ke_step, ke_call=call)
+
+
+def ab_side(root, paths=AB_PATHS, steps=20):
+    """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_ke_path for the
+    others) with the package of the checkout at `root` (this one, or a
+    parent's unpacked by git archive). Prints one JSON line; ab_compare runs
+    it."""
+    root = str(__import__('pathlib').Path(root).resolve())
+    sys.path.insert(0, root)
+    import dedalus_tpu_torch
+    if not dedalus_tpu_torch.__file__.startswith(root):
+        raise AssertionError(f"dedalus_tpu_torch came from {dedalus_tpu_torch.__file__}")
+    dev, kind, smi = card()
+    out = dict(root=root, card=smi)
+    for path in paths:
+        out[path] = ab_rbc2048(steps) if path == 'rbc2048' else ab_ke_path(path, steps)
+        gc.collect()
+        torch.cuda.empty_cache()
     print(json.dumps({"ab_side": out}))
 
 
-def ab_compare(parent_root, order=('parent', 'change', 'change', 'parent')):
+def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change', 'parent')):
     """ab_side for the parent's checkout (`parent_root`, unpacked there by
     git archive) and this one, each in a process of its own, in the order
     parent, change, change, parent on one card: prints each side's line and
-    the two sides' means."""
+    the two sides' numbers by path."""
     here = str(__import__('pathlib').Path(__file__).resolve().parent)
     roots = dict(parent=str(__import__('pathlib').Path(parent_root).resolve()), change=here)
     sides = {}
     for label in order:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, '-c', f"import chip_smoke as c; c.ab_side({roots[label]!r})"],
+        proc = subprocess.run([sys.executable, '-c', f"import chip_smoke as c; "
+                               f"c.ab_side({roots[label]!r}, {tuple(paths)!r})"],
                               cwd=here, capture_output=True, text=True)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"ab_side"')]
         if proc.returncode != 0 or not lines:
@@ -1737,13 +1803,25 @@ def ab_compare(parent_root, order=('parent', 'change', 'change', 'parent')):
         sides.setdefault(label, []).append(side)
         print(json.dumps({"ab": label, **side}))
     for label, runs in sides.items():
-        g = [x for r in runs for x in r['graph_ms_per_step']]
-        print(f"[{runs[0]['card']}] {label}: graph ms/step {g}; K4 a replayed step "
-              f"{[r['k4_step'] for r in runs]} (records, device ms); records a step "
-              f"{[r['records_per_step'] for r in runs]}; K4 L apply "
-              f"{[round(r['k4']['L_ms'], 4) for r in runs]} ms (its kernel on the device "
-              f"{[r['k4']['L_kernel_device_ms'] for r in runs]}); K2a "
-              f"{[[(round(c['ms'], 4), c['device_ms'], c.get('cat_ms'), c.get('cat_device_ms')) for c in r['k2a']] for r in runs]}")
+        for path in paths:
+            rs = [r[path] for r in runs]
+            g = [x for r in rs for x in r['graph_ms_per_step']]
+            if path == 'rbc2048':
+                print(f"[{runs[0]['card']}] {label} rbc2048: graph ms/step {g}; K4 a replayed "
+                      f"step {[r['k4_step'] for r in rs]} (records, device ms); records a step "
+                      f"{[r['records_per_step'] for r in rs]}; K4 L apply "
+                      f"{[round(r['k4']['L_ms'], 4) for r in rs]} ms (its kernel on the device "
+                      f"{[r['k4']['L_kernel_device_ms'] for r in rs]})")
+            else:
+                ke = [(r['ke_step']['records_per_step'], r['ke_step']['device_ms_per_step'])
+                      for r in rs]
+                call = [(round(r['ke_call']['ms'], 4), r['ke_call']['device_ms']) for r in rs]
+                mm = [(round(r['ke_call']['library_ms'], 4), r['ke_call']['library_device_ms'])
+                      for r in rs]
+                print(f"[{runs[0]['card']}] {label} {path}: graph ms/step {g}; KE a replayed "
+                      f"step {ke} (launches, device ms); the step's device ms "
+                      f"{[r['ke_step']['step_device_ms'] for r in rs]}; KE's call {call} "
+                      f"(events, device) against matmul's {mm}")
     return sides
 
 
@@ -2663,11 +2741,41 @@ def example_loop(solver, CFL, iterations, dts, peaks):
     return ok
 
 
+def check_kd(path, grids, name, primary):
+    """KD against its plain twin on a CFL's frequency grids (exactly on real
+    grids), two launches equal bit for bit, and its time by events (the host
+    path an eager CFL update pays) and on the device, beside
+    torch.linalg.vector_norm(f, inf) (of abs(f) on complex grids) measured
+    the same ways."""
+    from dedalus_tpu_torch.csrc import cfl_max as cm
+    Dk, Dk2, Dp = cm.cfl_max(grids), cm.cfl_max(grids), cm.cfl_max_plain(grids)
+    torch.cuda.synchronize()
+    if not torch.equal(Dk, Dk2):
+        raise AssertionError(f"{name}: two launches disagree")
+    cplx = grids[0].is_complex()
+    lib = None
+    if len(grids) == 1:
+        f = grids[0]
+        lib = ((lambda: torch.linalg.vector_norm(torch.abs(f), float('inf'))) if cplx
+               else (lambda: torch.linalg.vector_norm(f, float('inf'))))
+    r = dict(err=rel_err(Dk, Dp), shape=[list(g.shape) for g in grids],
+             ms=cuda_ms(lambda: cm.cfl_max(grids), 200),
+             device_ms=device_ms(lambda: cm.cfl_max(grids), name='cfl_max_kernel'),
+             plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
+             library_ms=cuda_ms(lib, 200) if lib else None,
+             library_device_ms=device_ms(lib) if lib else None,
+             **dict(zip(('bound_ms', 'bound_by'),
+                        bound(nbytes(*grids, Dk), (4 if cplx else 1) * len(grids) *
+                              grids[0].numel()))))
+    print(f"KD {name} at {path}: events {r['ms']:.4f} ms against vector_norm's "
+          f"{r['library_ms']} ms; on the device {r['device_ms']} against {r['library_device_ms']}")
+    record(name, path, r, primary, keys=DEVICE_KEYS)
+
+
 def example_path():
     """The Rayleigh-Benard example: 256x64, Ra=2e6, RK222 with the default
     matsolver, the example's CFL loop and GlobalFlowProperty."""
     from dedalus_tpu_torch.ops import solve as osolve
-    from dedalus_tpu_torch.csrc import cfl_max as cm
 
     dev, kind, smi = card()
     phase(f"example path setup: RBC {EX_NX}x{EX_NZ} Ra={EX_RA:g} RK222 default matsolver "
@@ -2707,18 +2815,7 @@ def example_path():
     ts = solver.timestepper
     state = solver.state_flat()
     check_dense_kernels('rbc256', solver, CFL.stored_dt, last['R'], primary=True)
-    grids = CFL.frequency_grids()
-    Dk = cm.cfl_max(grids)
-    Dp = cm.cfl_max_plain(grids)
-    torch.cuda.synchronize()
-    record('cfl_max', 'rbc256', dict(
-        err=rel_err(Dk, Dp), shape=[list(g.shape) for g in grids],
-        ms=cuda_ms(lambda: cm.cfl_max(grids), 50),
-        plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
-        library_ms=(cuda_ms(lambda: torch.linalg.vector_norm(grids[0], float('inf')), 50)
-                    if len(grids) == 1 else None),
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*grids, Dk), len(grids) * grids[0].numel())))), True)
+    check_kd('rbc256', CFL.frequency_grids(), 'cfl_max', True)
     check_k3('rbc256', pencil, state)
     check_kg('rbc256', u)
     check_k2a('rbc256', solver)
@@ -2897,24 +2994,12 @@ def check_complex_kernels(path, solver, ctx, CFL, last, primary):
     """The complex forms of KA, KB, KD, K3 and KG (and KC and K7's real
     views) against their plain twins at the complex example path's shapes,
     with times, bounds and library times."""
-    from dedalus_tpu_torch.csrc import cfl_max as cm, history_combine as hc
+    from dedalus_tpu_torch.csrc import history_combine as hc
     pencil = solver.pencil
     state = solver.state_flat()
     check_dense_kernels(path, solver, CFL.stored_dt, last['R'], primary=primary,
                         suffix='_c128')
-    grids = CFL.frequency_grids()
-    Dk = cm.cfl_max(grids)
-    Dp = cm.cfl_max_plain(grids)
-    torch.cuda.synchronize()
-    record('cfl_max_c128', path, dict(
-        err=rel_err(Dk, Dp), shape=[list(g.shape) for g in grids],
-        ms=cuda_ms(lambda: cm.cfl_max(grids), 50),
-        plain_ms=cuda_ms(lambda: cm.cfl_max_plain(grids), 50),
-        library_ms=(cuda_ms(lambda: torch.linalg.vector_norm(torch.abs(grids[0]),
-                                                             float('inf')), 50)
-                    if len(grids) == 1 else None),
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*grids, Dk), 4 * len(grids) * grids[0].numel())))), primary)
+    check_kd(path, CFL.frequency_grids(), 'cfl_max_c128', primary)
     check_k3(path, pencil, state, primary=primary, name='pencil_gather_scatter_c128')
     check_kg(path, ctx['u'], primary=primary, name='grid_product_c128')
     check_k2a(path, solver, primary=primary)
@@ -3376,6 +3461,100 @@ def polar_card_vs_cpu(steps=20):
             raise AssertionError(f"{geometry}: card and CPU trajectories disagree: {err:.3e}")
 
 
+def ke_times(S, x, library, flops_per, **extra):
+    """KE's per-m apply of the stack S to x against its plain twin, two
+    launches compared bit for bit, and its time by events and on the device
+    (its own kernel) beside `library` (one torch.matmul of the same product)
+    measured the same ways; flops_per operations a stack entry and column."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    yk, yk2, yp = opolar.polar_apply(S, x), opolar.polar_apply(S, x), opolar.polar_apply_plain(S, x)
+    torch.cuda.synchronize()
+    if not torch.equal(yk, yk2):
+        raise AssertionError(f"KE {list(S.shape)}: two launches disagree")
+    r = dict(err=rel_err(yk, yp), shape=list(S.shape),
+             ms=cuda_ms(lambda: opolar.polar_apply(S, x), 50),
+             device_ms=device_ms(lambda: opolar.polar_apply(S, x), name='polar_apply_kernel'),
+             plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(S, x), 50),
+             library_ms=cuda_ms(library, 50), library_device_ms=device_ms(library),
+             **dict(zip(('bound_ms', 'bound_by'),
+                        bound(nbytes(S, x, yk), flops_per * S.shape[-2] * x.numel()))), **extra)
+    print(f"KE {list(S.shape)} x {list(x.shape)} {x.dtype}: events {r['ms']:.4f} against "
+          f"matmul's {r['library_ms']:.4f} ms; on the device {r['device_ms']} against "
+          f"{r['library_device_ms']} (bound {r['bound_ms']:.4f}, {r['bound_by']})")
+    return r
+
+
+def polar_ke_case(geometry, ctx):
+    """KE's checked call on a polar or sphere path: (S, x, what), the disk's
+    backward radial transform stack or the sphere's backward SWSH stack (the
+    largest applies of those paths) on u's spin -1 component, or the
+    annulus's gradient stack on T."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.core.basis import device_copy
+    u, basis = ctx['u'], ctx['basis']
+    if geometry in ('disk', 'sphere'):
+        S = device_copy(basis.sub_bases[1]._transform_stacks(basis.dealias[1], -1, 'b'),
+                        u.data.device)
+        what = f"backward {'radial' if geometry == 'disk' else 'SWSH'} transform stack, spin -1"
+        return S, u['c'][0].contiguous(), what
+    T = ctx['T']
+    return (d3.grad(T)._matrix_stack((), (0,), u.data.device), T['c'].contiguous(),
+            'gradient stack, spin component -')
+
+
+# KE's named blocks (K, O, I, complex): the disk's, annulus's and sphere's
+# per-m stacks, the ball's and the complex shell's interpolation blocks
+KE_SHAPES = dict(disk=(64, 384, 256, False), annulus=(128, 128, 128, False),
+                 sphere=(128, 192, 128, False), ball=(32, 96, 3072, False),
+                 shell192c=(96, 288, 3456, True))
+
+
+def ke_sweep(shapes=KE_SHAPES, reps=20):
+    """KE's launch parameters swept at its named blocks on random data (not
+    part of main()): the device ms of each (L, warps, RI) the kernel takes,
+    beside ke_plan's choice and torch.matmul, each launch held to the plan's
+    output bit for bit or to the plain twin within TOL. Prints one JSON line
+    a block; the plan's rule (ops/polar.py ke_plan) was read off it."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    from dedalus_tpu_torch.csrc import build
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, (K, O, I, cplx) in shapes.items():
+        dt = torch.complex128 if cplx else torch.float64
+        S = torch.randn((K, O, I), generator=gen, dtype=torch.float64, device=dev)
+        x = torch.randn((2 * K, I), generator=gen, dtype=dt, device=dev)
+        nc = 2 if cplx else 1
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = opolar.ke_plan(K, O, I, 1, 2 * nc, True, sms)
+        y, yp = opolar.polar_apply(S, x), opolar.polar_apply_plain(S, x)
+        yy = torch.empty((2 * K, O), dtype=dt, device=dev)
+        Sl, xl = S.to(dt), x.view(K, 2, I).transpose(1, 2)
+        row = dict(plan=plan._asdict(),
+                   plan_device_ms=device_ms(lambda: opolar.polar_apply(S, x), reps,
+                                            'polar_apply_kernel'),
+                   matmul_device_ms=device_ms(lambda: torch.matmul(Sl, xl), reps),
+                   bound_ms=bound(nbytes(S, x, y), 0)[0], sweep={})
+        for L in (8, 16):
+            for warps in (2, 4, 8):
+                for RI in (1, 2, 4, 8):
+                    if RI > 1 and plan.W < I:
+                        continue
+
+                    def launch():
+                        build.check(lib.ke_polar_apply_f64(
+                            S.data_ptr(), x.data_ptr(), yy.data_ptr(), 1, K, O, I, 1, nc, L,
+                            plan.V, plan.NC, warps, RI, plan.W, 0, stream), 'ke_sweep')
+                    launch()
+                    torch.cuda.synchronize()
+                    if not (torch.equal(yy, y) or rel_err(yy, yp)[0] <= TOL['polar_apply']):
+                        raise AssertionError(f"ke_sweep {name} L={L} warps={warps} RI={RI}")
+                    row['sweep'][f"L{L}_w{warps}_RI{RI}"] = device_ms(launch, reps,
+                                                                       'polar_apply_kernel')
+        print(json.dumps({"ke_sweep": name, "card": smi, **row}), flush=True)
+
+
 def check_polar_kernels(geometry, ctx):
     """KE and KF against their plain twins at a polar or sphere path's
     shapes: KE on the disk's backward radial transform stack or the sphere's
@@ -3385,37 +3564,22 @@ def check_polar_kernels(geometry, ctx):
     the dealias grid."""
     from dedalus_tpu_torch.ops import polar as opolar
     from dedalus_tpu_torch.csrc import spin_recombine as kf
-    from dedalus_tpu_torch.core.basis import device_copy
     from dedalus_tpu_torch.core.basis_polar import spin_matrix
-    import dedalus_tpu_torch.public as d3
-    u, T = ctx['u'], ctx.get('T')
+    u = ctx['u']
     basis = ctx['basis']
     dev = u.data.device
     second = basis.sub_bases[1]      # the radial or colatitude basis
-    if geometry in ('disk', 'sphere'):
-        S = device_copy(second._transform_stacks(basis.dealias[1], -1, 'b'), dev)
-        x = u['c'][0].contiguous()
-        what = f"backward {'radial' if geometry == 'disk' else 'SWSH'} transform stack, spin -1"
-    else:
-        op = d3.grad(T)
-        S = op._matrix_stack((), (0,), dev)
-        x = T['c'].contiguous()
-        what = 'gradient stack, spin component -'
+    S, x, what = polar_ke_case(geometry, ctx)
     K, O, I = S.shape
     gen = torch.Generator(device=dev).manual_seed(5)
     base = torch.randn((2 * K, O), generator=gen, dtype=torch.float64, device=dev)
-    yk, yp = opolar.polar_apply(S, x), opolar.polar_apply_plain(S, x)
     ak = opolar.polar_apply(S, x, out=base.clone(), accumulate=True)
     ap = opolar.polar_apply_plain(S, x, out=base.clone(), accumulate=True)
-    torch.cuda.synchronize()
     xt = x.view(K, 2, I).transpose(1, 2)
-    ke = dict(
-        err=max(rel_err(yk, yp), rel_err(ak, ap)), what=what, shape=[K, O, I],
-        ms=cuda_ms(lambda: opolar.polar_apply(S, x), 50),
-        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(S, x), 50),
-        library_ms=cuda_ms(lambda: torch.matmul(S, xt), 50),
-        ms_accumulate=cuda_ms(lambda: opolar.polar_apply(S, x, out=base, accumulate=True), 50),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(S, x, yk), 4 * K * O * I))))
+    ke = ke_times(S, x, lambda: torch.matmul(S, xt), 2, what=what)
+    ke['err'] = max(ke['err'], rel_err(ak, ap))
+    ke['ms_accumulate'] = cuda_ms(lambda: opolar.polar_apply(S, x, out=base, accumulate=True),
+                                  50)
     # KF: grad(u) on the dealias grid, (2, 2, M, N_grid), rank 0; and u, (2, M, N_grid)
     M = u['c'].shape[1]
     Ng = second.grid_size(basis.dealias[1])
@@ -3444,8 +3608,7 @@ def record_polar_kernels(geometry, ctx):
     for name, r in zip(('polar_apply', 'spin_recombine'), check_polar_kernels(geometry, ctx)):
         prev = RESULTS.get(name)
         by_path = dict(prev['by_path']) if prev else {}
-        by_path[geometry] = {k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
-                                               'shape')}
+        by_path[geometry] = {k: r.get(k) for k in DEVICE_KEYS}
         merged = r if (prev is None or geometry == 'disk') else prev
         merged['err'] = max(r['err'], prev['err']) if prev else r['err']
         merged['by_path'] = by_path
@@ -3563,6 +3726,7 @@ def polar_path(geometry, steps=POLAR_STEPS):
     nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
               ('KG', arith, 'grid_product')]
     breakdown(geometry, solver, targets, nested, lambda: main_loop(20), smi)
+    ke_step_rows(geometry, solver, lambda: main_loop(20), smi)
     print(json.dumps({f"{geometry}_F": f_profile(solver, state, solver.sim_time, path=geometry),
                       "card": smi}))
 
@@ -3738,6 +3902,7 @@ def sphere_path(steps=SPHERE['steps']):
     nested = [('KE', opolar, 'polar_apply'), ('KF', kf, 'spin_recombine'),
               ('KG', arith, 'grid_product')]
     breakdown('sphere', solver, targets, nested, lambda: main_loop(20), smi)
+    ke_step_rows('sphere', solver, lambda: main_loop(20), smi)
     print(json.dumps({"sphere_F": f_profile(solver, state, solver.sim_time, path='sphere'),
                       "card": smi}))
 
@@ -3908,16 +4073,10 @@ def check_ball_kernels(solver, ctx):
     stack = torch.as_tensor(np.stack([op._interp_block_m(m).toarray() for m in range(K)]),
                             device=dev)
     d = rand((2 * K, 3 * L * N))
-    ek, ep = opolar.polar_apply(stack, d), opolar.polar_apply_plain(stack, d)
-    torch.cuda.synchronize()
-    ke = dict(err=rel_err(ek, ep), shape=list(stack.shape),
-              ms=cuda_ms(lambda: opolar.polar_apply(stack, d), 50),
-              plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(stack, d), 50),
-              library_ms=cuda_ms(lambda: torch.matmul(stack, d.view(K, 2, -1).transpose(1, 2)),
-                                 50),
-              **dict(zip(('bound_ms', 'bound_by'),
-                         bound(nbytes(stack, d, ek), 2 * stack.shape[1] * d.numel()))))
-    record('polar_apply', 'ball', ke, False)
+    dv = d.view(K, 2, -1).transpose(1, 2)
+    ke = ke_times(stack, d, lambda: torch.matmul(stack, dv), 2,
+                  what="u(r=1)'s interpolation block (eager: the walls)")
+    record('polar_apply', 'ball', ke, False, keys=DEVICE_KEYS)
 
     # KF, spherical form: grad(u) on the dealias grid, rank 0 (r passes through)
     xg = rand((3, 3, ball.azimuth_basis.grid_size(ball.dealias[0]), Lg, Ng))
@@ -4628,33 +4787,23 @@ def check_complex_shell_kernels(path, solver, ctx, u_f64):
                    bound(nbytes(St) + 3 * (nbytes(xt) + nbytes(tk)) // 9,
                          4 * L * 3 * M * Lg * Ng)))), True)
     xp = crand((3, M, L))
-    pk, pp = opolar.polar_apply(St, xp), opolar.polar_apply_plain(St, xp)
-    torch.cuda.synchronize()
-    record('polar_apply_signed', path, dict(
-        err=rel_err(pk, pp), shape=list(St.shape) + [3],
-        what='the per-m form on the same signed stack, 3 components (no main path runs it)',
-        ms=cuda_ms(lambda: opolar.polar_apply(St, xp), 50),
-        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(St, xp), 50),
-        library_ms=cuda_ms(lambda: torch.matmul(Stc, xp.view(3, K, 2, L, 1)), 50),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(St, xp, pk), 4 * Lg * xp.numel())))),
-        True)
+    xpv = xp.view(3, K, 2, L, 1)
+    record('polar_apply_signed', path, ke_times(
+        St, xp, lambda: torch.matmul(Stc, xpv), 4,
+        what='the per-m form on the same signed stack, 3 components (no main path runs it)'),
+        True, keys=DEVICE_KEYS)
 
     # KE on complex data, shared stack: u's interpolation block at r = Ro
     op = u(r=msh.RADII[1])
     stack = torch.as_tensor(np.stack([op._interp_block_m(m).toarray() for m in range(K)]),
                             device=dev)
     d = crand((2 * K, 3 * L * N))
-    ek, ep = opolar.polar_apply(stack, d), opolar.polar_apply_plain(stack, d)
-    torch.cuda.synchronize()
     stack_c = stack.to(torch.complex128)
-    record('polar_apply_c128', path, dict(
-        err=rel_err(ek, ep), shape=list(stack.shape),
-        what="u(r=Ro)'s interpolation block on complex data (the walls; no main path runs it)",
-        ms=cuda_ms(lambda: opolar.polar_apply(stack, d), 50),
-        plain_ms=cuda_ms(lambda: opolar.polar_apply_plain(stack, d), 50),
-        library_ms=cuda_ms(lambda: torch.matmul(stack_c, d.view(K, 2, -1).transpose(1, 2)), 50),
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(stack, d, ek), 4 * stack.shape[1] * d.numel())))), True)
+    dv = d.view(K, 2, -1).transpose(1, 2)
+    record('polar_apply_c128', path, ke_times(
+        stack, d, lambda: torch.matmul(stack_c, dv), 4,
+        what="u(r=Ro)'s interpolation block on complex data (the walls; no main path runs it)"),
+        True, keys=DEVICE_KEYS)
 
     # KG cross, complex: ez x u on the dealias grid, the left-handed sign
     ezg = ctx['ez']['g', shell.dealias].contiguous()

@@ -54,8 +54,13 @@ SIGNATURES = {
         'k14c_override_f64': [_P] * 4 + [_I] * 2 + [_P],
     },
     'polar_kernels': {
-        'ke_polar_apply_f64': [_P] * 3 + [_I] * 8 + [_P],
+        'ke_polar_apply_f64': [_P] * 3 + [_I] * 13 + [_P],
+        'ke_geometry': [_P, _I],
         'ke_trailing_apply_f64': [_P] * 3 + [_I] * 11 + [_P],
+    },
+    'cfl_kernels': {
+        'kd_cfl_max_f64': [_P, _P],
+        'kd_geometry': [_P, _I],
     },
     'ball_kernels': {
         'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],

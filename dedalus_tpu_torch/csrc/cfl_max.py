@@ -1,32 +1,45 @@
 """
-KD: the CFL reduction, a Triton kernel with its plain twin.
+KD: the CFL reduction, a CUDA kernel with its plain twin.
 
 Replaces the reduction of dedalus_tpu/extras/flow_tools.py:167-180 (the
 compiled fmax of CFL): the global max over the dealias grid of the sum of
-|f| over the registered frequency grids. A two-stage reduction: the first
-launch sums |f| per point and writes one max per block of points, the
-second reduces those partial maxima to one value. Bound by reading the
-grids once (37k f64 points per grid at RBC 256x64); the partial maxima are
-a few hundred bytes.
+|f| over the registered frequency grids. The kernel (csrc/cfl_kernels.cu
+kd_cfl_max_f64) is one launch a call: a grid of blocks sized to the SM
+count reduces the points to one max a block, and the last block to arrive
+reduces those to the 0-d result. Bound by reading the grids once (37k f64
+points a grid at RBC 256x64), so a call costs its launch: the wrapper keeps
+its host path short (the scratch maxima and arrival counter cached per
+device, the launcher's arguments one record cached by the grids'
+pointers, one ctypes call).
 
 Complex grids (the frequencies of a ComplexFourier problem's velocity)
-take the constexpr CPLX variant: it reads each point's (re, im) pair and
-sums the moduli, as the reference's jnp.abs of complex data
+sum the moduli hypot(re, im), as the reference's jnp.abs of complex data
 (dedalus_tpu/extras/flow_tools.py:177-180); twice the bytes.
 
-The result stays on the device as a 0-d float64 tensor; the caller reads
-it to the host once per CFL update. Up to four grids are taken. `triton` is
-imported inside the launching function, so machines without it (the CPU
-test runs) only ever take the plain twin.
+The result stays on the device as a 0-d float64 tensor of its own (a later
+call never writes it: results are views of blocks made at once, each view
+handed out once); the caller reads it to the host once per CFL update. Up
+to four grids are taken.
 """
+
+import ctypes
 
 import torch
 
 from . import build
 
-BLOCK = 1024
 MAX_GRIDS = 4
-_kernels = None
+# csrc/cfl_kernels.cu's KD_THREADS (its kd_geometry; checked at first use)
+KD_THREADS = 256
+# Blocks a call at most, per SM (the scratch holds one max a block)
+KD_BLOCKS_PER_SM = 2
+_scratch = {}
+# Launch records cached (by the grids' pointers) at most
+KD_ARGS_CACHED = 64
+_args = {}
+# Results made at once: 0-d views of one new tensor, each handed out once
+KD_RESULTS_MADE = 256
+_results = {}
 
 
 def cfl_max_plain(grids):
@@ -39,85 +52,89 @@ def cfl_max_plain(grids):
     return torch.max(total)
 
 
-def _build_kernels():
-    import triton
-    import triton.language as tl
+def _check(grids):
+    """The first grid, where the grids are 1 to MAX_GRIDS contiguous,
+    non-empty float64 or complex128 tensors of one shape and dtype on one
+    device; else ValueError."""
+    if not 1 <= len(grids) <= MAX_GRIDS:
+        raise ValueError(f"cfl_max: 1 to {MAX_GRIDS} frequency grids")
+    first = grids[0]
+    dtype = first.dtype
+    if ((dtype is not torch.float64 and dtype is not torch.complex128) or not first.numel()
+            or not first.is_contiguous()):
+        raise ValueError("cfl_max: grids must be contiguous, non-empty float64 or complex128 "
+                         "tensors")
+    if len(grids) > 1:
+        shape, device = first.shape, first.device
+        for t in grids[1:]:
+            if (t.dtype is not dtype or t.shape != shape or t.device != device
+                    or not t.is_contiguous()):
+                raise ValueError("cfl_max: grids must be contiguous float64 or complex128 "
+                                 "tensors of one shape and dtype on one device")
+    return first
 
-    @triton.jit
-    def partial_max(f0, f1, f2, f3, part, n, NF: tl.constexpr, CPLX: tl.constexpr,
-                    BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        # |f| >= 0, so 0 is neutral for the max of the masked tail
-        if CPLX:
-            re = tl.load(f0 + 2 * offs, mask=mask, other=0.0)
-            im = tl.load(f0 + 2 * offs + 1, mask=mask, other=0.0)
-            s = tl.sqrt(re * re + im * im)
-            if NF > 1:
-                re = tl.load(f1 + 2 * offs, mask=mask, other=0.0)
-                im = tl.load(f1 + 2 * offs + 1, mask=mask, other=0.0)
-                s = s + tl.sqrt(re * re + im * im)
-            if NF > 2:
-                re = tl.load(f2 + 2 * offs, mask=mask, other=0.0)
-                im = tl.load(f2 + 2 * offs + 1, mask=mask, other=0.0)
-                s = s + tl.sqrt(re * re + im * im)
-            if NF > 3:
-                re = tl.load(f3 + 2 * offs, mask=mask, other=0.0)
-                im = tl.load(f3 + 2 * offs + 1, mask=mask, other=0.0)
-                s = s + tl.sqrt(re * re + im * im)
-        else:
-            s = tl.abs(tl.load(f0 + offs, mask=mask, other=0.0))
-            if NF > 1:
-                s = s + tl.abs(tl.load(f1 + offs, mask=mask, other=0.0))
-            if NF > 2:
-                s = s + tl.abs(tl.load(f2 + offs, mask=mask, other=0.0))
-            if NF > 3:
-                s = s + tl.abs(tl.load(f3 + offs, mask=mask, other=0.0))
-        tl.store(part + pid, tl.max(s, axis=0))
 
-    @triton.jit
-    def final_max(part, out, m, BLOCK: tl.constexpr):
-        acc = tl.zeros((BLOCK,), dtype=tl.float64)
-        for start in range(0, m, BLOCK):
-            offs = start + tl.arange(0, BLOCK)
-            acc = tl.maximum(acc, tl.load(part + offs, mask=offs < m, other=0.0))
-        tl.store(out, tl.max(acc, axis=0))
+def _device_scratch(device):
+    """(partial maxima, arrival counter, blocks at most) of `device`: made
+    once, the counter 0 between calls (the last block resets it)."""
+    s = _scratch.get(device)
+    if s is None:
+        build.check_geometry('kd_geometry', (KD_THREADS,))
+        blocks = KD_BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+        s = _scratch[device] = (torch.empty(blocks, dtype=torch.float64, device=device),
+                                torch.zeros(1, dtype=torch.int32, device=device), blocks)
+    return s
 
-    return partial_max, final_max
+
+def _launch_args(ptrs, n, cplx, device):
+    """The launcher's argument record (csrc/cfl_kernels.cu kd_cfl_max_f64:
+    the grids' pointers, points, grids, complex, aligned, blocks, the
+    scratch's pointers, then the output's, filled a call)."""
+    part, arrived, max_blocks = _device_scratch(device)
+    vec = all(p % 16 == 0 for p in ptrs)
+    items = n // 2 if (vec and not cplx) else n
+    blocks = max(1, min(max_blocks, -(-items // KD_THREADS)))
+    return (ctypes.c_longlong * 12)(*(ptrs + ptrs[:1] * (MAX_GRIDS - len(ptrs))), n,
+                                    len(ptrs), int(cplx), int(vec), blocks, part.data_ptr(),
+                                    arrived.data_ptr(), 0)
+
+
+def _result(device):
+    """A new 0-d float64 tensor on `device` that no later call writes: the
+    next unused view of a block of KD_RESULTS_MADE made at once (no
+    allocation on a call's host path)."""
+    free = _results.get(device)
+    if not free:
+        block = torch.empty(KD_RESULTS_MADE, dtype=torch.float64, device=device)
+        free = _results[device] = list(reversed(block.unbind()))
+    return free.pop()
 
 
 def cfl_max(grids):
-    """KD wrapper: CPU tensors take the plain twin; CUDA tensors launch the
-    two Triton reductions. The grids are contiguous tensors of one shape
-    and one dtype (float64 or complex128) on one device. Launches count per
-    form (build.count)."""
-    first = grids[0]
-    if first.device.type == 'cpu':
+    """KD wrapper: CPU tensors take the plain twin; CUDA tensors launch
+    kd_cfl_max_f64, once. The grids are 1 to 4 contiguous tensors of one
+    shape and one dtype (float64 or complex128) on one device, checked on
+    either route. Launches count per form (build.count). The launcher's
+    argument record is cached by the grids' pointers: a repeated call's
+    host path is a lookup, a result view and the ctypes call."""
+    first = _check(grids)
+    if first.is_cpu:
         return cfl_max_plain(grids)
-    global _kernels
-    nf = len(grids)
-    if not 1 <= nf <= MAX_GRIDS:
-        raise ValueError(f"cfl_max: 1 to {MAX_GRIDS} frequency grids")
-    cplx = first.is_complex()
-    for t in grids:
-        if (t.device != first.device or t.dtype != first.dtype
-                or t.dtype not in (torch.float64, torch.complex128)
-                or t.shape != first.shape or not t.is_contiguous()):
-            raise ValueError("cfl_max: grids must be contiguous float64 or complex128 "
-                             "tensors of one shape and dtype on one device")
-    if _kernels is None:
-        _kernels = _build_kernels()
-    partial_max, final_max = _kernels
-    n = first.numel()
-    nblocks = -(-n // BLOCK)
-    part = torch.empty(nblocks, dtype=torch.float64, device=first.device)
-    out = torch.empty((), dtype=torch.float64, device=first.device)
-    padded = [torch.view_as_real(t) if cplx else t for t in grids]
-    padded += [padded[0]] * (MAX_GRIDS - nf)
-    partial_max[(nblocks,)](*padded, part, n, NF=nf, CPLX=cplx, BLOCK=BLOCK, num_warps=4)
-    final_max[(1,)](part, out, nblocks, BLOCK=BLOCK, num_warps=4)
-    build.count(cfl_max, first.dtype)
+    dtype, device, n = first.dtype, first.device, first.numel()
+    ptrs = tuple([t.data_ptr() for t in grids])
+    key = (ptrs, n, dtype, device)
+    args = _args.get(key)
+    if args is None:
+        if len(_args) >= KD_ARGS_CACHED:
+            _args.clear()
+        args = _args[key] = _launch_args(ptrs, n, dtype is torch.complex128, device)
+    out = _result(device)
+    args[11] = out.data_ptr()
+    # (the current stream's handle without a Stream object: the host path is
+    # what an eager CFL update pays)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    build.check(build.library().kd_cfl_max_f64(args, stream), 'cfl_max')
+    build.count(cfl_max, dtype)
     return out
 
 

@@ -41,28 +41,44 @@
 //
 // Bound: every stack entry is used 2B(nc)/ns times and read once, so the
 // apply is bound by reading S (disk 128x256: one transform stack is
-// 64 x 256 x 384 doubles, 50 MB, ~15 us at 3.35 TB/s). Design: one thread
-// block per (m, chunk of KE_ROWS output rows), and per slot where a block
-// serves one slot (npb = 1: always with a signed stack, and with a shared
-// one whose two slots' columns would not fit in shared memory, such as a
-// complex rank-2 interpolation block with I = 9 L n). The block stages its
-// columns of x[:, m] (at most 8 rows of I doubles, 24 KB at I=384) in shared
-// memory once; each warp then streams one row S[m, o, :] with coalesced
-// loads and accumulates all column sums from the same loads, so S is read
-// once per block. The sums meet in warp shuffles; with
-// `accumulate` the result is added to out (one pass, where an operator sums
-// several input components into one output).
+// 64 x 384 x 256 doubles, 50 MB, ~15 us at 3.35 TB/s). The columns of a
+// call are (component, slot, re/im) triples: 2 on real data with a shared
+// stack, 4 on complex data, B or 2B per slot with a signed one.
+//
+// Design (ops/polar.py ke_plan chooses the template, the block and the
+// range width): a block of `warps` warps (1 to KE_WARPS) serves one m, one
+// slot where the stack is signed (both slots' columns otherwise) and a tile
+// of RT rows of S[m]. A row is taken by L lanes (8 on rows up to 512
+// elements: G = 32 / L rows of a warp side by side share each read of x
+// from shared memory, and 3 shuffle levels remain, not 5; 16 on longer
+// rows), RI row groups a warp one after another: RT = warps * G * RI. x of
+// the block's NC columns is staged in shared memory a range of W row
+// elements at a time (NC * W doubles within KE_XS_BYTES: the shell's
+// complex I = 3456 holds the SM to no single block), all of a range's
+// copies in flight at once (cp.async, 16 bytes a copy where aligned): the
+// block waits on its x, and copies that each wait on their load would hold
+// it for microseconds. A lane streams its rows' batches of KE_LOADS loads of
+// V doubles (16 bytes where the rows start 16-byte aligned) with the next
+// batch (of its row, or of its next row group) in flight while it sums the
+// last, and a range's first batch is issued before its x is staged, so the
+// two overlap. Columns beyond NC loop inside the block (S read again, from
+// L2): one launch a call. A row's sum is each lane's in a fixed order
+// (ranges, batches, loads, the pair of a 16-byte load), then a fixed xor
+// tree over its L lanes, lane c storing column c: two launches agree bit
+// for bit. No row is split across blocks.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int KE_THREADS = 256;
-constexpr int KE_ROWS = 32;       // output rows per block: 4 per warp
-constexpr int KE_MAX_COLS = 8;    // (component, slot, re/im) columns per block
+constexpr int KE_WARPS = KE_THREADS / 32;
+constexpr int KE_LOADS = 8;               // loads of S a lane's batch
+constexpr int KE_XS_BYTES = 48 * 1024;    // staged x a block
 
-// Column j of a block: component b, slot p0 + pl, part c (ncol = B * npb * nc)
+// Column j of a block: component b, slot p0 + pl, part c
 __device__ __forceinline__ size_t ke_offset(int j, int npb, int nc, int K, int m, int p0,
                                             int len, int idx) {
     const int b = j / (npb * nc);
@@ -71,49 +87,150 @@ __device__ __forceinline__ size_t ke_offset(int j, int npb, int nc, int K, int m
     return ((((size_t)b * K + m) * 2 + p) * len + idx) * nc + c;
 }
 
-__global__ void __launch_bounds__(KE_THREADS)
-polar_apply_kernel(const double* __restrict__ S, const double* __restrict__ x,
-                   double* __restrict__ out, int B, int K, int O, int I, int ns, int npb,
-                   int nc, int accumulate) {
-    extern __shared__ double xs[];   // [ncol][I]
-    const int m = blockIdx.x;
-    const int p0 = blockIdx.z;       // the block's slot where it serves one (npb = 1)
-    const int ncol = B * npb * nc;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    for (int t = threadIdx.x; t < ncol * I; t += blockDim.x) {
-        const int j = t / I, i = t - j * I;
-        xs[t] = x[ke_offset(j, npb, nc, K, m, p0, I, i)];
+struct KeArgs {
+    const double* S;
+    const double* x;
+    double* out;
+    int B, K, O, I, ns, W, RI, ntile, accumulate;
+};
+
+template <int V> struct KeVec;
+template <> struct KeVec<1> {
+    typedef double T;
+    static __device__ __forceinline__ T zero() { return 0.0; }
+    static __device__ __forceinline__ T load(const double* p) { return __ldg(p); }
+    static __device__ __forceinline__ double at(const T& v, int) { return v; }
+};
+template <> struct KeVec<2> {
+    typedef double2 T;
+    static __device__ __forceinline__ T zero() { return make_double2(0.0, 0.0); }
+    static __device__ __forceinline__ T load(const double* p) {
+        return __ldg(reinterpret_cast<const double2*>(p));
     }
-    __syncthreads();
-    const int o0 = blockIdx.y * KE_ROWS;
-    const int o1 = min(O, o0 + KE_ROWS);
-    for (int o = o0 + warp; o < o1; o += nwarps) {
-        const double* row = S + (((size_t)m * ns + (ns == 2 ? p0 : 0)) * O + o) * I;
-        double acc[KE_MAX_COLS];
+    static __device__ __forceinline__ double at(const T& v, int e) { return e ? v.y : v.x; }
+};
+
+template <int L, int V, int NC, int NCP>
+__global__ void __launch_bounds__(KE_THREADS, 2)
+polar_apply_kernel(const KeArgs a) {
+    typedef KeVec<V> VT;
+    typedef typename VT::T T;
+    constexpr int G = 32 / L;
+    constexpr int U = KE_LOADS;
+    constexpr int STEP = L * V * U;           // row elements a batch
+    // x of a range in 16-byte copies where its pairs start 16-byte aligned
+    constexpr int XV = (NCP == 2 || V == 2) ? 2 : 1;
+    extern __shared__ __align__(16) double xs[];   // [NC / NCP pairs][W][NCP]
+    const int npb = a.ns == 2 ? 1 : 2, nslot = 3 - npb;
+    const int ncol = a.B * npb * NCP;
+    const int warps = blockDim.x >> 5;
+    const int RT = warps * G * a.RI;
+    int blk = blockIdx.x;
+    const int tile = blk % a.ntile;
+    blk /= a.ntile;
+    const int p0 = blk % nslot, m = blk / nslot;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int q = lane % L;
+    // This lane's row in its warp's row group ri
+    auto orow = [&](int ri) { return tile * RT + (ri * warps + warp) * G + lane / L; };
+    const double* Sm = a.S + ((size_t)m * a.ns + p0) * a.O * a.I;
+    for (int j0 = 0; j0 < ncol; j0 += NC) {
+        double acc[NC];
 #pragma unroll
-        for (int j = 0; j < KE_MAX_COLS; ++j) acc[j] = 0.0;
-        for (int i = lane; i < I; i += 32) {
-            const double a = __ldg(row + i);
+        for (int c = 0; c < NC; ++c) acc[c] = 0.0;
+        T sc[U], sn[U];
+        // batch bt of row group ri over the range at r0 (wr elements)
+        auto load = [&](int ri, int r0, int wr, int bt, T (&s)[U]) {
+            const int o = orow(ri);
+            const double* p = Sm + (size_t)min(o, a.O - 1) * a.I + r0;
 #pragma unroll
-            for (int j = 0; j < KE_MAX_COLS; ++j)
-                if (j < ncol) acc[j] = fma(a, xs[j * I + i], acc[j]);
-        }
+            for (int u = 0; u < U; ++u) {
+                const int idx = bt * STEP + (u * L + q) * V;
+                s[u] = (o < a.O && idx < wr) ? VT::load(p + idx) : VT::zero();
+            }
+        };
+        for (int r0 = 0; r0 < a.I; r0 += a.W) {
+            const int wr = min(a.W, a.I - r0);
+            const int nb = (wr + STEP - 1) / STEP;      // batches a row in this range
+            const int items = a.RI * nb;
+            load(0, r0, wr, 0, sn);                     // in flight while x is staged
+            __syncthreads();                            // the last range's x is no longer read
+            // x of the columns j0 .. j0 + NC over the range: (b, slot) pairs of
+            // NCP parts, each pair's (i, part) elements contiguous in x; all
+            // copies of the block in flight at once (cp.async), a pair past the
+            // columns zero-filled
+            const int seg = wr * NCP / XV;              // copies a pair
+            for (int t = threadIdx.x; t < (NC / NCP) * seg; t += blockDim.x) {
+                const int lp = t / seg, e = (t - lp * seg) * XV;
+                const int gp = j0 / NCP + lp;
+                const bool in = gp * NCP < ncol;
+                const int b = in ? gp / npb : 0, pl = in ? gp - b * npb : 0;
+                __pipeline_memcpy_async(
+                    xs + lp * a.W * NCP + e,
+                    a.x + ((((size_t)b * a.K + m) * 2 + p0 + pl) * a.I + r0) * NCP + e,
+                    XV * sizeof(double), in ? 0 : XV * sizeof(double));
+            }
+            __pipeline_commit();
+            __pipeline_wait_prior(0);
+            __syncthreads();
+            for (int k = 0; k < items; ++k) {
+                const int ri = k / nb, bt = k - ri * nb;
 #pragma unroll
-        for (int j = 0; j < KE_MAX_COLS; ++j) {
-            if (j < ncol) {
-                double v = acc[j];
+                for (int u = 0; u < U; ++u) sc[u] = sn[u];
+                // the next batch, of this row or the next row group, in flight
+                // while this one is summed
+                if (k + 1 < items) load((k + 1) / nb, r0, wr, (k + 1) % nb, sn);
 #pragma unroll
-                for (int off = 16; off > 0; off >>= 1)
-                    v += __shfl_xor_sync(0xffffffffu, v, off);
-                if (lane == j) {
-                    double* dst = out + ke_offset(j, npb, nc, K, m, p0, O, o);
-                    *dst = accumulate ? *dst + v : v;
+                for (int u = 0; u < U; ++u) {
+                    const int idx = bt * STEP + (u * L + q) * V;
+                    if (idx < wr) {
+#pragma unroll
+                        for (int e = 0; e < V; ++e) {
+                            const double s = VT::at(sc[u], e);
+                            if constexpr (NCP == 2) {
+#pragma unroll
+                                for (int lp = 0; lp < NC / 2; ++lp) {
+                                    const double2 z = *reinterpret_cast<const double2*>(
+                                        xs + (lp * a.W + idx + e) * 2);
+                                    acc[2 * lp] = fma(s, z.x, acc[2 * lp]);
+                                    acc[2 * lp + 1] = fma(s, z.y, acc[2 * lp + 1]);
+                                }
+                            } else {
+#pragma unroll
+                                for (int c = 0; c < NC; ++c)
+                                    acc[c] = fma(s, xs[c * a.W + idx + e], acc[c]);
+                            }
+                        }
+                    }
+                }
+                if (bt == nb - 1 && r0 + a.W >= a.I) {
+                    // The row is summed: a fixed xor tree over its L lanes; lane c
+                    // stores column j0 + c
+                    const int o = orow(ri);
+#pragma unroll
+                    for (int c = 0; c < NC; ++c) {
+                        double v = acc[c];
+#pragma unroll
+                        for (int off = L / 2; off > 0; off >>= 1)
+                            v += __shfl_xor_sync(0xffffffffu, v, off);
+                        if (q == c && o < a.O && j0 + c < ncol) {
+                            double* dst = a.out + ke_offset(j0 + c, npb, NCP, a.K, m, p0, a.O, o);
+                            *dst = a.accumulate ? *dst + v : v;
+                        }
+                        acc[c] = 0.0;
+                    }
                 }
             }
         }
     }
+}
+
+template <int L, int V, int NC, int NCP>
+int ke_launch(const KeArgs& a, int warps, cudaStream_t stream) {
+    const long long blocks = (long long)a.K * (a.ns == 2 ? 2 : 1) * a.ntile;
+    const size_t smem = (size_t)NC * a.W * sizeof(double);
+    polar_apply_kernel<L, V, NC, NCP><<<(unsigned)blocks, warps * 32, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 constexpr int KT_THREADS = 256;
@@ -207,25 +324,39 @@ extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* o
     return (int)cudaGetLastError();
 }
 
+// The launch geometry above, for ops/polar.py, whose plan (ke_plan) is built
+// for it: polar_apply compares it with its own before the first launch.
+extern "C" int ke_geometry(int* out, int n) {
+    const int g[] = {KE_THREADS, KE_LOADS, KE_XS_BYTES};
+    if (n != (int)(sizeof(g) / sizeof(g[0]))) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n; ++i) out[i] = g[i];
+    return (int)cudaSuccess;
+}
+
+#define KE_CASE(L_, V_, NC_, NCP_)                                                   \
+    if (L == L_ && V == V_ && NC == NC_ && nc == NCP_)                                \
+        return ke_launch<L_, V_, NC_, NCP_>(a, warps, (cudaStream_t)stream);
+#define KE_CASES_NC(L_, V_, NCP_)                                                     \
+    KE_CASE(L_, V_, 2, NCP_) KE_CASE(L_, V_, 4, NCP_) KE_CASE(L_, V_, 8, NCP_)
+#define KE_CASES(L_)                                                                  \
+    KE_CASES_NC(L_, 1, 1) KE_CASES_NC(L_, 2, 1) KE_CASES_NC(L_, 1, 2) KE_CASES_NC(L_, 2, 2)
+
+// L lanes a row, V doubles a load of S, NC columns a pass, `warps` warps a
+// block (1 to KE_WARPS), RI row groups a warp (more than one only where a
+// range is the whole row) and W row elements a staged range: the plan of
+// ops/polar.py ke_plan. V = 2 needs I even and S and x 16-byte aligned;
+// complex data (nc = 2) needs x 16-byte aligned.
 extern "C" int ke_polar_apply_f64(const double* S, const double* x, double* out, int B,
-                                  int K, int O, int I, int ns, int npb, int nc, int accumulate,
-                                  void* stream) {
-    if ((ns != 1 && ns != 2) || (npb != 1 && npb != 2) || (ns == 2 && npb == 2)
-        || (nc != 1 && nc != 2))
+                                  int K, int O, int I, int ns, int nc, int L, int V, int NC,
+                                  int warps, int RI, int W, int accumulate, void* stream) {
+    if ((ns != 1 && ns != 2) || (nc != 1 && nc != 2) || B < 1 || K < 1 || O < 1 || I < 1
+        || warps < 1 || warps > KE_WARPS || RI < 1 || W < 1 || W % 2 || (RI > 1 && W < I)
+        || (size_t)NC * W * sizeof(double) > (size_t)KE_XS_BYTES
+        || (V == 2 && (I % 2 || ((uintptr_t)S & 15)))
+        || ((V == 2 || nc == 2) && ((uintptr_t)x & 15)))
         return (int)cudaErrorInvalidValue;
-    const int ncol = B * npb * nc;
-    if (B < 1 || ncol > KE_MAX_COLS || K < 1 || O < 1 || I < 1)
-        return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)ncol * I * sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(polar_apply_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    dim3 grid(K, (O + KE_ROWS - 1) / KE_ROWS, 3 - npb);
-    polar_apply_kernel<<<grid, KE_THREADS, smem, (cudaStream_t)stream>>>(S, x, out, B, K, O,
-                                                                        I, ns, npb, nc,
-                                                                        accumulate);
-    return (int)cudaGetLastError();
+    const int RT = warps * (32 / L) * RI;
+    const KeArgs a = {S, x, out, B, K, O, I, ns, W, RI, (O + RT - 1) / RT, accumulate};
+    KE_CASES(8) KE_CASES(16)
+    return (int)cudaErrorInvalidValue;
 }

@@ -23,20 +23,78 @@ its float64 (re, im) view, both parts taking the same products. A shared
 interpolation, whose matrices depend on |m|).
 
 CPU tensors run the plain twin; CUDA tensors launch csrc/polar_kernels.cu
-ke_polar_apply_f64. Each stack entry is used once per (b, p) column, so the
-apply is bound by reading the stack (50 MB for one disk transform stack at
-128x256); the kernel reads each stack row once and serves every column from
-the components staged in shared memory. Launches count per form
-(build.count): on real data in `launches`, on complex data with a shared
-stack in `launches_c128`, with a signed stack in `launches_signed`.
+ke_polar_apply_f64, one launch a call, with the plan of `ke_plan`. Each
+stack entry is used once per (b, p) column, so the apply is bound by
+reading the stack (50 MB for one disk transform stack at 128x256); the
+kernel's warps stream the stack's rows once from HBM, each lane a batch of
+16-byte loads in flight while it sums the last, against the components
+staged in shared memory. Launches count per form (build.count): on
+real data in `launches`, on complex data with a shared stack in
+`launches_c128`, with a signed stack in `launches_signed`.
 """
+
+import collections
+import functools
 
 import torch
 
-# Columns served by one launch: (component, slot, re/im) triples; the
-# shared memory that stages them (the opt-in limit of a block on Hopper)
-KE_MAX_COLS = 8
-KE_SMEM_BYTES = 227 * 1024
+# The launch geometry of KE's per-m apply: csrc/polar_kernels.cu's constants
+# of the same names (its ke_geometry; polar_apply checks the two agree)
+KE_THREADS = 256
+KE_LOADS = 8                    # loads of S a lane's batch
+KE_XS_BYTES = 48 * 1024         # staged x a block
+KE_GEOMETRY = (KE_THREADS, KE_LOADS, KE_XS_BYTES)
+KE_WARPS = KE_THREADS // 32
+KE_COLUMNS = (2, 4, 8)          # columns a pass (the kernel's NC)
+KE_SHORT_ROW = 512              # rows up to this long take 8 lanes, longer ones 16
+KE_WARP_BATCHES = 4             # batches a row from which a block takes 8 warps
+KE_ROW_GROUPS = 4               # row groups a warp (RI) where a row is one batch
+KE_WARPS_AN_SM = 8              # the grid's warps an SM at least, where RI allows
+# SMs of an H100 SXM: the plan's default where no device is named
+H100_SMS = 132
+
+KEPlan = collections.namedtuple('KEPlan',
+                                'L V NC warps RI RT W nrange ntile blocks smem passes launches')
+
+
+@functools.lru_cache(maxsize=None)
+def ke_plan(K, O, I, ns, ncol, vec, sms=H100_SMS):
+    """
+    The launch of KE's per-m apply for a (K, O, I) stack (ns = 1 shared, 2
+    signed) and `ncol` (component, slot, re/im) columns a block (both slots'
+    with a shared stack, one slot's with a signed one); `vec` where S's rows
+    and x start 16-byte aligned (I even, S and x aligned). Fields, as the
+    kernel's: L lanes a row (8 up to KE_SHORT_ROW elements: 4 rows of a warp
+    share each read of x, 3 shuffle levels; 16 on longer rows); V doubles a
+    load; NC columns a pass (`passes` passes where ncol > 8, inside the one
+    launch); W row elements a staged range of x (the whole row where NC * I
+    doubles fit in KE_XS_BYTES, else the most whole batches that fit),
+    `nrange` ranges; `warps` warps a block (8 where a row is 4 batches or
+    more: the staged x then serves twice the rows, else 4); RI row groups a
+    warp, KE_ROW_GROUPS where a row is one batch (so that a warp has batches
+    to stream one after another), else 1, halved while the grid would hold
+    less than KE_WARPS_AN_SM warps an SM; RT = warps * (32 / L)
+    * RI rows a block; blocks = K * slots * ntile. (The rules were read off
+    chip_smoke.ke_sweep, which times each L, warps and RI at KE's named
+    blocks on the card.)
+    """
+    V = 2 if vec else 1
+    NC = next(c for c in KE_COLUMNS if c >= min(ncol, KE_COLUMNS[-1]))
+    L = 8 if I <= KE_SHORT_ROW else 16
+    nslot = 2 if ns == 2 else 1
+    step = L * V * KE_LOADS
+    budget = KE_XS_BYTES // (8 * NC)
+    W = -(-I // 2) * 2 if I <= budget else budget // step * step
+    nb = -(-min(W, I) // step)              # batches a row takes in a range
+    warps = KE_WARPS if nb >= KE_WARP_BATCHES else KE_WARPS // 2
+    RI = KE_ROW_GROUPS if nb == 1 and W >= I else 1
+    while RI > 1 and K * nslot * -(-O // (warps * (32 // L) * RI)) * warps < KE_WARPS_AN_SM * sms:
+        RI //= 2
+    RT = warps * (32 // L) * RI
+    ntile = -(-O // RT)
+    return KEPlan(L=L, V=V, NC=NC, warps=warps, RI=RI, RT=RT, W=W, nrange=-(-I // W),
+                  ntile=ntile, blocks=K * nslot * ntile, smem=NC * W * 8,
+                  passes=-(-ncol // NC), launches=1)
 
 
 def _check_stack(S, device, what):
@@ -44,10 +102,6 @@ def _check_stack(S, device, what):
             or S.dim() not in (3, 4) or (S.dim() == 4 and S.shape[1] != 2)):
         raise ValueError(f"KE: S must be a contiguous float64 (K, O, I) or signed "
                          f"(K, 2, O, I) tensor on {device} ({what})")
-
-
-def _doubles(t):
-    return torch.view_as_real(t) if t.is_complex() else t
 
 
 def polar_apply_plain(S, x, out=None, accumulate=False):
@@ -93,25 +147,34 @@ def polar_apply(S, x, out=None, accumulate=False):
     elif (out.dtype != x.dtype or out.device != x.device
             or tuple(out.shape) != lead + (2 * K, O) or not out.is_contiguous()):
         raise ValueError(f"KE: out must be a contiguous {x.dtype} {lead + (2 * K, O)} tensor")
-    nc = 2 if x.is_complex() else 1
-    # Slots per block: both where their columns fit in shared memory
-    npb = 2 if ns == 1 and 2 * nc * I * 8 <= KE_SMEM_BYTES else 1
-    per_launch = min(KE_MAX_COLS // (npb * nc), KE_SMEM_BYTES // (npb * nc * I * 8))
-    if per_launch < 1:
-        raise ValueError(f"KE: a column of {I} elements does not fit in shared memory")
     B = 1
     for n in lead:
         B *= n
-    xb, ob = _doubles(x).reshape(B, -1), _doubles(out).view(B, -1)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = build.library()
-    for b0 in range(0, B, per_launch):
-        nb = min(per_launch, B - b0)
-        build.check(lib.ke_polar_apply_f64(
-            S.data_ptr(), xb[b0].data_ptr(), ob[b0].data_ptr(), nb, K, O, I, ns, npb, nc,
-            int(accumulate), stream), 'polar_apply')
-        build.count(polar_apply, 'signed' if ns == 2 else x.dtype)
+    build.check_geometry('ke_geometry', KE_GEOMETRY)
+    _ke_launch(build.library(), S, x, out, accumulate,
+               torch.cuda.current_stream(x.device).cuda_stream, _sms(x.device), B)
+    build.count(polar_apply, 'signed' if ns == 2 else x.dtype)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ke_launch(lib, S, x, out, accumulate, stream, sms, B):
+    """One launch of ke_polar_apply_f64 through `lib` on checked tensors,
+    with the plan of ke_plan; returns the plan."""
+    from ..csrc import build
+    K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
+    ns = S.dim() - 2
+    nc = 2 if x.is_complex() else 1
+    plan = ke_plan(K, O, I, ns, B * nc * (1 if ns == 2 else 2),
+                   I % 2 == 0 and S.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0, sms)
+    build.check(lib.ke_polar_apply_f64(
+        S.data_ptr(), x.data_ptr(), out.data_ptr(), B, K, O, I, ns, nc, plan.L, plan.V,
+        plan.NC, plan.warps, plan.RI, plan.W, int(accumulate), stream), 'polar_apply')
+    return plan
 
 
 polar_apply.launches = polar_apply.launches_c128 = polar_apply.launches_signed = 0

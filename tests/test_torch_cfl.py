@@ -107,15 +107,42 @@ def test_state_and_counters_match_reference(runs):
     assert len(ts.timestepper._stage_factors) == min(len(js.timestepper._stage_factors), limit)
 
 
-@pytest.mark.parametrize('ngrids', [1, 2])
-def test_kd_plain_matches_reference_max(ngrids):
+# (grids, complex): the real cases keep their ids
+KD_CASES = [pytest.param(n, False, id=str(n)) for n in (1, 2, 3, 4)] + \
+    [pytest.param(n, True, id=f'c{n}') for n in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize('ngrids, cplx', KD_CASES)
+def test_kd_plain_matches_reference_max(ngrids, cplx):
+    """KD's plain twin (the CPU route of cfl_max) against the JAX package's
+    max of summed moduli (dedalus_tpu/extras/flow_tools.py:177-180):
+    exactly on real grids, within 1e-14 on complex ones (the modulus)."""
     from dedalus_tpu_torch.csrc.cfl_max import cfl_max
-    rng = np.random.default_rng(ngrids)
+    rng = np.random.default_rng(ngrids + 10 * cplx)
     grids = [rng.standard_normal((96, 24)) for _ in range(ngrids)]
+    if cplx:
+        grids = [g + 1j * rng.standard_normal(g.shape) for g in grids]
     ref = float(jnp.max(sum(jnp.abs(jnp.asarray(g)) for g in grids)))
     got = float(cfl_max([torch.as_tensor(g) for g in grids]))
-    assert abs(got - ref) <= 1e-14 * ref
-    assert cfl_max.launches == 0
+    if cplx:
+        assert abs(got - ref) <= 1e-14 * ref
+    else:
+        assert got == ref
+    assert cfl_max.launches == cfl_max.launches_c128 == 0
+
+
+@pytest.mark.parametrize('case', ['none', 'five', 'shape', 'dtype', 'strided', 'float32',
+                                  'empty'])
+def test_kd_rejects_what_the_kernel_does_not_take(case):
+    """The wrapper's checks run on the CPU route too: what the card's route
+    would refuse, the CPU refuses alike."""
+    from dedalus_tpu_torch.csrc.cfl_max import cfl_max
+    a = torch.ones((8, 6), dtype=torch.float64)
+    grids = dict(none=[], five=[a] * 5, shape=[a, torch.ones((6, 8), dtype=torch.float64)],
+                 dtype=[a, a.to(torch.complex128)], strided=[a, a.T.contiguous().T],
+                 float32=[a.float()], empty=[torch.ones((0, 6), dtype=torch.float64)])[case]
+    with pytest.raises(ValueError, match='cfl_max'):
+        cfl_max(grids)
 
 
 def test_file_handlers_are_not_ported(runs):
