@@ -236,7 +236,7 @@ KERNELS = dict(   # name: (route, source, replaces)
              'dedalus_tpu/extras/flow_tools.py:167'),
     polar_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                  'dedalus_tpu/core/basis_polar.py:527'),
-    spin_recombine=('triton', 'dedalus_tpu_torch/csrc/spin_recombine.py',
+    spin_recombine=('cuda', 'dedalus_tpu_torch/csrc/spin_kernels.cu',
                     'dedalus_tpu/core/basis_polar.py:248'),
     pencil_gather_scatter=('cuda', 'dedalus_tpu_torch/csrc/pencil_kernels.cu',
                            'dedalus_tpu/core/subsystems.py:1224'),
@@ -293,7 +293,7 @@ KERNELS = dict(   # name: (route, source, replaces)
     # Complex curvilinear data and the Coriolis operator (the complex shell)
     zcross=('triton', 'dedalus_tpu_torch/csrc/zcross.py',
             'dedalus_tpu/core/operators_ball.py:1139'),
-    spin_recombine_c128=('triton', 'dedalus_tpu_torch/csrc/spin_recombine.py',
+    spin_recombine_c128=('cuda', 'dedalus_tpu_torch/csrc/spin_kernels.cu',
                          'dedalus_tpu/core/basis_polar.py:296'),
     trailing_apply_signed=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                            'dedalus_tpu/core/basis_sphere.py:157'),
@@ -312,12 +312,20 @@ KERNELS = dict(   # name: (route, source, replaces)
     rhs_stage_c128=('cuda', 'dedalus_tpu_torch/csrc/rhs_kernels.cu',
                     'dedalus_tpu/core/solvers.py:210'),
 )
-# The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py)
+# The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py).
+# K12's complex select and scatter run inside K10 (its select store and
+# scatter load): their wrappers are the whole complex transforms, whose K10
+# launches (the kernel's select and scatter instantiations) count as
+# theirs, not as dft's
 FAST_WRAPPERS = dict(dft=('dft',),
                      dct_wrap=('dct2_pre', 'dct2_post', 'dct3_pre', 'dct3_post'),
                      chebyshev_conversion=('conversion_apply', 'conversion_solve'),
                      real_fourier_pack=('fourier_pack', 'fourier_unpack'),
-                     complex_fourier_select=('fourier_select', 'fourier_scatter'))
+                     complex_fourier_select=('dft_select', 'dft_scatter'))
+# The fused complex transforms' check: a line past one block (two K10
+# launches, the select in the second's store, the scatter in the first's
+# load), along the last and a strided axis
+FUSED_LONG = dict(N=16384, M=10923, Kmax=5461, shapes=((4, 16384), (2, 16384, 3)))
 # The crossover table: axis grid sizes, and lines per transform (rbc2048's
 # batched x chain: 8 components of 768 z points)
 CROSSOVER_SIZES = (256, 512, 1024, 2048, 4096, 8192, 16384)
@@ -727,33 +735,33 @@ def tally(targets, run):
     return acc
 
 
-def k12_complex_bytes(wrapper, shape, axis, N, M, Kmax):
-    """Bytes K12's complex select (Z -> ordered coefficients) or scatter
-    (coefficients -> zero-padded spectrum) must move on a line batch of
-    `shape`: the distinct values it reads, only the retained ones (|k| <=
-    Kmax), and every point it writes (M for the select, N for the
-    scatter)."""
+def fused_complex_bytes(wrapper, shape, axis, N, M, Kmax):
+    """Bytes the whole complex Fourier transform (K10 with K12's select or
+    scatter) must move on a line batch of `shape`: forward (dft_select)
+    every grid point read and the M ordered coefficients written; backward
+    (dft_scatter) the distinct retained coefficients read (|k| <= Kmax) and
+    the N grid points written."""
     from dedalus_tpu_torch.ops import fft as offt
     size = shape[axis % len(shape)]
     lines = int(np.prod(shape)) // size
-    index = offt._select_index if wrapper == 'fourier_select' else offt._scatter_index
-    src, valid = index(M, N, Kmax, 'cpu')
-    reads = len(torch.unique(src[valid]))
-    return 16 * lines * (reads + (M if wrapper == 'fourier_select' else N))
+    if wrapper == 'dft_select':
+        return 16 * lines * (N + M)
+    src, valid = offt._scatter_index(M, N, Kmax, 'cpu')
+    return 16 * lines * (len(torch.unique(src[valid])) + N)
 
 
 def fast_cost(wrapper, a, kw, out):
     """(bytes, operations) of one call of a fast-transform wrapper: each
-    input read once, each output written once (K12's complex select and
-    scatter: the retained values read, k12_complex_bytes); the DFT's
-    5 N log2 N operations per complex line of N points (a radix FFT's), a
-    few per point for the elementwise passes, 2 per band entry."""
-    if wrapper == 'fourier_select':
-        Z, axis, M, Kmax = a
-        return k12_complex_bytes(wrapper, Z.shape, axis, Z.shape[axis], M, Kmax), 0
-    if wrapper == 'fourier_scatter':
-        c, axis, N, Kmax = a
-        return k12_complex_bytes(wrapper, c.shape, axis, N, c.shape[axis], Kmax), 0
+    input read once, each output written once (the complex transforms with
+    K12's select or scatter: fused_complex_bytes); the DFT's 5 N log2 N
+    operations per complex line of N points (a radix FFT's), a few per
+    point for the elementwise passes, 2 per band entry."""
+    if wrapper in ('dft_select', 'dft_scatter'):
+        x, axis, MN, Kmax = a
+        N, M = (x.shape[axis], MN) if wrapper == 'dft_select' else (MN, x.shape[axis])
+        lines = x.numel() // x.shape[axis]
+        return (fused_complex_bytes(wrapper, x.shape, axis, N, M, Kmax),
+                5 * lines * N * np.log2(N))
     if wrapper == 'dft':
         x, axis = a[0], a[2]
         N = out.shape[axis]
@@ -772,7 +780,7 @@ def fast_targets():
     from dedalus_tpu_torch.ops import fft as offt
     labels = dict(dft='K10 dft', dct_wrap='K11a DCT wrapping',
                   chebyshev_conversion='K11b conversion', real_fourier_pack='K12 pack/unpack',
-                  complex_fourier_select='K12 complex select/scatter')
+                  complex_fourier_select='K10 + K12 complex select/scatter')
     return [(labels[k], offt, w, functools.partial(fast_cost, w))
             for k, ws in FAST_WRAPPERS.items() for w in ws]
 
@@ -811,11 +819,14 @@ def f_profile(solver, state, t, reps=10, path=None):
         extra = out if kw.get('accumulate') else None
         return nbytes(S, x, out, extra), 2 * cx(x) * S.shape[-2] * x.numel()
 
+    def kf_ranks(a):
+        return len(a[1]) if isinstance(a[1], (tuple, list)) else 1
+
     def kf_cost(a, kw, out):
-        return 2 * nbytes(a[0]), 7 * a[0].numel()
+        return 2 * nbytes(a[0]), 7 * a[0].numel() * kf_ranks(a)
 
     def kf_complex_cost(a, kw, out):
-        return 2 * nbytes(a[0]), 14 * a[0].numel()
+        return 2 * nbytes(a[0]), 14 * a[0].numel() * kf_ranks(a)
 
     def zc_cost(a, kw, out):
         return zcross_cost(a[0], out)
@@ -1676,8 +1687,13 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
     return out
 
 
-# The paths ab_compare reads by default: those whose replayed step runs KE
-AB_PATHS = ('disk', 'sphere', 'annulus')
+# The paths ab_compare reads by default: rbc256c under `fast` (K10 with
+# K12's complex select and scatter), the paths whose replayed step runs KE
+# and KF, and the complex shell's ZCross cell (KF's complex form)
+AB_PATHS = ('rbc256c-fast', 'disk', 'sphere', 'annulus', 'shell192c-zcross')
+# rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
+# host-bound loop more than a kernel does)
+AB_RBC256C_DT = 0.01
 
 
 def ab_rbc2048(steps):
@@ -1731,6 +1747,163 @@ def ab_rbc2048(steps):
                 device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
 
 
+def kf_step_launches(run, n=10):
+    """KF's launches (both forms' wrappers' counts) a step of run(n), its
+    steps replayed from their graphs."""
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    wrappers = (kf.spin_recombine, kf.spin_recombine_complex)
+    attrs = ('launches', 'launches_c128')
+    before = [getattr(w, a, 0) for w in wrappers for a in attrs]
+    run(n)
+    after = [getattr(w, a, 0) for w in wrappers for a in attrs]
+    return (sum(after) - sum(before)) / n
+
+
+def kf_calls(solver):
+    """The distinct spin recombinations of one F evaluation, through the
+    bases' own call (basis_polar.spin_recombine, and the sphere's name for
+    it), each by events and on the device (every kernel of the call) beside
+    one PyTorch call of the same recombination (kf_library)."""
+    from dedalus_tpu_torch.core import basis_polar as tbp, basis_sphere as tbs
+    recorded = []
+    saved = (tbp.spin_recombine, tbs.spin_recombine)
+
+    def recording(coordsys, tensorsig, data, azimuth_axis, forward):
+        recorded.append((coordsys, tensorsig, data, azimuth_axis, forward))
+        return saved[0](coordsys, tensorsig, data, azimuth_axis, forward)
+
+    tbp.spin_recombine = tbs.spin_recombine = recording
+    try:
+        solver.traced_F(solver.state_flat(), solver.sim_time)
+    finally:
+        tbp.spin_recombine, tbs.spin_recombine = saved
+    seen = {}
+    for coordsys, tensorsig, data, az, forward in recorded:
+        ranks = tuple(i for i, cs in enumerate(tensorsig) if cs is coordsys)
+        if ranks:
+            seen.setdefault((tuple(data.shape), data.dtype, ranks, forward),
+                            (coordsys, tensorsig, data.contiguous(), az, forward))
+    rows = []
+    for (shape, dtype, ranks, forward), (cs, sig, data, az, fw) in seen.items():
+        if data.is_complex():
+            M = tbp._unitary(cs, fw, data.device)
+        else:
+            M = torch.as_tensor(tbp.spin_matrix(cs, fw), device=data.device)
+        call = functools.partial(saved[0], cs, sig, data, az, fw)
+        library = kf_library(data, ranks, M, az)
+        rows.append(dict(shape=list(shape), complex=data.is_complex(), ranks=list(ranks),
+                         forward=forward, calls_per_F=sum(
+                             1 for c in recorded if tuple(c[2].shape) == shape
+                             and c[2].dtype == dtype and c[4] == forward),
+                         ms=cuda_ms(call, 50), device_ms=device_ms(call),
+                         library_ms=cuda_ms(library, 50), library_device_ms=device_ms(library),
+                         bound_ms=bound(2 * nbytes(data), 0)[0]))
+    return rows
+
+
+def kf_reading(path, solver, run, smi):
+    """KF on a path: its launches a replayed step, its kernel's records and
+    device ms a replayed step where the profiler names it (kf_kernel: not
+    the parent's Triton kernel, whose name it shares with other kernels),
+    and each distinct call of one F (kf_calls)."""
+    out = dict(launches_per_step=kf_step_launches(run))
+    table = step_kernel_table(solver, lambda: run(10))
+    rows = {k: v for k, v in table.items() if 'kf_kernel' in k}
+    out.update(records_per_step=sum(v[0] for v in rows.values()) if rows else None,
+               device_ms_per_step=sum(v[1] for v in rows.values()) if rows else None,
+               step_device_ms=sum(v[1] for v in table.values()), calls=kf_calls(solver))
+    print(f"[{smi}] {path}: KF {out['launches_per_step']:.2f} launches a replayed step, "
+          f"its kernel {out['device_ms_per_step']} device ms of the step's "
+          f"{out['step_device_ms']:.4f}; calls of one F "
+          + "; ".join(f"{r['shape']} ranks {r['ranks']}: {r['ms']:.4f} / {r['device_ms']} ms "
+                      f"against {r['library_ms']:.4f} / {r['library_device_ms']}"
+                      for r in out['calls']))
+    return out
+
+
+def ab_rbc256c_fast(steps, dt=AB_RBC256C_DT):
+    """rbc256c under `fast` (the complex RBC example's lines at 256x64)
+    stepped at a fixed dt: the replayed step's ms, K10's records (fft_kernel)
+    and K12's standalone ones (fourier_select_kernel, fourier_scatter_kernel:
+    none since K12's complex form rides K10) and device ms a replayed step,
+    and each distinct complex transform call of one F
+    (transforms.complex_fft_forward and _backward) by events and on the
+    device (every kernel of the call) beside torch.fft and index_select's
+    (fast_library)."""
+    from dedalus_tpu_torch.ops import transforms as otr
+    dev, kind, smi = card()
+    old = set_libraries('fast')
+    try:
+        solver, ctx = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev)
+
+        def run(n):
+            solver.run_steps(dt, n)
+
+        run(5)
+        graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+        table = step_kernel_table(solver, lambda: run(10))
+
+        def rows(*names):
+            hit = [v for k, v in table.items() if any(n in k for n in names)]
+            return [sum(v[0] for v in hit), sum(v[1] for v in hit)]
+
+        recorded = {}
+        saved = {w: getattr(otr, w) for w in ('complex_fft_forward', 'complex_fft_backward')}
+        for w, fn in saved.items():
+            def recording(data, axis, MN, Kmax, _fn=fn, _w=w):
+                recorded.setdefault((_w, tuple(data.shape), axis, MN, Kmax),
+                                    (data.contiguous(), axis, MN, Kmax))
+                return _fn(data, axis, MN, Kmax)
+            setattr(otr, w, recording)
+        try:
+            solver.traced_F(solver.state_flat(), solver.sim_time)
+        finally:
+            for w, fn in saved.items():
+                setattr(otr, w, fn)
+        calls = []
+        for (w, shape, axis, MN, Kmax), args in recorded.items():
+            call = functools.partial(saved[w], *args)
+            library = fast_library('dft_select' if w.endswith('forward') else 'dft_scatter',
+                                   args, {})
+            calls.append(dict(transform=w, shape=list(shape), axis=axis, MN=MN,
+                              ms=cuda_ms(call, 50), device_ms=device_ms(call),
+                              torch_ms=cuda_ms(library, 50), torch_device_ms=device_ms(library)))
+    finally:
+        restore_libraries(old)
+    out = dict(graph_ms_per_step=graph_ms, dt=dt, k10_step=rows('fft_kernel'),
+               k12_step=rows('fourier_select_kernel', 'fourier_scatter_kernel'),
+               records_per_step=sum(v[0] for v in table.values()),
+               device_ms_per_step=sum(v[1] for v in table.values()), calls=calls)
+    print(f"[{smi}] rbc256c-fast at dt {dt}: graph ms/step {graph_ms}; K10 a replayed step "
+          f"{out['k10_step']}, K12 standalone {out['k12_step']} (records, device ms); the "
+          f"step's device ms {out['device_ms_per_step']:.4f}")
+    return out
+
+
+def ab_shell192c_zcross(steps):
+    """shell192c-zcross (the complex shell at 192x96x12 with its Coriolis
+    term through SphericalZCross, under [memory] max_dense_stack_gb = 3)
+    from the example's initial condition taken real: the replayed step's
+    ms and KF's reading (kf_reading)."""
+    from dedalus_tpu_torch.utils.config import config
+    dev, kind, smi = card()
+    old = config.get('memory', 'max_dense_stack_gb')
+    config.set('memory', 'max_dense_stack_gb', SHELL_C['max_dense_stack_gb'])
+    try:
+        solver, ctx, _ = build_shell_c(SHELL_C['size'], dev, True)
+        set_shell_ic(ctx, shell_real_ic(SHELL_C['size']))
+
+        def run(n):
+            solver.run_steps(SHELL_C['dt'], n)
+
+        run(5)
+        graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+        kf = kf_reading('shell192c-zcross', solver, run, smi)
+    finally:
+        config.set('memory', 'max_dense_stack_gb', old)
+    return dict(graph_ms_per_step=graph_ms, kf=kf)
+
+
 def ab_ke_path(path, steps):
     """A polar or sphere path at its timed size, stepped as its example
     loop steps it (solver.step, no flow property): the replayed step's ms,
@@ -1759,14 +1932,16 @@ def ab_ke_path(path, steps):
     K, O, I = S.shape
     xt = x.view(K, 2, I).transpose(1, 2)
     call = ke_times(S, x, lambda: torch.matmul(S, xt), 2, what=what)
-    return dict(graph_ms_per_step=graph_ms, ke_step=ke_step, ke_call=call)
+    kf = kf_reading(path, solver, run, smi)
+    return dict(graph_ms_per_step=graph_ms, ke_step=ke_step, ke_call=call, kf=kf)
 
 
 def ab_side(root, paths=AB_PATHS, steps=20):
-    """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_ke_path for the
-    others) with the package of the checkout at `root` (this one, or a
-    parent's unpacked by git archive). Prints one JSON line; ab_compare runs
-    it."""
+    """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_rbc256c_fast for
+    'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross', ab_ke_path
+    for the others) with the package of the checkout at `root` (this one,
+    or a parent's unpacked by git archive). Prints one JSON line;
+    ab_compare runs it."""
     root = str(__import__('pathlib').Path(root).resolve())
     sys.path.insert(0, root)
     import dedalus_tpu_torch
@@ -1775,7 +1950,9 @@ def ab_side(root, paths=AB_PATHS, steps=20):
     dev, kind, smi = card()
     out = dict(root=root, card=smi)
     for path in paths:
-        out[path] = ab_rbc2048(steps) if path == 'rbc2048' else ab_ke_path(path, steps)
+        run = dict(rbc2048=ab_rbc2048, shell192c_zcross=ab_shell192c_zcross,
+                   rbc256c_fast=ab_rbc256c_fast).get(path.replace('-', '_'), None)
+        out[path] = run(steps) if run else ab_ke_path(path, steps)
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"ab_side": out}))
@@ -1806,12 +1983,31 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
         for path in paths:
             rs = [r[path] for r in runs]
             g = [x for r in rs for x in r['graph_ms_per_step']]
+            kf = [(r['kf']['launches_per_step'], r['kf']['device_ms_per_step'],
+                   [(c['shape'], c['ranks'], round(c['ms'], 4), c['device_ms'],
+                     round(c['library_ms'], 4), c['library_device_ms'])
+                    for c in r['kf']['calls']]) for r in rs if 'kf' in r]
+            if kf:
+                print(f"[{runs[0]['card']}] {label} {path}: KF a replayed step and its calls "
+                      f"(launches, kf_kernel device ms, [(shape, ranks, events ms, device ms, "
+                      f"library events ms, library device ms)]) {kf}")
             if path == 'rbc2048':
                 print(f"[{runs[0]['card']}] {label} rbc2048: graph ms/step {g}; K4 a replayed "
                       f"step {[r['k4_step'] for r in rs]} (records, device ms); records a step "
                       f"{[r['records_per_step'] for r in rs]}; K4 L apply "
                       f"{[round(r['k4']['L_ms'], 4) for r in rs]} ms (its kernel on the device "
                       f"{[r['k4']['L_kernel_device_ms'] for r in rs]})")
+            elif path == 'rbc256c-fast':
+                calls = [[(c['transform'][12:], c['shape'], round(c['ms'], 4), c['device_ms'],
+                           round(c['torch_ms'], 4), c['torch_device_ms']) for c in r['calls']]
+                         for r in rs]
+                print(f"[{runs[0]['card']}] {label} rbc256c-fast: graph ms/step {g}; K10 a "
+                      f"replayed step {[r['k10_step'] for r in rs]}, K12 standalone "
+                      f"{[r['k12_step'] for r in rs]} (records, device ms); the step's device "
+                      f"ms {[r['device_ms_per_step'] for r in rs]}; the transforms of one F "
+                      f"(events ms, device ms, torch.fft + index_select events, device) {calls}")
+            elif path == 'shell192c-zcross':
+                print(f"[{runs[0]['card']}] {label} shell192c-zcross: graph ms/step {g}")
             else:
                 ke = [(r['ke_step']['records_per_step'], r['ke_step']['device_ms_per_step'])
                       for r in rs]
@@ -2284,6 +2480,18 @@ def _call_key(args, kw):
     return tuple(key(v) for v in args) + tuple((k, key(v)) for k, v in sorted(kw.items()))
 
 
+def unfused_complex(wrapper, args):
+    """The complex transform of a dft_select or dft_scatter call as K10
+    alone on the card with the plain select or scatter after or before it
+    (the unfused launches the fused ones must equal bit for bit)."""
+    from dedalus_tpu_torch.ops import fft as offt
+    x, axis, MN, Kmax = args
+    if wrapper == 'dft_select':
+        return offt.fourier_select_plain(offt.dft(x, -1, axis, scale=1.0 / x.shape[axis]), axis,
+                                         MN, Kmax)
+    return offt.dft(offt.fourier_scatter_plain(x, axis, MN, Kmax), +1, axis)
+
+
 def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_names=()):
     """K10, K11a, K11b and K12 (`names`: the entries of FAST_WRAPPERS with
     calls on this path, all by default) against their plain twins on every
@@ -2294,13 +2502,16 @@ def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_nam
     for K10's complex loads; a dense matmul and solve_triangular for K11b;
     index_select for K12's complex select and scatter; none for K11a and
     K12's real pack), with the kernel's time over those calls beside it
-    (ms_where_library). `primary_names` are recorded as primary whatever
-    `primary` says."""
+    (ms_where_library). The complex transforms with K12's select or
+    scatter inside K10 are held bit for bit against the unfused K10 and the
+    plain select or scatter (their err), and within K10's tolerance of
+    their plain twin (err_vs_twin). `primary_names` are recorded as primary
+    whatever `primary` says."""
     from dedalus_tpu_torch.ops import fft as offt
     for name, wrappers in FAST_WRAPPERS.items():
         if names is not None and name not in names:
             continue
-        errs, ms, plain_ms, bnd = [], 0.0, 0.0, [0.0, 0.0]
+        errs, twin_errs, ms, plain_ms, bnd = [], [], 0.0, 0.0, [0.0, 0.0]
         lib_ms, ms_lib = None, 0.0
         shapes, by_wrapper = [], {}
         for w in wrappers:
@@ -2311,6 +2522,17 @@ def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_nam
             for args, kw in seen.values():
                 yk, yp = kfn(*args, **kw), pfn(*args, **kw)
                 torch.cuda.synchronize()
+                if w in ('dft_select', 'dft_scatter'):
+                    yu = unfused_complex(w, args)
+                    torch.cuda.synchronize()
+                    if not torch.equal(yk, yu):
+                        raise AssertionError(f"{w} {list(args[0].shape)}: the fused launch and "
+                                             f"the unfused K10 with the plain "
+                                             f"{w[4:]} differ: {rel_err(yk, yu)}")
+                    twin_errs.append(rel_err(yk, yp))
+                    if not twin_errs[-1][0] <= TOL['dft']:
+                        raise AssertionError(f"{w}: {twin_errs[-1]} from its plain twin")
+                    yp = yu
                 errs.append(rel_err(yk, yp))
                 reps = 20
                 k_ms = cuda_ms(lambda: kfn(*args, **kw), reps)
@@ -2335,7 +2557,9 @@ def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_nam
         if not errs:
             raise AssertionError(f"{name}: F made no call of its wrappers on the {path} path")
         b_ms, b_by = bound(*bnd)
+        extra = dict(err_vs_twin=max(twin_errs)) if twin_errs else {}
         record(name, path, dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                **extra,
                                 ms_where_library=ms_lib, bound_ms=b_ms, bound_by=b_by,
                                 shape=shapes, calls_checked=len(errs),
                                 ms_by_wrapper=by_wrapper, launches_per_F=per_f.get(name)),
@@ -2347,8 +2571,9 @@ def fast_library(wrapper, args, kw):
     """One PyTorch call computing a wrapper's function on the same inputs,
     or None: torch.fft for the DFT (complex in, or complex in and the real
     part out: a view), a dense matmul and torch.linalg.solve_triangular for
-    the conversion's apply and solve, index_select for the complex select
-    and scatter (without their masks)."""
+    the conversion's apply and solve, and for the complex transforms with
+    K12's select or scatter torch.fft and index_select (two calls: no one
+    call selects the ordered modes; without their masks)."""
     from dedalus_tpu_torch.ops import fft as offt
     if wrapper == 'dft':
         x, sign, axis = args[0], args[1], args[2]
@@ -2364,14 +2589,14 @@ def fast_library(wrapper, args, kw):
         if kw.get('real_out'):
             return lambda: torch.fft.ifft(x, dim=axis, norm=norm).real
         return lambda: torch.fft.ifft(x, dim=axis, norm=norm)
-    if wrapper == 'fourier_select':
-        Z, axis, M, Kmax = args
-        idx = offt._select_index(M, Z.shape[axis], Kmax, Z.device)[0]
-        return lambda: torch.index_select(Z, axis, idx)
-    if wrapper == 'fourier_scatter':
+    if wrapper == 'dft_select':
+        x, axis, M, Kmax = args
+        idx = offt._select_index(M, x.shape[axis], Kmax, x.device)[0]
+        return lambda: torch.index_select(torch.fft.fft(x, dim=axis, norm='forward'), axis, idx)
+    if wrapper == 'dft_scatter':
         c, axis, N, Kmax = args
         idx = offt._scatter_index(c.shape[axis], N, Kmax, c.device)[0]
-        return lambda: torch.index_select(c, axis, idx)
+        return lambda: torch.fft.ifft(torch.index_select(c, axis, idx), dim=axis, norm='forward')
     if wrapper in ('conversion_apply', 'conversion_solve'):
         band, x, axis = args
         if axis % x.ndim != x.ndim - 1:
@@ -3061,8 +3286,8 @@ def complex_rbc_run(lib, dev, kind, smi):
         print(f"warmup_s {warm_s:.2f} ({solver.iteration} iterations)")
 
         if lib == 'fast':
-            phase("K10, K11a, K11b and K12's complex select and scatter vs plain twins "
-                  "(every call of one F evaluation)")
+            phase("K10 (with K12's complex select and scatter in its store and load), K11a "
+                  "and K11b vs plain twins (every call of one F evaluation)")
             state, t = solver.state_flat(), solver.sim_time
             calls = capture_fast_calls(lambda: solver.traced_F(state, t))
             per_f = {name: sum(len(calls[w]) for w in ws)
@@ -3221,53 +3446,65 @@ def complex_rbc_path():
 
 
 def complex_transform_times(calls, smi):
-    """The whole ComplexFourier transform of each distinct select and
-    scatter call of one F (K10 with K12's complex form) beside torch.fft's
-    (fft / N and index_select; index_copy into zeros and ifft times N), at
-    the same shapes: ms per call, and the bound of the K12 part alone (the
-    retained values of each line read, its M or N points written once:
-    k12_complex_bytes)."""
-    from dedalus_tpu_torch.ops import transforms as otr, fft as offt
+    """The whole ComplexFourier transform of each distinct dft_select and
+    dft_scatter call of one F (K10 with K12's select in its store or its
+    scatter in its load) by events and on the device (its K10 records),
+    beside torch.fft and index_select's at the same shapes (fft with
+    norm='forward' then index_select; index_select then ifft with
+    norm='forward'; fast_library) measured the same ways, and its byte
+    bound (fused_complex_bytes); then the fused forms on a line past one
+    block (FUSED_LONG: two launches each), bit for bit against the unfused
+    launches."""
+    from dedalus_tpu_torch.ops import fft as offt
     rows = []
-    for w in ('fourier_select', 'fourier_scatter'):
+    for w in ('dft_select', 'dft_scatter'):
         seen = {}
         for args, kw in calls[w]:
             seen.setdefault(_call_key(args, kw), args)
         for args in seen.values():
-            if w == 'fourier_select':
-                Z, axis, M, Kmax = args
-                N = Z.shape[axis]
-                idx, valid = offt._select_index(M, N, Kmax, Z.device)
-                vshape = [1] * Z.ndim
-                vshape[axis] = M
-                vmask = valid.reshape(vshape)
-                kernel = lambda: otr.complex_fft_forward(Z, axis, M, Kmax)
-                library = lambda: torch.index_select(torch.fft.fft(Z, dim=axis) / N, axis,
-                                                     idx) * vmask
-                out = offt.fourier_select(Z, axis, M, Kmax)
-                lines = Z.numel() // N
-            else:
-                c, axis, N, Kmax = args
-                M = c.shape[axis]
-                idx, valid = offt._scatter_index(M, N, Kmax, c.device)
-                vshape = [1] * c.ndim
-                vshape[axis] = N
-                vmask = valid.reshape(vshape)
-                kernel = lambda: otr.complex_fft_backward(c, axis, N, Kmax)
-                library = lambda: torch.fft.ifft(torch.index_select(c, axis, idx) * vmask,
-                                                 dim=axis, norm='forward')
-                out = offt.fourier_scatter(c, axis, N, Kmax)
-                lines = c.numel() // M
-            row = dict(wrapper=w, shape=list(args[0].shape), N=N, M=M, lines=lines,
-                       transform_ms=cuda_ms(kernel, 20), torch_fft_ms=cuda_ms(library, 20),
-                       k12_bound_ms=bound(k12_complex_bytes(w, args[0].shape, axis, N, M,
-                                                            args[3]), 0)[0])
+            x, axis, MN, Kmax = args
+            N, M = (x.shape[axis], MN) if w == 'dft_select' else (MN, x.shape[axis])
+            kernel = functools.partial(getattr(offt, w), *args)
+            library = fast_library(w, args, {})
+            row = dict(wrapper=w, shape=list(x.shape), N=N, M=M,
+                       lines=x.numel() // x.shape[axis], ms=cuda_ms(kernel, 20),
+                       device_ms=device_ms(kernel, 20, 'fft_kernel'),
+                       torch_ms=cuda_ms(library, 20), torch_device_ms=device_ms(library, 20),
+                       bound_ms=bound(*fast_cost(w, args, {}, None))[0])
             rows.append(row)
-            print(f"  ComplexFourier {'forward' if w == 'fourier_select' else 'backward'} "
-                  f"{row['shape']} (N={N}, M={M}): K10 + K12 {row['transform_ms']:.4f} ms, "
-                  f"torch.fft {row['torch_fft_ms']:.4f} ms; K12 bound "
-                  f"{row['k12_bound_ms']:.4f} ms", flush=True)
-    print(json.dumps({"complex_fourier_transforms": rows, "card": smi}))
+            print(f"  ComplexFourier {'forward' if w == 'dft_select' else 'backward'} "
+                  f"{row['shape']} (N={N}, M={M}): K10 with K12's "
+                  f"{'select' if w == 'dft_select' else 'scatter'} {row['ms']:.4f} ms, on the "
+                  f"device {row['device_ms']}; torch.fft + index_select {row['torch_ms']:.4f} ms, "
+                  f"on the device {row['torch_device_ms']}; bound {row['bound_ms']:.4f} ms",
+                  flush=True)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    crand = lambda shape: torch.complex(
+        torch.randn(shape, generator=gen, dtype=torch.float64, device=dev),
+        torch.randn(shape, generator=gen, dtype=torch.float64, device=dev))
+    N, M, Kmax = FUSED_LONG['N'], FUSED_LONG['M'], FUSED_LONG['Kmax']
+    long_rows = []
+    for shape in FUSED_LONG['shapes']:
+        for w, x in (('dft_select', crand(shape)),
+                     ('dft_scatter', crand(shape[:1] + (M,) + shape[2:]))):
+            args = (x, 1, M if w == 'dft_select' else N, Kmax)
+            fn = getattr(offt, w)
+            n0 = fn.launches
+            y = fn(*args)
+            launches = fn.launches - n0
+            yu = unfused_complex(w, args)
+            torch.cuda.synchronize()
+            if launches != 2 or not torch.equal(y, yu):
+                raise AssertionError(f"{w} {shape}: {launches} launches, fused against unfused "
+                                     f"{rel_err(y, yu)}")
+            long_rows.append(dict(wrapper=w, shape=list(x.shape), launches=launches,
+                                  ms=cuda_ms(functools.partial(fn, *args), 10)))
+    print(f"  the fused forms at N = {N} (two launches each), bit for bit against the "
+          f"unfused: {long_rows}")
+    print(json.dumps({"complex_fourier_transforms": rows, "two_launch_lines": long_rows,
+                      "card": smi}))
+    return rows
 
 
 def run_ms(solver, run, eager=False):
@@ -3484,6 +3721,66 @@ def ke_times(S, x, library, flops_per, **extra):
     return r
 
 
+def kf_library(x, ranks, M, az=None):
+    """One PyTorch call of KF's recombination of x over the leading ranks
+    `ranks` ((0,) or (0, 1)): on complex data one tensordot with U (or
+    with U x U over two ranks); on real data one einsum with the (C, 2, C,
+    2) expansion of W (identity on a radial component), or over two ranks
+    with the product of the two expanded operators (they share the pair
+    slot: einsum 'bqdr,arcp->abqcdp')."""
+    C = x.shape[0]
+    if x.is_complex():
+        if len(ranks) == 1:
+            return lambda: torch.tensordot(M, x, dims=([1], [0]))
+        U2 = torch.einsum('ac,bd->abcd', M, M)
+        return lambda: torch.tensordot(U2, x, dims=([2, 3], [0, 1]))
+    Wc = torch.eye(2 * C, dtype=torch.float64, device=x.device)
+    Wc[:4, :4] = M
+    Wc = Wc.view(C, 2, C, 2)
+    nr = len(ranks)
+    mid = int(np.prod(x.shape[nr:az], dtype=np.int64))
+    K, N = x.shape[az] // 2, int(np.prod(x.shape[az + 1:], dtype=np.int64))
+    xv = x.view((C,) * nr + (mid, K, 2, N))
+    if nr == 1:
+        return lambda: torch.einsum('cpCP,CmkPn->cmkpn', Wc, xv)
+    W2 = torch.einsum('bqdr,arcp->abqcdp', Wc, Wc)
+    return lambda: torch.einsum('abqcdp,cdmkpn->abmkqn', W2, xv)
+
+
+def kf_times(x, ranks, M, az=None, what=''):
+    """KF on x over `ranks` (real data: W (4, 4) and the azimuth axis
+    `az`; complex: U) against its plain twin, two launches compared bit for
+    bit, its time by events and on the device (its own kernel) beside one
+    PyTorch call of the same recombination (kf_library, checked against
+    the twin) measured the same ways, and its byte bound (each element read
+    and written once)."""
+    from dedalus_tpu_torch.csrc import spin_recombine as kf
+    if x.is_complex():
+        run = lambda: kf.spin_recombine_complex(x, ranks, M)
+        plain = lambda: kf.spin_recombine_complex_plain(x, ranks, M)
+    else:
+        run = lambda: kf.spin_recombine(x, ranks, az, M)
+        plain = lambda: kf.spin_recombine_plain(x, ranks, az, M)
+    library = kf_library(x, ranks, M, az)
+    yk, yk2, yp, yl = run(), run(), plain(), library()
+    torch.cuda.synchronize()
+    if not torch.equal(yk, yk2):
+        raise AssertionError(f"KF {list(x.shape)} ranks {ranks}: two launches disagree")
+    if not rel_err(yl.reshape(yp.shape), yp)[0] <= 1e-14:
+        raise AssertionError(f"KF's library call disagrees: {rel_err(yl.reshape(yp.shape), yp)}")
+    ops = (14 if x.is_complex() else 7) * x.numel() * len(ranks)
+    r = dict(err=rel_err(yk, yp), shape=list(x.shape), ranks=list(ranks), what=what,
+             ms=cuda_ms(run, 50), device_ms=device_ms(run, name='kf_kernel'),
+             plain_ms=cuda_ms(plain, 50), library_ms=cuda_ms(library, 50),
+             library_device_ms=device_ms(library),
+             **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(x, yk, M), ops))))
+    print(f"KF {list(x.shape)} {x.dtype} ranks {list(ranks)} ({what}): events {r['ms']:.4f} "
+          f"against the library's {r['library_ms']:.4f} ms; on the device {r['device_ms']} "
+          f"against {r['library_device_ms']} (bound {r['bound_ms']:.4f}, {r['bound_by']}); "
+          f"rel_err {r['err'][0]:.2e}")
+    return r
+
+
 def polar_ke_case(geometry, ctx):
     """KE's checked call on a polar or sphere path: (S, x, what), the disk's
     backward radial transform stack or the sphere's backward SWSH stack (the
@@ -3563,7 +3860,6 @@ def check_polar_kernels(geometry, ctx):
     rank-2 recombination of grad(u) and the rank-1 recombination of u on
     the dealias grid."""
     from dedalus_tpu_torch.ops import polar as opolar
-    from dedalus_tpu_torch.csrc import spin_recombine as kf
     from dedalus_tpu_torch.core.basis_polar import spin_matrix
     u = ctx['u']
     basis = ctx['basis']
@@ -3580,23 +3876,16 @@ def check_polar_kernels(geometry, ctx):
     ke['err'] = max(ke['err'], rel_err(ak, ap))
     ke['ms_accumulate'] = cuda_ms(lambda: opolar.polar_apply(S, x, out=base, accumulate=True),
                                   50)
-    # KF: grad(u) on the dealias grid, (2, 2, M, N_grid), rank 0; and u, (2, M, N_grid)
+    # KF: grad(u) on the dealias grid, (2, 2, M, N_grid), both ranks in one
+    # launch; and u, (2, M, N_grid), rank 0
     M = u['c'].shape[1]
     Ng = second.grid_size(basis.dealias[1])
     xg = torch.randn((2, 2, M, Ng), generator=gen, dtype=torch.float64, device=dev)
     W = torch.as_tensor(spin_matrix(basis.coordsys, False), device=dev)
-    fk = kf.spin_recombine(xg, 0, 2, W)
-    fp = kf.spin_recombine_plain(xg, 0, 2, W)
-    f1k = kf.spin_recombine(xg[0], 0, 1, W)
-    f1p = kf.spin_recombine_plain(xg[0], 0, 1, W)
-    torch.cuda.synchronize()
-    d4 = xg.view(2, 2, M // 2, 2, Ng).movedim(3, 1).reshape(4, -1).contiguous()
-    kfr = dict(
-        err=max(rel_err(fk, fp), rel_err(f1k, f1p)), shape=list(xg.shape),
-        ms=cuda_ms(lambda: kf.spin_recombine(xg, 0, 2, W), 50),
-        plain_ms=cuda_ms(lambda: kf.spin_recombine_plain(xg, 0, 2, W), 50),
-        library_ms=cuda_ms(lambda: torch.tensordot(W, d4, dims=([1], [0])), 50),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(xg, W, fk), 7 * xg.numel()))))
+    kfr = kf_times(xg, (0, 1), W, 2, what='grad(u) on the dealias grid, both ranks')
+    kf1 = kf_times(xg[0].contiguous(), (0,), W, 1, what='u on the dealias grid')
+    kfr['err'] = max(kfr['err'], kf1['err'])
+    kfr['rank1'] = {k: kf1[k] for k in DEVICE_KEYS}
     check_tolerances({'polar_apply': ke, 'spin_recombine': kfr})
     return ke, kfr
 
@@ -3979,7 +4268,7 @@ def check_ball_kernels(solver, ctx):
     itself is ~0 at r=1, where a relative error means nothing)."""
     import dedalus_tpu_torch.public as d3
     from dedalus_tpu_torch.ops import ball as oball, polar as opolar
-    from dedalus_tpu_torch.csrc import regularity_recombine as ki, spin_recombine as kf
+    from dedalus_tpu_torch.csrc import regularity_recombine as ki
     from dedalus_tpu_torch.core.basis import device_copy
     from dedalus_tpu_torch.core.basis_polar import spin_matrix
     u, ball = ctx['u'], ctx['ball']
@@ -4078,27 +4367,15 @@ def check_ball_kernels(solver, ctx):
                   what="u(r=1)'s interpolation block (eager: the walls)")
     record('polar_apply', 'ball', ke, False, keys=DEVICE_KEYS)
 
-    # KF, spherical form: grad(u) on the dealias grid, rank 0 (r passes through)
+    # KF, spherical form: grad(u) on the dealias grid, both ranks in one
+    # launch (r passes through: 18 values a position), and u, rank 0
     xg = rand((3, 3, ball.azimuth_basis.grid_size(ball.dealias[0]), Lg, Ng))
     W = torch.as_tensor(spin_matrix(ball.coordsys, False), device=dev)
-    fk, fp = kf.spin_recombine(xg, 0, 2, W), kf.spin_recombine_plain(xg, 0, 2, W)
-    # The library call: one einsum with the 6x6 (component, pair) matrix,
-    # W's 4x4 on the angular components and the identity on r
-    W6 = torch.eye(6, dtype=torch.float64, device=dev)
-    W6[:4, :4] = W
-    W6 = W6.view(3, 2, 3, 2)
-    xv = xg.view(3, 3, xg.shape[2] // 2, 2, Lg * Ng)
-    lib = torch.einsum('cpCP,CbkPn->cbkpn', W6, xv).reshape(xg.shape)
-    torch.cuda.synchronize()
-    if not rel_err(lib, fp)[0] <= 1e-14:
-        raise AssertionError(f"KF's library call disagrees: {rel_err(lib, fp)}")
-    record('spin_recombine', 'ball', dict(
-        err=rel_err(fk, fp), shape=list(xg.shape),
-        ms=cuda_ms(lambda: kf.spin_recombine(xg, 0, 2, W), 50),
-        plain_ms=cuda_ms(lambda: kf.spin_recombine_plain(xg, 0, 2, W), 50),
-        library_ms=cuda_ms(lambda: torch.einsum('cpCP,CbkPn->cbkpn', W6, xv), 50),
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(xg, W, fk), 7 * xg.numel() * 2 // 3)))),
-        False)
+    kfr = kf_times(xg, (0, 1), W, 2, what='grad(u) on the dealias grid, both ranks')
+    kf1 = kf_times(xg[0].contiguous(), (0,), W, 1, what='u on the dealias grid')
+    kfr['err'] = max(kfr['err'], kf1['err'])
+    kfr['rank1'] = {k: kf1[k] for k in DEVICE_KEYS}
+    record('spin_recombine', 'ball', kfr, False, keys=DEVICE_KEYS)
 
 
 def ball_path(steps=BALL['steps']):
@@ -4696,8 +4973,8 @@ def check_complex_shell_kernels(path, solver, ctx, u_f64):
     import dedalus_tpu_torch.public as d3
     from dedalus_tpu_torch.ops import shell as oshell, products as oprod, ball as oball
     from dedalus_tpu_torch.ops import polar as opolar
-    from dedalus_tpu_torch.csrc import (regularity_recombine as ki, spin_recombine as kf,
-                                        zcross as kz, history_combine as hc)
+    from dedalus_tpu_torch.csrc import (regularity_recombine as ki, zcross as kz,
+                                        history_combine as hc)
     from dedalus_tpu_torch.core.basis import device_copy
     from dedalus_tpu_torch.core.basis_polar import _unitary
     from dedalus_tpu_torch.core.operators_ball import SphericalZCross
@@ -4743,22 +5020,20 @@ def check_complex_shell_kernels(path, solver, ctx, u_f64):
         raise AssertionError(f"zcross (float64) disagrees with its twin: {rel_err(zk64, zp64)}")
 
     # KF's complex form: the colatitude transform's input of u (rank 1) and
-    # of grad(u) (rank 2, each rank)
+    # of grad(u) (rank 2, both ranks in one launch); a polar tensor's rank 1
+    # and 2 (C = 2) at the same grid
     U = _unitary(shell.coordsys, True, dev)
     x1, x2 = crand((3, M, Lg, Ng)), crand((3, 3, M, Lg, Ng))
-    pairs = [(kf.spin_recombine_complex(x1, 0, U), kf.spin_recombine_complex_plain(x1, 0, U))]
-    for rank in (0, 1):
-        pairs.append((kf.spin_recombine_complex(x2, rank, U),
-                      kf.spin_recombine_complex_plain(x2, rank, U)))
-    torch.cuda.synchronize()
-    record('spin_recombine_c128', path, dict(
-        err=max(rel_err(a, b) for a, b in pairs), shape=list(x1.shape),
-        what="u's colatitude input, rank 1 (3 x M x L_g x N_g), forward",
-        ms=cuda_ms(lambda: kf.spin_recombine_complex(x1, 0, U), 50),
-        plain_ms=cuda_ms(lambda: kf.spin_recombine_complex_plain(x1, 0, U), 50),
-        library_ms=cuda_ms(lambda: torch.tensordot(U, x1, dims=([1], [0])), 50),
-        **dict(zip(('bound_ms', 'bound_by'), bound(2 * nbytes(x1) + nbytes(U),
-                                                   14 * x1.numel() * 2 // 3)))), True)
+    kfc = kf_times(x1, (0,), U, what="u's colatitude input, rank 1, forward")
+    kf2 = kf_times(x2, (0, 1), U, what="grad(u)'s colatitude input, both ranks, forward")
+    Up = _unitary(d3.PolarCoordinates('phi', 'r'), False, dev)
+    kfp = [kf_times(crand((2,) * nr + (M, Lg * Ng)), tuple(range(nr)), Up,
+                    what=f"a polar rank-{nr} tensor, backward") for nr in (1, 2)]
+    kfc['err'] = max([kfc['err'], kf2['err']] + [r['err'] for r in kfp])
+    kfc['rank2'] = {k: kf2[k] for k in DEVICE_KEYS}
+    kfc['polar'] = [{k: r[k] for k in DEVICE_KEYS} for r in kfp]
+    record('spin_recombine_c128', path, kfc, True,
+           keys=DEVICE_KEYS + ('rank2', 'polar'))
 
     # KE, signed form: the backward SWSH stack of spin 0, trailing, on the
     # three spin-0 components of grad(u); the per-m form on the same stack
@@ -6333,7 +6608,8 @@ def main():
              'override_ms', 'override_plain_ms', 'override_bound_ms', 'launches_per_F',
              'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned',
              'err_f64', 'ms_f64', 'library_device_ms', 'forms', 'step_set', 'per_group',
-             'device_ms_where_library', 'calls')
+             'device_ms_where_library', 'calls', 'err_vs_twin', 'rank1', 'rank2', 'polar',
+             'ranks')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

@@ -103,13 +103,15 @@ def spin_matrix(coordsys, forward):
 
 
 def _unitary(coordsys, forward, device):
-    """The complex coord<->spin unitary on `device` (its radial row and
-    column, for a spherical system, the identity's)."""
+    """The complex coord<->spin unitary on `device`, contiguous (KF reads it
+    by rows; its radial row and column, for a spherical system, the
+    identity's)."""
     key = (type(coordsys).__name__, forward, str(device), 'complex')
     if key not in _W_CACHE:
         U = coordsys.U_forward(1) if forward else coordsys.U_backward(1)
         spin_matrix(coordsys, forward)     # checks the radial pass-through
-        _W_CACHE[key] = torch.as_tensor(np.asarray(U, dtype=np.complex128), device=device)
+        _W_CACHE[key] = torch.as_tensor(np.ascontiguousarray(U, dtype=np.complex128),
+                                        device=device)
     return _W_CACHE[key]
 
 
@@ -118,29 +120,21 @@ def spin_recombine(coordsys, tensorsig, data, azimuth_axis, forward):
     Apply the coord<->spin unitary over each tensor rank of `coordsys`: on
     real data whose azimuth axis (`azimuth_axis`, counted in the full data
     array) holds interleaved (cos, -sin) pairs through the pair expansion W,
-    on complex data (signed slots) as the complex unitary itself. A rank-2
-    tensor is recombined rank by rank. Each rank is one launch of kernel KF
-    (its complex form for complex data); the radial component of a
-    spherical rank passes through it.
+    on complex data (signed slots) as the complex unitary itself. The ranks
+    are recombined in order, all in one launch of kernel KF (its complex
+    form for complex data); the radial component of a spherical rank passes
+    through it.
     """
-    if not any(cs is coordsys for cs in tensorsig):
+    ranks = tuple(i for i, cs in enumerate(tensorsig) if cs is coordsys)
+    if not ranks:
         return data
     if data.is_complex():
         U = _unitary(coordsys, forward, data.device)
-        data = data.contiguous()
-        for i, cs in enumerate(tensorsig):
-            if cs is coordsys:
-                data = kf.spin_recombine_complex(data, i, U)
-        return data
+        return kf.spin_recombine_complex(data.contiguous(), ranks, U)
     key = (type(coordsys).__name__, forward, str(data.device))
     if key not in _W_CACHE:
         _W_CACHE[key] = torch.as_tensor(spin_matrix(coordsys, forward), device=data.device)
-    W = _W_CACHE[key]
-    data = data.contiguous()
-    for i, cs in enumerate(tensorsig):
-        if cs is coordsys:
-            data = kf.spin_recombine(data, i, azimuth_axis, W)
-    return data
+    return kf.spin_recombine(data.contiguous(), ranks, azimuth_axis, _W_CACHE[key])
 
 
 def _comp_spin_map(cs, tensorsig):

@@ -80,8 +80,9 @@ SIGNATURES = {
         'k11_dct3_post_f64': [_P] * 2 + [_I] * 4 + [_P],
         'k12_fourier_pack_f64': [_P] * 4 + [_I] * 6 + [_D] * 2 + [_P],
         'k12_fourier_unpack_f64': [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I, _P],
-        'k12_fourier_select_c128': [_P] * 2 + [_I] * 5 + [_P],
-        'k12_fourier_scatter_c128': [_P] * 2 + [_I] * 5 + [_P],
+    },
+    'spin_kernels': {
+        'kf_spin_recombine': [_P, _P],
     },
     'conversion_kernels': {
         'k11_conversion_apply_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],

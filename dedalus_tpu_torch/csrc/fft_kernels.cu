@@ -12,6 +12,10 @@
 //        dedalus_tpu/ops/transforms.py:77 real_fft_forward and :113
 //        real_fft_backward around the DFT (with rfft64_split's even/odd unpack
 //        and irfft64_split's Hermitian extension).
+//        K12's complex form (dedalus_tpu/ops/transforms.py:45
+//        complex_fft_forward, :60 complex_fft_backward) has no kernel of its
+//        own: the select of the ordered modes is K10's select store and the
+//        scatter into the zero-padded spectrum K10's scatter load (below).
 //
 // Layout: every operand is a contiguous array read as (outer, L, inner), L
 // the transform axis: element (o, l, i) at (o * L + l) * inner + i. The
@@ -25,7 +29,8 @@
 // points in shared memory and transforms them in place:
 //   - load: each line read once. Along a strided axis (inner > 1) the block
 //     takes ti adjacent lines of the inner index, ti >= 4 complex or 8 real
-//     lines, so a warp reads rows of >= 64 contiguous bytes; the lines
+//     lines, so a warp reads rows of >= 64 contiguous bytes (2 complex or 4
+//     real where the lines are too few to give every SM a block); the lines
 //     interleave in shared memory (point p of line l at p * ti + l), which
 //     spreads a warp's accesses over the banks. Along the last axis the
 //     lines lie one after another (l * L + swz(p)): swz permutes each full
@@ -50,6 +55,21 @@
 //     on the same kernel). Then the optional four-step twiddle, the scale,
 //     and the complex or real (Re) store, each line written once, coalesced
 //     across adjacent lines as the load.
+// K12's complex form rides K10 (ops/fft.py dft_select, dft_scatter):
+//   - the select store (mode 1) writes, instead of the line's N points, the
+//     M ordered slots of the output line: the global spectrum point s (s = k
+//     on one launch, s = k1 + N1 k2 on the second launch of the four-step
+//     split) goes to slot s where s <= kpos and to slot s - N + M where
+//     s >= N - kneg, through pos and the tail sum exactly as the plain store
+//     (so the fused transform equals K10 followed by the select bit for
+//     bit); the slots between the two ranges are zero, written by the
+//     lines of each four-step index k1 in turn;
+//   - the scatter load (mode 2) reads, for point n of the global line
+//     (n = n1 N2 + n2 on the first launch of the split), the coefficient
+//     of k = n (n <= N/2) or n - N, at slot k mod M, where -kneg <= k <=
+//     kpos, and loads zero elsewhere.
+// Neither moves more than the plain launch's own reads and writes: the
+// round trip of the N-point spectrum through device memory is gone.
 // Lines too long for one block's 225 KB (past 11520 points: 16 bytes a
 // point and 4 of its position) run as two
 // launches of this kernel around the four-step split N = N1 N2: the first
@@ -67,10 +87,7 @@
 // K11a and K12 are elementwise passes with an index remap: one thread per
 // output point in a grid-stride loop, each output written once, each input
 // read once or twice (DCT-III pre reads x[k] and x[N - k]; K12's even/odd
-// unpack reads Z[k] and Z[N/2 - k]); bound by bytes. K12's complex form is
-// a gather both ways: the select reads the M retained points of each
-// length-N line, the scatter writes all N points of each line (zero where
-// no coefficient lands), so neither needs a zeroing pass or atomics.
+// unpack reads Z[k] and Z[N/2 - k]); bound by bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +102,7 @@ constexpr int K10_MAX_LINES = 64;
 // Dynamic shared memory of one block: the 227 KB a block may use less 2 KB
 // for the per-line tables
 constexpr int K10_SMEM_MAX = 230400;
-constexpr int K10_NFIELDS = 22;         // the integer launch parameters (K10_FIELDS)
+constexpr int K10_NFIELDS = 27;         // the integer launch parameters (K10_FIELDS)
 constexpr int EW_THREADS = 256;
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
@@ -97,7 +114,8 @@ __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
 // (ob / in_od) in_o1 + (ob % in_od) in_o2 + (j / in_idiv) in_imul
 // + j % in_idiv + n in_n (in loaded elements; a packed load's imaginary part
 // in_pair after) and writes point k at
-// (ob / out_od) out_o1 + (ob % out_od) out_o2 + j + k out_k.
+// (ob / out_od) out_o1 + (ob % out_od) out_o2 + j + k out_k (the select
+// store: slot m at (ob / out_od) out_o1 + j + m out_k, out_o2 = 0).
 struct K10Args {
     const void* x;
     void* y;
@@ -109,6 +127,10 @@ struct K10Args {
     i64 in_o1, in_o2, in_n, in_pair, in_imul, out_o1, out_o2, out_k;
     int L, npass, tail, load, real_out, outer, inner, ti, in_od, in_idiv, out_od, tw4_div,
         tw4_n;
+    // K12's complex form: mode 0 none, 1 the select store, 2 the scatter
+    // load; the M ordered slots (modes), the retained wavenumbers
+    // -kneg..kpos, and the global line length gN
+    int mode, modes, kpos, kneg, gN;
     double sign, scale;
 };
 
@@ -241,12 +263,14 @@ __device__ __forceinline__ void fft_pass(double2* sm, bool strided, int ti, int 
 
 // Three block sizes, each at 64 registers a thread: 1024 threads where one
 // block fills an SM's shared memory, 256 (four blocks an SM) where a block
-// takes at most a quarter of it, 512 between
-template <int THREADS>
+// takes at most a quarter of it, 512 between. MODE (a.mode: K12's complex
+// form, none, the select store or the scatter load) is a template
+// parameter, so the plain launch keeps its registers
+template <int THREADS, int MODE>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10Args a) {
     extern __shared__ double2 sm[];
     __shared__ i64 in_base[K10_MAX_LINES], out_base[K10_MAX_LINES];
-    __shared__ int line_q[K10_MAX_LINES];
+    __shared__ int line_q[K10_MAX_LINES], line_k1[K10_MAX_LINES];
     __shared__ bool line_ok[K10_MAX_LINES];
     const bool strided = a.inner > 1;
     const int L = a.L, ti = a.ti;
@@ -272,6 +296,7 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10A
                      + (i64)(j / a.in_idiv) * a.in_imul + j % a.in_idiv;
         out_base[l] = oo * a.out_o1 + (ob - oo * a.out_od) * a.out_o2 + j;
         line_q[l] = a.tw4 ? j / a.tw4_div : 0;
+        line_k1[l] = (int)(ob - oo * a.out_od);
     }
     __syncthreads();
     // Each thread issues K10_LOAD_BATCH loads before it stores them to
@@ -282,6 +307,7 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10A
     int* pos = reinterpret_cast<int*>(sm + ti * L);
     for (int i = threadIdx.x; i < Lr; i += blockDim.x) pos[i] = __ldg(a.pos + i);
     const double* xd = static_cast<const double*>(a.x);
+    const int gstride = MODE == 2 ? a.gN / L : 1;       // the scatter's n -> global n
     for (int u0 = threadIdx.x; u0 < total; u0 += K10_LOAD_BATCH * blockDim.x) {
         double2 v[K10_LOAD_BATCH];
         int at_sm[K10_LOAD_BATCH];
@@ -300,8 +326,17 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10A
                     n = u - l * L;
                 }
                 at_sm[q] = slot(strided, ti, L, l, n);
-                if (line_ok[l]) {
-                    const i64 at = in_base[l] + (i64)n * a.in_n;
+                int m = n;
+                bool ok = line_ok[l];
+                if constexpr (MODE == 2) {
+                    // the coefficient of k = n or n - N of the global line, or zero
+                    const int ng = n * gstride + line_q[l];
+                    const int k = ng <= (a.gN >> 1) ? ng : ng - a.gN;
+                    ok = ok && k <= a.kpos && -k <= a.kneg;
+                    m = k >= 0 ? k : k + a.modes;
+                }
+                if (ok) {
+                    const i64 at = in_base[l] + (i64)m * a.in_n;
                     if (a.load == 0) {
                         v[q] = __ldg(static_cast<const double2*>(a.x) + at);
                     } else if (a.load == 1) {
@@ -329,17 +364,40 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10A
         }
         __syncthreads();
     }
+    // The store: each of the line's L points, and under the select store
+    // the line's share of the zero slots after them (zl items a line)
+    constexpr bool sel = MODE == 1;
+    int nzero = 0, Lx = L;
+    if constexpr (sel) {
+        nzero = a.modes - a.kpos - a.kneg - 1;
+        Lx = L + (nzero + a.out_od - 1) / a.out_od;
+    }
     const FastDiv by_Lr(Lr);
-    for (int u = threadIdx.x; u < total; u += blockDim.x) {
+    const FastDiv by_Lx = sel ? FastDiv(Lx) : by_L;
+    for (int u = threadIdx.x; u < (sel ? ti * Lx : total); u += blockDim.x) {
         int l, k;
         if (strided) {
             l = u & (ti - 1);
             k = u >> ti_shift;
         } else {
-            l = by_L.div(u);
-            k = u - l * L;
+            l = by_Lx.div(u);
+            k = u - l * Lx;
         }
         if (!line_ok[l]) continue;
+        int dst = k;
+        if constexpr (sel) {
+            if (k >= L) {
+                const int z = line_k1[l] + a.out_od * (k - L);
+                if (z < nzero)
+                    static_cast<double2*>(a.y)[out_base[l] + (i64)(a.kpos + 1 + z) * a.out_k] =
+                        make_double2(0.0, 0.0);
+                continue;
+            }
+            // the slot of global spectrum point s, or none
+            const int s = line_k1[l] + a.out_od * k;
+            dst = s <= a.kpos ? s : (s >= a.gN - a.kneg ? s - a.gN + a.modes : -1);
+            if (dst < 0) continue;
+        }
         const int kt = tail > 1 ? by_Lr.div(k) : 0;
         const int p0 = pos[k - kt * Lr];
         double2 v = sm[slot(strided, ti, L, l, p0)];
@@ -347,7 +405,7 @@ __global__ void __launch_bounds__(THREADS, 1024 / THREADS) fft_kernel(const K10A
             v = cadd(v, cmul(sm[slot(strided, ti, L, l, p0 + n2)],
                              __ldg(a.root + ((n2 * kt) % tail) * Lr)));
         if (a.tw4) v = cmul(v, __ldg(a.tw4 + ((i64)line_q[l] * k) % a.tw4_n));
-        const i64 at = out_base[l] + (i64)k * a.out_k;
+        const i64 at = out_base[l] + (i64)dst * a.out_k;
         if (a.real_out) {
             static_cast<double*>(a.y)[at] = a.scale * v.x;
         } else {
@@ -480,69 +538,38 @@ __global__ void fourier_unpack_kernel(const double* __restrict__ c, double2* __r
     }
 }
 
-// K12 complex, forward: out[m] = Z[k >= 0 ? k : N + k] for the ordered
-// wavenumber k of slot m when |k| <= Kmax, else 0 (the index is clipped
-// into the line first, as the reference's jnp.clip; its mask zeroes it).
-__global__ void fourier_select_kernel(const double2* __restrict__ Z, double2* __restrict__ out,
-                                      i64 total, int N, int M, int inner, int Kmax) {
-    const int KM = (M - 1) / 2;
-    GRID_STRIDE(t, total) {
-        const i64 i = t % inner, r = t / inner;
-        const int m = (int)(r % M);
-        const i64 o = r / M;
-        const int k = (m + KM) % M - KM;
-        double2 v = make_double2(0.0, 0.0);
-        if (k <= Kmax && -k <= Kmax) {
-            int src = k >= 0 ? k : N + k;
-            src = src < 0 ? 0 : (src > N - 1 ? N - 1 : src);
-            v = __ldg(Z + (o * N + src) * inner + i);
-        }
-        out[t] = v;
-    }
-}
-
-// K12 complex, backward: full[n] = c[k mod M] with k = n (n <= N/2) or
-// n - N, where |k| <= min(Kmax, KM); 0 elsewhere.
-__global__ void fourier_scatter_kernel(const double2* __restrict__ c, double2* __restrict__ full,
-                                       i64 total, int M, int N, int inner, int Kmax) {
-    const int KM = (M - 1) / 2;
-    const int kmax = Kmax < KM ? Kmax : KM;
-    GRID_STRIDE(t, total) {
-        const i64 i = t % inner, r = t / inner;
-        const int n = (int)(r % N);
-        const i64 o = r / N;
-        const int k = n <= N / 2 ? n : n - N;
-        double2 v = make_double2(0.0, 0.0);
-        if (k <= kmax && -k <= kmax) {
-            const int m = k >= 0 ? k : M + k;
-            v = __ldg(c + (o * M + m) * inner + i);
-        }
-        full[t] = v;
-    }
-}
-
 }  // namespace
 
-template <int THREADS>
-int launch_fft(const K10Args& a, i64 blocks, size_t smem, cudaStream_t stream) {
+template <int THREADS, int MODE>
+int launch_fft_mode(const K10Args& a, i64 blocks, size_t smem, cudaStream_t stream) {
     // Static and dynamic shared memory together past 48 KB need the
     // attribute: set it at the first launch
     static bool smem_set = false;
     if (!smem_set) {
         cudaError_t err = cudaFuncSetAttribute(
-            fft_kernel<THREADS>, cudaFuncAttributeMaxDynamicSharedMemorySize, K10_SMEM_MAX);
+            fft_kernel<THREADS, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            K10_SMEM_MAX);
         if (err != cudaSuccess) return (int)err;
         smem_set = true;
     }
-    fft_kernel<THREADS><<<(unsigned)blocks, THREADS, smem, stream>>>(a);
+    fft_kernel<THREADS, MODE><<<(unsigned)blocks, THREADS, smem, stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <int THREADS>
+int launch_fft(const K10Args& a, i64 blocks, size_t smem, cudaStream_t stream) {
+    switch (a.mode) {
+        case 1: return launch_fft_mode<THREADS, 1>(a, blocks, smem, stream);
+        case 2: return launch_fft_mode<THREADS, 2>(a, blocks, smem, stream);
+        default: return launch_fft_mode<THREADS, 0>(a, blocks, smem, stream);
+    }
 }
 
 // p: the K10_FIELDS of ops/fft.py, in that order (host memory)
 extern "C" int k10_fft_c128(const void* x, void* y, const void* tw, const void* root,
                             const int* pos, const int* sched, const void* tw4,
                             const long long* p, double scale, void* stream) {
-    static_assert(K10_NFIELDS == 22, "K10_FIELDS");
+    static_assert(K10_NFIELDS == 27, "K10_FIELDS");
     K10Args a;
     a.x = x;
     a.y = y;
@@ -573,11 +600,27 @@ extern "C" int k10_fft_c128(const void* x, void* y, const void* tw, const void* 
     a.out_k = p[19];
     a.tw4_div = (int)p[20];
     a.tw4_n = (int)p[21];
+    a.mode = (int)p[22];
+    a.modes = (int)p[23];
+    a.kpos = (int)p[24];
+    a.kneg = (int)p[25];
+    a.gN = (int)p[26];
     a.scale = scale;
     if (a.L < 1 || a.tail < 1 || a.L % a.tail || a.npass < 0 || a.npass > K10_MAX_PASSES
         || a.load < 0 || a.load > 2 || a.outer < 1 || a.inner < 1 || a.ti < 1
         || a.ti > K10_MAX_LINES || (a.ti & (a.ti - 1)) || a.in_od < 1 || a.in_idiv < 1 || a.out_od < 1 || (p[5] != 1 && p[5] != -1)
         || (tw4 != nullptr) != (a.tw4_n > 0) || (tw4 != nullptr && a.tw4_div < 1))
+        return (int)cudaErrorInvalidValue;
+    // K12's complex form: the select store on complex output of the last
+    // launch (no four-step twiddle after it), the scatter load on complex
+    // input; the retained ranges inside the M slots and the global line
+    if (a.mode < 0 || a.mode > 2) return (int)cudaErrorInvalidValue;
+    if (a.mode && (a.modes < 1 || a.kpos < 0 || a.kneg < 0 || a.gN < a.L || a.gN % a.L))
+        return (int)cudaErrorInvalidValue;
+    if (a.mode == 1 && (a.real_out || tw4 != nullptr || a.gN != a.L * a.out_od
+                        || a.kpos + a.kneg + 1 > a.modes || a.kpos + a.kneg >= a.gN))
+        return (int)cudaErrorInvalidValue;
+    if (a.mode == 2 && (a.load != 0 || a.kpos >= a.modes || a.kneg > a.modes))
         return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)a.ti * a.L * sizeof(double2) + (size_t)a.L * sizeof(int);
     if (smem > (size_t)K10_SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -649,23 +692,5 @@ extern "C" int k12_fourier_unpack_f64(const double* c, void* full, int outer, in
     const i64 total = (i64)outer * N * inner;
     fourier_unpack_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
         c, (double2*)full, total, L, N, inner, Kmax, s0, s, keep_b0);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int k12_fourier_select_c128(const void* Z, void* out, int outer, int N, int M,
-                                       int inner, int Kmax, void* stream) {
-    if (outer < 1 || N < 1 || M < 1 || inner < 1) return (int)cudaErrorInvalidValue;
-    const i64 total = (i64)outer * M * inner;
-    fourier_select_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
-        (const double2*)Z, (double2*)out, total, N, M, inner, Kmax);
-    return (int)cudaGetLastError();
-}
-
-extern "C" int k12_fourier_scatter_c128(const void* c, void* full, int outer, int M, int N,
-                                        int inner, int Kmax, void* stream) {
-    if (outer < 1 || N < 1 || M < 1 || inner < 1) return (int)cudaErrorInvalidValue;
-    const i64 total = (i64)outer * N * inner;
-    fourier_scatter_kernel<<<ew_blocks(total), EW_THREADS, 0, (cudaStream_t)stream>>>(
-        (const double2*)c, (double2*)full, total, M, N, inner, Kmax);
     return (int)cudaGetLastError();
 }

@@ -1,53 +1,56 @@
 """
-KF: spin recombination of polar tensors, a Triton kernel with its plain twin.
+KF: spin recombination of polar tensors, a CUDA kernel with its plain twins.
 
-Replaces dedalus_tpu/core/basis_polar.py:248-300 spin_recombine for real
-dtype: for one tensor rank i of a polar, S2 or spherical tensor, the
-coord<->spin unitary U acts on (component i, (cos, -sin) pair slot) as the
-real matrix
+Replaces dedalus_tpu/core/basis_polar.py:248-300 spin_recombine. For one
+tensor rank i of a polar, S2 or spherical tensor, the coord<->spin unitary
+U acts on real data on (component i, (cos, -sin) pair slot) as the real
+matrix
 
     W = kron(Re U, I2) + kron(Im U, R90),
 
-    out[.., c', .., m, p', n] = sum_{c, p} W[2c' + p', 2c + p] x[.., c, .., m, p, n].
+    out[.., c', .., m, p', n] = sum_{c, p} W[2c' + p', 2c + p] x[.., c, .., m, p, n],
 
-The angular components (phi, theta) or (phi, r) are the first two of the
-rank, and W restricted to them is the 4x4 matrix the kernel takes. A
-spherical rank has a third component, r, on which U is the identity: it
-passes through unchanged, written by the same launch (no extra copy pass).
+and on complex data (the signed (+m, -m) slots, `real=False`, :296-298)
+as U itself, out[.., c', ..] = sum_c U[c', c] x[.., c, ..]. The angular
+components (phi, theta) or (phi, r) are the first two of the rank: W
+restricted to them is the 4x4 matrix the kernel takes, U's angular block
+its 2x2; a spherical rank's third component, r, passes through. A rank-2
+tensor is recombined rank after rank, rank 1's operator on what rank 0's
+left (the two expanded operators share the pair slot: their product, not
+a Kronecker product).
 
 It runs forward before every radial transform of a vector or tensor and
-backward after it; a rank-2 tensor is recombined rank by rank. Each output
-element is a fixed 4-term combination of four inputs, with no reduction and
-no reuse: one fused elementwise pass, bound by device-memory bandwidth
-(reads and writes each element once). A program loads the four inputs of a
-(rest, m, n) position once and writes the four outputs.
-
-W travels as a (4, 4) float64 tensor on the data's device: Python floats
-would reach the Triton kernel as float32. `triton` is imported inside the
-launching function, so machines without it only ever take the plain twin.
-
-KF's complex form (spin_recombine_complex) replaces the same function for
-complex dtype (basis_polar.py:296-298, `real=False`): on the signed
-(+m, -m) slots of complex data the unitary needs no pair expansion,
-
-    out[.., c', ..] = sum_c U[c', c] x[.., c, ..]
-
-over the two angular components of the rank, the radial one of a spherical
-rank passing through in the same launch. A program loads the two angular
-complex inputs of a position as their (re, im) doubles, applies the 2x2
-complex U (a (2, 2, 2) float64 tensor of its parts) and writes the two
-outputs: the same single elementwise pass as the real form, bound by
-device-memory bandwidth. Its launches count in
+backward after it. The kernel (csrc/spin_kernels.cu kf_spin_recombine) is
+one launch a call for every recombined rank of the tensor: a thread loads
+a position's components once (a rank-2 polar tensor's 8 values, a
+spherical one's 18), applies the ranks in registers and writes them once;
+bound by device-memory bytes. The wrapper's host path is short: the
+launcher's arguments are one int64 record (`kf_record`: the shape's
+positions, segments and strides, with host-built division magic) cached
+per (shape, ranks, azimuth axis, dtype, alignment, device), whose three
+pointers a call sets, and one ctypes call. W travels as a (4, 4) float64
+tensor, U as a (C, C) complex128 tensor, on the data's device; the kernel
+reads them there. Launches count in `spin_recombine.launches` and
 `spin_recombine_complex.launches_c128`.
 """
+
+import ctypes
 
 import torch
 
 from . import build
 
-BLOCK = 512
-_kernel = None
-_complex_kernel = None
+# The launch record's fields (csrc/spin_kernels.cu): pointers, the form,
+# positions and the contiguous run, KF_MAX_SEGS segments, rank strides
+KF_MAX_SEGS = 4
+RECORD = 12 + 4 * KF_MAX_SEGS + 5
+# Launch records cached at most
+KF_RECORDS_CACHED = 256
+_records = {}
+
+
+def _ranks(ranks):
+    return (ranks,) if isinstance(ranks, int) else tuple(ranks)
 
 
 def _view6(shape, rank, azimuth_axis):
@@ -65,85 +68,164 @@ def _view6(shape, rank, azimuth_axis):
     return pre, shape[rank], mid, shape[azimuth_axis] // 2, 2, N
 
 
-def spin_recombine_plain(x, rank, azimuth_axis, W):
+def spin_recombine_plain(x, ranks, azimuth_axis, W):
     """Plain torch KF (the JAX package's moveaxis/tensordot form, on the
-    two angular components; a third, radial, component is copied)."""
-    pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
-    full = x.reshape(pre, c, mid, K, 2, N)
-    d = torch.movedim(full[:, :2], (1, 4), (0, 1))      # (2, p, pre, mid, K, N)
-    lead = d.shape[2:]
-    d = torch.tensordot(W, d.reshape((4,) + lead), dims=([1], [0]))
-    d = torch.movedim(d.reshape((2, 2) + lead), (0, 1), (1, 4))
-    if c == 3:
-        d = torch.cat([d, full[:, 2:]], dim=1)
-    return d.reshape(x.shape)
+    two angular components; a third, radial, component is copied), rank
+    after rank of `ranks` (an int or a sequence)."""
+    for rank in _ranks(ranks):
+        pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
+        full = x.reshape(pre, c, mid, K, 2, N)
+        d = torch.movedim(full[:, :2], (1, 4), (0, 1))      # (2, p, pre, mid, K, N)
+        lead = d.shape[2:]
+        d = torch.tensordot(W, d.reshape((4,) + lead), dims=([1], [0]))
+        d = torch.movedim(d.reshape((2, 2) + lead), (0, 1), (1, 4))
+        if c == 3:
+            d = torch.cat([d, full[:, 2:]], dim=1)
+        x = d.reshape(x.shape)
+    return x
 
 
-def _build_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(x, out, w, n_pos, mid, K, N, C: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n_pos
-        # position -> (a, b, k, n) of the (pre, mid, K, N) positions
-        n = offs % N
-        t = offs // N
-        k = t % K
-        t = t // K
-        b = t % mid
-        a = t // mid
-        kn2 = K * 2 * N
-        sc = mid * kn2                     # component stride
-        base = a * (C * sc) + b * kn2 + k * (2 * N) + n
-        x00 = tl.load(x + base, mask=mask)
-        x01 = tl.load(x + base + N, mask=mask)
-        x10 = tl.load(x + base + sc, mask=mask)
-        x11 = tl.load(x + base + sc + N, mask=mask)
-        for r in tl.static_range(4):
-            w0 = tl.load(w + 4 * r)
-            w1 = tl.load(w + 4 * r + 1)
-            w2 = tl.load(w + 4 * r + 2)
-            w3 = tl.load(w + 4 * r + 3)
-            res = w0 * x00 + w1 * x01 + w2 * x10 + w3 * x11
-            tl.store(out + base + (r // 2) * sc + (r % 2) * N, res, mask=mask)
-        if C == 3:
-            # the radial component passes through
-            x20 = tl.load(x + base + 2 * sc, mask=mask)
-            x21 = tl.load(x + base + 2 * sc + N, mask=mask)
-            tl.store(out + base + 2 * sc, x20, mask=mask)
-            tl.store(out + base + 2 * sc + N, x21, mask=mask)
-
-    return kernel
+def spin_recombine_complex_plain(x, ranks, U):
+    """Plain torch KF, complex form (the JAX package's tensordot of the
+    full unitary U (C, C) over each tensor rank of `ranks`, in order)."""
+    for rank in _ranks(ranks):
+        x = torch.movedim(torch.tensordot(U, x, dims=([1], [rank])), 0, rank)
+    return x
 
 
-def spin_recombine(x, rank, azimuth_axis, W):
+def _magic(d):
+    """(m, s) with floor(u / d) = umulhi(u, m) >> s for 0 <= u < 2^31 (m = 0:
+    a shift)."""
+    s = d.bit_length() - 1
+    return (0 if d == 1 << s else -(-(1 << (32 + s)) // d)), s
+
+
+def kf_plan(shape, ranks, azimuth_axis=None, aligned=True):
     """
-    KF wrapper: recombine tensor rank `rank` of contiguous float64 data x
-    (tensor axes first, the (cos, -sin) pairs along `azimuth_axis`) with the
-    (4, 4) float64 matrix W of its two angular components (a rank of
-    dimension 3 passes its third component through). CPU tensors take the plain twin; CUDA tensors
-    launch the Triton kernel.
+    The kernel's plan for data of `shape` recombined over the tensor ranks
+    `ranks` (sorted; one size C, 2 or 3, all): real data with its (cos,
+    -sin) pairs on `azimuth_axis`, or complex data (`azimuth_axis` None).
+    A position is every index but the ranks' components and the pair slot:
+    the maximal runs of other dimensions before the last rank (real: up to
+    the azimuth's pair index, of stride 2N) are its segments (size-1 runs
+    dropped), outermost first; the dimensions after (real: after the
+    azimuth, N points) its contiguous run, `V` points a thread (2 on real
+    data where the run is even, the operands 16-byte aligned and at most
+    two ranks recombined). Strides count doubles (real) or complex values.
+    Returns a dict; ValueError where the kernel cannot take the form.
+    """
+    shape, ranks = tuple(int(n) for n in shape), tuple(sorted(_ranks(ranks)))
+    cplx = azimuth_axis is None
+    if not 1 <= len(ranks) <= 3 or len(set(ranks)) != len(ranks) or ranks[0] < 0:
+        raise ValueError(f"spin_recombine: 1 to 3 distinct ranks, got {ranks}")
+    C = shape[ranks[0]]
+    if C not in (2, 3) or any(shape[r] != C for r in ranks):
+        raise ValueError(f"spin_recombine: ranks of one dimension 2 or 3, got {shape}")
+    strides = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+    if cplx:
+        end, pair, V = ranks[-1], 0, 1
+        run = strides[end]
+        dims = [d for d in range(end) if d not in ranks]
+    else:
+        az = azimuth_axis
+        if ranks[-1] >= az or shape[az] % 2:
+            raise ValueError("spin_recombine: the ranks lie before the azimuth axis, whose "
+                             "size is even")
+        pair = run = strides[az]
+        V = 2 if run % 2 == 0 and aligned and len(ranks) <= 2 else 1
+        dims = [d for d in range(az + 1) if d not in ranks]
+    segs = []
+    for d in dims:
+        size = shape[d] // 2 if (not cplx and d == azimuth_axis) else shape[d]
+        stride = 2 * strides[d] if (not cplx and d == azimuth_axis) else strides[d]
+        if segs and segs[-1][2] == d - 1:
+            segs[-1] = [segs[-1][0] * size, stride, d]
+        else:
+            segs.append([size, stride, d])
+    segs = [(size, stride) for size, stride, _ in segs if size > 1]
+    if len(segs) > KF_MAX_SEGS:
+        raise ValueError(f"spin_recombine: {len(segs)} position segments, at most "
+                         f"{KF_MAX_SEGS}")
+    inner = run // V
+    npos = inner
+    for size, _ in segs:
+        npos *= size
+    numel = 1
+    for n in shape:
+        numel *= n
+    if numel >= 2**31 or npos < 1:
+        raise ValueError("spin_recombine: operands of 1 to 2^31 - 1 elements")
+    return dict(cplx=int(cplx), V=V, C=C, NR=len(ranks), npos=npos, inner=inner, segs=segs,
+                rstride=[strides[r] for r in ranks], pair=pair, wstride=C if cplx else 0)
+
+
+def kf_record(plan):
+    """The launcher's int64 record of a plan (csrc/spin_kernels.cu), its
+    three pointers 0."""
+    rec = (ctypes.c_longlong * RECORD)()
+    rec[3:9] = [plan['cplx'], plan['V'], plan['C'], plan['NR'], plan['npos'], plan['inner']]
+    rec[9:11] = _magic(plan['inner'])
+    rec[11] = len(plan['segs'])
+    for g, (size, stride) in enumerate(plan['segs']):
+        rec[12 + 4 * g:16 + 4 * g] = [size, stride, *_magic(size)]
+    for r, st in enumerate(plan['rstride']):
+        rec[28 + r] = st
+    rec[31], rec[32] = plan['pair'], plan['wstride']
+    return rec
+
+
+def check_operands(x, ranks, M, azimuth_axis=None):
+    """The sorted ranks of a call the kernel takes, or ValueError: x
+    contiguous float64 (real, `azimuth_axis` given) or complex128, the
+    matrix M contiguous on x's device (read by rows), W (4, 4) float64 or U
+    (C, C) complex128 with C the size of the ranks."""
+    ranks = tuple(sorted(_ranks(ranks)))
+    cplx = azimuth_axis is None
+    if x.dtype != (torch.complex128 if cplx else torch.float64) or not x.is_contiguous():
+        raise ValueError(f"spin_recombine: x must be a contiguous "
+                         f"{'complex128' if cplx else 'float64'} tensor")
+    shape = (x.shape[ranks[0]],) * 2 if cplx else (4, 4)
+    if (M.device != x.device or M.dtype != x.dtype or tuple(M.shape) != shape
+            or not M.is_contiguous()):
+        raise ValueError(f"spin_recombine: the matrix must be a contiguous {shape} {x.dtype} "
+                         f"tensor on the data's device")
+    return ranks
+
+
+def _kf_launch(lib, x, out, w, ranks, azimuth_axis, stream, name):
+    """One launch of kf_spin_recombine through `lib`: the cached record of
+    (shape, ranks, azimuth axis, dtype, alignment, device), its pointers
+    set. Returns the record."""
+    xp, yp = x.data_ptr(), out.data_ptr()
+    aligned = (xp | yp) % 16 == 0
+    key = (tuple(x.shape), ranks, azimuth_axis, x.dtype, aligned, x.device)
+    rec = _records.get(key)
+    if rec is None:
+        if len(_records) >= KF_RECORDS_CACHED:
+            _records.clear()
+        rec = _records[key] = kf_record(kf_plan(x.shape, ranks, azimuth_axis, aligned))
+    rec[0], rec[1], rec[2] = xp, yp, w.data_ptr()
+    build.check(lib.kf_spin_recombine(rec, stream), name)
+    return rec
+
+
+def spin_recombine(x, ranks, azimuth_axis, W):
+    """
+    KF wrapper: recombine the tensor ranks `ranks` (an int or a sequence,
+    applied in ascending order) of contiguous float64 data x (tensor axes
+    first, the (cos, -sin) pairs along `azimuth_axis`) with the (4, 4)
+    float64 matrix W of their two angular components (a rank of dimension 3
+    passes its third component through). CPU tensors take the plain twin;
+    CUDA tensors launch kf_spin_recombine once, or raise.
     """
     if x.device.type == 'cpu':
-        return spin_recombine_plain(x, rank, azimuth_axis, W)
-    global _kernel
-    if x.dtype != torch.float64 or not x.is_contiguous():
-        raise ValueError("spin_recombine: x must be a contiguous float64 tensor")
-    if W.device != x.device or W.dtype != torch.float64 or tuple(W.shape) != (4, 4):
-        raise ValueError("spin_recombine: W must be (4, 4) float64 on the data's device")
-    pre, c, mid, K, _, N = _view6(tuple(x.shape), rank, azimuth_axis)
-    if c not in (2, 3) or x.shape[azimuth_axis] != 2 * K:
-        raise ValueError("spin_recombine: needs a rank of dimension 2 or 3 and an even azimuth")
-    if _kernel is None:
-        _kernel = _build_kernel()
-    W = W.contiguous()
+        return spin_recombine_plain(x, ranks, azimuth_axis, W)
+    ranks = check_operands(x, ranks, W, int(azimuth_axis))
     out = torch.empty_like(x)
-    n_pos = pre * mid * K * N
-    _kernel[(-(-n_pos // BLOCK),)](x, out, W, n_pos, mid, K, N, C=c, BLOCK=BLOCK,
-                                   num_warps=4)
+    _kf_launch(build.library(), x, out, W, ranks, int(azimuth_axis),
+               torch._C._cuda_getCurrentRawStream(x.device.index), 'spin_recombine')
     build.count(spin_recombine)
     return out
 
@@ -151,84 +233,21 @@ def spin_recombine(x, rank, azimuth_axis, W):
 spin_recombine.launches = 0
 
 
-def _split(shape, rank):
-    """(pre, C, rest) sizes of data recombined along tensor rank `rank`."""
-    pre = 1
-    for n in shape[:rank]:
-        pre *= n
-    rest = 1
-    for n in shape[rank + 1:]:
-        rest *= n
-    return pre, shape[rank], rest
-
-
-def spin_recombine_complex_plain(x, rank, U):
-    """Plain torch KF, complex form (the JAX package's tensordot of the
-    full unitary U (C, C) over tensor rank `rank`)."""
-    return torch.movedim(torch.tensordot(U, x, dims=([1], [rank])), 0, rank)
-
-
-def _build_complex_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(x, out, u, n_pos, R, C: tl.constexpr, BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n_pos
-        # position -> (a, r) of the (pre, rest) positions; doubles: (re, im)
-        r = offs % R
-        a = offs // R
-        base = 2 * (a * (C * R) + r)
-        sc = 2 * R                          # component stride in doubles
-        x0r = tl.load(x + base, mask=mask)
-        x0i = tl.load(x + base + 1, mask=mask)
-        x1r = tl.load(x + base + sc, mask=mask)
-        x1i = tl.load(x + base + sc + 1, mask=mask)
-        for row in tl.static_range(2):
-            u0r = tl.load(u + 4 * row)
-            u0i = tl.load(u + 4 * row + 1)
-            u1r = tl.load(u + 4 * row + 2)
-            u1i = tl.load(u + 4 * row + 3)
-            re = (u0r * x0r - u0i * x0i) + (u1r * x1r - u1i * x1i)
-            im = (u0r * x0i + u0i * x0r) + (u1r * x1i + u1i * x1r)
-            tl.store(out + base + row * sc, re, mask=mask)
-            tl.store(out + base + row * sc + 1, im, mask=mask)
-        if C == 3:
-            # the radial component passes through
-            tl.store(out + base + 2 * sc, tl.load(x + base + 2 * sc, mask=mask), mask=mask)
-            tl.store(out + base + 2 * sc + 1, tl.load(x + base + 2 * sc + 1, mask=mask),
-                     mask=mask)
-
-    return kernel
-
-
-def spin_recombine_complex(x, rank, U):
+def spin_recombine_complex(x, ranks, U):
     """
-    KF wrapper, complex form: recombine tensor rank `rank` of contiguous
-    complex128 data x with the unitary U (C, C) complex128 on the data's
-    device, C = 2 (polar) or 3 (spherical, whose radial row and column must
-    be the identity's: U's angular block is what the kernel applies). CPU
-    tensors take the plain twin; CUDA tensors launch the Triton kernel.
+    KF wrapper, complex form: recombine the tensor ranks `ranks` (an int or
+    a sequence, in ascending order) of contiguous complex128 data x with
+    the unitary U (C, C) complex128 on the data's device, C = 2 (polar) or
+    3 (spherical, whose radial row and column must be the identity's: U's
+    angular block is what the kernel applies). CPU tensors take the plain
+    twin; CUDA tensors launch kf_spin_recombine once, or raise.
     """
     if x.device.type == 'cpu':
-        return spin_recombine_complex_plain(x, rank, U)
-    global _complex_kernel
-    if x.dtype != torch.complex128 or not x.is_contiguous():
-        raise ValueError("spin_recombine_complex: x must be a contiguous complex128 tensor")
-    pre, C, R = _split(tuple(x.shape), rank)
-    if (U.device != x.device or U.dtype != torch.complex128 or tuple(U.shape) != (C, C)
-            or C not in (2, 3)):
-        raise ValueError("spin_recombine_complex: U must be (C, C) complex128 on the data's "
-                         "device, C = 2 or 3, the size of the rank")
-    if _complex_kernel is None:
-        _complex_kernel = _build_complex_kernel()
-    u = torch.view_as_real(U[:2, :2].contiguous()).contiguous()
+        return spin_recombine_complex_plain(x, ranks, U)
+    ranks = check_operands(x, ranks, U)
     out = torch.empty_like(x)
-    n_pos = pre * R
-    _complex_kernel[(-(-n_pos // BLOCK),)](torch.view_as_real(x), torch.view_as_real(out), u,
-                                           n_pos, R, C=C, BLOCK=BLOCK, num_warps=4)
+    _kf_launch(build.library(), x, out, U, ranks, None,
+               torch._C._cuda_getCurrentRawStream(x.device.index), 'spin_recombine_complex')
     build.count(spin_recombine_complex, x.dtype)
     return out
 

@@ -2,8 +2,9 @@
 Fast spectral transforms in complex128: the DFT (K10), the DCT-II
 and DCT-III wrapping (K11a), the ultraspherical conversion and its inverse
 (K11b), the real-Fourier pack and unpack (K12) and the complex-Fourier
-select and scatter (K12's complex form), each a kernel wrapper with its
-plain torch twin beside it.
+select and scatter (K12's complex form, fused into K10's store and load:
+`dft_select`, `dft_scatter`), each a kernel wrapper with its plain torch
+twin beside it.
 
 The counterpart of dedalus_tpu/ops/fft64.py and of the fast paths of
 dedalus_tpu/ops/transforms.py. The JAX package carries complex values as
@@ -22,8 +23,9 @@ Every wrapper works along one axis of a contiguous tensor read as
 (outer, L, inner), with L the axis length: the kernels take the axis where
 it lies, so no transform copies its data to move the axis last. A CPU
 tensor takes the plain twin; a CUDA tensor launches the kernel
-(csrc/fft_kernels.cu: K10, K11a, K12 in both forms; csrc/conversion_kernels.cu: K11b) or
-raises. Each wrapper counts its launches in `.launches`.
+(csrc/fft_kernels.cu: K10 with K12's complex form in it, K11a, K12;
+csrc/conversion_kernels.cu: K11b) or raises. Each wrapper counts its
+launches in `.launches`.
 
 The composite transforms below (`fft`, `ifft`, `rfft`, `irfft`, `dct2`,
 `dct3`) are the JAX package's functions of the same names
@@ -36,9 +38,9 @@ import torch
 
 from . import staging
 
-__all__ = ['good_factors', 'dft', 'dft_plain', 'dct2_pre', 'dct2_post', 'dct3_pre',
-           'dct3_post', 'fourier_pack', 'fourier_unpack', 'fourier_select',
-           'fourier_scatter', 'ConversionBand',
+__all__ = ['good_factors', 'dft', 'dft_plain', 'dft_select', 'dft_scatter', 'dct2_pre',
+           'dct2_post', 'dct3_pre', 'dct3_post', 'fourier_pack', 'fourier_unpack',
+           'fourier_select', 'fourier_scatter', 'ConversionBand',
            'conversion_apply', 'conversion_solve', 'fft', 'ifft', 'rfft', 'irfft',
            'dct2', 'dct3']
 
@@ -213,14 +215,24 @@ def dft_plain(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
 # (a table the kernel stages in shared memory), or, where a prime factor
 # above 5 is left (the tail), the store takes that length-tail DFT of the
 # block starting there. Lines too long for one block's shared memory run
-# as two launches around the twiddle of the four-step split.
+# as two launches around the twiddle of the four-step split. K12's complex
+# select rides the (last) launch's store and its scatter the (first)
+# launch's load (`mode`, below).
 K10_SMEM_BYTES = 230400     # a block's lines and pos: 227 KB less its line tables
 K10_MAX_LINES = 64          # lines per block (the kernel's per-line tables)
 K10_BLOCK_POINTS = 4096     # points a block aims to hold where lines are short
+# Blocks a launch aims for where its lines are few (an H100's SMs): such a
+# batch takes fewer lines a block, down to rows of 32 bytes on a strided axis
+K10_MIN_BLOCKS = 132
 # The integer launch parameters, in the order k10_fft_c128 reads them
 K10_FIELDS = ('L', 'npass', 'tail', 'load', 'real_out', 'sign', 'outer', 'inner', 'ti',
               'in_o1', 'in_o2', 'in_od', 'in_n', 'in_pair', 'in_idiv', 'in_imul', 'out_o1',
-              'out_o2', 'out_od', 'out_k', 'tw4_div', 'tw4_n')
+              'out_o2', 'out_od', 'out_k', 'tw4_div', 'tw4_n', 'mode', 'modes', 'kpos', 'kneg',
+              'gN')
+# K10's modes: the plain load and store, K12's complex select in the store,
+# its scatter in the load
+MODES = {'none': 0, 'select': 1, 'scatter': 2}
+NO_MODES = dict(mode=0, modes=0, kpos=0, kneg=0, gN=0)
 
 
 def _prime_factors(N):
@@ -297,15 +309,19 @@ def _lines_per_block(L, outer, inner, elem_bytes):
     """Lines a K10 block holds (0 where one line does not fit): along a
     strided axis at least 64 contiguous bytes a row (4 complex or 8 real
     lines), more where lines are short; along the last axis enough lines
-    for about K10_BLOCK_POINTS points."""
+    for about K10_BLOCK_POINTS points. A batch of fewer lines than
+    K10_MIN_BLOCKS such blocks fill takes fewer lines a block (on a
+    strided axis down to rows of 32 bytes), so that every SM gets one."""
     fit = (K10_SMEM_BYTES - 4 * L) // (16 * L)
     if fit < 1:
         return 0
     want = _pow2_floor(max(1, K10_BLOCK_POINTS // L))
+    spread = _pow2_floor(outer * inner // K10_MIN_BLOCKS)
     if inner > 1:
         ti = min(max(64 // elem_bytes, want), K10_MAX_LINES, _pow2_floor(2 * inner - 1))
+        ti = min(ti, max(32 // elem_bytes, spread))
     else:
-        ti = min(want, K10_MAX_LINES, _pow2_floor(2 * outer - 1))
+        ti = min(want, K10_MAX_LINES, _pow2_floor(2 * outer - 1), spread)
     return min(ti, _pow2_floor(fit))
 
 
@@ -322,7 +338,27 @@ def _four_step_split(N):
     return best
 
 
-def dft_launches(shape, axis, load, sign, scale=1.0, real_out=False):
+def select_fields(M, N, Kmax):
+    """The select store's fields: of the M ordered slots (k = 0..KM,
+    -KM..-1, an even M's slot KM + 1 holding k = KM + 1), slots 0..kpos take
+    the spectrum points k = m and slots M - kneg..M - 1 the points N + k,
+    k = m - M; the slots between are zero (fourier_select_plain's clip and
+    mask, for Kmax <= (N - 1) // 2, where no slot's source is clipped)."""
+    KM = (M - 1) // 2
+    return dict(mode=MODES['select'], modes=M, kpos=min(Kmax, M - 1 - KM),
+                kneg=min(Kmax, KM), gN=N)
+
+
+def scatter_fields(M, N, Kmax):
+    """The scatter load's fields: point n of the length-N line takes the
+    coefficient of k = n (n <= N // 2) or n - N, at slot k mod M, where
+    |k| <= min(Kmax, KM); zero elsewhere (fourier_scatter_plain's map)."""
+    km = min(Kmax, (M - 1) // 2)
+    return dict(mode=MODES['scatter'], modes=M, kpos=km, kneg=km, gN=N)
+
+
+def dft_launches(shape, axis, load, sign, scale=1.0, real_out=False, select=None,
+                 scatter=None):
     """K10's launches for a dft() call on a contiguous tensor of `shape`:
     one, or two around the four-step twiddle where a line does not fit one
     block. Each is a dict of the K10_FIELDS, the scale, the length of the
@@ -333,34 +369,60 @@ def dft_launches(shape, axis, load, sign, scale=1.0, real_out=False):
     (ob // in_od) in_o1 + (ob % in_od) in_o2 + (j // in_idiv) in_imul
     + j % in_idiv + n in_n (a packed load's imaginary part in_pair after)
     and writes point k at (ob // out_od) out_o1 + (ob % out_od) out_o2 + j
-    + k out_k."""
+    + k out_k.
+
+    `select` = (M, Kmax): the output lines hold the M ordered modes of the
+    spectrum (select_fields) in the last launch's store, slot m at
+    (ob // out_od) out_o1 + j + m out_k. `scatter` = (N, Kmax): the input
+    lines hold M = shape[axis] ordered coefficients, spread over the
+    length-N line in the first launch's load (scatter_fields), coefficient
+    m at (ob // in_od) in_o1 + j % in_idiv + m in_n."""
     axis, outer, Lx, inner = _lines(shape, axis)
     packed = load == 'packed'
     N = Lx // 2 if packed else Lx
+    load_modes, store_modes = NO_MODES, NO_MODES
+    if scatter is not None:
+        N, Kmax = scatter
+        load_modes = scatter_fields(Lx, N, Kmax)
+    Mout = N
+    if select is not None:
+        Mout, Kmax = select
+        store_modes = select_fields(Mout, N, Kmax)
+    if (select or scatter) and (load != 'complex' or real_out or (select and scatter)):
+        raise ValueError("K10: the select store and the scatter load take complex lines, "
+                         "one of them a call, and no real output")
+    if select is not None and not 0 <= Kmax <= (N - 1) // 2:
+        raise ValueError(f"K10: the select store takes 0 <= Kmax <= (N - 1) // 2, got "
+                         f"Kmax = {Kmax} for N = {N}")
     esize = 16 if load == 'complex' else 8
     w = 2 if packed else 1
     common = dict(load=LOADS[load], sign=int(sign), in_pair=inner, in_o2=0, out_o2=0)
     ti = _lines_per_block(N, outer, inner, esize) if radix_plan(N) else 0
     if ti:
+        modes = load_modes if scatter is not None else store_modes
         return [dict(common, L=N, outer=outer, inner=inner, ti=ti, in_o1=Lx * inner, in_od=1,
-                     in_n=w * inner, in_idiv=inner, in_imul=0, out_o1=N * inner, out_od=1,
+                     in_n=w * inner, in_idiv=inner, in_imul=0, out_o1=Mout * inner, out_od=1,
                      out_k=inner, real_out=int(real_out), scale=float(scale), tw4=0,
-                     tw4_div=0, src='x', dst='y')]
+                     tw4_div=0, src='x', dst='y', **modes)]
     split = _four_step_split(N)
     if split is None:
         raise ValueError(f"K10: no radix plan for a line of {N} points")
     N1, N2 = split
     inner_a = N2 * inner
+    scat = scatter is not None
     first = dict(common, L=N1, outer=outer, inner=inner_a,
                  ti=_lines_per_block(N1, outer, inner_a, esize), in_o1=Lx * inner, in_od=1,
-                 in_n=w * N2 * inner, in_idiv=inner, in_imul=w * inner, out_o1=N * inner,
+                 in_n=inner if scat else w * N2 * inner, in_idiv=inner,
+                 in_imul=0 if scat else w * inner, out_o1=N * inner,
                  out_od=1, out_k=N2 * inner, real_out=0, scale=1.0, tw4=N, tw4_div=inner,
-                 src='x', dst='scratch')
+                 src='x', dst='scratch', **load_modes)
+    sel = select is not None
     second = dict(common, L=N2, outer=outer * N1, inner=inner, load=LOADS['complex'],
                   ti=_lines_per_block(N2, outer * N1, inner, 16), in_o1=N2 * inner, in_od=1,
-                  in_n=inner, in_idiv=inner, in_imul=0, out_o1=N * inner, out_o2=inner,
-                  out_od=N1, out_k=N1 * inner, real_out=int(real_out), scale=float(scale),
-                  tw4=0, tw4_div=0, src='scratch', dst='y')
+                  in_n=inner, in_idiv=inner, in_imul=0, out_o1=Mout * inner,
+                  out_o2=0 if sel else inner, out_od=N1, out_k=inner if sel else N1 * inner,
+                  real_out=int(real_out), scale=float(scale), tw4=0, tw4_div=0, src='scratch',
+                  dst='y', **store_modes)
     return [first, second]
 
 
@@ -379,16 +441,16 @@ def _roots_device(N, sign, device):
 _K10_CALLS = {}
 
 
-def _k10_calls(shape, axis, load, sign, scale, real_out, device):
+def _k10_calls(shape, axis, load, sign, scale, real_out, device, select=None, scatter=None):
     """The launches of a dft() call, cached per call configuration: for
     each, its source and destination buffer names, its table pointers, its
     integer parameters (a ctypes array of K10_FIELDS) and its scale (the
     tables stay referenced by the cached entry)."""
-    key = (shape, axis, load, sign, scale, real_out, str(device))
+    key = (shape, axis, load, sign, scale, real_out, str(device), select, scatter)
     if key not in _K10_CALLS:
         import ctypes
         calls = []
-        for a in dft_launches(shape, axis, load, sign, scale, real_out):
+        for a in dft_launches(shape, axis, load, sign, scale, real_out, select, scatter):
             tables = _radix_device(a['L'], sign, device)
             tw4 = _roots_device(a['tw4'], sign, device) if a['tw4'] else None
             radices, tail = radix_plan(a['L'])
@@ -417,31 +479,103 @@ def dft(x, sign, axis=-1, load='complex', scale=1.0, real_out=False):
     """
     if x.device.type == 'cpu':
         return dft_plain(x, sign, axis, load, scale, real_out)
-    import ctypes
-    from ..csrc import build
     x = x.contiguous()
     axis, outer, L, inner = _lines(x.shape, axis)
     if load == 'packed' and L % 2:
         raise ValueError("dft: a packed load needs an even axis length")
     N = L // 2 if load == 'packed' else L
     _check_cuda('dft', x, torch.complex128 if load == 'complex' else torch.float64)
-    y = torch.empty(_with_axis(x.shape, axis, N), device=x.device,
-                    dtype=torch.float64 if real_out else torch.complex128)
-    calls = _k10_calls(tuple(x.shape), axis, load, int(sign), float(scale), bool(real_out),
-                       x.device)
-    bufs = dict(x=x, y=y)
-    if len(calls) > 1:
-        bufs['scratch'] = torch.empty(outer * N * inner, dtype=torch.complex128,
-                                      device=x.device)
-    launch, stream = build.library().k10_fft_c128, _stream(x)
-    for src, dst, tables, params, sc, _ in calls:
-        build.check(launch(bufs[src].data_ptr(), bufs[dst].data_ptr(), *tables,
-                           ctypes.addressof(params), sc, stream), 'dft')
-        build.count(dft)
-    return y
+    return _k10(x, axis, N, N, outer * N * inner, 'dft',
+                (tuple(x.shape), axis, load, int(sign), float(scale), bool(real_out), x.device),
+                torch.float64 if real_out else torch.complex128)
 
 
 dft.launches = 0
+
+
+def _k10(x, axis, N, Mout, scratch, name, plan, dtype=torch.complex128, fused=None):
+    """Launch K10's calls of `plan` (the arguments of _k10_calls) on the
+    contiguous CUDA tensor x: lines of N points, Mout points out along
+    `axis`, a complex128 scratch of `scratch` elements for a two-launch
+    line. Each launch counts as dft's, or, where it carries K12's complex
+    form (`fused`: dft_select or dft_scatter, the kernel's select or
+    scatter instantiation), as that wrapper's."""
+    import ctypes
+    from ..csrc import build
+    y = torch.empty(_with_axis(x.shape, axis, Mout), device=x.device, dtype=dtype)
+    calls = _k10_calls(*plan)
+    bufs = dict(x=x, y=y)
+    if len(calls) > 1:
+        bufs['scratch'] = torch.empty(scratch, dtype=torch.complex128, device=x.device)
+    launch, stream = build.library().k10_fft_c128, _stream(x)
+    for src, dst, tables, params, sc, _ in calls:
+        build.check(launch(bufs[src].data_ptr(), bufs[dst].data_ptr(), *tables,
+                           ctypes.addressof(params), sc, stream), name)
+        build.count(dft if fused is None else fused)
+    return y
+
+
+def dft_select_plain(x, axis, M, Kmax):
+    """Plain torch forward complex Fourier transform: K10's plain twin
+    with the 1/N scale, then K12's select."""
+    N = x.shape[axis]
+    return fourier_select_plain(dft_plain(x, -1, axis, scale=1.0 / N), axis, M, Kmax)
+
+
+def dft_select(x, axis, M, Kmax):
+    """
+    The forward complex Fourier transform of complex128 lines along `axis`:
+    the DFT over N times 1/N, then the M ordered modes (k = 0..KM,
+    -KM..-1) with |k| <= Kmax, the rest zero (fourier_select). CPU tensors
+    take the DFT's plain twin and fourier_select; CUDA tensors launch K10
+    with the select in its store (one launch, or two past 11520 points: the
+    select in the second's), bit for bit K10 followed by the select; it
+    takes 0 <= Kmax <= (N - 1) // 2 (ComplexFourier's Kmax_for) and raises
+    otherwise.
+    """
+    N = x.shape[axis]
+    if x.device.type == 'cpu':
+        return fourier_select(dft_plain(x, -1, axis, scale=1.0 / N), axis, M, Kmax)
+    x = x.contiguous()
+    axis, outer, N, inner = _lines(x.shape, axis)
+    _check_cuda('dft_select', x, torch.complex128)
+    return _k10(x, axis, N, M, outer * N * inner, 'dft_select',
+                (tuple(x.shape), axis, 'complex', -1, 1.0 / N, False, x.device,
+                 (int(M), int(Kmax))), fused=dft_select)
+
+
+dft_select.launches = 0
+
+
+def dft_scatter_plain(c, axis, N, Kmax):
+    """Plain torch backward complex Fourier transform: K12's scatter,
+    then K10's plain twin of the unnormalised inverse."""
+    return dft_plain(fourier_scatter_plain(c, axis, N, Kmax), +1, axis)
+
+
+def dft_scatter(c, axis, N, Kmax):
+    """
+    The backward complex Fourier transform of M ordered complex128
+    coefficients along `axis` to N grid points: the modes |k| <= Kmax
+    written into a zeroed length-N spectrum (fourier_scatter), then the
+    unnormalised inverse DFT. CPU tensors take fourier_scatter and the
+    DFT's plain twin; CUDA tensors launch K10 with the scatter in its load
+    (in the first launch's, past 11520 points), bit for bit the scatter
+    followed by K10.
+    """
+    if c.device.type == 'cpu':
+        return dft_plain(fourier_scatter(c, axis, N, Kmax), +1, axis)
+    c = c.contiguous()
+    axis, outer, M, inner = _lines(c.shape, axis)
+    if Kmax < 0:
+        raise ValueError(f"dft_scatter: Kmax = {Kmax}")
+    _check_cuda('dft_scatter', c, torch.complex128)
+    return _k10(c, axis, N, N, outer * N * inner, 'dft_scatter',
+                (tuple(c.shape), axis, 'complex', 1, 1.0, False, c.device, None,
+                 (int(N), int(Kmax))), fused=dft_scatter)
+
+
+dft_scatter.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -692,6 +826,8 @@ fourier_unpack.launches = 0
 
 # ---------------------------------------------------------------------------
 # K12, complex form: the select and scatter of ordered complex coefficients
+# (their plain forms; on the card they run inside K10: dft_select,
+# dft_scatter)
 # ---------------------------------------------------------------------------
 
 def _ordered_wavenumbers(M):
@@ -734,23 +870,14 @@ def fourier_select(Z, axis, M, Kmax):
     K12, complex forward: the M ordered coefficients (k = 0..KM, -KM..-1)
     of complex128 length-N spectra Z along `axis`: out[m] = Z[k] (k >= 0)
     or Z[N + k] (k < 0) for |k| <= Kmax, zero otherwise (the even-size
-    slot KM + 1 and, when M > N, every mode past the grid's).
+    slot KM + 1 and, when M > N, every mode past the grid's). The CPU
+    route of dft_select; on the card the select is K10's store
+    (dft_select), so a CUDA tensor raises.
     """
-    if Z.device.type == 'cpu':
-        return fourier_select_plain(Z, axis, M, Kmax)
-    from ..csrc import build
-    Z = Z.contiguous()
-    axis, outer, N, inner = _lines(Z.shape, axis)
-    _check_cuda('fourier_select', Z, torch.complex128)
-    out = torch.empty(_with_axis(Z.shape, axis, M), dtype=torch.complex128, device=Z.device)
-    build.check(build.library().k12_fourier_select_c128(
-        Z.data_ptr(), out.data_ptr(), outer, N, M, inner, int(min(Kmax, 2**30)), _stream(Z)),
-        'fourier_select')
-    build.count(fourier_select)
-    return out
-
-
-fourier_select.launches = 0
+    if Z.device.type != 'cpu':
+        raise ValueError("fourier_select: on the card the select runs in K10's store: "
+                         "call dft_select")
+    return fourier_select_plain(Z, axis, M, Kmax)
 
 
 def fourier_scatter_plain(c, axis, N, Kmax):
@@ -764,23 +891,13 @@ def fourier_scatter(c, axis, N, Kmax):
     K12, complex backward: the length-N spectra of M ordered complex128
     coefficients c along `axis`: point n takes the coefficient of k = n
     (n <= N//2) or k = n - N, for |k| <= Kmax and |k| <= (M-1)//2, zero
-    elsewhere; K10's input for the inverse.
+    elsewhere. The CPU route of dft_scatter; on the card the scatter is
+    K10's load (dft_scatter), so a CUDA tensor raises.
     """
-    if c.device.type == 'cpu':
-        return fourier_scatter_plain(c, axis, N, Kmax)
-    from ..csrc import build
-    c = c.contiguous()
-    axis, outer, M, inner = _lines(c.shape, axis)
-    _check_cuda('fourier_scatter', c, torch.complex128)
-    full = torch.empty(_with_axis(c.shape, axis, N), dtype=torch.complex128, device=c.device)
-    build.check(build.library().k12_fourier_scatter_c128(
-        c.data_ptr(), full.data_ptr(), outer, M, N, inner, int(min(Kmax, 2**30)), _stream(c)),
-        'fourier_scatter')
-    build.count(fourier_scatter)
-    return full
-
-
-fourier_scatter.launches = 0
+    if c.device.type != 'cpu':
+        raise ValueError("fourier_scatter: on the card the scatter runs in K10's load: "
+                         "call dft_scatter")
+    return fourier_scatter_plain(c, axis, N, Kmax)
 
 
 # ---------------------------------------------------------------------------

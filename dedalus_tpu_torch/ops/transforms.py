@@ -6,10 +6,11 @@ the Fourier fast transforms.
 a dense transform is a plain large matrix product, left to torch's matmul as
 the JAX package leaves it to XLA. `complex_fft_forward` and
 `complex_fft_backward` mirror :45-74: the complex DFT of ops/fft.py (K10)
-with the select and scatter of the ordered complex coefficients around it
-(K12's complex form). `real_fft_forward`, `real_fft_backward` and
-`resize_axis` mirror :77-157: the real DFT (K10) and the pack and unpack of
-the interleaved (cos, -sin) coefficients around it (K12).
+with the select and scatter of the ordered complex coefficients (K12's
+complex form) in its store and load (`dft_select`, `dft_scatter`).
+`real_fft_forward`, `real_fft_backward` and `resize_axis` mirror :77-157:
+the real DFT (K10) and the pack and unpack of the interleaved (cos, -sin)
+coefficients around it (K12).
 """
 
 import numpy as np
@@ -51,19 +52,17 @@ def complex_fft_forward(gdata, axis, M, Kmax):
     """Forward complex Fourier transform of complex128 grid data along
     `axis` -> M coefficients in the order k = 0..KM, -KM..-1 (KM = (M-1)//2,
     an even M's slot KM + 1 zeroed): the DFT over N (K10, 1/N in its
-    store), then the modes |k| <= Kmax taken from the length-N spectrum and
-    the rest zeroed (K12)."""
-    N = gdata.shape[axis]
-    Z = fft.dft(gdata, -1, axis, scale=1.0 / N)
-    return fft.fourier_select(Z, axis, M, Kmax)
+    store), the modes |k| <= Kmax taken from the length-N spectrum and the
+    rest zeroed (K12's select; on the card in K10's store)."""
+    return fft.dft_select(gdata, axis, M, Kmax)
 
 
 def complex_fft_backward(cdata, axis, N, Kmax):
     """Backward complex Fourier transform of ordered coefficients along
     `axis` -> N complex128 grid points: the modes |k| <= Kmax written into a
-    zeroed length-N spectrum (K12), then the unnormalised inverse DFT
-    (K10)."""
-    return fft.dft(fft.fourier_scatter(cdata, axis, N, Kmax), +1, axis)
+    zeroed length-N spectrum (K12's scatter; on the card in K10's load),
+    then the unnormalised inverse DFT (K10)."""
+    return fft.dft_scatter(cdata, axis, N, Kmax)
 
 
 def real_fft_forward(gdata, axis, M, Kmax):

@@ -7,7 +7,12 @@ transform is held against np.fft and the JAX package's fft64 / ifft64
 (jitted) to 1e-13 relative, for N = 12, 97, 194, 96, 384, 768, 1536, 3072,
 8192 and 16384 (16384 as two launches around the four-step twiddle), with
 the complex, real and packed loads, along the last axis and along a strided
-one, forward and inverse with a scale and a real output."""
+one, forward and inverse with a scale and a real output. K12's complex form
+inside K10 (`dft_select`'s select store, `dft_scatter`'s scatter load, on
+the last and the first launch of a four-step line) is emulated at its slot
+addresses: bit for bit the plain select and scatter of the emulated unfused
+launches, and within 1e-13 of the JAX package's complex_fft_forward and
+complex_fft_backward (jitted)."""
 
 import numpy as np
 import pytest
@@ -15,6 +20,7 @@ import torch
 import jax
 
 from dedalus_tpu.ops import fft64
+from dedalus_tpu.ops import transforms as JT
 from dedalus_tpu_torch.ops import fft as F
 
 # Several test workers share the cores: keep torch's CPU ops single-threaded
@@ -25,6 +31,14 @@ LOADS = ['complex', 'real', 'packed']
 LAYOUTS = {'last': (3, None), 'strided': (2, 3)}   # (outer, inner) around the axis
 TOL = 1e-13
 JAX_FFT = {name: jax.jit(getattr(fft64, name), static_argnums=1) for name in ('fft64', 'ifft64')}
+JAX_COMPLEX = {name: jax.jit(getattr(JT, name), static_argnums=(1, 2, 3))
+               for name in ('complex_fft_forward', 'complex_fft_backward')}
+# K12's complex form in K10: (N, M, Kmax) of rbc256c's x axis (384 grid
+# points, 256 modes), M > N and M < N, odd and even M, Kmax below KM, and a
+# two-launch line (16384: the select in the second launch's store, the
+# scatter in the first's load)
+FUSED = [(384, 256, 127), (16, 24, 7), (24, 16, 7), (15, 16, 7), (16, 15, 7), (33, 64, 16),
+         (64, 33, 16), (96, 64, 20), (97, 40, 19), (16384, 10923, 5461), (16384, 12000, 3000)]
 
 
 def roots_exact(q, M, sign):
@@ -45,11 +59,23 @@ def emulate_launch(a, sign, src, dst):
     j = np.arange(a['inner'])[None, :]
     base = ((ob // a['in_od']) * a['in_o1'] + (ob % a['in_od']) * a['in_o2']
             + (j // a['in_idiv']) * a['in_imul'] + j % a['in_idiv']).reshape(-1)
-    addr = base[:, None] + np.arange(L)[None, :] * a['in_n']
-    if a['load'] == F.LOADS['packed']:
-        v = src[addr] + 1j * src[addr + a['in_pair']]
+    n = np.arange(L)[None, :]
+    q = (np.broadcast_to(j // a['tw4_div'], (a['outer'], a['inner'])).reshape(-1)
+         if a['tw4'] else np.zeros(a['outer'] * a['inner'], dtype=int))
+    if a['mode'] == F.MODES['scatter']:
+        # point n of the global line (n1 N2 + n2 on a four-step first
+        # launch) takes the coefficient of k = n or n - N at slot k mod M
+        ng = n * (a['gN'] // L) + q[:, None]
+        k = np.where(ng <= a['gN'] // 2, ng, ng - a['gN'])
+        ok = (k <= a['kpos']) & (-k <= a['kneg'])
+        addr = base[:, None] + np.where(k >= 0, k, k + a['modes']) * a['in_n']
+        v = np.where(ok, src[np.where(ok, addr, 0)], 0).astype(np.complex128)
     else:
-        v = src[addr].astype(np.complex128)
+        addr = base[:, None] + n * a['in_n']
+        if a['load'] == F.LOADS['packed']:
+            v = src[addr] + 1j * src[addr + a['in_pair']]
+        else:
+            v = src[addr].astype(np.complex128)
     lines = v.shape[0]
     sched = t['sched'].reshape(-1, 3) if t['radices'] else np.zeros((0, 3), int)
     assert [int(r) for r in sched[:, 0]] == list(t['radices'])
@@ -67,26 +93,43 @@ def emulate_launch(a, sign, src, dst):
     y = np.einsum('ltk,tk->lk', v[:, p0[None, :] + n2],
                   root[((n2 * (k // Lr)[None, :]) % tail) * Lr])
     if a['tw4']:
-        q = np.broadcast_to(j // a['tw4_div'], (a['outer'], a['inner'])).reshape(-1)
         y = y * F.unit_roots(a['tw4'], sign)[(q[:, None] * k[None, :]) % a['tw4']]
     y = y * a['scale']
     if a['real_out']:
         y = y.real
     out_base = ((ob // a['out_od']) * a['out_o1'] + (ob % a['out_od']) * a['out_o2']
                 + j).reshape(-1)
-    dst[out_base[:, None] + k[None, :] * a['out_k']] = y
+    if a['mode'] != F.MODES['select']:
+        dst[out_base[:, None] + k[None, :] * a['out_k']] = y
+        return
+    # the select store: global point s = k1 + out_od k to its slot, and the
+    # zero slots kpos + 1 + z, z = k1 + out_od t, by the line of each k1
+    k1 = np.broadcast_to(ob % a['out_od'], (a['outer'], a['inner'])).reshape(-1)[:, None]
+    s = k1 + a['out_od'] * k[None, :]
+    slot = np.where(s <= a['kpos'], s, np.where(s >= a['gN'] - a['kneg'],
+                                                 s - a['gN'] + a['modes'], -1))
+    hit = slot >= 0
+    dst[(out_base[:, None] + slot * a['out_k'])[hit]] = y[hit]
+    nzero = a['modes'] - a['kpos'] - a['kneg'] - 1
+    z = k1 + a['out_od'] * np.arange(-(-nzero // a['out_od']))[None, :]
+    z = np.broadcast_to(z, (k1.shape[0], z.shape[1]))
+    at = out_base[:, None] + (a['kpos'] + 1 + z) * a['out_k']
+    dst[at[z < nzero]] = 0
 
 
-def dft_emulated(x, sign, axis, load='complex', scale=1.0, real_out=False):
-    """F.dft on the CUDA path, with each of its launches emulated."""
+def dft_emulated(x, sign, axis, load='complex', scale=1.0, real_out=False, select=None,
+                 scatter=None):
+    """F.dft (with `select` or `scatter`: F.dft_select, F.dft_scatter) on
+    the CUDA path, with each of its launches emulated."""
     x = np.ascontiguousarray(x)
-    launches = F.dft_launches(x.shape, axis, load, sign, scale, real_out)
-    N = x.shape[axis] // (2 if load == 'packed' else 1)
+    launches = F.dft_launches(x.shape, axis, load, sign, scale, real_out, select, scatter)
+    N = scatter[0] if scatter else x.shape[axis] // (2 if load == 'packed' else 1)
     shape = list(x.shape)
-    shape[axis] = N
+    shape[axis] = select[0] if select else N
+    scratch = int(np.prod(shape)) // shape[axis] * N
     bufs = dict(x=x.reshape(-1), y=np.full(int(np.prod(shape)), np.nan,
                                            dtype=np.float64 if real_out else np.complex128),
-                scratch=np.full(int(np.prod(shape)), np.nan, dtype=np.complex128))
+                scratch=np.full(scratch, np.nan, dtype=np.complex128))
     for a in launches:
         emulate_launch(a, sign, bufs[a['src']], bufs[a['dst']])
     return bufs['y'].reshape(shape), launches
@@ -182,3 +225,63 @@ def test_plain_twin_agrees_with_the_emulated_kernel(N):
     x, axis, _ = _lines(N, 'complex', 'strided', rng)
     y, _ = dft_emulated(x, -1, axis)
     assert relerr(F.dft(torch.as_tensor(x), -1, axis).numpy(), y) <= TOL
+
+
+def _complex_lines(N, layout, rng):
+    """Complex lines of N points (outer, N[, inner]) along axis 1."""
+    outer, inner = LAYOUTS[layout]
+    shape = (outer, N) if inner is None else (outer, N, inner)
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize('layout', list(LAYOUTS))
+@pytest.mark.parametrize('N, M, Kmax', FUSED)
+def test_fused_k12_complex_select_and_scatter(N, M, Kmax, layout):
+    """K10 with K12's select store (dft_select) and scatter load
+    (dft_scatter), emulated: bit for bit the plain select of the emulated
+    unfused forward launches and the emulated unfused inverse launches of
+    the plain scatter; within 1e-13 of the JAX package's
+    complex_fft_forward and complex_fft_backward; one launch, or two on the
+    16384-point line; every output element written."""
+    rng = np.random.default_rng(N * 7 + M)
+    x = _complex_lines(N, layout, rng)
+    fused, launches = dft_emulated(x, -1, 1, scale=1.0 / N, select=(M, Kmax))
+    assert len(launches) == (2 if N == 16384 else 1)
+    assert [a['mode'] for a in launches][-1] == F.MODES['select']
+    assert not np.isnan(fused).any()
+    Z, _ = dft_emulated(x, -1, 1, scale=1.0 / N)
+    unfused = F.fourier_select_plain(torch.as_tensor(Z), 1, M, Kmax).numpy()
+    np.testing.assert_array_equal(fused, unfused)
+    jx = np.moveaxis(x, 1, -1)
+    ref = np.moveaxis(np.asarray(JAX_COMPLEX['complex_fft_forward'](jx, jx.ndim - 1, M, Kmax)),
+                      -1, 1)
+    assert relerr(fused, ref) <= TOL
+
+    c = _complex_lines(M, layout, rng)
+    back, launches = dft_emulated(c, +1, 1, scatter=(N, Kmax))
+    assert len(launches) == (2 if N == 16384 else 1)
+    assert launches[0]['mode'] == F.MODES['scatter']
+    assert not np.isnan(back).any()
+    full = F.fourier_scatter_plain(torch.as_tensor(c), 1, N, Kmax).numpy()
+    unfused, _ = dft_emulated(full, +1, 1)
+    np.testing.assert_array_equal(back, unfused)
+    jc = np.moveaxis(c, 1, -1)
+    ref = np.moveaxis(np.asarray(JAX_COMPLEX['complex_fft_backward'](jc, jc.ndim - 1, N, Kmax)),
+                      -1, 1)
+    assert relerr(back, ref) <= TOL
+
+
+def test_fused_k12_plan_raises_outside_its_forms():
+    """The select store and the scatter load take complex lines without a
+    real output, one of them a call; the select 0 <= Kmax <= (N - 1) // 2."""
+    with pytest.raises(ValueError):
+        F.dft_launches((2, 16), 1, 'real', -1, select=(8, 3))
+    with pytest.raises(ValueError):
+        F.dft_launches((2, 16), 1, 'complex', +1, real_out=True, scatter=(16, 3))
+    with pytest.raises(ValueError):
+        F.dft_launches((2, 16), 1, 'complex', -1, select=(24, 8))
+    (a,) = F.dft_launches((2, 16), 1, 'complex', -1, select=(24, 7))
+    assert (a['kpos'], a['kneg'], a['modes'], a['gN']) == (7, 7, 24, 16)
+    (a,) = F.dft_launches((2, 16), 1, 'complex', -1, select=(16, 7))
+    assert (a['kpos'], a['kneg']) == (7, 7) and a['out_o1'] == 16
+    assert F.select_fields(16, 100, 20)['kpos'] == 8 and F.select_fields(16, 100, 20)['kneg'] == 7
