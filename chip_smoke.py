@@ -1687,19 +1687,46 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
     return out
 
 
-# The paths ab_compare reads by default: rbc256c under `fast` (K10 with
-# K12's complex select and scatter), the paths whose replayed step runs KE
-# and KF, and the complex shell's ZCross cell (KF's complex form)
-AB_PATHS = ('rbc256c-fast', 'disk', 'sphere', 'annulus', 'shell192c-zcross')
+# The paths ab_compare reads by default: the banded step (K4, K5, K6) at
+# rbc2048, the same under the fast transforms (K10-K12, K11b's conversion),
+# rbc256c under `fast` (K10 with K12's complex select and scatter), and K5
+# and K11b alone on random inputs at those paths' shapes (ab_k5_k11b). The
+# paths whose replayed step runs KE and KF (disk, sphere, annulus) and the
+# complex shell's ZCross cell (shell192c-zcross) are read when named.
+AB_PATHS = ('rbc2048', 'rbc2048-fast', 'rbc256c-fast', 'k5-k11b')
 # rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
 # host-bound loop more than a kernel does)
 AB_RBC256C_DT = 0.01
 
 
+def table_rows(table, *names):
+    """[records a step, device ms a step] of a step_kernel_table's kernels
+    whose names hold any of `names`."""
+    hit = [v for k, v in table.items() if any(n in k for n in names)]
+    return [sum(v[0] for v in hit), sum(v[1] for v in hit)]
+
+
+def k5_call(bb, reps=20):
+    """K5 on a factorization's factors and a seeded right-hand side, by
+    events and on the device (its own records)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    fac = bb.arrs['fac']
+    gen = torch.Generator(device=fac['Rinv'].device).manual_seed(5)
+    rc = torch.randn(tuple(fac['Rinv'].shape[:3]), generator=gen, dtype=torch.float64,
+                     device=fac['Rinv'].device).to(fac['Rinv'].dtype)
+    fargs = (fac['Qt'], fac['QtL'], fac['Rinv'], fac['R1'], fac['R2'], rc)
+    fn = lambda: ob.block_tridiag_qr_solve(*fargs)
+    return dict(shape=list(rc.shape), ms=cuda_ms(fn, reps),
+                device_ms=device_ms(fn, reps, name='block_tridiag_qr_solve'),
+                bound_ms=bound(nbytes(*fargs, rc), 0)[0])
+
+
 def ab_rbc2048(steps):
     """rbc2048 at FIXED_REFINEMENTS: the replayed step's ms and its kernels
-    by name, K4 on the L apply (events, and its own kernel on the device),
-    K2a and torch.cat on the staging calls of one F (events and device)."""
+    by name (K4's and K5's records and device ms a step), K4 on the L apply
+    (events, and its own kernel on the device), K5 on the factors (events,
+    device), K2a and torch.cat on the staging calls of one F (events and
+    device)."""
     from dedalus_tpu_torch.ops import staging
     dev, kind, smi = card()
     solver = build_rbc(NX, NZ, RA, dev, matsolver='banded')
@@ -1711,6 +1738,7 @@ def ab_rbc2048(steps):
     solver.run_steps(DT, 2)
     graph_ms = [run_ms(solver, lambda: solver.run_steps(DT, steps)) for _ in range(2)]
     table = step_kernel_table(solver, lambda: solver.run_steps(DT, 10))
+    k5 = k5_call(bb)
     X = solver.pencil.gather_state(solver.state_flat())
     bM, bL = ts._banded_ml()
     k4 = dict(L_ms=cuda_ms(lambda: bL.apply(X), 20), M_ms=cuda_ms(lambda: bM.apply(X), 20),
@@ -1741,10 +1769,123 @@ def ab_rbc2048(steps):
         k2a.append(row)
     return dict(graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
                 step_kernels=dict(list(table.items())[:25]),
-                k4_step=[sum(v[0] for k, v in table.items() if 'banded_apply_kernel' in k),
-                         sum(v[1] for k, v in table.items() if 'banded_apply_kernel' in k)],
+                k4_step=table_rows(table, 'banded_apply_kernel'),
+                k5_step=table_rows(table, 'block_tridiag_qr_solve'), k5=k5,
                 records_per_step=sum(v[0] for v in table.values()),
                 device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
+
+
+def ab_rbc2048_fast(steps):
+    """rbc2048 under the fast transforms at FIXED_REFINEMENTS: the replayed
+    step's ms, K11b's (the conversion kernels') and K5's records and device
+    ms a step, and each distinct K11b call of one F by events and on the
+    device beside the dense matmul or solve_triangular (fast_library)."""
+    from dedalus_tpu_torch.ops import fft as offt
+    dev, kind, smi = card()
+    old = set_libraries('fast')
+    try:
+        solver = build_rbc(NX, NZ, RA, dev, matsolver='banded')
+        solver.run_steps(DT, 5)
+        ts = solver.timestepper
+        a, b, c = ts.compute_coefficients([DT, DT], 2)
+        bb = ts._factorized[(float(a[0]), float(b[0]))].banded
+        bb.refinements = ts._banded_refs_floor = FIXED_REFINEMENTS
+        solver.run_steps(DT, 2)
+        graph_ms = [run_ms(solver, lambda: solver.run_steps(DT, steps)) for _ in range(2)]
+        table = step_kernel_table(solver, lambda: solver.run_steps(DT, 10))
+        state, t = solver.state_flat(), solver.sim_time
+        calls = capture_fast_calls(lambda: solver.traced_F(state, t))
+        k11b = []
+        for w in FAST_WRAPPERS['chebyshev_conversion']:
+            seen = {}
+            for args, kw in calls[w]:
+                seen.setdefault(_call_key(args, kw), (args, kw))
+            for args, kw in seen.values():
+                fn = functools.partial(getattr(offt, w), *args, **kw)
+                lib = fast_library(w, args, kw)
+                k11b.append(dict(wrapper=w, shape=list(args[1].shape), axis=args[2],
+                                 ms=cuda_ms(fn, 50), device_ms=device_ms(fn, name='conversion'),
+                                 library_ms=None if lib is None else cuda_ms(lib, 50),
+                                 library_device_ms=None if lib is None else device_ms(lib)))
+        del calls
+    finally:
+        restore_libraries(old)
+    out = dict(graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
+               step_kernels=dict(list(table.items())[:25]),
+               k11b_step=table_rows(table, 'conversion_solve', 'conversion_apply'),
+               k5_step=table_rows(table, 'block_tridiag_qr_solve'),
+               records_per_step=sum(v[0] for v in table.values()),
+               device_ms_per_step=sum(v[1] for v in table.values()), k11b_calls=k11b)
+    print(f"[{smi}] rbc2048-fast: graph ms/step {graph_ms}; K11b a replayed step "
+          f"{out['k11b_step']}, K5 {out['k5_step']} (records, device ms); the step's device "
+          f"ms {out['device_ms_per_step']:.4f}")
+    return out
+
+
+# ab_k5_k11b's cases: K11b's solve and apply at rbc2048-fast's shapes (the
+# last axis and a middle one) and at rbc256c-fast's scale; K5 at rbc2048's
+# and at 2048x2048's block counts
+AB_K11B = (('solve', (6, 2048, 512), -1), ('solve', (6, 512, 2048), 1),
+           ('solve', (2, 256, 64), -1), ('apply', (2, 2048, 512), -1),
+           ('apply', (2, 512, 2048), 1))
+AB_K5 = ((1024, 217, 19, 'float32'), (1024, 217, 19, 'float64'), (1024, 863, 19, 'float32'))
+
+
+def ab_k5_k11b(steps=None):
+    """K11b and K5 on seeded random inputs at the main paths' shapes
+    (AB_K11B, AB_K5; K5 on K8a's factors of a random diagonally dominant
+    band, cast to the factor type), by events and on the device (each
+    kernel's own records), K11b beside the dense matmul or
+    solve_triangular, two launches compared bit for bit and each held
+    against its plain twin (reported: random f32 factors over 217 blocks
+    lose more than the rbc2048 factors' 1e-5 in either kernel). `steps` is
+    ab_side's and unused."""
+    from dedalus_tpu_torch.ops import fft as offt, banded as ob
+    from dedalus_tpu_torch.core import basis as tbasis
+    from dedalus_tpu_torch.core.coords import Coordinate
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = dict(k11b=[], k5=[])
+    for wrapper, shape, axis in AB_K11B:
+        M = shape[axis]
+        band = tbasis.ChebyshevU(Coordinate('z'), M, (-1, 1))._conversion_band(M)
+        x = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+        fn = functools.partial(getattr(offt, 'conversion_' + wrapper), band, x, axis)
+        y1, y2 = fn(), fn()
+        yp = getattr(offt, f'conversion_{wrapper}_plain')(band, x, axis)
+        torch.cuda.synchronize()
+        lib = fast_library('conversion_' + wrapper, (band, x, axis), {})
+        out['k11b'].append(dict(
+            wrapper=wrapper, shape=list(shape), axis=axis, err=rel_err(y1, yp)[0],
+            bitwise=bool(torch.equal(y1, y2)), ms=cuda_ms(fn, 50),
+            device_ms=device_ms(fn, name='conversion'), bound_ms=bound(nbytes(x, y1), 0)[0],
+            library_ms=None if lib is None else cuda_ms(lib, 50),
+            library_device_ms=None if lib is None else device_ms(lib)))
+    for G, Nb, nb, dtype in AB_K5:
+        eye = torch.eye(nb, dtype=torch.float64, device=dev)
+        blocks = [torch.randn((G, Nb, nb, nb), generator=gen, dtype=torch.float64, device=dev)
+                  for _ in range(3)]
+        blocks[0] += 4 * eye
+        blocks[1][:, 0] = 0
+        blocks[2][:, -1] = 0
+        qr = ob.factor_block_tridiag_qr(*blocks)
+        del blocks
+        dt = getattr(torch, dtype)
+        fargs = [qr[k].to(dt).contiguous() for k in ('Qt', 'QtL', 'Rinv', 'R1', 'R2')]
+        del qr
+        r = torch.randn((G, Nb, nb), generator=gen, dtype=torch.float64, device=dev).to(dt)
+        fn = functools.partial(ob.block_tridiag_qr_solve, *fargs, r)
+        y1, y2 = fn(), fn()
+        yp = ob.block_tridiag_qr_solve_plain(*fargs, r)
+        torch.cuda.synchronize()
+        out['k5'].append(dict(shape=[G, Nb, nb], dtype=dtype, err=rel_err(y1, yp)[0],
+                              bitwise=bool(torch.equal(y1, y2)), ms=cuda_ms(fn, 20),
+                              device_ms=device_ms(fn, 10, 'block_tridiag_qr_solve'),
+                              bound_ms=bound(nbytes(*fargs, r, y1), 0)[0]))
+        del fargs, y1, y2, yp
+        torch.cuda.empty_cache()
+    print(f"[{smi}] K11b and K5 on random inputs: {json.dumps(out)}")
+    return out
 
 
 def kf_step_launches(run, n=10):
@@ -1842,11 +1983,6 @@ def ab_rbc256c_fast(steps, dt=AB_RBC256C_DT):
         run(5)
         graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
         table = step_kernel_table(solver, lambda: run(10))
-
-        def rows(*names):
-            hit = [v for k, v in table.items() if any(n in k for n in names)]
-            return [sum(v[0] for v in hit), sum(v[1] for v in hit)]
-
         recorded = {}
         saved = {w: getattr(otr, w) for w in ('complex_fft_forward', 'complex_fft_backward')}
         for w, fn in saved.items():
@@ -1870,8 +2006,8 @@ def ab_rbc256c_fast(steps, dt=AB_RBC256C_DT):
                               torch_ms=cuda_ms(library, 50), torch_device_ms=device_ms(library)))
     finally:
         restore_libraries(old)
-    out = dict(graph_ms_per_step=graph_ms, dt=dt, k10_step=rows('fft_kernel'),
-               k12_step=rows('fourier_select_kernel', 'fourier_scatter_kernel'),
+    out = dict(graph_ms_per_step=graph_ms, dt=dt, k10_step=table_rows(table, 'fft_kernel'),
+               k12_step=table_rows(table, 'fourier_select_kernel', 'fourier_scatter_kernel'),
                records_per_step=sum(v[0] for v in table.values()),
                device_ms_per_step=sum(v[1] for v in table.values()), calls=calls)
     print(f"[{smi}] rbc256c-fast at dt {dt}: graph ms/step {graph_ms}; K10 a replayed step "
@@ -1950,8 +2086,9 @@ def ab_side(root, paths=AB_PATHS, steps=20):
     dev, kind, smi = card()
     out = dict(root=root, card=smi)
     for path in paths:
-        run = dict(rbc2048=ab_rbc2048, shell192c_zcross=ab_shell192c_zcross,
-                   rbc256c_fast=ab_rbc256c_fast).get(path.replace('-', '_'), None)
+        run = dict(rbc2048=ab_rbc2048, rbc2048_fast=ab_rbc2048_fast,
+                   shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
+                   k5_k11b=ab_k5_k11b).get(path.replace('-', '_'), None)
         out[path] = run(steps) if run else ab_ke_path(path, steps)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1982,7 +2119,7 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
     for label, runs in sides.items():
         for path in paths:
             rs = [r[path] for r in runs]
-            g = [x for r in rs for x in r['graph_ms_per_step']]
+            g = [x for r in rs for x in r.get('graph_ms_per_step', ())]
             kf = [(r['kf']['launches_per_step'], r['kf']['device_ms_per_step'],
                    [(c['shape'], c['ranks'], round(c['ms'], 4), c['device_ms'],
                      round(c['library_ms'], 4), c['library_device_ms'])
@@ -1993,10 +2130,23 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                       f"library events ms, library device ms)]) {kf}")
             if path == 'rbc2048':
                 print(f"[{runs[0]['card']}] {label} rbc2048: graph ms/step {g}; K4 a replayed "
-                      f"step {[r['k4_step'] for r in rs]} (records, device ms); records a step "
+                      f"step {[r['k4_step'] for r in rs]}, K5 {[r['k5_step'] for r in rs]} "
+                      f"(records, device ms); the step's device ms "
+                      f"{[r['device_ms_per_step'] for r in rs]}; records a step "
                       f"{[r['records_per_step'] for r in rs]}; K4 L apply "
                       f"{[round(r['k4']['L_ms'], 4) for r in rs]} ms (its kernel on the device "
-                      f"{[r['k4']['L_kernel_device_ms'] for r in rs]})")
+                      f"{[r['k4']['L_kernel_device_ms'] for r in rs]}); K5's call "
+                      f"{[(round(r['k5']['ms'], 4), r['k5']['device_ms']) for r in rs]} "
+                      f"(events, device; bound {rs[0]['k5']['bound_ms']:.4f})")
+            elif path == 'rbc2048-fast':
+                calls = [[(c['wrapper'][11:], c['shape'], round(c['ms'], 4), c['device_ms'],
+                           c['library_ms'] and round(c['library_ms'], 4),
+                           c['library_device_ms']) for c in r['k11b_calls']] for r in rs]
+                print(f"[{runs[0]['card']}] {label} rbc2048-fast: graph ms/step {g}; K11b a "
+                      f"replayed step {[r['k11b_step'] for r in rs]}, K5 "
+                      f"{[r['k5_step'] for r in rs]} (records, device ms); the step's device "
+                      f"ms {[r['device_ms_per_step'] for r in rs]}; K11b's calls of one F "
+                      f"(events ms, device ms, library events, device) {calls}")
             elif path == 'rbc256c-fast':
                 calls = [[(c['transform'][12:], c['shape'], round(c['ms'], 4), c['device_ms'],
                            round(c['torch_ms'], 4), c['torch_device_ms']) for c in r['calls']]
@@ -2006,6 +2156,14 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                       f"{[r['k12_step'] for r in rs]} (records, device ms); the step's device "
                       f"ms {[r['device_ms_per_step'] for r in rs]}; the transforms of one F "
                       f"(events ms, device ms, torch.fft + index_select events, device) {calls}")
+            elif path == 'k5-k11b':
+                for r in rs:
+                    print(f"[{runs[0]['card']}] {label} K11b (wrapper, shape, axis, events ms, "
+                          f"device ms, library events, device, err, bitwise) "
+                          f"{[(c['wrapper'], c['shape'], c['axis'], round(c['ms'], 4), c['device_ms'], c['library_ms'] and round(c['library_ms'], 4), c['library_device_ms'], c['err'], c['bitwise']) for c in r['k11b']]}; "
+                          f"K5 (shape, dtype, events ms, device ms, bound, err, bitwise) "
+                          f"{[(c['shape'], c['dtype'], round(c['ms'], 4), c['device_ms'], round(c['bound_ms'], 4), c['err'], c['bitwise']) for c in r['k5']]}")
+                continue
             elif path == 'shell192c-zcross':
                 print(f"[{runs[0]['card']}] {label} shell192c-zcross: graph ms/step {g}")
             else:
@@ -2050,20 +2208,39 @@ def check_k457(path, solver, fact, abc, primary=False):
     fac = bb.arrs['fac']
     rc = ob.banded_solve_pre_plain(RHS_plain, bb.arrs['row_perm'], bb.arrs['Dr'],
                                    fac['Rinv'].dtype).reshape(G, Nb, nb).contiguous()
-    fargs = (fac['Qt'], fac['QtL'], fac['Rinv'], fac['R1'], fac['R2'], rc)
-    y_k = ob.block_tridiag_qr_solve(*fargs)
-    y_p = ob.block_tridiag_qr_solve_plain(*fargs)
-    torch.cuda.synchronize()
-    k5_flops = 2 * G * ((Nb - 1) * (2 * nb) ** 2 + nb * nb + 3 * Nb * nb * nb)
-    record('block_tridiag_qr_solve', path, dict(
-        err=rel_err(y_k, y_p), shape=[G, Nb, nb],
-        ms=cuda_ms(lambda: ob.block_tridiag_qr_solve(*fargs), 20),
-        plain_ms=cuda_ms(lambda: ob.block_tridiag_qr_solve_plain(*fargs), 3),
-        library_ms=None,
-        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(*fargs, y_k), k5_flops)))), primary)
-
+    check_k5(path, bb, rc, primary)
     check_k4(path, pencil, fact, primary, ts=ts, abc=abc, R=RHS_plain)
     return RHS_plain
+
+
+def check_k5(path, bb, rc=None, primary=False, reps=20):
+    """K5 against its plain twin on a banded factorization's factors (on the
+    right-hand side rc, or a seeded one): two launches equal bit for bit,
+    the kernel by events and on the device (its own records), the twin, the
+    byte bound (the factors read once, r read and x written once)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    fac = bb.arrs['fac']
+    G, Nb, nb = fac['Rinv'].shape[:3]
+    if rc is None:
+        gen = torch.Generator(device=fac['Rinv'].device).manual_seed(5)
+        rc = torch.randn((G, Nb, nb), generator=gen, dtype=torch.float64,
+                         device=fac['Rinv'].device).to(fac['Rinv'].dtype)
+    fargs = (fac['Qt'], fac['QtL'], fac['Rinv'], fac['R1'], fac['R2'], rc)
+    y_k = ob.block_tridiag_qr_solve(*fargs)
+    y_k2 = ob.block_tridiag_qr_solve(*fargs)
+    y_p = ob.block_tridiag_qr_solve_plain(*fargs)
+    torch.cuda.synchronize()
+    if not torch.equal(y_k, y_k2):
+        raise AssertionError(f"{path}: two K5 launches differ: {rel_err(y_k, y_k2)}")
+    k5_flops = 2 * G * ((Nb - 1) * (2 * nb) ** 2 + nb * nb + 3 * Nb * nb * nb)
+    fn = lambda: ob.block_tridiag_qr_solve(*fargs)
+    record('block_tridiag_qr_solve', path, dict(
+        err=rel_err(y_k, y_p), shape=[G, Nb, nb], dtype=str(rc.dtype), bitwise=True,
+        ms=cuda_ms(fn, reps), device_ms=device_ms(fn, reps, name='block_tridiag_qr_solve'),
+        plain_ms=cuda_ms(lambda: ob.block_tridiag_qr_solve_plain(*fargs), 3),
+        library_ms=None, library_device_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(*fargs, y_k), k5_flops)))), primary,
+        keys=DEVICE_KEYS)
 
 
 def last_solve_residual(solver, a, b, c):
@@ -2537,6 +2714,19 @@ def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_nam
                 reps = 20
                 k_ms = cuda_ms(lambda: kfn(*args, **kw), reps)
                 p_ms = cuda_ms(lambda: pfn(*args, **kw), 3 if 'solve' in w else reps)
+                extra_call = {}
+                if name == 'chebyshev_conversion':
+                    # K11b: two launches equal bit for bit, the kernel and the
+                    # library call on the device beside their events
+                    yk2 = kfn(*args, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(yk, yk2):
+                        raise AssertionError(f"{w} {list(args[1].shape)}: two launches differ")
+                    lib = fast_library(w, args, kw)
+                    extra_call = dict(
+                        device_ms=device_ms(lambda: kfn(*args, **kw), name='conversion'),
+                        library_ms=None if lib is None else cuda_ms(lib, reps),
+                        library_device_ms=None if lib is None else device_ms(lib))
                 b, o = fast_cost(w, args, kw, yk)
                 ms += k_ms
                 plain_ms += p_ms
@@ -2550,10 +2740,14 @@ def check_fast_kernels(path, calls, per_f, primary=True, names=None, primary_nam
                 shapes.append([w, list(data.shape)])
                 by_wrapper.setdefault(w, []).append(dict(shape=shapes[-1][1], ms=k_ms,
                                                          plain_ms=p_ms, err=errs[-1][0],
-                                                         bound_ms=bound(b, o)[0]))
+                                                         bound_ms=bound(b, o)[0],
+                                                         **extra_call))
                 print(f"  {w} {shapes[-1][1]} {dict((k, v) for k, v in kw.items())}: kernel "
                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound(b, o)[0]:.4f} ms "
-                      f"({bound(b, o)[1]}), rel_err {errs[-1][0]:.2e}", flush=True)
+                      f"({bound(b, o)[1]}), rel_err {errs[-1][0]:.2e}"
+                      + (f"; on the device {extra_call['device_ms']}, library "
+                         f"{extra_call['library_ms']} ms ({extra_call['library_device_ms']} on "
+                         f"the device), two launches equal" if extra_call else ''), flush=True)
         if not errs:
             raise AssertionError(f"{name}: F made no call of its wrappers on the {path} path")
         b_ms, b_by = bound(*bnd)
@@ -3852,6 +4046,59 @@ def ke_sweep(shapes=KE_SHAPES, reps=20):
         print(json.dumps({"ke_sweep": name, "card": smi, **row}), flush=True)
 
 
+# KJ's and KG cross's blocks for device_sweep: the shell's weighted backward
+# transform of a k = 1 vector to the dealias radius (lines, N -> Ng), and the
+# cross products of the shell (-(ez x u)) and of ballihc (-(curl(u) x u))
+# on their dealias grids
+KJ_SHAPE = (55296, 12, 18)
+CROSS_SHAPES = dict(shell=(3, 288, 144, 18), ball_ihc=(3, 96, 48, 48))
+
+
+def device_sweep(reps=20):
+    """KJ and KG's cross form on random data at the shell's and ballihc's
+    shapes (not part of main(); run it in a fresh process, where the
+    profiler delivers every record): each by events and on the device
+    beside its library call (matmul and the weight; -torch.linalg.cross),
+    two launches equal bit for bit, within TOL of the plain twin. A call's
+    data stay in the 50 MB L2 across repeated calls where they fit (KJ's
+    13 MB and ballihc's cross's 16 MB; not the shell's cross's 54 MB): those
+    device times are warm. Prints one JSON line."""
+    from dedalus_tpu_torch.ops import shell as oshell, products as oprod
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    out = dict(card=smi)
+    lines, N, Ng = KJ_SHAPE
+    T, x, w = rand((Ng, N)), rand((lines, N)), rand((Ng,))
+    Tm = T.mT
+    y, y2 = oshell.shell_radial_transform(T, x, None, w), oshell.shell_radial_transform(
+        T, x, None, w)
+    yp = oshell.shell_radial_transform_plain(T, x, None, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and rel_err(y, yp)[0] <= TOL['shell_radial_transform']):
+        raise AssertionError(f"device_sweep: KJ {rel_err(y, yp)}, {torch.equal(y, y2)}")
+    kj = lambda: oshell.shell_radial_transform(T, x, None, w)
+    lib = lambda: torch.matmul(x, Tm) * w
+    out['kj'] = dict(shape=[lines, N, Ng], ms=cuda_ms(kj, 50), device_ms=device_ms(kj, reps),
+                     library_ms=cuda_ms(lib, 50), library_device_ms=device_ms(lib, reps),
+                     bound_ms=bound(*kj_bytes_flops(T, x, y, None, w))[0])
+    for path, shape in CROSS_SHAPES.items():
+        a, b = rand(shape), rand(shape)
+        ck, ck2, cp = (oprod.grid_cross(a, b, -1.0), oprod.grid_cross(a, b, -1.0),
+                       oprod.grid_cross_plain(a, b, -1.0))
+        torch.cuda.synchronize()
+        if not (torch.equal(ck, ck2) and rel_err(ck, cp)[0] <= TOL['grid_cross']):
+            raise AssertionError(f"device_sweep: KG cross {path} {rel_err(ck, cp)}")
+        kg = lambda: oprod.grid_cross(a, b, -1.0)
+        lib = lambda: -torch.linalg.cross(a, b, dim=0)
+        out['grid_cross_' + path] = dict(
+            shape=list(shape), ms=cuda_ms(kg, 50), device_ms=device_ms(kg, reps),
+            library_ms=cuda_ms(lib, 50), library_device_ms=device_ms(lib, reps),
+            bound_ms=bound(nbytes(a, b, ck), 4 * ck.numel())[0])
+    print(json.dumps({"device_sweep": out}), flush=True)
+    return out
+
+
 def check_polar_kernels(geometry, ctx):
     """KE and KF against their plain twins at a polar or sphere path's
     shapes: KE on the disk's backward radial transform stack or the sphere's
@@ -4583,6 +4830,7 @@ def check_shell_kernels(solver, ctx):
                         plain_ms=cuda_ms(lambda: oshell.shell_radial_transform_plain(
                             T, x, w_in, w_out), 50),
                         library_ms=cuda_ms(lambda: torch.matmul(x, Tm) * w_out, 50),
+                        library_device_ms=device_ms(lambda: torch.matmul(x, Tm) * w_out),
                         device_ms=device_ms(lambda: oshell.shell_radial_transform(
                             T, x, w_in, w_out)),
                         plain_device_ms=device_ms(lambda: oshell.shell_radial_transform_plain(
@@ -4602,6 +4850,7 @@ def check_shell_kernels(solver, ctx):
         ms=cuda_ms(lambda: oprod.grid_cross(ezg, ug, -1.0), 50),
         plain_ms=cuda_ms(lambda: oprod.grid_cross_plain(ezg, ug, -1.0), 50),
         library_ms=cuda_ms(lambda: -torch.linalg.cross(ezg, ug, dim=0), 50),
+        library_device_ms=device_ms(lambda: -torch.linalg.cross(ezg, ug, dim=0)),
         device_ms=device_ms(lambda: oprod.grid_cross(ezg, ug, -1.0)),
         plain_device_ms=device_ms(lambda: oprod.grid_cross_plain(ezg, ug, -1.0)),
         **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(ezg, ug, ck), 4 * ck.numel())))),
@@ -5555,11 +5804,11 @@ def check_ball_ihc_kernels(solver, ctx):
         ms=cuda_ms(lambda: oprod.grid_cross(wg, ug, -1.0), 50),
         plain_ms=cuda_ms(lambda: oprod.grid_cross_plain(wg, ug, -1.0), 50),
         library_ms=cuda_ms(lambda: -torch.linalg.cross(wg, ug, dim=0), 50),
+        library_device_ms=device_ms(lambda: -torch.linalg.cross(wg, ug, dim=0)),
         device_ms=device_ms(lambda: oprod.grid_cross(wg, ug, -1.0)),
         plain_device_ms=device_ms(lambda: oprod.grid_cross_plain(wg, ug, -1.0)),
         **dict(zip(('bound_ms', 'bound_by'), bound(nbytes(wg, ug, ck), 4 * ck.numel())))),
-        False, keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'device_ms',
-                     'plain_device_ms'))
+        False, keys=DEVICE_KEYS + ('plain_device_ms',))
 
 
 def ball_ihc_path(steps=BALL_IHC['steps']):
@@ -6438,6 +6687,7 @@ def banded_lbvp_path():
                 count_launches('lbvp_banded', 1, solver.solve)
                 torch.cuda.synchronize()
                 check_k4('lbvp_banded', solver.pencil, solver._factorized, reps=5)
+                check_k5('lbvp_banded', solver._factorized.banded)
             else:
                 solver.solve()
             solve_s = time.perf_counter() - t0

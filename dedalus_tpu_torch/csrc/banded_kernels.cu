@@ -30,177 +30,287 @@
 // ---------------------------------------------------------------------------
 // K5: forward Q^T sweep + block back-substitution with two superdiagonals.
 //
-// One thread block per group g: the two sweeps are sequential in the block
-// index i, so the loop over the Nb blocks runs inside the block and the
-// 2nb-vector carry stays in shared memory. The factors are read exactly
-// once per solve, so the kernel is bound by device-memory bandwidth: ~2.2 GB
-// of f32 factors at RBC 2048x512 (G=1024, Nb=217, nb=19). Two things keep
-// each step from waiting on its own loads:
-//   * the next factor block is copied into a second shared buffer with
-//     asynchronous copies (cp.async) while the current one is applied;
-//   * each output row's dot product is split over four neighbouring lanes
-//     and reduced with warp shuffles, so the serial chain is n/4 long.
+// One warp per group g: the two sweeps are sequential in the block index i,
+// so the warp walks the Nb blocks in order with the carry in its own slice
+// of shared memory, and synchronises with __syncwarp only (no block-wide
+// barrier). The factors are read exactly once per solve, so the kernel is
+// bound by device-memory bandwidth: ~2.2 GB of f32 factors at RBC 2048x512
+// (G=1024, Nb=217, nb=19). Each group streams its factors through a ring of
+// S slots (K5 plan, ops/banded.py k5_plan): step i's blocks are issued S - 1
+// steps before they are used, by cp.async of 16 bytes a copy, so S - 1
+// steps' bytes are in flight while the warp applies the current one.
+//
+// A factor block is not 16-byte aligned in general (a 19x19 f32 block is
+// 1444 bytes). Each region of a slot is therefore 16-byte aligned and A - 1
+// elements (A = 16 / sizeof(T)) longer than its data: the block lands at
+// the phase its address has (k5_land), its whole 16-byte spans copy 16
+// bytes at a time, and the fewer than A elements before the first and after
+// the last span one element at a time.
+//
+// A slot holds, in the forward sweep, step i's Qt block (2nb x 2nb) and
+// r_{i+1} (the last step: QtL); in the backward sweep R1_i, R2_i, Rinv_i and
+// y_i. Each lane owns the rows lane, lane + 32, ... of a step's product and
+// sums its row in column order.
 //
 // Layouts (row-major, contiguous):
 //   Qt   (G, Nb-1, 2nb, 2nb)   QtL (G, nb, nb)
 //   Rinv, R1, R2 (G, Nb, nb, nb)
 //   r, x (G, Nb, nb); x first holds y (the forward sweep output), which the
-//   backward sweep overwrites block by block.
-// T is the factor type (float as the reference ships; double is one
-// instantiation away).
+//   backward sweep reads back through the ring and overwrites block by
+//   block.
+// T is the factor type (float as the reference ships, and double).
 // ---------------------------------------------------------------------------
 
-constexpr int K5_LANES = 4;   // lanes per output row
+#define K5_MAX_STAGES 4
+#define K5_SMEM (227 * 1024)
 
+// Elements of a ring region for n elements at any phase, a multiple of A
 template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int n) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
+__host__ __device__ constexpr int k5_region(int n) {
+    return ((n + 2 * (16 / (int)sizeof(T)) - 2) / (16 / (int)sizeof(T))) *
+           (16 / (int)sizeof(T));
 }
 
 template <typename T>
-__device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ src, int n) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        __pipeline_memcpy_async(dst + k, src + k, sizeof(T));
+__host__ __device__ constexpr int k5_slot(int nb) {
+    return (k5_region<T>(4 * nb * nb) + k5_region<T>(nb)) > (3 * k5_region<T>(nb * nb) +
+                                                             k5_region<T>(nb))
+               ? k5_region<T>(4 * nb * nb) + k5_region<T>(nb)
+               : 3 * k5_region<T>(nb * nb) + k5_region<T>(nb);
 }
 
-// Dot product of row `row` (length n) with v, over the K5_LANES lanes q of
-// the row. Every lane of the warp must call it (the shuffles are warp-wide).
+// Elements of one warp's slice: the ring and the 4nb vectors (the forward
+// carry and the next one; the backward t, x_{i+1}, x_{i+2}, x_i)
 template <typename T>
-__device__ __forceinline__ T row_dot(const T* row, const T* v, int n, int q) {
-    T s = T(0);
-    for (int c = q; c < n; c += K5_LANES) s += row[c] * v[c];
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    return s;
+__host__ __device__ constexpr int k5_warp_elems(int nb, int stages) {
+    return stages * k5_slot<T>(nb) +
+           ((4 * nb + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T))) * (16 / (int)sizeof(T));
 }
 
 template <typename T>
-__global__ void block_tridiag_qr_solve_kernel(
+__device__ __forceinline__ const T* k5_land(const T* region, const T* src) {
+    return region + (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+}
+
+// Copy n elements at src into `region` at src's phase, by the warp's lanes
+template <typename T>
+__device__ __forceinline__ void k5_copy(T* region, const T* __restrict__ src, int n, int lane) {
+    constexpr int A = 16 / (int)sizeof(T);
+    const int phase = (int)((reinterpret_cast<uintptr_t>(src) & 15) / sizeof(T));
+    T* dst = region + phase;
+    const int head = min(n, (A - phase) & (A - 1));
+    const int tail = head + ((n - head) / A) * A;
+    for (int k = head + lane * A; k < tail; k += 32 * A)
+        __pipeline_memcpy_async(dst + k, src + k, 16);
+    if (lane < head) __pipeline_memcpy_async(dst + lane, src + lane, sizeof(T));
+    if (lane < n - tail)
+        __pipeline_memcpy_async(dst + tail + lane, src + tail + lane, sizeof(T));
+}
+
+// out(row, sum) for the rows of an (nrows x n1 + n2) block M (row stride
+// ld) times [a (n1); b (n2)]: the lane's rows lane and lane + 32 of each 64
+// together, each summed in column order.
+template <typename T, typename Out>
+__device__ __forceinline__ void k5_rows(const T* M, int ld, int nrows, const T* a, int n1,
+                                        const T* b, int n2, int lane, Out out) {
+    for (int row0 = 0; row0 < nrows; row0 += 64) {
+        const int ra = row0 + lane, rb = ra + 32;
+        if (row0 + 32 < nrows) {
+            const T* qa = M + (ra < nrows ? ra : 0) * ld;
+            const T* qb = M + (rb < nrows ? rb : 0) * ld;
+            T sa = T(0), sb = T(0);
+#pragma unroll 4
+            for (int c = 0; c < n1; ++c) {
+                sa += qa[c] * a[c];
+                sb += qb[c] * a[c];
+            }
+#pragma unroll 4
+            for (int c = 0; c < n2; ++c) {
+                sa += qa[n1 + c] * b[c];
+                sb += qb[n1 + c] * b[c];
+            }
+            if (ra < nrows) out(ra, sa);
+            if (rb < nrows) out(rb, sb);
+        } else if (ra < nrows) {
+            const T* qa = M + ra * ld;
+            T sa = T(0);
+#pragma unroll 4
+            for (int c = 0; c < n1; ++c) sa += qa[c] * a[c];
+#pragma unroll 4
+            for (int c = 0; c < n2; ++c) sa += qa[n1 + c] * b[c];
+            out(ra, sa);
+        }
+    }
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(32)
+block_tridiag_qr_solve_kernel(
         const T* __restrict__ Qt, const T* __restrict__ QtL,
         const T* __restrict__ Rinv, const T* __restrict__ R1,
         const T* __restrict__ R2, const T* __restrict__ r,
         T* __restrict__ x, int Nb, int nb) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int lane = threadIdx.x;
     const int n2 = 2 * nb;
-    const int m2 = n2 * n2;                    // one Qt block = 4 nb^2
-    const long long bsz = (long long)nb * nb;
-    T* const buf0 = reinterpret_cast<T*>(smem_raw);
-    T* const buf1 = buf0 + m2;
-    T* v = buf1 + m2;                        // 2nb: [carry ; r_{i+1}]
-    T* xa = v + n2;                            // x_{i+1}
-    T* xb = xa + nb;                           // x_{i+2}
-    const int tid = threadIdx.x;
-    const int row = tid / K5_LANES, q = tid % K5_LANES;
+    const long long bsz = (long long)nb * nb, m2 = 4 * bsz;
+    const int RQ = k5_region<T>(4 * nb * nb), RB = k5_region<T>(nb * nb);
+    const int slot = k5_slot<T>(nb);
+    T* const ring = reinterpret_cast<T*>(smem_raw);
+    T* const vec = ring + S * slot;
     const long long g = blockIdx.x;
     const T* rg = r + g * Nb * nb;
     T* xg = x + g * Nb * nb;
-    const T* Qtg = Qt + g * (long long)(Nb - 1) * m2;
+    const T* Qtg = Qt + g * (Nb - 1) * m2;
+    const T* QtLg = QtL + g * bsz;
 
-    // ---- forward sweep: w = Qt_i [carry; r_{i+1}], y_i = w[:nb], carry = w[nb:]
-    if (Nb > 1) {
-        stage_async(buf0, Qtg, m2);
-        __pipeline_commit();
-    }
-    stage(v, rg, nb);
-    const int rf = row < n2 ? row : 0;
-    for (int i = 0; i < Nb - 1; ++i) {
-        T* cur = (i & 1) ? buf1 : buf0;
-        if (i + 1 < Nb - 1) {
-            stage_async((i & 1) ? buf0 : buf1, Qtg + (long long)(i + 1) * m2, m2);
-            __pipeline_commit();
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
+    // ---- forward sweep, step i < Nb - 1: w = Qt_i [carry; r_{i+1}],
+    // y_i = w[:nb], carry = w[nb:]; step Nb - 1: y_{Nb-1} = QtL carry
+    auto issue_fwd = [&](int i) {
+        if (i < Nb) {
+            T* s = ring + (i % S) * slot;
+            if (i < Nb - 1) {
+                k5_copy(s, Qtg + i * m2, (int)m2, lane);
+                k5_copy(s + RQ, rg + (long long)(i + 1) * nb, nb, lane);
+            } else {
+                k5_copy(s, QtLg, (int)bsz, lane);
+            }
         }
-        stage(v + nb, rg + (long long)(i + 1) * nb, nb);
-        __syncthreads();
-        const T acc = row_dot(cur + rf * n2, v, n2, q);
-        __syncthreads();
-        if (q == 0 && row < nb) xg[(long long)i * nb + row] = acc;
-        else if (q == 0 && row < n2) v[row - nb] = acc;
+        __pipeline_commit();
+    };
+    for (int i = 0; i < S - 1; ++i) issue_fwd(i);
+    T* v = vec;             // the carry
+    T* vn = vec + nb;       // the next carry
+    for (int k = lane; k < nb; k += 32) v[k] = rg[k];
+    for (int i = 0; i < Nb; ++i) {
+        __pipeline_wait_prior(S - 2);
+        __syncwarp();
+        issue_fwd(i + S - 1);
+        const T* s = ring + (i % S) * slot;
+        T* yi = xg + (long long)i * nb;
+        if (i < Nb - 1) {
+            T* const next = vn;
+            k5_rows(k5_land(s, Qtg + i * m2), n2, n2, v, nb,
+                    k5_land(s + RQ, rg + (long long)(i + 1) * nb), nb, lane,
+                    [&](int row, T w) {
+                        if (row < nb) yi[row] = w;
+                        else next[row - nb] = w;
+                    });
+        } else {
+            k5_rows(k5_land(s, QtLg), nb, nb, v, nb, v, 0, lane,
+                    [&](int row, T w) { yi[row] = w; });
+        }
+        T* tmp = v;
+        v = vn;
+        vn = tmp;
     }
-    // last block: y_{Nb-1} = QtL carry
-    stage(buf0, QtL + g * bsz, nb * nb);
-    __syncthreads();
-    const int rb = row < nb ? row : 0;
-    {
-        const T acc = row_dot(buf0 + rb * nb, v, nb, q);
-        if (q == 0 && row < nb) xg[(long long)(Nb - 1) * nb + row] = acc;
-    }
-    __syncthreads();
+    __pipeline_wait_prior(0);
+    __threadfence_block();
+    __syncwarp();
 
-    // ---- backward sweep: x_i = Rinv_i (y_i - R1_i x_{i+1} - R2_i x_{i+2})
-    // Each step's three blocks (R1 | R2 | Rinv) are double-buffered as one.
+    // ---- backward sweep, step k on block i = Nb - 1 - k:
+    // x_i = Rinv_i ((y_i - R1_i x_{i+1}) - R2_i x_{i+2})
     const T* Rinvg = Rinv + g * Nb * bsz;
     const T* R1g = R1 + g * Nb * bsz;
     const T* R2g = R2 + g * Nb * bsz;
-    T* const bb0 = buf0;                       // 2 x 3 nb^2 <= 2 x 4 nb^2
-    T* const bb1 = buf0 + 3 * bsz;
-    T* t = v;                                  // reuse: nb temporaries
-    for (int k = tid; k < nb; k += blockDim.x) { xa[k] = T(0); xb[k] = T(0); }
-    auto issue = [&](T* dst, int i) {
-        stage_async(dst, R1g + i * bsz, nb * nb);
-        stage_async(dst + bsz, R2g + i * bsz, nb * nb);
-        stage_async(dst + 2 * bsz, Rinvg + i * bsz, nb * nb);
+    auto issue_bwd = [&](int k) {
+        if (k < Nb) {
+            const long long i = Nb - 1 - k;
+            T* s = ring + (k % S) * slot;
+            k5_copy(s, R1g + i * bsz, (int)bsz, lane);
+            k5_copy(s + RB, R2g + i * bsz, (int)bsz, lane);
+            k5_copy(s + 2 * RB, Rinvg + i * bsz, (int)bsz, lane);
+            k5_copy(s + 3 * RB, xg + i * nb, nb, lane);
+        }
         __pipeline_commit();
     };
-    issue(bb0, Nb - 1);
-    for (int i = Nb - 1, k = 0; i >= 0; --i, ++k) {
-        T* cur = (k & 1) ? bb1 : bb0;
-        if (i > 0) {
-            issue((k & 1) ? bb0 : bb1, i - 1);
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
+    T* const t = vec;
+    T* xa = vec + nb;       // x_{i+1}
+    T* xb = vec + 2 * nb;   // x_{i+2}
+    T* xc = vec + 3 * nb;   // x_i
+    for (int k = lane; k < nb; k += 32) {
+        xa[k] = T(0);
+        xb[k] = T(0);
+    }
+    for (int k = 0; k < S - 1; ++k) issue_bwd(k);
+    for (int k = 0; k < Nb; ++k) {
+        __pipeline_wait_prior(S - 2);
+        __syncwarp();
+        issue_bwd(k + S - 1);
+        const long long i = Nb - 1 - k;
+        const T* s = ring + (k % S) * slot;
+        const T* A1 = k5_land(s, R1g + i * bsz);
+        const T* A2 = k5_land(s + RB, R2g + i * bsz);
+        const T* y = k5_land(s + 3 * RB, xg + i * nb);
+        for (int row = lane; row < nb; row += 32) {
+            T s1 = T(0), s2 = T(0);
+#pragma unroll 4
+            for (int c = 0; c < nb; ++c) {
+                s1 += A1[row * nb + c] * xa[c];
+                s2 += A2[row * nb + c] * xb[c];
+            }
+            t[row] = (y[row] - s1) - s2;
         }
-        stage(t, xg + (long long)i * nb, nb);
-        __syncthreads();
-        const T s1 = row_dot(cur + rb * nb, xa, nb, q);
-        const T s2 = row_dot(cur + bsz + rb * nb, xb, nb, q);
-        const T ti = (t[rb] - s1) - s2;
-        __syncthreads();
-        if (q == 0 && row < nb) t[row] = ti;
-        __syncthreads();
-        const T xi = row_dot(cur + 2 * bsz + rb * nb, t, nb, q);
-        __syncthreads();
-        if (q == 0 && row < nb) {
-            xb[row] = xa[row];
-            xa[row] = xi;
-            xg[(long long)i * nb + row] = xi;
-        }
+        __syncwarp();
+        T* const xi = xc;
+        T* const out = xg + i * nb;
+        k5_rows(k5_land(s + 2 * RB, Rinvg + i * bsz), nb, nb, t, nb, t, 0, lane,
+                [&](int row, T w) {
+                    xi[row] = w;
+                    out[row] = w;
+                });
+        T* tmp = xb;
+        xb = xa;
+        xa = xc;
+        xc = tmp;
     }
 }
 
-template <typename T>
-static int launch_k5(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
-                     const T* R2, const T* r, T* x, int G, int Nb, int nb,
-                     cudaStream_t stream) {
-    const size_t smem = (size_t)(8 * nb * nb + 4 * nb) * sizeof(T);
+template <typename T, int S>
+static int launch_k5_stages(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
+                            const T* R2, const T* r, T* x, int G, int Nb, int nb,
+                            size_t smem, cudaStream_t stream) {
     if (smem > 48 * 1024) {
-        cudaFuncSetAttribute(block_tridiag_qr_solve_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaError_t e = cudaFuncSetAttribute(block_tridiag_qr_solve_kernel<T, S>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return (int)e;
     }
-    int threads = ((K5_LANES * 2 * nb + 31) / 32) * 32;
-    if (threads < 128) threads = 128;
-    if (threads > 1024) return (int)cudaErrorInvalidValue;   // nb > 128: not supported
-    block_tridiag_qr_solve_kernel<T><<<G, threads, smem, stream>>>(
+    block_tridiag_qr_solve_kernel<T, S><<<G, 32, smem, stream>>>(
         Qt, QtL, Rinv, R1, R2, r, x, Nb, nb);
     return (int)cudaGetLastError();
 }
 
+// `stages` and `smem` are the host plan's (ops/banded.py k5_plan); a plan
+// whose shared memory differs from this file's layout is refused.
+template <typename T>
+static int launch_k5(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
+                     const T* R2, const T* r, T* x, int G, int Nb, int nb, int stages,
+                     int smem, cudaStream_t stream) {
+    if (G < 1 || Nb < 1 || nb < 1 || stages < 2 || stages > K5_MAX_STAGES)
+        return (int)cudaErrorInvalidValue;
+    const size_t need = (size_t)k5_warp_elems<T>(nb, stages) * sizeof(T);
+    if (need != (size_t)smem || need > K5_SMEM) return (int)cudaErrorInvalidValue;
+    switch (stages) {
+        case 2: return launch_k5_stages<T, 2>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, need, stream);
+        case 3: return launch_k5_stages<T, 3>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, need, stream);
+        default: return launch_k5_stages<T, 4>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, need, stream);
+    }
+}
+
 extern "C" int k5_block_tridiag_qr_solve_f32(
         const float* Qt, const float* QtL, const float* Rinv, const float* R1,
-        const float* R2, const float* r, float* x, int G, int Nb, int nb,
-        void* stream) {
-    return launch_k5<float>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb,
+        const float* R2, const float* r, float* x, int G, int Nb, int nb, int stages,
+        int smem, void* stream) {
+    return launch_k5<float>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, stages, smem,
                             (cudaStream_t)stream);
 }
 
 extern "C" int k5_block_tridiag_qr_solve_f64(
         const double* Qt, const double* QtL, const double* Rinv, const double* R1,
-        const double* R2, const double* r, double* x, int G, int Nb, int nb,
-        void* stream) {
-    return launch_k5<double>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb,
+        const double* R2, const double* r, double* x, int G, int Nb, int nb, int stages,
+        int smem, void* stream) {
+    return launch_k5<double>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, stages, smem,
                              (cudaStream_t)stream);
 }
 
@@ -1041,11 +1151,22 @@ extern "C" int k8_block_tridiag_qr_factor_f64(
 // One thread block per group, one thread per entry of the (2nb, k) product of
 // a step; the carry and the two last solution blocks stay in shared memory
 // and the next factor block is copied in with cp.async while the current one
-// is applied, as in K5. All k columns share one read of the f64 factors
+// is applied. All k columns share one read of the f64 factors
 // (4.5 GB for a 256-group chunk at RBC 2048x2048), where k launches of the
 // single-column sweeps would read them k times. X first holds y (the forward
 // sweep's output), which the backward sweep overwrites block by block.
 // ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int n) {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
+}
+
+template <typename T>
+__device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ src, int n) {
+    for (int k = threadIdx.x; k < n; k += blockDim.x)
+        __pipeline_memcpy_async(dst + k, src + k, sizeof(T));
+}
 
 __global__ void __launch_bounds__(K8_THREADS)
 multi_rhs_solve_kernel(

@@ -29,8 +29,8 @@ _D = ctypes.c_double
 # Exported launchers of each source (by file stem) and their argument types
 SIGNATURES = {
     'banded_kernels': {
-        'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 3 + [_P],
-        'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 3 + [_P],
+        'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 5 + [_P],
+        'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 5 + [_P],
         'k4_banded_apply_f64': [_P, _P, _I] + [_P] * 13 + [_I] * 13 + [_P],
         'k4_geometry': [_P, _I],
         'k8_block_tridiag_qr_factor_f64': [_P] * 15 + [_I] * 3 + [_D, _P],
@@ -86,7 +86,8 @@ SIGNATURES = {
     },
     'conversion_kernels': {
         'k11_conversion_apply_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
-        'k11_conversion_solve_f64': [_P, _P, _I, _P, _P] + [_I] * 4 + [_P],
+        'k11_conversion_solve_f64': [_P, _I, _P, _P] + [_I] * 4 + [_P],
+        'k11_geometry': [_P, _I],
     },
     'rhs_kernels': {
         'k2a_geometry': [_P, _I],

@@ -440,6 +440,39 @@ def block_tridiag_qr_solve_plain(Qt, QtL, Rinv, R1, R2, r):
     return x
 
 
+# K5's ring (csrc/banded_kernels.cu block_tridiag_qr_solve_kernel): one warp
+# a group, at most K5_STAGES slots of a step's factors in shared memory
+K5_STAGES = 4
+K5_SMEM = 227 * 1024
+
+
+def k5_region(n, itemsize):
+    """Elements of a ring region that holds n elements landed at any phase
+    of a 16-byte line: 16-byte aligned, A - 1 elements longer than n
+    (A = 16 / itemsize), a multiple of A (the kernel's k5_region)."""
+    A = 16 // itemsize
+    return (n + 2 * A - 2) // A * A
+
+
+def k5_plan(nb, itemsize):
+    """K5's ring for blocks of nb rows: the regions of a slot (forward: Qt
+    at 0 and r at `RQ`; backward: R1, R2, Rinv at 0, `RB`, 2 `RB` and y at
+    3 `RB`), the slot's and the warp's elements, the stages (the most of
+    K5_STAGES down to 2 whose warp slice fits K5_SMEM) and the shared
+    bytes a block (one warp) takes."""
+    A = 16 // itemsize
+    RQ, RB, RV = k5_region(4 * nb * nb, itemsize), k5_region(nb * nb, itemsize), \
+        k5_region(nb, itemsize)
+    slot = max(RQ + RV, 3 * RB + RV)
+    vec = -(-4 * nb // A) * A
+    for stages in range(K5_STAGES, 1, -1):
+        smem = (stages * slot + vec) * itemsize
+        if smem <= K5_SMEM:
+            return dict(A=A, RQ=RQ, RB=RB, slot=slot, vec=vec, stages=stages, smem=smem)
+    raise ValueError(f"K5: blocks of {nb} rows leave no two-slot ring in "
+                     f"{K5_SMEM} bytes of shared memory")
+
+
 def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
     """
     K5: solve the factored band for all groups, r (G, Nb, nb) -> (G, Nb, nb).
@@ -447,8 +480,9 @@ def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
     Replaces dedalus_tpu/ops/banded.py:485 block_tridiag_qr_solve (and the
     blocked/prefix forms of the same sweeps). CPU tensors run the plain
     twin; CUDA tensors launch csrc/banded_kernels.cu
-    block_tridiag_qr_solve_kernel: one thread block per group walks the Nb
-    blocks in order with the carry in shared memory, reading each factor
+    block_tridiag_qr_solve_kernel: one warp per group walks the Nb blocks
+    in order with the carry in shared memory, its factors streamed through
+    a ring of k5_plan's stages by 16-byte cp.async copies, each factor read
     once (bound by device-memory bandwidth, ~2.2 GB of f32 factors at RBC
     2048x512).
     """
@@ -466,13 +500,15 @@ def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
                 or not t.is_contiguous()):
             raise ValueError(f"K5: {name} must be a contiguous {dt} tensor of "
                              f"shape {shapes[name]} on {r.device}")
+    plan = k5_plan(nb, r.element_size())
     r = r.contiguous()
     x = torch.empty_like(r)
     fn = (build.library().k5_block_tridiag_qr_solve_f32 if dt == torch.float32
           else build.library().k5_block_tridiag_qr_solve_f64)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     build.check(fn(Qt.data_ptr(), QtL.data_ptr(), Rinv.data_ptr(), R1.data_ptr(),
-                   R2.data_ptr(), r.data_ptr(), x.data_ptr(), G, Nb, nb, stream),
+                   R2.data_ptr(), r.data_ptr(), x.data_ptr(), G, Nb, nb, plan['stages'],
+                   plan['smem'], stream),
                 'block_tridiag_qr_solve')
     build.count(block_tridiag_qr_solve)
     return x

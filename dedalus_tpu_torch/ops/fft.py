@@ -904,18 +904,34 @@ def fourier_scatter(c, axis, N, Kmax):
 # K11b: the ultraspherical conversion and its inverse along an axis
 # ---------------------------------------------------------------------------
 
+# K11b's launch constants: csrc/conversion_kernels.cu's of the same names (its
+# k11_geometry; the wrappers check the two agree)
+K11_MAX_DIAGS = 16      # diagonals the apply takes
+K11_APPLY_TILE = 256    # points of an outer slab a block of the apply
+K11_APPLY_SLABS = 8     # outer slabs a block of the apply walks
+K11_CHUNK = 32          # points of a line a stage of the solve's ring
+K11_CSTRIDE = K11_CHUNK + 1     # a line's row in a stage (doubles)
+K11_SOLVE_STAGES = 4    # stages of the ring of a warp's tile of 32 lines
+K11_SOLVE_WIDTHS = (1, 2, 4, 8, 16)     # carries the solve is instantiated for
+K11_GEOMETRY = (K11_MAX_DIAGS, K11_APPLY_TILE, K11_APPLY_SLABS, K11_CHUNK, K11_CSTRIDE,
+                K11_SOLVE_STAGES)
+
+
 class ConversionBand:
     """A banded upper-triangular (M, M) matrix by its diagonals:
-    B[m, m + offsets[d]] = diags[d][m], offsets ascending from 0; host f64
-    arrays, copied to each device once."""
+    B[m, m + offsets[d]] = diags[d][m], offsets strictly ascending from 0;
+    host f64 arrays, copied to each device once."""
 
     def __init__(self, diags, offsets):
         self.offsets = tuple(int(o) for o in offsets)
-        if not self.offsets or self.offsets[0] != 0 or list(self.offsets) != sorted(self.offsets):
-            raise ValueError("ConversionBand: offsets must ascend from the main diagonal")
+        if (not self.offsets or self.offsets[0] != 0
+                or any(b <= a for a, b in zip(self.offsets, self.offsets[1:]))):
+            raise ValueError("ConversionBand: offsets must ascend strictly from the main "
+                             "diagonal")
         self.diags = np.ascontiguousarray(np.stack(diags), dtype=np.float64)
         self.M = self.diags.shape[1]
         self._dev = {}
+        self._rows = {}
 
     def on(self, device):
         key = str(device)
@@ -923,6 +939,32 @@ class ConversionBand:
             self._dev[key] = (torch.as_tensor(self.diags, device=device),
                               torch.as_tensor(self.offsets, dtype=torch.int32, device=device))
         return self._dev[key]
+
+    @property
+    def width(self):
+        """The solve's carry: the smallest of K11_SOLVE_WIDTHS at or above
+        the largest offset."""
+        for w in K11_SOLVE_WIDTHS:
+            if w >= self.offsets[-1]:
+                return w
+        raise ValueError(f"conversion_solve: offsets up to {self.offsets[-1]}; the kernel "
+                         f"carries at most {K11_SOLVE_WIDTHS[-1]}")
+
+    def solve_rows_host(self):
+        """The dense solve form (width + 1, M), f64: row 0 the reciprocal
+        of the main diagonal, row j the diagonal at offset j (zero where the
+        band has none)."""
+        rows = np.zeros((self.width + 1, self.M))
+        rows[0] = 1.0 / self.diags[0]
+        for d, off in enumerate(self.offsets[1:], start=1):
+            rows[off] = self.diags[d]
+        return rows
+
+    def solve_rows(self, device):
+        key = str(device)
+        if key not in self._rows:
+            self._rows[key] = torch.as_tensor(self.solve_rows_host(), device=device)
+        return self._rows[key]
 
 
 def conversion_apply_plain(band, x, axis):
@@ -941,7 +983,10 @@ def conversion_apply_plain(band, x, axis):
 
 def conversion_apply(band, x, axis):
     """K11b, apply: out[m] = sum_d diags[d][m] x[m + offsets[d]] along
-    `axis` (the ultraspherical conversion after the DCT-II)."""
+    `axis` (the ultraspherical conversion after the DCT-II). On the card
+    one launch: a block a tile of K11_APPLY_TILE points of a slab, the
+    band's columns of the tile staged in shared memory for
+    K11_APPLY_SLABS slabs; the plain twin's order of sums, bit for bit."""
     if x.device.type == 'cpu':
         return conversion_apply_plain(band, x, axis)
     from ..csrc import build
@@ -949,6 +994,7 @@ def conversion_apply(band, x, axis):
     axis, outer, N, inner = _lines(x.shape, axis)
     D, offs = band.on(x.device)
     _check_cuda('conversion_apply', x, torch.float64)
+    build.check_geometry('k11_geometry', K11_GEOMETRY)
     y = torch.empty(_with_axis(x.shape, axis, band.M), dtype=torch.float64, device=x.device)
     build.check(build.library().k11_conversion_apply_f64(
         D.data_ptr(), offs.data_ptr(), len(band.offsets), x.data_ptr(), y.data_ptr(), outer, N,
@@ -978,7 +1024,12 @@ def conversion_solve_plain(band, b, axis):
 def conversion_solve(band, b, axis):
     """K11b, solve: back-substitution with the band's matrix (P = band.M)
     on the first P points of each line of b along `axis` (the inverse
-    conversion before the DCT-III)."""
+    conversion before the DCT-III). On the card one launch on the band's
+    dense solve form (`solve_rows`: the main diagonal's reciprocal, a
+    carry of `width` values in registers): a warp walks a tile of 32 lines
+    (consecutive lines along the last axis, consecutive inner indices of a
+    slab along another) from the end through a ring of K11_SOLVE_STAGES
+    chunks of K11_CHUNK points staged by coalesced cp.async."""
     if b.device.type == 'cpu':
         return conversion_solve_plain(band, b, axis)
     from ..csrc import build
@@ -986,12 +1037,13 @@ def conversion_solve(band, b, axis):
     axis, outer, L, inner = _lines(b.shape, axis)
     if L < band.M:
         raise ValueError(f"conversion_solve: lines of {L} points for a {band.M}-point band")
-    D, offs = band.on(b.device)
+    Dw = band.solve_rows(b.device)
     _check_cuda('conversion_solve', b, torch.float64)
+    build.check_geometry('k11_geometry', K11_GEOMETRY)
     x = torch.empty(_with_axis(b.shape, axis, band.M), dtype=torch.float64, device=b.device)
     build.check(build.library().k11_conversion_solve_f64(
-        D.data_ptr(), offs.data_ptr(), len(band.offsets), b.data_ptr(), x.data_ptr(), outer, L,
-        band.M, inner, _stream(b)), 'conversion_solve')
+        Dw.data_ptr(), band.width, b.data_ptr(), x.data_ptr(), outer, L, band.M, inner,
+        _stream(b)), 'conversion_solve')
     build.count(conversion_solve)
     return x
 
