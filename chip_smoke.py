@@ -1687,16 +1687,20 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
     return out
 
 
-# The paths ab_compare reads by default: the banded step (K4, K5, K6) at
-# rbc2048, the same under the fast transforms (K10-K12, K11b's conversion),
-# rbc256c under `fast` (K10 with K12's complex select and scatter), and K5
-# and K11b alone on random inputs at those paths' shapes (ab_k5_k11b). The
-# paths whose replayed step runs KE and KF (disk, sphere, annulus) and the
-# complex shell's ZCross cell (shell192c-zcross) are read when named.
-AB_PATHS = ('rbc2048', 'rbc2048-fast', 'rbc256c-fast', 'k5-k11b')
+# The paths ab_compare reads by default: rbc2048-poly (K14c's four calls
+# and its replayed step), KJ at KJ_SHAPE with shell192's replayed step
+# (ab_kj), the banded step (K4, K5, K6) at rbc2048, the same under the fast
+# transforms (K10-K12, K11b's conversion), rbc256c under `fast` (K10 with
+# K12's complex select and scatter), and K5 and K11b alone on random inputs
+# at those paths' shapes (ab_k5_k11b). The paths whose replayed step runs KE
+# and KF (disk, sphere, annulus) and the complex shell's ZCross cell
+# (shell192c-zcross) are read when named.
+AB_PATHS = ('rbc2048-poly', 'kj', 'rbc2048', 'rbc2048-fast', 'rbc256c-fast', 'k5-k11b')
 # rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
 # host-bound loop more than a kernel does)
 AB_RBC256C_DT = 0.01
+# rbc2048-poly's replayed steps a timing in ab_compare (each ~0.1 to 0.35 s)
+AB_POLY_STEPS = 5
 
 
 def table_rows(table, *names):
@@ -2072,10 +2076,95 @@ def ab_ke_path(path, steps):
     return dict(graph_ms_per_step=graph_ms, ke_step=ke_step, ke_call=call, kf=kf)
 
 
+def clock_under_load(fn, seconds=1.5):
+    """The SM clock (MHz) and board power (W) nvidia-smi reads every 100 ms
+    while fn() runs back to back for `seconds`: its last five readings."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(['nvidia-smi', '--query-gpu=clocks.sm,power.draw',
+                            '--format=csv,noheader,nounits', '-lms', '100'],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    rows = [ln.split(',') for ln in out.strip().splitlines() if ln.count(',') == 1]
+    return [(float(c), float(w)) for c, w in rows][-5:]
+
+
+def ab_rbc2048_poly(steps):
+    """rbc2048-poly after its warm-up: the replayed step's ms (a few steps
+    twice), K14c's records and device ms a replayed step, the step's device
+    ms, q and the refinements, the SM clock and board power while the
+    preconditioner's apply and its matmul + einsum run back to back, and the
+    four K14c calls of one step by events and on the device beside matmul +
+    einsum and DGEMM (k14c_times)."""
+    dev, kind, smi = card()
+    solver = build_rbc(NX, NZ, RA, dev, matsolver='poly')
+    solver.run_steps(DT, POLY['warmup'])
+    ts = solver.timestepper
+    a, b, c = ts.compute_coefficients([DT, DT], 2)
+    fact = ts._factorized[(float(a[0]), float(b[0]))]
+    n = min(steps, AB_POLY_STEPS)
+    graph_ms = [run_ms(solver, lambda: solver.run_steps(DT, n)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: solver.run_steps(DT, 2))
+    X = solver.pencil.gather_state(solver.state_flat())
+    calls = k14c_calls(ts, fact, ts.program.rhs_prev, X)
+    _, _, pre, _, lib, _, _ = calls[0]
+    clocks = dict(kernel=clock_under_load(pre), library=clock_under_load(lib))
+    calls = k14c_times(calls)
+    return dict(graph_ms_per_step=graph_ms, q=fact.q, refinements=fact.refinements,
+                preconditioner_clock_mhz_power_w=clocks,
+                k14c_step=table_rows(table, 'separable', 'override_kernel'),
+                records_per_step=sum(v[0] for v in table.values()),
+                device_ms_per_step=sum(v[1] for v in table.values()),
+                calls={k: {kk: (vv[0] if kk == 'err' else vv) for kk, vv in v.items()}
+                       for k, v in calls.items()})
+
+
+def ab_kj(steps):
+    """KJ at KJ_SHAPE on random data (device_sweep's case: the weighted
+    backward transform, events and device beside matmul and the weight, two
+    launches equal), and shell192 stepped as its path steps it: the replayed
+    step's ms and KJ's launches and device ms a replayed step."""
+    from dedalus_tpu_torch.ops import shell as oshell
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rand = lambda shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    lines, N, Ng = KJ_SHAPE
+    T, x, w = rand((Ng, N)), rand((lines, N)), rand((Ng,))
+    Tm = T.mT
+    kj = lambda: oshell.shell_radial_transform(T, x, None, w)
+    lib = lambda: torch.matmul(x, Tm) * w
+    y, y2, yp = kj(), kj(), oshell.shell_radial_transform_plain(T, x, None, w)
+    torch.cuda.synchronize()
+    call = dict(shape=[lines, N, Ng], err=rel_err(y, yp)[0], bitwise=torch.equal(y, y2),
+                ms=cuda_ms(kj, 50), device_ms=device_ms(kj), library_ms=cuda_ms(lib, 50),
+                library_device_ms=device_ms(lib),
+                bound_ms=bound(*kj_bytes_flops(T, x, y, None, w))[0])
+    del T, x, w, y, y2, yp
+    solver, ctx, flow = build_shell(SHELL['size'], dev)
+
+    def run(n):
+        solver.run_steps(SHELL['dt'], n)
+
+    run(5)
+    graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: run(10))
+    return dict(kj_call=call, graph_ms_per_step=graph_ms,
+                kj_step=table_rows(table, 'shell_radial_kernel'),
+                device_ms_per_step=sum(v[1] for v in table.values()))
+
+
 def ab_side(root, paths=AB_PATHS, steps=20):
     """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_rbc256c_fast for
-    'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross', ab_ke_path
-    for the others) with the package of the checkout at `root` (this one,
+    'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross',
+    ab_rbc2048_poly for 'rbc2048-poly', ab_kj for 'kj', ab_ke_path for the
+    others) with the package of the checkout at `root` (this one,
     or a parent's unpacked by git archive). Prints one JSON line;
     ab_compare runs it."""
     root = str(__import__('pathlib').Path(root).resolve())
@@ -2088,7 +2177,8 @@ def ab_side(root, paths=AB_PATHS, steps=20):
     for path in paths:
         run = dict(rbc2048=ab_rbc2048, rbc2048_fast=ab_rbc2048_fast,
                    shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
-                   k5_k11b=ab_k5_k11b).get(path.replace('-', '_'), None)
+                   k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
+                   kj=ab_kj).get(path.replace('-', '_'), None)
         out[path] = run(steps) if run else ab_ke_path(path, steps)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2164,6 +2254,29 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                           f"K5 (shape, dtype, events ms, device ms, bound, err, bitwise) "
                           f"{[(c['shape'], c['dtype'], round(c['ms'], 4), c['device_ms'], round(c['bound_ms'], 4), c['err'], c['bitwise']) for c in r['k5']]}")
                 continue
+            elif path == 'rbc2048-poly':
+                calls = [{k: (round(c['ms'], 3), c['device_ms'] and round(c['device_ms'], 3),
+                              round(c['library_ms'], 3),
+                              c['library_device_ms'] and round(c['library_device_ms'], 3),
+                              c['err'], c['bitwise']) for k, c in r['calls'].items()}
+                         for r in rs]
+                clocks = [r.get('preconditioner_clock_mhz_power_w') for r in rs]
+                print(f"[{runs[0]['card']}] {label} rbc2048-poly: graph ms/step {g}; q "
+                      f"{rs[0]['q']}, refinements {rs[0]['refinements']}; SM MHz and board W "
+                      f"under the preconditioner's apply and its matmul + einsum {clocks}; "
+                      f"K14c a replayed step "
+                      f"{[r['k14c_step'] for r in rs]} (records, device ms); the step's device "
+                      f"ms {[r['device_ms_per_step'] for r in rs]}; K14c's calls (events ms, "
+                      f"device ms, matmul + einsum events, device, err, bitwise) {calls}")
+            elif path == 'kj':
+                call = [(round(r['kj_call']['ms'], 4), r['kj_call']['device_ms'],
+                         round(r['kj_call']['library_ms'], 4), r['kj_call']['library_device_ms'],
+                         r['kj_call']['err'], r['kj_call']['bitwise']) for r in rs]
+                print(f"[{runs[0]['card']}] {label} kj: shell192 graph ms/step {g}; KJ a "
+                      f"replayed step {[r['kj_step'] for r in rs]} (launches, device ms); the "
+                      f"step's device ms {[r['device_ms_per_step'] for r in rs]}; KJ at "
+                      f"{KJ_SHAPE} (events, device, matmul * w events, device, err, bitwise) "
+                      f"{call}")
             elif path == 'shell192c-zcross':
                 print(f"[{runs[0]['card']}] {label} shell192c-zcross: graph ms/step {g}")
             else:
@@ -4055,14 +4168,15 @@ CROSS_SHAPES = dict(shell=(3, 288, 144, 18), ball_ihc=(3, 96, 48, 48))
 
 
 def device_sweep(reps=20):
-    """KJ and KG's cross form on random data at the shell's and ballihc's
-    shapes (not part of main(); run it in a fresh process, where the
-    profiler delivers every record): each by events and on the device
-    beside its library call (matmul and the weight; -torch.linalg.cross),
-    two launches equal bit for bit, within TOL of the plain twin. A call's
-    data stay in the 50 MB L2 across repeated calls where they fit (KJ's
-    13 MB and ballihc's cross's 16 MB; not the shell's cross's 54 MB): those
-    device times are warm. Prints one JSON line."""
+    """KJ (real and complex lines) and KG's cross form on random data at the
+    shell's and ballihc's shapes (not part of main(); run it in a fresh
+    process, where the profiler delivers every record): each by events and
+    on the device beside its library call (matmul and the weight;
+    -torch.linalg.cross), two launches equal bit for bit, within TOL of the
+    plain twin. A call's data stay in the 50 MB L2 across repeated calls
+    where they fit (KJ's 13 and 27 MB and ballihc's cross's 16 MB; not the
+    shell's cross's 54 MB): those device times are warm. Prints one JSON
+    line."""
     from dedalus_tpu_torch.ops import shell as oshell, products as oprod
     dev, kind, smi = card()
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -4082,6 +4196,20 @@ def device_sweep(reps=20):
     out['kj'] = dict(shape=[lines, N, Ng], ms=cuda_ms(kj, 50), device_ms=device_ms(kj, reps),
                      library_ms=cuda_ms(lib, 50), library_device_ms=device_ms(lib, reps),
                      bound_ms=bound(*kj_bytes_flops(T, x, y, None, w))[0])
+    # The same transform on complex lines (the complex shell's)
+    xc = torch.complex(rand((lines, N)), rand((lines, N)))
+    Tc = Tm.to(torch.complex128)
+    kjc = lambda: oshell.shell_radial_transform(T, xc, None, w)
+    libc = lambda: torch.matmul(xc, Tc) * w
+    yc, yc2 = kjc(), kjc()
+    ycp = oshell.shell_radial_transform_plain(T, xc, None, w)
+    torch.cuda.synchronize()
+    if not (torch.equal(yc, yc2) and rel_err(yc, ycp)[0] <= TOL['shell_radial_transform_c128']):
+        raise AssertionError(f"device_sweep: KJ complex {rel_err(yc, ycp)}")
+    out['kj_c128'] = dict(shape=[lines, N, Ng], ms=cuda_ms(kjc, 50),
+                          device_ms=device_ms(kjc, reps), library_ms=cuda_ms(libc, 50),
+                          library_device_ms=device_ms(libc, reps),
+                          bound_ms=bound(*kj_bytes_flops(T, xc, yc, None, w))[0])
     for path, shape in CROSS_SHAPES.items():
         a, b = rand(shape), rand(shape)
         ck, ck2, cp = (oprod.grid_cross(a, b, -1.0), oprod.grid_cross(a, b, -1.0),
@@ -4817,9 +4945,12 @@ def check_shell_kernels(solver, ctx):
             for C in (1, 9, 3):
                 x = rand((C * M * L, Ng if forward else N))
                 yk = oshell.shell_radial_transform(T, x, w_in, w_out)
+                yk2 = oshell.shell_radial_transform(T, x, w_in, w_out)
                 yp = oshell.shell_radial_transform_plain(T, x, w_in, w_out)
                 torch.cuda.synchronize()
                 errs.append(rel_err(yk, yp))
+                if not torch.equal(yk, yk2):
+                    raise AssertionError(f"KJ k={k} forward={forward} C={C}: two launches differ")
                 if C == 3 and not forward and k == 1:
                     # grad(b) to the dealias grid: the weight (dR/r) on the store
                     Tm = T.mT
@@ -5395,6 +5526,8 @@ def check_complex_shell_kernels(path, solver, ctx, u_f64):
         xj = crand((3 * M * L, Ng if forward else N))
         yk = oshell.shell_radial_transform(T, xj, w_in, w_out)
         errs.append(rel_err(yk, oshell.shell_radial_transform_plain(T, xj, w_in, w_out)))
+        if not torch.equal(yk, oshell.shell_radial_transform(T, xj, w_in, w_out)):
+            raise AssertionError(f"KJ complex forward={forward}: two launches differ")
         if not forward:
             Tc = T.mT.to(torch.complex128)
             kj = dict(
@@ -5931,48 +6064,101 @@ def separable_cost(V, st, out):
             2 * G * P * P * q + 2 * nbad * P * P)
 
 
+def k14c_library(V, st):
+    """K14c's function by PyTorch's calls, without the exceptional rows:
+    cuBLAS's DGEMM V @ Bcat, then the weight contraction."""
+    G, P = V.shape
+    return torch.einsum('gq,gqp->gp', st['weights'],
+                        torch.matmul(V, st['Bcat']).reshape(G, -1, P))
+
+
+def k14c_pair_library(X, BML, wA, wB):
+    G, P = X.shape
+    T = torch.matmul(X, BML).reshape(G, -1, P)
+    qA = wA.shape[1]
+    return (torch.einsum('gq,gqp->gp', wA, T[:, :qA]),
+            torch.einsum('gq,gqp->gp', wB, T[:, qA:]))
+
+
+def k14c_calls(ts, fact, R, X):
+    """The four distinct K14c calls of one poly step: (label, q, the call,
+    its plain twin, the same function by PyTorch's calls, DGEMM alone,
+    (bytes, operations))."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    pm, pl, BML = ts._poly_ml()
+    calls = []
+    for label, V, st in (('preconditioner', R, fact.pre), ('A', X, fact.polyA),
+                         ('M', X, pm)):
+        calls.append((label, st['weights'].shape[1],
+                      lambda V=V, st=st: osolve.apply_stack(V, st),
+                      lambda V=V, st=st: osolve.separable_apply_plain(
+                          V, st['weights'], st['Bcat'], st['bad'], st['Abad']),
+                      lambda V=V, st=st: k14c_library(V, st),
+                      lambda V=V, st=st: torch.matmul(V, st['Bcat']),
+                      separable_cost(V, st, V)))
+    pair_args = (X, BML, pm['weights'], pm['bad'], pm['Abad'], pl['weights'], pl['bad'],
+                 pl['Abad'])
+    calls.append(('M/L pair', pm['weights'].shape[1] + pl['weights'].shape[1],
+                  lambda: osolve.separable_apply_pair(*pair_args),
+                  lambda: osolve.separable_apply_pair_plain(*pair_args),
+                  lambda: k14c_pair_library(X, BML, pm['weights'], pl['weights']),
+                  lambda: torch.matmul(X, BML),
+                  (nbytes(X, BML, pm['weights'], pl['weights'], pm['Abad'], pl['Abad'], X, X),
+                   separable_cost(X, pm, X)[1] + separable_cost(X, pl, X)[1])))
+    return calls
+
+
+def k14c_times(calls, reps=3):
+    """Each call's kernel against its plain twin (and, launched twice, against
+    itself bit for bit), then the kernel, the same function by PyTorch's
+    calls (DGEMM and the weight einsum) and DGEMM alone, by events and on the
+    device, and the bound."""
+    out = {}
+    for label, q, fn, plain, lib, dgemm, cost in calls:
+        Yk, Yk2, Yp = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        pairs = list(zip(Yk, Yk2, Yp)) if isinstance(Yk, tuple) else [(Yk, Yk2, Yp)]
+        b = bound(*cost)
+
+        def on_device(f):
+            # below the operation bound, the profiler dropped records: not measured
+            v = device_ms(f, reps)
+            return v if v is not None and v >= b[0] else None
+
+        out[label] = dict(
+            err=max(rel_err(k, p) for k, _, p in pairs), q=q,
+            bitwise=all(torch.equal(k, k2) for k, k2, _ in pairs),
+            ms=cuda_ms(fn, reps), device_ms=on_device(fn), plain_ms=cuda_ms(plain, reps),
+            library_ms=cuda_ms(lib, reps), library_device_ms=on_device(lib),
+            dgemm_ms=cuda_ms(dgemm, reps), dgemm_device_ms=on_device(dgemm),
+            bound_ms=b[0], bound_by=b[1])
+        del Yk, Yk2, Yp, pairs
+    return out
+
+
 def check_k14c(path, ts, fact, R, X):
     """K14c against its twin on every distinct call of one poly step: the
     preconditioner and A applies of the solve (on the step's RHS and
-    state), the step's M apply, and the M/L pair that seeds a run."""
-    from dedalus_tpu_torch.ops import solve as osolve
-    pm, pl, BML = ts._poly_ml()
-    calls = {}
-    for label, V, st in (('preconditioner', R, fact.pre), ('A', X, fact.polyA),
-                         ('M', X, pm)):
-        Yk = osolve.apply_stack(V, st)
-        Yp = osolve.separable_apply_plain(V, st['weights'], st['Bcat'], st['bad'], st['Abad'])
-        torch.cuda.synchronize()
-        b = bound(*separable_cost(V, st, Yk))
-        calls[label] = dict(
-            err=rel_err(Yk, Yp), q=st['weights'].shape[1], nbad=st['Abad'].shape[0],
-            ms=cuda_ms(lambda: osolve.apply_stack(V, st), 3),
-            plain_ms=cuda_ms(lambda: osolve.separable_apply_plain(
-                V, st['weights'], st['Bcat'], st['bad'], st['Abad']), 3),
-            library_ms=cuda_ms(lambda: torch.matmul(V, st['Bcat']), 3),
-            bound_ms=b[0], bound_by=b[1])
-    pair_args = (X, BML, pm['weights'], pm['bad'], pm['Abad'], pl['weights'], pl['bad'],
-                 pl['Abad'])
-    Pk = osolve.separable_apply_pair(*pair_args)
-    Pp = osolve.separable_apply_pair_plain(*pair_args)
-    torch.cuda.synchronize()
-    b = bound(nbytes(X, BML, pm['weights'], pl['weights'], pm['Abad'], pl['Abad'], *Pk),
-              separable_cost(X, pm, Pk[0])[1] + separable_cost(X, pl, Pk[1])[1])
-    calls['M/L pair'] = dict(
-        err=max(rel_err(Pk[0], Pp[0]), rel_err(Pk[1], Pp[1])),
-        q=pm['weights'].shape[1] + pl['weights'].shape[1],
-        ms=cuda_ms(lambda: osolve.separable_apply_pair(*pair_args), 3),
-        plain_ms=cuda_ms(lambda: osolve.separable_apply_pair_plain(*pair_args), 3),
-        library_ms=cuda_ms(lambda: torch.matmul(X, BML), 3), bound_ms=b[0], bound_by=b[1])
+    state), the step's M apply, and the M/L pair that seeds a run; two
+    launches of each equal bit for bit; each timed beside the same function
+    by PyTorch's calls (matmul, then the weight einsum) and DGEMM alone."""
+    calls = k14c_times(k14c_calls(ts, fact, R, X))
     for label, r in calls.items():
-        print(f"K14c {label} (q={r['q']}): rel_err {r['err'][0]:.3e} kernel {r['ms']:.3f} ms "
-              f"plain {r['plain_ms']:.3f} DGEMM {r['library_ms']:.3f} bound {r['bound_ms']:.3f} "
+        print(f"K14c {label} (q={r['q']}): rel_err {r['err'][0]:.3e}, two launches "
+              f"{'equal' if r['bitwise'] else 'DIFFER'}; kernel {r['ms']:.3f} ms (device "
+              f"{r['device_ms']}) matmul + einsum {r['library_ms']:.3f} (device "
+              f"{r['library_device_ms']}) DGEMM {r['dgemm_ms']:.3f} (device "
+              f"{r['dgemm_device_ms']}) plain {r['plain_ms']:.3f} bound {r['bound_ms']:.3f} "
               f"({r['bound_by']}; {r['bound_ms'] / r['ms']:.1%} of it)")
+        if not r['bitwise']:
+            raise AssertionError(f"K14c {label}: two launches differ")
     pre = calls['preconditioner']
     r = dict(pre, err=max(c['err'] for c in calls.values()), shape=list(R.shape),
              calls_checked={k: {kk: v for kk, v in c.items() if kk != 'err'} | {'err': c['err'][0]}
                             for k, c in calls.items()})
-    record('separable_apply', path, r, primary=True)
+    record('separable_apply', path, r, primary=True,
+           keys=('ms', 'device_ms', 'plain_ms', 'library_ms', 'library_device_ms', 'dgemm_ms',
+                 'bound_ms', 'shape'))
 
 
 def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
@@ -6015,7 +6201,8 @@ def poly_path(warmup=POLY['warmup'], n_steps=POLY['steps']):
     print(f"G={pencil.G} P={pencil.R} factorizations (a0, b0) -> q, fit q, rho, refinements: "
           f"{facts}")
 
-    phase("K14c vs its plain twin on every distinct call of one poly step")
+    phase("K14c vs its plain twin on every distinct call of one poly step, and beside "
+          "matmul + einsum")
     X = pencil.gather_state(solver.state_flat())
     R = ts.program.rhs_prev
     check_k14c('rbc2048_poly', ts, fact, R, X)

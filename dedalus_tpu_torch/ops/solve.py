@@ -404,8 +404,8 @@ def separable_apply(X, weights, Bcat, bad_idx=(), Abad=None):
 
     Replaces dedalus_tpu/ops/solve.py:317 separable_apply. CPU tensors run
     the plain twin; CUDA tensors launch csrc/separable_kernels.cu (the GEMM
-    with the weights applied in its loads, then the exceptional rows;
-    compute-bound: 2 G P^2 q operations).
+    on the f64 tensor cores, the weights applied as its A fragments are
+    formed, then the exceptional rows; compute-bound: 2 G P^2 q operations).
     """
     if X.device.type == 'cpu':
         return separable_apply_plain(X, weights, Bcat, bad_idx, Abad)
