@@ -145,6 +145,7 @@ published 3.35 TB/s and its floating-point operations over the published
 67 TFLOP/s (H100 SXM f64 tensor-core and f32 peaks, NVIDIA data sheet).
 """
 
+import ctypes
 import functools
 import gc
 import json
@@ -215,7 +216,9 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            trailing_apply_signed=1e-13, polar_apply_signed=1e-13, polar_apply_c128=1e-13,
            grid_cross_c128=1e-15, ball_radial_apply_c128=1e-13, ball_radial_apply_rot_c128=1e-13,
            regularity_recombine_c128=1e-15, shell_radial_transform_c128=1e-13,
-           rhs_stage=0.0, rhs_stage_c128=0.0)
+           rhs_stage=0.0, rhs_stage_c128=0.0, trailing_apply_c128=1e-13,
+           banded_apply_general=1e-13, block_tridiag_qr_solve_general=1e-5,
+           chebyshev_conversion_general=1e-12)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -311,6 +314,17 @@ KERNELS = dict(   # name: (route, source, replaces)
     rhs_stage=('cuda', 'dedalus_tpu_torch/csrc/rhs_kernels.cu', 'dedalus_tpu/core/solvers.py:210'),
     rhs_stage_c128=('cuda', 'dedalus_tpu_torch/csrc/rhs_kernels.cu',
                     'dedalus_tpu/core/solvers.py:210'),
+    # The general paths of K4, K5 and K11b past their tile kernels' sizes
+    # (blocks or borders of more than 32 rows; blocks past K5's two-slot
+    # ring; more than 16 diagonals or an offset above 16): no timed cell
+    # reaches them, so f7_general_path drives them on synthetic operators
+    # in a counted run of their own
+    banded_apply_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
+                          'dedalus_tpu/ops/banded.py:967'),
+    block_tridiag_qr_solve_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
+                                    'dedalus_tpu/ops/banded.py:485'),
+    chebyshev_conversion_general=('cuda', 'dedalus_tpu_torch/csrc/conversion_kernels.cu',
+                                  'dedalus_tpu/ops/fft64.py:280'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py).
 # K12's complex select and scatter run inside K10 (its select store and
@@ -435,6 +449,8 @@ PATH_KERNELS = dict(
                 'pencil_gather_scatter_c128', 'grid_product_c128', 'grid_cross_c128'),
     shell192c_zcross=_SHELL_C_KERNELS + ('zcross',),
     shell192c=_SHELL_C_KERNELS + ('grid_cross_c128',),
+    f7_synthetic=('banded_apply_general', 'block_tridiag_qr_solve_general',
+                  'chebyshev_conversion_general'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -444,7 +460,7 @@ STEPS = {}      # main path -> steps of its timed run
 GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager steps
 GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
 # Main paths whose counted run takes no timestep (a boundary value solve)
-NO_STEP_PATHS = ('lbvp_banded',)
+NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic')
 
 
 def phase(msg):
@@ -490,6 +506,31 @@ def device_ms(fn, reps=20, name=None):
         if total_us > 0:
             return total_us / reps * 1e-3
     print("the profiler recorded no device time: not measured")
+    return None
+
+
+def device_ms_whole(fn, reps=20, name=None, tries=3):
+    """device_ms, taken only where every kernel's records come whole: each
+    kernel a call launches shows a multiple of reps records, else the
+    profiler dropped some (such a reading can fall far below the call's own
+    time) and the reading is taken again, up to `tries` times. None (not
+    measured) where no reading comes whole."""
+    from torch.profiler import profile, ProfilerActivity
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (name is None or name in e.key)]
+        total_us = sum(getattr(e, 'self_device_time_total', None) or
+                       getattr(e, 'self_cuda_time_total', 0) for e in evs)
+        if total_us > 0 and all(e.count % reps == 0 for e in evs):
+            return total_us / reps * 1e-3
+    print(f"the profiler's kernel records were not whole in {tries} readings: not measured")
     return None
 
 
@@ -604,8 +645,9 @@ def card():
 
 def kernel_functions():
     """The wrappers of each kernel, by kernel name. A `_c128` kernel is the
-    complex128 form of its wrappers and a `_signed` one KE's signed form,
-    each counted apart (build.count); zcross counts both dtypes."""
+    complex128 form of its wrappers, a `_signed` one KE's signed form and a
+    `_general` one the general path of K4, K5 or K11b, each counted apart
+    (build.count); zcross counts both dtypes."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
     from dedalus_tpu_torch.ops import products as oprod, ball as oball, shell as oshell
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
@@ -646,7 +688,11 @@ def kernel_functions():
                 grid_cross=[oprod.grid_cross],
                 ball_radial_apply_rot=[oball.ball_radial_apply_rot],
                 separable_apply=[osolve.separable_apply, osolve.separable_apply_pair],
-                lu_solve=[osolve.lu_solve], mixed_solve=[osolve.mixed_solve], **fast)
+                lu_solve=[osolve.lu_solve], mixed_solve=[osolve.mixed_solve],
+                banded_apply_general=[ob.banded_apply],
+                block_tridiag_qr_solve_general=[ob.block_tridiag_qr_solve],
+                chebyshev_conversion_general=[offt.conversion_apply, offt.conversion_solve],
+                **fast)
 
 
 def launches(name, fns):
@@ -1687,7 +1733,9 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
     return out
 
 
-# The paths ab_compare reads by default: rbc2048-poly (K14c's four calls
+# The paths ab_compare reads by default: KE's trailing form and KH at the
+# four cells whose step runs them (ball64, shell192, shell192c-zcross,
+# ballihc64: ab_kt_kh_cells, computed once a side), rbc2048-poly (K14c's four calls
 # and its replayed step), KJ at KJ_SHAPE with shell192's replayed step
 # (ab_kj), the banded step (K4, K5, K6) at rbc2048, the same under the fast
 # transforms (K10-K12, K11b's conversion), rbc256c under `fast` (K10 with
@@ -1695,7 +1743,8 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
 # at those paths' shapes (ab_k5_k11b). The paths whose replayed step runs KE
 # and KF (disk, sphere, annulus) and the complex shell's ZCross cell
 # (shell192c-zcross) are read when named.
-AB_PATHS = ('rbc2048-poly', 'kj', 'rbc2048', 'rbc2048-fast', 'rbc256c-fast', 'k5-k11b')
+AB_PATHS = ('ke-trailing', 'kh', 'rbc2048-poly', 'kj', 'rbc2048', 'rbc2048-fast',
+            'rbc256c-fast', 'k5-k11b')
 # rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
 # host-bound loop more than a kernel does)
 AB_RBC256C_DT = 0.01
@@ -2178,7 +2227,8 @@ def ab_side(root, paths=AB_PATHS, steps=20):
         run = dict(rbc2048=ab_rbc2048, rbc2048_fast=ab_rbc2048_fast,
                    shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
                    k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
-                   kj=ab_kj).get(path.replace('-', '_'), None)
+                   kj=ab_kj, ke_trailing=ab_ke_trailing,
+                   kh=ab_kh).get(path.replace('-', '_'), None)
         out[path] = run(steps) if run else ab_ke_path(path, steps)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2279,6 +2329,21 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                       f"{call}")
             elif path == 'shell192c-zcross':
                 print(f"[{runs[0]['card']}] {label} shell192c-zcross: graph ms/step {g}")
+            elif path in ('ke-trailing', 'kh'):
+                step, calls = ('kt_step', 'kt_calls') if path == 'ke-trailing' else (
+                    'kh_step', 'kh_calls')
+                for cell in AB_KT_KH_CELLS:
+                    cs = [r[cell] for r in rs]
+                    rows = [[(c['shape'], c['x'], round(c['ms'], 4), c['device_ms'],
+                              round(c['library_ms'], 4), c['library_device_ms'],
+                              round(c['bound_ms'], 4)) for c in r[calls]] for r in cs]
+                    print(f"[{runs[0]['card']}] {label} {path} {cell}: graph ms/step "
+                          f"{[x for r in cs for x in r['graph_ms_per_step']]}; a replayed step "
+                          f"{[r[step] for r in cs]} (records, device ms) of the step's device "
+                          f"ms {[r['device_ms_per_step'] for r in cs]}; its calls of one F "
+                          f"(stack, x, events ms, device ms, library events, device, bound) "
+                          f"{rows}")
+                continue
             else:
                 ke = [(r['ke_step']['records_per_step'], r['ke_step']['device_ms_per_step'])
                       for r in rs]
@@ -4223,8 +4288,626 @@ def device_sweep(reps=20):
             shape=list(shape), ms=cuda_ms(kg, 50), device_ms=device_ms(kg, reps),
             library_ms=cuda_ms(lib, 50), library_device_ms=device_ms(lib, reps),
             bound_ms=bound(nbytes(a, b, ck), 4 * ck.numel())[0])
+    out.update(device_readings(reps))
     print(json.dumps({"device_sweep": out}), flush=True)
     return out
+
+
+def k3_gather_reading(pencil, state, reps=20):
+    """K3's gather of a path's state by events and on the device beside
+    index_select on its index map, with the gather's byte bound."""
+    from dedalus_tpu_torch.core import subsystems as sub
+    sg = pencil.state_gather
+    idx = sg.maps[0].reshape(-1)
+    g = lambda: sub.pencil_gather(sg, [state])
+    lib = lambda: state.index_select(0, idx)
+    X = g()
+    torch.cuda.synchronize()
+    return dict(shape=[pencil.G, pencil.C], dtype=str(state.dtype)[6:], ms=cuda_ms(g, 50),
+                device_ms=device_ms(g, reps), library_ms=cuda_ms(lib, 50),
+                library_device_ms=device_ms(lib, reps),
+                bound_ms=bound(nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src,
+                                      X), 0)[0])
+
+
+def device_readings(reps=20):
+    """The rows PERF.md had by events only, read on the device beside their
+    library calls (device_sweep): KB (f64 at rbc256's stacks, c128 at
+    rbc256c's), KC at rbc256's two-stage combine, KI's backward
+    recombination at ball64 and shell192, KH's rotation form at ballihc64's
+    curl, on random data of those shapes; K3's gather on the shell192,
+    rbc256c and rbc2048 pencils (their problems built for it)."""
+    from dedalus_tpu_torch.ops import solve as osolve, ball as oball
+    from dedalus_tpu_torch.csrc import rk_combine as rkc, regularity_recombine as ki
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rand = lambda shape, dt=torch.float64: torch.randn(shape, generator=gen, dtype=dt,
+                                                       device=dev)
+    out = {}
+
+    def row(run, lib, b, name=None, **extra):
+        return dict(ms=cuda_ms(run, 50), device_ms=device_ms(run, reps, name),
+                    library_ms=lib and cuda_ms(lib, 50),
+                    library_device_ms=lib and device_ms(lib, reps), bound_ms=b, **extra)
+
+    for label, G, P, dt in (('kb', 128, 525, torch.float64),
+                            ('kb_c128', 256, 263, torch.complex128)):
+        L, X = rand((G, P, P), dt), rand((G, P), dt)
+        yk, yp = osolve.dense_matvec(L, X), osolve.dense_matvec_plain(L, X)
+        torch.cuda.synchronize()
+        ops = 8 if X.is_complex() else 2
+        out[label] = row(lambda: osolve.dense_matvec(L, X), lambda: torch.matmul(L, X[..., None]),
+                         bound(nbytes(L, X, yk), ops * G * P * P)[0], shape=[G, P],
+                         err=rel_err(yk, yp)[0])
+        del L
+    MX, F0, F1, L0, L1 = (rand((128, 525)) for _ in range(5))
+    rv = (rand((128, 525)) > -1.0).to(torch.float64)
+    coef = rand((4,))
+    ck = rkc.rk_stage_combine(MX, [F0, F1], [L0, L1], rv, coef)
+    out['kc'] = row(lambda: rkc.rk_stage_combine(MX, [F0, F1], [L0, L1], rv, coef), None,
+                    bound(nbytes(MX, F0, F1, L0, L1, rv, ck), 9 * ck.numel())[0],
+                    shape=[2, 128, 525])
+    for label, K, L, Ng in (('ki_ball64', 32, 32, 48), ('ki_shell192', 96, 96, 18)):
+        xi, Q = rand((9, K, 2, L, Ng)), rand((K, L, 9, 9))
+        yk, yp = ki.regularity_recombine(xi, Q, False), ki.regularity_recombine_plain(xi, Q, False)
+        torch.cuda.synchronize()
+        out[label] = row(lambda: ki.regularity_recombine(xi, Q, False),
+                         lambda: torch.einsum('klab,bkpln->akpln', Q, xi),
+                         bound(nbytes(xi, yk) + L * 81 * 8, 18 * xi.numel())[0],
+                         shape=list(xi.shape), err=rel_err(yk, yp)[0])
+    K, L, N = 32, 32, 32
+    Ss = [rand((32, 32, 32)) for _ in range(4)]
+    terms = [(Ss[0], 0, 1), (Ss[1], 1, 0), (Ss[2], 1, 2), (Ss[3], 2, 1)]
+    x = rand((3, K, 2, L, N))
+    y = torch.zeros_like(x)
+    Sv = [oball.per_slot_view(S_, K, L) for S_ in Ss]
+
+    def rot_library():
+        r = oball.rotate_pairs(x)
+        return [torch.einsum('klon,kpln->kplo', v, r[ci]) for v, (_, ci, _) in zip(Sv, terms)]
+    yk = oball.ball_radial_apply_rot(terms, x, y.clone())
+    yp = oball.ball_radial_apply_rot_plain(terms, x, y.clone())
+    torch.cuda.synchronize()
+    out['kh_rot_ballihc64'] = row(lambda: oball.ball_radial_apply_rot(terms, x, y),
+                                  rot_library, bound(nbytes(x, y, *Ss), 8 * K * L * 32 * 32 * 2)[0],
+                                  'ball_radial_rot', shape=[4, 32, 32, 32], err=rel_err(yk, yp)[0])
+    del Ss, Sv, terms, x, y
+    for label in ('shell192', 'rbc256c', 'rbc2048'):
+        if label == 'shell192':
+            solver = build_shell(SHELL['size'], dev)[0]
+        elif label == 'rbc256c':
+            solver = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev)[0]
+        else:
+            solver = build_rbc(NX, NZ, RA, dev)
+        out['k3_gather_' + label] = k3_gather_reading(solver.pencil, solver.state_flat(), reps)
+        solver = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"device_readings": out, "card": smi}), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KE's trailing form and KH by ell (their calls of one F, the parent against
+# the change), and the F7 general paths of K4, K5 and K11b
+# ---------------------------------------------------------------------------
+
+def capture_calls(solver, module, name):
+    """The (args, kwargs) of every call of module.`name` during one eager F
+    evaluation of `solver`."""
+    recorded = []
+    saved = getattr(module, name)
+
+    def recording(*args, **kw):
+        recorded.append((args, kw))
+        return saved(*args, **kw)
+
+    # (the wrapper counts its launches on the module's name: the copy's)
+    functools.update_wrapper(recording, saved)
+    setattr(module, name, recording)
+    try:
+        solver.traced_F(solver.state_flat(), solver.sim_time)
+    finally:
+        setattr(module, name, saved)
+    return recorded
+
+
+def kt_case(args, kw):
+    """A captured trailing_apply call as (key, S, x, out, comps, accumulate)."""
+    S, x, out, comps = args[:4]
+    acc = bool(kw.get('accumulate', args[4] if len(args) > 4 else False))
+    comps = tuple(int(c) for c in comps)
+    key = (tuple(S.shape), tuple(x.shape), str(x.dtype), comps, acc)
+    return key, S, x, out, comps, acc
+
+
+def kh_case(args, kw):
+    """A captured ball_radial_apply call as (key, S, x, out, pairs, accumulate)."""
+    S, x, pairs, out = args[:4]
+    acc = bool(kw.get('accumulate', args[4] if len(args) > 4 else False))
+    pairs = tuple((int(a), int(b)) for a, b in pairs)
+    key = (tuple(S.shape), tuple(x.shape), str(x.dtype), tuple(out.shape), pairs, acc)
+    return key, S, x, out, pairs, acc
+
+
+def distinct(cases, shape_only=False):
+    """{key: (case, calls of that key)} over captured calls; with
+    `shape_only` calls on other components of the same shapes count as one."""
+    out = {}
+    for c in cases:
+        k = c[0][:3] + (len(c[4]), c[5]) if shape_only else c[0]
+        prev = out.get(k)
+        out[k] = (prev[0] if prev else c, (prev[1] if prev else 0) + 1)
+    return out
+
+
+def kt_form(S, x):
+    return 'trailing_apply_signed' if S.dim() == 4 else (
+        'trailing_apply_c128' if x.is_complex() else 'trailing_apply')
+
+
+def kt_check(S, x, out, comps):
+    """KE's trailing form on one call's operands against its plain twin,
+    written and accumulated over the same seeded base: (rel_err, two
+    launches equal bit for bit)."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    gen = torch.Generator(device=x.device).manual_seed(31)
+    base = torch.randn(out.shape, generator=gen, dtype=out.dtype, device=out.device)
+    c = list(comps)
+    yk = opolar.trailing_apply(S, x, base.clone(), comps)
+    yk2 = opolar.trailing_apply(S, x, base.clone(), comps)
+    yp = opolar.trailing_apply_plain(S, x, base.clone(), comps)
+    ak = opolar.trailing_apply(S, x, base.clone(), comps, accumulate=True)
+    ak2 = opolar.trailing_apply(S, x, base.clone(), comps, accumulate=True)
+    ap = opolar.trailing_apply_plain(S, x, base.clone(), comps, accumulate=True)
+    torch.cuda.synchronize()
+    err = max(rel_err(yk[c], yp[c]), rel_err(ak[c], ap[c]))
+    return err, bool(torch.equal(yk, yk2) and torch.equal(ak, ak2))
+
+
+def kh_check(S, x, out, pairs):
+    """KH on one call's operands against its plain twin, written and
+    accumulated over the same seeded base: (rel_err, two launches equal)."""
+    from dedalus_tpu_torch.ops import ball as oball
+    gen = torch.Generator(device=x.device).manual_seed(37)
+    base = torch.randn(out.shape, generator=gen, dtype=out.dtype, device=out.device)
+    c = [co for _, co in pairs]
+    yk = oball.ball_radial_apply(S, x, list(pairs), base.clone())
+    yk2 = oball.ball_radial_apply(S, x, list(pairs), base.clone())
+    yp = oball.ball_radial_apply_plain(S, x, list(pairs), base.clone())
+    ak = oball.ball_radial_apply(S, x, list(pairs), base.clone(), accumulate=True)
+    ak2 = oball.ball_radial_apply(S, x, list(pairs), base.clone(), accumulate=True)
+    ap = oball.ball_radial_apply_plain(S, x, list(pairs), base.clone(), accumulate=True)
+    torch.cuda.synchronize()
+    err = max(rel_err(yk[c], yp[c]), rel_err(ak[c], ap[c]))
+    return err, bool(torch.equal(yk, yk2) and torch.equal(ak, ak2))
+
+
+def kt_cost(S, x, comps):
+    """(bytes, operations) KE's trailing form must move and do on a call:
+    S once, each named component's x read and out written once; 2 per
+    multiply-add of the real view (complex data: 2T columns)."""
+    K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
+    Td = x.shape[-1] * (2 if x.is_complex() else 1)
+    n = len(comps)
+    return (nbytes(S) + n * (nbytes(x) + nbytes(x) * O // I) // x.shape[0],
+            2 * K * 2 * O * I * n * Td)
+
+
+def kh_cost(S, x, out, pairs):
+    """(bytes, operations) KH must move and do on a call: S once, the input
+    runs of the slots with an ell in the stack, every output run; a
+    complex element's product with a real entry is 2 multiply-adds."""
+    E, O, N = S.shape
+    K, NP, L = x.shape[1:4]
+    live = sum(max(min(L, E - k), 0) for k in range(K))
+    es = x.element_size()
+    n = len(pairs)
+    ops = 2 * (2 if x.is_complex() else 1) * O * N * NP * live * n
+    return nbytes(S) + n * (NP * live * N + K * NP * L * O) * es, ops
+
+
+def kt_times(S, x, out, comps, reps=20):
+    """One KE trailing call by events and on the device beside one
+    torch.matmul of the same product (on the complex-cast stack for complex
+    data; the components' data gathered before the timing)."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    K = S.shape[0]
+    xs = x[list(comps)].reshape((len(comps), K, 2) + tuple(x.shape[2:])).contiguous()
+    Sl = S.to(x.dtype) if S.dim() == 4 else S.to(x.dtype)[:, None]
+    scratch = torch.empty_like(out)
+    run = lambda: opolar.trailing_apply(S, x, scratch, comps)
+    lib = lambda: torch.matmul(Sl, xs)
+    return dict(shape=list(S.shape), x=list(x.shape), dtype=str(x.dtype)[6:], comps=len(comps),
+                ms=cuda_ms(run, 50),
+                device_ms=device_ms_whole(run, reps, 'trailing_apply_kernel'),
+                library_ms=cuda_ms(lib, 50), library_device_ms=device_ms_whole(lib, reps),
+                bound_ms=bound(*kt_cost(S, x, comps))[0])
+
+
+def kh_times(S, x, out, pairs, reps=20):
+    """One KH call by events and on the device beside its einsum on the
+    (k, l) strided view of the padded per-ell stack (cast to the data's
+    dtype before the timing)."""
+    from dedalus_tpu_torch.ops import ball as oball
+    K, L = x.shape[1], x.shape[3]
+    Sv = oball.per_slot_view(S, K, L).to(x.dtype)
+    xin = x[[ci for ci, _ in pairs]].contiguous()
+    scratch = torch.empty_like(out)
+    run = lambda: oball.ball_radial_apply(S, x, list(pairs), scratch)
+    lib = lambda: torch.einsum('klon,ckpln->ckplo', Sv, xin)
+    return dict(shape=list(S.shape), x=list(x.shape), dtype=str(x.dtype)[6:], pairs=len(pairs),
+                ms=cuda_ms(run, 50),
+                device_ms=device_ms_whole(run, reps, 'ball_radial_apply_kernel'),
+                library_ms=cuda_ms(lib, 50), library_device_ms=device_ms_whole(lib, reps),
+                bound_ms=bound(*kh_cost(S, x, out, pairs))[0])
+
+
+def merge_err(name, err):
+    """Fold an error into a kernel's recorded check (its kernels-line
+    max_abs_err and the tolerance check)."""
+    if name in RESULTS:
+        RESULTS[name]['err'] = max(RESULTS[name]['err'], err)
+    if not err[0] <= TOL[name]:
+        raise AssertionError(f"{name} disagrees with its plain twin: {err[0]:.3e}")
+
+
+def check_kt_kh_calls(path, solver):
+    """Every distinct KE trailing and KH call of one F evaluation on `path`
+    (captured through the bases' own calls): written and accumulated
+    against the plain twin within TOL, two launches equal bit for bit.
+    Prints one JSON line; folds the errors into the kernels' checks."""
+    from dedalus_tpu_torch.ops import polar as opolar, ball as oball
+    rows = []
+    for (key, S, x, out, comps, acc), n in distinct(
+            kt_case(a, k) for a, k in capture_calls(solver, opolar, 'trailing_apply')).values():
+        err, same = kt_check(S, x, out, comps)
+        name = kt_form(S, x)
+        merge_err(name, err)
+        rows.append(dict(kernel=name, shape=list(S.shape), x=list(x.shape), comps=len(comps),
+                         calls_per_F=n, err=err[0], bitwise=same))
+        if not same:
+            raise AssertionError(f"KE trailing on {path} {list(S.shape)}: two launches differ")
+    for (key, S, x, out, pairs, acc), n in distinct(
+            kh_case(a, k) for a, k in capture_calls(solver, oball, 'ball_radial_apply')).values():
+        err, same = kh_check(S, x, out, pairs)
+        name = 'ball_radial_apply_c128' if x.is_complex() else 'ball_radial_apply'
+        merge_err(name, err)
+        rows.append(dict(kernel=name, shape=list(S.shape), x=list(x.shape), pairs=len(pairs),
+                         calls_per_F=n, err=err[0], bitwise=same))
+        if not same:
+            raise AssertionError(f"KH on {path} {list(S.shape)}: two launches differ")
+    print(json.dumps({f"{path}_kt_kh_calls": rows}))
+    return rows
+
+
+# KE trailing's calls at its timed shapes on random data (kt_sweep):
+# (K, O, I, signed, complex, components, T)
+KT_SHAPES = dict(ball64=(32, 48, 32, False, False, 3, 48),
+                 shell192=(96, 144, 96, False, False, 3, 18),
+                 shell192c=(96, 144, 96, True, True, 3, 18))
+
+
+def kt_sweep(shapes=KT_SHAPES, reps=20):
+    """KE trailing's row tiles swept at its timed shapes on random data (not
+    part of main(); a fresh process): the device ms of each MT the kernel
+    takes (1 to KT_MAX_MT m16 tiles a block) beside kt_plan's choice and
+    torch.matmul, each launch held to the twin within TOL and the plan's
+    output bit for bit where MT is the plan's. Prints one JSON line a
+    shape."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    from dedalus_tpu_torch.csrc import build
+    dev, kind, smi = card()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, (K, O, I, signed, cplx, n, T) in shapes.items():
+        dt = torch.complex128 if cplx else torch.float64
+        S = torch.randn((K, 2, O, I) if signed else (K, O, I), generator=gen,
+                        dtype=torch.float64, device=dev)
+        x = torch.randn((n, 2 * K, I, T), generator=gen, dtype=dt, device=dev)
+        y = torch.zeros((n, 2 * K, O, T), dtype=dt, device=dev)
+        comps = list(range(n))
+        Td = 2 * T if cplx else T
+        plan = opolar.kt_plan(K, O, I, 2 if signed else 1, n, Td, True, sms)
+        yk = opolar.trailing_apply(S, x, y.clone(), comps)
+        yp = opolar.trailing_apply_plain(S, x, y.clone(), comps)
+        row = dict(plan=plan._asdict(), times=kt_times(S, x, y, comps, reps), sweep={},
+                   err=rel_err(yk, yp)[0])
+        idx = (ctypes.c_int * n)(*comps)
+        yy = y.clone()
+        for MT in range(1, opolar.KT_MAX_MT + 1):
+            nrt = -(-O // (16 * MT))
+
+            def launch():
+                build.check(lib.ke_trailing_apply_f64(
+                    S.data_ptr(), x.data_ptr(), yy.data_ptr(), ctypes.addressof(idx), n, K, O,
+                    I, Td, 2 if signed else 1, 0, MT, 2, plan.NW, plan.nct, nrt, stream),
+                    'kt_sweep')
+            launch()
+            torch.cuda.synchronize()
+            e = rel_err(yy, yp)[0]
+            if not e <= TOL['trailing_apply'] or (MT == plan.MT and not torch.equal(yy, yk)):
+                raise AssertionError(f"kt_sweep {name} MT={MT}: {e}")
+            row['sweep'][f"MT{MT}"] = dict(blocks=K * (2 if signed else 1) * plan.nct * nrt,
+                                           device_ms=device_ms(launch, reps,
+                                                               'trailing_apply_kernel'))
+        out[name] = row
+        print(json.dumps({"kt_sweep": name, "card": smi, **row}), flush=True)
+    return out
+
+
+# The cells whose replayed step runs KE's trailing form and KH (ab_compare's
+# 'ke-trailing' and 'kh' sides read them once a process)
+AB_KT_KH_CELLS = ('ball64', 'shell192', 'shell192c-zcross', 'ballihc64')
+_AB_KT_KH = {}
+
+
+def ab_kt_kh_cells(steps):
+    """Each of AB_KT_KH_CELLS stepped as its path steps it: graph ms/step
+    (twice), KE trailing's and KH's records and device ms a replayed step,
+    the step's device ms, and every distinct KE trailing and KH call of one
+    F by events and on the device beside its library call (kt_times,
+    kh_times). Computed once a process."""
+    from dedalus_tpu_torch.utils.config import config
+    from dedalus_tpu_torch.ops import polar as opolar, ball as oball
+    if _AB_KT_KH:
+        return _AB_KT_KH
+    dev, kind, smi = card()
+    for cell in AB_KT_KH_CELLS:
+        old = config.get('memory', 'max_dense_stack_gb')
+        try:
+            if cell == 'ball64':
+                solver, _ = build_ball(BALL['size'], dev)
+                dt = BALL['dt']
+            elif cell == 'shell192':
+                solver, _, _ = build_shell(SHELL['size'], dev)
+                dt = SHELL['dt']
+            elif cell == 'ballihc64':
+                solver, _, _ = build_ball_ihc(BALL_IHC['size'], dev)
+                dt = BALL_IHC['dt']
+            else:
+                config.set('memory', 'max_dense_stack_gb', SHELL_C['max_dense_stack_gb'])
+                solver, ctx, _ = build_shell_c(SHELL_C['size'], dev, True)
+                set_shell_ic(ctx, shell_real_ic(SHELL_C['size']))
+                dt = SHELL_C['dt']
+
+            def run(n):
+                solver.run_steps(dt, n)
+
+            run(5)
+            graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+            table = step_kernel_table(solver, lambda: run(10))
+            kt = [dict(kt_times(S, x, out, comps), calls_per_F=n)
+                  for (_, S, x, out, comps, _), n in distinct(
+                      (kt_case(a, k) for a, k in capture_calls(solver, opolar, 'trailing_apply')),
+                      True).values()]
+            kh = [dict(kh_times(S, x, out, pairs), calls_per_F=n)
+                  for (_, S, x, out, pairs, _), n in distinct(
+                      (kh_case(a, k) for a, k in capture_calls(solver, oball,
+                                                                'ball_radial_apply')),
+                      True).values()]
+            _AB_KT_KH[cell] = dict(
+                graph_ms_per_step=graph_ms, kt_step=table_rows(table, 'trailing_apply_kernel'),
+                kh_step=table_rows(table, 'ball_radial_apply_kernel'),
+                device_ms_per_step=sum(v[1] for v in table.values()), kt_calls=kt,
+                kh_calls=kh)
+            print(json.dumps({"ab_kt_kh_cell": cell, "card": smi, **_AB_KT_KH[cell]}),
+                  flush=True)
+        finally:
+            config.set('memory', 'max_dense_stack_gb', old)
+            solver = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    return _AB_KT_KH
+
+
+def ab_ke_trailing(steps):
+    """KE's trailing form at its cells (ab_kt_kh_cells): graph ms/step, its
+    records and device ms a replayed step, its calls of one F."""
+    cells = ab_kt_kh_cells(steps)
+    return {c: {k: v[k] for k in ('graph_ms_per_step', 'kt_step', 'device_ms_per_step',
+                                  'kt_calls')} for c, v in cells.items()}
+
+
+def ab_kh(steps):
+    """KH at its cells (ab_kt_kh_cells): graph ms/step, its records and
+    device ms a replayed step, its calls of one F."""
+    cells = ab_kt_kh_cells(steps)
+    return {c: {k: v[k] for k in ('graph_ms_per_step', 'kh_step', 'device_ms_per_step',
+                                  'kh_calls')} for c, v in cells.items()}
+
+
+# The synthetic operators past the old limits of K4 (nb and n_border above
+# 32; 9 shared parts, past a byte of each part mask), K5 (nb past the two-slot ring: 59 in f64, 84 in f32) and K11b (more
+# than 16 diagonals, offsets above 16: ChebyshevT by da = 10 ultraspherical
+# steps has 21 diagonals up to offset 20)
+F7 = dict(G=96, Nb=12, nb=40, nbord=36, pad=10, parts=9, nbad=3,
+          k5=((64, 8, 48, torch.float64), (96, 6, 32, torch.float32)),
+          k11=dict(ndiag=21, M=600, N=640, shapes=((8, 640, 6), (48, 640))))
+
+
+def f7_operators(dev, seed=21):
+    """Two separable banded operators of one ordering (F7's sizes, with
+    exceptional groups), and one per-group operator, on random panels:
+    (sep_a, sep_b, per_group, P)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    rng = np.random.default_rng(seed)
+    G, Nb, nb, nbord, pad = (F7[k] for k in ('G', 'Nb', 'nb', 'nbord', 'pad'))
+    Pp = Nb * nb
+    P = Pp - pad
+    order = dict(row_perm=rng.permutation(P), col_perm=rng.permutation(P), n_border=nbord)
+    r = lambda *shape: rng.standard_normal(shape) / np.sqrt(nb)
+
+    def blocks(g):
+        return ob.BandedBlocks(r(g, Nb, nb, nb), r(g, Nb, nb, nb), r(g, Nb, nb, nb),
+                               r(g, Pp, nbord), r(g, nbord, Pp) / np.sqrt(Nb), order, nb, pad)
+
+    def separable():
+        bad = tuple(sorted(int(g) for g in rng.choice(G, F7['nbad'], replace=False)))
+        w = rng.standard_normal((G, F7['parts']))
+        w[list(bad)] = 0.0
+        return ob.SeparableBandedOperator([blocks(1) for _ in range(F7['parts'])], w, order,
+                                          nb, dev, bad=(bad, blocks(len(bad))))
+
+    return separable(), separable(), ob.BandedOperator(blocks(G), dev), P
+
+
+def f7_general_path():
+    """K4, K5 and K11b past their tile kernels' old limits, on synthetic
+    operators (F7): each general path against its plain twin (K4 1e-13,
+    K5 1e-5 in f32 and f64, K11b 1e-12), two launches equal bit for bit, by
+    events beside the twin, with its bound; then one call of each in a
+    counted run of its own ('f7_synthetic': no timed cell reaches these
+    sizes)."""
+    from dedalus_tpu_torch.ops import banded as ob, fft as offt
+    dev, kind, smi = card()
+    phase(f"F7's general paths on synthetic operators: K4 at nb={F7['nb']}, "
+          f"n_border={F7['nbord']}; K5 at nb = {[c[0] for c in F7['k5']]}; K11b with "
+          f"{F7['k11']['ndiag']} diagonals")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    # K4
+    sep_a, sep_b, grp, P = f7_operators(dev)
+    G = F7['G']
+    rng = np.random.default_rng(5)
+    pg = np.repeat(np.arange(0, G, 7), 2)
+    pr = np.concatenate([rng.choice(P, 2, replace=False) for _ in range(0, G, 7)])
+    pc = rng.integers(0, P, pg.size)
+    piv = tuple(torch.as_tensor(a, dtype=torch.int64, device=dev) for a in (pg, pr, pc))
+    aset = ob.BandedApplySet([sep_a, sep_b], pivots=piv, coefs=(0.75, -1.5))
+    X, R = (torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+            for _ in range(2))
+    rv = (torch.rand((G, P), generator=gen, device=dev) > 0.1).to(torch.float64)
+    forms = dict(
+        pair=(lambda: aset.pair(X), lambda: ob.banded_apply_plain_set(aset, X, pair=True)),
+        residual=(lambda: aset.combine(aset.coefs, X, R=R, rv=rv, pivots=True),
+                  lambda: ob.banded_apply_plain_set(aset, X, aset.coefs, R=R, rv=rv,
+                                                    pivots=True)),
+        per_group=(lambda: grp.apply(X), lambda: grp.apply_plain(X)))
+    errs, same = [], True
+    for run, plain in forms.values():
+        yk, yk2, yp = run(), run(), plain()
+        torch.cuda.synchronize()
+        yk, yk2, yp = ((t,) if torch.is_tensor(t) else t for t in (yk, yk2, yp))
+        errs += [rel_err(a, b) for a, b in zip(yk, yp)]
+        same &= all(torch.equal(a, b) for a, b in zip(yk, yk2))
+    if not same:
+        raise AssertionError("K4's general path: two launches differ")
+    dp = aset.device_plan(False, True, dev)
+    if not dp['plan']['general']:
+        raise AssertionError("K4 at F7's sizes did not take the general path")
+    panels = [t for op in (sep_a, sep_b) for t in list(op.ops.values()) + list(
+        op.bad_ops.values()) + [op.w] if torch.is_tensor(t)]
+    Pp = F7['Nb'] * F7['nb']
+    macs = 2 * G * F7['parts'] * (3 * F7['nb'] * Pp + 2 * F7['nbord'] * Pp)
+    run, plain = forms['residual']
+    record('banded_apply_general', 'f7_synthetic', dict(
+        err=max(errs), shape=[G, P, F7['nb'], F7['nbord']], bitwise=same,
+        what="the refinement residual R - rv (0.75 A X - 1.5 B X + pivots) of two separable "
+             "operators with exceptional groups",
+        ms=cuda_ms(run, 20), device_ms=device_ms(run, 10, 'banded_apply_general'),
+        plain_ms=cuda_ms(plain, 20), library_ms=None, library_device_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'),
+                   bound(nbytes(X, R, rv) + nbytes(X) + nbytes(*panels), 2 * macs)))), True,
+        keys=DEVICE_KEYS)
+    # K5's direct path
+    errs, same, timed = [], True, None
+    for nb, Nb, Gk, dt in F7['k5']:
+        eye = torch.eye(nb, dtype=torch.float64, device=dev)
+        rn = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+        fac = [(torch.eye(2 * nb, dtype=torch.float64, device=dev)
+                + 0.3 * rn(Gk, Nb - 1, 2 * nb, 2 * nb) / np.sqrt(2 * nb)),
+               eye + 0.3 * rn(Gk, nb, nb) / np.sqrt(nb),
+               eye + 0.3 * rn(Gk, Nb, nb, nb) / np.sqrt(nb),
+               0.3 * rn(Gk, Nb, nb, nb) / np.sqrt(nb), 0.3 * rn(Gk, Nb, nb, nb) / np.sqrt(nb),
+               rn(Gk, Nb, nb)]
+        fac = [t.to(dt).contiguous() for t in fac]
+        if not ob.k5_plan(nb, fac[0].element_size())['direct']:
+            raise AssertionError(f"K5 at nb={nb} did not take the direct path")
+        xk, xk2 = ob.block_tridiag_qr_solve(*fac), ob.block_tridiag_qr_solve(*fac)
+        xp = ob.block_tridiag_qr_solve_plain(*fac)
+        torch.cuda.synchronize()
+        errs.append(rel_err(xk, xp))
+        same &= torch.equal(xk, xk2)
+        if timed is None:
+            run = lambda f=fac: ob.block_tridiag_qr_solve(*f)
+            timed = dict(shape=[Gk, Nb, nb], what=f"random factors, nb={nb}, {dt}",
+                         ms=cuda_ms(run, 20), device_ms=device_ms(run, 10, 'direct'),
+                         plain_ms=cuda_ms(lambda f=fac: ob.block_tridiag_qr_solve_plain(*f),
+                                          20), library_ms=None, library_device_ms=None,
+                         **dict(zip(('bound_ms', 'bound_by'),
+                                    bound(nbytes(*fac, xk), 2 * Gk * Nb * 8 * nb * nb))))
+    if not same:
+        raise AssertionError("K5's direct path: two launches differ")
+    record('block_tridiag_qr_solve_general', 'f7_synthetic', dict(timed, err=max(errs),
+                                                                  bitwise=same),
+           True, keys=DEVICE_KEYS)
+    # K11b's general paths: 21 diagonals, offsets 0 .. 20
+    k11 = F7['k11']
+    brng = np.random.default_rng(7)
+    diags = [2.0 + brng.random(k11['M'])] + [0.5 * brng.standard_normal(k11['M'])
+                                            / k11['ndiag'] for _ in range(k11['ndiag'] - 1)]
+    band = offt.ConversionBand(diags, range(k11['ndiag']))
+    if not band.general:
+        raise AssertionError("K11b's band did not take the general paths")
+    # The library pair, as for K11b's tile paths: a dense matmul with the
+    # band (M, N) and torch.linalg.solve_triangular with its (M, M) part
+    M, N = k11['M'], k11['N']
+    D = torch.zeros((M, N), dtype=torch.float64, device=dev)
+    m = torch.arange(M, device=dev)
+    for d, off in enumerate(band.offsets):
+        keep = m + off < N
+        D[m[keep], m[keep] + off] = torch.as_tensor(diags[d], device=dev)[keep]
+    U = D[:, :M].contiguous()
+    errs, same, rows = [], True, []
+    for shape in k11['shapes']:
+        x = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+        three = x.ndim == 3
+        libs = dict(conversion_apply=(lambda: torch.matmul(D, x)) if three else
+                    (lambda: torch.matmul(x, D.T)),
+                    conversion_solve=(lambda: torch.linalg.solve_triangular(
+                        U, x[:, :M], upper=True)) if three else
+                    (lambda: torch.linalg.solve_triangular(U, x[:, :M].T, upper=True).T))
+        for fn, plain in ((offt.conversion_apply, offt.conversion_apply_plain),
+                          (offt.conversion_solve, offt.conversion_solve_plain)):
+            yk, yk2, yp = fn(band, x, 1), fn(band, x, 1), plain(band, x, 1)
+            lib = libs[fn.__name__]
+            yl = lib()
+            torch.cuda.synchronize()
+            errs.append(rel_err(yk, yp))
+            same &= torch.equal(yk, yk2)
+            rows.append(dict(wrapper=fn.__name__, shape=list(shape),
+                             equal_to_twin=bool(torch.equal(yk, yp)),
+                             library_rel_err=rel_err(yl, yp)[0],
+                             ms=cuda_ms(lambda: fn(band, x, 1), 20),
+                             device_ms=device_ms(lambda: fn(band, x, 1), 10, 'conversion_'),
+                             plain_ms=cuda_ms(lambda: plain(band, x, 1), 5),
+                             library_ms=cuda_ms(lib, 20), library_device_ms=device_ms(lib, 10),
+                             bound_ms=bound(nbytes(x, yk), 2 * k11['ndiag'] * yk.numel())[0]))
+    if not same:
+        raise AssertionError("K11b's general paths: two launches differ")
+    total = lambda key: (None if any(r[key] is None for r in rows[:2])
+                         else rows[0][key] + rows[1][key])
+    record('chebyshev_conversion_general', 'f7_synthetic', dict(
+        err=max(errs), shape=[k11['ndiag'], k11['M']], calls=rows, bitwise=same,
+        what=f"{k11['ndiag']} diagonals up to offset {k11['ndiag'] - 1}: apply and solve "
+             f"at {list(k11['shapes'][0])}",
+        **{k: total(k) for k in ('ms', 'device_ms', 'plain_ms', 'library_ms',
+                                 'library_device_ms', 'bound_ms')}, bound_by='bytes'),
+        True, keys=DEVICE_KEYS + ('calls',))
+
+    def once():
+        aset.combine(aset.coefs, X, R=R, rv=rv, pivots=True)
+        ob.block_tridiag_qr_solve(*fac)
+        offt.conversion_apply(band, x, 1)
+        offt.conversion_solve(band, x, 1)
+        torch.cuda.synchronize()
+
+    count_launches('f7_synthetic', 1, once)
+    print(json.dumps({"f7_general": {k: LAUNCHES['f7_synthetic'][k]
+                                     for k in PATH_KERNELS['f7_synthetic']}, "card": smi}))
 
 
 def check_polar_kernels(geometry, ctx):
@@ -4809,6 +5492,7 @@ def ball_path(steps=BALL['steps']):
         phase("KH, KI, KE (trailing and lift forms), KF, K3, KG vs plain twins (ball-path "
               "shapes)")
         check_ball_kernels(solver, ctx)
+        check_kt_kh_calls('ball', solver)
         check_k3('ball', pencil, solver.state_flat())
         check_kg('ball', ctx['u'], cases=BALL_KG_CASES)
 
@@ -5097,6 +5781,7 @@ def shell_path(steps=SHELL['steps']):
 
         phase("KJ, KG cross, KH, KI, K3, KG vs plain twins (shell-path shapes)")
         check_shell_kernels(solver, ctx)
+        check_kt_kh_calls('shell', solver)
         check_k3('shell', pencil, solver.state_flat())
         check_kg('shell', ctx['u'], cases=SHELL_KG_CASES)
 
@@ -5637,6 +6322,7 @@ def complex_shell_run(path, zcross, bg, dev, kind, smi, steps, real=None, other=
             phase(f"ZCross, KF complex, KE signed, KG cross complex, KH/KI/KJ complex, K3, "
                   f"KG, K7 vs plain twins ({path} shapes)")
             check_complex_shell_kernels(path, solver, ctx, u_f64)
+            check_kt_kh_calls(path, solver)
         else:
             check_k3(path, pencil, solver.state_flat(), name='pencil_gather_scatter_c128')
 
@@ -6002,6 +6688,7 @@ def ball_ihc_path(steps=BALL_IHC['steps']):
 
         phase("KH rotation form, KG cross, K3, KG vs plain twins (ball_ihc-path shapes)")
         check_ball_ihc_kernels(solver, ctx)
+        check_kt_kh_calls('ball_ihc', solver)
         check_k3('ball_ihc', pencil, solver.state_flat())
         check_kg('ball_ihc', ctx['u'], cases=BALL_IHC_KG_CASES)
 
@@ -7004,6 +7691,7 @@ def main():
         return out
 
     t_start = time.perf_counter()
+    timed(f7_general_path)
     timed(graph_inputs_path)
     timed(banded_path)
     timed(schemes_path)

@@ -20,14 +20,11 @@
 //
 // Bound: bytes. The function reads S once (ball 64x32x32: a backward
 // transform stack is 32 x 48 x 32 doubles, 0.39 MB) and each component's
-// data once (0.5 MB in, 0.8 MB out). Design (KE's, csrc/polar_kernels.cu):
-// one thread block per (k, l) and chunk of KH_ROWS output rows. The block
-// stages the NP * pairs input columns x[c, k, :, l, :] in shared memory
-// once; each warp streams one row S[k + l, o, :] with coalesced loads (the
-// K blocks of one ell meet it in L2) and accumulates every column's sum
-// from the same loads. The sums meet in warp shuffles; with `accumulate`
-// they are added to out (an operator summing several regularity components
-// into one output).
+// data once (0.5 MB in, 0.8 MB out). Design: by ell, below at
+// ball_radial_apply_kernel (the per-(k, l) blocks before it re-read S[ell]
+// from L2 for every slot of an ell: 12 MB at ball64 for a 0.39 MB stack).
+// With `accumulate` the sums are added to out (an operator summing several
+// regularity components into one output).
 //
 //   KH, pair-rotation form  kh_ball_radial_rot_apply_f64  replaces the
 //       einsum on the rotated pair of dedalus_tpu/core/operators_ball.py:214-227
@@ -63,10 +60,11 @@
 
 namespace {
 
-constexpr int KH_THREADS = 256;
-constexpr int KH_ROWS = 32;        // output rows per block: 4 per warp
+constexpr int KH_THREADS = 256;    // the rotation form's blocks
+constexpr int KH_ROWS = 32;        // the rotation form's output rows a block: 4 a warp
 constexpr int KH_MAX_PAIRS = 4;
-constexpr int KH_MAX_COLS = 8;     // pair slots x component pairs
+constexpr int KH_MAX_COLS = 8;     // pair slots x component pairs (the rotation form)
+constexpr int KH_MAX_TASKS = 4;    // register tiles a thread of the by-ell kernel
 
 // Arithmetic of one element: a double, or a complex double2 (re, im)
 template <typename V> struct Elem;
@@ -103,68 +101,140 @@ template <> struct Elem<double2> {
     __device__ static double2 times_i(double2 v) { return make_double2(-v.y, v.x); }
 };
 
-struct Pairs {
+// KH by ell: all slots (k, l) with k + l = ell share S[ell], so their
+// columns (k, pair slot p, component pair q) are the columns of one product
+//   out[ell] (O x cols) = S[ell] (O x N) . X[ell] (N x cols),
+// column (k, p, q) of X the run x[in_q, k, p, ell - k, :] of N elements and
+// of out the run out[out_q, k, p, ell - k, :] of O. A block takes one unit
+// (ell, first column, columns, first row) of the per-call table that
+// ops/ball.py kh_plan builds (the largest units first; units with
+// ell >= E, which only zero their outputs, last, and launched only without
+// `accumulate`). It stages its KH_RT rows of S[ell] once, transposed (N x
+// rows), and its columns' runs (N x cols) by cp.async, each run read
+// coalesced; a thread then holds a register tile of KH_TR rows x KH_TC
+// columns (no shuffle reduction), the sum over n in order; the tiles are
+// staged through shared memory and stored (or added) along O, a warp a
+// column: contiguous, coalesced. The column decode (k, p, q) runs once a
+// column a block. Two launches agree bit for bit.
+constexpr int KH_UNIT_THREADS = 128;
+constexpr int KH_TR = 4;            // rows of a thread's register tile
+constexpr int KH_TC = 2;            // columns of a thread's register tile
+constexpr int KH_UNIT_INTS = 4;     // (ell, first column, columns, first row)
+
+template <typename V>
+__device__ __forceinline__ void kh_cp(V* dst, const V* src) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if (sizeof(V) == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+struct KhArgs {
+    const double* S;
+    const int* units;
     int in[KH_MAX_PAIRS];
     int out[KH_MAX_PAIRS];
+    int npairs, K, NP, L, E, O, N, accumulate, RT, CT, OS, XS, YS;
 };
 
 template <typename V>
-__global__ void __launch_bounds__(KH_THREADS)
-ball_radial_apply_kernel(const double* __restrict__ S, const V* __restrict__ x,
-                         V* __restrict__ out, Pairs pairs, int npairs, int K, int NP,
-                         int L, int E, int O, int N, int accumulate) {
+__global__ void __launch_bounds__(KH_UNIT_THREADS)
+ball_radial_apply_kernel(const __grid_constant__ KhArgs a, const V* __restrict__ x,
+                         V* __restrict__ out) {
     using El = Elem<V>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    V* xs = reinterpret_cast<V*>(smem_raw);   // [npairs * NP][N]: column j = (pair j / NP, slot j % NP)
-    const int k = blockIdx.x / L;
-    const int l = blockIdx.x - k * L;
-    const int ncol = npairs * NP;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
+    const int* u = a.units + (long long)blockIdx.x * KH_UNIT_INTS;
+    const int ell = u[0], c0 = u[1], nc = u[2], r0 = u[3];
+    const int nr = min(a.RT, a.O - r0);
+    long long* cin = reinterpret_cast<long long*>(smem_raw);    // [CT]
+    long long* cout = cin + a.CT;                                // [CT]
+    double* St = reinterpret_cast<double*>(cout + a.CT);         // [N][OS]: S[ell] rows r0 ..
+    V* Xt = reinterpret_cast<V*>(St + (size_t)a.N * a.OS);       // [N][XS], then [CT][YS]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int nwarps = blockDim.x >> 5;
-    const size_t comp_in = (size_t)K * NP * L * N;
-    const size_t comp_out = (size_t)K * NP * L * O;
-    const int o0 = blockIdx.y * KH_ROWS;
-    const int o1 = min(O, o0 + KH_ROWS);
-    if (k + l >= E) {                // no matrix at this ell: the output is zero
-        if (!accumulate) {
-            for (int t = threadIdx.x; t < ncol * (o1 - o0); t += blockDim.x) {
-                const int j = t / (o1 - o0), o = o0 + t - j * (o1 - o0);
-                const int q = j / NP, p = j - q * NP;
-                out[pairs.out[q] * comp_out + (((size_t)k * NP + p) * L + l) * O + o] = El::zero();
-            }
-        }
-        return;
-    }
-    for (int t = threadIdx.x; t < ncol * N; t += blockDim.x) {
-        const int j = t / N, n = t - j * N;
-        const int q = j / NP, p = j - q * NP;
-        xs[t] = x[pairs.in[q] * comp_in + (((size_t)k * NP + p) * L + l) * N + n];
+    const int per_k = a.npairs * a.NP;
+    const int kmin = max(0, ell - a.L + 1);
+    const size_t comp_in = (size_t)a.K * a.NP * a.L * a.N;
+    const size_t comp_out = (size_t)a.K * a.NP * a.L * a.O;
+    for (int j = tid; j < nc; j += blockDim.x) {
+        const int jj = c0 + j;
+        const int kk = jj / per_k, r = jj - kk * per_k;
+        const int q = r / a.NP, p = r - q * a.NP;
+        const int k = kmin + kk, l = ell - k;
+        const size_t slot = ((size_t)k * a.NP + p) * a.L + l;
+        cin[j] = (long long)(a.in[q] * comp_in + slot * a.N);
+        cout[j] = (long long)(a.out[q] * comp_out + slot * a.O + r0);
     }
     __syncthreads();
-    for (int o = o0 + warp; o < o1; o += nwarps) {
-        const double* row = S + ((size_t)(k + l) * O + o) * N;
-        V acc[KH_MAX_COLS];
+    if (ell >= a.E) {               // no matrix at this ell: the outputs are zero
+        for (int c = warp; c < nc; c += nwarps)
+            for (int o = lane; o < nr; o += 32) out[cout[c] + o] = El::zero();
+        return;
+    }
+    // S[ell]'s rows r0 .. r0 + nr, transposed; the columns' runs
+    const double* Sl = a.S + ((size_t)ell * a.O + r0) * a.N;
+    for (int o = warp; o < nr; o += nwarps)
+        for (int n = lane; n < a.N; n += 32) kh_cp(St + (size_t)n * a.OS + o, Sl + (size_t)o * a.N + n);
+    for (int c = warp; c < nc; c += nwarps)
+        for (int n = lane; n < a.N; n += 32) kh_cp(Xt + (size_t)n * a.XS + c, x + cin[c] + n);
+    asm volatile("cp.async.commit_group;\n" ::);
+    // rows and columns past the unit's read zeros
+    for (int e = tid; e < a.N * (a.OS - nr); e += blockDim.x) {
+        const int n = e / (a.OS - nr);
+        St[(size_t)n * a.OS + nr + e - n * (a.OS - nr)] = 0.0;
+    }
+    for (int e = tid; e < a.N * (a.XS - nc); e += blockDim.x) {
+        const int n = e / (a.XS - nc);
+        Xt[(size_t)n * a.XS + nc + e - n * (a.XS - nc)] = El::zero();
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    // Register tiles: task = (row group, column pair), the column pairs fastest
+    const int RG = (nr + KH_TR - 1) / KH_TR, CP = (nc + KH_TC - 1) / KH_TC;
+    V acc[KH_MAX_TASKS][KH_TR][KH_TC];
 #pragma unroll
-        for (int j = 0; j < KH_MAX_COLS; ++j) acc[j] = El::zero();
-        for (int n = lane; n < N; n += 32) {
-            const double a = __ldg(row + n);
+    for (int t = 0; t < KH_MAX_TASKS; ++t) {
+        const int task = tid + t * KH_UNIT_THREADS;
 #pragma unroll
-            for (int j = 0; j < KH_MAX_COLS; ++j)
-                if (j < ncol) acc[j] = El::fma(a, xs[j * N + n], acc[j]);
+        for (int r = 0; r < KH_TR; ++r)
+#pragma unroll
+            for (int c = 0; c < KH_TC; ++c) acc[t][r][c] = El::zero();
+        if (task >= RG * CP) continue;
+        const int rg = task / CP, cp = task - rg * CP;
+        const double* sp = St + rg * KH_TR;
+        const V* xp = Xt + cp * KH_TC;
+        for (int n = 0; n < a.N; ++n) {
+            const double2 s01 = *reinterpret_cast<const double2*>(sp + (size_t)n * a.OS);
+            const double2 s23 = *reinterpret_cast<const double2*>(sp + (size_t)n * a.OS + 2);
+            const double sv[KH_TR] = {s01.x, s01.y, s23.x, s23.y};
+            V xv[KH_TC];
+#pragma unroll
+            for (int c = 0; c < KH_TC; ++c) xv[c] = xp[(size_t)n * a.XS + c];
+#pragma unroll
+            for (int r = 0; r < KH_TR; ++r)
+#pragma unroll
+                for (int c = 0; c < KH_TC; ++c) acc[t][r][c] = El::fma(sv[r], xv[c], acc[t][r][c]);
         }
+    }
+    __syncthreads();                // Xt is free: the tiles go to Ys = [CT][YS]
+    V* Ys = Xt;
 #pragma unroll
-        for (int j = 0; j < KH_MAX_COLS; ++j) {
-            if (j < ncol) {
-                const V v = El::shfl_sum(acc[j]);
-                if (lane == j) {
-                    const int q = j / NP, p = j - q * NP;
-                    V* dst = out + pairs.out[q] * comp_out
-                             + (((size_t)k * NP + p) * L + l) * O + o;
-                    *dst = accumulate ? El::add(*dst, v) : v;
-                }
-            }
-        }
+    for (int t = 0; t < KH_MAX_TASKS; ++t) {
+        const int task = tid + t * KH_UNIT_THREADS;
+        if (task >= RG * CP) continue;
+        const int rg = task / CP, cp = task - rg * CP;
+#pragma unroll
+        for (int c = 0; c < KH_TC; ++c)
+#pragma unroll
+            for (int r = 0; r < KH_TR; ++r)
+                Ys[(size_t)(cp * KH_TC + c) * a.YS + rg * KH_TR + r] = acc[t][r][c];
+    }
+    __syncthreads();
+    for (int c = warp; c < nc; c += nwarps) {
+        V* dst = out + cout[c];
+        const V* src = Ys + (size_t)c * a.YS;
+        for (int o = lane; o < nr; o += 32) dst[o] = a.accumulate ? El::add(dst[o], src[o]) : src[o];
     }
 }
 
@@ -289,24 +359,42 @@ int rot_apply(const double* S0, const double* S1, const double* S2, const double
     return (int)cudaGetLastError();
 }
 
+// The unit table and its geometry are ops/ball.py kh_plan's: RT rows and CT
+// columns a unit at most, the strides OS, XS, YS of its staged S, X and Y.
 template <typename V>
-int radial_apply(const double* S, const void* x, void* out, int in0, int out0, int in1,
-                 int out1, int in2, int out2, int in3, int out3, int npairs, int K, int NP,
-                 int L, int E, int O, int N, int accumulate, void* stream) {
-    if (npairs < 1 || npairs > KH_MAX_PAIRS || npairs * NP > KH_MAX_COLS || NP < 1 || NP > 2
-        || K < 1 || L < 1 || E < 1 || O < 1 || N < 1)
+int radial_apply(const double* S, const void* x, void* out, const int* pairs, int npairs,
+                 int K, int NP, int L, int E, int O, int N, int accumulate, const int* units,
+                 int nunits, int RT, int CT, int OS, int XS, int YS, int smem,
+                 void* stream) {
+    if (npairs < 1 || npairs > KH_MAX_PAIRS || NP < 1 || NP > 2 || K < 1 || L < 1 || E < 1
+        || O < 1 || N < 1 || nunits < 1 || RT < 1 || RT % KH_TR || CT < 1 || CT % KH_TC
+        || OS < RT || OS % 2 || XS < CT || YS < RT
+        || (long long)((RT + KH_TR - 1) / KH_TR) * ((CT + KH_TC - 1) / KH_TC)
+               > (long long)KH_MAX_TASKS * KH_UNIT_THREADS)
         return (int)cudaErrorInvalidValue;
-    Pairs pairs = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-    const size_t smem = (size_t)npairs * NP * N * sizeof(V);
-    if (smem > 48 * 1024) {
+    const size_t xy = (size_t)N * XS > (size_t)CT * YS ? (size_t)N * XS : (size_t)CT * YS;
+    const size_t need = 2 * (size_t)CT * sizeof(long long) + (size_t)N * OS * sizeof(double)
+                        + xy * sizeof(V);
+    if (need != (size_t)smem || need > 227 * 1024) return (int)cudaErrorInvalidValue;
+    KhArgs a = {};
+    a.S = S;
+    a.units = units;
+    for (int q = 0; q < npairs; ++q) {
+        a.in[q] = pairs[2 * q];
+        a.out[q] = pairs[2 * q + 1];
+    }
+    a.npairs = npairs; a.K = K; a.NP = NP; a.L = L; a.E = E; a.O = O; a.N = N;
+    a.accumulate = accumulate; a.RT = RT; a.CT = CT; a.OS = OS; a.XS = XS; a.YS = YS;
+    static size_t smem_set = 0;
+    if (need > 48 * 1024 && need > smem_set) {
         cudaError_t err = cudaFuncSetAttribute(ball_radial_apply_kernel<V>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
+                                               (int)need);
         if (err != cudaSuccess) return (int)err;
+        smem_set = need;
     }
-    dim3 grid(K * L, (O + KH_ROWS - 1) / KH_ROWS);
-    ball_radial_apply_kernel<V><<<grid, KH_THREADS, smem, (cudaStream_t)stream>>>(
-        S, (const V*)x, (V*)out, pairs, npairs, K, NP, L, E, O, N, accumulate);
+    ball_radial_apply_kernel<V><<<nunits, KH_UNIT_THREADS, need, (cudaStream_t)stream>>>(
+        a, (const V*)x, (V*)out);
     return (int)cudaGetLastError();
 }
 
@@ -327,12 +415,21 @@ extern "C" int kh_ball_radial_rot_apply_c128(KH_ROT_ARGS) {
     return rot_apply<double2>(KH_ROT_PASS);
 }
 
-#define KH_ARGS const double* S, const void* x, void* out, int in0, int out0, int in1,   \
-    int out1, int in2, int out2, int in3, int out3, int npairs, int K, int NP, int L,     \
-    int E, int O, int N, int accumulate, void* stream
-#define KH_PASS S, x, out, in0, out0, in1, out1, in2, out2, in3, out3, npairs, K, NP, L, E, \
-    O, N, accumulate, stream
+#define KH_ARGS const double* S, const void* x, void* out, const int* pairs, int npairs,  \
+    int K, int NP, int L, int E, int O, int N, int accumulate, const int* units, int nunits,  \
+    int RT, int CT, int OS, int XS, int YS, int smem, void* stream
+#define KH_PASS S, x, out, pairs, npairs, K, NP, L, E, O, N, accumulate, units, nunits, RT, \
+    CT, OS, XS, YS, smem, stream
 
 extern "C" int kh_ball_radial_apply_f64(KH_ARGS) { return radial_apply<double>(KH_PASS); }
 
 extern "C" int kh_ball_radial_apply_c128(KH_ARGS) { return radial_apply<double2>(KH_PASS); }
+
+// KH's by-ell geometry, for ops/ball.py kh_plan (checked before the first
+// launch)
+extern "C" int kh_geometry(int* out, int n) {
+    const int g[] = {KH_UNIT_THREADS, KH_TR, KH_TC, KH_UNIT_INTS, KH_MAX_TASKS, KH_MAX_PAIRS};
+    if (n != (int)(sizeof(g) / sizeof(g[0]))) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n; ++i) out[i] = g[i];
+    return (int)cudaSuccess;
+}

@@ -266,6 +266,119 @@ block_tridiag_qr_solve_kernel(
     }
 }
 
+// K5's direct path, for blocks whose two-slot ring does not fit in shared
+// memory (ops/banded.py k5_plan returns stages = 0: nb > 59 in f64, > 84 in
+// f32). One block of K5D_THREADS threads a group reads each step's factor
+// blocks straight from device memory, a warp a row (coalesced along the
+// row, summed over the lanes by a fixed xor tree), the 4nb carry vectors in
+// shared memory. The same sweeps as the ring's; a simple path, since no
+// timed cell reaches these sizes.
+#define K5D_THREADS 256
+
+template <typename T>
+__device__ __forceinline__ T k5d_warp_sum(T v) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(K5D_THREADS)
+block_tridiag_qr_solve_direct_kernel(
+        const T* __restrict__ Qt, const T* __restrict__ QtL,
+        const T* __restrict__ Rinv, const T* __restrict__ R1,
+        const T* __restrict__ R2, const T* __restrict__ r,
+        T* __restrict__ x, int Nb, int nb) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* const vec = reinterpret_cast<T*>(smem_raw);   // 4 nb
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const int n2 = 2 * nb;
+    const long long bsz = (long long)nb * nb, m2 = 4 * bsz;
+    const long long g = blockIdx.x;
+    const T* rg = r + g * Nb * nb;
+    T* xg = x + g * Nb * nb;
+    // forward: vin = [carry; r_{i+1}] (2 nb), w = Qt_i vin (2 nb)
+    T* const vin = vec;
+    T* const w = vec + n2;
+    for (int k = threadIdx.x; k < nb; k += blockDim.x) vin[k] = rg[k];
+    for (int i = 0; i < Nb; ++i) {
+        const bool last = i == Nb - 1;
+        const int ncol = last ? nb : n2, nrow = last ? nb : n2;
+        if (!last)
+            for (int k = threadIdx.x; k < nb; k += blockDim.x)
+                vin[nb + k] = rg[(long long)(i + 1) * nb + k];
+        __syncthreads();
+        const T* M = last ? QtL + g * bsz : Qt + (g * (Nb - 1) + i) * m2;
+        for (int row = warp; row < nrow; row += nwarps) {
+            const T* q = M + (long long)row * ncol;
+            T s = T(0);
+            for (int c = lane; c < ncol; c += 32) s += q[c] * vin[c];
+            s = k5d_warp_sum(s);
+            if (lane == 0) w[row] = s;
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k < nrow; k += blockDim.x) {
+            if (k < nb) xg[(long long)i * nb + k] = w[k];
+            else vin[k - nb] = w[k];
+        }
+        __syncthreads();
+    }
+    // backward: x_i = Rinv_i ((y_i - R1_i x_{i+1}) - R2_i x_{i+2})
+    T* xa = vec;            // x_{i+1}
+    T* xb = vec + nb;       // x_{i+2}
+    T* const t = vec + 2 * nb;
+    T* xc = vec + 3 * nb;   // x_i
+    for (int k = threadIdx.x; k < nb; k += blockDim.x) xa[k] = xb[k] = T(0);
+    __syncthreads();
+    for (int i = Nb - 1; i >= 0; --i) {
+        const long long b = (g * Nb + i) * bsz;
+        for (int row = warp; row < nb; row += nwarps) {
+            const T* a1 = R1 + b + (long long)row * nb;
+            const T* a2 = R2 + b + (long long)row * nb;
+            T s1 = T(0), s2 = T(0);
+            for (int c = lane; c < nb; c += 32) {
+                s1 += a1[c] * xa[c];
+                s2 += a2[c] * xb[c];
+            }
+            s1 = k5d_warp_sum(s1);
+            s2 = k5d_warp_sum(s2);
+            if (lane == 0) t[row] = (xg[(long long)i * nb + row] - s1) - s2;
+        }
+        __syncthreads();
+        for (int row = warp; row < nb; row += nwarps) {
+            const T* q = Rinv + b + (long long)row * nb;
+            T s = T(0);
+            for (int c = lane; c < nb; c += 32) s += q[c] * t[c];
+            s = k5d_warp_sum(s);
+            if (lane == 0) {
+                xc[row] = s;
+                xg[(long long)i * nb + row] = s;
+            }
+        }
+        __syncthreads();
+        T* tmp = xb;
+        xb = xa;
+        xa = xc;
+        xc = tmp;
+    }
+}
+
+template <typename T>
+static int launch_k5_direct(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
+                            const T* R2, const T* r, T* x, int G, int Nb, int nb,
+                            size_t smem, cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(block_tridiag_qr_solve_direct_kernel<T>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    block_tridiag_qr_solve_direct_kernel<T><<<G, K5D_THREADS, smem, stream>>>(
+        Qt, QtL, Rinv, R1, R2, r, x, Nb, nb);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int S>
 static int launch_k5_stages(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
                             const T* R2, const T* r, T* x, int G, int Nb, int nb,
@@ -281,14 +394,20 @@ static int launch_k5_stages(const T* Qt, const T* QtL, const T* Rinv, const T* R
     return (int)cudaGetLastError();
 }
 
-// `stages` and `smem` are the host plan's (ops/banded.py k5_plan); a plan
-// whose shared memory differs from this file's layout is refused.
+// `stages` and `smem` are the host plan's (ops/banded.py k5_plan; stages 0:
+// the direct path); a plan whose shared memory differs from this file's
+// layout is refused.
 template <typename T>
 static int launch_k5(const T* Qt, const T* QtL, const T* Rinv, const T* R1,
                      const T* R2, const T* r, T* x, int G, int Nb, int nb, int stages,
                      int smem, cudaStream_t stream) {
-    if (G < 1 || Nb < 1 || nb < 1 || stages < 2 || stages > K5_MAX_STAGES)
+    if (G < 1 || Nb < 1 || nb < 1 || stages == 1 || stages < 0 || stages > K5_MAX_STAGES)
         return (int)cudaErrorInvalidValue;
+    if (stages == 0) {          // the direct path: 4 nb carry elements a block
+        const size_t need = (size_t)4 * nb * sizeof(T);
+        if (need != (size_t)smem || need > K5_SMEM) return (int)cudaErrorInvalidValue;
+        return launch_k5_direct<T>(Qt, QtL, Rinv, R1, R2, r, x, G, Nb, nb, need, stream);
+    }
     const size_t need = (size_t)k5_warp_elems<T>(nb, stages) * sizeof(T);
     if (need != (size_t)smem || need > K5_SMEM) return (int)cudaErrorInvalidValue;
     switch (stages) {
@@ -864,6 +983,167 @@ extern "C" int k4_banded_apply_f64(
     }
     const long long blocks = (long long)p.ntiles * (nv + nchunks);
     banded_apply_kernel<<<(unsigned)blocks, K4_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}
+
+// K4's general path, for orderings past the tile kernel's limits (blocks or
+// borders of more than 8 K4_MAXNT = 32 rows, more than K4_MAXP shared parts
+// (up to K4G_MAXP), or more shared memory than a block has; ops/banded.py
+// k4_plan sets `general`). One thread a (group,
+// banded row j < P): the same function as the tile kernel, read from the
+// operators' raw panels in the banded order (diag, sub, sup (Nb, nb, nb) a
+// part; UcolT and Vrow (nbord, Pp) a part), x[c] = X[g, cp[c]] gathered as it
+// is read (zero for c >= P), 64-bit indices. The pivot pairs of output 0 come
+// from a per-group table (off[g] .. off[g + 1]: (j, column) records). Each
+// sum runs in the twin's order of terms (band, Ucol, Vrow; parts in order);
+// a simple path, since no timed cell reaches these sizes.
+#define K4G_THREADS 256
+#define K4G_TERM_INTS 19
+#define K4G_MAXP 63         // shared parts a term: one bit a part in each int64 mask
+
+struct K4GTerm {
+    const double* diag;     // shared parts (nparts, Nb, nb, nb), or null
+    const double* sub;
+    const double* sup;
+    const double* U;        // (nparts, nbord, Pp)
+    const double* V;        // (nparts, nbord, Pp)
+    const double* w;        // (G, nparts)
+    const double* gdiag;    // per-group blocks (Gb, Nb, nb, nb), or null
+    const double* gsub;
+    const double* gsup;
+    const double* gU;       // (Gb, nbord, Pp)
+    const double* gV;       // (Gb, nbord, Pp)
+    const long long* index; // (G,) block of each group, -1: none
+    double coef;
+    unsigned long long mask_sub, mask_sup, mask_U, mask_V;  // bit q: part q has the panel
+    int nparts, gmask, out;
+};
+
+struct K4GParams {
+    K4GTerm term[2];
+    const double* X;
+    double* Y0;
+    double* Y1;
+    const double* R;
+    const double* rv;
+    const int* cp;
+    const int* rp;
+    const int* piv_off;
+    const int* piv;
+    int nterms, G, P, Nb, nb, nbord, bcol0, nout;
+};
+
+__device__ __forceinline__ double k4g_x(const K4GParams& p, const double* xg, long long c) {
+    return c < p.P ? __ldg(xg + p.cp[c]) : 0.0;
+}
+
+// Row j of one operator's apply from its panels (row i, r of block row i)
+__device__ double k4g_row(const K4GParams& p, const double* xg, const double* diag,
+                          const double* sub, const double* sup, const double* U,
+                          const double* V, long long j) {
+    const long long nb = p.nb, Pp = (long long)p.Nb * nb;
+    const long long i = j / nb, r = j - i * nb;
+    const long long off = (i * nb + r) * nb;
+    double s = 0.0;
+    for (long long c = 0; c < nb; ++c) s += diag[off + c] * k4g_x(p, xg, i * nb + c);
+    if (sub && i > 0)
+        for (long long c = 0; c < nb; ++c) s += sub[off + c] * k4g_x(p, xg, (i - 1) * nb + c);
+    if (sup && i < p.Nb - 1)
+        for (long long c = 0; c < nb; ++c) s += sup[off + c] * k4g_x(p, xg, (i + 1) * nb + c);
+    if (U)
+        for (long long b = 0; b < p.nbord; ++b) s += U[b * Pp + j] * k4g_x(p, xg, p.bcol0 + b);
+    if (V && j < p.nbord)
+        for (long long c = 0; c < Pp; ++c) s += V[j * Pp + c] * k4g_x(p, xg, c);
+    return s;
+}
+
+__global__ void __launch_bounds__(K4G_THREADS)
+banded_apply_general_kernel(const __grid_constant__ K4GParams p) {
+    const long long g = blockIdx.x;
+    const long long j = (long long)blockIdx.y * blockDim.x + threadIdx.x;
+    if (j >= p.P) return;
+    const long long nb = p.nb, Pp = (long long)p.Nb * nb;
+    const long long bsz = (long long)p.Nb * nb * nb, usz = (long long)p.nbord * Pp;
+    const double* xg = p.X + g * p.P;
+    double y[2] = {0.0, 0.0};
+    for (int k = 0; k < p.nterms; ++k) {
+        const K4GTerm& T = p.term[k];
+        double s = 0.0;
+        for (int q = 0; q < T.nparts; ++q) {
+            const double v = k4g_row(
+                p, xg, T.diag + q * bsz,
+                ((T.mask_sub >> q) & 1ull) ? T.sub + q * bsz : nullptr,
+                ((T.mask_sup >> q) & 1ull) ? T.sup + q * bsz : nullptr,
+                ((T.mask_U >> q) & 1ull) ? T.U + q * usz : nullptr,
+                ((T.mask_V >> q) & 1ull) ? T.V + q * usz : nullptr, j);
+            s += T.w[g * T.nparts + q] * v;
+        }
+        if (T.index) {
+            const long long b = T.index[g];
+            if (b >= 0)
+                s += k4g_row(p, xg, T.gdiag + b * bsz, (T.gmask & 1) ? T.gsub + b * bsz : nullptr,
+                             (T.gmask & 2) ? T.gsup + b * bsz : nullptr,
+                             (T.gmask & 4) ? T.gU + b * usz : nullptr,
+                             (T.gmask & 8) ? T.gV + b * usz : nullptr, j);
+        }
+        y[T.out] += T.coef * s;
+    }
+    if (p.piv_off)
+        for (int e = p.piv_off[g]; e < p.piv_off[g + 1]; ++e)
+            if (p.piv[2 * e] == j) y[0] += xg[p.piv[2 * e + 1]];
+    const long long at = g * p.P + p.rp[j];
+    for (int o = 0; o < p.nout; ++o) {
+        double v = y[o];
+        if (p.rv) v *= p.rv[at];
+        if (p.R) v = p.R[at] - v;
+        (o == 0 ? p.Y0 : p.Y1)[at] = v;
+    }
+}
+
+extern "C" int k4_banded_apply_general_f64(
+        const long long* terms, const double* coefs, int nterms, const double* X, double* Y0,
+        double* Y1, const double* R, const double* rv, const int* cp, const int* rp,
+        const int* piv_off, const int* piv, int G, int P, int Nb, int nb, int nbord,
+        int bcol0, int nout, void* stream) {
+    if (nterms < 1 || nterms > 2 || nout < 1 || nout > 2 || G < 1 || P < 1 || Nb < 1
+            || nb < 1 || nbord < 0 || (long long)Nb * nb < P)
+        return (int)cudaErrorInvalidValue;
+    K4GParams p = {};
+    for (int k = 0; k < nterms; ++k) {
+        const long long* e = terms + k * K4G_TERM_INTS;
+        K4GTerm& T = p.term[k];
+        T.diag = (const double*)e[0];
+        T.sub = (const double*)e[1];
+        T.sup = (const double*)e[2];
+        T.U = (const double*)e[3];
+        T.V = (const double*)e[4];
+        T.w = (const double*)e[5];
+        T.nparts = (int)e[6];
+        T.mask_sub = (unsigned long long)e[7];
+        T.mask_sup = (unsigned long long)e[8];
+        T.mask_U = (unsigned long long)e[9];
+        T.mask_V = (unsigned long long)e[10];
+        T.gdiag = (const double*)e[11];
+        T.gsub = (const double*)e[12];
+        T.gsup = (const double*)e[13];
+        T.gU = (const double*)e[14];
+        T.gV = (const double*)e[15];
+        T.gmask = (int)e[16];
+        T.index = (const long long*)e[17];
+        T.out = (int)e[18];
+        T.coef = coefs[k];
+        if (T.out < 0 || T.out >= nout || T.nparts < 0 || T.nparts > K4G_MAXP
+                || (T.nparts && (!T.diag || !T.w))
+                || (T.index && !T.gdiag)) return (int)cudaErrorInvalidValue;
+    }
+    p.X = X; p.Y0 = Y0; p.Y1 = Y1; p.R = R; p.rv = rv; p.cp = cp; p.rp = rp;
+    p.piv_off = piv_off; p.piv = piv;
+    p.nterms = nterms; p.G = G; p.P = P; p.Nb = Nb; p.nb = nb; p.nbord = nbord;
+    p.bcol0 = bcol0; p.nout = nout;
+    const long long rows = (P + K4G_THREADS - 1) / K4G_THREADS;
+    if (rows > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)G, (unsigned)rows);
+    banded_apply_general_kernel<<<grid, K4G_THREADS, 0, (cudaStream_t)stream>>>(p);
     return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@ SIGNATURES = {
         'k5_block_tridiag_qr_solve_f32': [_P] * 7 + [_I] * 5 + [_P],
         'k5_block_tridiag_qr_solve_f64': [_P] * 7 + [_I] * 5 + [_P],
         'k4_banded_apply_f64': [_P, _P, _I] + [_P] * 13 + [_I] * 13 + [_P],
+        'k4_banded_apply_general_f64': [_P, _P, _I] + [_P] * 9 + [_I] * 7 + [_P],
         'k4_geometry': [_P, _I],
         'k8_block_tridiag_qr_factor_f64': [_P] * 15 + [_I] * 3 + [_D, _P],
         'k8_multi_rhs_solve_f64': [_P] * 7 + [_I] * 4 + [_P],
@@ -56,15 +57,17 @@ SIGNATURES = {
     'polar_kernels': {
         'ke_polar_apply_f64': [_P] * 3 + [_I] * 13 + [_P],
         'ke_geometry': [_P, _I],
-        'ke_trailing_apply_f64': [_P] * 3 + [_I] * 11 + [_P],
+        'ke_trailing_apply_f64': [_P] * 4 + [_I] * 12 + [_P],
+        'kt_geometry': [_P, _I],
     },
     'cfl_kernels': {
         'kd_cfl_max_f64': [_P, _P],
         'kd_geometry': [_P, _I],
     },
     'ball_kernels': {
-        'kh_ball_radial_apply_f64': [_P] * 3 + [_I] * 16 + [_P],
-        'kh_ball_radial_apply_c128': [_P] * 3 + [_I] * 16 + [_P],
+        'kh_ball_radial_apply_f64': [_P] * 4 + [_I] * 8 + [_P] + [_I] * 7 + [_P],
+        'kh_ball_radial_apply_c128': [_P] * 4 + [_I] * 8 + [_P] + [_I] * 7 + [_P],
+        'kh_geometry': [_P, _I],
         'kh_ball_radial_rot_apply_f64': [_P] * 6 + [_I] * 16 + [_P],
         'kh_ball_radial_rot_apply_c128': [_P] * 6 + [_I] * 16 + [_P],
     },
@@ -180,8 +183,9 @@ def launcher(name, dtype):
 
 # The forms of a kernel counted apart from its float64 launches, by the
 # suffix of their count (`launches_<suffix>`) and of their kernel's name in
-# chip_smoke.py: complex128 data, and KE's signed (m, +-) stacks
-FORMS = {'torch.complex128': 'c128', 'signed': 'signed'}
+# chip_smoke.py: complex128 data, KE's signed (m, +-) stacks, and the
+# general paths of K4, K5 and K11b past their tile kernels' sizes
+FORMS = {'torch.complex128': 'c128', 'signed': 'signed', 'general': 'general'}
 
 
 def counter(form):

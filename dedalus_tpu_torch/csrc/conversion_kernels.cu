@@ -19,7 +19,8 @@
 // slab (32-bit index arithmetic, one division a thread), stages the band's
 // columns of that tile in shared memory once and walks APPLY_SLABS slabs with
 // them. Its sums run over the diagonals in order, each product rounded, from
-// zero: the plain twin's order.
+// zero: the plain twin's order. A band of more than MAX_DIAGS diagonals
+// takes the general apply (conversion_apply_general_kernel).
 //
 // The solve takes the band in its dense solve form Dw (W + 1, P): row 0 the
 // reciprocal of the main diagonal, row j the diagonal at offset j (zero
@@ -86,6 +87,33 @@ conversion_apply_kernel(const double* __restrict__ D, const int* __restrict__ of
             }
             y[(i64)oo * per + p] = acc;
         }
+    }
+}
+
+// The apply's general path, for a band of more than MAX_DIAGS diagonals: a
+// thread a point of a slab, walking the slabs, the band's columns read from
+// device memory, each point's sum over the diagonals in order as the tile
+// kernel's. A simple path, since no timed cell reaches these bands.
+constexpr int APPLY_GENERAL_THREADS = 256;
+
+__global__ void __launch_bounds__(APPLY_GENERAL_THREADS)
+conversion_apply_general_kernel(const double* __restrict__ D, const int* __restrict__ offs,
+                                int ndiag, const double* __restrict__ x,
+                                double* __restrict__ y, int outer, int N, int M, int inner) {
+    const i64 per = (i64)M * inner;
+    const i64 p = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (p >= per) return;
+    const i64 m = p / inner, i = p - m * inner;
+    for (i64 o = blockIdx.y; o < outer; o += gridDim.y) {
+        const double* xs = x + o * N * inner + i;
+        double acc = 0.0;
+        for (int d = 0; d < ndiag; ++d) {
+            const i64 src = m + __ldg(offs + d);
+            if (src >= 0 && src < N)
+                acc = __dadd_rn(acc, __dmul_rn(__ldg(D + (i64)d * M + m),
+                                               __ldg(xs + src * inner)));
+        }
+        y[o * per + p] = acc;
     }
 }
 
@@ -215,6 +243,30 @@ conversion_solve_kernel(const double* __restrict__ Dw, const double* __restrict_
     }
 }
 
+// The solve's general path, for a band whose largest offset passes the
+// widest instantiated carry (16): a thread a line walks it from the end,
+// each step's carry x[m + 1 .. m + W] read back from the line's own output in
+// device memory, the steps' order of products and differences as
+// solve_step's. A simple path, since no timed cell reaches these bands.
+constexpr int SOLVE_GENERAL_THREADS = 128;
+
+__global__ void __launch_bounds__(SOLVE_GENERAL_THREADS)
+conversion_solve_general_kernel(const double* __restrict__ Dw, int W,
+                                const double* __restrict__ b, double* x, i64 lines, int L,
+                                int P, int inner) {
+    const i64 ln = (i64)blockIdx.x * blockDim.x + threadIdx.x;
+    if (ln >= lines) return;
+    const i64 o = ln / inner, i = ln - o * inner;
+    const double* bl = b + o * L * inner + i;
+    double* xl = x + o * P * inner + i;
+    for (int m = P - 1; m >= 0; --m) {
+        double acc = bl[(i64)m * inner];
+        for (int j = 1; j <= W && m + j < P; ++j)
+            acc = __dsub_rn(acc, __dmul_rn(__ldg(Dw + (i64)j * P + m), xl[(i64)(m + j) * inner]));
+        xl[(i64)m * inner] = __dmul_rn(acc, __ldg(Dw + m));
+    }
+}
+
 template <int W>
 int launch_solve(const double* Dw, const double* b, double* x, int outer, int L, int P,
                  int inner, cudaStream_t stream) {
@@ -241,9 +293,17 @@ int launch_solve(const double* Dw, const double* b, double* x, int outer, int L,
 extern "C" int k11_conversion_apply_f64(const double* D, const int* offs, int ndiag,
                                         const double* x, double* y, int outer, int N, int M,
                                         int inner, void* stream) {
-    if (outer < 1 || N < 1 || M < 1 || inner < 1 || ndiag < 1 || ndiag > MAX_DIAGS ||
+    if (outer < 1 || N < 1 || M < 1 || inner < 1 || ndiag < 1 ||
         (i64)M * inner > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
+    if (ndiag > MAX_DIAGS) {
+        const i64 blocks = ((i64)M * inner + APPLY_GENERAL_THREADS - 1) / APPLY_GENERAL_THREADS;
+        const dim3 grid((unsigned)blocks, (unsigned)(outer < 65535 ? outer : 65535));
+        conversion_apply_general_kernel<<<grid, APPLY_GENERAL_THREADS, 0,
+                                          (cudaStream_t)stream>>>(D, offs, ndiag, x, y,
+                                                                  outer, N, M, inner);
+        return (int)cudaGetLastError();
+    }
     const i64 tiles = ((i64)M * inner + APPLY_TILE - 1) / APPLY_TILE;
     const i64 slabs = (outer + APPLY_SLABS - 1) / APPLY_SLABS;
     if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -260,10 +320,12 @@ extern "C" int k11_conversion_apply_f64(const double* D, const int* offs, int nd
     return (int)cudaGetLastError();
 }
 
-// Dw: the band's dense solve form (W + 1, P), W in 1, 2, 4, 8, 16
+// Dw: the band's dense solve form (W + 1, P), W in 1, 2, 4, 8, 16, or any W
+// above 16 (the general path)
 extern "C" int k11_conversion_solve_f64(const double* Dw, int W, const double* b, double* x,
                                         int outer, int L, int P, int inner, void* stream) {
-    if (outer < 1 || L < 1 || P < 1 || P > L || inner < 1) return (int)cudaErrorInvalidValue;
+    if (outer < 1 || L < 1 || P < 1 || P > L || inner < 1 || W < 1)
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (W) {
         case 1: return launch_solve<1>(Dw, b, x, outer, L, P, inner, s);
@@ -271,8 +333,15 @@ extern "C" int k11_conversion_solve_f64(const double* Dw, int W, const double* b
         case 4: return launch_solve<4>(Dw, b, x, outer, L, P, inner, s);
         case 8: return launch_solve<8>(Dw, b, x, outer, L, P, inner, s);
         case 16: return launch_solve<16>(Dw, b, x, outer, L, P, inner, s);
-        default: return (int)cudaErrorInvalidValue;
+        default: break;
     }
+    if (W < 16) return (int)cudaErrorInvalidValue;
+    const i64 lines = (i64)outer * inner;
+    const i64 blocks = (lines + SOLVE_GENERAL_THREADS - 1) / SOLVE_GENERAL_THREADS;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    conversion_solve_general_kernel<<<(unsigned)blocks, SOLVE_GENERAL_THREADS, 0, s>>>(
+        Dw, W, b, x, lines, L, P, inner);
+    return (int)cudaGetLastError();
 }
 
 // The launch constants, for the host plan's check (ops/fft.py K11_GEOMETRY)

@@ -15,12 +15,13 @@
 //       out[c, m, p, o, t] = sum_i S[m, (p,) o, i] * x[c, m, p, i, t]
 //
 //       for up to KT_MAX_COMPS components c of one spin (one stack), named
-//       by index. x is read in place, the trailing axis t contiguous: no
-//       transposed copy. Bound: bytes (ball 64x32x32, a vector's colatitude
-//       transform: a (32, 48, 32) stack, 0.4 MB, against 1.2 MB of data per
-//       component). Design: a tiled f64 product per (component, m), one
-//       block per (m, 32 output rows, component and 64 columns (p, t));
-//       tiles of S and x in shared memory, 32 deep, each thread 8 outputs.
+//       by index, in one launch. x is read in place, the trailing axis t
+//       contiguous: no transposed copy. Bound: bytes (the complex shell at
+//       192x96x12: a signed (96, 2, 144, 96) stack, 21 MB, 16 MB of x and
+//       24 MB of out for three components, 0.0182 ms at 3.35 TB/s; its
+//       573 MFLOP take 0.017 ms even at the FP64 FMA's peak, so the
+//       products run on the f64 tensor cores). Design: below, at
+//       trailing_apply_kernel.
 //
 //   out[b, m, p, o, c] (+)= sum_i S[m, (p,) o, i] * x[b, m, p, i, c]
 //
@@ -233,95 +234,276 @@ int ke_launch(const KeArgs& a, int warps, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
-constexpr int KT_THREADS = 256;
-constexpr int KT_ROWS = 32;
-constexpr int KT_COLS = 64;
-constexpr int KT_DEPTH = 32;
-constexpr int KT_MAX_COMPS = 4;
+// KE, trailing form (ke_trailing_apply_f64): an f64 tensor-core product per
+// (m, slot), out[m, p] (O x cols) = S[m, p] (O x I) . X[m, p] (I x cols), the
+// columns every (component, slot, t) of the call. Blocks: (m, signed slot,
+// row tile of 16 MT rows, column tile of 32 NW columns), the row tiles
+// fastest (ops/polar.py kt_plan picks MT, NW and the column tiles so that a
+// tile holds all the call's columns where 4 warps can, and the grid fills
+// the SMs). So S[m] comes from device memory once a call (the column tiles
+// of one m meet it in L2) and x once a row tile. A warp owns a 32-column
+// strip and all the block's rows: MT x 4 accumulator tiles of m16n8k16
+// (K14c's fragment layout, csrc/separable_kernels.cu). The reduction axis I
+// walks in steps of KT_KC through a ring of KT_STAGES stages of S and x
+// tiles, filled by cp.async (16 bytes a copy where the rows and column
+// pairs are 16-byte aligned, V = 2; else 8) two steps ahead, zero-filled
+// past O, I and the columns; one barrier a step. A column's (component,
+// slot, t) is decoded once a block into a table of its offsets in x and
+// out (no division per element). The D fragment gives each lane a column
+// pair (2t, 2t + 1), contiguous in out where T is even: stored (or added,
+// `accumulate`) as one 16-byte pair, a quad of lanes a whole 64-byte run.
+// One fixed order of sums (step, the mma's k), no split-K: two launches
+// agree bit for bit.
+constexpr int KT_WARPS = 4;                 // most warps a block
+constexpr int KT_WN = 32;                   // columns a warp: 4 n-tiles of 8
+constexpr int KT_KC = 16;                   // reduction depth a step: one m16n8k16
+constexpr int KT_STAGES = 3;                // ring stages
+constexpr int KT_SS = KT_KC + 4;            // S tile row stride (doubles, 4 mod 16)
+constexpr int KT_MAX_MT = 4;                // m16 tiles a block (64 rows)
+constexpr int KT_MAX_COMPS = 9;             // components a launch
+constexpr int KT_NT = KT_WN / 8;
 
-struct Comps {
-    int idx[KT_MAX_COMPS];
+struct KtArgs {
+    const double* S;
+    const double* x;
+    double* out;
+    int comps[KT_MAX_COMPS];
+    int ncomps, K, O, I, T, ns, accumulate, NW, nct, nrt;
 };
 
-__global__ void __launch_bounds__(KT_THREADS)
-trailing_apply_kernel(const double* __restrict__ S, const double* __restrict__ x,
-                      double* __restrict__ out, Comps comps, int K, int O, int I, int T,
-                      int ns, int accumulate) {
-    __shared__ double Ss[KT_ROWS][KT_DEPTH + 1];
-    __shared__ double xs[KT_DEPTH][KT_COLS];
-    const int m = blockIdx.x;
-    const int o0 = blockIdx.y * KT_ROWS;
-    // Columns (p, t) over both slots with a shared stack; t alone over the
-    // block's slot p0 with a signed one
-    const int npb = ns == 2 ? 1 : 2;
-    const int ncol = npb * T;
-    const int ntile = (ncol + KT_COLS - 1) / KT_COLS;
-    int z = blockIdx.z / ntile;
-    const int j0 = (blockIdx.z - z * ntile) * KT_COLS;
-    const int p0 = ns == 2 ? z % 2 : 0;
-    const int q = ns == 2 ? z / 2 : z;
-    x += (size_t)comps.idx[q] * K * 2 * I * T;
-    out += (size_t)comps.idx[q] * K * 2 * O * T;
-    const double* Sm = S + ((size_t)m * ns + p0) * O * I;
-    const int tc = threadIdx.x % KT_COLS;
-    const int tr = threadIdx.x / KT_COLS;      // 0..3
-    constexpr int NACC = KT_ROWS * KT_COLS / KT_THREADS;
-    double acc[NACC];
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) acc[a] = 0.0;
-    for (int i0 = 0; i0 < I; i0 += KT_DEPTH) {
-        for (int e = threadIdx.x; e < KT_ROWS * KT_DEPTH; e += KT_THREADS) {
-            const int r = e / KT_DEPTH, c = e - r * KT_DEPTH;
-            const int o = o0 + r, i = i0 + c;
-            Ss[r][c] = (o < O && i < I) ? Sm[(size_t)o * I + i] : 0.0;
+__device__ __forceinline__ void kt_cp(double* dst, const double* src, int bytes, bool pred) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    if (bytes == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                     "r"(pred ? 16 : 0));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+                     "r"(pred ? 8 : 0));
+}
+__device__ __forceinline__ void kt_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void kt_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// D (16x8) += A (16x16) B (16x8) in f64 on the tensor cores: K14c's layout
+__device__ __forceinline__ void kt_dmma16(double (&d)[4], const double (&a)[8],
+                                          const double (&b)[4]) {
+    asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, "
+                 "{%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, {%0,%1,%2,%3};\n"
+                 : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+                 : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+                   "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+template <int MT, int V>
+__global__ void __launch_bounds__(KT_WARPS * 32)
+trailing_apply_kernel(const __grid_constant__ KtArgs a) {
+    constexpr int RT = 16 * MT;
+    extern __shared__ __align__(16) double kt_smem[];
+    const int CT = KT_WN * a.NW, XS = CT + 4;
+    const int stage = RT * KT_SS + KT_KC * XS;
+    long long* cx = reinterpret_cast<long long*>(kt_smem + KT_STAGES * stage);
+    long long* cy = cx + CT;
+    // Block: (m, slot) slowest, then the column tile, the row tile fastest
+    int bid = blockIdx.x;
+    const int rt = bid % a.nrt;
+    bid /= a.nrt;
+    const int ct = bid % a.nct;
+    const int ms = bid / a.nct;
+    const int nslot = a.ns == 2 ? 2 : 1, npb = a.ns == 2 ? 1 : 2;
+    const int m = ms / nslot, p0 = ms - m * nslot;
+    const int o0 = rt * RT, j0 = ct * CT;
+    const int T = a.T, I = a.I, O = a.O;
+    const int cpq = npb * T, ncol = a.ncomps * cpq;
+    const long long compx = (long long)a.K * 2 * I * T, compy = (long long)a.K * 2 * O * T;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    // The column table: offsets in x (at i = 0) and out (at o = 0) of each
+    // column of the tile, from the (m)'s base; -1 past the call's columns
+    for (int j = tid; j < CT; j += blockDim.x) {
+        const int jj = j0 + j;
+        long long ox = -1, oy = -1;
+        if (jj < ncol) {
+            const int q = jj / cpq, r = jj - q * cpq;
+            const int p = p0 + r / T, t = r - (r / T) * T;
+            ox = a.comps[q] * compx + (long long)p * I * T + t;
+            oy = a.comps[q] * compy + (long long)p * O * T + t;
         }
-        for (int e = threadIdx.x; e < KT_DEPTH * KT_COLS; e += KT_THREADS) {
-            const int r = e / KT_COLS, c = e - r * KT_COLS;
-            const int i = i0 + r, j = j0 + c;
-            double v = 0.0;
-            if (i < I && j < ncol) {
-                const int p = p0 + j / T, t = j - (j / T) * T;
-                v = x[(((size_t)m * 2 + p) * I + i) * T + t];
+        cx[j] = ox;
+        cy[j] = oy;
+    }
+    __syncthreads();
+    const double* Sm = a.S + ((long long)m * a.ns + p0) * O * I;
+    const double* xm = a.x + (long long)m * 2 * I * T;
+    double* ym = a.out + (long long)m * 2 * O * T;
+    // This thread's share of the copies: the x tile's column (pair) and first
+    // row, fixed for the block
+    const int xcols = CT / V;
+    const int xc = (tid % xcols) * V, xk0 = tid / xcols, xkstep = blockDim.x / xcols;
+    const bool xcopy = xk0 < xkstep;        // the threads past xkstep whole rows copy no x
+    const long long xoff = cx[xc];
+    auto issue = [&](int kc, int slot) {
+        double* Ss = kt_smem + slot * stage;
+        double* Xs = Ss + RT * KT_SS;
+        const int i0 = kc * KT_KC;
+        for (int e = tid; e < RT * (KT_KC / V); e += blockDim.x) {
+            const int r = e / (KT_KC / V), kk = (e % (KT_KC / V)) * V;
+            const int o = o0 + r, i = i0 + kk;
+            const bool ok = o < O && i < I;
+            kt_cp(Ss + r * KT_SS + kk, ok ? Sm + (long long)o * I + i : a.S, 8 * V, ok);
+        }
+        for (int kk = xk0; xcopy && kk < KT_KC; kk += xkstep) {
+            const int i = i0 + kk;
+            const bool ok = i < I && xoff >= 0;
+            kt_cp(Xs + kk * XS + xc, ok ? xm + xoff + (long long)i * T : a.x, 8 * V, ok);
+        }
+    };
+    double acc[MT][KT_NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < KT_NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int wc = warp * KT_WN;            // the warp's first column in the tile
+    const bool live = warp < a.NW && j0 + wc < ncol;
+    const int nk = (I + KT_KC - 1) / KT_KC;
+#pragma unroll
+    for (int s = 0; s < KT_STAGES - 1; ++s) {
+        if (s < nk) issue(s, s);
+        kt_commit();
+    }
+    for (int kc = 0; kc < nk; ++kc) {
+        kt_wait<KT_STAGES - 2>();
+        __syncthreads();    // step kc landed; every warp is done with step kc - 1
+        if (kc + KT_STAGES - 1 < nk) issue(kc + KT_STAGES - 1, (kc + KT_STAGES - 1) % KT_STAGES);
+        kt_commit();
+        if (live) {
+            const double* Ss = kt_smem + (kc % KT_STAGES) * stage;
+            const double* Xs = Ss + RT * KT_SS;
+            double af[MT][8];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j)
+                        af[mt][2 * j + h] = Ss[(mt * 16 + g + 8 * h) * KT_SS + t4 + 4 * j];
+#pragma unroll
+            for (int nt = 0; nt < KT_NT; ++nt) {
+                double bf[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) bf[j] = Xs[(t4 + 4 * j) * XS + wc + nt * 8 + g];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) kt_dmma16(acc[mt][nt], af[mt], bf);
             }
-            xs[r][c] = v;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int c = 0; c < KT_DEPTH; ++c) {
-            const double xv = xs[c][tc];
-#pragma unroll
-            for (int a = 0; a < NACC; ++a) acc[a] = fma(Ss[tr + 4 * a][c], xv, acc[a]);
-        }
-        __syncthreads();
-    }
-    const int j = j0 + tc;
-    if (j >= ncol) return;
-    const int p = p0 + j / T, t = j - (j / T) * T;
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-        const int o = o0 + tr + 4 * a;
-        if (o < O) {
-            double* dst = out + (((size_t)m * 2 + p) * O + o) * T + t;
-            *dst = accumulate ? *dst + acc[a] : acc[a];
         }
     }
+    kt_wait<0>();
+    if (!live) return;
+#pragma unroll
+    for (int nt = 0; nt < KT_NT; ++nt) {
+        const int c = wc + nt * 8 + 2 * t4;     // the lane's column pair
+        const long long y0 = cy[c], y1 = cy[c + 1];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int o = o0 + mt * 16 + g + 8 * h;
+                if (o >= O) continue;
+                const double v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+                if (V == 2) {
+                    if (y0 < 0) continue;
+                    double2* dst = reinterpret_cast<double2*>(ym + y0 + (long long)o * T);
+                    double2 w = make_double2(v0, v1);
+                    if (a.accumulate) {
+                        const double2 old = *dst;
+                        w.x += old.x;
+                        w.y += old.y;
+                    }
+                    *dst = w;
+                } else {
+                    if (y0 >= 0) {
+                        double* d0 = ym + y0 + (long long)o * T;
+                        *d0 = a.accumulate ? *d0 + v0 : v0;
+                    }
+                    if (y1 >= 0) {
+                        double* d1 = ym + y1 + (long long)o * T;
+                        *d1 = a.accumulate ? *d1 + v1 : v1;
+                    }
+                }
+            }
+    }
+}
+
+template <int MT, int V>
+int kt_launch(const KtArgs& a, int blocks, cudaStream_t stream) {
+    const int CT = KT_WN * a.NW;
+    const size_t smem = ((size_t)KT_STAGES * (16 * MT * KT_SS + KT_KC * (CT + 4)) + 2 * CT)
+                        * sizeof(double);
+    static size_t smem_set = 0;
+    if (smem > 48 * 1024 && smem > smem_set) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            trailing_apply_kernel<MT, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        smem_set = smem;
+    }
+    trailing_apply_kernel<MT, V><<<blocks, KT_WARPS * 32, smem, stream>>>(a);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* out, int c0,
-                                     int c1, int c2, int c3, int ncomps, int K, int O, int I,
-                                     int T, int ns, int accumulate, void* stream) {
+// The plan of ops/polar.py kt_plan: MT m16 tiles of rows a block, NW warps
+// (32 columns each) a column tile, nct column tiles, nrt row tiles; V = 2
+// needs T even and S, x, out 16-byte aligned (and I even).
+extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* out,
+                                     const int* comps, int ncomps, int K, int O, int I, int T,
+                                     int ns, int accumulate, int MT, int V, int NW, int nct,
+                                     int nrt, void* stream) {
     if (ncomps < 1 || ncomps > KT_MAX_COMPS || K < 1 || O < 1 || I < 1 || T < 1
-        || (ns != 1 && ns != 2))
+        || (ns != 1 && ns != 2) || MT < 1 || MT > KT_MAX_MT || NW < 1 || NW > KT_WARPS
+        || nct < 1 || nrt != (O + 16 * MT - 1) / (16 * MT)
+        || (long long)nct * KT_WN * NW < (long long)ncomps * (ns == 2 ? 1 : 2) * T
+        || (V != 1 && V != 2)
+        || (V == 2 && (T % 2 || I % 2 || ((uintptr_t)S & 15) || ((uintptr_t)x & 15)
+                       || ((uintptr_t)out & 15))))
         return (int)cudaErrorInvalidValue;
-    Comps comps = {{c0, c1, c2, c3}};
-    const int npb = ns == 2 ? 1 : 2;
-    dim3 grid(K, (O + KT_ROWS - 1) / KT_ROWS,
-              ncomps * ns * ((npb * T + KT_COLS - 1) / KT_COLS));
-    trailing_apply_kernel<<<grid, KT_THREADS, 0, (cudaStream_t)stream>>>(S, x, out, comps, K, O,
-                                                                         I, T, ns, accumulate);
-    return (int)cudaGetLastError();
+    KtArgs a = {};
+    a.S = S;
+    a.x = x;
+    a.out = out;
+    for (int q = 0; q < ncomps; ++q) a.comps[q] = comps[q];
+    a.ncomps = ncomps;
+    a.K = K;
+    a.O = O;
+    a.I = I;
+    a.T = T;
+    a.ns = ns;
+    a.accumulate = accumulate;
+    a.NW = NW;
+    a.nct = nct;
+    a.nrt = nrt;
+    const long long blocks = (long long)K * (ns == 2 ? 2 : 1) * nct * nrt;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+#define KT_CASE(MT_, V_) \
+    if (MT == MT_ && V == V_) return kt_launch<MT_, V_>(a, (int)blocks, st);
+    KT_CASE(1, 1) KT_CASE(2, 1) KT_CASE(3, 1) KT_CASE(4, 1)
+    KT_CASE(1, 2) KT_CASE(2, 2) KT_CASE(3, 2) KT_CASE(4, 2)
+#undef KT_CASE
+    return (int)cudaErrorInvalidValue;
+}
+
+// KE trailing form's geometry, for ops/polar.py kt_plan (checked before the
+// first launch)
+extern "C" int kt_geometry(int* out, int n) {
+    const int g[] = {KT_WARPS, KT_WN, KT_KC, KT_STAGES, KT_SS, KT_MAX_MT, KT_MAX_COMPS};
+    if (n != (int)(sizeof(g) / sizeof(g[0]))) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n; ++i) out[i] = g[i];
+    return (int)cudaSuccess;
 }
 
 // The launch geometry above, for ops/polar.py, whose plan (ke_plan) is built

@@ -48,13 +48,98 @@ kernel reads each input column once and each stack row once per (k, l)
 from L2.
 """
 
+import collections
+import ctypes
+import functools
+
+import numpy as np
 import torch
+
+from .polar import H100_SMS, _sms
 
 _DTYPES = (torch.float64, torch.complex128)
 
-# Component pairs one launch serves (the kernel keeps 2 * KH_MAX_PAIRS sums;
-# a rank-2 tensor has at most 3 components of one regularity total)
+# Component pairs one launch serves (a rank-2 tensor has at most 3
+# components of one regularity total; the rotation form keeps 2 sums a pair)
 KH_MAX_PAIRS = 4
+
+# KH's by-ell geometry: csrc/ball_kernels.cu's constants of the same names
+# (its kh_geometry; ball_radial_apply checks the two agree)
+KH_UNIT_THREADS = 128   # threads a block (a unit)
+KH_TR = 4               # rows of a thread's register tile
+KH_TC = 2               # columns of a thread's register tile
+KH_UNIT_INTS = 4        # (ell, first column, columns, first row) a unit
+KH_MAX_TASKS = 4        # register tiles a thread
+KH_GEOMETRY = (KH_UNIT_THREADS, KH_TR, KH_TC, KH_UNIT_INTS, KH_MAX_TASKS, KH_MAX_PAIRS)
+KH_S_BYTES = 96 * 1024  # staged rows of S[ell] a unit at most
+KH_SMEM = 227 * 1024    # shared memory a block may use
+KH_COLUMNS = (256, 128, 64, 32, 16, 8)      # columns a unit, the plan's candidates
+
+KHPlan = collections.namedtuple('KHPlan', 'RT CT OS XS YS smem nwork nzero units')
+
+
+def _kh_stride(n):
+    """A staged row stride of at least n elements, 2 mod 16 (even, and a
+    warp's column-major copies meet few bank conflicts)."""
+    return n + (2 - n) % 16
+
+
+@functools.lru_cache(maxsize=None)
+def kh_plan(K, NP, L, E, O, N, npairs, esize, sms=H100_SMS):
+    """
+    KH's launch by ell (csrc/ball_kernels.cu ball_radial_apply_kernel) for
+    x (C, K, NP, L, N) of `esize`-byte elements, an (E, O, N) stack and
+    `npairs` component pairs. A unit is (ell, first column, columns, first
+    row): at most RT rows of S[ell] (all O, rounded up to KH_TR, where N
+    such rows fit in KH_S_BYTES) and CT columns of ell's product. CT: the
+    largest of KH_COLUMNS whose units fill the `sms` SMs and fit (the
+    threads' register tiles, KH_SMEM); where none fills them, the one with
+    the most units. `units` (n, KH_UNIT_INTS) int32: the `nwork` product
+    units largest first, then the `nzero` units of the slots with
+    ell >= E, which zero their outputs (launched only without accumulate).
+    OS, XS, YS: the row strides of the staged S (transposed), X and Y;
+    `smem` the bytes a block takes.
+    """
+    OP = -(-O // KH_TR) * KH_TR
+    RT = OP
+    while RT > KH_TR and N * _kh_stride(RT) * 8 > KH_S_BYTES:
+        RT -= KH_TR
+    OS, YS = _kh_stride(RT), RT + 1
+    ells = range(K + L - 1)
+    # ell's columns (k, component pair q, pair slot p), p fastest, k from
+    # max(0, ell - L + 1) to min(K - 1, ell)
+    ncols = {ell: (min(K - 1, ell) - max(0, ell - L + 1) + 1) * npairs * NP for ell in ells}
+
+    def geometry(CT):
+        XS = _kh_stride(CT)
+        smem = 16 * CT + 8 * N * OS + esize * max(N * XS, CT * YS)
+        fits = (-(-RT // KH_TR) * -(-CT // KH_TC) <= KH_MAX_TASKS * KH_UNIT_THREADS
+                and smem <= KH_SMEM)
+        return XS, smem, fits
+
+    def units(CT, zero):
+        return [(ell, c0, min(CT, ncols[ell] - c0), r0) for ell in ells
+                if (ell >= E) == zero for c0 in range(0, ncols[ell], CT)
+                for r0 in range(0, O, RT)]
+
+    valid = [CT for CT in KH_COLUMNS if geometry(CT)[2]]
+    if not valid:
+        raise ValueError(f"KH: no unit of {RT} rows fits (O={O}, N={N})")
+    full = [CT for CT in valid if len(units(CT, False)) >= sms]
+    CT = full[0] if full else valid[-1]
+    XS, smem, _ = geometry(CT)
+    work = sorted(units(CT, False), key=lambda u: (-u[2], -u[0], u[1], u[3]))
+    zero = units(CT, True)
+    table = np.asarray(work + zero, dtype=np.int32).reshape(-1, KH_UNIT_INTS)
+    table.flags.writeable = False
+    return KHPlan(RT=RT, CT=CT, OS=OS, XS=XS, YS=YS, smem=smem, nwork=len(work),
+                  nzero=len(zero), units=table)
+
+
+@functools.lru_cache(maxsize=None)
+def _kh_units(args, device):
+    """kh_plan(*args)'s unit table on `device`, uploaded once."""
+    return torch.as_tensor(kh_plan(*args).units.copy(), device=device)
 
 
 def per_slot_view(S, K, L):
@@ -88,7 +173,7 @@ def ball_radial_apply(S, x, pairs, out, accumulate=False):
     (ci, co) in `pairs`, with S (E, O, N) (one matrix per ell),
     x (C_in, K, NP, L, N) and out (C_out, K, NP, L, O), both contiguous
     float64 or both complex128. The output components of one call are
-    distinct.
+    distinct. On the card one launch by ell (plan: kh_plan).
     """
     if len({co for _, co in pairs}) != len(pairs) or len(pairs) > KH_MAX_PAIRS:
         raise ValueError(f"KH: at most {KH_MAX_PAIRS} pairs, each output component once")
@@ -109,12 +194,17 @@ def ball_radial_apply(S, x, pairs, out, accumulate=False):
                          f"tensor")
     if not all(0 <= ci < C_in and 0 <= co < out.shape[0] for ci, co in pairs):
         raise ValueError("KH: a component index is out of range")
-    flat = [int(i) for pair in list(pairs) + [(0, 0)] * (KH_MAX_PAIRS - len(pairs))
-            for i in pair]
+    build.check_geometry('kh_geometry', KH_GEOMETRY)
+    args = (K, NP, L, E, O, N, len(pairs), x.element_size(), _sms(x.device))
+    plan = kh_plan(*args)
+    units = _kh_units(args, x.device)
+    flat = (ctypes.c_int * (2 * len(pairs)))(*[int(i) for pair in pairs for i in pair])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(build.launcher('kh_ball_radial_apply', x.dtype)(
-        S.data_ptr(), x.data_ptr(), out.data_ptr(), *flat, len(pairs), K, NP, L, E, O, N,
-        int(accumulate), stream), 'ball_radial_apply')
+        S.data_ptr(), x.data_ptr(), out.data_ptr(), ctypes.addressof(flat), len(pairs),
+        K, NP, L, E, O, N, int(accumulate), units.data_ptr(),
+        plan.nwork + (0 if accumulate else plan.nzero), plan.RT, plan.CT, plan.OS, plan.XS,
+        plan.YS, plan.smem, stream), 'ball_radial_apply')
     build.count(ball_radial_apply, x.dtype)
     return out
 

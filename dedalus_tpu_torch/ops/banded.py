@@ -459,7 +459,12 @@ def k5_plan(nb, itemsize):
     at 0 and r at `RQ`; backward: R1, R2, Rinv at 0, `RB`, 2 `RB` and y at
     3 `RB`), the slot's and the warp's elements, the stages (the most of
     K5_STAGES down to 2 whose warp slice fits K5_SMEM) and the shared
-    bytes a block (one warp) takes."""
+    bytes a block (one warp) takes. Where no two-slot ring fits (nb > 59
+    in f64, > 84 in f32), the direct path (`stages` 0,
+    block_tridiag_qr_solve_direct_kernel: a block a group reads each
+    step's factors from device memory, its 4 nb carry elements in shared
+    memory); past what that holds (nb > 7264 in f64), K5_SMEM raises,
+    naming nb."""
     A = 16 // itemsize
     RQ, RB, RV = k5_region(4 * nb * nb, itemsize), k5_region(nb * nb, itemsize), \
         k5_region(nb, itemsize)
@@ -468,9 +473,13 @@ def k5_plan(nb, itemsize):
     for stages in range(K5_STAGES, 1, -1):
         smem = (stages * slot + vec) * itemsize
         if smem <= K5_SMEM:
-            return dict(A=A, RQ=RQ, RB=RB, slot=slot, vec=vec, stages=stages, smem=smem)
-    raise ValueError(f"K5: blocks of {nb} rows leave no two-slot ring in "
-                     f"{K5_SMEM} bytes of shared memory")
+            return dict(A=A, RQ=RQ, RB=RB, slot=slot, vec=vec, stages=stages, smem=smem,
+                        direct=False)
+    smem = 4 * nb * itemsize
+    if smem > K5_SMEM:
+        raise ValueError(f"K5: blocks of nb={nb} rows need {smem} bytes of shared memory "
+                         f"a group on the card's direct path, over {K5_SMEM}")
+    return dict(A=A, RQ=0, RB=0, slot=0, vec=4 * nb, stages=0, smem=smem, direct=True)
 
 
 def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
@@ -510,11 +519,11 @@ def block_tridiag_qr_solve(Qt, QtL, Rinv, R1, R2, r):
                    R2.data_ptr(), r.data_ptr(), x.data_ptr(), G, Nb, nb, plan['stages'],
                    plan['smem'], stream),
                 'block_tridiag_qr_solve')
-    build.count(block_tridiag_qr_solve)
+    build.count(block_tridiag_qr_solve, 'general' if plan['direct'] else None)
     return x
 
 
-block_tridiag_qr_solve.launches = 0
+block_tridiag_qr_solve.launches = block_tridiag_qr_solve.launches_general = 0
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +681,18 @@ def k4_border_fragments(V, col_perm, P):
     return Vpen.reshape(NTV, 8, KSV, 4).transpose(2, 0, 1, 3).reshape(KSV, NTV, 32)
 
 
+def _k4_pivot_rows(pivots, P):
+    """The pivot pairs (groups, pencil rows, pencil columns, row_perm) as
+    (groups, banded rows, columns), int64; each (group, row) once."""
+    gs, rs, cs = (np.asarray(a, dtype=np.int64) for a in pivots[:3])
+    rinv = np.empty(P, dtype=np.int64)
+    rinv[pivots[3]] = np.arange(P)
+    j = rinv[rs]
+    if np.unique(gs * P + j).size != gs.size:
+        raise ValueError("K4: a pivot row appears twice in one group")
+    return gs, j, cs
+
+
 def k4_plan(terms, outs, G, P, pivots=None):
     """
     K4's launch plan for the applies `terms` (one or two operators of one
@@ -711,16 +732,18 @@ def k4_plan(terms, outs, G, P, pivots=None):
             if ops is not None and (ops['Nb'], ops['nb'], ops['nbord'], ops['bcol0']) != (
                     Nb, nb, nbord, bcol0):
                 raise ValueError("K4: the operators of one launch must share their ordering")
-        if t['shared'] is not None and (t['shared']['Gs'] != 1
-                                        or t['shared']['nparts'] > K4_MAXP):
-            raise ValueError(f"K4: shared parts must be Gs == 1 and at most {K4_MAXP}")
+        if t['shared'] is not None and t['shared']['Gs'] != 1:
+            raise ValueError("K4: shared parts must be Gs == 1")
         if t['group'] is not None and t['group']['nparts'] != 1:
             raise ValueError("K4: per-group blocks have one part")
-    if nb > 8 * K4_MAXNT or nbord > 8 * K4_MAXNT:
-        raise ValueError(f"K4: blocks and borders of at most {8 * K4_MAXNT} rows "
-                         f"(nb={nb}, nbord={nbord})")
-    if G * Nb * nb >= 2**31:
-        raise ValueError("K4: pencils of 2^31 elements or more are not supported")
+        if t['shared'] is not None and t['shared']['nparts'] > K4G_MAXP:
+            raise ValueError(f"K4: at most {K4G_MAXP} shared parts an operator "
+                             f"(nparts={t['shared']['nparts']})")
+    general = (nb > 8 * K4_MAXNT or nbord > 8 * K4_MAXNT or G * Nb * nb >= 2**31
+               or any(t['shared'] is not None and t['shared']['nparts'] > K4_MAXP
+                      for t in terms))
+    if general:
+        return k4_general_plan(outs, G, P, Nb, nb, nbord, bcol0, pivots)
     BR = max(K4_BR, -(-nbord // nb))
     nchunks = -(-Nb // BR)
     ntiles = -(-G // K4_GT)
@@ -740,7 +763,7 @@ def k4_plan(terms, outs, G, P, pivots=None):
                    + 2 * (3 * KB + KU) * NT * 32 + (BR * nb + 1) // 2,
                    K4_GT * (4 * K4_VK + 4) + vparts * K4_VK * NTV * 32)
     if smem > K4_SMEM:
-        raise ValueError(f"K4: {smem} bytes of shared memory a block (nb={nb}, nbord={nbord})")
+        return k4_general_plan(outs, G, P, Nb, nb, nbord, bcol0, pivots)
     bad_rows = [[] for _ in range(ntiles)]
     idx = [t['index'] for t in terms] + [np.full(G, -1)] * (2 - len(terms))
     for g in np.nonzero((idx[0] >= 0) | (idx[1] >= 0))[0]:
@@ -751,12 +774,7 @@ def k4_plan(terms, outs, G, P, pivots=None):
     piv_off = np.zeros(ntiles * (nchunks + 1) + 1, dtype=np.int32)
     piv = np.zeros((0, K4_PLAN_INTS), dtype=np.int32)
     if pivots is not None:
-        gs, rs, cs = (np.asarray(a, dtype=np.int64) for a in pivots[:3])
-        rinv = np.empty(P, dtype=np.int64)
-        rinv[pivots[3]] = np.arange(P)
-        j = rinv[rs]
-        if np.unique(gs * P + j).size != gs.size:
-            raise ValueError("K4: a pivot row appears twice in one group")
+        gs, j, cs = _k4_pivot_rows(pivots, P)
         slot = np.where(j < nbord, nchunks, (j // nb) // BR)
         key = (gs // K4_GT) * (nchunks + 1) + slot
         order = np.lexsort((j, gs, key))
@@ -765,7 +783,38 @@ def k4_plan(terms, outs, G, P, pivots=None):
     return dict(Nb=Nb, nb=nb, nbord=nbord, bcol0=bcol0, G=G, P=P, Pp=Nb * nb, BR=BR,
                 nchunks=nchunks, ntiles=ntiles, nv=nv, vks=vks, KSV=KSV, KB=KB, KU=KU,
                 NT=NT, NTV=NTV, W=W, outs=tuple(outs), nout=nout, bad_off=bad_off, bad=bad,
-                piv_off=piv_off, piv=piv, blocks=ntiles * (nv + nchunks), smem=smem)
+                piv_off=piv_off, piv=piv, blocks=ntiles * (nv + nchunks), smem=smem,
+                general=False)
+
+
+# Threads a block of K4's general path, and its shared parts a term (one bit a
+# part in each int64 panel mask; csrc/banded_kernels.cu K4G_THREADS, K4G_MAXP)
+K4G_THREADS = 256
+K4G_MAXP = 63
+
+
+def k4_general_plan(outs, G, P, Nb, nb, nbord, bcol0, pivots=None):
+    """
+    K4's general path (csrc/banded_kernels.cu banded_apply_general_kernel),
+    for orderings past the tile kernel's limits: blocks or borders of more
+    than 8 K4_MAXNT rows, more than K4_MAXP shared parts (up to K4G_MAXP;
+    k4_plan raises past it, naming nparts), pencils of 2^31
+    elements or more, or more shared memory than a block has. One thread a
+    (group, banded row j < P) on a (G, ceil(P / K4G_THREADS)) grid, reading
+    the operators' raw panels. Pivot table: CSR over groups (`piv_off`,
+    G + 1), each record (banded row j, pencil column), sorted by row.
+    """
+    nout = max(outs) + 1
+    piv_off = np.zeros(G + 1, dtype=np.int32)
+    piv = np.zeros((0, 2), dtype=np.int32)
+    if pivots is not None:
+        gs, j, cs = _k4_pivot_rows(pivots, P)
+        order = np.lexsort((j, gs))
+        piv = np.stack([j, cs], axis=1)[order].astype(np.int32)
+        piv_off[1:] = np.cumsum(np.bincount(gs, minlength=G))
+    return dict(Nb=Nb, nb=nb, nbord=nbord, bcol0=bcol0, G=G, P=P, Pp=Nb * nb,
+                outs=tuple(outs), nout=nout, piv_off=piv_off, piv=piv, general=True,
+                blocks=G * -(-P // K4G_THREADS))
 
 
 def k4_block(plan, b):
@@ -874,6 +923,16 @@ def banded_apply(apply_set, X, coefs=None, pair=False, R=None, rv=None, pivots=F
     Y = [torch.empty_like(X) for _ in range(plan['nout'])]
     cvals = (ctypes.c_double * n)(*coefs)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if plan['general']:
+        ptr = lambda v: 0 if v is None else v.data_ptr()
+        build.check(build.library().k4_banded_apply_general_f64(
+            ctypes.addressof(dp['table']), ctypes.addressof(cvals), n,
+            X.data_ptr(), Y[0].data_ptr(), Y[-1].data_ptr(), ptr(R), ptr(rv),
+            dp['col_perm'].data_ptr(), dp['row_perm'].data_ptr(), ptr(dp['piv_off']),
+            ptr(dp['piv']), *(plan[k] for k in ('G', 'P', 'Nb', 'nb', 'nbord', 'bcol0',
+                                                 'nout')), stream), 'banded_apply')
+        build.count(banded_apply, 'general')
+        return tuple(Y) if pair else Y[0]
     build.check(build.library().k4_banded_apply_f64(
         ctypes.addressof(dp['table']), ctypes.addressof(cvals), n,
         X.data_ptr(), Y[0].data_ptr(), Y[-1].data_ptr(),
@@ -888,7 +947,7 @@ def banded_apply(apply_set, X, coefs=None, pair=False, R=None, rv=None, pivots=F
     return tuple(Y) if pair else Y[0]
 
 
-banded_apply.launches = 0
+banded_apply.launches = banded_apply.launches_general = 0
 
 
 def _k4_term_table(dp):
@@ -910,6 +969,32 @@ def _k4_term_table(dp):
                      ptr(grp['UcolT']), ptr(a.get('group_border')),
                      (grp['mask_sub'] & 1) | (grp['mask_sup'] & 1) << 1
                      | (grp['mask_UcolT'] & 1) << 2 | (grp['mask_Vrow'] & 1) << 3]
+        rows.append(dp['plan']['outs'][k])
+    return (ctypes.c_longlong * len(rows))(*rows)
+
+
+def _k4_general_table(dp):
+    """The general path's int64 table of each term (csrc/banded_kernels.cu
+    K4G_TERM_INTS a term): the shared parts' raw panels, weights, part count
+    and four panel masks (sub, sup, Ucol, Vrow: one int64 each, bit q for
+    part q), the per-group blocks, their group index and the output."""
+    ptr = lambda v: 0 if v is None else v.data_ptr()
+    rows = []
+    for k, t in enumerate(dp['terms']):
+        sh, grp = t['shared'], t['group']
+        if sh is None:
+            rows += [0] * 11
+        else:
+            rows += [ptr(sh[key]) for key in ('diag', 'sub', 'sup', 'UcolT', 'Vrow')]
+            rows += [ptr(t['w']), sh['nparts']]
+            rows += [sh['mask_' + key] for key in ('sub', 'sup', 'UcolT', 'Vrow')]
+        if grp is None:
+            rows += [0] * 7
+        else:
+            rows += [ptr(grp[key]) for key in ('diag', 'sub', 'sup', 'UcolT', 'Vrow')]
+            rows += [(grp['mask_sub'] & 1) | (grp['mask_sup'] & 1) << 1
+                     | (grp['mask_UcolT'] & 1) << 2 | (grp['mask_Vrow'] & 1) << 3,
+                     ptr(dp['index'][k])]
         rows.append(dp['plan']['outs'][k])
     return (ctypes.c_longlong * len(rows))(*rows)
 
@@ -962,6 +1047,15 @@ class BandedApplySet:
         plan = k4_plan(terms, outs, op0.G, op0.P, piv)
         put = lambda a, dt=torch.int32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                                         device=device)
+        if plan['general']:
+            dp = dict(plan=plan, terms=terms, col_perm=put(cp), row_perm=put(rp),
+                      piv_off=put(plan['piv_off']) if pivots else None,
+                      piv=put(plan['piv']) if pivots else None,
+                      index=[None if t['group'] is None else put(t['index'], torch.int64)
+                             for t in terms])
+            dp['table'] = _k4_general_table(dp)
+            self._plans[key] = dp
+            return dp
         dp = dict(plan=plan, terms=terms,
                   arrays=[op.k4_arrays(device) for op in self.ops],
                   col_perm=put(cp), row_perm=put(rp),
@@ -1247,6 +1341,34 @@ def refinements_from_curve(curve, target, rule=None):
     return max(1, refs)
 
 
+def banded_card_limits(nb, nbord):
+    """
+    Raise, naming the ordering's nb and n_border, where a banded solver's
+    card kernels cannot take its blocks: K8a's factorization holds 19 nb^2
+    + 2 nb doubles of a step in shared memory (and one inverting thread a
+    column, nb <= 64), K8b's multi-column sweeps 8 nb^2 + 8 nb n_border
+    (its 2 n_border Woodbury columns), K6 post 18 B doubles for B = 2
+    n_border columns in 48 KB, and K5 4 nb carry elements on its direct
+    path (k5_plan). K4 (its general path past 32 rows), K5 (its direct path
+    past the ring) and K11b have no limit of their own below these.
+    Called when a solver is built on the card, before any launch.
+    """
+    need = {'K8a factorization': (19 * nb * nb + 2 * nb) * 8,
+            'K8b Woodbury columns': (8 * nb * nb + 8 * nb * nbord) * 8}
+    for what, smem in need.items():
+        if smem > K5_SMEM:
+            raise ValueError(f"banded solver on the card: the {what} needs {smem} bytes of "
+                             f"shared memory a group (nb={nb}, n_border={nbord}), over "
+                             f"{K5_SMEM}")
+    if nb > 64:
+        raise ValueError(f"banded solver on the card: the K8a factorization takes blocks "
+                         f"of at most 64 rows (nb={nb}, n_border={nbord})")
+    if 18 * 2 * nbord * 8 > 48 * 1024:
+        raise ValueError(f"banded solver on the card: K6 takes at most 341 Woodbury "
+                         f"columns (nb={nb}, n_border={nbord}: {2 * nbord})")
+    k5_plan(nb, 8)
+
+
 class BorderedBandedSolver:
     """
     f32 block-tridiagonal QR sweeps (K5) + Woodbury correction for the border
@@ -1274,6 +1396,8 @@ class BorderedBandedSolver:
         self.refine_curve = None
         G, P, Pp = blocks.G, blocks.P, blocks.Pp
         nbord = blocks.nbord
+        if self.device.type == 'cuda':
+            banded_card_limits(self.nb, nbord)
         self.P, self.nbord, self.pad = P, nbord, blocks.pad
         bad = dict(bad or {})
         # Equilibrate: row/col inf-norm scaling of the band content

@@ -943,12 +943,19 @@ class ConversionBand:
     @property
     def width(self):
         """The solve's carry: the smallest of K11_SOLVE_WIDTHS at or above
-        the largest offset."""
+        the largest offset, or past the widest (the general path) the
+        largest offset itself."""
         for w in K11_SOLVE_WIDTHS:
             if w >= self.offsets[-1]:
                 return w
-        raise ValueError(f"conversion_solve: offsets up to {self.offsets[-1]}; the kernel "
-                         f"carries at most {K11_SOLVE_WIDTHS[-1]}")
+        return self.offsets[-1]
+
+    @property
+    def general(self):
+        """Whether K11b takes this band on its general paths: more than
+        K11_MAX_DIAGS diagonals (the apply's general kernel) or a
+        largest offset past the widest carry (the solve's general kernel)."""
+        return len(self.offsets) > K11_MAX_DIAGS or self.offsets[-1] > K11_SOLVE_WIDTHS[-1]
 
     def solve_rows_host(self):
         """The dense solve form (width + 1, M), f64: row 0 the reciprocal
@@ -999,11 +1006,11 @@ def conversion_apply(band, x, axis):
     build.check(build.library().k11_conversion_apply_f64(
         D.data_ptr(), offs.data_ptr(), len(band.offsets), x.data_ptr(), y.data_ptr(), outer, N,
         band.M, inner, _stream(x)), 'conversion_apply')
-    build.count(conversion_apply)
+    build.count(conversion_apply, 'general' if len(band.offsets) > K11_MAX_DIAGS else None)
     return y
 
 
-conversion_apply.launches = 0
+conversion_apply.launches = conversion_apply.launches_general = 0
 
 
 def conversion_solve_plain(band, b, axis):
@@ -1044,11 +1051,11 @@ def conversion_solve(band, b, axis):
     build.check(build.library().k11_conversion_solve_f64(
         Dw.data_ptr(), band.width, b.data_ptr(), x.data_ptr(), outer, L, band.M, inner,
         _stream(b)), 'conversion_solve')
-    build.count(conversion_solve)
+    build.count(conversion_solve, 'general' if band.width > K11_SOLVE_WIDTHS[-1] else None)
     return x
 
 
-conversion_solve.launches = 0
+conversion_solve.launches = conversion_solve.launches_general = 0
 
 
 

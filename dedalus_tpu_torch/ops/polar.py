@@ -34,6 +34,7 @@ real data in `launches`, on complex data with a shared stack in
 """
 
 import collections
+import ctypes
 import functools
 
 import torch
@@ -180,8 +181,54 @@ def _ke_launch(lib, S, x, out, accumulate, stream, sms, B):
 polar_apply.launches = polar_apply.launches_c128 = polar_apply.launches_signed = 0
 
 
-# Components one launch of KE's trailing form serves
-KT_MAX_COMPS = 4
+# KE's trailing form (csrc/polar_kernels.cu trailing_apply_kernel): its
+# constants of the same names (kt_geometry; trailing_apply checks the two agree)
+KT_WARPS = 4            # most warps a block, a 32-column strip each
+KT_WN = 32              # columns a warp (4 n-tiles of 8)
+KT_KC = 16              # reduction depth a step (one m16n8k16 f64 product)
+KT_STAGES = 3           # ring stages
+KT_SS = KT_KC + 4       # S tile row stride (doubles)
+KT_MAX_MT = 4           # m16 tiles of rows a block
+KT_MAX_COMPS = 9        # components a launch
+KT_GEOMETRY = (KT_WARPS, KT_WN, KT_KC, KT_STAGES, KT_SS, KT_MAX_MT, KT_MAX_COMPS)
+KT_BLOCKS_AN_SM = 2     # the grid's blocks an SM at least, where row tiles allow
+
+KTPlan = collections.namedtuple('KTPlan', 'MT RT NW CT nct nrt V ncol blocks smem nk')
+
+
+@functools.lru_cache(maxsize=None)
+def kt_plan(K, O, I, ns, ncomps, T, vec, sms=H100_SMS):
+    """
+    The launch of KE's trailing form for a (K, O, I) stack (ns = 1 shared by
+    both slots, 2 signed), `ncomps` components and T doubles a trailing row
+    (2T on complex data); `vec` where T and I are even and S, x and out
+    16-byte aligned (V = 2: 16-byte copies and pair stores). A block is
+    (m, signed slot, row tile of RT = 16 MT rows, column tile of CT = 32 NW
+    columns); the `ncol` columns of one (m, slot) product (ncomps x 2T with a
+    shared stack, ncomps x T a slot with a signed one) split into `nct`
+    tiles of at most KT_WARPS warps, NW the fewest warps that hold an equal
+    share. MT: among 1 to KT_MAX_MT, those whose grid holds KT_BLOCKS_AN_SM
+    blocks an SM; of them the one that pads O least, the larger on a tie
+    (where none does, 1). `nk` steps of KT_KC along I; `smem` the bytes a
+    block takes (the ring and the column table).
+    """
+    nslot = 2 if ns == 2 else 1
+    ncol = ncomps * (1 if ns == 2 else 2) * T
+    nct = -(-ncol // (KT_WARPS * KT_WN))
+    NW = -(-ncol // (nct * KT_WN))
+    CT = NW * KT_WN
+    best = None
+    for MT in range(KT_MAX_MT, 0, -1):
+        nrt = -(-O // (16 * MT))
+        if K * nslot * nct * nrt < KT_BLOCKS_AN_SM * sms:
+            continue
+        if best is None or nrt * 16 * MT < best[1]:
+            best = (MT, nrt * 16 * MT)
+    MT = 1 if best is None else best[0]
+    nrt = -(-O // (16 * MT))
+    smem = 8 * (KT_STAGES * (16 * MT * KT_SS + KT_KC * (CT + 4)) + 2 * CT)
+    return KTPlan(MT=MT, RT=16 * MT, NW=NW, CT=CT, nct=nct, nrt=nrt, V=2 if vec else 1,
+                  ncol=ncol, blocks=K * nslot * nct * nrt, smem=smem, nk=-(-I // KT_KC))
 
 
 def trailing_apply_plain(S, x, out, comps, accumulate=False):
@@ -206,8 +253,9 @@ def trailing_apply(S, x, out, comps, accumulate=False):
     stack (K, 2, O, I), along the second axis of the components `comps` of
     x (C, 2K, I, T) into out (C, 2K, O, T), the trailing axis T (a ball's
     radius) batched through the product and read in place: one launch per
-    KT_MAX_COMPS components. Complex data rides as its (re, im) view, the
-    pair on the trailing axis (2T columns). `accumulate` as in polar_apply.
+    KT_MAX_COMPS components (one a call for any tensor up to rank 2), with
+    the plan of kt_plan. Complex data rides as its (re, im) view, the pair
+    on the trailing axis (2T columns). `accumulate` as in polar_apply.
     """
     comps = [int(c) for c in comps]
     if x.device.type == 'cpu':
@@ -226,15 +274,20 @@ def trailing_apply(S, x, out, comps, accumulate=False):
         raise ValueError(f"KE: out must be a contiguous {x.dtype} {(C, 2 * K, O, T)} tensor")
     if not comps or not all(0 <= c < C for c in comps):
         raise ValueError("KE: a component index is out of range")
+    build.check_geometry('kt_geometry', KT_GEOMETRY)
     Td = 2 * T if x.is_complex() else T
+    vec = (Td % 2 == 0 and I % 2 == 0 and S.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = build.library()
     for c0 in range(0, len(comps), KT_MAX_COMPS):
         chunk = comps[c0:c0 + KT_MAX_COMPS]
-        idx = chunk + [0] * (KT_MAX_COMPS - len(chunk))
+        plan = kt_plan(K, O, I, ns, len(chunk), Td, vec, _sms(x.device))
+        idx = (ctypes.c_int * len(chunk))(*chunk)
         build.check(lib.ke_trailing_apply_f64(
-            S.data_ptr(), x.data_ptr(), out.data_ptr(), *idx, len(chunk), K, O, I, Td, ns,
-            int(accumulate), stream), 'trailing_apply')
+            S.data_ptr(), x.data_ptr(), out.data_ptr(), ctypes.addressof(idx), len(chunk), K,
+            O, I, Td, ns, int(accumulate), plan.MT, plan.V, plan.NW, plan.nct, plan.nrt,
+            stream), 'trailing_apply')
         build.count(trailing_apply, 'signed' if ns == 2 else x.dtype)
     return out
 

@@ -251,8 +251,7 @@ def test_band_widths_and_offsets():
     assert F.ConversionBand([np.ones(8)], [0]).width == 1
     assert F.ConversionBand([np.ones(8)] * 2, [0, 3]).width == 4
     assert F.ConversionBand([np.ones(40)] * 2, [0, 16]).width == 16
-    with pytest.raises(ValueError):
-        F.ConversionBand([np.ones(40)] * 2, [0, 17]).width
+    assert F.ConversionBand([np.ones(40)] * 2, [0, 17]).width == 17
     with pytest.raises(ValueError):
         F.ConversionBand([np.ones(8)] * 3, [0, 2, 2])
     assert F.K11_GEOMETRY == (16, 256, 8, 32, 33, 4)

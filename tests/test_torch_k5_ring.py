@@ -204,11 +204,12 @@ def test_ring_matches_twin_and_jax(dtype, G, Nb, nb):
 def test_plan_at_the_main_paths_blocks():
     """nb = 19 (RBC 2048x512 and 2048x2048): four slots, 23.9 KB a warp in
     f32 (nine groups an SM), 47 KB in f64; fewer slots where a wide block
-    leaves no room, and an error where none fits two."""
+    leaves no room, and the direct path (no ring, 4 nb carry elements) where
+    none fits two."""
     p32, p64 = tb.k5_plan(19, 4), tb.k5_plan(19, 8)
     assert (p32['stages'], p32['slot'], p32['smem']) == (4, 1472, 23856)
     assert (p64['stages'], p64['slot']) == (4, 1466)
     assert p32['smem'] * 9 <= 228 * 1024
     assert tb.k5_plan(61, 4)['stages'] == 3
-    with pytest.raises(ValueError):
-        tb.k5_plan(128, 8)
+    direct = tb.k5_plan(128, 8)
+    assert (direct['stages'], direct['direct'], direct['smem']) == (0, True, 4 * 128 * 8)
