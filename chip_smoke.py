@@ -218,7 +218,8 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            regularity_recombine_c128=1e-15, shell_radial_transform_c128=1e-13,
            rhs_stage=0.0, rhs_stage_c128=0.0, trailing_apply_c128=1e-13,
            banded_apply_general=1e-13, block_tridiag_qr_solve_general=1e-5,
-           chebyshev_conversion_general=1e-12)
+           chebyshev_conversion_general=1e-12, block_tridiag_qr_factor_general=1e-11,
+           multi_rhs_solve_general=1e-11, banded_solve_post_general=1e-13)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -325,6 +326,16 @@ KERNELS = dict(   # name: (route, source, replaces)
                                     'dedalus_tpu/ops/banded.py:485'),
     chebyshev_conversion_general=('cuda', 'dedalus_tpu_torch/csrc/conversion_kernels.cu',
                                   'dedalus_tpu/ops/fft64.py:280'),
+    # The general paths of K8a, K8b and K6 post past their shared-memory
+    # forms (blocks of more than 39 rows; Woodbury columns past one staged
+    # chunk; more than 341 of them): f8_general_path builds and solves a
+    # synthetic system at nb 96, n_border 180 through them
+    block_tridiag_qr_factor_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
+                                     'dedalus_tpu/ops/banded.py:364'),
+    multi_rhs_solve_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
+                             'dedalus_tpu/ops/banded.py:454'),
+    banded_solve_post_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
+                               'dedalus_tpu/ops/banded.py:1786'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py).
 # K12's complex select and scatter run inside K10 (its select store and
@@ -451,6 +462,9 @@ PATH_KERNELS = dict(
     shell192c=_SHELL_C_KERNELS + ('grid_cross_c128',),
     f7_synthetic=('banded_apply_general', 'block_tridiag_qr_solve_general',
                   'chebyshev_conversion_general'),
+    f8_synthetic=('block_tridiag_qr_factor_general', 'multi_rhs_solve_general',
+                  'block_tridiag_qr_solve_general', 'banded_solve_post_general',
+                  'banded_apply_general'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -460,7 +474,7 @@ STEPS = {}      # main path -> steps of its timed run
 GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager steps
 GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
 # Main paths whose counted run takes no timestep (a boundary value solve)
-NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic')
+NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic')
 
 
 def phase(msg):
@@ -646,8 +660,8 @@ def card():
 def kernel_functions():
     """The wrappers of each kernel, by kernel name. A `_c128` kernel is the
     complex128 form of its wrappers, a `_signed` one KE's signed form and a
-    `_general` one the general path of K4, K5 or K11b, each counted apart
-    (build.count); zcross counts both dtypes."""
+    `_general` one the general path of K4, K5, K11b, K8a, K8b or K6 post,
+    each counted apart (build.count); zcross counts both dtypes."""
     from dedalus_tpu_torch.ops import banded as ob, solve as osolve, polar as opolar
     from dedalus_tpu_torch.ops import products as oprod, ball as oball, shell as oshell
     from dedalus_tpu_torch.csrc import history_combine as hc, rk_combine as rkc, cfl_max as cm
@@ -692,6 +706,9 @@ def kernel_functions():
                 banded_apply_general=[ob.banded_apply],
                 block_tridiag_qr_solve_general=[ob.block_tridiag_qr_solve],
                 chebyshev_conversion_general=[offt.conversion_apply, offt.conversion_solve],
+                block_tridiag_qr_factor_general=[ob.factor_block_tridiag_qr],
+                multi_rhs_solve_general=[ob.multi_rhs_solve],
+                banded_solve_post_general=[ob.banded_solve_post],
                 **fast)
 
 
@@ -990,7 +1007,11 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
     E = sub.pencil_gather(eg, srcs)
     Xu = torch.randn(X.shape, generator=gen, dtype=X.dtype, device=X.device)
     Yu, Yu2 = sub.pencil_scatter(ss, Xu), sub.pencil_scatter(ss, Xu)
+    gathers_twice = (torch.equal(X, sub.pencil_gather(sg, [state]))
+                     and torch.equal(E, sub.pencil_gather(eg, srcs)))
     torch.cuda.synchronize()
+    if not gathers_twice:
+        raise AssertionError(f"K3 gather on {path}: two launches differ")
     ss_cpu = ss.to('cpu')
     pairs = [(X, sub.pencil_gather_plain(sg.to('cpu'), [state.cpu()])),
              (Y, sub.pencil_scatter_plain(ss_cpu, X.cpu())),
@@ -1025,7 +1046,7 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
         library_ms=lib_g + lib_s, library_ms_scatter=lib_s, unmasked=unmasked,
         shape=[pencil.G, pencil.C],
         **dict(zip(('bound_ms', 'bound_by'), bound(
-            nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src, X)
+            k3_gather_bytes(sg, [state], X)[1]
             + nbytes(X, ss.single_dst, ss.single_src, ss.multi_dst, ss.multi_off, ss.multi_src,
                      Y), 2 * X.numel()))))
     prev = RESULTS.get(name)
@@ -1039,8 +1060,10 @@ def check_k3(path, pencil, state, primary=False, name='pencil_gather_scatter'):
         r = prev
         r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
     r['by_path'] = by_path
-    print(f"K3 ({state.dtype}) on the {path} pencils (G={pencil.G}, C={pencil.C}): "
-          f"{'exact' if exact else f'max_abs {err:.3e}'}; scatter {ms_s:.4f} ms, index_add_ "
+    forms = by_path[path]['forms'] = dict(state=k3_gather_form(sg), eq=k3_gather_form(eg))
+    print(f"K3 ({state.dtype}) on the {path} pencils (G={pencil.G}, C={pencil.C}, gather forms "
+          f"{forms}): {'exact' if exact else f'max_abs {err:.3e}'}; two gathers equal; "
+          f"scatter {ms_s:.4f} ms, index_add_ "
           f"{lib_s:.4f} ms, gather {ms_g:.4f} ms; unmasked X: deterministic, "
           f"{ratio:.3e} of 4 eps sum|x| (max_abs {unmasked['max_abs']:.3e})")
 
@@ -1743,8 +1766,7 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
 # at those paths' shapes (ab_k5_k11b). The paths whose replayed step runs KE
 # and KF (disk, sphere, annulus) and the complex shell's ZCross cell
 # (shell192c-zcross) are read when named.
-AB_PATHS = ('ke-trailing', 'kh', 'rbc2048-poly', 'kj', 'rbc2048', 'rbc2048-fast',
-            'rbc256c-fast', 'k5-k11b')
+AB_PATHS = ('rbc256-lu', 'rbc256c-lu', 'shell192', 'rbc2048')
 # rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
 # host-bound loop more than a kernel does)
 AB_RBC256C_DT = 0.01
@@ -1823,6 +1845,8 @@ def ab_rbc2048(steps):
     return dict(graph_ms_per_step=graph_ms, refinements=FIXED_REFINEMENTS,
                 step_kernels=dict(list(table.items())[:25]),
                 k4_step=table_rows(table, 'banded_apply_kernel'),
+                k3_gather_step=table_rows(table, 'pencil_gather_kernel'),
+                k3_gather=k3_gather_reading(solver.pencil, solver.state_flat()),
                 k5_step=table_rows(table, 'block_tridiag_qr_solve'), k5=k5,
                 records_per_step=sum(v[0] for v in table.values()),
                 device_ms_per_step=sum(v[1] for v in table.values()), k4=k4, k2a=k2a)
@@ -2209,11 +2233,80 @@ def ab_kj(steps):
                 device_ms_per_step=sum(v[1] for v in table.values()))
 
 
+def ab_lu(steps, complex_data, dt=AB_RBC256C_DT):
+    """rbc256-lu (the RBC example at 256x64 under matsolver='lu') or
+    rbc256c-lu (its complex128 form) stepped at a fixed dt: the replayed
+    step's ms, K14a's and K3's gather's records and device ms a replayed
+    step, and K14a's call on the step's own factors (a seeded R) by events
+    and on the device beside torch.linalg.lu_solve on the same factors
+    (identity LAPACK pivots: the same two triangles)."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    dev, kind, smi = card()
+    if complex_data:
+        solver = build_complex_rbc(EX_NX, EX_NZ, EX_RA, dev, matsolver='lu')[0]
+    else:
+        solver = build_example('lu')[0]
+
+    def run(n):
+        solver.run_steps(dt, n)
+
+    run(5)
+    graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: run(10))
+    fact = next(f for f in solver.timestepper._stage_factors.values()
+                if getattr(f, 'method', None) == 'lu')
+    G, P = fact.perm.shape
+    gen = torch.Generator(device=dev).manual_seed(43)
+    R = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    if fact.lu.is_complex():
+        R = torch.complex(R, torch.randn((G, P), generator=gen, dtype=torch.float64,
+                                         device=dev))
+    piv = torch.arange(1, P + 1, dtype=torch.int32, device=dev).expand(G, P).contiguous()
+    call = lambda: osolve.lu_solve(fact.lu, fact.perm, R)
+    lib = lambda: torch.linalg.lu_solve(fact.lu, piv, R[..., None])
+    X, X2, Xp = call(), call(), osolve.lu_solve_plain(fact.lu, fact.perm, R)
+    torch.cuda.synchronize()
+    ops = 4 if R.is_complex() else 1
+    k14a = dict(shape=[G, P], err=rel_err(X, Xp)[0], bitwise=torch.equal(X, X2),
+                ms=cuda_ms(call, 20), device_ms=device_ms(call, 20, 'lu_solve'),
+                library_ms=cuda_ms(lib, 20), library_device_ms=device_ms(lib, 20),
+                bound_ms=bound(nbytes(fact.lu, fact.perm, R, X), ops * 2 * G * P * P)[0])
+    out = dict(graph_ms_per_step=graph_ms, dt=dt, k14a_step=table_rows(table, 'lu_solve'),
+               k3_gather_step=table_rows(table, 'pencil_gather_kernel'),
+               records_per_step=sum(v[0] for v in table.values()),
+               device_ms_per_step=sum(v[1] for v in table.values()), k14a=k14a)
+    print(f"[{smi}] rbc256{'c' if complex_data else ''}-lu at dt {dt}: graph ms/step {graph_ms}; "
+          f"K14a a replayed step {out['k14a_step']}, K3 gather {out['k3_gather_step']} "
+          f"(records, device ms); K14a's call {k14a}")
+    return out
+
+
+def ab_shell192(steps):
+    """shell192 stepped as its path steps it: the replayed step's ms, K3's
+    gather's records and device ms a replayed step, and its call on the
+    state (k3_gather_reading)."""
+    dev, kind, smi = card()
+    solver, ctx, flow = build_shell(SHELL['size'], dev)
+
+    def run(n):
+        solver.run_steps(SHELL['dt'], n)
+
+    run(5)
+    graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: run(10))
+    return dict(graph_ms_per_step=graph_ms,
+                k3_gather_step=table_rows(table, 'pencil_gather_kernel'),
+                k3_gather=k3_gather_reading(solver.pencil, solver.state_flat()),
+                records_per_step=sum(v[0] for v in table.values()),
+                device_ms_per_step=sum(v[1] for v in table.values()))
+
+
 def ab_side(root, paths=AB_PATHS, steps=20):
     """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_rbc256c_fast for
     'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross',
-    ab_rbc2048_poly for 'rbc2048-poly', ab_kj for 'kj', ab_ke_path for the
-    others) with the package of the checkout at `root` (this one,
+    ab_rbc2048_poly for 'rbc2048-poly', ab_kj for 'kj', ab_lu for
+    'rbc256-lu' and 'rbc256c-lu', ab_shell192 for 'shell192', ab_ke_path for
+    the others) with the package of the checkout at `root` (this one,
     or a parent's unpacked by git archive). Prints one JSON line;
     ab_compare runs it."""
     root = str(__import__('pathlib').Path(root).resolve())
@@ -2227,8 +2320,10 @@ def ab_side(root, paths=AB_PATHS, steps=20):
         run = dict(rbc2048=ab_rbc2048, rbc2048_fast=ab_rbc2048_fast,
                    shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
                    k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
-                   kj=ab_kj, ke_trailing=ab_ke_trailing,
-                   kh=ab_kh).get(path.replace('-', '_'), None)
+                   kj=ab_kj, ke_trailing=ab_ke_trailing, kh=ab_kh, shell192=ab_shell192,
+                   rbc256_lu=functools.partial(ab_lu, complex_data=False),
+                   rbc256c_lu=functools.partial(ab_lu, complex_data=True)
+                   ).get(path.replace('-', '_'), None)
         out[path] = run(steps) if run else ab_ke_path(path, steps)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2268,7 +2363,27 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                 print(f"[{runs[0]['card']}] {label} {path}: KF a replayed step and its calls "
                       f"(launches, kf_kernel device ms, [(shape, ranks, events ms, device ms, "
                       f"library events ms, library device ms)]) {kf}")
+            if path in ('rbc256-lu', 'rbc256c-lu', 'shell192'):
+                k3 = [r['k3_gather'] for r in rs if 'k3_gather' in r]
+                k14a = [r['k14a'] for r in rs if 'k14a' in r]
+                print(f"[{runs[0]['card']}] {label} {path}: graph ms/step {g}; the step's device "
+                      f"ms {[r['device_ms_per_step'] for r in rs]}; K3 gather a replayed step "
+                      f"{[r['k3_gather_step'] for r in rs]}"
+                      + (f", K14a {[r['k14a_step'] for r in rs]}" if k14a else '')
+                      + " (records, device ms)"
+                      + (f"; K14a's call (events, device, lu_solve events, device, bound, err, "
+                         f"bitwise) {[(round(c['ms'], 4), c['device_ms'], round(c['library_ms'], 4), c['library_device_ms'], round(c['bound_ms'], 4), c['err'], c['bitwise']) for c in k14a]}"
+                         if k14a else '')
+                      + (f"; K3's gather call (form, events, device, index_select events, "
+                         f"device, bound, own bound, exact, bitwise) {[(c['form'], round(c['ms'], 4), c['device_ms'], round(c['library_ms'], 4), c['library_device_ms'], round(c['bound_ms'], 4), round(c['own_bound_ms'], 4), c['equal_to_twin'], c['bitwise']) for c in k3]}"
+                         if k3 else ''))
+                continue
             if path == 'rbc2048':
+                k3 = [r['k3_gather'] for r in rs if 'k3_gather' in r]
+                print(f"[{runs[0]['card']}] {label} rbc2048: K3 gather a replayed step "
+                      f"{[r.get('k3_gather_step') for r in rs]}; its call (form, events, device, "
+                      f"index_select events, device, bound, own bound, exact, bitwise) "
+                      f"{[(c['form'], round(c['ms'], 4), c['device_ms'], round(c['library_ms'], 4), c['library_device_ms'], round(c['bound_ms'], 4), round(c['own_bound_ms'], 4), c['equal_to_twin'], c['bitwise']) for c in k3]}")
                 print(f"[{runs[0]['card']}] {label} rbc2048: graph ms/step {g}; K4 a replayed "
                       f"step {[r['k4_step'] for r in rs]}, K5 {[r['k5_step'] for r in rs]} "
                       f"(records, device ms); the step's device ms "
@@ -4229,6 +4344,12 @@ def ke_sweep(shapes=KE_SHAPES, reps=20):
 # cross products of the shell (-(ez x u)) and of ballihc (-(curl(u) x u))
 # on their dealias grids
 KJ_SHAPE = (55296, 12, 18)
+# K14a's stacks in device_readings: rbc256-lu's (G, P) in f64, rbc256c-lu's
+# in complex128
+K14A_SHAPES = dict(rbc256=(128, 525, torch.float64), rbc256c=(256, 263, torch.complex128))
+# A stack past the P whose unknowns K14a keeps in shared memory beside its
+# rings (2432 in f64): there it keeps them in X (check_k14_dense)
+K14A_LARGE = (2, 3300, torch.float64)
 CROSS_SHAPES = dict(shell=(3, 288, 144, 18), ball_ihc=(3, 96, 48, 48))
 
 
@@ -4293,21 +4414,81 @@ def device_sweep(reps=20):
     return out
 
 
+# K3 gather's own index arrays, in either tree's GatherMap (the table form
+# `code`, the affine form's vectors and mask; the parent's generic `idx`
+# and conditioned source table `gsrc`)
+K3_GATHER_ARRAYS = ('code', 'i0', 'stride', 'col_src', 'valid_u8', 'idx', 'gsrc')
+
+
+def k3_gather_form(gmap):
+    """The form K3's gather takes on a map: its table's integer, affine, or
+    (a parent's tree) the generic int64 map."""
+    code = getattr(gmap, 'code', None)
+    if code is not None:
+        return f"table {str(code.dtype)[6:]}"
+    return 'generic int64' if getattr(gmap, 'idx', None) is not None else 'affine'
+
+
+def k3_gather_bytes(gmap, srcs, out):
+    """(common, own) bytes of a gather: the pencils written once, the
+    sources read once and an int32 index an entry, the same count for any
+    design; and what this design's index arrays add to the first two."""
+    base = nbytes(*srcs, out)
+    own = nbytes(*(getattr(gmap, k, None) for k in K3_GATHER_ARRAYS))
+    return base + 4 * out.numel(), base + own
+
+
 def k3_gather_reading(pencil, state, reps=20):
     """K3's gather of a path's state by events and on the device beside
-    index_select on its index map, with the gather's byte bound."""
+    index_select on its index map, equal to the plain twin and across two
+    launches, with its form and its byte bounds: the common count
+    (k3_gather_bytes: bound_ms) and its own index arrays' (own_bound_ms)."""
     from dedalus_tpu_torch.core import subsystems as sub
     sg = pencil.state_gather
     idx = sg.maps[0].reshape(-1)
     g = lambda: sub.pencil_gather(sg, [state])
     lib = lambda: state.index_select(0, idx)
-    X = g()
+    X, X2 = g(), g()
+    Xp = sub.pencil_gather_plain(sg, [state])
     torch.cuda.synchronize()
-    return dict(shape=[pencil.G, pencil.C], dtype=str(state.dtype)[6:], ms=cuda_ms(g, 50),
-                device_ms=device_ms(g, reps), library_ms=cuda_ms(lib, 50),
+    common, own = k3_gather_bytes(sg, [state], X)
+    return dict(shape=[pencil.G, pencil.C], dtype=str(state.dtype)[6:], form=k3_gather_form(sg),
+                equal_to_twin=torch.equal(X, Xp), bitwise=torch.equal(X, X2),
+                ms=cuda_ms(g, 50), device_ms=device_ms(g, reps, 'gather'),
+                library_ms=cuda_ms(lib, 50), library_device_ms=device_ms(lib, reps),
+                bound_ms=bound(common, 0)[0], own_bound_ms=bound(own, 0)[0])
+
+
+def k14a_reading(G, P, dtype, reps=20):
+    """K14a on a random well-conditioned (G, P, P) stack's LU factors (the
+    port's lu_factor_stack) by events and on the device beside
+    torch.linalg.lu_solve on the library's own factors of the same stack,
+    against the plain twin (LU_TOL) and across two launches, with its byte
+    bound (the factors, the permutation, R and X once)."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    real = torch.float64
+    A = torch.randn((G, P, P), generator=gen, dtype=real, device=dev) / P ** 0.5
+    R = torch.randn((G, P), generator=gen, dtype=real, device=dev)
+    if dtype == torch.complex128:
+        A = torch.complex(A, torch.randn((G, P, P), generator=gen, dtype=real, device=dev)
+                          / P ** 0.5)
+        R = torch.complex(R, torch.randn((G, P), generator=gen, dtype=real, device=dev))
+    A = A + 4 * torch.eye(P, dtype=dtype, device=dev)
+    lu, perm = osolve.lu_factor_stack(A)
+    LU, piv = torch.linalg.lu_factor(A)
+    del A
+    run = lambda: osolve.lu_solve(lu, perm, R)
+    lib = lambda: torch.linalg.lu_solve(LU, piv, R[..., None])
+    X, X2, Xp = run(), run(), osolve.lu_solve_plain(lu, perm, R)
+    torch.cuda.synchronize()
+    ops = 4 if R.is_complex() else 1
+    return dict(shape=[G, P], dtype=str(dtype)[6:], err=rel_err(X, Xp)[0],
+                bitwise=torch.equal(X, X2), ms=cuda_ms(run, 20),
+                device_ms=device_ms(run, reps, 'lu_solve'), library_ms=cuda_ms(lib, 20),
                 library_device_ms=device_ms(lib, reps),
-                bound_ms=bound(nbytes(state, sg.i0, sg.stride, sg.idx, sg.valid_u8, sg.col_src,
-                                      X), 0)[0])
+                bound_ms=bound(nbytes(lu, perm, R, X), ops * 2 * G * P * P)[0])
 
 
 def device_readings(reps=20):
@@ -4316,7 +4497,8 @@ def device_readings(reps=20):
     rbc256c's), KC at rbc256's two-stage combine, KI's backward
     recombination at ball64 and shell192, KH's rotation form at ballihc64's
     curl, on random data of those shapes; K3's gather on the shell192,
-    rbc256c and rbc2048 pencils (their problems built for it)."""
+    rbc256c and rbc2048 pencils (their problems built for it); K14a at
+    rbc256's and rbc256c's stacks (K14A_SHAPES, random factors)."""
     from dedalus_tpu_torch.ops import solve as osolve, ball as oball
     from dedalus_tpu_torch.csrc import rk_combine as rkc, regularity_recombine as ki
     dev, kind, smi = card()
@@ -4383,6 +4565,15 @@ def device_readings(reps=20):
         solver = None
         gc.collect()
         torch.cuda.empty_cache()
+    for label, (G, P, dt) in K14A_SHAPES.items():
+        out['k14a_' + label] = k14a_reading(G, P, dt, reps)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, r in out.items():
+        if key.startswith('k3_gather_') and not (r['equal_to_twin'] and r['bitwise']):
+            raise AssertionError(f"device_readings: {key} {r}")
+        if key.startswith('k14a_') and not (r['err'] <= LU_TOL and r['bitwise']):
+            raise AssertionError(f"device_readings: {key} {r}")
     print(json.dumps({"device_readings": out, "card": smi}), flush=True)
     return out
 
@@ -4908,6 +5099,295 @@ def f7_general_path():
     count_launches('f7_synthetic', 1, once)
     print(json.dumps({"f7_general": {k: LAUNCHES['f7_synthetic'][k]
                                      for k in PATH_KERNELS['f7_synthetic']}, "card": smi}))
+
+
+# F8: K8a, K8b and K6 post past their shared-memory forms, on a synthetic
+# bordered block-tridiagonal system that a banded solver takes whole (nb 96
+# rows a block, n_border 180: B = 360 Woodbury columns; G groups of Nb
+# blocks, `pad` padded slots); and their general forms forced at RBC's
+# ordering (nb 19, n_border 13; `rbc_G` groups of `rbc_Nb` blocks) against
+# the shared ones, bit for bit. The refined solve is held to `solve_tol`
+# of the dense f64 operator's torch.linalg.solve.
+F8 = dict(G=6, Nb=5, nb=96, nbord=180, pad=12, rbc=(19, 13), rbc_G=128, rbc_Nb=40,
+          solve_tol=1e-11)
+
+
+def f8_blocks(G, Nb, nb, nbord, pad, seed=22):
+    """A well-conditioned bordered block-tridiagonal system in banded
+    coordinates (identity orderings): near-4I diagonal blocks, smaller
+    off-diagonal blocks and border content, the padded slots identity and
+    decoupled. Returns its BandedBlocks and its dense (G, P, P) operator
+    A_band + U V (U = [e_top | Ucol], V = [Vrow ; e_bcol^T])."""
+    from dedalus_tpu_torch.ops import banded as ob
+    rng = np.random.default_rng(seed)
+    Pp = Nb * nb
+    P = Pp - pad
+    r = lambda *shape: rng.standard_normal(shape)
+    diag = 4 * np.eye(nb) + r(G, Nb, nb, nb) / np.sqrt(nb)
+    sub = 0.5 * r(G, Nb, nb, nb) / np.sqrt(nb)
+    sup = 0.5 * r(G, Nb, nb, nb) / np.sqrt(nb)
+    sub[:, 0] = 0.0
+    sup[:, -1] = 0.0
+    Ucol = 0.5 * r(G, Pp, nbord) / np.sqrt(Pp)
+    Vrow = 0.5 * r(G, nbord, Pp) / np.sqrt(Pp)
+    if pad:
+        last = slice(nb - pad, nb)
+        diag[:, -1, last, :] = 0.0
+        diag[:, -1, :, last] = 0.0
+        diag[:, -1, last, last] = np.eye(pad)
+        sub[:, -1, last, :] = 0.0
+        if Nb > 1:
+            sup[:, -2, :, last] = 0.0
+        Ucol[:, P:] = 0.0
+        Vrow[:, :, P:] = 0.0
+    order = dict(row_perm=np.arange(P), col_perm=np.arange(P), n_border=nbord)
+    blocks = ob.BandedBlocks(diag, sub, sup, Ucol, Vrow, order, nb, pad)
+    A = np.zeros((G, Pp, Pp))
+    for i in range(Nb):
+        s = slice(i * nb, (i + 1) * nb)
+        A[:, s, s] = diag[:, i]
+        if i > 0:
+            A[:, s, (i - 1) * nb:i * nb] = sub[:, i]
+        if i < Nb - 1:
+            A[:, s, (i + 1) * nb:(i + 2) * nb] = sup[:, i]
+    A[:, :nbord, :] += Vrow
+    A[:, :, blocks.bcol0:blocks.bcol0 + nbord] += Ucol
+    return blocks, A[:, :P, :P]
+
+
+def k8_bound(n, Nb, nb):
+    """K8a's bound (as check_k8's): 10 blocks a step read or written, 19.33
+    nb^3 operations."""
+    return bound(10 * n * Nb * nb * nb * 8, n * Nb * 19.33 * nb ** 3)
+
+
+def k8b_flops(n, Nb, nb, k):
+    return 2 * n * k * (max(Nb - 1, 0) * (2 * nb) ** 2 + nb * nb + 3 * Nb * nb * nb)
+
+
+def f8_rbc_forms(dev):
+    """The general forms of K8a, K8b and K6 post forced at RBC's ordering
+    (k8_plan general; k8b_plan unstaged in 4 chunks and staged in 3; k6_plan
+    with the scratch) against the shared forms, on synthetic blocks: each
+    equal bit for bit ({form: equal})."""
+    from dedalus_tpu_torch.ops import banded as ob
+    nb, nbord = F8['rbc']
+    G, Nb = F8['rbc_G'], F8['rbc_Nb']
+    blocks, _ = f8_blocks(G, Nb, nb, nbord, 0, seed=23)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    dsu = [put(a) for a in (blocks.diag, blocks.sub, blocks.sup)]
+    shapes = dict(Qt=(G, Nb - 1, 2 * nb, 2 * nb), QtL=(G, nb, nb), Rinv=(G, Nb, nb, nb),
+                  R1=(G, Nb, nb, nb), R2=(G, Nb, nb, nb))
+    out = {}
+    o32 = [{k: torch.empty(v, dtype=torch.float32, device=dev) for k, v in shapes.items()}
+           for _ in range(2)]
+    qs = ob.factor_block_tridiag_qr(*dsu, out32=o32[0])
+    qg = ob.factor_block_tridiag_qr(*dsu, out32=o32[1], plan=ob.k8_plan(nb, general=True))
+    if ob.k8_plan(nb)['general']:
+        raise AssertionError(f"K8a at nb={nb} left its shared path")
+    torch.cuda.synchronize()
+    out['k8a'] = all(torch.equal(qs[k], qg[k]) for k in qs) and all(
+        torch.equal(o32[0][k], o32[1][k]) for k in shapes)
+    k = 2 * nbord
+    gen = torch.Generator(device=dev).manual_seed(31)
+    Rhs = torch.randn((G, Nb, nb, k), generator=gen, dtype=torch.float64, device=dev)
+    xs = ob.multi_rhs_solve(qs, Rhs)
+    for label, plan in (('k8b_unstaged_4_chunks', ob.k8b_plan(nb, k, staged=False, kc=7)),
+                        ('k8b_staged_3_chunks', ob.k8b_plan(nb, k, staged=True, kc=10))):
+        xg = ob.multi_rhs_solve(qs, Rhs, plan=plan)
+        torch.cuda.synchronize()
+        out[label] = torch.equal(xs, xg)
+    B = 2 * nbord
+    Pp = Nb * nb
+    P = Pp
+    fac = dict(Sinv=torch.eye(B, dtype=torch.float64, device=dev).repeat(G, 1, 1)
+               + 0.1 / B ** 0.5 * torch.randn((G, B, B), generator=gen, dtype=torch.float64,
+                                              device=dev),
+               W1=torch.randn((G, B, Pp), generator=gen, dtype=torch.float64,
+                              device=dev).transpose(1, 2) / Pp ** 0.5,
+               Vfull=torch.randn((G, B, Pp), generator=gen, dtype=torch.float64,
+                                 device=dev) / Pp ** 0.5)
+    y = torch.randn((G, Pp), generator=gen, dtype=torch.float64, device=dev)
+    Dc = 1.0 + torch.rand((G, Pp), generator=gen, dtype=torch.float64, device=dev)
+    perm = torch.randperm(P, generator=gen, device=dev)
+    unperm = torch.argsort(perm)
+    X0 = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    f32 = dict(Sinv=fac['Sinv'], W1T=fac['W1'].transpose(1, 2).float().contiguous(),
+               Vfull=fac['Vfull'].float())
+    for f, label in ((fac, 'k6_scratch_f64'), (f32, 'k6_scratch_f32')):
+        yy = y if 'W1' in f else y.float()
+        for acc in (None, X0):
+            xs = ob.banded_solve_post(f, yy, Dc, unperm, perm, P, None, None,
+                                      None if acc is None else acc.clone())
+            xg = ob.banded_solve_post(f, yy, Dc, unperm, perm, P, None, None,
+                                      None if acc is None else acc.clone(),
+                                      plan=ob.k6_plan(B, scratch=True))
+            torch.cuda.synchronize()
+            out[label + ('_accumulate' if acc is not None else '')] = torch.equal(xs, xg)
+    if not all(out.values()):
+        raise AssertionError(f"F8's general forms at RBC's ordering differ from the shared "
+                             f"ones: {out}")
+    return out
+
+
+def f8_general_path():
+    """F8: a BorderedBandedSolver built on the card at nb 96, n_border 180
+    (synthetic blocks, f8_blocks) in a counted run of its own
+    ('f8_synthetic': K8a's general path, K8b's unstaged column chunks, K5's
+    direct path on the f32 factors, K6 post past 341 Woodbury columns, K4's
+    general path), its refined solve held to the dense operator's
+    torch.linalg.solve, two solves equal bit for bit; each general kernel
+    against its plain twin at its tolerance, two launches equal, by events
+    and on the device beside the twin, with its bound; then the general
+    forms forced at RBC's ordering against the shared ones (f8_rbc_forms)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    dev, kind, smi = card()
+    G, Nb, nb, nbord, pad = (F8[k] for k in ('G', 'Nb', 'nb', 'nbord', 'pad'))
+    phase(f"F8's general paths: a banded solver at nb={nb}, n_border={nbord} "
+          f"(G={G}, Nb={Nb}); K8a, K8b and K6 post's general forms at RBC's nb={F8['rbc'][0]}, "
+          f"n_border={F8['rbc'][1]} against the shared ones")
+    plans = dict(k8a=ob.k8_plan(nb), k8b=ob.k8b_plan(nb, 2 * nbord), k6=ob.k6_plan(2 * nbord),
+                 k5=ob.k5_plan(nb, 4))
+    if not (plans['k8a']['general'] and plans['k8b']['general'] and plans['k6']['general']
+            and plans['k5']['direct']):
+        raise AssertionError(f"F8's sizes did not take the general paths: {plans}")
+    blocks, A = f8_blocks(G, Nb, nb, nbord, pad)
+    P = blocks.P
+    gen = torch.Generator(device=dev).manual_seed(29)
+    R = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    built = {}
+
+    def build_and_solve():
+        built['bb'] = ob.BorderedBandedSolver(blocks, dev)
+        built['X'] = built['bb'].solve(R)
+        torch.cuda.synchronize()
+
+    count_launches('f8_synthetic', 1, build_and_solve)
+    bb, X = built['bb'], built['X']
+    X2 = bb.solve(R)
+    Xd = torch.linalg.solve(torch.as_tensor(A, device=dev), R[..., None])[..., 0]
+    torch.cuda.synchronize()
+    solve_err = rel_err(X, Xd)
+    if not (solve_err[0] <= F8['solve_tol'] and torch.equal(X, X2)):
+        raise AssertionError(f"F8's solver: {solve_err[0]:.3e} from the dense solve, two "
+                             f"solves equal {torch.equal(X, X2)}")
+    fac = bb.arrs['fac']
+    B = fac['Sinv'].shape[1]
+    # K8a's general path on the solver's scaled blocks
+    dsu = scaled_chunk(bb, G)
+    qk, qk2 = ob.factor_block_tridiag_qr(*dsu), ob.factor_block_tridiag_qr(*dsu)
+    qp = ob.factor_block_tridiag_qr_plain(*dsu)
+    torch.cuda.synchronize()
+    by_factor = {k: rel_err(qk[k], qp[k]) for k in ob.FACTOR_KEYS + ('sigma',)
+                 if qp[k].numel() and float(qp[k].abs().max()) > 0}
+    growth = float(qp['Rinv'].abs().max())
+    tol_cond = max(TOL['block_tridiag_qr_factor'], 10 * 2.2e-16 * growth)
+    same = all(torch.equal(qk[k], qk2[k]) for k in qk)
+    if not (same and torch.equal(qk['pins'], qp['pins'])
+            and max(by_factor['Rinv'][0], by_factor['QtL'][0]) <= tol_cond):
+        raise AssertionError(f"K8a's general path: {by_factor}, two launches equal {same}")
+    run = lambda: ob.factor_block_tridiag_qr(*dsu)
+    record('block_tridiag_qr_factor_general', 'f8_synthetic', dict(
+        err=max(v for k, v in by_factor.items() if k not in ('Rinv', 'QtL')),
+        err_by_factor={k: v[0] for k, v in by_factor.items()}, growth=growth, bitwise=same,
+        shape=[G, Nb, nb, nb], what=f"a synthetic system's equilibrated blocks, nb={nb}",
+        ms=cuda_ms(run, 3), device_ms=device_ms(run, 3, 'qr_factor'),
+        plain_ms=cuda_ms(lambda: ob.factor_block_tridiag_qr_plain(*dsu), 1), library_ms=None,
+        library_device_ms=None, **dict(zip(('bound_ms', 'bound_by'), k8_bound(G, Nb, nb)))),
+        True, keys=DEVICE_KEYS)
+    # K8b's unstaged column chunks on the Woodbury width
+    k = 2 * nbord
+    Rhs = torch.randn((G, Nb, nb, k), generator=gen, dtype=torch.float64, device=dev)
+    xk, xk2 = ob.multi_rhs_solve(qk, Rhs), ob.multi_rhs_solve(qk, Rhs)
+    xp = ob.multi_rhs_solve_plain(qk, Rhs)
+    torch.cuda.synchronize()
+    same = torch.equal(xk, xk2)
+    if not same:
+        raise AssertionError("K8b's general form: two launches differ")
+    run = lambda: ob.multi_rhs_solve(qk, Rhs)
+    record('multi_rhs_solve_general', 'f8_synthetic', dict(
+        err=rel_err(xk, xp), shape=[G, Nb, nb, k], bitwise=same,
+        what=f"{plans['k8b']['chunks']} chunks of {plans['k8b']['kc']} columns, factors from "
+             f"device memory",
+        ms=cuda_ms(run, 3), device_ms=device_ms(run, 3, 'multi_rhs'),
+        plain_ms=cuda_ms(lambda: ob.multi_rhs_solve_plain(qk, Rhs), 1), library_ms=None,
+        library_device_ms=None, **dict(zip(('bound_ms', 'bound_by'), bound(
+            nbytes(*(qk[key] for key in ob.FACTOR_KEYS), Rhs, xk), k8b_flops(G, Nb, nb, k))))),
+        True, keys=DEVICE_KEYS)
+    del qk, qk2, qp, xk, xk2, xp, Rhs
+    # K5's direct path on the f32 factors, K6 post past 341 columns (both
+    # Woodbury branches, written and accumulated), K4's general path
+    arrs = bb.arrs
+    rc = ob.banded_solve_pre(R, arrs['row_perm'], arrs['Dr'], fac['Rinv'].dtype)
+    f5 = [fac[key] for key in ob.FACTOR_KEYS] + [rc.reshape(G, Nb, nb)]
+    y, y2 = ob.block_tridiag_qr_solve(*f5), ob.block_tridiag_qr_solve(*f5)
+    yp = ob.block_tridiag_qr_solve_plain(*f5)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        raise AssertionError("K5's direct path at F8's nb: two launches differ")
+    run = lambda: ob.block_tridiag_qr_solve(*f5)
+    record('block_tridiag_qr_solve_general', 'f8_synthetic', dict(
+        err=rel_err(y, yp), shape=[G, Nb, nb], ms=cuda_ms(run, 20),
+        device_ms=device_ms(run, 10, 'direct'), plain_ms=cuda_ms(
+            lambda: ob.block_tridiag_qr_solve_plain(*f5), 3), library_ms=None,
+        library_device_ms=None, **dict(zip(('bound_ms', 'bound_by'), bound(
+            nbytes(*f5, y), 2 * G * Nb * 8 * nb * nb)))), False, keys=DEVICE_KEYS)
+    y = y.reshape(G, Nb * nb)
+    X0 = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    post = lambda f, acc: ob.banded_solve_post(f, y, arrs['Dc'], arrs['col_unperm'],
+                                               arrs['col_perm'], P, None, None, acc)
+    post_p = lambda f, acc: ob.banded_solve_post_plain(f, y, arrs['Dc'], arrs['col_unperm'],
+                                                       P, None, None, acc)
+    errs, same = {}, True
+    for f in (fac, other_woodbury_branch(fac)):
+        e = []
+        for acc in (None, X0):
+            xk = post(f, None if acc is None else acc.clone())
+            xk2 = post(f, None if acc is None else acc.clone())
+            xp = post_p(f, None if acc is None else acc.clone())
+            torch.cuda.synchronize()
+            e.append(rel_err(xk, xp))
+            same &= torch.equal(xk, xk2)
+        errs['f64' if 'W1' in f else 'f32'] = max(e)
+    if not (same and errs['f32'][0] <= TOL_POST_F32):
+        raise AssertionError(f"K6 post's general form: {errs}, two launches equal {same}")
+    W = fac['W1'] if 'W1' in fac else fac['W1T']
+    Xk = post(fac, None)
+    run = lambda: post(fac, None)
+    record('banded_solve_post_general', 'f8_synthetic', dict(
+        err=errs['f64'], err_f32_branch=errs['f32'][0], shape=[G, P, B], bitwise=same,
+        what=f"B = {B} Woodbury columns "
+             f"({'scratch' if plans['k6']['scratch'] else 'opt-in shared memory'}); the solver "
+             f"ships the {'all-f64' if 'W1' in fac else 'factor-type'} branch",
+        ms=cuda_ms(run, 20), device_ms=device_ms(run, 10, 'post'),
+        plain_ms=cuda_ms(lambda: post_p(fac, None), 5), library_ms=None, library_device_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'), bound(
+            nbytes(y, fac['Vfull'], W, fac['Sinv'], arrs['Dc'], arrs['col_perm'], Xk),
+            2 * G * (2 * B * y.shape[1] + B * B))))), True, keys=DEVICE_KEYS)
+    # (at a random X: the solution's residual is at the rounding of A X)
+    a = bb.apply_set
+    rk, rk2 = bb.exact_residual(R, X0), bb.exact_residual(R, X0)
+    rp = ob.banded_apply_plain_set(a, X0, a.coefs, R=R, pivots=a.pivots is not None)
+    torch.cuda.synchronize()
+    if not torch.equal(rk, rk2):
+        raise AssertionError("K4's general path at F8's sizes: two launches differ")
+    run = lambda: bb.exact_residual(R, X0)
+    Pp = Nb * nb
+    record('banded_apply_general', 'f8_synthetic', dict(
+        err=rel_err(rk, rp), shape=[G, P, nb, nbord], ms=cuda_ms(run, 20),
+        device_ms=device_ms(run, 10, 'general'),
+        plain_ms=cuda_ms(lambda: ob.banded_apply_plain_set(
+            a, X0, a.coefs, R=R, pivots=a.pivots is not None), 5),
+        library_ms=None, library_device_ms=None, **dict(zip(('bound_ms', 'bound_by'), bound(
+            nbytes(X0, R, rk) + 8 * G * (3 * Nb * nb * nb + 2 * Pp * nbord),
+            2 * G * (3 * nb * Pp + 2 * nbord * Pp))))), False, keys=DEVICE_KEYS)
+    forms = f8_rbc_forms(dev)
+    print(json.dumps({"f8_general": dict(
+        launches={k: LAUNCHES['f8_synthetic'][k] for k in PATH_KERNELS['f8_synthetic']},
+        plans=plans, solve_rel_err=solve_err[0], B=B, refinements=bb.refinements,
+        cond_S=float(np.nanmax(bb.diagnostics['condS'])),
+        woodbury='all-f64' if 'W1' in fac else 'factor-type', rbc_forms_equal=forms),
+        "card": smi}))
 
 
 def check_polar_kernels(geometry, ctx):
@@ -7026,15 +7506,25 @@ def check_k14_dense(fact, R, A):
 
         Xk = kernel()
         b = bound(nbytes(fact.Ainv, fact.A, R, Xk), 10 * G * P * P)
-    Xp = plain()
+    Xp, Xk2 = plain(), kernel()
     torch.cuda.synchronize()
+    if not torch.equal(Xk, Xk2):
+        raise AssertionError(f"{name}: two launches differ")
     RESULTS[name] = dict(err=rel_err(Xk, Xp), ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 20),
                          library_ms=cuda_ms(library, 20), bound_ms=b[0], bound_by=b[1],
+                         device_ms=device_ms(kernel, 10, 'solve_kernel'),
+                         library_device_ms=device_ms(library, 10), bitwise=True,
                          shape=[G, P, P], solve_residual=resid(Xk),
                          solve_residual_plain=resid(Xp))
     r = RESULTS[name]
     print(f"{name}: residuals kernel {r['solve_residual']:.3e} plain "
-          f"{r['solve_residual_plain']:.3e}")
+          f"{r['solve_residual_plain']:.3e}; two launches equal; on the device "
+          f"{r['device_ms']} ms against the library's {r['library_device_ms']}")
+    if name == 'lu_solve':
+        big = r['large_p'] = k14a_reading(*K14A_LARGE)
+        print(f"lu_solve at {big['shape']} (its unknowns in X): {big}")
+        if not (big['err'] <= LU_TOL and big['bitwise']):
+            raise AssertionError(f"lu_solve at {big['shape']}: {big}")
     check_tolerances({name: r})
 
 
@@ -7489,7 +7979,7 @@ def conditions_path():
     phase("K3 on the conditioned LBVP's pencils, its conditioned gather alone")
     check_k3('conditions', lb[DEVICE].pencil, lb[DEVICE].state_flat())
     gm = lb[DEVICE].pencil.eq_gather
-    if gm.gsrc is None:
+    if gm.active is None or gm.code is None:
         raise AssertionError("the conditioned LBVP's gather has no source table")
     gen = torch.Generator(device=gm.valid.device).manual_seed(13)
     srcs = [torch.randn(n, generator=gen, dtype=torch.float64, device=gm.valid.device)
@@ -7503,7 +7993,7 @@ def conditions_path():
                 ms=cuda_ms(lambda: sub.pencil_gather(gm, srcs), 50),
                 plain_ms=cuda_ms(lambda: sub.pencil_gather_plain(gm, srcs), 50),
                 **dict(zip(('bound_ms', 'bound_by'),
-                           bound(nbytes(*srcs, gm.gsrc, gm.idx, gm.valid_u8, yk), 0))))
+                           bound(k3_gather_bytes(gm, srcs, yk)[1], 0))))
     r = RESULTS['pencil_gather_scatter']
     r['conditioned'] = cond
     r['err'] = max(r['err'], (0.0 if exact else max(err, 1e-300), err))
@@ -7512,6 +8002,42 @@ def conditions_path():
           f"{cond['bound_ms']:.5f} ms; the IVP's mean {mean:.3e}")
     if not exact:
         raise AssertionError(f"K3's conditioned gather differs from its twin: {err:.3e}")
+    r['forms'] = k3_gather_forms(dev)
+
+
+def k3_gather_forms(dev, G=7, C=13, sizes=(50, 70)):
+    """K3's gather in each form on synthetic maps of G C entries (not a
+    multiple of the 4 a thread takes, so the ragged last entries run too):
+    the table in int32 and, on the same codes, int64; the affine form; each
+    in float64 and complex128, equal to the plain twin and across two
+    launches ({form: equal})."""
+    import copy as copy_
+    from dedalus_tpu_torch.core import subsystems as sub
+    rng = np.random.default_rng(37)
+    valid = rng.random((G, C)) > 0.2
+    maps = [rng.integers(0, n, (G, w)) for n, w in zip(sizes, (5, C - 5))]
+    table = sub.GatherMap(maps, [None, None], valid, dev)
+    wide = copy_.copy(table)
+    wide.code = table.code.to(torch.int64)
+    i0, stride = rng.integers(0, 9, C), rng.integers(0, 3, C)
+    one = i0[None, :] + np.arange(G)[:, None] * stride[None, :]
+    affine = sub.GatherMap([one], [None], valid, dev)
+    affine.code = None
+    affine.i0, affine.stride = (torch.as_tensor(a, device=dev) for a in (i0, stride))
+    affine.col_src = torch.zeros(C, dtype=torch.int32, device=dev)
+    affine.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=dev)
+    out = {}
+    for label, gm in (('table_int32', table), ('table_int64', wide), ('affine', affine)):
+        for dt in (torch.float64, torch.complex128):
+            srcs = [torch.randn(n, dtype=dt, device=dev) for n in gm.src_sizes]
+            yk, yk2 = sub.pencil_gather(gm, srcs), sub.pencil_gather(gm, srcs)
+            yp = sub.pencil_gather_plain(gm, srcs)
+            torch.cuda.synchronize()
+            out[f"{label}_{str(dt)[6:]}"] = bool(torch.equal(yk, yp) and torch.equal(yk, yk2))
+    print(json.dumps({"k3_gather_forms": out}))
+    if not all(out.values()):
+        raise AssertionError(f"K3's gather forms differ from the twin: {out}")
+    return out
 
 
 def build_poisson(device):
@@ -7692,6 +8218,7 @@ def main():
 
     t_start = time.perf_counter()
     timed(f7_general_path)
+    timed(f8_general_path)
     timed(graph_inputs_path)
     timed(banded_path)
     timed(schemes_path)
@@ -7734,7 +8261,7 @@ def main():
              'calls_checked', 'ms_by_wrapper', 'ms_where_library', 'by_depth', 'conditioned',
              'err_f64', 'ms_f64', 'library_device_ms', 'forms', 'step_set', 'per_group',
              'device_ms_where_library', 'calls', 'err_vs_twin', 'rank1', 'rank2', 'polar',
-             'ranks')
+             'ranks', 'large_p', 'bitwise')
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = RESULTS[name]

@@ -1122,20 +1122,39 @@ def _plan_gather(plan, flat):
 _K3_DTYPES = (torch.float64, torch.complex128)
 
 
+def gather_codes(src, idx, valid, nsrc, size):
+    """
+    K3's flat gather table of (G, C) sources `src` (< nsrc), indices `idx`
+    (< size) and validity: one integer an entry, (src << jbits) | idx, an
+    invalid entry's complemented (negative). int32 where the source count's
+    bits and the indices fit 31 bits, else int64. Returns (codes, jbits).
+    """
+    ebits = max(nsrc - 1, 0).bit_length()
+    for dtype, width in ((np.int32, 31), (np.int64, 63)):
+        jbits = width - ebits
+        if size <= 1 << jbits:
+            code = (np.asarray(src, dtype=np.int64) << jbits) | np.asarray(idx, dtype=np.int64)
+            return np.where(valid, code, ~code).astype(dtype), jbits
+    raise ValueError(f"K3 gather: {nsrc} sources of up to {size} entries pass 63 bits")
+
+
 class GatherMap:
     """
     One gather from flat source arrays (the state, or each equation's RHS
     data) into (G, C) pencils: per source its (G, Ce) index map and
-    structured plan (or None), the validity mask, and the column-wise
-    description kernel K3 reads: each column's source and either the affine
-    model of the plans (index i0 + g * stride, where every plan exists) or
-    the generic index map.
-
+    structured plan (or None), the validity mask, and kernel K3's form of
+    them, chosen once here:
+      - affine, where every source has a structured plan and no equation is
+        conditioned: each column's source (`col_src`) and index model i0 +
+        g * stride, with the (G, C) byte mask `valid_u8`;
+      - else the flat table `code` (gather_codes: each entry's source and
+        index in one int32 or int64, validity folded in, `jbits` index
+        bits).
     With conditioned equations (`active`, the (sources, G) activity, and
     `row_offsets`, each source's first column), sources of equal size share
-    a column block and the source of a column depends on the group: K3 then
-    reads the (G, C) source table `gsrc` (one byte per entry) and the
-    generic index map of the active member in each group.
+    a column block and the source of an entry depends on its group: the
+    table holds the active member's (source 0 at index 0, masked, where no
+    member covers an entry).
     """
 
     def __init__(self, maps, plans, valid, device, active=None, row_offsets=None):
@@ -1143,38 +1162,39 @@ class GatherMap:
         self.src_sizes = [int(m.max(initial=0)) + 1 for m in maps]
         self.maps = [torch.as_tensor(m.astype(np.int64), device=device) for m in maps]
         self.valid = torch.as_tensor(valid.astype(np.float64), device=device)
-        self.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=device)
         self.G, self.C = valid.shape
-        self.active = self.gsrc = None
+        self.active = None
+        self.code = self.jbits = None
+        self.col_src = self.i0 = self.stride = self.valid_u8 = None
         if active is not None:
-            self._conditioned(maps, active, row_offsets, device)
-            return
-        self.col_src = torch.as_tensor(
-            np.concatenate([np.full(m.shape[1], e) for e, m in enumerate(maps)]).astype(np.int32),
-            device=device)
-        if all(p is not None for p in plans):
+            src, idx = self._conditioned(maps, active, row_offsets, device)
+        elif all(p is not None for p in plans):
+            self.col_src = torch.as_tensor(np.concatenate(
+                [np.full(m.shape[1], e) for e, m in enumerate(maps)]).astype(np.int32),
+                device=device)
             self.i0 = torch.as_tensor(np.concatenate([p['i0'] for p in plans]), device=device)
             self.stride = torch.as_tensor(np.concatenate([p['stride'] for p in plans]),
                                           device=device)
-            self.idx = None
+            self.valid_u8 = torch.as_tensor(valid.astype(np.uint8), device=device)
+            return
         else:
-            self.i0 = self.stride = None
-            self.idx = torch.cat(self.maps, dim=1).contiguous()
+            src = np.concatenate([np.full(m.shape, e) for e, m in enumerate(maps)], axis=1)
+            idx = np.concatenate(maps, axis=1)
+        code, self.jbits = gather_codes(src, idx, valid, len(maps), max(self.src_sizes))
+        self.code = torch.as_tensor(code, device=device)
 
     def _conditioned(self, maps, active, row_offsets, device):
-        """The group-dependent source table and index map of merged blocks
-        (entries no member covers read source 0 at index 0, masked)."""
-        gsrc = np.zeros((self.G, self.C), dtype=np.uint8)
+        """The group-dependent (G, C) source and index tables of merged
+        blocks (entries no member covers read source 0 at index 0)."""
+        src = np.zeros((self.G, self.C), dtype=np.int64)
         idx = np.zeros((self.G, self.C), dtype=np.int64)
         for e, (m, r0) in enumerate(zip(maps, row_offsets)):
             rows = active[e]
-            gsrc[rows, r0:r0 + m.shape[1]] = e
+            src[rows, r0:r0 + m.shape[1]] = e
             idx[rows, r0:r0 + m.shape[1]] = m[rows]
         self.row_offsets = [int(r) for r in row_offsets]
         self.active = torch.as_tensor(active.astype(np.float64), device=device)
-        self.gsrc = torch.as_tensor(gsrc, device=device)
-        self.idx = torch.as_tensor(idx, device=device)
-        self.col_src = self.i0 = self.stride = None
+        return src, idx
 
     def to(self, device):
         """A copy with every tensor on `device` (to run the plain twin on
@@ -1184,8 +1204,7 @@ class GatherMap:
         new.plans = [None if p is None else {k: move(v) for k, v in p.items()}
                      for p in self.plans]
         new.maps = [m.to(device) for m in self.maps]
-        for name in ('valid', 'col_src', 'i0', 'stride', 'idx', 'valid_u8', 'active',
-                     'gsrc'):
+        for name in ('valid', 'col_src', 'i0', 'stride', 'code', 'valid_u8', 'active'):
             setattr(new, name, move(getattr(self, name)))
         return new
 
@@ -1257,8 +1276,9 @@ def pencil_gather(gmap, srcs):
     Replaces dedalus_tpu/core/subsystems.py _plan_gather, gather_state and
     gather_eq_data, its conditioned branch included. CPU tensors run the
     plain twin; CUDA tensors launch csrc/pencil_kernels.cu
-    k3_pencil_gather_f64 (or _c128), one launch for all sources; counted per
-    form (build.count).
+    k3_pencil_gather_f64 (or _c128), one launch for all sources, flat over
+    the entries in the map's affine or table form; counted per dtype
+    (build.count).
     """
     if srcs[0].device.type == 'cpu':
         return pencil_gather_plain(gmap, srcs)
@@ -1278,11 +1298,13 @@ def pencil_gather(gmap, srcs):
     out = torch.empty((gmap.G, gmap.C), dtype=dt, device=dev)
     ptrs = (ctypes.c_void_p * len(srcs))(*[f.data_ptr() for f in srcs])
     p = lambda t: 0 if t is None else t.data_ptr()
+    table = gmap.code is not None
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.launcher('k3_pencil_gather', dt)(
-        ctypes.addressof(ptrs), len(srcs), p(gmap.col_src), p(gmap.gsrc), p(gmap.i0),
-        p(gmap.stride), p(gmap.idx), gmap.valid_u8.data_ptr(), out.data_ptr(),
-        gmap.G, gmap.C, stream), 'pencil_gather')
+        ctypes.addressof(ptrs), len(srcs), p(gmap.code),
+        gmap.code.element_size() if table else 0, gmap.jbits if table else 0, p(gmap.i0),
+        p(gmap.stride), p(gmap.col_src), p(gmap.valid_u8), out.data_ptr(), gmap.G, gmap.C,
+        stream), 'pencil_gather')
     build.count(pencil_gather, dt)
     return out
 

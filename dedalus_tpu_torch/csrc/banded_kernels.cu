@@ -1185,6 +1185,13 @@ extern "C" int k4_geometry(int* out, int n) {
 // barriers' latency, not by bytes. Each column update is split over four
 // lanes and met by shuffles, so a reflector costs ~2nb/4 dependent FMAs.
 //
+// The general path (GLOBAL, ops/banded.py k8_plan: nb > 39, where a step's
+// 19 nb^2 + 2 nb doubles pass the 227 KB of shared memory, or nb > 64) keeps
+// the same step arrays in a device-memory workspace of that size a group
+// (cached in L1 and L2), and its R^-1 and pinning loop the columns over the
+// block's threads: any nb, the same arithmetic in the same order, so its
+// factors equal the shared path's bit for bit where both run.
+//
 // Layouts (row-major, contiguous): diag, sub, sup, Rinv, R1, R2 (G, Nb, nb,
 // nb); Qt (G, Nb-1, 2nb, 2nb); QtL (G, nb, nb); pins (G, Nb, nb) bytes;
 // sigma (G, Nb, nb).
@@ -1262,9 +1269,11 @@ __device__ __forceinline__ void set_identity(double* Q, int m) {
 }
 
 // Pivot pinning of R's diagonal (beta -> dg) and R^{-1} (Ri) from the strict
-// upper triangle left in A. `invt0` is the first thread of the nb that invert
-// (one column each). Needs a barrier before (beta) and leaves one to the
+// upper triangle left in A. The shared path inverts with the last 64
+// threads (one column each, nb <= 64); GLOBAL loops the entries and columns
+// over all threads. Needs a barrier before (beta) and leaves one to the
 // caller after (Ri); has one inside (dg).
+template <bool GLOBAL>
 __device__ void pin_and_invert(const double* A, const double* beta, double* dg, double* Ri,
                                int nb, double pin_tol, double& runmax,
                                unsigned char* pins, double* sigma) {
@@ -1273,24 +1282,32 @@ __device__ void pin_and_invert(const double* A, const double* beta, double* dg, 
     for (int j = 0; j < nb; ++j) dmax = nan_max(dmax, fabs(beta[j]));
     runmax = nan_max(runmax, dmax);
     const double scale = nan_max(runmax, 1e-300);
-    if (tid < nb) {
-        const double d = beta[tid];
+    auto pin = [&](int j) {
+        const double d = beta[j];
         const bool p = fabs(d) < pin_tol * scale;
         const double delta = p ? scale - d : 0.0;
-        pins[tid] = p ? 1 : 0;
-        sigma[tid] = delta;
-        dg[tid] = d + delta;
-    }
-    __syncthreads();
-    const int c = tid - ((int)blockDim.x - 64);
-    if (c >= 0 && c < nb) {
-        // column c of the inverse of the upper-triangular R, bottom row up
+        pins[j] = p ? 1 : 0;
+        sigma[j] = delta;
+        dg[j] = d + delta;
+    };
+    // column c of the inverse of the upper-triangular R, bottom row up
+    auto invert = [&](int c) {
         for (int r = nb - 1; r > c; --r) Ri[r * nb + c] = 0.0;
         for (int r = c; r >= 0; --r) {
             double acc = (r == c) ? 1.0 : 0.0;
             for (int k = c; k > r; --k) acc -= A[r * nb + k] * Ri[k * nb + c];
             Ri[r * nb + c] = acc / dg[r];
         }
+    };
+    if constexpr (GLOBAL) {
+        for (int j = tid; j < nb; j += blockDim.x) pin(j);
+        __syncthreads();
+        for (int c = tid; c < nb; c += blockDim.x) invert(c);
+    } else {
+        if (tid < nb) pin(tid);
+        __syncthreads();
+        const int c = tid - ((int)blockDim.x - 64);
+        if (c >= 0 && c < nb) invert(c);
     }
 }
 
@@ -1299,6 +1316,13 @@ __device__ __forceinline__ void put_block(T* dst, const double* src, int n) {
     if (dst) for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = (T)src[k];
 }
 
+// The doubles of one step's arrays (A, Q twice, Pn, T, Ri, beta, dg): a
+// group's shared memory, or its slice of the general path's workspace
+__host__ __device__ __forceinline__ long long k8_step_doubles(int nb) {
+    return 19LL * nb * nb + 2LL * nb;
+}
+
+template <bool GLOBAL>
 __global__ void __launch_bounds__(K8_THREADS)
 block_tridiag_qr_factor_kernel(
         const double* __restrict__ diag, const double* __restrict__ sub,
@@ -1308,12 +1332,12 @@ block_tridiag_qr_factor_kernel(
         unsigned char* __restrict__ pins, double* __restrict__ sigma,
         float* __restrict__ Qt32, float* __restrict__ QtL32, float* __restrict__ Rinv32,
         float* __restrict__ R132, float* __restrict__ R232,
-        int Nb, int nb, double pin_tol) {
+        double* __restrict__ ws, int Nb, int nb, double pin_tol) {
     extern __shared__ double k8sh[];
     const int n2 = 2 * nb;
     const int bsz = nb * nb;
     const int m2 = n2 * n2;
-    double* A = k8sh;                 // 2nb x nb
+    double* A = GLOBAL ? ws + blockIdx.x * k8_step_doubles(nb) : k8sh;   // 2nb x nb
     double* Qa = A + 2 * bsz;         // 2nb x 2nb
     double* Qb = Qa + m2;
     double* Pn = Qb + m2;
@@ -1349,7 +1373,7 @@ block_tridiag_qr_factor_kernel(
     double* Qn = Qb;
     for (int i = 0; i < Nb - 1; ++i) {
         householder_qr(A, Q, n2, nb, beta);
-        pin_and_invert(A, beta, dg, Ri, nb, pin_tol, runmax,
+        pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,
                        pins + gb / nb + (long long)i * nb, sigma + gb / nb + (long long)i * nb);
         // T = Q^T Pn (Pn's upper right block is zero)
         for (int o = tid; o < m2; o += blockDim.x) {
@@ -1388,7 +1412,7 @@ block_tridiag_qr_factor_kernel(
     if (Nb == 1) { set_identity(Q, nb); __syncthreads(); }
     // Last block: QR of C alone, complete nb x nb Q^T
     householder_qr(A, Q, nb, nb, beta);
-    pin_and_invert(A, beta, dg, Ri, nb, pin_tol, runmax,
+    pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,
                    pins + gb / nb + (long long)(Nb - 1) * nb,
                    sigma + gb / nb + (long long)(Nb - 1) * nb);
     __syncthreads();
@@ -1404,23 +1428,33 @@ block_tridiag_qr_factor_kernel(
     }
 }
 
+// `ws` (G x k8_step_doubles(nb) doubles, or null) selects the general path
+// (ops/banded.py k8_plan); without it the step lives in shared memory, which
+// holds nb <= 39.
 extern "C" int k8_block_tridiag_qr_factor_f64(
         const double* diag, const double* sub, const double* sup,
         double* Qt, double* QtL, double* Rinv, double* R1, double* R2,
         unsigned char* pins, double* sigma,
         float* Qt32, float* QtL32, float* Rinv32, float* R132, float* R232,
-        int G, int Nb, int nb, double pin_tol, void* stream) {
-    if (nb > 64) return (int)cudaErrorInvalidValue;   // one inverting thread per column, 64 kept for them
-    const size_t smem = (size_t)(19 * nb * nb + 2 * nb) * sizeof(double);
+        double* ws, int G, int Nb, int nb, double pin_tol, void* stream) {
+    if (ws) {
+        block_tridiag_qr_factor_kernel<true><<<G, K8_THREADS, 0, (cudaStream_t)stream>>>(
+            diag, sub, sup, Qt, QtL, Rinv, R1, R2, pins, sigma, Qt32, QtL32, Rinv32, R132,
+            R232, ws, Nb, nb, pin_tol);
+        return (int)cudaGetLastError();
+    }
+    const size_t smem = (size_t)k8_step_doubles(nb) * sizeof(double);
+    // one inverting thread per column, 64 kept for them
+    if (nb > 64 || smem > K5_SMEM) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(block_tridiag_qr_factor_kernel,
+        cudaError_t err = cudaFuncSetAttribute(block_tridiag_qr_factor_kernel<false>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    block_tridiag_qr_factor_kernel<<<G, K8_THREADS, smem, (cudaStream_t)stream>>>(
+    block_tridiag_qr_factor_kernel<false><<<G, K8_THREADS, smem, (cudaStream_t)stream>>>(
         diag, sub, sup, Qt, QtL, Rinv, R1, R2, pins, sigma, Qt32, QtL32, Rinv32, R132, R232,
-        Nb, nb, pin_tol);
+        nullptr, Nb, nb, pin_tol);
     return (int)cudaGetLastError();
 }
 
@@ -1428,13 +1462,22 @@ extern "C" int k8_block_tridiag_qr_factor_f64(
 // K8b: the K5 sweeps in f64 with k right-hand-side columns per block,
 // Rhs (G, Nb, nb, k) -> X (G, Nb, nb, k) (the Woodbury columns W1 = A^{-1} U).
 //
-// One thread block per group, one thread per entry of the (2nb, k) product of
-// a step; the carry and the two last solution blocks stay in shared memory
-// and the next factor block is copied in with cp.async while the current one
-// is applied. All k columns share one read of the f64 factors
-// (4.5 GB for a 256-group chunk at RBC 2048x2048), where k launches of the
-// single-column sweeps would read them k times. X first holds y (the forward
-// sweep's output), which the backward sweep overwrites block by block.
+// One thread block per group and chunk of kc columns (grid (G, chunks)), one
+// thread per entry of the (2nb, kc) product of a step; the carry and the two
+// last solution blocks stay in shared memory. STAGED copies the next factor
+// block in with cp.async while the current one is applied; all kc columns
+// share one read of the f64 factors (4.5 GB for a 256-group chunk at RBC
+// 2048x2048), where k launches of the single-column sweeps would read them
+// k times. X first holds y (the forward sweep's output), which the backward
+// sweep overwrites block by block.
+//
+// The chunks and STAGED are ops/banded.py k8b_plan's: the staged factor
+// blocks (8 nb^2 doubles) and 4 nb kc vector doubles in 227 KB of shared
+// memory (RBC, nb 19 and k 26: one chunk); past nb = 60 the factor blocks
+// alone pass it, and the general form reads them from device memory (L1
+// and L2), as K5's direct path does, with 4 nb kc doubles in shared memory.
+// Each column's sums are the same in every form (in j order), so a chunked
+// or unstaged launch equals the one-chunk staged launch bit for bit.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -1448,62 +1491,83 @@ __device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ src, i
         __pipeline_memcpy_async(dst + k, src + k, sizeof(T));
 }
 
+// Shared doubles of one K8b block (k8b_plan's smem / 8)
+__host__ __device__ __forceinline__ long long k8b_doubles(int nb, int kc, bool staged) {
+    return (staged ? 8LL * nb * nb : 0LL) + 4LL * nb * kc;
+}
+
+template <bool STAGED>
 __global__ void __launch_bounds__(K8_THREADS)
 multi_rhs_solve_kernel(
         const double* __restrict__ Qt, const double* __restrict__ QtL,
         const double* __restrict__ Rinv, const double* __restrict__ R1,
         const double* __restrict__ R2, const double* __restrict__ Rhs,
-        double* __restrict__ X, int Nb, int nb, int k) {
+        double* __restrict__ X, int Nb, int nb, int k, int kc) {
     extern __shared__ __align__(16) double k8b[];
     const int n2 = 2 * nb;
     const int m2 = n2 * n2;
     const long long bsz = (long long)nb * nb;
-    const int vk = nb * k;                    // one block of right-hand sides
+    const int c0 = blockIdx.y * kc;
+    const int w = min(kc, k - c0);           // this chunk's columns
+    const int vk = nb * w;                    // one block of right-hand sides
+    const long long ld = (long long)nb * k;   // ... in Rhs and X
     double* const buf0 = k8b;
-    double* const buf1 = buf0 + m2;
-    double* va = buf1 + m2;                   // (2nb, k): [carry ; rhs_{i+1}]
+    double* const buf1 = buf0 + (STAGED ? m2 : 0);
+    double* va = buf1 + (STAGED ? m2 : 0);    // (2nb, w): [carry ; rhs_{i+1}]
     double* vb = va + 2 * vk;
     const int tid = threadIdx.x;
     const long long g = blockIdx.x;
-    const double* rg = Rhs + g * Nb * vk;
-    double* xg = X + g * Nb * vk;
+    const double* rg = Rhs + g * Nb * ld + c0;
+    double* xg = X + g * Nb * ld + c0;
     const double* Qtg = Qt + g * (long long)(Nb - 1) * m2;
+    // entry o = r * w + c of a block of this chunk, in Rhs and X
+    auto at = [&](int o) { return (long long)(o / w) * k + o % w; };
+    auto load_rhs = [&](double* dst, int i) {
+        for (int o = tid; o < vk; o += blockDim.x) dst[o] = rg[i * ld + at(o)];
+    };
 
     // ---- forward sweep
-    if (Nb > 1) {
+    if (STAGED && Nb > 1) {
         stage_async(buf0, Qtg, m2);
         __pipeline_commit();
     }
-    stage(va, rg, vk);
+    load_rhs(va, 0);
     for (int i = 0; i < Nb - 1; ++i) {
-        double* cur = (i & 1) ? buf1 : buf0;
-        if (i + 1 < Nb - 1) {
-            stage_async((i & 1) ? buf0 : buf1, Qtg + (long long)(i + 1) * m2, m2);
-            __pipeline_commit();
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
+        const double* cur = Qtg + (long long)i * m2;
+        if (STAGED) {
+            cur = (i & 1) ? buf1 : buf0;
+            if (i + 1 < Nb - 1) {
+                stage_async((i & 1) ? buf0 : buf1, Qtg + (long long)(i + 1) * m2, m2);
+                __pipeline_commit();
+                __pipeline_wait_prior(1);
+            } else {
+                __pipeline_wait_prior(0);
+            }
         }
-        stage(va + vk, rg + (long long)(i + 1) * vk, vk);
+        load_rhs(va + vk, i + 1);
         __syncthreads();
         for (int o = tid; o < 2 * vk; o += blockDim.x) {
-            const int r = o / k, c = o % k;
+            const int r = o / w, c = o % w;
             double acc = 0.0;
-            for (int j = 0; j < n2; ++j) acc += cur[r * n2 + j] * va[j * k + c];
-            if (r < nb) xg[(long long)i * vk + o] = acc;
+            for (int j = 0; j < n2; ++j) acc += cur[r * n2 + j] * va[j * w + c];
+            if (r < nb) xg[i * ld + at(o)] = acc;
             else vb[o - vk] = acc;
         }
         double* t = va; va = vb; vb = t;
         __syncthreads();
     }
     // last block: y_{Nb-1} = QtL carry
-    stage(buf0, QtL + g * bsz, nb * nb);
+    const double* qtl = QtL + g * bsz;
+    if (STAGED) {
+        stage(buf0, qtl, nb * nb);
+        qtl = buf0;
+    }
     __syncthreads();
     for (int o = tid; o < vk; o += blockDim.x) {
-        const int r = o / k, c = o % k;
+        const int r = o / w, c = o % w;
         double acc = 0.0;
-        for (int j = 0; j < nb; ++j) acc += buf0[r * nb + j] * va[j * k + c];
-        xg[(long long)(Nb - 1) * vk + o] = acc;
+        for (int j = 0; j < nb; ++j) acc += qtl[r * nb + j] * va[j * w + c];
+        xg[(Nb - 1) * ld + at(o)] = acc;
     }
     __syncthreads();
 
@@ -1513,7 +1577,7 @@ multi_rhs_solve_kernel(
     const double* R2g = R2 + g * Nb * bsz;
     double* const bb0 = buf0;
     double* const bb1 = buf0 + 3 * bsz;
-    double* ws = buf1 + m2;                   // the four (nb, k) blocks of va, vb
+    double* ws = buf1 + (STAGED ? m2 : 0);    // the four (nb, w) blocks of va, vb
     double* t = ws;
     double* xa = ws + vk;                     // x_{i+1}
     double* xb = ws + 2 * vk;                 // x_{i+2}
@@ -1525,51 +1589,71 @@ multi_rhs_solve_kernel(
         stage_async(dst + 2 * bsz, Rinvg + i * bsz, nb * nb);
         __pipeline_commit();
     };
-    fetch(bb0, Nb - 1);
+    if (STAGED) fetch(bb0, Nb - 1);
     for (int i = Nb - 1, s = 0; i >= 0; --i, ++s) {
-        double* cur = (s & 1) ? bb1 : bb0;
-        if (i > 0) {
-            fetch((s & 1) ? bb0 : bb1, i - 1);
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
+        const double *c1 = R1g + i * bsz, *c2 = R2g + i * bsz, *ci = Rinvg + i * bsz;
+        if (STAGED) {
+            c1 = (s & 1) ? bb1 : bb0;
+            c2 = c1 + bsz;
+            ci = c1 + 2 * bsz;
+            if (i > 0) {
+                fetch((s & 1) ? bb0 : bb1, i - 1);
+                __pipeline_wait_prior(1);
+            } else {
+                __pipeline_wait_prior(0);
+            }
         }
         __syncthreads();
         for (int o = tid; o < vk; o += blockDim.x) {
-            const int r = o / k, c = o % k;
+            const int r = o / w, c = o % w;
             double s1 = 0.0, s2 = 0.0;
             for (int j = 0; j < nb; ++j) {
-                s1 += cur[r * nb + j] * xa[j * k + c];
-                s2 += cur[bsz + r * nb + j] * xb[j * k + c];
+                s1 += c1[r * nb + j] * xa[j * w + c];
+                s2 += c2[r * nb + j] * xb[j * w + c];
             }
-            t[o] = (xg[(long long)i * vk + o] - s1) - s2;
+            t[o] = (xg[i * ld + at(o)] - s1) - s2;
         }
         __syncthreads();
         for (int o = tid; o < vk; o += blockDim.x) {
-            const int r = o / k, c = o % k;
+            const int r = o / w, c = o % w;
             double acc = 0.0;
-            for (int j = 0; j < nb; ++j) acc += cur[2 * bsz + r * nb + j] * t[j * k + c];
+            for (int j = 0; j < nb; ++j) acc += ci[r * nb + j] * t[j * w + c];
             xn[o] = acc;
-            xg[(long long)i * vk + o] = acc;
+            xg[i * ld + at(o)] = acc;
         }
         double* u = xb; xb = xa; xa = xn; xn = u;
-        __syncthreads();      // cur is free for the next step's copy
+        __syncthreads();      // the staged blocks are free for the next step's copy
     }
 }
 
+// The plan's (kc, staged) must be what fits: its shared bytes at most K5_SMEM.
 extern "C" int k8_multi_rhs_solve_f64(
         const double* Qt, const double* QtL, const double* Rinv, const double* R1,
         const double* R2, const double* Rhs, double* X, int G, int Nb, int nb, int k,
-        void* stream) {
-    const size_t smem = (size_t)(8 * nb * nb + 4 * nb * k) * sizeof(double);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(multi_rhs_solve_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return (int)err;
+        int kc, int staged, void* stream) {
+    if (kc < 1 || G < 1) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)k8b_doubles(nb, kc, staged) * sizeof(double);
+    if (smem > K5_SMEM) return (int)cudaErrorInvalidValue;
+    const dim3 grid(G, k > kc ? (k + kc - 1) / kc : 1);
+    if (staged) {
+        if (smem > 48 * 1024) {
+            cudaError_t err = cudaFuncSetAttribute(multi_rhs_solve_kernel<true>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   (int)smem);
+            if (err != cudaSuccess) return (int)err;
+        }
+        multi_rhs_solve_kernel<true><<<grid, K8_THREADS, smem, (cudaStream_t)stream>>>(
+            Qt, QtL, Rinv, R1, R2, Rhs, X, Nb, nb, k, kc);
+    } else {
+        if (smem > 48 * 1024) {
+            cudaError_t err = cudaFuncSetAttribute(multi_rhs_solve_kernel<false>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   (int)smem);
+            if (err != cudaSuccess) return (int)err;
+        }
+        multi_rhs_solve_kernel<false><<<grid, K8_THREADS, smem, (cudaStream_t)stream>>>(
+            Qt, QtL, Rinv, R1, R2, Rhs, X, Nb, nb, k, kc);
     }
-    multi_rhs_solve_kernel<<<G, K8_THREADS, smem, (cudaStream_t)stream>>>(
-        Qt, QtL, Rinv, R1, R2, Rhs, X, Nb, nb, k);
     return (int)cudaGetLastError();
 }
 
@@ -1604,6 +1688,10 @@ extern "C" int k8_multi_rhs_solve_f64(
 // dot products are sums over lanes and shuffles, not the plain version's
 // sequential sums: held to it at 1e-13 (f64) and at the factor type's
 // rounding (f32).
+// s, t and the warps' partial sums take (2 + 16) B doubles: in shared
+// memory, past 48 KB (B > 341) by the opt-in size up to 227 KB (B <= 1614);
+// past that (SCRATCH, ops/banded.py k6_plan) in a device-memory scratch of
+// that size a group. The sums are the same in every form, in the same order.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -1637,16 +1725,21 @@ extern "C" int k6_solve_pre_f64(const double* R, const int64_t* row_perm, const 
 
 constexpr int K6_THREADS = 512;
 
-template <typename T, bool WB64>
+// The doubles of s, t and the partial sums of one group
+__host__ __device__ __forceinline__ long long k6_post_doubles(int B) {
+    return (long long)(2 + K6_THREADS / 32) * B;
+}
+
+template <typename T, bool WB64, bool SCRATCH>
 __global__ void __launch_bounds__(K6_THREADS)
 banded_solve_post_kernel(const T* __restrict__ y, const void* __restrict__ Vfull_,
                          const void* __restrict__ W_, const double* __restrict__ Sinv,
                          const double* __restrict__ Dc, const int64_t* __restrict__ col_perm,
                          const T* __restrict__ xbad, const int64_t* __restrict__ bad_idx,
                          int nbad, double* __restrict__ X, int P, int Pp, int B,
-                         int accumulate) {
+                         int accumulate, double* __restrict__ scratch) {
     extern __shared__ double k6sh[];
-    double* s = k6sh;          // B
+    double* s = SCRATCH ? scratch + blockIdx.x * k6_post_doubles(B) : k6sh;   // B
     double* t = s + B;         // B
     double* part = t + B;      // nwarps x B partial dot products
     __shared__ int slot;
@@ -1715,32 +1808,55 @@ banded_solve_post_kernel(const T* __restrict__ y, const void* __restrict__ Vfull
     }
 }
 
+template <typename T, bool WB64>
+static int launch_k6_post(const T* y, const void* Vfull, const void* W, const double* Sinv,
+                          const double* Dc, const int64_t* col_perm, const T* xbad,
+                          const int64_t* bad_idx, int nbad, double* X, int G, int P, int Pp,
+                          int B, int accumulate, double* scratch, cudaStream_t stream) {
+    if (scratch) {
+        banded_solve_post_kernel<T, WB64, true><<<G, K6_THREADS, 0, stream>>>(
+            y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X, P, Pp, B, accumulate,
+            scratch);
+        return (int)cudaGetLastError();
+    }
+    const size_t smem = (size_t)k6_post_doubles(B) * sizeof(double);
+    if (smem > K5_SMEM) return (int)cudaErrorInvalidValue;   // B > 1614: the scratch's
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(banded_solve_post_kernel<T, WB64, false>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    banded_solve_post_kernel<T, WB64, false><<<G, K6_THREADS, smem, stream>>>(
+        y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X, P, Pp, B, accumulate, nullptr);
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch_k6_post(const T* y, const void* Vfull, const void* W, const double* Sinv,
                           const double* Dc, const int64_t* col_perm, const T* xbad,
                           const int64_t* bad_idx, int nbad, double* X, int G, int P, int Pp,
-                          int B, int wb64, int accumulate, cudaStream_t stream) {
-    const size_t smem = (size_t)(2 + K6_THREADS / 32) * B * sizeof(double);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;   // B > 341: not supported
+                          int B, int wb64, int accumulate, double* scratch,
+                          cudaStream_t stream) {
     if (wb64)
-        banded_solve_post_kernel<T, true><<<G, K6_THREADS, smem, stream>>>(
-            y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X, P, Pp, B, accumulate);
-    else
-        banded_solve_post_kernel<T, false><<<G, K6_THREADS, smem, stream>>>(
-            y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X, P, Pp, B, accumulate);
-    return (int)cudaGetLastError();
+        return launch_k6_post<T, true>(y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X,
+                                       G, P, Pp, B, accumulate, scratch, stream);
+    return launch_k6_post<T, false>(y, Vfull, W, Sinv, Dc, col_perm, xbad, bad_idx, nbad, X,
+                                    G, P, Pp, B, accumulate, scratch, stream);
 }
 
+// `scratch` (G x k6_post_doubles(B) doubles, or null) keeps s, t and the
+// partial sums in device memory (ops/banded.py k6_plan)
 extern "C" int k6_solve_post_f64(const void* y, const void* Vfull, const void* W,
                                  const double* Sinv, const double* Dc, const int64_t* col_perm,
                                  const void* xbad, const int64_t* bad_idx, int nbad, double* X,
                                  int G, int P, int Pp, int B, int y_is_f64, int wb64,
-                                 int accumulate, void* stream) {
+                                 int accumulate, double* scratch, void* stream) {
     if (y_is_f64)
         return launch_k6_post<double>((const double*)y, Vfull, W, Sinv, Dc, col_perm,
                                       (const double*)xbad, bad_idx, nbad, X, G, P, Pp, B, wb64,
-                                      accumulate, (cudaStream_t)stream);
+                                      accumulate, scratch, (cudaStream_t)stream);
     return launch_k6_post<float>((const float*)y, Vfull, W, Sinv, Dc, col_perm,
                                  (const float*)xbad, bad_idx, nbad, X, G, P, Pp, B, wb64,
-                                 accumulate, (cudaStream_t)stream);
+                                 accumulate, scratch, (cudaStream_t)stream);
 }

@@ -34,10 +34,10 @@ SIGNATURES = {
         'k4_banded_apply_f64': [_P, _P, _I] + [_P] * 13 + [_I] * 13 + [_P],
         'k4_banded_apply_general_f64': [_P, _P, _I] + [_P] * 9 + [_I] * 7 + [_P],
         'k4_geometry': [_P, _I],
-        'k8_block_tridiag_qr_factor_f64': [_P] * 15 + [_I] * 3 + [_D, _P],
-        'k8_multi_rhs_solve_f64': [_P] * 7 + [_I] * 4 + [_P],
+        'k8_block_tridiag_qr_factor_f64': [_P] * 16 + [_I] * 3 + [_D, _P],
+        'k8_multi_rhs_solve_f64': [_P] * 7 + [_I] * 6 + [_P],
         'k6_solve_pre_f64': [_P] * 4 + [_I] * 4 + [_P],
-        'k6_solve_post_f64': [_P] * 8 + [_I, _P] + [_I] * 7 + [_P],
+        'k6_solve_post_f64': [_P] * 8 + [_I, _P] + [_I] * 7 + [_P, _P],
     },
     'dense_kernels': {
         'ka_dense_refined_solve_f64': [_P] * 4 + [_I] * 3 + [_P],
@@ -98,8 +98,8 @@ SIGNATURES = {
         'k2a_stage_c128': [_P, _I, _P] + [_I] * 6 + [_P],
     },
     'pencil_kernels': {
-        'k3_pencil_gather_f64': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
-        'k3_pencil_gather_c128': [_P, _I] + [_P] * 7 + [_I] * 2 + [_P],
+        'k3_pencil_gather_f64': [_P, _I, _P, _I, _I] + [_P] * 5 + [_I] * 2 + [_P],
+        'k3_pencil_gather_c128': [_P, _I, _P, _I, _I] + [_P] * 5 + [_I] * 2 + [_P],
         'k3_pencil_scatter_f64': [_P] * 3 + [_I] + [_P] * 3 + [_I, _P, _P],
         'k3_pencil_scatter_c128': [_P] * 3 + [_I] + [_P] * 3 + [_I, _P, _P],
     },

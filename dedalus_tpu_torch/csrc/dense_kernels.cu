@@ -40,6 +40,8 @@ namespace {
 // double, the complex product in FMAs for double2.
 __device__ __forceinline__ double zero_of(double) { return 0.0; }
 __device__ __forceinline__ double2 zero_of(double2) { return make_double2(0.0, 0.0); }
+__device__ __forceinline__ double one_of(double) { return 1.0; }
+__device__ __forceinline__ double2 one_of(double2) { return make_double2(1.0, 0.0); }
 __device__ __forceinline__ double add(double a, double b) { return a + b; }
 __device__ __forceinline__ double2 add(double2 a, double2 b) {
     return make_double2(a.x + b.x, a.y + b.y);
@@ -70,6 +72,13 @@ __device__ __forceinline__ double shfl(double v, int k) {
 }
 __device__ __forceinline__ double2 shfl(double2 v, int k) {
     return make_double2(__shfl_sync(0xffffffffu, v.x, k), __shfl_sync(0xffffffffu, v.y, k));
+}
+__device__ __forceinline__ double shfl_xor(double v, int m) {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+}
+__device__ __forceinline__ double2 shfl_xor(double2 v, int m) {
+    return make_double2(__shfl_xor_sync(0xffffffffu, v.x, m),
+                        __shfl_xor_sync(0xffffffffu, v.y, m));
 }
 
 __device__ __forceinline__ double warp_row_dot(const double* __restrict__ row,
@@ -317,91 +326,324 @@ namespace {
 // packed LAPACK factors of one (G, P, P) stack (L unit lower, U upper, both
 // in LU[g], row-major) and the permutation vector of the row pivots.
 //
-// One thread block per group. Each sweep depends on every earlier unknown
-// (2 P dependent steps, 1050 at RBC 256x64), so the solve is latency-bound,
-// not bound by reading the factors (0.0847 ms for 282 MB). The sweeps go by
-// blocks of 32 rows: the rows' products with the unknowns already known are
-// warp dot products over the rows (row-major, coalesced, every warp of the
-// block busy), then one warp finishes the 32x32 triangle with shuffles. Each
-// factor entry is read once; 4 barriers a block of rows, 66 at P = 525,
-// instead of one per row.
+// One thread block per group, LU_WARPS warps. The matrix is cut into tiles
+// of BR x BR entries (LuTile: 32 in f64, 16 in complex128: 8 KB and 4 KB),
+// nb = ceil(P / BR) block rows. Each sweep is nb phases, one block row
+// each (forward rows 0 .. nb-1 through the strict lower tiles, then
+// backward rows nb-1 .. 0 through the upper ones):
+//   - every warp multiplies its panel tiles of row p, those whose unknowns
+//     were final before the previous phase (forward J <= p - 2, backward
+//     J >= p + 2, J = w mod LU_WARPS), into one partial sum of the BR rows
+//     (a lane a row; in complex128 two lanes a row, half the columns each)
+//     and writes it to a shared slot; one block barrier;
+//   - the phase's owner warp (w = p mod LU_WARPS) adds the adjacent tile
+//     (J = p -+ 1, whose unknowns the previous owner has just solved) and
+//     the warps' partial sums in warp order, then solves the diagonal tile
+//     in BR dependent steps of shuffles and FMAs (the tile already in shared
+//     memory; the backward sweep multiplies by each row's reciprocal of its
+//     diagonal entry, taken for all rows at once before the steps: a
+//     division a step costs the division's latency in the chain) and writes
+//     its unknowns. Meanwhile the other warps run on into the next phase's
+//     panel tiles: one barrier a phase, 2 nb in all (34 at P = 525).
+// The unknowns live in shared memory where P fits beside the rings (XS; P
+// up to 2432 in f64, 7744 in complex128), else in X. Each warp reads its
+// own sequence of tiles (lu_next: its panel tiles, and as owner the
+// adjacent and diagonal tiles, phase by phase) through a private ring of
+// LuTile::SLOTS slots filled by 16-byte cp.async (an f64 row from the
+// 16-byte boundary at or before it, LuLayout; zero-filled past P): SLOTS
+// tiles in flight, a slot refilled once its tile has been used (the
+// owner's two after its triangle), with warp-level waits only, so the
+// factors stream from device memory across the barriers and the
+// triangles. Every factor entry is read
+// once (the diagonal tiles once a sweep). Bound by reading the factors
+// (0.0847 ms for 282 MB at RBC 256x64) where the 2 nb phases' chains (a
+// tile's products, BR dependent steps of shuffle latency) take less.
+// Complex128 at 256 groups fits two blocks an SM (113 KB each at P = 263).
+// Every sum has a fixed order: two launches agree bit for bit.
 // ---------------------------------------------------------------------------
 
-constexpr int LU_THREADS = 512;
+constexpr int LU_WARPS = 8;
+constexpr int LU_PANEL = 1, LU_ADJ = 2, LU_DIAG = 3;
+constexpr size_t LU_SMEM = 227 * 1024;
 
+template <typename T> struct LuTile;
+template <> struct LuTile<double> { static constexpr int BR = 32, SLOTS = 3; };
+template <> struct LuTile<double2> { static constexpr int BR = 16, SLOTS = 3; };
+
+// The t-th tile of warp w in the phase of block row p (sweep 0 forward, 1
+// backward): its kind (0 past the last) and its block column J
+__device__ __forceinline__ int lu_tile(int nb, int sweep, int p, int w, int t, int& J) {
+    int j0, n;
+    if (sweep == 0) {
+        j0 = w;
+        n = p - 2 >= w ? (p - 2 - w) / LU_WARPS + 1 : 0;
+    } else {
+        j0 = p + 2 + ((w - (p + 2)) % LU_WARPS + LU_WARPS) % LU_WARPS;
+        n = j0 <= nb - 1 ? (nb - 1 - j0) / LU_WARPS + 1 : 0;
+    }
+    if (t < n) { J = j0 + t * LU_WARPS; return LU_PANEL; }
+    if (p % LU_WARPS != w) return 0;
+    t -= n;
+    const int adj = sweep == 0 ? p - 1 : p + 1;
+    if (adj >= 0 && adj < nb) {
+        if (t == 0) { J = adj; return LU_ADJ; }
+        --t;
+    }
+    if (t == 0) { J = p; return LU_DIAG; }
+    return 0;
+}
+
+// A warp's position in its tile sequence (phase q of sweep `sweep`, its
+// t-th tile there); lu_next returns the tile there (I, J) and moves on
+struct LuIt { int sweep, q, t; };
+
+__device__ __forceinline__ bool lu_next(int nb, int w, LuIt& it, int& I, int& J) {
+    while (it.sweep < 2) {
+        const int p = it.sweep == 0 ? it.q : nb - 1 - it.q;
+        if (lu_tile(nb, it.sweep, p, w, it.t, J)) {
+            I = p;
+            ++it.t;
+            return true;
+        }
+        it.t = 0;
+        if (++it.q == nb) { it.q = 0; ++it.sweep; }
+    }
+    return false;
+}
+
+// A slot's rows: LD elements apart. An f64 row of a tile starts at any
+// 8-byte phase of device memory (P is odd), so it is copied by 16-byte
+// chunks from the 16-byte boundary at or before it and lands `lu_shift`
+// elements into its slot row (BR + 2 elements hold it); complex128
+// elements are 16 bytes and land in place (BR + 1: conflict-free reads of
+// a column by the lanes' rows)
+template <typename T, int BR>
+struct LuLayout {
+    static constexpr int LD = sizeof(T) == 8 ? BR + 2 : BR + 1;
+    static constexpr int TS = BR * LD;
+};
+
+// The phase of the row starting `off` elements into the factors (whose
+// base is 16-byte aligned)
 template <typename T>
-__global__ void __launch_bounds__(LU_THREADS)
+__device__ __forceinline__ int lu_shift(size_t off) {
+    return sizeof(T) == 8 ? (int)(off & 1) : 0;
+}
+
+__device__ __forceinline__ void lu_copy16(void* dst, const void* src, int bytes) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(bytes));
+}
+
+// Tile (I, J) of group g's factors (`goff` elements into LU) into a slot,
+// zero past P, by the warp's lanes
+template <typename T, int BR>
+__device__ __forceinline__ void lu_issue(const T* LU, size_t goff, int P, int I, int J, T* slot,
+                                         int lane) {
+    constexpr int LD = LuLayout<T, BR>::LD;
+    if constexpr (sizeof(T) == 8) {
+        constexpr int CH = BR / 2 + 1;                // 16-byte chunks a row
+        const int ncol = min(BR, P - J * BR);
+#pragma unroll 4
+        for (int e = lane; e < BR * CH; e += 32) {
+            const int r = e / CH, q = e % CH;
+            const int i = I * BR + r;
+            const size_t off = goff + (size_t)i * P + J * BR;
+            const int sh = lu_shift<T>(off);
+            const int c = 2 * q - sh;                 // the chunk's first column
+            const int bytes = (i >= P || c >= ncol) ? 0 : (c + 1 >= ncol ? 8 : 16);
+            lu_copy16(slot + r * LD + 2 * q, bytes ? LU + off - sh + 2 * q : LU, bytes);
+        }
+    } else {
+#pragma unroll 4
+        for (int e = lane; e < BR * BR; e += 32) {
+            const int r = e / BR, c = e % BR;
+            const int i = I * BR + r, j = J * BR + c;
+            const bool in = i < P && j < P;
+            lu_copy16(slot + r * LD + c, in ? LU + goff + (size_t)i * P + j : LU, in ? 16 : 0);
+        }
+    }
+}
+
+__device__ __forceinline__ double madd(double acc, double a, double b) { return fma(a, b, acc); }
+__device__ __forceinline__ double2 madd(double2 acc, double2 a, double2 b) {
+    return cfma(a, b, acc);
+}
+
+// A lane's share of a tile's rows times the unknowns of block column J
+// (its row, from `row` in the slot; its part h of the columns where 32 /
+// BR lanes share a row), in column order, even and odd columns apart
+template <typename T, int BR>
+__device__ __forceinline__ T lu_tile_dot(const T* row, const T* x, int J, int P, int h,
+                                         int lane) {
+    constexpr int CW = BR * BR / 32;
+    const int jl = J * BR + lane % BR;
+    const T xv = jl < P ? x[jl] : zero_of(T());
+    T a0 = zero_of(T()), a1 = zero_of(T());
+#pragma unroll
+    for (int c = 0; c < CW; c += 2) {
+        a0 = madd(a0, row[h * CW + c], shfl(xv, h * CW + c));
+        a1 = madd(a1, row[h * CW + c + 1], shfl(xv, h * CW + c + 1));
+    }
+    return add(a0, a1);
+}
+
+// The sum of the 32 / BR lanes of a row, by a fixed xor tree
+template <int BR, typename T>
+__device__ __forceinline__ T lu_lanes_sum(T v) {
+#pragma unroll
+    for (int off = BR; off < 32; off *= 2) v = add(v, shfl_xor(v, off));
+    return v;
+}
+
+template <int N>
+__device__ __forceinline__ void lu_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+    __syncwarp();
+}
+
+// XS: the unknowns in shared memory (where P fits beside the rings), else
+// in X itself (device memory)
+template <typename T, int BR, int S, bool XS>
+__global__ void __launch_bounds__(LU_WARPS * 32)
 lu_solve_kernel(const T* __restrict__ LU, const int* __restrict__ perm,
                 const T* __restrict__ R, T* __restrict__ X, int P) {
+    constexpr int LD = LuLayout<T, BR>::LD, TS = LuLayout<T, BR>::TS;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* ys = reinterpret_cast<T*>(smem_raw);
-    const int g = blockIdx.x;
+    T* const part = reinterpret_cast<T*>(smem_raw);           // [2][LU_WARPS][BR]
     const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = blockDim.x >> 5;
-    const T* M = LU + (size_t)g * P * P;
+    const int w = threadIdx.x >> 5;
+    T* const ring = part + 2 * LU_WARPS * BR + w * S * TS;    // this warp's slots
+    const int g = blockIdx.x;
+    const int nb = (P + BR - 1) / BR;
+    const int r = lane % BR, h = lane / BR;                   // a lane's row, its column part
+    const size_t goff = (size_t)g * P * P;
+    T* const xg = X + (size_t)g * P;
+    // the lane's row of tile (I, J) in a slot
+    auto row_of = [&](const T* slot, int I, int J) {
+        return slot + r * LD + lu_shift<T>(goff + (size_t)(I * BR + r) * P + J * BR);
+    };
+    T* const x = XS ? part + 2 * LU_WARPS * BR + LU_WARPS * S * TS : xg;
+    const int nx = XS ? nb * BR : P;                          // (zero past P)
     const T zero = zero_of(T());
-    for (int i = threadIdx.x; i < P; i += blockDim.x)
-        ys[i] = R[(size_t)g * P + perm[(size_t)g * P + i]];
-    __syncthreads();
-    // Forward sweep, unit lower triangle
-    for (int i0 = 0; i0 < P; i0 += 32) {
-        const int i1 = min(i0 + 32, P);
-        if (i0 > 0) {
-            for (int i = i0 + warp; i < i1; i += nwarps) {
-                const T s = warp_row_dot(M + (size_t)i * P, ys, i0, lane);
-                if (lane == 0) ys[i] = sub(ys[i], s);
-            }
-            __syncthreads();
-        }
-        if (warp == 0) {
-            const int i = i0 + lane;
-            T yi = i < i1 ? ys[i] : zero;
-            for (int k = 0; k < i1 - i0 - 1; ++k) {
-                const T yk = shfl(yi, k);
-                if (lane > k && i < i1) yi = sub(yi, mul(M[(size_t)i * P + i0 + k], yk));
-            }
-            if (i < i1) ys[i] = yi;
-        }
-        __syncthreads();
+    for (int i = threadIdx.x; i < nx; i += blockDim.x)
+        x[i] = i < P ? R[(size_t)g * P + perm[(size_t)g * P + i]] : zero;
+    // The ring holds S tiles in flight: tile k of this warp's sequence in
+    // slot k % S, refilled with tile k + S once tile k has been used
+    LuIt it = {0, 0, 0};
+    int I, J;
+    for (int s = 0; s < S; ++s) {
+        if (lu_next(nb, w, it, I, J)) lu_issue<T, BR>(LU, goff, P, I, J, ring + s * TS, lane);
+        asm volatile("cp.async.commit_group;\n" ::);
     }
-    // Back sweep, upper triangle with its diagonal
-    for (int i1 = P; i1 > 0; i1 -= 32) {
-        const int i0 = max(i1 - 32, 0);
-        if (i1 < P) {
-            for (int i = i0 + warp; i < i1; i += nwarps) {
-                const T s = warp_row_dot(M + (size_t)i * P + i1, ys + i1, P - i1, lane);
-                if (lane == 0) ys[i] = sub(ys[i], s);
+    int k = 0;   // tiles of this warp taken
+    auto refill = [&](int slot) {
+        __syncwarp();
+        if (lu_next(nb, w, it, I, J)) lu_issue<T, BR>(LU, goff, P, I, J, ring + slot * TS, lane);
+        asm volatile("cp.async.commit_group;\n" ::);
+    };
+    __syncthreads();   // x holds R permuted
+    for (int sweep = 0; sweep < 2; ++sweep) {
+        for (int q = 0; q < nb; ++q) {
+            const int p = sweep == 0 ? q : nb - 1 - q;
+            // (by the phase's parity over both sweeps: the last forward
+            // owner may still read its sums while the others write the
+            // first backward phase's)
+            T* const pq = part + ((sweep * nb + q) & 1) * LU_WARPS * BR;
+            T acc = zero;
+            int Jt;
+            for (int t = 0; lu_tile(nb, sweep, p, w, t, Jt) == LU_PANEL; ++t) {
+                lu_wait<S - 1>();
+                const int slot = k++ % S;
+                acc = add(acc, lu_tile_dot<T, BR>(row_of(ring + slot * TS, p, Jt), x, Jt, P, h,
+                                                  lane));
+                refill(slot);
             }
+            acc = lu_lanes_sum<BR>(acc);
+            if (h == 0) pq[w * BR + r] = acc;
             __syncthreads();
-        }
-        if (warp == 0) {
-            const int i = i0 + lane;
-            T yi = i < i1 ? ys[i] : zero;
-            for (int k = i1 - i0 - 1; k >= 0; --k) {
-                if (lane == k) yi = div(yi, M[(size_t)i * P + i]);
-                const T xk = shfl(yi, k);
-                if (lane < k) yi = sub(yi, mul(M[(size_t)i * P + i0 + k], xk));
+            if (p % LU_WARPS != w) continue;
+            // The owner: the adjacent tile, the partial sums, the diagonal
+            // tile's triangle; its two slots refilled after the triangle
+            const int adj = sweep == 0 ? p - 1 : p + 1;
+            const bool has_adj = adj >= 0 && adj < nb;
+            T tot = zero;
+            int adj_slot = -1;
+            if (has_adj) {
+                lu_wait<S - 1>();
+                adj_slot = k++ % S;
+                tot = lu_lanes_sum<BR>(lu_tile_dot<T, BR>(row_of(ring + adj_slot * TS, p, adj), x,
+                                                          adj, P, h, lane));
             }
-            if (i < i1) ys[i] = yi;
+            T sum = zero;
+#pragma unroll
+            for (int v = 0; v < LU_WARPS; ++v) sum = add(sum, pq[v * BR + r]);
+            tot = add(sum, tot);
+            const int i = p * BR + r;
+            T yi = i < P ? sub(x[i], tot) : zero;
+            if (has_adj) lu_wait<S - 2>(); else lu_wait<S - 1>();
+            const int diag_slot = k++ % S;
+            const T* D = row_of(ring + diag_slot * TS, p, p);
+            if (sweep == 0) {
+#pragma unroll
+                for (int c = 0; c < BR - 1; ++c) {
+                    const T yc = shfl(yi, c);
+                    if (r > c) yi = sub(yi, mul(D[c], yc));
+                }
+            } else {
+                // each row's reciprocal of its diagonal entry, all rows at
+                // once: a division in the chain costs a division's latency
+                // a step
+                const T inv = div(one_of(T()), D[r]);
+#pragma unroll
+                for (int c = BR - 1; c >= 0; --c) {
+                    if (r == c && i < P) yi = mul(yi, inv);
+                    const T xc = shfl(yi, c);
+                    if (r < c) yi = sub(yi, mul(D[c], xc));
+                }
+            }
+            if (h == 0 && i < P) x[i] = yi;
+            if (has_adj) refill(adj_slot);
+            refill(diag_slot);
         }
-        __syncthreads();
     }
-    for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = ys[i];
+    asm volatile("cp.async.wait_all;\n" ::);
+    if (XS) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < P; i += blockDim.x) xg[i] = x[i];
+    }
+}
+
+// Shared bytes of one K14a block: the partial sums, the warps' rings and,
+// with XS, the unknowns padded to whole tiles
+template <typename T, int BR, int S>
+constexpr size_t lu_ring_smem() {
+    return (size_t)(2 * LU_WARPS * BR + LU_WARPS * S * LuLayout<T, BR>::TS) * sizeof(T);
+}
+
+template <typename T, int BR, bool XS, int S>
+int launch_lu_form(const T* LU, const int* perm, const T* R, T* X, int G, int P, size_t smem,
+                   cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        cudaError_t err = cudaFuncSetAttribute(lu_solve_kernel<T, BR, S, XS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    lu_solve_kernel<T, BR, S, XS><<<G, LU_WARPS * 32, smem, stream>>>(LU, perm, R, X, P);
+    return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_lu(const T* LU, const int* perm, const T* R, T* X, int G, int P,
               cudaStream_t stream) {
-    const size_t smem = (size_t)P * sizeof(T);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(lu_solve_kernel<T>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    lu_solve_kernel<T><<<G, LU_THREADS, smem, stream>>>(LU, perm, R, X, P);
-    return (int)cudaGetLastError();
+    constexpr int BR = LuTile<T>::BR, S = LuTile<T>::SLOTS;
+    const size_t ring = lu_ring_smem<T, BR, S>();
+    const size_t xs = (size_t)(P + BR - 1) / BR * BR * sizeof(T);
+    if (ring + xs <= LU_SMEM)
+        return launch_lu_form<T, BR, true, S>(LU, perm, R, X, G, P, ring + xs, stream);
+    return launch_lu_form<T, BR, false, S>(LU, perm, R, X, G, P, ring, stream);
 }
 
 // ---------------------------------------------------------------------------

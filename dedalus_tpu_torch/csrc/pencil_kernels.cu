@@ -9,21 +9,30 @@
 // stream, allocates nothing, does not synchronise and returns
 // cudaGetLastError().
 //
-// Gather: out[g, c] = src_{e(c)}[j(g, c)] * valid[g, c], where the source
-// index is the affine model of the structured plan, j = i0[c] + g * s[c]
-// (strided windows, the shared column take and the broadcast columns are
-// all of this form), or the generic index map j = idx[g, c]. Several
-// equations' data are gathered in one launch: e(c) names the column's
-// source among up to K3_MAX_SRC pointers passed by value. One thread per
-// (g, c): consecutive columns of a field read consecutive state entries.
-//
-// Conditioned equations (dedalus_tpu/core/subsystems.py:1303-1314): equal
-// size equations active in disjoint groups share a row block, so a row's
-// source depends on the group. The optional (G, C) byte table gsrc then
-// overrides col_src, e = gsrc[g, c], with the generic index map of the
-// active member, j = idx[g, c]; one pointer more, and the same single
-// launch. The plain twin adds each member masked by its activity, which is
-// the active member's value exactly.
+// Gather: out[g, c] = src_e[j] * valid[g, c] (a masked entry is still
+// v * 0.0, as the plain twin's), with the source e and index j of each entry
+// in one of two forms, chosen once per pencil layout (core/subsystems.py
+// GatherMap):
+//   - affine: j = i0[c] + g * stride[c], e = col_src[c] and the (G, C) byte
+//     table valid: the structured plans (strided windows, the shared column
+//     take, broadcast columns), which read two C-vectors and a byte an
+//     entry;
+//   - table: one flat (G, C) integer an entry, its source in the high bits
+//     and its index in the low `jbits`, an invalid entry's code
+//     complemented (negative): int32 where the largest source and the
+//     source count allow, else int64. Generic index maps and conditioned
+//     equations (dedalus_tpu/core/subsystems.py:1303-1314: equal size
+//     equations active in disjoint groups share a row block, so a row's
+//     source depends on the group; the entries no member covers read source
+//     0 at index 0, masked) take it. The decode is the host's, once.
+// The grid is flat over the G C entries, full blocks however short a
+// pencil, at most the card's SMs times the blocks one holds; each thread
+// takes up to K3G_VEC entries a step, a grid apart, so every load and store
+// of a warp covers 32 consecutive entries (each index table, each source
+// run, the pencils), a small gather runs one entry a thread, and a large
+// one keeps K3G_VEC loads of a thread side by side: one code, then the
+// value. The sources' pointers sit in shared memory, so picking one is one
+// load. Up to K3_MAX_SRC sources (several equations' data) in one launch.
 //
 // Scatter: out[t] = the sum of X[g, c] over the (g, c) with j(g, c) = t
 // (the generic index map; 0.0 where no entry lands). The targets are split
@@ -52,9 +61,10 @@
 //
 // Both are bound by device-memory bandwidth: the state or pencil data once
 // each way, plus the index data (the scatter's int32 target and source
-// lists: the bytes of the pencil data in f64; the affine gather reads only
-// two C-vectors). The multi-source block makes G / K3_THREADS loads a
-// thread (36 at G = 9216) where one thread made all G before.
+// lists: the bytes of the pencil data in f64; the gather's table 4 bytes an
+// entry, its affine form a byte an entry and two C-vectors). The
+// multi-source block makes G / K3_THREADS loads a thread (36 at G = 9216)
+// where one thread made all G before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,27 +90,89 @@ __device__ __forceinline__ double2 add(double2 a, double2 b) {
     return make_double2(a.x + b.x, a.y + b.y);
 }
 
+constexpr int K3G_THREADS = 256;
+constexpr int K3G_VEC = 4;          // entries a thread a step, a grid apart
+constexpr int K3G_BLOCKS_PER_SM = 8;
+
 template <typename T>
-__global__ void __launch_bounds__(K3_THREADS)
-pencil_gather_kernel(Sources src, const int* __restrict__ col_src,
-                     const uint8_t* __restrict__ gsrc, const int64_t* __restrict__ i0,
-                     const int64_t* __restrict__ stride,
-                     const int64_t* __restrict__ idx, const uint8_t* __restrict__ valid,
-                     T* __restrict__ out, int G, int C) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    const int g = blockIdx.y;
-    if (c >= C) return;
-    const size_t pos = (size_t)g * C + c;
-    const int64_t j = idx ? idx[pos] : i0[c] + (int64_t)g * stride[c];
-    // Select the source with static indices only: a dynamic index into the
-    // by-value pointer table would copy it to local memory in every thread
-    const int e = gsrc ? (int)gsrc[pos] : (col_src ? col_src[c] : 0);
-    const void* s = src.p[0];
+struct GatherArgs {
+    const void* code;          // table form: (G C) int32 or int64 codes
+    int jbits;
+    const int64_t* __restrict__ i0;         // affine form
+    const int64_t* __restrict__ stride;
+    const int* __restrict__ col_src;
+    const uint8_t* __restrict__ valid;
+    T* out;
+    int C;
+    long long n;               // G C
+};
+
+// One entry of the table form: the source's value at the code's index,
+// masked by the code's sign
+template <typename T>
+__device__ __forceinline__ T table_entry(const T* const* base, long long code, int jbits) {
+    const bool keep = code >= 0;
+    const unsigned long long u = keep ? code : ~code;
+    const T v = __ldg(base[u >> jbits] + (u & ((1ULL << jbits) - 1)));
+    return masked(v, keep);
+}
+
+// The arguments stay in the parameter space (__grid_constant__): a copy of
+// the pointer table in each thread's local memory cost more than the
+// gather itself
+template <typename T, typename I, bool AFFINE>
+__global__ void __launch_bounds__(K3G_THREADS)
+pencil_gather_kernel(const __grid_constant__ Sources src, const __grid_constant__ GatherArgs<T> a) {
+    __shared__ const T* base[K3_MAX_SRC];
+    if (threadIdx.x < K3_MAX_SRC) base[threadIdx.x] = static_cast<const T*>(src.p[threadIdx.x]);
+    __syncthreads();
+    const I* code = static_cast<const I*>(a.code);
+    const long long n = a.n;
+    // A thread's entries are a grid apart, so each load and store of a warp
+    // covers 32 consecutive entries, and a small gather spreads one entry a
+    // thread over as many blocks as it fills. The affine form's (g, c) is
+    // divided out once a thread and then stepped
+    const long long grid = (long long)gridDim.x * K3G_THREADS;
+    const long long step = grid * K3G_VEC;
+    long long p0 = (long long)blockIdx.x * K3G_THREADS + threadIdx.x;
+    long long g0 = AFFINE ? p0 / a.C : 0;
+    int c0 = AFFINE ? (int)(p0 - g0 * a.C) : 0;
+    const long long dq = AFFINE ? grid / a.C : 0;
+    const int dr = AFFINE ? (int)(grid - dq * a.C) : 0;
+    const long long sq = AFFINE ? step / a.C : 0;
+    const int sr = AFFINE ? (int)(step - sq * a.C) : 0;
+    for (; p0 < n; p0 += step) {
+        T v[K3G_VEC];
+        long long g = g0;
+        int c = c0;
 #pragma unroll
-    for (int k = 1; k < K3_MAX_SRC; ++k)
-        if (k == e) s = src.p[k];
-    const T v = static_cast<const T*>(s)[j];
-    out[pos] = valid ? masked(v, valid[pos]) : v;
+        for (int k = 0; k < K3G_VEC; ++k) {
+            const long long p = p0 + k * grid;
+            if (p < n) {
+                if constexpr (AFFINE) {
+                    const T* s = base[a.col_src[c]];
+                    v[k] = masked(__ldg(s + a.i0[c] + g * a.stride[c]), a.valid[p] != 0);
+                } else {
+                    v[k] = table_entry(base, (long long)code[p], a.jbits);
+                }
+            }
+            if constexpr (AFFINE) {
+                g += dq;
+                c += dr;
+                if (c >= a.C) { c -= a.C; ++g; }
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < K3G_VEC; ++k) {
+            const long long p = p0 + k * grid;
+            if (p < n) a.out[p] = v[k];
+        }
+        if constexpr (AFFINE) {
+            g0 += sq;
+            c0 += sr;
+            if (c0 >= a.C) { c0 -= a.C; ++g0; }
+        }
+    }
 }
 
 template <typename T>
@@ -134,18 +206,38 @@ pencil_scatter_kernel(const T* __restrict__ X, const int* __restrict__ single_ds
     out[single_dst[t]] = src >= 0 ? add(zero_of(T()), X[src]) : zero_of(T());
 }
 
+static int k3g_max_blocks() {
+    static int blocks = 0;
+    if (!blocks) {
+        int dev = 0, sms = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        blocks = sms * K3G_BLOCKS_PER_SM;
+    }
+    return blocks;
+}
+
+// `code_bytes` 4 or 8 names the table form (and its integer); 0 the affine
+// form, whose i0, stride, col_src and valid must be given
 template <typename T>
-int launch_gather(const void* const* srcs, int nsrc, const int* col_src, const uint8_t* gsrc,
-                  const int64_t* i0, const int64_t* stride, const int64_t* idx,
+int launch_gather(const void* const* srcs, int nsrc, const void* code, int code_bytes,
+                  int jbits, const int64_t* i0, const int64_t* stride, const int* col_src,
                   const uint8_t* valid, T* out, int G, int C, cudaStream_t stream) {
-    if (nsrc < 1 || nsrc > K3_MAX_SRC || G < 1 || C < 1 || (!idx && (!i0 || !stride))
-        || (gsrc && !idx))
+    if (nsrc < 1 || nsrc > K3_MAX_SRC || G < 1 || C < 1 || jbits < 0 || jbits > 63
+        || (code_bytes ? !code : (!i0 || !stride || !col_src || !valid))
+        || (code_bytes != 0 && code_bytes != 4 && code_bytes != 8))
         return (int)cudaErrorInvalidValue;
     Sources src = {};
     for (int e = 0; e < nsrc; ++e) src.p[e] = srcs[e];
-    dim3 grid((C + K3_THREADS - 1) / K3_THREADS, G);
-    pencil_gather_kernel<T><<<grid, K3_THREADS, 0, stream>>>(
-        src, col_src, gsrc, i0, stride, idx, valid, out, G, C);
+    GatherArgs<T> a = {code, jbits, i0, stride, col_src, valid, out, C, (long long)G * C};
+    const int blocks = (int)min((long long)k3g_max_blocks(),
+                                (a.n + K3G_THREADS - 1) / K3G_THREADS);
+    if (code_bytes == 4)
+        pencil_gather_kernel<T, int, false><<<blocks, K3G_THREADS, 0, stream>>>(src, a);
+    else if (code_bytes == 8)
+        pencil_gather_kernel<T, long long, false><<<blocks, K3G_THREADS, 0, stream>>>(src, a);
+    else
+        pencil_gather_kernel<T, int, true><<<blocks, K3G_THREADS, 0, stream>>>(src, a);
     return (int)cudaGetLastError();
 }
 
@@ -162,21 +254,22 @@ int launch_scatter(const T* X, const int* single_dst, const int* single_src, int
 
 }  // namespace
 
-extern "C" int k3_pencil_gather_f64(const void* const* srcs, int nsrc, const int* col_src,
-                                    const uint8_t* gsrc, const int64_t* i0, const int64_t* stride,
-                                    const int64_t* idx, const uint8_t* valid, double* out,
-                                    int G, int C, void* stream) {
-    return launch_gather(srcs, nsrc, col_src, gsrc, i0, stride, idx, valid, out, G, C,
-                         (cudaStream_t)stream);
+extern "C" int k3_pencil_gather_f64(const void* const* srcs, int nsrc, const void* code,
+                                    int code_bytes, int jbits, const int64_t* i0,
+                                    const int64_t* stride, const int* col_src,
+                                    const uint8_t* valid, double* out, int G, int C,
+                                    void* stream) {
+    return launch_gather(srcs, nsrc, code, code_bytes, jbits, i0, stride, col_src, valid, out,
+                         G, C, (cudaStream_t)stream);
 }
 
-extern "C" int k3_pencil_gather_c128(const void* const* srcs, int nsrc, const int* col_src,
-                                     const uint8_t* gsrc, const int64_t* i0,
-                                     const int64_t* stride, const int64_t* idx,
+extern "C" int k3_pencil_gather_c128(const void* const* srcs, int nsrc, const void* code,
+                                     int code_bytes, int jbits, const int64_t* i0,
+                                     const int64_t* stride, const int* col_src,
                                      const uint8_t* valid, void* out, int G, int C,
                                      void* stream) {
-    return launch_gather(srcs, nsrc, col_src, gsrc, i0, stride, idx, valid, (double2*)out, G,
-                         C, (cudaStream_t)stream);
+    return launch_gather(srcs, nsrc, code, code_bytes, jbits, i0, stride, col_src, valid,
+                         (double2*)out, G, C, (cudaStream_t)stream);
 }
 
 extern "C" int k3_pencil_scatter_f64(const double* X, const int* single_dst,

@@ -308,18 +308,45 @@ def _check_f64(name, what, t, shape, device):
                          f"{tuple(shape)} on {device}")
 
 
-def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None):
+# K8a's shared path: a step's arrays in shared memory, one inverting thread a
+# column among the block's last K8_INVERT_THREADS (csrc/banded_kernels.cu)
+K8_INVERT_THREADS = 64
+
+
+def k8_step_doubles(nb):
+    """Doubles of one K8a step (A, Q twice, Pn, T, Ri, beta, dg), as the
+    kernel's k8_step_doubles."""
+    return 19 * nb * nb + 2 * nb
+
+
+def k8_plan(nb, general=None):
+    """K8a's path for blocks of nb rows: the shared path (a step in shared
+    memory: nb <= 39) or, past it, the general path (the step in a
+    device-memory workspace of k8_step_doubles(nb) doubles a group, R^-1 by
+    columns looped over the block's threads: any nb). `general` forces a
+    path, as the smoke does to hold the two against each other at RBC's
+    nb."""
+    if general is None:
+        general = nb > K8_INVERT_THREADS or k8_step_doubles(nb) * 8 > K5_SMEM
+    return dict(general=bool(general), smem=0 if general else k8_step_doubles(nb) * 8,
+                workspace=k8_step_doubles(nb) if general else 0)
+
+
+def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None, plan=None):
     """
     K8a: block-tridiagonal QR factorization with pivot pinning of (G, Nb, nb,
     nb) f64 tensors -> dict Qt, QtL, Rinv, R1, R2 (f64), pins (bool), sigma.
     With `out32` (a dict of preallocated tensors of the factors' shapes in
     the persisted factor type) the f32 copies are written in the same pass.
+    `plan` is k8_plan(nb)'s by default.
 
     Replaces dedalus_tpu/ops/banded.py:364 _factor_device (and its host form
     :286 _factor_host). CPU tensors run the plain twin; CUDA tensors launch
     csrc/banded_kernels.cu block_tridiag_qr_factor_kernel: one thread block
     per group walks the blocks in order with the carry, the panel and Q^T in
-    shared memory, Householder reflectors in LAPACK's sign convention.
+    shared memory (past nb = 39 in a device-memory workspace: the general
+    path, counted apart), Householder reflectors in LAPACK's sign
+    convention.
     """
     if diag.device.type == 'cpu':
         qr = factor_block_tridiag_qr_plain(diag, sub, sup, pin_tol)
@@ -346,17 +373,21 @@ def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None):
                 raise ValueError(f"K8a: out32[{k}] must be a contiguous float32 tensor of "
                                  f"shape {shapes[k]} on {dev}")
         p32 = [out32[k].data_ptr() for k in FACTOR_KEYS]
+    plan = k8_plan(nb) if plan is None else plan
+    ws = (torch.empty((G, plan['workspace']), dtype=torch.float64, device=dev)
+          if plan['general'] else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().k8_block_tridiag_qr_factor_f64(
         diag.data_ptr(), sub.data_ptr(), sup.data_ptr(),
         *(qr[k].data_ptr() for k in FACTOR_KEYS), pins.data_ptr(), qr['sigma'].data_ptr(),
-        *p32, G, Nb, nb, float(pin_tol), stream), 'block_tridiag_qr_factor')
-    build.count(factor_block_tridiag_qr)
+        *p32, 0 if ws is None else ws.data_ptr(), G, Nb, nb, float(pin_tol), stream),
+        'block_tridiag_qr_factor')
+    build.count(factor_block_tridiag_qr, 'general' if plan['general'] else None)
     qr['pins'] = pins.view(torch.bool)
     return qr
 
 
-factor_block_tridiag_qr.launches = 0
+factor_block_tridiag_qr.launches = factor_block_tridiag_qr.launches_general = 0
 
 
 def multi_rhs_solve_plain(qr, Rhs):
@@ -382,15 +413,41 @@ def multi_rhs_solve_plain(qr, Rhs):
     return x
 
 
-def multi_rhs_solve(qr, Rhs):
+def k8b_plan(nb, k, staged=None, kc=None):
+    """K8b's launch for blocks of nb rows and k columns: `staged` factor
+    blocks (8 nb^2 doubles in shared memory, double-buffered by cp.async,
+    where they and one column's 4 nb vector doubles fit K5_SMEM: nb <= 60)
+    or read from device memory; the columns in `chunks` of `kc` (the most
+    whose vectors fit beside them), one block a (group, chunk). `general`:
+    the form past the one-chunk staged launch, counted apart. Past nb = 7264
+    not one column fits: raises, naming nb. `staged` and `kc` force a form,
+    as the smoke does to hold it against the one-chunk launch."""
+    per = K5_SMEM // 8
+    if staged is None:
+        staged = 8 * nb * nb + 4 * nb <= per
+    fit = (per - (8 * nb * nb if staged else 0)) // (4 * nb)
+    if fit < 1:
+        raise ValueError(f"K8b: blocks of nb={nb} rows need {32 * nb} bytes of shared memory "
+                         f"a Woodbury column{' beside the staged factors' if staged else ''}, "
+                         f"over {K5_SMEM}")
+    kc = min(max(k, 1), fit) if kc is None else kc
+    chunks = max(1, -(-k // kc))
+    return dict(staged=bool(staged), kc=kc, chunks=chunks,
+                smem=((8 * nb * nb if staged else 0) + 4 * nb * kc) * 8,
+                general=not staged or chunks > 1)
+
+
+def multi_rhs_solve(qr, Rhs, plan=None):
     """
     K8b: the f64 sweeps with k right-hand-side columns per block, Rhs
-    (G, Nb, nb, k) -> (G, Nb, nb, k), for the Woodbury columns W1.
+    (G, Nb, nb, k) -> (G, Nb, nb, k), for the Woodbury columns W1. `plan`
+    is k8b_plan(nb, k)'s by default.
 
     Replaces dedalus_tpu/ops/banded.py:454 _multi_rhs_solve_device. CPU
     tensors run the plain twin; CUDA tensors launch csrc/banded_kernels.cu
-    multi_rhs_solve_kernel (one thread block per group; all k columns share
-    one read of the f64 factors).
+    multi_rhs_solve_kernel (one thread block per group and chunk of columns;
+    a chunk's columns share one read of the f64 factors; past one staged
+    chunk the general form, counted apart).
     """
     if Rhs.device.type == 'cpu':
         return multi_rhs_solve_plain(qr, Rhs)
@@ -402,16 +459,17 @@ def multi_rhs_solve(qr, Rhs):
     for key, shape in shapes.items():
         _check_f64('K8b', key, qr[key], shape, dev)
     _check_f64('K8b', 'Rhs', Rhs, (G, Nb, nb, k), dev)
+    plan = k8b_plan(nb, k) if plan is None else plan
     X = torch.empty_like(Rhs)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().k8_multi_rhs_solve_f64(
         *(qr[key].data_ptr() for key in FACTOR_KEYS), Rhs.data_ptr(), X.data_ptr(),
-        G, Nb, nb, k, stream), 'multi_rhs_solve')
-    build.count(multi_rhs_solve)
+        G, Nb, nb, k, plan['kc'], int(plan['staged']), stream), 'multi_rhs_solve')
+    build.count(multi_rhs_solve, 'general' if plan['general'] else None)
     return X
 
 
-multi_rhs_solve.launches = 0
+multi_rhs_solve.launches = multi_rhs_solve.launches_general = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1218,8 +1276,25 @@ def banded_solve_post_plain(fac, y, Dc, col_unperm, P, xbad=None, bad_idx=None,
     return accumulate.add_(x)
 
 
+# K6 post's warps a block (csrc/banded_kernels.cu K6_THREADS / 32)
+K6_WARPS = 16
+
+
+def k6_plan(B, scratch=None):
+    """K6 post's home for s, t and the warps' partial sums, (2 + K6_WARPS)
+    B doubles a group: shared memory (past 48 KB by the opt-in size: B >
+    341), or past K5_SMEM (B > 1614) a device-memory `scratch` of that size
+    a group. `general`: past 48 KB, counted apart. `scratch` forces a form,
+    as the smoke does to hold it against the shared one."""
+    doubles = (2 + K6_WARPS) * B
+    if scratch is None:
+        scratch = doubles * 8 > K5_SMEM
+    return dict(scratch=bool(scratch), doubles=doubles, smem=0 if scratch else doubles * 8,
+                general=bool(scratch) or doubles * 8 > 48 * 1024)
+
+
 def banded_solve_post(fac, y, Dc, col_unperm, col_perm, P, xbad=None, bad_idx=None,
-                      accumulate=None):
+                      accumulate=None, plan=None):
     """
     K6 post: Woodbury correction, dense override rows, Dc scaling and column
     unpermutation of the sweeps' output y (G, Pp) -> X (G, P) f64; with
@@ -1233,6 +1308,7 @@ def banded_solve_post(fac, y, Dc, col_unperm, col_perm, P, xbad=None, bad_idx=No
     inverse of `col_unperm`: the kernel scatters where the twin gathers.
     fac['W1'] (G, Pp, B) must be the transposed view of a contiguous
     (G, B, Pp) tensor, as the solver stores it: the kernel reads W1 along p.
+    `plan` is k6_plan(B)'s by default (past B = 341 the general form).
     """
     if y.device.type == 'cpu':
         return banded_solve_post_plain(fac, y, Dc, col_unperm, P, xbad, bad_idx, accumulate)
@@ -1271,18 +1347,21 @@ def banded_solve_post(fac, y, Dc, col_unperm, col_perm, P, xbad=None, bad_idx=No
     else:
         _check_f64('K6', 'accumulate', accumulate, (G, P), dev)
         X = accumulate
+    plan = k6_plan(B) if plan is None else plan
+    scratch = (torch.empty((G, plan['doubles']), dtype=torch.float64, device=dev)
+               if plan['scratch'] else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().k6_solve_post_f64(
         y.data_ptr(), Vfull.data_ptr(), W.data_ptr(), Sinv.data_ptr(), Dc.data_ptr(),
         col_perm.data_ptr(), xbad.data_ptr() if nbad else 0,
         bad_idx.data_ptr() if nbad else 0, nbad, X.data_ptr(), G, P, Pp, B,
-        int(fdt == torch.float64), int(wb64), int(accumulate is not None), stream),
-        'banded_solve_post')
-    build.count(banded_solve_post)
+        int(fdt == torch.float64), int(wb64), int(accumulate is not None),
+        0 if scratch is None else scratch.data_ptr(), stream), 'banded_solve_post')
+    build.count(banded_solve_post, 'general' if plan['general'] else None)
     return X
 
 
-banded_solve_post.launches = 0
+banded_solve_post.launches = banded_solve_post.launches_general = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1344,29 +1423,18 @@ def refinements_from_curve(curve, target, rule=None):
 def banded_card_limits(nb, nbord):
     """
     Raise, naming the ordering's nb and n_border, where a banded solver's
-    card kernels cannot take its blocks: K8a's factorization holds 19 nb^2
-    + 2 nb doubles of a step in shared memory (and one inverting thread a
-    column, nb <= 64), K8b's multi-column sweeps 8 nb^2 + 8 nb n_border
-    (its 2 n_border Woodbury columns), K6 post 18 B doubles for B = 2
-    n_border columns in 48 KB, and K5 4 nb carry elements on its direct
-    path (k5_plan). K4 (its general path past 32 rows), K5 (its direct path
-    past the ring) and K11b have no limit of their own below these.
-    Called when a solver is built on the card, before any launch.
+    card kernels cannot take its blocks. K8a, K6 and K4 take any size
+    (their general paths); K8b's general form holds 4 nb doubles of a
+    Woodbury column in shared memory (nb <= 7264) and K5's direct path 4 nb
+    carry elements of the f32 factors (nb <= 14528). Called when a solver is
+    built on the card, before any launch.
     """
-    need = {'K8a factorization': (19 * nb * nb + 2 * nb) * 8,
-            'K8b Woodbury columns': (8 * nb * nb + 8 * nb * nbord) * 8}
-    for what, smem in need.items():
-        if smem > K5_SMEM:
-            raise ValueError(f"banded solver on the card: the {what} needs {smem} bytes of "
-                             f"shared memory a group (nb={nb}, n_border={nbord}), over "
-                             f"{K5_SMEM}")
-    if nb > 64:
-        raise ValueError(f"banded solver on the card: the K8a factorization takes blocks "
-                         f"of at most 64 rows (nb={nb}, n_border={nbord})")
-    if 18 * 2 * nbord * 8 > 48 * 1024:
-        raise ValueError(f"banded solver on the card: K6 takes at most 341 Woodbury "
-                         f"columns (nb={nb}, n_border={nbord}: {2 * nbord})")
-    k5_plan(nb, 8)
+    try:
+        k8b_plan(nb, 2 * nbord)
+        k5_plan(nb, torch.finfo(FACTOR_DTYPE).bits // 8)
+    except ValueError as err:
+        raise ValueError(f"banded solver on the card (nb={nb}, n_border={nbord}): "
+                         f"{err}") from None
 
 
 class BorderedBandedSolver:

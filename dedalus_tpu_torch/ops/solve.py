@@ -234,9 +234,11 @@ def lu_solve(lu, perm, R):
 
     Replaces dedalus_tpu/ops/solve.py:53 batched_lu_solve. CPU tensors run
     the plain twin; CUDA tensors launch csrc/dense_kernels.cu
-    lu_solve_kernel (one block per group; latency-bound by its 2 P
-    dependent steps, its byte bound 0.0847 ms at RBC 256x64). Launches
-    count per form (build.count).
+    lu_solve_kernel (one block per group: the sweeps by block rows of 32 (16
+    in complex128), each warp's tiles streamed through its own cp.async
+    ring, the diagonal tile solved from shared memory by one warp while the
+    others run on; its byte bound 0.0847 ms at RBC 256x64). Launches count
+    per form (build.count).
     """
     if R.device.type == 'cpu':
         return lu_solve_plain(lu, perm, R)
@@ -250,6 +252,9 @@ def lu_solve(lu, perm, R):
     _check(R, dt, (G, P), 'R', 'K14a')
     if lu.device != R.device or perm.device != R.device:
         raise ValueError("K14a: factors and R must lie on one device")
+    if lu.data_ptr() % 16:
+        raise ValueError("K14a: the factors must start at a 16-byte boundary (the kernel "
+                         "copies their rows by 16-byte chunks)")
     X = torch.empty_like(R)
     build.check(build.launcher('k14a_lu_solve', dt)(
         lu.data_ptr(), perm.data_ptr(), R.data_ptr(), X.data_ptr(), G, P, _cuda_stream(R)),

@@ -1,7 +1,8 @@
-"""The card kernels' size limits (ROADMAP fault F7): K4, K5 and K11b at and
-past the sizes their tile kernels take pick their general paths and raise
-nothing; what stays limited on the card raises when a banded solver is
-built, naming nb and n_border.
+"""The card kernels' size limits (ROADMAP faults F7 and F8): K4, K5 and
+K11b at and past the sizes their tile kernels take pick their general paths
+and raise nothing; what stays limited on the card (past F8's general paths,
+tests/test_torch_f8_general.py) raises when a banded solver is built,
+naming nb and n_border.
 
 The general paths run only on the card. Their arithmetic is emulated here
 at the kernels' own indices against the plain twins and independent
@@ -372,13 +373,13 @@ def test_k11b_general_paths_at_large_da(da):
 
 
 def test_solver_build_names_what_stays_limited():
-    """The banded solver's other card kernels keep their limits (K8a's
-    factorization step in shared memory, K6's Woodbury columns): a solver
-    built on the card raises at its build, naming nb and n_border; RBC's
-    ordering (nb 19, n_border 13) passes."""
-    tb.banded_card_limits(19, 13)
-    tb.banded_card_limits(39, 13)
-    with pytest.raises(ValueError, match=r'nb=40, n_border=13'):
-        tb.banded_card_limits(40, 13)
-    with pytest.raises(ValueError, match=r'nb=19, n_border=200'):
-        tb.banded_card_limits(19, 200)
+    """Since F8's general paths (K8a's workspace, K8b's column chunks and
+    unstaged factors, K6 post's opt-in shared memory and scratch) the sizes
+    the old limits refused build on the card: RBC's ordering (nb 19,
+    n_border 13), nb 40, F8's (96, 180), n_border 200. What stays limited
+    is K8b's and K5's vectors in shared memory: past nb = 7264 the build
+    raises, naming nb and n_border."""
+    for nb, nbord in ((19, 13), (39, 13), (40, 13), (96, 180), (19, 200), (7264, 1)):
+        tb.banded_card_limits(nb, nbord)
+    with pytest.raises(ValueError, match=r'nb=7265, n_border=13'):
+        tb.banded_card_limits(7265, 13)

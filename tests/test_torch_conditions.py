@@ -163,15 +163,20 @@ def test_k3_conditioned_gather_matches_reference_exactly():
     datas = [rng.standard_normal(s) for s in shapes]
     ref = np.asarray(js.pencil.gather_eq_data([d for d in datas]))[:js.pencil.G_real]
     got = ts.pencil.gather_eq_data([torch.as_tensor(d) for d in datas])
-    assert ts.pencil.eq_gather.gsrc is not None
+    assert ts.pencil.eq_gather.code is not None
     np.testing.assert_array_equal(got.numpy(), ref)
-    # the plain twin is what the wrapper ran, and the table's view agrees
+    # the plain twin is what the wrapper ran, and the kernel's table (each
+    # entry's source and index, an invalid entry's code complemented) agrees
     gm = ts.pencil.eq_gather
     plain = sub.pencil_gather_plain(gm, [torch.as_tensor(d).reshape(-1) for d in datas])
     np.testing.assert_array_equal(plain.numpy(), ref)
     flat = [d.reshape(-1) for d in datas]
+    code = gm.code.numpy().astype(np.int64)
+    keep = code >= 0
+    u = np.where(keep, code, ~code)
+    src, idx = u >> gm.jbits, u & ((1 << gm.jbits) - 1)
     table = np.array([[flat[e][j] for e, j in zip(srow, irow)] for srow, irow in
-                      zip(gm.gsrc.numpy(), gm.idx.numpy())]) * gm.valid.numpy()
+                      zip(src, idx)]) * keep
     np.testing.assert_array_equal(table, ref)
 
 
