@@ -219,7 +219,8 @@ TOL = dict(block_tridiag_qr_solve=1e-5, banded_apply=1e-13, history_combine=1e-1
            rhs_stage=0.0, rhs_stage_c128=0.0, trailing_apply_c128=1e-13,
            banded_apply_general=1e-13, block_tridiag_qr_solve_general=1e-5,
            chebyshev_conversion_general=1e-12, block_tridiag_qr_factor_general=1e-11,
-           multi_rhs_solve_general=1e-11, banded_solve_post_general=1e-13)
+           multi_rhs_solve_general=1e-11, banded_solve_post_general=1e-13,
+           mixed_solve_general=MIXED_TOL)
 # K6 post with the Woodbury correction in the factor type (f32 sums in another
 # order than the plain version's): held at the sweeps' own tolerance
 TOL_POST_F32 = 1e-5
@@ -258,7 +259,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                    'dedalus_tpu/ops/banded.py:1736'),
     ball_radial_apply=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
                        'dedalus_tpu/core/basis_ball.py:221'),
-    regularity_recombine=('triton', 'dedalus_tpu_torch/csrc/regularity_recombine.py',
+    regularity_recombine=('cuda', 'dedalus_tpu_torch/csrc/regularity_kernels.cu',
                           'dedalus_tpu/core/basis_ball.py:92'),
     trailing_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                     'dedalus_tpu/core/basis_sphere.py:158'),
@@ -307,7 +308,7 @@ KERNELS = dict(   # name: (route, source, replaces)
                             'dedalus_tpu/core/basis_ball.py:221'),
     ball_radial_apply_rot_c128=('cuda', 'dedalus_tpu_torch/csrc/ball_kernels.cu',
                                 'dedalus_tpu/core/operators_ball.py:214'),
-    regularity_recombine_c128=('triton', 'dedalus_tpu_torch/csrc/regularity_recombine.py',
+    regularity_recombine_c128=('cuda', 'dedalus_tpu_torch/csrc/regularity_kernels.cu',
                                'dedalus_tpu/core/basis_ball.py:92'),
     shell_radial_transform_c128=('cuda', 'dedalus_tpu_torch/csrc/shell_kernels.cu',
                                  'dedalus_tpu/core/basis_ball.py:597'),
@@ -336,6 +337,11 @@ KERNELS = dict(   # name: (route, source, replaces)
                              'dedalus_tpu/ops/banded.py:454'),
     banded_solve_post_general=('cuda', 'dedalus_tpu_torch/csrc/banded_kernels.cu',
                                'dedalus_tpu/ops/banded.py:1786'),
+    # K14b's general path (mixed_solve_kernel, a block a group) past its cluster
+    # form's sizes: matsolver_loops_path solves a synthetic stack of P = 1000
+    # through it in a counted run of its own ('k14b_synthetic')
+    mixed_solve_general=('cuda', 'dedalus_tpu_torch/csrc/dense_kernels.cu',
+                         'dedalus_tpu/ops/solve.py:128'),
 )
 # The kernel wrappers of the fast transforms (dedalus_tpu_torch/ops/fft.py).
 # K12's complex select and scatter run inside K10 (its select store and
@@ -465,6 +471,7 @@ PATH_KERNELS = dict(
     f8_synthetic=('block_tridiag_qr_factor_general', 'multi_rhs_solve_general',
                   'block_tridiag_qr_solve_general', 'banded_solve_post_general',
                   'banded_apply_general'),
+    k14b_synthetic=('mixed_solve_general',),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -474,7 +481,7 @@ STEPS = {}      # main path -> steps of its timed run
 GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager steps
 GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
 # Main paths whose counted run takes no timestep (a boundary value solve)
-NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic')
+NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic', 'k14b_synthetic')
 
 
 def phase(msg):
@@ -709,6 +716,7 @@ def kernel_functions():
                 block_tridiag_qr_factor_general=[ob.factor_block_tridiag_qr],
                 multi_rhs_solve_general=[ob.multi_rhs_solve],
                 banded_solve_post_general=[ob.banded_solve_post],
+                mixed_solve_general=[osolve.mixed_solve],
                 **fast)
 
 
@@ -1756,17 +1764,13 @@ def ke_step_rows(path, solver, run, smi, kernel='polar_apply_kernel'):
     return out
 
 
-# The paths ab_compare reads by default: KE's trailing form and KH at the
-# four cells whose step runs them (ball64, shell192, shell192c-zcross,
-# ballihc64: ab_kt_kh_cells, computed once a side), rbc2048-poly (K14c's four calls
-# and its replayed step), KJ at KJ_SHAPE with shell192's replayed step
-# (ab_kj), the banded step (K4, K5, K6) at rbc2048, the same under the fast
-# transforms (K10-K12, K11b's conversion), rbc256c under `fast` (K10 with
-# K12's complex select and scatter), and K5 and K11b alone on random inputs
-# at those paths' shapes (ab_k5_k11b). The paths whose replayed step runs KE
-# and KF (disk, sphere, annulus) and the complex shell's ZCross cell
-# (shell192c-zcross) are read when named.
-AB_PATHS = ('rbc256-lu', 'rbc256c-lu', 'shell192', 'rbc2048')
+# The paths ab_compare reads by default: rbc256-mixed (K14b's replayed step
+# and its call, ab_mixed), KI at KI_SHAPES (ab_ki), rbc256-lu and rbc256c-lu
+# (K14a, ab_lu) and shell192 (K3's gather). Any other path of ab_side is read
+# when named: rbc2048 and its fast and poly cells, rbc256c-fast, k5-k11b, kj,
+# ke-trailing, kh, shell192c-zcross, and the KE paths (disk, sphere,
+# annulus).
+AB_PATHS = ('rbc256-mixed', 'ki', 'rbc256-lu', 'rbc256c-lu', 'shell192')
 # rbc256c-fast's fixed dt in ab_compare (its CFL loop's dt changes move the
 # host-bound loop more than a kernel does)
 AB_RBC256C_DT = 0.01
@@ -2301,14 +2305,60 @@ def ab_shell192(steps):
                 device_ms_per_step=sum(v[1] for v in table.values()))
 
 
+def ab_mixed(steps, dt=AB_RBC256C_DT):
+    """rbc256-mixed (the RBC example at 256x64 under matsolver='mixed')
+    stepped at a fixed dt: the replayed step's ms, K14b's records and device
+    ms a replayed step, and K14b's call on the step's own stacks (a seeded
+    R) by events and on the device beside the five torch products
+    (k14b_five_products) on the same stacks, with its bound; against the
+    plain twin (MIXED_TOL) and across two launches."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    dev, kind, smi = card()
+    solver = build_example('mixed')[0]
+
+    def run(n):
+        solver.run_steps(dt, n)
+
+    run(5)
+    graph_ms = [run_ms(solver, lambda: run(steps)) for _ in range(2)]
+    table = step_kernel_table(solver, lambda: run(10))
+    fact = next(f for f in solver.timestepper._stage_factors.values()
+                if getattr(f, 'method', None) == 'mixed')
+    G, P = fact.A.shape[:2]
+    gen = torch.Generator(device=dev).manual_seed(47)
+    R = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    call = lambda: osolve.mixed_solve(fact.Ainv, fact.A, R)
+    lib = lambda: k14b_five_products(fact.Ainv, fact.A, R)
+    X, X2, Xp = call(), call(), osolve.mixed_solve_plain(fact.Ainv, fact.A, R)
+    torch.cuda.synchronize()
+    k14b = dict(shape=[G, P], err=rel_err(X, Xp)[0], bitwise=torch.equal(X, X2),
+                ms=cuda_ms(call, 20), device_ms=device_ms_whole(call, 20, 'mixed_solve'),
+                library_ms=cuda_ms(lib, 20), library_device_ms=device_ms_whole(lib, 20),
+                bound_ms=bound(nbytes(fact.Ainv, fact.A, R, X), 10 * G * P * P)[0])
+    if not (k14b['err'] <= MIXED_TOL and k14b['bitwise']):
+        raise AssertionError(f"rbc256-mixed: K14b {k14b}")
+    out = dict(graph_ms_per_step=graph_ms, dt=dt, k14b_step=table_rows(table, 'mixed_solve'),
+               records_per_step=sum(v[0] for v in table.values()),
+               device_ms_per_step=sum(v[1] for v in table.values()), k14b=k14b)
+    print(f"[{smi}] rbc256-mixed at dt {dt}: graph ms/step {graph_ms}; K14b a replayed step "
+          f"{out['k14b_step']} (records, device ms); K14b's call {k14b}")
+    return out
+
+
+def ab_ki(steps=None):
+    """KI at KI_SHAPES through the side's wrapper (ki_reading): the parent's
+    Triton kernel or this tree's CUDA one."""
+    return {label: ki_reading(shape, label.endswith('c')) for label, shape in KI_SHAPES.items()}
+
+
 def ab_side(root, paths=AB_PATHS, steps=20):
     """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_rbc256c_fast for
     'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross',
     ab_rbc2048_poly for 'rbc2048-poly', ab_kj for 'kj', ab_lu for
-    'rbc256-lu' and 'rbc256c-lu', ab_shell192 for 'shell192', ab_ke_path for
-    the others) with the package of the checkout at `root` (this one,
-    or a parent's unpacked by git archive). Prints one JSON line;
-    ab_compare runs it."""
+    'rbc256-lu' and 'rbc256c-lu', ab_shell192 for 'shell192', ab_mixed for
+    'rbc256-mixed', ab_ki for 'ki', ab_ke_path for the others) with the
+    package of the checkout at `root` (this one, or a parent's unpacked by
+    git archive). Prints one JSON line; ab_compare runs it."""
     root = str(__import__('pathlib').Path(root).resolve())
     sys.path.insert(0, root)
     import dedalus_tpu_torch
@@ -2321,6 +2371,7 @@ def ab_side(root, paths=AB_PATHS, steps=20):
                    shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
                    k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
                    kj=ab_kj, ke_trailing=ab_ke_trailing, kh=ab_kh, shell192=ab_shell192,
+                   rbc256_mixed=ab_mixed, ki=ab_ki,
                    rbc256_lu=functools.partial(ab_lu, complex_data=False),
                    rbc256c_lu=functools.partial(ab_lu, complex_data=True)
                    ).get(path.replace('-', '_'), None)
@@ -2363,6 +2414,24 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                 print(f"[{runs[0]['card']}] {label} {path}: KF a replayed step and its calls "
                       f"(launches, kf_kernel device ms, [(shape, ranks, events ms, device ms, "
                       f"library events ms, library device ms)]) {kf}")
+            def call_row(c):
+                return (round(c['ms'], 4), c['device_ms'], round(c['library_ms'], 4),
+                        c['library_device_ms'], round(c['bound_ms'], 4), c['err'], c['bitwise'])
+
+            if path == 'rbc256-mixed':
+                print(f"[{runs[0]['card']}] {label} rbc256-mixed: graph ms/step {g}; the step's "
+                      f"device ms {[r['device_ms_per_step'] for r in rs]}; K14b a replayed step "
+                      f"{[r['k14b_step'] for r in rs]} (records, device ms); K14b's call "
+                      f"(events, device, five products events, device, bound, err, bitwise) "
+                      f"{[call_row(r['k14b']) for r in rs]}")
+                continue
+            if path == 'ki':
+                for shape in KI_SHAPES:
+                    cs = [r[shape] for r in rs]
+                    print(f"[{runs[0]['card']}] {label} KI {shape} {cs[0]['shape']} "
+                          f"{cs[0]['dtype']} (events, device, einsum events, device, bound, "
+                          f"err, bitwise) {[call_row(c) for c in cs]}")
+                continue
             if path in ('rbc256-lu', 'rbc256c-lu', 'shell192'):
                 k3 = [r['k3_gather'] for r in rs if 'k3_gather' in r]
                 k14a = [r['k14a'] for r in rs if 'k14a' in r]
@@ -4351,6 +4420,10 @@ K14A_SHAPES = dict(rbc256=(128, 525, torch.float64), rbc256c=(256, 263, torch.co
 # rings (2432 in f64): there it keeps them in X (check_k14_dense)
 K14A_LARGE = (2, 3300, torch.float64)
 CROSS_SHAPES = dict(shell=(3, 288, 144, 18), ball_ihc=(3, 96, 48, 48))
+# KI's grad(u) recombination at the dealias radius: ball64, shell192 and
+# the complex shell192c (its (re, im) view, N doubled)
+KI_SHAPES = dict(ball64=(9, 32, 2, 32, 48), shell192=(9, 96, 2, 96, 18),
+                 shell192c=(9, 96, 2, 96, 18))
 
 
 def device_sweep(reps=20):
@@ -4491,6 +4564,33 @@ def k14a_reading(G, P, dtype, reps=20):
                 bound_ms=bound(nbytes(lu, perm, R, X), ops * 2 * G * P * P)[0])
 
 
+def ki_reading(shape, complex_data, reps=20):
+    """KI's backward recombination of random data of `shape` (C, K, NP, L, N)
+    (complex128 where `complex_data`) through this tree's wrapper, by
+    events and on the device beside the einsum, against the plain twin and
+    across two launches, with its byte bound (each element read and written
+    once, Q's matrix once per ell)."""
+    from dedalus_tpu_torch.csrc import regularity_recombine as ki
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    C, K, NP, L, N = shape
+    x = torch.randn(shape, generator=gen, dtype=torch.float64, device=dev)
+    if complex_data:
+        x = torch.complex(x, torch.randn(shape, generator=gen, dtype=torch.float64, device=dev))
+    Q = torch.randn((K, L, C, C), generator=gen, dtype=torch.float64, device=dev)
+    Qc = Q.to(x.dtype)
+    run = lambda: ki.regularity_recombine(x, Q, False)
+    lib = lambda: torch.einsum('klab,bkpln->akpln', Qc, x)
+    y, y2, yp = run(), run(), ki.regularity_recombine_plain(x, Q, False)
+    torch.cuda.synchronize()
+    ops = 4 if complex_data else 2
+    return dict(shape=list(shape), dtype=str(x.dtype)[6:], err=rel_err(y, yp)[0],
+                bitwise=torch.equal(y, y2), ms=cuda_ms(run, 50),
+                device_ms=device_ms_whole(run, reps), library_ms=cuda_ms(lib, 50),
+                library_device_ms=device_ms_whole(lib, reps),
+                bound_ms=bound(nbytes(x, y) + L * C * C * 8, ops * C * x.numel())[0])
+
+
 def device_readings(reps=20):
     """The rows PERF.md had by events only, read on the device beside their
     library calls (device_sweep): KB (f64 at rbc256's stacks, c128 at
@@ -4498,9 +4598,10 @@ def device_readings(reps=20):
     recombination at ball64 and shell192, KH's rotation form at ballihc64's
     curl, on random data of those shapes; K3's gather on the shell192,
     rbc256c and rbc2048 pencils (their problems built for it); K14a at
-    rbc256's and rbc256c's stacks (K14A_SHAPES, random factors)."""
+    rbc256's and rbc256c's stacks (K14A_SHAPES, random factors); KI's
+    backward recombination at KI_SHAPES (ki_reading)."""
     from dedalus_tpu_torch.ops import solve as osolve, ball as oball
-    from dedalus_tpu_torch.csrc import rk_combine as rkc, regularity_recombine as ki
+    from dedalus_tpu_torch.csrc import rk_combine as rkc
     dev, kind, smi = card()
     gen = torch.Generator(device=dev).manual_seed(17)
     rand = lambda shape, dt=torch.float64: torch.randn(shape, generator=gen, dtype=dt,
@@ -4529,14 +4630,8 @@ def device_readings(reps=20):
     out['kc'] = row(lambda: rkc.rk_stage_combine(MX, [F0, F1], [L0, L1], rv, coef), None,
                     bound(nbytes(MX, F0, F1, L0, L1, rv, ck), 9 * ck.numel())[0],
                     shape=[2, 128, 525])
-    for label, K, L, Ng in (('ki_ball64', 32, 32, 48), ('ki_shell192', 96, 96, 18)):
-        xi, Q = rand((9, K, 2, L, Ng)), rand((K, L, 9, 9))
-        yk, yp = ki.regularity_recombine(xi, Q, False), ki.regularity_recombine_plain(xi, Q, False)
-        torch.cuda.synchronize()
-        out[label] = row(lambda: ki.regularity_recombine(xi, Q, False),
-                         lambda: torch.einsum('klab,bkpln->akpln', Q, xi),
-                         bound(nbytes(xi, yk) + L * 81 * 8, 18 * xi.numel())[0],
-                         shape=list(xi.shape), err=rel_err(yk, yp)[0])
+    for label, shape in KI_SHAPES.items():
+        out['ki_' + label] = ki_reading(shape, label.endswith('c'), reps)
     K, L, N = 32, 32, 32
     Ss = [rand((32, 32, 32)) for _ in range(4)]
     terms = [(Ss[0], 0, 1), (Ss[1], 1, 0), (Ss[2], 1, 2), (Ss[3], 2, 1)]
@@ -4573,6 +4668,9 @@ def device_readings(reps=20):
         if key.startswith('k3_gather_') and not (r['equal_to_twin'] and r['bitwise']):
             raise AssertionError(f"device_readings: {key} {r}")
         if key.startswith('k14a_') and not (r['err'] <= LU_TOL and r['bitwise']):
+            raise AssertionError(f"device_readings: {key} {r}")
+        if key.startswith('ki_') and not (r['err'] <= TOL['regularity_recombine']
+                                          and r['bitwise']):
             raise AssertionError(f"device_readings: {key} {r}")
     print(json.dumps({"device_readings": out, "card": smi}), flush=True)
     return out
@@ -5858,7 +5956,10 @@ def check_ball_kernels(solver, ctx):
         xi = rand((C, K, 2, L, Ng))
         for fwd in (True, False):
             yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            yk2 = ki.regularity_recombine(xi, Q, fwd)
             torch.cuda.synchronize()
+            if not torch.equal(yk, yk2):
+                raise AssertionError(f"regularity_recombine {list(xi.shape)}: two launches differ")
             errs.append(rel_err(yk, yp))
         if timed is None:
             timed = dict(
@@ -6182,7 +6283,10 @@ def check_shell_kernels(solver, ctx):
         xi = rand((C, K, 2, L, Ng))
         for fwd in (True, False):
             yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            yk2 = ki.regularity_recombine(xi, Q, fwd)
             torch.cuda.synchronize()
+            if not torch.equal(yk, yk2):
+                raise AssertionError(f"regularity_recombine {list(xi.shape)}: two launches differ")
             errs.append(rel_err(yk, yp))
         if timed is None:
             timed = dict(
@@ -6667,7 +6771,10 @@ def check_complex_shell_kernels(path, solver, ctx, u_f64):
         xi = crand((C, K, 2, L, Ng))
         for fwd in (True, False):
             yk, yp = ki.regularity_recombine(xi, Q, fwd), ki.regularity_recombine_plain(xi, Q, fwd)
+            yk2 = ki.regularity_recombine(xi, Q, fwd)
             torch.cuda.synchronize()
+            if not torch.equal(yk, yk2):
+                raise AssertionError(f"regularity_recombine {list(xi.shape)}: two launches differ")
             errs.append(rel_err(yk, yp))
         if timed is None:
             Qc = Q.to(torch.complex128)
@@ -7475,6 +7582,72 @@ def matsolvers_card_vs_cpu(steps=10):
             raise AssertionError(f"{ms}: card and CPU trajectories disagree: {err:.3e}")
 
 
+# K14b's synthetic stack past the cluster form (k14b_general_path)
+K14B_GENERAL = (8, 1000)
+
+
+def k14b_five_products(Ainv, A, R):
+    """K14b's function as torch runs it: five batched products (the f32
+    inverse three times, A twice) with the casts between."""
+    inv = lambda V: torch.matmul(Ainv, V.float()[..., None])[..., 0].double()
+    X = inv(R)
+    for _ in range(2):
+        X = X + inv(R - torch.matmul(A, X[..., None])[..., 0])
+    return X
+
+
+def k14b_forms(Ainv, A, R, reps=20):
+    """K14b on one stack in the plan's form and in the general form: equal
+    bit for bit, each across two launches, each by events and on the
+    device."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    G, P = R.shape
+    out = {}
+    for name, plan in (('plan', osolve.k14b_plan(G, P)),
+                       ('general', osolve.k14b_plan(G, P, general=True))):
+        run = lambda: osolve.mixed_solve(Ainv, A, R, plan)
+        X1, X2 = run(), run()
+        torch.cuda.synchronize()
+        out[name] = dict(plan=plan, X=X1, bitwise=torch.equal(X1, X2), ms=cuda_ms(run, reps),
+                         device_ms=device_ms_whole(run, reps, 'mixed_solve'))
+    if not (torch.equal(out['plan'].pop('X'), out['general'].pop('X'))
+            and out['plan']['bitwise'] and out['general']['bitwise']):
+        raise AssertionError(f"K14b's plan and general forms differ: {out}")
+    return out
+
+
+def k14b_general_path():
+    """K14b's general path past the cluster form: a synthetic well-conditioned
+    stack of K14B_GENERAL (G, P) in a counted run of its own
+    ('k14b_synthetic'), against its twin, two launches bit for bit, by events
+    and on the device beside the five torch products, with its bound."""
+    from dedalus_tpu_torch.ops import solve as osolve
+    dev = torch.device(DEVICE)
+    G, P = K14B_GENERAL
+    if osolve.k14b_plan(G, P)['form'] != 'general':
+        raise AssertionError(f"K14b at {K14B_GENERAL} did not take the general path")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    A = torch.randn((G, P, P), generator=gen, dtype=torch.float64, device=dev) / P ** 0.5
+    A += 4 * torch.eye(P, dtype=torch.float64, device=dev)
+    Ainv = torch.linalg.inv(A).float().contiguous()
+    R = torch.randn((G, P), generator=gen, dtype=torch.float64, device=dev)
+    run = lambda: osolve.mixed_solve(Ainv, A, R)
+    lib = lambda: k14b_five_products(Ainv, A, R)
+    X = count_launches('k14b_synthetic', 1, run)
+    X2, Xp = run(), osolve.mixed_solve_plain(Ainv, A, R)
+    torch.cuda.synchronize()
+    if not torch.equal(X, X2):
+        raise AssertionError("mixed_solve_general: two launches differ")
+    b = bound(nbytes(Ainv, A, R, X), 10 * G * P * P)
+    r = RESULTS['mixed_solve_general'] = dict(
+        err=rel_err(X, Xp), ms=cuda_ms(run, 20),
+        plain_ms=cuda_ms(lambda: osolve.mixed_solve_plain(Ainv, A, R), 20),
+        library_ms=cuda_ms(lib, 20), bound_ms=b[0], bound_by=b[1],
+        device_ms=device_ms(run, 10, 'mixed_solve'), library_device_ms=device_ms(lib, 10),
+        bitwise=True, shape=[G, P, P])
+    check_tolerances({'mixed_solve_general': r})
+
+
 def check_k14_dense(fact, R, A):
     """K14a (lu) or K14b (mixed) against its twin on the loop's last solve,
     with both residuals against A. K14a on a complex stack records as
@@ -7498,11 +7671,7 @@ def check_k14_dense(fact, R, A):
         plain = lambda: osolve.mixed_solve_plain(fact.Ainv, fact.A, R)
 
         def library():     # the five products in torch
-            inv = lambda V: torch.matmul(fact.Ainv, V.float()[..., None])[..., 0].double()
-            X = inv(R)
-            for _ in range(2):
-                X = X + inv(R - torch.matmul(fact.A, X[..., None])[..., 0])
-            return X
+            return k14b_five_products(fact.Ainv, fact.A, R)
 
         Xk = kernel()
         b = bound(nbytes(fact.Ainv, fact.A, R, Xk), 10 * G * P * P)
@@ -7512,7 +7681,7 @@ def check_k14_dense(fact, R, A):
         raise AssertionError(f"{name}: two launches differ")
     RESULTS[name] = dict(err=rel_err(Xk, Xp), ms=cuda_ms(kernel, 20), plain_ms=cuda_ms(plain, 20),
                          library_ms=cuda_ms(library, 20), bound_ms=b[0], bound_by=b[1],
-                         device_ms=device_ms(kernel, 10, 'solve_kernel'),
+                         device_ms=device_ms(kernel, 10, name.replace('_c128', '')),
                          library_device_ms=device_ms(library, 10), bitwise=True,
                          shape=[G, P, P], solve_residual=resid(Xk),
                          solve_residual_plain=resid(Xp))
@@ -7520,6 +7689,12 @@ def check_k14_dense(fact, R, A):
     print(f"{name}: residuals kernel {r['solve_residual']:.3e} plain "
           f"{r['solve_residual_plain']:.3e}; two launches equal; on the device "
           f"{r['device_ms']} ms against the library's {r['library_device_ms']}")
+    if name == 'mixed_solve':
+        r['forms'] = k14b_forms(fact.Ainv, fact.A, R)
+        forms = [(k, v['plan'], round(v['ms'], 4), v['device_ms'])
+                 for k, v in r['forms'].items()]
+        print(f"mixed_solve's forms at {[G, P]} (plan, events ms, device ms; equal bit for "
+              f"bit): {forms}")
     if name == 'lu_solve':
         big = r['large_p'] = k14a_reading(*K14A_LARGE)
         print(f"lu_solve at {big['shape']} (its unknowns in X): {big}")
@@ -7564,6 +7739,8 @@ def matsolver_loops_path(iterations=LOOP_ITERATIONS):
         A = solver.pencil.combined_with_pivots({'M': 1.0, 'L': kHii})
         if ms in ('lu', 'mixed'):
             check_k14_dense(last['fact'], last['R'], A)
+        if ms == 'mixed':
+            k14b_general_path()
         X = last['X']
         resid = float(torch.linalg.norm(torch.matmul(A, X[..., None])[..., 0] - last['R'])
                       / torch.linalg.norm(last['R']))

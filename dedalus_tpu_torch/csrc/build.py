@@ -48,6 +48,7 @@ SIGNATURES = {
         'k14a_lu_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
         'k14a_lu_solve_c128': [_P] * 4 + [_I] * 2 + [_P],
         'k14b_mixed_solve_f64': [_P] * 4 + [_I] * 2 + [_P],
+        'k14b_mixed_solve_cluster_f64': [_P] * 4 + [_I] * 6 + [_P],
     },
     'separable_kernels': {
         'k14c_separable_apply_f64': [_P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _P] + [_I] * 3
@@ -83,6 +84,10 @@ SIGNATURES = {
         'k11_dct3_post_f64': [_P] * 2 + [_I] * 4 + [_P],
         'k12_fourier_pack_f64': [_P] * 4 + [_I] * 6 + [_D] * 2 + [_P],
         'k12_fourier_unpack_f64': [_P] * 2 + [_I] * 5 + [_D] * 2 + [_I, _P],
+    },
+    'regularity_kernels': {
+        'ki_regularity_recombine_f64': [_P] * 3 + [_I] * 8 + [_P],
+        'ki_geometry': [_P, _I],
     },
     'spin_kernels': {
         'kf_spin_recombine': [_P, _P],

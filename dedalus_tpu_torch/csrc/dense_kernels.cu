@@ -31,6 +31,7 @@
 // an odd double every other row, so the first element is peeled off and the
 // rest is read as double2; the 32 partial sums meet in warp shuffles.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -652,11 +653,33 @@ int launch_lu(const T* LU, const int* perm, const T* R, T* X, int G, int P,
 // to f32, f32 sums, the product widened to f64) and the residual and the
 // update in f64, as the reference's batched_mixed_solve.
 //
-// KA's design with an f32 inverse: one block per group runs the whole solve
-// in one launch with the vectors in shared memory (R and X in f64, the f32
-// operand of the inverse, 10.5 KB at P = 525). Bound by reading Ainv32 (141 MB at RBC
-// 256x64) and A (282 MB) once: 0.126 ms; the passes read Ainv32 three times
-// and A twice.
+// Bound by reading Ainv32 (141 MB at RBC 256x64) and A (282 MB) once:
+// 0.126 ms. The five phases depend on each other (each needs the whole
+// previous vector), so the least traffic needs a group's stacks on chip
+// across all five.
+//
+// The cluster form (mixed_solve_cluster_kernel, ops/solve.py k14b_plan):
+// one thread-block cluster of CS blocks a group (sm_90's cluster launch;
+// CS = 16 is non-portable), block c holding rows [c rows, (c + 1) rows) of
+// Ainv32 in its shared memory, copied once by 16-byte cp.async at the rows'
+// own 16-byte phase. Each phase's vector (X in f64, the residual cast to
+// f32) goes to every block of the cluster through distributed shared
+// memory: lane q of the row's warp stores the row's value into block q. One
+// cluster barrier a phase (4 in all). The rows of A are read from device
+// memory in the two residual phases (705 MB at RBC 256x64, 0.21 ms).
+//
+// A block takes at most K14B_SMEM bytes, so two clusters share the same SMs
+// (76 KB a block at RBC 256x64's 16 blocks of 33 rows), and the phases are
+// chains of a warp's rows, so a block gets a warp for every two of its rows
+// (544 threads for 33 rows). Staging A too was slower on the card (PERF.md
+// section 6): 16 blocks of 219 KB a group fit only 7 clusters at
+// once, and device memory idled through their phases. The general path
+// (mixed_solve_kernel, one block a group) stays for P past the cluster
+// form: it reads Ainv32 three times and A twice.
+//
+// Both run each row's dot in the same order (a warp a row, lane-strided,
+// the shuffle tree; the f64 rows through warp_row_dot itself), so the two
+// forms agree bit for bit.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float warp_row_dot_f32(const float* __restrict__ row,
@@ -711,6 +734,133 @@ mixed_solve_kernel(const float* __restrict__ Ainv, const double* __restrict__ A,
     for (int i = threadIdx.x; i < P; i += blockDim.x) X[(size_t)g * P + i] = xs[i];
 }
 
+// The cluster form's shared buffers, byte offsets from a 16-byte aligned
+// base: the whole X (f64), the whole f32 operand, this block's rows of R and
+// its rows of Ainv32, staged at their device-memory 16-byte phase (16 bytes
+// of slack). A block's most bytes and threads: two blocks share an SM.
+constexpr size_t K14B_SMEM = 113 * 1024;
+constexpr int K14B_MAX_CLUSTER = 16;
+constexpr int K14B_THREADS = 576;
+
+__host__ __device__ constexpr size_t k14b_round16(size_t b) { return (b + 15) / 16 * 16; }
+
+struct MixedLayout {
+    size_t xs, v32, rs, ainv, total;
+    __host__ __device__ MixedLayout(int P, int rows) {
+        xs = 0;
+        v32 = xs + k14b_round16((size_t)8 * P);
+        rs = v32 + k14b_round16((size_t)4 * P);
+        ainv = rs + k14b_round16((size_t)8 * rows);
+        total = ainv + k14b_round16((size_t)4 * rows * P) + 16;
+    }
+};
+
+// `bytes` bytes at `src` into shared memory at dst16 + (src & 15) by 16-byte
+// cp.async from the 16-byte boundary at or before src (the tensor's base is
+// 16-byte aligned, so those leading bytes are its own; past the end the
+// chunk is zero-filled). Returns the shared address of src's first byte.
+__device__ __forceinline__ unsigned char* k14b_stage(unsigned char* dst16,
+                                                     const unsigned char* src, size_t bytes,
+                                                     int tid, int nthreads) {
+    const size_t head = reinterpret_cast<uintptr_t>(src) & 15;
+    const unsigned char* s0 = src - head;
+    const size_t total = head + bytes;
+    const size_t n = (total + 15) / 16;
+    for (size_t q = tid; q < n; q += nthreads) {
+        const size_t left = total - 16 * q;
+        lu_copy16(dst16 + 16 * q, s0 + 16 * q, left >= 16 ? 16 : (int)left);
+    }
+    return dst16 + head;
+}
+
+// warp_row_dot_f32 on a row in shared memory (the same sums)
+__device__ __forceinline__ float smem_row_dot_f32(const float* row, const float* x, int n,
+                                                  int lane) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < n; k += 32) acc = fmaf(row[k], x[k], acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    return acc;
+}
+
+// K14b's cluster form: up to K14B_THREADS threads a block, a warp a row at a
+// time, two blocks an SM (two clusters share the SMs)
+__global__ void __launch_bounds__(K14B_THREADS, 2)
+mixed_solve_cluster_kernel(const float* __restrict__ Ainv, const double* __restrict__ A,
+                           const double* __restrict__ R, double* __restrict__ X, int P,
+                           int rows) {
+    namespace cg = cooperative_groups;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cs = (int)cluster.num_blocks();
+    const int c = (int)cluster.block_rank();
+    const int g = blockIdx.x / cs;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+    const int r0 = c * rows;
+    // (check_mixed_plan leaves no block without rows)
+    const int nr = min(rows, P - r0);
+    const MixedLayout lay(P, rows);
+    double* xs = reinterpret_cast<double*>(smem_raw + lay.xs);
+    float* v32 = reinterpret_cast<float*>(smem_raw + lay.v32);
+    double* rs = reinterpret_cast<double*>(smem_raw + lay.rs);
+    const size_t moff = (size_t)g * P * P + (size_t)r0 * P;
+    const float* ai = reinterpret_cast<const float*>(
+        k14b_stage(smem_raw + lay.ainv, reinterpret_cast<const unsigned char*>(Ainv + moff),
+                   (size_t)nr * P * sizeof(float), tid, nthreads));
+    asm volatile("cp.async.commit_group;\n" ::);
+    for (int i = tid; i < P; i += nthreads) v32[i] = (float)R[(size_t)g * P + i];
+    for (int i = tid; i < nr; i += nthreads) rs[i] = R[(size_t)g * P + r0 + i];
+    // Lane q < cs stores a row's value into block q's copy
+    const bool put = lane < cs;
+    double* xs_q = cluster.map_shared_rank(xs, put ? lane : 0);
+    float* v32_q = cluster.map_shared_rank(v32, put ? lane : 0);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // Every block of the cluster has started (before the first remote
+    // store), and this block's rows of Ainv32 and its operand are in place
+    cluster.sync();
+    for (int i = warp; i < nr; i += nwarps) {
+        const float v = smem_row_dot_f32(ai + (size_t)i * P, v32, P, lane);
+        if (put) xs_q[r0 + i] = (double)v;
+    }
+    cluster.sync();
+    for (int pass = 0; pass < 2; ++pass) {
+        // (every block has finished reading the f32 operand: the residual
+        // overwrites it)
+        for (int i = warp; i < nr; i += nwarps) {
+            const double v = warp_row_dot(A + moff + (size_t)i * P, xs, P, lane);
+            if (put) v32_q[r0 + i] = (float)(rs[i] - v);
+        }
+        cluster.sync();
+        for (int i = warp; i < nr; i += nwarps) {
+            // (read before the shuffles: the row's own block is one of the
+            // stores below)
+            const double x0 = xs[r0 + i];
+            const float v = smem_row_dot_f32(ai + (size_t)i * P, v32, P, lane);
+            const double x1 = x0 + (double)v;
+            if (pass == 0) {
+                if (put) xs_q[r0 + i] = x1;
+            } else if (lane == 0) {
+                X[(size_t)g * P + r0 + i] = x1;
+            }
+        }
+        // (no remote store follows the last phase: a block may leave)
+        if (pass == 0) cluster.sync();
+    }
+}
+
+// A cluster plan as ops/solve.py k14b_plan makes it (every block with rows),
+// or cudaErrorInvalidValue
+int check_mixed_plan(int G, int P, int cs, int rows, int threads, int smem) {
+    const bool size_ok = cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == K14B_MAX_CLUSTER;
+    if (!size_ok || G < 1 || P < 1 || rows != (P + cs - 1) / cs || (cs - 1) * rows >= P
+        || threads % 32 || threads < 32 || threads > K14B_THREADS
+        || (size_t)smem != MixedLayout(P, rows).total || (size_t)smem > K14B_SMEM)
+        return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
 }  // namespace
 
 extern "C" int k14a_lu_solve_f64(const double* LU, const int* perm, const double* R,
@@ -734,5 +884,37 @@ extern "C" int k14b_mixed_solve_f64(const float* Ainv, const double* A, const do
         if (err != cudaSuccess) return (int)err;
     }
     mixed_solve_kernel<<<G, KA_THREADS, smem, (cudaStream_t)stream>>>(Ainv, A, R, X, P);
+    return (int)cudaGetLastError();
+}
+
+// K14b's cluster form: cs blocks a group of `threads` threads, `rows` rows
+// a block; smem the plan's shared bytes (checked against the layout)
+extern "C" int k14b_mixed_solve_cluster_f64(const float* Ainv, const double* A,
+                                            const double* R, double* X, int G, int P, int cs,
+                                            int rows, int threads, int smem, void* stream) {
+    const int bad = check_mixed_plan(G, P, cs, rows, threads, smem);
+    if (bad) return bad;
+    auto kernel = mixed_solve_cluster_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    if (err != cudaSuccess) return (int)err;
+    if (cs > 8) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)G * (unsigned)cs, 1, 1);
+    cfg.blockDim = dim3((unsigned)threads, 1, 1);
+    cfg.dynamicSmemBytes = (size_t)smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, Ainv, A, R, X, P, rows);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """
-KI: the regularity recombination of ball and shell tensors, a Triton kernel
-with its plain twin.
+KI: the regularity recombination of ball and shell tensors, a CUDA kernel
+(csrc/regularity_kernels.cu) with its plain twin.
 
 Replaces dedalus_tpu/core/basis_ball.py:77-95 _regularity_recombine, the
 einsums at :92 (forward: regularity = Q^T spin) and :94 (backward: spin =
@@ -15,26 +15,25 @@ components of a spherical field mix through the intertwiner Q(ell)
 with k the azimuthal wavenumber, p its (cos, -sin) pair slot (one slot for
 a field constant along the angles), l the colatitude slot (ell = k + l) and
 n the radial index. Each output element is a fixed C-term combination of C
-inputs, with no reuse beyond the small Q[k, l] block: one fused elementwise
-pass, bound by device-memory bandwidth (each element read and written
-once). A program loads the C inputs of a block of (k, p, l, n) positions
-once and writes the C outputs; the Q entries of a position's (k, l) are
-gathered from the (K, L, C, C) stack, which stays in cache.
+inputs: bound by device-memory bandwidth (each element read and written
+once). The kernel's block is one (k, l-range) of `ki_plan`'s table over
+every pair slot: it stages that range's Q[k, l] blocks in shared memory
+once and streams the C components along the contiguous (l, n) run.
 
 Complex data (the signed (+m, -m) slots of a complex128 field) runs as its
 float64 (re, im) view: Q is real and acts on both parts alike, so the pair
 is a trailing radial axis of twice the length, N -> 2N, in the same kernel;
 those launches count in `launches_c128`.
-
-Q travels as a float64 tensor on the data's device: Python floats would
-reach the Triton kernel as float32. `triton` is imported inside the
-launching function, so machines without it only ever take the plain twin.
 """
 
 import torch
 
-BLOCK = 256
-_kernel = None
+# The kernel's constants (csrc/regularity_kernels.cu, checked against the
+# library's ki_geometry at the first launch): threads a block, the items a
+# block aims at, the most colatitude slots a block stages
+KI_THREADS = 256
+KI_ITEMS = 256
+KI_MAX_LB = 32
 
 
 def regularity_recombine_plain(x, Q, forward):
@@ -44,33 +43,25 @@ def regularity_recombine_plain(x, Q, forward):
     return torch.einsum(eq, Q.to(x.dtype), x)
 
 
-def _build_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def kernel(x, out, q, n_pos, NP, L, N, C: tl.constexpr, FORWARD: tl.constexpr,
-               BLOCK: tl.constexpr):
-        pid = tl.program_id(0)
-        offs = pid * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n_pos
-        # position -> (k, l) of the (K, NP, L, N) positions
-        t = offs // N
-        l = t % L
-        k = t // (L * NP)
-        qbase = (k * L + l) * (C * C)
-        for a in tl.static_range(C):
-            acc = tl.zeros((BLOCK,), dtype=tl.float64)
-            for b in tl.static_range(C):
-                if FORWARD:
-                    w = tl.load(q + qbase + b * C + a, mask=mask, other=0.0)
-                else:
-                    w = tl.load(q + qbase + a * C + b, mask=mask, other=0.0)
-                xv = tl.load(x + b * n_pos + offs, mask=mask, other=0.0)
-                acc += w * xv
-            tl.store(out + a * n_pos + offs, acc, mask=mask)
-
-    return kernel
+def ki_plan(C, K, NP, L, N, vec):
+    """
+    KI's launch on float64 data (C, K, NP, L, N) (complex128: its (re, im)
+    view, N doubled) with `vec` elements an access (2: N even and the data
+    16-byte aligned). A block is one (k, l-range) of `lb` colatitude slots
+    and every pair slot: about KI_ITEMS items of `vec` consecutive n (lb =
+    KI_ITEMS // (NP N / vec), at least 1, at most KI_MAX_LB and L); the
+    last range of each k is ragged. `grid` (ranges, K); `smem` the staged Q
+    blocks' bytes.
+    """
+    if C not in (3, 9):
+        raise ValueError("regularity_recombine: rank 1 or 2 tensors only")
+    if vec not in (1, 2) or N % vec:
+        raise ValueError(f"regularity_recombine: vec {vec} does not divide N = {N}")
+    per_l = NP * N // vec
+    lb = max(1, min(KI_ITEMS // per_l, KI_MAX_LB, L))
+    ranges = -(-L // lb)
+    return dict(lb=lb, vec=vec, grid=(ranges, K), items=NP * lb * N // vec,
+                smem=lb * C * C * 8)
 
 
 def regularity_recombine(x, Q, forward):
@@ -78,11 +69,10 @@ def regularity_recombine(x, Q, forward):
     KI wrapper: mix the C components of contiguous float64 or complex128
     ball data x (C, K, NP, L, N) through the per-(k, l) intertwiners Q (K, L, C, C),
     forward (spin -> regularity, Q^T) or backward (Q). CPU tensors take the
-    plain twin; CUDA tensors launch the Triton kernel.
+    plain twin; CUDA tensors launch ki_regularity_recombine_f64.
     """
     if x.device.type == 'cpu':
         return regularity_recombine_plain(x, Q, forward)
-    global _kernel
     from . import build
     C, K, NP, L, N = x.shape
     if x.dtype not in (torch.float64, torch.complex128) or not x.is_contiguous():
@@ -94,16 +84,14 @@ def regularity_recombine(x, Q, forward):
                          f"{(K, L, C, C)} tensor on the data's device")
     if C not in (3, 9):
         raise ValueError("regularity_recombine: rank 1 or 2 tensors only")
-    if _kernel is None:
-        _kernel = _build_kernel()
+    build.check_geometry('ki_geometry', (KI_THREADS, KI_ITEMS, KI_MAX_LB))
     out = torch.empty_like(x)
-    xd, od = x, out
-    if x.is_complex():
-        # the (re, im) pair as a trailing radial axis of twice the length
-        xd, od, N = torch.view_as_real(x), torch.view_as_real(out), 2 * N
-    n_pos = K * NP * L * N
-    _kernel[(-(-n_pos // BLOCK),)](xd, od, Q, n_pos, NP, L, N, C=C, FORWARD=bool(forward),
-                                   BLOCK=BLOCK, num_warps=4)
+    Nr = 2 * N if x.is_complex() else N
+    vec = 2 if Nr % 2 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0 else 1
+    plan = ki_plan(C, K, NP, L, Nr, vec)
+    build.check(build.library().ki_regularity_recombine_f64(
+        x.data_ptr(), out.data_ptr(), Q.data_ptr(), C, K, NP, L, Nr, int(bool(forward)), vec,
+        plan['lb'], torch.cuda.current_stream(x.device).cuda_stream), 'regularity_recombine')
     build.count(regularity_recombine, x.dtype)
     return out
 

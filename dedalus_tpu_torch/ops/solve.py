@@ -284,15 +284,61 @@ def mixed_solve_plain(Ainv32, A, R):
     return X
 
 
-def mixed_solve(Ainv32, A, R):
+# K14b's cluster form (csrc/dense_kernels.cu mixed_solve_cluster_kernel):
+# the cluster sizes it takes (16 is sm_90's non-portable size), and a
+# block's most shared bytes and threads (the source's K14B_SMEM and
+# K14B_THREADS: two blocks share an SM)
+K14B_CLUSTERS = (1, 2, 4, 8, 16)
+K14B_SMEM = 113 * 1024
+K14B_THREADS = 576
+
+
+def _round16(b):
+    return -(-b // 16) * 16
+
+
+def k14b_smem(P, rows):
+    """Shared bytes of a K14b cluster block of `rows` rows (the source's
+    MixedLayout): the whole X (f64) and f32 operand, the block's rows of R
+    and of Ainv32, with 16 bytes of slack for the rows' 16-byte phase."""
+    return _round16(8 * P) + _round16(4 * P) + _round16(8 * rows) + _round16(4 * rows * P) + 16
+
+
+def k14b_plan(G, P, general=False):
+    """
+    K14b's form for G groups of P rows: 'cluster' (a thread-block cluster of
+    `cs` blocks of `threads` threads a group, `rows` = ceil(P / cs) rows a
+    block, each block's rows of Ainv32 in shared memory) or 'general'
+    (mixed_solve_kernel, a block a group, the stacks re-read from device
+    memory: any P whose vectors fit a block). By the sizes: the smallest
+    cluster whose rows fit K14B_SMEM, with a warp for every two rows (at
+    most K14B_THREADS threads; RBC 256x64's P = 525: 16 blocks of 33 rows
+    and 544 threads, 76 KB), else general (P from 656). `general` forces
+    the general form (the smoke's comparison of the two).
+    """
+    if not general:
+        for cs in K14B_CLUSTERS:
+            rows = -(-P // cs)
+            smem = k14b_smem(P, rows)
+            if smem <= K14B_SMEM:
+                return dict(form='cluster', cs=cs, rows=rows,
+                            threads=32 * min(K14B_THREADS // 32, -(-rows // 2)), smem=smem)
+    return dict(form='general')
+
+
+def mixed_solve(Ainv32, A, R, plan=None):
     """
     K14b: the mixed-precision solve of a (G, P, P) stack from its f32
     inverse and the f64 stack A, R (G, P) f64 -> X (G, P) f64.
 
     Replaces dedalus_tpu/ops/solve.py:128 batched_mixed_solve. CPU tensors
-    run the plain twin; CUDA tensors launch csrc/dense_kernels.cu
-    mixed_solve_kernel (one block per group, the whole solve in one launch;
-    bound by reading Ainv32 and A once: 0.126 ms at RBC 256x64).
+    run the plain twin; CUDA tensors launch csrc/dense_kernels.cu in the
+    form of `plan` (k14b_plan(G, P) by default; FactorizedStack makes it
+    when the stack is built): the cluster form (a cluster of blocks a group,
+    each block's rows of Ainv32 read once into shared memory, the phases'
+    vectors shared through distributed shared memory; sm_90's cluster
+    launch) or the general one (a block a group). A refused cluster launch
+    raises. Bound by reading Ainv32 and A once: 0.126 ms at RBC 256x64.
     """
     if R.device.type == 'cpu':
         return mixed_solve_plain(Ainv32, A, R)
@@ -303,15 +349,25 @@ def mixed_solve(Ainv32, A, R):
     _check(R, torch.float64, (G, P), 'R', 'K14b')
     if Ainv32.device != R.device or A.device != R.device:
         raise ValueError("K14b: stacks and R must lie on one device")
+    plan = k14b_plan(G, P) if plan is None else plan
     X = torch.empty_like(R)
-    build.check(build.library().k14b_mixed_solve_f64(
-        Ainv32.data_ptr(), A.data_ptr(), R.data_ptr(), X.data_ptr(), G, P, _cuda_stream(R)),
-        'mixed_solve')
-    build.count(mixed_solve)
+    lib = build.library()
+    if plan['form'] == 'cluster':
+        if Ainv32.data_ptr() % 16 or A.data_ptr() % 16:
+            raise ValueError("K14b: the stacks must start at a 16-byte boundary (the cluster "
+                             "form copies their rows by 16-byte chunks)")
+        status = lib.k14b_mixed_solve_cluster_f64(
+            Ainv32.data_ptr(), A.data_ptr(), R.data_ptr(), X.data_ptr(), G, P, plan['cs'],
+            plan['rows'], plan['threads'], plan['smem'], _cuda_stream(R))
+    else:
+        status = lib.k14b_mixed_solve_f64(Ainv32.data_ptr(), A.data_ptr(), R.data_ptr(),
+                                          X.data_ptr(), G, P, _cuda_stream(R))
+    build.check(status, 'mixed_solve')
+    build.count(mixed_solve, 'general' if plan['form'] == 'general' else None)
     return X
 
 
-mixed_solve.launches = 0
+mixed_solve.launches = mixed_solve.launches_general = 0
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +685,8 @@ class FactorizedStack:
                 self.Ainv = self.Ainv.to(torch.float32)
             self.A = A if method in ('inverse_refined', 'mixed') else None
             self.passes = 1 if method == 'inverse_refined' else 0
+            if method == 'mixed':
+                self.k14b = k14b_plan(*A.shape[:2])
             return
         if dense:
             raise ValueError("matsolver 'banded' factors the pencil's sparse stacks")
@@ -858,7 +916,7 @@ class FactorizedStack:
         if method == 'lu':
             return lu_solve(self.lu, self.perm, R)
         if method == 'mixed':
-            return mixed_solve(self.Ainv, self.A, R)
+            return mixed_solve(self.Ainv, self.A, R, self.k14b)
         if method == 'matrix_free':
             return inverse32_apply(self.Ainv, R)
         if method in ('inverse', 'inverse_refined'):
