@@ -106,6 +106,17 @@ public entry points:
   * the 2-D Poisson LBVP (examples/lbvp_2d_poisson.py) at 256x128 under
     'banded' with [memory] max_dense_stack_gb = 0 (K8, K5, K6, K4, K3), card
     vs CPU.
+  * F9, the ball, shell and disk at one azimuth point (f9_path): KE's
+    trailing and per-m launches at M >= 2 held bit for bit to the parent's
+    (KE_PARENT_DIGESTS), both forms at M = 1 against their twins;
+  * the Lane-Emden NLBVP as written (examples/nlbvp_ball_lane_emden.py,
+    models/lane_emden.py: a (1, 1, 64) ball, Newton to 1e-10; KH, KE's
+    trailing and per-m forms at M = 1, KA, K3), card vs CPU iterate by
+    iterate, R against Boyd, a Newton iteration's launches and phases
+    (nlbvp_path);
+  * the EVP examples on a card distributor (evp_path): waves on a string at
+    Nx = 128 (dense, sparse and left solves on host scipy, set_state on the
+    card through K3) and the complex 1-D Rayleigh-Benard EVP's critical Ra.
 
 Every path's grid-space products run through kernel KG, which is checked at
 each path's dealias grid. The Cartesian paths stage each batched transform
@@ -129,7 +140,8 @@ banded_path, schemes_path, shear_flow_path, kdv_path, conditions_path,
 banded_lbvp_path, poly_path, banded_fast_path, cold_start_path, example_path,
 matsolver_loops_path, matsolvers_card_vs_cpu, complex_card_vs_cpu,
 complex_rbc_path, complex_spherical_card_vs_cpu, complex_shell_path, annulus_path, disk_path,
-ball_path, shell_path, ball_ihc_example, ball_ihc_path, and the card-vs-CPU
+ball_path, shell_path, ball_ihc_example, ball_ihc_path, f9_path, nlbvp_path,
+evp_path, and the card-vs-CPU
 checks such as shell_card_vs_cpu and ball_ihc_card_vs_cpu; the
 cold start takes a size, `c.cold_start_path(512, 256)`), after which `c.RESULTS`
 and `c.LAUNCHES` hold its kernel checks and launch counts.
@@ -472,6 +484,12 @@ PATH_KERNELS = dict(
                   'block_tridiag_qr_solve_general', 'banded_solve_post_general',
                   'banded_apply_general'),
     k14b_synthetic=('mixed_solve_general',),
+    # The Lane-Emden NLBVP (its Newton iterations: KH, KE's trailing form and
+    # its per-m form at one azimuth point in F, KA's solve, K3) and the
+    # waves EVP's set_state (K3's scatter)
+    lane_emden64=('dense_refined_solve', 'pencil_gather_scatter', 'trailing_apply',
+                  'polar_apply', 'ball_radial_apply'),
+    waves128_evp=('pencil_gather_scatter',),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -481,7 +499,8 @@ STEPS = {}      # main path -> steps of its timed run
 GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager steps
 GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
 # Main paths whose counted run takes no timestep (a boundary value solve)
-NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic', 'k14b_synthetic')
+NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic', 'k14b_synthetic',
+                 'lane_emden64', 'waves128_evp')
 
 
 def phase(msg):
@@ -2371,7 +2390,7 @@ def ab_side(root, paths=AB_PATHS, steps=20):
                    shell192c_zcross=ab_shell192c_zcross, rbc256c_fast=ab_rbc256c_fast,
                    k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
                    kj=ab_kj, ke_trailing=ab_ke_trailing, kh=ab_kh, shell192=ab_shell192,
-                   rbc256_mixed=ab_mixed, ki=ab_ki,
+                   rbc256_mixed=ab_mixed, ki=ab_ki, ke_digests=ab_ke_digests,
                    rbc256_lu=functools.partial(ab_lu, complex_data=False),
                    rbc256c_lu=functools.partial(ab_lu, complex_data=True)
                    ).get(path.replace('-', '_'), None)
@@ -2418,6 +2437,9 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                 return (round(c['ms'], 4), c['device_ms'], round(c['library_ms'], 4),
                         c['library_device_ms'], round(c['bound_ms'], 4), c['err'], c['bitwise'])
 
+            if path == 'ke-digests':
+                print(f"[{runs[0]['card']}] {label} ke-digests: {rs}")
+                continue
             if path == 'rbc256-mixed':
                 print(f"[{runs[0]['card']}] {label} rbc256-mixed: graph ms/step {g}; the step's "
                       f"device ms {[r['device_ms_per_step'] for r in rs]}; K14b a replayed step "
@@ -2538,6 +2560,10 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
                       f"step {ke} (launches, device ms); the step's device ms "
                       f"{[r['ke_step']['step_device_ms'] for r in rs]}; KE's call {call} "
                       f"(events, device) against matmul's {mm}")
+    if 'ke-digests' in paths:
+        digests = [r['ke-digests'] for runs in sides.values() for r in runs]
+        print(json.dumps({"ke_digests_equal": all(d == digests[0] for d in digests),
+                          "parent": sides['parent'][0]['ke-digests']}))
     return sides
 
 
@@ -4681,9 +4707,8 @@ def device_readings(reps=20):
 # the change), and the F7 general paths of K4, K5 and K11b
 # ---------------------------------------------------------------------------
 
-def capture_calls(solver, module, name):
-    """The (args, kwargs) of every call of module.`name` during one eager F
-    evaluation of `solver`."""
+def capture_during(module, name, run):
+    """The (args, kwargs) of every call of module.`name` during run()."""
     recorded = []
     saved = getattr(module, name)
 
@@ -4695,10 +4720,17 @@ def capture_calls(solver, module, name):
     functools.update_wrapper(recording, saved)
     setattr(module, name, recording)
     try:
-        solver.traced_F(solver.state_flat(), solver.sim_time)
+        run()
     finally:
         setattr(module, name, saved)
     return recorded
+
+
+def capture_calls(solver, module, name):
+    """The (args, kwargs) of every call of module.`name` during one eager F
+    evaluation of `solver`."""
+    return capture_during(module, name,
+                          lambda: solver.traced_F(solver.state_flat(), solver.sim_time))
 
 
 def kt_case(args, kw):
@@ -4780,7 +4812,7 @@ def kt_cost(S, x, comps):
     Td = x.shape[-1] * (2 if x.is_complex() else 1)
     n = len(comps)
     return (nbytes(S) + n * (nbytes(x) + nbytes(x) * O // I) // x.shape[0],
-            2 * K * 2 * O * I * n * Td)
+            2 * K * (x.shape[1] // K) * O * I * n * Td)
 
 
 def kh_cost(S, x, out, pairs):
@@ -4802,8 +4834,9 @@ def kt_times(S, x, out, comps, reps=20):
     data; the components' data gathered before the timing)."""
     from dedalus_tpu_torch.ops import polar as opolar
     K = S.shape[0]
-    xs = x[list(comps)].reshape((len(comps), K, 2) + tuple(x.shape[2:])).contiguous()
-    Sl = S.to(x.dtype) if S.dim() == 4 else S.to(x.dtype)[:, None]
+    P = opolar.azimuth_slots(S, x.shape[1])
+    xs = x[list(comps)].reshape((len(comps), K, P) + tuple(x.shape[2:])).contiguous()
+    Sl = S[:, :P].to(x.dtype) if S.dim() == 4 else S.to(x.dtype)[:, None]
     scratch = torch.empty_like(out)
     run = lambda: opolar.trailing_apply(S, x, scratch, comps)
     lib = lambda: torch.matmul(Sl, xs)
@@ -4843,31 +4876,10 @@ def merge_err(name, err):
 
 def check_kt_kh_calls(path, solver):
     """Every distinct KE trailing and KH call of one F evaluation on `path`
-    (captured through the bases' own calls): written and accumulated
-    against the plain twin within TOL, two launches equal bit for bit.
-    Prints one JSON line; folds the errors into the kernels' checks."""
-    from dedalus_tpu_torch.ops import polar as opolar, ball as oball
-    rows = []
-    for (key, S, x, out, comps, acc), n in distinct(
-            kt_case(a, k) for a, k in capture_calls(solver, opolar, 'trailing_apply')).values():
-        err, same = kt_check(S, x, out, comps)
-        name = kt_form(S, x)
-        merge_err(name, err)
-        rows.append(dict(kernel=name, shape=list(S.shape), x=list(x.shape), comps=len(comps),
-                         calls_per_F=n, err=err[0], bitwise=same))
-        if not same:
-            raise AssertionError(f"KE trailing on {path} {list(S.shape)}: two launches differ")
-    for (key, S, x, out, pairs, acc), n in distinct(
-            kh_case(a, k) for a, k in capture_calls(solver, oball, 'ball_radial_apply')).values():
-        err, same = kh_check(S, x, out, pairs)
-        name = 'ball_radial_apply_c128' if x.is_complex() else 'ball_radial_apply'
-        merge_err(name, err)
-        rows.append(dict(kernel=name, shape=list(S.shape), x=list(x.shape), pairs=len(pairs),
-                         calls_per_F=n, err=err[0], bitwise=same))
-        if not same:
-            raise AssertionError(f"KH on {path} {list(S.shape)}: two launches differ")
-    print(json.dumps({f"{path}_kt_kh_calls": rows}))
-    return rows
+    (captured through the bases' own calls): f_kernel_calls on the
+    solver's eager F."""
+    return f_kernel_calls(path, lambda: solver.traced_F(solver.state_flat(), solver.sim_time),
+                          per_m=False)
 
 
 # KE trailing's calls at its timed shapes on random data (kt_sweep):
@@ -8284,6 +8296,357 @@ def banded_lbvp_path():
     if not out[DEVICE][1] <= 1e-10:
         raise AssertionError(f"banded LBVP: boundary error {out[DEVICE][1]:.3e}")
 
+# F9's repair leaves KE's launches at M >= 2 as they were: the SHA-256 (first
+# 16 hex digits) of each form's output, written and accumulated, on
+# numpy-seeded inputs at ball64's, shell192's and shell192c's trailing shapes
+# (KT_SHAPES) and at KE's per-m blocks of the disk, annulus, sphere and ball
+# (KE_SHAPES), as ke_digests() read them with the parent's kernels (the tree
+# before the one-azimuth-point form) on an NVIDIA H100 80GB HBM3, 700.00 W:
+# c.ab_compare('build/parent', ('ke-digests',))
+KE_PARENT_DIGESTS = {'trailing_ball64': 'ebb2d4a5a2460584', 'trailing_shell192': '3c1cab4dbad82345',
+                     'trailing_shell192c': '70f51558d52cae31', 'per_m_disk': '348d2206ac56583a',
+                     'per_m_annulus': '8a466e80cd9f1698', 'per_m_sphere': '6e0c8a586cb977ab',
+                     'per_m_ball': '5fb9f3eb60c33c32'}
+KE_DIGEST_SEED = 24
+
+
+def ke_digests(seed=KE_DIGEST_SEED):
+    """{form and shape: digest} of KE's trailing form at KT_SHAPES and its
+    per-m form at KE_SHAPES (the shell192c block aside: 0.76 GB of stack),
+    each written and accumulated over a seeded base, inputs from numpy."""
+    import hashlib
+    from dedalus_tpu_torch.ops import polar as opolar
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(seed)
+
+    def put(shape, cplx=False):
+        a = rng.standard_normal(shape)
+        if cplx:
+            a = a + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(a, device=dev)
+
+    def digest(*ts):
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for name, (K, O, I, signed, cplx, C, T) in KT_SHAPES.items():
+        S = put((K, 2, O, I) if signed else (K, O, I))
+        x, base = put((C, 2 * K, I, T), cplx), put((C, 2 * K, O, T), cplx)
+        comps = list(range(C))
+        out[f"trailing_{name}"] = digest(
+            opolar.trailing_apply(S, x, base.clone(), comps),
+            opolar.trailing_apply(S, x, base.clone(), comps, accumulate=True))
+    for name, (K, O, I, cplx) in KE_SHAPES.items():
+        if name == 'shell192c':
+            continue
+        S, x = put((K, O, I)), put((3, 2 * K, I), cplx)
+        base = put((3, 2 * K, O), cplx)
+        out[f"per_m_{name}"] = digest(opolar.polar_apply(S, x),
+                                      opolar.polar_apply(S, x, base.clone(), accumulate=True))
+    return out
+
+
+def ab_ke_digests(steps=None):
+    return ke_digests()
+
+
+def f9_path():
+    """F9 (ball, shell and disk at one azimuth point): KE's launches at
+    M >= 2 bit for bit against the parent's (KE_PARENT_DIGESTS), and both
+    KE forms at M = 1 (the Lane-Emden ball's calls are checked in
+    nlbvp_path) on ragged synthetic shapes against their plain twins, two
+    launches equal bit for bit."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    dev, kind, smi = card()
+    phase(f"F9: KE at M >= 2 against the parent's launches, and at M = 1, on {kind}")
+    got = ke_digests()
+    if not KE_PARENT_DIGESTS or got != KE_PARENT_DIGESTS:
+        raise AssertionError(f"KE at M >= 2 differs from the parent's launches: {got} "
+                             f"against {KE_PARENT_DIGESTS}")
+    rng = np.random.default_rng(9)
+    rows = []
+    for signed, cplx, O, I, T in ((False, False, 37, 21, 7), (True, True, 19, 13, 5),
+                                  (False, False, 64, 2, 128), (False, True, 53, 11, 3)):
+        S = torch.as_tensor(rng.standard_normal((1, 2, O, I) if signed else (1, O, I)),
+                            device=dev)
+        x = torch.as_tensor(rng.standard_normal((3, 1, I, T)), device=dev)
+        if cplx:
+            x = x + 1j * torch.as_tensor(rng.standard_normal((3, 1, I, T)), device=dev)
+        out = torch.empty((3, 1, O, T), dtype=x.dtype, device=dev)
+        err, same = kt_check(S, x, out, (2, 0))
+        merge_err(kt_form(S, x), err)
+        rows.append(dict(kernel=kt_form(S, x), O=O, I=I, T=T, err=err[0], bitwise=same))
+        xk = x[:, 0, :, 0].reshape(3, 1, I).contiguous()
+        err, same2 = ke_check(S, xk)
+        merge_err(ke_form(S, xk), err)
+        rows.append(dict(kernel=ke_form(S, xk), O=O, I=I, err=err[0], bitwise=same2))
+        if not (same and same2):
+            raise AssertionError(f"KE at M = 1 ({O}, {I}, {T}): two launches differ")
+    print(json.dumps({"f9": dict(card=smi, digests=got, one_point=rows)}))
+
+
+def ke_check(S, x):
+    """KE's per-m form on one call's operands against its plain twin,
+    written and accumulated over the same seeded base: (error, two launches
+    equal bit for bit). The error is relative to the sums' own scale, the
+    plain product of |S| and |x| (plus |base| accumulated): a call whose
+    sums cancel (the Lane-Emden guess's f(r=1) = 0, 3.6e-15 out of terms of
+    order 1) has no relative error of its own."""
+    from dedalus_tpu_torch.ops import polar as opolar
+    gen = torch.Generator(device=x.device).manual_seed(41)
+    out = opolar.polar_apply_plain(S, x)
+    base = torch.randn(out.shape, generator=gen, dtype=torch.float64, device=x.device)
+    base = base.to(x.dtype)
+    yk, yk2 = opolar.polar_apply(S, x), opolar.polar_apply(S, x)
+    ak = opolar.polar_apply(S, x, base.clone(), accumulate=True)
+    ak2 = opolar.polar_apply(S, x, base.clone(), accumulate=True)
+    ap = opolar.polar_apply_plain(S, x, base.clone(), accumulate=True)
+    scale = float(opolar.polar_apply_plain(S.abs(), x.abs().to(torch.float64)).max())
+    torch.cuda.synchronize()
+    err = max(((yk - out).abs().max() / max(scale, 1e-300), (yk - out).abs().max()),
+              ((ak - ap).abs().max() / max(scale + float(base.abs().max()), 1e-300),
+               (ak - ap).abs().max()))
+    return tuple(float(e) for e in err), bool(torch.equal(yk, yk2) and torch.equal(ak, ak2))
+
+
+def ke_form(S, x):
+    return 'polar_apply_signed' if S.dim() == 4 else (
+        'polar_apply_c128' if x.is_complex() else 'polar_apply')
+
+
+def f_kernel_calls(path, run, per_m=True):
+    """Every distinct KE trailing, KH and (with `per_m`) KE per-m call of
+    run() (one F) against its plain twin within TOL, written and
+    accumulated, two launches equal bit for bit; prints one JSON line and
+    folds the errors into the kernels' checks."""
+    from dedalus_tpu_torch.ops import polar as opolar, ball as oball
+    rows = []
+    for (key, S, x, out, comps, acc), n in distinct(
+            kt_case(a, k) for a, k in capture_during(opolar, 'trailing_apply', run)).values():
+        err, same = kt_check(S, x, out, comps)
+        merge_err(kt_form(S, x), err)
+        rows.append(dict(kernel=kt_form(S, x), shape=list(S.shape), x=list(x.shape),
+                         comps=len(comps), calls_per_F=n, err=err[0], bitwise=same))
+    for (key, S, x, out, pairs, acc), n in distinct(
+            kh_case(a, k) for a, k in capture_during(oball, 'ball_radial_apply', run)).values():
+        err, same = kh_check(S, x, out, pairs)
+        name = 'ball_radial_apply_c128' if x.is_complex() else 'ball_radial_apply'
+        merge_err(name, err)
+        rows.append(dict(kernel=name, shape=list(S.shape), x=list(x.shape), pairs=len(pairs),
+                         calls_per_F=n, err=err[0], bitwise=same))
+    seen = {}
+    for args, kw in capture_during(opolar, 'polar_apply', run) if per_m else ():
+        S, x = args[:2]
+        key = (tuple(S.shape), tuple(x.shape), str(x.dtype))
+        if key in seen:
+            seen[key]['calls_per_F'] += 1
+            continue
+        err, same = ke_check(S, x)
+        merge_err(ke_form(S, x), err)
+        seen[key] = dict(kernel=ke_form(S, x), shape=list(S.shape), x=list(x.shape),
+                         calls_per_F=1, err=err[0], bitwise=same)
+    rows += list(seen.values())
+    print(json.dumps({f"{path}_f_calls": rows}))
+    for r in rows:
+        if not r['bitwise']:
+            raise AssertionError(f"{r['kernel']} on {path} {r['shape']}: two launches differ")
+    return rows
+
+
+def lane_emden_run(solver, ctx, counts=None):
+    """The example's loop: (norms, f's coefficients after each iteration);
+    with `counts` a list, each kernel's launch count after each iteration
+    is appended to it."""
+    norms, fs = [], []
+    f = ctx['f']
+    fns = kernel_functions() if counts is not None else None
+    while not norms or norms[-1] > 1e-10:
+        if len(norms) == 20:
+            raise AssertionError("Lane-Emden: no convergence in 20 Newton iterations")
+        norms.append(solver.newton_iteration())
+        if counts is not None:
+            counts.append({name: launches(name, fs_) for name, fs_ in fns.items()})
+        f.require_coeff_space()
+        fs.append(f.data.detach().cpu().clone())
+    return norms, fs
+
+
+def nlbvp_path():
+    """The Lane-Emden example as written (examples/nlbvp_ball_lane_emden.py,
+    models/lane_emden.py: Nr = 64, n = 3, dealias 2, ncc_cutoff and tolerance
+    1e-10) on the card, through build_solver and newton_iteration: each
+    iterate's perturbation norm and f against the CPU-held port's (1e-10),
+    R against Boyd (1e-9); F's KE trailing (at M = 1), KE per-m (M = 1) and
+    KH calls against their twins; the launches by kernel of a Newton
+    iteration and its phases' times."""
+    from dedalus_tpu_torch.models import lane_emden as le
+    from dedalus_tpu_torch.ops import solve as osolve
+    dev, kind, smi = card()
+    phase(f"NLBVP: Lane-Emden at Nr = 64, n = 3 (a (1, 1, 64) ball), card vs cpu on {kind}")
+    t0 = time.perf_counter()
+    problem, ctx = le.build_lane_emden_problem(device='cpu')
+    cpu_norms, cpu_fs = lane_emden_run(problem.build_solver(ncc_cutoff=le.NCC_CUTOFF), ctx)
+    cpu_R, cpu_s = le.radius(ctx), time.perf_counter() - t0
+    t0 = time.perf_counter()
+    problem, ctx = le.build_lane_emden_problem(device=DEVICE)
+    solver = problem.build_solver(ncc_cutoff=le.NCC_CUTOFF)
+    build_s = time.perf_counter() - t0
+    f_calls = f_kernel_calls('lane_emden64', solver.evaluate_F)
+    kernel_times = lane_emden_kernel_times(solver)
+    t0 = time.perf_counter()
+    counts = []
+    norms, fs = count_launches('lane_emden64', len(cpu_norms),
+                               lambda: lane_emden_run(solver, ctx, counts))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    R = le.radius(ctx)
+    if len(norms) != len(cpu_norms):
+        raise AssertionError(f"Lane-Emden: {len(norms)} iterations on the card, "
+                             f"{len(cpu_norms)} on the CPU")
+    scale = float(cpu_fs[-1].abs().max())
+    norm_err = max(abs(a - b) / max(b, scale) for a, b in zip(norms, cpu_norms))
+    f_err = max(rel_err(a, b)[0] for a, b in zip(fs, cpu_fs))
+    # Launches by kernel of each iteration: the first also transforms the
+    # guess's grid data to coefficients (one more KH and KE trailing launch)
+    by_iteration = [{k: v - (counts[i - 1][k] if i else 0) for k, v in c.items()
+                     if v - (counts[i - 1][k] if i else 0)} for i, c in enumerate(counts)]
+    per_iteration = by_iteration[-1]
+    # A Newton iteration's phases, from the converged state (three more
+    # iterations, each phase synchronised before and after)
+    iters = 3
+    t0 = time.perf_counter()
+    phases = segment_times([('host assembly of dF', solver.pencil, 'build_matrices'),
+                            ('factorization', osolve.FactorizedStack, '__init__'),
+                            ('F', solver, 'evaluate_F'),
+                            ('solve', osolve.FactorizedStack, 'solve'),
+                            ('scatter', solver.pencil, 'scatter_state')],
+                           lambda: [solver.newton_iteration() for _ in range(iters)])
+    iteration_ms = (time.perf_counter() - t0) / iters * 1e3
+    row = dict(card=smi, iterations=len(norms), norms=norms, cpu_norms=cpu_norms,
+               norm_err=norm_err, f_err=f_err, R=R, R_cpu=cpu_R, R_err_boyd=abs(R - le.R_BOYD),
+               build_s=build_s, solve_s=solve_s, cpu_solve_s=cpu_s,
+               launches_per_iteration=per_iteration,
+               launches_first_iteration=by_iteration[0], iteration_ms=iteration_ms,
+               phase_ms={k: v / iters * 1e3 for k, v in phases.items()},
+               matsolver=solver.matsolver, G=solver.pencil.G, P=solver.pencil.R)
+    print(json.dumps({"lane_emden64": row}))
+    print(f"[{smi}] Lane-Emden: {len(norms)} Newton iterations (cpu {len(cpu_norms)}), "
+          f"R = {R!r}, |R - Boyd| {abs(R - le.R_BOYD):.3e}, card vs cpu: norms {norm_err:.3e}, "
+          f"f {f_err:.3e}; an iteration {iteration_ms:.2f} ms, its launches {per_iteration}")
+    if any(c != per_iteration for c in by_iteration[1:]):
+        raise AssertionError(f"Lane-Emden: the iterations after the first launch "
+                             f"differently: {by_iteration}")
+    if not (norm_err <= 1e-10 and f_err <= 1e-10):
+        raise AssertionError(f"Lane-Emden: card and CPU disagree: norms {norm_err:.3e}, "
+                             f"f {f_err:.3e}")
+    if not abs(R - le.R_BOYD) <= 1e-9:
+        raise AssertionError(f"Lane-Emden: R = {R!r}, Boyd's {le.R_BOYD!r}")
+    return row, f_calls, kernel_times
+
+
+def lane_emden_kernel_times(solver):
+    """KE's trailing form and KH at the Lane-Emden ball's shapes (M = 1,
+    the radius trailing): each distinct call of one F by events and on the
+    device beside its library call, its plain twin by events, its bound.
+    Prints one JSON line."""
+    from dedalus_tpu_torch.ops import polar as opolar, ball as oball
+    rows = []
+    for (key, S, x, out, comps, acc), n in distinct(
+            kt_case(a, k) for a, k in capture_during(opolar, 'trailing_apply',
+                                                      solver.evaluate_F)).values():
+        scratch = torch.empty_like(out)
+        rows.append(dict(kernel=kt_form(S, x), calls_per_F=n, **kt_times(S, x, out, comps),
+                         plain_ms=cuda_ms(lambda: opolar.trailing_apply_plain(
+                             S, x, scratch, comps), 50)))
+    for (key, S, x, out, pairs, acc), n in distinct(
+            kh_case(a, k) for a, k in capture_during(oball, 'ball_radial_apply',
+                                                      solver.evaluate_F)).values():
+        scratch = torch.empty_like(out)
+        rows.append(dict(kernel='ball_radial_apply', calls_per_F=n,
+                         **kh_times(S, x, out, pairs),
+                         plain_ms=cuda_ms(lambda: oball.ball_radial_apply_plain(
+                             S, x, list(pairs), scratch), 50)))
+    print(json.dumps({"lane_emden64_kernel_times": rows}))
+    return rows
+
+
+def evp_path():
+    """The EVP examples with the distributor on the card: waves on a string
+    at Nx = 128 (dense, sparse with left eigenvectors, dense with left
+    eigenvectors; set_state on the card within 1e-14 of the CPU-held
+    port's, the eigenvalue field written) and the complex 1-D
+    Rayleigh-Benard EVP's critical Rayleigh number (1e-6 of 27 pi^4 / 4)."""
+    from dedalus_tpu_torch.models import evp as mevp
+    dev, kind, smi = card()
+    phase(f"EVP: waves on a string at Nx = 128 and Rayleigh-Benard at Nz = 48 on {kind}")
+    out = {}
+    for d in (DEVICE, 'cpu'):
+        problem, ctx = mevp.build_waves_problem(128, device=d)
+        solver = problem.build_solver()
+        t = {}
+        t0 = time.perf_counter()
+        solver.solve_dense()
+        t['dense_s'] = time.perf_counter() - t0
+        evals = np.sort(solver.eigenvalues[np.isfinite(solver.eigenvalues)].real)
+        idx = int(np.argmin(np.abs(solver.eigenvalues - np.pi**2)))
+        n = solver._sparse_pair(0)[0].shape[0]
+        v0 = np.random.default_rng(128).standard_normal(n)
+        t0 = time.perf_counter()
+        solver.solve_sparse(N=4, target=50.0, left=True, v0=v0)
+        t['sparse_left_s'] = time.perf_counter() - t0
+        G = solver.modified_left_eigenvectors.conj().T @ solver.right_eigenvectors
+        sparse = np.sort_complex(solver.eigenvalues)
+        off = float(np.abs(G - np.diag(np.diag(G))).max() / np.abs(np.diag(G)).max())
+        t0 = time.perf_counter()
+        solver.solve_dense(left=True)
+        t['dense_left_s'] = time.perf_counter() - t0
+        set_state = (lambda: solver.set_state(idx))
+        t0 = time.perf_counter()
+        if d == DEVICE:
+            count_launches('waves128_evp', 1, set_state)
+            torch.cuda.synchronize()
+        else:
+            set_state()
+        t['set_state_s'] = time.perf_counter() - t0
+        u = ctx['u']
+        u.require_coeff_space()
+        lam = problem.eigenvalue['g']
+        out[d] = dict(evals=evals, sparse=sparse, off=off, u=u.data.detach().cpu().clone(),
+                      lam=float(lam.reshape(-1)[0]), lam_device=str(lam.device), t=t)
+    card_, cpu = out[DEVICE], out['cpu']
+    exact = (np.pi * np.arange(1, 9))**2
+    dense_err = float(np.abs(card_['evals'][:8] / exact - 1).max())
+    state_err = rel_err(card_['u'], cpu['u'])[0]
+    rb = mevp.RayleighBenardEVP(device=DEVICE)
+    n = rb.problem(600, mevp.RB_KC).build_solver()._sparse_pair(0)[0].shape[0]
+    v0 = np.random.default_rng(48).standard_normal(n).astype(np.complex128)
+    t0 = time.perf_counter()
+    Ra_c = rb.critical_rayleigh(v0=v0)
+    rb_s = time.perf_counter() - t0
+    Ra_err = abs(Ra_c / mevp.RB_RA_CRITICAL - 1)
+    row = dict(card=smi, dense_err_exact=dense_err,
+               dense_card_vs_cpu=float(np.abs(card_['evals'] - cpu['evals']).max()),
+               sparse_card_vs_cpu=float(np.abs(card_['sparse'] - cpu['sparse']).max()),
+               biorthogonality_off=card_['off'], set_state_err=state_err,
+               eigenvalue=card_['lam'], eigenvalue_device=card_['lam_device'],
+               times_s=card_['t'], cpu_times_s=cpu['t'], rb_critical_ra=Ra_c,
+               rb_ra_err=Ra_err, rb_s=rb_s)
+    print(json.dumps({"evp": row}))
+    print(f"[{smi}] EVP: waves dense vs (n pi)^2 {dense_err:.3e}, set_state card vs cpu "
+          f"{state_err:.3e}, RB critical Ra {Ra_c!r} ({Ra_err:.3e} from 27 pi^4/4) in "
+          f"{rb_s:.2f} s")
+    if not (dense_err < 1e-10 and state_err <= 1e-14 and card_['off'] < 1e-6
+            and abs(card_['lam'] - np.pi**2) < 1e-8 and card_['lam_device'].startswith('cuda')):
+        raise AssertionError(f"EVP waves: {row}")
+    if not Ra_err < 1e-6:
+        raise AssertionError(f"EVP Rayleigh-Benard: critical Ra {Ra_c!r}")
+    return row
+
+
 def step_stacks(solver):
     """What K15's launches outside F read on a dense path, from its solver:
     G, P, the bytes of a (G, P) vector and of a (G, P, P) stack, the
@@ -8428,6 +8791,9 @@ def main():
     timed(ball_ihc_card_vs_cpu)
     timed(ball_ihc_example)
     timed(ball_ihc_path)
+    timed(f9_path)
+    timed(nlbvp_path)
+    timed(evp_path)
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'library_ms_scatter',

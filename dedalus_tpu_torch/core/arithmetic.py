@@ -133,6 +133,11 @@ class Add(Future):
     def is_linear_in(self, vars):
         return all(op.is_linear_in(vars) for op in self._operands)
 
+    def sym_diff(self, variables, perturbations):
+        terms = [op.sym_diff(variables, perturbations) for op in self._operands]
+        terms = [t for t in terms if not _is_zero(t)]
+        return Add(*terms) if terms else 0
+
     def operate(self, arg_fields):
         datas = [_to_dealias_grid(f) for f in arg_fields]
         out = datas[0]
@@ -227,6 +232,20 @@ class Multiply(Future):
             return (self, 0)
         return (0, self)
 
+    def sym_diff(self, variables, perturbations):
+        if len(self._operands) == 1:
+            d = self._operands[0].sym_diff(variables, perturbations)
+            return Multiply(self.scalar, d) if not _is_zero(d) else 0
+        a, b = self._operands
+        da = a.sym_diff(variables, perturbations)
+        db = b.sym_diff(variables, perturbations)
+        terms = []
+        if not _is_zero(da):
+            terms.append(Multiply(self.scalar, Multiply(da, b)))
+        if not _is_zero(db):
+            terms.append(Multiply(self.scalar, Multiply(a, db)))
+        return Add(*terms) if terms else 0
+
     def operate(self, arg_fields):
         datas = [_to_dealias_grid(f) for f in arg_fields]
         if len(datas) == 1:
@@ -270,12 +289,12 @@ class Multiply(Future):
         ncc_first = (operand is b)
         op_mats = operand.expression_matrices(subproblem, vars, **kw)
         # Spherical tensor NCCs couple components through the Gamma
-        # intertwiners; a ball's tensor operand also needs per-regularity
-        # radial blocks (its Zernike family shifts with the component's
-        # regularity total), so a scalar NCC times it takes this path too
+        # intertwiners; a ball's operand also needs per-ell (and, on a
+        # tensor, per-regularity) radial blocks (its Zernike family shifts
+        # with ell and the component's regularity total), so a scalar NCC
+        # times it takes this path too
         ax = _spherical_axis(operand)
-        if ax is not None and (ncc.tensorsig
-                               or (operand.tensorsig and _is_ball(operand.domain.bases[ax]))):
+        if ax is not None and (ncc.tensorsig or _is_ball(operand.domain.bases[ax])):
             M = _spherical_ncc_matrix(ncc, operand, self.domain, subproblem, ncc_first)
             return {v: self.scalar * (M @ mm) for v, mm in op_mats.items()}
         ncc_blocks = build_ncc_blocks(ncc, operand, self.domain, subproblem)
@@ -671,6 +690,17 @@ class DotProduct(Future):
             return False
         return self._operands[dep.index(True)].is_linear_in(vars)
 
+    def sym_diff(self, variables, perturbations):
+        a, b = self._operands
+        da = a.sym_diff(variables, perturbations)
+        db = b.sym_diff(variables, perturbations)
+        terms = []
+        if not _is_zero(da):
+            terms.append(DotProduct(da, b))
+        if not _is_zero(db):
+            terms.append(DotProduct(a, db))
+        return Add(*terms) if terms else 0
+
     def operate(self, arg_fields):
         a_field, b_field = arg_fields
         a = _to_dealias_grid(a_field)
@@ -708,6 +738,17 @@ class CrossProduct(Future):
         if sum(dep) != 1:
             return False
         return self._operands[dep.index(True)].is_linear_in(vars)
+
+    def sym_diff(self, variables, perturbations):
+        a, b = self._operands
+        da = a.sym_diff(variables, perturbations)
+        db = b.sym_diff(variables, perturbations)
+        terms = []
+        if not _is_zero(da):
+            terms.append(CrossProduct(da, b))
+        if not _is_zero(db):
+            terms.append(CrossProduct(a, db))
+        return Add(*terms) if terms else 0
 
     def operate(self, arg_fields):
         a = _to_dealias_grid(arg_fields[0])

@@ -131,6 +131,10 @@ def spin_recombine(coordsys, tensorsig, data, azimuth_axis, forward):
     if data.is_complex():
         U = _unitary(coordsys, forward, data.device)
         return kf.spin_recombine_complex(data.contiguous(), ranks, U)
+    if data.shape[azimuth_axis] % 2:
+        # (the JAX package raises on this too, in its reshape to pairs)
+        raise ValueError("A real tensor field needs the azimuth's (cos, -sin) pairs: at one "
+                         "azimuth point the curvilinear bases hold scalar fields only")
     key = (type(coordsys).__name__, forward, str(data.device))
     if key not in _W_CACHE:
         _W_CACHE[key] = torch.as_tensor(spin_matrix(coordsys, forward), device=data.device)

@@ -1,11 +1,12 @@
 """
 Deferred-evaluation operator trees.
 
-Mirrors dedalus_tpu/core/future.py: the tree protocol the IVP needs (split,
-replace, linearity checks, matrix dependence and coupling, expression
-matrices), evaluated eagerly over torch tensors. The Frechet differentials
-of the nonlinear boundary value and eigenvalue problems are not ported yet
-(ROADMAP M8b).
+Mirrors dedalus_tpu/core/future.py: the tree protocol the problems need
+(split, replace, linearity checks, matrix dependence and coupling,
+expression matrices, and the symbolic Frechet differentials of the
+nonlinear boundary value problem's Newton iteration and of the IVP's
+linearization into an eigenvalue problem), evaluated eagerly over torch
+tensors.
 """
 
 import numbers
@@ -124,6 +125,21 @@ class Future(Operand):
             return (self, 0)
         return (0, self)
 
+    # --- Frechet differential ---
+
+    def frechet_differential(self, variables, perturbations, backgrounds=None):
+        """The tree's differential in `variables` along `perturbations` (0
+        where it does not depend on them), evaluated about `backgrounds`
+        where given (each variable replaced by its background)."""
+        diff = self.sym_diff(variables, perturbations)
+        if backgrounds is not None and not isinstance(diff, numbers.Number):
+            for var, bg in zip(variables, backgrounds):
+                diff = _replace_in(diff, var, bg)
+        return diff
+
+    def sym_diff(self, variables, perturbations):
+        raise NotImplementedError(f"{type(self)} must implement sym_diff")
+
     # --- matrix protocol defaults ---
 
     def matrix_dependence(self, *vars):
@@ -210,6 +226,17 @@ def _field_is_linear_in(self, vars):
     return any(self is v for v in vars)
 
 
+def _field_sym_diff(self, variables, perturbations):
+    for var, pert in zip(variables, perturbations):
+        if self is var:
+            return pert
+    return 0
+
+
+def _field_frechet(self, variables, perturbations, backgrounds=None):
+    return _field_sym_diff(self, variables, perturbations)
+
+
 def _field_zero_axes(self, *vars):
     return np.zeros(self.dist.dim, dtype=bool)
 
@@ -250,6 +277,8 @@ def _field_expression_matrices(self, subproblem, vars, **kw):
 
 
 Field.is_linear_in = _field_is_linear_in
+Field.sym_diff = _field_sym_diff
+Field.frechet_differential = _field_frechet
 Field.matrix_dependence = _field_zero_axes
 Field.matrix_coupling = _field_zero_axes
 Field.require_linearity = _field_require_linearity

@@ -61,6 +61,13 @@ class LinearOperator(Future):
     def is_linear_in(self, vars):
         return self.operand.is_linear_in(vars)
 
+    def sym_diff(self, variables, perturbations):
+        # every linear operator rebuilds itself on the operand's differential
+        d = self.operand.sym_diff(variables, perturbations)
+        if isinstance(d, numbers.Number) and d == 0:
+            return 0
+        return self.new_operands(d)
+
     def split(self, *targets):
         if any(isinstance(t, type) and isinstance(self, t) for t in targets):
             return (self, 0)
@@ -446,6 +453,13 @@ class TensorStack(Future):
         return all((not isinstance(c, (Field, Future))) or c.is_linear_in(vars)
                    for c in self.components)
 
+    def sym_diff(self, variables, perturbations):
+        comps = [c.sym_diff(variables, perturbations) if isinstance(c, (Field, Future)) else 0
+                 for c in self.components]
+        if all(isinstance(c, numbers.Number) and c == 0 for c in comps):
+            return 0
+        return TensorStack(comps, self.coordsys)
+
     def operate(self, arg_fields):
         fields = iter(arg_fields)
         sub_shape = (tuple(cs.dim for cs in self.tensorsig[1:])
@@ -541,10 +555,32 @@ class Power(Future):
     def is_linear_in(self, vars):
         return False
 
+    def sym_diff(self, variables, perturbations):
+        d = self.operand.sym_diff(variables, perturbations)
+        if isinstance(d, numbers.Number) and d == 0:
+            return 0
+        return arithmetic.Multiply(self.power,
+                                   arithmetic.Multiply(Power(self.operand, self.power - 1), d))
+
     def operate(self, arg_fields):
         data = arithmetic._to_dealias_grid(arg_fields[0])
         return self._build_output(self.dist.grid_layout, data ** self.power,
                                   scales=self.domain.dealias)
+
+
+# Derivatives of the supported unary grid functions, for Frechet differentials
+UNARY_DERIVATIVES = {
+    np.sin: lambda a: UnaryGridFunction(np.cos, a),
+    np.cos: lambda a: arithmetic.Multiply(-1, UnaryGridFunction(np.sin, a)),
+    np.tan: lambda a: Power(UnaryGridFunction(np.cos, a), -2),
+    np.exp: lambda a: UnaryGridFunction(np.exp, a),
+    np.log: lambda a: Power(a, -1),
+    np.sinh: lambda a: UnaryGridFunction(np.cosh, a),
+    np.cosh: lambda a: UnaryGridFunction(np.sinh, a),
+    np.tanh: lambda a: Power(UnaryGridFunction(np.cosh, a), -2),
+    np.sqrt: lambda a: arithmetic.Multiply(0.5, Power(a, -0.5)),
+    np.arctan: lambda a: Power(Add(1, Power(a, 2)), -1),
+}
 
 
 class UnaryGridFunction(Future):
@@ -575,6 +611,14 @@ class UnaryGridFunction(Future):
 
     def is_linear_in(self, vars):
         return False
+
+    def sym_diff(self, variables, perturbations):
+        d = self.operand.sym_diff(variables, perturbations)
+        if isinstance(d, numbers.Number) and d == 0:
+            return 0
+        if self.func not in UNARY_DERIVATIVES:
+            raise NotImplementedError(f"No derivative rule for {self.func}")
+        return arithmetic.Multiply(UNARY_DERIVATIVES[self.func](self.operand), d)
 
     def operate(self, arg_fields):
         data = arithmetic._to_dealias_grid(arg_fields[0])

@@ -600,11 +600,10 @@ class SphericalComponent(LinearOperator):
 
 
 def _apply_m_stack(stack, d):
-    """KE on per-m dense blocks: stack (K, O, I) applied to d (K, NP, I)."""
+    """KE on per-m dense blocks: stack (K, O, I) applied to d (K, NP, I), NP
+    the azimuth pair's two slots, or one where the azimuth has one point."""
     K, NP, I = d.shape
-    if NP != 2:
-        raise NotImplementedError("ball lift and interpolation need the azimuth's pair slots")
-    return ops_polar.polar_apply(stack, d.reshape(2 * K, I).contiguous()).reshape(K, NP, -1)
+    return ops_polar.polar_apply(stack, d.reshape(NP * K, I).contiguous()).reshape(K, NP, -1)
 
 
 class BallLift(LinearOperator):

@@ -1,12 +1,14 @@
 """
-Problem classes: initial value and linear boundary value problems.
+Problem classes: initial value, linear and nonlinear boundary value, and
+eigenvalue problems.
 
 Mirrors dedalus_tpu/core/problems.py: string equation entry via namespace
 evaluation, linearity and first-order checks, the M/L/F split of
-M.dt(X) + L.X = F(X, t) and the L/F split of L.X = F, and the condition
-string of each equation (the pencil system evaluates it per group).
-Nonlinear boundary value and eigenvalue problems are not ported yet
-(ROADMAP M8b).
+M.dt(X) + L.X = F(X, t), the L/F split of L.X = F, the F/dF split of
+F(X) = 0 through its Frechet differential in perturbation fields (Newton's
+dF(X).dX = -F(X)), the M/L split of lam*M.X + L.X = 0 and the IVP's
+linearization into such an eigenvalue problem, and the condition string of
+each equation (the pencil system evaluates it per group).
 """
 
 import numpy as np
@@ -122,6 +124,40 @@ class LinearBoundaryValueProblem(ProblemBase):
         eqn['matrix_coupling'] = L.matrix_coupling(*self.variables)
 
 
+class NonlinearBoundaryValueProblem(ProblemBase):
+    """
+    F(X) = 0, solved by Newton-Kantorovich iterations dF(Xn).dX = -F(Xn):
+    the pencils' unknowns are the perturbations dX (one field a variable,
+    named 'd' + its name).
+    """
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.perturbations = [_perturbation(var) for var in self.variables]
+        self.LHS_variables = self.perturbations
+
+    def _check_equation_conditions(self, eqn):
+        pass
+
+    def _build_matrix_expressions(self, eqn):
+        F = eqn['eqn']
+        dF = F.frechet_differential(self.variables, self.perturbations)
+        domain = (dF + F).domain
+        eqn['F'] = operators.convert(F, domain.bases)
+        eqn['dF'] = operators.convert(dF, domain.bases)
+        eqn['domain'] = domain
+        eqn['matrix_dependence'] = eqn['dF'].matrix_dependence(*self.perturbations)
+        eqn['matrix_coupling'] = eqn['dF'].matrix_coupling(*self.perturbations)
+
+
+def _perturbation(var):
+    """A field on var's bases, tensor signature and dtype, named 'd' + its
+    name."""
+    return Field(var.dist, bases=[b for b in var.domain.bases if b is not None],
+                 name=('d' + var.name) if var.name else None, dtype=var.dtype,
+                 tensorsig=var.tensorsig)
+
+
 class InitialValueProblem(ProblemBase):
     """M.dt(X) + L.X = F(X, t)."""
 
@@ -170,12 +206,94 @@ class InitialValueProblem(ProblemBase):
         eqn['matrix_dependence'] = dep
         eqn['matrix_coupling'] = coup
 
+    def build_EVP(self, eigenvalue=None, backgrounds=None, perturbations=None, **kw):
+        """
+        Linearize this IVP about `backgrounds` (about zero where none are
+        given) into an eigenvalue problem in perturbation fields:
+        M.dt(X) + L.X = F(X)  ->  lam*M.Y + L.Y - F'(X0).Y = 0.
+        """
+        variables = self.variables
+        if eigenvalue is None:
+            eigenvalue = self.dist.Field(name='lam')
+        if perturbations is None:
+            perturbations = [_perturbation(var) for var in variables]
+        EVP = EigenvalueProblem(perturbations, eigenvalue, **kw)
+        for eqn in self.equations:
+            M, L = eqn['LHS'].split(operators.TimeDerivative)
+            F = eqn['RHS']
+            if not isinstance(M, (int, float)):
+                M = M.replace(operators.TimeDerivative,
+                              lambda x: arithmetic.Multiply(eigenvalue, x))
+                for var, pert in zip(variables, perturbations):
+                    M = M.replace(var, pert)
+            if not isinstance(L, (int, float)):
+                for var, pert in zip(variables, perturbations):
+                    L = L.replace(var, pert)
+            if isinstance(F, (Field, Future)):
+                if F.has(self.time):
+                    raise UnsupportedEquationError("Cannot convert time-dependent IVP to EVP")
+                dF = F.frechet_differential(variables, perturbations, backgrounds=backgrounds)
+            else:
+                dF = 0
+            terms = [t for t in (M, L) if not isinstance(t, (int, float))]
+            expr = arithmetic.Add(*terms) if len(terms) > 1 else terms[0]
+            if not (isinstance(dF, (int, float)) and dF == 0):
+                expr = expr - dF
+            EVP.add_equation((expr, 0))
+        if backgrounds:
+            for var in backgrounds:
+                if var.name:
+                    EVP.local_namespace[var.name] = var
+        return EVP
+
+
+class EigenvalueProblem(ProblemBase):
+    """lam*M.X + L.X = 0, lam a field without bases."""
+
+    def __init__(self, variables, eigenvalue, **kw):
+        super().__init__(variables, **kw)
+        if any(eigenvalue.domain.nonconstant):
+            raise ValueError("Eigenvalue field cannot have any bases")
+        self.eigenvalue = eigenvalue
+
+    def _check_equation_conditions(self, eqn):
+        eqn['LHS'].require_linearity(*self.variables, self_name='EVP LHS',
+                                     vars_name='problem variables',
+                                     error=UnsupportedEquationError)
+        if not (isinstance(eqn['RHS'], (int, float, complex)) and eqn['RHS'] == 0):
+            raise UnsupportedEquationError("EVP RHS must be identically zero")
+
+    def _build_matrix_expressions(self, eqn):
+        M, L = eqn['LHS'].split(self.eigenvalue)
+        if not isinstance(M, (int, float)):
+            M = M.replace(self.eigenvalue, 1)
+        domain = eqn['eqn'].domain
+        if not isinstance(M, (int, float)):
+            M = operators.convert(M, domain.bases)
+        if not isinstance(L, (int, float)):
+            L = operators.convert(L, domain.bases)
+        eqn['M'] = M if not isinstance(M, (int, float)) else None
+        eqn['L'] = L if not isinstance(L, (int, float)) else None
+        eqn['domain'] = domain
+        dep = np.zeros(self.dist.dim, dtype=bool)
+        coup = np.zeros(self.dist.dim, dtype=bool)
+        for m in (eqn['M'], eqn['L']):
+            if m is not None:
+                dep |= m.matrix_dependence(*self.variables)
+                coup |= m.matrix_coupling(*self.variables)
+        eqn['matrix_dependence'] = dep
+        eqn['matrix_coupling'] = coup
+
 
 IVP = InitialValueProblem
 LBVP = LinearBoundaryValueProblem
+NLBVP = NonlinearBoundaryValueProblem
+EVP = EigenvalueProblem
 
 
 # Attach the solver classes (late import to avoid a circular module dependency)
 from . import solvers as _solvers
-InitialValueProblem.solver_class = _solvers.InitialValueSolver
 LinearBoundaryValueProblem.solver_class = _solvers.LinearBoundaryValueSolver
+NonlinearBoundaryValueProblem.solver_class = _solvers.NonlinearBoundaryValueSolver
+InitialValueProblem.solver_class = _solvers.InitialValueSolver
+EigenvalueProblem.solver_class = _solvers.EigenvalueSolver

@@ -1,8 +1,9 @@
 """
-Initial value and linear boundary value solvers.
+Initial value, linear and nonlinear boundary value, and eigenvalue solvers.
 
-Mirrors dedalus_tpu/core/solvers.py SolverBase, InitialValueSolver and
-LinearBoundaryValueSolver:
+Mirrors dedalus_tpu/core/solvers.py SolverBase, InitialValueSolver,
+LinearBoundaryValueSolver, NonlinearBoundaryValueSolver and
+EigenvalueSolver:
 subproblem enumeration and the pencil system, the default matsolver from
 the config, the flat coefficient state, the RHS F(X, t) as (G, R) pencils
 with grouped transforms (ROADMAP K2: each chain's batch staged by kernel
@@ -10,9 +11,12 @@ K2a, the grid products by kernel KG), step / run_steps / evolve with
 the evaluator's handler schedule (evolve with a CFL runs the chunked loop),
 the run-control properties, log_stats and the profile option (a
 torch.profiler trace and a cProfile dump); the LBVP factors L once and
-solves it with the dense, poly or banded matsolvers. The nonlinear boundary
-value and eigenvalue solvers and file output are not ported yet (ROADMAP
-M8b, M9).
+solves it with the dense, poly or banded matsolvers; the NLBVP's Newton
+iteration reassembles dF about the current state on the host, factors it
+and solves -F on the distributor's device; the EVP solves each subproblem's
+pencil pair on the host with scipy (dense QZ, or ARPACK shift-invert), as
+the JAX package does, and writes an eigenmode into the state on the
+device. File output is not ported yet (ROADMAP M9).
 """
 
 import logging
@@ -39,7 +43,9 @@ class SolverBase:
     # problems; the reference's own (m, ell) subproblems)
     allow_slot_split = False
 
-    def __init__(self, problem, matsolver=None):
+    def __init__(self, problem, matsolver=None, **kw):
+        # (further keywords, such as the examples' ncc_cutoff, are accepted
+        # and read nowhere, as in the JAX package)
         self.problem = problem
         self.dist = problem.dist
         self.dtype = problem.dtype
@@ -56,6 +62,12 @@ class SolverBase:
         self.pencil = subsystems.PencilSystem(
             self.dist, self.subproblems, problem.LHS_variables, problem.equations,
             list(self.matrix_names), allow_slot_split=self.allow_slot_split)
+
+    @property
+    def subproblems_by_group(self):
+        """{group tuple: Subproblem} (None for a coupled axis): how the EVP
+        examples name the subproblem they solve."""
+        return {sp.group: sp for sp in self.subproblems}
 
     @property
     def state(self):
@@ -335,6 +347,182 @@ class LinearBoundaryValueSolver(SolverBase):
             A = self.pencil.combined_with_pivots({'L': 1.0})
             self._factorized = FactorizedStack(A, method=self.matsolver)
         self.set_state_pencils(self._factorized.solve(self.evaluate_F()))
+
+
+class NonlinearBoundaryValueSolver(SolverBase):
+    """Newton-Kantorovich iteration dF(X).dX = -F(X): each iteration
+    reassembles dF about the current state (its NCCs evaluated anew),
+    factors the pivoted stack and solves it on the distributor's device."""
+
+    matrix_names = ('dF',)
+
+    def __init__(self, problem, **kw):
+        super().__init__(problem, **kw)
+        if self.matsolver == 'matrix_free':
+            raise ValueError("matsolver 'matrix_free' has no NLBVP solve")
+        self.iteration = 0
+        self.perturbations = problem.perturbations
+
+    def newton_iteration(self, damping=1.0):
+        """One Newton step X += damping * dX; returns |dX| over the pencil
+        entries (the JAX package's norm)."""
+        self.pencil.build_matrices(['dF'])
+        A = self.pencil.combined_with_pivots({'dF': 1.0})
+        fact = FactorizedStack(A, method=self.matsolver)
+        dX = fact.solve(-self.evaluate_F())
+        self.pencil.unflatten_fields(self.pencil.scatter_state(dX), self.perturbations)
+        for var, pert in zip(self.problem.variables, self.perturbations):
+            var.require_coeff_space()
+            var.change_scales(1)
+            var.preset_data(var.layout, var.data + damping * pert.data)
+        self.iteration += 1
+        return float(torch.sqrt(torch.sum(dX * dX)))
+
+
+class EigenvalueSolver(SolverBase):
+    """
+    lam*M.X + L.X = 0: each subproblem's pencil pair, its invalid rows and
+    columns dropped, solved on the host with scipy (dense QZ, or ARPACK
+    shift-invert about a target), as the JAX package does; set_state writes
+    an eigenmode into the state fields on the distributor's device.
+    """
+
+    matrix_names = ('M', 'L')
+
+    def __init__(self, problem, **kw):
+        super().__init__(problem, **kw)
+        self.eigenvalues = None
+        self.eigenvectors = None
+        self.eigenvalue_subproblem = None
+
+    def _sparse_pair(self, sp_index):
+        """Sparse reduced (L, M) of one subproblem: the invalid rows and
+        columns dropped without densifying."""
+        from scipy import sparse
+        pencil = self.pencil
+        rv = pencil.row_valid[sp_index]
+        cv = pencil.col_valid[sp_index]
+        L = sparse.csr_matrix(pencil.matrices_scipy['L'][sp_index])[rv][:, cv].tocsc()
+        M = sparse.csr_matrix(pencil.matrices_scipy['M'][sp_index])[rv][:, cv].tocsc()
+        return L, M, rv, cv
+
+    def _embed(self, pre_evecs, valid):
+        """Reduced eigenvectors embedded into the full pencil coordinates."""
+        full = np.zeros((valid.size, pre_evecs.shape[1]), dtype=pre_evecs.dtype)
+        full[valid, :] = pre_evecs
+        return full
+
+    def _store_left(self, pre_left, pre_right, M_red, rv, cv, normalize_left):
+        """Left eigenvectors (row space) and modified left eigenvectors
+        (column space, w -> M^H w), biorthonormal where normalize_left (a
+        mode with a zero biorthogonal norm is left as it is, with a
+        warning)."""
+        self.left_eigenvectors = self._embed(pre_left, rv)
+        self.modified_left_eigenvectors = self._embed(
+            np.asarray(M_red.conj().T @ pre_left), cv)
+        if normalize_left:
+            norms = np.diag(pre_left.conj().T @ (M_red @ pre_right))
+            finite = np.abs(norms) > 1e3 * np.finfo(norms.dtype).tiny
+            if not np.all(finite):
+                logger.warning("Skipping left-eigenvector normalization for %d mode(s) "
+                               "with zero biorthogonal norm", int(np.sum(~finite)))
+            safe = np.where(finite, np.conj(norms), 1.0)
+            self.left_eigenvectors = self.left_eigenvectors / safe
+            self.modified_left_eigenvectors = self.modified_left_eigenvectors / safe
+
+    def solve_dense(self, subproblem=None, sp_index=0, left=False, normalize_left=True, **kw):
+        """Every eigenvalue of one subproblem (scipy.linalg.eig of
+        L x = lam (-M) x); with `left` also its left and modified left
+        eigenvectors."""
+        from scipy import linalg
+        if subproblem is not None:
+            sp_index = self.subproblems.index(subproblem)
+        self.eigenvalue_subproblem = sp_index
+        Ls, Ms, rv, cv = self._sparse_pair(sp_index)
+        out = linalg.eig(Ls.toarray(), b=-Ms.toarray(), left=left, **kw)
+        if left:
+            self.eigenvalues, pre_left, pre_evecs = out
+            self._store_left(pre_left, pre_evecs, -Ms, rv, cv, normalize_left)
+        else:
+            self.eigenvalues, pre_evecs = out
+        self.right_eigenvectors = self.eigenvectors = self._embed(pre_evecs, cv)
+
+    def solve_sparse(self, subproblem=None, N=10, target=0.0, sp_index=0, left=False,
+                     normalize_left=True, raise_on_mismatch=True, v0=None, **kw):
+        """N eigenvalues of one subproblem about `target`, by ARPACK on the
+        shift-inverted pencil (the matrices stay sparse); with `left` the
+        left eigenvectors from the adjoint pencil at the conjugate target,
+        reordered to pair with the right ones."""
+        from scipy.sparse import linalg as spla
+        if subproblem is not None:
+            sp_index = self.subproblems.index(subproblem)
+        self.eigenvalue_subproblem = sp_index
+        A, Ms, rv, cv = self._sparse_pair(sp_index)
+        B = (-Ms).tocsc()
+
+        def shift_invert_eigs(A, B, target, v0=None):
+            # A x = lam B x about target: C = A - target B, op = C^-1 B
+            dtype = np.promote_types(np.promote_types(A.dtype, B.dtype),
+                                     np.asarray(target).dtype)
+            C = (A.astype(dtype) - target * B.astype(dtype)).tocsc()
+            solve = spla.factorized(C)
+            Bd = B.astype(dtype)
+            n = A.shape[0]
+            op = spla.LinearOperator((n, n), matvec=lambda x: solve(Bd @ x), dtype=dtype)
+            evals, evecs = spla.eigs(op, k=N, which='LM', v0=v0, **kw)
+            return 1 / evals + target, evecs
+
+        self.eigenvalues, pre_evecs = shift_invert_eigs(A, B, target, v0=v0)
+        self.right_eigenvectors = self.eigenvectors = self._embed(pre_evecs, cv)
+        if left:
+            self.left_eigenvalues, pre_left = shift_invert_eigs(
+                A.conj().T.tocsc(), B.conj().T.tocsc(), np.conj(target))
+            if not np.allclose(np.sort_complex(self.eigenvalues),
+                               np.sort_complex(np.conj(self.left_eigenvalues))):
+                if raise_on_mismatch:
+                    raise RuntimeError(
+                        "Conjugate of left eigenvalues does not match right eigenvalues; "
+                        "left/right vectors won't form a biorthogonal set. Pass "
+                        "raise_on_mismatch=False to proceed anyway.")
+                logger.warning("Left/right eigenvalue mismatch; skipping left-eigenvector "
+                               "normalization.")
+                normalize_left = False
+            else:
+                # the left pairs reordered to match the right eigenvalues
+                order, used = [], set()
+                for lam in self.eigenvalues:
+                    diffs = np.abs(np.conj(self.left_eigenvalues) - lam)
+                    j = next(j for j in np.argsort(diffs) if j not in used)
+                    order.append(j)
+                    used.add(j)
+                pre_left = pre_left[:, order]
+                self.left_eigenvalues = self.left_eigenvalues[order]
+            self._store_left(pre_left, pre_evecs, -Ms, rv, cv, normalize_left)
+
+    def set_state(self, index, subsystem=None):
+        """Write eigenvector `index` into the state fields (through K3's
+        scatter, on the distributor's device) and its eigenvalue into the
+        problem's eigenvalue field."""
+        sp_index = self.eigenvalue_subproblem or 0
+        vec = self.eigenvectors[:, index]
+        X = np.zeros((self.pencil.G, self.pencil.C),
+                     dtype=complex if np.iscomplexobj(vec) else float)
+        X[sp_index] = vec
+        if np.iscomplexobj(vec) and not np.issubdtype(self.dtype, np.complexfloating):
+            scale = np.max(np.abs(vec)) or 1.0
+            if np.max(np.abs(X.imag)) > 1e-10 * scale:
+                raise ValueError(
+                    "Eigenvector has significant imaginary part but the problem dtype is "
+                    "real; rescale the phase first (e.g. solver.eigenvectors[:, i] /= phase) "
+                    "or use a complex dtype.")
+            X = X.real
+        self.set_state_pencils(torch.as_tensor(X, device=self.dist.device))
+        eig_field = getattr(self.problem, 'eigenvalue', None)
+        if eig_field is not None and self.eigenvalues is not None:
+            lam = self.eigenvalues[index]
+            if not np.issubdtype(eig_field.dtype, np.complexfloating):
+                lam = lam.real
+            eig_field['g'] = lam
 
 
 class InitialValueSolver(SolverBase):

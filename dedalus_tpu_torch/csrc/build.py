@@ -56,9 +56,9 @@ SIGNATURES = {
         'k14c_override_f64': [_P] * 4 + [_I] * 2 + [_P],
     },
     'polar_kernels': {
-        'ke_polar_apply_f64': [_P] * 3 + [_I] * 13 + [_P],
+        'ke_polar_apply_f64': [_P] * 3 + [_I] * 14 + [_P],
         'ke_geometry': [_P, _I],
-        'ke_trailing_apply_f64': [_P] * 4 + [_I] * 12 + [_P],
+        'ke_trailing_apply_f64': [_P] * 4 + [_I] * 13 + [_P],
         'kt_geometry': [_P, _I],
     },
     'cfl_kernels': {

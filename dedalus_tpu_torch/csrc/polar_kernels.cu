@@ -16,7 +16,9 @@
 //
 //       for up to KT_MAX_COMPS components c of one spin (one stack), named
 //       by index, in one launch. x is read in place, the trailing axis t
-//       contiguous: no transposed copy. Bound: bytes (the complex shell at
+//       contiguous: no transposed copy. Where the azimuth has one point
+//       (M = 1, K = 1) x and out hold one row p = 0 an m (np = 1), the JAX
+//       package's P = max(M // 2, 1) slots of M // P rows. Bound: bytes (the complex shell at
 //       192x96x12: a signed (96, 2, 144, 96) stack, 21 MB, 16 MB of x and
 //       24 MB of out for three components, 0.0182 ms at 3.35 TB/s; its
 //       573 MFLOP take 0.017 ms even at the FP64 FMA's peak, so the
@@ -80,19 +82,19 @@ constexpr int KE_LOADS = 8;               // loads of S a lane's batch
 constexpr int KE_XS_BYTES = 48 * 1024;    // staged x a block
 
 // Column j of a block: component b, slot p0 + pl, part c
-__device__ __forceinline__ size_t ke_offset(int j, int npb, int nc, int K, int m, int p0,
-                                            int len, int idx) {
+__device__ __forceinline__ size_t ke_offset(int j, int npb, int nc, int K, int np, int m,
+                                            int p0, int len, int idx) {
     const int b = j / (npb * nc);
     const int rem = j - b * npb * nc;
     const int p = p0 + rem / nc, c = rem - (rem / nc) * nc;
-    return ((((size_t)b * K + m) * 2 + p) * len + idx) * nc + c;
+    return ((((size_t)b * K + m) * np + p) * len + idx) * nc + c;
 }
 
 struct KeArgs {
     const double* S;
     const double* x;
     double* out;
-    int B, K, O, I, ns, W, RI, ntile, accumulate;
+    int B, K, O, I, ns, np, W, RI, ntile, accumulate;
 };
 
 template <int V> struct KeVec;
@@ -122,7 +124,9 @@ polar_apply_kernel(const KeArgs a) {
     // x of a range in 16-byte copies where its pairs start 16-byte aligned
     constexpr int XV = (NCP == 2 || V == 2) ? 2 : 1;
     extern __shared__ __align__(16) double xs[];   // [NC / NCP pairs][W][NCP]
-    const int npb = a.ns == 2 ? 1 : 2, nslot = 3 - npb;
+    // np rows an m in x and out: 2, or 1 where the azimuth has one point
+    // (K = 1; a signed stack's +m slot alone)
+    const int npb = a.ns == 2 ? 1 : a.np, nslot = a.ns == 2 ? a.np : 1;
     const int ncol = a.B * npb * NCP;
     const int warps = blockDim.x >> 5;
     const int RT = warps * G * a.RI;
@@ -168,7 +172,7 @@ polar_apply_kernel(const KeArgs a) {
                 const int b = in ? gp / npb : 0, pl = in ? gp - b * npb : 0;
                 __pipeline_memcpy_async(
                     xs + lp * a.W * NCP + e,
-                    a.x + ((((size_t)b * a.K + m) * 2 + p0 + pl) * a.I + r0) * NCP + e,
+                    a.x + ((((size_t)b * a.K + m) * a.np + p0 + pl) * a.I + r0) * NCP + e,
                     XV * sizeof(double), in ? 0 : XV * sizeof(double));
             }
             __pipeline_commit();
@@ -215,7 +219,8 @@ polar_apply_kernel(const KeArgs a) {
                         for (int off = L / 2; off > 0; off >>= 1)
                             v += __shfl_xor_sync(0xffffffffu, v, off);
                         if (q == c && o < a.O && j0 + c < ncol) {
-                            double* dst = a.out + ke_offset(j0 + c, npb, NCP, a.K, m, p0, a.O, o);
+                            double* dst = a.out + ke_offset(j0 + c, npb, NCP, a.K, a.np, m, p0,
+                                                            a.O, o);
                             *dst = a.accumulate ? *dst + v : v;
                         }
                         acc[c] = 0.0;
@@ -228,7 +233,7 @@ polar_apply_kernel(const KeArgs a) {
 
 template <int L, int V, int NC, int NCP>
 int ke_launch(const KeArgs& a, int warps, cudaStream_t stream) {
-    const long long blocks = (long long)a.K * (a.ns == 2 ? 2 : 1) * a.ntile;
+    const long long blocks = (long long)a.K * (a.ns == 2 ? a.np : 1) * a.ntile;
     const size_t smem = (size_t)NC * a.W * sizeof(double);
     polar_apply_kernel<L, V, NC, NCP><<<(unsigned)blocks, warps * 32, smem, stream>>>(a);
     return (int)cudaGetLastError();
@@ -268,7 +273,7 @@ struct KtArgs {
     const double* x;
     double* out;
     int comps[KT_MAX_COMPS];
-    int ncomps, K, O, I, T, ns, accumulate, NW, nct, nrt;
+    int ncomps, K, O, I, T, ns, np, accumulate, NW, nct, nrt;
 };
 
 __device__ __forceinline__ void kt_cp(double* dst, const double* src, int bytes, bool pred) {
@@ -311,12 +316,14 @@ trailing_apply_kernel(const __grid_constant__ KtArgs a) {
     bid /= a.nrt;
     const int ct = bid % a.nct;
     const int ms = bid / a.nct;
-    const int nslot = a.ns == 2 ? 2 : 1, npb = a.ns == 2 ? 1 : 2;
+    // np azimuth rows an m in x and out: 2, or 1 where the azimuth has one
+    // point (K = 1; a signed stack's +m slot alone)
+    const int nslot = a.ns == 2 ? a.np : 1, npb = a.ns == 2 ? 1 : a.np;
     const int m = ms / nslot, p0 = ms - m * nslot;
     const int o0 = rt * RT, j0 = ct * CT;
     const int T = a.T, I = a.I, O = a.O;
     const int cpq = npb * T, ncol = a.ncomps * cpq;
-    const long long compx = (long long)a.K * 2 * I * T, compy = (long long)a.K * 2 * O * T;
+    const long long compx = (long long)a.K * a.np * I * T, compy = (long long)a.K * a.np * O * T;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     // The column table: offsets in x (at i = 0) and out (at o = 0) of each
     // column of the tile, from the (m)'s base; -1 past the call's columns
@@ -334,8 +341,8 @@ trailing_apply_kernel(const __grid_constant__ KtArgs a) {
     }
     __syncthreads();
     const double* Sm = a.S + ((long long)m * a.ns + p0) * O * I;
-    const double* xm = a.x + (long long)m * 2 * I * T;
-    double* ym = a.out + (long long)m * 2 * O * T;
+    const double* xm = a.x + (long long)m * a.np * I * T;
+    double* ym = a.out + (long long)m * a.np * O * T;
     // This thread's share of the copies: the x tile's column (pair) and first
     // row, fixed for the block
     const int xcols = CT / V;
@@ -458,15 +465,18 @@ int kt_launch(const KtArgs& a, int blocks, cudaStream_t stream) {
 
 // The plan of ops/polar.py kt_plan: MT m16 tiles of rows a block, NW warps
 // (32 columns each) a column tile, nct column tiles, nrt row tiles; V = 2
-// needs T even and S, x, out 16-byte aligned (and I even).
+// needs T even and S, x, out 16-byte aligned (and I even). np: the azimuth
+// rows of x and out an m, 2 (x is (C, 2K, I, T)) or, where the azimuth has
+// one point, 1 (K = 1, x is (C, 1, I, T)).
 extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* out,
                                      const int* comps, int ncomps, int K, int O, int I, int T,
-                                     int ns, int accumulate, int MT, int V, int NW, int nct,
-                                     int nrt, void* stream) {
+                                     int ns, int np, int accumulate, int MT, int V, int NW,
+                                     int nct, int nrt, void* stream) {
     if (ncomps < 1 || ncomps > KT_MAX_COMPS || K < 1 || O < 1 || I < 1 || T < 1
-        || (ns != 1 && ns != 2) || MT < 1 || MT > KT_MAX_MT || NW < 1 || NW > KT_WARPS
+        || (ns != 1 && ns != 2) || (np != 2 && !(np == 1 && K == 1)) || MT < 1
+        || MT > KT_MAX_MT || NW < 1 || NW > KT_WARPS
         || nct < 1 || nrt != (O + 16 * MT - 1) / (16 * MT)
-        || (long long)nct * KT_WN * NW < (long long)ncomps * (ns == 2 ? 1 : 2) * T
+        || (long long)nct * KT_WN * NW < (long long)ncomps * (ns == 2 ? 1 : np) * T
         || (V != 1 && V != 2)
         || (V == 2 && (T % 2 || I % 2 || ((uintptr_t)S & 15) || ((uintptr_t)x & 15)
                        || ((uintptr_t)out & 15))))
@@ -482,11 +492,12 @@ extern "C" int ke_trailing_apply_f64(const double* S, const double* x, double* o
     a.I = I;
     a.T = T;
     a.ns = ns;
+    a.np = np;
     a.accumulate = accumulate;
     a.NW = NW;
     a.nct = nct;
     a.nrt = nrt;
-    const long long blocks = (long long)K * (ns == 2 ? 2 : 1) * nct * nrt;
+    const long long blocks = (long long)K * (ns == 2 ? np : 1) * nct * nrt;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
 #define KT_CASE(MT_, V_) \
@@ -527,18 +538,22 @@ extern "C" int ke_geometry(int* out, int n) {
 // block (1 to KE_WARPS), RI row groups a warp (more than one only where a
 // range is the whole row) and W row elements a staged range: the plan of
 // ops/polar.py ke_plan. V = 2 needs I even and S and x 16-byte aligned;
-// complex data (nc = 2) needs x 16-byte aligned.
+// complex data (nc = 2) needs x 16-byte aligned. np: the rows of x and out
+// an m, 2 (x is (B, 2K, I)) or, where the azimuth has one point, 1 (K = 1,
+// x is (B, 1, I)).
 extern "C" int ke_polar_apply_f64(const double* S, const double* x, double* out, int B,
-                                  int K, int O, int I, int ns, int nc, int L, int V, int NC,
-                                  int warps, int RI, int W, int accumulate, void* stream) {
-    if ((ns != 1 && ns != 2) || (nc != 1 && nc != 2) || B < 1 || K < 1 || O < 1 || I < 1
+                                  int K, int O, int I, int ns, int np, int nc, int L, int V,
+                                  int NC, int warps, int RI, int W, int accumulate,
+                                  void* stream) {
+    if ((ns != 1 && ns != 2) || (np != 2 && !(np == 1 && K == 1)) || (nc != 1 && nc != 2)
+        || B < 1 || K < 1 || O < 1 || I < 1
         || warps < 1 || warps > KE_WARPS || RI < 1 || W < 1 || W % 2 || (RI > 1 && W < I)
         || (size_t)NC * W * sizeof(double) > (size_t)KE_XS_BYTES
         || (V == 2 && (I % 2 || ((uintptr_t)S & 15)))
         || ((V == 2 || nc == 2) && ((uintptr_t)x & 15)))
         return (int)cudaErrorInvalidValue;
     const int RT = warps * (32 / L) * RI;
-    const KeArgs a = {S, x, out, B, K, O, I, ns, W, RI, (O + RT - 1) / RT, accumulate};
+    const KeArgs a = {S, x, out, B, K, O, I, ns, np, W, RI, (O + RT - 1) / RT, accumulate};
     KE_CASES(8) KE_CASES(16)
     return (int)cudaErrorInvalidValue;
 }

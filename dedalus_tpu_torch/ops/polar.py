@@ -59,11 +59,12 @@ KEPlan = collections.namedtuple('KEPlan',
 
 
 @functools.lru_cache(maxsize=None)
-def ke_plan(K, O, I, ns, ncol, vec, sms=H100_SMS):
+def ke_plan(K, O, I, ns, ncol, vec, sms=H100_SMS, slots=2):
     """
     The launch of KE's per-m apply for a (K, O, I) stack (ns = 1 shared, 2
     signed) and `ncol` (component, slot, re/im) columns a block (both slots'
-    with a shared stack, one slot's with a signed one); `vec` where S's rows
+    with a shared stack, one slot's with a signed one); `slots` the rows of
+    x an m (2, or 1 where the azimuth has one point); `vec` where S's rows
     and x start 16-byte aligned (I even, S and x aligned). Fields, as the
     kernel's: L lanes a row (8 up to KE_SHORT_ROW elements: 4 rows of a warp
     share each read of x, 3 shuffle levels; 16 on longer rows); V doubles a
@@ -75,14 +76,14 @@ def ke_plan(K, O, I, ns, ncol, vec, sms=H100_SMS):
     warp, KE_ROW_GROUPS where a row is one batch (so that a warp has batches
     to stream one after another), else 1, halved while the grid would hold
     less than KE_WARPS_AN_SM warps an SM; RT = warps * (32 / L)
-    * RI rows a block; blocks = K * slots * ntile. (The rules were read off
+    * RI rows a block; blocks = K * signed slots * ntile. (The rules were read off
     chip_smoke.ke_sweep, which times each L, warps and RI at KE's named
     blocks on the card.)
     """
     V = 2 if vec else 1
     NC = next(c for c in KE_COLUMNS if c >= min(ncol, KE_COLUMNS[-1]))
     L = 8 if I <= KE_SHORT_ROW else 16
-    nslot = 2 if ns == 2 else 1
+    nslot = slots if ns == 2 else 1
     step = L * V * KE_LOADS
     budget = KE_XS_BYTES // (8 * NC)
     W = -(-I // 2) * 2 if I <= budget else budget // step * step
@@ -98,6 +99,20 @@ def ke_plan(K, O, I, ns, ncol, vec, sms=H100_SMS):
                   passes=-(-ncol // NC), launches=1)
 
 
+def azimuth_slots(S, M):
+    """The azimuth rows an m of data with M azimuth rows under a stack of
+    K = S.shape[0] m's: 2 (a cos/sin or +m/-m pair), or 1 where the azimuth
+    has one point (M = 1: K = 1, the m = 0 row alone; the JAX package's
+    P = max(M // 2, 1) slots of M // P rows). Raises on any other count."""
+    K = S.shape[0]
+    if M == 2 * K:
+        return 2
+    if M == 1 and K == 1:
+        return 1
+    raise ValueError(f"KE: {M} azimuth rows for a stack of {K} m's "
+                     f"(2 an m, or 1 where the azimuth has one point)")
+
+
 def _check_stack(S, device, what):
     if (S.dtype != torch.float64 or S.device != device or not S.is_contiguous()
             or S.dim() not in (3, 4) or (S.dim() == 4 and S.shape[1] != 2)):
@@ -106,13 +121,17 @@ def _check_stack(S, device, what):
 
 
 def polar_apply_plain(S, x, out=None, accumulate=False):
-    """Plain torch KE (the JAX package's einsum)."""
+    """Plain torch KE (the JAX package's einsum), over the
+    azimuth_slots rows an m (a signed stack's +m slot alone where
+    there is one)."""
     lead = x.shape[:-2]
     K = S.shape[0]
-    xm = x.reshape(lead + (K, 2, x.shape[-1]))
+    P = azimuth_slots(S, x.shape[-2])
+    xm = x.reshape(lead + (K, P, x.shape[-1]))
     eq = 'mpoi,...mpi->...mpo' if S.dim() == 4 else 'moi,...mpi->...mpo'
+    S = S[:, :P] if S.dim() == 4 else S
     # (torch's einsum does not mix real and complex operands)
-    res = torch.einsum(eq, S.to(x.dtype), xm).reshape(lead + (2 * K, S.shape[-2]))
+    res = torch.einsum(eq, S.to(x.dtype), xm).reshape(lead + (P * K, S.shape[-2]))
     if out is None:
         return res
     if accumulate:
@@ -125,7 +144,8 @@ def polar_apply_plain(S, x, out=None, accumulate=False):
 def polar_apply(S, x, out=None, accumulate=False):
     """
     KE: apply the per-m stack S (K, O, I), or the signed stack (K, 2, O, I),
-    to x (..., 2K, I) -> (..., 2K, O); x float64 or complex128. With `out`
+    to x (..., 2K, I) -> (..., 2K, O), or at one azimuth point x (..., 1, I)
+    -> (..., 1, O) (K = 1: azimuth_slots); x float64 or complex128. With `out`
     given (contiguous, of that shape) the result is written into it, or
     added to it when `accumulate`, so an operator summing several component
     pairs into one output makes no extra pass.
@@ -137,17 +157,18 @@ def polar_apply(S, x, out=None, accumulate=False):
     K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
     ns = S.dim() - 2
     lead = tuple(x.shape[:-2])
-    if (x.dtype not in (torch.float64, torch.complex128) or tuple(x.shape[-2:]) != (2 * K, I)
+    P = azimuth_slots(S, x.shape[-2]) if x.dim() >= 2 else 2
+    if (x.dtype not in (torch.float64, torch.complex128) or tuple(x.shape[-2:]) != (P * K, I)
             or not x.is_contiguous()):
-        raise ValueError(f"KE: x must be a contiguous float64 or complex128 (..., {2 * K}, {I}) "
+        raise ValueError(f"KE: x must be a contiguous float64 or complex128 (..., {P * K}, {I}) "
                          f"tensor")
     if out is None:
         if accumulate:
             raise ValueError("KE: accumulate needs an output tensor")
-        out = torch.empty(lead + (2 * K, O), dtype=x.dtype, device=x.device)
+        out = torch.empty(lead + (P * K, O), dtype=x.dtype, device=x.device)
     elif (out.dtype != x.dtype or out.device != x.device
-            or tuple(out.shape) != lead + (2 * K, O) or not out.is_contiguous()):
-        raise ValueError(f"KE: out must be a contiguous {x.dtype} {lead + (2 * K, O)} tensor")
+            or tuple(out.shape) != lead + (P * K, O) or not out.is_contiguous()):
+        raise ValueError(f"KE: out must be a contiguous {x.dtype} {lead + (P * K, O)} tensor")
     B = 1
     for n in lead:
         B *= n
@@ -170,10 +191,11 @@ def _ke_launch(lib, S, x, out, accumulate, stream, sms, B):
     K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
     ns = S.dim() - 2
     nc = 2 if x.is_complex() else 1
-    plan = ke_plan(K, O, I, ns, B * nc * (1 if ns == 2 else 2),
-                   I % 2 == 0 and S.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0, sms)
+    P = azimuth_slots(S, x.shape[-2])
+    plan = ke_plan(K, O, I, ns, B * nc * (1 if ns == 2 else P),
+                   I % 2 == 0 and S.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0, sms, P)
     build.check(lib.ke_polar_apply_f64(
-        S.data_ptr(), x.data_ptr(), out.data_ptr(), B, K, O, I, ns, nc, plan.L, plan.V,
+        S.data_ptr(), x.data_ptr(), out.data_ptr(), B, K, O, I, ns, P, nc, plan.L, plan.V,
         plan.NC, plan.warps, plan.RI, plan.W, int(accumulate), stream), 'polar_apply')
     return plan
 
@@ -197,23 +219,25 @@ KTPlan = collections.namedtuple('KTPlan', 'MT RT NW CT nct nrt V ncol blocks sme
 
 
 @functools.lru_cache(maxsize=None)
-def kt_plan(K, O, I, ns, ncomps, T, vec, sms=H100_SMS):
+def kt_plan(K, O, I, ns, ncomps, T, vec, sms=H100_SMS, slots=2):
     """
     The launch of KE's trailing form for a (K, O, I) stack (ns = 1 shared by
     both slots, 2 signed), `ncomps` components and T doubles a trailing row
     (2T on complex data); `vec` where T and I are even and S, x and out
-    16-byte aligned (V = 2: 16-byte copies and pair stores). A block is
-    (m, signed slot, row tile of RT = 16 MT rows, column tile of CT = 32 NW
-    columns); the `ncol` columns of one (m, slot) product (ncomps x 2T with a
-    shared stack, ncomps x T a slot with a signed one) split into `nct`
-    tiles of at most KT_WARPS warps, NW the fewest warps that hold an equal
-    share. MT: among 1 to KT_MAX_MT, those whose grid holds KT_BLOCKS_AN_SM
-    blocks an SM; of them the one that pads O least, the larger on a tie
-    (where none does, 1). `nk` steps of KT_KC along I; `smem` the bytes a
-    block takes (the ring and the column table).
+    16-byte aligned (V = 2: 16-byte copies and pair stores); `slots` the
+    azimuth rows of x an m (2, the cos/sin or +m/-m pair; 1 where the
+    azimuth has one point). A block is (m, signed slot, row tile of
+    RT = 16 MT rows, column tile of CT = 32 NW columns); the `ncol` columns
+    of one (m, slot) product (ncomps x slots x T with a shared stack,
+    ncomps x T a slot with a signed one) split into `nct` tiles of at most
+    KT_WARPS warps, NW the fewest warps that hold an equal share. MT: among
+    1 to KT_MAX_MT, those whose grid holds KT_BLOCKS_AN_SM blocks an SM; of
+    them the one that pads O least, the larger on a tie (where none does,
+    1). `nk` steps of KT_KC along I; `smem` the bytes a block takes (the
+    ring and the column table).
     """
-    nslot = 2 if ns == 2 else 1
-    ncol = ncomps * (1 if ns == 2 else 2) * T
+    nslot = slots if ns == 2 else 1
+    ncol = ncomps * (1 if ns == 2 else slots) * T
     nct = -(-ncol // (KT_WARPS * KT_WN))
     NW = -(-ncol // (nct * KT_WN))
     CT = NW * KT_WN
@@ -233,12 +257,17 @@ def kt_plan(K, O, I, ns, ncomps, T, vec, sms=H100_SMS):
 
 def trailing_apply_plain(S, x, out, comps, accumulate=False):
     """Plain torch KE, trailing form (the JAX package's einsum
-    'mon,mp...n->mp...o', or 'mpon,mp...n->mp...o' on a signed stack)."""
+    'mon,mp...n->mp...o', or 'mpon,mp...n->mp...o' on a signed stack),
+    over the azimuth_slots rows an m (a signed stack's +m slot alone
+    where there is one)."""
     K = S.shape[0]
+    P = azimuth_slots(S, x.shape[1])
     eq = 'mpoi,mpit->mpot' if S.dim() == 4 else 'moi,mpit->mpot'
     S = S.to(x.dtype)
+    if S.dim() == 4:
+        S = S[:, :P]
     for c in comps:
-        xm = x[c].reshape((K, 2) + tuple(x.shape[2:]))
+        xm = x[c].reshape((K, P) + tuple(x.shape[2:]))
         res = torch.einsum(eq, S, xm).reshape(out.shape[1:])
         if accumulate:
             out[c].add_(res)
@@ -265,13 +294,14 @@ def trailing_apply(S, x, out, comps, accumulate=False):
     K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
     ns = S.dim() - 2
     C, T = x.shape[0], x.shape[-1]
+    P = azimuth_slots(S, x.shape[1]) if x.dim() == 4 else 2
     if (x.dtype not in (torch.float64, torch.complex128) or x.dim() != 4
-            or tuple(x.shape[1:3]) != (2 * K, I) or not x.is_contiguous()):
+            or tuple(x.shape[1:3]) != (P * K, I) or not x.is_contiguous()):
         raise ValueError(f"KE: x must be a contiguous float64 or complex128 "
-                         f"(C, {2 * K}, {I}, T) tensor")
+                         f"(C, {P * K}, {I}, T) tensor")
     if (out.dtype != x.dtype or out.device != x.device
-            or tuple(out.shape) != (C, 2 * K, O, T) or not out.is_contiguous()):
-        raise ValueError(f"KE: out must be a contiguous {x.dtype} {(C, 2 * K, O, T)} tensor")
+            or tuple(out.shape) != (C, P * K, O, T) or not out.is_contiguous()):
+        raise ValueError(f"KE: out must be a contiguous {x.dtype} {(C, P * K, O, T)} tensor")
     if not comps or not all(0 <= c < C for c in comps):
         raise ValueError("KE: a component index is out of range")
     build.check_geometry('kt_geometry', KT_GEOMETRY)
@@ -282,11 +312,11 @@ def trailing_apply(S, x, out, comps, accumulate=False):
     lib = build.library()
     for c0 in range(0, len(comps), KT_MAX_COMPS):
         chunk = comps[c0:c0 + KT_MAX_COMPS]
-        plan = kt_plan(K, O, I, ns, len(chunk), Td, vec, _sms(x.device))
+        plan = kt_plan(K, O, I, ns, len(chunk), Td, vec, _sms(x.device), P)
         idx = (ctypes.c_int * len(chunk))(*chunk)
         build.check(lib.ke_trailing_apply_f64(
             S.data_ptr(), x.data_ptr(), out.data_ptr(), ctypes.addressof(idx), len(chunk), K,
-            O, I, Td, ns, int(accumulate), plan.MT, plan.V, plan.NW, plan.nct, plan.nrt,
+            O, I, Td, ns, P, int(accumulate), plan.MT, plan.V, plan.NW, plan.nct, plan.nrt,
             stream), 'trailing_apply')
         build.count(trailing_apply, 'signed' if ns == 2 else x.dtype)
     return out

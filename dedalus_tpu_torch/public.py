@@ -16,11 +16,14 @@ heated convection example, the ell product SphericalEllProduct (the
 z-cross SphericalZCross is imported from core.operators_ball, as in the JAX
 package), with numpy ufuncs on operands and the Cartesian advective
 CFL frequency,
-IVPs and LBVPs with conditioned equations, the InitialValueSolver with the
+IVPs, LBVPs, NLBVPs and EVPs with conditioned equations, the InitialValueSolver with the
 eight multistep schemes (CNAB1, SBDF1, CNAB2, MCNAB2, SBDF2, CNLF2, SBDF3,
 SBDF4, on every matsolver) and the five Runge-Kutta schemes (dense
 matsolvers) and its evolve loop, the LinearBoundaryValueSolver (dense, poly
-and banded matsolvers), the dictionary handlers of the evaluator, and the
+and banded matsolvers), the NonlinearBoundaryValueSolver (Newton iterations
+through the Frechet differentials of the operator trees) and the
+EigenvalueSolver (dense and sparse, with left eigenvectors; IVP.build_EVP
+linearizes an IVP), the dictionary handlers of the evaluator, and the
 CFL and GlobalFlowProperty flow tools. File output,
 plot tools and post-processing are not ported yet (ROADMAP M9).
 """
@@ -47,13 +50,16 @@ from .core.operators_ball import SphericalEllProduct
 from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct
 from .core.arithmetic import DotProduct as dot
 from .core.arithmetic import CrossProduct as cross
-from .core.problems import IVP, InitialValueProblem, LBVP, LinearBoundaryValueProblem
+from .core.problems import (IVP, LBVP, NLBVP, EVP, InitialValueProblem,
+                            LinearBoundaryValueProblem, NonlinearBoundaryValueProblem,
+                            EigenvalueProblem)
 from .core.timesteppers import (
     schemes as timestepper_schemes,
     CNAB1, SBDF1, CNAB2, MCNAB2, SBDF2, CNLF2, SBDF3, SBDF4,
     RK111, RK222, RK443, RKSMR, RKGFY,
 )
-from .core.solvers import InitialValueSolver, LinearBoundaryValueSolver
+from .core.solvers import (InitialValueSolver, LinearBoundaryValueSolver,
+                           NonlinearBoundaryValueSolver, EigenvalueSolver)
 from .extras.flow_tools import GlobalArrayReducer, GlobalFlowProperty, CFL
 
 Chebyshev = ChebyshevT

@@ -18,12 +18,20 @@ def set_state_from_reference(solver, arrays, fields=None, layout='c'):
     and the spin components of fields on a ball's or shell's surface;
     complex fields of the curvilinear bases in their signed (+m, -m) slot
     storage, the dead -0 slot included).
-    `solver` is an IVP or LBVP solver; `fields` names other fields to set
+    `solver` is an IVP, LBVP, NLBVP or EVP solver, whose problem variables
+    are set (an NLBVP's variables, not the perturbations its pencils solve
+    for; an EVP's eigenvalue field too where `arrays` has its name);
+    `fields` names other fields to set
     instead of its variables (the right-hand-side fields of an LBVP, the
     NCC fields of a problem such as the shell's er, ez and rvec or the
     ball's r_vec); `layout`
     is 'c' for coefficient data or 'g' for grid data."""
-    for field in (solver.state if fields is None else fields):
+    if fields is None:
+        fields = list(solver.problem.variables)
+        eigenvalue = getattr(solver.problem, 'eigenvalue', None)
+        if eigenvalue is not None and eigenvalue.name in arrays:
+            fields.append(eigenvalue)
+    for field in fields:
         field.change_scales(1)
         field[layout] = np.asarray(arrays[field.name])
 

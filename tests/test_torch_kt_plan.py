@@ -60,11 +60,13 @@ def test_geometry_matches_source():
 
 def emulate(S, x, out, comps, accumulate, plan):
     """The launch on the CPU: S (K, O, I) or (K, 2, O, I); x, out the real
-    (C, 2K, ., Td) views. Returns out as the kernel leaves it."""
+    (C, P K, ., Td) views, P = 2 azimuth rows an m or 1 at one azimuth point
+    (the kernel's np). Returns out as the kernel leaves it."""
     ns = S.ndim - 2
     K, O, I = S.shape[0], S.shape[-2], S.shape[-1]
     Td = x.shape[-1]
-    nslot, npb = (2, 1) if ns == 2 else (1, 2)
+    P = x.shape[1] // K
+    nslot, npb = (P, 1) if ns == 2 else (1, P)
     cpq = npb * Td
     ncol = len(comps) * cpq
     MT, NW, nct, nrt = plan.MT, plan.NW, plan.nct, plan.nrt
@@ -112,7 +114,7 @@ def emulate(S, x, out, comps, accumulate, plan):
             for j, col in enumerate(cols):
                 if col is not None:
                     c, p, t = col
-                    Xs[:ks.size, j] = x[c, 2 * m + p, ks, t]
+                    Xs[:ks.size, j] = x[c, P * m + p, ks, t]
             acc += Ss @ Xs
         for w in range(C['KT_WARPS']):
             if w >= NW or j0 + w * WN >= ncol:
@@ -124,9 +126,9 @@ def emulate(S, x, out, comps, accumulate, plan):
                 for rr in range(RT):
                     o = o0 + rr
                     if o < O:
-                        prev = y[c, 2 * m + p, o, t] if accumulate else 0.0
-                        y[c, 2 * m + p, o, t] = prev + acc[rr, j]
-                        stored[c, 2 * m + p, o, t] += 1
+                        prev = y[c, P * m + p, o, t] if accumulate else 0.0
+                        y[c, P * m + p, o, t] = prev + acc[rr, j]
+                        stored[c, P * m + p, o, t] += 1
     want = np.zeros(out.shape, dtype=int)
     want[list(comps)] = 1
     assert (stored == want).all()
@@ -156,29 +158,40 @@ CASES = [
     (3, 53, 11, False, True, 9, tuple(range(9)), 3, 2),
     (2, 33, 18, True, False, 2, (1, 0), 9, 1),
 ]
+# One azimuth point (K = 1, x of one row: the kernel's np = 1), shared and
+# signed stacks: Lane-Emden's ball at dealias 2 (O = 64 coefficients of a
+# 2-point colatitude grid, 128 radial points) and ragged shapes
+CASES_M1 = [
+    (1, 1, 2, False, False, 1, (0,), 128, 132),
+    (1, 37, 21, False, False, 3, (2, 0), 7, 132),
+    (1, 19, 13, True, True, 3, (1,), 5, 2),
+    (1, 53, 11, False, True, 9, tuple(range(9)), 3, 1),
+]
 
 
 @pytest.mark.parametrize('accumulate', [False, True])
-@pytest.mark.parametrize('case', CASES)
+@pytest.mark.parametrize('case', CASES + CASES_M1)
 def test_emulation_against_twin_and_jax(case, accumulate):
     K, O, I, signed, cplx, Cn, comps, T, sms = case
+    P = 1 if case in CASES_M1 else 2
     rng = np.random.default_rng(K * 100 + O + T)
     S = rng.standard_normal((K, 2, O, I) if signed else (K, O, I))
     dt = np.complex128 if cplx else np.float64
-    x = rng.standard_normal((Cn, 2 * K, I, T)).astype(dt)
-    out = rng.standard_normal((Cn, 2 * K, O, T)).astype(dt)
+    x = rng.standard_normal((Cn, P * K, I, T)).astype(dt)
+    out = rng.standard_normal((Cn, P * K, O, T)).astype(dt)
     if cplx:
         x = x + 1j * rng.standard_normal(x.shape)
         out = out + 1j * rng.standard_normal(out.shape)
     Td = 2 * T if cplx else T
     plan = tpolar.kt_plan(K, O, I, 2 if signed else 1, len(comps), Td, Td % 2 == 0 and I % 2 == 0,
-                          sms)
+                          sms, P)
     got = _back(emulate(S, _real(x), _real(out), comps, accumulate, plan), cplx)
     twin = tpolar.trailing_apply(torch.tensor(S), torch.tensor(x), torch.tensor(out.copy()),
                                  comps, accumulate=accumulate).numpy()
     assert _rel(got, twin) <= TOL
     for c in comps:
-        ref = np.asarray(ColatitudeBasis._apply_one(jnp.asarray(x[c]), jnp.asarray(S), 1, O))
+        Sref = S[:, :P] if signed else S
+        ref = np.asarray(ColatitudeBasis._apply_one(jnp.asarray(x[c]), jnp.asarray(Sref), 1, O))
         if accumulate:
             ref = ref + out[c]
         assert _rel(got[c], ref) <= TOL

@@ -95,11 +95,12 @@ def emulate(S, x, out, call):
     row's lanes in the kernel's order (ranges, batches, loads, the pair of a
     16-byte load; rows are independent, so all rows at once), then the xor
     tree; writes `out` (B, 2K, O) as the kernel does."""
-    (_, _, _, B, K, O, I, ns, nc, L, V, NC, warps, RI, W, accumulate, _) = call
+    (_, _, _, B, K, O, I, ns, P, nc, L, V, NC, warps, RI, W, accumulate, _) = call
+    assert P == 2 or (P == 1 and K == 1)
     G, U = 32 // L, opolar.KE_LOADS
     step = L * V * U
     RT = warps * G * RI
-    npb, nslot = (1, 2) if ns == 2 else (2, 1)
+    npb, nslot = (1, P) if ns == 2 else (P, 1)
     ncol = B * npb * nc
     ntile = -(-O // RT)
     assert W % 2 == 0 and NC * W * 8 <= opolar.KE_XS_BYTES and (RI == 1 or W >= I)
@@ -114,10 +115,10 @@ def emulate(S, x, out, call):
         seen[rest // nslot, rest % nslot, tile * RT + lanes] += 1
     assert bool((seen[..., :O] == 1).all()), "a row of S is served by no lane or by two"
     R = K * nslot * O
-    Sd = S.reshape(R, I)                 # row (m, slot, o) of the stack
+    Sd = (S[:, :P] if ns == 2 else S).reshape(R, I)     # row (m, slot, o) of the stack
     xflat = (torch.view_as_real(x) if x.is_complex() else x).reshape(-1)
     od = torch.view_as_real(out) if out.is_complex() else out.unsqueeze(-1)
-    od = od.reshape(B, K, 2, O, nc)
+    od = od.reshape(B, K, P, O, nc)
     row = torch.arange(R)
     m, p0, o = row // (nslot * O), (row // O) % nslot, row % O
     q = torch.arange(L)
@@ -133,7 +134,7 @@ def emulate(S, x, out, call):
                 gp = j0 // nc + lp
                 if gp * nc < ncol:
                     b, pl = gp // npb, gp % npb
-                    src = ((((b * K + m) * 2 + p0 + pl) * I + r0) * nc)[:, None] + e
+                    src = ((((b * K + m) * P + p0 + pl) * I + r0) * nc)[:, None] + e
                     xs[:, lp].view(R, -1)[:, :wr * nc] = xflat[src]
             xs = xs.permute(0, 2, 1, 3).reshape(R, W, NC)      # [row][i][column]
             for bt in range(-(-wr // step)):
@@ -223,3 +224,28 @@ def test_plan_stays_inside_the_kernels_instantiations():
                 assert p.W % 2 == 0 and p.NC * p.W * 8 <= opolar.KE_XS_BYTES
                 assert p.nrange * p.W >= I and (p.RI == 1 or p.W >= I)
                 assert p.passes * p.NC >= ncol
+
+
+@pytest.mark.parametrize('signed,cplx,accumulate', [(False, False, False), (False, True, True),
+                                                    (True, True, False), (True, False, True)])
+def test_one_azimuth_point(signed, cplx, accumulate):
+    """At one azimuth point (K = 1, x of one row an m: the kernel's np = 1)
+    the launch emulated against the per-m einsum of the one row (a signed
+    stack's +m slot alone) and the plain twin."""
+    rng = np.random.default_rng(11 + 2 * signed + cplx)
+    O, I, B = 23, 17, 3
+    S = rng.standard_normal((1, 2, O, I) if signed else (1, O, I))
+    x = rng.standard_normal((B, 1, I)) + (1j * rng.standard_normal((B, 1, I)) if cplx else 0)
+    base = rng.standard_normal((B, 1, O)) * (1 + (1j if cplx else 0))
+    dtype = torch.complex128 if cplx else torch.float64
+    St, xt = torch.as_tensor(S), torch.as_tensor(x, dtype=dtype)
+    out = torch.as_tensor(base, dtype=dtype).clone()
+    plan, call = launch(St, xt, out, accumulate)
+    assert call[8] == 1 and plan.blocks == plan.ntile
+    got = emulate(St, xt, out, call).numpy()
+    ref = np.einsum('oi,bi->bo', S[0, 0] if signed else S[0], x[:, 0])[:, None]
+    ref = base + ref if accumulate else ref
+    assert np.abs(got - ref).max() <= TOL * np.abs(ref).max()
+    plain = opolar.polar_apply_plain(St, xt, torch.as_tensor(base, dtype=dtype).clone(),
+                                     accumulate).numpy()
+    assert np.abs(got - plain).max() <= TOL * np.abs(ref).max()
