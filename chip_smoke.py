@@ -253,6 +253,8 @@ KERNELS = dict(   # name: (route, source, replaces)
              'dedalus_tpu/extras/flow_tools.py:167'),
     polar_apply=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
                  'dedalus_tpu/core/basis_polar.py:527'),
+    polar_apply_signed=('cuda', 'dedalus_tpu_torch/csrc/polar_kernels.cu',
+                        'dedalus_tpu/core/basis_polar.py:527'),
     spin_recombine=('cuda', 'dedalus_tpu_torch/csrc/spin_kernels.cu',
                     'dedalus_tpu/core/basis_polar.py:248'),
     pencil_gather_scatter=('cuda', 'dedalus_tpu_torch/csrc/pencil_kernels.cu',
@@ -490,6 +492,19 @@ PATH_KERNELS = dict(
     lane_emden64=('dense_refined_solve', 'pencil_gather_scatter', 'trailing_apply',
                   'polar_apply', 'ball_radial_apply'),
     waves128_evp=('pencil_gather_scatter',),
+    # The Mathieu, pipe-flow and rotating-shell EVPs: set_state (K3's
+    # scatter) and the eigenmode's grid values (Mathieu: K1 MMT, under
+    # fourier_library = fast K10 with K12's scatter; the disk: KE's signed
+    # per-m form and KF; the shell: KJ, KE's trailing form, KI and KF);
+    # the NCC LBVPs' solves (KA, K3) and solutions' grid values
+    mathieu64_evp=('pencil_gather_scatter_c128',),
+    mathieu64_fast_evp=('pencil_gather_scatter_c128', 'complex_fourier_select'),
+    pipeflow_evp=('pencil_gather_scatter_c128', 'polar_apply_signed', 'spin_recombine_c128'),
+    shell_rotating_evp=('pencil_gather_scatter_c128', 'shell_radial_transform_c128',
+                        'trailing_apply_signed', 'regularity_recombine_c128',
+                        'spin_recombine_c128'),
+    ncc_lbvp=('dense_refined_solve', 'pencil_gather_scatter', 'polar_apply',
+              'dense_refined_solve_c128', 'pencil_gather_scatter_c128'),
 )
 RESULTS = {}    # kernel name -> its check against the plain twin
 K2_BOUND = {}   # dense path -> the summed bound of one F evaluation's kernels
@@ -500,7 +515,8 @@ GRAPH_STEPS = {}    # main path -> its timed run's replays, captures, eager step
 GRAPH_VS_EAGER = {}     # path -> graph against eager after 20 steps (graph_vs_eager)
 # Main paths whose counted run takes no timestep (a boundary value solve)
 NO_STEP_PATHS = ('lbvp_banded', 'f7_synthetic', 'f8_synthetic', 'k14b_synthetic',
-                 'lane_emden64', 'waves128_evp')
+                 'lane_emden64', 'waves128_evp', 'mathieu64_evp', 'mathieu64_fast_evp',
+                 'pipeflow_evp', 'shell_rotating_evp', 'ncc_lbvp')
 
 
 def phase(msg):
@@ -703,6 +719,7 @@ def kernel_functions():
                 grid_product_c128=[oprod.grid_product], lu_solve_c128=[osolve.lu_solve],
                 zcross=[kz.zcross], spin_recombine_c128=[kf.spin_recombine_complex],
                 trailing_apply_signed=[opolar.trailing_apply],
+                polar_apply_signed=[opolar.polar_apply],
                 grid_cross_c128=[oprod.grid_cross],
                 ball_radial_apply_c128=[oball.ball_radial_apply],
                 ball_radial_apply_rot_c128=[oball.ball_radial_apply_rot],
@@ -8647,6 +8664,495 @@ def evp_path():
     return row
 
 
+EVP_EXAMPLES = dict(mathieu_q=(1.0, 2.0, 5.0), pipe_Nr=(48, 64), shell_v0_seed=11)
+
+
+def host_grids(fields):
+    """Each field's grid values at scale 1, as host copies (from shallow
+    copies: the fields keep their layout)."""
+    out = []
+    for f in fields:
+        g = f.copy()
+        g.change_scales(1)
+        g.require_grid_space()
+        out.append(g.data.detach().cpu().clone())
+    return out
+
+
+def host_coeffs(fields):
+    out = []
+    for f in fields:
+        f.change_scales(1)
+        f.require_coeff_space()
+        out.append(f.data.detach().cpu().clone())
+    return out
+
+
+def mode_err(got, ref):
+    """The largest difference of a mode's arrays, relative to the mode's
+    largest entry over all of its fields (a field with little of the mode
+    holds round-off only)."""
+    scale = max(float(r.abs().max()) for r in ref)
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref)) / max(scale, 1e-300)
+
+
+def align_phase(solver, index, ref_vec):
+    """Turn eigenvector `index` onto ref_vec's phase (an eigenvector is
+    defined up to one; LAPACK and ARPACK fix it by round-off-sensitive
+    choices). Returns how far from parallel the two were."""
+    v = solver.eigenvectors[:, index]
+    c = np.vdot(v, ref_vec)
+    solver.eigenvectors[:, index] = v * (c / abs(c))
+    return abs(abs(c) / np.vdot(v, v).real - 1)
+
+
+def evp_mode_run(solver, index, fields, ref_vec=None):
+    """set_state(index) and the mode's grid values: (times, coefficients,
+    grid values, phase misalignment)."""
+    t = {}
+    off = align_phase(solver, index, ref_vec) if ref_vec is not None else 0.0
+    t0 = time.perf_counter()
+    solver.set_state(index)
+    if solver.dist.device.type == 'cuda':
+        torch.cuda.synchronize()
+    t['set_state_s'] = time.perf_counter() - t0
+    coeffs = host_coeffs(fields)
+    t0 = time.perf_counter()
+    grids = host_grids(fields)
+    t['transform_s'] = time.perf_counter() - t0
+    return t, coeffs, grids, off
+
+
+def mathieu_run(dev, q_values=EVP_EXAMPLES['mathieu_q'], ref=None):
+    """The Mathieu example on `dev`: per q its eigenvalues, host assembly
+    and solve times, and the lowest mode's set_state and grid values (the
+    card's phase aligned onto ref's vectors where given; the solver under
+    'solver', for the kernel checks after a counted run)."""
+    from dedalus_tpu_torch.models import evp as mevp
+    me = mevp.MathieuEVP(device=dev)
+    out = {}
+    for q in q_values:
+        t0 = time.perf_counter()
+        solver = me.problem(q).build_solver()
+        t = dict(assembly_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        evals, index = mevp.mathieu_solve(solver)
+        t['solve_s'] = time.perf_counter() - t0
+        tm, coeffs, grids, off = evp_mode_run(
+            solver, index, [me.u], None if ref is None else ref[q]['vec'])
+        out[q] = dict(evals=evals, index=index, vec=solver.eigenvectors[:, index].copy(),
+                      coeffs=coeffs, grids=grids, times={**t, **tm}, phase_off=off,
+                      scipy_err=float(np.abs(evals[:7] - mevp.mathieu_exact(q)).max()),
+                      solver=solver, fields=[me.u])
+    return out
+
+
+def pipe_flow_run(dev, ref=None):
+    """The pipe-flow example on `dev` at Nr = 48 and 64: s, the times, and
+    at Nr = 64 the slowest mode's set_state and grid values of u, w, p (its
+    solver, problem fields and eigenmode fields under 'solver', 'ctx' and
+    'fields', for the kernel checks after a counted run)."""
+    from dedalus_tpu_torch.models import evp as mevp
+    out = {}
+    for Nr in EVP_EXAMPLES['pipe_Nr']:
+        t0 = time.perf_counter()
+        problem, ctx = mevp.build_pipe_flow_problem(Nr, device=dev)
+        solver = problem.build_solver()
+        t = dict(assembly_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        evals, index, _ = mevp.pipe_flow_solve(solver)
+        t['solve_s'] = time.perf_counter() - t0
+        row = dict(s=complex(evals[0]), index=index, vec=solver.eigenvectors[:, index].copy(),
+                   times=t)
+        if Nr == EVP_EXAMPLES['pipe_Nr'][-1]:
+            fields = [ctx['u'], ctx['w'], ctx['p']]
+            tm, row['coeffs'], row['grids'], row['phase_off'] = evp_mode_run(
+                solver, index, fields, None if ref is None else ref[Nr]['vec'])
+            row['times'].update(tm)
+            row.update(solver=solver, ctx=ctx, fields=fields)
+        out[Nr] = row
+    return out
+
+
+def record_disk_signed(ctx):
+    """KE's signed per-m form at the pipe-flow disk's backward stack (u's
+    spin components, vector rank), beside one torch.matmul of the same
+    product: the kernels line's numbers for polar_apply_signed."""
+    from dedalus_tpu_torch.core.basis import device_copy
+    disk = ctx['disk']
+    rb = disk.radial_basis
+    S = device_copy(rb._transform_stacks(1, 1, 'b'), ctx['dist'].device)
+    K = S.shape[0]
+    gen = torch.Generator(device=S.device).manual_seed(25)
+    x = torch.randn((3, 2 * K, rb.size), generator=gen, dtype=torch.complex128,
+                    device=S.device)
+    Sc = S.to(torch.complex128)
+    xv = x.view(3, K, 2, rb.size).permute(1, 2, 3, 0)
+    record('polar_apply_signed', 'pipeflow64', ke_times(
+        S, x, lambda: torch.matmul(Sc, xv), 4,
+        what="the disk's backward signed stack at spin +1, 3 columns (the pipe flow's u)"),
+        True, keys=DEVICE_KEYS)
+
+
+def rotating_shell_run(dev, ref=None):
+    """The rotating-shell example's default on `dev` (two shapes, the
+    sparse solve near the target with one seeded start vector): the
+    eigenvalues, the times, and at the finer shape the mode nearest the
+    target's set_state and grid values of u, p, T (its solver and those
+    fields under 'solver' and 'fields', for the kernel checks after a
+    counted run)."""
+    from dedalus_tpu_torch.models import evp as mevp
+    cfg = mevp.ROTATING_SHELL
+    out = {}
+    for shape in cfg['resolutions']:
+        t0 = time.perf_counter()
+        problem, ctx = mevp.build_rotating_shell_problem(shape, Ekman=cfg['Ekman'],
+                                                         Rayleigh=cfg['Rayleigh'], device=dev)
+        solver = problem.build_solver()
+        t = dict(assembly_s=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        evals, index = mevp.rotating_shell_solve(solver, cfg, EVP_EXAMPLES['shell_v0_seed'])
+        t['solve_s'] = time.perf_counter() - t0
+        row = dict(evals=evals, index=index, vec=solver.eigenvectors[:, index].copy(), times=t)
+        if shape == cfg['resolutions'][-1]:
+            fields = [ctx['u'], ctx['p'], ctx['T']]
+            tm, row['coeffs'], row['grids'], row['phase_off'] = evp_mode_run(
+                solver, index, fields, None if ref is None else ref[shape]['vec'])
+            row['times'].update(tm)
+            row.update(solver=solver, fields=fields)
+        out[shape] = row
+    return out
+
+
+# The wrappers twin_calls holds against their plain twins (each module's
+# `<wrapper>_plain`) on a path's own calls: (kernel name, its `_c128` form
+# on complex output; module; wrapper)
+TWIN_WRAPPERS = (
+    ('shell_radial_transform', 'dedalus_tpu_torch.ops.shell', 'shell_radial_transform'),
+    ('regularity_recombine', 'dedalus_tpu_torch.csrc.regularity_recombine',
+     'regularity_recombine'),
+    ('spin_recombine', 'dedalus_tpu_torch.csrc.spin_recombine', 'spin_recombine'),
+    ('spin_recombine', 'dedalus_tpu_torch.csrc.spin_recombine', 'spin_recombine_complex'),
+    ('dense_refined_solve', 'dedalus_tpu_torch.ops.solve', 'dense_refined_solve'),
+)
+
+
+def _twin_key(args, kw):
+    """A call's configuration: its tensors' shapes and dtypes, and its
+    other arguments."""
+    def key(v):
+        return (tuple(v.shape), str(v.dtype)) if isinstance(v, torch.Tensor) else repr(v)
+    return tuple(key(v) for v in args) + tuple((k, key(v)) for k, v in sorted(kw.items()))
+
+
+def twin_calls(path, run, expect):
+    """Every distinct call of KJ, KI, KF and KA (TWIN_WRAPPERS) that run()
+    makes, against its plain twin on the same operands within TOL, two
+    launches equal bit for bit; prints one JSON line, folds the errors into
+    the kernels' checks, and fails if a kernel named in `expect` had no
+    call."""
+    import importlib
+    targets = [(name, importlib.import_module(m), w) for name, m, w in TWIN_WRAPPERS]
+    calls = {w: [] for _, _, w in targets}
+    saved = {w: getattr(mod, w) for _, mod, w in targets}
+    for _, mod, w in targets:
+        def recording(*args, _fn=saved[w], _w=w, **kw):
+            calls[_w].append((args, kw))
+            return _fn(*args, **kw)
+        # (the wrapper counts its launches on the module's name: the copy's)
+        functools.update_wrapper(recording, saved[w])
+        setattr(mod, w, recording)
+    try:
+        run()
+    finally:
+        for _, mod, w in targets:
+            setattr(mod, w, saved[w])
+    rows = []
+    for name, mod, w in targets:
+        seen = {}
+        for args, kw in calls[w]:
+            seen.setdefault(_twin_key(args, kw), [args, kw, 0])[2] += 1
+        plain = getattr(mod, w + '_plain')
+        for args, kw, n in seen.values():
+            yk, yk2, yp = saved[w](*args, **kw), saved[w](*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            form = name + ('_c128' if yk.is_complex() else '')
+            err = rel_err(yk, yp)
+            merge_err(form, err)
+            rows.append(dict(kernel=form, wrapper=w, shapes=[
+                list(a.shape) for a in args if isinstance(a, torch.Tensor)], calls=n,
+                err=err[0], bitwise=torch.equal(yk, yk2)))
+    print(json.dumps({f"{path}_twin_calls": rows}))
+    for r in rows:
+        if not r['bitwise']:
+            raise AssertionError(f"{r['kernel']} on {path} {r['shapes']}: two launches differ")
+    missing = set(expect) - {r['kernel'] for r in rows}
+    if missing:
+        raise AssertionError(f"{path}: no call of {sorted(missing)} to check")
+    return rows
+
+
+def fast_twin_calls(path, run):
+    """Every distinct fast-transform call of run() (K10 with K12's select
+    and scatter inside it, under fourier_library = fast) against its plain
+    twin and the unfused launches (check_fast_kernels)."""
+    calls = capture_fast_calls(run)
+    names = [n for n, ws in FAST_WRAPPERS.items() if any(calls[w] for w in ws)]
+    if not names:
+        raise AssertionError(f"{path}: no fast-transform call to check")
+    check_fast_kernels(path, calls, {}, primary=False, names=names)
+
+
+def evp_examples_path():
+    """The Mathieu, pipe-flow and rotating-shell EVP examples as written,
+    with the distributor on the card and on the CPU (models/evp.py; their
+    pencils solve on the host with scipy, as the JAX package's): the
+    eigenvalues card against CPU (and Mathieu's against scipy within 1e-7,
+    the pipe flow's s at Nr = 64 within 1e-10 of the JAX package's value
+    with a drift under 1e-8, the shell's drift as the example checks it),
+    set_state on the card and the eigenmode's grid values through the
+    geometry's kernels within 1e-12 of the CPU-held port's, the launches by
+    kernel of each example's run on the card, its host assembly, solve,
+    set_state and transform times; Mathieu once more under
+    fourier_library = fast (K10)."""
+    from dedalus_tpu_torch.models import evp as mevp
+    dev, kind, smi = card()
+    phase(f"EVP examples: Mathieu, pipe flow, rotating shell; card vs cpu on {kind}")
+    rows = {}
+    # Mathieu
+    cpu = mathieu_run('cpu')
+    gpu = count_launches('mathieu64_evp', 1, lambda: mathieu_run(DEVICE, ref=cpu))
+    # The kernels at the path's shapes against their twins, after its
+    # counted run: K3 on the whole Fourier axis's one pencil (P = 64), and
+    # under `fast` K10's calls of the mode's transform
+    check_k3('mathieu64', gpu[5.0]['solver'].pencil, gpu[5.0]['solver'].state_flat(),
+             name='pencil_gather_scatter_c128')
+    old = set_libraries('fast')
+    try:
+        fast = count_launches('mathieu64_fast_evp', 1,
+                              lambda: mathieu_run(DEVICE, q_values=(5.0,), ref=cpu))
+        fast_twin_calls('mathieu64_fast', lambda: host_grids(fast[5.0]['fields']))
+    finally:
+        restore_libraries(old)
+    rows['mathieu64'] = dict(
+        card=smi, scipy_err={q: gpu[q]['scipy_err'] for q in gpu},
+        eig_card_vs_cpu=max(float(np.abs(gpu[q]['evals'] - cpu[q]['evals']).max()) for q in gpu),
+        state_err=max(mode_err(gpu[q]['coeffs'], cpu[q]['coeffs']) for q in gpu),
+        grid_err=max(mode_err(gpu[q]['grids'], cpu[q]['grids']) for q in gpu),
+        fast_grid_err=mode_err(fast[5.0]['grids'], cpu[5.0]['grids']),
+        phase_off=max(gpu[q]['phase_off'] for q in gpu),
+        times_s={q: gpu[q]['times'] for q in gpu}, cpu_times_s={q: cpu[q]['times'] for q in cpu},
+        fast_times_s=fast[5.0]['times'], launches=LAUNCHES['mathieu64_evp'],
+        fast_launches=LAUNCHES['mathieu64_fast_evp'])
+    # Pipe flow
+    cpu = pipe_flow_run('cpu')
+    gpu = count_launches('pipeflow_evp', 1, lambda: pipe_flow_run(DEVICE, ref=cpu))
+    # The kernels at the path's shapes against their twins, after its
+    # counted run: KE's per-m calls and KF's of the mode's transform, K3 on
+    # its pencils, KE's signed form timed at the disk's stack
+    last = gpu[64]
+    f_kernel_calls('pipeflow64', lambda: host_grids(last['fields']))
+    twin_calls('pipeflow64', lambda: host_grids(last['fields']), ('spin_recombine_c128',))
+    check_k3('pipeflow64', last['solver'].pencil, last['solver'].state_flat(),
+             name='pencil_gather_scatter_c128')
+    record_disk_signed(last['ctx'])
+    s48, s64 = gpu[48]['s'], gpu[64]['s']
+    rows['pipeflow'] = dict(
+        card=smi, s64=str(s64), s48=str(s48), s64_err_reference=abs(s64 - mevp.PIPE_FLOW_S64),
+        drift=abs(s48 - s64), s_card_vs_cpu=max(abs(gpu[n]['s'] - cpu[n]['s']) for n in gpu),
+        state_err=mode_err(gpu[64]['coeffs'], cpu[64]['coeffs']),
+        grid_err=mode_err(gpu[64]['grids'], cpu[64]['grids']), phase_off=gpu[64]['phase_off'],
+        times_s={n: gpu[n]['times'] for n in gpu}, cpu_times_s={n: cpu[n]['times'] for n in cpu},
+        launches=LAUNCHES['pipeflow_evp'])
+    # Rotating shell
+    cpu = rotating_shell_run('cpu')
+    gpu = count_launches('shell_rotating_evp', 1, lambda: rotating_shell_run(DEVICE, ref=cpu))
+    coarse, fine = mevp.ROTATING_SHELL['resolutions']
+    # The kernels at the path's shapes against their twins, after its
+    # counted run: KE trailing's, KJ's, KI's and KF's calls of the mode's
+    # transform, K3 on its pencils
+    f_kernel_calls('shell_rotating_evp', lambda: host_grids(gpu[fine]['fields']), per_m=False)
+    twin_calls('shell_rotating_evp', lambda: host_grids(gpu[fine]['fields']),
+               ('shell_radial_transform_c128', 'regularity_recombine_c128',
+                'spin_recombine_c128'))
+    check_k3('shell_rotating_evp', gpu[fine]['solver'].pencil, gpu[fine]['solver'].state_flat(),
+             name='pencil_gather_scatter_c128')
+    lead = gpu[fine]['evals'][0]
+    rows['shell_rotating'] = dict(
+        card=smi, leading=str(lead), drift=abs(gpu[coarse]['evals'][0] - lead),
+        eig_card_vs_cpu=max(float(np.abs(gpu[sh]['evals'] - cpu[sh]['evals']).max())
+                            for sh in gpu),
+        state_err=mode_err(gpu[fine]['coeffs'], cpu[fine]['coeffs']),
+        grid_err=mode_err(gpu[fine]['grids'], cpu[fine]['grids']),
+        phase_off=gpu[fine]['phase_off'],
+        times_s={str(sh): gpu[sh]['times'] for sh in gpu},
+        cpu_times_s={str(sh): cpu[sh]['times'] for sh in cpu},
+        launches=LAUNCHES['shell_rotating_evp'])
+    for name, row in rows.items():
+        row['launches'] = {k: v for k, v in row['launches'].items() if v}
+        if 'fast_launches' in row:
+            row['fast_launches'] = {k: v for k, v in row['fast_launches'].items() if v}
+        print(json.dumps({f"evp_{name}": row}, default=str))
+    m, p, sh = rows['mathieu64'], rows['pipeflow'], rows['shell_rotating']
+    print(f"[{smi}] EVP examples: Mathieu vs scipy {max(m['scipy_err'].values()):.3e}, card vs "
+          f"cpu eig {m['eig_card_vs_cpu']:.3e} state {m['state_err']:.3e} grid "
+          f"{m['grid_err']:.3e} (fast {m['fast_grid_err']:.3e}); pipe flow s64 {p['s64']} "
+          f"({p['s64_err_reference']:.3e} from the reference, drift {p['drift']:.3e}), card vs "
+          f"cpu s {p['s_card_vs_cpu']:.3e} state {p['state_err']:.3e} grid {p['grid_err']:.3e}; "
+          f"shell leading {sh['leading']} (drift {sh['drift']:.3e}), card vs cpu eig "
+          f"{sh['eig_card_vs_cpu']:.3e} state {sh['state_err']:.3e} grid {sh['grid_err']:.3e}")
+    fails = []
+    if not (max(m['scipy_err'].values()) < 1e-7 and m['eig_card_vs_cpu'] < 1e-10):
+        fails.append('Mathieu eigenvalues')
+    if not (p['s64_err_reference'] < 1e-10 and p['drift'] < 1e-8 and p['s_card_vs_cpu'] < 1e-10
+            and complex(p['s64']).real < 0):
+        fails.append('pipe-flow eigenvalue')
+    if not (sh['drift'] < 1e-2 * max(1.0, abs(lead)) and sh['eig_card_vs_cpu'] < 1e-8):
+        fails.append('rotating-shell eigenvalues')
+    for name, row in rows.items():
+        errs = [row['state_err'], row['grid_err']] + (
+            [row['fast_grid_err']] if 'fast_grid_err' in row else [])
+        if not (max(errs) <= 1e-12 and row['phase_off'] < 1e-8):
+            fails.append(f"{name} set_state / grid values")
+    if fails:
+        raise AssertionError(f"EVP examples: {fails}")
+    return rows
+
+
+def shell_marti_path():
+    """The rotating-shell example's published configuration (MARTI=1:
+    Ekman 1e-5, Rayleigh 2.1029e7, m = 13, shape (28, 64, 64); Marti,
+    Calkins & Julien 2016, Table 1) with the distributor on the card, once:
+    build, the sparse solve near 963.765 with one seeded start vector, the
+    leading eigenvalue's relative error against Marti's value (the example
+    asks < 5e-3), and the mode's set_state and grid values. Not in main():
+    run it in a call of its own, with its own time limit. Prints each
+    phase's seconds as it ends."""
+    from dedalus_tpu_torch.models import evp as mevp
+    dev, kind, smi = card()
+    cfg = mevp.ROTATING_SHELL_MARTI
+    shape = cfg['resolutions'][0]
+    phase(f"rotating shell, published configuration {shape}, m = {cfg['m_crit']} on {kind}")
+    row = dict(card=smi, shape=list(shape))
+    t0 = time.perf_counter()
+    problem, ctx = mevp.build_rotating_shell_problem(shape, Ekman=cfg['Ekman'],
+                                                     Rayleigh=cfg['Rayleigh'], device=DEVICE)
+    solver = problem.build_solver()
+    row['build_s'] = time.perf_counter() - t0
+    print(f"built in {row['build_s']:.1f} s", flush=True)
+    sp = solver.subproblems_by_group[(cfg['m_crit'], None, None)]
+    row['pair_size'] = int(solver.pencil.col_valid[solver.subproblems.index(sp)].sum())
+    t0 = time.perf_counter()
+    evals, index = mevp.rotating_shell_solve(solver, cfg, EVP_EXAMPLES['shell_v0_seed'])
+    row['solve_s'] = time.perf_counter() - t0
+    row['leading'] = str(evals[0])
+    row['rel_err'] = float(abs(evals[0].real - cfg['target']) / abs(cfg['target']))
+    print(f"solved in {row['solve_s']:.1f} s: leading {evals[0]}, rel err {row['rel_err']:.3e}",
+          flush=True)
+    tm, _, grids, _ = evp_mode_run(solver, index, [ctx['u'], ctx['p'], ctx['T']])
+    row.update(tm)
+    row['grid_finite'] = all(bool(torch.isfinite(g).all()) for g in grids)
+    print(json.dumps({"shell_marti": row}))
+    if not (row['rel_err'] < 5e-3 and row['grid_finite']):
+        raise AssertionError(f"rotating shell, published configuration: {row}")
+    return row
+
+
+def ncc_lbvp_run(dev):
+    """The two NCC LBVPs on `dev`: tests/test_disk.py's (1 + w0) u = f on a
+    disk (12, 24), float64, and dx(dx(u)) - 2 q cos(2x) u + c u = f on
+    ComplexFourier 64 (q = 5, c = 3): (their solutions' grid values, each
+    one's times, [(name, solver, u)])."""
+    import dedalus_tpu_torch.public as d3
+    out, times, solvers = [], {}, []
+    coords = d3.PolarCoordinates('phi', 'r')
+    dist = d3.Distributor(coords, dtype=np.float64, device=dev)
+    disk = d3.DiskBasis(coords, shape=(12, 24), radius=1.3, dtype=np.float64)
+    phi, r = dist.local_grids(disk, scales=1)
+    w0 = dist.Field(name='w0', bases=disk)
+    w0['g'] = np.broadcast_to(1 - (r / 1.3)**2 + 0.3 * (r / 1.3)**4, tuple(w0['g'].shape))
+    target = np.cos(2 * phi) * r**2 + 0.5 * np.sin(phi) * r + 0.1
+    rhs = dist.Field(name='rhs', bases=disk)
+    rhs['g'] = (1 + (1 - (r / 1.3)**2 + 0.3 * (r / 1.3)**4)) * target
+    u = dist.Field(name='u', bases=disk)
+    problem = d3.LBVP([u], namespace=dict(u=u, w0=w0, rhs=rhs))
+    problem.add_equation("u + w0*u = rhs")
+    solver = lbvp_solve(problem, times, 'disk')
+    out.append(('disk', host_grids([u])[0], target))
+    solvers.append(('disk', solver, u))
+    xc = d3.Coordinate('x')
+    dist = d3.Distributor(xc, dtype=np.complex128, device=dev)
+    xb = d3.ComplexFourier(xc, size=64, bounds=(0, 2 * np.pi))
+    x = dist.local_grid(xb, scale=1).ravel()
+    cos2x = dist.Field(name='cos2x', bases=xb)
+    cos2x['g'] = np.cos(2 * x)
+    ustar = np.exp(np.sin(x)) * (1 + 0.5j * np.cos(3 * x))
+    f = dist.Field(name='f', bases=xb)
+    u = dist.Field(name='u', bases=xb)
+    f['g'] = ustar
+    d2 = d3.Differentiate(d3.Differentiate(f, xc), xc).evaluate()
+    d2.change_scales(1)
+    f['g'] = d2['g'].detach().cpu().numpy() + (3.0 - 10.0 * np.cos(2 * x)) * ustar
+    dx = lambda A: d3.Differentiate(A, xc)
+    problem = d3.LBVP([u], namespace=dict(u=u, cos2x=cos2x, f=f, dx=dx, q=5.0, c=3.0))
+    problem.add_equation("dx(dx(u)) - 2*q*cos2x*u + c*u = f")
+    solver = lbvp_solve(problem, times, 'mathieu')
+    out.append(('mathieu', host_grids([u])[0], ustar))
+    solvers.append(('mathieu', solver, u))
+    return out, times, solvers
+
+
+def lbvp_solve(problem, times, name):
+    t0 = time.perf_counter()
+    solver = problem.build_solver()
+    times[f'{name}_build_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver.solve()
+    if solver.dist.device.type == 'cuda':
+        torch.cuda.synchronize()
+    times[f'{name}_solve_s'] = time.perf_counter() - t0
+    return solver
+
+
+def ncc_lbvp_path():
+    """Two LBVPs through the new NCC matrices, with the distributor on the
+    card and on the CPU: the disk's (1 + w0) u = f (float64) and a
+    Mathieu-like LBVP on ComplexFourier 64 (complex128), each solved on KA
+    with K3's gather and scatter; card against CPU within 1e-12, and each
+    against its manufactured solution."""
+    dev, kind, smi = card()
+    phase(f"NCC LBVPs: the disk's (1 + w0) u = f and a Mathieu-like LBVP, card vs cpu on "
+          f"{kind}")
+    cpu, cpu_t, _ = ncc_lbvp_run('cpu')
+    gpu, gpu_t, solvers = count_launches('ncc_lbvp', 1, lambda: ncc_lbvp_run(DEVICE))
+    # The kernels at the path's shapes against their twins, after its
+    # counted run: KA's solves, K3 on each pencil, KE's per-m calls of the
+    # disk solution's transform
+    twin_calls('ncc_lbvp', lambda: [solver.solve() for _, solver, _ in solvers],
+               ('dense_refined_solve', 'dense_refined_solve_c128'))
+    for name, solver, u in solvers:
+        state = solver.state_flat()
+        check_k3(f'ncc_lbvp_{name}', solver.pencil, state, name='pencil_gather_scatter' + (
+            '_c128' if state.is_complex() else ''))
+    disk_u = solvers[0][2]
+    if not f_kernel_calls('ncc_lbvp_disk', lambda: host_grids([disk_u])):
+        raise AssertionError("ncc_lbvp: the disk solution's transform made no KE call")
+    row = dict(card=smi, times_s=gpu_t, cpu_times_s=cpu_t,
+               launches={k: v for k, v in LAUNCHES['ncc_lbvp'].items() if v})
+    for (name, g, exact), (_, c, _) in zip(gpu, cpu):
+        g, c = g.numpy(), c.numpy()
+        row[f'{name}_card_vs_cpu'] = float(np.abs(g - c).max() / np.abs(c).max())
+        row[f'{name}_vs_exact'] = float(np.abs(g - exact).max())
+    print(json.dumps({"ncc_lbvp": row}))
+    print(f"[{smi}] NCC LBVPs: disk card vs cpu {row['disk_card_vs_cpu']:.3e} (vs exact "
+          f"{row['disk_vs_exact']:.3e}), Mathieu-like {row['mathieu_card_vs_cpu']:.3e} (vs "
+          f"exact {row['mathieu_vs_exact']:.3e}); launches {row['launches']}")
+    if not (row['disk_card_vs_cpu'] <= 1e-12 and row['mathieu_card_vs_cpu'] <= 1e-12
+            and row['disk_vs_exact'] < 1e-12 and row['mathieu_vs_exact'] < 1e-10):
+        raise AssertionError(f"NCC LBVPs: {row}")
+    return row
+
+
 def step_stacks(solver):
     """What K15's launches outside F read on a dense path, from its solver:
     G, P, the bytes of a (G, P) vector and of a (G, P, P) stack, the
@@ -8794,6 +9300,8 @@ def main():
     timed(f9_path)
     timed(nlbvp_path)
     timed(evp_path)
+    timed(evp_examples_path)
+    timed(ncc_lbvp_path)
 
     extra = ('what', 'device_ms', 'plain_device_ms', 'ms_zero_pass', 'ms_pair',
              'ms_accumulate', 'ms_gather', 'ms_scatter', 'ms_eq_gather', 'library_ms_scatter',

@@ -8,10 +8,14 @@ where the components of curvilinear tensors are coordinate components, so
 the products are the Cartesian ones: kernel KG (ops/products.py), one launch
 per product node (the cross product's sign flips on the left-handed
 (phi, theta, r) frame). NCC (linear-side) products lower to Clenshaw
-multiplication matrices per pencil on Cartesian domains, and on the ball
-and the shell for spherically symmetric NCCs (tensor NCCs through the Gamma
-intertwiners, on the ball with per-(ell, regularity) radial blocks); the
-other curvilinear NCCs are not ported yet (ROADMAP M11, M3).
+multiplication matrices per pencil: Clenshaw on Jacobi and annulus axes and
+the wavenumber convolution on coupled Fourier axes; per-(m, spin) Zernike
+blocks for axisymmetric NCCs on the disk; and on the ball and the shell for
+spherically symmetric NCCs (tensor NCCs through the Gamma intertwiners, on
+the ball with per-(ell, regularity) radial blocks). NCC dot products lower
+to spin-resolved blocks on the disk, to Trace(Multiply(a, b)) for vector .
+vector on the shell, ball and annulus, and to sums of component blocks on
+Cartesian domains.
 """
 
 import functools
@@ -259,19 +263,7 @@ class Multiply(Future):
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
 
     def matrix_coupling(self, *vars):
-        out = super().matrix_coupling(*vars)
-        # An NCC factor varying along an axis couples mode groups along it.
-        # Curvilinear azimuth axes stay separable: the NCCs supported there
-        # are axisymmetric (checked where their blocks are built).
-        from .basis_polar import AZIMUTH_BASES
-        for op in self._operands:
-            if not op.has(*vars):
-                vary = np.array(op.domain.nonconstant)
-                for ax, b in enumerate(op.domain.bases):
-                    if isinstance(b, AZIMUTH_BASES):
-                        vary[ax] = False
-                out |= vary
-        return out
+        return _ncc_coupling(self, super().matrix_coupling(*vars), vars)
 
     # --- NCC matrices ---
 
@@ -297,7 +289,14 @@ class Multiply(Future):
         if ax is not None and (ncc.tensorsig or _is_ball(operand.domain.bases[ax])):
             M = _spherical_ncc_matrix(ncc, operand, self.domain, subproblem, ncc_first)
             return {v: self.scalar * (M @ mm) for v, mm in op_mats.items()}
-        ncc_blocks = build_ncc_blocks(ncc, operand, self.domain, subproblem)
+        # Disk (Zernike) NCCs: the product depends on the operand
+        # component's (m, spin), so the radial blocks are built per component
+        ncc_field = ncc.evaluate() if isinstance(ncc, Future) else ncc
+        if _has_disk_axis(ncc_field):
+            M = _disk_ncc_matrix(ncc_field, operand, self.domain, subproblem,
+                                 ncc_first=ncc_first)
+            return {v: self.scalar * (M @ mm) for v, mm in op_mats.items()}
+        ncc_blocks = build_ncc_blocks(ncc_field, operand, self.domain, subproblem)
         # Tensor structure: out comps = ncc comps (x) operand comps, ordered
         # (ncc, operand) if ncc first else (operand, ncc).
         n_op_comp = prod(tuple(cs.dim for cs in operand.tensorsig)) or 1
@@ -305,21 +304,217 @@ class Multiply(Future):
             rows = [sparse.kron(sparse.identity(n_op_comp), blk) for blk in ncc_blocks]
             M = sparse.vstack(rows) if len(rows) > 1 else rows[0]
         else:
-            stacked = sparse.vstack(ncc_blocks) if len(ncc_blocks) > 1 else ncc_blocks[0]
-            M = sparse.kron(sparse.identity(n_op_comp), stacked)
+            M = _operand_first_stack(ncc_blocks, n_op_comp)
         return {v: self.scalar * (M @ m) for v, m in op_mats.items()}
 
 
-def build_ncc_blocks(ncc, operand, out_domain, subproblem):
+def _ncc_coupling(node, out, vars):
+    """An NCC factor varying along an axis couples the mode groups along it.
+    Curvilinear azimuth axes stay separable: the NCCs supported there are
+    axisymmetric (checked where their blocks are built)."""
+    from .basis_polar import AZIMUTH_BASES
+    for op in node._operands:
+        if not op.has(*vars):
+            vary = np.array(op.domain.nonconstant)
+            for ax, b in enumerate(op.domain.bases):
+                if isinstance(b, AZIMUTH_BASES):
+                    vary[ax] = False
+            out |= vary
+    return out
+
+
+def _has_disk_axis(field):
+    from .basis_polar import DiskRadialBasis
+    return any(isinstance(b, DiskRadialBasis) for b in field.domain.bases if b is not None)
+
+
+def _disk_ncc_pair_blocks(ncc_field, operand, out_domain, subproblem):
+    """
+    Per-(NCC component, operand component) product blocks on the disk: an
+    axisymmetric (m = 0) NCC acting through per-(m, spin) Zernike Clenshaw
+    radial matrices with the azimuth's (cos, -sin) pairs, or its signed
+    (+m, -m) slots in complex dtype. Returns (blocks, meta): blocks[(a, b)]
+    maps operand component b's pencil to the output's, None where the spin
+    selection rule forbids the coupling.
+    """
+    from .basis_polar import DiskRadialBasis, signed_pairs
+    from .coords import PolarCoordinates
+    ncc_field.require_coeff_space()
+    coeffs = ncc_field.data.detach().cpu().numpy()
+    r_axis = next(ax for ax, bb in enumerate(ncc_field.domain.bases)
+                  if isinstance(bb, DiskRadialBasis))
+    az_axis = r_axis - 1
+    ncc_rbasis = ncc_field.domain.bases[r_axis]
+    op_rbasis = operand.domain.bases[r_axis]
+    out_rbasis = out_domain.bases[r_axis]
+    n_tens = len(ncc_field.tensorsig)
+    az_basis = ncc_field.domain.bases[az_axis]
+    gs = az_basis.group_shape[0] if az_basis is not None else 1
+    # Axisymmetry: only the m = 0 azimuth group may carry content
+    c_all = coeffs.reshape((-1,) + coeffs.shape[n_tens:])
+    if az_basis is not None:
+        moved = np.moveaxis(c_all, 1 + az_axis, 1)
+        tail = np.abs(moved[:, gs:]).max() if moved.shape[1] > gs else 0.0
+        if tail > 1e-10 * max(np.abs(moved).max(), 1e-300):
+            raise NotImplementedError("Disk NCCs must be axisymmetric (m=0 content only)")
+
+    def comp_rows(a_flat):
+        """The (cos, sin) m = 0 radial coefficient rows of NCC component a."""
+        comp = c_all[a_flat]
+        if az_basis is None:
+            return np.ravel(comp), None
+        comp = np.moveaxis(comp, az_axis, 0)
+        c0 = np.ravel(comp[0])
+        c1 = np.ravel(comp[1]) if comp.shape[0] > 1 else None
+        if c1 is not None and np.abs(c1).max() <= 1e-14 * max(np.abs(c0).max(), 1e-300):
+            c1 = None
+        return c0, c1
+
+    m = subproblem.group[az_axis]
+    m = 0 if m is None else m
+    polar_cs = next((cs for cs in (list(ncc_field.tensorsig) + list(operand.tensorsig))
+                     if isinstance(cs, PolarCoordinates)), None)
+    ncc_shape = tuple(cs.dim for cs in ncc_field.tensorsig)
+    op_shape = tuple(cs.dim for cs in operand.tensorsig)
+    ncc_idxs = list(np.ndindex(*ncc_shape)) if ncc_shape else [()]
+    op_idxs = list(np.ndindex(*op_shape)) if op_shape else [()]
+    az_w = subproblem.axis_width(operand.domain.bases[az_axis], az_axis)
+    # Axes before the polar pair pass through as identity factors
+    lead_w = prod(tuple(subproblem.axis_width(operand.domain.bases[ax], ax)
+                        for ax in range(az_axis))) or 1
+    if op_rbasis is None:
+        # An operand constant over the disk: out = ncc * const is a column
+        # per constant, the NCC's own (m = 0, s_ncc) radial profile in the
+        # output basis; the column is zero outside the m = 0 pencils
+        if polar_cs is not None and any(polar_cs.spintotal(operand.tensorsig, b_idx)
+                                        for b_idx in op_idxs if b_idx):
+            raise NotImplementedError(
+                "Disk NCC times a constant operand with polar tensor "
+                "components is not supported (a basis-less spin-s component "
+                "has no regular m=0 disk representation: regularity |s| "
+                "forces r^|s| behavior at the origin). Reference parity: "
+                "the reference rejects this pairing too — every disk "
+                "NCC x constant product routes the constant through "
+                "ConvertConstantDisk, whose constructor raises for polar "
+                "tensor components (ref basis.py:2619-2626, 'Tensors not "
+                "yet supported').")
+        synth = out_rbasis.clone_with(k=0)        # hosts the constant operand
+        az_w_out = subproblem.axis_width(out_domain.bases[az_axis], az_axis)
+        const_col = synth.constant_column(m)
+        zero_col = sparse.csr_matrix((out_rbasis.size, 1))
+        blocks = {}
+        for a_flat, a_idx in enumerate(ncc_idxs):
+            s_ncc = polar_cs.spintotal(ncc_field.tensorsig, a_idx) if (a_idx and polar_cs) else 0
+            c0, c1 = comp_rows(a_flat)
+
+            def col_for(row_c):
+                if row_c is None:
+                    return zero_col
+                S = synth.ncc_comp_matrix(ncc_rbasis, out_rbasis, row_c, m, s_ncc, 0)
+                if S is None:
+                    return zero_col
+                return sparse.csr_matrix(S @ const_col)
+
+            for b_idx in op_idxs:
+                if az_w_out == 1:
+                    blk = col_for(c0)
+                else:
+                    # azimuth-major pencil order: [cos slot; sin slot]; signed
+                    # pairs hold the m = 0 constant in the + slot only
+                    sin_c = None if signed_pairs(out_rbasis.parent) else c1
+                    blk = sparse.vstack([col_for(c0)] + [col_for(sin_c)] * (az_w_out - 1),
+                                        format='csr')
+                if lead_w > 1:
+                    blk = sparse.kron(sparse.identity(lead_w), blk)
+                blocks[(a_idx, b_idx)] = sparse.csr_matrix(blk)
+        return blocks, dict(ncc_idxs=ncc_idxs, op_idxs=op_idxs, az_w=az_w, N=1)
+    N = op_rbasis.size
+    signed = signed_pairs(op_rbasis.parent)
+    blocks = {}
+    for a_flat, a_idx in enumerate(ncc_idxs):
+        s_ncc = polar_cs.spintotal(ncc_field.tensorsig, a_idx) if (a_idx and polar_cs) else 0
+        c0, c1 = comp_rows(a_flat)
+        for b_idx in op_idxs:
+            s_arg = polar_cs.spintotal(operand.tensorsig, b_idx) if (b_idx and polar_cs) else 0
+            S0 = op_rbasis.ncc_comp_matrix(ncc_rbasis, out_rbasis, c0, m, s_ncc, s_arg)
+            S1 = (op_rbasis.ncc_comp_matrix(ncc_rbasis, out_rbasis, c1, m, s_ncc, s_arg)
+                  if c1 is not None else None)
+            Sm = (op_rbasis.ncc_comp_matrix(ncc_rbasis, out_rbasis, c0, -m, s_ncc, s_arg)
+                  if (signed and az_w == 2) else None)
+            if S0 is None and S1 is None and Sm is None:
+                blocks[(a_idx, b_idx)] = None
+                continue
+            Z = sparse.csr_matrix(next(s for s in (S0, S1, Sm) if s is not None).shape)
+            S0 = S0 if S0 is not None else Z
+            if az_w == 1:
+                blk = sparse.csr_matrix(S0)
+            elif signed:
+                # signed (+m, -m) slots: a radial block per slot
+                blk = sparse.block_diag([S0, Sm if Sm is not None else Z], format='csr')
+            elif S1 is None:
+                blk = sparse.kron(sparse.identity(az_w), S0)
+            else:
+                # the (cos, -sin) pair coupling of the NCC's m = 0 sin content
+                blk = sparse.bmat([[S0, -S1], [S1, S0]], format='csr')
+            if lead_w > 1:
+                blk = sparse.kron(sparse.identity(lead_w), blk)
+            blocks[(a_idx, b_idx)] = blk
+    return blocks, dict(ncc_idxs=ncc_idxs, op_idxs=op_idxs, az_w=az_w, N=N)
+
+
+def _disk_ncc_matrix(ncc_field, operand, out_domain, subproblem, ncc_first=True):
+    """The Multiply matrix on the disk: output components (ncc x operand),
+    or (operand x ncc), from the spin-resolved pair blocks."""
+    blocks, meta = _disk_ncc_pair_blocks(ncc_field, operand, out_domain, subproblem)
+    ncc_idxs, op_idxs = meta['ncc_idxs'], meta['op_idxs']
+    Z = sparse.csr_matrix(next(b for b in blocks.values() if b is not None).shape)
+    get = lambda a, b: blocks[(a, b)] if blocks[(a, b)] is not None else Z
+
+    def rows_for(a_idx):
+        if len(op_idxs) > 1:
+            return sparse.block_diag([get(a_idx, b) for b in op_idxs], format='csr')
+        return get(a_idx, op_idxs[0])
+    if ncc_first:
+        M = (sparse.vstack([rows_for(a) for a in ncc_idxs]) if len(ncc_idxs) > 1
+             else rows_for(ncc_idxs[0]))
+    else:
+        # operand-major rows (b, a)
+        cols = [sparse.vstack([get(a, b) for a in ncc_idxs]) if len(ncc_idxs) > 1
+                else get(ncc_idxs[0], b) for b in op_idxs]
+        M = sparse.block_diag(cols, format='csr') if len(cols) > 1 else cols[0]
+    return sparse.csr_matrix(M)
+
+
+def _disk_ncc_dot_matrix(ncc_field, operand, out_domain, subproblem, ncc_first):
+    """The DotProduct matrix on the disk, vector ncc . vector operand ->
+    scalar: in the spin basis the metric is antidiagonal (e+ . e- = 1), so
+    out = sum_s B[(-s), (s)]."""
+    if len(ncc_field.tensorsig) != 1 or len(operand.tensorsig) != 1:
+        raise NotImplementedError("Disk NCC dot products support vector@vector only")
+    blocks, meta = _disk_ncc_pair_blocks(ncc_field, operand, out_domain, subproblem)
+    Z = sparse.csr_matrix(next(b for b in blocks.values() if b is not None).shape)
+    get = lambda a, b: blocks[(a, b)] if blocks[(a, b)] is not None else Z
+    # spin-ordered components: index 0 and index 1 are opposite spins
+    return sparse.csr_matrix(sparse.hstack([get((1,), (0,)), get((0,), (1,))]))
+
+
+def _operand_first_stack(ncc_blocks, n_op_comp):
+    """Rows ordered (operand comp, ncc comp): block-diagonal over operand
+    components of the vstack of the NCC's component matrices."""
+    stacked = sparse.vstack(ncc_blocks) if len(ncc_blocks) > 1 else ncc_blocks[0]
+    return sparse.kron(sparse.identity(n_op_comp), stacked)
+
+
+def build_ncc_blocks(ncc_field, operand, out_domain, subproblem):
     """
     Per-ncc-component spatial multiplication matrices for this subproblem,
-    mapping operand pencil (spatial part) -> output pencil (spatial part).
-    The NCC must be constant along all separable (non-coupled) axes; it may
-    vary along coupled axes, where multiplication lowers to a Clenshaw
-    matrix.
+    mapping operand pencil (spatial part) -> output pencil (spatial part),
+    for the NCC's value `ncc_field`. The NCC must be constant along all
+    separable (non-coupled) axes; it may vary along coupled axes, where
+    multiplication lowers to a Clenshaw matrix (Jacobi, annulus) or the
+    wavenumber convolution (Fourier).
     """
-    dist = ncc.dist
-    ncc_field = ncc.evaluate() if isinstance(ncc, Future) else ncc
+    dist = ncc_field.dist
     ncc_field.require_coeff_space()
     coeffs = ncc_field.data.detach().cpu().numpy()
     ncomp_ncc = prod(tuple(cs.dim for cs in ncc_field.tensorsig)) or 1
@@ -482,8 +677,6 @@ def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
         phase_seconds['ball NCC blocks'] = (phase_seconds.get('ball NCC blocks', 0.0)
                                             + time.perf_counter() - t0)
         return M
-    if rb_ncc is None:
-        raise NotImplementedError("constant tensor NCCs on the shell are not ported yet")
     L = rb_op.parent.colatitude_basis.size
     n = rb_op.size
     m = subproblem.group[ax - 2] or 0
@@ -493,6 +686,12 @@ def _spherical_ncc_matrix(ncc, operand, out_domain, subproblem, ncc_first):
     for c in range(C_A):
         if np.abs(spatial[c]).max() == 0.0:
             R_c.append(None)
+            continue
+        if rb_ncc is None:
+            # A constant component: its value times the k conversion
+            conv = (rb_op.conversion_matrix_ell(0, 0, dk_out, size=n)[:n, :n] if dk_out
+                    else sparse.identity(n))
+            R_c.append(sparse.csr_matrix(spatial[c].ravel()[0] * conv))
             continue
         profile = _radial_profile(spatial[c], y00, "Spherical tensor NCCs",
                                   np.abs(spatial).max())
@@ -661,9 +860,8 @@ def _ncc_times_constant(ncc_basis, out_basis, ncc_coeffs):
 
 
 class DotProduct(Future):
-    """Tensor contraction of the last index of a with the first index of b
-    (nonlinear terms; NCC dot products on the LHS are not ported yet,
-    ROADMAP M3)."""
+    """Tensor contraction of the last index of a with the first index of b:
+    pointwise on the dealias grid, or as NCC matrices on the LHS."""
 
     def __init__(self, a, b):
         if not isinstance(a, (Field, Future)) or not isinstance(b, (Field, Future)):
@@ -710,6 +908,60 @@ class DotProduct(Future):
         shape = tuple(cs.dim for cs in self.tensorsig) + self.domain.grid_shape(self.domain.dealias)
         out = torch.broadcast_to(out, shape)
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
+
+    def matrix_coupling(self, *vars):
+        return _ncc_coupling(self, super().matrix_coupling(*vars), vars)
+
+    def expression_matrices(self, subproblem, vars, **kw):
+        a, b = self._operands
+        a_dep, b_dep = a.has(*vars), b.has(*vars)
+        if a_dep and b_dep:
+            raise ValueError(f"Nonlinear dot product in matrix expression: {self}")
+        ncc, operand = (a, b) if b_dep else (b, a)
+        ncc_first = (operand is b)
+        ncc_field = ncc.evaluate() if isinstance(ncc, Future) else ncc
+        # Disk NCC dot products: spin-resolved radial blocks with the
+        # antidiagonal spin metric
+        if _has_disk_axis(ncc_field):
+            op_mats = operand.expression_matrices(subproblem, vars, **kw)
+            M = _disk_ncc_dot_matrix(ncc_field, operand, self.domain, subproblem, ncc_first)
+            return {v: M @ m for v, m in op_mats.items()}
+        # Shell, ball and annulus: the coefficient components are spin or
+        # regularity components, whose contraction metric is not the
+        # identity; vector . vector lowers to the trace of the outer product,
+        # whose NCC and Trace matrices carry the metric
+        from .basis_ball import SphericalRadialBasis
+        from .basis_polar import AnnulusRadialBasis
+        spherical = any(isinstance(bb, SphericalRadialBasis)
+                        for bb in operand.domain.bases if bb is not None)
+        annular = any(isinstance(bb, AnnulusRadialBasis)
+                      for bb in ncc_field.domain.bases if bb is not None)
+        if (spherical or annular) and len(a.tensorsig) == 1 and len(b.tensorsig) == 1:
+            from .operators import Trace
+            return Trace(Multiply(a, b)).expression_matrices(subproblem, vars, **kw)
+        op_mats = operand.expression_matrices(subproblem, vars, **kw)
+        ncc_blocks = build_ncc_blocks(ncc_field, operand, self.domain, subproblem)
+        dim_c = (a.tensorsig[-1] if ncc_first else b.tensorsig[0]).dim
+        n_ncc_comp = prod(tuple(cs.dim for cs in ncc.tensorsig))
+        n_op_comp = prod(tuple(cs.dim for cs in operand.tensorsig))
+        rows = []
+        if ncc_first:
+            # out_{A..., B...} = sum_c ncc_{A..., c} op_{c, B...}
+            n_A, n_B = n_ncc_comp // dim_c, n_op_comp // dim_c
+            for Ai in range(n_A):
+                rows.append(sparse.hstack([sparse.kron(sparse.identity(n_B),
+                                                       ncc_blocks[Ai * dim_c + c])
+                                           for c in range(dim_c)]))
+        else:
+            # out_{A..., B...} = sum_c op_{A..., c} ncc_{c, B...}
+            n_A, n_B = n_op_comp // dim_c, n_ncc_comp // dim_c
+            Z = sparse.csr_matrix(ncc_blocks[0].shape)
+            for Ai in range(n_A):
+                for Bi in range(n_B):
+                    rows.append(sparse.hstack([ncc_blocks[c * n_B + Bi] if Ai2 == Ai else Z
+                                               for Ai2 in range(n_A) for c in range(dim_c)]))
+        M = sparse.vstack(rows) if len(rows) > 1 else rows[0]
+        return {v: M @ m for v, m in op_mats.items()}
 
 
 class CrossProduct(Future):

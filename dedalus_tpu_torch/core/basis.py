@@ -350,6 +350,15 @@ class Jacobi(Basis):
         convert = jacobi_lib.conversion_matrix(Nmat, self.a, self.b, out_basis.a, out_basis.b)
         return sparse.csr_matrix((convert @ S)[:N, :N])
 
+    def grid_spacing(self, scale=1):
+        """The centred spacing of the grid nodes (one-sided at the ends)."""
+        x = np.asarray(self.global_grid(scale))
+        dx = np.zeros_like(x)
+        dx[1:-1] = (x[2:] - x[:-2]) / 2
+        dx[0] = x[1] - x[0]
+        dx[-1] = x[-1] - x[-2]
+        return np.abs(dx)
+
     def __repr__(self):
         return (f"Jacobi({self.coord.name}, size={self.size}, a={self.a}, b={self.b}, "
                 f"a0={self.a0}, b0={self.b0})")
@@ -387,6 +396,14 @@ def ChebyshevV(coord, size, bounds, dealias=1, dtype=np.float64):
 def Legendre(coord, size, bounds, dealias=1, dtype=np.float64):
     """Legendre basis: Jacobi(0, 0) (no fast path)."""
     return Jacobi(coord, size, bounds, a=0, b=0, dealias=dealias, dtype=dtype)
+
+
+def Ultraspherical(coord, size, bounds, alpha, alpha0=None, dealias=1, dtype=np.float64):
+    """Gegenbauer C^(alpha) basis: Jacobi(alpha - 1/2, alpha - 1/2), on the
+    grid of Jacobi(alpha0 - 1/2, alpha0 - 1/2) where alpha0 is given."""
+    a = b = alpha - 0.5
+    a0 = b0 = (alpha0 - 0.5) if alpha0 is not None else a
+    return Jacobi(coord, size, bounds, a=a, b=b, a0=a0, b0=b0, dealias=dealias, dtype=dtype)
 
 
 def _by_parts(transform, data, axis, N):
@@ -537,9 +554,36 @@ class RealFourier(FourierBase):
         I[0] = self.length
         return sparse.csr_matrix(I[None, :])
 
+    @CachedMethod
+    def hilbert_matrix(self):
+        """Hilbert transform H(exp(ikx)) = -1j sign(k) exp(ikx): pair blocks
+        [[0, 1], [-1, 0]] for k > 0."""
+        M = self.size
+        upper = np.zeros(M - 1)
+        lower = np.zeros(M - 1)
+        k = self.wavenumbers_native[0::2]
+        upper[0::2] = (k > 0).astype(float)
+        lower[0::2] = -(k > 0).astype(float)
+        return sparse.diags([lower, upper], [-1, 1], shape=(M, M), format='csr')
+
     def ncc_matrix(self, ncc_basis, out_basis, coeffs, cutoff=1e-6):
-        raise NotImplementedError(
-            "NCCs varying along a Fourier axis are not ported yet (ROADMAP M3)")
+        """Multiplication by a real-Fourier NCC through the product-to-sum
+        identities on the (cos, -sin) pairs (`_accum_pair`)."""
+        M = self.size
+        KM = (M - 1) // 2
+        coeffs = np.ravel(coeffs)
+        mat = np.zeros((M, M))
+        for j in range(KM + 1):
+            aj = coeffs[2*j]
+            bj = coeffs[2*j + 1]
+            for n in range(KM + 1):
+                if abs(aj) > cutoff:
+                    _accum_pair(mat, M, KM, j, n, aj, 'cc')
+                    _accum_pair(mat, M, KM, j, n, aj, 'cs')
+                if abs(bj) > cutoff:
+                    _accum_pair(mat, M, KM, j, n, bj, 'sc')
+                    _accum_pair(mat, M, KM, j, n, bj, 'ss')
+        return sparse.csr_matrix(mat)
 
     def __repr__(self):
         return f"RealFourier({self.coord.name}, size={self.size})"
@@ -640,9 +684,27 @@ class ComplexFourier(FourierBase):
         I[0] = self.length
         return sparse.csr_matrix(I[None, :])
 
+    @CachedMethod
+    def hilbert_matrix(self):
+        """Hilbert transform: the coefficients times -1j sign(k)."""
+        return sparse.diags(-1j * np.sign(self.wavenumbers_native), format='csr')
+
     def ncc_matrix(self, ncc_basis, out_basis, coeffs, cutoff=1e-6):
-        raise NotImplementedError(
-            "NCCs varying along a Fourier axis are not ported yet (ROADMAP M3)")
+        """Multiplication by an NCC: the convolution over wavenumbers."""
+        M = self.size
+        k = self.wavenumbers_native
+        rows, cols, vals = [], [], []
+        coeffs = np.ravel(coeffs)
+        for j, kj in enumerate(k):
+            if abs(coeffs[j]) <= cutoff:
+                continue
+            for n, kn in enumerate(k):
+                hits = np.where(k == kj + kn)[0]
+                if len(hits):
+                    rows.append(hits[0])
+                    cols.append(n)
+                    vals.append(coeffs[j])
+        return sparse.csr_matrix((vals, (rows, cols)), shape=(M, M))
 
     def __repr__(self):
         return f"ComplexFourier({self.coord.name}, size={self.size})"
@@ -780,6 +842,48 @@ class ExponentialFourier(FourierBase):
 
     def __hash__(self):
         return hash(self._key())
+
+
+def _accum_pair(mat, M, KM, j, n, val, kind):
+    """
+    Accumulate the product-to-sum terms of NCC mode j (coefficient `val`)
+    and operand mode n into the RealFourier NCC matrix; kind in
+    {'cc', 'cs', 'sc', 'ss'} names (NCC part, operand part), c = cos and
+    S = -sin:
+      cos j cos n = 1/2 cos(j+n) + 1/2 cos(j-n)
+      cos j S n   = 1/2 S(j+n) - 1/2 S(j-n)
+      S j cos n   = 1/2 S(j+n) + 1/2 S(j-n)
+      S j S n     = -1/2 cos(j+n) + 1/2 cos(j-n)
+    with S(-k) = -S(k) and cos(-k) = cos(k).
+    """
+    def put(kout, part, amp):
+        k = abs(kout)
+        if k > KM:
+            return
+        if part == 's' and kout < 0:
+            amp = -amp
+        if part == 's' and k == 0:
+            return
+        row = 2 * k + (1 if part == 's' else 0)
+        if row < M:
+            mat[row, col] += amp
+
+    if kind == 'cc':
+        col = 2 * n
+        put(j + n, 'c', val / 2)
+        put(j - n, 'c', val / 2)
+    elif kind == 'cs':
+        col = 2 * n + 1
+        put(j + n, 's', val / 2)
+        put(j - n, 's', -val / 2)
+    elif kind == 'sc':
+        col = 2 * n
+        put(j + n, 's', val / 2)
+        put(j - n, 's', val / 2)
+    elif kind == 'ss':
+        col = 2 * n + 1
+        put(j + n, 'c', -val / 2)
+        put(j - n, 'c', val / 2)
 
 
 def Fourier(*args, dtype=None, **kw):

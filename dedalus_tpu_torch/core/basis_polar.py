@@ -33,6 +33,7 @@ from .coords import PolarCoordinates
 from ..csrc import spin_recombine as kf
 from ..ops import polar as ops_polar
 from ..utils.caching import CachedMethod
+from ..spectral import clenshaw
 from ..spectral import jacobi as jacobi_lib
 from ..spectral import shell as shell_lib
 from ..spectral import zernike as zernike_lib
@@ -321,6 +322,22 @@ class AnnulusRadialBasis(Basis):
         col = fwd @ (r / self.dR)**self.k
         return sparse.csr_matrix(col[:, None])
 
+    def ncc_matrix(self, ncc_basis, out_basis, coeffs, m=0, spintotal=0, cutoff=1e-10):
+        """Radial NCC multiplication: Clenshaw in the NCC's (a, b) family on
+        the operand's Z matrix, with an AB^k_ncc prefactor for the NCC's
+        radial weight."""
+        N = self.size
+        a_ncc = ncc_basis.k + ncc_basis.alpha[0]
+        b_ncc = ncc_basis.k + ncc_basis.alpha[1]
+        Nmat = 3 * ((N + 1) // 2) + ncc_basis.k + 2
+        J = self.operator_matrix('Z', m, spintotal, size=Nmat)
+        S = clenshaw.matrix_clenshaw(np.ravel(coeffs)[:N], a_ncc, b_ncc, J, cutoff=cutoff)
+        prefactor = sparse.identity(Nmat, format='csr')
+        for i in range(ncc_basis.k):
+            AB = shell_lib.operator(2, self.radii, 'AB', Nmat, self.k + i, alpha=self.alpha)
+            prefactor = AB @ prefactor
+        return sparse.csr_matrix(prefactor @ S)[:N, :N]
+
 
 class AnnulusBasis:
     """Annulus basis facade spanning the (azimuth, radius) axes."""
@@ -567,6 +584,59 @@ class DiskRadialBasis(Basis):
             fwd = fwd[0]
         col = fwd @ np.ones(fwd.shape[1])
         return sparse.csr_matrix(col[:, None])
+
+    def ncc_matrix_m(self, ncc_basis, out_basis, coeffs, m, spintotal, cutoff=1e-10):
+        """A scalar axisymmetric (spin 0) NCC: ncc_comp_matrix with s_ncc = 0."""
+        return self.ncc_comp_matrix(ncc_basis, out_basis, coeffs, m, 0, spintotal,
+                                    cutoff=cutoff)
+
+    def ncc_comp_matrix(self, ncc_basis, out_basis, coeffs, m, s_ncc, s_arg, cutoff=1e-10):
+        """
+        Radial multiplication matrix of one (m = 0) NCC spin component s_ncc
+        on the (m, s_arg) operand component, giving the (m, s_ncc + s_arg)
+        output component. The NCC's Zernike functions are
+        Q_n^{(a, l_ncc)} = kappa (r/R)^{l_ncc} P_n^{(a, l_ncc)}(z) with
+        kappa = 2 * 2^{(a + l_ncc)/2}: the polynomial part is Clenshaw on the
+        operand's Z operator (unpadded, the truncated mode algebra), and the
+        (r/R)^{l_ncc} envelope Zernike R+- ladder steps from l_arg to l_out.
+        None where the spin selection rule (d = l_ncc - |l_out - l_arg|
+        even and >= 0) fails.
+        """
+        N = self.size
+        a_ncc = ncc_basis.alpha + ncc_basis.k
+        l_ncc = abs(s_ncc)
+        s_out = s_ncc + s_arg
+        l_arg = abs(m + s_arg)
+        l_out = abs(m + s_out)
+        dreg = l_out - l_arg
+        d = l_ncc - abs(dreg)
+        if d < 0 or d % 2:
+            return None
+        kk = self.alpha + self.k
+        J = self.operator_matrix('Z', m, s_arg, size=N)
+        kappa = 2 * 2**((a_ncc + l_ncc) / 2)
+        S = clenshaw.matrix_clenshaw(kappa * np.ravel(coeffs)[:N], a_ncc, float(l_ncc), J,
+                                     cutoff=cutoff)
+        if l_ncc:
+            # |dreg| ladder steps l_arg -> l_out, then d/2 neutral r^2 factors
+            pre = sparse.identity(N, format='csr')
+            l_cur = l_arg
+            sgn = 1 if dreg >= 0 else -1
+            for _ in range(abs(dreg)):
+                Rop = sparse.csr_matrix(zernike_lib.operator(2, 'R', sgn, N, kk, l_cur, radius=1))
+                pre = Rop @ pre
+                l_cur += sgn
+            for _ in range(d // 2):
+                Rp = sparse.csr_matrix(zernike_lib.operator(2, 'R', +1, N, kk, l_cur, radius=1))
+                Rm = sparse.csr_matrix(
+                    zernike_lib.operator(2, 'R', -1, N, kk, l_cur + 1, radius=1))
+                pre = (Rm @ Rp) @ pre
+            S = pre @ S
+        S = sparse.csr_matrix(S)[:N, :N]
+        dk_out = int(round(out_basis.k - self.k))
+        if dk_out:
+            S = self.conversion_matrix_m(m, s_out, dk_out) @ S
+        return sparse.csr_matrix(S)
 
 
 class DiskBasis:

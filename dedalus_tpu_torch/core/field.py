@@ -156,7 +156,10 @@ class Field(Operand):
                 raise ValueError(f"field data on {data.device}, distributor "
                                  f"device is {self.dist.device}")
         else:
-            data = torch.as_tensor(np.asarray(data), device=self.dist.device)
+            data = np.asarray(data)
+            if not data.flags.writeable:   # a broadcast view: torch wants its own copy
+                data = data.copy()
+            data = torch.as_tensor(data, device=self.dist.device)
         if tuple(data.shape) != expected:
             data = torch.broadcast_to(data, expected)
         self.data = data.to(torch_dtype(self.dtype))
@@ -319,3 +322,34 @@ class Field(Operand):
 
     def __str__(self):
         return self.name if self.name else repr(self)
+
+
+ScalarField = Field
+
+
+def VectorField(dist, coordsys, *args, **kw):
+    """A vector field over `coordsys` (module-level factory)."""
+    return Field(dist, *args, tensorsig=(coordsys,), **kw)
+
+
+def TensorField(dist, coordsys, *args, order=2, **kw):
+    """A tensor field of rank `order` over `coordsys`, or over each system
+    of a tuple of them."""
+    if isinstance(coordsys, (tuple, list)):
+        tensorsig = tuple(coordsys)
+    else:
+        tensorsig = (coordsys,) * order
+    return Field(dist, *args, tensorsig=tensorsig, **kw)
+
+
+class LockedField(Field):
+    """A field locked to its layout: a transform raises."""
+
+    def lock_to_layouts(self, *layouts):
+        self._locked_layouts = layouts
+
+    def towards_coeff_space(self):
+        raise RuntimeError("LockedField cannot change layout")
+
+    def towards_grid_space(self):
+        raise RuntimeError("LockedField cannot change layout")

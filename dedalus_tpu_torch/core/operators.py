@@ -3,8 +3,10 @@ Operator nodes and vector-calculus factories (Cartesian, polar and S2).
 
 Mirrors dedalus_tpu/core/operators.py for the operators the Rayleigh-Benard
 IVP, the annulus and disk examples and their analysis use: Differentiate,
-Convert, Interpolate, Integrate, Lift, TimeDerivative, Component, Power,
-UnaryGridFunction (numpy ufuncs on operands), the Cartesian AdvectiveCFL
+Convert, Interpolate, Integrate, Lift, HilbertTransform, GridSpace and
+CoeffSpace (Grid, Coeff), TimeDerivative, Component, Power,
+UnaryGridFunction (numpy ufuncs on operands), GeneralFunction (a host
+callback's data), the Cartesian AdvectiveCFL
 and the grad/div/lap/trace/skew/integ/ave factories, which dispatch to the
 polar operators (core/operators_polar.py) on polar coordinates, to the
 sphere operators (core/operators_sphere.py) on S2 coordinates and to the
@@ -13,8 +15,8 @@ coordinates, with the transpose, the curl, the radial and angular
 components and their lowercase aliases. Each one-axis
 operator carries one host matrix: the pencil matrices slice it on the host
 (scipy), and eager evaluation applies it densely on the field's device. The
-curvilinear CFL spacings, the curl outside spherical coordinates and
-general functions are not ported yet (ROADMAP M3, M3r, M9, M11b-2b, M11c).
+curvilinear CFL spacings and the cylinder's curl are not ported yet (ROADMAP
+M11b-2b, M11c).
 """
 
 import numbers
@@ -353,6 +355,65 @@ class Lift(SpectralOperator1D):
         return (self.index,)
 
 
+class HilbertTransform1D(SpectralOperator1D):
+    """Hilbert transform along a Fourier axis: the coefficients times
+    -1j sign(k)."""
+
+    def __init__(self, operand, coord):
+        self.coord = coord
+        self.axis = coord.axis
+        self.input_basis = operand.domain.bases[self.axis]
+        self.output_basis = self.input_basis
+        super().__init__(operand)
+
+    def new_operands(self, operand):
+        return HilbertTransform1D(operand, self.coord)
+
+    def full_matrix(self):
+        return self.input_basis.hilbert_matrix()
+
+
+def HilbertTransform(operand, coord):
+    return HilbertTransform1D(operand, coord)
+
+
+class _LayoutOperator(LinearOperator):
+    """The operand's value handed out in one layout (Grid, Coeff)."""
+
+    def _init_metadata(self):
+        op = self.operand
+        self.tensorsig = op.tensorsig
+        self.dtype = op.dtype
+        self.domain = op.domain
+
+    def new_operands(self, operand):
+        return type(self)(operand)
+
+
+class GridSpace(_LayoutOperator):
+    """The operand's value in grid space at the dealias scales."""
+
+    def operate(self, arg_fields):
+        field = arg_fields[0].copy()
+        field.change_scales(field.domain.dealias)
+        field.require_grid_space()
+        return field
+
+
+class CoeffSpace(_LayoutOperator):
+    """The operand's value in coefficient space at scale 1."""
+
+    def operate(self, arg_fields):
+        field = arg_fields[0].copy()
+        field.require_coeff_space()
+        field.change_scales(1)
+        return field
+
+
+Grid = GridSpace
+Coeff = CoeffSpace
+
+
 class TimeDerivative(LinearOperator):
     """Marker for d/dt; matrices pass through."""
 
@@ -626,13 +687,53 @@ class UnaryGridFunction(Future):
         return self._build_output(self.dist.grid_layout, out, scales=self.domain.dealias)
 
 
+class GeneralFunction(Future):
+    """A host callback's data as a field: func(*args), with the Future
+    arguments evaluated first, gives the data in `layout` ('g' or 'c'),
+    copied to the distributor's device where it enters the field."""
+
+    def __init__(self, dist, domain, tensorsig, dtype, layout, func, args=None):
+        self.func = func
+        self.dist = dist
+        self._gf_domain = domain
+        self._gf_tensorsig = tuple(tensorsig)
+        self._gf_dtype = dtype
+        self.layout = layout
+        self.gf_args = list(args or [])
+        self.args = list(self.gf_args)
+        self._operands = [a for a in self.gf_args if isinstance(a, (Field, Future))]
+        self._init_metadata()
+
+    def _init_metadata(self):
+        self.tensorsig = self._gf_tensorsig
+        self.dtype = self._gf_dtype
+        self.domain = self._gf_domain
+
+    def new_operands(self, *operands):
+        return self
+
+    def is_linear_in(self, vars):
+        return False
+
+    def evaluate(self, memo=None):
+        arg_vals = [a.evaluate(memo) if isinstance(a, Future) else a for a in self.gf_args]
+        data = self.func(*arg_vals)
+        if isinstance(data, torch.Tensor):
+            data = data.to(self.dist.device)
+        out = Field.without_data(self.dist, bases=[b for b in self.domain.bases if b is not None],
+                                 dtype=self.dtype, tensorsig=self.tensorsig)
+        layout = self.dist.grid_layout if self.layout in ('g', 'grid') else self.dist.coeff_layout
+        out.preset_data(layout, data)
+        return out
+
+
 class AdvectiveCFL(Future):
     """
     Scalar advective grid-crossing frequency of a velocity vector on the
     dealias grid, Cartesian: sum_i |u_i| / dx_i with the Fourier spacing
     L / N and the Chebyshev spacing dealias * sin(theta) pi L / (2 N)
-    (fine near the walls). Curvilinear geometries are not ported yet
-    (ROADMAP M11b-2b).
+    (fine near the walls), and the other Jacobi bases' grid spacing.
+    Curvilinear geometries are not ported yet (ROADMAP M11b-2b).
     """
 
     name = 'cfl'
@@ -669,17 +770,18 @@ class AdvectiveCFL(Future):
         dealias = self.domain.dealias
         if isinstance(basis, FourierBase):
             return float(np.asarray(basis.grid_spacing(1)).min())   # L / N
-        if getattr(basis, 'a0', None) != -0.5 or basis.b0 != -0.5:
-            raise NotImplementedError("CFL spacing of Jacobi bases other than "
-                                      "Chebyshev is not ported yet (ROADMAP M3)")
-        # Chebyshev: physically meaningful spacing ~ sin(theta) pi/N at
-        # native resolution, shaped on the dealias grid
-        N = basis.grid_size(dealias[axis])
-        theta = np.pi * (np.arange(N) + 0.5) / N
-        stretch = 1.0 / basis.COV.stretch  # problem length / native
-        dx = dealias[axis] * stretch * np.sin(theta) * np.pi / N
         shape = [1] * ndim
-        shape[axis] = N
+        if basis.a0 == -0.5 and basis.b0 == -0.5:
+            # Chebyshev: physically meaningful spacing ~ sin(theta) pi/N at
+            # native resolution, shaped on the dealias grid
+            N = basis.grid_size(dealias[axis])
+            theta = np.pi * (np.arange(N) + 0.5) / N
+            stretch = 1.0 / basis.COV.stretch  # problem length / native
+            dx = dealias[axis] * stretch * np.sin(theta) * np.pi / N
+        else:
+            # Other Jacobi grids: the centred node spacing on the dealias grid
+            dx = np.asarray(basis.grid_spacing(dealias[axis])) * dealias[axis]
+        shape[axis] = dx.size
         return dx.reshape(shape)
 
     def operate(self, arg_fields):
@@ -842,13 +944,28 @@ def Trace(operand):
 
 
 def Curl(operand, index=0):
-    """curl of a vector on the ball or the shell (the Cartesian, 2-D and
-    cylinder curls wait for ROADMAP M3r and M11c)."""
+    """curl of a vector: on the ball or the shell, and in 2-D (a scalar) and
+    3-D Cartesian coordinates (the cylinder's curl waits for ROADMAP
+    M11c)."""
     coordsys = operand.tensorsig[index]
     if isinstance(coordsys, SphericalCoordinates):
         from .operators_ball import SphericalCurl
         return SphericalCurl(operand, index)
-    raise NotImplementedError(f"Curl on {coordsys} is not ported yet (ROADMAP M3r, M11c)")
+    if not isinstance(coordsys, CartesianCoordinates):
+        raise NotImplementedError(f"Curl on {coordsys} is not ported yet (ROADMAP M11c)")
+    cs = coordsys.coords
+    if coordsys.dim == 2:
+        # dx(u_y) - dy(u_x)
+        return Add(Differentiate1D(Component(operand, 1), cs[0]),
+                   arithmetic.Multiply(-1, Differentiate1D(Component(operand, 0), cs[1])))
+    if coordsys.dim == 3:
+        def d(i, j):
+            return Differentiate1D(Component(operand, j), cs[i])
+        comps = [Add(d(1, 2), arithmetic.Multiply(-1, d(2, 1))),
+                 Add(d(2, 0), arithmetic.Multiply(-1, d(0, 2))),
+                 Add(d(0, 1), arithmetic.Multiply(-1, d(1, 0)))]
+        return TensorStack(comps, coordsys)
+    raise ValueError("Curl requires 2D or 3D vectors")
 
 
 def Skew(operand):
@@ -866,15 +983,19 @@ def Skew(operand):
 
 
 def TransposeComponents(operand, indices=(0, 1)):
-    """Swap the two leading tensor ranks (spherical tensors; the others wait
-    for ROADMAP M11c)."""
+    """Swap the two leading tensor ranks: the spherical operator, else the
+    components restacked."""
     if tuple(indices) != (0, 1):
         raise NotImplementedError("Only leading-pair transposition supported")
-    if not isinstance(operand.tensorsig[0], SphericalCoordinates):
-        raise NotImplementedError("Transpose of non-spherical tensors is not ported yet "
-                                  "(ROADMAP M11c)")
-    from .operators_ball import SphericalTransposeComponents
-    return SphericalTransposeComponents(operand, indices)
+    if isinstance(operand.tensorsig[0], SphericalCoordinates):
+        from .operators_ball import SphericalTransposeComponents
+        return SphericalTransposeComponents(operand, indices)
+    cs0, cs1 = operand.tensorsig[0], operand.tensorsig[1]
+    rows = []
+    for j in range(cs1.dim):
+        rows.append(TensorStack([Component(Component(operand, i), j) for i in range(cs0.dim)],
+                                cs0))
+    return TensorStack(rows, cs1)
 
 
 def RadialComponent(operand, index=0):
@@ -1005,7 +1126,8 @@ lift = Lift
 
 __all__ = ['Differentiate', 'Gradient', 'Divergence', 'Laplacian', 'Curl', 'Trace', 'Skew',
            'Interpolate', 'Integrate', 'Average', 'Lift', 'TimeDerivative',
-           'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'AdvectiveCFL',
+           'Component', 'TensorStack', 'Power', 'UnaryGridFunction', 'GeneralFunction',
+           'HilbertTransform', 'Grid', 'Coeff', 'AdvectiveCFL',
            'AzimuthalComponent', 'TransposeComponents', 'RadialComponent',
            'AngularComponent', 'convert',
            'grad', 'div', 'lap', 'curl', 'trace', 'transpose', 'radial', 'angular', 'skew', 'ave',

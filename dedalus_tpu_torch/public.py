@@ -26,25 +26,32 @@ EigenvalueSolver (dense and sparse, with left eigenvectors; IVP.build_EVP
 linearizes an IVP), the dictionary handlers of the evaluator, and the
 CFL and GlobalFlowProperty flow tools. File output,
 plot tools and post-processing are not ported yet (ROADMAP M9).
+
+Every public name of dedalus_tpu.public is here except those in
+PENDING_NAMES, each with the ROADMAP key of the module that brings it.
 """
 
 from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates, S2Coordinates,
                           SphericalCoordinates)
 from .core.distributor import Distributor
-from .core.basis import (Jacobi, ChebyshevT, ChebyshevU, ChebyshevV, Legendre, RealFourier,
-                         ComplexFourier, Fourier)
+from .core.domain import Domain
+from .core.basis import (Jacobi, ChebyshevT, ChebyshevU, ChebyshevV, Legendre, Ultraspherical,
+                         RealFourier, ComplexFourier, Fourier)
 from .core.basis_polar import AnnulusBasis, DiskBasis
 from .core.basis_sphere import SphereBasis
 from .core.basis_ball import BallBasis, ShellBasis
-from .core.field import Field
+from .core.field import Field, LockedField, ScalarField, VectorField, TensorField
 from .core import future  # installs the Field expression protocol
 from .core.operators import (
     Differentiate, Gradient, Divergence, Laplacian, Curl, Trace, Skew, Interpolate,
     Integrate, Average, Lift, TimeDerivative, Component, Power, UnaryGridFunction,
-    AdvectiveCFL, AzimuthalComponent, TransposeComponents, RadialComponent,
-    AngularComponent, grad, div, curl, lap, trace, transpose, radial, angular, skew, azimuthal,
+    GeneralFunction, AdvectiveCFL, AzimuthalComponent, TransposeComponents, RadialComponent,
+    AngularComponent, Grid, Coeff, HilbertTransform,
+    grad, div, curl, lap, trace, transpose, radial, angular, skew, azimuthal,
     integ, ave, interp, dt, lift, convert as Convert,
 )
+trans = TransposeComponents
+LiftTau = Lift
 from .core.operators_sphere import MulCosine
 from .core.operators_ball import SphericalEllProduct
 from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct
@@ -60,6 +67,10 @@ from .core.timesteppers import (
 )
 from .core.solvers import (InitialValueSolver, LinearBoundaryValueSolver,
                            NonlinearBoundaryValueSolver, EigenvalueSolver)
+from .core.evaluator import Evaluator
 from .extras.flow_tools import GlobalArrayReducer, GlobalFlowProperty, CFL
 
 Chebyshev = ChebyshevT
+
+# Public names of dedalus_tpu.public that wait for a module of the port
+PENDING_NAMES = {'DirectProduct': 'M11c', 'quick_domains': 'M9r'}

@@ -240,7 +240,9 @@ def _linear_cases(td3):
     zb = td3.ChebyshevT(coords['z'], 8, bounds=(0, 1))
     v = dist.VectorField(coords, name='v', bases=(fb, zb))
     cases += [('box', v, td3.div(v)), ('box', v, td3.skew(v)),
-              ('box', v, td3.trace(td3.grad(v)))]
+              ('box', v, td3.trace(td3.grad(v))),
+              ('box', v, td3.HilbertTransform(td3.Component(v, 0), coords['x'])),
+              ('box', v, td3.Grid(v)), ('box', v, td3.Coeff(v))]
     coords = td3.PolarCoordinates('phi', 'r')
     dist = td3.Distributor(coords, dtype=np.float64, device='cpu')
     disk = td3.DiskBasis(coords, (8, 8), radius=1, dtype=np.float64)
