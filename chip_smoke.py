@@ -1539,23 +1539,25 @@ def scaled_chunk(bb, n):
     return diag, sub, sup
 
 
-def check_k8(path, bb, primary=True):
-    """K8a and K8b against their plain twins on one factorization chunk (the
-    first FACTOR_CHUNK_G groups) of a path's equilibrated blocks: every
-    factor, the pins, the f32 copies written in the same pass, and the
-    multi-column sweeps on a seeded right-hand side of the Woodbury width."""
+def k8_vs_twin(dsu, Rhs, where, plan=None):
+    """K8a (with the f32 copies, as the solver calls it) and K8b against
+    their plain twins on blocks dsu and a right-hand side Rhs: every factor,
+    the pins, the f32 copies written in the same pass, the chunk's solve
+    residual through both factorizations, two launches of each kernel bit for
+    bit. Raises outside check_k8's tolerances; returns (the kernel's
+    factors, the f32 copies, the twin's plain ms, a dict of the numbers)."""
     from dedalus_tpu_torch.ops import banded as ob
-    n = min(ob.FACTOR_CHUNK_G, bb.blocks.G)
-    Nb, nb = bb.Nb, bb.nb
-    k = 2 * bb.nbord
-    dsu = scaled_chunk(bb, n)
+    n, Nb, nb, _ = dsu[0].shape
     dev = dsu[0].device
     shapes = dict(Qt=(n, max(Nb - 1, 0), 2 * nb, 2 * nb), QtL=(n, nb, nb),
                   Rinv=(n, Nb, nb, nb), R1=(n, Nb, nb, nb), R2=(n, Nb, nb, nb))
     out32 = {key: torch.empty(shape, dtype=torch.float32, device=dev)
              for key, shape in shapes.items()}
-    qk = ob.factor_block_tridiag_qr(*dsu, out32=out32)
+    qk = ob.factor_block_tridiag_qr(*dsu, out32=out32, plan=plan)
+    qk2 = ob.factor_block_tridiag_qr(*dsu, plan=plan)
     torch.cuda.synchronize()
+    bitwise_a = all(torch.equal(qk[key], qk2[key]) for key in qk)
+    del qk2
     t0 = time.perf_counter()
     qp = ob.factor_block_tridiag_qr_plain(*dsu)
     torch.cuda.synchronize()
@@ -1574,18 +1576,20 @@ def check_k8(path, bb, primary=True):
     growth = float(qp['Rinv'].abs().max())
     tol_cond = max(TOL['block_tridiag_qr_factor'], 10 * 2.2e-16 * growth)
     rotations = {key: v for key, v in by_factor.items() if key not in ('Rinv', 'QtL')}
-    print(f"K8a on {path} ({n}, {Nb}, {nb}, {nb}): per factor "
+    print(f"K8a on {where} ({n}, {Nb}, {nb}, {nb}): per factor "
           f"{ {key: f'{v[0]:.2e}' for key, v in by_factor.items()} }, growth {growth:.3e} "
           f"(Rinv, QtL tol {tol_cond:.1e}), pins equal {pins_equal} ({npins} pinned), f32 "
-          f"copies equal {copies_equal}, finite {bool(torch.isfinite(qk['Rinv']).all())}")
-    if not (pins_equal and copies_equal):
-        raise AssertionError("K8a: pins or f32 copies differ from the plain twin's")
+          f"copies equal {copies_equal}, two launches equal {bitwise_a}, finite "
+          f"{bool(torch.isfinite(qk['Rinv']).all())}")
+    if not (pins_equal and copies_equal and bitwise_a):
+        raise AssertionError(f"K8a on {where}: pins or f32 copies differ from the plain twin's, "
+                             f"or two launches differ ({bitwise_a})")
     if not max(by_factor['Rinv'][0], by_factor['QtL'][0]) <= tol_cond:
-        raise AssertionError(f"K8a: Rinv or QtL beyond 10 eps growth: {by_factor}")
-    # Both factorizations must solve the chunk's systems equally well
-    gen = torch.Generator(device=dev).manual_seed(17)
-    Rhs = torch.randn((n, Nb, nb, k), generator=gen, dtype=torch.float64, device=dev)
+        raise AssertionError(f"K8a on {where}: Rinv or QtL beyond 10 eps growth: {by_factor}")
+    if rotations and not max(v[0] for v in rotations.values()) <= TOL['block_tridiag_qr_factor']:
+        raise AssertionError(f"K8a on {where}: rotations beyond tolerance: {by_factor}")
 
+    # Both factorizations must solve the chunk's systems equally well
     def solve_residual(qr):
         x = ob.multi_rhs_solve(qr, Rhs)
         Ax = dsu[0] @ x
@@ -1594,30 +1598,58 @@ def check_k8(path, bb, primary=True):
         return float((Ax - Rhs).abs().max() / Rhs.abs().max())
 
     resid_k, resid_p = solve_residual(qk), solve_residual(qp)
-    print(f"K8a: residual of the chunk's solves through the kernel's factors {resid_k:.3e}, "
-          f"through the twin's {resid_p:.3e}")
+    print(f"K8a on {where}: residual of the solves through the kernel's factors "
+          f"{resid_k:.3e}, through the twin's {resid_p:.3e}")
     if not resid_k <= 10 * resid_p + 1e-12:
         raise AssertionError(f"K8a's factors solve worse than the twin's: {resid_k:.3e}")
-    record('block_tridiag_qr_factor', path, dict(
-        err=max(rotations.values()), err_by_factor={key: v[0] for key, v in by_factor.items()},
-        growth=growth, solve_residual=resid_k, solve_residual_plain=resid_p,
-        pins=npins, shape=[n, Nb, nb, nb],
-        ms=cuda_ms(lambda: ob.factor_block_tridiag_qr(*dsu, out32=out32), 3),
-        plain_ms=plain_ms, library_ms=None,
-        **dict(zip(('bound_ms', 'bound_by'),
-                   bound(10 * n * Nb * nb * nb * 8, n * Nb * 19.33 * nb ** 3)))), primary,
-        keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'pins'))
-    del out32, qp
-    xk = ob.multi_rhs_solve(qk, Rhs)
+    del qp
+    xk, xk2 = ob.multi_rhs_solve(qk, Rhs), ob.multi_rhs_solve(qk, Rhs)
     xp = ob.multi_rhs_solve_plain(qk, Rhs)
     torch.cuda.synchronize()
-    flops = 2 * n * k * (max(Nb - 1, 0) * (2 * nb) ** 2 + nb * nb + 3 * Nb * nb * nb)
+    err_b, bitwise_b = rel_err(xk, xp), torch.equal(xk, xk2)
+    print(f"K8b on {where} ({n}, {Nb}, {nb}, {Rhs.shape[-1]}): {err_b[0]:.2e} from the twin, "
+          f"two launches equal {bitwise_b}")
+    if not (err_b[0] <= TOL['multi_rhs_solve'] and bitwise_b):
+        raise AssertionError(f"K8b on {where}: {err_b[0]:.3e} from the twin, two launches "
+                             f"equal {bitwise_b}")
+    return qk, out32, plain_ms, dict(
+        err=max(rotations.values()) if rotations else (0.0, 0.0),
+        err_by_factor={key: v[0] for key, v in by_factor.items()}, growth=growth,
+        solve_residual=resid_k, solve_residual_plain=resid_p, pins=npins, bitwise=bitwise_a,
+        err_b=err_b, bitwise_b=bitwise_b)
+
+
+def check_k8(path, bb, primary=True):
+    """K8a and K8b against their plain twins on one factorization chunk (the
+    first FACTOR_CHUNK_G groups, as the solver launches them) of a path's
+    equilibrated blocks (k8_vs_twin, on a seeded right-hand side of the
+    Woodbury width); each timed by events."""
+    from dedalus_tpu_torch.ops import banded as ob
+    n = min(ob.FACTOR_CHUNK_G, bb.blocks.G)
+    Nb, nb = bb.Nb, bb.nb
+    k = 2 * bb.nbord
+    dsu = scaled_chunk(bb, n)
+    dev = dsu[0].device
+    gen = torch.Generator(device=dev).manual_seed(17)
+    Rhs = torch.randn((n, Nb, nb, k), generator=gen, dtype=torch.float64, device=dev)
+    qk, out32, plain_ms, r = k8_vs_twin(dsu, Rhs, path)
+    record('block_tridiag_qr_factor', path, dict(
+        err=r['err'], err_by_factor=r['err_by_factor'], growth=r['growth'],
+        solve_residual=r['solve_residual'], solve_residual_plain=r['solve_residual_plain'],
+        pins=r['pins'], bitwise=r['bitwise'], shape=[n, Nb, nb, nb],
+        ms=cuda_ms(lambda: ob.factor_block_tridiag_qr(*dsu, out32=out32), 3),
+        plain_ms=plain_ms, library_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'), k8_bound(n, Nb, nb)))), primary,
+        keys=('ms', 'plain_ms', 'library_ms', 'bound_ms', 'shape', 'pins'))
+    del out32
+    xk = ob.multi_rhs_solve(qk, Rhs)
     record('multi_rhs_solve', path, dict(
-        err=rel_err(xk, xp), shape=[n, Nb, nb, k],
+        err=r['err_b'], shape=[n, Nb, nb, k], bitwise=r['bitwise_b'],
         ms=cuda_ms(lambda: ob.multi_rhs_solve(qk, Rhs), 3),
         plain_ms=cuda_ms(lambda: ob.multi_rhs_solve_plain(qk, Rhs), 1), library_ms=None,
         **dict(zip(('bound_ms', 'bound_by'),
-                   bound(nbytes(*(qk[key] for key in ob.FACTOR_KEYS), Rhs, xk), flops)))),
+                   bound(nbytes(*(qk[key] for key in ob.FACTOR_KEYS), Rhs, xk),
+                         k8b_flops(n, Nb, nb, k))))),
         primary)
 
 
@@ -2387,6 +2419,28 @@ def ab_ki(steps=None):
     return {label: ki_reading(shape, label.endswith('c')) for label, shape in KI_SHAPES.items()}
 
 
+def ab_coldstart(steps=None):
+    """The 2048x2048 cold start to the end of its first steady step (the run
+    of cold_start_path, uncounted): seconds by phase
+    (ops.banded.phase_seconds) and in all, and the device's peak memory."""
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.models.rbc import build_rbc_problem, initial_condition
+    from dedalus_tpu_torch.ops import banded as ob
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ob.phase_seconds.clear()
+    t0 = time.perf_counter()
+    problem, ctx = build_rbc_problem(COLD_NX, COLD_NZ, Rayleigh=RA)
+    solver = problem.build_solver(d3.SBDF2)
+    initial_condition(ctx, seed=42)
+    solver.run_steps(DT, 3)
+    torch.cuda.synchronize()
+    return dict(cold_start_s=time.perf_counter() - t0, phases_s=dict(ob.phase_seconds),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
 def ab_side(root, paths=AB_PATHS, steps=20):
     """The paths `paths` (ab_rbc2048 for 'rbc2048', ab_rbc256c_fast for
     'rbc256c-fast', ab_shell192c_zcross for 'shell192c-zcross',
@@ -2408,6 +2462,7 @@ def ab_side(root, paths=AB_PATHS, steps=20):
                    k5_k11b=ab_k5_k11b, rbc2048_poly=ab_rbc2048_poly,
                    kj=ab_kj, ke_trailing=ab_ke_trailing, kh=ab_kh, shell192=ab_shell192,
                    rbc256_mixed=ab_mixed, ki=ab_ki, ke_digests=ab_ke_digests,
+                   k8=ab_k8, coldstart=ab_coldstart,
                    rbc256_lu=functools.partial(ab_lu, complex_data=False),
                    rbc256c_lu=functools.partial(ab_lu, complex_data=True)
                    ).get(path.replace('-', '_'), None)
@@ -2456,6 +2511,27 @@ def ab_compare(parent_root, paths=AB_PATHS, order=('parent', 'change', 'change',
 
             if path == 'ke-digests':
                 print(f"[{runs[0]['card']}] {label} ke-digests: {rs}")
+                continue
+            if path == 'k8':
+                for shape in rs[0]:
+                    for kern in ('k8a', 'k8b'):
+                        cs = [r[shape][kern] for r in rs]
+                        print(f"[{runs[0]['card']}] {label} {kern.upper()} {shape} "
+                              f"{rs[0][shape]['shape']} (events ms, device ms, probed ms, "
+                              f"cycles a step, bitwise; bound {cs[0]['bound_ms']:.4f} "
+                              f"{cs[0]['bound_by']}) "
+                              f"{[(round(c['ms'], 4), c['device_ms'] and round(c['device_ms'], 4), round(c['split']['ms'], 4), round(c['split']['cycles_per_step'], 1), c['bitwise']) for c in cs]}")
+                        for c in cs:
+                            print(f"    split: {[(p['phase'], round(p['cycles'], 1), round(p['share'], 3)) for p in c['split']['phases']]}; "
+                                  f"spans {[(p['span'], round(p['cycles'], 1)) for p in c['split'].get('spans', [])]}")
+                continue
+            if path == 'coldstart':
+                print(f"[{runs[0]['card']}] {label} coldstart: s to the first steady step "
+                      f"{[round(r['cold_start_s'], 2) for r in rs]}; factor (K8a) "
+                      f"{[round(r['phases_s'].get('factor (K8a)', 0.0), 3) for r in rs]} s, "
+                      f"W1 (K8b) {[round(r['phases_s'].get('W1 (K8b)', 0.0), 3) for r in rs]} s; "
+                      f"peak GiB {[round(r['peak_bytes'] / 2 ** 30, 3) for r in rs]}; phases "
+                      f"{[{k: round(v, 3) for k, v in r['phases_s'].items()} for r in rs]}")
                 continue
             if path == 'rbc256-mixed':
                 print(f"[{runs[0]['card']}] {label} rbc256-mixed: graph ms/step {g}; the step's "
@@ -2901,9 +2977,9 @@ def graph_inputs_path():
 
 
 def banded_path():
-    """RBC 2048x512 SBDF2 banded: its cold start by phase, K4, K5, K6, K7, K9
-    and K3 against their twins, the two probes alone, the card against the
-    CPU at 64x32, and 20 timed steps."""
+    """RBC 2048x512 SBDF2 banded: its cold start by phase, K4, K5, K6, K7,
+    K8a, K8b, K9 and K3 against their twins, the two probes alone, the card
+    against the CPU at 64x32, and 20 timed steps."""
     from dedalus_tpu_torch.ops import banded as ob
 
     dev, kind, smi = card()
@@ -2947,8 +3023,9 @@ def banded_path():
     k1_layouts('rbc2048', solver, smi)
     check_tolerances({'pencil_gather_scatter': RESULTS['pencil_gather_scatter']})
 
-    phase("K6, K9 vs plain twins and the two probes (banded-path shapes)")
+    phase("K6, K8a, K8b, K9 vs plain twins and the two probes (banded-path shapes)")
     check_k6('rbc2048', bb, RHS_plain)
+    check_k8('rbc2048', bb, primary=False)
     check_k9('rbc2048', solver, RHS_plain)
     time_probes('rbc2048', solver, fact, smi)
 
@@ -5282,10 +5359,11 @@ def f8_blocks(G, Nb, nb, nbord, pad, seed=22):
     return blocks, A[:, :P, :P]
 
 
-def k8_bound(n, Nb, nb):
-    """K8a's bound (as check_k8's): 10 blocks a step read or written, 19.33
-    nb^3 operations."""
-    return bound(10 * n * Nb * nb * nb * 8, n * Nb * 19.33 * nb ** 3)
+def k8_bound(n, Nb, nb, copies=True):
+    """K8a's bound: 3 blocks read and 7 written a step in f64 (Qt counts 4)
+    and, with `copies` (as the solver calls it), the 7 written again as f32;
+    19.33 nb^3 operations a step."""
+    return bound((80 + (28 if copies else 0)) * n * Nb * nb * nb, n * Nb * 19.33 * nb ** 3)
 
 
 def k8b_flops(n, Nb, nb, k):
@@ -5420,7 +5498,8 @@ def f8_general_path():
         shape=[G, Nb, nb, nb], what=f"a synthetic system's equilibrated blocks, nb={nb}",
         ms=cuda_ms(run, 3), device_ms=device_ms(run, 3, 'qr_factor'),
         plain_ms=cuda_ms(lambda: ob.factor_block_tridiag_qr_plain(*dsu), 1), library_ms=None,
-        library_device_ms=None, **dict(zip(('bound_ms', 'bound_by'), k8_bound(G, Nb, nb)))),
+        library_device_ms=None,
+        **dict(zip(('bound_ms', 'bound_by'), k8_bound(G, Nb, nb, copies=False)))),
         True, keys=DEVICE_KEYS)
     # K8b's unstaged column chunks on the Woodbury width
     k = 2 * nbord
@@ -5515,6 +5594,303 @@ def f8_general_path():
         cond_S=float(np.nanmax(bb.diagnostics['condS'])),
         woodbury='all-f64' if 'W1' in fac else 'factor-type', rbc_forms_equal=forms),
         "card": smi}))
+
+
+# ---------------------------------------------------------------------------
+# K8a and K8b at the cold start's and rbc2048's chunk shapes: device times,
+# bounds, and the split of one group's step by clock64 probes
+# ---------------------------------------------------------------------------
+
+# (G, Nb, nb, k): the 2048x2048 cold start's factorization chunk and rbc2048's
+K8_SHAPES = {'coldstart': (256, 863, 19, 26), 'rbc2048': (256, 217, 19, 26)}
+# The probe build: block 0's thread 0 writes clock64() at each of a step's
+# phase boundaries (K8_STAMP(kernel, step, slot) in banded_kernels.cu; a
+# source without the macro, the parent's, takes K8_PARENT_STAMPS first)
+K8_PROBE_PRELUDE = r'''
+#define K8_PROBE_STEPS 2048
+__device__ long long k8_stamps[2][K8_PROBE_STEPS][8];
+#define K8_STAMP(kern, step, slot) do { if (blockIdx.x == 0 && blockIdx.y == 0 && \
+    threadIdx.x == 0 && (step) < K8_PROBE_STEPS) k8_stamps[kern][step][slot] = clock64(); } \
+    while (0)
+#define K8_STAMP_WARP(kern, step, slot) do { if (blockIdx.x == 0 && blockIdx.y == 0 && \
+    (threadIdx.x & 31) == 0 && (step) < K8_PROBE_STEPS) k8_stamps[kern][step][slot] = \
+    clock64(); } while (0)
+'''
+K8_PROBE_READER = r'''
+extern "C" int k8_probe_read(long long* out, int n) {
+    return (int)cudaMemcpyFromSymbol(out, k8_stamps, (size_t)n * sizeof(long long));
+}
+extern "C" int k8_probe_zero() {
+    static long long zeros[2 * K8_PROBE_STEPS * 8];
+    return (int)cudaMemcpyToSymbol(k8_stamps, zeros, sizeof(zeros));
+}
+'''
+# The earlier kernels (a block barrier a reflector) with stamps and the barriers
+# that make each phase end for the whole block: (anchor, replacement). They read
+# the earlier kernels' split that PERF.md records: unpack a commit that has them
+# by git archive and call k8_reading on it (ab_compare's 'k8' does).
+K8_PARENT_STAMPS = (
+    ("        householder_qr(A, Q, n2, nb, beta);\n"
+     "        pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,\n"
+     "                       pins + gb / nb + (long long)i * nb, "
+     "sigma + gb / nb + (long long)i * nb);\n",
+     "        K8_STAMP(0, i, 0);\n"
+     "        householder_qr(A, Q, n2, nb, beta);\n"
+     "        K8_STAMP(0, i, 1);\n"
+     "        pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,\n"
+     "                       pins + gb / nb + (long long)i * nb, "
+     "sigma + gb / nb + (long long)i * nb);\n"
+     "        __syncthreads();\n"
+     "        K8_STAMP(0, i, 2);\n"),
+    ("            T[o] = acc;\n        }\n        __syncthreads();\n",
+     "            T[o] = acc;\n        }\n        __syncthreads();\n        K8_STAMP(0, i, 3);\n"),
+    ("        double* t = Q; Q = Qn; Qn = t;\n        __syncthreads();\n",
+     "        double* t = Q; Q = Qn; Qn = t;\n        __syncthreads();\n"
+     "        K8_STAMP(0, i, 4);\n"),
+    ("    for (int i = 0; i < Nb - 1; ++i) {\n        const double* cur = Qtg + (long long)i * m2;\n",
+     "    for (int i = 0; i < Nb - 1; ++i) {\n        K8_STAMP(1, i, 0);\n"
+     "        const double* cur = Qtg + (long long)i * m2;\n"),
+    ("        load_rhs(va + vk, i + 1);\n        __syncthreads();\n",
+     "        load_rhs(va + vk, i + 1);\n        __syncthreads();\n        K8_STAMP(1, i, 1);\n"),
+    ("        double* t = va; va = vb; vb = t;\n        __syncthreads();\n",
+     "        double* t = va; va = vb; vb = t;\n        __syncthreads();\n"
+     "        K8_STAMP(1, i, 2);\n"),
+    ("    for (int i = Nb - 1, s = 0; i >= 0; --i, ++s) {\n",
+     "    for (int i = Nb - 1, s = 0; i >= 0; --i, ++s) {\n        K8_STAMP(1, s, 3);\n"),
+    ("                __pipeline_wait_prior(0);\n            }\n        }\n        __syncthreads();\n",
+     "                __pipeline_wait_prior(0);\n            }\n        }\n        __syncthreads();\n"
+     "        K8_STAMP(1, s, 4);\n"),
+    ("            t[o] = (xg[i * ld + at(o)] - s1) - s2;\n        }\n        __syncthreads();\n",
+     "            t[o] = (xg[i * ld + at(o)] - s1) - s2;\n        }\n        __syncthreads();\n"
+     "        K8_STAMP(1, s, 5);\n"),
+    ("        double* u = xb; xb = xa; xa = xn; xn = u;\n        __syncthreads();",
+     "        double* u = xb; xb = xa; xa = xn; xn = u;\n        __syncthreads();\n"
+     "        K8_STAMP(1, s, 6);"),
+)
+# The parent's loops: (kernel, the stamp slots of a step in order, the
+# phase after each slot; the last runs to the next step's first slot)
+K8_PARENT_LOOPS = (
+    (0, (0, 1, 2, 3, 4), ('householder QR: 19 reflectors on A and Q, a block barrier each',
+                          'pins and R^-1 (one thread a column)',
+                          'T = Q^T Pn (one thread an entry)',
+                          'stores, carry, next blocks (synchronous loads)', 'loop')),
+    (1, (0, 1, 2), ('forward: wait for the staged Qt block, load the next rhs block',
+                    'forward: the (2nb, kc) product (one thread an entry)', 'loop')),
+    (1, (3, 4, 5, 6), ('backward: wait for R1, R2, Rinv', 'backward: t = y - R1 x1 - R2 x2',
+                       'backward: x = Rinv t', 'loop')),
+)
+
+
+def k8_probe_library(root):
+    """The probe build of `root`'s csrc/banded_kernels.cu (stamps inserted
+    where the source has none), in build/k8_probe: (ctypes library, its
+    loops as K8_PARENT_LOOPS)."""
+    import hashlib
+    import pathlib
+    from dedalus_tpu_torch.csrc import build
+    src = (pathlib.Path(root) / 'dedalus_tpu_torch' / 'csrc' / 'banded_kernels.cu').read_text()
+    if 'K8_STAMP(' in src:
+        # "// K8_LOOP kernel slot,slot,...: phase | phase | ..." lines, and
+        # "// K8_SPAN kernel a,b: what" lines (a warp's time from slot a to
+        # its own slot b, beside the loop's phases)
+        loops = []
+        for line in src.splitlines():
+            for tag in ('// K8_LOOP ', '// K8_SPAN '):
+                if line.startswith(tag):
+                    head, _, tail = line[len(tag):].partition(':')
+                    kern, slots = head.split()
+                    loops.append((int(kern), tuple(int(x) for x in slots.split(',')),
+                                  tuple(p.strip() for p in tail.split('|')),
+                                  tag == '// K8_SPAN '))
+    else:
+        for old, new in K8_PARENT_STAMPS:
+            if src.count(old) != 1:
+                raise AssertionError(f"K8 probe: anchor not found once: {old!r}")
+            src = src.replace(old, new)
+        loops = K8_PARENT_LOOPS
+    src = K8_PROBE_PRELUDE + src + K8_PROBE_READER
+    out = pathlib.Path(__file__).resolve().parent / 'build' / 'k8_probe'
+    out.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha1(src.encode()).hexdigest()[:16]
+    cu, so = out / f'k8_probe_{tag}.cu', out / f'libk8_probe_{tag}.so'
+    if not so.exists():
+        cu.write_text(src)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, '-o', str(so), str(cu)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ('k8_block_tridiag_qr_factor_f64', 'k8_multi_rhs_solve_f64'):
+        getattr(lib, name).argtypes = build.SIGNATURES['banded_kernels'][name]
+        getattr(lib, name).restype = ctypes.c_int
+    lib.k8_probe_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.k8_probe_read.restype = ctypes.c_int
+    lib.k8_probe_zero.restype = ctypes.c_int
+    return lib, loops
+
+
+def k8_inputs(G, Nb, nb, k, dev, seed=27, pinned=False):
+    """Seeded near-4I diagonal blocks with smaller off-diagonal blocks, as
+    f8_blocks's, made on the card (sub[:, 0] = sup[:, -1] = 0), and a
+    right-hand side of k columns; `pinned`: the first panel's column 1 and
+    block 1's column 2 zero, so their pivots are exactly 0 and pinned."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda: torch.randn((G, Nb, nb, nb), generator=gen, dtype=torch.float64, device=dev)
+    diag = 4 * torch.eye(nb, dtype=torch.float64, device=dev) + r() / nb ** 0.5
+    sub, sup = 0.5 * r() / nb ** 0.5, 0.5 * r() / nb ** 0.5
+    sub[:, 0] = 0.0
+    sup[:, -1] = 0.0
+    if pinned:
+        diag[:, 0, :, 1] = 0.0
+        sub[:, 1, :, 1] = 0.0
+        diag[:, 1, :, 2] = 0.0
+        sub[:, 2, :, 2] = 0.0
+        sup[:, 0, :, 2] = 0.0
+    Rhs = torch.randn((G, Nb, nb, k), generator=gen, dtype=torch.float64, device=dev)
+    return diag, sub, sup, Rhs
+
+
+# Synthetic K8 checks (k8_synthetic_checks): (G, Nb, nb, k, pinned), the
+# widths past one warp's columns and past the shared path among them
+K8_SYNTHETIC = ((64, 40, 19, 26, False), (64, 40, 19, 26, True), (16, 9, 4, 6, True),
+                (16, 7, 33, 40, False), (16, 7, 39, 130, True), (6, 5, 96, 360, False))
+
+
+def k8_synthetic_checks(dev):
+    """k8_vs_twin at K8_SYNTHETIC's shapes (shared and general paths, with
+    and without pinned pivots, K8b in one and in several chunks)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    out = {}
+    for G, Nb, nb, k, pinned in K8_SYNTHETIC:
+        diag, sub, sup, Rhs = k8_inputs(G, Nb, nb, k, dev, seed=nb, pinned=pinned)
+        label = f"synthetic ({G}, {Nb}, {nb}, {k}){' pinned' if pinned else ''}"
+        r = k8_vs_twin((diag, sub, sup), Rhs, label)[3]
+        out[label] = dict(err=r['err'][0], growth=r['growth'], pins=r['pins'],
+                          err_b=r['err_b'][0], plans=(ob.k8_plan(nb), ob.k8b_plan(nb, k)))
+    return out
+
+
+def k8_probe_split(lib, loops, dsu, Rhs, plan_a, plan_b):
+    """One probed launch of K8a and of K8b (the probe build `lib`) on dsu
+    and Rhs: block 0's mean cycles a step in each phase and a whole step,
+    the launch's ms by events, and each phase's share of it."""
+    from dedalus_tpu_torch.ops import banded as ob
+    G, Nb, nb, _ = dsu[0].shape
+    k = Rhs.shape[-1]
+    dev = dsu[0].device
+    f64 = lambda shape: torch.empty(shape, dtype=torch.float64, device=dev)
+    qr = dict(Qt=f64((G, Nb - 1, 2 * nb, 2 * nb)), QtL=f64((G, nb, nb)),
+              Rinv=f64((G, Nb, nb, nb)), R1=f64((G, Nb, nb, nb)), R2=f64((G, Nb, nb, nb)))
+    pins = torch.empty((G, Nb, nb), dtype=torch.uint8, device=dev)
+    sigma = f64((G, Nb, nb))
+    ws = f64((G, plan_a['workspace'])) if plan_a['general'] else None
+    X = torch.empty_like(Rhs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def k8a():
+        err = lib.k8_block_tridiag_qr_factor_f64(
+            *(t.data_ptr() for t in dsu), *(qr[key].data_ptr() for key in ob.FACTOR_KEYS),
+            pins.data_ptr(), sigma.data_ptr(), *[0] * 5, 0 if ws is None else ws.data_ptr(),
+            G, Nb, nb, 1e-8, stream)
+        if err:
+            raise RuntimeError(f"K8a probe build: CUDA error {err}")
+
+    def k8b():
+        err = lib.k8_multi_rhs_solve_f64(
+            *(qr[key].data_ptr() for key in ob.FACTOR_KEYS), Rhs.data_ptr(), X.data_ptr(),
+            G, Nb, nb, k, plan_b['kc'], plan_b.get('slots', int(plan_b['staged'])), stream)
+        if err:
+            raise RuntimeError(f"K8b probe build: CUDA error {err}")
+
+    out = {}
+    for kern, run in ((0, k8a), (1, k8b)):
+        torch.cuda.synchronize()
+        if lib.k8_probe_zero():
+            raise RuntimeError("K8 probe: clearing the stamps failed")
+        ms = cuda_ms(run, 2)
+        torch.cuda.synchronize()
+        stamps = np.zeros((2, 2048, 8), dtype=np.int64)
+        if lib.k8_probe_read(stamps.ctypes.data, stamps.size):
+            raise RuntimeError("K8 probe: reading the stamps failed")
+        rows, spans, step_cycles = [], [], 0.0
+        for kk, slots, labels, *span in loops:
+            if kk != kern:
+                continue
+            s = stamps[kern][:, list(slots)].astype(np.float64)
+            if span and span[0]:
+                s = s[:int((s[:, 0] > 0).sum())]
+                spans.append(dict(span=labels[0], cycles=float((s[:, 1] - s[:, 0]).mean())))
+                continue
+            s = s[:int((s[:, 0] > 0).sum())]
+            nxt, s = s[1:, 0], s[:-1]
+            cyc = [float((s[:, j + 1] - s[:, j]).mean()) for j in range(len(slots) - 1)]
+            cyc.append(float((nxt - s[:, -1]).mean()))
+            step_cycles += float((nxt - s[:, 0]).mean())
+            rows += [dict(phase=label, cycles=c) for label, c in zip(labels, cyc)]
+        for r in rows:
+            r['share'] = r['cycles'] / step_cycles
+        out['k8a' if kern == 0 else 'k8b'] = dict(ms=ms, cycles_per_step=step_cycles,
+                                                  phases=rows, spans=spans)
+    return out
+
+
+def k8_reading(root='.', shapes=K8_SHAPES, reps=3):
+    """K8a (with the f32 copies, as the solver calls it) and K8b at
+    `shapes` through the wrappers of the package imported (this checkout's,
+    or a parent's in ab_side): ms by events and on the device, the bound
+    (bytes: inputs read once, f64 and f32 outputs written once), two
+    launches bit for bit; then the step's split from the probe build of
+    `root`'s source (k8_probe_split)."""
+    from dedalus_tpu_torch.ops import banded as ob
+    dev = torch.device(DEVICE)
+    lib, loops = k8_probe_library(root)
+    out = {}
+    for label, (G, Nb, nb, k) in shapes.items():
+        diag, sub, sup, Rhs = k8_inputs(G, Nb, nb, k, dev)
+        dsu = (diag, sub, sup)
+        shapes32 = dict(Qt=(G, Nb - 1, 2 * nb, 2 * nb), QtL=(G, nb, nb),
+                        Rinv=(G, Nb, nb, nb), R1=(G, Nb, nb, nb), R2=(G, Nb, nb, nb))
+        o32 = {key: torch.empty(s, dtype=torch.float32, device=dev)
+               for key, s in shapes32.items()}
+        q1 = ob.factor_block_tridiag_qr(*dsu, out32=o32)
+        q2 = ob.factor_block_tridiag_qr(*dsu)
+        torch.cuda.synchronize()
+        same_a = all(torch.equal(q1[key], q2[key]) for key in q1)
+        del q2
+        run_a = lambda: ob.factor_block_tridiag_qr(*dsu, out32=o32)
+        ms_a = cuda_ms(run_a, reps)
+        dev_a = device_ms(run_a, reps, 'qr_factor')
+        bytes_a = nbytes(*dsu, *(q1[key] for key in q1), *o32.values())
+        x1, x2 = ob.multi_rhs_solve(q1, Rhs), ob.multi_rhs_solve(q1, Rhs)
+        torch.cuda.synchronize()
+        same_b = torch.equal(x1, x2)
+        run_b = lambda: ob.multi_rhs_solve(q1, Rhs)
+        ms_b = cuda_ms(run_b, reps)
+        dev_b = device_ms(run_b, reps, 'multi_rhs')
+        bound_b = bound(nbytes(*(q1[key] for key in ob.FACTOR_KEYS), Rhs, x1),
+                        k8b_flops(G, Nb, nb, k))
+        del x1, x2, o32
+        split = k8_probe_split(lib, loops, dsu, Rhs, ob.k8_plan(nb), ob.k8b_plan(nb, k))
+        del q1
+        out[label] = dict(
+            shape=[G, Nb, nb, k],
+            k8a=dict(ms=ms_a, device_ms=dev_a, bitwise=same_a, ms_per_step=ms_a / Nb,
+                     **dict(zip(('bound_ms', 'bound_by'),
+                                bound(bytes_a, G * Nb * 19.33 * nb ** 3))),
+                     bound_ms_f64_only=k8_bound(G, Nb, nb, copies=False)[0], split=split['k8a']),
+            k8b=dict(ms=ms_b, device_ms=dev_b, bitwise=same_b, ms_per_step=ms_b / (2 * Nb - 1),
+                     **dict(zip(('bound_ms', 'bound_by'), bound_b)), split=split['k8b']))
+        del diag, sub, sup, Rhs, dsu
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (same_a and same_b):
+            raise AssertionError(f"K8 at {label}: two launches differ (K8a {same_a}, K8b "
+                                 f"{same_b})")
+    return out
+
+
+def ab_k8(steps=None):
+    """k8_reading of the side's checkout (ab_side)."""
+    import dedalus_tpu_torch
+    import pathlib
+    return k8_reading(pathlib.Path(dedalus_tpu_torch.__file__).resolve().parents[1])
 
 
 def check_polar_kernels(geometry, ctx):

@@ -1160,170 +1160,291 @@ extern "C" int k4_geometry(int* out, int n) {
 // ---------------------------------------------------------------------------
 // K8a: f64 block-tridiagonal QR factorization with pivot pinning.
 //
-// One thread block per group g walks the Nb blocks in order (the sweep is
-// sequential in the block index: block i+1's column holds the carry C, S that
-// block i's rotation leaves), with everything of one step in shared memory:
-//   A   (2nb, nb)    the stacked column [C_i ; sub_{i+1}], factored in place
-//   Q   (2nb, 2nb)   starts as the identity and takes every reflector, so it
-//                    ends as the complete Q^T (two buffers: one is written out
-//                    while the other is reset for the next step)
-//   Pn  (2nb, 2nb)   the trailing panel [[S_i, 0], [diag_{i+1}, sup_{i+1}]]
-//   T   (2nb, 2nb)   Q^T Pn: R1, R2 on top, the next C, S below
-//   Ri  (nb, nb)     the inverse of the pinned R_ii
-// Step i: Householder QR of A with LAPACK's conventions (dgeqr2/dlarfg:
-// beta = -sign(alpha) ||x||, v[0] = 1, tau = 0 for a column that is already
-// zero below its diagonal), so Q^T and R agree entry by entry with a LAPACK
-// QR; pivot pinning of R's diagonal against the group's running diagonal
-// scale (the running maximum is updated before the test; a NaN propagates as
-// in the plain version); R_ii^{-1} by back-substitution, one thread per
-// column; T = Q^T Pn, one thread per entry. Nothing is clamped: a singular
-// core leaves inf or nan in Rinv for the caller to find.
+// A group's Nb steps run in order (step i's rotation leaves the carry C, S
+// that step i + 1 factors), and the chunk's groups run side by side, a
+// thread block each. Step i: Householder QR of the panel A = [C_i ;
+// sub_{i+1}] (2nb x nb) in LAPACK's conventions (dgeqr2/dlarfg: beta =
+// -sign(alpha) ||x||, v[0] = 1, tau = 0 for a column already zero below its
+// diagonal), so Q^T and R agree entry by entry with a LAPACK QR; the same
+// reflectors applied to the panel Pn = [[S_i, 0], [diag_{i+1}, sup_{i+1}]]
+// (giving R1_i, R2_i on top and C_{i+1}, S_{i+1} below) and to the identity
+// (giving the explicit Q^T that K5 reads); pivot pinning of R's diagonal
+// against the group's running diagonal scale (the running maximum is
+// updated before the test; a NaN propagates as in the plain version); R_ii^-1
+// by back-substitution. Nothing is clamped: a singular core leaves inf or
+// nan in Rinv for the caller to find.
 //
-// Reads 3 and writes 7 nb x nb blocks per step (f64; optionally the f32
-// copies the solver keeps, in the same pass), against ~19 nb^3 operations in
-// f64 outside the tensor cores and ~nb + 3 block barriers: bound by the
-// barriers' latency, not by bytes. Each column update is split over four
-// lanes and met by shuffles, so a reflector costs ~2nb/4 dependent FMAs.
+// What bounds it on the card: the chain of dependent steps, not bytes. A
+// chunk (256, 863, 19, 19) moves 10 f64 and 7 f32 blocks a step (2.58 ms at
+// 3.35 TB/s) and does ~19 nb^3 operations a step (0.44 ms at 67 TFLOP/s),
+// but step i + 1's panel needs step i's C_{i+1}: 863 steps one after the
+// other. The earlier design (one 256-thread block a group) took 37.4 ms
+// there, 85,500 cycles a step (clock64 probes on one group's steps,
+// chip_smoke.k8_reading, NVIDIA H100 80GB HBM3 at 700 W): 65% in the 19
+// reflectors, each applied to 56 columns (A's later ones and all of Q) by
+// 4-lane groups and followed by a block barrier; 27% in T = Q^T Pn, one
+// thread an entry (38-long sums through shared memory); 6% in the stores
+// and the next blocks' synchronous loads; 2% in the pins and R^-1.
+//
+// The design: one warp for the panel and the critical chain only, the rest
+// beside it.
+//   P  (warp 0) factors the panel, a lane a column: each reflector's dot
+//      products and updates run down the lane's own column (four partial
+//      sums), the next column's norm is summed in the same pass, and the
+//      reflector is published to the other warps through a counter in
+//      shared memory (no block barrier inside the panel).
+//   T  (ceil(2nb / 32) warps, at most 4) apply each published reflector to
+//      the 2nb columns of Pn, a lane a column, as soon as it is published;
+//      after the last one they write the next panel [C_{i+1} ; sub_{i+2}]
+//      and, after the step's barrier, store R1, R2 and set up the next Pn
+//      (S_{i+1} moved across the columns behind a barrier of the T warps).
+//   Q  (as many warps) apply the reflectors to the identity's columns: the
+//      explicit Q^T, stored (f64 and f32) and reset at the next step's start.
+//   R  (one warp) lags one step: the pins and R^-1 of step i - 1 (a lane a
+//      column, bottom row up) and their stores, while P factors step i.
+// One block barrier a step. The panel lives in a ring of 3 slots (the R
+// warp reads step i - 1's R while T writes step i + 1's panel); the next
+// step's sub, diag and sup blocks arrive by cp.async a step ahead. Every
+// lane's sums run in a fixed order that does not depend on the number of
+// warps, so the general path's factors equal the shared path's bit for bit.
+// Measured (the same probes): 30.0 ms at (256, 863, 19), 67,600
+// cycles a step, of which the P warp's panel is 93% (~3,300 cycles a
+// reflector: a lane's dot product and update run down its column through
+// shared memory, each row's load after the last row's store); the T, Q and
+// R warps end within the step. The chain, not bytes, holds it: 863 steps
+// of the P warp's panel (PERF.md section 6).
 //
 // The general path (GLOBAL, ops/banded.py k8_plan: nb > 39, where a step's
-// 19 nb^2 + 2 nb doubles pass the 227 KB of shared memory, or nb > 64) keeps
-// the same step arrays in a device-memory workspace of that size a group
-// (cached in L1 and L2), and its R^-1 and pinning loop the columns over the
-// block's threads: any nb, the same arithmetic in the same order, so its
-// factors equal the shared path's bit for bit where both run.
+// k8_step_doubles(nb) pass the 227 KB of shared memory) keeps the same
+// arrays in a device-memory workspace of that size a group (cached in L1
+// and L2), reads the input blocks directly instead of through the
+// cp.async ring, and loops a lane over its columns past 32 * 4.
 //
 // Layouts (row-major, contiguous): diag, sub, sup, Rinv, R1, R2 (G, Nb, nb,
 // nb); Qt (G, Nb-1, 2nb, 2nb); QtL (G, nb, nb); pins (G, Nb, nb) bytes;
 // sigma (G, Nb, nb).
 // ---------------------------------------------------------------------------
 
-constexpr int K8_THREADS = 256;
-constexpr int K8_LANES = 4;   // lanes per updated column
+// K8_LOOP 0 0,1,2: P: the panel QR (nb reflectors, a lane a column) | wait for the T warps' last reflector, the next panel and the step's barrier | loop
+// K8_SPAN 0 0,3: T: R1/R2 stores, the next Pn and the reflectors on Pn
+// K8_SPAN 0 0,4: Q: Q^T's stores and reset, the reflectors on the identity
+// K8_SPAN 0 0,5: R: pins, R^-1 and their stores (step i - 1)
+
+#ifndef K8_STAMP
+#define K8_STAMP(kern, step, slot) do { } while (0)
+#define K8_STAMP_WARP(kern, step, slot) do { } while (0)
+#endif
+
+constexpr int K8_MAX_CONSUMER_WARPS = 4;
 
 __device__ __forceinline__ double nan_max(double a, double b) {
     return (a != a || b != b) ? a + b : fmax(a, b);
 }
 
-// Householder QR of the m x n matrix A (leading dimension n), applying each
-// reflector to A's later columns and to all m columns of Q (m x m). beta[j]
-// takes R's diagonal; R's strict upper triangle is left in A. Ends with a
-// block barrier.
-__device__ void householder_qr(double* A, double* Q, int m, int n, double* beta) {
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int q4 = tid % K8_LANES;
-    const int cg = tid / K8_LANES;
-    const int ncg = blockDim.x / K8_LANES;
-    for (int j = 0; j < n; ++j) {
-        // Every warp forms the reflector of column j for itself
-        double ss = 0.0;
-        for (int r = j + 1 + lane; r < m; r += 32) {
-            const double a = A[r * n + j];
-            ss += a * a;
-        }
-        for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-        const double alpha = A[j * n + j];
-        double tau = 0.0, bj = alpha, scal = 0.0;
-        if (ss != 0.0) {
-            bj = -copysign(sqrt(alpha * alpha + ss), alpha);
-            tau = (bj - alpha) / bj;
-            scal = 1.0 / (alpha - bj);
-        }
-        if (tau != 0.0) {
-            const int ncols = (n - j - 1) + m;
-            for (int c0 = 0; c0 < ncols; c0 += ncg) {
-                const int c = c0 + cg;
-                const bool on = c < ncols;
-                // column c of [A's later columns | Q]
-                double* col = A;
-                int ld = n, cc = 0;
-                if (on) {
-                    if (c < n - j - 1) { cc = j + 1 + c; }
-                    else { col = Q; ld = m; cc = c - (n - j - 1); }
-                }
-                double s = 0.0;
-                if (on) {
-                    for (int r = j + q4; r < m; r += K8_LANES) {
-                        const double v = (r == j) ? 1.0 : A[r * n + j] * scal;
-                        s += v * col[r * ld + cc];
-                    }
-                }
-                s += __shfl_xor_sync(0xffffffffu, s, 1);
-                s += __shfl_xor_sync(0xffffffffu, s, 2);
-                s *= tau;
-                if (on) {
-                    for (int r = j + q4; r < m; r += K8_LANES) {
-                        const double v = (r == j) ? 1.0 : A[r * n + j] * scal;
-                        col[r * ld + cc] -= v * s;
-                    }
-                }
-            }
-        }
-        if (tid == 0) beta[j] = bj;
-        __syncthreads();
+// Warps of each kind for blocks of nb rows: the T and Q warps
+__host__ __device__ __forceinline__ int k8_consumer_warps(int nb) {
+    return (2 * nb + 31) / 32 < K8_MAX_CONSUMER_WARPS ? (2 * nb + 31) / 32
+                                                      : K8_MAX_CONSUMER_WARPS;
+}
+
+__host__ __device__ __forceinline__ int k8_threads(int nb) {
+    return 32 * (2 + 2 * k8_consumer_warps(nb));
+}
+
+// The doubles of one group's arrays: 3 panel slots (2nb x nb, tau, beta),
+// Pn and Q (2nb x 2nb), Ri (nb x nb), dg (nb), the input ring (sub, diag,
+// sup of one block)
+__host__ __device__ __forceinline__ long long k8_step_doubles(int nb) {
+    return 18LL * nb * nb + 7LL * nb;
+}
+
+__host__ __device__ __forceinline__ long long k8_slot_doubles(int nb) {
+    return 2LL * nb * nb + 2LL * nb;
+}
+
+// w = v^T M[j:, c] over rows j .. m-1 of column c (leading dimension ld),
+// v[r] = A[r * nb + j] below row j and 1 at it; four partial sums by
+// (r - j) mod 4, added (0 + 1) + (2 + 3)
+__device__ __forceinline__ double k8_dot(const double* A, int nb, int j, const double* M,
+                                         int ld, int c, int m) {
+    double s0 = M[j * ld + c], s1 = 0.0, s2 = 0.0, s3 = 0.0;
+    int r = j + 1;
+    for (; r + 3 < m; r += 4) {
+        s1 = fma(A[r * nb + j], M[r * ld + c], s1);
+        s2 = fma(A[(r + 1) * nb + j], M[(r + 1) * ld + c], s2);
+        s3 = fma(A[(r + 2) * nb + j], M[(r + 2) * ld + c], s3);
+        s0 = fma(A[(r + 3) * nb + j], M[(r + 3) * ld + c], s0);
+    }
+    if (r < m) s1 = fma(A[r * nb + j], M[r * ld + c], s1);
+    if (r + 1 < m) s2 = fma(A[(r + 1) * nb + j], M[(r + 1) * ld + c], s2);
+    if (r + 2 < m) s3 = fma(A[(r + 2) * nb + j], M[(r + 2) * ld + c], s3);
+    return (s0 + s1) + (s2 + s3);
+}
+
+// M[j:, c] -= v w (v as in k8_dot); returns the sum of the new M[r, c]^2
+// over rows j + 2 .. m-1, four partial sums by (r - j - 2) mod 4 added (0 +
+// 1) + (2 + 3): the next reflector's norm when c = j + 1, in k8_norm2's
+// order
+__device__ __forceinline__ double k8_update(const double* A, int nb, int j, double* M, int ld,
+                                            int c, int m, double w) {
+    M[j * ld + c] -= w;
+    if (j + 1 < m) M[(j + 1) * ld + c] = fma(-A[(j + 1) * nb + j], w, M[(j + 1) * ld + c]);
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+    int r = j + 2;
+    for (; r + 3 < m; r += 4) {
+        const double a0 = fma(-A[r * nb + j], w, M[r * ld + c]);
+        const double a1 = fma(-A[(r + 1) * nb + j], w, M[(r + 1) * ld + c]);
+        const double a2 = fma(-A[(r + 2) * nb + j], w, M[(r + 2) * ld + c]);
+        const double a3 = fma(-A[(r + 3) * nb + j], w, M[(r + 3) * ld + c]);
+        M[r * ld + c] = a0;
+        M[(r + 1) * ld + c] = a1;
+        M[(r + 2) * ld + c] = a2;
+        M[(r + 3) * ld + c] = a3;
+        s0 = fma(a0, a0, s0);
+        s1 = fma(a1, a1, s1);
+        s2 = fma(a2, a2, s2);
+        s3 = fma(a3, a3, s3);
+    }
+    for (int q = 0; r < m; ++r, ++q) {
+        const double a = fma(-A[r * nb + j], w, M[r * ld + c]);
+        M[r * ld + c] = a;
+        if (q == 0) s0 = fma(a, a, s0);
+        else if (q == 1) s1 = fma(a, a, s1);
+        else s2 = fma(a, a, s2);
+    }
+    return (s0 + s1) + (s2 + s3);
+}
+
+// Sum of M[r, c]^2 over rows c + 1 .. m-1: four partial sums by (r - c - 1)
+// mod 4, added (0 + 1) + (2 + 3)
+__device__ __forceinline__ double k8_norm2(const double* M, int ld, int c, int m) {
+    double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+    int r = c + 1;
+    for (; r + 3 < m; r += 4) {
+        s0 = fma(M[r * ld + c], M[r * ld + c], s0);
+        s1 = fma(M[(r + 1) * ld + c], M[(r + 1) * ld + c], s1);
+        s2 = fma(M[(r + 2) * ld + c], M[(r + 2) * ld + c], s2);
+        s3 = fma(M[(r + 3) * ld + c], M[(r + 3) * ld + c], s3);
+    }
+    if (r < m) s0 = fma(M[r * ld + c], M[r * ld + c], s0);
+    if (r + 1 < m) s1 = fma(M[(r + 1) * ld + c], M[(r + 1) * ld + c], s1);
+    if (r + 2 < m) s2 = fma(M[(r + 2) * ld + c], M[(r + 2) * ld + c], s2);
+    return (s0 + s1) + (s2 + s3);
+}
+
+// Wait until the P warp has published `target` reflectors (a wait of some
+// seconds traps: a fault, never a hang)
+__device__ __forceinline__ void k8_wait(const volatile int* pub, int target) {
+    for (long long spins = 0; *pub < target; ++spins)
+        if (spins > (1LL << 30)) __trap();
+    __threadfence_block();
+}
+
+// Apply published reflectors j = 0 .. nb-1 (of the panel A, base `base`) to
+// the columns c = c0, c0 + stride, ... < ncols of M (m rows, leading
+// dimension ld)
+__device__ __forceinline__ void k8_apply(const double* A, const double* tau, int nb, double* M,
+                                         int ld, int m, int ncols, int c0, int stride,
+                                         const volatile int* pub, int base) {
+    for (int j = 0; j < nb; ++j) {
+        k8_wait(pub, base + j + 1);
+        const double t = tau[j];
+        if (t == 0.0) continue;
+        for (int c = c0; c < ncols; c += stride)
+            k8_update(A, nb, j, M, ld, c, m, t * k8_dot(A, nb, j, M, ld, c, m));
     }
 }
 
-__device__ __forceinline__ void set_identity(double* Q, int m) {
-    for (int k = threadIdx.x; k < m * m; k += blockDim.x) Q[k] = (k / m == k % m) ? 1.0 : 0.0;
+// The P warp: Householder QR of the m x nb panel A (row-major, leading
+// dimension nb) in place (R's strict upper triangle above the diagonal, v
+// below it), beta and tau of each column; reflector j is published as
+// `base` + j + 1 once v_j and tau_j are in place. A lane owns the columns
+// lane, lane + 32, ...; the owner of column j + 1 sums its norm while it
+// applies reflector j to it.
+__device__ void k8_panel(double* A, double* tau, double* beta, int m, int nb, int lane,
+                         volatile int* pub, int base) {
+    double ss_own = lane == 0 ? k8_norm2(A, nb, 0, m) : 0.0;
+    for (int j = 0; j < nb; ++j) {
+        const double ss = __shfl_sync(0xffffffffu, ss_own, j & 31);
+        const double alpha = A[j * nb + j];
+        double t = 0.0, bj = alpha, scal = 0.0;
+        if (ss != 0.0) {
+            bj = -copysign(sqrt(alpha * alpha + ss), alpha);
+            t = (bj - alpha) / bj;
+            scal = 1.0 / (alpha - bj);
+        }
+        if (t != 0.0)
+            for (int r = j + 1 + lane; r < m; r += 32) A[r * nb + j] *= scal;
+        if (lane == 0) {
+            tau[j] = t;
+            beta[j] = bj;
+        }
+        __threadfence_block();
+        __syncwarp();
+        if (lane == 0) *pub = base + j + 1;
+        for (int c = lane; c < nb; c += 32) {
+            if (c <= j) continue;
+            const double nrm = t != 0.0
+                ? k8_update(A, nb, j, A, nb, c, m, t * k8_dot(A, nb, j, A, nb, c, m))
+                : k8_norm2(A, nb, c, m);
+            if (c == j + 1) ss_own = nrm;
+        }
+        __syncwarp();
+    }
 }
 
-// Pivot pinning of R's diagonal (beta -> dg) and R^{-1} (Ri) from the strict
-// upper triangle left in A. The shared path inverts with the last 64
-// threads (one column each, nb <= 64); GLOBAL loops the entries and columns
-// over all threads. Needs a barrier before (beta) and leaves one to the
-// caller after (Ri); has one inside (dg).
-template <bool GLOBAL>
-__device__ void pin_and_invert(const double* A, const double* beta, double* dg, double* Ri,
-                               int nb, double pin_tol, double& runmax,
-                               unsigned char* pins, double* sigma) {
-    const int tid = threadIdx.x;
+// The R warp: the pins of one step's R (beta, the running scale `runmax`)
+// and R^-1 (Ri, from R's strict upper triangle in A and dg), a lane a
+// column; stores Rinv (and its f32 copy), pins and sigma at offset `ob`
+// (of nb * nb) and `op` (of nb).
+__device__ void k8_pin_invert(const double* A, const double* beta, double* dg, double* Ri,
+                              int nb, double pin_tol, double& runmax, int lane,
+                              double* __restrict__ Rinv, float* __restrict__ Rinv32,
+                              unsigned char* __restrict__ pins, double* __restrict__ sigma,
+                              long long ob, long long op) {
     double dmax = 0.0;
-    for (int j = 0; j < nb; ++j) dmax = nan_max(dmax, fabs(beta[j]));
+    for (int c = lane; c < nb; c += 32) dmax = nan_max(dmax, fabs(beta[c]));
+    for (int o = 16; o > 0; o >>= 1) dmax = nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, o));
     runmax = nan_max(runmax, dmax);
     const double scale = nan_max(runmax, 1e-300);
-    auto pin = [&](int j) {
-        const double d = beta[j];
+    for (int c = lane; c < nb; c += 32) {
+        const double d = beta[c];
         const bool p = fabs(d) < pin_tol * scale;
         const double delta = p ? scale - d : 0.0;
-        pins[j] = p ? 1 : 0;
-        sigma[j] = delta;
-        dg[j] = d + delta;
-    };
+        pins[op + c] = p ? 1 : 0;
+        sigma[op + c] = delta;
+        dg[c] = d + delta;
+    }
+    __syncwarp();
     // column c of the inverse of the upper-triangular R, bottom row up
-    auto invert = [&](int c) {
+    for (int c = lane; c < nb; c += 32) {
         for (int r = nb - 1; r > c; --r) Ri[r * nb + c] = 0.0;
         for (int r = c; r >= 0; --r) {
             double acc = (r == c) ? 1.0 : 0.0;
             for (int k = c; k > r; --k) acc -= A[r * nb + k] * Ri[k * nb + c];
             Ri[r * nb + c] = acc / dg[r];
         }
-    };
-    if constexpr (GLOBAL) {
-        for (int j = tid; j < nb; j += blockDim.x) pin(j);
-        __syncthreads();
-        for (int c = tid; c < nb; c += blockDim.x) invert(c);
-    } else {
-        if (tid < nb) pin(tid);
-        __syncthreads();
-        const int c = tid - ((int)blockDim.x - 64);
-        if (c >= 0 && c < nb) invert(c);
+        for (int r = 0; r < nb; ++r) {
+            Rinv[ob + r * nb + c] = Ri[r * nb + c];
+            if (Rinv32) Rinv32[ob + r * nb + c] = (float)Ri[r * nb + c];
+        }
     }
 }
 
-template <typename T>
-__device__ __forceinline__ void put_block(T* dst, const double* src, int n) {
-    if (dst) for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = (T)src[k];
-}
-
-// The doubles of one step's arrays (A, Q twice, Pn, T, Ri, beta, dg): a
-// group's shared memory, or its slice of the general path's workspace
-__host__ __device__ __forceinline__ long long k8_step_doubles(int nb) {
-    return 19LL * nb * nb + 2LL * nb;
+// Copy n doubles of the column c of a block (row-major, nb x nb) at src to
+// the column c of dst (leading dimension ld) at rows r0 .., by cp.async
+// (ASYNC) or plain loads
+template <bool ASYNC>
+__device__ __forceinline__ void k8_column_in(double* dst, int ld, const double* __restrict__ src,
+                                             int nb, int c) {
+    for (int r = 0; r < nb; ++r) {
+        if constexpr (ASYNC) __pipeline_memcpy_async(dst + r * ld, src + r * nb + c, 8);
+        else dst[r * ld] = src[r * nb + c];
+    }
 }
 
 template <bool GLOBAL>
-__global__ void __launch_bounds__(K8_THREADS)
+__global__ void __launch_bounds__(32 * (2 + 2 * K8_MAX_CONSUMER_WARPS))
 block_tridiag_qr_factor_kernel(
         const double* __restrict__ diag, const double* __restrict__ sub,
         const double* __restrict__ sup,
@@ -1333,19 +1454,33 @@ block_tridiag_qr_factor_kernel(
         float* __restrict__ Qt32, float* __restrict__ QtL32, float* __restrict__ Rinv32,
         float* __restrict__ R132, float* __restrict__ R232,
         double* __restrict__ ws, int Nb, int nb, double pin_tol) {
-    extern __shared__ double k8sh[];
+    extern __shared__ __align__(16) double k8sh[];
+    __shared__ int pub_s;
+    volatile int* pub = &pub_s;
     const int n2 = 2 * nb;
     const int bsz = nb * nb;
     const int m2 = n2 * n2;
-    double* A = GLOBAL ? ws + blockIdx.x * k8_step_doubles(nb) : k8sh;   // 2nb x nb
-    double* Qa = A + 2 * bsz;         // 2nb x 2nb
-    double* Qb = Qa + m2;
-    double* Pn = Qb + m2;
-    double* T = Pn + m2;
-    double* Ri = T + m2;              // nb x nb
-    double* beta = Ri + bsz;          // nb
-    double* dg = beta + nb;           // nb
+    double* const base = GLOBAL ? ws + blockIdx.x * k8_step_doubles(nb) : k8sh;
+    double* const slots = base;                          // 3 x (2nb x nb, tau, beta)
+    double* const Pn = base + 3 * k8_slot_doubles(nb);   // 2nb x 2nb
+    double* const Q = Pn + m2;                           // m x m, ld m
+    double* const Ri = Q + m2;                           // nb x nb
+    double* const dg = Ri + bsz;                         // nb
+    double* const ring = dg + nb;                        // sub, diag, sup of one block
+    auto panel = [&](int i) { return slots + (i % 3) * k8_slot_doubles(nb); };
+    auto tau_of = [&](int i) { return panel(i) + 2 * bsz; };
+    auto beta_of = [&](int i) { return panel(i) + 2 * bsz + nb; };
+
     const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int nc = k8_consumer_warps(nb);
+    const bool is_p = warp == 0;
+    const bool is_t = warp >= 1 && warp <= nc;
+    const bool is_q = warp > nc && warp <= 2 * nc;
+    const bool is_r = warp == 2 * nc + 1;
+    const int cw = is_t ? warp - 1 : warp - 1 - nc;      // a consumer's index among its kind
+    const int c0 = 32 * cw + lane, cs = 32 * nc;         // its first column and stride
+
     const long long g = blockIdx.x;
     const double* dg_ = diag + g * Nb * bsz;
     const double* sb_ = sub + g * Nb * bsz;
@@ -1354,105 +1489,173 @@ block_tridiag_qr_factor_kernel(
     const long long gb = g * (long long)Nb * bsz;
     double runmax = 0.0;
 
-    // A = [C_0 = diag_0 ; sub_1], Pn = [[S_0 = sup_0, 0], [diag_1, sup_1]]
+    // Block t's sub, diag and sup into the ring: a T lane copies the columns
+    // it later moves (c < nb: sub and diag column c; nb + c: sup column c)
+    auto ring_in = [&](int t) {
+        for (int c = c0; c < n2; c += cs) {
+            if (c < nb) {
+                k8_column_in<true>(ring + c, nb, sb_ + (long long)t * bsz, nb, c);
+                k8_column_in<true>(ring + bsz + c, nb, dg_ + (long long)t * bsz, nb, c);
+            } else {
+                k8_column_in<true>(ring + 2 * bsz + c - nb, nb, sp_ + (long long)t * bsz, nb,
+                                   c - nb);
+            }
+        }
+        __pipeline_commit();
+    };
+    // Block t's column c of `which` (0 sub, 1 diag, 2 sup) into dst (ld): from
+    // the ring (shared path, after its copy) or device memory
+    auto block_in = [&](double* dst, int ld, int which, int t, int c) {
+        if constexpr (GLOBAL) {
+            const double* src = which == 0 ? sb_ : which == 1 ? dg_ : sp_;
+            k8_column_in<false>(dst, ld, src + (long long)t * bsz, nb, c);
+        } else {
+            for (int r = 0; r < nb; ++r) dst[r * ld] = ring[which * bsz + r * nb + c];
+        }
+    };
+
+    // ---- prologue: panel 0 = [diag_0 ; sub_1] (or diag_0 alone), Pn_0 =
+    // [[sup_0, 0], [diag_1, sup_1]], Q = I, the ring's block 2
+    const int m0 = Nb > 1 ? n2 : nb;
     for (int k = tid; k < bsz; k += blockDim.x) {
-        const int r = k / nb, c = k % nb;
-        A[k] = dg_[k];
+        double* A0 = panel(0);
+        A0[k] = dg_[k];
         if (Nb > 1) {
-            A[bsz + k] = sb_[bsz + k];
+            const int r = k / nb, c = k % nb;
+            A0[bsz + k] = sb_[bsz + k];
             Pn[r * n2 + c] = sp_[k];
             Pn[r * n2 + nb + c] = 0.0;
             Pn[(nb + r) * n2 + c] = dg_[bsz + k];
             Pn[(nb + r) * n2 + nb + c] = sp_[bsz + k];
         }
     }
-    set_identity(Qa, n2);
+    for (int k = tid; k < m0 * m0; k += blockDim.x) Q[k] = (k / m0 == k % m0) ? 1.0 : 0.0;
+    if (tid == 0) *pub = 0;
+    if (!GLOBAL && is_t && Nb > 2) ring_in(2);
     __syncthreads();
 
-    double* Q = Qa;
-    double* Qn = Qb;
-    for (int i = 0; i < Nb - 1; ++i) {
-        householder_qr(A, Q, n2, nb, beta);
-        pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,
-                       pins + gb / nb + (long long)i * nb, sigma + gb / nb + (long long)i * nb);
-        // T = Q^T Pn (Pn's upper right block is zero)
-        for (int o = tid; o < m2; o += blockDim.x) {
-            const int r = o / n2, c = o % n2;
-            double acc = 0.0;
-            for (int k = (c < nb ? 0 : nb); k < n2; ++k) acc += Q[r * n2 + k] * Pn[k * n2 + c];
-            T[o] = acc;
-        }
-        __syncthreads();
-        // Write the step's factors out; move the carry; load the next blocks
-        for (int k = tid; k < m2; k += blockDim.x) Qt[gq + (long long)i * m2 + k] = Q[k];
-        if (Qt32) for (int k = tid; k < m2; k += blockDim.x) Qt32[gq + (long long)i * m2 + k] = (float)Q[k];
-        const long long ob = gb + (long long)i * bsz;
-        put_block(Rinv + ob, Ri, bsz);
-        if (Rinv32) put_block(Rinv32 + ob, Ri, bsz);
-        const bool more = i + 2 < Nb;
-        for (int k = tid; k < bsz; k += blockDim.x) {
-            const int r = k / nb, c = k % nb;
-            const double r1 = T[r * n2 + c], r2 = T[r * n2 + nb + c];
-            R1[ob + k] = r1;
-            R2[ob + k] = r2;
-            if (R132) { R132[ob + k] = (float)r1; R232[ob + k] = (float)r2; }
-            A[k] = T[(nb + r) * n2 + c];                   // C_{i+1}
-            Pn[r * n2 + c] = T[(nb + r) * n2 + nb + c];    // S_{i+1}
-            if (more) {
-                const long long nx = (long long)(i + 2) * bsz + k;
-                A[bsz + k] = sb_[nx];
-                Pn[(nb + r) * n2 + c] = dg_[nx];
-                Pn[(nb + r) * n2 + nb + c] = sp_[nx];
+    for (int i = 0; i < Nb; ++i) {
+        const bool last = i == Nb - 1;
+        const int m = last ? nb : n2;
+        const int pbase = i * nb;                  // reflectors published before step i
+        K8_STAMP(0, i, 0);
+        if (is_p) {
+            k8_panel(panel(i), tau_of(i), beta_of(i), m, nb, lane, pub, pbase);
+            K8_STAMP(0, i, 1);
+        } else if (is_t) {
+            if (i > 0) {
+                // step i-1's R1, R2 (Pn's top rows); then Pn_i = [[S_i, 0],
+                // [diag_{i+1}, sup_{i+1}]], S_i from the right columns' bottom
+                const long long ob = gb + (long long)(i - 1) * bsz;
+                for (int c = c0; c < n2; c += cs) {
+                    double* Rd = c < nb ? R1 : R2;
+                    float* Rs = c < nb ? R132 : R232;
+                    const int cc = c < nb ? c : c - nb;
+                    for (int r = 0; r < nb; ++r) {
+                        Rd[ob + r * nb + cc] = Pn[r * n2 + c];
+                        if (Rs) Rs[ob + r * nb + cc] = (float)Pn[r * n2 + c];
+                    }
+                }
+                if (!last) {
+                    for (int c = c0; c < nb; c += cs)
+                        for (int r = 0; r < nb; ++r) Pn[r * n2 + c] = Pn[(nb + r) * n2 + nb + c];
+                    asm volatile("bar.sync 1, %0;" ::"r"(32 * nc));
+                    if constexpr (!GLOBAL) __pipeline_wait_prior(0);
+                    for (int c = c0; c < n2; c += cs) {
+                        if (c < nb) {
+                            block_in(Pn + nb * n2 + c, n2, 1, i + 1, c);
+                        } else {
+                            for (int r = 0; r < nb; ++r) Pn[r * n2 + c] = 0.0;
+                            block_in(Pn + nb * n2 + c, n2, 2, i + 1, c - nb);
+                        }
+                    }
+                }
             }
+            if (!last) {
+                // the ring's sub_{i+1} went into this step's panel, its diag
+                // and sup into Pn_i: block i+2 next
+                if (!GLOBAL && i > 0 && i + 2 < Nb) ring_in(i + 2);
+                k8_apply(panel(i), tau_of(i), nb, Pn, n2, n2, n2, c0, cs, pub, pbase);
+                // the next panel: [C_{i+1} ; sub_{i+2}] (C_{Nb-1} alone)
+                if constexpr (!GLOBAL) __pipeline_wait_prior(0);
+                double* An = panel(i + 1);
+                for (int c = c0; c < nb; c += cs) {
+                    for (int r = 0; r < nb; ++r) An[r * nb + c] = Pn[(nb + r) * n2 + c];
+                    if (i + 2 < Nb) block_in(An + nb * nb + c, nb, 0, i + 2, c);
+                }
+            }
+            if (cw == 0) K8_STAMP_WARP(0, i, 3);
+        } else if (is_q) {
+            if (i > 0) {
+                // step i-1's Q^T out, then the identity for step i (m x m)
+                const long long oq = gq + (long long)(i - 1) * m2;
+                for (int c = c0; c < n2; c += cs)
+                    for (int r = 0; r < n2; ++r) {
+                        Qt[oq + r * n2 + c] = Q[r * n2 + c];
+                        if (Qt32) Qt32[oq + r * n2 + c] = (float)Q[r * n2 + c];
+                    }
+                asm volatile("bar.sync 2, %0;" ::"r"(32 * nc));
+                for (int c = c0; c < m; c += cs)
+                    for (int r = 0; r < m; ++r) Q[r * m + c] = (r == c) ? 1.0 : 0.0;
+            }
+            k8_apply(panel(i), tau_of(i), nb, Q, m, m, m, c0, cs, pub, pbase);
+            if (cw == 0) K8_STAMP_WARP(0, i, 4);
+        } else if (is_r) {
+            if (i > 0)
+                k8_pin_invert(panel(i - 1), beta_of(i - 1), dg, Ri, nb, pin_tol, runmax, lane,
+                              Rinv, Rinv32, pins, sigma, gb + (long long)(i - 1) * bsz,
+                              gb / nb + (long long)(i - 1) * nb);
+            K8_STAMP_WARP(0, i, 5);
         }
-        if (more) set_identity(Qn, n2); else set_identity(Qn, nb);
-        double* t = Q; Q = Qn; Qn = t;
         __syncthreads();
+        K8_STAMP(0, i, 2);
     }
-    if (Nb == 1) { set_identity(Q, nb); __syncthreads(); }
-    // Last block: QR of C alone, complete nb x nb Q^T
-    householder_qr(A, Q, nb, nb, beta);
-    pin_and_invert<GLOBAL>(A, beta, dg, Ri, nb, pin_tol, runmax,
-                   pins + gb / nb + (long long)(Nb - 1) * nb,
-                   sigma + gb / nb + (long long)(Nb - 1) * nb);
-    __syncthreads();
-    put_block(QtL + g * bsz, Q, bsz);
-    if (QtL32) put_block(QtL32 + g * bsz, Q, bsz);
+    // ---- the last block's QtL, pins and R^-1; R1, R2 of the last block 0
     const long long ob = gb + (long long)(Nb - 1) * bsz;
-    put_block(Rinv + ob, Ri, bsz);
-    if (Rinv32) put_block(Rinv32 + ob, Ri, bsz);
-    for (int k = tid; k < bsz; k += blockDim.x) {
-        R1[ob + k] = 0.0;
-        R2[ob + k] = 0.0;
-        if (R132) { R132[ob + k] = 0.f; R232[ob + k] = 0.f; }
+    if (is_q) {
+        for (int c = c0; c < nb; c += cs)
+            for (int r = 0; r < nb; ++r) {
+                QtL[g * bsz + r * nb + c] = Q[r * nb + c];
+                if (QtL32) QtL32[g * bsz + r * nb + c] = (float)Q[r * nb + c];
+            }
+    } else if (is_r) {
+        k8_pin_invert(panel(Nb - 1), beta_of(Nb - 1), dg, Ri, nb, pin_tol, runmax, lane, Rinv,
+                      Rinv32, pins, sigma, ob, gb / nb + (long long)(Nb - 1) * nb);
+    } else if (is_t) {
+        for (int k = tid - 32; k < bsz; k += 32 * nc) {
+            R1[ob + k] = 0.0;
+            R2[ob + k] = 0.0;
+            if (R132) { R132[ob + k] = 0.f; R232[ob + k] = 0.f; }
+        }
     }
 }
 
 // `ws` (G x k8_step_doubles(nb) doubles, or null) selects the general path
-// (ops/banded.py k8_plan); without it the step lives in shared memory, which
-// holds nb <= 39.
+// (ops/banded.py k8_plan); without it a group's arrays live in shared
+// memory, which holds nb <= 39.
 extern "C" int k8_block_tridiag_qr_factor_f64(
         const double* diag, const double* sub, const double* sup,
         double* Qt, double* QtL, double* Rinv, double* R1, double* R2,
         unsigned char* pins, double* sigma,
         float* Qt32, float* QtL32, float* Rinv32, float* R132, float* R232,
         double* ws, int G, int Nb, int nb, double pin_tol, void* stream) {
+    if (G < 1 || Nb < 1 || nb < 1) return (int)cudaErrorInvalidValue;
+    const int threads = k8_threads(nb);
     if (ws) {
-        block_tridiag_qr_factor_kernel<true><<<G, K8_THREADS, 0, (cudaStream_t)stream>>>(
+        block_tridiag_qr_factor_kernel<true><<<G, threads, 0, (cudaStream_t)stream>>>(
             diag, sub, sup, Qt, QtL, Rinv, R1, R2, pins, sigma, Qt32, QtL32, Rinv32, R132,
             R232, ws, Nb, nb, pin_tol);
         return (int)cudaGetLastError();
     }
     const size_t smem = (size_t)k8_step_doubles(nb) * sizeof(double);
-    // one inverting thread per column, 64 kept for them
-    if (nb > 64 || smem > K5_SMEM) return (int)cudaErrorInvalidValue;
+    if (smem > K5_SMEM) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         cudaError_t err = cudaFuncSetAttribute(block_tridiag_qr_factor_kernel<false>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
         if (err != cudaSuccess) return (int)err;
     }
-    block_tridiag_qr_factor_kernel<false><<<G, K8_THREADS, smem, (cudaStream_t)stream>>>(
+    block_tridiag_qr_factor_kernel<false><<<G, threads, smem, (cudaStream_t)stream>>>(
         diag, sub, sup, Qt, QtL, Rinv, R1, R2, pins, sigma, Qt32, QtL32, Rinv32, R132, R232,
         nullptr, Nb, nb, pin_tol);
     return (int)cudaGetLastError();
@@ -1462,199 +1665,297 @@ extern "C" int k8_block_tridiag_qr_factor_f64(
 // K8b: the K5 sweeps in f64 with k right-hand-side columns per block,
 // Rhs (G, Nb, nb, k) -> X (G, Nb, nb, k) (the Woodbury columns W1 = A^{-1} U).
 //
-// One thread block per group and chunk of kc columns (grid (G, chunks)), one
-// thread per entry of the (2nb, kc) product of a step; the carry and the two
-// last solution blocks stay in shared memory. STAGED copies the next factor
-// block in with cp.async while the current one is applied; all kc columns
-// share one read of the f64 factors (4.5 GB for a 256-group chunk at RBC
-// 2048x2048), where k launches of the single-column sweeps would read them
-// k times. X first holds y (the forward sweep's output), which the backward
-// sweep overwrites block by block.
+// What bounds it on the card: reading the f64 factors once (6.2 GB a
+// 256-group chunk at RBC 2048x2048 with the right-hand side and solution:
+// 1.85 ms at 3.35 TB/s); all k columns share that read. The earlier design took
+// 10.2 ms there, 22,500 cycles a forward and backward step (clock64 probes,
+// chip_smoke.k8_reading, NVIDIA H100 80GB HBM3 at 700 W): one thread an
+// entry of each product, each a serial 38-long (forward: 44% of the time)
+// or 19-long (backward: 27% and 13%) sum through shared memory, the factor
+// blocks double-buffered one step ahead (their waits 14%), three barriers
+// a backward step.
 //
-// The chunks and STAGED are ops/banded.py k8b_plan's: the staged factor
-// blocks (8 nb^2 doubles) and 4 nb kc vector doubles in 227 KB of shared
-// memory (RBC, nb 19 and k 26: one chunk); past nb = 60 the factor blocks
-// alone pass it, and the general form reads them from device memory (L1
-// and L2), as K5's direct path does, with 4 nb kc doubles in shared memory.
-// Each column's sums are the same in every form (in j order), so a chunked
-// or unstaged launch equals the one-chunk staged launch bit for bit.
+// The design: each step's products run on the f64 tensor cores
+// (mma.sync m16n8k4, k8b_product): a warp owns 8 of the chunk's kc columns
+// and all rows, so the carry, the solution blocks and t stay in the warp's
+// own columns and need only __syncwarp; the factor blocks (forward: Qt_i
+// and the next right-hand-side block; backward: R1_i, R2_i, Rinv_i) arrive
+// through a ring of `slots` slots issued slots - 1 steps ahead by cp.async
+// (k8b_plan), one block barrier a step (the slot that step read is then
+// free for the next fill). Forward step i: [y_i ; carry] = Qt_i [carry ;
+// rhs_{i+1}] (K = 2nb); backward: t = y_i - [R1_i R2_i] [x_{i+1} ; x_{i+2}]
+// (K = 2nb), x_i = Rinv_i t (K = nb). X first holds y, which the backward
+// sweep overwrites block by block (y read back by plain loads: the ring
+// runs ahead of the forward sweep's last stores).
+//
+// Measured (the same probes): 7.67 ms at (256, 863, 19, 26), 16,500
+// cycles a forward and backward step: the forward product 32% (30 tensor-
+// core steps a warp), the backward t 34% and x 11%, the waits and barriers
+// 21%; the dependent tile steps and their fragment loads hold it, not bytes
+// (4.1 times the bound).
+//
+// The chunks, the slots and STAGED are ops/banded.py k8b_plan's: `slots`
+// slots of 4 nb^2 + nb kc doubles and 4 nb kc vector doubles in 227 KB of
+// shared memory (nb <= 59 staged); past that the factor blocks are read from
+// device memory (L1 and L2) and only the vectors are in shared memory. Each
+// column's sums run over K in the same order of 4-deep tensor-core steps in
+// every form, so a chunked or unstaged launch equals the one-chunk staged
+// launch bit for bit.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int n) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
+// K8_LOOP 1 0,1,2: forward: wait for the step's slot, the barrier, the next fill | forward: Qt_i [carry ; rhs] on the tensor cores | loop
+// K8_LOOP 1 3,4,5,6: backward: wait for the step's slot, the barrier, the next fill | backward: t = y - [R1 R2] [x1 ; x2] | backward: x = Rinv t | loop
+
+constexpr int K8B_MAX_WARPS = 16;    // kc <= 128 columns, 8 a warp
+constexpr int K8B_SLOTS = 4;         // the ring's most slots (k8b_wait)
+
+// Doubles of one ring slot and of a K8b block's shared memory (k8b_plan's)
+__host__ __device__ __forceinline__ long long k8b_slot_doubles(int nb, int kc) {
+    return 4LL * nb * nb + (long long)nb * kc;
 }
 
-template <typename T>
-__device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ src, int n) {
-    for (int k = threadIdx.x; k < n; k += blockDim.x)
-        __pipeline_memcpy_async(dst + k, src + k, sizeof(T));
+__host__ __device__ __forceinline__ long long k8b_doubles(int nb, int kc, int slots) {
+    return slots * k8b_slot_doubles(nb, kc) + 4LL * nb * kc;
 }
 
-// Shared doubles of one K8b block (k8b_plan's smem / 8)
-__host__ __device__ __forceinline__ long long k8b_doubles(int nb, int kc, bool staged) {
-    return (staged ? 8LL * nb * nb : 0LL) + 4LL * nb * kc;
+// A warp's product D = A B over its 8 columns: A (rows x K) by loadA(r, k),
+// B (K x 8) by loadB(k, c), both 0 outside; m16n8k4 tiles, four row tiles
+// at a time, K in steps of 4 in order. out(r, c, d, pre) for each entry,
+// with pre(r, c) read before the tiles' products.
+template <typename LA, typename LB, typename PRE, typename OUT>
+__device__ __forceinline__ void k8b_product(int rows, int K, int lane, LA loadA, LB loadB,
+                                            PRE pre, OUT out) {
+    const int fr = lane >> 2, fq = lane & 3;
+    for (int t0 = 0; t0 < rows; t0 += 64) {
+        double acc[4][4], p[4][4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const int r = t0 + 16 * t + fr;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[t][e] = 0.0;
+            p[t][0] = pre(r, 2 * fq);
+            p[t][1] = pre(r, 2 * fq + 1);
+            p[t][2] = pre(r + 8, 2 * fq);
+            p[t][3] = pre(r + 8, 2 * fq + 1);
+        }
+        for (int kk = 0; kk < K; kk += 4) {
+            const double b = loadB(kk + fq, fr);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+                if (t0 + 16 * t >= rows) break;
+                const int r = t0 + 16 * t + fr;
+                dmma(acc[t][0], acc[t][1], acc[t][2], acc[t][3], loadA(r, kk + fq),
+                     loadA(r + 8, kk + fq), b);
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+            const int r = t0 + 16 * t + fr;
+            out(r, 2 * fq, acc[t][0], p[t][0]);
+            out(r, 2 * fq + 1, acc[t][1], p[t][1]);
+            out(r + 8, 2 * fq, acc[t][2], p[t][2]);
+            out(r + 8, 2 * fq + 1, acc[t][3], p[t][3]);
+        }
+    }
+}
+
+// cp.async.wait_group n for a run-time n < K8B_SLOTS (the ring's slots - 2)
+__device__ __forceinline__ void k8b_wait(int n) {
+    switch (n) {
+        case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+        case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+        default: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    }
 }
 
 template <bool STAGED>
-__global__ void __launch_bounds__(K8_THREADS)
+__global__ void __launch_bounds__(32 * K8B_MAX_WARPS)
 multi_rhs_solve_kernel(
         const double* __restrict__ Qt, const double* __restrict__ QtL,
         const double* __restrict__ Rinv, const double* __restrict__ R1,
         const double* __restrict__ R2, const double* __restrict__ Rhs,
-        double* __restrict__ X, int Nb, int nb, int k, int kc) {
+        double* __restrict__ X, int Nb, int nb, int k, int kc, int slots) {
     extern __shared__ __align__(16) double k8b[];
     const int n2 = 2 * nb;
     const int m2 = n2 * n2;
     const long long bsz = (long long)nb * nb;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int c0 = blockIdx.y * kc;
-    const int w = min(kc, k - c0);           // this chunk's columns
-    const int vk = nb * w;                    // one block of right-hand sides
-    const long long ld = (long long)nb * k;   // ... in Rhs and X
-    double* const buf0 = k8b;
-    double* const buf1 = buf0 + (STAGED ? m2 : 0);
-    double* va = buf1 + (STAGED ? m2 : 0);    // (2nb, w): [carry ; rhs_{i+1}]
-    double* vb = va + 2 * vk;
-    const int tid = threadIdx.x;
+    const int w = min(kc, k - c0);            // this chunk's columns
+    const int cw = 8 * warp;                  // the warp's first column in the chunk
     const long long g = blockIdx.x;
-    const double* rg = Rhs + g * Nb * ld + c0;
-    double* xg = X + g * Nb * ld + c0;
+    const long long slot = k8b_slot_doubles(nb, kc);
+    double* const vec = k8b + (STAGED ? slots * slot : 0);
+    double* ca = vec;                         // forward carry (nb x kc)
+    double* cb = vec + nb * kc;
     const double* Qtg = Qt + g * (long long)(Nb - 1) * m2;
-    // entry o = r * w + c of a block of this chunk, in Rhs and X
-    auto at = [&](int o) { return (long long)(o / w) * k + o % w; };
-    auto load_rhs = [&](double* dst, int i) {
-        for (int o = tid; o < vk; o += blockDim.x) dst[o] = rg[i * ld + at(o)];
-    };
-
-    // ---- forward sweep
-    if (STAGED && Nb > 1) {
-        stage_async(buf0, Qtg, m2);
-        __pipeline_commit();
-    }
-    load_rhs(va, 0);
-    for (int i = 0; i < Nb - 1; ++i) {
-        const double* cur = Qtg + (long long)i * m2;
-        if (STAGED) {
-            cur = (i & 1) ? buf1 : buf0;
-            if (i + 1 < Nb - 1) {
-                stage_async((i & 1) ? buf0 : buf1, Qtg + (long long)(i + 1) * m2, m2);
-                __pipeline_commit();
-                __pipeline_wait_prior(1);
-            } else {
-                __pipeline_wait_prior(0);
-            }
-        }
-        load_rhs(va + vk, i + 1);
-        __syncthreads();
-        for (int o = tid; o < 2 * vk; o += blockDim.x) {
-            const int r = o / w, c = o % w;
-            double acc = 0.0;
-            for (int j = 0; j < n2; ++j) acc += cur[r * n2 + j] * va[j * w + c];
-            if (r < nb) xg[i * ld + at(o)] = acc;
-            else vb[o - vk] = acc;
-        }
-        double* t = va; va = vb; vb = t;
-        __syncthreads();
-    }
-    // last block: y_{Nb-1} = QtL carry
-    const double* qtl = QtL + g * bsz;
-    if (STAGED) {
-        stage(buf0, qtl, nb * nb);
-        qtl = buf0;
-    }
-    __syncthreads();
-    for (int o = tid; o < vk; o += blockDim.x) {
-        const int r = o / w, c = o % w;
-        double acc = 0.0;
-        for (int j = 0; j < nb; ++j) acc += qtl[r * nb + j] * va[j * w + c];
-        xg[(Nb - 1) * ld + at(o)] = acc;
-    }
-    __syncthreads();
-
-    // ---- backward sweep: x_i = Rinv_i (y_i - R1_i x_{i+1} - R2_i x_{i+2})
     const double* Rinvg = Rinv + g * Nb * bsz;
     const double* R1g = R1 + g * Nb * bsz;
     const double* R2g = R2 + g * Nb * bsz;
-    double* const bb0 = buf0;
-    double* const bb1 = buf0 + 3 * bsz;
-    double* ws = buf1 + (STAGED ? m2 : 0);    // the four (nb, w) blocks of va, vb
-    double* t = ws;
-    double* xa = ws + vk;                     // x_{i+1}
-    double* xb = ws + 2 * vk;                 // x_{i+2}
-    double* xn = ws + 3 * vk;
-    for (int o = tid; o < vk; o += blockDim.x) { xa[o] = 0.0; xb[o] = 0.0; }
-    auto fetch = [&](double* dst, int i) {
-        stage_async(dst, R1g + i * bsz, nb * nb);
-        stage_async(dst + bsz, R2g + i * bsz, nb * nb);
-        stage_async(dst + 2 * bsz, Rinvg + i * bsz, nb * nb);
+    // entry (r, c) of block i of this chunk in Rhs and X
+    auto at = [&](int i, int r, int c) {
+        return ((g * Nb + i) * nb + r) * (long long)k + c0 + c;
+    };
+    const int nsteps = 2 * Nb;                // Nb - 1 forward, the last, Nb backward
+    // step s's blocks into slot s % slots: forward Qt_s and rhs_{s+1}; the
+    // last forward step QtL; backward (block i = 2 Nb - 1 - s) R1_i, R2_i, Rinv_i
+    auto fill = [&](int s) {
+        if (s < nsteps) {
+            double* d = k8b + (s % slots) * slot;
+            auto copy = [&](double* dst, const double* src, long long n) {
+                for (long long e = tid; e < n; e += blockDim.x)
+                    __pipeline_memcpy_async(dst + e, src + e, 8);
+            };
+            if (s < Nb - 1) {
+                copy(d, Qtg + (long long)s * m2, m2);
+                for (int e = tid; e < nb * w; e += blockDim.x)
+                    __pipeline_memcpy_async(d + m2 + (e / w) * kc + e % w,
+                                            Rhs + at(s + 1, e / w, e % w), 8);
+            } else if (s == Nb - 1) {
+                copy(d, QtL + g * bsz, bsz);
+            } else {
+                const int i = nsteps - 1 - s;
+                copy(d, R1g + i * bsz, bsz);
+                copy(d + bsz, R2g + i * bsz, bsz);
+                copy(d + 2 * bsz, Rinvg + i * bsz, bsz);
+            }
+        }
         __pipeline_commit();
     };
-    if (STAGED) fetch(bb0, Nb - 1);
-    for (int i = Nb - 1, s = 0; i >= 0; --i, ++s) {
-        const double *c1 = R1g + i * bsz, *c2 = R2g + i * bsz, *ci = Rinvg + i * bsz;
-        if (STAGED) {
-            c1 = (s & 1) ? bb1 : bb0;
-            c2 = c1 + bsz;
-            ci = c1 + 2 * bsz;
-            if (i > 0) {
-                fetch((s & 1) ? bb0 : bb1, i - 1);
-                __pipeline_wait_prior(1);
-            } else {
-                __pipeline_wait_prior(0);
-            }
-        }
+    // the step's slot (staged) and its wait; the barrier frees the slot the
+    // last step read
+    auto begin = [&](int s) -> const double* {
+        if (!STAGED) return nullptr;
+        k8b_wait(slots - 2);
         __syncthreads();
-        for (int o = tid; o < vk; o += blockDim.x) {
-            const int r = o / w, c = o % w;
-            double s1 = 0.0, s2 = 0.0;
-            for (int j = 0; j < nb; ++j) {
-                s1 += c1[r * nb + j] * xa[j * w + c];
-                s2 += c2[r * nb + j] * xb[j * w + c];
-            }
-            t[o] = (xg[i * ld + at(o)] - s1) - s2;
-        }
-        __syncthreads();
-        for (int o = tid; o < vk; o += blockDim.x) {
-            const int r = o / w, c = o % w;
-            double acc = 0.0;
-            for (int j = 0; j < nb; ++j) acc += ci[r * nb + j] * t[j * w + c];
-            xn[o] = acc;
-            xg[i * ld + at(o)] = acc;
-        }
-        double* u = xb; xb = xa; xa = xn; xn = u;
-        __syncthreads();      // the staged blocks are free for the next step's copy
+        fill(s + slots - 1);
+        return k8b + (s % slots) * slot;
+    };
+    auto colok = [&](int c) { return cw + c < w; };
+
+    if (STAGED)
+        for (int s = 0; s < slots - 1; ++s) fill(s);
+    // ---- forward sweep: the carry starts as rhs_0
+    for (int r = 0; r < nb; ++r)
+        for (int c = lane; c < 8; c += 32)
+            if (colok(c)) ca[r * kc + cw + c] = Rhs[at(0, r, cw + c)];
+    // (the lanes below 8 load the columns; the others wait at the syncwarp)
+    __syncwarp();
+    for (int i = 0; i < Nb - 1; ++i) {
+        K8_STAMP(1, i, 0);
+        const double* sl = begin(i);
+        K8_STAMP(1, i, 1);
+        const double* A = STAGED ? sl : Qtg + (long long)i * m2;
+        k8b_product(
+            n2, n2, lane,
+            [&](int r, int kk) { return r < n2 && kk < n2 ? A[r * n2 + kk] : 0.0; },
+            [&](int kk, int c) {
+                if (!colok(c) || kk >= n2) return 0.0;
+                if (kk < nb) return ca[kk * kc + cw + c];
+                return STAGED ? sl[m2 + (kk - nb) * kc + cw + c]
+                              : Rhs[at(i + 1, kk - nb, cw + c)];
+            },
+            [&](int, int) { return 0.0; },
+            [&](int r, int c, double d, double) {
+                if (r >= n2 || !colok(c)) return;
+                if (r < nb) X[at(i, r, cw + c)] = d;
+                else cb[(r - nb) * kc + cw + c] = d;
+            });
+        __syncwarp();
+        double* t = ca; ca = cb; cb = t;
+        K8_STAMP(1, i, 2);
+    }
+    {
+        // y_{Nb-1} = QtL carry
+        const double* sl = begin(Nb - 1);
+        const double* A = STAGED ? sl : QtL + g * bsz;
+        k8b_product(
+            nb, nb, lane,
+            [&](int r, int kk) { return r < nb && kk < nb ? A[r * nb + kk] : 0.0; },
+            [&](int kk, int c) { return colok(c) && kk < nb ? ca[kk * kc + cw + c] : 0.0; },
+            [&](int, int) { return 0.0; },
+            [&](int r, int c, double d, double) {
+                if (r < nb && colok(c)) X[at(Nb - 1, r, cw + c)] = d;
+            });
+        __syncwarp();
+    }
+
+    // ---- backward sweep: x_i = Rinv_i (y_i - R1_i x_{i+1} - R2_i x_{i+2})
+    double* x1 = vec;                         // x_{i+1}
+    double* x2 = vec + nb * kc;               // x_{i+2}
+    double* tb = vec + 2 * nb * kc;           // t
+    double* xn = vec + 3 * nb * kc;           // x_i
+    for (int e = lane; e < nb * 8; e += 32) {
+        const int r = e / 8, c = e % 8;
+        if (!colok(c)) continue;
+        x1[r * kc + cw + c] = 0.0;
+        x2[r * kc + cw + c] = 0.0;
+    }
+    __syncwarp();
+    for (int i = Nb - 1, s = Nb; i >= 0; --i, ++s) {
+        K8_STAMP(1, s - Nb, 3);
+        const double* sl = begin(s);
+        K8_STAMP(1, s - Nb, 4);
+        const double* c1 = STAGED ? sl : R1g + i * bsz;
+        const double* c2 = STAGED ? sl + bsz : R2g + i * bsz;
+        const double* ci = STAGED ? sl + 2 * bsz : Rinvg + i * bsz;
+        k8b_product(
+            nb, n2, lane,
+            [&](int r, int kk) {
+                if (r >= nb || kk >= n2) return 0.0;
+                return kk < nb ? c1[r * nb + kk] : c2[r * nb + kk - nb];
+            },
+            [&](int kk, int c) {
+                if (!colok(c) || kk >= n2) return 0.0;
+                return kk < nb ? x1[kk * kc + cw + c] : x2[(kk - nb) * kc + cw + c];
+            },
+            [&](int r, int c) {
+                return r < nb && colok(c) ? X[at(i, r, cw + c)] : 0.0;
+            },
+            [&](int r, int c, double d, double y) {
+                if (r < nb && colok(c)) tb[r * kc + cw + c] = y - d;
+            });
+        __syncwarp();
+        K8_STAMP(1, s - Nb, 5);
+        k8b_product(
+            nb, nb, lane,
+            [&](int r, int kk) { return r < nb && kk < nb ? ci[r * nb + kk] : 0.0; },
+            [&](int kk, int c) { return colok(c) && kk < nb ? tb[kk * kc + cw + c] : 0.0; },
+            [&](int, int) { return 0.0; },
+            [&](int r, int c, double d, double) {
+                if (r >= nb || !colok(c)) return;
+                xn[r * kc + cw + c] = d;
+                X[at(i, r, cw + c)] = d;
+            });
+        __syncwarp();
+        double* u = x2; x2 = x1; x1 = xn; xn = u;
+        K8_STAMP(1, s - Nb, 6);
     }
 }
 
-// The plan's (kc, staged) must be what fits: its shared bytes at most K5_SMEM.
+// The plan's (kc, slots) must be what fits: its shared bytes at most K5_SMEM;
+// `slots` 0 reads the factor blocks from device memory
 extern "C" int k8_multi_rhs_solve_f64(
         const double* Qt, const double* QtL, const double* Rinv, const double* R1,
         const double* R2, const double* Rhs, double* X, int G, int Nb, int nb, int k,
-        int kc, int staged, void* stream) {
-    if (kc < 1 || G < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)k8b_doubles(nb, kc, staged) * sizeof(double);
+        int kc, int slots, void* stream) {
+    if (kc < 1 || G < 1 || kc > 8 * K8B_MAX_WARPS || slots == 1 || slots > K8B_SLOTS)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)k8b_doubles(nb, kc, slots) * sizeof(double);
     if (smem > K5_SMEM) return (int)cudaErrorInvalidValue;
     const dim3 grid(G, k > kc ? (k + kc - 1) / kc : 1);
-    if (staged) {
+    const int threads = 32 * ((kc + 7) / 8);
+    auto launch = [&](auto kernel) {
         if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(multi_rhs_solve_kernel<true>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   (int)smem);
+            cudaError_t err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
             if (err != cudaSuccess) return (int)err;
         }
-        multi_rhs_solve_kernel<true><<<grid, K8_THREADS, smem, (cudaStream_t)stream>>>(
-            Qt, QtL, Rinv, R1, R2, Rhs, X, Nb, nb, k, kc);
-    } else {
-        if (smem > 48 * 1024) {
-            cudaError_t err = cudaFuncSetAttribute(multi_rhs_solve_kernel<false>,
-                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                   (int)smem);
-            if (err != cudaSuccess) return (int)err;
-        }
-        multi_rhs_solve_kernel<false><<<grid, K8_THREADS, smem, (cudaStream_t)stream>>>(
-            Qt, QtL, Rinv, R1, R2, Rhs, X, Nb, nb, k, kc);
-    }
-    return (int)cudaGetLastError();
+        kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(Qt, QtL, Rinv, R1, R2, Rhs, X,
+                                                             Nb, nb, k, kc, slots);
+        return (int)cudaGetLastError();
+    };
+    return slots ? launch(multi_rhs_solve_kernel<true>) : launch(multi_rhs_solve_kernel<false>);
 }
 
 // ---------------------------------------------------------------------------

@@ -308,26 +308,20 @@ def _check_f64(name, what, t, shape, device):
                          f"{tuple(shape)} on {device}")
 
 
-# K8a's shared path: a step's arrays in shared memory, one inverting thread a
-# column among the block's last K8_INVERT_THREADS (csrc/banded_kernels.cu)
-K8_INVERT_THREADS = 64
-
-
 def k8_step_doubles(nb):
-    """Doubles of one K8a step (A, Q twice, Pn, T, Ri, beta, dg), as the
-    kernel's k8_step_doubles."""
-    return 19 * nb * nb + 2 * nb
+    """Doubles of one group's K8a arrays (3 panel slots with tau and beta,
+    Pn, Q, Ri, dg, the input ring), as the kernel's k8_step_doubles."""
+    return 18 * nb * nb + 7 * nb
 
 
 def k8_plan(nb, general=None):
-    """K8a's path for blocks of nb rows: the shared path (a step in shared
-    memory: nb <= 39) or, past it, the general path (the step in a
-    device-memory workspace of k8_step_doubles(nb) doubles a group, R^-1 by
-    columns looped over the block's threads: any nb). `general` forces a
-    path, as the smoke does to hold the two against each other at RBC's
-    nb."""
+    """K8a's path for blocks of nb rows: the shared path (a group's arrays
+    in shared memory: nb <= 39) or, past it, the general path (the same
+    arrays in a device-memory workspace of k8_step_doubles(nb) doubles a
+    group: any nb). `general` forces a path, as the smoke does to hold the
+    two against each other at RBC's nb."""
     if general is None:
-        general = nb > K8_INVERT_THREADS or k8_step_doubles(nb) * 8 > K5_SMEM
+        general = k8_step_doubles(nb) * 8 > K5_SMEM
     return dict(general=bool(general), smem=0 if general else k8_step_doubles(nb) * 8,
                 workspace=k8_step_doubles(nb) if general else 0)
 
@@ -343,10 +337,11 @@ def factor_block_tridiag_qr(diag, sub, sup, pin_tol=1e-8, out32=None, plan=None)
     Replaces dedalus_tpu/ops/banded.py:364 _factor_device (and its host form
     :286 _factor_host). CPU tensors run the plain twin; CUDA tensors launch
     csrc/banded_kernels.cu block_tridiag_qr_factor_kernel: one thread block
-    per group walks the blocks in order with the carry, the panel and Q^T in
-    shared memory (past nb = 39 in a device-memory workspace: the general
-    path, counted apart), Householder reflectors in LAPACK's sign
-    convention.
+    per group walks the blocks in order, one warp factoring each step's
+    panel (Householder reflectors in LAPACK's sign convention) while the
+    others apply its reflectors to the trailing panel and the identity and
+    invert the last step's R (in shared memory; past nb = 39 in a
+    device-memory workspace: the general path, counted apart).
     """
     if diag.device.type == 'cpu':
         qr = factor_block_tridiag_qr_plain(diag, sub, sup, pin_tol)
@@ -413,27 +408,36 @@ def multi_rhs_solve_plain(qr, Rhs):
     return x
 
 
+# K8b's ring depth and widest chunk (csrc/banded_kernels.cu: a warp owns 8
+# columns, K8B_MAX_WARPS warps a block)
+K8B_SLOTS = 4
+K8B_MAX_COLS = 128
+
+
 def k8b_plan(nb, k, staged=None, kc=None):
     """K8b's launch for blocks of nb rows and k columns: `staged` factor
-    blocks (8 nb^2 doubles in shared memory, double-buffered by cp.async,
-    where they and one column's 4 nb vector doubles fit K5_SMEM: nb <= 60)
-    or read from device memory; the columns in `chunks` of `kc` (the most
-    whose vectors fit beside them), one block a (group, chunk). `general`:
-    the form past the one-chunk staged launch, counted apart. Past nb = 7264
-    not one column fits: raises, naming nb. `staged` and `kc` force a form,
-    as the smoke does to hold it against the one-chunk launch."""
+    blocks (a ring of `slots` slots of 4 nb^2 + nb kc doubles in shared
+    memory, filled by cp.async slots - 1 steps ahead, beside 4 nb kc vector
+    doubles, where two slots fit K5_SMEM: nb <= 59) or read from device
+    memory; the columns in `chunks` of `kc` (the most whose vectors and two
+    slots fit, at most K8B_MAX_COLS), one block a (group, chunk), 8 columns
+    a warp; up to K8B_SLOTS slots as fit. `general`: the form past the
+    one-chunk staged launch, counted apart. Past nb = 7264 not one column
+    fits: raises, naming nb. `staged` and `kc` force a form, as the smoke
+    does to hold it against the one-chunk launch."""
     per = K5_SMEM // 8
     if staged is None:
-        staged = 8 * nb * nb + 4 * nb <= per
-    fit = (per - (8 * nb * nb if staged else 0)) // (4 * nb)
+        staged = 2 * (4 * nb * nb + nb) + 4 * nb <= per
+    fit = (per - 8 * nb * nb) // (6 * nb) if staged else per // (4 * nb)
     if fit < 1:
         raise ValueError(f"K8b: blocks of nb={nb} rows need {32 * nb} bytes of shared memory "
                          f"a Woodbury column{' beside the staged factors' if staged else ''}, "
                          f"over {K5_SMEM}")
-    kc = min(max(k, 1), fit) if kc is None else kc
+    kc = min(max(k, 1), fit, K8B_MAX_COLS) if kc is None else kc
+    slots = min(K8B_SLOTS, (per - 4 * nb * kc) // (4 * nb * nb + nb * kc)) if staged else 0
     chunks = max(1, -(-k // kc))
-    return dict(staged=bool(staged), kc=kc, chunks=chunks,
-                smem=((8 * nb * nb if staged else 0) + 4 * nb * kc) * 8,
+    return dict(staged=bool(staged), kc=kc, chunks=chunks, slots=slots,
+                smem=(slots * (4 * nb * nb + nb * kc) + 4 * nb * kc) * 8,
                 general=not staged or chunks > 1)
 
 
@@ -445,8 +449,9 @@ def multi_rhs_solve(qr, Rhs, plan=None):
 
     Replaces dedalus_tpu/ops/banded.py:454 _multi_rhs_solve_device. CPU
     tensors run the plain twin; CUDA tensors launch csrc/banded_kernels.cu
-    multi_rhs_solve_kernel (one thread block per group and chunk of columns;
-    a chunk's columns share one read of the f64 factors; past one staged
+    multi_rhs_solve_kernel (one thread block per group and chunk of columns,
+    each step's products on the f64 tensor cores; a chunk's columns share
+    one read of the f64 factors, through a ring of slots; past one staged
     chunk the general form, counted apart).
     """
     if Rhs.device.type == 'cpu':
@@ -464,7 +469,7 @@ def multi_rhs_solve(qr, Rhs, plan=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.library().k8_multi_rhs_solve_f64(
         *(qr[key].data_ptr() for key in FACTOR_KEYS), Rhs.data_ptr(), X.data_ptr(),
-        G, Nb, nb, k, plan['kc'], int(plan['staged']), stream), 'multi_rhs_solve')
+        G, Nb, nb, k, plan['kc'], plan['slots'], stream), 'multi_rhs_solve')
     build.count(multi_rhs_solve, 'general' if plan['general'] else None)
     return X
 

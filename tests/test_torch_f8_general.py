@@ -6,12 +6,14 @@ package's _factor_device, _multi_rhs_solve_device and solve on the same
 blocks; the plans' choices at and past the old limits; and the general
 paths' arithmetic emulated at their own indices against the plain twins:
 - K8a (csrc/banded_kernels.cu block_tridiag_qr_factor_kernel<GLOBAL>): a
-  step's arrays in a workspace of k8_step_doubles(nb) a group, LAPACK's
-  Householder conventions (dgeqr2/dlarfg signs, tau = 0 on a zero column),
-  the pins against the running diagonal scale, R^-1 a column at a time;
+  group's arrays in a workspace of k8_step_doubles(nb), the shared path's
+  sums (test_torch_k8_plan.emulate_k8a: LAPACK's Householder conventions,
+  dlarfg signs, tau = 0 on a zero column; the pins against the running
+  diagonal scale, R^-1 a column at a time);
 - K8b (multi_rhs_solve_kernel): the k columns in chunks of kc, a block a
-  (group, chunk), each entry's sums in j order: a chunked launch equals the
-  one-chunk launch bit for bit;
+  (group, chunk), each column's sums in the same tensor-core steps
+  (test_torch_k8_plan.emulate_k8b): a chunked launch equals the one-chunk
+  launch bit for bit;
 - K6 post (banded_solve_post_kernel<SCRATCH>): s, t and the warps' partial
   sums in a scratch of (2 + K6_WARPS) B doubles a group, each warp's
   stretch of the pencil summed by its lanes in four strided partial sums,
@@ -26,6 +28,7 @@ import jax.numpy as jnp
 import dedalus_tpu.ops.banded as jb
 
 import dedalus_tpu_torch.ops.banded as tb
+from test_torch_k8_plan import emulate_k8a, emulate_k8b
 
 torch.set_num_threads(1)
 
@@ -92,25 +95,27 @@ def solvers():
 # --- the plans at and past the old limits ---
 
 def test_k8a_plan_at_and_past_its_shared_path():
-    assert not tb.k8_plan(39)['general'] and tb.k8_plan(39)['smem'] == (19 * 39 ** 2 + 78) * 8
+    assert not tb.k8_plan(39)['general'] and tb.k8_plan(39)['smem'] == (18 * 39 ** 2 + 7 * 39) * 8
     for nb in (40, 64, 65, 96, 300):
         plan = tb.k8_plan(nb)
-        assert plan == dict(general=True, smem=0, workspace=19 * nb * nb + 2 * nb)
+        assert plan['general'] and plan['smem'] == 0
+        assert plan['workspace'] == 18 * nb * nb + 7 * nb
     assert tb.k8_plan(19, general=True)['general']
-    assert tb.k8_step_doubles(NBLK) == 2 * NBLK ** 2 + 4 * 4 * NBLK ** 2 + NBLK ** 2 + 2 * NBLK
+    assert tb.k8_step_doubles(NBLK) == (3 * (2 * NBLK ** 2 + 2 * NBLK) + 2 * 4 * NBLK ** 2
+                                        + NBLK ** 2 + NBLK + 3 * NBLK ** 2)
 
 
 def test_k8b_plan_chunks_and_unstaged_factors():
     per = tb.K5_SMEM // 8
     rbc = tb.k8b_plan(19, 26)
-    assert rbc == dict(staged=True, kc=26, chunks=1, smem=(8 * 361 + 4 * 19 * 26) * 8,
-                       general=False)
+    assert rbc['staged'] and rbc['kc'] == 26 and rbc['chunks'] == 1 and not rbc['general']
+    assert rbc['smem'] == (rbc['slots'] * (4 * 361 + 19 * 26) + 4 * 19 * 26) * 8
     wide = tb.k8b_plan(19, 400)
-    assert wide['staged'] and wide['kc'] == (per - 8 * 361) // 76 and wide['chunks'] == 2
+    assert wide['staged'] and wide['kc'] == tb.K8B_MAX_COLS and wide['chunks'] == 4
     assert wide['general'] and wide['smem'] <= tb.K5_SMEM
-    assert tb.k8b_plan(60, 2)['staged'] and not tb.k8b_plan(61, 2)['staged']
+    assert tb.k8b_plan(59, 2)['staged'] and not tb.k8b_plan(60, 2)['staged']
     f8 = tb.k8b_plan(NBLK, 2 * NBORD)
-    assert f8 == dict(staged=False, kc=per // (4 * NBLK), chunks=5,
+    assert f8 == dict(staged=False, kc=per // (4 * NBLK), chunks=5, slots=0,
                       smem=4 * NBLK * (per // (4 * NBLK)) * 8, general=True)
     assert tb.k8b_plan(7264, 1)['kc'] == 1
     with pytest.raises(ValueError, match='nb=7265'):
@@ -173,85 +178,28 @@ def test_solve_matches_reference_and_dense(solvers):
     assert _rel(got, dense) <= 1e-11
 
 
+def test_solver_factors_in_chunks_of_factor_chunk_g(monkeypatch):
+    """The solver's f64 factorization runs FACTOR_CHUNK_G groups a launch
+    of K8a and K8b (the last chunk shorter); each group's factors and
+    solves are those of one whole launch, bit for bit."""
+    blocks, _ = f8_system(tb, G=5, Nb=3, nb=8, nbord=4, pad=2, seed=32)
+    R = torch.as_tensor(np.random.default_rng(33).standard_normal((5, blocks.Pp - 2)))
+    whole = tb.BorderedBandedSolver(f8_system(tb, G=5, Nb=3, nb=8, nbord=4, pad=2, seed=32)[0],
+                                    'cpu', refinements=2)
+    chunks = []
+    factor = tb.factor_block_tridiag_qr
+    monkeypatch.setattr(tb, 'FACTOR_CHUNK_G', 2)
+    monkeypatch.setattr(tb, 'factor_block_tridiag_qr',
+                        lambda *a, **kw: chunks.append(a[0].shape[0]) or factor(*a, **kw))
+    chunked = tb.BorderedBandedSolver(blocks, 'cpu', refinements=2)
+    assert chunks[:3] == [2, 2, 1]
+    for key, t in whole.arrs['fac'].items():
+        if torch.is_tensor(t):
+            assert torch.equal(chunked.arrs['fac'][key], t), key
+    assert torch.equal(chunked.solve(R), whole.solve(R))
+
+
 # --- the general paths at their own indices ---
-
-def emulate_k8a(diag, sub, sup, pin_tol=1e-8):
-    """block_tridiag_qr_factor_kernel on the CPU: the step's arrays in one
-    workspace of k8_step_doubles(nb) (A, Q twice, Pn, T, Ri, beta, dg at
-    the kernel's offsets), Householder columns with LAPACK's conventions
-    applied to A's later columns and to Q, the pins, R^-1 column by column
-    bottom row up, T = Q^T Pn (Pn's upper right block skipped)."""
-    Gd, Nb, nb, _ = diag.shape
-    n2, bsz, m2 = 2 * nb, nb * nb, 4 * nb * nb
-    out = dict(Qt=np.zeros((Gd, Nb - 1, n2, n2)), QtL=np.zeros((Gd, nb, nb)),
-               Rinv=np.zeros((Gd, Nb, nb, nb)), R1=np.zeros((Gd, Nb, nb, nb)),
-               R2=np.zeros((Gd, Nb, nb, nb)), pins=np.zeros((Gd, Nb, nb), bool),
-               sigma=np.zeros((Gd, Nb, nb)))
-    for g in range(Gd):
-        ws = np.full(tb.k8_step_doubles(nb), np.nan)
-        A_ = ws[:2 * bsz].reshape(n2, nb)
-        Qa, Qb = ws[2 * bsz:2 * bsz + m2].reshape(n2, n2), ws[2 * bsz + m2:2 * bsz + 2 * m2]
-        Pn = ws[2 * bsz + 2 * m2:2 * bsz + 3 * m2].reshape(n2, n2)
-        T = ws[2 * bsz + 3 * m2:2 * bsz + 4 * m2].reshape(n2, n2)
-        Ri = ws[2 * bsz + 4 * m2:3 * bsz + 4 * m2].reshape(nb, nb)
-        beta = ws[3 * bsz + 4 * m2:3 * bsz + 4 * m2 + nb]
-        dg = ws[3 * bsz + 4 * m2 + nb:]
-        Qb = Qb.reshape(n2, n2)
-        runmax = 0.0
-
-        def qr(A, Q, m):
-            for j in range(nb):
-                x = A[j + 1:m, j]
-                ss = float(x @ x)
-                alpha = A[j, j]
-                bj = alpha
-                if ss != 0.0:
-                    bj = -np.copysign(np.sqrt(alpha * alpha + ss), alpha)
-                    tau = (bj - alpha) / bj
-                    v = np.concatenate([[1.0], x / (alpha - bj)])
-                    cols = np.concatenate([A[j:m, j + 1:], Q[j:m, :m]], axis=1)
-                    cols -= np.outer(v, tau * (v @ cols))
-                    A[j:m, j + 1:], Q[j:m, :m] = cols[:, :nb - j - 1], cols[:, nb - j - 1:]
-                    A[j + 1:m, j] = x / (alpha - bj)
-                beta[j] = bj
-
-        def pin_and_invert(i, runmax):
-            runmax = max(runmax, np.abs(beta).max())
-            p = np.abs(beta) < pin_tol * max(runmax, 1e-300)
-            out['pins'][g, i] = p
-            out['sigma'][g, i] = np.where(p, runmax - beta, 0.0)
-            dg[:] = beta + out['sigma'][g, i]
-            for c in range(nb):
-                Ri[c + 1:, c] = 0.0
-                for r in range(c, -1, -1):
-                    acc = (1.0 if r == c else 0.0) - A_[r, r + 1:c + 1] @ Ri[r + 1:c + 1, c]
-                    Ri[r, c] = acc / dg[r]
-            return runmax
-
-        A_[:nb], A_[nb:] = diag[g, 0], sub[g, 1]
-        Pn[:nb, :nb], Pn[:nb, nb:] = sup[g, 0], 0.0
-        Pn[nb:, :nb], Pn[nb:, nb:] = diag[g, 1], sup[g, 1]
-        Q, Qn = Qa, Qb
-        Q[:] = np.eye(n2)
-        for i in range(Nb - 1):
-            qr(A_, Q, n2)
-            runmax = pin_and_invert(i, runmax)
-            T[:, :nb] = Q @ Pn[:, :nb]
-            T[:, nb:] = Q[:, nb:] @ Pn[nb:, nb:]
-            out['Qt'][g, i], out['Rinv'][g, i] = Q, Ri
-            out['R1'][g, i], out['R2'][g, i] = T[:nb, :nb], T[:nb, nb:]
-            A_[:nb], Pn[:nb, :nb] = T[nb:, :nb], T[nb:, nb:]
-            if i + 2 < Nb:
-                A_[nb:], Pn[nb:, :nb], Pn[nb:, nb:] = sub[g, i + 2], diag[g, i + 2], sup[g, i + 2]
-            Q, Qn = Qn, Q
-            Q[:] = np.eye(n2)
-        Qs = Q[:nb, :nb]
-        Qs[:] = np.eye(nb)
-        qr(A_[:nb], Qs, nb)
-        pin_and_invert(Nb - 1, runmax)
-        out['QtL'][g], out['Rinv'][g, -1] = Qs, Ri
-    return out
-
 
 def test_k8a_general_emulation_against_twin():
     blocks, _ = f8_system(tb, G=1, Nb=3, nb=48, nbord=20, pad=5, seed=28)
@@ -264,40 +212,6 @@ def test_k8a_general_emulation_against_twin():
     for key in ('Rinv', 'QtL'):
         assert _rel(got[key], twin[key].numpy()) <= max(1e-11, 10 * EPS * growth), key
     assert np.array_equal(got['pins'], twin['pins'].numpy())
-
-
-def emulate_k8b(qr, Rhs, kc):
-    """multi_rhs_solve_kernel on the CPU, chunk by chunk: a chunk's block of
-    right-hand sides read at the kernel's offsets (entry o = r * w + c of
-    chunk c0 at r * k + c0 + c), each entry's sums in j order."""
-    Qt, QtL, Rinv, R1, R2 = (qr[k].numpy() for k in tb.FACTOR_KEYS)
-    Gd, Nb, nb, k = Rhs.shape
-    flat = Rhs.reshape(Gd, Nb, nb * k)
-    X = np.full(Rhs.shape, np.nan).reshape(Gd, Nb, nb * k)
-
-    def prod(M, V):                       # sum_j M[r, j] V[j, c], in j order
-        acc = np.zeros((M.shape[0], V.shape[1]))
-        for j in range(M.shape[1]):
-            acc = acc + M[:, j:j + 1] * V[j:j + 1, :]
-        return acc
-
-    for c0 in range(0, k, kc):
-        w = min(kc, k - c0)
-        at = np.array([(o // w) * k + c0 + o % w for o in range(nb * w)])
-        for g in range(Gd):
-            va = flat[g, 0, at].reshape(nb, w)
-            for i in range(Nb - 1):
-                out = prod(Qt[g, i], np.concatenate([va, flat[g, i + 1, at].reshape(nb, w)]))
-                X[g, i, at] = out[:nb].reshape(-1)
-                va = out[nb:]
-            X[g, Nb - 1, at] = prod(QtL[g], va).reshape(-1)
-            xa = xb = np.zeros((nb, w))
-            for i in range(Nb - 1, -1, -1):
-                t = (X[g, i, at].reshape(nb, w) - prod(R1[g, i], xa)) - prod(R2[g, i], xb)
-                xn = prod(Rinv[g, i], t)
-                X[g, i, at] = xn.reshape(-1)
-                xa, xb = xn, xa
-    return X.reshape(Rhs.shape)
 
 
 def test_k8b_chunks_emulation_against_twin():
